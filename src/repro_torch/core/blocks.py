@@ -1,0 +1,204 @@
+"""Deterministic block partition of a parameter tree.
+
+The port of ``repro.core.blocks``. The unit of loss, checkpoint and
+priority is a **block**: ``block_rows`` consecutive leading-dim rows of
+each leaf. A ``BlockPartition`` is the static, host-side description of
+that blocking; every runtime operation over blocks takes it as a
+parameter.
+
+Layout per leaf ``x`` of shape ``(d0, d1, ..., dn)``:
+  rows      = d0              (ndim >= 1; scalars are treated as 1 row)
+  row_width = prod(d1..dn)
+  n_blocks  = ceil(rows / block_rows)
+Blocks of a leaf are contiguous row groups; global block ids concatenate
+leaves in JAX's flatten order (:mod:`repro_torch.utils.tree`), so the two
+packages number every block the same way. Padding rows (to fill the last
+block) are zeros on both sides of any distance computation, so they never
+affect scores.
+
+The arena word-packing helpers of the reference come with the arena.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+from repro_torch.utils.tree import (TreeDef, flatten_with_path, keystr,
+                                    tree_leaves)
+
+PyTree = Any
+
+
+@dataclasses.dataclass(frozen=True)
+class LeafMeta:
+    name: str
+    shape: tuple[int, ...]
+    dtype: Any
+    rows: int
+    row_width: int
+    n_blocks: int
+    offset: int            # global block-id offset of this leaf's first block
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockPartition:
+    block_rows: int
+    leaves: tuple[LeafMeta, ...]
+    treedef: TreeDef
+
+    @property
+    def total_blocks(self) -> int:
+        # colocated leaves share offsets, so count by extent not by sum
+        return max(l.offset + l.n_blocks for l in self.leaves)
+
+    @property
+    def total_params(self) -> int:
+        return sum(int(np.prod(l.shape)) if l.shape else 1 for l in self.leaves)
+
+    def blocks_for_k(self, fraction: float) -> int:
+        """Number of blocks in a fraction-r checkpoint (ceil, >= 1)."""
+        return max(1, math.ceil(fraction * self.total_blocks))
+
+
+def partition_pytree(params: PyTree, block_rows: int = 128,
+                     colocate: tuple = ()) -> BlockPartition:
+    """Build the static block partition for ``params`` (shapes only).
+
+    ``colocate``: top-level keys whose subtrees share block ids with each
+    other (matching by the remaining path): a failed partition loses a
+    weight block and its optimizer moments together, and partial recovery
+    restores them together. E.g. state = {"net": ..., "mu": ..., "nu": ...}
+    with colocate=("net", "mu", "nu"): mu's and nu's leaves reuse net's
+    blocks.
+    """
+    flat, treedef = flatten_with_path(params)
+    leaves = []
+    offset = 0
+    canonical_offsets: dict = {}
+    for path, x in flat:
+        shape = tuple(x.shape)
+        rows = shape[0] if len(shape) >= 1 else 1
+        row_width = int(np.prod(shape[1:])) if len(shape) >= 1 else 1
+        n_blocks = max(1, math.ceil(rows / block_rows))
+        name = keystr(path)
+        leaf_offset = offset
+        if colocate and path and path[0][0] == "key" \
+                and path[0][1] in colocate:
+            canon = keystr(path[1:])
+            if canon in canonical_offsets:
+                leaf_offset, prev_blocks = canonical_offsets[canon]
+                if prev_blocks != n_blocks:
+                    raise ValueError(
+                        f"colocated leaf {name} has {n_blocks} blocks, "
+                        f"group has {prev_blocks}")
+            else:
+                canonical_offsets[canon] = (offset, n_blocks)
+                offset += n_blocks
+        else:
+            offset += n_blocks
+        leaves.append(LeafMeta(
+            name=name, shape=shape, dtype=x.dtype, rows=rows,
+            row_width=row_width, n_blocks=n_blocks, offset=leaf_offset))
+    return BlockPartition(block_rows=block_rows, leaves=tuple(leaves),
+                          treedef=treedef)
+
+
+def leaf_block_view(x: torch.Tensor, block_rows: int) -> torch.Tensor:
+    """Reshape a leaf to (n_blocks, elems_per_block), zero-padded.
+
+    Single-block leaves (rows <= block_rows) are returned unpadded as
+    (1, rows*row_width). A leaf whose rows fill its blocks exactly comes
+    back as a view; only a ragged multi-block leaf is copied (to pad it).
+    """
+    if x.dim() == 0:
+        x = x.reshape(1)
+    rows = x.shape[0]
+    row_width = int(np.prod(x.shape[1:])) if x.dim() > 1 else 1
+    flat = x.reshape(rows, row_width)
+    n_blocks = max(1, math.ceil(rows / block_rows))
+    if n_blocks == 1:
+        return flat.reshape(1, rows * row_width)
+    pad = n_blocks * block_rows - rows
+    if pad:
+        flat = torch.cat([flat, flat.new_zeros((pad, row_width))])
+    return flat.reshape(n_blocks, block_rows * row_width)
+
+
+def split_global_mask(mask: torch.Tensor,
+                      partition: BlockPartition) -> list[torch.Tensor]:
+    """Split a (total_blocks,) vector into per-leaf (n_blocks,) segments."""
+    return [mask[l.offset:l.offset + l.n_blocks] for l in partition.leaves]
+
+
+def expand_block_mask(block_mask: torch.Tensor, leaf: LeafMeta,
+                      block_rows: int) -> torch.Tensor:
+    """(n_blocks,) bool -> bool tensor broadcastable to the leaf shape.
+
+    Expands over rows then broadcasts across trailing dims.
+    """
+    row_mask = torch.repeat_interleave(block_mask, block_rows)[:leaf.rows]
+    if len(leaf.shape) == 0:
+        return row_mask[0]
+    return row_mask.reshape((leaf.rows,) + (1,) * (len(leaf.shape) - 1))
+
+
+def select_blocks(dst: PyTree, src: PyTree, global_mask: torch.Tensor,
+                  partition: BlockPartition) -> PyTree:
+    """Per-block select: where mask is True take ``src``'s block, else ``dst``.
+
+    This is the primitive behind both partial recovery (dst=live params,
+    src=checkpoint, mask=lost blocks) and the ``inplace_save=False``
+    partial save (dst=checkpoint values, src=live params, mask=selected
+    blocks). It runs as the masked_restore kernel on CUDA tensors, the
+    drop-in the JAX package documents for it, and as its plain version on
+    CPU tensors.
+    """
+    from repro_torch.kernels.masked_restore.ops import tree_masked_restore
+    return tree_masked_restore(dst, src, global_mask, partition)
+
+
+def block_scores(a: PyTree, b: PyTree, partition: BlockPartition,
+                 norm_fn: Callable[[torch.Tensor, torch.Tensor, LeafMeta],
+                                   torch.Tensor],
+                 ) -> torch.Tensor:
+    """Per-block distance scores between two trees -> (total_blocks,) f32.
+
+    ``norm_fn(a_view, b_view, leaf)`` maps two (n_blocks, block_elems) views
+    to per-block scores; see :mod:`repro_torch.core.norms`. Colocated
+    leaves (shared offsets) accumulate into the same slots.
+    """
+    a_flat = tree_leaves(a)
+    b_flat = tree_leaves(b)
+    out = torch.zeros((partition.total_blocks,), dtype=torch.float32,
+                      device=a_flat[0].device)
+    for xa, xb, leaf in zip(a_flat, b_flat, partition.leaves):
+        va = leaf_block_view(xa.to(torch.float32), partition.block_rows)
+        vb = leaf_block_view(xb.to(torch.float32), partition.block_rows)
+        s = norm_fn(va, vb, leaf).to(torch.float32)
+        out[leaf.offset:leaf.offset + leaf.n_blocks] += s
+    return out
+
+
+def masked_sq_norm(a: PyTree, b: PyTree, global_mask: torch.Tensor,
+                   partition: BlockPartition) -> torch.Tensor:
+    """||(a - b) restricted to masked blocks||^2 -- the delta' of Theorem 4.1."""
+    def sq(va, vb, leaf):
+        return torch.sum((va - vb) ** 2, dim=-1)
+    per_block = block_scores(a, b, partition, sq)
+    return torch.sum(torch.where(global_mask.to(torch.bool), per_block,
+                                 torch.zeros_like(per_block)))
+
+
+def tree_sq_norm(a: PyTree, b: PyTree) -> torch.Tensor:
+    """||a - b||^2 over the whole tree -- the delta of full recovery."""
+    total = None
+    for x, y in zip(tree_leaves(a), tree_leaves(b)):
+        d = torch.sum((x.to(torch.float32) - y.to(torch.float32)) ** 2)
+        total = d if total is None else total + d
+    if total is None:
+        return torch.zeros((), dtype=torch.float32)
+    return total

@@ -1,0 +1,72 @@
+"""Failure injection + recovery (paper §4.1, Theorems 4.1/4.2).
+
+The port of ``repro.core.recovery``. A failure destroys a subset of
+parameter blocks. Recovery replaces state from the running checkpoint:
+
+- FULL    -- traditional: all parameters reset to the checkpoint. The
+             perturbation is δ = z − x^{(T)} over the whole tree.
+- PARTIAL -- SCAR: only the lost blocks are restored; survivors keep their
+             newer values. The perturbation is δ' = (z − x^{(T)}) restricted
+             to the lost blocks, and ||δ'|| ≤ ||δ|| (Thm 4.1). On CUDA the
+             restore is the masked_restore kernel (through
+             :func:`repro_torch.core.blocks.select_blocks`).
+
+Failure masks are sampled uniformly over blocks with a CPU
+``torch.Generator``, so a run draws the same mask on every device.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+from repro_torch.core.blocks import (BlockPartition, masked_sq_norm,
+                                     select_blocks, tree_sq_norm)
+from repro_torch.core.checkpoint import RunningCheckpoint, clone_tree
+from repro_torch.core.policy import RecoveryMode
+
+PyTree = Any
+
+
+def sample_failure_mask(rng: torch.Generator, partition: BlockPartition,
+                        fraction: float,
+                        device: torch.device | str = "cpu") -> torch.Tensor:
+    """Lose a fraction ``p`` of blocks chosen uniformly at random (Thm 4.2)."""
+    total = partition.total_blocks
+    k = max(1, round(fraction * total))
+    idx = torch.randperm(total, generator=rng)[:min(k, total)]
+    mask = torch.zeros((total,), dtype=torch.bool)
+    mask[idx] = True
+    return mask.to(device)
+
+
+def recover(params: PyTree, ckpt: RunningCheckpoint, lost_mask: torch.Tensor,
+            mode: RecoveryMode, partition: BlockPartition) -> PyTree:
+    """Apply checkpoint recovery after ``lost_mask`` blocks were destroyed."""
+    if mode == RecoveryMode.FULL:
+        return clone_tree(ckpt.values)
+    return select_blocks(params, ckpt.values, lost_mask, partition)
+
+
+def perturbation_norms(params: PyTree, ckpt: RunningCheckpoint,
+                       lost_mask: torch.Tensor, partition: BlockPartition,
+                       ) -> dict[str, torch.Tensor]:
+    """||δ||² (full recovery) and ||δ'||² (partial) for this failure."""
+    full_sq = tree_sq_norm(ckpt.values, params)
+    part_sq = masked_sq_norm(ckpt.values, params, lost_mask, partition)
+    return {"full_sq": full_sq, "partial_sq": part_sq}
+
+
+def apply_failure_and_recover(params: PyTree, ckpt: RunningCheckpoint,
+                              lost_mask: torch.Tensor, mode: RecoveryMode,
+                              partition: BlockPartition,
+                              ) -> tuple[PyTree, dict[str, torch.Tensor]]:
+    """Simulate the failure + recovery transition in one step.
+
+    Returns the post-recovery params and the perturbation diagnostics.
+    """
+    info = perturbation_norms(params, ckpt, lost_mask, partition)
+    recovered = recover(params, ckpt, lost_mask, mode, partition)
+    info["applied_sq"] = tree_sq_norm(recovered, params)
+    info["lost_blocks"] = torch.sum(lost_mask.to(torch.int64))
+    return recovered, info

@@ -1,0 +1,60 @@
+"""Synthetic datasets for the classic models (paper §5.1 stand-ins).
+
+The numpy generators of ``repro.data.synthetic`` that the classic models
+use, copied so that the port imports nothing of the JAX package. Given the
+same ``np.random.Generator`` they produce byte-identical data.
+"""
+from __future__ import annotations
+
+import numpy as np
+
+
+def classification_data(rng: np.random.Generator, n: int = 2000, dim: int = 784,
+                        n_classes: int = 10, sep: float = 2.0):
+    """Gaussian-cluster classification (MNIST/CoverType stand-in)."""
+    centers = rng.normal(0, sep, (n_classes, dim))
+    y = rng.integers(0, n_classes, n)
+    x = centers[y] + rng.normal(0, 1.0, (n, dim))
+    return x.astype(np.float32), y.astype(np.int32)
+
+
+def ratings_matrix(rng: np.random.Generator, m: int = 600, n: int = 900,
+                   rank: int = 5, noise: float = 0.05, density: float = 0.1):
+    """Low-rank ratings (MovieLens/Jester stand-in). Returns (R, mask)."""
+    L = rng.normal(0, 1.0, (m, rank))
+    R = rng.normal(0, 1.0, (rank, n))
+    full = L @ R + noise * rng.normal(0, 1.0, (m, n))
+    mask = rng.random((m, n)) < density
+    return (full * mask).astype(np.float32), mask.astype(np.float32)
+
+
+def lda_corpus(rng: np.random.Generator, n_docs: int = 200, vocab: int = 500,
+               n_topics: int = 10, doc_len_mean: int = 80):
+    """Documents sampled from the LDA generative model (20news stand-in).
+
+    Returns (tokens (n_docs, max_len) int32 padded with -1, doc_lens).
+    """
+    alpha, beta = 0.5, 0.1
+    topic_word = rng.dirichlet([beta] * vocab, n_topics)
+    doc_lens = np.maximum(10, rng.poisson(doc_len_mean, n_docs))
+    max_len = int(doc_lens.max())
+    tokens = np.full((n_docs, max_len), -1, np.int32)
+    for d in range(n_docs):
+        theta = rng.dirichlet([alpha] * n_topics)
+        zs = rng.choice(n_topics, doc_lens[d], p=theta)
+        for i, z in enumerate(zs):
+            tokens[d, i] = rng.choice(vocab, p=topic_word[z])
+    return tokens, doc_lens.astype(np.int32)
+
+
+def image_batch(rng: np.random.Generator, n: int = 512, size: int = 28,
+                n_classes: int = 10):
+    """Class-dependent structured images (MNIST stand-in for the CNN)."""
+    y = rng.integers(0, n_classes, n)
+    x = rng.normal(0, 0.3, (n, size, size, 1)).astype(np.float32)
+    xs = np.linspace(-1, 1, size)
+    xx, yy = np.meshgrid(xs, xs)
+    for c in range(n_classes):
+        pat = np.sin((c + 1) * np.pi * xx) * np.cos((c + 1) * np.pi * yy)
+        x[y == c] += pat[None, :, :, None].astype(np.float32)
+    return x, y.astype(np.int32)

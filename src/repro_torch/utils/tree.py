@@ -1,0 +1,96 @@
+"""Parameter trees: nested dicts, lists and tuples of tensors.
+
+Flattening follows JAX's order exactly, because global block ids are
+numbered along it (``core/blocks.py``) and the scaled-TV norm's aux data is
+keyed by leaf name:
+
+- dict keys are visited in sorted order, whatever order they were inserted
+  in (``torch.utils._pytree`` keeps insertion order and would renumber
+  every block);
+- lists and tuples are visited in index order;
+- ``None`` is an empty subtree with no leaves;
+- anything else is a leaf.
+
+Leaf names use ``jax.tree_util.keystr`` form, e.g. ``"['net']['fc1']"``
+or ``"['layers'][3]['q']"``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+PyTree = Any
+
+
+@dataclasses.dataclass(frozen=True)
+class TreeDef:
+    kind: str                       # "dict" | "list" | "tuple" | "none" | "leaf"
+    keys: tuple = ()                # sorted dict keys (dict nodes only)
+    children: tuple = ()            # child TreeDefs, in flatten order
+
+
+def keystr(path: tuple) -> str:
+    """The ``jax.tree_util.keystr`` form of a path, whose entries are
+    ``("key", dict_key)`` or ``("idx", sequence_index)``."""
+    return "".join(f"[{k!r}]" if kind == "key" else f"[{k}]"
+                   for kind, k in path)
+
+
+def flatten_with_path(tree: PyTree) -> tuple[list[tuple[tuple, Any]], TreeDef]:
+    """``[(path, leaf)]`` in JAX's flatten order, plus the tree's structure."""
+    out: list[tuple[tuple, Any]] = []
+
+    def walk(node, path) -> TreeDef:
+        if isinstance(node, dict):
+            keys = tuple(sorted(node))
+            kids = tuple(walk(node[k], path + (("key", k),)) for k in keys)
+            return TreeDef("dict", keys, kids)
+        if isinstance(node, (list, tuple)):
+            kids = tuple(walk(x, path + (("idx", i),))
+                         for i, x in enumerate(node))
+            return TreeDef("list" if isinstance(node, list) else "tuple",
+                           (), kids)
+        if node is None:
+            return TreeDef("none")
+        out.append((path, node))
+        return TreeDef("leaf")
+
+    treedef = walk(tree, ())
+    return out, treedef
+
+
+def tree_flatten(tree: PyTree) -> tuple[list, TreeDef]:
+    flat, treedef = flatten_with_path(tree)
+    return [x for _, x in flat], treedef
+
+
+def tree_leaves(tree: PyTree) -> list:
+    return tree_flatten(tree)[0]
+
+
+def tree_unflatten(treedef: TreeDef, leaves) -> PyTree:
+    it = iter(leaves)
+
+    def build(td: TreeDef):
+        if td.kind == "leaf":
+            return next(it)
+        if td.kind == "none":
+            return None
+        kids = [build(c) for c in td.children]
+        if td.kind == "dict":
+            return dict(zip(td.keys, kids))
+        return kids if td.kind == "list" else tuple(kids)
+
+    out = build(treedef)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the tree structure holds")
+    return out
+
+
+def tree_map(fn: Callable, tree: PyTree, *rest: PyTree) -> PyTree:
+    leaves, treedef = tree_flatten(tree)
+    others = [tree_flatten(r)[0] for r in rest]
+    for o in others:
+        if len(o) != len(leaves):
+            raise ValueError("trees have different numbers of leaves")
+    return tree_unflatten(treedef, [fn(*xs) for xs in zip(leaves, *others)])
