@@ -18,12 +18,15 @@ Phases, each of which fails the run if it fails:
    ``run_clean``, ``run_with_failure`` with ``CheckpointPolicy.scar()``
    and ``CheckpointPolicy.traditional()``, the Theorem 3.2 bound as the
    quickstart computes it, and the same SCAR run on the CPU to hold the
-   card's losses and iteration cost against.
+   card's losses and iteration cost against. Then every kernel against
+   its plain version at the MLR leaves' own shapes (a ragged two-block
+   ``w``, a one-block ``b`` shorter than a block).
 4. The controller at full size: ``FTController`` on the 1.54 B tree, drift
    steps with PRIORITY 1/8 partial saves, a failure of half the blocks,
    PARTIAL recovery held bit for bit against the plain restore.
-5. Launch counts of phases 3-4 (counts set to 0 just before phase 3): every
-   kernel must have launched.
+5. Launch counts, one set per path: the counts are set to 0 just before
+   the MLR loops and read just after them, and again around the
+   controller. Every kernel must have launched in each path.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
@@ -231,29 +234,38 @@ def phase_kernels(a_tree, b_tree, device) -> dict:
         host_us=host_us(lambda: block_dist_cuda(sa, sb)),
         plain_host_us=host_us(lambda: block_dist_ref(sa, sb)))
 
-    # masked_restore: bit-exact; torch.where is the one-call yardstick
-    for (dv, sv), m in zip(views, masks):
-        check(torch.equal(masked_restore_cuda(dv, sv, m),
-                          masked_restore_ref(dv, sv, m)),
+    # masked_restore on the raw (R, W) rows, as the main path calls it:
+    # bit-exact. Every leaf of this tree fills its blocks, so its block
+    # view is a view, and torch.where on it is the one-call yardstick.
+    for (dv, sv), m in zip(rows2d, masks):
+        check(torch.equal(masked_restore_cuda(dv, sv, m, BLOCK_ROWS),
+                          masked_restore_ref(dv, sv, m, BLOCK_ROWS)),
               "masked_restore differs from its plain version")
+    check(all(va.data_ptr() == x.data_ptr() for (va, _), x
+              in zip(views, a_leaves)), "a block view is a padded copy")
     t = in_turns({
-        "plain": lambda: [masked_restore_ref(dv, sv, m)
-                          for (dv, sv), m in zip(views, masks)],
-        "kernel": lambda: [masked_restore_cuda(dv, sv, m)
-                           for (dv, sv), m in zip(views, masks)],
+        "plain": lambda: [masked_restore_ref(dv, sv, m, BLOCK_ROWS)
+                          for (dv, sv), m in zip(rows2d, masks)],
+        "kernel": lambda: [masked_restore_cuda(dv, sv, m, BLOCK_ROWS)
+                           for (dv, sv), m in zip(rows2d, masks)],
         "library": lambda: [torch.where(m[:, None], sv, dv)
                             for (dv, sv), m in zip(views, masks)]})
     b, by = bound_ms(2 * 4 * n_values + part.total_blocks)
     results["masked_restore"] = dict(max_abs_err=0.0, ms=t["kernel"],
                                      plain_ms=t["plain"], bound_ms=b,
                                      bound_by=by, library_ms=t["library"])
+    (ra, rb), (rsa, rsb) = rows2d[big], rows2d[small]
     bm, sm = masks[big], masks[small]
     results["masked_restore"].update(
-        leaf_ms=device_ms(lambda: masked_restore_cuda(ba, bb, bm)),
-        leaf_plain_ms=device_ms(lambda: masked_restore_ref(ba, bb, bm)),
-        leaf_bound_ms=bound_ms(8 * ba.numel() + ba.shape[0])[0],
-        host_us=host_us(lambda: masked_restore_cuda(sa, sb, sm)),
-        plain_host_us=host_us(lambda: masked_restore_ref(sa, sb, sm)))
+        leaf_ms=device_ms(lambda: masked_restore_cuda(ra, rb, bm,
+                                                      BLOCK_ROWS)),
+        leaf_plain_ms=device_ms(lambda: masked_restore_ref(ra, rb, bm,
+                                                           BLOCK_ROWS)),
+        leaf_bound_ms=bound_ms(8 * ra.numel() + bm.numel())[0],
+        host_us=host_us(lambda: masked_restore_cuda(rsa, rsb, sm,
+                                                    BLOCK_ROWS)),
+        plain_host_us=host_us(lambda: masked_restore_ref(rsa, rsb, sm,
+                                                         BLOCK_ROWS)))
 
     # scatter_save: bit-exact on copies, then timed in place into b (the
     # same ids each run, so every run writes the same bytes)
@@ -373,13 +385,58 @@ def check_mlr_against_cpu(gpu: dict) -> None:
         f"agree with the card within rtol 1e-4")
 
 
+def check_kernels_on_mlr(model, device) -> None:
+    """Each kernel against its plain version at the shapes the MLR path
+    hands it: the block views ``block_scores`` makes and the raw (R, W)
+    rows the save and the restore take, at the SCAR policy's block_rows.
+    Seeded random values (the model's init is all zeros)."""
+    import torch
+    from repro_torch.core.blocks import leaf_block_view, partition_pytree
+    from repro_torch.core.policy import CheckpointPolicy
+    from repro_torch.kernels.block_dist.kernel import block_dist_cuda
+    from repro_torch.kernels.block_dist.ref import block_dist_ref
+    from repro_torch.kernels.fused_maintain.kernel import scatter_save_cuda
+    from repro_torch.kernels.fused_maintain.ref import scatter_save_ref
+    from repro_torch.kernels.masked_restore.kernel import masked_restore_cuda
+    from repro_torch.kernels.masked_restore.ref import masked_restore_ref
+    from repro_torch.utils.tree import tree_leaves
+
+    br = CheckpointPolicy.scar().block_rows
+    shapes = model.init(torch.Generator().manual_seed(1))
+    part = partition_pytree(shapes, br)
+    gen = torch.Generator(device=device).manual_seed(SEED + 3)
+    seen = []
+    for x, leaf in zip(tree_leaves(shapes), part.leaves):
+        a = torch.randn(x.shape, generator=gen, device=device)
+        b = torch.randn(x.shape, generator=gen, device=device)
+        va, vb = leaf_block_view(a, br), leaf_block_view(b, br)
+        got, want = block_dist_cuda(va, vb), block_dist_ref(va, vb)
+        check(bool(torch.all((got - want).abs() <= 1e-4 * want.abs())),
+              f"block_dist off at {leaf.name} {tuple(va.shape)}")
+        a2 = a.reshape(leaf.rows, leaf.row_width)
+        b2 = b.reshape(leaf.rows, leaf.row_width)
+        last = leaf.n_blocks - 1
+        ids = torch.tensor([last, 0, last], dtype=torch.int32, device=device)
+        check(torch.equal(scatter_save_cuda(b2.clone(), a2, ids, br),
+                          scatter_save_ref(b2.clone(), a2, ids, br)),
+              f"scatter_save differs at {leaf.name}")
+        alt = torch.arange(leaf.n_blocks, device=device) % 2 == 1
+        for m in (alt, ~alt):
+            check(torch.equal(masked_restore_cuda(b2, a2, m, br),
+                              masked_restore_ref(b2, a2, m, br)),
+                  f"masked_restore differs at {leaf.name}")
+        seen.append(f"{leaf.name} rows {tuple(a2.shape)} view "
+                    f"{tuple(va.shape)}")
+    log(f"kernels agree with their plain versions on the MLR leaves "
+        f"(block_rows {br}): {'; '.join(seen)}")
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the controller at full size
 # ---------------------------------------------------------------------------
 
 def phase_controller(tree, device) -> dict:
     import torch
-    from repro_torch.core.blocks import leaf_block_view
     from repro_torch.core.controller import FTController
     from repro_torch.core.policy import CheckpointPolicy
     from repro_torch.kernels.masked_restore.ref import masked_restore_ref
@@ -412,9 +469,9 @@ def phase_controller(tree, device) -> dict:
     masks = [lost[l.offset:l.offset + l.n_blocks] for l in part.leaves]
     for x, z, r, m, leaf in zip(tree_leaves(tree), tree_leaves(ctl.ckpt.values),
                                 tree_leaves(recovered), masks, part.leaves):
-        want = masked_restore_ref(leaf_block_view(x, part.block_rows),
-                                  leaf_block_view(z, part.block_rows), m)
-        want = want.reshape(-1, max(leaf.row_width, 1))[:leaf.rows]
+        shape2d = (leaf.rows, leaf.row_width)
+        want = masked_restore_ref(x.reshape(shape2d), z.reshape(shape2d), m,
+                                  part.block_rows)
         check(torch.equal(r, want.reshape(leaf.shape)),
               f"recovered {leaf.name} differs from the plain restore")
     check(info["applied_sq"] <= info["full_sq"] and info["applied_sq"] > 0,
@@ -462,14 +519,21 @@ def main() -> int:
     log(f"peak device memory after phase 2: "
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
 
+    # each path's own launch counts: set to 0 just before it, read just
+    # after it; the kernel-against-plain checks run outside both windows
     _build.reset_launches()
     mlr = phase_mlr(device)
-    ctl = phase_controller(a_tree, device)
     launches = dict(_build.LAUNCHES)
     check_mlr_against_cpu(mlr)
-    log(json.dumps({"launches": launches}))
-    for name, n in launches.items():
-        check(n > 0, f"{name} was not launched on the main path")
+    check_kernels_on_mlr(mlr["model"], device)
+    _build.reset_launches()
+    ctl = phase_controller(a_tree, device)
+    ctl_launches = dict(_build.LAUNCHES)
+    log(json.dumps({"launches": {"mlr": launches,
+                                 "controller": ctl_launches}}))
+    for path, counts in (("MLR", launches), ("controller", ctl_launches)):
+        for name, n in counts.items():
+            check(n > 0, f"{name} was not launched on the {path} path")
     log(f"peak device memory: {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
 
     sources = {"block_dist": ("src/repro_torch/csrc/block_dist.cu",

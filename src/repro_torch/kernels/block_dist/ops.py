@@ -12,10 +12,9 @@ from typing import Any
 
 import torch
 
-from repro_torch.core.blocks import BlockPartition, leaf_block_view
+from repro_torch.core.blocks import BlockPartition, block_scores
 from repro_torch.kernels.block_dist.kernel import block_dist_cuda
 from repro_torch.kernels.block_dist.ref import block_dist_ref
-from repro_torch.utils.tree import tree_leaves
 
 PyTree = Any
 
@@ -31,17 +30,10 @@ def block_dist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def tree_block_scores(params: PyTree, ckpt_values: PyTree,
                       partition: BlockPartition) -> torch.Tensor:
-    """Per-block squared distances over a whole tree -> (total_blocks,)."""
-    a_flat = tree_leaves(params)
-    b_flat = tree_leaves(ckpt_values)
-    out = torch.zeros((partition.total_blocks,), dtype=torch.float32,
-                      device=a_flat[0].device)
-    br = partition.block_rows
-    for xa, xb, leaf in zip(a_flat, b_flat, partition.leaves):
-        va = leaf_block_view(xa.to(torch.float32), br)
-        vb = leaf_block_view(xb.to(torch.float32), br)
-        out[leaf.offset:leaf.offset + leaf.n_blocks] += block_dist(va, vb)
-    return out
+    """Per-block squared distances over a whole tree -> (total_blocks,):
+    ``block_scores`` under the l2 norm, which is this kernel."""
+    from repro_torch.core.norms import get_norm
+    return block_scores(params, ckpt_values, partition, get_norm("l2"))
 
 
 def make_score_fn(partition: BlockPartition):

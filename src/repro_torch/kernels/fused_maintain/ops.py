@@ -56,8 +56,7 @@ def tree_scatter_save(dst: PyTree, src: PyTree, global_idx,
         if not d.is_contiguous():
             raise ValueError(f"checkpoint leaf {leaf.name} is not "
                              f"contiguous; an in-place save needs it so")
-        rows = max(leaf.rows, 1)
-        width = max(leaf.row_width, 1)
+        rows, width = leaf.rows, leaf.row_width
         d2 = d.view(rows, width)
         s2 = s.to(d.dtype).reshape(rows, width).contiguous()
         scatter_save(d2, s2, torch.from_numpy(sel).to(d.device), br)

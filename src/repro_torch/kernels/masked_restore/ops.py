@@ -3,7 +3,8 @@
 ``tree_masked_restore`` is :func:`repro_torch.core.blocks.select_blocks`
 (dst = live params, src = checkpoint, mask = lost blocks for PARTIAL
 recovery; dst = checkpoint, src = params, mask = saved blocks for the
-``inplace_save=False`` save).
+``inplace_save=False`` save). Each leaf goes to the kernel as its raw
+(R, W) row matrix, unpadded, as ``tree_scatter_save`` does.
 """
 from __future__ import annotations
 
@@ -11,8 +12,7 @@ from typing import Any
 
 import torch
 
-from repro_torch.core.blocks import (BlockPartition, leaf_block_view,
-                                     split_global_mask)
+from repro_torch.core.blocks import BlockPartition, split_global_mask
 from repro_torch.kernels.masked_restore.kernel import masked_restore_cuda
 from repro_torch.kernels.masked_restore.ref import masked_restore_ref
 from repro_torch.utils.tree import tree_flatten, tree_leaves, tree_unflatten
@@ -20,14 +20,14 @@ from repro_torch.utils.tree import tree_flatten, tree_leaves, tree_unflatten
 PyTree = Any
 
 
-def masked_restore(dst: torch.Tensor, src: torch.Tensor,
-                   mask: torch.Tensor) -> torch.Tensor:
-    """(n_blocks, E) select by block: the plain version for CPU tensors,
-    the CUDA kernel otherwise."""
+def masked_restore(dst: torch.Tensor, src: torch.Tensor, mask: torch.Tensor,
+                   block_rows: int = 1) -> torch.Tensor:
+    """(R, W) select by block of ``block_rows`` rows: the plain version for
+    CPU tensors, the CUDA kernel otherwise."""
     if dst.device.type == "cpu":
-        return masked_restore_ref(dst, src, mask)
+        return masked_restore_ref(dst, src, mask, block_rows)
     return masked_restore_cuda(dst.contiguous(), src.contiguous(),
-                               mask.contiguous())
+                               mask.contiguous(), block_rows)
 
 
 def tree_masked_restore(dst: PyTree, src: PyTree, global_mask: torch.Tensor,
@@ -39,10 +39,9 @@ def tree_masked_restore(dst: PyTree, src: PyTree, global_mask: torch.Tensor,
     masks = split_global_mask(global_mask.to(torch.bool), partition)
     out = []
     for d, s, m, leaf in zip(dst_flat, src_flat, masks, partition.leaves):
-        dv = leaf_block_view(d, partition.block_rows)
-        sv = leaf_block_view(s.to(d.dtype), partition.block_rows)
-        rv = masked_restore(dv, sv, m)
-        rows = max(leaf.rows, 1)
-        flat = rv.reshape(-1, max(leaf.row_width, 1))[:rows]
-        out.append(flat.reshape(leaf.shape))
+        shape2d = (leaf.rows, leaf.row_width)
+        r = masked_restore(d.reshape(shape2d),
+                           s.to(d.dtype).reshape(shape2d), m,
+                           partition.block_rows)
+        out.append(r.reshape(leaf.shape))
     return tree_unflatten(treedef, out)

@@ -112,7 +112,6 @@ def run_with_failure(model: IterativeModel, policy: CheckpointPolicy, *,
                      max_iters: int = 400, seed: int = 0,
                      clean_losses: Optional[list] = None,
                      store=None, fabric=None,
-                     fail_domain: str = "uniform",
                      recorder=None, device: DeviceLike = None) -> dict:
     """The SCAR lifecycle on one classic model (Figures 7/8), fabric-less.
 
@@ -120,8 +119,6 @@ def run_with_failure(model: IterativeModel, policy: CheckpointPolicy, *,
     random (the paper's model); recovery follows ``policy.recovery`` from
     the running checkpoint.
     """
-    if fail_domain != "uniform":
-        raise ValueError("correlated fail_domain needs a fabric")
     dev = _run_device(model, device)
     rec = recorder if recorder is not None else NULL_RECORDER
     p = model.init(torch.Generator().manual_seed(1))
@@ -138,7 +135,7 @@ def run_with_failure(model: IterativeModel, policy: CheckpointPolicy, *,
         ctl.maybe_checkpoint(i, p)
         maint_seconds += time.perf_counter() - t0
         if i == fail_iter:
-            with rec.span("recovery", step=i, domain=fail_domain):
+            with rec.span("recovery", step=i):
                 lost = ctl.sample_failure(fail_fraction)
                 p, recovery_info = ctl.on_failure(p, lost, step=i)
         losses.append(float(model.loss(p)))

@@ -116,6 +116,33 @@ def test_masked_restore_matches_pallas(dtype, mask_kind, n_blocks, elems):
     np.testing.assert_array_equal(got, want)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int32"])
+@pytest.mark.parametrize("rows,width,block_rows", [
+    (196, 10, 128),                   # MLR's w at the default block_rows
+    (10, 1, 128),                     # MLR's b: one block, shorter than it
+    (61, 24, 8),                      # ragged last block
+    (64, 3, 16),                      # whole blocks
+])
+def test_masked_restore_rows_matches_pallas(dtype, rows, width, block_rows):
+    # The port restores a leaf's raw (R, W) rows by blocks of block_rows;
+    # the reference runs the Pallas kernel on the zero-padded
+    # (n_blocks, E) view and cuts the padding off.
+    rng = np.random.default_rng(rows * width + block_rows)
+    dst = _values(rng, (rows, width), dtype)
+    src = _values(rng, (rows, width), dtype)
+    n_blocks = -(-rows // block_rows)
+    mask = rng.random(n_blocks) < 0.5
+    mask[-1] = True
+    view = lambda x: jblocks.leaf_block_view(jnp.asarray(x), block_rows)
+    want = masked_restore_pallas(view(dst), view(src), jnp.asarray(mask),
+                                 interpret=True)
+    want = np.asarray(want).reshape(-1, width)[:rows]
+    got = to_numpy_tree(masked_restore(_t(dst), _t(src),
+                                       torch.from_numpy(mask), block_rows))
+    assert got.dtype == want.dtype
+    np.testing.assert_array_equal(got.view(np.uint8), want.view(np.uint8))
+
+
 # -- tree-level wrappers -------------------------------------------------------
 
 def _tree(rng):

@@ -65,14 +65,20 @@ def test_scatter_save_cuda_matches_plain(cuda, dtype, rows, width, block_rows):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.int32, torch.uint8, torch.float64])
-@pytest.mark.parametrize("n_blocks,elems", [(12, 196608), (11, 301), (1, 3)])
-def test_masked_restore_cuda_matches_plain(cuda, dtype, n_blocks, elems):
+@pytest.mark.parametrize("rows,width,block_rows", [
+    (12, 196608, 1), (11, 301, 1), (1, 3, 1),       # (n_blocks, E) form
+    (196, 10, 128), (10, 1, 128), (61, 24, 8), (1536, 256, 128)])
+def test_masked_restore_cuda_matches_plain(cuda, dtype, rows, width,
+                                           block_rows):
     g = torch.Generator(device=cuda).manual_seed(2)
-    dst = torch.randint(0, 255, (n_blocks, elems), generator=g,
+    dst = torch.randint(0, 255, (rows, width), generator=g,
                         device=cuda).to(dtype)
-    src = torch.randint(0, 255, (n_blocks, elems), generator=g,
+    src = torch.randint(0, 255, (rows, width), generator=g,
                         device=cuda).to(dtype)
+    n_blocks = -(-rows // block_rows)
     mask = torch.rand((n_blocks,), generator=g, device=cuda) < 0.5
-    got = masked_restore_cuda(dst, src, mask)
+    mask[-1] = True                      # the ragged last block from src
+    got = masked_restore_cuda(dst, src, mask, block_rows)
     torch.cuda.synchronize()
-    assert torch.equal(got, masked_restore_ref(dst, src, mask))
+    want = masked_restore_ref(dst, src, mask, block_rows)
+    assert torch.equal(got.view(torch.uint8), want.view(torch.uint8))
