@@ -14,19 +14,37 @@ Phases, each of which fails the run if it fails:
    masked_restore bit-exact. Whole-tree times from CUDA events (median of
    7, plain and kernel in turns), beside the least time the card could
    take (bytes over 3.35 TB/s; operations over 67 TFLOP/s f32).
-3. The main path: ``make_model("mlr")`` at its defaults on ``cuda``;
-   ``run_clean``, ``run_with_failure`` with ``CheckpointPolicy.scar()``
-   and ``CheckpointPolicy.traditional()``, the Theorem 3.2 bound as the
-   quickstart computes it, and the same SCAR run on the CPU to hold the
-   card's losses and iteration cost against. Then every kernel against
-   its plain version at the MLR leaves' own shapes (a ragged two-block
-   ``w``, a one-block ``b`` shorter than a block).
-4. The controller at full size: ``FTController`` on the 1.54 B tree, drift
-   steps with PRIORITY 1/8 partial saves, a failure of half the blocks,
-   PARTIAL recovery held bit for bit against the plain restore.
-5. Launch counts, one set per path: the counts are set to 0 just before
-   the MLR loops and read just after them, and again around the
-   controller. Every kernel must have launched in each path.
+3. The arena kernels at full size: the same tree packed into the flat
+   word arena (1,544,728,576 words) with ``FabricConfig()``'s parity
+   striping. arena_maintain (parity bit-exact, scores within rtol 1e-4),
+   arena_scatter (a seeded 1/8 of the blocks, bit-exact) and parity_xor
+   (the whole-arena encode, bit-exact and equal to the sweep's parity),
+   timed as in phase 2.
+4. The fabric-less path: ``make_model("mlr")`` at its defaults on
+   ``cuda``; ``run_clean``, ``run_with_failure`` with
+   ``CheckpointPolicy.scar()`` and ``CheckpointPolicy.traditional()``, the
+   Theorem 3.2 bound as the quickstart computes it, and the same SCAR run
+   on the CPU to hold the card's losses and iteration cost against. Then
+   every kernel against its plain version at the MLR leaves' own shapes.
+5. The quickstart path (``examples/quickstart.py`` steps 1-2): MLR with
+   n=600, dim=64, 5 classes, batch 200, ``run_with_failure`` with
+   ``CheckpointPolicy.scar(0.25, 32)`` and ``fabric=FabricConfig()``, held
+   against the same run on the CPU (tier counts, iteration cost and
+   ``maintain_bytes_moved`` equal, ``applied_sq`` and losses within rtol
+   1e-4); then the arena kernels against their plain versions on its
+   arenas.
+6. The controller at full size, fabric-less: drift steps with PRIORITY 1/8
+   partial saves, a failure of half the blocks, PARTIAL recovery held bit
+   for bit against the plain restore.
+7. The fabric at full size: ``FTController(..., fabric=FabricConfig())`` on
+   the 1.54 B tree, drift steps each with a maintain and a partial save,
+   then the loss of block 0's primary and replica homes: blocks go to the
+   PARITY tier, and the PARITY and PEER_REPLICA blocks come back as their
+   live values, bit for bit. Peak device memory is reported.
+8. Launch counts, one set per path: the counts are set to 0 just before
+   each of the MLR loops, the quickstart path, the controller and the
+   fabric phase, and read just after it. Each path's kernels must have
+   launched in it.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
@@ -158,6 +176,25 @@ def device_share(fn) -> dict:
     return {"wall_s": wall, "device_s": device_s,
             "busy_share": device_s / wall if wall > 0 else None,
             "top_device_ms": [[k[:60], us / 1e3] for k, us in top]}
+
+
+def host_profile(fn, top: int = 12) -> list:
+    """Run ``fn`` once under cProfile: the ``top`` functions of this repo by
+    cumulative seconds (the host's share of a call that waits on the card
+    only where it synchronizes)."""
+    import cProfile
+    import pstats
+    import torch
+    prof = cProfile.Profile()
+    prof.enable()
+    fn()
+    torch.cuda.synchronize()
+    prof.disable()
+    rows = [(f"{Path(file).name}:{line}({name})", st[3])
+            for (file, line, name), st in pstats.Stats(prof).stats.items()
+            if "repro_torch" in file]
+    return [[k, round(s, 4)] for k, s in sorted(rows, key=lambda r: -r[1])
+            [:top]]
 
 
 def bound_ms(n_bytes: float, n_flops: float = 0.0) -> tuple[float, str]:
@@ -311,7 +348,119 @@ def phase_kernels(a_tree, b_tree, device) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 3: the main path -- the fabric-less SCAR loop on MLR
+# phase 3: the arena kernels against their plain versions at full size
+# ---------------------------------------------------------------------------
+
+def phase_arena_kernels(a_tree, b_tree, device) -> dict:
+    """The tree packed into the flat arena (the live arena from ``a``, the
+    checkpoint arena from ``b``), with the fabric's default striping."""
+    import numpy as np
+    import torch
+    from repro_torch.core.arena import pack_arena
+    from repro_torch.core.blocks import partition_pytree
+    from repro_torch.fabric import CheckpointFabric, FabricConfig
+    from repro_torch.kernels.fused_maintain.kernel import (arena_maintain_cuda,
+                                                           arena_scatter_cuda)
+    from repro_torch.kernels.fused_maintain.ops import (save_ranges,
+                                                        scatter_plan)
+    from repro_torch.kernels.fused_maintain.ref import (arena_maintain_ref,
+                                                        arena_scatter_ref)
+    from repro_torch.kernels.parity_xor.kernel import parity_xor_cuda
+    from repro_torch.kernels.parity_xor.ops import encode_plan
+    from repro_torch.kernels.parity_xor.ref import parity_xor_ref
+
+    part = partition_pytree(a_tree, BLOCK_ROWS)
+    fab = CheckpointFabric(part, FabricConfig())
+    lay, codec = fab.arena_layout, fab.parity
+    prog = fab._arena_maintain_fn()
+    fe = codec.layout.frame_elems
+    log(f"arena: {lay.total_words} words ({lay.nbytes / 1e9:.3f} GB) in "
+        f"{lay.n_tiles} tiles, tail {lay.has_tail}; {codec.n_groups} parity "
+        f"groups of <= {codec.members.shape[1]}, frame {fe} words, parity "
+        f"{codec.n_groups * fe * 4 / 1e9:.3f} GB")
+    check(lay.total_words == 1_544_728_576 and not lay.has_tail
+          and fe == 1_146_880, "unexpected arena layout at full size")
+    x, z = pack_arena(a_tree, lay), pack_arena(b_tree, lay)
+    t = prog.plan.on(device)
+    n_par = codec.n_groups * fe
+    results = {}
+
+    # arena_maintain: parity bit-exact, scores within rtol 1e-4
+    par_k = prog.parity_buffer(device).view(-1)
+    got = arena_maintain_cuda(x, z, t, par_k, None)
+    par_p = torch.zeros((n_par,), dtype=torch.int32, device=device)
+    want = arena_maintain_ref(x, z, t, par_p, None)
+    check(torch.equal(par_k, par_p), "arena_maintain parity differs")
+    rel = ((got - want).abs() / want.abs().clamp_min(1e-30)).max()
+    check(float(rel) <= 1e-4, f"arena_maintain scores off by rtol {float(rel)}")
+    check(torch.equal(got, arena_maintain_cuda(x, z, t, par_k, None)),
+          "arena_maintain scores differ between two runs")
+    err = float((got - want).abs().max())
+    del par_p
+    tm = in_turns({
+        "plain": lambda: arena_maintain_ref(x, z, t, par_k, None),
+        "kernel": lambda: arena_maintain_cuda(x, z, t, par_k, None)})
+    n_dest = int(t["dest_tile"].numel())
+    b, by = bound_ms(2 * lay.nbytes + n_dest * 4096 + 4 * part.total_blocks,
+                     3 * lay.total_words)
+    results["arena_maintain"] = dict(
+        max_abs_err=err, ms=tm["kernel"], plain_ms=tm["plain"], bound_ms=b,
+        bound_by=by, library_ms=None, dest_tiles=n_dest,
+        library_note="no one PyTorch call folds XOR parity and per-block "
+                     "squared distances")
+
+    # arena_scatter: a seeded 1/8 of the blocks, bit-exact, into copies
+    rng = np.random.default_rng(SEED + 4)
+    ids = rng.choice(part.total_blocks, size=part.total_blocks // 8,
+                     replace=False)
+    off, length = save_ranges(lay, ids)
+    moved = lay.seg_bytes_for_blocks(ids)
+    check(moved == 4 * int(length.sum()), "the save's ranges are not the "
+          "bytes seg_bytes_for_blocks counts")
+    st = scatter_plan(off, length, device)
+    dst = z.clone()
+    arena_scatter_cuda(dst, x, st)
+    want_s = arena_scatter_ref(z.clone(), x, st)
+    check(torch.equal(dst, want_s), "arena_scatter differs")
+    del want_s
+    tm = in_turns({"plain": lambda: arena_scatter_ref(dst, x, st),
+                   "kernel": lambda: arena_scatter_cuda(dst, x, st)})
+    b, by = bound_ms(2 * moved)
+    results["arena_scatter"] = dict(
+        max_abs_err=0.0, ms=tm["kernel"], plain_ms=tm["plain"], bound_ms=b,
+        bound_by=by, library_ms=None, moved_bytes=moved,
+        library_note="no one PyTorch call copies selected rows in place "
+                     "(a gather and an index_copy_ are two)")
+    del dst
+
+    # parity_xor: the whole-arena encode, bit-exact, and equal to the
+    # sweep's parity
+    plan = encode_plan(lay, codec.layout, codec.members)
+    pt = plan.on(device)
+    out_k = torch.empty((n_par,), dtype=torch.int32, device=device)
+    parity_xor_cuda(out_k, x, None, pt)
+    check(torch.equal(out_k, par_k), "parity_xor encode differs from the "
+          "arena_maintain parity")
+    out_p = parity_xor_ref(torch.empty_like(out_k), x, None, pt)
+    check(torch.equal(out_k, out_p), "parity_xor differs")
+    del out_p
+    tm = in_turns({"plain": lambda: parity_xor_ref(out_k, x, None, pt),
+                   "kernel": lambda: parity_xor_cuda(out_k, x, None, pt)})
+    b, by = bound_ms(plan.read_bytes + 4 * n_par)
+    results["parity_xor"] = dict(
+        max_abs_err=0.0, ms=tm["kernel"], plain_ms=tm["plain"], bound_ms=b,
+        bound_by=by, library_ms=None,
+        library_note="no one PyTorch call XOR-reduces segments in place")
+    for name, r in results.items():
+        log(f"{name} (whole arena): kernel {r['ms']:.3f} ms, plain "
+            f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
+            f"({r['bound_by']}), library none ({r['library_note']}), max abs "
+            f"err {r['max_abs_err']:.3g}")
+    return results
+
+
+# ---------------------------------------------------------------------------
+# phase 4: the main path -- the fabric-less SCAR loop on MLR
 # ---------------------------------------------------------------------------
 
 def phase_mlr(device) -> dict:
@@ -432,7 +581,113 @@ def check_kernels_on_mlr(model, device) -> None:
 
 
 # ---------------------------------------------------------------------------
-# phase 4: the controller at full size
+# phase 5: the quickstart path -- the SCAR loop on MLR through the fabric
+# ---------------------------------------------------------------------------
+
+QUICKSTART = dict(n=600, dim=64, n_classes=5, batch=200)
+
+
+def run_quickstart(device) -> dict:
+    """``examples/quickstart.py`` steps 1-2 on ``device``."""
+    from repro_torch.core.policy import CheckpointPolicy
+    from repro_torch.fabric import FabricConfig
+    from repro_torch.models.classic import make_model
+    from repro_torch.training.classic_runner import run_clean, run_with_failure
+
+    model = make_model("mlr", device=device, **QUICKSTART)
+    clean = run_clean(model, max_iters=150, device=device)["losses"]
+    res = run_with_failure(model, CheckpointPolicy.scar(fraction=0.25,
+                                                        interval=32),
+                           fail_iter=25, fail_fraction=0.5, max_iters=150,
+                           clean_losses=clean, fabric=FabricConfig(),
+                           device=device)
+    res["model"] = model
+    return res
+
+
+def check_quickstart_against_cpu(gpu: dict) -> dict:
+    """The same run on the CPU (same draws and failure mask): tier counts
+    and iteration cost equal, ``applied_sq`` and losses within rtol 1e-4."""
+    import numpy as np
+    cpu = run_quickstart("cpu")
+    check(gpu["recovery"]["tier_counts"] == cpu["recovery"]["tier_counts"],
+          "quickstart tier counts differ between the card and the CPU")
+    check(gpu["iteration_cost"] == cpu["iteration_cost"],
+          "quickstart iteration cost differs between the card and the CPU")
+    np.testing.assert_allclose(gpu["recovery"]["applied_sq"],
+                               cpu["recovery"]["applied_sq"], rtol=1e-4,
+                               atol=1e-12)
+    np.testing.assert_allclose(gpu["losses"], cpu["losses"], rtol=1e-4)
+    check(gpu["fabric_stats"]["maintain_bytes_moved"]
+          == cpu["fabric_stats"]["maintain_bytes_moved"],
+          "maintain_bytes_moved differs between the card and the CPU")
+    return cpu
+
+
+def check_fabric_kernels_on_mlr(model, device) -> None:
+    """The arena kernels against their plain versions on the quickstart's
+    own arena (every leaf tail-packed at 128-row blocks) and at 8-row
+    blocks (main tiles and a tail), with seeded values."""
+    import numpy as np
+    import torch
+    from repro_torch.core.arena import pack_arena
+    from repro_torch.core.blocks import partition_pytree
+    from repro_torch.fabric import CheckpointFabric, FabricConfig
+    from repro_torch.kernels.fused_maintain.kernel import (arena_maintain_cuda,
+                                                           arena_scatter_cuda)
+    from repro_torch.kernels.fused_maintain.ops import (save_ranges,
+                                                        scatter_plan)
+    from repro_torch.kernels.fused_maintain.ref import (arena_maintain_ref,
+                                                        arena_scatter_ref)
+    from repro_torch.kernels.parity_xor.kernel import parity_xor_cuda
+    from repro_torch.kernels.parity_xor.ops import reconstruct_plan
+    from repro_torch.kernels.parity_xor.ref import parity_xor_ref
+    from repro_torch.utils.tree import tree_map
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 5)
+    shapes = model.init(torch.Generator().manual_seed(1))
+    seen = []
+    for br in (128, 8):
+        part = partition_pytree(shapes, br)
+        fab = CheckpointFabric(part, FabricConfig())
+        lay, codec = fab.arena_layout, fab.parity
+        x, z = (pack_arena(tree_map(lambda v: torch.randn(
+            v.shape, generator=gen, device=device), shapes), lay)
+            for _ in range(2))
+        t = fab._arena_maintain_fn().plan.on(device)
+        n_par = codec.n_groups * codec.layout.frame_elems
+        pk = torch.zeros((n_par,), dtype=torch.int32, device=device)
+        pp = torch.zeros_like(pk)
+        rk, rp = torch.zeros_like(x), torch.zeros_like(x)
+        sk = arena_maintain_cuda(x, z, t, pk, rk)
+        sp = arena_maintain_ref(x, z, t, pp, rp)
+        check(torch.equal(pk, pp) and torch.equal(rk, rp),
+              f"arena_maintain parity or replica differs (block_rows {br})")
+        check(bool(torch.all((sk - sp).abs() <= 1e-4 * sp.abs())),
+              f"arena_maintain scores differ (block_rows {br})")
+        st = scatter_plan(*save_ranges(lay, np.arange(0, part.total_blocks,
+                                                      2)), device)
+        check(torch.equal(arena_scatter_cuda(z.clone(), x, st),
+                          arena_scatter_ref(z.clone(), x, st)),
+              f"arena_scatter differs (block_rows {br})")
+        lost = np.zeros((part.total_blocks,), bool)
+        lost[codec.members[0][0]] = True
+        keep = codec.valid & ~lost[np.where(codec.valid, codec.members, 0)]
+        plan, _ = reconstruct_plan(lay, codec.layout, codec.group_of,
+                                   codec.members, np.nonzero(lost)[0], keep)
+        pt = plan.on(device)
+        out = torch.empty((plan.out_words,), dtype=torch.int32, device=device)
+        check(torch.equal(parity_xor_cuda(out, x, pk, pt),
+                          parity_xor_ref(out.clone(), x, pk, pt)),
+              f"parity_xor differs (block_rows {br})")
+        seen.append(f"block_rows {br}: {part.total_blocks} blocks, "
+                    f"{lay.n_tiles} tiles, tail {lay.has_tail}")
+    log(f"arena kernels agree with their plain versions on the quickstart "
+        f"MLR arenas: {'; '.join(seen)}")
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the controller at full size, fabric-less
 # ---------------------------------------------------------------------------
 
 def phase_controller(tree, device) -> dict:
@@ -487,6 +742,123 @@ def phase_controller(tree, device) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the fabric at full size
+# ---------------------------------------------------------------------------
+
+def phase_fabric(tree, device) -> dict:
+    """``FTController`` with ``FabricConfig()`` on the 1.54 B tree: seeded
+    drift steps, each a maintain (one arena sweep) and a PRIORITY 1/8
+    partial save (one arena scatter), the last under the profiler, then
+    the loss of block 0's primary home and its replica home, which sends
+    blocks to the PARITY tier (timed, then run again under the profiler
+    and under cProfile)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.controller import FTController
+    from repro_torch.core.policy import CheckpointPolicy, SelectionStrategy
+    from repro_torch.fabric import FabricConfig
+    from repro_torch.utils.tree import tree_leaves
+
+    torch.cuda.reset_peak_memory_stats()
+    policy = CheckpointPolicy(fraction=0.125, full_interval=8,
+                              strategy=SelectionStrategy.PRIORITY,
+                              block_rows=BLOCK_ROWS)
+    t0 = time.perf_counter()
+    ctl = FTController(tree, policy, fabric=FabricConfig())
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    check(ctl.arena_ready, "the full-size controller is not in arena mode")
+    fab, part = ctl.fabric, ctl.partition
+    gen = torch.Generator(device=device).manual_seed(SEED + 6)
+    maint_s, save_s = [], []
+    steps = 3
+    for step in range(1, steps + 1):
+        for x in tree_leaves(tree):
+            x.add_(torch.randn(x.shape, generator=gen, device=device),
+                   alpha=1e-3)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ctl.maintain(step, tree)
+        fab.block_until_maintained()
+        maint_s.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        check(ctl.maybe_checkpoint(step, tree), f"no save at step {step}")
+        save_s.append(time.perf_counter() - t0)
+    k = part.blocks_for_k(policy.fraction)
+    check(ctl.stats["blocks_saved"] == steps * k, "wrong number of blocks")
+    # one more step under the profiler: a maintain, then a save
+    for x in tree_leaves(tree):
+        x.add_(torch.randn(x.shape, generator=gen, device=device), alpha=1e-3)
+    steps += 1
+    profiled_maintain = device_share(lambda: ctl.maintain(steps, tree))
+    profiled_save = device_share(lambda: ctl.maybe_checkpoint(steps, tree))
+    log(f"one maintain at 1.54 B under the profiler: "
+        f"{json.dumps(profiled_maintain)}")
+    log(f"one arena save at 1.54 B under the profiler: "
+        f"{json.dumps(profiled_save)}")
+    for x in tree_leaves(tree):
+        x.add_(torch.randn(x.shape, generator=gen, device=device), alpha=1e-3)
+    steps += 1
+    host = host_profile(lambda: (ctl.maintain(steps, tree),
+                                 ctl.maybe_checkpoint(steps, tree)))
+    log(f"one maintain and save at 1.54 B, host time by function (cProfile, "
+        f"cumulative s): {json.dumps(host)}")
+    failed = np.unique(np.asarray([fab.view.homes[0],
+                                   fab.replicas.replica_homes[0]], np.int32))
+    lost = np.isin(fab.view.homes, failed)
+    plan = fab.planner.plan(lost, failed, steps)
+
+    def recover():
+        return ctl.on_failure(tree, lost, failed_devices=failed, step=steps)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    recovered, info = recover()
+    torch.cuda.synchronize()
+    recovery_s = time.perf_counter() - t0
+    # the same recovery again (the view keeps no failure: elastic is off),
+    # once under the profiler and once under cProfile for the host's share
+    profiled_recovery = device_share(recover)
+    log(f"the recovery under the profiler: {json.dumps(profiled_recovery)}")
+    log(f"the recovery's host time by function (cProfile, cumulative s): "
+        f"{json.dumps(host_profile(recover))}")
+    counts = info["tier_counts"]
+    check(counts == plan.counts, "the recovery did not follow its plan")
+    check(counts["PARITY"] > 0, f"no block went to the PARITY tier: {counts}")
+    check(info["tier_sq"]["PARITY"] == 0.0
+          and info["tier_sq"]["PEER_REPLICA"] == 0.0,
+          f"live-value tiers perturbed the state: {info['tier_sq']}")
+    live_tiers = plan.mask(1) | plan.mask(2)      # PEER_REPLICA, PARITY
+    for x, r, leaf in zip(tree_leaves(tree), tree_leaves(recovered),
+                          part.leaves):
+        m = live_tiers[leaf.offset:leaf.offset + leaf.n_blocks]
+        rows = np.repeat(m, BLOCK_ROWS)[:leaf.rows]
+        if rows.any():
+            sel = torch.from_numpy(rows).to(device)
+            check(torch.equal(r.reshape(leaf.rows, -1)[sel],
+                              x.reshape(leaf.rows, -1)[sel]),
+                  f"{leaf.name}: a PEER_REPLICA or PARITY block is not its "
+                  f"live value")
+    out = {"setup_seconds": setup_s,
+           "maintain_seconds": maint_s, "save_seconds": save_s,
+           "recovery_seconds": recovery_s, "blocks_per_save": k,
+           "save_bytes_moved": ctl.stats["save_bytes_moved"],
+           "maintain_bytes_moved": fab.stats["maintain_bytes_moved"],
+           "failed_devices": failed.tolist(),
+           "lost_blocks": info["lost_blocks"], "tier_counts": counts,
+           "tier_sq": info["tier_sq"], "applied_sq": info["applied_sq"],
+           "parity_groups": fab.parity.n_groups,
+           "profiled_maintain": profiled_maintain,
+           "profiled_save": profiled_save,
+           "profiled_recovery": profiled_recovery,
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    check(out["peak_memory_gb"] < 70, f"peak device memory "
+          f"{out['peak_memory_gb']:.1f} GB")
+    log(f"fabric at 1.54 B values: {json.dumps(out)}")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -514,52 +886,97 @@ def main() -> int:
         y.copy_(x).add_(torch.randn(x.shape, generator=gen, device=device),
                         alpha=1e-2)
     kernels = phase_kernels(a_tree, b_tree, device)
+    log(f"peak device memory after phase 2: "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    kernels.update(phase_arena_kernels(a_tree, b_tree, device))
     del b_tree
     torch.cuda.empty_cache()
-    log(f"peak device memory after phase 2: "
+    log(f"peak device memory after phase 3: "
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
 
     # each path's own launch counts: set to 0 just before it, read just
-    # after it; the kernel-against-plain checks run outside both windows
+    # after it; the kernel-against-plain checks run outside every window
+    launches = {}
     _build.reset_launches()
     mlr = phase_mlr(device)
-    launches = dict(_build.LAUNCHES)
+    launches["mlr"] = dict(_build.LAUNCHES)
     check_mlr_against_cpu(mlr)
     check_kernels_on_mlr(mlr["model"], device)
     _build.reset_launches()
+    t0 = time.perf_counter()
+    quick = run_quickstart(device)
+    quick_s = time.perf_counter() - t0
+    launches["mlr_fabric"] = dict(_build.LAUNCHES)
+    quick_cpu = check_quickstart_against_cpu(quick)
+    check_fabric_kernels_on_mlr(quick["model"], device)
+    log(f"quickstart path on {device}: iteration cost "
+        f"{quick['iteration_cost']} (CPU {quick_cpu['iteration_cost']}), "
+        f"recovery {json.dumps(quick['recovery'])}, maint_seconds_per_iter "
+        f"{quick['maint_seconds_per_iter']:.6f} (CPU "
+        f"{quick_cpu['maint_seconds_per_iter']:.6f}), fabric_stats "
+        f"{json.dumps(quick['fabric_stats'])}, {quick_s:.2f} s")
+    _build.reset_launches()
     ctl = phase_controller(a_tree, device)
-    ctl_launches = dict(_build.LAUNCHES)
-    log(json.dumps({"launches": {"mlr": launches,
-                                 "controller": ctl_launches}}))
-    for path, counts in (("MLR", launches), ("controller", ctl_launches)):
-        for name, n in counts.items():
-            check(n > 0, f"{name} was not launched on the {path} path")
+    launches["controller"] = dict(_build.LAUNCHES)
+    _build.reset_launches()
+    fabric = phase_fabric(a_tree, device)
+    launches["fabric"] = dict(_build.LAUNCHES)
+    log(json.dumps({"launches": launches}))
+    old = ("block_dist", "scatter_save", "masked_restore")
+    new = ("arena_maintain", "arena_scatter", "parity_xor")
+    for path, names in (("mlr", old), ("controller", old),
+                        ("mlr_fabric", new[:2]), ("fabric", new)):
+        for name in names:
+            check(launches[path][name] > 0,
+                  f"{name} was not launched on the {path} path")
     log(f"peak device memory: {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
 
-    sources = {"block_dist": ("src/repro_torch/csrc/block_dist.cu",
-                              "src/repro/kernels/block_dist/kernel.py:41"),
-               "scatter_save": ("src/repro_torch/csrc/scatter_save.cu",
-                                "src/repro/kernels/fused_maintain/kernel.py:245"),
-               "masked_restore": ("src/repro_torch/csrc/masked_restore.cu",
-                                  "src/repro/kernels/masked_restore/kernel.py:31")}
+    sources = {
+        "block_dist": ("src/repro_torch/csrc/block_dist.cu",
+                       "src/repro/kernels/block_dist/kernel.py:41", "mlr"),
+        "scatter_save": ("src/repro_torch/csrc/scatter_save.cu",
+                         "src/repro/kernels/fused_maintain/kernel.py:245",
+                         "mlr"),
+        "masked_restore": ("src/repro_torch/csrc/masked_restore.cu",
+                           "src/repro/kernels/masked_restore/kernel.py:31",
+                           "mlr"),
+        "arena_maintain": ("src/repro_torch/csrc/arena_maintain.cu",
+                           "src/repro/kernels/fused_maintain/kernel.py:153",
+                           "fabric"),
+        "arena_scatter": ("src/repro_torch/csrc/arena_scatter.cu",
+                          "src/repro/kernels/fused_maintain/kernel.py:211",
+                          "fabric"),
+        "parity_xor": ("src/repro_torch/csrc/parity_xor.cu",
+                       "src/repro/kernels/parity_xor/kernel.py:42",
+                       "fabric")}
     record = []
-    for name, (source, replaces) in sources.items():
+    for name, (source, replaces, path) in sources.items():
         r = kernels[name]
         record.append({"name": name, "route": "cuda", "source": source,
-                       "replaces": replaces, "launches": launches[name],
+                       "replaces": replaces, "launches": launches[path][name],
                        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                        "bound_by": r["bound_by"],
                        "library_ms": r["library_ms"]})
-    log(json.dumps({"controller": ctl, "mlr": {
+    log(json.dumps({"controller": ctl, "fabric": fabric, "mlr": {
         "kappa_clean": mlr["kappa"],
         "scar_iteration_cost": mlr["scar"]["iteration_cost"],
         "traditional_iteration_cost": mlr["trad"]["iteration_cost"],
         "bound": mlr["bound"], "profiled_scar_run": mlr["profile"]},
+        "quickstart": {
+            "iteration_cost": quick["iteration_cost"],
+            "tier_counts": quick["recovery"]["tier_counts"],
+            "applied_sq": quick["recovery"]["applied_sq"],
+            "maint_seconds_per_iter": quick["maint_seconds_per_iter"],
+            "cpu_maint_seconds_per_iter": quick_cpu["maint_seconds_per_iter"],
+            "fabric_stats": quick["fabric_stats"]},
         "per_call": {name: {k: r[k] for k in (
             "leaf_ms", "leaf_plain_ms", "leaf_bound_ms", "host_us",
-            "plain_host_us")} for name, r in kernels.items()},
-        "scatter_save_moved_bytes": kernels["scatter_save"]["moved_bytes"]}))
+            "plain_host_us")} for name, r in kernels.items()
+            if "leaf_ms" in r},
+        "scatter_save_moved_bytes": kernels["scatter_save"]["moved_bytes"],
+        "arena_scatter_moved_bytes": kernels["arena_scatter"]["moved_bytes"],
+        "arena_maintain_dest_tiles": kernels["arena_maintain"]["dest_tiles"]}))
     log(card)
     log(json.dumps({"kernels": record}))
     log(json.dumps({"ok": True, "device": {

@@ -16,7 +16,11 @@ packages number every block the same way. Padding rows (to fill the last
 block) are zeros on both sides of any distance computation, so they never
 affect scores.
 
-The arena word-packing helpers of the reference come with the arena.
+Word packing (the flat arena and the parity frames): a block's payload is
+stored as 32-bit words, ``dtype_word_ratio`` elements per word, element 0
+in the low-order bytes, as the reference packs it. The port carries words
+as ``torch.int32`` and bitcasts with ``Tensor.view`` (the reference carries
+them as float32).
 """
 from __future__ import annotations
 
@@ -105,6 +109,91 @@ def partition_pytree(params: PyTree, block_rows: int = 128,
             row_width=row_width, n_blocks=n_blocks, offset=leaf_offset))
     return BlockPartition(block_rows=block_rows, leaves=tuple(leaves),
                           treedef=treedef)
+
+
+# The word-packable dtypes: 1/2/4-byte ints and floats, stored in words as
+# raw bit patterns. A dtype's index here is its arena dtype code (0 = f32);
+# the arena_maintain kernel decodes by these codes, so the order is fixed.
+# Names the installed torch lacks are skipped by ``word_packable``.
+WORD_DTYPE_NAMES = ("float32", "bfloat16", "float16", "float8_e4m3fn",
+                    "float8_e5m2", "float8_e4m3fnuz", "float8_e5m2fnuz",
+                    "float8_e8m0fnu", "int8", "uint8", "int16", "uint16",
+                    "int32", "uint32")
+_WORD_DTYPES = {getattr(torch, n): n for n in WORD_DTYPE_NAMES
+                if hasattr(torch, n)}
+_BITS = {1: torch.int8, 2: torch.int16, 4: torch.int32}
+
+
+def leaf_frame_width(leaf: LeafMeta, block_rows: int) -> int:
+    """Payload elements per block of this leaf: the width of its
+    :func:`leaf_block_view` rows (single-block leaves are unpadded), and so
+    the per-block payload of the parity frames and of the flat arena."""
+    if leaf.n_blocks == 1:
+        return max(leaf.rows, 1) * max(leaf.row_width, 1)
+    return block_rows * leaf.row_width
+
+
+def word_packable(dtype: torch.dtype) -> bool:
+    """True when ``dtype`` values are stored in words as raw bit patterns
+    (f32, bf16, f16, the fp8 family, int8/16/32, uint8/16/32). Everything
+    else (f64, int64, complex, bool) keeps the one-f32-image-per-element
+    convention."""
+    return dtype in _WORD_DTYPES
+
+
+def dtype_word_ratio(dtype: torch.dtype) -> int:
+    """Elements per 32-bit word: 1 (f32/i32), 2 (bf16/f16/i16), 4
+    (fp8/i8); 1 for dtypes that are not word-packable."""
+    return 4 // dtype.itemsize if word_packable(dtype) else 1
+
+
+def leaf_word_width(leaf: LeafMeta, block_rows: int) -> int:
+    """Payload 32-bit words per block of this leaf: its
+    :func:`leaf_frame_width` elements packed ``dtype_word_ratio`` per word
+    (the sub-word tail padded with zero bits)."""
+    r = dtype_word_ratio(leaf.dtype)
+    return -(-leaf_frame_width(leaf, block_rows) // r)
+
+
+def leaf_block_words(x: torch.Tensor, block_rows: int) -> torch.Tensor:
+    """(n_blocks, payload_words) int32 raw bit pattern of a leaf's blocks,
+    ``dtype_word_ratio`` consecutive elements per word, element 0 in the
+    low-order bytes (numpy's ``.view(int32)`` on a little-endian host).
+    Dtypes that are not word-packable store one f32 image per word."""
+    if not word_packable(x.dtype):
+        x = x.to(torch.float32)
+    # bitcast first: the zero padding is then zero bits for every dtype
+    bits = leaf_block_view(x.view(_BITS[x.dtype.itemsize]),
+                           block_rows).contiguous()
+    tail = -bits.shape[1] % (4 // x.dtype.itemsize)
+    if tail:
+        bits = torch.cat([bits, bits.new_zeros((bits.shape[0], tail))], 1)
+    return bits.view(torch.int32)
+
+
+def words_to_elems(words: torch.Tensor, dtype: torch.dtype,
+                   elems: int) -> torch.Tensor:
+    """(n, >= ceil(elems / ratio)) int32 words -> (n, elems) values of
+    ``dtype``: the inverse of the packing, bit-exact for word-packable
+    dtypes and a value cast through f32 otherwise."""
+    r = dtype_word_ratio(dtype)
+    w = words[:, :-(-elems // r)].contiguous()
+    if not word_packable(dtype):
+        return w.view(torch.float32)[:, :elems].to(dtype)
+    if r > 1:
+        w = w.view(_BITS[dtype.itemsize])
+    return w.view(dtype)[:, :elems]
+
+
+def decode_block_words(words: torch.Tensor, leaf: LeafMeta,
+                       block_rows: int) -> torch.Tensor:
+    """Inverse of :func:`leaf_block_words`: ``(n_blocks, >= payload_words)``
+    int32 words back to the leaf-shaped tensor."""
+    vals = words_to_elems(words, leaf.dtype,
+                          leaf_frame_width(leaf, block_rows))
+    rows = max(leaf.rows, 1)
+    vals = vals.reshape(-1, max(leaf.row_width, 1))[:rows]
+    return vals.reshape(leaf.shape)
 
 
 def leaf_block_view(x: torch.Tensor, block_rows: int) -> torch.Tensor:

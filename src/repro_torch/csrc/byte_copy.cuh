@@ -1,6 +1,7 @@
-// Raw-byte copy helpers shared by scatter_save.cu and masked_restore.cu.
+// Raw-byte copy helpers shared by scatter_save.cu, masked_restore.cu and
+// arena_scatter.cu.
 //
-// Both kernels move whole blocks of bytes whatever the element type, so
+// The kernels move whole blocks of bytes whatever the element type, so
 // they are written on an unsigned carrier V of 16, 8, 4, 2 or 1 bytes. The
 // host picks the widest V that divides every offset and base address it
 // will use, so neighbouring threads touch neighbouring 16-byte words on the

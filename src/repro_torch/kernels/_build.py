@@ -38,7 +38,8 @@ MAX_GRID_Y = 65535
 COPY_CHUNK_BYTES = 64 * 1024
 
 LAUNCHES: dict[str, int] = {"block_dist": 0, "scatter_save": 0,
-                            "masked_restore": 0}
+                            "masked_restore": 0, "arena_maintain": 0,
+                            "arena_scatter": 0, "parity_xor": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 build_seconds: Optional[float] = None   # seconds the last build took (None: reused)
@@ -50,6 +51,11 @@ _SIGNATURES = {
     "block_dist_f32": ([_P, _P, _P, _P, _I64, _I64, _P], ctypes.c_int),
     "scatter_save_bytes": ([_P, _P, _P, _I64, _I64, _I64, _P], ctypes.c_int),
     "masked_restore_bytes": ([_P, _P, _P, _P, _I64, _I64, _P], ctypes.c_int),
+    "arena_maintain": ([_P] * 13 + [_I64] + [_P] * 3 + [_I64, _I64]
+                       + [_P] * 4 + [_I64, _P], ctypes.c_int),
+    "arena_scatter": ([_P] * 6 + [_I64, _P], ctypes.c_int),
+    "parity_xor_chunks": ([_I64], _I64),
+    "parity_xor": ([_P] * 10 + [_I64, _I64, _P], ctypes.c_int),
     "repro_cuda_error_string": ([ctypes.c_int], ctypes.c_char_p),
 }
 

@@ -5,6 +5,7 @@
 recovery; dst = checkpoint, src = params, mask = saved blocks for the
 ``inplace_save=False`` save). Each leaf goes to the kernel as its raw
 (R, W) row matrix, unpadded, as ``tree_scatter_save`` does.
+``arena_masked_restore`` is the same restore with a flat arena as source.
 """
 from __future__ import annotations
 
@@ -28,6 +29,17 @@ def masked_restore(dst: torch.Tensor, src: torch.Tensor, mask: torch.Tensor,
         return masked_restore_ref(dst, src, mask, block_rows)
     return masked_restore_cuda(dst.contiguous(), src.contiguous(),
                                mask.contiguous(), block_rows)
+
+
+def arena_masked_restore(dst: PyTree, src_arena: torch.Tensor, global_mask,
+                         arena_layout) -> PyTree:
+    """Partial restore whose source is a flat arena
+    (:mod:`repro_torch.core.arena`): each touched leaf decodes one
+    contiguous arena slice and goes through :func:`masked_restore`;
+    untouched leaves pass through as the same tensors. The tier planner's
+    PEER_REPLICA restore from an arena-form replica."""
+    from repro_torch.core.arena import arena_restore
+    return arena_restore(dst, src_arena, global_mask, arena_layout)
 
 
 def tree_masked_restore(dst: PyTree, src: PyTree, global_mask: torch.Tensor,

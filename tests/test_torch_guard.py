@@ -13,6 +13,7 @@ import torch
 
 from repro_torch.core.controller import FTController
 from repro_torch.core.policy import CheckpointPolicy
+from repro_torch.fabric import CheckpointFabric, FabricConfig
 from repro_torch.models.classic import make_model
 from repro_torch.training.classic_runner import run_clean, run_with_failure
 
@@ -66,9 +67,19 @@ def test_model_and_run_devices_must_agree():
 
 def test_fabric_and_store_name_their_roadmap_items():
     params = {"w": torch.zeros(4, 2)}
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        FTController(params, CheckpointPolicy.scar(), fabric=object(),
-                     device="cpu")
+    ctl = FTController(params, CheckpointPolicy.scar(),
+                       fabric=FabricConfig(), device="cpu")
+    assert ctl.arena_ready and ctl.fabric.arena_layout is not None
     with pytest.raises(NotImplementedError, match="item 11"):
         FTController(params, CheckpointPolicy.scar(), store=object(),
                      device="cpu")
+    for cfg, item in ((FabricConfig(async_maintain=True), "item 12"),
+                      (FabricConfig(rs_parity=2), "item 13"),
+                      (FabricConfig(arena=False), "item 14"),
+                      (FabricConfig(fused=False), "item 14")):
+        with pytest.raises(NotImplementedError, match=item):
+            FTController(params, CheckpointPolicy.scar(), fabric=cfg,
+                         device="cpu")
+    part = ctl.partition
+    with pytest.raises(NotImplementedError, match="item 15"):
+        CheckpointFabric(part, FabricConfig(), mesh=object())
