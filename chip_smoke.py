@@ -13,7 +13,9 @@ Phases, each of which fails the run if it fails:
    path gives each kernel: block_dist within rtol 1e-4, scatter_save and
    masked_restore bit-exact. Whole-tree times from CUDA events (median of
    7, plain and kernel in turns), beside the least time the card could
-   take (bytes over 3.35 TB/s; operations over 67 TFLOP/s f32).
+   take (bytes over 3.35 TB/s; operations over 67 TFLOP/s f32, or, for
+   gf256_mac's integer work, over the card's INT32 rate: its SMs x 64
+   lanes x its maximum SM clock).
 3. The arena kernels at full size: the same tree packed into the flat
    word arena (1,544,728,576 words) with ``FabricConfig()``'s parity
    striping. arena_maintain (parity bit-exact, scores within rtol 1e-4),
@@ -41,10 +43,37 @@ Phases, each of which fails the run if it fails:
    then the loss of block 0's primary and replica homes: blocks go to the
    PARITY tier, and the PARITY and PEER_REPLICA blocks come back as their
    live values, bit for bit. Peak device memory is reported.
-8. Launch counts, one set per path: the counts are set to 0 just before
-   each of the MLR loops, the quickstart path, the controller and the
-   fabric phase, and read just after it. Each path's kernels must have
-   launched in it.
+8. The per-leaf sweep at full size: fused_maintain over all 338 leaves
+   under ``FabricConfig()``'s XOR striping (replica and parity bit-exact,
+   the parity equal to ``ParityCodec.encode`` of the same tree, scores
+   within rtol 1e-4), timed as in phase 2 (the launches alone: the
+   parity's memset and the replicas' allocation lie outside the timing);
+   then a small tree of bool, f64, int64, complex64 and complex128 leaves,
+   whose f32 images the parity holds, one launch per leaf against the
+   plain version.
+9. gf256_mac at full size, bit-exact against its plain version and timed
+   as in phase 2: the RS(4, 2) encode of the arena under the 8-host
+   ``FabricConfig(n_devices=8, devices_per_host=1, hosts_per_rack=4,
+   rs_parity=2)`` (row 0 equal to parity_xor's encode of the same
+   members), the syndrome pass, and a decode of two erasures in every
+   group.
+10. ``examples/correlated_failures.py``'s multi-erasure section on the
+    card: MLR, hosts 0 and 2 lost at step 15, elastic, XOR and RS(k, 2),
+    held against the same runs on the CPU (tier counts, fallbacks, iteration
+    cost).
+11. The RS fabric at full size: ``FTController`` with the 8-host RS(4, 2)
+    fabric, drift steps (maintain and save), a clean scrub, an injected bit
+    flip found, localized and corrected, then a two-host loss chosen by the
+    planner (the first host pair whose plan sends two members of a group to
+    PARITY): PARITY and PEER_REPLICA blocks bit-exact, fewer RUNNING_CKPT
+    blocks than an XOR fabric on the same topology and loss.
+12. The per-leaf fabric at full size: ``FabricConfig(arena=False)``, two
+    drift steps, each a maintain (338 fused_maintain launches) and a save,
+    then phase 7's loss, the PARITY blocks bit-exact.
+13. Launch counts, one set per path: the counts are set to 0 just before
+    each of the MLR loops, the quickstart path, the controller, each fabric
+    phase and each multi-erasure run, and read just after it. Each path's
+    kernels must have launched in it.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
@@ -122,15 +151,21 @@ def cuda_ms(fn, runs: int = TIMING_RUNS) -> list[float]:
     return times
 
 
-def in_turns(fns: dict) -> dict:
-    """Median ms of each whole-tree pass, the passes taken in turns."""
+def in_turns(fns: dict, before=None) -> dict:
+    """Median ms of each whole-tree pass, the passes taken in turns.
+    ``before()``, when given, runs ahead of every pass, outside its
+    timing."""
     import torch
     for fn in fns.values():            # warm-up (allocator, first launch)
+        if before is not None:
+            before()
         fn()
     torch.cuda.synchronize()
     times = {name: [] for name in fns}
     for _ in range(TIMING_RUNS):
         for name, fn in fns.items():
+            if before is not None:
+                before()
             times[name] += cuda_ms(fn, runs=1)
     return {name: statistics.median(t) for name, t in times.items()}
 
@@ -197,10 +232,24 @@ def host_profile(fn, top: int = 12) -> list:
             [:top]]
 
 
-def bound_ms(n_bytes: float, n_flops: float = 0.0) -> tuple[float, str]:
+def bound_ms(n_bytes: float, n_flops: float = 0.0,
+             rate: float = F32_FLOPS_PER_S) -> tuple[float, str]:
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_flops / F32_FLOPS_PER_S * 1e3
+    t_ops = n_flops / rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def int32_ops_per_s() -> float:
+    """The card's 32-bit integer rate: SMs x 64 INT32 lanes x the maximum
+    SM clock (``nvidia-smi --query-gpu=clocks.max.sm``)."""
+    import torch
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], check=True, capture_output=True,
+        text=True, timeout=60)
+    mhz = float(out.stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return sms * 64 * mhz * 1e6
 
 
 # ---------------------------------------------------------------------------
@@ -859,6 +908,498 @@ def phase_fabric(tree, device) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the per-leaf sweep at full size
+# ---------------------------------------------------------------------------
+
+def phase_leaf_kernel(a_tree, b_tree, device) -> dict:
+    """fused_maintain over every leaf of the tree (``a`` live, ``b`` the
+    checkpoint) under ``FabricConfig()``'s XOR striping, one launch per
+    leaf, against its plain version leaf by leaf."""
+    import torch
+    from repro_torch.core.blocks import partition_pytree
+    from repro_torch.fabric import CheckpointFabric, FabricConfig
+    from repro_torch.kernels.fused_maintain import ops
+    from repro_torch.kernels.fused_maintain.kernel import fused_maintain_cuda
+    from repro_torch.kernels.fused_maintain.ref import fused_maintain_ref
+    from repro_torch.utils.tree import tree_leaves
+
+    part = partition_pytree(a_tree, BLOCK_ROWS)
+    fab = CheckpointFabric(part, FabricConfig(arena=False))
+    codec = fab.parity
+    fe = codec.layout.frame_elems
+    metas = ops.leaf_group_metas(part, codec.layout, codec.group_of)
+    tables = [ops.leaf_tables(m, l.n_blocks, device)
+              for m, l in zip(metas, part.leaves)]
+    xs, zs = tree_leaves(a_tree), tree_leaves(b_tree)
+    n_par = codec.n_groups * fe
+    log(f"per-leaf sweep: {len(xs)} leaves, {codec.n_groups} groups of <= "
+        f"{codec.members.shape[1]}, parity {n_par * 4 / 1e9:.3f} GB")
+
+    def sweep(fn, par):
+        par.zero_()
+        return [fn(x, z, par, t, BLOCK_ROWS, m.col, fe)
+                for x, z, t, m in zip(xs, zs, tables, metas)]
+
+    par_k = torch.empty((n_par,), dtype=torch.int32, device=device)
+    got = sweep(fused_maintain_cuda, par_k)
+    par_p = torch.empty_like(par_k)
+    want = sweep(fused_maintain_ref, par_p)
+    check(torch.equal(par_k, par_p), "fused_maintain parity differs")
+    err = 0.0
+    for (rk, sk), (rp, sp), x in zip(got, want, xs):
+        check(torch.equal(rk, rp) and torch.equal(rk, x),
+              "fused_maintain replica differs")
+        rel = ((sk - sp).abs() / sp.abs().clamp_min(1e-30)).max()
+        check(float(rel) <= 1e-4, f"fused_maintain scores off by rtol "
+              f"{float(rel)}")
+        err = max(err, float((sk - sp).abs().max()))
+    again = sweep(fused_maintain_cuda, par_k)
+    check(all(torch.equal(a[1], g[1]) for a, g in zip(again, got)),
+          "fused_maintain scores differ between two runs")
+    del got, want, again, par_p
+    codec.encode(0, a_tree)
+    check(torch.equal(codec.parity.view(-1), par_k),
+          "fused_maintain parity differs from ParityCodec.encode")
+    codec.parity = None
+    torch.cuda.empty_cache()
+    # timed: the launches alone, into replicas allocated and a parity
+    # zeroed outside the timing (the memset of the whole parity is the
+    # fabric's, once per maintain, and not this kernel's work)
+    reps = [torch.empty_like(x) for x in xs]
+
+    def launches(fn):
+        return [fn(x, z, par_k, t, BLOCK_ROWS, m.col, fe, r)
+                for x, z, t, m, r in zip(xs, zs, tables, metas, reps)]
+
+    tm = in_turns({"plain": lambda: launches(fused_maintain_ref),
+                   "kernel": lambda: launches(fused_maintain_cuda)},
+                  before=par_k.zero_)
+    del reps
+    touched = sum(int(m.touched.size) * m.width for m in metas)
+    n_bytes = sum(3 * x.numel() * x.element_size() for x in xs) \
+        + 2 * 4 * touched + 4 * part.total_blocks
+    b, by = bound_ms(n_bytes, 3 * sum(x.numel() for x in xs))
+    r = dict(max_abs_err=err, ms=tm["kernel"], plain_ms=tm["plain"],
+             bound_ms=b, bound_by=by, library_ms=None, launches_per_pass=
+             len(xs), library_note="no one PyTorch call folds the replica, "
+             "the scores and the XOR parity")
+    log(f"fused_maintain (338 leaves): kernel {r['ms']:.3f} ms, plain "
+        f"{r['plain_ms']:.3f} ms, bound {b:.3f} ms ({by}), library none "
+        f"({r['library_note']}), max abs err {err:.3g}")
+    image_loaders(device)
+    return {"fused_maintain": r}
+
+
+def image_loaders(device) -> None:
+    """The per-leaf sweep of a small tree of bool, f64, int64 and complex
+    leaves (the parity holds their f32 images), on the card against the
+    plain version: one launch per leaf, replicas and parity bit-exact,
+    scores rtol 1e-4."""
+    import torch
+    from repro_torch.core.blocks import partition_pytree
+    from repro_torch.fabric import CheckpointFabric, FabricConfig
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.fused_maintain.ops import make_fused_maintain_fn
+    from repro_torch.utils.tree import tree_map
+
+    def tree(seed):
+        gen = torch.Generator().manual_seed(seed)
+        return {"d": torch.randn(300, 70, generator=gen, dtype=torch.float64),
+                "i": torch.randint(-2**40, 2**40, (190, 50), generator=gen),
+                "m": torch.rand(130, 90, generator=gen) > 0.5,
+                "c": torch.randn(210, 30, generator=gen,
+                                 dtype=torch.complex64),
+                "k": torch.randn(90, 40, generator=gen,
+                                 dtype=torch.complex128)}
+
+    x, z = tree(SEED + 7), tree(SEED + 8)
+    part = partition_pytree(x, BLOCK_ROWS)
+    codec = CheckpointFabric(part, FabricConfig(arena=False)).parity
+    fn = make_fused_maintain_fn(part, codec.layout, codec.group_of,
+                                codec.n_groups)
+    n0 = _build.LAUNCHES["fused_maintain"]
+    rep_k, sc_k, par_k = fn(tree_map(lambda v: v.to(device), x),
+                            tree_map(lambda v: v.to(device), z))
+    torch.cuda.synchronize()
+    check(_build.LAUNCHES["fused_maintain"] - n0 == len(x),
+          "fused_maintain did not launch once per bool/f64/int64/complex "
+          "leaf")
+    rep_p, sc_p, par_p = fn(x, z)
+    check(torch.equal(par_k.cpu(), par_p)
+          and all(torch.equal(rep_k[k].cpu(), x[k]) for k in x),
+          "fused_maintain differs from its plain version on f32-image "
+          "dtypes")
+    rel = float(((sc_k.cpu() - sc_p).abs()
+                 / sc_p.abs().clamp_min(1e-30)).max())
+    check(rel <= 1e-4, f"fused_maintain f32-image scores off by rtol {rel}")
+    log(f"fused_maintain on bool/f64/int64/complex64/complex128 leaves: "
+        f"bit-exact, scores rtol {rel:.3g}")
+
+
+# ---------------------------------------------------------------------------
+# phase 9: gf256_mac at full size
+# ---------------------------------------------------------------------------
+
+RS_FABRIC = dict(n_devices=8, devices_per_host=1, hosts_per_rack=4,
+                 rs_parity=2)
+
+
+def phase_rs_kernels(a_tree, device, int_rate: float) -> dict:
+    """The RS(4, 2) codec of the 8-host fabric over the packed tree: the
+    encode, the syndrome pass over a flipped word, and a decode of two
+    erasures in every group, each against the plain version."""
+    import numpy as np
+    import torch
+    from repro_torch.core.arena import pack_arena
+    from repro_torch.core.blocks import partition_pytree
+    from repro_torch.fabric import CheckpointFabric, FabricConfig
+    from repro_torch.kernels.gf256_mac.kernel import gf256_mac_cuda
+    from repro_torch.kernels.gf256_mac.ref import gf256_mac_plan_ref
+    from repro_torch.kernels.parity_xor.kernel import parity_xor_cuda
+    from repro_torch.kernels.parity_xor.ops import encode_plan
+
+    part = partition_pytree(a_tree, BLOCK_ROWS)
+    fab = CheckpointFabric(part, FabricConfig(**RS_FABRIC))
+    lay, codec = fab.arena_layout, fab.parity
+    m, fe = codec.n_parity, codec.layout.frame_elems
+    enc, syn = codec.gf_plans(lay)
+    n_out = codec.n_groups * m * fe
+    log(f"RS({codec.group_size}, {m}) over {fab.domains.n_hosts} hosts: "
+        f"{codec.n_groups} groups of <= {codec.members.shape[1]}, rows "
+        f"{n_out * 4 / 1e9:.3f} GB")
+    x = pack_arena(a_tree, lay)
+    results = {}
+
+    def plain(out, src, src2, base, plan):
+        return gf256_mac_plan_ref(out, src, src2, base, plan.on(device), 0,
+                                  plan.n_rows, 0)
+
+    # the encode: bit-exact, row 0 equal to parity_xor's encode
+    rows_k = torch.empty((n_out,), dtype=torch.int32, device=device)
+    gf256_mac_cuda(rows_k, x, None, None, enc)
+    rows_p = plain(torch.empty_like(rows_k), x, None, None, enc)
+    check(torch.equal(rows_k, rows_p), "gf256_mac encode differs")
+    del rows_p
+    xor = torch.empty((codec.n_groups * fe,), dtype=torch.int32,
+                      device=device)
+    parity_xor_cuda(xor, x, None, encode_plan(lay, codec.layout,
+                                              codec.members).on(device))
+    check(torch.equal(rows_k.view(codec.n_groups, m, fe)[:, 0],
+                      xor.view(codec.n_groups, fe)),
+          "RS row 0 differs from parity_xor's encode of the same members")
+    del xor
+    tm = in_turns({"plain": lambda: plain(rows_k, x, None, None, enc),
+                   "kernel": lambda: gf256_mac_cuda(rows_k, x, None, None,
+                                                    enc)})
+    b, by = bound_ms(enc.read_bytes() + enc.write_bytes(), enc.int_ops(),
+                     int_rate)
+    results["encode"] = dict(ms=tm["kernel"], plain_ms=tm["plain"],
+                             bound_ms=b, bound_by=by, int_ops=enc.int_ops(),
+                             groups=codec.n_groups)
+
+    # the syndrome pass over an arena with one word flipped
+    word = int(lay.blocks[len(lay.blocks) // 2].offset) + 5
+    x[word] ^= 1 << 11
+    synd = torch.empty_like(rows_k)
+    gf256_mac_cuda(synd, x, None, rows_k, syn)
+    per = m * fe
+    batch = 100
+    for g0 in range(0, codec.n_groups, batch):
+        nb = min(batch, codec.n_groups - g0)
+        want = gf256_mac_plan_ref(
+            torch.empty((nb * per,), dtype=torch.int32, device=device), x,
+            None, rows_k, syn.on(device), g0, nb, g0 * per)
+        check(torch.equal(synd[g0 * per:(g0 + nb) * per], want),
+              "gf256_mac syndromes differ")
+    flagged = torch.nonzero(synd.view(codec.n_groups, per).ne(0).any(1))
+    check(flagged.numel() == 1, f"{flagged.numel()} groups flagged, not 1")
+    tm = in_turns({"plain": lambda: plain(synd, x, None, rows_k, syn),
+                   "kernel": lambda: gf256_mac_cuda(synd, x, None, rows_k,
+                                                    syn)})
+    del synd
+    x[word] ^= 1 << 11
+    b, by = bound_ms(syn.read_bytes() + syn.write_bytes(), syn.int_ops(),
+                     int_rate)
+    results["syndromes"] = dict(ms=tm["kernel"], plain_ms=tm["plain"],
+                                bound_ms=b, bound_by=by,
+                                int_ops=syn.int_ops())
+
+    # a decode of two erasures in every group of >= 2 members
+    codec.parity = rows_k.view(codec.n_groups, m, fe)
+    codec.encoded_step = 0
+    lost = np.zeros((part.total_blocks,), bool)
+    for row in codec.members:
+        ids = row[row >= 0]
+        if ids.size >= 2:
+            lost[ids[:2]] = True
+    t0 = time.perf_counter()
+    dec, blocks = codec.decode_plan(lay, lost, ~lost)
+    plan_s = time.perf_counter() - t0
+    n_dec = int(dec.row_len.astype(np.int64).sum())
+    out_k = torch.empty((n_dec,), dtype=torch.int32, device=device)
+    gf256_mac_cuda(out_k, x, rows_k, None, dec)
+    out_p = plain(torch.empty_like(out_k), x, rows_k, None, dec)
+    check(torch.equal(out_k, out_p), "gf256_mac decode differs")
+    del out_p
+    ab = lay.ab_arrays()
+    want = torch.cat([x[int(ab["offset"][a]):int(ab["offset"][a])
+                        + int(ab["payload"][a])] for a in blocks])
+    check(torch.equal(out_k, want), "the decode is not the lost words")
+    del want
+    tm = in_turns({"plain": lambda: plain(out_k, x, rows_k, None, dec),
+                   "kernel": lambda: gf256_mac_cuda(out_k, x, rows_k, None,
+                                                    dec)})
+    b, by = bound_ms(dec.read_bytes() + dec.write_bytes(), dec.int_ops(),
+                     int_rate)
+    results["decode"] = dict(ms=tm["kernel"], plain_ms=tm["plain"],
+                             bound_ms=b, bound_by=by, int_ops=dec.int_ops(),
+                             blocks=int(lost.sum()), plan_seconds=plan_s)
+    for name, r in results.items():
+        log(f"gf256_mac {name}: kernel {r['ms']:.3f} ms, plain "
+            f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
+            f"({r['bound_by']}; {r['int_ops']:.4g} int32 operations at "
+            f"{int_rate / 1e12:.2f} T/s), library none (no one PyTorch call "
+            f"does a GF(256) multiply-accumulate), max abs err 0")
+    codec.parity = None
+    del rows_k, x
+    torch.cuda.empty_cache()
+    e = results["encode"]
+    return {"gf256_mac": dict(
+        max_abs_err=0.0, ms=e["ms"], plain_ms=e["plain_ms"],
+        bound_ms=e["bound_ms"], bound_by=e["bound_by"], library_ms=None,
+        shapes=results)}
+
+
+# ---------------------------------------------------------------------------
+# phase 10: examples/correlated_failures.py's multi-erasure section
+# ---------------------------------------------------------------------------
+
+def run_multi_erasure(device, rs: bool) -> dict:
+    """Hosts 0 and 2 lost at step 15 of the example's MLR soak."""
+    from repro_torch.core.policy import (CheckpointPolicy, RecoveryMode,
+                                         SelectionStrategy)
+    from repro_torch.fabric import FabricConfig, FailureEvent
+    from repro_torch.models.classic import make_model
+    from repro_torch.training.classic_runner import run_clean, run_with_trace
+
+    model = make_model("mlr", device=device, **QUICKSTART)
+    clean = run_clean(model, 120, device=device)["losses"]
+    policy = CheckpointPolicy(fraction=0.25, full_interval=8,
+                              strategy=SelectionStrategy.ROUND_ROBIN,
+                              recovery=RecoveryMode.PARTIAL,
+                              block_rows=model.block_rows)
+    r = run_with_trace(
+        model, policy, max_iters=120, seed=0, clean_losses=clean,
+        trace=[FailureEvent(step=15, kind="host", index=0),
+               FailureEvent(step=15, kind="host", index=2)],
+        fabric=FabricConfig(n_devices=8, devices_per_host=2,
+                            hosts_per_rack=2, elastic=True,
+                            rs_parity=2 if rs else 0), device=device)
+    ev = next(e for e in r["events"] if not e.get("skipped"))
+    return {"iteration_cost": r["iteration_cost"],
+            "tier_counts": ev["tier_counts"],
+            "fallbacks": len(ev.get("tier_fallbacks", [])),
+            "applied_sq": ev["applied_sq"]}
+
+
+# ---------------------------------------------------------------------------
+# phases 11 and 12: the RS fabric and the per-leaf fabric at full size
+# ---------------------------------------------------------------------------
+
+def _drift(tree, gen, device) -> None:
+    import torch
+    from repro_torch.utils.tree import tree_leaves
+    for x in tree_leaves(tree):
+        x.add_(torch.randn(x.shape, generator=gen, device=device), alpha=1e-3)
+
+
+def _drive(ctl, tree, gen, device, steps: int) -> tuple[list, list]:
+    """Drift steps, each a maintain and a PRIORITY save: their seconds."""
+    import torch
+    maint_s, save_s = [], []
+    for step in range(1, steps + 1):
+        _drift(tree, gen, device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ctl.maintain(step, tree)
+        ctl.fabric.block_until_maintained()
+        maint_s.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        check(ctl.maybe_checkpoint(step, tree), f"no save at step {step}")
+        save_s.append(time.perf_counter() - t0)
+    return maint_s, save_s
+
+
+def _check_live_tiers(tree, recovered, plan, part, device) -> None:
+    """PEER_REPLICA and PARITY blocks came back as their live values."""
+    import numpy as np
+    import torch
+    from repro_torch.utils.tree import tree_leaves
+    live_tiers = plan.mask(1) | plan.mask(2)
+    for x, r, leaf in zip(tree_leaves(tree), tree_leaves(recovered),
+                          part.leaves):
+        m = live_tiers[leaf.offset:leaf.offset + leaf.n_blocks]
+        rows = np.repeat(m, BLOCK_ROWS)[:leaf.rows]
+        if rows.any():
+            sel = torch.from_numpy(rows).to(device)
+            check(torch.equal(r.reshape(leaf.rows, -1)[sel],
+                              x.reshape(leaf.rows, -1)[sel]),
+                  f"{leaf.name}: a PEER_REPLICA or PARITY block is not its "
+                  f"live value")
+
+
+def _saving_policy():
+    from repro_torch.core.policy import CheckpointPolicy, SelectionStrategy
+    return CheckpointPolicy(fraction=0.125, full_interval=8,
+                            strategy=SelectionStrategy.PRIORITY,
+                            block_rows=BLOCK_ROWS)
+
+
+def phase_rs_fabric(tree, device) -> dict:
+    import itertools
+    import numpy as np
+    import torch
+    from repro_torch.core.controller import FTController
+    from repro_torch.fabric import CheckpointFabric, FabricConfig
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ctl = FTController(tree, _saving_policy(),
+                       fabric=FabricConfig(**RS_FABRIC))
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    fab, part = ctl.fabric, ctl.partition
+    check(ctl.arena_ready, "the RS controller is not in arena mode")
+    gen = torch.Generator(device=device).manual_seed(SEED + 7)
+    steps = 3
+    maint_s, save_s = _drive(ctl, tree, gen, device, steps)
+    check(fab.stats["rs_arena_encodes"] == steps, "no RS encode per maintain")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    clean = ctl.scrub(step=steps)
+    clean_s = time.perf_counter() - t0
+    check(clean["checked"] and clean["detected"] == 0,
+          f"the clean scrub found something: {clean}")
+    before = fab.replicas.arena.clone()
+    where = fab.inject_arena_bit_flip(rng=np.random.default_rng(SEED + 8))
+    check(not torch.equal(before, fab.replicas.arena), "no bit flipped")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = ctl.scrub(step=steps)
+    torch.cuda.synchronize()
+    flip_s = time.perf_counter() - t0
+    check(out["detected"] == 1 and out["corrected"] == 1
+          and out["reports"][0]["block"] == where["block"],
+          f"the flip at {where} was not corrected: {out}")
+    check(torch.equal(before, fab.replicas.arena),
+          "the replica arena differs from before the flip")
+    del before
+    # the first host pair whose plan sends two members of a group to PARITY
+    codec = fab.parity
+    pair = None
+    for h0, h1 in itertools.combinations(range(fab.domains.n_hosts), 2):
+        l0, f0 = fab.domain_failure("host", h0)
+        l1, f1 = fab.domain_failure("host", h1)
+        lost, failed = l0 | l1, np.unique(np.concatenate([f0, f1]))
+        plan = fab.planner.plan(lost, failed, steps)
+        par = codec.member_mask(plan.mask(2))
+        if (par.sum(axis=1) >= 2).any():
+            pair = (h0, h1)
+            break
+    check(pair is not None, "no host pair erases two members of a group")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    recovered, info = ctl.on_failure(tree, lost, failed_devices=failed,
+                                     step=steps)
+    torch.cuda.synchronize()
+    recovery_s = time.perf_counter() - t0
+    counts = info["tier_counts"]
+    check(counts == plan.counts, "the recovery did not follow its plan")
+    check(info["tier_sq"]["PARITY"] == 0.0
+          and info["tier_sq"]["PEER_REPLICA"] == 0.0,
+          f"live-value tiers perturbed the state: {info['tier_sq']}")
+    _check_live_tiers(tree, recovered, plan, part, device)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del recovered
+    stats = dict(fab.stats)
+    groups = codec.n_groups
+    del ctl, fab, codec
+    torch.cuda.empty_cache()
+    # the same loss under an XOR fabric on the same topology
+    xor = CheckpointFabric(part, FabricConfig(
+        **{k: v for k, v in RS_FABRIC.items() if k != "rs_parity"}))
+    xor.maintain(steps, tree)
+    xor_counts = xor.planner.plan(lost, failed, steps).counts
+    del xor
+    torch.cuda.empty_cache()
+    check(counts["RUNNING_CKPT"] < xor_counts["RUNNING_CKPT"],
+          f"RS sent {counts['RUNNING_CKPT']} blocks to RUNNING_CKPT, XOR "
+          f"{xor_counts['RUNNING_CKPT']}")
+    out = {"setup_seconds": setup_s, "maintain_seconds": maint_s,
+           "save_seconds": save_s, "clean_scrub_seconds": clean_s,
+           "flip_scrub_seconds": flip_s, "flip": where,
+           "recovery_seconds": recovery_s, "hosts": list(pair),
+           "failed_devices": failed.tolist(),
+           "lost_blocks": info["lost_blocks"], "tier_counts": counts,
+           "xor_tier_counts": xor_counts, "tier_sq": info["tier_sq"],
+           "parity_groups": groups, "peak_memory_gb": peak,
+           "fabric_stats": {k: stats[k] for k in (
+               "rs_arena_encodes", "scrubs", "silent_errors_detected",
+               "silent_errors_corrected", "maintain_bytes_moved")}}
+    check(peak < 70, f"peak device memory {peak:.1f} GB")
+    log(f"RS fabric at 1.54 B values: {json.dumps(out)}")
+    return out
+
+
+def phase_leaf_fabric(tree, device) -> dict:
+    import numpy as np
+    import torch
+    from repro_torch.core.controller import FTController
+    from repro_torch.fabric import FabricConfig
+    from repro_torch.kernels import _build
+
+    torch.cuda.reset_peak_memory_stats()
+    ctl = FTController(tree, _saving_policy(),
+                       fabric=FabricConfig(arena=False))
+    fab, part = ctl.fabric, ctl.partition
+    check(not ctl.arena_ready and fab.arena_layout is None,
+          "the arena=False controller is in arena mode")
+    gen = torch.Generator(device=device).manual_seed(SEED + 9)
+    steps = 2
+    n0 = _build.LAUNCHES["fused_maintain"]
+    maint_s, save_s = _drive(ctl, tree, gen, device, steps)
+    check(_build.LAUNCHES["fused_maintain"] - n0 == steps * len(part.leaves),
+          "not one fused_maintain launch per leaf and maintain")
+    failed = np.unique(np.asarray([fab.view.homes[0],
+                                   fab.replicas.replica_homes[0]], np.int32))
+    lost = np.isin(fab.view.homes, failed)
+    plan = fab.planner.plan(lost, failed, steps)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    recovered, info = ctl.on_failure(tree, lost, failed_devices=failed,
+                                     step=steps)
+    torch.cuda.synchronize()
+    recovery_s = time.perf_counter() - t0
+    counts = info["tier_counts"]
+    check(counts == plan.counts, "the recovery did not follow its plan")
+    check(counts["PARITY"] > 0, f"no block went to the PARITY tier: {counts}")
+    check(info["tier_sq"]["PARITY"] == 0.0
+          and info["tier_sq"]["PEER_REPLICA"] == 0.0,
+          f"live-value tiers perturbed the state: {info['tier_sq']}")
+    _check_live_tiers(tree, recovered, plan, part, device)
+    out = {"maintain_seconds": maint_s, "save_seconds": save_s,
+           "recovery_seconds": recovery_s, "failed_devices": failed.tolist(),
+           "lost_blocks": info["lost_blocks"], "tier_counts": counts,
+           "parity_groups": fab.parity.n_groups,
+           "maintain_bytes_moved": fab.stats["maintain_bytes_moved"],
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    check(out["peak_memory_gb"] < 70, f"peak device memory "
+          f"{out['peak_memory_gb']:.1f} GB")
+    log(f"per-leaf fabric at 1.54 B values: {json.dumps(out)}")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -870,6 +1411,10 @@ def main() -> int:
     device = torch.device("cuda", 0)
     card = card_line()
     log(f"card: {card}")
+    int_rate = int32_ops_per_s()
+    log(f"INT32 rate: {int_rate / 1e12:.3f} T operations/s "
+        f"({torch.cuda.get_device_properties(0).multi_processor_count} SMs "
+        f"x 64 lanes x the maximum SM clock)")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
     _build.library()
@@ -889,9 +1434,11 @@ def main() -> int:
     log(f"peak device memory after phase 2: "
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     kernels.update(phase_arena_kernels(a_tree, b_tree, device))
+    kernels.update(phase_leaf_kernel(a_tree, b_tree, device))
     del b_tree
     torch.cuda.empty_cache()
-    log(f"peak device memory after phase 3: "
+    kernels.update(phase_rs_kernels(a_tree, device, int_rate))
+    log(f"peak device memory after phase 9: "
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
 
     # each path's own launch counts: set to 0 just before it, read just
@@ -915,17 +1462,46 @@ def main() -> int:
         f"{quick['maint_seconds_per_iter']:.6f} (CPU "
         f"{quick_cpu['maint_seconds_per_iter']:.6f}), fabric_stats "
         f"{json.dumps(quick['fabric_stats'])}, {quick_s:.2f} s")
+    multi = {}
+    for rs in (False, True):
+        path = "mlr_rs" if rs else "mlr_xor"
+        _build.reset_launches()
+        multi[path] = run_multi_erasure(device, rs)
+        launches[path] = dict(_build.LAUNCHES)
+        cpu = run_multi_erasure("cpu", rs)
+        check(multi[path]["tier_counts"] == cpu["tier_counts"]
+              and multi[path]["fallbacks"] == cpu["fallbacks"]
+              and multi[path]["iteration_cost"] == cpu["iteration_cost"],
+              f"{path}: the card {multi[path]} and the CPU {cpu} differ")
+        multi[path]["cpu"] = cpu
+    check(multi["mlr_rs"]["fallbacks"] == 0
+          and multi["mlr_rs"]["tier_counts"]["RUNNING_CKPT"] == 0
+          and multi["mlr_xor"]["fallbacks"] > 0,
+          f"RS(k, 2) did not absorb the double loss: {multi}")
+    log(f"multi-erasure section on {device}: {json.dumps(multi)}")
     _build.reset_launches()
     ctl = phase_controller(a_tree, device)
     launches["controller"] = dict(_build.LAUNCHES)
     _build.reset_launches()
     fabric = phase_fabric(a_tree, device)
     launches["fabric"] = dict(_build.LAUNCHES)
+    torch.cuda.empty_cache()
+    _build.reset_launches()
+    rs_fabric = phase_rs_fabric(a_tree, device)
+    launches["rs_fabric"] = dict(_build.LAUNCHES)
+    _build.reset_launches()
+    leaf_fabric = phase_leaf_fabric(a_tree, device)
+    launches["leaf_fabric"] = dict(_build.LAUNCHES)
     log(json.dumps({"launches": launches}))
     old = ("block_dist", "scatter_save", "masked_restore")
     new = ("arena_maintain", "arena_scatter", "parity_xor")
     for path, names in (("mlr", old), ("controller", old),
-                        ("mlr_fabric", new[:2]), ("fabric", new)):
+                        ("mlr_fabric", new[:2]), ("fabric", new),
+                        ("mlr_rs", ("gf256_mac",)),
+                        ("rs_fabric", ("arena_maintain", "arena_scatter",
+                                       "gf256_mac", "masked_restore")),
+                        ("leaf_fabric", ("fused_maintain", "scatter_save",
+                                         "parity_xor", "masked_restore"))):
         for name in names:
             check(launches[path][name] > 0,
                   f"{name} was not launched on the {path} path")
@@ -948,7 +1524,13 @@ def main() -> int:
                           "fabric"),
         "parity_xor": ("src/repro_torch/csrc/parity_xor.cu",
                        "src/repro/kernels/parity_xor/kernel.py:42",
-                       "fabric")}
+                       "fabric"),
+        "fused_maintain": ("src/repro_torch/csrc/fused_maintain.cu",
+                           "src/repro/kernels/fused_maintain/kernel.py:70",
+                           "leaf_fabric"),
+        "gf256_mac": ("src/repro_torch/csrc/gf256_mac.cu",
+                      "src/repro/kernels/gf256_mac/kernel.py:65",
+                      "rs_fabric")}
     record = []
     for name, (source, replaces, path) in sources.items():
         r = kernels[name]
@@ -958,7 +1540,11 @@ def main() -> int:
                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                        "bound_by": r["bound_by"],
                        "library_ms": r["library_ms"]})
-    log(json.dumps({"controller": ctl, "fabric": fabric, "mlr": {
+    log(json.dumps({"controller": ctl, "fabric": fabric,
+                    "rs_fabric": rs_fabric, "leaf_fabric": leaf_fabric,
+                    "multi_erasure": multi,
+                    "gf256_mac_shapes": kernels["gf256_mac"]["shapes"],
+                    "int32_ops_per_s": int_rate, "mlr": {
         "kappa_clean": mlr["kappa"],
         "scar_iteration_cost": mlr["scar"]["iteration_cost"],
         "traditional_iteration_cost": mlr["trad"]["iteration_cost"],

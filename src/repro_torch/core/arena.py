@@ -68,8 +68,7 @@ def dtype_code(dtype: torch.dtype) -> int:
 
 def arena_compatible(partition: BlockPartition) -> bool:
     """True when every leaf dtype is word-packable. Trees with f64, int64,
-    complex or bool leaves take the per-leaf path (not ported: ROADMAP
-    item 14)."""
+    complex or bool leaves take the per-leaf path."""
     return all(word_packable(l.dtype) for l in partition.leaves)
 
 
@@ -353,12 +352,8 @@ def arena_drift_scores(live: torch.Tensor, ref: torch.Tensor,
     CPU arena its plain version. Main-region tiles reduce per tile first,
     tail words per tail block, then each gid sums its parts in a fixed
     order."""
-    from repro_torch.kernels.fused_maintain.ops import arena_sweep, sweep_plan
-    plan = getattr(layout, "_score_plan", None)
-    if plan is None:
-        plan = sweep_plan(layout)
-        object.__setattr__(layout, "_score_plan", plan)
-    return arena_sweep(live, ref, plan)
+    from repro_torch.kernels.fused_maintain.ops import arena_sweep, score_plan
+    return arena_sweep(live, ref, score_plan(layout))
 
 
 def arena_restore(dst: PyTree, arena: torch.Tensor, global_mask,

@@ -426,6 +426,23 @@ class FTController:
         info["events"] = applied
         return recovered, info
 
+    def scrub(self, step: Optional[int] = None) -> dict:
+        """Run the fabric's silent-error integrity pass. A corruption the
+        scrub corrects applies no perturbation (the exact bits are back);
+        the recorder prices it once the full telemetry is ported (ROADMAP
+        item 9). ``checked=False`` without an integrity-capable fabric."""
+        if self.fabric is None:
+            return {"checked": False, "detected": 0, "corrected": 0,
+                    "reports": []}
+        out = self.fabric.scrub(step=step)
+        if self.recorder.enabled and out["detected"]:
+            self.recorder.record_recovery(
+                step=None if step is None else int(step), lost_blocks=0,
+                tier_counts={"SILENT_ERROR": out["detected"]},
+                applied_sq=0.0, silent_detected=out["detected"],
+                silent_corrected=out["corrected"])
+        return out
+
     def heal_domain(self, kind: str, index: int,
                     params: Optional[PyTree] = None,
                     step: Optional[int] = None) -> dict:

@@ -18,18 +18,27 @@ to:
                                   re-seeds and re-stripes over the
                                   survivors;
 - ``heal_domain(kind, index)``    re-admit a healed domain (and, elastic,
-                                  rebalance onto it).
+                                  rebalance onto it);
+- ``scrub(step)``                 the RS tier's integrity pass over the coded
+                                  snapshot: detect, localize and correct
+                                  silent bit flips
+                                  (``inject_arena_bit_flip`` makes one).
+
+Three maintenance paths, as in the reference: the arena sweep (the
+default), the per-leaf sweep (``arena=False``, and every tree with a dtype
+the arena cannot pack: f64, int64, bool, complex), and the per-component
+passes (``fused=False``, one-tier fabrics, off-interval steps). The codec
+is XOR parity (``rs_parity=0``) or RS(k, m) (``rs_parity=m``), which
+re-encodes its rows from the sweep's snapshot.
 
 The failure domains are logical: ``FabricConfig()``'s 8 devices, 4 hosts
 and 2 racks are bookkeeping over the one device the tensors live on.
 
 Not ported yet, and raising ``NotImplementedError`` with their ROADMAP
-item: ``async_maintain=True`` (item 12), ``rs_parity > 0`` and the
-integrity scrub (item 13), ``arena=False`` / ``fused=False`` and trees
-with dtypes the arena cannot pack (item 14), ``mesh=`` and
-``resize_mesh`` (item 15). The reference's ``use_pallas`` option is
-gone: each kernel runs on CUDA tensors and its plain version on CPU
-tensors. Telemetry events come with the full recorder (item 9).
+item: ``async_maintain=True`` (item 12), ``mesh=`` and ``resize_mesh``
+(item 15). The reference's ``use_pallas`` option is gone: each kernel runs
+on CUDA tensors and its plain version on CPU tensors. Telemetry events
+come with the full recorder (item 9).
 """
 from __future__ import annotations
 
@@ -47,9 +56,11 @@ from repro_torch.fabric.parity import ParityCodec
 from repro_torch.fabric.placement import (ClusterView, rebalance_homes,
                                           rehome_blocks)
 from repro_torch.fabric.replica import ReplicaSet
+from repro_torch.fabric.rs import RSCodec
 from repro_torch.fabric.tiers import TieredRecovery
 from repro_torch.kernels.fused_maintain.ops import (ArenaMaintainProgram,
-                                                    maintain_traffic)
+                                                    maintain_traffic,
+                                                    make_fused_maintain_fn)
 from repro_torch.sharding.partition import block_device_homes
 from repro_torch.telemetry.recorder import NULL_RECORDER
 
@@ -66,7 +77,7 @@ class FabricConfig:
     parity: bool = True
     parity_group: int = 4          # members per XOR parity group
     parity_interval: int = 1       # steps between parity re-encodes
-    rs_parity: int = 0             # 0 = XOR codec (RS: ROADMAP item 13)
+    rs_parity: int = 0             # 0 = XOR codec; m >= 1 = RS(k, m) codec
     elastic: bool = False          # post-failure re-homing/re-seeding
     fused: bool = True             # single-sweep maintenance
     arena: bool = True             # flat-arena maintenance
@@ -101,39 +112,42 @@ class CheckpointFabric:
         if self.cfg.async_maintain:
             raise NotImplementedError(
                 "async maintenance is not ported yet (ROADMAP item 12)")
-        if self.cfg.rs_parity > 0:
-            raise NotImplementedError(
-                "the RS erasure tier is not ported yet (ROADMAP item 13)")
-        if not (self.cfg.arena and self.cfg.fused) \
-                or not arena_compatible(partition):
-            raise NotImplementedError(
-                "the per-leaf fabric path (arena=False, fused=False, or "
-                "leaf dtypes the arena cannot pack) is not ported yet "
-                "(ROADMAP item 14)")
         self.recorder = recorder if recorder is not None else NULL_RECORDER
         self.partition = partition
         self.domains = FailureDomainMap(self.cfg.n_devices,
                                         self.cfg.devices_per_host,
                                         self.cfg.hosts_per_rack)
+        # the codecs pack trees into this layout for their tree-path encode
+        # and decode (dtypes that are not word-packable as f32 images)
         layout = build_arena_layout(partition)
-        # the single-sweep arena path needs both tiers (the sweep's pack is
-        # the replica write, its XOR needs the parity striping); with one
-        # tier the per-component passes run
-        self.arena_layout = layout if (self.cfg.replicate
-                                       and self.cfg.parity) else None
+        # the single-sweep arena path needs the fused pipeline, both tiers
+        # (the sweep's pack is the replica write, its XOR needs the parity
+        # striping) and word-packable leaves; otherwise the per-leaf sweep
+        # or the per-component passes run
+        use_arena = (self.cfg.arena and self.cfg.fused and self.cfg.replicate
+                     and self.cfg.parity and arena_compatible(partition))
+        self.arena_layout = layout if use_arena else None
         initial = (np.asarray(homes, np.int32) if homes is not None
                    else block_device_homes(partition, self.cfg.n_devices))
         self.view = ClusterView(self.domains, initial)
         self.replicas = (ReplicaSet(partition, self.view)
                          if self.cfg.replicate else None)
-        self.parity = (ParityCodec(partition, self.view,
-                                   group_size=self.cfg.parity_group,
-                                   arena_layout=layout)
-                       if self.cfg.parity else None)
+        self.parity = None
+        if self.cfg.parity and self.cfg.rs_parity > 0:
+            self.parity = RSCodec(partition, self.view,
+                                  group_size=self.cfg.parity_group,
+                                  n_parity=self.cfg.rs_parity,
+                                  arena_layout=layout)
+        elif self.cfg.parity:
+            self.parity = ParityCodec(partition, self.view,
+                                      group_size=self.cfg.parity_group,
+                                      arena_layout=layout)
         self.planner = TieredRecovery(partition, self.view,
                                       replicas=self.replicas,
                                       parity=self.parity)
         self.last_maintained_step = -1
+        self._fused_fn = None
+        self._fused_version = -1
         self._arena_fn = None
         self._arena_version = -1
         self._traffic = None
@@ -169,12 +183,14 @@ class CheckpointFabric:
         With both tiers due, one arena sweep reads the live values once and
         yields the replica, the XOR parity and, with ``ckpt_values`` (the
         running checkpoint as an arena or a tree), per-block PRIORITY scores
-        cached on ``last_scores`` for the controller's save. ``params`` may
-        be the live flat arena: with ``own_live`` it becomes the replica
-        itself (no copy; the caller never mutates it afterwards), without
-        it the sweep writes a replica copy from the same read. Off-interval
-        steps with one tier due and a tree input run the per-component
-        passes."""
+        cached on ``last_scores`` for the controller's save (under RS the
+        rows are then encoded from the sweep's snapshot). ``params`` may be
+        the live flat arena: with ``own_live`` it becomes the replica itself
+        (no copy; the caller never mutates it afterwards), without it the
+        sweep writes a replica copy from the same read. Without an arena
+        layout the per-leaf sweep runs instead (one fused_maintain launch
+        per leaf). Off-interval steps with one tier due and a tree input,
+        and ``fused=False``, run the per-component passes."""
         step = int(step)
         if step == self.last_maintained_step and not force:
             return
@@ -185,6 +201,8 @@ class CheckpointFabric:
                 or (live is not None and (due_replica or due_parity))):
             self._arena_maintain(step, params, ckpt_values,
                                  own_live=own_live)
+        elif self.cfg.fused and due_replica and due_parity:
+            self._fused_maintain(step, params, ckpt_values)
         else:
             t = self._traffic_model()
             if due_replica:
@@ -208,7 +226,14 @@ class CheckpointFabric:
         resident = is_arena and not owned
         rep, scores, parity = fn(params, z, own_live=owned)
         self.replicas.ingest_arena(step, rep, self.arena_layout)
-        self.parity.ingest(step, parity)
+        if self.parity.needs_arena_encode:
+            # RS rows re-encode from the sweep's snapshot, the buffer the
+            # replica tier stores: the arena recovery route and the scrub
+            # see one coded snapshot
+            self.parity.encode_from_arena(step, rep, self.arena_layout)
+            self.stats["rs_arena_encodes"] += 1
+        else:
+            self.parity.ingest(step, parity)
         if z is not None:
             self.last_scores = scores
             self.last_scores_step = step
@@ -223,6 +248,39 @@ class CheckpointFabric:
         self.stats["maintain_bytes_moved"] += self._traffic_model()[
             "arena_owned" if owned else
             "arena_resident" if resident else "arena"]
+
+    def _fused_maintain(self, step: int, params: PyTree,
+                        ckpt_values: Optional[PyTree]) -> None:
+        """The per-leaf sweep: one fused_maintain launch per leaf writes
+        the replica leaf, the leaf's scores (against ``ckpt_values`` when
+        given) and its XOR parity; under RS the rows are encoded from the
+        live tree instead (the per-leaf path has no arena snapshot)."""
+        fn = self._fused_maintain_fn()
+        replica, scores, parity = fn(params, ckpt_values)
+        self.replicas.ingest(step, replica)
+        if self.parity.needs_arena_encode:
+            self.parity.encode(step, params)
+        else:
+            self.parity.ingest(step, parity)
+        if ckpt_values is not None:
+            self.last_scores = scores
+            self.last_scores_step = step
+        self.stats["replica_refreshes"] += 1
+        self.stats["parity_encodes"] += 1
+        self.stats["fused_maintains"] += 1
+        self.stats["maintain_bytes_moved"] += self._traffic_model()["fused"]
+
+    def _fused_maintain_fn(self):
+        """The per-leaf sweep program, rebuilt whenever the placement
+        engine re-striped since the last build."""
+        if self._fused_fn is None or self._fused_version != self.view.version:
+            self._fused_fn = make_fused_maintain_fn(
+                self.partition, self.parity.layout, self.parity.group_of,
+                self.parity.n_groups,
+                parity=not self.parity.needs_arena_encode)
+            self._fused_version = self.view.version
+            self._traffic = None
+        return self._fused_fn
 
     def _as_arena(self, ckpt_values):
         """Checkpoint values in arena form (None passes through)."""
@@ -239,9 +297,14 @@ class CheckpointFabric:
         """The sweep program, rebuilt whenever the placement engine
         re-striped since the last build."""
         if self._arena_fn is None or self._arena_version != self.view.version:
-            self._arena_fn = ArenaMaintainProgram(
-                self.partition, self.arena_layout, self.parity.layout,
-                self.parity.group_of, self.parity.n_groups)
+            if self.parity.needs_arena_encode:
+                # no parity destinations: the RS codec encodes its rows
+                self._arena_fn = ArenaMaintainProgram(self.partition,
+                                                      self.arena_layout)
+            else:
+                self._arena_fn = ArenaMaintainProgram(
+                    self.partition, self.arena_layout, self.parity.layout,
+                    self.parity.group_of, self.parity.n_groups)
             self._arena_version = self.view.version
             self._traffic = None
         return self._arena_fn
@@ -326,16 +389,20 @@ class CheckpointFabric:
 
     def redundancy_nbytes(self) -> dict[str, int]:
         """Memory of the redundancy machinery: replica and parity payloads
-        and the parity staging (the reference's accounting; the arena
-        sweep's compact outputs, or one tree-path encode's staging when
-        mismatched intervals route steps through it)."""
+        (m rows per group under RS) and the parity staging, the reference's
+        accounting: the arena sweep's or the per-leaf sweep's compact
+        outputs, or one tree-path encode's staging when the per-component
+        passes run (``fused=False`` or mismatched intervals)."""
         staging = 0
         if self.parity is not None:
-            all_swept = (self.arena_layout is not None
+            all_fused = (self.cfg.fused and self.cfg.replicate
                          and self.cfg.replicate_interval
                          == self.cfg.parity_interval)
-            if self.live_arena_mode or all_swept:
+            if self.live_arena_mode or (all_fused
+                                        and self.arena_layout is not None):
                 staging = self._traffic_model()["staging_arena"]
+            elif all_fused:
+                staging = self._traffic_model()["staging_fused"]
             else:
                 staging = self.parity.staging_nbytes()
         return {"replica": self.replicas.nbytes() if self.replicas else 0,
@@ -458,17 +525,88 @@ class CheckpointFabric:
         info["alive_hosts"] = self.view.n_alive_hosts
         return info
 
-    # -- not ported yet ------------------------------------------------------
+    # -- integrity (silent errors) -------------------------------------------
 
     def scrub(self, step: Optional[int] = None) -> dict:
-        raise NotImplementedError(
-            "the integrity scrub belongs to the RS tier, not ported yet "
-            "(ROADMAP item 13)")
+        """The integrity pass over the coded redundancy state.
 
-    def inject_arena_bit_flip(self, *args, **kwargs) -> dict:
-        raise NotImplementedError(
-            "bit-flip injection feeds the RS scrub, not ported yet (ROADMAP "
-            "item 13)")
+        Recomputes the RS rows from the replica arena and XORs them against
+        the stored rows: nonzero syndromes mean the coded snapshot was
+        silently corrupted since encode. Localizable corruptions (one
+        member or one stored row, m >= 2) are corrected in place by XOR-ing
+        the error pattern back out; the rest are detected and reported.
+        Needs the RS codec and an arena replica whose snapshot is the
+        encode step's; otherwise it reports ``checked=False`` and touches
+        nothing."""
+        out = {"checked": False, "detected": 0, "corrected": 0,
+               "reports": []}
+        codec = self.parity
+        if codec is None or not codec.supports_integrity:
+            return out
+        if codec.parity is None or self.replicas is None \
+                or self.replicas.arena is None \
+                or self.replicas.refreshed_step != codec.encoded_step:
+            return out
+        self.stats["scrubs"] += 1
+        out["checked"] = True
+        layout = self.replicas.arena_layout
+        synd = codec.syndromes_from_arena(self.replicas.arena, layout)
+        for rep in codec.localize_corruption(synd):
+            out["detected"] += 1
+            self.stats["silent_errors_detected"] += 1
+            corrected = False
+            if rep["localized"]:
+                arena = codec.correct_in_arena(self.replicas.arena, rep,
+                                               layout)
+                if rep["kind"] == "member":
+                    # re-ingest: drops a decoded tree form of the old bits
+                    self.replicas.ingest_arena(codec.encoded_step, arena,
+                                               layout)
+                corrected = True
+                out["corrected"] += 1
+                self.stats["silent_errors_corrected"] += 1
+            out["reports"].append(dict(
+                step=step, group=rep["group"], kind=rep["kind"],
+                member=rep["member"], block=rep["block"], row=rep["row"],
+                localized=rep["localized"], corrected=corrected))
+        return out
+
+    def inject_arena_bit_flip(self, block: Optional[int] = None,
+                              word: Optional[int] = None,
+                              bit: Optional[int] = None,
+                              rng: Optional[np.random.Generator] = None,
+                              ) -> dict:
+        """Fault injection: flip one bit of one block's payload in the
+        replica arena, in place (the fabric's own snapshot), a silent
+        corruption that only :meth:`scrub` sees. ``word`` indexes the
+        block's payload words in frame-column order; whatever is not given
+        is drawn from ``rng`` (default ``default_rng(0)``) in the
+        reference's order. Returns where the flip landed."""
+        if self.replicas is None or self.replicas.arena is None:
+            raise RuntimeError("bit-flip injection needs an arena-mode "
+                               "replica")
+        if self.parity is None:
+            raise RuntimeError("bit-flip injection needs a parity codec")
+        layout = self.replicas.arena_layout
+        if rng is None:
+            rng = np.random.default_rng(0)
+        if block is None:
+            block = int(rng.integers(self.partition.total_blocks))
+        cols, words = self.parity.arena_words_of(int(block), layout)
+        k = int(word) % cols.size if word is not None \
+            else int(rng.integers(cols.size))
+        b = int(bit) if bit is not None else int(rng.integers(32))
+        idx = int(words[k])
+        arena = self.replicas.arena
+        flip = int(np.array([1 << b], np.uint32).view(np.int32)[0])
+        arena[idx:idx + 1] ^= torch.tensor([flip], dtype=torch.int32,
+                                           device=arena.device)
+        self.replicas.ingest_arena(self.replicas.refreshed_step, arena,
+                                   layout)
+        return {"block": int(block), "word": int(cols[k]), "bit": b,
+                "arena_index": idx}
+
+    # -- not ported yet ------------------------------------------------------
 
     def resize_mesh(self, *args, **kwargs):
         raise NotImplementedError(

@@ -195,6 +195,11 @@ class ParityCodec:
         # -1 members index row 0 but are masked out by ``valid``
         self._gather_ids = np.where(self.valid, self.members, 0)
 
+    def member_mask(self, block_mask: np.ndarray) -> np.ndarray:
+        """(n_groups, width) bool: the member slots whose blocks the
+        (total_blocks,) ``block_mask`` holds (padding slots False)."""
+        return self.valid & np.asarray(block_mask, bool)[self._gather_ids]
+
     # -- maintenance ---------------------------------------------------------
 
     def encode_arena(self, arena: torch.Tensor) -> torch.Tensor:
@@ -237,6 +242,25 @@ class ParityCodec:
         (the reference's frames and member gather do not exist here)."""
         return self.arena_layout.nbytes
 
+    def arena_words_of(self, block: int,
+                       arena_layout: Optional[ArenaLayout] = None
+                       ) -> tuple[np.ndarray, np.ndarray]:
+        """``(frame columns, arena words)`` of a block's payload, column by
+        column in ascending order: its arena segments at their frame
+        columns."""
+        lay = arena_layout or self.arena_layout
+        cols, words = [], []
+        for a in lay.gid_ab[lay.gid_ptr[block]:lay.gid_ptr[block + 1]]:
+            ab = lay.blocks[a]
+            col = self.layout.cols[ab.leaf]
+            cols.append(np.arange(col, col + ab.payload))
+            words.append(np.arange(ab.offset, ab.offset + ab.payload))
+        if not cols:
+            return np.empty((0,), np.int64), np.empty((0,), np.int64)
+        cols, words = np.concatenate(cols), np.concatenate(words)
+        order = np.argsort(cols, kind="stable")
+        return cols[order], words[order]
+
     # -- recovery ------------------------------------------------------------
 
     def code_strength(self, failed_devices) -> np.ndarray:
@@ -257,12 +281,12 @@ class ParityCodec:
             return np.zeros((total,), bool)
         lost = np.asarray(lost_mask, bool)
         available = np.asarray(available_mask, bool)
-        member_unavail = self.valid & ~available[self._gather_ids]
+        member_unavail = self.member_mask(~available)
         erased = member_unavail.sum(axis=1)
         strength = self.code_strength(failed_devices)
         ok_group = (erased >= 1) & (erased <= strength)
         out = np.zeros((total,), bool)
-        out[self._gather_ids[ok_group[:, None] & member_unavail]] = True
+        out[self.members[ok_group[:, None] & member_unavail]] = True
         return out & lost
 
     def exceeded_groups(self, lost_mask: np.ndarray,
@@ -272,8 +296,8 @@ class ParityCodec:
         the surviving strength, or a stale parity), one dict each."""
         lost = np.asarray(lost_mask, bool)
         available = np.asarray(available_mask, bool)
-        member_lost = self.valid & lost[self._gather_ids]
-        erased = (self.valid & ~available[self._gather_ids]).sum(axis=1)
+        member_lost = self.member_mask(lost)
+        erased = self.member_mask(~available).sum(axis=1)
         fresh = self.is_fresh(step)
         strength = self.code_strength(failed_devices) if fresh \
             else np.zeros((self.n_groups,), np.int64)
@@ -302,8 +326,7 @@ class ParityCodec:
         them)."""
         if self.parity is None:
             raise RuntimeError("no parity to reconstruct from")
-        keep = self.valid & np.asarray(available_mask, bool)[
-            self._gather_ids]
+        keep = self.member_mask(available_mask)
         plan, blocks = reconstruct_plan(
             arena_layout, self.layout, self.group_of, self.members,
             np.nonzero(np.asarray(recover_mask, bool))[0], keep)

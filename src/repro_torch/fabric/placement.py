@@ -1,8 +1,7 @@
 """Elastic placement engine: mutable cluster view + degraded-topology planning.
 
 The port of ``repro.fabric.placement`` (numpy only; every integer output
-equals the reference's). ``rs_parity_homes`` belongs to the RS tier,
-ROADMAP item 13, and is not ported yet.
+equals the reference's).
 
 The first fabric wired placement once, at construction: ``block_device_homes``
 gave each block a permanent primary home, replicas were ring-shifted a fixed
@@ -24,6 +23,8 @@ expensive RUNNING_CKPT/DISK tiers. This module makes placement *elastic*:
   re-cut over the surviving hosts so every group keeps host-disjoint members
   and a live parity home; a lone tail member folds into the previous group
   so no group ever has fewer than two members.
+- :func:`rs_parity_homes` — the RS(k, m) tier's m parity-row homes per
+  group, host-disjoint from each other and from every member host.
 - :func:`rebalance_homes` — after a domain heals, load is levelled back onto
   the re-admitted devices.
 
@@ -246,6 +247,40 @@ def effective_parity_group(view: ClusterView, group_size: int,
     if view.n_alive_hosts >= 3:
         return min(group_size, view.n_alive_hosts - 1)
     return group_size
+
+
+def rs_parity_homes(members: np.ndarray, view: ClusterView,
+                    n_parity: int) -> np.ndarray:
+    """(n_groups, n_parity) parity-row homes of the RS(k, m) tier.
+
+    Each group's m rows want m host-disjoint homes that also avoid every
+    member host, so one host loss never takes a member and the row that
+    would recover it. Per row, in order of preference: an alive device on
+    a host free of the members and of this group's earlier rows, then one
+    free of member hosts, then of member devices, then any alive device."""
+    alive = view.alive_devices()
+    if alive.size == 0:
+        raise RuntimeError("cannot place parity: no surviving devices")
+    a_hosts = np.asarray(view.host_of(alive))
+    load = view.load().astype(np.int64)
+    out = np.zeros((members.shape[0], n_parity), np.int32)
+    for j, row in enumerate(members):
+        ids = row[row >= 0]
+        m_hosts = set(np.asarray(view.host_of(view.homes[ids])).ravel()
+                      .tolist())
+        m_devs = set(int(d) for d in view.homes[ids])
+        p_hosts: set[int] = set()
+        for r in range(n_parity):
+            taken = m_hosts | p_hosts
+            host_free_all = alive[~np.isin(a_hosts, list(taken))]
+            host_free = alive[~np.isin(a_hosts, list(m_hosts))]
+            dev_free = alive[~np.isin(alive, list(m_devs))]
+            for cands in (host_free_all, host_free, dev_free, alive):
+                if cands.size:
+                    out[j, r] = _pick_balanced(cands, load)
+                    break
+            p_hosts.add(int(view.host_of(out[j, r])))
+    return out
 
 
 def stripe_parity_groups(view: ClusterView, group_size: int,

@@ -7,9 +7,9 @@ Placement is read from the fabric's :class:`ClusterView` and re-seeded
 after a domain loss. A replica restored while fresh is the block's live
 value: zero perturbation in the Theorem 4.1 accounting.
 
-The snapshot is a tree (the per-component refresh) or a flat arena
-ingested by the arena sweep (the hot-path form); ``values`` decodes the
-arena on demand (recovery only).
+The snapshot is a tree (the per-component refresh or the per-leaf sweep's
+copy) or a flat arena ingested by the arena sweep (the hot-path form);
+``values`` decodes the arena on demand (recovery only).
 """
 from __future__ import annotations
 
@@ -44,6 +44,13 @@ class ReplicaSet:
     def refresh(self, step: int, params: PyTree) -> None:
         """Snapshot live params into the replicas (a device copy)."""
         self._tree = clone_tree(params)
+        self._arena = None
+        self.refreshed_step = int(step)
+
+    def ingest(self, step: int, values: PyTree) -> None:
+        """Adopt a tree snapshot made elsewhere (the per-leaf sweep writes
+        the replica copy in the pass that folds the parity)."""
+        self._tree = values
         self._arena = None
         self.refreshed_step = int(step)
 

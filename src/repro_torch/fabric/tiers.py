@@ -7,17 +7,23 @@ first):
   SURVIVOR      block not lost; live value kept (SCAR partial recovery).
   PEER_REPLICA  anti-affine replica survived; restores the replica
                 snapshot (the live value when fresh: zero perturbation).
-  PARITY        single-erasure XOR reconstruction from the surviving
-                group members and the parity block (bit-exact when fresh).
+  PARITY        reconstruction from the surviving group members and the
+                parity: one erasure per group under XOR, up to m under
+                RS(k, m) (bit-exact when fresh).
   RUNNING_CKPT  the paper's in-memory running checkpoint, homed on a host
                 holding neither the primary nor the replica.
   DISK          the persistent store mirror (the store is ROADMAP item 11:
                 without one the running checkpoint's values stand in).
-  SILENT_ERROR  the RS scrub's class (ROADMAP item 13); never planned here.
+  SILENT_ERROR  not a loss tier: the integrity scrub's class for blocks
+                whose coded state was silently corrupted (detected from
+                the RS syndromes, corrected in place when localizable);
+                never planned here.
 
-On CUDA tensors the PEER_REPLICA restore runs the masked_restore kernel,
-PARITY the parity_xor kernel, RUNNING_CKPT and DISK ``select_blocks``
-(masked_restore).
+How many erasures a group absorbs is the codec's (``code_strength``:
+its parity rows homed on live devices), so one planner serves both
+codecs. On CUDA tensors the PEER_REPLICA restore runs the masked_restore
+kernel, PARITY the parity_xor kernel (XOR) or the gf256_mac kernel (RS),
+RUNNING_CKPT and DISK ``select_blocks`` (masked_restore).
 """
 from __future__ import annotations
 

@@ -1,10 +1,17 @@
-"""Carry parameter trees between the JAX package and the port.
+"""Carry parameter trees and coded parity between the JAX package and the
+port.
 
 ``from_numpy_tree`` takes a JAX params tree after
 ``jax.tree_util.tree_map(np.asarray, p)`` and returns the port's tree of
 tensors on ``device``; ``to_numpy_tree`` goes back. Keys, structure and
 dtypes are kept; bfloat16 and the fp8 family (numpy ``ml_dtypes``) travel
 as their raw bits.
+
+``load_parity_rows`` hands a codec parity encoded elsewhere (the
+reference's ``np.asarray(codec.parity)``: ``(n_groups, frame_elems)`` XOR
+blocks or ``(n_groups, m, frame_elems)`` RS rows, int32) to a port codec of
+the same striping, so both packages can scrub or decode one coded
+snapshot; ``parity_rows_to_numpy`` goes back.
 """
 from __future__ import annotations
 
@@ -49,3 +56,22 @@ def from_numpy_tree(tree: PyTree, device) -> PyTree:
 
 def to_numpy_tree(tree: PyTree) -> PyTree:
     return tree_map(_to_numpy, tree)
+
+
+def load_parity_rows(codec, rows, step: int, device="cpu") -> None:
+    """Adopt ``rows`` as ``codec``'s parity, encoded at ``step``."""
+    a = np.ascontiguousarray(np.asarray(rows), np.int32)
+    want = (codec.n_groups,) + ((codec.n_parity,) if codec.needs_arena_encode
+                                else ()) + (codec.layout.frame_elems,)
+    if a.shape != want:
+        raise ValueError(f"parity rows of shape {a.shape}, the codec's "
+                         f"striping has {want}")
+    codec.parity = torch.from_numpy(a.copy()).to(torch.device(device))
+    codec.encoded_step = int(step)
+
+
+def parity_rows_to_numpy(codec) -> np.ndarray:
+    """The codec's stored parity as int32 numpy."""
+    if codec.parity is None:
+        raise ValueError("the codec holds no parity")
+    return codec.parity.detach().cpu().numpy().copy()

@@ -39,7 +39,8 @@ COPY_CHUNK_BYTES = 64 * 1024
 
 LAUNCHES: dict[str, int] = {"block_dist": 0, "scatter_save": 0,
                             "masked_restore": 0, "arena_maintain": 0,
-                            "arena_scatter": 0, "parity_xor": 0}
+                            "arena_scatter": 0, "parity_xor": 0,
+                            "gf256_mac": 0, "fused_maintain": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 build_seconds: Optional[float] = None   # seconds the last build took (None: reused)
@@ -56,6 +57,11 @@ _SIGNATURES = {
     "arena_scatter": ([_P] * 6 + [_I64, _P], ctypes.c_int),
     "parity_xor_chunks": ([_I64], _I64),
     "parity_xor": ([_P] * 10 + [_I64, _I64, _P], ctypes.c_int),
+    "gf256_mac_chunks": ([_I64], _I64),
+    "gf256_mac_max_m": ([], _I64),
+    "gf256_mac": ([_P] * 13 + [_I64] * 7 + [_P], ctypes.c_int),
+    "fused_maintain_chunks": ([_I64], _I64),
+    "fused_maintain": ([_P] * 8 + [_I64] * 10 + [_P], ctypes.c_int),
     "repro_cuda_error_string": ([ctypes.c_int], ctypes.c_char_p),
 }
 

@@ -6,15 +6,17 @@
 - ``arena_maintain_cuda`` replaces ``arena_maintain_pallas``
   (``repro_torch/csrc/arena_maintain.cu``);
 - ``arena_scatter_cuda`` replaces ``arena_scatter_pallas``
-  (``repro_torch/csrc/arena_scatter.cu``).
-
-``fused_maintain_pallas`` (the per-leaf sweep) is ROADMAP item 14.
+  (``repro_torch/csrc/arena_scatter.cu``);
+- ``fused_maintain_cuda`` replaces ``fused_maintain_pallas``, the per-leaf
+  sweep (``repro_torch/csrc/fused_maintain.cu``).
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core.blocks import WORD_DTYPE_NAMES
+from repro_torch.core.arena import dtype_code
+from repro_torch.core.blocks import (WORD_DTYPE_NAMES, dtype_word_ratio,
+                                     word_packable)
 from repro_torch.kernels import _build
 
 
@@ -153,3 +155,88 @@ def arena_scatter_cuda(dst: torch.Tensor, src: torch.Tensor,
                   *(t[k].data_ptr() for k in ("off", "len", "chunk_ptr",
                                               "chunk_range")), n_chunks)
     return dst
+
+
+# the fused_maintain kernel's element loaders (csrc/fused_maintain.cu): the
+# word-packable dtypes by element size, the rest by the f32 image it stores
+_IMAGE_LOADERS = {torch.bool: 5, torch.float64: 6, torch.int64: 7,
+                  torch.complex64: 8, torch.complex128: 9}
+
+
+def fused_maintain_loader(dtype: torch.dtype) -> int:
+    """The fused_maintain kernel's loader for leaves of ``dtype``; raises
+    TypeError for a dtype it does not take."""
+    if dtype in _IMAGE_LOADERS:
+        return _IMAGE_LOADERS[dtype]
+    if word_packable(dtype):
+        return dtype.itemsize
+    raise TypeError(f"the fused_maintain kernel does not take {dtype}")
+
+
+def fused_maintain_cuda(x: torch.Tensor, z, parity, t: dict,
+                        block_rows: int, col: int, frame_elems: int,
+                        replica=None):
+    """One leaf's sweep (see ``csrc/fused_maintain.cu``): returns ``(replica,
+    scores)`` and XORs the leaf's parity into ``parity`` in place.
+
+    x: the live leaf, a contiguous CUDA tensor of a word-packable dtype or
+    of bool, f64, int64, complex64 or complex128 (their f32 images go into
+    the parity and the scores); z: the checkpoint leaf of the same dtype
+    and shape, or None (no scores: None is returned for them). parity: the
+    flat ``(n_groups * frame_elems)`` int32 parity, or None. ``t``: the
+    leaf's :class:`~repro_torch.kernels.fused_maintain.ops.LeafGroupMeta`
+    tables on the device (``ops.leaf_tables``), ``col`` its frame column.
+    replica: a contiguous tensor like ``x`` to write the copy into, or None
+    (a new one)."""
+    dev = x.device
+    if dev.type != "cuda":
+        raise ValueError(f"fused_maintain_cuda needs a CUDA leaf, got {dev}")
+    loader = fused_maintain_loader(x.dtype)
+    if not x.is_contiguous():
+        raise ValueError("fused_maintain_cuda needs a contiguous leaf")
+    for name, a in (("z", z), ("replica", replica)):
+        if a is not None and (a.device != dev or a.dtype != x.dtype
+                              or a.shape != x.shape
+                              or not a.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous tensor of x's "
+                             f"device, dtype and shape")
+    numel = x.numel()
+    rows = x.shape[0] if x.dim() else 1
+    row_width = numel // rows if rows else 0
+    n_blocks = max(1, -(-rows // block_rows))
+    elems = rows * row_width if n_blocks == 1 else block_rows * row_width
+    width = -(-elems // dtype_word_ratio(x.dtype))
+    if width != int(t["width"]) or n_blocks != int(t["n_blocks"]):
+        raise ValueError("the tables were built for another leaf shape")
+    if parity is not None:
+        if parity.device != dev or parity.dtype != torch.int32 \
+                or parity.dim() != 1 or not parity.is_contiguous():
+            raise ValueError("parity must be a contiguous 1-D int32 tensor "
+                             f"on {dev}")
+        if col + width > frame_elems or (int(t["max_touched"]) + 1) \
+                * frame_elems > parity.numel():
+            raise ValueError("the leaf's rows lie outside the parity")
+    if replica is None:
+        replica = torch.empty_like(x)
+    scores = partials = None
+    lib = _build.library()
+    n_chunks = lib.fused_maintain_chunks(width)
+    if n_chunks > _build.MAX_GRID_Y:
+        raise ValueError(f"a block of {width} words is too long")
+    if z is not None:
+        partials = torch.empty((n_blocks * n_chunks,), dtype=torch.float32,
+                               device=dev)
+        scores = torch.empty((n_blocks,), dtype=torch.float32, device=dev)
+    if numel == 0:
+        return replica, (None if z is None else scores.zero_())
+
+    def ptr(a):
+        return None if a is None else a.data_ptr()
+
+    _build.launch("fused_maintain", lib.fused_maintain, dev, x.data_ptr(),
+                  ptr(z), replica.data_ptr(), ptr(parity), ptr(partials),
+                  ptr(scores), t["members"].data_ptr(),
+                  t["touched"].data_ptr(), int(t["n_out"]), int(t["m_hat"]),
+                  n_blocks, elems, numel, width, col, frame_elems, loader,
+                  dtype_code(x.dtype))
+    return replica, scores

@@ -1,5 +1,5 @@
-"""Drivers of the maintenance kernels: the arena sweep, the arena save and
-the per-leaf in-place save.
+"""Host side of the maintenance kernels: the arena sweep, the arena save, the
+per-leaf sweep and the per-leaf in-place save.
 
 - :class:`ArenaMaintainProgram` is the fabric's per-step maintenance over
   the flat arena: one arena_maintain launch yields the XOR parity (written
@@ -8,6 +8,10 @@ the per-leaf in-place save.
   resident path the replica copy from the same read.
 - :func:`arena_scatter_save` is the arena partial save: one arena_scatter
   launch for the selected tiles and tail words.
+- :func:`make_fused_maintain_fn` is the per-leaf fabric's maintenance
+  (``FabricConfig(arena=False)``, and trees the arena cannot pack): one
+  fused_maintain launch per leaf yields the replica leaf, the leaf's
+  per-block scores and its XOR parity folded into the codec's layout.
 - :func:`tree_scatter_save` is the fabric-less in-place save
   (``FTController(inplace_save=True)``), one scatter_save launch per
   touched leaf. Unlike the reference it needs no padding of k to a power
@@ -18,8 +22,7 @@ the per-leaf in-place save.
 Each ``ops`` function runs the CUDA kernel on CUDA tensors and the plain
 version (``ref.py``) on CPU tensors. The host-side routing tables are
 numpy, built with sorts and bincounts (no loop over tiles), so they stay
-cheap at 1.5 M tiles. ``make_fused_maintain_fn`` (the per-leaf sweep) is
-ROADMAP item 14.
+cheap at 1.5 M tiles.
 """
 from __future__ import annotations
 
@@ -34,9 +37,11 @@ from repro_torch.core.arena import (ARENA_TILE, ArenaLayout, as_live_arena,
 from repro_torch.core.blocks import BlockPartition
 from repro_torch.kernels.fused_maintain.kernel import (arena_maintain_cuda,
                                                        arena_scatter_cuda,
+                                                       fused_maintain_cuda,
                                                        scatter_save_cuda)
 from repro_torch.kernels.fused_maintain.ref import (arena_maintain_ref,
                                                     arena_scatter_ref,
+                                                    fused_maintain_ref,
                                                     scatter_save_ref)
 from repro_torch.utils.tree import tree_flatten, tree_leaves, tree_unflatten
 
@@ -93,6 +98,83 @@ def leaf_group_metas(partition: BlockPartition, layout,
             members=_members_table(outrow, order, touched.size),
             col=int(col), width=int(width)))
     return metas
+
+
+def leaf_tables(meta: LeafGroupMeta, n_blocks: int,
+                device: torch.device) -> dict:
+    """A leaf's routing tables as the per-leaf sweep takes them: the
+    ``members`` rows and their ``touched`` groups on ``device``, with the
+    ints ``n_out``, ``m_hat``, ``width``, ``n_blocks`` and
+    ``max_touched``."""
+    members = np.ascontiguousarray(meta.members, np.int32)
+    return {"members": torch.from_numpy(members.reshape(-1)).to(device),
+            "touched": torch.from_numpy(
+                np.ascontiguousarray(meta.touched, np.int32)).to(device),
+            "n_out": int(members.shape[0]), "m_hat": int(members.shape[1]),
+            "width": int(meta.width), "n_blocks": int(n_blocks),
+            "max_touched": int(meta.touched.max()) if meta.touched.size
+            else -1}
+
+
+def fused_maintain(x: torch.Tensor, z, parity, t: dict, block_rows: int,
+                   col: int, frame_elems: int, replica=None):
+    """One leaf's sweep: ``(replica, scores)``, the parity folded in place.
+    The kernel on CUDA leaves (it raises on a dtype it does not take), the
+    plain version on CPU leaves."""
+    if z is not None and z.dtype != x.dtype:
+        z = z.to(x.dtype)
+    if x.device.type == "cpu":
+        return fused_maintain_ref(x, z, parity, t, block_rows, col,
+                                  frame_elems, replica)
+    return fused_maintain_cuda(
+        x.contiguous(), None if z is None else z.contiguous(), parity, t,
+        block_rows, col, frame_elems, replica)
+
+
+def make_fused_maintain_fn(partition: BlockPartition, layout,
+                           group_of: np.ndarray, n_groups: int,
+                           parity: bool = True):
+    """The per-leaf single-sweep maintenance program.
+
+    Returns ``fn(params, ckpt_values=None) -> (replica_tree, scores,
+    parity)``: ``scores`` the (total_blocks,) squared-L2 drift against the
+    running checkpoint (colocated leaves accumulate, as ``block_scores``;
+    zeros without ``ckpt_values``), ``parity`` the ``(n_groups,
+    frame_elems)`` int32 XOR parity, bit-identical to
+    ``ParityCodec.encode`` under the same striping (a new buffer each call,
+    zeroed once and folded into leaf by leaf). ``parity=False`` skips it
+    (the RS codec encodes its own rows) and returns None for it. One
+    fused_maintain launch per leaf on the card."""
+    metas = leaf_group_metas(partition, layout, group_of)
+    br = partition.block_rows
+    fe = layout.frame_elems
+    tables: dict[str, list] = {}
+
+    def fn(params: PyTree, ckpt_values: Optional[PyTree] = None):
+        flat, treedef = tree_flatten(params)
+        zflat = (tree_leaves(ckpt_values) if ckpt_values is not None
+                 else [None] * len(flat))
+        dev = flat[0].device
+        ts = tables.get(str(dev))
+        if ts is None:
+            ts = tables[str(dev)] = [leaf_tables(m, l.n_blocks, dev)
+                                     for m, l in zip(metas,
+                                                     partition.leaves)]
+        scores = torch.zeros((partition.total_blocks,), dtype=torch.float32,
+                             device=dev)
+        par = (torch.zeros((n_groups * fe,), dtype=torch.int32, device=dev)
+               if parity else None)
+        reps = []
+        for x, z, leaf, meta, t in zip(flat, zflat, partition.leaves, metas,
+                                       ts):
+            rep, sc = fused_maintain(x, z, par, t, br, meta.col, fe)
+            reps.append(rep)
+            if sc is not None:
+                scores[leaf.offset:leaf.offset + leaf.n_blocks] += sc
+        return (tree_unflatten(treedef, reps), scores,
+                None if par is None else par.view(n_groups, fe))
+
+    return fn
 
 
 # ---------------------------------------------------------------------------
@@ -271,6 +353,18 @@ def arena_sweep(x: torch.Tensor, z: Optional[torch.Tensor], plan: SweepPlan,
     return arena_maintain_cuda(x, z, t, parity, replica)
 
 
+def score_plan(layout: ArenaLayout) -> SweepPlan:
+    """The sweep plan with no parity destinations (every main-region tile
+    its own destination), built once per layout: the plan of
+    :func:`repro_torch.core.arena.arena_drift_scores` and of the RS
+    fabric's sweep."""
+    plan = getattr(layout, "_score_plan", None)
+    if plan is None:
+        plan = sweep_plan(layout)
+        object.__setattr__(layout, "_score_plan", plan)
+    return plan
+
+
 class ArenaMaintainProgram:
     """The single-sweep maintenance program over the flat arena.
 
@@ -290,19 +384,34 @@ class ArenaMaintainProgram:
     built for a striping; every sweep rewrites every tile a destination
     owns, and the tiles none owns are frame padding, zero for good. (The
     reference allocates a new one each sweep.) The tensor returned is that
-    buffer: the next sweep of this program overwrites it."""
+    buffer: the next sweep of this program overwrites it.
+
+    Without ``frame_layout`` the program has no parity destinations (the
+    RS codec encodes its own rows from the replica): the sweep runs the
+    score plan (:func:`score_plan`) for the scores and the resident copy,
+    returns None for the parity, and is skipped when it has nothing to
+    write."""
 
     def __init__(self, partition: BlockPartition, arena_layout: ArenaLayout,
-                 frame_layout, group_of: np.ndarray, n_groups: int):
+                 frame_layout=None, group_of: Optional[np.ndarray] = None,
+                 n_groups: int = 0):
         self.layout = arena_layout
-        self.routing = arena_routing(arena_layout, frame_layout, group_of)
-        self.plan = sweep_plan(arena_layout, frame_layout, group_of,
-                               routing=self.routing)
         self.total = partition.total_blocks
-        self.shape = (n_groups, frame_layout.frame_elems)
+        if frame_layout is None:
+            self.routing = None
+            self.plan = score_plan(arena_layout)
+            self.shape = None
+        else:
+            self.routing = arena_routing(arena_layout, frame_layout,
+                                         group_of)
+            self.plan = sweep_plan(arena_layout, frame_layout, group_of,
+                                   routing=self.routing)
+            self.shape = (n_groups, frame_layout.frame_elems)
         self._parity: Optional[torch.Tensor] = None
 
-    def parity_buffer(self, device: torch.device) -> torch.Tensor:
+    def parity_buffer(self, device: torch.device) -> Optional[torch.Tensor]:
+        if self.shape is None:
+            return None
         if self._parity is None or self._parity.device != device:
             self._parity = torch.zeros(self.shape, dtype=torch.int32,
                                        device=device)
@@ -319,8 +428,12 @@ class ArenaMaintainProgram:
             if not own_live:
                 copy = torch.empty_like(live)
         parity = self.parity_buffer(rep.device)
-        scores = arena_sweep(rep, ckpt_arena, self.plan,
-                             parity=parity.view(-1), replica=copy)
+        scores = None
+        if parity is not None or ckpt_arena is not None or copy is not None:
+            scores = arena_sweep(
+                rep, ckpt_arena, self.plan,
+                parity=None if parity is None else parity.view(-1),
+                replica=copy)
         if copy is not None:
             copy[self.layout.tail_start:] = live[self.layout.tail_start:]
             rep = copy

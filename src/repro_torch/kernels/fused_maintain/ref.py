@@ -1,9 +1,11 @@
 """Plain PyTorch versions of the maintenance kernels (scatter_save,
-arena_maintain, arena_scatter): the same inputs and outputs as their
-wrappers in ``kernel.py``. ``ops.py`` runs them on CPU tensors only."""
+arena_maintain, arena_scatter, fused_maintain): the same inputs and
+outputs as their wrappers in ``kernel.py``. ``ops.py`` runs them on CPU
+tensors."""
 import torch
 
-from repro_torch.core.blocks import WORD_DTYPE_NAMES
+from repro_torch.core.blocks import (WORD_DTYPE_NAMES, leaf_block_view,
+                                     leaf_block_words)
 
 
 def scatter_save_ref(dst: torch.Tensor, src: torch.Tensor,
@@ -131,3 +133,34 @@ def arena_scatter_ref(dst: torch.Tensor, src: torch.Tensor,
     for o, n in zip(t["off"].tolist(), t["len"].tolist()):
         dst[o:o + n] = src[o:o + n]
     return dst
+
+
+def fused_maintain_ref(x: torch.Tensor, z, parity, t: dict,
+                       block_rows: int, col: int, frame_elems: int,
+                       replica=None):
+    """Plain version of ``fused_maintain_cuda``, the torch form of the
+    reference's ``_leaf_sweep_jnp``: the replica copy, per-block squared
+    drift of f32 views, and the XOR of each row's members' packed words
+    folded into ``parity`` (flat int32) at the row's group and the leaf's
+    columns. Returns ``(replica, scores)`` (scores None without ``z``; the
+    copy written into ``replica`` when given)."""
+    replica = x.clone() if replica is None else replica.copy_(x)
+    scores = None
+    if z is not None:
+        xv = leaf_block_view(x.to(torch.float32), block_rows)
+        zv = leaf_block_view(z.to(torch.float32), block_rows)
+        scores = torch.sum((xv - zv) ** 2, dim=1)
+    if parity is not None:
+        bits = leaf_block_words(x, block_rows)
+        n_out, m_hat = int(t["n_out"]), int(t["m_hat"])
+        members = t["members"].view(n_out, m_hat).long()
+        contrib = torch.zeros((n_out, bits.shape[1]), dtype=torch.int32,
+                              device=x.device)
+        for i in range(m_hat):
+            idx = members[:, i]
+            ok = idx >= 0
+            contrib[ok] ^= bits[idx[ok]]
+        par = parity.view(-1, frame_elems)
+        rows = t["touched"].long()
+        par[rows, col:col + bits.shape[1]] ^= contrib
+    return replica, scores

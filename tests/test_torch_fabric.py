@@ -310,17 +310,24 @@ def test_domains_and_traces_equal():
 
 
 def test_fabric_configs_that_raise():
+    """What still raises: the mesh (ROADMAP item 15), a bit flip before any
+    arena snapshot exists, a FULL-recovery policy with a fabric. An XOR
+    fabric's scrub checks nothing (the reference's answer), and a tree
+    the arena cannot pack takes the per-leaf path."""
     part_tree = {"w": torch.zeros(16, 4)}
     from repro_torch.core.blocks import partition_pytree
     from repro_torch.fabric import CheckpointFabric
     part = partition_pytree(part_tree, 8)
     fab = CheckpointFabric(part, TFabricConfig())
-    for call in (fab.scrub, fab.inject_arena_bit_flip, fab.resize_mesh):
-        with pytest.raises(NotImplementedError, match="item 1[35]"):
-            call()
-    with pytest.raises(NotImplementedError, match="item 14"):
-        CheckpointFabric(partition_pytree(
-            {"w": torch.zeros(16, 4, dtype=torch.float64)}, 8))
+    with pytest.raises(NotImplementedError, match="item 15"):
+        fab.resize_mesh()
+    with pytest.raises(RuntimeError, match="arena-mode replica"):
+        fab.inject_arena_bit_flip()
+    assert fab.scrub() == {"checked": False, "detected": 0, "corrected": 0,
+                           "reports": []}
+    f64 = CheckpointFabric(partition_pytree(
+        {"w": torch.zeros(16, 4, dtype=torch.float64)}, 8))
+    assert f64.arena_layout is None
     with pytest.raises(ValueError, match="FULL"):
         TController(part_tree, TPolicy.traditional(), fabric=TFabricConfig(),
                     device="cpu")

@@ -66,6 +66,8 @@ def test_model_and_run_devices_must_agree():
 
 
 def test_fabric_and_store_name_their_roadmap_items():
+    """The RS tier and the per-leaf path build; the store, async
+    maintenance and the mesh still raise with their ROADMAP items."""
     params = {"w": torch.zeros(4, 2)}
     ctl = FTController(params, CheckpointPolicy.scar(),
                        fabric=FabricConfig(), device="cpu")
@@ -73,13 +75,16 @@ def test_fabric_and_store_name_their_roadmap_items():
     with pytest.raises(NotImplementedError, match="item 11"):
         FTController(params, CheckpointPolicy.scar(), store=object(),
                      device="cpu")
-    for cfg, item in ((FabricConfig(async_maintain=True), "item 12"),
-                      (FabricConfig(rs_parity=2), "item 13"),
-                      (FabricConfig(arena=False), "item 14"),
-                      (FabricConfig(fused=False), "item 14")):
-        with pytest.raises(NotImplementedError, match=item):
-            FTController(params, CheckpointPolicy.scar(), fabric=cfg,
-                         device="cpu")
+    with pytest.raises(NotImplementedError, match="item 12"):
+        FTController(params, CheckpointPolicy.scar(),
+                     fabric=FabricConfig(async_maintain=True), device="cpu")
+    for cfg, arena in ((FabricConfig(rs_parity=2), True),
+                       (FabricConfig(arena=False), False),
+                       (FabricConfig(fused=False), False)):
+        built = FTController(params, CheckpointPolicy.scar(), fabric=cfg,
+                             device="cpu")
+        assert built.arena_ready == arena
+        assert built.fabric.parity.supports_integrity == (cfg.rs_parity > 0)
     part = ctl.partition
     with pytest.raises(NotImplementedError, match="item 15"):
         CheckpointFabric(part, FabricConfig(), mesh=object())
