@@ -72,8 +72,40 @@ Phases, each of which fails the run if it fails:
     then phase 7's loss, the PARITY blocks bit-exact.
 13. Launch counts, one set per path: the counts are set to 0 just before
     each of the MLR loops, the quickstart path, the controller, each fabric
-    phase and each multi-erasure run, and read just after it. Each path's
-    kernels must have launched in it.
+    phase, each multi-erasure run and each served model (phases 15 and
+    16), and read just after it. Each path's kernels must have launched in
+    it: ssd_intra 96 times on the mamba2_serve path (48 layers, two
+    prefills), sw_attention 56 times on the qwen2_serve path (28 layers, a
+    prefill and a ring prefill).
+14. After the 1.54 B tree is freed, the serve kernels at the shapes the
+    served prefills give them, against their plain versions
+    (|got - want| <= 1e-4 |want| + 1e-4 max|want|; the same for bf16
+    inputs, which both versions read as f32) and bit-identical run to run:
+    ssd_intra at mamba2-370m's (B 8, nc 16, Q 128, H 32, P 64, N 128),
+    sw_attention at qwen2-1.5b's causal (B 4 x 2 kv heads, G 6, S 2048,
+    W = S) and ring (B 1, S 8192, W 4096) cases, bf16. Timed as in phase 2
+    beside the bound (ssd_intra: its f32 FLOPs over 67 TFLOP/s;
+    sw_attention: its band's FLOPs over the bf16 tensor-core rate, 989
+    TFLOP/s) and, for sw_attention, beside
+    ``F.scaled_dot_product_attention`` with the band mask (timed only).
+15. mamba2-370m served at full width (48 layers, d 1024, bf16, random
+    weights from a seed): ``Server.generate`` on an (8, 2048) prompt with
+    32 new tokens; then ``examples/serve_with_recovery.py``'s flow
+    (``FTController`` with ``CheckpointPolicy.scar(1.0, 1)``, a 30% loss,
+    partial restore) and the same tokens generated again, which must be
+    identical. Then every ssd_intra call of a served prefill is held
+    against the plain version on the same inputs, and, with the weights
+    cast to f32, the prefill's last logits against the same prefill with
+    the plain version (relative L2 <= 5e-3; the bf16 distance is reported:
+    the random-weight models amplify each layer's 1-ulp bf16 flips).
+    Prefill and decode tokens/s and peak device memory are reported.
+16. qwen2-1.5b served at full width (28 layers, d 1536, GQA 12/2, bf16,
+    untied head, as the config has it): ``Server.generate`` on (4, 2048)
+    with 16 new tokens, a ring prefill of 8,192 tokens
+    (``cache_spec(use_window=True)``: the band kernel with W = 4096) and
+    one decode step; the kernel route held against the plain route as in
+    phase 15; in f32, the ring decode step's logits against a ring prefill
+    of the 8,193 tokens (relative L2 <= 5e-3).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
@@ -81,6 +113,8 @@ and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
+import gc
 import json
 import math
 import statistics
@@ -94,6 +128,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
 F32_FLOPS_PER_S = 67e12          # H100 SXM, f32 outside the tensor cores
+BF16_TC_FLOPS_PER_S = 989e12     # H100 SXM, dense bf16 tensor cores
 BLOCK_ROWS = 128
 TIMING_RUNS = 7
 SEED = 0
@@ -119,7 +154,10 @@ def card_line() -> str:
 def qwen2_1_5b_shapes() -> dict:
     """One leaf per weight of qwen2-1.5b (arXiv:2407.10671): 28 layers,
     d_model 1536, 12 heads with 2 kv heads of 128, d_ff 8960, vocab 151936,
-    QKV biases, tied embedding."""
+    QKV biases, tied embedding, as the published model has it. The
+    registered config (``configs/qwen2_1_5b.py``) leaves ``tie_embeddings``
+    False; the model served in phase 16 follows the config and carries a
+    separate 151,936 x 1,536 head."""
     d, kv, ff = 1536, 256, 8960
     layer = {"q": (d, d), "k": (d, kv), "v": (d, kv), "o": (d, d),
              "q_bias": (d,), "k_bias": (kv,), "v_bias": (kv,),
@@ -1400,6 +1438,389 @@ def phase_leaf_fabric(tree, device) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 14-16: the LM serve path (mamba2-370m and qwen2-1.5b)
+# ---------------------------------------------------------------------------
+
+MAMBA_SERVE = dict(batch=8, seq=2048, new=32)
+QWEN_SERVE = dict(batch=4, seq=2048, new=16)
+QWEN_RING = dict(batch=1, seq=8192)
+# a kernel against its plain version on the same inputs:
+# |got - want| <= RTOL |want| + RTOL max|want| (f32 sums in another order;
+# near-zero outputs of a cancelling sum get the scale's share).
+# sw_attention's bf16 inputs are read as f32 by both versions, so the f32
+# tolerance holds for them too.
+SERVE_RTOL = 1e-4
+# end to end, the served weights cast to f32: relative L2 distance of the
+# last logits. One f32 rounding apart in each kernel call; the random-weight
+# mamba2-370m amplifies a perturbation about 260-fold over its 48 layers
+# (on an NVIDIA H100 80GB HBM3 at 700 W: 2.8e-6 after one layer, 7.3e-4
+# after 48), and in bf16, where each layer adds its own 1-ulp flips, to
+# 0.64 (qwen2-1.5b: 0.017); so the bf16 distance is reported, not held.
+LOGITS_F32_REL_TOL = 5e-3
+
+
+def ssd_intra_counts(B, nc, Q, H, P, N) -> tuple[int, int]:
+    """(bytes, f32 FLOPs) of the intra-chunk SSD: each input read once and
+    both outputs written once; C B^T once per (batch, chunk) over the causal
+    half (it does not depend on the head); per head M's causal half (a
+    subtraction, an exp, two products), y = M x over that half, the decay
+    weights w and state = B^T (x w)."""
+    tri = Q * (Q + 1) // 2
+    n_bytes = 4 * (2 * B * nc * Q * H + 2 * B * nc * Q * N
+                   + 2 * B * nc * Q * H * P + B * nc * H * N * P)
+    flops = B * nc * 2 * tri * N + B * nc * H * (
+        4 * tri + 2 * tri * P + 3 * Q + Q * P + 2 * Q * N * P)
+    return n_bytes, flops
+
+
+def sw_attention_counts(BH, G, S, Dh, W, itemsize) -> tuple[int, int]:
+    """(bytes, FLOPs) of banded attention: q, k, v read once, the f32 output
+    written once; 4 Dh FLOPs per visible (query, key) pair (q.k and p v),
+    the pairs counted exactly: row i sees min(i + 1, W) keys."""
+    W = min(W, S)
+    band = W * (W + 1) // 2 + (S - W) * W
+    n_bytes = itemsize * (BH * G * S * Dh + 2 * BH * S * Dh) \
+        + 4 * BH * G * S * Dh
+    return n_bytes, 4 * BH * G * Dh * band
+
+
+def _close_ratio(got, want) -> float:
+    """max |got - want| / (RTOL |want| + RTOL max|want|); <= 1 passes."""
+    want = want.to(got.dtype)
+    lim = SERVE_RTOL * (want.abs() + want.abs().max())
+    return float(((got - want).abs() / lim.clamp_min(1e-30)).max())
+
+
+def _rel_l2(a, b) -> float:
+    a, b = a.float(), b.float()
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+@contextlib.contextmanager
+def kernel_route(mode: str):
+    """A switch of this script around the ssd_scan and sw_attention
+    dispatchers. ``"plain"``: they give CUDA tensors to the plain versions.
+    ``"checked"``: every kernel launch is also run through its plain version
+    on the same inputs; yields the tolerance ratios (``_close_ratio``) per
+    kernel."""
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.ssd_scan.ref import ssd_intra_ref
+    from repro_torch.kernels.sw_attention import ops as sw_ops
+    from repro_torch.kernels.sw_attention.ref import sw_attention_ref
+    ssd_cuda, sw_cuda = ssd_ops.ssd_intra_cuda, sw_ops.sw_attention_cuda
+    ratios = {"ssd_intra": [], "sw_attention": []}
+    if mode == "plain":
+        ssd_ops.ssd_intra_cuda = ssd_intra_ref
+        sw_ops.sw_attention_cuda = sw_attention_ref
+    else:
+        def ssd(*args):
+            got = ssd_cuda(*args)
+            ratios["ssd_intra"].append(max(_close_ratio(g, w) for g, w in zip(
+                got, ssd_intra_ref(*args))))
+            return got
+
+        def sw(q, k, v, *, window):
+            got = sw_cuda(q, k, v, window=window)
+            ratios["sw_attention"].append(_close_ratio(
+                got, sw_attention_ref(q, k, v, window=window)))
+            return got
+        ssd_ops.ssd_intra_cuda, sw_ops.sw_attention_cuda = ssd, sw
+    try:
+        yield ratios
+    finally:
+        ssd_ops.ssd_intra_cuda, sw_ops.sw_attention_cuda = ssd_cuda, sw_cuda
+
+
+def phase_serve_kernels(device) -> dict:
+    """Phase 14: ssd_intra and sw_attention against their plain versions at
+    the shapes the serve paths give them."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ssd_scan.kernel import ssd_intra_cuda
+    from repro_torch.kernels.ssd_scan.ref import ssd_intra_ref
+    from repro_torch.kernels.sw_attention.kernel import sw_attention_cuda
+    from repro_torch.kernels.sw_attention.ref import sw_attention_ref
+
+    results = {}
+    gen = torch.Generator(device=device).manual_seed(SEED + 14)
+    mcfg = get_config("mamba2-370m")
+    B, S = MAMBA_SERVE["batch"], MAMBA_SERVE["seq"]
+    Q, H, P, N = mcfg.ssm_chunk, mcfg.ssm_heads, mcfg.ssm_headdim, \
+        mcfg.ssm_state
+    nc = S // Q
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=device)
+    # dt as the model makes it (softplus of a pre-activation), la = dt A
+    # with A = -1 (A_log = 0 at init)
+    dt = F.softplus(rnd(B, nc, Q, H))
+    la = -dt
+    ins = (la, dt, rnd(B, nc, Q, H, P), rnd(B, nc, Q, N), rnd(B, nc, Q, N))
+    got, want = ssd_intra_cuda(*ins), ssd_intra_ref(*ins)
+    ratio = max(_close_ratio(g, w) for g, w in zip(got, want))
+    check(ratio <= 1.0, f"ssd_intra off its plain version: {ratio:.3g} of "
+          f"the tolerance")
+    again = ssd_intra_cuda(*ins)
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          "ssd_intra differs between two runs")
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    del got, want, again
+    t = in_turns({"plain": lambda: ssd_intra_ref(*ins),
+                  "kernel": lambda: ssd_intra_cuda(*ins)})
+    n_bytes, flops = ssd_intra_counts(B, nc, Q, H, P, N)
+    b, by = bound_ms(n_bytes, flops, F32_FLOPS_PER_S)
+    results["ssd_intra"] = dict(
+        max_abs_err=err, ms=t["kernel"], plain_ms=t["plain"], bound_ms=b,
+        bound_by=by, library_ms=None, shape=[B, nc, Q, H, P, N],
+        bytes=n_bytes, flops=flops, tolerance_ratio=ratio)
+    del ins
+
+    qcfg = get_config("qwen2-1.5b")
+    G, Dh, Hk = qcfg.n_heads // qcfg.n_kv_heads, qcfg.head_dim, \
+        qcfg.n_kv_heads
+    cases = {"causal": (QWEN_SERVE["batch"] * Hk, QWEN_SERVE["seq"],
+                        QWEN_SERVE["seq"]),
+             "ring": (QWEN_RING["batch"] * Hk, QWEN_RING["seq"],
+                      qcfg.sliding_window)}
+    sw = {}
+    for case, (BH, S, W) in cases.items():
+        q = rnd(BH, G, S, Dh).to(torch.bfloat16)
+        k = rnd(BH, S, Dh).to(torch.bfloat16)
+        v = rnd(BH, S, Dh).to(torch.bfloat16)
+        got = sw_attention_cuda(q, k, v, window=W)
+        want = sw_attention_ref(q, k, v, window=W)
+        ratio = _close_ratio(got, want)
+        check(ratio <= 1.0, f"sw_attention ({case}) off its plain version: "
+              f"{ratio:.3g} of the tolerance")
+        check(torch.equal(got, sw_attention_cuda(q, k, v, window=W)),
+              f"sw_attention ({case}) differs between two runs")
+        err = float((got - want).abs().max())
+        pos = torch.arange(S, device=device)
+        band = (pos[None, :] <= pos[:, None]) \
+            & (pos[:, None] - pos[None, :] < W)
+        k4, v4 = k[:, None], v[:, None]
+
+        def library():
+            return F.scaled_dot_product_attention(q, k4, v4, attn_mask=band,
+                                                  enable_gqa=True)
+        lib_err = float((library().float() - want).abs().max())
+        del got, want
+        t = in_turns({"plain": lambda: sw_attention_ref(q, k, v, window=W),
+                      "kernel": lambda: sw_attention_cuda(q, k, v, window=W),
+                      "library": library})
+        n_bytes, flops = sw_attention_counts(BH, G, S, Dh, W, 2)
+        b, by = bound_ms(n_bytes, flops, BF16_TC_FLOPS_PER_S)
+        sw[case] = dict(max_abs_err=err, ms=t["kernel"], plain_ms=t["plain"],
+                        bound_ms=b, bound_by=by, library_ms=t["library"],
+                        library_max_abs_err=lib_err, shape=[BH, G, S, Dh, W],
+                        bytes=n_bytes, flops=flops, tolerance_ratio=ratio)
+        del q, k, v, k4, v4, band
+        torch.cuda.empty_cache()
+    # the row of the kernels line is the served prefill's (causal) case
+    results["sw_attention"] = dict(sw["causal"], ring=sw["ring"])
+    for name, r in (("ssd_intra", results["ssd_intra"]),
+                    ("sw_attention causal", sw["causal"]),
+                    ("sw_attention ring", sw["ring"])):
+        lib = r["library_ms"]
+        log(f"{name} {r['shape']}: kernel {r['ms']:.3f} ms, plain "
+            f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
+            f"({r['bound_by']}), library "
+            f"{'none' if lib is None else format(lib, '.3f') + ' ms'}, max "
+            f"abs err {r['max_abs_err']:.3g} ({r['tolerance_ratio']:.3g} of "
+            f"the tolerance)")
+    return results
+
+
+def _timed(fn):
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _serve_speeds(srv, ops, cfg, batch, n_new) -> dict:
+    """Warm host-clock seconds of a prefill alone and of a whole
+    generate; decode's share is their difference."""
+    _, prefill_s = _timed(lambda: ops.prefill(srv.params, batch, cfg))
+    _, gen_s = _timed(lambda: srv.generate(batch, n_new))
+    B, S = batch["tokens"].shape
+    return {"prefill_seconds": prefill_s, "generate_seconds": gen_s,
+            "prefill_tokens_per_s": B * S / prefill_s,
+            "decode_tokens_per_s": B * (n_new - 1) / (gen_s - prefill_s)}
+
+
+def _hold_routes(ops, cfg, params, batch, kernel: str) -> dict:
+    """The served bf16 prefill with every ``kernel`` call held against its
+    plain version on the same inputs; then, with the weights cast to f32,
+    the kernel route's last logits against the plain route's. The bf16
+    routes' distance is reported."""
+    import dataclasses
+    import torch
+    from repro_torch.utils.tree import tree_map
+    with kernel_route("checked") as ratios:
+        logits, _ = ops.prefill(params, batch, cfg)
+    worst = max(ratios[kernel])
+    check(len(ratios[kernel]) == cfg.n_layers and worst <= 1.0,
+          f"{cfg.name}: {len(ratios[kernel])} {kernel} calls, the worst "
+          f"{worst:.3g} of the tolerance")
+    check(bool(torch.isfinite(logits).all()) and logits.shape == (
+        batch["tokens"].shape[0], 1, cfg.vocab), "bad prefill logits")
+    with kernel_route("plain"):
+        plain, _ = ops.prefill(params, batch, cfg)
+    out = {"per_call_worst_ratio": worst,
+           "bf16_logits_rel_l2_vs_plain": _rel_l2(logits, plain)}
+    del logits, plain
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    p32 = tree_map(lambda x: x.float(), params)
+    logits, _ = ops.prefill(p32, batch, cfg32)
+    with kernel_route("plain"):
+        plain, _ = ops.prefill(p32, batch, cfg32)
+    out["f32_logits_rel_l2_vs_plain"] = rel = _rel_l2(logits, plain)
+    check(rel <= LOGITS_F32_REL_TOL, f"{cfg.name} in f32: the kernel route "
+          f"is {rel:.3g} off the plain route (relative L2)")
+    return out
+
+
+def phase_mamba2_serve(device, launches: dict) -> dict:
+    """Phase 15: mamba2-370m at full width (48 layers, d 1024, bf16) served
+    from the kernel route, then serve_with_recovery's flow, then the kernel
+    route held against the plain route; ``launches["mamba2_serve"]`` gets
+    the counts of the two generates and the recovery."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.controller import FTController
+    from repro_torch.core.policy import CheckpointPolicy
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.kernels import _build
+    from repro_torch.models import get_model
+    from repro_torch.training.serve import Server
+    from repro_torch.utils.tree import tree_leaves
+
+    cfg = get_config("mamba2-370m")
+    ops = get_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    params = ops.init_params(torch.Generator(device=device).manual_seed(
+        SEED + 15), cfg, device=device)
+    batch = lm_batch(torch.Generator(device=device).manual_seed(SEED + 16),
+                     cfg, MAMBA_SERVE["batch"], MAMBA_SERVE["seq"],
+                     device=device)
+    _build.reset_launches()
+    srv = Server(cfg, params)
+    toks0, first_s = _timed(lambda: srv.generate(batch, MAMBA_SERVE["new"]))
+    ctl = FTController(params, CheckpointPolicy.scar(fraction=1.0,
+                                                     interval=1))
+    ctl.checkpoint_now(1, params)
+    lost = ctl.sample_failure(0.3)
+    recovered, info = ctl.on_failure(params, lost)
+    toks1 = Server(cfg, recovered).generate(batch, MAMBA_SERVE["new"])
+    launches["mamba2_serve"] = dict(_build.LAUNCHES)
+    check(toks0.shape == (MAMBA_SERVE["batch"], MAMBA_SERVE["new"]),
+          f"generated tokens of shape {tuple(toks0.shape)}")
+    check(int(lost.sum()) > 0, "the failure lost no block")
+    check(torch.equal(toks0, toks1), "tokens differ after the lossless "
+          "recovery")
+    check(launches["mamba2_serve"]["ssd_intra"] == 2 * cfg.n_layers,
+          f"ssd_intra launched {launches['mamba2_serve']['ssd_intra']} "
+          f"times, not once per layer and prefill")
+    del ctl, recovered
+    out = {"params": sum(x.numel() for x in tree_leaves(params)),
+           "first_generate_seconds": first_s,
+           **_serve_speeds(srv, ops, cfg, batch, MAMBA_SERVE["new"]),
+           "lost_blocks": info["lost_blocks"],
+           "applied_sq": info["applied_sq"],
+           "served_peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           **_hold_routes(ops, cfg, params, batch, "ssd_intra")}
+    log(f"mamba2-370m serve, batch {MAMBA_SERVE['batch']} x "
+        f"{MAMBA_SERVE['seq']} + {MAMBA_SERVE['new']} tokens: "
+        f"{json.dumps(out)}")
+    return out
+
+
+def phase_qwen2_serve(device, launches: dict) -> dict:
+    """Phase 16: qwen2-1.5b at full width (28 layers, d 1536, GQA 12/2,
+    bf16, untied head) served from the kernel route, a ring prefill of
+    8,192 tokens and one decode step, then the kernel route held against the
+    plain route, and, in f32, the ring decode against a ring prefill of the
+    8,193 tokens; ``launches["qwen2_serve"]`` gets the counts of the
+    generate, the ring prefill and its decode."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.kernels import _build
+    from repro_torch.models import get_model, transformer
+    from repro_torch.training.serve import Server
+    from repro_torch.utils.tree import tree_leaves, tree_map
+
+    cfg = get_config("qwen2-1.5b")
+    ops = get_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    params = ops.init_params(torch.Generator(device=device).manual_seed(
+        SEED + 17), cfg, device=device)
+    batch = lm_batch(torch.Generator(device=device).manual_seed(SEED + 18),
+                     cfg, QWEN_SERVE["batch"], QWEN_SERVE["seq"],
+                     device=device)
+    S_ring = QWEN_RING["seq"]
+    ring_toks = lm_batch(torch.Generator(device=device).manual_seed(
+        SEED + 19), cfg, QWEN_RING["batch"], S_ring + 1,
+        device=device)["tokens"]
+    spec = transformer.cache_spec(cfg, S_ring, use_window=True)
+    long_spec = transformer.cache_spec(cfg, S_ring + 1, use_window=True)
+    check(spec.ring and spec.cache_len == cfg.sliding_window,
+          f"the ring spec is {spec}")
+
+    def ring(p, c):
+        """(decode logits after a ring prefill of S_ring tokens, seconds of
+        that prefill)"""
+        (_, cache), s = _timed(lambda: transformer.prefill(
+            p, {"tokens": ring_toks[:, :S_ring]}, c, spec))
+        return ops.decode_step(p, cache, ring_toks[:, S_ring:], c)[0], s
+
+    _build.reset_launches()
+    srv = Server(cfg, params)
+    toks, first_s = _timed(lambda: srv.generate(batch, QWEN_SERVE["new"]))
+    ring_decode, ring_s = ring(params, cfg)
+    launches["qwen2_serve"] = dict(_build.LAUNCHES)
+    check(toks.shape == (QWEN_SERVE["batch"], QWEN_SERVE["new"]),
+          f"generated tokens of shape {tuple(toks.shape)}")
+    check(launches["qwen2_serve"]["sw_attention"] == 2 * cfg.n_layers,
+          f"sw_attention launched {launches['qwen2_serve']['sw_attention']} "
+          f"times, not once per layer and prefill")
+    longer = transformer.prefill(params, {"tokens": ring_toks}, cfg,
+                                 long_spec)[0]
+    check(bool(torch.isfinite(ring_decode).all()), "bad ring decode logits")
+    out = {"params": sum(x.numel() for x in tree_leaves(params)),
+           "first_generate_seconds": first_s,
+           **_serve_speeds(srv, ops, cfg, batch, QWEN_SERVE["new"]),
+           "ring_prefill_tokens": S_ring, "ring_prefill_seconds": ring_s,
+           "ring_prefill_tokens_per_s": S_ring / ring_s,
+           "bf16_ring_decode_rel_l2_vs_prefill": _rel_l2(ring_decode,
+                                                         longer),
+           "served_peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           **_hold_routes(ops, cfg, params, batch, "sw_attention")}
+    del ring_decode, longer
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    p32 = tree_map(lambda x: x.float(), params)
+    del params, srv
+    torch.cuda.empty_cache()
+    ring_decode, _ = ring(p32, cfg32)
+    longer = transformer.prefill(p32, {"tokens": ring_toks}, cfg32,
+                                 long_spec)[0]
+    out["f32_ring_decode_rel_l2_vs_prefill"] = rel = _rel_l2(ring_decode,
+                                                            longer)
+    check(rel <= LOGITS_F32_REL_TOL, f"in f32 the ring decode is {rel:.3g} "
+          f"off the longer ring prefill (relative L2)")
+    out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    log(f"qwen2-1.5b serve, batch {QWEN_SERVE['batch']} x "
+        f"{QWEN_SERVE['seq']} + {QWEN_SERVE['new']} tokens, ring "
+        f"{S_ring} + 1: {json.dumps(out)}")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1492,6 +1913,20 @@ def main() -> int:
     _build.reset_launches()
     leaf_fabric = phase_leaf_fabric(a_tree, device)
     launches["leaf_fabric"] = dict(_build.LAUNCHES)
+    log(f"peak device memory of the SCAR phases: "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+
+    # the LM serve path, after the 1.54 B tree and the controllers' cyclic
+    # garbage are freed
+    del a_tree
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"device memory in use before the serve phases: "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    kernels.update(phase_serve_kernels(device))
+    mamba2 = phase_mamba2_serve(device, launches)
+    torch.cuda.empty_cache()
+    qwen2 = phase_qwen2_serve(device, launches)
     log(json.dumps({"launches": launches}))
     old = ("block_dist", "scatter_save", "masked_restore")
     new = ("arena_maintain", "arena_scatter", "parity_xor")
@@ -1501,11 +1936,12 @@ def main() -> int:
                         ("rs_fabric", ("arena_maintain", "arena_scatter",
                                        "gf256_mac", "masked_restore")),
                         ("leaf_fabric", ("fused_maintain", "scatter_save",
-                                         "parity_xor", "masked_restore"))):
+                                         "parity_xor", "masked_restore")),
+                        ("mamba2_serve", ("ssd_intra",)),
+                        ("qwen2_serve", ("sw_attention",))):
         for name in names:
             check(launches[path][name] > 0,
                   f"{name} was not launched on the {path} path")
-    log(f"peak device memory: {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
 
     sources = {
         "block_dist": ("src/repro_torch/csrc/block_dist.cu",
@@ -1530,7 +1966,13 @@ def main() -> int:
                            "leaf_fabric"),
         "gf256_mac": ("src/repro_torch/csrc/gf256_mac.cu",
                       "src/repro/kernels/gf256_mac/kernel.py:65",
-                      "rs_fabric")}
+                      "rs_fabric"),
+        "sw_attention": ("src/repro_torch/csrc/sw_attention.cu",
+                         "src/repro/kernels/sw_attention/kernel.py:88",
+                         "qwen2_serve"),
+        "ssd_intra": ("src/repro_torch/csrc/ssd_intra.cu",
+                      "src/repro/kernels/ssd_scan/kernel.py:52",
+                      "mamba2_serve")}
     record = []
     for name, (source, replaces, path) in sources.items():
         r = kernels[name]
@@ -1542,7 +1984,10 @@ def main() -> int:
                        "library_ms": r["library_ms"]})
     log(json.dumps({"controller": ctl, "fabric": fabric,
                     "rs_fabric": rs_fabric, "leaf_fabric": leaf_fabric,
-                    "multi_erasure": multi,
+                    "multi_erasure": multi, "mamba2_serve": mamba2,
+                    "qwen2_serve": qwen2, "serve_kernels": {
+                        name: kernels[name]
+                        for name in ("ssd_intra", "sw_attention")},
                     "gf256_mac_shapes": kernels["gf256_mac"]["shapes"],
                     "int32_ops_per_s": int_rate, "mlr": {
         "kappa_clean": mlr["kappa"],

@@ -1,12 +1,17 @@
-"""Synthetic datasets for the classic models (paper §5.1 stand-ins).
+"""Synthetic datasets for the classic models (paper §5.1 stand-ins) and
+random LM batches.
 
 The numpy generators of ``repro.data.synthetic`` that the classic models
 use, copied so that the port imports nothing of the JAX package. Given the
 same ``np.random.Generator`` they produce byte-identical data.
+``lm_batch`` draws LM tokens with a torch generator.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+from repro_torch.device import DeviceLike, resolve_device
 
 
 def classification_data(rng: np.random.Generator, n: int = 2000, dim: int = 784,
@@ -58,3 +63,19 @@ def image_batch(rng: np.random.Generator, n: int = 512, size: int = 28,
         pat = np.sin((c + 1) * np.pi * xx) * np.cos((c + 1) * np.pi * yy)
         x[y == c] += pat[None, :, :, None].astype(np.float32)
     return x, y.astype(np.int32)
+
+
+def lm_batch(generator: torch.Generator, cfg, batch: int, seq: int,
+             device: DeviceLike = None) -> dict:
+    """Random LM batch: int32 ``tokens`` and ``labels`` of (batch, seq) in
+    [0, cfg.vocab), drawn with ``generator`` on its device and placed on
+    ``device`` (``cuda`` unless asked otherwise). The draws differ from the
+    reference's ``jax.random`` ones; tests hand both packages the same
+    numpy tokens instead."""
+    dev = resolve_device(device)
+    out = {}
+    for key in ("tokens", "labels"):
+        out[key] = torch.randint(0, cfg.vocab, (batch, seq),
+                                 generator=generator, device=generator.device,
+                                 dtype=torch.int32).to(dev)
+    return out

@@ -1,0 +1,113 @@
+"""Unified model API across the served families.
+
+``get_model(cfg)`` returns a ``ModelOps`` bundle:
+
+- ``init_params(gen, cfg, device=None)``            -> params tree
+- ``init_cache(cfg, batch, seq_len, device=None)``  -> serving state
+- ``prefill(params, batch, cfg)``                   -> (logits, state)
+- ``decode_step(params, state, tokens, cfg)``       -> (logits, state)
+- ``train_loss``: raises, the LM trainer is ROADMAP item 10
+
+The port serves the ``ssm`` family and the ``dense`` family without MoE.
+The families and options it leaves out raise ``NotImplementedError``
+naming their ROADMAP item. The cache geometry (ring vs linear) is decided
+by ``serve_cache_len``, as in the reference.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import ssm, transformer
+
+# ROADMAP items of what this port does not serve yet
+_NOT_PORTED = {
+    "moe": "MoE layers, interleaved or not (ROADMAP item 19)",
+    "vlm": "the VLM prefix (ROADMAP item 19)",
+    "hybrid": "the hybrid family, models/hybrid.py (ROADMAP item 18)",
+    "audio": "the encoder-decoder family, models/encdec.py (ROADMAP item 18)",
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelOps:
+    init_params: Callable
+    train_loss: Callable
+    init_cache: Callable          # (cfg, batch, seq_len, device) -> state
+    prefill: Callable
+    decode_step: Callable         # (params, state, tokens, cfg) -> (logits, state)
+    supports_long_context: bool   # sub-quadratic serve path exists
+
+
+def serve_cache_len(cfg: ModelConfig, seq_len: int) -> int:
+    """Slots in the dense KV cache for a decode at context ``seq_len``."""
+    if cfg.sliding_window and seq_len > cfg.sliding_window:
+        return cfg.sliding_window
+    return seq_len
+
+
+def _train_loss(*args, **kwargs):
+    raise NotImplementedError("the LM training loss is not ported yet "
+                              "(ROADMAP item 10)")
+
+
+def _transformer_ops(cfg: ModelConfig) -> ModelOps:
+    def init_cache(cfg, batch, seq_len, device=None):
+        spec = transformer.cache_spec(cfg, seq_len, use_window=True)
+        return transformer.init_cache(None, cfg, batch, spec, device)
+
+    def prefill(params, batch, cfg, *, slack: int = 64):
+        S = batch["tokens"].shape[1]
+        # slack: empty slots for tokens generated after the prefill
+        spec = transformer.cache_spec(cfg, S + slack, use_window=False)
+        return transformer.prefill(params, batch, cfg, spec)
+
+    def decode_step(params, cache, tokens, cfg):
+        # the geometry is fixed: a ring when the cache is the window long
+        cache_len = cache["k"].shape[2]
+        spec = transformer.CacheSpec(
+            cache_len=cache_len,
+            ring=bool(cfg.sliding_window) and cache_len == cfg.sliding_window)
+        return transformer.decode_step(params, cache, tokens, cfg, spec)
+
+    return ModelOps(
+        init_params=transformer.init_params,
+        train_loss=_train_loss,
+        init_cache=init_cache,
+        prefill=prefill,
+        decode_step=decode_step,
+        supports_long_context=bool(cfg.sliding_window),
+    )
+
+
+def _ssm_ops(cfg: ModelConfig) -> ModelOps:
+    return ModelOps(
+        init_params=ssm.init_params,
+        train_loss=_train_loss,
+        init_cache=lambda cfg, batch, seq_len, device=None: ssm.init_state(
+            cfg, batch, device),
+        prefill=ssm.prefill,
+        decode_step=ssm.decode_step,
+        supports_long_context=True,
+    )
+
+
+def get_model(cfg: ModelConfig) -> ModelOps:
+    if cfg.family in _NOT_PORTED:
+        raise NotImplementedError(f"{cfg.name}: {_NOT_PORTED[cfg.family]} "
+                                  f"is not ported yet")
+    if cfg.family == "dense":
+        if cfg.n_experts:
+            raise NotImplementedError(f"{cfg.name}: {_NOT_PORTED['moe']} is "
+                                      f"not ported yet")
+        if cfg.kv_quant:
+            raise NotImplementedError(f"{cfg.name}: the int8 KV cache is not "
+                                      f"ported yet (ROADMAP item 20)")
+        if cfg.triangle_prefill:
+            raise NotImplementedError(f"{cfg.name}: the triangle prefill is "
+                                      f"not ported yet (ROADMAP item 20)")
+        return _transformer_ops(cfg)
+    if cfg.family == "ssm":
+        return _ssm_ops(cfg)
+    raise ValueError(f"unknown family {cfg.family!r}")

@@ -1,0 +1,303 @@
+"""Shared transformer layers, the serve subset: RMSNorm, RoPE, chunked
+(flash-style) GQA attention, SwiGLU MLP, embedding and the LM head.
+
+The port of ``repro.models.layers`` for one device: plain functions on
+tensors, explicit ``torch.Generator``s for the initialisers. The
+attention is the forward of the reference's chunked online softmax
+(``_fwd_chunks``/``_attend_chunk``): a plain version that never holds more
+than one (q_chunk x kv_chunk) tile of scores. Decode uses it on every
+device; prefill uses it on the CPU, and on the card prefill goes through
+the ``sw_attention`` kernel (``repro_torch.models.transformer``).
+
+Left out, for the LM trainer (ROADMAP item 10) and the perf variants: the
+custom VJP, MoE, the int8 KV cache, the triangle prefill and the chunked
+LM loss. The mesh (item 15) is not here: the single-device port takes no
+``ctx``.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+
+PyTree = Any
+
+NEG_INF = -1e30
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    """A config's ``dtype`` string as a torch dtype."""
+    return getattr(torch, name)
+
+
+# ---------------------------------------------------------------------------
+# init helpers
+# ---------------------------------------------------------------------------
+
+def dense_init(gen: torch.Generator, shape, in_axis_size: Optional[int] = None,
+               dtype=torch.float32, device=None) -> torch.Tensor:
+    """Normal(0, 1/fan_in) weights drawn in f32 on the generator's device,
+    then cast; ``fan_in`` is ``shape[0]`` unless given."""
+    fan_in = in_axis_size if in_axis_size is not None else shape[0]
+    scale = 1.0 / math.sqrt(max(fan_in, 1))
+    w = torch.randn(tuple(shape), generator=gen, device=gen.device,
+                    dtype=torch.float32) * scale
+    return w.to(device=device if device is not None else gen.device,
+                dtype=dtype)
+
+
+def layer_params(params: PyTree, i: int) -> PyTree:
+    """Layer ``i``'s slice of the stacked ``params["layers"]``."""
+    def take(node):
+        if isinstance(node, dict):
+            return {k: take(v) for k, v in node.items()}
+        return node[i]
+    return take(params["layers"])
+
+
+# ---------------------------------------------------------------------------
+# norms / rope
+# ---------------------------------------------------------------------------
+
+def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6
+             ) -> torch.Tensor:
+    xf = x.to(torch.float32)
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps) * w.to(torch.float32)
+    return out.to(x.dtype)
+
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
+               ) -> torch.Tensor:
+    """x: (..., S, H, Dh); positions: broadcastable to (..., S). Half-split
+    rotation (the first half of Dh pairs with the second), as the
+    reference."""
+    if theta <= 0:
+        return x
+    dh = x.shape[-1]
+    freqs = rope_freqs(dh, theta, x.device)                     # (Dh/2,)
+    angles = positions[..., None].to(torch.float32) * freqs     # (..., S, Dh/2)
+    cos = torch.cos(angles)[..., None, :]                       # (..., S, 1, Dh/2)
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# chunked flash-style attention (plain; the CUDA kernel is sw_attention)
+# ---------------------------------------------------------------------------
+
+def _attend_chunk(q, k, v, qpos, kpos, *, causal, window, scale):
+    """One (q_chunk x kv_chunk) tile. q: (B,qc,Hk,G,Dh); k/v: (B,kc,Hk,Dh).
+    Returns the unnormalised (acc, m, l) online-softmax contributions."""
+    kf = k.to(torch.float32)
+    vf = v.to(torch.float32)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", q.to(torch.float32), kf) * scale
+    if causal:
+        mask = kpos[None, :] <= qpos[:, None]
+    else:
+        mask = torch.ones((qpos.shape[0], kpos.shape[0]), dtype=torch.bool,
+                          device=q.device)
+    if window:
+        mask = mask & (qpos[:, None] - kpos[None, :] < window)
+    mask = mask & (kpos >= 0)[None, :]            # ring-buffer validity
+    s = torch.where(mask, s, torch.full((), NEG_INF, device=s.device))
+    m = torch.amax(s, dim=-1)                                 # (B,Hk,G,qc)
+    p = torch.exp(s - m[..., None])
+    p = torch.where(mask, p, torch.zeros((), device=p.device))
+    l = torch.sum(p, dim=-1)
+    acc = torch.einsum("bhgqk,bkhd->bqhgd", p, vf)
+    return acc, m, l
+
+
+def _fwd_chunks(qg, kc, vc, qposc, kposc, *, causal, window, scale,
+                q_chunk, kv_chunk, nk, Skv):
+    """Forward over all (q-chunk x kv-chunk) tiles with online softmax.
+
+    qg: (B, nq, qc, Hk, G, Dh); kc/vc: (B, nk, kc, Hk, Dh).
+    Returns o (B, nq, qc, Hk, G, Dh) in q's dtype.
+    """
+    B, nq = qg.shape[0], qg.shape[1]
+    outs = []
+    for i in range(nq):
+        qck, qpck = qg[:, i], qposc[i]
+        if window > 0 and Skv > window + q_chunk:
+            # sliding window: only a fixed-size kv span can be visible
+            span = window + q_chunk
+            nspan = min(-(-span // kv_chunk) + 1, nk)
+            lo = (int(qpck.min()) - window) // kv_chunk
+            lo = min(max(lo, 0), max(nk - nspan, 0))
+            chunks = range(lo, lo + nspan)
+        else:
+            chunks = range(nk)
+        qc, Hk, G, Dh = qck.shape[1:]
+        acc = torch.zeros((B, qc, Hk, G, Dh), dtype=torch.float32,
+                          device=qg.device)
+        m = torch.full((B, Hk, G, qc), NEG_INF, dtype=torch.float32,
+                       device=qg.device)
+        l = torch.zeros((B, Hk, G, qc), dtype=torch.float32, device=qg.device)
+        for j in chunks:
+            a, mt, lt = _attend_chunk(qck, kc[:, j], vc[:, j], qpck,
+                                      kposc[j], causal=causal, window=window,
+                                      scale=scale)
+            m_new = torch.maximum(m, mt)
+            r_old = torch.exp(m - m_new)
+            r_new = torch.exp(mt - m_new)
+            acc = acc * r_old.permute(0, 3, 1, 2)[..., None] \
+                + a * r_new.permute(0, 3, 1, 2)[..., None]
+            l = l * r_old + lt * r_new
+            m = m_new
+        l = torch.clamp_min(l, 1e-30)
+        outs.append((acc / l.permute(0, 3, 1, 2)[..., None]).to(qck.dtype))
+    return torch.stack(outs, dim=1)
+
+
+def _pad_chunks(q, k, v, qpos, kpos, q_chunk, kv_chunk):
+    B, Sq, Hk, G, Dh = q.shape
+    Skv = k.shape[1]
+    nq = -(-Sq // q_chunk)
+    nk = -(-Skv // kv_chunk)
+    qpad, kpad = nq * q_chunk - Sq, nk * kv_chunk - Skv
+    if qpad:
+        q = F.pad(q, (0, 0, 0, 0, 0, 0, 0, qpad))
+        qpos = torch.cat([qpos, qpos[-1:].expand(qpad)])
+    if kpad:
+        k = F.pad(k, (0, 0, 0, 0, 0, kpad))
+        v = F.pad(v, (0, 0, 0, 0, 0, kpad))
+        kpos = torch.cat([kpos, kpos.new_full((kpad,), -1)])
+    qg = q.reshape(B, nq, q_chunk, Hk, G, Dh)
+    kc = k.reshape(B, nk, kv_chunk, Hk, Dh)
+    vc = v.reshape(B, nk, kv_chunk, Hk, Dh)
+    return (qg, kc, vc, qpos.reshape(nq, q_chunk),
+            kpos.reshape(nk, kv_chunk), nq, nk)
+
+
+def flash_attention(q, k, v, qpos, kpos, *, causal=True, window=0,
+                    q_chunk=1024, kv_chunk=1024) -> torch.Tensor:
+    """Chunked attention with online softmax, forward only.
+
+    q: (B, Sq, Hq, Dh);  k, v: (B, Skv, Hk, Dh);  Hq = G·Hk (GQA: query
+    head h reads kv head h // G). qpos: (Sq,) absolute positions; kpos:
+    (Skv,) positions (-1 = an empty ring slot). ``window > 0`` restricts
+    to a sliding window (only kv chunks that the band reaches are
+    visited). Returns (B, Sq, Hq, Dh) in q's dtype.
+    """
+    B, Sq, Hq, Dh = q.shape
+    _, Skv, Hk, _ = k.shape
+    G = Hq // Hk
+    q_chunk = min(q_chunk, Sq)
+    kv_chunk = min(kv_chunk, Skv)
+    if G > 1:
+        k = torch.repeat_interleave(k, G, dim=2)
+        v = torch.repeat_interleave(v, G, dim=2)
+    qg = q.reshape(B, Sq, Hq, 1, Dh)
+    scale = 1.0 / math.sqrt(Dh)
+    qgc, kc, vc, qposc, kposc, nq, nk = _pad_chunks(
+        qg, k, v, qpos, kpos, q_chunk, kv_chunk)
+    o = _fwd_chunks(qgc, kc, vc, qposc, kposc, causal=causal, window=window,
+                    scale=scale, q_chunk=q_chunk, kv_chunk=kv_chunk, nk=nk,
+                    Skv=Skv)
+    o = o.reshape(B, nq * q_chunk, Hq, 1, Dh)[:, :Sq]
+    return o.reshape(B, Sq, Hq, Dh).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# GQA attention block
+# ---------------------------------------------------------------------------
+
+def init_attention(gen: torch.Generator, cfg: ModelConfig, dtype,
+                   device=None, layers: tuple = ()) -> PyTree:
+    """Attention weights; ``layers`` is a leading stack shape, e.g.
+    ``(n_layers,)``."""
+    D, Hq, Hk, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    L = tuple(layers)
+    p = {
+        "wq": dense_init(gen, L + (D, Hq, Dh), D, dtype, device),
+        "wk": dense_init(gen, L + (D, Hk, Dh), D, dtype, device),
+        "wv": dense_init(gen, L + (D, Hk, Dh), D, dtype, device),
+        "wo": dense_init(gen, L + (Hq, Dh, D), Hq * Dh, dtype, device),
+    }
+    if cfg.qkv_bias:
+        dev = device if device is not None else gen.device
+        p["bq"] = torch.zeros(L + (Hq, Dh), dtype=dtype, device=dev)
+        p["bk"] = torch.zeros(L + (Hk, Dh), dtype=dtype, device=dev)
+        p["bv"] = torch.zeros(L + (Hk, Dh), dtype=dtype, device=dev)
+    return p
+
+
+def qkv_project(x, p, cfg: ModelConfig, positions):
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
+    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    if cfg.qkv_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def attention_block(x, p, cfg: ModelConfig, *, positions, causal=True,
+                    window=0, q_chunk=1024, kv_chunk=1024):
+    """Self-attention over x: (B,S,D) -> (B,S,D), the plain attention."""
+    q, k, v = qkv_project(x, p, cfg, positions)
+    o = flash_attention(q, k, v, positions, positions, causal=causal,
+                        window=window, q_chunk=q_chunk, kv_chunk=kv_chunk)
+    return torch.einsum("bshk,hkd->bsd", o, p["wo"])
+
+
+# ---------------------------------------------------------------------------
+# MLP (SwiGLU)
+# ---------------------------------------------------------------------------
+
+def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, dtype,
+             device=None, layers: tuple = ()) -> PyTree:
+    L = tuple(layers)
+    return {
+        "w_gate": dense_init(gen, L + (d_model, d_ff), d_model, dtype, device),
+        "w_up": dense_init(gen, L + (d_model, d_ff), d_model, dtype, device),
+        "w_down": dense_init(gen, L + (d_ff, d_model), d_ff, dtype, device),
+    }
+
+
+def mlp_block(x, p):
+    h = F.silu(torch.einsum("bsd,df->bsf", x, p["w_gate"])) \
+        * torch.einsum("bsd,df->bsf", x, p["w_up"])
+    return torch.einsum("bsf,fd->bsd", h, p["w_down"])
+
+
+# ---------------------------------------------------------------------------
+# embedding + LM head
+# ---------------------------------------------------------------------------
+
+def init_embed(gen: torch.Generator, cfg: ModelConfig, dtype,
+               device=None) -> PyTree:
+    p = {"embed": dense_init(gen, (cfg.vocab, cfg.d_model), cfg.d_model,
+                             dtype, device)}
+    if not cfg.tie_embeddings:
+        p["lm_head"] = dense_init(gen, (cfg.vocab, cfg.d_model), cfg.d_model,
+                                  dtype, device)
+    return p
+
+
+def embed_tokens(tokens: torch.Tensor, p) -> torch.Tensor:
+    """Token embedding lookup: a plain gather (one device)."""
+    return p["embed"][tokens.long()]
+
+
+def lm_logits(h: torch.Tensor, p) -> torch.Tensor:
+    """(B, S, D) -> (B, S, V) f32 logits through the LM head (the
+    embedding when tied)."""
+    head = p.get("lm_head", p["embed"])
+    return torch.einsum("bsd,vd->bsv", h.to(torch.float32),
+                        head.to(torch.float32))

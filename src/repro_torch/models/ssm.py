@@ -1,0 +1,206 @@
+"""Mamba2 (SSD, state-space duality) language model [arXiv:2405.21060],
+serve path.
+
+The port of ``repro.models.ssm`` for one device. The sequence is processed
+in chunks of ``cfg.ssm_chunk`` tokens: within a chunk the recurrence is
+computed in its dual quadratic (attention-like) form, and the state is
+carried from chunk to chunk by a short recurrence. The SSD scan is
+``kernels.ssd_scan.ops.ssd_chunked_kernel``, the drop-in that the JAX
+package documents for its pure-jnp ``ssd_chunked``: on the card its
+intra-chunk part is the ``ssd_intra`` CUDA kernel, on the CPU the kernel's
+plain version.
+
+Simplifications kept from the reference: a single B/C group
+(n_groups=1), the depthwise short conv applied to x only.
+
+Decode is the O(1) recurrent form, h <- a·h + dt·B⊗x per layer, in plain
+torch: no TPU kernel covers it.
+
+Parameters keep the reference's stacked leaves: every per-layer weight has
+a leading ``n_layers`` dim under ``params["layers"]``, walked by a Python
+loop, so ``interop.from_numpy_tree`` carries the reference's params across
+unchanged and the SCAR block partition matches. The training loss waits
+for the LM trainer (ROADMAP item 10); the mesh (item 15) is not here.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.kernels.ssd_scan.ops import ssd_chunked_kernel
+from repro_torch.models import layers as L
+
+PyTree = Any
+
+
+def _dtype(cfg: ModelConfig) -> torch.dtype:
+    return L.torch_dtype(cfg.dtype)
+
+
+def init_mixer(gen: torch.Generator, cfg: ModelConfig, device=None,
+               layers: tuple = ()) -> PyTree:
+    dt = _dtype(cfg)
+    D, DI, N, H = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+    Ls = tuple(layers)
+    dev = device if device is not None else gen.device
+    return {
+        # in_proj -> [z (DI), x (DI), B (N), C (N), dt (H)]
+        "in_proj": L.dense_init(gen, Ls + (D, 2 * DI + 2 * N + H), D, dt, dev),
+        "conv_w": L.dense_init(gen, Ls + (cfg.conv_width, DI),
+                               cfg.conv_width, dt, dev),
+        "A_log": torch.zeros(Ls + (H,), dtype=torch.float32, device=dev),
+        "dt_bias": torch.zeros(Ls + (H,), dtype=torch.float32, device=dev),
+        "D_skip": torch.ones(Ls + (H,), dtype=torch.float32, device=dev),
+        "out_proj": L.dense_init(gen, Ls + (DI, D), DI, dt, dev),
+    }
+
+
+def init_params(gen: torch.Generator, cfg: ModelConfig,
+                device: DeviceLike = None) -> PyTree:
+    """Random weights from ``gen`` (drawn on its device), placed on
+    ``device`` (``cuda`` unless asked otherwise), layers stacked."""
+    dev = resolve_device(device)
+    n = (cfg.n_layers,)
+    return {
+        **L.init_embed(gen, cfg, _dtype(cfg), dev),
+        "layers": {"norm": torch.ones(n + (cfg.d_model,), dtype=_dtype(cfg),
+                                      device=dev),
+                   "mixer": init_mixer(gen, cfg, dev, n)},
+        "final_norm": torch.ones((cfg.d_model,), dtype=_dtype(cfg),
+                                 device=dev),
+    }
+
+
+# ---------------------------------------------------------------------------
+# mixer forward pieces
+# ---------------------------------------------------------------------------
+
+def _split_proj(zxbcdt, cfg: ModelConfig):
+    DI, N = cfg.d_inner, cfg.ssm_state
+    z = zxbcdt[..., :DI]
+    x = zxbcdt[..., DI:2 * DI]
+    Bm = zxbcdt[..., 2 * DI:2 * DI + N]
+    Cm = zxbcdt[..., 2 * DI + N:2 * DI + 2 * N]
+    dt = zxbcdt[..., 2 * DI + 2 * N:]
+    return z, x, Bm, Cm, dt
+
+
+def _softplus(x: torch.Tensor) -> torch.Tensor:
+    """log(1 + e^x) as jax.nn.softplus computes it (logaddexp(x, 0))."""
+    return torch.clamp_min(x, 0) + torch.log1p(torch.exp(-torch.abs(x)))
+
+
+def _causal_conv(x, w, state=None):
+    """Depthwise causal conv. x: (B,S,DI); w: (K,DI); state: (B,K-1,DI)."""
+    K = w.shape[0]
+    if state is None:
+        xp = F.pad(x, (0, 0, K - 1, 0))
+    else:
+        xp = torch.cat([state.to(x.dtype), x], dim=1)
+    S = x.shape[1]
+    out = xp[:, 0:S] * w[0]
+    for i in range(1, K):
+        out = out + xp[:, i:i + S] * w[i]
+    new_state = xp[:, -(K - 1):] if K > 1 else None
+    return F.silu(out), new_state
+
+
+def ssd_chunked(x, dt, A, Bm, Cm, cfg: ModelConfig, h0=None):
+    """Chunked SSD scan, the kernel-backed ``ssd_chunked_kernel``.
+
+    x: (B,S,H,P); dt: (B,S,H) (post-softplus); A: (H,) negative;
+    Bm, Cm: (B,S,N). Returns (y (B,S,H,P), h_final (B,H,P,N)).
+    """
+    return ssd_chunked_kernel(x, dt, A, Bm, Cm, cfg.ssm_chunk, h0)
+
+
+def mixer_decode(x, p, state, cfg: ModelConfig):
+    """Single-token recurrent step. x: (B,1,D); state: dict(h, conv)."""
+    zxbcdt = torch.einsum("bsd,de->bse", x, p["in_proj"])
+    z, xi, Bm, Cm, dtr = _split_proj(zxbcdt, cfg)
+    xi, conv_state = _causal_conv(xi, p["conv_w"], state["conv"])
+    H, P = cfg.ssm_heads, cfg.ssm_headdim
+    Bsz = x.shape[0]
+    xh = xi.reshape(Bsz, H, P).to(torch.float32)
+    dt = _softplus(dtr[:, 0].to(torch.float32) + p["dt_bias"])    # (B,H)
+    A = -torch.exp(p["A_log"])
+    a = torch.exp(dt * A)                                        # (B,H)
+    h = state["h"] * a[:, :, None, None] \
+        + torch.einsum("bh,bn,bhp->bhpn", dt, Bm[:, 0].to(torch.float32), xh)
+    y = torch.einsum("bn,bhpn->bhp", Cm[:, 0].to(torch.float32), h)
+    y = y + xh * p["D_skip"][:, None]
+    y = y.reshape(Bsz, 1, cfg.d_inner).to(x.dtype) * F.silu(z)
+    out = torch.einsum("bse,ed->bsd", y, p["out_proj"])
+    return out, {"h": h, "conv": conv_state}
+
+
+# ---------------------------------------------------------------------------
+# model-level API
+# ---------------------------------------------------------------------------
+
+def init_state(cfg: ModelConfig, batch: int, device: DeviceLike = None
+               ) -> PyTree:
+    dev = resolve_device(device)
+    H, P, N = cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state
+    return {
+        "h": torch.zeros((cfg.n_layers, batch, H, P, N), dtype=torch.float32,
+                         device=dev),
+        "conv": torch.zeros((cfg.n_layers, batch, cfg.conv_width - 1,
+                             cfg.d_inner), dtype=torch.float32, device=dev),
+        "pos": torch.zeros((), dtype=torch.int32, device=dev),
+    }
+
+
+def prefill(params, batch, cfg: ModelConfig, spec=None):
+    """Run the chunked scan over the prompt, carrying the final SSM states.
+    Returns (logits of the last position (B, 1, V) f32, state)."""
+    tokens = batch["tokens"]
+    x = L.embed_tokens(tokens, params)
+    Bsz, S = tokens.shape
+    H, P = cfg.ssm_heads, cfg.ssm_headdim
+    hs, convs = [], []
+    for i in range(cfg.n_layers):
+        lp = L.layer_params(params, i)
+        xn = L.rms_norm(x, lp["norm"])
+        p = lp["mixer"]
+        zxbcdt = torch.einsum("bsd,de->bse", xn, p["in_proj"])
+        z, xi, Bm, Cm, dtr = _split_proj(zxbcdt, cfg)
+        xi, conv_state = _causal_conv(xi, p["conv_w"])
+        xh = xi.reshape(Bsz, S, H, P).to(torch.float32)
+        dt = _softplus(dtr.to(torch.float32) + p["dt_bias"])
+        A = -torch.exp(p["A_log"])
+        y, h_fin = ssd_chunked(xh, dt, A, Bm.to(torch.float32),
+                               Cm.to(torch.float32), cfg)
+        y = y + xh * p["D_skip"][:, None]
+        y = y.reshape(Bsz, S, cfg.d_inner).to(x.dtype) * F.silu(z)
+        x = x + torch.einsum("bse,ed->bsd", y, p["out_proj"])
+        hs.append(h_fin)
+        convs.append(conv_state)
+    hfin = L.rms_norm(x, params["final_norm"])
+    logits = L.lm_logits(hfin[:, -1:], params)
+    state = {"h": torch.stack(hs), "conv": torch.stack(convs),
+             "pos": torch.tensor(S, dtype=torch.int32, device=x.device)}
+    return logits, state
+
+
+def decode_step(params, state, tokens, cfg: ModelConfig, spec=None):
+    """One recurrent step. tokens: (B, 1) -> (logits (B, 1, V) f32, the
+    new state; the given state is left as it was)."""
+    x = L.embed_tokens(tokens, params)
+    hs, convs = [], []
+    for i in range(cfg.n_layers):
+        lp = L.layer_params(params, i)
+        out, new = mixer_decode(L.rms_norm(x, lp["norm"]), lp["mixer"],
+                                {"h": state["h"][i], "conv": state["conv"][i]},
+                                cfg)
+        x = x + out
+        hs.append(new["h"])
+        convs.append(new["conv"])
+    h = L.rms_norm(x, params["final_norm"])
+    logits = L.lm_logits(h, params)
+    return logits, {"h": torch.stack(hs), "conv": torch.stack(convs),
+                    "pos": state["pos"] + 1}

@@ -1,0 +1,180 @@
+"""Decoder-only transformer LM, dense family, serve path.
+
+The port of ``repro.models.transformer`` for one device: prefill and
+single-token decode with a KV cache, linear for full-attention decode or a
+ring buffer of ``sliding_window`` slots for the sub-quadratic long-context
+variant.
+
+Prefill attention on the card is the ``sw_attention`` CUDA kernel, the
+TPU kernel that the reference's ``models/layers.py`` names for its
+attention: with ``window=S`` for causal attention (the band ``qpos - kpos
+< S`` holds for every causal pair), with the config's window for a ring
+prefill. On the CPU it is the plain chunked ``layers.flash_attention``.
+Decode attention reads the cache (one query, ``kpos = -1`` holes in a
+ring) and stays the plain ``flash_attention`` on every device, as in the
+reference: no TPU kernel covers it.
+
+Layers are stacked along a leading ``n_layers`` dim, as in the reference,
+and walked by a Python loop. Left out: MoE, interleaved MoE, the VLM
+prefix, the int8 KV cache and the triangle prefill (``models.api`` names
+their ROADMAP items), the training loss (item 10) and the mesh (item 15).
+``decode_step`` writes the new token's K/V into the cache in place.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.kernels.sw_attention.ops import sw_attention
+from repro_torch.models import layers as L
+
+PyTree = Any
+
+
+def _dtype(cfg: ModelConfig) -> torch.dtype:
+    return L.torch_dtype(cfg.dtype)
+
+
+def init_layer(gen: torch.Generator, cfg: ModelConfig, device=None,
+               layers: tuple = ()) -> PyTree:
+    dt = _dtype(cfg)
+    dev = device if device is not None else gen.device
+    Ls = tuple(layers)
+    return {
+        "attn_norm": torch.ones(Ls + (cfg.d_model,), dtype=dt, device=dev),
+        "attn": L.init_attention(gen, cfg, dt, dev, Ls),
+        "mlp_norm": torch.ones(Ls + (cfg.d_model,), dtype=dt, device=dev),
+        "mlp": L.init_mlp(gen, cfg.d_model, cfg.d_ff, dt, dev, Ls),
+    }
+
+
+def init_params(gen: torch.Generator, cfg: ModelConfig,
+                device: DeviceLike = None) -> PyTree:
+    """Random weights from ``gen`` (drawn on its device), placed on
+    ``device`` (``cuda`` unless asked otherwise), layers stacked."""
+    dev = resolve_device(device)
+    return {
+        **L.init_embed(gen, cfg, _dtype(cfg), dev),
+        "layers": init_layer(gen, cfg, dev, (cfg.n_layers,)),
+        "final_norm": torch.ones((cfg.d_model,), dtype=_dtype(cfg),
+                                 device=dev),
+    }
+
+
+# ---------------------------------------------------------------------------
+# serving: prefill + single-token decode with KV cache
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class CacheSpec:
+    cache_len: int      # slots (== window for ring-buffer archs)
+    ring: bool
+
+
+def cache_spec(cfg: ModelConfig, seq_len: int, *, use_window: bool
+               ) -> CacheSpec:
+    if use_window and cfg.sliding_window and seq_len > cfg.sliding_window:
+        return CacheSpec(cache_len=cfg.sliding_window, ring=True)
+    return CacheSpec(cache_len=seq_len, ring=False)
+
+
+def init_cache(params_or_none, cfg: ModelConfig, batch: int, spec: CacheSpec,
+               device: DeviceLike = None) -> PyTree:
+    dev = resolve_device(device)
+    shape = (cfg.n_layers, batch, spec.cache_len, cfg.n_kv_heads,
+             cfg.head_dim)
+    return {
+        "k": torch.zeros(shape, dtype=_dtype(cfg), device=dev),
+        "v": torch.zeros(shape, dtype=_dtype(cfg), device=dev),
+        "kpos": torch.full((spec.cache_len,), -1, dtype=torch.int32,
+                           device=dev),
+        "pos": torch.zeros((), dtype=torch.int32, device=dev),
+    }
+
+
+def prefill_attention(q, k, v, positions, cfg: ModelConfig, window: int):
+    """Causal (``window=0``) or banded prefill attention over the prompt:
+    the sw_attention kernel on the card, the plain chunked attention on
+    the CPU."""
+    S = q.shape[1]
+    if q.device.type == "cpu":
+        chunk = min(cfg.attn_chunk, S)
+        return L.flash_attention(q, k, v, positions, positions, causal=True,
+                                 window=window, q_chunk=chunk,
+                                 kv_chunk=chunk)
+    return sw_attention(q, k, v, window=window or S)
+
+
+def decode_step(params, cache, tokens, cfg: ModelConfig, spec: CacheSpec):
+    """One decode step. tokens: (B, 1) -> logits (B, 1, V) f32 and the
+    cache, whose K/V and ``kpos`` are updated in place."""
+    x = L.embed_tokens(tokens, params)
+    pos = int(cache["pos"])
+    positions = torch.tensor([pos], dtype=torch.int32, device=x.device)
+    slot = (pos % spec.cache_len) if spec.ring else pos
+    kpos = cache["kpos"]
+    kpos[slot] = pos
+    window = cfg.sliding_window if spec.ring else 0
+    kv_chunk = min(cfg.attn_chunk, spec.cache_len)
+    for i in range(cfg.n_layers):
+        lp = L.layer_params(params, i)
+        kc, vc = cache["k"][i], cache["v"][i]
+        xn = L.rms_norm(x, lp["attn_norm"])
+        q, k, v = L.qkv_project(xn, lp["attn"], cfg, positions)
+        kc[:, slot] = k[:, 0].to(kc.dtype)
+        vc[:, slot] = v[:, 0].to(vc.dtype)
+        o = L.flash_attention(q, kc, vc, positions, kpos, causal=True,
+                              window=window, q_chunk=1, kv_chunk=kv_chunk)
+        x = x + torch.einsum("bshk,hkd->bsd", o, lp["attn"]["wo"])
+        x = x + L.mlp_block(L.rms_norm(x, lp["mlp_norm"]), lp["mlp"])
+    h = L.rms_norm(x, params["final_norm"])
+    logits = L.lm_logits(h, params)
+    cache["pos"] = cache["pos"] + 1
+    return logits, cache
+
+
+def prefill(params, batch, cfg: ModelConfig, spec: CacheSpec):
+    """Prefill over a full prompt; returns (logits of the last position
+    (B, 1, V) f32, cache)."""
+    x = L.embed_tokens(batch["tokens"], params)
+    B, S, _ = x.shape
+    dt = _dtype(cfg)
+    positions = torch.arange(S, dtype=torch.int32, device=x.device)
+    window = cfg.sliding_window if (cfg.sliding_window and spec.ring) else 0
+    shape = (cfg.n_layers, B, spec.cache_len, cfg.n_kv_heads, cfg.head_dim)
+    ks = torch.zeros(shape, dtype=dt, device=x.device)
+    vs = torch.zeros(shape, dtype=dt, device=x.device)
+    if spec.ring:
+        # place the last `cache_len` positions at their ring slots so that
+        # later decode writes (slot = pos % cache_len) line up
+        W = spec.cache_len
+        slots = torch.arange(S - W, S, device=x.device) % W
+    for i in range(cfg.n_layers):
+        lp = L.layer_params(params, i)
+        xn = L.rms_norm(x, lp["attn_norm"])
+        q, k, v = L.qkv_project(xn, lp["attn"], cfg, positions)
+        o = prefill_attention(q, k, v, positions, cfg, window)
+        x = x + torch.einsum("bshk,hkd->bsd", o, lp["attn"]["wo"])
+        x = x + L.mlp_block(L.rms_norm(x, lp["mlp_norm"]), lp["mlp"])
+        if spec.ring:
+            ks[i][:, slots] = k[:, -W:].to(dt)
+            vs[i][:, slots] = v[:, -W:].to(dt)
+        else:
+            # slots past S stay empty: room for the tokens decoded next
+            ks[i, :, :S] = k.to(dt)
+            vs[i, :, :S] = v.to(dt)
+    hfin = L.rms_norm(x, params["final_norm"])
+    logits = L.lm_logits(hfin[:, -1:], params)
+    kept = min(spec.cache_len, S)
+    kept_positions = torch.arange(S - kept, S, dtype=torch.int32,
+                                  device=x.device)
+    kpos = torch.full((spec.cache_len,), -1, dtype=torch.int32,
+                      device=x.device)
+    kpos[kept_positions.long() % spec.cache_len] = kept_positions
+    cache = {"k": ks, "v": vs, "kpos": kpos,
+             "pos": torch.tensor(S, dtype=torch.int32, device=x.device)}
+    return logits, cache

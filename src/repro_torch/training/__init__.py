@@ -1,1 +1,2 @@
-"""Training loops of the port: the classic (paper-experiment) runner."""
+"""Training loops of the port: the classic (paper-experiment) runner and
+the LM server (``serve.Server``)."""

@@ -11,11 +11,16 @@ from pathlib import Path
 import pytest
 import torch
 
+from repro_torch.configs import get_config
 from repro_torch.core.controller import FTController
 from repro_torch.core.policy import CheckpointPolicy
+from repro_torch.data.synthetic import lm_batch
 from repro_torch.fabric import CheckpointFabric, FabricConfig
+from repro_torch.models import get_model
 from repro_torch.models.classic import make_model
 from repro_torch.training.classic_runner import run_clean, run_with_failure
+from repro_torch.training.serve import Server
+from repro_torch.utils.tree import tree_leaves
 
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
@@ -42,11 +47,29 @@ def test_no_jax_or_reference_imports(path):
 
 def test_entry_points_default_to_cuda():
     params = {"w": torch.zeros(4, 2)}
+    lm = {}
+    for name in ("mamba2-370m", "qwen2-1.5b"):
+        cfg = get_config(name, reduced=True)
+        lm[name] = (cfg, get_model(cfg).init_params(
+            torch.Generator().manual_seed(0), cfg, device="cpu"))
     if torch.cuda.is_available():
         assert make_model("qp").device.type == "cuda"
         with pytest.raises(ValueError):
             FTController(params, CheckpointPolicy.scar())   # params on CPU
+        for cfg, cpu_params in lm.values():
+            gen = torch.Generator().manual_seed(0)
+            assert all(x.device.type == "cuda" for x in tree_leaves(
+                get_model(cfg).init_params(gen, cfg)))
+            with pytest.raises(ValueError):
+                Server(cfg, cpu_params)                      # params on CPU
         return
+    for cfg, cpu_params in lm.values():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            get_model(cfg).init_params(torch.Generator().manual_seed(0), cfg)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            lm_batch(torch.Generator().manual_seed(0), cfg, 2, 4)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            Server(cfg, cpu_params)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         make_model("mlr")
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -1,0 +1,162 @@
+"""The LM serve path's CUDA kernels against their plain versions, and the
+served models on the card against the same models on the CPU.
+
+Every test here is marked ``gpu`` and skips where there is no CUDA device.
+The file imports neither JAX nor the JAX package:
+
+    python -m pytest -q --noconftest -m gpu tests/test_torch_lm_gpu.py
+
+Tolerances: ssd_intra rtol 2e-4, atol 2e-4 (the reference sweep's: f32
+sums in another order, a warp-scan cumsum); sw_attention rtol 1e-4, atol
+1e-4 in f32 and bf16 alike (both versions read the same bf16 values and
+compute in f32); the reduced models' prefill logits, card against CPU,
+rtol 1e-4, atol 1e-4 (f32 throughout, TF32 off); greedy tokens equal.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.kernels import _build
+from repro_torch.kernels.ssd_scan.kernel import ssd_intra_cuda
+from repro_torch.kernels.ssd_scan.ops import ssd_chunked_kernel
+from repro_torch.kernels.ssd_scan.ref import ssd_intra_ref
+from repro_torch.kernels.sw_attention.kernel import sw_attention_cuda
+from repro_torch.kernels.sw_attention.ref import sw_attention_ref
+from repro_torch.models import get_model, transformer
+from repro_torch.training.serve import Server
+from repro_torch.utils.tree import tree_map
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _intra_inputs(dims, device, seed):
+    B, nc, Q, H, P, N = dims
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=device)
+    la = -rnd(B, nc, Q, H).abs() * 0.1
+    dt = rnd(B, nc, Q, H).abs()
+    return la, dt, rnd(B, nc, Q, H, P), rnd(B, nc, Q, N), rnd(B, nc, Q, N)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dims", [(1, 2, 128, 3, 64, 128),  # the full Q, P, N
+                                  (2, 3, 32, 3, 32, 16),    # reduced configs
+                                  (1, 2, 50, 2, 24, 20),    # Q < 128, odd
+                                  (2, 1, 8, 1, 4, 8),
+                                  (1, 1, 127, 2, 8, 33)])
+def test_ssd_intra_cuda_matches_plain(cuda, dims):
+    ins = _intra_inputs(dims, cuda, seed=sum(dims))
+    n0 = _build.LAUNCHES["ssd_intra"]
+    y, st = ssd_intra_cuda(*ins)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["ssd_intra"] == n0 + 1
+    want_y, want_st = ssd_intra_ref(*ins)
+    torch.testing.assert_close(y, want_y, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(st, want_st, rtol=2e-4, atol=2e-4)
+    y2, st2 = ssd_intra_cuda(*ins)
+    assert torch.equal(y, y2) and torch.equal(st, st2)   # same on every run
+
+
+@pytest.mark.gpu
+def test_ssd_chunked_kernel_on_the_card_matches_the_cpu(cuda):
+    g = torch.Generator().manual_seed(3)
+    B, S, H, P, N = 2, 96, 3, 16, 16
+    x = torch.randn(B, S, H, P, generator=g)
+    dt = torch.nn.functional.softplus(torch.randn(B, S, H, generator=g))
+    A = -torch.exp(torch.randn(H, generator=g))
+    Bm, Cm = torch.randn(B, S, N, generator=g), torch.randn(B, S, N,
+                                                            generator=g)
+    h0 = torch.randn(B, H, P, N, generator=g)
+    args = (x, dt, A, Bm, Cm)
+    y_cpu, h_cpu = ssd_chunked_kernel(*args, chunk=32, h0=h0)
+    n0 = _build.LAUNCHES["ssd_intra"]
+    y, h = ssd_chunked_kernel(*(a.to(cuda) for a in args), chunk=32,
+                              h0=h0.to(cuda))
+    assert _build.LAUNCHES["ssd_intra"] == n0 + 1
+    torch.testing.assert_close(y.cpu(), y_cpu, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(h.cpu(), h_cpu, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("BH,G,S,Dh,W", [
+    (2, 6, 100, 128, 100),     # causal, S not a multiple of the tile
+    (1, 1, 257, 64, 40),       # G = 1, W below S
+    (3, 6, 130, 64, 500),      # W above S
+    (1, 2, 64, 128, 1),        # each row sees itself only
+    (2, 6, 320, 128, 128)])    # W below S, several tiles
+def test_sw_attention_cuda_matches_plain(cuda, dtype, BH, G, S, Dh, W):
+    g = torch.Generator(device=cuda).manual_seed(S + W)
+    q = torch.randn((BH, G, S, Dh), generator=g, device=cuda).to(dtype)
+    k = torch.randn((BH, S, Dh), generator=g, device=cuda).to(dtype)
+    v = torch.randn((BH, S, Dh), generator=g, device=cuda).to(dtype)
+    n0 = _build.LAUNCHES["sw_attention"]
+    got = sw_attention_cuda(q, k, v, window=W)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["sw_attention"] == n0 + 1
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got, sw_attention_ref(q, k, v, window=W),
+                               rtol=1e-4, atol=1e-4)
+    assert torch.equal(got, sw_attention_cuda(q, k, v, window=W))
+
+
+@pytest.mark.gpu
+def test_kernel_wrappers_refuse_what_they_do_not_take(cuda):
+    q = torch.zeros((1, 1, 8, 32), device=cuda)
+    k = torch.zeros((1, 8, 32), device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        sw_attention_cuda(q, k, k, window=8)
+    ins = _intra_inputs((1, 1, 129, 1, 4, 4), cuda, seed=0)
+    with pytest.raises(ValueError, match="exceeds"):
+        ssd_intra_cuda(*ins)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["mamba2-370m", "qwen2-1.5b"])
+def test_reduced_model_on_the_card_matches_the_cpu(cuda, name):
+    cfg = get_config(name, reduced=True)
+    ops = get_model(cfg)
+    params = ops.init_params(torch.Generator().manual_seed(0), cfg,
+                             device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (2, 64)).astype(np.int32))
+    kernel = "ssd_intra" if cfg.family == "ssm" else "sw_attention"
+    logits_cpu, _ = ops.prefill(params, {"tokens": toks}, cfg)
+    gparams = tree_map(lambda x: x.to(cuda), params)
+    n0 = _build.LAUNCHES[kernel]
+    logits, _ = ops.prefill(gparams, {"tokens": toks.to(cuda)}, cfg)
+    assert _build.LAUNCHES[kernel] == n0 + cfg.n_layers
+    torch.testing.assert_close(logits.cpu(), logits_cpu, rtol=1e-4, atol=1e-4)
+    want = Server(cfg, params, device="cpu").generate({"tokens": toks}, 6)
+    got = Server(cfg, gparams, device=cuda).generate({"tokens": toks}, 6)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.gpu
+def test_ring_prefill_on_the_card_matches_the_cpu(cuda):
+    cfg = get_config("qwen2-1.5b", reduced=True)
+    params = get_model(cfg).init_params(torch.Generator().manual_seed(0),
+                                        cfg, device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab, (1, 97)).astype(np.int32))
+    spec = transformer.cache_spec(cfg, 96, use_window=True)
+    assert spec.ring
+    out = {}
+    for dev in ("cpu", cuda):
+        p = tree_map(lambda x: x.to(dev), params)
+        logits, cache = transformer.prefill(
+            p, {"tokens": toks[:, :96].to(dev)}, cfg, spec)
+        logits2, _ = get_model(cfg).decode_step(p, cache,
+                                                toks[:, 96:].to(dev), cfg)
+        out[str(dev)] = (logits.cpu(), logits2.cpu(), cache["k"].cpu())
+    for a, b in zip(out["cuda"], out["cpu"]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
