@@ -80,14 +80,20 @@ Phases, each of which fails the run if it fails:
 14. After the 1.54 B tree is freed, the serve kernels at the shapes the
     served prefills give them, against their plain versions
     (|got - want| <= 1e-4 |want| + 1e-4 max|want|; the same for bf16
-    inputs, which both versions read as f32) and bit-identical run to run:
+    inputs, which both versions read exactly) and bit-identical run to run:
     ssd_intra at mamba2-370m's (B 8, nc 16, Q 128, H 32, P 64, N 128),
     sw_attention at qwen2-1.5b's causal (B 4 x 2 kv heads, G 6, S 2048,
     W = S) and ring (B 1, S 8192, W 4096) cases, bf16. Timed as in phase 2
-    beside the bound (ssd_intra: its f32 FLOPs over 67 TFLOP/s;
-    sw_attention: its band's FLOPs over the bf16 tensor-core rate, 989
-    TFLOP/s) and, for sw_attention, beside
+    (and back to back, ten calls on one stream) beside the bound
+    (ssd_intra: its bytes over 3.35 TB/s, or its products as three TF32
+    products each over 495 TFLOP/s, with the f32-FMA figure of earlier runs
+    beside it; sw_attention: its band's FLOPs over the bf16 tensor-core
+    rate, 989 TFLOP/s) and, for sw_attention, beside
     ``F.scaled_dot_product_attention`` with the band mask (timed only).
+    Each kernel's tensor-core FLOPs are printed, with the split's extra
+    products, and the HGMMA and HMMA instructions that ``cuobjdump -sass``
+    finds in the built library's functions: the run fails unless
+    sw_attention's bf16 instances hold HGMMA and ssd_intra HMMA.
 15. mamba2-370m served at full width (48 layers, d 1024, bf16, random
     weights from a seed): ``Server.generate`` on an (8, 2048) prompt with
     32 new tokens; then ``examples/serve_with_recovery.py``'s flow
@@ -98,7 +104,9 @@ Phases, each of which fails the run if it fails:
     cast to f32, the prefill's last logits against the same prefill with
     the plain version (relative L2 <= 5e-3; the bf16 distance is reported:
     the random-weight models amplify each layer's 1-ulp bf16 flips).
-    Prefill and decode tokens/s and peak device memory are reported.
+    Prefill and decode tokens/s, a profile of one prefill (the card's busy
+    seconds and its eight largest kernels) and peak device memory are
+    reported; phase 16 reports the same.
 16. qwen2-1.5b served at full width (28 layers, d 1536, GQA 12/2, bf16,
     untied head, as the config has it): ``Server.generate`` on (4, 2048)
     with 16 new tokens, a ring prefill of 8,192 tokens
@@ -129,6 +137,7 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
 F32_FLOPS_PER_S = 67e12          # H100 SXM, f32 outside the tensor cores
 BF16_TC_FLOPS_PER_S = 989e12     # H100 SXM, dense bf16 tensor cores
+TF32_TC_FLOPS_PER_S = 495e12     # H100 SXM, dense TF32 tensor cores
 BLOCK_ROWS = 128
 TIMING_RUNS = 7
 SEED = 0
@@ -231,7 +240,7 @@ def device_ms(fn, calls: int = 10) -> float:
 def device_share(fn) -> dict:
     """Run ``fn`` once under torch.profiler: its wall seconds (ending in a
     synchronize), the seconds the card spent in kernels and copies, and the
-    five names that took most of them. ``device_s`` is 0 where the
+    eight names that took most of them. ``device_s`` is 0 where the
     profiler records no device activity."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -245,7 +254,7 @@ def device_share(fn) -> dict:
     rows = [(e.key, e.self_device_time_total) for e in prof.key_averages()
             if e.self_device_time_total > 0]
     device_s = sum(us for _, us in rows) / 1e6
-    top = sorted(rows, key=lambda r: -r[1])[:5]
+    top = sorted(rows, key=lambda r: -r[1])[:8]
     return {"wall_s": wall, "device_s": device_s,
             "busy_share": device_s / wall if wall > 0 else None,
             "top_device_ms": [[k[:60], us / 1e3] for k, us in top]}
@@ -1448,8 +1457,10 @@ QWEN_RING = dict(batch=1, seq=8192)
 # a kernel against its plain version on the same inputs:
 # |got - want| <= RTOL |want| + RTOL max|want| (f32 sums in another order;
 # near-zero outputs of a cancelling sum get the scale's share).
-# sw_attention's bf16 inputs are read as f32 by both versions, so the f32
-# tolerance holds for them too.
+# sw_attention's bf16 inputs are read exactly by both versions: the
+# kernel's Q K^T products are exact in f32 and its P V splits P into two
+# bf16 parts (~2^-17 of P), so the f32 tolerance holds for them too;
+# ssd_intra's products are three TF32 products each (~2^-21).
 SERVE_RTOL = 1e-4
 # end to end, the served weights cast to f32: relative L2 distance of the
 # last logits. One f32 rounding apart in each kernel call; the random-weight
@@ -1472,6 +1483,41 @@ def ssd_intra_counts(B, nc, Q, H, P, N) -> tuple[int, int]:
     flops = B * nc * 2 * tri * N + B * nc * H * (
         4 * tri + 2 * tri * P + 3 * Q + Q * P + 2 * Q * N * P)
     return n_bytes, flops
+
+
+def ssd_intra_tc_flops(B, nc, Q, H, P, N) -> int:
+    """Tensor-core FLOPs of ssd_intra, whose every product is three TF32
+    products: C B^T once per (batch, chunk) and y = M x over their causal
+    halves, state = B^T (x w) per head."""
+    tri = Q * (Q + 1) // 2
+    return 3 * B * nc * (2 * tri * N + H * (2 * tri * P + 2 * Q * N * P))
+
+
+def sw_attention_tc_flops(BH, G, S, Dh, W) -> int:
+    """Tensor-core FLOPs of sw_attention's bf16 instance: per visible
+    (query, key) pair 2 Dh for Q K^T and 4 Dh for P V as two products (P's
+    bf16 high and low parts)."""
+    W = min(W, S)
+    return 6 * Dh * BH * G * (W * (W + 1) // 2 + (S - W) * W)
+
+
+def sass_mma_counts() -> dict:
+    """HGMMA and HMMA instructions in each kernel function of the built
+    library, from ``cuobjdump -sass`` (the toolkit's, beside nvcc)."""
+    from repro_torch.kernels import _build
+    tool = Path(_build._nvcc()).with_name("cuobjdump")
+    out = subprocess.run([str(tool), "-sass", _build.library()._name],
+                         check=True, capture_output=True, text=True,
+                         timeout=300).stdout
+    counts, fn = {}, None
+    for line in out.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            counts[fn] = {"HGMMA": 0, "HMMA": 0}
+        elif fn is not None:
+            for ins in ("HGMMA", "HMMA"):
+                counts[fn][ins] += f" {ins}." in line
+    return counts
 
 
 def sw_attention_counts(BH, G, S, Dh, W, itemsize) -> tuple[int, int]:
@@ -1570,11 +1616,15 @@ def phase_serve_kernels(device) -> dict:
     t = in_turns({"plain": lambda: ssd_intra_ref(*ins),
                   "kernel": lambda: ssd_intra_cuda(*ins)})
     n_bytes, flops = ssd_intra_counts(B, nc, Q, H, P, N)
-    b, by = bound_ms(n_bytes, flops, F32_FLOPS_PER_S)
+    tc_flops = ssd_intra_tc_flops(B, nc, Q, H, P, N)
+    b, by = bound_ms(n_bytes, tc_flops, TF32_TC_FLOPS_PER_S)
     results["ssd_intra"] = dict(
         max_abs_err=err, ms=t["kernel"], plain_ms=t["plain"], bound_ms=b,
-        bound_by=by, library_ms=None, shape=[B, nc, Q, H, P, N],
-        bytes=n_bytes, flops=flops, tolerance_ratio=ratio)
+        bound_by=by, library_ms=None,
+        bound_f32_fma_ms=bound_ms(n_bytes, flops, F32_FLOPS_PER_S)[0],
+        back_to_back_ms=device_ms(lambda: ssd_intra_cuda(*ins)),
+        shape=[B, nc, Q, H, P, N], bytes=n_bytes, flops=flops,
+        tc_flops=tc_flops, tolerance_ratio=ratio)
     del ins
 
     qcfg = get_config("qwen2-1.5b")
@@ -1611,11 +1661,15 @@ def phase_serve_kernels(device) -> dict:
                       "kernel": lambda: sw_attention_cuda(q, k, v, window=W),
                       "library": library})
         n_bytes, flops = sw_attention_counts(BH, G, S, Dh, W, 2)
+        tc_flops = sw_attention_tc_flops(BH, G, S, Dh, W)
         b, by = bound_ms(n_bytes, flops, BF16_TC_FLOPS_PER_S)
         sw[case] = dict(max_abs_err=err, ms=t["kernel"], plain_ms=t["plain"],
                         bound_ms=b, bound_by=by, library_ms=t["library"],
-                        library_max_abs_err=lib_err, shape=[BH, G, S, Dh, W],
-                        bytes=n_bytes, flops=flops, tolerance_ratio=ratio)
+                        library_max_abs_err=lib_err, back_to_back_ms=device_ms(
+                            lambda: sw_attention_cuda(q, k, v, window=W)),
+                        library_back_to_back_ms=device_ms(library),
+                        shape=[BH, G, S, Dh, W], bytes=n_bytes, flops=flops,
+                        tc_flops=tc_flops, tolerance_ratio=ratio)
         del q, k, v, k4, v4, band
         torch.cuda.empty_cache()
     # the row of the kernels line is the served prefill's (causal) case
@@ -1624,12 +1678,30 @@ def phase_serve_kernels(device) -> dict:
                     ("sw_attention causal", sw["causal"]),
                     ("sw_attention ring", sw["ring"])):
         lib = r["library_ms"]
-        log(f"{name} {r['shape']}: kernel {r['ms']:.3f} ms, plain "
+        log(f"{name} {r['shape']}: kernel {r['ms']:.3f} ms "
+            f"({r['back_to_back_ms']:.3f} back to back), plain "
             f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
             f"({r['bound_by']}), library "
             f"{'none' if lib is None else format(lib, '.3f') + ' ms'}, max "
             f"abs err {r['max_abs_err']:.3g} ({r['tolerance_ratio']:.3g} of "
-            f"the tolerance)")
+            f"the tolerance); tensor-core FLOPs {r['tc_flops'] / 1e9:.3f} G "
+            f"with the split's products")
+    log(f"ssd_intra bound {results['ssd_intra']['bound_ms']:.3f} ms (bytes "
+        f"over 3.35 TB/s, or its 3xTF32 products over 495 TFLOP/s); as f32 "
+        f"FMA over 67 TFLOP/s {results['ssd_intra']['bound_f32_fma_ms']:.3f}"
+        f" ms")
+    sass = {name: n for name, n in sass_mma_counts().items()
+            if "sw_attention" in name or "ssd_intra" in name}
+    log(f"tensor-core instructions in the SASS: {json.dumps(sass)}")
+    tc = [n["HGMMA"] for name, n in sass.items() if "sw_attention_tc" in name]
+    mma = [n["HMMA"] for name, n in sass.items() if "ssd_intra" in name]
+    check(len(tc) == 2 and min(tc) > 0 and mma and min(mma) > 0,
+          "the redesigned kernels' SASS lacks HGMMA (sw_attention's bf16 "
+          "instances) or HMMA (ssd_intra)")
+    results["ssd_intra"]["sass"] = {k: v for k, v in sass.items()
+                                    if "ssd_intra" in k}
+    results["sw_attention"]["sass"] = {k: v for k, v in sass.items()
+                                       if "sw_attention" in k}
     return results
 
 
@@ -1644,13 +1716,17 @@ def _timed(fn):
 
 def _serve_speeds(srv, ops, cfg, batch, n_new) -> dict:
     """Warm host-clock seconds of a prefill alone and of a whole
-    generate; decode's share is their difference."""
+    generate; decode's share is their difference. Then one prefill under
+    the profiler: the card's busy seconds and the eight kernels that took
+    most of them."""
     _, prefill_s = _timed(lambda: ops.prefill(srv.params, batch, cfg))
     _, gen_s = _timed(lambda: srv.generate(batch, n_new))
     B, S = batch["tokens"].shape
     return {"prefill_seconds": prefill_s, "generate_seconds": gen_s,
             "prefill_tokens_per_s": B * S / prefill_s,
-            "decode_tokens_per_s": B * (n_new - 1) / (gen_s - prefill_s)}
+            "decode_tokens_per_s": B * (n_new - 1) / (gen_s - prefill_s),
+            "prefill_profile": device_share(
+                lambda: ops.prefill(srv.params, batch, cfg))}
 
 
 def _hold_routes(ops, cfg, params, batch, kernel: str) -> dict:
@@ -1744,8 +1820,9 @@ def phase_qwen2_serve(device, launches: dict) -> dict:
     """Phase 16: qwen2-1.5b at full width (28 layers, d 1536, GQA 12/2,
     bf16, untied head) served from the kernel route, a ring prefill of
     8,192 tokens and one decode step, then the kernel route held against the
-    plain route, and, in f32, the ring decode against a ring prefill of the
-    8,193 tokens; ``launches["qwen2_serve"]`` gets the counts of the
+    plain route (the causal and the ring prefill call by call in bf16, the
+    causal prefill's logits in f32), and, in f32, the ring decode against a
+    ring prefill of the 8,193 tokens; ``launches["qwen2_serve"]`` gets the counts of the
     generate, the ring prefill and its decode."""
     import dataclasses
     import torch
@@ -1803,6 +1880,13 @@ def phase_qwen2_serve(device, launches: dict) -> dict:
            "served_peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
            **_hold_routes(ops, cfg, params, batch, "sw_attention")}
     del ring_decode, longer
+    with kernel_route("checked") as ratios:
+        transformer.prefill(params, {"tokens": ring_toks[:, :S_ring]}, cfg,
+                            spec)
+    out["ring_per_call_worst_ratio"] = worst = max(ratios["sw_attention"])
+    check(len(ratios["sw_attention"]) == cfg.n_layers and worst <= 1.0,
+          f"the bf16 ring prefill: {len(ratios['sw_attention'])} "
+          f"sw_attention calls, the worst {worst:.3g} of the tolerance")
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     p32 = tree_map(lambda x: x.float(), params)
     del params, srv

@@ -10,48 +10,63 @@
 //
 // Bound on an H100: operations. Each visible (query, key) pair costs 4 Dh
 // FLOPs for a few bytes; the least time is those FLOPs over the dense
-// bf16 tensor-core rate (989 TFLOP/s), which this first kernel, in f32 FMA
-// on the CUDA cores, cannot reach: its own ceiling is 67 TFLOP/s.
+// bf16 tensor-core rate (989 TFLOP/s).
 //
-// Design. The TPU kernel keeps a (G * 128, Dh) f32 accumulator in VMEM
-// across its kv grid axis (393 KB at qwen2-1.5b): far above what a CTA
-// holds. Here one CTA owns (bh, g, 64 query rows) and walks, in a loop, the
-// 64-key tiles the band reaches: from floor((q0 - window) / 64), clamped at
-// 0 as _kv_start_block does, to the diagonal, so a causal prefill visits
-// only the lower triangle. Four threads share a query row, each holding a
-// quarter of q and of the output row in registers (its float4 chunks c with
-// c % 4 == its lane, so the four read adjacent 16-byte words of a key row:
-// no bank conflicts). A tile of K and V is loaded as f32 into shared
-// memory; pass 1 takes the 64 scores of each row (partial dot products
-// joined by two shuffles) and the tile's maximum, pass 2 rescales the
-// running sums once and adds exp(s - m) v. Rows and keys past S, and keys
-// outside the band, are masked by position arithmetic, not by padded
-// copies. l is clamped at 1e-30 before the division, as the reference
-// does. No atomics: the same inputs give the same bits on every run.
+// The served dtype is bf16, and its instance runs on the tensor cores. The
+// TPU kernel keeps a (G * 128, Dh) f32 accumulator in VMEM across its kv
+// grid axis (393 KB at qwen2-1.5b), far above what a CTA holds; here one
+// CTA owns (bh, g, 128 query rows) and walks, in a loop, the 64-key tiles
+// the band reaches: from floor((q0 - window) / 64), clamped at 0 as
+// _kv_start_block does, to the diagonal, so a causal prefill visits only
+// the lower triangle. CTAs take the query tiles last first, so the longest
+// bands start first. A producer warpgroup (one issuing thread; setmaxnreg
+// hands its registers to the consumers) loads the Q tile once and keeps up
+// to three K/V tiles in flight by TMA (3-d maps over (Dh, S, heads),
+// 128-byte swizzle, rows past S read as zeros), each stage released by an
+// mbarrier when both consumers are done with it. Each of two consumer
+// warpgroups owns 64 query rows: S = Q K^T by wgmma (bf16 from shared
+// memory, f32 sums in registers; the bf16 products are exact in f32), the
+// online softmax in registers (base 2; row max and sum by quad shuffles,
+// one rescale per tile), and O += P V by wgmma with P from registers and V
+// read through the transpose bit; the two warpgroups' softmax and products
+// interleave on the SM. P is split:
+// P_hi = bf16(P), P_lo = bf16(P - P_hi), two products into one f32
+// accumulator, so P is carried to ~2^-17 of its value (P alone in bf16
+// errs by up to 2^-9, above the 1e-4 the kernel is held to). Position
+// masks run only on tiles that cross the diagonal, the band's lower edge
+// or the end of the keys. l is clamped at 1e-30 before the division, as
+// the reference does. No atomics: the same inputs give the same bits.
+//
+// f32 inputs (route checks and tests only) take the first, SIMT instance:
+// one CTA per (bh, g, 64 query rows), four threads per row, f32 FMA on the
+// CUDA cores, K and V tiles staged as f32 in shared memory. Splitting f32 Q
+// and K three ways for the tensor cores would serve no served path.
+#include <cuda.h>            // CUtensorMap; the encoder comes from the runtime
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
+// ---------------------------------------------------------------------------
+// f32: SIMT
+// ---------------------------------------------------------------------------
+
 constexpr int kThreads = 256;
 constexpr int kRows = 64;        // query rows per CTA: 4 threads per row
 constexpr int kKeys = 64;        // keys per shared-memory tile
 constexpr float kNegInf = -1e30f;
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 
 __device__ __forceinline__ bool visible(int qpos, int kpos, int window, int S) {
   return kpos < S && kpos <= qpos && qpos - kpos < window;
 }
 
 // grid: (ceil(S / kRows), G, BH)
-template <int DH, typename T>
+template <int DH>
 __global__ void __launch_bounds__(kThreads)
-sw_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, float* __restrict__ out, int G,
-                    int S, int window, float scale) {
+sw_attention_simt(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, float* __restrict__ out, int G,
+                  int S, int window, float scale) {
   constexpr int kChunks = DH / 16;        // float4 chunks per thread
   extern __shared__ float smem[];
   float* k_s = smem;                      // kKeys x DH
@@ -67,19 +82,19 @@ sw_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const bool q_ok = qpos < S;
 
   float qr[DH / 4], acc[DH / 4];
-  const T* q_row = q + ((bh * G + g) * S + (q_ok ? qpos : 0)) * DH;
+  const float* q_row = q + ((bh * G + g) * S + (q_ok ? qpos : 0)) * DH;
 #pragma unroll
   for (int t = 0; t < kChunks; ++t) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      qr[4 * t + e] = q_ok ? to_f32(q_row[4 * (lane4 + 4 * t) + e]) : 0.f;
+      qr[4 * t + e] = q_ok ? q_row[4 * (lane4 + 4 * t) + e] : 0.f;
       acc[4 * t + e] = 0.f;
     }
   }
   float m = kNegInf, l = 0.f;
 
-  const T* k_bh = k + bh * S * DH;
-  const T* v_bh = v + bh * S * DH;
+  const float* k_bh = k + bh * S * DH;
+  const float* v_bh = v + bh * S * DH;
   const int k_begin = max(0, (q0 - window) / kKeys) * kKeys;
   const int k_end = min(S, q0 + kRows);
   for (int kt = k_begin; kt < k_end; kt += kKeys) {
@@ -87,8 +102,8 @@ sw_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int64_t base = static_cast<int64_t>(kt) * DH;
     for (int e = tid; e < kKeys * DH; e += kThreads) {
       const bool ok = kt + e / DH < S;
-      k_s[e] = ok ? to_f32(k_bh[base + e]) : 0.f;
-      v_s[e] = ok ? to_f32(v_bh[base + e]) : 0.f;
+      k_s[e] = ok ? k_bh[base + e] : 0.f;
+      v_s[e] = ok ? v_bh[base + e] : 0.f;
     }
     __syncthreads();
 
@@ -154,12 +169,12 @@ sw_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <int DH, typename T>
-int launch(const void* q, const void* k, const void* v, float* out,
-           int64_t BH, int64_t G, int64_t S, int64_t window, float scale,
-           cudaStream_t stream) {
+template <int DH>
+int launch_simt(const void* q, const void* k, const void* v, float* out,
+                int64_t BH, int64_t G, int64_t S, int64_t window, float scale,
+                cudaStream_t stream) {
   const size_t smem = sizeof(float) * (2 * kKeys * DH + kRows * (kKeys + 1));
-  auto kernel = sw_attention_kernel<DH, T>;
+  auto kernel = sw_attention_simt<DH>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -167,8 +182,501 @@ int launch(const void* q, const void* k, const void* v, float* out,
   const dim3 grid(static_cast<unsigned>((S + kRows - 1) / kRows),
                   static_cast<unsigned>(G), static_cast<unsigned>(BH));
   kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), out, static_cast<int>(G), static_cast<int>(S),
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), out, static_cast<int>(G),
+      static_cast<int>(S), static_cast<int>(window), scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// bf16: wgmma on TMA-loaded tiles
+// ---------------------------------------------------------------------------
+
+constexpr int kTcRows = 128;               // query rows per CTA
+constexpr int kTcKeys = 64;                // keys per tile
+constexpr int kStages = 3;                 // K/V tiles in flight
+constexpr int kConsumers = 256;            // two warpgroups of 64 rows each
+constexpr int kTcThreads = kConsumers + 128;  // and a producer warpgroup
+constexpr int kPanel = 64;                 // bf16 in one 128-byte swizzled row
+constexpr int kRowBytes = 128;
+
+// Shared memory, from a 1024-byte aligned base: Q, then the K and V stages,
+// each split into Dh / 64 panels of [rows][64] bf16 as TMA's 128-byte
+// swizzle writes them, then the barriers.
+template <int DH>
+struct TcLayout {
+  static constexpr int kPanels = DH / kPanel;
+  static constexpr int kQPanel = kTcRows * kRowBytes;
+  static constexpr int kKPanel = kTcKeys * kRowBytes;
+  static constexpr int kTile = kPanels * kKPanel;          // one of K, V
+  static constexpr int kQ = 0;
+  static constexpr int kK = kPanels * kQPanel;
+  static constexpr int kV = kK + kStages * kTile;
+  static constexpr int kBar = kV + kStages * kTile;
+  static constexpr int kBytes = kBar + 8 * (1 + 2 * kStages);
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar),
+               "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  return done != 0;
+}
+
+__device__ __forceinline__ uint64_t global_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %globaltimer;" : "=l"(t));
+  return t;
+}
+
+// Waits for the phase of the given parity to complete. A wait of seconds
+// means a broken pipeline: trap (a launch error) rather than hang the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  const uint64_t t0 = global_ns();
+  while (!mbar_try_wait(bar, parity)) {
+    if (global_ns() - t0 > 4000000000ull) __trap();
+  }
+}
+
+// one box of a 3-d tensor map into shared memory, completing on bar
+__device__ __forceinline__ void tma_load_3d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
+         "r"(c1), "r"(c2) : "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle; offsets in bytes
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3ffff) >> 4)
+       | static_cast<uint64_t>((lbo >> 4) & 0x3fff) << 16
+       | static_cast<uint64_t>((sbo >> 4) & 0x3fff) << 32
+       | static_cast<uint64_t>(1) << 62;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit_and_wait() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// keeps the compiler from moving accesses to r across the wgmma calls
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+
+// d (64 x 64) += A (64 x 16, shared) B (16 x 64, shared, K-major);
+// scale_d == 0 ignores d's old value
+__device__ __forceinline__ void wgmma_ss_m64n64(float (&d)[32], uint64_t da,
+                                                uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (64 x 64) += A (64 x 16, registers) B (16 x 64, shared, MN-major)
+__device__ __forceinline__ void wgmma_rs_m64n64(float (&d)[32],
+                                                const uint32_t (&a)[4],
+                                                uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x 128) += A (64 x 16, registers) B (16 x 128, shared, MN-major)
+__device__ __forceinline__ void wgmma_rs_m64n128(float (&d)[64],
+                                                const uint32_t (&a)[4],
+                                                uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
+      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
+      "%57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, "
+      "1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),
+        "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),
+        "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]),
+        "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// P . V for Dh 64 and 128: N = Dh
+template <int DH> struct PV;
+template <> struct PV<64> {
+  static __device__ __forceinline__ void mma(float (&o)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+    wgmma_rs_m64n64(o, a, db);
+  }
+};
+template <> struct PV<128> {
+  static __device__ __forceinline__ void mma(float (&o)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+    wgmma_rs_m64n128(o, a, db);
+  }
+};
+
+// S = Q K^T for 64 rows and a 64-key tile: Dh / 16 steps of K-major bf16
+// from shared memory, the 128-byte swizzle's 16-byte column steps within
+// each panel
+template <int DH>
+__device__ __forceinline__ void scores(float (&s)[32], uint32_t q_rows,
+                                       uint32_t k_tile) {
+  using L = TcLayout<DH>;
+  fence_regs(s);
+  wgmma_fence();
+#pragma unroll
+  for (int ks = 0; ks < DH / 16; ++ks) {
+    const uint32_t off = (ks % 4) * 32;
+    wgmma_ss_m64n64(
+        s, sw128_desc(q_rows + (ks / 4) * L::kQPanel + off, 16, 1024),
+        sw128_desc(k_tile + (ks / 4) * L::kKPanel + off, 16, 1024), ks > 0);
+  }
+  wgmma_commit_and_wait();
+  fence_regs(s);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo_col, float hi_col) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo_col, hi_col);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// grid: (ceil(S / kTcRows), G, BH). Maps: q (Dh, S, BH * G), box (64, 128,
+// 1); k, v (Dh, S, BH), box (64, 64, 1); bf16, 128-byte swizzle.
+template <int DH>
+__global__ void __launch_bounds__(kTcThreads, 1)
+sw_attention_tc(const __grid_constant__ CUtensorMap qmap,
+                const __grid_constant__ CUtensorMap kmap,
+                const __grid_constant__ CUtensorMap vmap,
+                float* __restrict__ out, int G, int S, int window,
+                float scale) {
+  using L = TcLayout<DH>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t q_full = base + L::kBar;
+  const uint32_t full0 = q_full + 8, empty0 = full0 + 8 * kStages;
+
+  const int g = blockIdx.y;
+  const int bh = blockIdx.z;
+  // the longest bands first: the last query tiles see the most keys
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kTcRows;
+  const int tid = threadIdx.x;
+  const int k_begin = max(0, (q0 - window) / kTcKeys) * kTcKeys;
+  const int k_end = min(S, q0 + kTcRows);
+  const int n_tiles = (k_end - k_begin + kTcKeys - 1) / kTcKeys;
+
+  if (tid == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, kConsumers / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // one branch per role to the end of the kernel, as setmaxnreg needs
+  if (tid >= kConsumers) {
+    // producer: one thread keeps up to kStages K/V tiles in flight; its
+    // warpgroup hands most of its registers to the consumers
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (tid == kConsumers) {
+      mbar_expect_tx(q_full, L::kPanels * L::kQPanel);
+      for (int p = 0; p < L::kPanels; ++p) {
+        tma_load_3d(base + L::kQ + p * L::kQPanel, &qmap, q_full, p * kPanel,
+                    q0, bh * G + g);
+      }
+      for (int t = 0; t < n_tiles; ++t) {
+        const int stage = t % kStages;
+        if (t >= kStages) {
+          mbar_wait(empty0 + 8 * stage, ((t / kStages) - 1) & 1);
+        }
+        const uint32_t full = full0 + 8 * stage;
+        mbar_expect_tx(full, 2 * L::kTile);
+        const int kt = k_begin + t * kTcKeys;
+        for (int p = 0; p < L::kPanels; ++p) {
+          tma_load_3d(base + L::kK + stage * L::kTile + p * L::kKPanel, &kmap,
+                      full, p * kPanel, kt, bh);
+          tma_load_3d(base + L::kV + stage * L::kTile + p * L::kKPanel, &vmap,
+                      full, p * kPanel, kt, bh);
+        }
+      }
+    }
+  } else {
+    // consumers: warpgroup wg owns rows r0 .. r0 + 63; this thread rows ra, rb
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    const int wg = __shfl_sync(0xffffffffu, tid / 128, 0);   // warp-uniform
+    const int lane = tid & 31;
+    const int gq = lane >> 2, tq = lane & 3;
+    const int r0 = q0 + 64 * wg;
+    const int ra = r0 + 16 * ((tid % 128) / 32) + gq, rb = ra + 8;
+    const int r_last = min(r0 + 63, S - 1);
+    const bool rows_ok = r0 < S;
+    // the tiles with a key this warpgroup's rows see: t_lo <= t < t_hi
+    int t_lo = 0, t_hi = 0;
+    if (rows_ok) {
+      t_hi = min(n_tiles, (r_last - k_begin) / kTcKeys + 1);
+      const int below = r0 - window + 1 - (kTcKeys - 1) - k_begin;
+      t_lo = below <= 0 ? 0 : (below + kTcKeys - 1) / kTcKeys;
+    }
+
+    float o[DH / 2];
+#pragma unroll
+    for (int i = 0; i < DH / 2; ++i) o[i] = 0.f;
+    // the softmax runs in base 2: scores times log2(e) / sqrt(Dh)
+    const float scale2 = scale * 1.4426950408889634f;
+    float m_a = kNegInf, m_b = kNegInf, l_a = 0.f, l_b = 0.f;
+    const uint32_t q_rows = base + L::kQ + wg * 64 * kRowBytes;
+    float s[32];
+#pragma unroll
+    for (int e = 0; e < 32; ++e) s[e] = 0.f;
+
+    mbar_wait(q_full, 0);
+    for (int t = 0; t < n_tiles; ++t) {
+      const int stage = t % kStages;
+      mbar_wait(full0 + 8 * stage, (t / kStages) & 1);
+      if (t >= t_lo && t < t_hi) {
+        scores<DH>(s, q_rows, base + L::kK + stage * L::kTile);
+
+        // masks only where the tile crosses the diagonal, the band's lower
+        // edge or the end of the keys
+        const int kt = k_begin + t * kTcKeys;
+        const bool masked = kt + kTcKeys - 1 > r0 || r_last - kt >= window
+                            || kt + kTcKeys - 1 >= S;
+        float mt_a = kNegInf, mt_b = kNegInf;
+#pragma unroll
+        for (int e = 0; e < 32; ++e) {
+          const int key = kt + 8 * (e / 4) + 2 * tq + (e & 1);
+          float v = s[e] * scale2;
+          if (masked && !visible((e & 2) ? rb : ra, key, window, S)) {
+            v = kNegInf;
+          }
+          s[e] = v;
+          if (e & 2) mt_b = fmaxf(mt_b, v); else mt_a = fmaxf(mt_a, v);
+        }
+#pragma unroll
+        for (int off = 1; off <= 2; off <<= 1) {
+          mt_a = fmaxf(mt_a, __shfl_xor_sync(0xffffffffu, mt_a, off));
+          mt_b = fmaxf(mt_b, __shfl_xor_sync(0xffffffffu, mt_b, off));
+        }
+        const float mn_a = fmaxf(m_a, mt_a), mn_b = fmaxf(m_b, mt_b);
+        const float ca = ex2(m_a - mn_a), cb = ex2(m_b - mn_b);
+        l_a *= ca;
+        l_b *= cb;
+#pragma unroll
+        for (int e = 0; e < 32; ++e) {
+          // a masked score is kNegInf: exp2 of kNegInf - mn is 0, except on a
+          // row that has seen no key yet (mn == kNegInf), hence the select
+          const float p = s[e] == kNegInf ? 0.f
+                                          : ex2(s[e] - ((e & 2) ? mn_b : mn_a));
+          s[e] = p;
+          if (e & 2) l_b += p; else l_a += p;
+        }
+#pragma unroll
+        for (int i = 0; i < DH / 2; ++i) o[i] *= (i & 2) ? cb : ca;
+        m_a = mn_a;
+        m_b = mn_b;
+
+        // P split into bf16 high and low parts, as wgmma A fragments
+        uint32_t hi[4][4], lo[4][4];
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            const int e = 8 * kk + 2 * r;
+            const __nv_bfloat162 h = __floats2bfloat162_rn(s[e], s[e + 1]);
+            hi[kk][r] = *reinterpret_cast<const uint32_t*>(&h);
+            lo[kk][r] = pack_bf16(s[e] - __low2float(h),
+                                  s[e + 1] - __high2float(h));
+          }
+        }
+
+        // O += P_hi V + P_lo V: V (keys x Dh) is MN-major, so the transpose
+        // bit; 16 keys per instruction
+        const uint32_t v_tile = base + L::kV + stage * L::kTile;
+        fence_regs(o);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          PV<DH>::mma(o, hi[kk], sw128_desc(v_tile + kk * 16 * kRowBytes,
+                                            L::kKPanel, 1024));
+        }
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          PV<DH>::mma(o, lo[kk], sw128_desc(v_tile + kk * 16 * kRowBytes,
+                                            L::kKPanel, 1024));
+        }
+        wgmma_commit_and_wait();
+        fence_regs(o);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty0 + 8 * stage);
+    }
+
+    if (rows_ok) {
+#pragma unroll
+      for (int off = 1; off <= 2; off <<= 1) {
+        l_a += __shfl_xor_sync(0xffffffffu, l_a, off);
+        l_b += __shfl_xor_sync(0xffffffffu, l_b, off);
+      }
+      const float lc_a = fmaxf(l_a, 1e-30f), lc_b = fmaxf(l_b, 1e-30f);
+      float* o_bh = out + (static_cast<int64_t>(bh) * G + g) * S * DH;
+#pragma unroll
+      for (int j = 0; j < DH / 8; ++j) {
+        const int col = 8 * j + 2 * tq;
+        if (ra < S) {
+          *reinterpret_cast<float2*>(o_bh + int64_t{ra} * DH + col) =
+              make_float2(o[4 * j] / lc_a, o[4 * j + 1] / lc_a);
+        }
+        if (rb < S) {
+          *reinterpret_cast<float2*>(o_bh + int64_t{rb} * DH + col) =
+              make_float2(o[4 * j + 2] / lc_b, o[4 * j + 3] / lc_b);
+        }
+      }
+    }
+  }
+}
+
+using EncodeTiled = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled looked up through the CUDA runtime, so the
+// library needs no link against libcuda
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) {
+      fn = reinterpret_cast<EncodeTiled>(p);
+    }
+  }
+  return fn;
+}
+
+// (Dh, rows, depth) bf16, a box of (64, box_rows, 1), 128-byte swizzle;
+// rows past the end read as zeros
+bool encode_map(EncodeTiled enc, CUtensorMap* map, const void* base, int dh,
+                int64_t rows, int64_t depth, int box_rows) {
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(dh),
+                              static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(depth)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(dh) * 2,
+                                 static_cast<cuuint64_t>(rows) * dh * 2};
+  const cuuint32_t box[3] = {kPanel, static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
+             dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int DH>
+int launch_tc(const void* q, const void* k, const void* v, float* out,
+              int64_t BH, int64_t G, int64_t S, int64_t window, float scale,
+              cudaStream_t stream) {
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  CUtensorMap qmap, kmap, vmap;
+  if (!encode_map(enc, &qmap, q, DH, S, BH * G, kTcRows)
+      || !encode_map(enc, &kmap, k, DH, S, BH, kTcKeys)
+      || !encode_map(enc, &vmap, v, DH, S, BH, kTcKeys)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t smem = TcLayout<DH>::kBytes + 1024;   // + alignment slack
+  auto kernel = sw_attention_tc<DH>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(static_cast<unsigned>((S + kTcRows - 1) / kTcRows),
+                  static_cast<unsigned>(G), static_cast<unsigned>(BH));
+  kernel<<<grid, kTcThreads, smem, stream>>>(
+      qmap, kmap, vmap, out, static_cast<int>(G), static_cast<int>(S),
       static_cast<int>(window), scale);
   return static_cast<int>(cudaGetLastError());
 }
@@ -176,22 +684,26 @@ int launch(const void* q, const void* k, const void* v, float* out,
 }  // namespace
 
 // q: (BH, G, S, Dh); k, v: (BH, S, Dh), contiguous, float32 (bf16 == 0) or
-// bfloat16 (bf16 == 1); out: (BH, G, S, Dh) f32, 16-byte aligned; Dh is 64
-// or 128; window >= 1. Returns the CUDA error code of the launch.
+// bfloat16 (bf16 == 1, each 16-byte aligned); out: (BH, G, S, Dh) f32,
+// 16-byte aligned; Dh is 64 or 128; window >= 1. Returns the CUDA error code
+// of the launch.
 extern "C" int sw_attention(const void* q, const void* k, const void* v,
                             float* out, int64_t BH, int64_t G, int64_t S,
                             int64_t Dh, int64_t window, int64_t bf16,
                             float scale, cudaStream_t stream) {
-  if (BH < 1 || G < 1 || S < 1 || window < 1 || BH > 65535 || G > 65535) {
+  if (BH < 1 || G < 1 || S < 1 || window < 1 || BH > 65535 || G > 65535
+      || BH * G > INT32_MAX) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (Dh == 64) {
-    return bf16 ? launch<64, __nv_bfloat16>(q, k, v, out, BH, G, S, window, scale, stream)
-                : launch<64, float>(q, k, v, out, BH, G, S, window, scale, stream);
+    return bf16
+        ? launch_tc<64>(q, k, v, out, BH, G, S, window, scale, stream)
+        : launch_simt<64>(q, k, v, out, BH, G, S, window, scale, stream);
   }
   if (Dh == 128) {
-    return bf16 ? launch<128, __nv_bfloat16>(q, k, v, out, BH, G, S, window, scale, stream)
-                : launch<128, float>(q, k, v, out, BH, G, S, window, scale, stream);
+    return bf16
+        ? launch_tc<128>(q, k, v, out, BH, G, S, window, scale, stream)
+        : launch_simt<128>(q, k, v, out, BH, G, S, window, scale, stream);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -20,6 +20,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.utils.tree import tree_map
 
 PyTree = Any
@@ -58,15 +59,19 @@ def to_numpy_tree(tree: PyTree) -> PyTree:
     return tree_map(_to_numpy, tree)
 
 
-def load_parity_rows(codec, rows, step: int, device="cpu") -> None:
-    """Adopt ``rows`` as ``codec``'s parity, encoded at ``step``."""
+def load_parity_rows(codec, rows, step: int,
+                     device: DeviceLike = None) -> None:
+    """Adopt ``rows`` as ``codec``'s parity, encoded at ``step``, on
+    ``device`` (``cuda`` when None; raises where no CUDA device is
+    present)."""
+    device = resolve_device(device)
     a = np.ascontiguousarray(np.asarray(rows), np.int32)
     want = (codec.n_groups,) + ((codec.n_parity,) if codec.needs_arena_encode
                                 else ()) + (codec.layout.frame_elems,)
     if a.shape != want:
         raise ValueError(f"parity rows of shape {a.shape}, the codec's "
                          f"striping has {want}")
-    codec.parity = torch.from_numpy(a.copy()).to(torch.device(device))
+    codec.parity = torch.from_numpy(a.copy()).to(device)
     codec.encoded_step = int(step)
 
 

@@ -2,9 +2,9 @@
 
 Replaces ``repro/kernels/ssd_scan/kernel.py::ssd_intra_pallas``. The
 source, with its design note, is ``repro_torch/csrc/ssd_intra.cu``: one
-CTA per (batch, chunk, head) holds the chunk's C, B (transposed) and x in
-shared memory and computes the causal half of ``M`` a block of rows at a
-time, so the (Q, Q) matrix never lies whole in memory.
+CTA per (batch, chunk) computes G = C B^T once, keeps it in shared memory
+and loops over the heads, each head's M, y = M x and state = B^T (x w) on
+the tensor cores as three TF32 products per product (f32-grade sums).
 """
 from __future__ import annotations
 
@@ -16,15 +16,30 @@ MAX_CHUNK = 128                    # kMaxQ in csrc/ssd_intra.cu
 SMEM_LIMIT = 232448                # bytes of shared memory one CTA can use
 
 
+def _round_up(v: int, m: int) -> int:
+    return (v + m - 1) // m * m
+
+
 def ssd_intra_smem_bytes(Q: int, N: int, P: int) -> int:
-    """Dynamic shared memory the kernel needs (mirrors csrc/ssd_intra.cu)."""
-    row_block = 16
-    return 4 * (Q * N + N * (Q + 1) + Q * P + 3 * Q + row_block * Q)
+    """Dynamic shared memory the kernel needs (mirrors ``make_dims`` and
+    ``smem_floats`` in csrc/ssd_intra.cu): B, G, the region C shares with
+    two x buffers (one where two do not fit), and six per-head vectors; Q
+    and N padded to 16, P to 64, row strides to the bank pattern."""
+    Qp, Np, Pp = _round_up(Q, 16), _round_up(N, 16), _round_up(P, 64)
+    ldb, ldc = _round_up(Np, 32) + 8, _round_up(Np, 32) + 4
+    ldg, ldx = _round_up(Qp, 32) + 4, _round_up(Pp, 32) + 8
+
+    def total(xbufs):
+        region = max(Qp * ldc, xbufs * Qp * ldx)
+        return 4 * (Qp * ldb + Qp * ldg + region + 6 * Qp)
+    return total(2) if total(2) <= SMEM_LIMIT else total(1)
 
 
 def ssd_intra_cuda(la, dt, x, Bm, Cm):
     """la, dt: (B, nc, Q, H); x: (B, nc, Q, H, P); Bm, Cm: (B, nc, Q, N);
-    contiguous f32 CUDA tensors on one device, Q <= 128.
+    contiguous f32 CUDA tensors on one device, Q <= 128, and (Q, N, P)
+    within the shared memory of one CTA (``ssd_intra_smem_bytes``): at
+    Q = N = 128, P <= 128, with x single-buffered above P = 64.
     Returns (y (B, nc, Q, H, P), state (B, nc, H, N, P)) f32."""
     ins = (la, dt, x, Bm, Cm)
     if la.device.type != "cuda" or any(t.device != la.device for t in ins):

@@ -1,9 +1,11 @@
 """CUDA kernel: banded causal GQA attention (sliding-window flash).
 
 Replaces ``repro/kernels/sw_attention/kernel.py::sw_attention_pallas``.
-The source, with its design note, is ``repro_torch/csrc/sw_attention.cu``:
-one CTA per (bh, g, 64 query rows) walks the 64-key tiles its band
-reaches, with the online-softmax state and the output row in registers.
+The source, with its design note, is ``repro_torch/csrc/sw_attention.cu``.
+The instance follows the dtype: bf16 (the served dtype) runs on the tensor
+cores, one CTA per (bh, g, 128 query rows) walking the 64-key tiles its
+band reaches, tiles loaded by TMA, Q K^T and the split P V by wgmma; f32
+runs the SIMT instance (f32 FMA, 64 query rows per CTA).
 """
 from __future__ import annotations
 
@@ -20,8 +22,9 @@ MAX_GRID_YZ = 65535
 def sw_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       window: int) -> torch.Tensor:
     """q: (BH, G, S, Dh); k, v: (BH, S, Dh); contiguous CUDA tensors of one
-    dtype, float32 or bfloat16; Dh 64 or 128; window >= 1 (S: causal).
-    Returns (BH, G, S, Dh) f32."""
+    dtype, float32 or bfloat16 (bf16: each 16-byte aligned, as TMA reads
+    them); Dh 64 or 128; window >= 1 (S: causal). Returns (BH, G, S, Dh)
+    f32."""
     if q.device.type != "cuda" or k.device != q.device \
             or v.device != q.device:
         raise ValueError(f"sw_attention_cuda needs q, k, v on one CUDA "
@@ -44,6 +47,10 @@ def sw_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"window must be >= 1, got {window}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("sw_attention_cuda needs contiguous inputs")
+    if q.dtype == torch.bfloat16 \
+            and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("the bf16 instance needs q, k and v 16-byte "
+                         "aligned (TMA)")
     out = torch.empty((BH, G, S, Dh), dtype=torch.float32, device=q.device)
     if out.numel() == 0:
         return out

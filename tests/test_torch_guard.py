@@ -3,11 +3,13 @@
 - No file of ``src/repro_torch/`` and not ``chip_smoke.py`` imports JAX or
   the JAX package (``repro``); ``repro_torch`` itself is allowed.
 - Entry points asked for no device run on ``cuda``, and raise where no
-  CUDA device is present instead of carrying on on the CPU.
+  CUDA device is present instead of carrying on on the CPU; so does
+  ``interop.load_parity_rows``.
 """
 import ast
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -16,6 +18,7 @@ from repro_torch.core.controller import FTController
 from repro_torch.core.policy import CheckpointPolicy
 from repro_torch.data.synthetic import lm_batch
 from repro_torch.fabric import CheckpointFabric, FabricConfig
+from repro_torch.interop import load_parity_rows
 from repro_torch.models import get_model
 from repro_torch.models.classic import make_model
 from repro_torch.training.classic_runner import run_clean, run_with_failure
@@ -80,6 +83,23 @@ def test_entry_points_default_to_cuda():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         run_with_failure(cpu_model, CheckpointPolicy.scar(), fail_iter=1,
                          fail_fraction=0.5, max_iters=3)
+
+
+def test_load_parity_rows_defaults_to_cuda():
+    """A codec's parity carried in without a device lands on the card, and
+    raises where no CUDA device is present; asked for, the CPU."""
+    ctl = FTController({"w": torch.zeros(4, 2)}, CheckpointPolicy.scar(),
+                       fabric=FabricConfig(), device="cpu")
+    codec = ctl.fabric.parity
+    rows = np.zeros((codec.n_groups, codec.layout.frame_elems), np.int32)
+    if torch.cuda.is_available():
+        load_parity_rows(codec, rows, 1)
+        assert codec.parity.device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            load_parity_rows(codec, rows, 1)
+    load_parity_rows(codec, rows, 2, device="cpu")
+    assert codec.parity.device.type == "cpu" and codec.encoded_step == 2
 
 
 def test_model_and_run_devices_must_agree():

@@ -7,10 +7,12 @@ The file imports neither JAX nor the JAX package:
     python -m pytest -q --noconftest -m gpu tests/test_torch_lm_gpu.py
 
 Tolerances: ssd_intra rtol 2e-4, atol 2e-4 (the reference sweep's: f32
-sums in another order, a warp-scan cumsum); sw_attention rtol 1e-4, atol
-1e-4 in f32 and bf16 alike (both versions read the same bf16 values and
-compute in f32); the reduced models' prefill logits, card against CPU,
-rtol 1e-4, atol 1e-4 (f32 throughout, TF32 off); greedy tokens equal.
+sums in another order, a warp-scan cumsum; the kernel's products are three
+TF32 products each, ~2^-21); sw_attention rtol 1e-4, atol 1e-4 in f32 and
+bf16 alike (both versions read the same bf16 values; the bf16 instance's
+Q K^T products are exact in f32 and its P V splits P into two bf16 parts,
+~2^-17 of P); the reduced models' prefill logits, card against CPU, rtol
+1e-4, atol 1e-4 (f32 throughout, TF32 off); greedy tokens equal.
 """
 import numpy as np
 import pytest
@@ -52,7 +54,9 @@ def _intra_inputs(dims, device, seed):
                                   (2, 3, 32, 3, 32, 16),    # reduced configs
                                   (1, 2, 50, 2, 24, 20),    # Q < 128, odd
                                   (2, 1, 8, 1, 4, 8),
-                                  (1, 1, 127, 2, 8, 33)])
+                                  (1, 1, 127, 2, 8, 33),
+                                  (8, 16, 128, 32, 64, 128),   # served
+                                  (1, 2, 128, 3, 128, 128)])   # one x buffer
 def test_ssd_intra_cuda_matches_plain(cuda, dims):
     ins = _intra_inputs(dims, cuda, seed=sum(dims))
     n0 = _build.LAUNCHES["ssd_intra"]
@@ -93,7 +97,11 @@ def test_ssd_chunked_kernel_on_the_card_matches_the_cpu(cuda):
     (1, 1, 257, 64, 40),       # G = 1, W below S
     (3, 6, 130, 64, 500),      # W above S
     (1, 2, 64, 128, 1),        # each row sees itself only
-    (2, 6, 320, 128, 128)])    # W below S, several tiles
+    (2, 6, 320, 128, 128),     # W below S, several tiles
+    (1, 2, 1000, 128, 200),    # band edges off the 64-key tiles
+    (1, 1, 1, 128, 1),         # S = 1
+    (8, 6, 2048, 128, 2048),   # qwen2-1.5b's causal prefill, served
+    (2, 6, 8192, 128, 4096)])  # and its ring prefill
 def test_sw_attention_cuda_matches_plain(cuda, dtype, BH, G, S, Dh, W):
     g = torch.Generator(device=cuda).manual_seed(S + W)
     q = torch.randn((BH, G, S, Dh), generator=g, device=cuda).to(dtype)
@@ -110,6 +118,49 @@ def test_sw_attention_cuda_matches_plain(cuda, dtype, BH, G, S, Dh, W):
 
 
 @pytest.mark.gpu
+def test_unsplit_p_would_break_the_tolerance(cuda):
+    """The bf16 instance splits P into two bf16 parts; P rounded once to
+    bf16 (the plain softmax, unnormalised, times V) would err past the
+    tolerance. Both errors are printed, so the reason stays on record."""
+    BH, G, S, Dh = 8, 6, 2048, 128
+    g = torch.Generator(device=cuda).manual_seed(S)
+    q, k, v = (torch.randn(shape, generator=g, device=cuda).to(torch.bfloat16)
+               for shape in ((BH, G, S, Dh), (BH, S, Dh), (BH, S, Dh)))
+    want = sw_attention_ref(q, k, v, window=S)
+    s = torch.einsum("bgqd,bkd->bgqk", q.float(), k.float()) / Dh ** 0.5
+    s = s.masked_fill(torch.ones(S, S, dtype=torch.bool, device=cuda)
+                      .triu(1), float("-inf"))
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    one = torch.einsum("bgqk,bkd->bgqd", p.to(torch.bfloat16).float(),
+                       v.float()) / p.sum(-1, keepdim=True)
+    del s, p
+    got = sw_attention_cuda(q, k, v, window=S)
+
+    def ratio(x):
+        return float(((x - want).abs() / (1e-4 + 1e-4 * want.abs())).max())
+    print(f"sw_attention bf16 {BH, G, S, Dh}: P split in two, "
+          f"{ratio(got):.3g} of the tolerance; P rounded once to bf16, "
+          f"{ratio(one):.3g}")
+    assert ratio(got) <= 1.0 < ratio(one)
+
+
+@pytest.mark.gpu
+def test_bf16_instance_refuses_misaligned_inputs(cuda):
+    """TMA needs 16-byte aligned rows: the wrapper raises, and neither
+    launches nor takes the plain version."""
+    buf = torch.zeros(1 + 2 * 64 * 128, device=cuda, dtype=torch.bfloat16)
+    q = buf[1:].view(1, 2, 64, 128)                 # 2 bytes off
+    k = torch.zeros((1, 64, 128), device=cuda, dtype=torch.bfloat16)
+    n0 = _build.LAUNCHES["sw_attention"]
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        sw_attention_cuda(q, k, k, window=64)
+    assert _build.LAUNCHES["sw_attention"] == n0
+    got = sw_attention_cuda(q.float(), k.float(), k.float(), window=64)
+    assert _build.LAUNCHES["sw_attention"] == n0 + 1   # f32: the SIMT one
+    assert torch.equal(got, torch.zeros_like(got))
+
+
+@pytest.mark.gpu
 def test_kernel_wrappers_refuse_what_they_do_not_take(cuda):
     q = torch.zeros((1, 1, 8, 32), device=cuda)
     k = torch.zeros((1, 8, 32), device=cuda)
@@ -117,6 +168,9 @@ def test_kernel_wrappers_refuse_what_they_do_not_take(cuda):
         sw_attention_cuda(q, k, k, window=8)
     ins = _intra_inputs((1, 1, 129, 1, 4, 4), cuda, seed=0)
     with pytest.raises(ValueError, match="exceeds"):
+        ssd_intra_cuda(*ins)
+    ins = _intra_inputs((1, 1, 128, 1, 192, 128), cuda, seed=0)
+    with pytest.raises(ValueError, match="shared memory"):
         ssd_intra_cuda(*ins)
 
 

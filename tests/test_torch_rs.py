@@ -440,12 +440,13 @@ def test_scrub_on_the_reference_coded_snapshot(flip, monkeypatch):
     jf.maintain(5, jt)
     tf.maintain(5, tt)
     tf.parity.parity = None
-    load_parity_rows(tf.parity, np.asarray(jf.parity.parity), 5)
+    load_parity_rows(tf.parity, np.asarray(jf.parity.parity), 5,
+                     device="cpu")
     if flip == "row":
         rows = np.asarray(jf.parity.parity).copy()
         rows[1, 0, 9] ^= 1 << 30
         jf.parity.parity = jnp.asarray(rows)
-        load_parity_rows(tf.parity, rows, 5)
+        load_parity_rows(tf.parity, rows, 5, device="cpu")
     else:
         blocks = (4,) if flip == "member" else (4, 12)
         for b in blocks:
