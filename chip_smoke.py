@@ -118,6 +118,11 @@ Phases, each of which fails the run if it fails:
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
 and prints no result.
+
+``python3 chip_smoke.py --erasure`` runs phase 1, phase 3's parity_xor
+encode and phase 9 alone and prints the erasure kernels' SASS instruction
+mix; its last line is ``{"erasure_only": true, "device": {...}}``, not the
+full run's.
 """
 from __future__ import annotations
 
@@ -461,9 +466,6 @@ def phase_arena_kernels(a_tree, b_tree, device) -> dict:
                                                         scatter_plan)
     from repro_torch.kernels.fused_maintain.ref import (arena_maintain_ref,
                                                         arena_scatter_ref)
-    from repro_torch.kernels.parity_xor.kernel import parity_xor_cuda
-    from repro_torch.kernels.parity_xor.ops import encode_plan
-    from repro_torch.kernels.parity_xor.ref import parity_xor_ref
 
     part = partition_pytree(a_tree, BLOCK_ROWS)
     fab = CheckpointFabric(part, FabricConfig())
@@ -531,28 +533,73 @@ def phase_arena_kernels(a_tree, b_tree, device) -> dict:
 
     # parity_xor: the whole-arena encode, bit-exact, and equal to the
     # sweep's parity
-    plan = encode_plan(lay, codec.layout, codec.members)
-    pt = plan.on(device)
-    out_k = torch.empty((n_par,), dtype=torch.int32, device=device)
-    parity_xor_cuda(out_k, x, None, pt)
-    check(torch.equal(out_k, par_k), "parity_xor encode differs from the "
-          "arena_maintain parity")
-    out_p = parity_xor_ref(torch.empty_like(out_k), x, None, pt)
-    check(torch.equal(out_k, out_p), "parity_xor differs")
-    del out_p
-    tm = in_turns({"plain": lambda: parity_xor_ref(out_k, x, None, pt),
-                   "kernel": lambda: parity_xor_cuda(out_k, x, None, pt)})
-    b, by = bound_ms(plan.read_bytes + 4 * n_par)
-    results["parity_xor"] = dict(
-        max_abs_err=0.0, ms=tm["kernel"], plain_ms=tm["plain"], bound_ms=b,
-        bound_by=by, library_ms=None,
-        library_note="no one PyTorch call XOR-reduces segments in place")
+    results["parity_xor"] = whole_arena_parity_xor(x, lay, codec, device,
+                                                   sweep_parity=par_k)
     for name, r in results.items():
         log(f"{name} (whole arena): kernel {r['ms']:.3f} ms, plain "
             f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
-            f"({r['bound_by']}), library none ({r['library_note']}), max abs "
-            f"err {r['max_abs_err']:.3g}")
+            f"({r['bound_by']}{rate_note(r)}), library none "
+            f"({r['library_note']}), max abs err {r['max_abs_err']:.3g}")
     return results
+
+
+def rate_note(r: dict) -> str:
+    """The achieved rate and share of the bound of a launch that records
+    its ``bytes``."""
+    if "bytes" not in r:
+        return ""
+    return (f"; {r['bytes'] / r['ms'] / 1e6:.1f} GB/s achieved, "
+            f"{r['bound_ms'] / r['ms']:.3f} of the bound")
+
+
+def whole_arena_parity_xor(x, lay, codec, device,
+                           sweep_parity=None) -> dict:
+    """parity_xor's whole-arena encode of ``FabricConfig()``'s striping:
+    bit-exact against the plain version (and equal to the sweep's parity
+    where given), timed as in phase 2 beside a device-to-device copy of
+    the arena, the card's streaming rate on the same bytes."""
+    import torch
+    from repro_torch.kernels.parity_xor.kernel import parity_xor_cuda
+    from repro_torch.kernels.parity_xor.ops import encode_plan
+    from repro_torch.kernels.parity_xor.ref import parity_xor_ref
+
+    n_par = codec.n_groups * codec.layout.frame_elems
+    t0 = time.perf_counter()
+    plan = encode_plan(lay, codec.layout, codec.members)
+    plan_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plan.pieces()
+    pieces_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pt = plan.pieces_on(device)
+    upload_s = time.perf_counter() - t0
+    out_k = torch.empty((n_par,), dtype=torch.int32, device=device)
+    parity_xor_cuda(out_k, x, None, pt)
+    if sweep_parity is not None:
+        check(torch.equal(out_k, sweep_parity), "parity_xor encode differs "
+              "from the arena_maintain parity")
+    plain_t = plan.on(device)
+    out_p = parity_xor_ref(torch.empty_like(out_k), x, None, plain_t)
+    check(torch.equal(out_k, out_p), "parity_xor differs")
+    del out_p
+    n_bytes = plan.read_bytes + 4 * n_par
+    b, by = bound_ms(n_bytes)
+    copy = torch.empty_like(x)
+    tm = in_turns({"plain": lambda: parity_xor_ref(out_k, x, None, plain_t),
+                   "kernel": lambda: parity_xor_cuda(out_k, x, None, pt),
+                   "copy": lambda: copy.copy_(x)})
+    del copy
+    r = dict(max_abs_err=0.0, ms=tm["kernel"], plain_ms=tm["plain"],
+             bound_ms=b, bound_by=by, library_ms=None, bytes=n_bytes,
+             copy_ms=tm["copy"], copy_gbps=2 * x.numel() * 4 / tm["copy"] / 1e6,
+             plan_seconds=plan_s, pieces_seconds=pieces_s,
+             upload_seconds=upload_s,
+             library_note="no one PyTorch call XOR-reduces segments in place")
+    log(f"device-to-device copy of the arena ({2 * x.numel() * 4 / 1e9:.3f}"
+        f" GB moved): {tm['copy']:.3f} ms, {r['copy_gbps']:.1f} GB/s")
+    log(f"parity_xor plan: {plan_s:.4f} s to build, its pieces "
+        f"{pieces_s:.4f} s, {upload_s:.4f} s to upload")
+    return r
 
 
 # ---------------------------------------------------------------------------
@@ -771,10 +818,9 @@ def check_fabric_kernels_on_mlr(model, device) -> None:
         keep = codec.valid & ~lost[np.where(codec.valid, codec.members, 0)]
         plan, _ = reconstruct_plan(lay, codec.layout, codec.group_of,
                                    codec.members, np.nonzero(lost)[0], keep)
-        pt = plan.on(device)
         out = torch.empty((plan.out_words,), dtype=torch.int32, device=device)
-        check(torch.equal(parity_xor_cuda(out, x, pk, pt),
-                          parity_xor_ref(out.clone(), x, pk, pt)),
+        check(torch.equal(parity_xor_cuda(out, x, pk, plan.pieces_on(device)),
+                          parity_xor_ref(out.clone(), x, pk, plan.on(device))),
               f"parity_xor differs (block_rows {br})")
         seen.append(f"block_rows {br}: {part.total_blocks} blocks, "
                     f"{lay.n_tiles} tiles, tail {lay.has_tail}")
@@ -1110,7 +1156,12 @@ def phase_rs_kernels(a_tree, device, int_rate: float) -> dict:
     fab = CheckpointFabric(part, FabricConfig(**RS_FABRIC))
     lay, codec = fab.arena_layout, fab.parity
     m, fe = codec.n_parity, codec.layout.frame_elems
+    t0 = time.perf_counter()
     enc, syn = codec.gf_plans(lay)
+    enc_plan_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    enc.pieces()
+    enc_pieces_s = time.perf_counter() - t0
     n_out = codec.n_groups * m * fe
     log(f"RS({codec.group_size}, {m}) over {fab.domains.n_hosts} hosts: "
         f"{codec.n_groups} groups of <= {codec.members.shape[1]}, rows "
@@ -1122,6 +1173,13 @@ def phase_rs_kernels(a_tree, device, int_rate: float) -> dict:
         return gf256_mac_plan_ref(out, src, src2, base, plan.on(device), 0,
                                   plan.n_rows, 0)
 
+    def launch_record(tm, plan, **extra) -> dict:
+        n_bytes = plan.read_bytes() + plan.write_bytes()
+        b, by = bound_ms(n_bytes, plan.int_ops(), int_rate)
+        return dict(ms=tm["kernel"], plain_ms=tm["plain"], bound_ms=b,
+                    bound_by=by, int_ops=plan.int_ops(), bytes=n_bytes,
+                    **extra)
+
     # the encode: bit-exact, row 0 equal to parity_xor's encode
     rows_k = torch.empty((n_out,), dtype=torch.int32, device=device)
     gf256_mac_cuda(rows_k, x, None, None, enc)
@@ -1131,19 +1189,17 @@ def phase_rs_kernels(a_tree, device, int_rate: float) -> dict:
     xor = torch.empty((codec.n_groups * fe,), dtype=torch.int32,
                       device=device)
     parity_xor_cuda(xor, x, None, encode_plan(lay, codec.layout,
-                                              codec.members).on(device))
+                                              codec.members).pieces_on(device))
     check(torch.equal(rows_k.view(codec.n_groups, m, fe)[:, 0],
                       xor.view(codec.n_groups, fe)),
           "RS row 0 differs from parity_xor's encode of the same members")
     del xor
     tm = in_turns({"plain": lambda: plain(rows_k, x, None, None, enc),
-                   "kernel": lambda: gf256_mac_cuda(rows_k, x, None, None,
-                                                    enc)})
-    b, by = bound_ms(enc.read_bytes() + enc.write_bytes(), enc.int_ops(),
-                     int_rate)
-    results["encode"] = dict(ms=tm["kernel"], plain_ms=tm["plain"],
-                             bound_ms=b, bound_by=by, int_ops=enc.int_ops(),
-                             groups=codec.n_groups)
+                "kernel": lambda: gf256_mac_cuda(rows_k, x, None, None, enc)})
+    results["encode"] = launch_record(tm, enc, groups=codec.n_groups,
+                                      plan_seconds=enc_plan_s,
+                                      pieces_seconds=enc_pieces_s,
+                                      pieces=int(enc.pieces().length.size))
 
     # the syndrome pass over an arena with one word flipped
     word = int(lay.blocks[len(lay.blocks) // 2].offset) + 5
@@ -1162,15 +1218,10 @@ def phase_rs_kernels(a_tree, device, int_rate: float) -> dict:
     flagged = torch.nonzero(synd.view(codec.n_groups, per).ne(0).any(1))
     check(flagged.numel() == 1, f"{flagged.numel()} groups flagged, not 1")
     tm = in_turns({"plain": lambda: plain(synd, x, None, rows_k, syn),
-                   "kernel": lambda: gf256_mac_cuda(synd, x, None, rows_k,
-                                                    syn)})
+                "kernel": lambda: gf256_mac_cuda(synd, x, None, rows_k, syn)})
     del synd
     x[word] ^= 1 << 11
-    b, by = bound_ms(syn.read_bytes() + syn.write_bytes(), syn.int_ops(),
-                     int_rate)
-    results["syndromes"] = dict(ms=tm["kernel"], plain_ms=tm["plain"],
-                                bound_ms=b, bound_by=by,
-                                int_ops=syn.int_ops())
+    results["syndromes"] = launch_record(tm, syn)
 
     # a decode of two erasures in every group of >= 2 members
     codec.parity = rows_k.view(codec.n_groups, m, fe)
@@ -1183,6 +1234,9 @@ def phase_rs_kernels(a_tree, device, int_rate: float) -> dict:
     t0 = time.perf_counter()
     dec, blocks = codec.decode_plan(lay, lost, ~lost)
     plan_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dec.pieces()
+    pieces_s = time.perf_counter() - t0
     n_dec = int(dec.row_len.astype(np.int64).sum())
     out_k = torch.empty((n_dec,), dtype=torch.int32, device=device)
     gf256_mac_cuda(out_k, x, rows_k, None, dec)
@@ -1195,19 +1249,18 @@ def phase_rs_kernels(a_tree, device, int_rate: float) -> dict:
     check(torch.equal(out_k, want), "the decode is not the lost words")
     del want
     tm = in_turns({"plain": lambda: plain(out_k, x, rows_k, None, dec),
-                   "kernel": lambda: gf256_mac_cuda(out_k, x, rows_k, None,
-                                                    dec)})
-    b, by = bound_ms(dec.read_bytes() + dec.write_bytes(), dec.int_ops(),
-                     int_rate)
-    results["decode"] = dict(ms=tm["kernel"], plain_ms=tm["plain"],
-                             bound_ms=b, bound_by=by, int_ops=dec.int_ops(),
-                             blocks=int(lost.sum()), plan_seconds=plan_s)
+                "kernel": lambda: gf256_mac_cuda(out_k, x, rows_k, None, dec)})
+    results["decode"] = launch_record(tm, dec, blocks=int(lost.sum()),
+                                      plan_seconds=plan_s,
+                                      pieces_seconds=pieces_s,
+                                      pieces=int(dec.pieces().length.size))
     for name, r in results.items():
         log(f"gf256_mac {name}: kernel {r['ms']:.3f} ms, plain "
             f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
-            f"({r['bound_by']}; {r['int_ops']:.4g} int32 operations at "
-            f"{int_rate / 1e12:.2f} T/s), library none (no one PyTorch call "
-            f"does a GF(256) multiply-accumulate), max abs err 0")
+            f"({r['bound_by']}; {r['bytes'] / 1e9:.3f} GB, {r['int_ops']:.4g}"
+            f" int32 operations at {int_rate / 1e12:.2f} T/s{rate_note(r)}), "
+            f"library none (no one PyTorch call does a GF(256) "
+            f"multiply-accumulate), max abs err 0")
     codec.parity = None
     del rows_k, x
     torch.cuda.empty_cache()
@@ -1501,23 +1554,50 @@ def sw_attention_tc_flops(BH, G, S, Dh, W) -> int:
     return 6 * Dh * BH * G * (W * (W + 1) // 2 + (S - W) * W)
 
 
-def sass_mma_counts() -> dict:
-    """HGMMA and HMMA instructions in each kernel function of the built
-    library, from ``cuobjdump -sass`` (the toolkit's, beside nvcc)."""
+def sass_opcodes() -> dict:
+    """The SASS opcodes of each kernel function of the built library, in
+    order, from ``cuobjdump -sass`` (the toolkit's, beside nvcc)."""
     from repro_torch.kernels import _build
     tool = Path(_build._nvcc()).with_name("cuobjdump")
     out = subprocess.run([str(tool), "-sass", _build.library()._name],
                          check=True, capture_output=True, text=True,
                          timeout=300).stdout
-    counts, fn = {}, None
+    ops, fn = {}, None
     for line in out.splitlines():
         if "Function :" in line:
             fn = line.split("Function :")[1].strip()
-            counts[fn] = {"HGMMA": 0, "HMMA": 0}
-        elif fn is not None:
-            for ins in ("HGMMA", "HMMA"):
-                counts[fn][ins] += f" {ins}." in line
-    return counts
+            ops[fn] = []
+        elif fn is not None and line.strip().startswith("/*") \
+                and "*/" in line:
+            ins = line.split("*/", 1)[1].strip().rstrip(" ;")
+            if ins.startswith("@"):
+                ins = ins.split(None, 1)[1] if " " in ins else ins
+            if ins:
+                ops[fn].append(ins.split()[0].rstrip(";"))
+    return ops
+
+
+def sass_mma_counts() -> dict:
+    """HGMMA and HMMA instructions in each kernel function of the built
+    library."""
+    return {fn: {ins: sum(op.startswith(ins + ".") for op in ops)
+                 for ins in ("HGMMA", "HMMA")}
+            for fn, ops in sass_opcodes().items()}
+
+
+def sass_mix(match: tuple) -> dict:
+    """Per kernel function whose name holds one of ``match``: its static
+    instruction count and its opcodes by kind (the part before the first
+    dot), most frequent first."""
+    out = {}
+    for fn, ops in sass_opcodes().items():
+        if any(m in fn for m in match):
+            kinds: dict = {}
+            for op in ops:
+                kinds[op.split(".")[0]] = kinds.get(op.split(".")[0], 0) + 1
+            out[fn[:90]] = {"total": len(ops), "by_kind": dict(sorted(
+                kinds.items(), key=lambda kv: -kv[1]))}
+    return out
 
 
 def sw_attention_counts(BH, G, S, Dh, W, itemsize) -> tuple[int, int]:
@@ -1905,7 +1985,36 @@ def phase_qwen2_serve(device, launches: dict) -> dict:
     return out
 
 
-def main() -> int:
+def erasure_only(a_tree, device, int_rate: float, card: str) -> int:
+    """``--erasure``: phase 3's parity_xor encode and phase 9 alone, with
+    the erasure kernels' SASS instruction mix. Its last line says that it
+    is this partial run, never the full run's ``{"ok": true, ...}``."""
+    import torch
+    from repro_torch.core.arena import pack_arena
+    from repro_torch.core.blocks import partition_pytree
+    from repro_torch.fabric import CheckpointFabric, FabricConfig
+
+    fab = CheckpointFabric(partition_pytree(a_tree, BLOCK_ROWS),
+                           FabricConfig())
+    x = pack_arena(a_tree, fab.arena_layout)
+    par = whole_arena_parity_xor(x, fab.arena_layout, fab.parity, device)
+    log(f"parity_xor (whole arena): kernel {par['ms']:.3f} ms, plain "
+        f"{par['plain_ms']:.3f} ms, bound {par['bound_ms']:.3f} ms "
+        f"({par['bound_by']}{rate_note(par)})")
+    del x, fab
+    torch.cuda.empty_cache()
+    rs = phase_rs_kernels(a_tree, device, int_rate)
+    log(json.dumps({"parity_xor": par,
+                    "gf256_mac_shapes": rs["gf256_mac"]["shapes"],
+                    "sass": sass_mix(("gf256", "parity", "erasure"))}))
+    log(card)
+    log(json.dumps({"erasure_only": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def main(argv: list) -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
@@ -1931,6 +2040,8 @@ def main() -> int:
     shapes = qwen2_1_5b_shapes()
     a_tree = _map_shapes(shapes, lambda s: torch.randn(
         s, generator=gen, device=device))
+    if "--erasure" in argv:
+        return erasure_only(a_tree, device, int_rate, card)
     b_tree = _map_shapes(shapes, lambda s: torch.empty(s, device=device))
     for x, y in zip(tree_leaves(a_tree), tree_leaves(b_tree)):
         y.copy_(x).add_(torch.randn(x.shape, generator=gen, device=device),
@@ -2101,4 +2212,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -18,65 +18,29 @@
 // Bound on an H100: bytes. One read of every term's source words and of the
 // base, one write of every output word, over 3.35 TB/s.
 //
-// Design. Grid (row, chunk): each CTA produces kChunk consecutive words of
-// one row; each thread walks the row's few terms for each of its words, so
-// neighbouring threads read neighbouring source words. XOR is exact and
+// Design: the XOR instance (M = 1, no multiply) of the piece-driven body in
+// erasure_pieces.cuh, which gf256_mac.cu shares: one CTA per tile of a
+// piece (a run of a row's words that one set of terms covers), the piece's
+// term pointers in shared memory, 16-byte streaming loads and stores, the
+// next term's loads in flight while this term is folded. XOR is exact and
 // order-free, so the result is bit-exact whatever the order of the terms.
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "erasure_pieces.cuh"
 
-namespace {
-
-constexpr int kThreads = 256;
-constexpr int64_t kChunk = 4096;   // output words per CTA
-
-__global__ void __launch_bounds__(kThreads)
-parity_xor_kernel(uint32_t* __restrict__ out, const uint32_t* __restrict__ src,
-                  const uint32_t* __restrict__ base,
-                  const int64_t* __restrict__ row_out, const int32_t* __restrict__ row_len,
-                  const int64_t* __restrict__ row_base, const int64_t* __restrict__ term_ptr,
-                  const int32_t* __restrict__ term_dst, const int64_t* __restrict__ term_src,
-                  const int32_t* __restrict__ term_len) {
-  const int64_t r = blockIdx.x;
-  const int64_t lo = static_cast<int64_t>(blockIdx.y) * kChunk;
-  const int64_t len = row_len[r];
-  if (lo >= len) return;
-  const int64_t hi = lo + kChunk < len ? lo + kChunk : len;
-  const int64_t b0 = row_base[r];
-  const int64_t t0 = term_ptr[r], t1 = term_ptr[r + 1];
-  uint32_t* o = out + row_out[r];
-  for (int64_t i = lo + threadIdx.x; i < hi; i += kThreads) {
-    uint32_t acc = b0 >= 0 ? base[b0 + i] : 0u;
-    for (int64_t t = t0; t < t1; ++t) {
-      const int64_t d = i - term_dst[t];
-      if (d >= 0 && d < term_len[t]) acc ^= src[term_src[t] + d];
-    }
-    o[i] = acc;
-  }
-}
-
-}  // namespace
-
-extern "C" int64_t parity_xor_chunks(int64_t max_len) {
-  return (max_len + kChunk - 1) / kChunk;
-}
-
-// out, src, base: device words (base may be null when every row_base is
-// -1). Row r writes out[row_out[r] : row_out[r] + row_len[r]]; its terms are
-// term_ptr[r] .. term_ptr[r + 1]. max_len: the largest row_len. Returns
-// cudaGetLastError() after the launch.
+// out, src, base: device words (base may be null when no piece has a
+// base). The launch runs the tiles [0, n_tiles) of the plan's pieces
+// (kernels/parity_xor/ops.py::build_pieces): piece p writes
+// out[pc_out[p] : pc_out[p] + pc_len[p]], seeded from base[pc_base[p]:]
+// (zeros where -1), XOR the entries pc_term[p] .. pc_term[p + 1], entry e
+// read from src[en_src[e]:]. Returns cudaGetLastError() after the launch.
 extern "C" int parity_xor(void* out, const void* src, const void* base,
-                          const int64_t* row_out, const int32_t* row_len,
-                          const int64_t* row_base, const int64_t* term_ptr,
-                          const int32_t* term_dst, const int64_t* term_src,
-                          const int32_t* term_len, int64_t n_rows, int64_t max_len,
-                          cudaStream_t stream) {
-  if (n_rows <= 0 || max_len <= 0) return 0;
-  const dim3 grid(static_cast<unsigned>(n_rows),
-                  static_cast<unsigned>(parity_xor_chunks(max_len)));
-  parity_xor_kernel<<<grid, kThreads, 0, stream>>>(
-      static_cast<uint32_t*>(out), static_cast<const uint32_t*>(src),
-      static_cast<const uint32_t*>(base), row_out, row_len, row_base, term_ptr,
-      term_dst, term_src, term_len);
-  return static_cast<int>(cudaGetLastError());
+                          const int64_t* pc_out, const int32_t* pc_len,
+                          const int64_t* pc_base, const int64_t* pc_term,
+                          const int64_t* en_src, const int32_t* tile_piece,
+                          const int32_t* tile_lo, int64_t n_tiles,
+                          int64_t tile_words, cudaStream_t stream) {
+  const erasure::Pieces a{
+      static_cast<uint32_t*>(out), static_cast<const uint32_t*>(src), nullptr,
+      static_cast<const uint32_t*>(base), pc_out, pc_len, pc_base, pc_term,
+      en_src, nullptr, nullptr, tile_piece, tile_lo, 0, 0, 0, 0, tile_words};
+  return erasure::launch<1, false>(a, n_tiles, stream);
 }

@@ -56,9 +56,7 @@ _SIGNATURES = {
     "arena_maintain": ([_P] * 13 + [_I64] + [_P] * 3 + [_I64, _I64]
                        + [_P] * 4 + [_I64, _P], ctypes.c_int),
     "arena_scatter": ([_P] * 6 + [_I64, _P], ctypes.c_int),
-    "parity_xor_chunks": ([_I64], _I64),
     "parity_xor": ([_P] * 10 + [_I64, _I64, _P], ctypes.c_int),
-    "gf256_mac_chunks": ([_I64], _I64),
     "gf256_mac_max_m": ([], _I64),
     "gf256_mac": ([_P] * 13 + [_I64] * 7 + [_P], ctypes.c_int),
     "fused_maintain_chunks": ([_I64], _I64),

@@ -2,10 +2,13 @@
 
 Replaces ``repro/kernels/gf256_mac/kernel.py::gf256_mac_pallas``. The
 source, with its design note and its bound, is
-``repro_torch/csrc/gf256_mac.cu``: the reference's ``base ^ XOR_i
+``repro_torch/csrc/gf256_mac.cu`` (its body, shared with parity_xor, in
+``csrc/erasure_pieces.cuh``): the reference's ``base ^ XOR_i
 gf_mul(coeff_i, frame_i)`` with every member frame read where its words lie
 (in the arena, or in the stored parity rows for a decode) and all m parity
-rows of a group produced by one read of its members.
+rows of a group produced by one read of its members. The kernel runs on the
+plan's pieces (:meth:`GFPlan.pieces
+<repro_torch.kernels.gf256_mac.ops.GFPlan.pieces>`), one CTA per tile.
 """
 from __future__ import annotations
 
@@ -13,8 +16,8 @@ import torch
 
 from repro_torch.kernels import _build
 
-_KEYS = ("row_out", "row_len", "row_base", "term_ptr", "term_dst",
-         "term_src", "term_len", "term_sel", "term_coef")
+_KEYS = ("pc_out", "pc_length", "pc_base", "pc_term_ptr", "pc_term_src",
+         "pc_sel", "pc_coef", "pc_tile_piece", "pc_tile_lo")
 
 
 def gf256_mac_cuda(out: torch.Tensor, src: torch.Tensor, src2, base,
@@ -53,12 +56,11 @@ def gf256_mac_cuda(out: torch.Tensor, src: torch.Tensor, src2, base,
     if not 1 <= plan.m <= lib.gf256_mac_max_m():
         raise ValueError(f"{plan.m} outputs per row; the kernel takes 1 to "
                          f"{lib.gf256_mac_max_m()}")
-    max_len = lim["max_len"]
-    if n_rows == 0 or max_len == 0:
+    pc = plan.pieces()
+    t0, t1 = pc.tiles(row0, n_rows)
+    if t1 == t0:
         return out
-    if lib.gf256_mac_chunks(max_len) > _build.MAX_GRID_Y:
-        raise ValueError(f"a row of {max_len} words is too long")
-    t = plan.on(dev)
+    t = plan.pieces_on(dev)
 
     def ptr(a):
         return None if a is None else a.data_ptr()
@@ -66,5 +68,5 @@ def gf256_mac_cuda(out: torch.Tensor, src: torch.Tensor, src2, base,
     _build.launch("gf256_mac", lib.gf256_mac, dev, out.data_ptr(),
                   src.data_ptr(), ptr(src2), ptr(base),
                   *(t[k].data_ptr() for k in _KEYS), plan.m, plan.out_stride,
-                  plan.base_stride, row0, n_rows, out_shift, max_len)
+                  plan.base_stride, out_shift, t0, t1 - t0, pc.tile_words)
     return out

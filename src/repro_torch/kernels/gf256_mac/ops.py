@@ -32,14 +32,18 @@ import torch
 from repro_torch.kernels.gf256_mac.kernel import gf256_mac_cuda
 from repro_torch.kernels.gf256_mac.ref import (gf256_mac_plan_ref,
                                                gf256_mac_ref)
-from repro_torch.kernels.parity_xor.ops import _segments
+from repro_torch.kernels.parity_xor.ops import (Pieces, PiecedPlan,
+                                                _segments)
 
 _ARRAYS = ("row_out", "row_len", "row_base", "term_ptr", "term_dst",
            "term_src", "term_len", "term_sel", "term_coef")
+# the kernel's integer operations per (source word, output) of a term
+# whose coefficient is 1, and above 1 (csrc/gf256_mac.cu's bound note)
+XOR_OPS, MUL_OPS = 1, 14
 
 
 @dataclasses.dataclass(eq=False)
-class GFPlan:
+class GFPlan(PiecedPlan):
     """Rows and terms of one gf256_mac launch (numpy). Row ``r`` has ``m``
     outputs: output ``q`` writes ``row_len[r]`` words at ``row_out[r] + q *
     out_stride``, seeded from ``base[row_base[r] + q * base_stride:]``
@@ -63,6 +67,7 @@ class GFPlan:
     term_coef: np.ndarray  # uint8, (n_terms * m,)
 
     def __post_init__(self):
+        super().__post_init__()
         self._on: dict[str, dict] = {}
 
     @property
@@ -88,16 +93,22 @@ class GFPlan:
             self._on[key] = t
         return t
 
+    def _piece_extras(self, pc: Pieces, device) -> dict:
+        """A piece entry's selector and coefficient bytes, ``pc_sel`` and
+        ``pc_coef`` (``m`` per entry)."""
+        coef = self.term_coef.reshape(-1, self.m)[pc.term].reshape(-1)
+        return dict(pc_sel=torch.from_numpy(self.term_sel[pc.term]).to(device),
+                    pc_coef=torch.from_numpy(coef).to(device))
+
     def limits(self, row0: int = 0, n_rows=None) -> dict:
-        """Extents of rows ``[row0, row0 + n_rows)``: ``max_len``, the
-        output words ``[out_lo, out_hi)`` they write, and the words of
-        ``src``, ``src2`` and ``base`` they read."""
+        """Extents of rows ``[row0, row0 + n_rows)``: the output words
+        ``[out_lo, out_hi)`` they write, and the words of ``src``, ``src2``
+        and ``base`` they read."""
         n_rows = self.n_rows - row0 if n_rows is None else n_rows
         s = slice(row0, row0 + n_rows)
         ln = self.row_len[s].astype(np.int64)
         span = (self.m - 1) * self.out_stride
-        out = {"max_len": int(ln.max()) if ln.size else 0,
-               "out_lo": int(self.row_out[s].min()) if ln.size else 0,
+        out = {"out_lo": int(self.row_out[s].min()) if ln.size else 0,
                "out_hi": int((self.row_out[s] + span + ln).max())
                if ln.size else 0}
         rb = self.row_base[s]
@@ -123,15 +134,12 @@ class GFPlan:
 
     def int_ops(self) -> int:
         """The kernel's 32-bit integer operations for the whole launch (its
-        count, ``csrc/gf256_mac.cu``): per source word, six per doubling up
-        to the highest set bit of the term's coefficients, and one XOR per
-        set coefficient bit."""
+        count, ``csrc/gf256_mac.cu``): per source word of a term and per
+        output, ``XOR_OPS`` where the coefficient is 1 and ``MUL_OPS``
+        (the split-table multiply) where it is above 1."""
         coef = self.term_coef.reshape(-1, self.m).astype(np.int64)
-        any_ = np.bitwise_or.reduce(coef, axis=1) if coef.size else coef
-        hb = np.where(any_ > 0, np.floor(np.log2(np.maximum(any_, 1))), 0)
-        pop = np.unpackbits(coef.astype(np.uint8)[..., None], axis=-1) \
-            .sum(axis=(1, 2))
-        return int((self.term_len.astype(np.int64) * (6 * hb + pop)).sum())
+        per_word = (XOR_OPS * (coef == 1) + MUL_OPS * (coef > 1)).sum(axis=1)
+        return int((self.term_len.astype(np.int64) * per_word).sum())
 
 
 def _plan(m: int, out_stride: int, base_stride: int, rows: list,

@@ -39,6 +39,17 @@ SIZES = {
 SEED = 0
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while these tests run: the suite runs several
+    workers on a few cores, and torch's default of one thread per core in
+    each of them oversubscribes the machine."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module", params=sorted(SIZES))
 def pair(request):
     name = request.param

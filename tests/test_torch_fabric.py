@@ -56,6 +56,17 @@ KW = dict(n=600, dim=64, n_classes=5, batch=200)   # examples/quickstart.py
 SEED, MAX_ITERS, FAIL_ITER = 0, 80, 25
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while these tests run: the suite runs several
+    workers on a few cores, and torch's default of one thread per core in
+    each of them oversubscribes the machine."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _np(tree):
     return jax.tree_util.tree_map(np.asarray, tree)
 

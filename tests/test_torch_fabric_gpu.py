@@ -12,6 +12,11 @@ that has only PyTorch and the CUDA toolkit:
   every dtype code the arena has (raw random bits, so subnormals, NaNs and
   infinities are decoded too);
 - arena_scatter and parity_xor (encode and reconstruct): bit for bit;
+  parity_xor also on seeded random plans (ragged rows at unaligned
+  offsets, partial overlaps, zero-term rows, a piece of more than 32
+  terms) with pointers 0 to 3 words past a 16-byte boundary, and pieces
+  in tiles of 13 words whose batches of terms switch between the 16- and
+  4-byte paths;
 - the controller's PARITY-tier recovery on the card equals the CPU's.
 """
 import numpy as np
@@ -33,7 +38,8 @@ from repro_torch.kernels.fused_maintain.kernel import (arena_maintain_cuda,
 from repro_torch.kernels.fused_maintain.ref import (arena_maintain_ref,
                                                     arena_scatter_ref)
 from repro_torch.kernels.parity_xor.kernel import parity_xor_cuda
-from repro_torch.kernels.parity_xor.ops import encode_plan, reconstruct_plan
+from repro_torch.kernels.parity_xor.ops import (_plan, encode_plan,
+                                                reconstruct_plan)
 from repro_torch.kernels.parity_xor.ref import parity_xor_ref
 from repro_torch.sharding.partition import block_device_homes
 from repro_torch.utils.tree import tree_map
@@ -138,12 +144,13 @@ def test_arena_scatter_cuda_matches_plain(cuda, kind):
 def test_parity_xor_cuda_matches_plain(cuda, kind):
     part, lay, codec, x, z = _setup(kind, cuda)
     fe = codec.layout.frame_elems
-    enc = encode_plan(lay, codec.layout, codec.members).on(cuda)
+    enc = encode_plan(lay, codec.layout, codec.members)
     n = codec.n_groups * fe
     got = parity_xor_cuda(torch.full((n,), 5, dtype=torch.int32,
-                                     device=cuda), x, None, enc)
+                                     device=cuda), x, None,
+                          enc.pieces_on(cuda))
     want = parity_xor_ref(torch.zeros((n,), dtype=torch.int32, device=cuda),
-                          x, None, enc)
+                          x, None, enc.on(cuda))
     assert torch.equal(got, want)
     # the sweep's parity is the same function of the arena
     par = torch.zeros((n,), dtype=torch.int32, device=cuda)
@@ -156,11 +163,11 @@ def test_parity_xor_cuda_matches_plain(cuda, kind):
     keep = codec.valid & ~lost[np.where(codec.valid, codec.members, 0)]
     plan, blocks = reconstruct_plan(lay, codec.layout, codec.group_of,
                                     codec.members, np.nonzero(lost)[0], keep)
-    t = plan.on(cuda)
     rec_k = parity_xor_cuda(torch.empty((plan.out_words,), dtype=torch.int32,
-                                        device=cuda), x, got, t)
+                                        device=cuda), x, got,
+                            plan.pieces_on(cuda))
     rec_p = parity_xor_ref(torch.empty((plan.out_words,), dtype=torch.int32,
-                                       device=cuda), x, got, t)
+                                       device=cuda), x, got, plan.on(cuda))
     assert torch.equal(rec_k, rec_p)
     ab = lay.ab_arrays()
     off = 0
@@ -169,6 +176,76 @@ def test_parity_xor_cuda_matches_plain(cuda, kind):
         o = int(ab["offset"][a])
         assert torch.equal(rec_k[off:off + n_a], x[o:o + n_a])
         off += n_a
+
+
+def _at(x, device, shift):
+    """``x`` on ``device`` as a view ``shift`` words into a larger buffer
+    (a pointer 4 * shift bytes past a 16-byte boundary)."""
+    buf = torch.zeros((x.numel() + 4,), dtype=torch.int32, device=device)
+    buf[shift:shift + x.numel()] = x.to(device)
+    return buf[shift:shift + x.numel()]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shifts", [(0, 0, 0), (1, 1, 1), (2, 0, 2),
+                                    (3, 1, 0)])
+def test_parity_xor_random_plans_match_plain(cuda, shifts):
+    rng = np.random.default_rng(7)
+    rows, terms, out = [], [], 1
+    for r in range(60):
+        n = int(rng.integers(1, 70))
+        rows.append((out, n, -1 if r % 2 else int(rng.integers(0, 300))))
+        out += n
+        k = 0 if r % 9 == 4 else (40 if r == 6 else int(rng.integers(1, 5)))
+        ts = []
+        for _ in range(k):
+            a = 0 if r == 6 else int(rng.integers(0, n))
+            ln = n if r == 6 else int(rng.integers(1, n - a + 1))
+            ts.append((a, int(rng.integers(0, 2000 - ln)), ln))
+        terms.append(ts)
+    plan = _plan(rows, terms)
+    words = lambda n: torch.from_numpy(  # noqa: E731
+        rng.integers(-2**31, 2**31, n).astype(np.int32))
+    src, base, init = words(2000), words(400), words(plan.out_words)
+    want = parity_xor_ref(init.clone(), src, base, plan.on("cpu"))
+    got = _at(init, cuda, shifts[0])
+    parity_xor_cuda(got, _at(src, cuda, shifts[1]), _at(base, cuda, shifts[2]),
+                    plan.pieces_on(cuda))
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.gpu
+def test_parity_xor_small_tiles_and_mixed_width_batches(cuda):
+    """Rows of 33 to 45 terms over one piece, cut into tiles of 13 words:
+    in rows 0 and 2 the first batch of 32 terms reads sources congruent to
+    the output modulo 16 bytes (the 16-byte path) and the rest do not (the
+    4-byte path); row 1 the other way round."""
+    from repro_torch.kernels.parity_xor.ops import build_pieces
+    rng = np.random.default_rng(11)
+    rows, terms, out = [], [], 0
+    for r, (n, k) in enumerate([(200, 40), (203, 45), (150, 33)]):
+        rows.append((out, n, -1 if r == 1 else out))
+        terms.append([(0, 4 * int(rng.integers(0, 100)) + (
+            0 if (i < 32) != (r == 1) else int(rng.integers(1, 4))), n)
+            for i in range(k)])
+        out += 4 * (-(-n // 4))
+    plan = _plan(rows, terms)
+    plan._pieces = build_pieces(plan, 13)
+    pc = plan.pieces()
+    assert pc.length.size == 3 and (np.diff(pc.term_ptr) > 32).all()
+    assert (np.diff(pc.piece_tile) >= 12).all()
+    words = lambda n: torch.from_numpy(  # noqa: E731
+        rng.integers(-2**31, 2**31, n).astype(np.int32))
+    src, base, init = words(700), words(out), words(out)
+    want = parity_xor_ref(init.clone(), src, base, plan.on("cpu"))
+    for shifts in ((0, 0, 0), (2, 2, 2), (1, 0, 1)):
+        got = _at(init, cuda, shifts[0])
+        n0 = _build.LAUNCHES["parity_xor"]
+        parity_xor_cuda(got, _at(src, cuda, shifts[1]),
+                        _at(base, cuda, shifts[2]), plan.pieces_on(cuda))
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES["parity_xor"] == n0 + 1
+        assert torch.equal(got.cpu(), want), shifts
 
 
 @pytest.mark.gpu

@@ -8,8 +8,14 @@ that has only PyTorch and the CUDA toolkit:
     python -m pytest -q --noconftest -m gpu tests/test_torch_rs_gpu.py
 
 - gf256_mac: bit for bit on the dense form (ragged E, a one-member group,
-  coefficients 0, 1 and random, m = 1 to 4 rows in one launch) and on the
-  codec's plans (encode, syndromes in batches, a two-source decode);
+  coefficients 0, 1 and random, m = 1 to 4 rows in one launch), on the
+  codec's plans (encode, syndromes in batches, a two-source decode), on
+  seeded random plans (unaligned offsets and pointers, partial overlaps,
+  zero-term rows, a piece of more than 32 terms, src and src2 terms, m = 1
+  to 8, row ranges with out_shift), pieces in tiles of 13 words whose
+  batches of terms switch between the 16- and 4-byte paths, the codec's
+  syndromes in several batches, and every coefficient times every byte
+  value;
 - fused_maintain: replica and parity bit for bit, scores within rtol 1e-4
   (f32 sums in another order) and bit-identical from run to run, on f32
   leaves with a ragged last block and a single-block tail, colocated
@@ -39,7 +45,8 @@ from repro_torch.kernels.gf256_mac import ops as gops
 from repro_torch.kernels.gf256_mac.kernel import gf256_mac_cuda
 from repro_torch.kernels.gf256_mac.ref import (gf256_mac_plan_ref,
                                                gf256_mac_ref)
-from repro_torch.kernels.gf256_mac.tables import rs_coefficients
+from repro_torch.kernels.gf256_mac.tables import (gf_scale_words_np,
+                                                  rs_coefficients)
 from repro_torch.sharding.partition import block_device_homes
 from repro_torch.utils.tree import tree_leaves, tree_map
 
@@ -76,6 +83,171 @@ def test_gf256_mac_dense_matches_plain(cuda, n, g, e, m):
     rows[:, 0, 0] = torch.tensor([0, 1, 2, 255][:m], dtype=torch.int32)
     got = gops.rs_encode(frames.to(cuda), rows)
     assert torch.equal(got.cpu(), gops.rs_encode(frames, rows))
+
+
+def random_gf_plan(rng, m, n_rows=40, src_words=3000, src2_words=700):
+    """Rows of ragged lengths at unaligned offsets, some based, some
+    without terms; terms at unaligned columns and source offsets that
+    overlap in part, from both sources, one row with more than 32 terms
+    over one piece; coefficients 0, 1 and random."""
+    rows, terms, out = [], [], int(rng.integers(0, 4))
+    for r in range(n_rows):
+        n = int(rng.integers(1, 90))
+        rows.append((out, n, -1 if r % 4 == 1 else int(rng.integers(0, 200))))
+        out += n + int(rng.integers(0, 3))
+        k = 0 if r % 7 == 3 else (37 if r == 5 else int(rng.integers(1, 7)))
+        ts = []
+        for _ in range(k):
+            a = 0 if r == 5 else int(rng.integers(0, n))
+            ln = n if r == 5 else int(rng.integers(1, n - a + 1))
+            s2 = int(rng.integers(0, 4) == 0)
+            lim = (src2_words if s2 else src_words) - ln
+            c = rng.integers(0, 256, m)
+            c[rng.random(m) < 0.2] = 1
+            c[rng.random(m) < 0.1] = 0
+            ts.append((a, int(rng.integers(0, lim)), ln, s2, c))
+        terms.append(ts)
+    # a row's outputs lie apart from every other row's (unaligned strides)
+    ostr = out + int(rng.integers(0, 4)) if m > 1 else 0
+    bstr = 1000 + int(rng.integers(0, 3)) if m > 1 else 0
+    return gops._plan(m, ostr, bstr, rows, terms), \
+        out + (m - 1) * ostr + 100
+
+
+def _at(x, device, shift):
+    """``x`` on ``device`` as a view ``shift`` words into a larger buffer
+    (a pointer 4 * shift bytes past a 16-byte boundary)."""
+    buf = torch.zeros((x.numel() + 4,), dtype=torch.int32, device=device)
+    buf[shift:shift + x.numel()] = x.to(device)
+    return buf[shift:shift + x.numel()]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", range(1, 9))
+def test_gf256_mac_random_plans_match_plain(cuda, m):
+    rng = np.random.default_rng(100 + m)
+    plan, n_out = random_gf_plan(rng, m)
+    assert set(plan.term_sel.tolist()) == {0, 1}
+    src, src2 = _words(rng, (3000,)), _words(rng, (700,))
+    base = _words(rng, (200 + 7 * 400 * 4 + 90,))
+    init = _words(rng, (n_out,))
+    want = gf256_mac_plan_ref(init.clone(), src, src2, base, plan.on("cpu"),
+                              0, plan.n_rows, 0)
+    for shifts in ((0, 0, 0, 0), (1, 1, 1, 1), (3, 0, 2, 1)):
+        out = _at(init, cuda, shifts[0])
+        gf256_mac_cuda(out, _at(src, cuda, shifts[1]),
+                       _at(src2, cuda, shifts[2]),
+                       _at(base, cuda, shifts[3]), plan)
+        assert torch.equal(out.cpu(), want), shifts
+    # a row range with out_shift, as the syndrome batches run it
+    shift = int(plan.row_out[10])
+    n = plan.limits(10, 20)["out_hi"] - shift
+    got = gf256_mac_cuda(torch.zeros((n,), dtype=torch.int32, device=cuda),
+                         src.to(cuda), src2.to(cuda), base.to(cuda), plan,
+                         10, 20, shift)
+    want = gf256_mac_plan_ref(torch.zeros((n,), dtype=torch.int32), src,
+                              src2, base, plan.on("cpu"), 10, 20, shift)
+    assert torch.equal(got.cpu(), want)
+
+
+def mixed_width_gf_plan(rng, m):
+    """Three rows of 33 to 45 terms that each cover the whole row (one
+    piece), at output offsets and strides that are multiples of 4 words,
+    based at the same offsets: in rows 0 and 2 the first batch of 32 terms
+    reads sources congruent to the output modulo 4 words and the rest do
+    not; row 1 the other way round. Returns the plan and the buffers' words
+    (out, src, src2, base)."""
+    rows, terms, out = [], [], 0
+    for r, (n, k) in enumerate([(200, 40), (203, 45), (150, 33)]):
+        rows.append((out, n, -1 if r == 1 else out))
+        ts = []
+        for i in range(k):
+            congruent = (i < 32) != (r == 1)
+            s2 = int(i % 3 == 2)
+            off = 4 * int(rng.integers(0, 100)) + out % 4 \
+                + (0 if congruent else int(rng.integers(1, 4)))
+            c = rng.integers(0, 256, m)
+            c[rng.random(m) < 0.2] = 1
+            ts.append((0, off, n, s2, c))
+        terms.append(ts)
+        out += 4 * (-(-n // 4))
+    ostr = out if m > 1 else 0
+    return gops._plan(m, ostr, ostr, rows, terms), \
+        (out + (m - 1) * ostr, 700, 700, out + (m - 1) * ostr)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [1, 3, 8])
+def test_gf256_mac_small_tiles_and_mixed_width_batches(cuda, m):
+    """Pieces cut into tiles of 13 words (16 a row, each at another
+    alignment) and folded in two batches of terms, one on the 16-byte path
+    and one on the 4-byte path, in both orders: a later batch reloads what
+    the other width wrote."""
+    from repro_torch.kernels.parity_xor import ops as pops
+    rng = np.random.default_rng(40 + m)
+    plan, (n_out, n_src, n_src2, n_base) = mixed_width_gf_plan(rng, m)
+    plan._pieces = pops.build_pieces(plan, 13)
+    pc = plan.pieces()
+    assert pc.length.size == 3 and (np.diff(pc.term_ptr) > 32).all()
+    assert (np.diff(pc.piece_tile) >= 12).all()
+    srcs = (src, src2) = _words(rng, (n_src,)), _words(rng, (n_src2,))
+    base, init = _words(rng, (n_base,)), _words(rng, (n_out,))
+    for p in range(3):                  # the batches' congruence, as built
+        e = np.arange(pc.term_ptr[p], pc.term_ptr[p + 1])
+        first = np.arange(e.size) < 32
+        assert np.array_equal((pc.term_src[e] - pc.out[p]) % 4 == 0,
+                              first != (p == 1))
+    want = gf256_mac_plan_ref(init.clone(), src, src2, base, plan.on("cpu"),
+                              0, plan.n_rows, 0)
+    for shifts in ((0, 0, 0, 0), (2, 2, 2, 2), (1, 0, 1, 1)):
+        bufs = [_at(a, cuda, k) for a, k in zip((init, *srcs, base), shifts)]
+        assert all(b.data_ptr() % 16 == 4 * k for b, k in zip(bufs, shifts))
+        n0 = _build.LAUNCHES["gf256_mac"]
+        gf256_mac_cuda(*bufs, plan)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES["gf256_mac"] == n0 + 1
+        assert torch.equal(bufs[0].cpu(), want), shifts
+
+
+@pytest.mark.gpu
+def test_gf256_mac_every_coefficient_times_every_byte(cuda):
+    """256 groups of one member: group c scales the 256 words whose lanes
+    hold every byte value by c."""
+    i = np.arange(256, dtype=np.uint64)
+    words = (i | ((i + 85) % 256) << np.uint64(8)
+             | ((i + 170) % 256) << np.uint64(16)
+             | ((i + 255) % 256) << np.uint64(24)).astype(np.uint32) \
+        .view(np.int32)
+    frames = torch.from_numpy(np.tile(words, (256, 1, 1)))
+    coeff = torch.arange(256, dtype=torch.int32)[:, None]
+    got = gops.gf256_mac(frames.to(cuda), torch.zeros((256, 256),
+                                                      dtype=torch.int32,
+                                                      device=cuda), coeff)
+    want = np.stack([gf_scale_words_np(words, c) for c in range(256)])
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+
+
+@pytest.mark.gpu
+def test_rs_syndromes_in_several_batches_card_equals_cpu(cuda, monkeypatch):
+    """The codec's scrub pass, cut into batches of one group (out_shift),
+    flags and returns the same rows on the card as on the CPU."""
+    from repro_torch.fabric import rs as rs_mod
+    tree, part, lay, codec = _codec("f32", RSCodec, n_parity=2)
+    per = 2 * codec.layout.frame_elems
+    monkeypatch.setattr(rs_mod, "SYNDROME_BATCH_BYTES", 4 * per)
+    x = ta.pack_arena(tree, lay)
+    assert codec.n_groups >= 3
+    out = {}
+    for dev in ("cpu", cuda):
+        codec.parity = None
+        codec.encode_from_arena(0, x.to(dev), lay)
+        bad = x.clone().to(dev)
+        bad[lay.blocks[len(lay.blocks) // 2].offset + 3] ^= 1 << 13
+        out[str(dev)] = codec.syndromes_from_arena(bad, lay)
+    c, g = out["cpu"], out[str(cuda)]
+    assert c.groups.size == 1
+    np.testing.assert_array_equal(g.groups, c.groups)
+    np.testing.assert_array_equal(g.rows, c.rows)
 
 
 def _tree(kind, seed=0):

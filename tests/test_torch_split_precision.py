@@ -36,6 +36,17 @@ NEG = -1e30
 LOG2E = 1.4426950408889634
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while these tests run: the suite runs several
+    workers on a few cores, and torch's default of one thread per core in
+    each of them oversubscribes the machine."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _close_ratio(got, want, rtol, atol):
     """max |got - want| / (atol + rtol |want|): assert_close's form."""
     return float(((got - want).abs() / (atol + rtol * want.abs())).max())
