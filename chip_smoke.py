@@ -11,7 +11,12 @@ Phases, each of which fails the run if it fails:
    float32 parameter tree with the leaf shapes of qwen2-1.5b (tied
    embedding, 28 layers; 6,295 blocks of 128 rows), at the shapes the main
    path gives each kernel: block_dist within rtol 1e-4, scatter_save and
-   masked_restore bit-exact. Whole-tree times from CUDA events (median of
+   masked_restore bit-exact. block_dist and scatter_save are checked per
+   leaf and in the grouped form the main path runs (one call over all 338
+   leaves; block_dist bit-identical over two runs; two kernel launches a
+   block_dist call and one a scatter_save call, counted by the profiler),
+   and the grouped call is what their ``ms`` times (the per-leaf list's
+   time, and block_dist's per-leaf plain list's, are kept beside it). Whole-tree times from CUDA events (median of
    7, plain and kernel in turns), beside the least time the card could
    take (bytes over 3.35 TB/s; operations over 67 TFLOP/s f32, or, for
    gf256_mac's integer work, over the card's INT32 rate: its SMs x 64
@@ -27,7 +32,8 @@ Phases, each of which fails the run if it fails:
    ``CheckpointPolicy.scar()`` and ``CheckpointPolicy.traditional()``, the
    Theorem 3.2 bound as the quickstart computes it, and the same SCAR run
    on the CPU to hold the card's losses and iteration cost against. Then
-   every kernel against its plain version at the MLR leaves' own shapes.
+   every kernel against its plain version at the MLR leaves' own shapes,
+   and the grouped block_dist and scatter_save over the whole MLR tree.
 5. The quickstart path (``examples/quickstart.py`` steps 1-2): MLR with
    n=600, dim=64, 5 classes, batch 200, ``run_with_failure`` with
    ``CheckpointPolicy.scar(0.25, 32)`` and ``fabric=FabricConfig()``, held
@@ -128,6 +134,7 @@ from __future__ import annotations
 
 import contextlib
 import gc
+import itertools
 import json
 import math
 import statistics
@@ -265,6 +272,21 @@ def device_share(fn) -> dict:
             "top_device_ms": [[k[:60], us / 1e3] for k, us in top]}
 
 
+def kernel_launches(fn, name: str) -> tuple[int, float]:
+    """Run ``fn`` once under torch.profiler: how many kernels whose name
+    holds ``name`` the card ran, and their device milliseconds."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [(e.count, e.self_device_time_total) for e in prof.key_averages()
+            if name in e.key and e.self_device_time_total > 0]
+    return sum(n for n, _ in rows), sum(us for _, us in rows) / 1e3
+
+
 def host_profile(fn, top: int = 12) -> list:
     """Run ``fn`` once under cProfile: the ``top`` functions of this repo by
     cumulative seconds (the host's share of a call that waits on the card
@@ -309,12 +331,18 @@ def int32_ops_per_s() -> float:
 # ---------------------------------------------------------------------------
 
 def phase_kernels(a_tree, b_tree, device) -> dict:
+    import numpy as np
     import torch
     from repro_torch.core.blocks import leaf_block_view, partition_pytree
     from repro_torch.kernels.block_dist.kernel import block_dist_cuda
-    from repro_torch.kernels.block_dist.ref import block_dist_ref
-    from repro_torch.kernels.fused_maintain.kernel import scatter_save_cuda
+    from repro_torch.kernels.block_dist.ops import tree_block_dist
+    from repro_torch.kernels.block_dist.ref import (block_dist_ref,
+                                                    block_dist_tree_ref)
+    from repro_torch.kernels.fused_maintain.kernel import (
+        scatter_save_cuda, scatter_save_tree_cuda)
+    from repro_torch.kernels.fused_maintain.ops import tree_scatter_save
     from repro_torch.kernels.fused_maintain.ref import scatter_save_ref
+    from repro_torch.kernels.leaf_table import block_dist_table, save_pairs
     from repro_torch.kernels.masked_restore.kernel import masked_restore_cuda
     from repro_torch.kernels.masked_restore.ref import masked_restore_ref
     from repro_torch.utils.tree import tree_leaves
@@ -348,29 +376,55 @@ def phase_kernels(a_tree, b_tree, device) -> dict:
         moved += int(rows.sum()) * leaf.row_width * 4
     results = {}
 
-    # block_dist: rtol 1e-4 (f32 sums in another order over <= 1.1 M terms)
+    # block_dist: rtol 1e-4 (f32 sums in another order over <= 1.1 M terms),
+    # per leaf and in the grouped form over the whole tree, which the main
+    # path runs: one call, two launches, the same bits on every run
+    def rel_err(got, want):
+        return float(((got - want).abs() / want.abs().clamp_min(1e-30)).max())
+
     err = 0.0
     for va, vb in views:
         got, want = block_dist_cuda(va, vb), block_dist_ref(va, vb)
-        rel = ((got - want).abs() / want.abs().clamp_min(1e-30)).max()
-        check(float(rel) <= 1e-4, f"block_dist off by rtol {float(rel)}")
+        check(rel_err(got, want) <= 1e-4,
+              f"block_dist off by rtol {rel_err(got, want)}")
         check(torch.equal(got, block_dist_cuda(va, vb)),
               "block_dist differs between two runs")
         err = max(err, float((got - want).abs().max()))
+    table = block_dist_table(part)
+    tree_call = lambda: tree_block_dist(a_leaves, b_leaves, part)
+    got, want = tree_call(), block_dist_tree_ref(a_leaves, b_leaves, part)
+    check(rel_err(got, want) <= 1e-4,
+          f"grouped block_dist off by rtol {rel_err(got, want)}")
+    check(torch.equal(got, tree_call()),
+          "grouped block_dist differs between two runs")
+    tree_err = float((got - want).abs().max())
+    grid, card = kernel_launches(tree_call, "block_dist")
+    check(grid == 2, f"a grouped block_dist call ran {grid} kernels, not 2")
     t = in_turns({
-        "plain": lambda: [block_dist_ref(va, vb) for va, vb in views],
-        "kernel": lambda: [block_dist_cuda(va, vb) for va, vb in views]})
+        "plain": lambda: block_dist_tree_ref(a_leaves, b_leaves, part),
+        "per_leaf_plain": lambda: [block_dist_ref(va, vb) for va, vb in views],
+        "per_leaf": lambda: [block_dist_cuda(va, vb) for va, vb in views],
+        "kernel": tree_call})
     b, by = bound_ms(2 * 4 * n_values + 4 * part.total_blocks, 3 * n_values)
-    results["block_dist"] = dict(max_abs_err=err, ms=t["kernel"],
-                                 plain_ms=t["plain"], bound_ms=b, bound_by=by,
-                                 library_ms=None)
+    results["block_dist"] = dict(
+        max_abs_err=max(err, tree_err), ms=t["kernel"], plain_ms=t["plain"],
+        bound_ms=b, bound_by=by, library_ms=None, per_leaf_ms=t["per_leaf"],
+        per_leaf_plain_ms=t["per_leaf_plain"], b2b_ms=device_ms(tree_call), card_ms=card, grid_launches=grid,
+        work_items=table.n_items)
     (ba, bb), (sa, sb) = views[big], views[small]
+    # host time of the whole-tree call: the same leaves (the pointer column
+    # stays on the card) and other leaves every call (it is uploaded again)
+    flip = itertools.cycle([(b_leaves, a_leaves), (a_leaves, b_leaves)])
     results["block_dist"].update(
         leaf_ms=device_ms(lambda: block_dist_cuda(ba, bb)),
         leaf_plain_ms=device_ms(lambda: block_dist_ref(ba, bb)),
         leaf_bound_ms=bound_ms(8 * ba.numel() + 4 * ba.shape[0])[0],
-        host_us=host_us(lambda: block_dist_cuda(sa, sb)),
-        plain_host_us=host_us(lambda: block_dist_ref(sa, sb)))
+        host_us=host_us(tree_call, calls=20),
+        host_us_new_leaves=host_us(lambda: tree_block_dist(
+            *next(flip), part), calls=20),
+        plain_host_us=host_us(lambda: block_dist_tree_ref(
+            a_leaves, b_leaves, part), calls=5),
+        leaf_host_us=host_us(lambda: block_dist_cuda(sa, sb)))
 
     # masked_restore on the raw (R, W) rows, as the main path calls it:
     # bit-exact. Every leaf of this tree fills its blocks, so its block
@@ -405,23 +459,44 @@ def phase_kernels(a_tree, b_tree, device) -> dict:
         plain_host_us=host_us(lambda: masked_restore_ref(rsa, rsb, sm,
                                                          BLOCK_ROWS)))
 
-    # scatter_save: bit-exact on copies, then timed in place into b (the
-    # same ids each run, so every run writes the same bytes)
+    # scatter_save: bit-exact on copies, per leaf and grouped (the main
+    # path's form: one launch over the selected (leaf, block) pairs), then
+    # timed in place into b (the same ids each run, so every run writes
+    # the same bytes)
     for (src, dst), ids in zip(rows2d, sel):
         got = scatter_save_cuda(dst.clone(), src, ids, BLOCK_ROWS)
         want = scatter_save_ref(dst.clone(), src, ids, BLOCK_ROWS)
         check(torch.equal(got, want),
               "scatter_save differs from its plain version")
+    idx = np.sort(np.concatenate([l.offset + s.cpu().numpy().astype(np.int64)
+                                  for l, s in zip(part.leaves, sel)]))
+    leaf_of, block_of = save_pairs(idx, part)
+    copies = [y.clone() for y in b_leaves]
+    scatter_save_tree_cuda(copies, a_leaves, leaf_of, block_of, part)
+    for (src, dst), ids, c in zip(rows2d, sel, copies):
+        want = scatter_save_ref(dst.clone(), src, ids, BLOCK_ROWS)
+        check(torch.equal(c.reshape(want.shape), want),
+              "grouped scatter_save differs from its plain version")
+    del copies, want, got
+    tree_save = lambda: scatter_save_tree_cuda(b_leaves, a_leaves, leaf_of,
+                                               block_of, part)
+    grid, card = kernel_launches(tree_save, "scatter_save")
+    check(grid == 1, f"a grouped scatter_save call ran {grid} kernels, not 1")
     t = in_turns({
         "plain": lambda: [scatter_save_ref(dst, src, ids, BLOCK_ROWS)
                           for (src, dst), ids in zip(rows2d, sel)],
-        "kernel": lambda: [scatter_save_cuda(dst, src, ids, BLOCK_ROWS)
-                           for (src, dst), ids in zip(rows2d, sel)]})
+        "per_leaf": lambda: [scatter_save_cuda(dst, src, ids, BLOCK_ROWS)
+                             for (src, dst), ids in zip(rows2d, sel)],
+        "kernel": tree_save})
     b, by = bound_ms(2 * moved + 4 * sum(int(s.numel()) for s in sel))
     results["scatter_save"] = dict(max_abs_err=0.0, ms=t["kernel"],
                                    plain_ms=t["plain"], bound_ms=b,
                                    bound_by=by, library_ms=None,
-                                   moved_bytes=moved)
+                                   moved_bytes=moved,
+                                   per_leaf_ms=t["per_leaf"],
+                                   b2b_ms=device_ms(tree_save),
+                                   card_ms=card, grid_launches=grid,
+                                   pairs=int(leaf_of.size))
     (bsrc, bdst), bids = rows2d[big], sel[big]
     (ssrc, sdst), sids = rows2d[small], sel[small]
     big_leaf = part.leaves[big]
@@ -432,16 +507,26 @@ def phase_kernels(a_tree, b_tree, device) -> dict:
                                                          BLOCK_ROWS)),
         leaf_bound_ms=bound_ms(2 * 4 * bids.numel() * BLOCK_ROWS
                                * big_leaf.row_width)[0],
-        host_us=host_us(lambda: scatter_save_cuda(sdst, ssrc, sids,
-                                                  BLOCK_ROWS)),
-        plain_host_us=host_us(lambda: scatter_save_ref(sdst, ssrc, sids,
+        host_us=host_us(lambda: tree_scatter_save(b_tree, a_tree, idx, part),
+                        calls=20),
+        plain_host_us=host_us(lambda: [
+            scatter_save_ref(dst, src, ids, BLOCK_ROWS)
+            for (src, dst), ids in zip(rows2d, sel)], calls=5),
+        leaf_host_us=host_us(lambda: scatter_save_cuda(sdst, ssrc, sids,
                                                        BLOCK_ROWS)))
     for name, r in results.items():
         lib = r["library_ms"]
+        grouped = (f"; per-leaf list {r['per_leaf_ms']:.3f} ms"
+                   + (f" (plain {r['per_leaf_plain_ms']:.3f})"
+                      if "per_leaf_plain_ms" in r else "")
+                   + f", back to back "
+                   f"{r['b2b_ms']:.3f} ms, the card's kernels "
+                   f"{r['card_ms']:.3f} ms in {r['grid_launches']} launches"
+                   if "per_leaf_ms" in r else "")
         log(f"{name}: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
             f"bound {r['bound_ms']:.3f} ms ({r['bound_by']}), library "
             f"{'none' if lib is None else format(lib, '.3f') + ' ms'}, "
-            f"max abs err {r['max_abs_err']:.3g}; largest leaf "
+            f"max abs err {r['max_abs_err']:.3g}{grouped}; largest leaf "
             f"{r['leaf_ms']:.4f} ms (plain {r['leaf_plain_ms']:.4f}, bound "
             f"{r['leaf_bound_ms']:.4f}); host {r['host_us']:.1f} us per call "
             f"(plain {r['plain_host_us']:.1f})")
@@ -679,15 +764,20 @@ def check_mlr_against_cpu(gpu: dict) -> None:
 
 def check_kernels_on_mlr(model, device) -> None:
     """Each kernel against its plain version at the shapes the MLR path
-    hands it: the block views ``block_scores`` makes and the raw (R, W)
-    rows the save and the restore take, at the SCAR policy's block_rows.
-    Seeded random values (the model's init is all zeros)."""
+    hands it: the whole tree to the grouped block_dist and scatter_save,
+    which the path runs, and, per leaf, the block views and the raw (R, W)
+    rows, at the SCAR policy's block_rows. Seeded random values (the
+    model's init is all zeros)."""
     import torch
     from repro_torch.core.blocks import leaf_block_view, partition_pytree
     from repro_torch.core.policy import CheckpointPolicy
+    import numpy as np
     from repro_torch.kernels.block_dist.kernel import block_dist_cuda
-    from repro_torch.kernels.block_dist.ref import block_dist_ref
+    from repro_torch.kernels.block_dist.ops import tree_block_dist
+    from repro_torch.kernels.block_dist.ref import (block_dist_ref,
+                                                    block_dist_tree_ref)
     from repro_torch.kernels.fused_maintain.kernel import scatter_save_cuda
+    from repro_torch.kernels.fused_maintain.ops import tree_scatter_save
     from repro_torch.kernels.fused_maintain.ref import scatter_save_ref
     from repro_torch.kernels.masked_restore.kernel import masked_restore_cuda
     from repro_torch.kernels.masked_restore.ref import masked_restore_ref
@@ -697,7 +787,7 @@ def check_kernels_on_mlr(model, device) -> None:
     shapes = model.init(torch.Generator().manual_seed(1))
     part = partition_pytree(shapes, br)
     gen = torch.Generator(device=device).manual_seed(SEED + 3)
-    seen = []
+    seen, trees = [], ([], [])
     for x, leaf in zip(tree_leaves(shapes), part.leaves):
         a = torch.randn(x.shape, generator=gen, device=device)
         b = torch.randn(x.shape, generator=gen, device=device)
@@ -719,8 +809,28 @@ def check_kernels_on_mlr(model, device) -> None:
                   f"masked_restore differs at {leaf.name}")
         seen.append(f"{leaf.name} rows {tuple(a2.shape)} view "
                     f"{tuple(va.shape)}")
+        trees[0].append(a)
+        trees[1].append(b)
+    # the grouped forms the path runs, over the whole MLR tree
+    (al, bl), want = trees, block_dist_tree_ref(*trees, part)
+    got = tree_block_dist(al, bl, part)
+    check(bool(torch.all((got - want).abs() <= 1e-4 * want.abs()))
+          and torch.equal(got, tree_block_dist(al, bl, part)),
+          "grouped block_dist differs on the MLR tree")
+    idx = np.asarray(sorted({l.offset + k for l in part.leaves
+                             for k in (0, l.n_blocks - 1)}), np.int64)
+    dst = [x.clone() for x in bl]
+    tree_scatter_save(dst, al, idx, part)
+    for d, x, y, leaf in zip(dst, al, bl, part.leaves):
+        want = y.clone().reshape(leaf.rows, leaf.row_width)
+        ids = torch.tensor(sorted({0, leaf.n_blocks - 1}), dtype=torch.int32)
+        want = scatter_save_ref(want, x.reshape(want.shape), ids.to(device),
+                                br)
+        check(torch.equal(d.reshape(want.shape), want),
+              f"grouped scatter_save differs at {leaf.name}")
     log(f"kernels agree with their plain versions on the MLR leaves "
-        f"(block_rows {br}): {'; '.join(seen)}")
+        f"(block_rows {br}; grouped forms over the whole tree too): "
+        f"{'; '.join(seen)}")
 
 
 # ---------------------------------------------------------------------------
@@ -2198,8 +2308,10 @@ def main(argv: list) -> int:
             "fabric_stats": quick["fabric_stats"]},
         "per_call": {name: {k: r[k] for k in (
             "leaf_ms", "leaf_plain_ms", "leaf_bound_ms", "host_us",
-            "plain_host_us")} for name, r in kernels.items()
-            if "leaf_ms" in r},
+            "host_us_new_leaves", "plain_host_us", "leaf_host_us",
+            "per_leaf_ms", "per_leaf_plain_ms", "b2b_ms", "card_ms", "grid_launches", "work_items",
+            "pairs")
+            if k in r} for name, r in kernels.items() if "leaf_ms" in r},
         "scatter_save_moved_bytes": kernels["scatter_save"]["moved_bytes"],
         "arena_scatter_moved_bytes": kernels["arena_scatter"]["moved_bytes"],
         "arena_maintain_dest_tiles": kernels["arena_maintain"]["dest_tiles"]}))

@@ -31,6 +31,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from repro_torch.kernels.block_dist.ops import tree_block_scores
 from repro_torch.utils.tree import (TreeDef, flatten_with_path, keystr,
                                     tree_leaves)
 
@@ -258,10 +259,15 @@ def block_scores(a: PyTree, b: PyTree, partition: BlockPartition,
 
     ``norm_fn(a_view, b_view, leaf)`` maps two (n_blocks, block_elems) views
     to per-block scores; see :mod:`repro_torch.core.norms`. Colocated
-    leaves (shared offsets) accumulate into the same slots.
+    leaves (shared offsets) accumulate into the same slots. A norm with a
+    whole-tree form (``norm_fn.tree(a_leaves, b_leaves, partition)``, the
+    l2 norm's grouped kernel) is handed the leaves in one call instead.
     """
     a_flat = tree_leaves(a)
     b_flat = tree_leaves(b)
+    tree_fn = getattr(norm_fn, "tree", None)
+    if tree_fn is not None:
+        return tree_fn(a_flat, b_flat, partition)
     out = torch.zeros((partition.total_blocks,), dtype=torch.float32,
                       device=a_flat[0].device)
     for xa, xb, leaf in zip(a_flat, b_flat, partition.leaves):
@@ -272,14 +278,18 @@ def block_scores(a: PyTree, b: PyTree, partition: BlockPartition,
     return out
 
 
-def masked_sq_norm(a: PyTree, b: PyTree, global_mask: torch.Tensor,
-                   partition: BlockPartition) -> torch.Tensor:
-    """||(a - b) restricted to masked blocks||^2 -- the delta' of Theorem 4.1."""
-    def sq(va, vb, leaf):
-        return torch.sum((va - vb) ** 2, dim=-1)
-    per_block = block_scores(a, b, partition, sq)
+def masked_total(per_block: torch.Tensor,
+                 global_mask: torch.Tensor) -> torch.Tensor:
+    """Sum of ``per_block`` over the blocks ``global_mask`` selects."""
     return torch.sum(torch.where(global_mask.to(torch.bool), per_block,
                                  torch.zeros_like(per_block)))
+
+
+def masked_sq_norm(a: PyTree, b: PyTree, global_mask: torch.Tensor,
+                   partition: BlockPartition) -> torch.Tensor:
+    """||(a - b) restricted to masked blocks||^2 -- the delta' of Theorem 4.1
+    (the per-block distances in one grouped block_dist call on the card)."""
+    return masked_total(tree_block_scores(a, b, partition), global_mask)
 
 
 def tree_sq_norm(a: PyTree, b: PyTree) -> torch.Tensor:

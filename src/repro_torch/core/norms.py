@@ -9,7 +9,9 @@ The port of ``repro.core.norms``. A norm function has signature
                      4.1/4.2 measure). On a CUDA tensor it is the
                      ``block_dist`` kernel, the drop-in the JAX package
                      documents for it; on a CPU tensor, the kernel's plain
-                     version.
+                     version. It carries a whole-tree form (``.tree``,
+                     ``tree_block_dist``) that ``block_scores`` calls in
+                     place of its per-leaf loop: one grouped launch a tree.
 - ``l1``, ``linf``-- absolute-difference sum and maximum.
 - ``scaled_tv``   -- scaled total variation for distribution-valued rows
                      (Appendix C, LDA): per-row TV = 1/2 sum |p - q| scaled
@@ -28,7 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.blocks import LeafMeta
-from repro_torch.kernels.block_dist.ops import block_dist
+from repro_torch.kernels.block_dist.ops import block_dist, tree_block_dist
 
 NormFn = Callable[[torch.Tensor, torch.Tensor, LeafMeta], torch.Tensor]
 
@@ -52,6 +54,7 @@ def get_norm(name: str, aux=None, block_rows: int = 128) -> NormFn:
 def _sq_l2_factory(aux=None, block_rows: int = 128) -> NormFn:
     def sq_l2(a, b, leaf):
         return block_dist(a, b)
+    sq_l2.tree = tree_block_dist
     return sq_l2
 
 

@@ -35,10 +35,11 @@ import numpy as np
 import torch
 
 from repro_torch.core.blocks import (BlockPartition, leaf_word_width,
-                                     masked_sq_norm, select_blocks)
+                                     masked_total, select_blocks)
 from repro_torch.fabric.parity import ParityCodec, unpack_segments_into
 from repro_torch.fabric.placement import ClusterView, checkpoint_cache_homes
 from repro_torch.fabric.replica import ReplicaSet
+from repro_torch.kernels.block_dist.ops import tree_block_scores
 from repro_torch.utils.tree import tree_leaves
 
 PyTree = Any
@@ -212,16 +213,21 @@ class TieredRecovery:
             src = disk_values if disk_values is not None else ckpt_values
             out = select_blocks(out, src, dev_mask(m_dk), part)
 
-        tier_sq, tier_latency = {}, {}
-        for tier in RecoveryTier:
-            if tier == RecoveryTier.SURVIVOR:
-                continue
-            m = plan.mask(tier)
-            tier_sq[tier.name] = (
-                float(masked_sq_norm(out, params, dev_mask(m), part))
-                if m.any() else 0.0)
-            tier_latency[tier.name] = float(
-                self._block_bytes[m].sum() / TIER_BANDWIDTH[tier])
+        # ||delta'||^2 per tier: the per-block distances once (one grouped
+        # block_dist launch on the card), masked per tier, read in one copy
+        tiers = [t for t in RecoveryTier if t != RecoveryTier.SURVIVOR]
+        masks = {t: plan.mask(t) for t in tiers}
+        hit = [t for t in tiers if masks[t].any()]
+        sums = []
+        if hit:
+            per_block = tree_block_scores(out, params, part)
+            sums = torch.stack([masked_total(per_block, dev_mask(masks[t]))
+                                for t in hit]).tolist()
+        tier_sq = dict.fromkeys((t.name for t in tiers), 0.0)
+        tier_sq.update(zip((t.name for t in hit), sums))
+        tier_latency = {t.name: float(
+            self._block_bytes[masks[t]].sum() / TIER_BANDWIDTH[t])
+            for t in tiers}
         stats = {
             "tier_counts": plan.counts,
             "tier_sq": tier_sq,

@@ -51,7 +51,10 @@ _I64 = ctypes.c_int64
 _SIGNATURES = {
     "block_dist_chunks": ([_I64], _I64),
     "block_dist_f32": ([_P, _P, _P, _P, _I64, _I64, _P], ctypes.c_int),
+    "block_dist_tree_f32": ([_P, _P, _P, _I64, _P, _P, _P, _P, _I64, _P],
+                            ctypes.c_int),
     "scatter_save_bytes": ([_P, _P, _P, _I64, _I64, _I64, _P], ctypes.c_int),
+    "scatter_save_tree_bytes": ([_P, _P, _P, _I64, _P], ctypes.c_int),
     "masked_restore_bytes": ([_P, _P, _P, _P, _I64, _I64, _P], ctypes.c_int),
     "arena_maintain": ([_P] * 13 + [_I64] + [_P] * 3 + [_I64, _I64]
                        + [_P] * 4 + [_I64, _P], ctypes.c_int),

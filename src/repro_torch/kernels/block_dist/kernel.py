@@ -4,12 +4,18 @@ Replaces ``repro/kernels/block_dist/kernel.py::block_dist_pallas``. The
 source, with its design note, is ``repro_torch/csrc/block_dist.cu``: a
 chunked first pass over all SMs and a fixed-order second pass, so the
 scores are the same on every run.
+
+``block_dist_tree_cuda`` is the grouped form the main path runs: one call
+for a whole tree, two launches (the passes), over the leaf table of
+:mod:`repro_torch.kernels.leaf_table`.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.leaf_table import (BLOCK_DIST_CHUNK, BlockDistTable,
+                                             dist_pointers, upload)
 
 
 def block_dist_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -39,3 +45,36 @@ def block_dist_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     _build.launch("block_dist", lib.block_dist_f32, a.device, a.data_ptr(),
                   b.data_ptr(), buf.data_ptr() + 4 * n, buf.data_ptr(), n, e)
     return buf[:n]
+
+
+def block_dist_tree_cuda(a_leaves: list, b_leaves: list,
+                         table: BlockDistTable) -> torch.Tensor:
+    """Per-block squared distances over two whole trees' leaves (flatten
+    order, the leaf shapes of ``table``'s partition) -> (total_blocks,) f32;
+    colocated leaves accumulate into their shared blocks.
+
+    Leaves are read in place; a leaf that is not contiguous f32 is read
+    from a contiguous f32 copy (the per-leaf route's ``.to(float32)``).
+    The leaves' base addresses go to the card only when they differ from
+    the last call's on this device."""
+    if table.chunk != BLOCK_DIST_CHUNK:
+        raise ValueError(f"a table of {table.chunk}-element chunks; the "
+                         f"kernel's are {BLOCK_DIST_CHUNK}")
+    device = a_leaves[0].device
+    if device.type != "cuda":
+        raise ValueError(f"block_dist_tree_cuda needs CUDA leaves, got "
+                         f"{device}")
+    ptrs, keep = dist_pointers(a_leaves, b_leaves, table)
+    d = table.on(device)
+    if ptrs != d.last:
+        upload(ptrs, d.ptrs)
+        d.last = ptrs
+    total = table.total_blocks
+    # one allocation: the scores, then the first pass's partials
+    buf = torch.empty((total + table.n_items,), dtype=torch.float32,
+                      device=device)
+    _build.launch("block_dist", _build.library().block_dist_tree_f32, device,
+                  d.geom, d.ptrs.data_ptr(), d.item_leaf, table.n_items,
+                  d.seg_start, d.segs, buf.data_ptr() + 4 * total,
+                  buf.data_ptr(), total)
+    return buf[:total]

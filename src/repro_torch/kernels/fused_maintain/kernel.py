@@ -2,7 +2,9 @@
 
 - ``scatter_save_cuda`` replaces
   ``repro/kernels/fused_maintain/kernel.py::scatter_save_pallas``
-  (source and design note: ``repro_torch/csrc/scatter_save.cu``);
+  (source and design note: ``repro_torch/csrc/scatter_save.cu``), one
+  leaf a launch; ``scatter_save_tree_cuda`` is its grouped form, one
+  launch for a whole tree's selected blocks, the one the main path runs;
 - ``arena_maintain_cuda`` replaces ``arena_maintain_pallas``
   (``repro_torch/csrc/arena_maintain.cu``);
 - ``arena_scatter_cuda`` replaces ``arena_scatter_pallas``
@@ -12,12 +14,14 @@
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.core.arena import dtype_code
 from repro_torch.core.blocks import (WORD_DTYPE_NAMES, dtype_word_ratio,
                                      word_packable)
 from repro_torch.kernels import _build
+from repro_torch.kernels.leaf_table import scatter_table, upload
 
 
 def scatter_save_cuda(dst: torch.Tensor, src: torch.Tensor,
@@ -57,6 +61,34 @@ def scatter_save_cuda(dst: torch.Tensor, src: torch.Tensor,
                   dst.device, dst.data_ptr(), src.data_ptr(), rows.data_ptr(),
                   k, block_bytes, total_bytes)
     return dst
+
+
+def scatter_save_tree_cuda(dst_leaves: list, src_leaves: list,
+                           leaf: np.ndarray, block: np.ndarray,
+                           partition) -> list:
+    """Copy block ``block[p]`` of leaf ``leaf[p]`` of ``src_leaves`` into
+    ``dst_leaves`` for every unique pair ``p``, in place, in one launch.
+    The leaves are ``partition``'s: block ``b`` of a leaf is its rows
+    ``[b*block_rows, (b+1)*block_rows)``, the last block ragged. Touched
+    leaves must lie on one CUDA device, dst leaves contiguous (see
+    :func:`~repro_torch.kernels.leaf_table.scatter_table`). Returns
+    ``dst_leaves``."""
+    if leaf.size == 0:
+        return dst_leaves
+    device = dst_leaves[int(leaf[0])].device
+    if device.type != "cuda":
+        raise ValueError(f"scatter_save_tree_cuda needs CUDA leaves, got "
+                         f"{device}")
+    t = scatter_table(dst_leaves, src_leaves, leaf, block, partition)
+    if t.n_items == 0:
+        return dst_leaves
+    dev = upload(t.table, torch.empty((t.table.size,), dtype=torch.int64,
+                                      device=device))
+    base = dev.data_ptr()
+    _build.launch("scatter_save", _build.library().scatter_save_tree_bytes,
+                  device, base, base + 8 * t.pairs_at, base + 8 * t.items_at,
+                  t.n_items)
+    return dst_leaves
 
 
 # the arena_maintain kernel decodes every code of core/blocks.py's

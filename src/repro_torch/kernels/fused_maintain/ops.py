@@ -13,9 +13,10 @@ per-leaf sweep and the per-leaf in-place save.
   fused_maintain launch per leaf yields the replica leaf, the leaf's
   per-block scores and its XOR parity folded into the codec's layout.
 - :func:`tree_scatter_save` is the fabric-less in-place save
-  (``FTController(inplace_save=True)``), one scatter_save launch per
-  touched leaf. Unlike the reference it needs no padding of k to a power
-  of two (that bounded jit recompiles), but keeps its ``moved`` count.
+  (``FTController(inplace_save=True)``), one grouped scatter_save launch
+  over the selected (leaf, block) pairs of the whole tree. Unlike the
+  reference it needs no padding of k to a power of two (that bounded jit
+  recompiles), but keeps its ``moved`` count.
 - :func:`maintain_traffic` is the analytic bytes-moved model, equal to the
   reference's byte for byte.
 
@@ -38,11 +39,13 @@ from repro_torch.core.blocks import BlockPartition
 from repro_torch.kernels.fused_maintain.kernel import (arena_maintain_cuda,
                                                        arena_scatter_cuda,
                                                        fused_maintain_cuda,
-                                                       scatter_save_cuda)
+                                                       scatter_save_cuda,
+                                                       scatter_save_tree_cuda)
 from repro_torch.kernels.fused_maintain.ref import (arena_maintain_ref,
                                                     arena_scatter_ref,
                                                     fused_maintain_ref,
                                                     scatter_save_ref)
+from repro_torch.kernels.leaf_table import leaf_arrays, save_pairs
 from repro_torch.utils.tree import tree_flatten, tree_leaves, tree_unflatten
 
 PyTree = Any
@@ -527,33 +530,38 @@ def tree_scatter_save(dst: PyTree, src: PyTree, global_idx,
 
     ``global_idx``: host-side selected global block ids. Leaves with no
     selected block are not touched; colocated leaves each copy their own
-    payload for the shared ids. Returns ``(dst, bytes_moved)``.
+    payload for the shared ids. On CUDA leaves this is one grouped
+    scatter_save launch over the selected (leaf, block) pairs; on CPU
+    leaves the plain version, leaf by leaf. Returns ``(dst, bytes_moved)``.
     """
     idx = np.unique(np.asarray(global_idx, np.int64))
     if idx.size and (idx[0] < 0 or idx[-1] >= partition.total_blocks):
         raise IndexError(f"block ids must lie in [0, "
                          f"{partition.total_blocks})")
-    dst_flat, treedef = tree_flatten(dst)
-    src_flat = tree_leaves(src)
+    dst_flat, src_flat = tree_leaves(dst), tree_leaves(src)
+    leaf, block = save_pairs(idx, partition)
+    if leaf.size == 0:
+        return dst, 0
     br = partition.block_rows
-    moved = 0
-    for d, s, leaf in zip(dst_flat, src_flat, partition.leaves):
-        lo = np.searchsorted(idx, leaf.offset)
-        hi = np.searchsorted(idx, leaf.offset + leaf.n_blocks)
-        sel = (idx[lo:hi] - leaf.offset).astype(np.int32)
-        if sel.size == 0:
-            continue
+    g = leaf_arrays(partition)
+    rows_per = np.minimum((block + 1) * br, g.rows[leaf]) - block * br
+    moved = int((rows_per.clip(min=0) * g.row_width[leaf]
+                 * g.itemsize[leaf]).sum())
+    if dst_flat[int(leaf[0])].device.type != "cpu":
+        scatter_save_tree_cuda(dst_flat, src_flat, leaf, block, partition)
+        return dst, moved
+    bounds = np.flatnonzero(np.diff(leaf)) + 1
+    touched = leaf[np.concatenate([[0], bounds])].tolist()
+    for l, sel in zip(touched, np.split(block, bounds)):
+        d, s, meta = dst_flat[l], src_flat[l], partition.leaves[l]
         if not d.is_contiguous():
-            raise ValueError(f"checkpoint leaf {leaf.name} is not "
+            raise ValueError(f"checkpoint leaf {meta.name} is not "
                              f"contiguous; an in-place save needs it so")
-        rows, width = leaf.rows, leaf.row_width
-        d2 = d.view(rows, width)
-        s2 = s.to(d.dtype).reshape(rows, width).contiguous()
-        scatter_save(d2, s2, torch.from_numpy(sel).to(d.device), br)
-        rows_per = np.minimum((sel + 1) * br, rows) - sel * br
-        moved += int(rows_per.clip(min=0).sum()) * leaf.row_width \
-            * d.element_size()
-    return tree_unflatten(treedef, dst_flat), moved
+        rows, width = meta.rows, meta.row_width
+        scatter_save_ref(d.view(rows, width),
+                         s.to(d.dtype).reshape(rows, width).contiguous(),
+                         torch.from_numpy(sel.astype(np.int32)), br)
+    return dst, moved
 
 
 # ---------------------------------------------------------------------------

@@ -59,9 +59,27 @@ def flatten_with_path(tree: PyTree) -> tuple[list[tuple[tuple, Any]], TreeDef]:
     return out, treedef
 
 
+_LEAF, _NONE = TreeDef("leaf"), TreeDef("none")
+
+
 def tree_flatten(tree: PyTree) -> tuple[list, TreeDef]:
-    flat, treedef = flatten_with_path(tree)
-    return [x for _, x in flat], treedef
+    """The leaves in flatten order and the tree's structure (no paths)."""
+    out: list = []
+
+    def walk(node) -> TreeDef:
+        if isinstance(node, dict):
+            keys = tuple(sorted(node))
+            return TreeDef("dict", keys, tuple(walk(node[k]) for k in keys))
+        if isinstance(node, (list, tuple)):
+            return TreeDef("list" if isinstance(node, list) else "tuple", (),
+                           tuple(walk(x) for x in node))
+        if node is None:
+            return _NONE
+        out.append(node)
+        return _LEAF
+
+    treedef = walk(tree)
+    return out, treedef
 
 
 def tree_leaves(tree: PyTree) -> list:

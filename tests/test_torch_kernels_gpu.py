@@ -8,11 +8,21 @@ that has only PyTorch and the CUDA toolkit:
 
 Copies are compared bit for bit (as raw bytes); block_dist within rtol
 1e-4, since its f32 sums run in another order than the plain version's.
+The grouped forms (one launch for a whole tree) run on a tree of ragged,
+single-block, 0-d, bf16, uint8, colocated and odd-offset leaves, and must
+give the same bits on every run.
 """
+import numpy as np
 import pytest
 import torch
 
+from repro_torch.core.blocks import partition_pytree
 from repro_torch.kernels import _build
+from repro_torch.kernels.block_dist.ops import tree_block_dist
+from repro_torch.kernels.block_dist.ref import block_dist_tree_ref
+from repro_torch.kernels.fused_maintain.ops import tree_scatter_save
+from repro_torch.kernels.leaf_table import block_dist_table
+from repro_torch.utils.tree import tree_leaves, tree_map
 from repro_torch.kernels.block_dist.kernel import block_dist_cuda
 from repro_torch.kernels.block_dist.ref import block_dist_ref
 from repro_torch.kernels.fused_maintain.kernel import scatter_save_cuda
@@ -82,3 +92,83 @@ def test_masked_restore_cuda_matches_plain(cuda, dtype, rows, width,
     torch.cuda.synchronize()
     want = masked_restore_ref(dst, src, mask, block_rows)
     assert torch.equal(got.view(torch.uint8), want.view(torch.uint8))
+
+
+def _grouped_tree(seed: int, device) -> dict:
+    """A tree with every case the grouped kernels walk: ragged, single-block
+    and 0-d leaves, bf16 and uint8 ones, CNN-style colocated subtrees, a
+    multi-chunk block (fc: 16 x 3000 values a block) and leaves that are
+    views 4 bytes (f32) and 1 byte (uint8) past an aligned address."""
+    rng = np.random.default_rng(seed)
+    f = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32))
+    net = {"conv": f(37, 3, 4), "bias": f(5), "fc": f(40, 3000)}
+    tree = {"net": net, "mu": {k: f(*v.shape) for k, v in net.items()},
+            "nu": {k: f(*v.shape) for k, v in net.items()},
+            "x": {"big": f(300, 6), "scalar": f(),
+                  "half": f(40, 12).to(torch.bfloat16)}}
+    tree = tree_map(lambda t: t.to(device), tree)
+    odd = torch.zeros((1 + 45 * 3,), device=device)
+    odd[1:] = f(45 * 3).to(device)
+    raw = torch.zeros((1 + 33 * 5,), dtype=torch.uint8, device=device)
+    raw[1:] = torch.from_numpy(rng.integers(0, 256, 33 * 5, dtype=np.uint8)
+                               ).to(device)
+    tree["x"]["odd"] = odd[1:].view(45, 3)
+    tree["x"]["bytes"] = raw[1:].view(33, 5)
+    return tree
+
+
+COLOCATE = ("net", "mu", "nu")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("block_rows", [8, 16])
+def test_block_dist_tree_cuda_matches_plain(cuda, block_rows):
+    a, b = _grouped_tree(3, cuda), _grouped_tree(4, cuda)
+    part = partition_pytree(a, block_rows, colocate=COLOCATE)
+    al, bl = tree_leaves(a), tree_leaves(b)
+    n0 = _build.LAUNCHES["block_dist"]
+    got = tree_block_dist(al, bl, part)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["block_dist"] == n0 + 1      # one call a tree
+    want = block_dist_tree_ref(al, bl, part)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=0)
+    assert torch.equal(got, tree_block_dist(al, bl, part))   # same bits
+    # new tensors at new addresses: the pointer column is uploaded again
+    a2 = tree_map(lambda t: t.clone() * 2, a)
+    want2 = block_dist_tree_ref(tree_leaves(a2), bl, part)
+    got2 = tree_block_dist(tree_leaves(a2), bl, part)
+    torch.testing.assert_close(got2, want2, rtol=1e-4, atol=0)
+    assert torch.equal(tree_block_dist(al, bl, part), got)
+    # another stream gets its own pointer column
+    side = torch.cuda.Stream(cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(side):
+        got3 = tree_block_dist(tree_leaves(a2), bl, part)
+    torch.cuda.synchronize()
+    dev = al[0].device
+    assert set(block_dist_table(part)._on) == {
+        (dev, torch.cuda.default_stream(dev).cuda_stream),
+        (dev, side.cuda_stream)}
+    assert torch.equal(got3, got2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("block_rows", [8, 16])
+def test_scatter_save_tree_cuda_matches_plain(cuda, block_rows):
+    dst, src = _grouped_tree(5, cuda), _grouped_tree(6, cuda)
+    part = partition_pytree(dst, block_rows, colocate=COLOCATE)
+    rng = np.random.default_rng(7)
+    idx = np.union1d(rng.integers(0, part.total_blocks, 9),
+                     [g for l in part.leaves
+                      for g in (l.offset, l.offset + l.n_blocks - 1)])
+    cpu_dst = tree_map(lambda t: t.cpu(), dst)
+    want, want_moved = tree_scatter_save(cpu_dst, tree_map(
+        lambda t: t.cpu(), src), idx, part)
+    n0 = _build.LAUNCHES["scatter_save"]
+    got, moved = tree_scatter_save(dst, src, idx, part)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["scatter_save"] == n0 + 1    # one launch a save
+    assert moved == want_moved
+    for g, w in zip(tree_leaves(got), tree_leaves(want)):
+        assert torch.equal(g.reshape(-1).view(torch.uint8).cpu(),
+                           w.reshape(-1).view(torch.uint8))
