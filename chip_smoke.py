@@ -11,12 +11,16 @@ Phases, each of which fails the run if it fails:
    float32 parameter tree with the leaf shapes of qwen2-1.5b (tied
    embedding, 28 layers; 6,295 blocks of 128 rows), at the shapes the main
    path gives each kernel: block_dist within rtol 1e-4, scatter_save and
-   masked_restore bit-exact. block_dist and scatter_save are checked per
-   leaf and in the grouped form the main path runs (one call over all 338
-   leaves; block_dist bit-identical over two runs; two kernel launches a
-   block_dist call and one a scatter_save call, counted by the profiler),
-   and the grouped call is what their ``ms`` times (the per-leaf list's
-   time, and block_dist's per-leaf plain list's, are kept beside it). Whole-tree times from CUDA events (median of
+   masked_restore bit-exact. block_dist, scatter_save and masked_restore
+   are checked per leaf and in the grouped form the main paths run (one
+   call over all 338 leaves; block_dist bit-identical over two runs; two
+   kernel launches a block_dist call and one a scatter_save or
+   masked_restore call, counted by the profiler; masked_restore also
+   against ``torch.where`` on the block views), and the grouped call is
+   what their ``ms`` times (the per-leaf list's time, and block_dist's
+   per-leaf plain list's, are kept beside it; for masked_restore also the
+   host time of its outputs' allocation, one buffer against one
+   ``empty_like`` a leaf). Whole-tree times from CUDA events (median of
    7, plain and kernel in turns), beside the least time the card could
    take (bytes over 3.35 TB/s; operations over 67 TFLOP/s f32, or, for
    gf256_mac's integer work, over the card's INT32 rate: its SMs x 64
@@ -26,14 +30,18 @@ Phases, each of which fails the run if it fails:
    striping. arena_maintain (parity bit-exact, scores within rtol 1e-4),
    arena_scatter (a seeded 1/8 of the blocks, bit-exact) and parity_xor
    (the whole-arena encode, bit-exact and equal to the sweep's parity),
-   timed as in phase 2.
+   timed as in phase 2. Then masked_restore with this arena as its source
+   (the PEER_REPLICA tier's restore of phase 7's loss): one grouped launch
+   over the touched leaves, the arena read in place, bit-exact against its
+   plain route and timed as in phase 2.
 4. The fabric-less path: ``make_model("mlr")`` at its defaults on
    ``cuda``; ``run_clean``, ``run_with_failure`` with
    ``CheckpointPolicy.scar()`` and ``CheckpointPolicy.traditional()``, the
    Theorem 3.2 bound as the quickstart computes it, and the same SCAR run
    on the CPU to hold the card's losses and iteration cost against. Then
    every kernel against its plain version at the MLR leaves' own shapes,
-   and the grouped block_dist and scatter_save over the whole MLR tree.
+   and the grouped block_dist, scatter_save and masked_restore over the
+   whole MLR tree.
 5. The quickstart path (``examples/quickstart.py`` steps 1-2): MLR with
    n=600, dim=64, 5 classes, batch 200, ``run_with_failure`` with
    ``CheckpointPolicy.scar(0.25, 32)`` and ``fabric=FabricConfig()``, held
@@ -244,9 +252,13 @@ def host_us(fn, calls: int = 300) -> float:
 
 
 def device_ms(fn, calls: int = 10) -> float:
-    """Card milliseconds per call, back to back on one stream."""
-    return statistics.median(cuda_ms(lambda: [fn() for _ in range(calls)],
-                                     runs=3)) / calls
+    """Card milliseconds per call, back to back on one stream. Each call's
+    result is dropped before the next call, as a caller that keeps one
+    output at a time would (ten whole-tree outputs would not fit)."""
+    def calls_in_a_row():
+        for _ in range(calls):
+            fn()
+    return statistics.median(cuda_ms(calls_in_a_row, runs=3)) / calls
 
 
 def device_share(fn) -> dict:
@@ -270,6 +282,19 @@ def device_share(fn) -> dict:
     return {"wall_s": wall, "device_s": device_s,
             "busy_share": device_s / wall if wall > 0 else None,
             "top_device_ms": [[k[:60], us / 1e3] for k, us in top]}
+
+
+def timed_allocs(fn):
+    """Run ``fn`` once between two synchronizes: its result, its wall
+    seconds, and the caching allocator's ``cudaMalloc`` calls and
+    free-and-retry events during it (``torch.cuda.memory_stats``)."""
+    import torch
+    keys = ("num_device_alloc", "num_alloc_retries")
+    before = torch.cuda.memory_stats()
+    out, seconds = _timed(fn)
+    after = torch.cuda.memory_stats()
+    return out, seconds, {k: after.get(k, 0) - before.get(k, 0)
+                          for k in keys}
 
 
 def kernel_launches(fn, name: str) -> tuple[int, float]:
@@ -334,6 +359,7 @@ def phase_kernels(a_tree, b_tree, device) -> dict:
     import numpy as np
     import torch
     from repro_torch.core.blocks import leaf_block_view, partition_pytree
+    from repro_torch.kernels import _build
     from repro_torch.kernels.block_dist.kernel import block_dist_cuda
     from repro_torch.kernels.block_dist.ops import tree_block_dist
     from repro_torch.kernels.block_dist.ref import (block_dist_ref,
@@ -342,8 +368,10 @@ def phase_kernels(a_tree, b_tree, device) -> dict:
         scatter_save_cuda, scatter_save_tree_cuda)
     from repro_torch.kernels.fused_maintain.ops import tree_scatter_save
     from repro_torch.kernels.fused_maintain.ref import scatter_save_ref
-    from repro_torch.kernels.leaf_table import block_dist_table, save_pairs
-    from repro_torch.kernels.masked_restore.kernel import masked_restore_cuda
+    from repro_torch.kernels.leaf_table import (block_dist_table,
+                                                 restore_table, save_pairs)
+    from repro_torch.kernels.masked_restore.kernel import (
+        masked_restore_cuda, masked_restore_tree_cuda)
     from repro_torch.kernels.masked_restore.ref import masked_restore_ref
     from repro_torch.utils.tree import tree_leaves
 
@@ -426,37 +454,86 @@ def phase_kernels(a_tree, b_tree, device) -> dict:
             a_leaves, b_leaves, part), calls=5),
         leaf_host_us=host_us(lambda: block_dist_cuda(sa, sb)))
 
-    # masked_restore on the raw (R, W) rows, as the main path calls it:
-    # bit-exact. Every leaf of this tree fills its blocks, so its block
-    # view is a view, and torch.where on it is the one-call yardstick.
+    # masked_restore on the raw (R, W) rows, bit-exact: per leaf, and in
+    # the grouped form the main paths run (one launch over every leaf,
+    # the mask read at each leaf's global offset), against the per-leaf
+    # plain list and torch.where on the block views. Every leaf of this
+    # tree fills its blocks, so its block view is a view, and torch.where
+    # on it is the one-call yardstick.
     for (dv, sv), m in zip(rows2d, masks):
         check(torch.equal(masked_restore_cuda(dv, sv, m, BLOCK_ROWS),
                           masked_restore_ref(dv, sv, m, BLOCK_ROWS)),
               "masked_restore differs from its plain version")
     check(all(va.data_ptr() == x.data_ptr() for (va, _), x
               in zip(views, a_leaves)), "a block view is a padded copy")
+    gmask = torch.cat(masks)
+    check(gmask.numel() == part.total_blocks, "the leaves' masks do not "
+          "tile the global mask")
+    tree_restore = lambda: masked_restore_tree_cuda(a_leaves, b_leaves,
+                                                    gmask, part)
+    n0 = _build.LAUNCHES["masked_restore"]
+    got = tree_restore()
+    check(_build.LAUNCHES["masked_restore"] == n0 + 1,
+          "the grouped masked_restore call did not make one launch")
+    for g, (dv, sv), (va, vb), m in zip(got, rows2d, views, masks):
+        check(torch.equal(g.reshape(dv.shape),
+                          masked_restore_ref(dv, sv, m, BLOCK_ROWS))
+              and torch.equal(g.reshape(va.shape),
+                              torch.where(m[:, None], vb, va)),
+              "grouped masked_restore differs from its plain version")
+    del got
+    grid, card = kernel_launches(tree_restore, "masked_restore")
+    check(grid == 1, f"a grouped masked_restore call ran {grid} kernels, "
+          f"not 1")
     t = in_turns({
         "plain": lambda: [masked_restore_ref(dv, sv, m, BLOCK_ROWS)
                           for (dv, sv), m in zip(rows2d, masks)],
-        "kernel": lambda: [masked_restore_cuda(dv, sv, m, BLOCK_ROWS)
-                           for (dv, sv), m in zip(rows2d, masks)],
+        "per_leaf": lambda: [masked_restore_cuda(dv, sv, m, BLOCK_ROWS)
+                             for (dv, sv), m in zip(rows2d, masks)],
         "library": lambda: [torch.where(m[:, None], sv, dv)
-                            for (dv, sv), m in zip(views, masks)]})
+                            for (dv, sv), m in zip(views, masks)],
+        "kernel": tree_restore})
     b, by = bound_ms(2 * 4 * n_values + part.total_blocks)
-    results["masked_restore"] = dict(max_abs_err=0.0, ms=t["kernel"],
-                                     plain_ms=t["plain"], bound_ms=b,
-                                     bound_by=by, library_ms=t["library"])
+    table = restore_table(part, tuple(x.dtype for x in a_leaves))
+    results["masked_restore"] = dict(
+        max_abs_err=0.0, ms=t["kernel"], plain_ms=t["plain"], bound_ms=b,
+        bound_by=by, library_ms=t["library"], per_leaf_ms=t["per_leaf"],
+        b2b_ms=device_ms(tree_restore), card_ms=card, grid_launches=grid,
+        work_items=table.n_items)
     (ra, rb), (rsa, rsb) = rows2d[big], rows2d[small]
     bm, sm = masks[big], masks[small]
+    # host time of the whole-tree call (the same leaves, so the pointer
+    # column is uploaded only when the output lands elsewhere; and other
+    # leaves every call), and of its outputs' allocation alone: one buffer
+    # with a typed view a leaf (the route kept) against one empty_like a
+    # leaf, each with the leaves' addresses
+    flip = itertools.cycle([(b_leaves, a_leaves), (a_leaves, b_leaves)])
+
+    def one_buffer():
+        raw = torch.empty((table.out_bytes,), dtype=torch.uint8,
+                          device=device)
+        typed, base = raw.view(torch.float32), raw.data_ptr()
+        return [(typed.as_strided(shape, stride, off // 4), base + off)
+                for shape, stride, off in zip(table.shapes, table.strides,
+                                              table.out_off.tolist())]
+
     results["masked_restore"].update(
         leaf_ms=device_ms(lambda: masked_restore_cuda(ra, rb, bm,
                                                       BLOCK_ROWS)),
         leaf_plain_ms=device_ms(lambda: masked_restore_ref(ra, rb, bm,
                                                            BLOCK_ROWS)),
         leaf_bound_ms=bound_ms(8 * ra.numel() + bm.numel())[0],
-        host_us=host_us(lambda: masked_restore_cuda(rsa, rsb, sm,
-                                                    BLOCK_ROWS)),
-        plain_host_us=host_us(lambda: masked_restore_ref(rsa, rsb, sm,
+        host_us=host_us(tree_restore, calls=20),
+        host_us_new_leaves=host_us(lambda: masked_restore_tree_cuda(
+            *next(flip), gmask, part), calls=20),
+        alloc_us_one_buffer=host_us(one_buffer, calls=20),
+        alloc_us_empty_like=host_us(lambda: [
+            (x, x.data_ptr()) for x in map(torch.empty_like, a_leaves)],
+            calls=20),
+        plain_host_us=host_us(lambda: [
+            masked_restore_ref(dv, sv, m, BLOCK_ROWS)
+            for (dv, sv), m in zip(rows2d, masks)], calls=5),
+        leaf_host_us=host_us(lambda: masked_restore_cuda(rsa, rsb, sm,
                                                          BLOCK_ROWS)))
 
     # scatter_save: bit-exact on copies, per leaf and grouped (the main
@@ -620,12 +697,60 @@ def phase_arena_kernels(a_tree, b_tree, device) -> dict:
     # sweep's parity
     results["parity_xor"] = whole_arena_parity_xor(x, lay, codec, device,
                                                    sweep_parity=par_k)
+    arena_restore_rec = arena_source_restore(b_tree, x, fab)
     for name, r in results.items():
         log(f"{name} (whole arena): kernel {r['ms']:.3f} ms, plain "
             f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
             f"({r['bound_by']}{rate_note(r)}), library none "
             f"({r['library_note']}), max abs err {r['max_abs_err']:.3g}")
+    results["masked_restore_arena"] = arena_restore_rec
     return results
+
+
+def arena_source_restore(dst_tree, arena, fab) -> dict:
+    """The PEER_REPLICA tier's restore from an arena-form replica at full
+    size: ``dst_tree``'s blocks homed on block 0's primary and replica
+    devices (phase 7's loss) taken from ``arena``. One grouped
+    masked_restore launch over the touched leaves, the arena read in
+    place: bit-exact against its plain route (each touched leaf decoded,
+    then ``masked_restore_ref``), then timed as in phase 2."""
+    import numpy as np
+    import torch
+    from repro_torch.core.arena import arena_restore, arena_restore_ref
+    from repro_torch.kernels import _build
+    from repro_torch.utils.tree import tree_leaves
+
+    lay = fab.arena_layout
+    homes = np.unique([fab.view.homes[0], fab.replicas.replica_homes[0]])
+    mask = np.isin(fab.view.homes, homes)
+    restore = lambda: arena_restore(dst_tree, arena, mask, lay)
+    plain = lambda: arena_restore_ref(dst_tree, arena, mask, lay)
+    n0 = _build.LAUNCHES["masked_restore"]
+    got = tree_leaves(restore())
+    check(_build.LAUNCHES["masked_restore"] == n0 + 1,
+          "the arena-source restore did not make one launch")
+    want = tree_leaves(plain())
+    check(all(torch.equal(g.reshape(-1).view(torch.int32),
+                          w.reshape(-1).view(torch.int32))
+              for g, w in zip(got, want)),
+          "the grouped arena restore differs from its plain route")
+    touched = [g for g, x in zip(got, tree_leaves(dst_tree)) if g is not x]
+    n_bytes = sum(g.numel() * g.element_size() for g in touched)
+    n_touched = len(touched)
+    del got, want, touched
+    grid, card = kernel_launches(restore, "masked_restore")
+    check(grid == 1, f"a grouped arena restore ran {grid} kernels, not 1; "
+          f"the profiler saw {json.dumps(device_share(restore))}")
+    t = in_turns({"plain": plain, "kernel": restore})
+    out = {"ms": t["kernel"], "plain_ms": t["plain"], "card_ms": card,
+           "b2b_ms": device_ms(restore), "grid_launches": grid,
+           "blocks": int(mask.sum()), "touched_leaves": n_touched,
+           "touched_bytes": n_bytes,
+           "bound_ms": bound_ms(2 * n_bytes + mask.size)[0],
+           "host_us": host_us(restore, calls=20)}
+    log(f"masked_restore from the arena (PEER_REPLICA, {out['blocks']} "
+        f"blocks): {json.dumps(out)}")
+    return out
 
 
 def rate_note(r: dict) -> str:
@@ -764,10 +889,10 @@ def check_mlr_against_cpu(gpu: dict) -> None:
 
 def check_kernels_on_mlr(model, device) -> None:
     """Each kernel against its plain version at the shapes the MLR path
-    hands it: the whole tree to the grouped block_dist and scatter_save,
-    which the path runs, and, per leaf, the block views and the raw (R, W)
-    rows, at the SCAR policy's block_rows. Seeded random values (the
-    model's init is all zeros)."""
+    hands it: the whole tree to the grouped block_dist, scatter_save and
+    masked_restore, which the path runs, and, per leaf, the block views and
+    the raw (R, W) rows, at the SCAR policy's block_rows. Seeded random
+    values (the model's init is all zeros)."""
     import torch
     from repro_torch.core.blocks import leaf_block_view, partition_pytree
     from repro_torch.core.policy import CheckpointPolicy
@@ -779,7 +904,8 @@ def check_kernels_on_mlr(model, device) -> None:
     from repro_torch.kernels.fused_maintain.kernel import scatter_save_cuda
     from repro_torch.kernels.fused_maintain.ops import tree_scatter_save
     from repro_torch.kernels.fused_maintain.ref import scatter_save_ref
-    from repro_torch.kernels.masked_restore.kernel import masked_restore_cuda
+    from repro_torch.kernels.masked_restore.kernel import (
+        masked_restore_cuda, masked_restore_tree_cuda)
     from repro_torch.kernels.masked_restore.ref import masked_restore_ref
     from repro_torch.utils.tree import tree_leaves
 
@@ -828,6 +954,16 @@ def check_kernels_on_mlr(model, device) -> None:
                                 br)
         check(torch.equal(d.reshape(want.shape), want),
               f"grouped scatter_save differs at {leaf.name}")
+    alt = torch.arange(part.total_blocks, device=device) % 2 == 1
+    for m in (alt, ~alt):
+        for g, x, y, leaf in zip(masked_restore_tree_cuda(bl, al, m, part),
+                                 al, bl, part.leaves):
+            want = masked_restore_ref(
+                y.reshape(leaf.rows, leaf.row_width),
+                x.reshape(leaf.rows, leaf.row_width),
+                m[leaf.offset:leaf.offset + leaf.n_blocks], br)
+            check(torch.equal(g.reshape(want.shape), want),
+                  f"grouped masked_restore differs at {leaf.name}")
     log(f"kernels agree with their plain versions on the MLR leaves "
         f"(block_rows {br}; grouped forms over the whole tree too): "
         f"{'; '.join(seen)}")
@@ -968,11 +1104,8 @@ def phase_controller(tree, device) -> dict:
     log(f"one PRIORITY save at 1.54 B under the profiler: "
         f"{json.dumps(profiled)}")
     lost = ctl.sample_failure(0.5)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    recovered, info = ctl.on_failure(tree, lost, step=steps)
-    torch.cuda.synchronize()
-    recovery_s = time.perf_counter() - t0
+    (recovered, info), recovery_s, allocs = timed_allocs(
+        lambda: ctl.on_failure(tree, lost, step=steps))
     masks = [lost[l.offset:l.offset + l.n_blocks] for l in part.leaves]
     for x, z, r, m, leaf in zip(tree_leaves(tree), tree_leaves(ctl.ckpt.values),
                                 tree_leaves(recovered), masks, part.leaves):
@@ -986,8 +1119,8 @@ def phase_controller(tree, device) -> dict:
     out = {"saves": ctl.stats["saves"],
            "save_seconds": ctl.stats["save_seconds"],
            "save_bytes_moved": ctl.stats["save_bytes_moved"],
-           "recovery_seconds": recovery_s, "blocks_per_save": k,
-           "lost_blocks": info["lost_blocks"],
+           "recovery_seconds": recovery_s, "recovery_allocs": allocs,
+           "blocks_per_save": k, "lost_blocks": info["lost_blocks"],
            "applied_sq": info["applied_sq"], "full_sq": info["full_sq"],
            "profiled_save": profiled}
     log(f"controller at 1.54 B values: {json.dumps(out)}")
@@ -1064,11 +1197,7 @@ def phase_fabric(tree, device) -> dict:
     def recover():
         return ctl.on_failure(tree, lost, failed_devices=failed, step=steps)
 
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    recovered, info = recover()
-    torch.cuda.synchronize()
-    recovery_s = time.perf_counter() - t0
+    (recovered, info), recovery_s, allocs = timed_allocs(recover)
     # the same recovery again (the view keeps no failure: elastic is off),
     # once under the profiler and once under cProfile for the host's share
     profiled_recovery = device_share(recover)
@@ -1094,7 +1223,8 @@ def phase_fabric(tree, device) -> dict:
                   f"live value")
     out = {"setup_seconds": setup_s,
            "maintain_seconds": maint_s, "save_seconds": save_s,
-           "recovery_seconds": recovery_s, "blocks_per_save": k,
+           "recovery_seconds": recovery_s, "recovery_allocs": allocs,
+           "blocks_per_save": k,
            "save_bytes_moved": ctl.stats["save_bytes_moved"],
            "maintain_bytes_moved": fab.stats["maintain_bytes_moved"],
            "failed_devices": failed.tolist(),
@@ -1518,12 +1648,8 @@ def phase_rs_fabric(tree, device) -> dict:
             pair = (h0, h1)
             break
     check(pair is not None, "no host pair erases two members of a group")
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    recovered, info = ctl.on_failure(tree, lost, failed_devices=failed,
-                                     step=steps)
-    torch.cuda.synchronize()
-    recovery_s = time.perf_counter() - t0
+    (recovered, info), recovery_s, allocs = timed_allocs(
+        lambda: ctl.on_failure(tree, lost, failed_devices=failed, step=steps))
     counts = info["tier_counts"]
     check(counts == plan.counts, "the recovery did not follow its plan")
     check(info["tier_sq"]["PARITY"] == 0.0
@@ -1549,7 +1675,8 @@ def phase_rs_fabric(tree, device) -> dict:
     out = {"setup_seconds": setup_s, "maintain_seconds": maint_s,
            "save_seconds": save_s, "clean_scrub_seconds": clean_s,
            "flip_scrub_seconds": flip_s, "flip": where,
-           "recovery_seconds": recovery_s, "hosts": list(pair),
+           "recovery_seconds": recovery_s, "recovery_allocs": allocs,
+           "hosts": list(pair),
            "failed_devices": failed.tolist(),
            "lost_blocks": info["lost_blocks"], "tier_counts": counts,
            "xor_tier_counts": xor_counts, "tier_sq": info["tier_sq"],
@@ -1585,12 +1712,8 @@ def phase_leaf_fabric(tree, device) -> dict:
                                    fab.replicas.replica_homes[0]], np.int32))
     lost = np.isin(fab.view.homes, failed)
     plan = fab.planner.plan(lost, failed, steps)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    recovered, info = ctl.on_failure(tree, lost, failed_devices=failed,
-                                     step=steps)
-    torch.cuda.synchronize()
-    recovery_s = time.perf_counter() - t0
+    (recovered, info), recovery_s, allocs = timed_allocs(
+        lambda: ctl.on_failure(tree, lost, failed_devices=failed, step=steps))
     counts = info["tier_counts"]
     check(counts == plan.counts, "the recovery did not follow its plan")
     check(counts["PARITY"] > 0, f"no block went to the PARITY tier: {counts}")
@@ -1599,7 +1722,8 @@ def phase_leaf_fabric(tree, device) -> dict:
           f"live-value tiers perturbed the state: {info['tier_sq']}")
     _check_live_tiers(tree, recovered, plan, part, device)
     out = {"maintain_seconds": maint_s, "save_seconds": save_s,
-           "recovery_seconds": recovery_s, "failed_devices": failed.tolist(),
+           "recovery_seconds": recovery_s, "recovery_allocs": allocs,
+           "failed_devices": failed.tolist(),
            "lost_blocks": info["lost_blocks"], "tier_counts": counts,
            "parity_groups": fab.parity.n_groups,
            "maintain_bytes_moved": fab.stats["maintain_bytes_moved"],
@@ -2308,10 +2432,12 @@ def main(argv: list) -> int:
             "fabric_stats": quick["fabric_stats"]},
         "per_call": {name: {k: r[k] for k in (
             "leaf_ms", "leaf_plain_ms", "leaf_bound_ms", "host_us",
-            "host_us_new_leaves", "plain_host_us", "leaf_host_us",
+            "host_us_new_leaves", "alloc_us_one_buffer",
+            "alloc_us_empty_like", "plain_host_us", "leaf_host_us",
             "per_leaf_ms", "per_leaf_plain_ms", "b2b_ms", "card_ms", "grid_launches", "work_items",
             "pairs")
             if k in r} for name, r in kernels.items() if "leaf_ms" in r},
+        "masked_restore_arena": kernels["masked_restore_arena"],
         "scatter_save_moved_bytes": kernels["scatter_save"]["moved_bytes"],
         "arena_scatter_moved_bytes": kernels["arena_scatter"]["moved_bytes"],
         "arena_maintain_dest_tiles": kernels["arena_maintain"]["dest_tiles"]}))

@@ -44,6 +44,7 @@ import torch
 from repro_torch.core.blocks import (WORD_DTYPE_NAMES, BlockPartition,
                                      decode_block_words, leaf_block_words,
                                      leaf_word_width, word_packable)
+from repro_torch.kernels.leaf_table import leaf_arrays
 from repro_torch.utils.tree import tree_leaves, tree_unflatten
 
 PyTree = Any
@@ -358,16 +359,79 @@ def arena_drift_scores(live: torch.Tensor, ref: torch.Tensor,
 
 def arena_restore(dst: PyTree, arena: torch.Tensor, global_mask,
                   layout: ArenaLayout) -> PyTree:
-    """Overwrite the masked blocks of ``dst`` from the arena: each touched
-    leaf decodes one contiguous arena slice and goes through the
-    masked_restore kernel (its plain version on the CPU); untouched leaves
-    pass through as the same tensors. Returns a new tree."""
-    from repro_torch.kernels.masked_restore.ops import masked_restore
+    """Overwrite the masked blocks of ``dst`` from the arena; untouched
+    leaves pass through as the same tensors. Returns a new tree.
+
+    On CUDA one grouped masked_restore launch restores every touched leaf
+    (:func:`arena_sources` says where each reads); on the CPU its plain
+    version runs leaf by leaf (:func:`arena_restore_ref`)."""
+    if arena.device.type == "cpu":
+        return arena_restore_ref(dst, arena, global_mask, layout)
+    from repro_torch.kernels.masked_restore.kernel import \
+        masked_restore_tree_cuda
+    part = layout.partition
+    mask = np.array(global_mask, bool)
+    leaves = tree_leaves(dst)
+    touched = touched_leaves(mask, part)
+    # the mask goes up from page-locked memory without waiting: a pageable
+    # copy would hold the host until the card had drained its stream
+    dev_mask = torch.from_numpy(mask).pin_memory().to(arena.device,
+                                                      non_blocking=True)
+    out = masked_restore_tree_cuda(
+        leaves, arena_sources(leaves, arena, touched, layout), dev_mask,
+        part, touched)
+    return tree_unflatten(part.treedef, [x if r is None else r
+                                         for x, r in zip(leaves, out)])
+
+
+def touched_leaves(mask: np.ndarray, partition: BlockPartition) -> np.ndarray:
+    """Indices of the leaves that hold a block of the (total_blocks,) bool
+    ``mask``, from one cumulative sum."""
+    if mask.shape != (partition.total_blocks,):
+        raise ValueError(f"need a ({partition.total_blocks},) mask, got "
+                         f"{mask.shape}")
+    g = leaf_arrays(partition)
+    seen = np.concatenate([[0], np.cumsum(mask, dtype=np.int64)])
+    return np.flatnonzero(seen[g.offset + g.n_blocks] > seen[g.offset])
+
+
+def arena_sources(leaves: list, arena: torch.Tensor, touched: np.ndarray,
+                  layout: ArenaLayout) -> list:
+    """Where the grouped restore reads each touched leaf (None for the
+    rest): its segments in the arena, read in place as an ``(address,
+    pitch)`` pair, where dst has the leaf's own dtype (a word-packable
+    leaf's segment holds its values' bytes in order from the segment's
+    start, so the segments' pitch is its block pitch); else the decoded
+    leaf, converted to dst's dtype."""
+    if arena.dtype != torch.int32 or not arena.is_contiguous() \
+            or arena.numel() != layout.total_words:
+        raise ValueError(f"need a contiguous ({layout.total_words},) int32 "
+                         f"arena, got {tuple(arena.shape)} {arena.dtype}")
+    if touched.size and leaves[touched[0]].device != arena.device:
+        raise ValueError(f"leaves on {leaves[touched[0]].device}, the arena "
+                         f"on {arena.device}")
+    part = layout.partition
+    base = arena.data_ptr()
+    srcs = [None] * len(leaves)
+    for li in touched.tolist():
+        leaf, x = part.leaves[li], leaves[li]
+        if x.dtype == leaf.dtype and word_packable(leaf.dtype):
+            srcs[li] = (base + 4 * layout.leaf_offset[li],
+                        4 * layout.seg_words[li])
+        else:
+            srcs[li] = _decode_leaf(arena, layout, li).to(x.dtype)
+    return srcs
+
+
+def arena_restore_ref(dst: PyTree, arena: torch.Tensor, global_mask,
+                      layout: ArenaLayout) -> PyTree:
+    """:func:`arena_restore`'s plain version: each touched leaf decoded from
+    its contiguous arena slice and selected with ``masked_restore_ref``."""
+    from repro_torch.kernels.masked_restore.ref import masked_restore_ref
     part = layout.partition
     mask = np.asarray(global_mask, bool)
     out = []
-    leaves = tree_leaves(dst)
-    for li, (x, leaf) in enumerate(zip(leaves, part.leaves)):
+    for li, (x, leaf) in enumerate(zip(tree_leaves(dst), part.leaves)):
         seg = mask[leaf.offset:leaf.offset + leaf.n_blocks]
         if not seg.any():
             out.append(x)
@@ -375,7 +439,7 @@ def arena_restore(dst: PyTree, arena: torch.Tensor, global_mask,
         shape2d = (max(leaf.rows, 1), max(leaf.row_width, 1))
         decoded = _decode_leaf(arena, layout, li).to(x.dtype)
         m = torch.from_numpy(seg.copy()).to(x.device)
-        r = masked_restore(x.reshape(shape2d), decoded.reshape(shape2d), m,
-                           part.block_rows)
+        r = masked_restore_ref(x.reshape(shape2d), decoded.reshape(shape2d),
+                               m, part.block_rows)
         out.append(r.reshape(leaf.shape))
     return tree_unflatten(part.treedef, out)

@@ -41,8 +41,7 @@ import torch
 
 from repro_torch.core.arena import (arena_drift_scores, as_live_arena,
                                     pack_arena, unpack_arena)
-from repro_torch.core.blocks import (block_scores, partition_pytree,
-                                     tree_sq_norm)
+from repro_torch.core.blocks import block_scores, partition_pytree
 from repro_torch.core.checkpoint import (RunningCheckpoint, full_save,
                                          init_running_checkpoint, save_step,
                                          select_save_mask, top_k_indices)
@@ -53,6 +52,7 @@ from repro_torch.core.recovery import (apply_failure_and_recover,
                                        perturbation_norms,
                                        sample_failure_mask)
 from repro_torch.device import DeviceLike, resolve_device, synchronize
+from repro_torch.kernels.block_dist.ops import tree_block_scores
 from repro_torch.kernels.fused_maintain.ops import (arena_scatter_save,
                                                     tree_scatter_save)
 from repro_torch.telemetry.recorder import NULL_RECORDER
@@ -481,7 +481,8 @@ class FTController:
             recovered, tier_info = self.fabric.on_failure(
                 params, ckpt.values, lost, failed_devices=failed_devices,
                 step=step, persist_failure=persist_failure)
-            info["applied_sq"] = tree_sq_norm(recovered, params)
+            info["applied_sq"] = tree_block_scores(
+                recovered, params, self.partition).sum()
             info["lost_blocks"] = int(lost.sum())
             info.update(tier_info)
             self.stats["events"].append({

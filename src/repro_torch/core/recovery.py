@@ -20,10 +20,11 @@ from typing import Any
 
 import torch
 
-from repro_torch.core.blocks import (BlockPartition, masked_sq_norm,
-                                     select_blocks, tree_sq_norm)
+from repro_torch.core.blocks import (BlockPartition, masked_total,
+                                     select_blocks)
 from repro_torch.core.checkpoint import RunningCheckpoint, clone_tree
 from repro_torch.core.policy import RecoveryMode
+from repro_torch.kernels.block_dist.ops import tree_block_scores
 
 PyTree = Any
 
@@ -51,10 +52,12 @@ def recover(params: PyTree, ckpt: RunningCheckpoint, lost_mask: torch.Tensor,
 def perturbation_norms(params: PyTree, ckpt: RunningCheckpoint,
                        lost_mask: torch.Tensor, partition: BlockPartition,
                        ) -> dict[str, torch.Tensor]:
-    """||δ||² (full recovery) and ||δ'||² (partial) for this failure."""
-    full_sq = tree_sq_norm(ckpt.values, params)
-    part_sq = masked_sq_norm(ckpt.values, params, lost_mask, partition)
-    return {"full_sq": full_sq, "partial_sq": part_sq}
+    """||δ||² (full recovery) and ||δ'||² (partial) for this failure: the
+    sum and the masked sum of one pass of per-block distances (one grouped
+    block_dist call on the card)."""
+    per_block = tree_block_scores(ckpt.values, params, partition)
+    return {"full_sq": per_block.sum(),
+            "partial_sq": masked_total(per_block, lost_mask)}
 
 
 def apply_failure_and_recover(params: PyTree, ckpt: RunningCheckpoint,
@@ -67,6 +70,7 @@ def apply_failure_and_recover(params: PyTree, ckpt: RunningCheckpoint,
     """
     info = perturbation_norms(params, ckpt, lost_mask, partition)
     recovered = recover(params, ckpt, lost_mask, mode, partition)
-    info["applied_sq"] = tree_sq_norm(recovered, params)
+    info["applied_sq"] = tree_block_scores(recovered, params,
+                                           partition).sum()
     info["lost_blocks"] = torch.sum(lost_mask.to(torch.int64))
     return recovered, info

@@ -21,6 +21,28 @@
 // three bases are 16-byte aligned. Bytes are copied as they are, so every
 // 1/2/4/8-byte dtype is bit-exact. The output is a new buffer, as in the
 // reference.
+//
+// Grouped form (masked_restore_tree_bytes), the one the main paths run: one
+// launch restores every leaf of a tree, in place of one wrapper call and
+// one launch per leaf. Two tables in device memory
+// (repro_torch/kernels/leaf_table.py):
+//   geom[5 l .. 5 l + 4]  item_start, chunks per block, block_bytes,
+//                         total_bytes and the global mask offset of leaf l
+//                         (static per partition and leaf dtypes);
+//   ptrs[4 l .. 4 l + 3]  dst, src and out base addresses and src's block
+//                         pitch in bytes (per call; out = 0 leaves leaf l
+//                         untouched).
+// item_leaf[g] is the leaf of work item g (one CTA): chunk c of block k,
+// g - item_start = k * chunks + c. The CTA reads its block's mask bit at
+// mask[offset + k] (colocated leaves share offsets, so they read the bits
+// of the blocks they share), then copies bytes [c * kCopyChunk, +
+// kCopyChunk) of the block -- clamped to the leaf's total -- from src (at
+// k * pitch: the block pitch for a tree, the segment pitch for an arena
+// read in place) or from dst (at k * block_bytes). The carrier (16/8/4/2/1
+// bytes) is the widest that divides the output's and the chosen side's
+// block addresses and the block's length, decided on the card per item, so
+// views at odd offsets stay bit-exact and aligned leaves keep 16-byte
+// accesses.
 #include "byte_copy.cuh"
 
 namespace {
@@ -51,6 +73,40 @@ void launch(const uint8_t* dst, const uint8_t* src, const bool* mask, uint8_t* o
       dst, src, mask, out, block_bytes, total_bytes);
 }
 
+// Grouped form, grid: (n_items). See the note at the top.
+__global__ void __launch_bounds__(kCopyThreads)
+masked_restore_tree_kernel(const int64_t* __restrict__ geom, const int64_t* __restrict__ ptrs,
+                           const int32_t* __restrict__ item_leaf,
+                           const bool* __restrict__ mask) {
+  const int64_t g = blockIdx.x;
+  const int64_t leaf = item_leaf[g];
+  const int64_t* lg = geom + 5 * leaf;
+  const int64_t* lp = ptrs + 4 * leaf;
+  uint8_t* out = reinterpret_cast<uint8_t*>(lp[2]);
+  if (out == nullptr) return;
+  const int64_t chunks = lg[1], block_bytes = lg[2];
+  const int64_t local = g - lg[0];
+  const int64_t k = local / chunks;
+  const int64_t block_lo = k * block_bytes;
+  const int64_t len = imin(block_bytes, lg[3] - block_lo);
+  const int64_t lo = (local - k * chunks) * kCopyChunk;
+  const int64_t hi = imin(lo + kCopyChunk, len);
+  if (lo >= hi) return;
+  const uint8_t* from = mask[lg[4] + k]
+                            ? reinterpret_cast<const uint8_t*>(lp[1]) + k * lp[3]
+                            : reinterpret_cast<const uint8_t*>(lp[0]) + block_lo;
+  out += block_lo;
+  const uint64_t bits = reinterpret_cast<uintptr_t>(out) | reinterpret_cast<uintptr_t>(from) |
+                        static_cast<uint64_t>(len) | 16u;
+  switch (bits & (~bits + 1)) {   // the lowest set bit: the carrier's width
+    case 16: copy_bytes<uint4>(out, from, lo, hi); break;
+    case 8: copy_bytes<uint2>(out, from, lo, hi); break;
+    case 4: copy_bytes<uint32_t>(out, from, lo, hi); break;
+    case 2: copy_bytes<uint16_t>(out, from, lo, hi); break;
+    default: copy_bytes<uint8_t>(out, from, lo, hi); break;
+  }
+}
+
 }  // namespace
 
 // dst, src, out: the leaf's bytes (total_bytes each); mask: one bool per
@@ -76,5 +132,17 @@ extern "C" int masked_restore_bytes(const void* dst, const void* src, const bool
     case 2: launch<uint16_t>(d, s, mask, o, n_blocks, block_bytes, total_bytes, stream); break;
     default: launch<uint8_t>(d, s, mask, o, n_blocks, block_bytes, total_bytes, stream); break;
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The grouped form over a whole tree (tables as in the note at the top, on
+// the device; mask: one bool per global block). Returns cudaGetLastError()
+// after the launch.
+extern "C" int masked_restore_tree_bytes(const int64_t* geom, const int64_t* ptrs,
+                                         const int32_t* item_leaf, int64_t n_items,
+                                         const bool* mask, cudaStream_t stream) {
+  if (n_items <= 0) return 0;
+  masked_restore_tree_kernel<<<static_cast<unsigned>(n_items), kCopyThreads, 0, stream>>>(
+      geom, ptrs, item_leaf, mask);
   return static_cast<int>(cudaGetLastError());
 }

@@ -56,6 +56,7 @@ _SIGNATURES = {
     "scatter_save_bytes": ([_P, _P, _P, _I64, _I64, _I64, _P], ctypes.c_int),
     "scatter_save_tree_bytes": ([_P, _P, _P, _I64, _P], ctypes.c_int),
     "masked_restore_bytes": ([_P, _P, _P, _P, _I64, _I64, _P], ctypes.c_int),
+    "masked_restore_tree_bytes": ([_P, _P, _P, _I64, _P, _P], ctypes.c_int),
     "arena_maintain": ([_P] * 13 + [_I64] + [_P] * 3 + [_I64, _I64]
                        + [_P] * 4 + [_I64, _P], ctypes.c_int),
     "arena_scatter": ([_P] * 6 + [_I64, _P], ctypes.c_int),

@@ -1,4 +1,5 @@
-"""Leaf tables of the grouped whole-tree kernels (block_dist, scatter_save).
+"""Leaf tables of the grouped whole-tree kernels (block_dist, scatter_save,
+masked_restore).
 
 A tree of L leaves costs the per-leaf kernels L wrapper calls and L
 launches; the grouped kernels walk a table of the leaves in device memory
@@ -12,6 +13,9 @@ reach all of it) and stages them to the card:
 - :func:`save_pairs` and :func:`scatter_table`: scatter_save's selected
   (leaf, block) pairs and its table of leaves, pairs and work items, built
   anew for every save;
+- :class:`RestoreTable`: masked_restore's work list, static per partition
+  and leaf dtypes (:func:`restore_table`), and :func:`restore_call`, one
+  restore's pointer column and output tensors;
 - :func:`upload`: host-to-device copies of small int64 tables from
   page-locked buffers on the current stream.
 
@@ -22,7 +26,7 @@ from __future__ import annotations
 
 import dataclasses
 import weakref
-from typing import TYPE_CHECKING, Callable, Optional
+from typing import TYPE_CHECKING, Callable, Hashable, Optional
 
 import numpy as np
 import torch
@@ -33,7 +37,7 @@ if TYPE_CHECKING:   # core.blocks imports the block_dist ops, and so this
     from repro_torch.core.blocks import BlockPartition
 
 BLOCK_DIST_CHUNK = 8192                    # elements per pass-1 CTA
-COPY_CHUNK_BYTES = _build.COPY_CHUNK_BYTES  # bytes per scatter_save CTA
+COPY_CHUNK_BYTES = _build.COPY_CHUNK_BYTES  # bytes per byte-copy CTA
 MAX_ITEMS = 2**31 - 1                      # gridDim.x
 
 
@@ -42,7 +46,7 @@ MAX_ITEMS = 2**31 - 1                      # gridDim.x
 _PER_PARTITION: dict[int, dict] = {}
 
 
-def per_partition(partition: BlockPartition, key: str,
+def per_partition(partition: BlockPartition, key: Hashable,
                   make: Callable[[], object]):
     """``make()``, built once per partition object and ``key``."""
     memo = _PER_PARTITION.get(id(partition))
@@ -76,6 +80,28 @@ def leaf_arrays(partition: BlockPartition) -> LeafArrays:
             itemsize=np.array([l.dtype.itemsize for l in ls], np.int64),
             numel=[l.rows * l.row_width for l in ls])
     return per_partition(partition, "leaf_arrays", make)
+
+
+def _pack(parts: dict) -> tuple[np.ndarray, dict]:
+    """int64 arrays as one flat int64 array, and each one's offset in it
+    (in elements)."""
+    offsets, at = {}, 0
+    for name, a in parts.items():
+        offsets[name] = at
+        at += a.size
+    return (np.concatenate([a.ravel() for a in parts.values()])
+            .astype(np.int64), offsets)
+
+
+def _int32_pairs(a: np.ndarray) -> np.ndarray:
+    """An int32 list as int64 elements, two to an element (zero-padded)."""
+    out = np.zeros((-(-a.size // 2) * 2,), np.int32)
+    out[:a.size] = a
+    return out.view(np.int64)
+
+
+def _stream_key(device: torch.device) -> tuple:
+    return device, torch.cuda.current_stream(device).cuda_stream
 
 
 # ---------------------------------------------------------------------------
@@ -119,25 +145,19 @@ class BlockDistTable:
         it, in elements: ``geom`` (L x 4: item_start, cpb, block_elems,
         numel), ``segs`` (n_segs x 2: first, count), ``seg_start`` and
         ``item_leaf`` (int32, two to an element)."""
-        geom = np.stack([self.item_start, self.cpb, self.block_elems,
-                         np.asarray(self.numel, np.int64)], 1).ravel()
-        segs = np.stack([self.seg_first, self.seg_count], 1).ravel()
-        items = np.zeros((-(-self.n_items // 2) * 2,), np.int32)
-        items[:self.n_items] = self.item_leaf
-        parts = {"geom": geom, "segs": segs, "seg_start": self.seg_start,
-                 "item_leaf": items.view(np.int64)}
-        offsets, at = {}, 0
-        for name, a in parts.items():
-            offsets[name] = at
-            at += a.size
-        return np.concatenate(list(parts.values())).astype(np.int64), offsets
+        return _pack({
+            "geom": np.stack([self.item_start, self.cpb, self.block_elems,
+                              np.asarray(self.numel, np.int64)], 1),
+            "segs": np.stack([self.seg_first, self.seg_count], 1),
+            "seg_start": self.seg_start,
+            "item_leaf": _int32_pairs(self.item_leaf)})
 
     def on(self, device: torch.device) -> "BlockDistDevice":
         """The tables on ``device`` for the current stream there, uploaded
         on first use: each stream has its own pointer column, so a call
         never rewrites one that a launch queued on another stream still
         reads."""
-        key = (device, torch.cuda.current_stream(device).cuda_stream)
+        key = _stream_key(device)
         d = self._on.get(key)
         if d is None:
             flat, off = self.packed()
@@ -325,13 +345,212 @@ def scatter_table(dst_leaves: list, src_leaves: list, leaf: np.ndarray,
         rows[t, 3] = g.rows[t] * g.row_width[t] * c[:, 2]
     pairs, item_pair = scatter_items(rows[:, 2], rows[:, 3], leaf, block,
                                      chunk)
-    items = np.zeros((-(-item_pair.size // 2) * 2,), np.int32)
-    items[:item_pair.size] = item_pair
     return ScatterTable(
         table=np.concatenate([rows.ravel(), pairs.ravel(),
-                              items.view(np.int64)]),
+                              _int32_pairs(item_pair)]),
         pairs_at=rows.size, items_at=rows.size + pairs.size,
         n_items=item_pair.size, keep=keep)
+
+
+# ---------------------------------------------------------------------------
+# masked_restore
+# ---------------------------------------------------------------------------
+
+OUT_ALIGN = 256     # bytes: each leaf's slot in a grouped restore's output
+
+
+@dataclasses.dataclass(eq=False)
+class RestoreTable:
+    """masked_restore's grouped work over one partition whose leaves have
+    the dtypes ``dtypes`` (numpy).
+
+    Leaf ``l`` is ``total_bytes[l]`` bytes. Its block ``k`` is bytes ``[k
+    * block_bytes[l], min((k + 1) * block_bytes[l], total_bytes[l]))`` of
+    dst and of the output (a single-block leaf is one block of all its
+    bytes), and as many bytes from ``k * pitch`` of its source, the pitch
+    given per call. Work item ``g`` (one CTA) is chunk ``c`` of ``chunk``
+    bytes of block ``k`` of leaf ``item_leaf[g]``, where ``g -
+    item_start[l] = k * cpb[l] + c``; a ragged last block's surplus items
+    copy nothing. Block ``k`` comes from the source where ``mask[mask_off[l]
+    + k]``: the leaf's global block offset, so colocated leaves read the
+    bits of the blocks they share. A restore of every leaf writes leaf
+    ``l`` at byte ``out_off[l]`` of one ``out_bytes`` buffer, each slot
+    ``OUT_ALIGN``-aligned.
+    """
+    chunk: int
+    total_blocks: int
+    n_items: int
+    dtypes: tuple
+    shapes: tuple
+    strides: tuple           # contiguous strides of each leaf's shape
+    numel: list              # per leaf, as Python ints (checked per call)
+    itemsize: list
+    pitch: list              # block_bytes as Python ints (a tensor's)
+    item_start: np.ndarray   # int64 (L,)
+    cpb: np.ndarray
+    block_bytes: np.ndarray
+    total_bytes: np.ndarray
+    mask_off: np.ndarray
+    item_leaf: np.ndarray    # int32 (n_items,)
+    slot: np.ndarray         # int64 (L,) bytes of each leaf's output slot
+    out_off: np.ndarray
+    out_bytes: int
+    _on: dict = dataclasses.field(default_factory=dict, repr=False)
+
+    @property
+    def n_leaves(self) -> int:
+        return len(self.numel)
+
+    def on(self, device: torch.device) -> "RestoreDevice":
+        """The static tables on ``device`` (uploaded on first use) and the
+        current stream's pointer column there."""
+        key = _stream_key(device)
+        d = self._on.get(key)
+        if d is None:
+            flat, off = _pack({
+                "geom": np.stack([self.item_start, self.cpb,
+                                  self.block_bytes, self.total_bytes,
+                                  self.mask_off], 1),
+                "item_leaf": _int32_pairs(self.item_leaf)})
+            t = torch.from_numpy(flat).to(device)
+            d = RestoreDevice(
+                tables=t, geom=t.data_ptr() + 8 * off["geom"],
+                item_leaf=t.data_ptr() + 8 * off["item_leaf"],
+                ptrs=torch.zeros((4 * self.n_leaves,), dtype=torch.int64,
+                                 device=device))
+            self._on[key] = d
+        return d
+
+
+@dataclasses.dataclass(eq=False)
+class RestoreDevice:
+    """A :class:`RestoreTable` on one device and stream: the static tables'
+    addresses (into ``tables``, kept alive here) and the pointer column
+    with the values it was last given."""
+    tables: torch.Tensor
+    geom: int
+    item_leaf: int
+    ptrs: torch.Tensor
+    last: Optional[list] = None
+
+
+def restore_table(partition: BlockPartition, dtypes: tuple,
+                  chunk: int = COPY_CHUNK_BYTES) -> RestoreTable:
+    """The grouped masked_restore table of ``partition`` for leaves of
+    ``dtypes`` (built once per partition and dtypes for the kernel's own
+    chunk size)."""
+    if chunk == COPY_CHUNK_BYTES:
+        return per_partition(partition, ("masked_restore", dtypes),
+                             lambda: _restore_table(partition, dtypes, chunk))
+    return _restore_table(partition, dtypes, chunk)
+
+
+def _contiguous_strides(shape: tuple) -> tuple:
+    out, step = [], 1
+    for n in reversed(shape):
+        out.append(step)
+        step *= max(n, 1)
+    return tuple(reversed(out))
+
+
+def _restore_table(partition: BlockPartition, dtypes: tuple,
+                   chunk: int) -> RestoreTable:
+    g = leaf_arrays(partition)
+    if len(dtypes) != len(g.numel):
+        raise ValueError(f"need {len(g.numel)} leaf dtypes, got "
+                         f"{len(dtypes)}")
+    itemsize = [dt.itemsize for dt in dtypes]
+    total = np.asarray(g.numel, np.int64) * np.asarray(itemsize, np.int64)
+    block = np.where(g.n_blocks == 1, total,
+                     partition.block_rows * g.row_width
+                     * np.asarray(itemsize, np.int64))
+    cpb = -(-block // chunk)
+    items = g.n_blocks * cpb
+    n_items = int(items.sum())
+    if n_items > MAX_ITEMS:
+        raise ValueError(f"{n_items} masked_restore work items exceed the "
+                         f"grid")
+    slot = -(-total // OUT_ALIGN) * OUT_ALIGN
+    shapes = tuple(l.shape for l in partition.leaves)
+    return RestoreTable(
+        chunk=chunk, total_blocks=partition.total_blocks, n_items=n_items,
+        dtypes=tuple(dtypes), shapes=shapes,
+        strides=tuple(_contiguous_strides(s) for s in shapes),
+        numel=g.numel, itemsize=itemsize, pitch=block.tolist(),
+        item_start=np.cumsum(items) - items, cpb=cpb, block_bytes=block,
+        total_bytes=total, mask_off=g.offset,
+        item_leaf=np.repeat(np.arange(len(g.numel), dtype=np.int32), items),
+        slot=slot, out_off=np.cumsum(slot) - slot, out_bytes=int(slot.sum()))
+
+
+@dataclasses.dataclass(eq=False)
+class RestoreCall:
+    """One grouped restore: its pointer column (four int64 a leaf: dst,
+    src and output base addresses, and the source's block pitch in bytes;
+    zeros for a leaf left out), its output tensors (None for a leaf left
+    out), and the copies the column points at, to keep alive until the
+    launch is queued."""
+    column: list
+    out: list
+    keep: list
+
+
+def restore_call(dst_leaves: list, src_leaves: list, table: RestoreTable,
+                 touched: Optional[np.ndarray] = None) -> RestoreCall:
+    """The column and outputs of a restore of the leaves ``touched`` (every
+    leaf when None). ``src_leaves[l]`` is a tensor of leaf ``l``'s values,
+    read with its block pitch, or an ``(address, pitch)`` pair read in
+    place (a leaf's segments in an arena). Every touched dst leaf must lie
+    on the first one's device, have the table's dtype and hold its leaf's
+    number of values, and so must a src tensor, which is read from a copy
+    where it is not a contiguous tensor of dst's dtype (a dst that is not
+    contiguous from a contiguous copy). The outputs are views of one new
+    buffer, each leaf contiguous at an ``OUT_ALIGN``-aligned offset."""
+    n = table.n_leaves
+    if len(dst_leaves) != n or len(src_leaves) != n:
+        raise ValueError(f"need {n} leaves per tree, got {len(dst_leaves)} "
+                         f"and {len(src_leaves)}")
+    if touched is None:
+        idx, off, total = range(n), table.out_off, table.out_bytes
+    else:
+        idx = touched.tolist()
+        slot = table.slot[touched]
+        off, total = np.cumsum(slot) - slot, int(slot.sum())
+    column, out, keep = [0] * (4 * n), [None] * n, []
+    if not len(idx):
+        return RestoreCall(column, out, keep)
+    first = dst_leaves[idx[0]]
+    dev = first.get_device()
+    raw = torch.empty((total,), dtype=torch.uint8, device=first.device)
+    base = raw.data_ptr()
+    typed = {}
+    for l, o in zip(idx, off.tolist()):
+        d, s, nv, dt = dst_leaves[l], src_leaves[l], table.numel[l], \
+            table.dtypes[l]
+        if d.get_device() != dev or d.numel() != nv or d.dtype != dt:
+            raise ValueError(f"dst leaf {l}: {d.numel()} values of {d.dtype} "
+                             f"on {d.device}; need {nv} of {dt} on "
+                             f"{first.device}")
+        if not d.is_contiguous():
+            d = d.contiguous()
+            keep.append(d)
+        if isinstance(s, tuple):
+            addr, pitch = s
+        else:
+            if s.get_device() != dev or s.numel() != nv:
+                raise ValueError(f"src leaf {l}: {s.numel()} values on "
+                                 f"{s.device}; need {nv} on {first.device}")
+            if s.dtype != dt or not s.is_contiguous():
+                s = s.to(dt).contiguous()
+                keep.append(s)
+            addr, pitch = s.data_ptr(), table.pitch[l]
+        v = typed.get(dt)
+        if v is None:
+            v = typed[dt] = raw.view(dt)
+        out[l] = v.as_strided(table.shapes[l], table.strides[l],
+                              o // table.itemsize[l])
+        column[4 * l:4 * l + 4] = (d.data_ptr(), addr, base + o, pitch)
+    return RestoreCall(column, out, keep)
 
 
 # ---------------------------------------------------------------------------

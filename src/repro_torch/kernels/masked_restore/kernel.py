@@ -4,12 +4,24 @@ Replaces ``repro/kernels/masked_restore/kernel.py::masked_restore_pallas``.
 The source, with its design note, is
 ``repro_torch/csrc/masked_restore.cu``: each CTA reads its block's mask
 bit first and loads only the side the block needs.
+
+``masked_restore_tree_cuda`` is the grouped form the main paths run: one
+launch for a whole tree, over the leaf table of
+:mod:`repro_torch.kernels.leaf_table`. ``masked_restore_cuda`` is one
+leaf's launch.
 """
 from __future__ import annotations
 
+from typing import TYPE_CHECKING, Optional
+
+import numpy as np
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.leaf_table import restore_call, restore_table, upload
+
+if TYPE_CHECKING:   # core.blocks imports the block_dist ops, and so this
+    from repro_torch.core.blocks import BlockPartition
 
 
 def masked_restore_cuda(dst: torch.Tensor, src: torch.Tensor,
@@ -52,3 +64,41 @@ def masked_restore_cuda(dst: torch.Tensor, src: torch.Tensor,
                   dst.device, dst.data_ptr(), src.data_ptr(), mask.data_ptr(),
                   out.data_ptr(), block_bytes, total_bytes)
     return out
+
+
+def masked_restore_tree_cuda(dst_leaves: list, src_leaves: list,
+                             mask: torch.Tensor, partition: BlockPartition,
+                             touched: Optional[np.ndarray] = None) -> list:
+    """Per block of every leaf (flatten order, ``partition``'s leaves; only
+    the leaves ``touched`` when given): ``src``'s bytes where ``mask`` is
+    set, else ``dst``'s, into new tensors, in one launch. ``mask``:
+    (total_blocks,) bool on the leaves' CUDA device. A source is a tensor
+    or an ``(address, pitch)`` pair read in place, as
+    :func:`~repro_torch.kernels.leaf_table.restore_call` takes it. Returns
+    the output leaves (None for a leaf left out): views of one buffer.
+    The pointer column goes to the card only when it differs from the last
+    call's on this device and stream."""
+    idx = range(len(dst_leaves)) if touched is None else touched
+    if not len(idx):
+        return [None] * len(dst_leaves)
+    device = dst_leaves[int(idx[0])].device
+    if device.type != "cuda":
+        raise ValueError(f"masked_restore_tree_cuda needs CUDA leaves, got "
+                         f"{device}")
+    table = restore_table(partition, tuple(d.dtype for d in dst_leaves))
+    if mask.device != device or mask.dtype != torch.bool \
+            or mask.shape != (table.total_blocks,) or not mask.is_contiguous():
+        raise ValueError(f"need a contiguous ({table.total_blocks},) bool "
+                         f"mask on {device}, got {tuple(mask.shape)} "
+                         f"{mask.dtype} on {mask.device}")
+    call = restore_call(dst_leaves, src_leaves, table, touched)
+    d = table.on(device)
+    if call.column != d.last:
+        upload(call.column, d.ptrs)
+        d.last = call.column
+    if table.n_items:
+        _build.launch("masked_restore",
+                      _build.library().masked_restore_tree_bytes, device,
+                      d.geom, d.ptrs.data_ptr(), d.item_leaf, table.n_items,
+                      mask.data_ptr())
+    return call.out

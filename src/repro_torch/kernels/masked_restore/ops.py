@@ -3,9 +3,10 @@
 ``tree_masked_restore`` is :func:`repro_torch.core.blocks.select_blocks`
 (dst = live params, src = checkpoint, mask = lost blocks for PARTIAL
 recovery; dst = checkpoint, src = params, mask = saved blocks for the
-``inplace_save=False`` save). Each leaf goes to the kernel as its raw
-(R, W) row matrix, unpadded, as ``tree_scatter_save`` does.
-``arena_masked_restore`` is the same restore with a flat arena as source.
+``inplace_save=False`` save): one grouped kernel launch for the whole tree
+on CUDA leaves, each leaf's raw (R, W) rows unpadded; the plain version
+leaf by leaf on CPU leaves. ``arena_masked_restore`` is the same restore
+with a flat arena as source. ``masked_restore`` is one leaf's select.
 """
 from __future__ import annotations
 
@@ -13,9 +14,11 @@ from typing import Any
 
 import torch
 
-from repro_torch.core.blocks import BlockPartition, split_global_mask
-from repro_torch.kernels.masked_restore.kernel import masked_restore_cuda
-from repro_torch.kernels.masked_restore.ref import masked_restore_ref
+from repro_torch.core.blocks import BlockPartition
+from repro_torch.kernels.masked_restore.kernel import (
+    masked_restore_cuda, masked_restore_tree_cuda)
+from repro_torch.kernels.masked_restore.ref import (masked_restore_ref,
+                                                    tree_masked_restore_ref)
 from repro_torch.utils.tree import tree_flatten, tree_leaves, tree_unflatten
 
 PyTree = Any
@@ -34,10 +37,9 @@ def masked_restore(dst: torch.Tensor, src: torch.Tensor, mask: torch.Tensor,
 def arena_masked_restore(dst: PyTree, src_arena: torch.Tensor, global_mask,
                          arena_layout) -> PyTree:
     """Partial restore whose source is a flat arena
-    (:mod:`repro_torch.core.arena`): each touched leaf decodes one
-    contiguous arena slice and goes through :func:`masked_restore`;
-    untouched leaves pass through as the same tensors. The tier planner's
-    PEER_REPLICA restore from an arena-form replica."""
+    (:mod:`repro_torch.core.arena`): the touched leaves in one grouped
+    launch on the card; untouched leaves pass through as the same tensors.
+    The tier planner's PEER_REPLICA restore from an arena-form replica."""
     from repro_torch.core.arena import arena_restore
     return arena_restore(dst, src_arena, global_mask, arena_layout)
 
@@ -45,15 +47,11 @@ def arena_masked_restore(dst: PyTree, src_arena: torch.Tensor, global_mask,
 def tree_masked_restore(dst: PyTree, src: PyTree, global_mask: torch.Tensor,
                         partition: BlockPartition) -> PyTree:
     """Per block: ``src``'s block where the mask is set, else ``dst``'s.
-    Returns a new tree."""
+    Returns a new tree (on the card, its leaves are views of one buffer)."""
     dst_flat, treedef = tree_flatten(dst)
-    src_flat = tree_leaves(src)
-    masks = split_global_mask(global_mask.to(torch.bool), partition)
-    out = []
-    for d, s, m, leaf in zip(dst_flat, src_flat, masks, partition.leaves):
-        shape2d = (leaf.rows, leaf.row_width)
-        r = masked_restore(d.reshape(shape2d),
-                           s.to(d.dtype).reshape(shape2d), m,
-                           partition.block_rows)
-        out.append(r.reshape(leaf.shape))
-    return tree_unflatten(treedef, out)
+    device = dst_flat[0].device
+    if device.type == "cpu":
+        return tree_masked_restore_ref(dst, src, global_mask, partition)
+    mask = global_mask.to(device=device, dtype=torch.bool).contiguous()
+    return tree_unflatten(treedef, masked_restore_tree_cuda(
+        dst_flat, tree_leaves(src), mask, partition))

@@ -1,9 +1,10 @@
 """The grouped whole-tree kernels' tables and walks, emulated on the CPU.
 
-``csrc/block_dist.cu`` (``block_dist_tree_f32``) and
-``csrc/scatter_save.cu`` (``scatter_save_tree_bytes``) run a whole tree in
-one launch over the tables of ``repro_torch/kernels/leaf_table.py``. This
-file builds those tables from CPU tensors, walks them in numpy as the
+``csrc/block_dist.cu`` (``block_dist_tree_f32``),
+``csrc/scatter_save.cu`` (``scatter_save_tree_bytes``) and
+``csrc/masked_restore.cu`` (``masked_restore_tree_bytes``) run a whole tree
+in one launch over the tables of ``repro_torch/kernels/leaf_table.py``.
+This file builds those tables from CPU tensors, walks them in numpy as the
 kernels do, reading and writing through the addresses the tables hold
 (ctypes), and holds the result against the reference:
 
@@ -14,11 +15,23 @@ kernels do, reading and writing through the addresses the tables hold
 - scatter_save: the pair list from global ids, one item per chunk of a
   pair's block, the carrier width chosen per pair from its addresses and
   length, against ``repro.kernels.fused_maintain.ops.tree_scatter_save``
-  on its jnp path (bit-exact).
+  on its jnp path (bit-exact);
+- masked_restore: one item per chunk of every (leaf, block), the block's
+  mask bit read at the leaf's global offset, the carrier chosen per item,
+  against ``repro.kernels.masked_restore.ops.tree_masked_restore`` (its
+  Pallas kernel in interpret mode; f64 leaves under ``jax.enable_x64``)
+  and, with an arena as the source (segments read in place with their
+  pitch, a leaf of another dtype through its decoded copy), against
+  ``repro.core.arena.arena_restore`` (bit-exact).
+
+||delta||^2 at recovery (``perturbation_norms``, ``applied_sq``) is the
+sum of one grouped block_dist pass, held to the reference within rtol
+1e-4.
 
 The tree has ragged, single-block, 0-d, bf16, uint8 and colocated leaves
 (the CNN's ``colocate=("net", "mu", "nu")`` shape) and leaves that are
-views at odd offsets. Small chunk sizes give blocks of several chunks.
+views at odd offsets (masked_restore's adds int8 and f64 leaves). Small
+chunk sizes give blocks of several chunks.
 The same walks run on the card in ``tests/test_torch_kernels_gpu.py``.
 """
 import copy
@@ -34,14 +47,26 @@ import torch
 
 from repro.core import blocks as jblocks
 from repro.core import norms as jnorms
+from repro.core import arena as jarena
+from repro.core import recovery as jrecovery
+from repro.core.checkpoint import RunningCheckpoint as JCheckpoint
+from repro.core.policy import RecoveryMode as JMode
 from repro.kernels.fused_maintain.ops import \
     tree_scatter_save as j_tree_scatter_save
+from repro.kernels.masked_restore.ops import \
+    tree_masked_restore as j_tree_masked_restore
+from repro_torch.core import arena as tarena
+from repro_torch.core import recovery as trecovery
 from repro_torch.core import blocks as tblocks
 from repro_torch.core.norms import get_norm
 from repro_torch.kernels import leaf_table as lt
 from repro_torch.kernels.block_dist import kernel as bkernel
 from repro_torch.kernels.block_dist import ops as bops
 from repro_torch.kernels.fused_maintain import ops as fops
+from repro_torch.kernels.masked_restore import kernel as mkernel
+from repro_torch.kernels.masked_restore import ops as mops
+from repro_torch.core.checkpoint import RunningCheckpoint as TCheckpoint
+from repro_torch.core.policy import RecoveryMode as TMode
 from repro_torch.utils.tree import tree_flatten, tree_leaves
 
 THREADS = 256          # block_dist.cu kThreads; byte_copy.cuh kCopyThreads
@@ -86,12 +111,17 @@ def _odd_view(a: np.ndarray, pad_elems: int) -> torch.Tensor:
     return buf[pad_elems:].view(a.shape)
 
 
+def port_leaf(v: np.ndarray) -> torch.Tensor:
+    if v.dtype == ml_dtypes.bfloat16:
+        return torch.from_numpy(v.view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(np.array(v))
+
+
 def port_tree(t: dict) -> dict:
     """The port's tree of the same values; ``x.odd`` (f32) starts 4 bytes
     and ``x.bytes`` (uint8) 1 byte past an aligned address."""
-    out = {k: {n: torch.from_numpy(np.array(v)) if v.dtype != ml_dtypes.bfloat16
-               else torch.from_numpy(v.view(np.int16).copy()).view(torch.bfloat16)
-               for n, v in sub.items()} for k, sub in t.items()}
+    out = {k: {n: port_leaf(v) for n, v in sub.items()}
+           for k, sub in t.items()}
     out["x"]["odd"] = _odd_view(t["x"]["odd"], 1)
     out["x"]["bytes"] = _odd_view(t["x"]["bytes"], 1)
     return out
@@ -471,3 +501,288 @@ def test_tier_sq_matches_reference(n_failed):
     if n_failed == 3:
         assert info_t["tier_counts"]["RUNNING_CKPT"] > 0
         assert info_t["tier_sq"]["RUNNING_CKPT"] > 0.0
+
+
+# ---------------------------------------------------------------------------
+# masked_restore
+# ---------------------------------------------------------------------------
+
+def restore_np_tree(seed: int) -> dict:
+    """:func:`np_tree` with an int8 and an f64 leaf."""
+    t = np_tree(seed)
+    rng = np.random.default_rng(seed + 100)
+    t["x"]["i8"] = rng.integers(-128, 128, size=(21, 7), dtype=np.int8)
+    t["x"]["f64"] = rng.normal(size=(19, 4))
+    return t
+
+
+def restore_mask(partition, seed: int) -> np.ndarray:
+    """A seeded mask over ``partition``'s blocks with one leaf's blocks all
+    set and another's all clear."""
+    mask = np.random.default_rng(seed).random(partition.total_blocks) < 0.5
+    names = [l.name for l in partition.leaves]
+    big = partition.leaves[names.index("['x']['big']")]
+    even = partition.leaves[names.index("['x']['even']")]
+    mask[big.offset:big.offset + big.n_blocks] = True
+    mask[even.offset:even.offset + even.n_blocks] = False
+    return mask
+
+
+def emulate_masked_restore(table: lt.RestoreTable, call: lt.RestoreCall,
+                           mask: np.ndarray) -> list:
+    """The grouped kernel over ``table`` and the call's pointer column:
+    each item reads its block's mask bit, then copies its chunk from the
+    side the bit picks into the output with its carrier. Returns the
+    carriers."""
+    col = np.asarray(call.column, np.int64).reshape(-1, 4)
+    widths = []
+    for g in range(table.n_items):
+        l = int(table.item_leaf[g])
+        dst, src, out, pitch = (int(v) for v in col[l])
+        if out == 0:
+            continue
+        k, c = divmod(g - int(table.item_start[l]), int(table.cpb[l]))
+        block_lo = k * int(table.block_bytes[l])
+        length = min(int(table.block_bytes[l]),
+                     int(table.total_bytes[l]) - block_lo)
+        lo = c * table.chunk
+        hi = min(lo + table.chunk, length)
+        if lo >= hi:
+            continue
+        side = (src + k * pitch if mask[int(table.mask_off[l]) + k]
+                else dst + block_lo)
+        bits = (out + block_lo) | side | length | 16
+        w = bits & -bits
+        assert lo % w == 0 and hi % w == 0
+        widths.append(w)
+        _view(out + block_lo + lo, hi - lo, ctypes.c_uint8)[:] = \
+            _view(side + lo, hi - lo, ctypes.c_uint8)
+    return widths
+
+
+def _np_bytes(a) -> bytes:
+    return np.ascontiguousarray(np.asarray(a)).tobytes()
+
+
+@pytest.fixture(scope="module")
+def restore_case():
+    """dst, src and mask over the masked_restore tree, and the reference's
+    restore of them (its Pallas kernel in interpret mode, in 64-bit mode
+    so the f64 leaf stays f64)."""
+    td, ts = restore_np_tree(20), restore_np_tree(21)
+    _, tp = partitions(td)
+    mask = restore_mask(tp, 22)
+    with jax.enable_x64(True):
+        jd, js = jax_tree(td), jax_tree(ts)
+        jp = jblocks.partition_pytree(jd, BR, colocate=COLOCATE)
+        want = [_np_bytes(w) for w in jax.tree_util.tree_leaves(
+            j_tree_masked_restore(jd, js, jnp.asarray(mask), jp,
+                                  interpret=True))]
+    return td, ts, tp, mask, want
+
+
+@pytest.mark.parametrize("chunk", [lt.COPY_CHUNK_BYTES, 64, 48])
+def test_restore_table_covers_every_byte_once(chunk):
+    td = restore_np_tree(23)
+    _, tp = partitions(td)
+    dtypes = tuple(x.dtype for x in tree_leaves(port_tree(td)))
+    t = lt.restore_table(tp, dtypes, chunk)
+    seen = [np.zeros((n,), np.int64) for n in t.total_bytes.tolist()]
+    blocks = [set() for _ in tp.leaves]
+    for g in range(t.n_items):
+        l = int(t.item_leaf[g])
+        k, c = divmod(g - int(t.item_start[l]), int(t.cpb[l]))
+        lo = k * int(t.block_bytes[l]) + c * chunk
+        seen[l][lo:min(lo + chunk, (k + 1) * int(t.block_bytes[l]),
+                       int(t.total_bytes[l]))] += 1
+        blocks[l].add(k)
+    assert all(np.all(v == 1) for v in seen)
+    assert [len(b) for b in blocks] == [l.n_blocks for l in tp.leaves]
+    # each leaf reads the mask at its global offset; the output slots are
+    # disjoint and 256-byte aligned
+    assert t.mask_off.tolist() == [l.offset for l in tp.leaves]
+    assert np.all(t.out_off % lt.OUT_ALIGN == 0)
+    assert np.all(t.out_off[1:] >= t.out_off[:-1] + t.total_bytes[:-1])
+    assert lt.restore_table(tp, dtypes) is lt.restore_table(tp, dtypes)
+
+
+@pytest.mark.parametrize("chunk", [lt.COPY_CHUNK_BYTES, 64])
+def test_masked_restore_walk_matches_reference(restore_case, chunk):
+    td, ts, tp, mask, want = restore_case
+    dst, src = port_tree(td), port_tree(ts)
+    dst_flat, src_flat = tree_leaves(dst), tree_leaves(src)
+    table = lt.restore_table(tp, tuple(x.dtype for x in dst_flat), chunk)
+    call = lt.restore_call(dst_flat, src_flat, table)
+    assert call.keep == []            # every leaf is read in place
+    widths = emulate_masked_restore(table, call, mask)
+    assert {1, 4, 16} <= set(widths)  # odd views and aligned leaves
+    assert [_bytes(g) for g in call.out] == want
+    # the outputs: views of one buffer, each leaf at an aligned offset
+    base = call.out[0].untyped_storage().data_ptr()
+    for o, x in zip(call.out, dst_flat):
+        assert o.untyped_storage().data_ptr() == base
+        assert (o.data_ptr() - base) % lt.OUT_ALIGN == 0
+        assert o.shape == x.shape and o.dtype == x.dtype \
+            and o.is_contiguous()
+    # the CPU route (the plain version, leaf by leaf) gives the same bytes
+    got = mops.tree_masked_restore(dst, src, torch.from_numpy(mask), tp)
+    assert [_bytes(g) for g in tree_leaves(got)] == want
+
+
+def test_colocated_leaves_read_their_shared_bits():
+    """One set bit, block 2 of the colocated fc leaves: the three leaves
+    that share it take src's rows of that block, and nothing else moves."""
+    td, ts = restore_np_tree(24), restore_np_tree(25)
+    _, tp = partitions(td)
+    names = [l.name for l in tp.leaves]
+    fc = [tp.leaves[names.index(f"['{k}']['fc']")] for k in COLOCATE]
+    assert len({l.offset for l in fc}) == 1
+    mask = np.zeros((tp.total_blocks,), bool)
+    mask[fc[0].offset + 2] = True
+    dst_flat = tree_leaves(port_tree(td))
+    src_flat = tree_leaves(port_tree(ts))
+    table = lt.restore_table(tp, tuple(x.dtype for x in dst_flat))
+    call = lt.restore_call(dst_flat, src_flat, table)
+    emulate_masked_restore(table, call, mask)
+    for leaf, d, s, o in zip(tp.leaves, dst_flat, src_flat, call.out):
+        want = d.clone()
+        if leaf in fc:
+            want[2 * BR:3 * BR] = s[2 * BR:3 * BR]
+        assert _bytes(o) == _bytes(want), leaf.name
+
+
+def _arena_trees(seed: int) -> tuple:
+    """Word-packable src and dst trees for an arena: multi-block f32 and
+    bf16 leaves whose blocks are padded to whole tiles (segment pitch >
+    block bytes), an int8 leaf, tail-packed leaves and a scalar. dst's
+    ``w`` is bf16 where the arena holds f32 (read through the decoded
+    copy), and dst's ``big`` is a view 4 bytes past an aligned address."""
+    rng = np.random.default_rng(seed)
+    f = lambda *s: rng.normal(size=s).astype(np.float32)
+    def tree():
+        return {"big": f(40, 12), "emb": f(33, 8).astype(ml_dtypes.bfloat16),
+                "w": f(50, 6), "i8": rng.integers(-128, 128, size=(20, 3),
+                                                  dtype=np.int8),
+                "b": f(5), "s": f()}
+    src, dst = tree(), tree()
+    dst["w"] = dst["w"].astype(ml_dtypes.bfloat16)
+    return src, dst
+
+
+def _port_arena_tree(t: dict, odd: bool = False) -> dict:
+    out = {k: port_leaf(v) for k, v in t.items()}
+    if odd:
+        out["big"] = _odd_view(t["big"], 1)
+    return out
+
+
+def test_arena_restore_walk_matches_reference():
+    src, dst = _arena_trees(26)
+    jl = jarena.build_arena_layout(jblocks.partition_pytree(
+        jax_tree(src), BR))
+    tl = tarena.build_arena_layout(tblocks.partition_pytree(
+        _port_arena_tree(src), BR))
+    part = tl.partition
+    mask = np.random.default_rng(27).random(part.total_blocks) < 0.4
+    names = [l.name for l in part.leaves]
+    s_leaf = part.leaves[names.index("['s']")]
+    mask[s_leaf.offset] = False                    # one untouched leaf
+    w = names.index("['w']")
+    assert mask[part.leaves[w].offset:part.leaves[w].offset
+                + part.leaves[w].n_blocks].any()
+    want = jarena.arena_restore(jax_tree(dst), jarena.pack_arena(
+        jax_tree(src), jl), mask, jl)
+    arena = tarena.pack_arena(_port_arena_tree(src), tl)
+    dst_t = _port_arena_tree(dst, odd=True)
+    leaves = tree_leaves(dst_t)
+    touched = tarena.touched_leaves(mask, part)
+    assert names.index("['s']") not in touched.tolist()
+    srcs = tarena.arena_sources(leaves, arena, touched, tl)
+    for li in touched.tolist():
+        if li == w:
+            assert isinstance(srcs[li], torch.Tensor)    # decoded, bf16
+            continue
+        addr, pitch = srcs[li]
+        assert addr == arena.data_ptr() + 4 * tl.leaf_offset[li]
+        assert pitch == 4 * tl.seg_words[li]
+    big = names.index("['big']")
+    assert srcs[big][1] > 4 * 12 * BR              # pitch past the block
+    table = lt.restore_table(part, tuple(x.dtype for x in leaves))
+    call = lt.restore_call(leaves, srcs, table, touched)
+    emulate_masked_restore(table, call, mask)
+    got = [x if r is None else r for x, r in zip(leaves, call.out)]
+    for g, wnt in zip(got, jax.tree_util.tree_leaves(want)):
+        assert _bytes(g) == _np_bytes(wnt)
+    assert got[names.index("['s']")] is leaves[names.index("['s']")]
+    # the CPU route (the plain version, leaf by leaf) gives the same bytes
+    plain = tree_leaves(tarena.arena_restore(dst_t, arena, mask, tl))
+    assert [_bytes(g) for g in plain] == [_bytes(g) for g in got]
+
+
+def test_restore_refuses_bad_leaves():
+    td = restore_np_tree(28)
+    _, tp = partitions(td)
+    dst = tree_leaves(port_tree(td))
+    dtypes = tuple(x.dtype for x in dst)
+    table = lt.restore_table(tp, dtypes)
+    with pytest.raises(ValueError):                      # leaf count
+        lt.restore_call(dst[:-1], dst[:-1], table)
+    with pytest.raises(ValueError):                      # a leaf's size
+        lt.restore_call(dst, dst[:1] + [dst[0]] + dst[2:], table)
+    with pytest.raises(ValueError):                      # a dst's dtype
+        lt.restore_call(dst[:1] + [dst[1].double()] + dst[2:], dst, table)
+
+    class Elsewhere(torch.Tensor):
+        def get_device(self):
+            return 0
+
+    with pytest.raises(ValueError):                      # a leaf's device
+        lt.restore_call(dst, dst[:3] + [dst[3].as_subclass(Elsewhere)]
+                        + dst[4:], table)
+    with pytest.raises(ValueError):
+        lt.restore_table(tp, dtypes[:-1])
+    with pytest.raises(ValueError, match="CUDA"):
+        mkernel.masked_restore_tree_cuda(
+            dst, dst, torch.zeros(tp.total_blocks, dtype=torch.bool), tp)
+
+
+# ---------------------------------------------------------------------------
+# ||delta||^2 at recovery: sums of one grouped block_dist pass
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("mode", ["PARTIAL", "FULL"])
+def test_recovery_norms_match_reference(monkeypatch, mode):
+    """``full_sq`` and ``partial_sq`` are the sum and the masked sum of one
+    pass of per-block distances, ``applied_sq`` the sum of one more; all
+    three within rtol 1e-4 of the reference's (plain f32 sums)."""
+    tp_, tc = np_tree(29), np_tree(30)
+    jp, tp = partitions(tp_)
+    mask = np.random.default_rng(31).random(tp.total_blocks) < 0.4
+    calls = []
+    real = trecovery.tree_block_scores
+
+    def counting(a, b, part):
+        calls.append(part)
+        return real(a, b, part)
+
+    monkeypatch.setattr(trecovery, "tree_block_scores", counting)
+    t_ckpt = TCheckpoint(port_tree(tc), torch.zeros(tp.total_blocks,
+                                                    dtype=torch.int32),
+                         torch.zeros((), dtype=torch.int32))
+    j_ckpt = JCheckpoint(jax_tree(tc), jnp.zeros(jp.total_blocks, jnp.int32),
+                         jnp.zeros((), jnp.int32))
+    got = trecovery.perturbation_norms(port_tree(tp_), t_ckpt,
+                                       torch.from_numpy(mask), tp)
+    assert calls == [tp]
+    want = jrecovery.perturbation_norms(jax_tree(tp_), j_ckpt,
+                                        jnp.asarray(mask), jp)
+    for k in ("full_sq", "partial_sq"):
+        np.testing.assert_allclose(float(got[k]), float(want[k]), rtol=1e-4)
+    _, got = trecovery.apply_failure_and_recover(
+        port_tree(tp_), t_ckpt, torch.from_numpy(mask), TMode[mode], tp)
+    assert len(calls) == 3
+    _, want = jrecovery.apply_failure_and_recover(
+        jax_tree(tp_), j_ckpt, jnp.asarray(mask), JMode[mode], jp)
+    for k in ("full_sq", "partial_sq", "applied_sq"):
+        np.testing.assert_allclose(float(got[k]), float(want[k]), rtol=1e-4,
+                                   err_msg=k)

@@ -10,12 +10,15 @@ Copies are compared bit for bit (as raw bytes); block_dist within rtol
 1e-4, since its f32 sums run in another order than the plain version's.
 The grouped forms (one launch for a whole tree) run on a tree of ragged,
 single-block, 0-d, bf16, uint8, colocated and odd-offset leaves, and must
-give the same bits on every run.
+give the same bits on every run; masked_restore's also with an arena as
+its source, and with masks all clear and all set.
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.core.arena import (arena_restore, arena_restore_ref,
+                                    build_arena_layout, pack_arena)
 from repro_torch.core.blocks import partition_pytree
 from repro_torch.kernels import _build
 from repro_torch.kernels.block_dist.ops import tree_block_dist
@@ -28,7 +31,10 @@ from repro_torch.kernels.block_dist.ref import block_dist_ref
 from repro_torch.kernels.fused_maintain.kernel import scatter_save_cuda
 from repro_torch.kernels.fused_maintain.ref import scatter_save_ref
 from repro_torch.kernels.masked_restore.kernel import masked_restore_cuda
-from repro_torch.kernels.masked_restore.ref import masked_restore_ref
+from repro_torch.kernels.masked_restore.ops import tree_masked_restore
+from repro_torch.kernels.masked_restore.ref import (masked_restore_ref,
+                                                    tree_masked_restore_ref)
+from repro_torch.kernels.leaf_table import restore_table
 
 
 @pytest.fixture
@@ -172,3 +178,61 @@ def test_scatter_save_tree_cuda_matches_plain(cuda, block_rows):
     for g, w in zip(tree_leaves(got), tree_leaves(want)):
         assert torch.equal(g.reshape(-1).view(torch.uint8).cpu(),
                            w.reshape(-1).view(torch.uint8))
+
+
+def _same_bytes(got: list, want: list) -> bool:
+    return all(torch.equal(g.reshape(-1).view(torch.uint8),
+                           w.reshape(-1).view(torch.uint8))
+               for g, w in zip(got, want))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["random", "none", "all"])
+@pytest.mark.parametrize("block_rows", [8, 16])
+def test_masked_restore_tree_cuda_matches_plain(cuda, block_rows, kind):
+    dst, src = _grouped_tree(8, cuda), _grouped_tree(9, cuda)
+    part = partition_pytree(dst, block_rows, colocate=COLOCATE)
+    n = part.total_blocks
+    mask = {"random": np.random.default_rng(10).random(n) < 0.5,
+            "none": np.zeros((n,), bool), "all": np.ones((n,), bool)}[kind]
+    m = torch.from_numpy(mask).to(cuda)
+    n0 = _build.LAUNCHES["masked_restore"]
+    got = tree_leaves(tree_masked_restore(dst, src, m, part))
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["masked_restore"] == n0 + 1  # one launch a tree
+    want = tree_leaves(tree_masked_restore_ref(dst, src, m, part))
+    assert _same_bytes(got, want)
+    assert _same_bytes(tree_leaves(tree_masked_restore(dst, src, m, part)),
+                       got)                              # same bits again
+    # another stream gets its own pointer column
+    side = torch.cuda.Stream(cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(side):
+        got2 = tree_leaves(tree_masked_restore(dst, src, m, part))
+    torch.cuda.synchronize()
+    dev = got[0].device
+    table = restore_table(part, tuple(x.dtype for x in tree_leaves(dst)))
+    assert set(table._on) == {
+        (dev, torch.cuda.default_stream(dev).cuda_stream),
+        (dev, side.cuda_stream)}
+    assert _same_bytes(got2, want)
+
+
+@pytest.mark.gpu
+def test_arena_restore_cuda_matches_plain(cuda):
+    src, dst = _grouped_tree(11, cuda), _grouped_tree(12, cuda)
+    part = partition_pytree(src, 8, colocate=COLOCATE)
+    layout = build_arena_layout(part)
+    arena = pack_arena(src, layout)
+    mask = np.random.default_rng(13).random(part.total_blocks) < 0.4
+    names = [l.name for l in part.leaves]
+    scalar = part.leaves[names.index("['x']['scalar']")]
+    mask[scalar.offset] = False                          # left untouched
+    n0 = _build.LAUNCHES["masked_restore"]
+    got = tree_leaves(arena_restore(dst, arena, mask, layout))
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["masked_restore"] == n0 + 1
+    want = tree_leaves(arena_restore_ref(dst, arena, mask, layout))
+    assert _same_bytes(got, want)
+    i = names.index("['x']['scalar']")
+    assert got[i] is tree_leaves(dst)[i]
