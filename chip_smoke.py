@@ -129,14 +129,42 @@ Phases, each of which fails the run if it fails:
     phase 15; in f32, the ring decode step's logits against a ring prefill
     of the 8,193 tokens (relative L2 <= 5e-3).
 
-The line before the last is the kernels' JSON record; the last line is
-``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
-and prints no result.
+17. The LM trainer (``training.TrainLoop``), after the serve phases free
+    their models: (a) qwen2-1.5b at full width and depth (28 layers, bf16,
+    the untied head, 1,777,088,000 values held as per-layer leaves),
+    adamw(3e-4), ``CheckpointPolicy.scar(0.125, 2)``, ``FabricConfig()``,
+    arena-resident, batch 4 x 2048 from ``ShardedLMDataset(seed=0)``, 8
+    steps with hosts 0 and 2 lost together at step 5 (one host's loss
+    recovers every block from PEER_REPLICA: the replicas are
+    rack-anti-affine). Checked: finite losses, step 1's within 1.0 of ln
+    V, every maintain resident (no pack), the tier counts summing to the
+    lost blocks, ‖δ′‖² 0 for PEER_REPLICA and PARITY, and arena_maintain,
+    arena_scatter, masked_restore, block_dist and parity_xor launched on
+    this path (``launches["train"]``). Reported: step seconds and tokens/s
+    over the clean steps, the clean-step overhead's p50/p95 and its
+    sweep/save/fence split, the recovery's seconds and tier counts, peak
+    device memory and the card's busy share of one clean step. (b) The
+    same model with 4 layers, arena-resident and on the PyTree path in
+    turn under deterministic algorithms, 4 steps (``scar(0.125, 2)``
+    saves 1/8 of the blocks every step: its partial interval is 2 x
+    0.125, rounded up to 1): losses, checkpoint arena, ``saved_iter`` and
+    final parameters bit-equal. (c) Reduced qwen2-1.5b and mamba2-370m (f32, 2 layers) on
+    the card and on the CPU from the same weights and batches, 6 steps
+    and one ``inject_failure(0.5)``: losses within rtol 1e-4,
+    ``saved_iter`` and tier counts equal. (d) mamba2-370m at full width
+    with 4 of its 48 layers, arena-resident, 3 steps: finite losses, peak
+    memory.
+
+The line before the last is the kernels' JSON record (each kernel's
+launches on its own path, and ``train_launches`` on phase 17's); the last
+line is ``{"ok": true, "device": {...}}``. Without a CUDA device it exits
+non-zero and prints no result.
 
 ``python3 chip_smoke.py --erasure`` runs phase 1, phase 3's parity_xor
 encode and phase 9 alone and prints the erasure kernels' SASS instruction
 mix; its last line is ``{"erasure_only": true, "device": {...}}``, not the
-full run's.
+full run's. ``python3 chip_smoke.py --train`` runs phase 1 and phase 17
+alone; its last line is ``{"train_only": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -145,6 +173,7 @@ import gc
 import itertools
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -153,6 +182,9 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
+# phase 17(b) runs cuBLAS under deterministic algorithms, which needs a
+# fixed workspace configured before CUDA starts
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
 F32_FLOPS_PER_S = 67e12          # H100 SXM, f32 outside the tensor cores
@@ -263,10 +295,12 @@ def device_ms(fn, calls: int = 10) -> float:
 
 def device_share(fn) -> dict:
     """Run ``fn`` once under torch.profiler: its wall seconds (ending in a
-    synchronize), the seconds the card spent in kernels and copies, and the
-    eight names that took most of them. ``device_s`` is 0 where the
+    synchronize), the seconds the card spent in kernels and copies (its
+    own events, not the operators that launched them), and the eight names
+    that took most of them. ``device_s`` is 0 where the
     profiler records no device activity."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -275,8 +309,11 @@ def device_share(fn) -> dict:
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    # the card's own events only (kernels, copies, sets): an operator's
+    # row repeats the device time of the kernels it launched
     rows = [(e.key, e.self_device_time_total) for e in prof.key_averages()
-            if e.self_device_time_total > 0]
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0]
     device_s = sum(us for _, us in rows) / 1e6
     top = sorted(rows, key=lambda r: -r[1])[:8]
     return {"wall_s": wall, "device_s": device_s,
@@ -2219,6 +2256,490 @@ def phase_qwen2_serve(device, launches: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the LM trainer with SCAR fault tolerance
+# ---------------------------------------------------------------------------
+
+TRAIN = dict(batch=4, seq=2048, steps=8)
+# two hosts lost together at step 5: block replicas are rack-anti-affine,
+# so one host's loss recovers every block from PEER_REPLICA; with hosts 0
+# and 2 (one in each rack) down, blocks whose primary and replica both sat
+# on them recover from PARITY and RUNNING_CKPT too
+TRAIN_SCHEDULE = [(5, "host", 0), (5, "host", 2)]
+TRAIN_SMALL = dict(batch=2, seq=64, steps=6)
+LOSS_RTOL = 1e-4
+
+
+def _train_loop(cfg, device, *, arena_state: bool = True,
+                schedule=None, per_layer: bool = True, recorder=None):
+    """``TrainLoop`` with adamw(3e-4), ``CheckpointPolicy.scar(0.125, 2)``
+    and ``FabricConfig()``."""
+    from repro_torch.core.policy import CheckpointPolicy
+    from repro_torch.fabric import FabricConfig
+    from repro_torch.optim import adamw
+    from repro_torch.training import TrainLoop, TrainLoopConfig
+    return TrainLoop(cfg, adamw(3e-4), TrainLoopConfig(
+        policy=CheckpointPolicy.scar(fraction=0.125, interval=2),
+        fabric=FabricConfig(), arena_state=arena_state,
+        fail_schedule=schedule, per_layer_leaves=per_layer,
+        recorder=recorder), device=device)
+
+
+def _check_recovery(info: dict, where: str) -> None:
+    tiers = info["tier_counts"]
+    lost = sum(n for t, n in tiers.items() if t != "SURVIVOR")
+    check(lost == info["lost_blocks"] > 0,
+          f"{where}: tier counts {tiers} do not sum to the "
+          f"{info['lost_blocks']} lost blocks")
+    check(info["tier_sq"]["PEER_REPLICA"] == 0.0
+          and info["tier_sq"]["PARITY"] == 0.0,
+          f"{where}: live tiers applied a perturbation {info['tier_sq']}")
+
+
+def _same_bits(a, b) -> bool:
+    """Bit equality of two tensors of one dtype (NaNs and signed zeros
+    included)."""
+    import torch
+    ints = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    dt = ints[a.element_size()]
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.reshape(-1).view(dt), b.reshape(-1).view(dt))
+
+
+def _rel_err(got, want) -> float:
+    return float(((got - want).abs() / want.abs().clamp_min(1e-30)).max())
+
+
+def check_train_kernels(loop, arena, info: dict, device) -> dict:
+    """The five fabric kernels of the training path against their plain
+    versions on the trained model's own tensors: the live bf16 arena, the
+    checkpoint arena and the sweep's replica and parity, at the path's
+    shapes. The sweep (arena_maintain: parity, replica and scores) and the
+    parity encode (parity_xor) over the whole arena, the save of the
+    sweep's top-scored eighth (arena_scatter), then phase 17(a)'s two-host
+    loss replayed tier by tier: PEER_REPLICA from the replica arena and
+    RUNNING_CKPT from the checkpoint (masked_restore), PARITY rebuilt from
+    the surviving members (parity_xor) and the per-block ‖δ′‖² of the
+    result (block_dist). Words and restored values bit-exact, scores and
+    distances within rtol 1e-4. Runs after the path's launch counts are
+    read, so none of these launches counts."""
+    import numpy as np
+    import torch
+    from repro_torch.core.arena import arena_restore, arena_restore_ref
+    from repro_torch.core.blocks import masked_total
+    from repro_torch.fabric.parity import unpack_segments_into
+    from repro_torch.fabric.tiers import RecoveryTier
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.block_dist.kernel import block_dist_tree_cuda
+    from repro_torch.kernels.block_dist.ref import block_dist_tree_ref
+    from repro_torch.kernels.fused_maintain.kernel import (arena_maintain_cuda,
+                                                           arena_scatter_cuda)
+    from repro_torch.kernels.fused_maintain.ops import (save_ranges,
+                                                        scatter_plan)
+    from repro_torch.kernels.fused_maintain.ref import (arena_maintain_ref,
+                                                        arena_scatter_ref)
+    from repro_torch.kernels.leaf_table import block_dist_table
+    from repro_torch.kernels.masked_restore.kernel import \
+        masked_restore_tree_cuda
+    from repro_torch.kernels.masked_restore.ref import tree_masked_restore_ref
+    from repro_torch.kernels.parity_xor.kernel import parity_xor_cuda
+    from repro_torch.kernels.parity_xor.ops import (encode_plan,
+                                                    reconstruct_plan)
+    from repro_torch.kernels.parity_xor.ref import parity_xor_ref
+    from repro_torch.utils.tree import tree_leaves, tree_unflatten, \
+        tree_flatten
+
+    ctl = loop.controller
+    fab, part = ctl.fabric, ctl.partition
+    lay, codec = fab.arena_layout, fab.parity
+    x, z = arena, ctl._ckpt_arena
+    rep = fab.replicas.arena_local()
+    n_par = codec.n_groups * codec.layout.frame_elems
+    out = {}
+
+    # arena_maintain: the sweep of the run's last step, again
+    t = fab._arena_maintain_fn().plan.on(device)
+    pk = torch.zeros((n_par,), dtype=torch.int32, device=device)
+    pp = torch.zeros_like(pk)
+    rk, rp = torch.zeros_like(x), torch.zeros_like(x)
+    sk = arena_maintain_cuda(x, z, t, pk, rk)
+    sp = arena_maintain_ref(x, z, t, pp, rp)
+    check(_same_bits(pk, pp) and _same_bits(rk, rp),
+          "training arena: arena_maintain parity or replica differs")
+    out["arena_maintain_scores_rtol"] = _rel_err(sk, sp)
+    check(out["arena_maintain_scores_rtol"] <= 1e-4,
+          f"training arena: arena_maintain scores off by rtol "
+          f"{out['arena_maintain_scores_rtol']}")
+    check(_same_bits(pk, codec.parity.reshape(-1)),
+          "training arena: the run's parity is not the sweep's of its arena")
+    check(_same_bits(rep, x), "training arena: the run's replica is not "
+          "its live arena")
+    del pp, rk, rp, sp
+
+    # parity_xor: the whole-arena encode equals the sweep's parity
+    plan = encode_plan(lay, codec.layout, codec.members)
+    ek = parity_xor_cuda(torch.empty_like(pk), x, None,
+                         plan.pieces_on(device))
+    check(_same_bits(ek, pk), "training arena: parity_xor encode differs "
+          "from the sweep's parity")
+    check(_same_bits(parity_xor_ref(torch.empty_like(pk), x, None,
+                                    plan.on(device)), ek),
+          "training arena: parity_xor encode differs from its plain version")
+    del ek, pk, plan
+
+    # arena_scatter: the save of the sweep's top-scored eighth
+    ids = torch.topk(sk, part.total_blocks // 8).indices.cpu().numpy()
+    st = scatter_plan(*save_ranges(lay, np.sort(ids)), device)
+    check(_same_bits(arena_scatter_cuda(z.clone(), x, st),
+                     arena_scatter_ref(z.clone(), x, st)),
+          "training arena: arena_scatter differs")
+    out["saved_blocks"] = int(ids.size)
+    del sk, st
+
+    # the two-host loss of phase 17(a) replayed: the view still holds
+    # both hosts dead, the placement unchanged (a non-elastic fabric)
+    failed = np.unique(np.concatenate([fab.domains.devices_in("host", h)
+                                       for _, _, h in TRAIN_SCHEDULE]))
+    lost = np.isin(fab.view.homes, failed)
+    plan = fab.planner.plan(lost, failed, fab.last_maintained_step)
+    check(plan.counts == info["tier_counts"], f"the replayed loss plans "
+          f"{plan.counts}, the run's recovery {info['tier_counts']}")
+    params = ctl.unpack_live(x)
+    m_rep = plan.mask(RecoveryTier.PEER_REPLICA)
+    n0 = _build.LAUNCHES["masked_restore"]
+    got = arena_restore(params, rep, m_rep, lay)
+    check(_build.LAUNCHES["masked_restore"] == n0 + 1,
+          "the PEER_REPLICA restore did not make one launch")
+    check(all(_same_bits(g, w) for g, w in zip(
+        tree_leaves(got), tree_leaves(arena_restore_ref(params, rep, m_rep,
+                                                         lay)))),
+          "training arena: the PEER_REPLICA restore differs")
+
+    m_par = plan.mask(RecoveryTier.PARITY)
+    home_alive = fab.view.alive[fab.view.homes]
+    available = (plan.tiers < int(RecoveryTier.PARITY)) & (
+        home_alive | (plan.tiers == int(RecoveryTier.PEER_REPLICA)))
+    rplan, blocks = reconstruct_plan(
+        lay, codec.layout, codec.group_of, codec.members,
+        np.nonzero(m_par)[0], codec.member_mask(available))
+    words = parity_xor_cuda(torch.empty((rplan.out_words,), dtype=torch.int32,
+                                        device=device),
+                            rep, codec.parity.reshape(-1),
+                            rplan.pieces_on(device))
+    check(_same_bits(words, parity_xor_ref(
+        torch.empty_like(words), rep, codec.parity.reshape(-1),
+        rplan.on(device))), "training arena: the PARITY rebuild differs")
+    got = unpack_segments_into(got, blocks, words, lay)
+    out["parity_words"] = int(words.numel())
+    del words, rplan
+
+    m_ck = torch.from_numpy(plan.mask(RecoveryTier.RUNNING_CKPT)).to(device)
+    ckpt = ctl.ckpt.values
+    flat, treedef = tree_flatten(got)
+    want = tree_leaves(tree_masked_restore_ref(got, ckpt, m_ck, part))
+    got = tree_unflatten(treedef, masked_restore_tree_cuda(
+        flat, tree_leaves(ckpt), m_ck, part))
+    check(all(_same_bits(g, w) for g, w in zip(tree_leaves(got), want)),
+          "training arena: the RUNNING_CKPT restore differs")
+    del flat, want, ckpt
+
+    # block_dist: ‖δ′‖² per block of the recovered tree
+    dk = block_dist_tree_cuda(tree_leaves(got), tree_leaves(params),
+                              block_dist_table(part))
+    dp = block_dist_tree_ref(tree_leaves(got), tree_leaves(params), part)
+    out["block_dist_rtol"] = _rel_err(dk, dp)
+    check(out["block_dist_rtol"] <= 1e-4, f"training arena: block_dist off "
+          f"by rtol {out['block_dist_rtol']}")
+    sq = {t.name: float(masked_total(dp, torch.from_numpy(
+        plan.mask(t)).to(device))) for t in (RecoveryTier.PEER_REPLICA,
+                                             RecoveryTier.PARITY,
+                                             RecoveryTier.RUNNING_CKPT)}
+    check(sq["PEER_REPLICA"] == sq["PARITY"] == 0.0,
+          f"training arena: the live tiers' plain ‖δ′‖² {sq}")
+    out["plain_tier_sq"] = sq
+    log(f"the training path's kernels against their plain versions on the "
+        f"trained bf16 arena ({lay.total_words} words, {part.total_blocks} "
+        f"blocks): {json.dumps(out)}")
+    return out
+
+
+def phase_train(device, launches: dict) -> dict:
+    """Phase 17(a): qwen2-1.5b at full width and depth trained
+    arena-resident under SCAR and ``FabricConfig()`` through a two-host
+    loss; ``launches["train"]`` gets the counts of the 8-step run."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import ShardedLMDataset
+    from repro_torch.kernels import _build
+    from repro_torch.telemetry import Recorder
+    from repro_torch.training import ArenaTrainState
+
+    cfg = get_config("qwen2-1.5b")
+    torch.cuda.reset_peak_memory_stats()
+    rec = Recorder()
+    loop = _train_loop(cfg, device, schedule=TRAIN_SCHEDULE, recorder=rec)
+    t0 = time.perf_counter()
+    state = loop.init_state(torch.Generator(device=device).manual_seed(SEED))
+    init_s = time.perf_counter() - t0
+    check(isinstance(state, ArenaTrainState), "the trainer did not take "
+          "the arena-resident path")
+    ds = ShardedLMDataset(cfg, TRAIN["batch"], TRAIN["seq"], seed=0,
+                          device=device)
+    it = iter(ds)
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    state = loop.run(state, it, TRAIN["steps"])
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches["train"] = dict(_build.LAUNCHES)
+    losses = [m["loss"] for m in loop.metrics]
+    check(all(math.isfinite(x) for x in losses), f"losses {losses}")
+    check(abs(losses[0] - math.log(cfg.vocab)) <= 1.0,
+          f"step 1's loss {losses[0]} is not within 1.0 of ln V = "
+          f"{math.log(cfg.vocab):.3f}")
+    fab = loop.controller.fabric
+    check(fab.stats["arena_resident_maintains"]
+          == fab.stats["arena_maintains"] > 0,
+          f"the hot path packed: {fab.stats['arena_resident_maintains']} "
+          f"resident of {fab.stats['arena_maintains']} sweeps")
+    fails = [(m["step"], f) for m in loop.metrics
+             for f in m.get("failures", [])]
+    check(len(fails) == 1, f"{len(fails)} recoveries, not 1")
+    info = fails[0][1]
+    _check_recovery(info, "qwen2-1.5b training")
+    clean = [m["seconds"] for m in loop.metrics if "failures" not in m]
+    step_s = statistics.median(clean)
+    summ = loop.overhead_summary()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    # one more clean step under the profiler: the card's busy share
+    loop.loop_cfg.fail_schedule = None
+    holder = {}
+    share = device_share(lambda: holder.update(
+        state=loop.run(state, it, 1)))
+    part = loop.controller.partition
+    # the kernels against their plain versions on the run's own bf16
+    # arena; the optimizer's moments go first (the checks need room)
+    arena = holder["state"].arena
+    del state, holder
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = check_train_kernels(loop, arena, info, device)
+    del arena
+    out = {"params": sum(math.prod(l.shape) for l in part.leaves),
+           "blocks": part.total_blocks,
+           "arena_gb": loop.arena_layout.nbytes / 1e9,
+           "parity_gb": fab.redundancy_nbytes()["parity"] / 1e9,
+           "init_seconds": init_s, "run_seconds": run_s,
+           "losses": losses, "step_seconds": [m["seconds"]
+                                              for m in loop.metrics],
+           "median_step_seconds": step_s,
+           "tokens_per_second": TRAIN["batch"] * TRAIN["seq"] / step_s,
+           "overhead_p50": summ["overhead_seconds_p50"],
+           "overhead_p95": summ["overhead_seconds_p95"],
+           "overhead_phases_p50": {k: v["p50"]
+                                   for k, v in summ["phases"].items()},
+           "maintain_bytes_per_step": summ["maintain_bytes_per_step"],
+           "recovery_step": fails[0][0],
+           "recovery_seconds": rec.tracer.durations("recovery"),
+           "lost_blocks": info["lost_blocks"],
+           "tier_counts": info["tier_counts"], "tier_sq": info["tier_sq"],
+           "fallbacks": len(info["tier_fallbacks"]),
+           "peak_memory_gb": peak, "clean_step_profile": share,
+           "events": sorted({e["kind"] for e in rec.events}),
+           "kernels_held": held}
+    log(f"qwen2-1.5b training, batch {TRAIN['batch']} x {TRAIN['seq']}, "
+        f"{TRAIN['steps']} steps: {json.dumps(out)}")
+    return out
+
+
+def phase_train_bit_equal(device) -> dict:
+    """Phase 17(b): qwen2-1.5b at full width with 4 layers, arena-resident
+    and on the PyTree path in turn, deterministic algorithms on: losses,
+    the checkpoint arena, ``saved_iter`` and the final parameters
+    bit-equal."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.arena import pack_arena
+    from repro_torch.data import ShardedLMDataset
+    from repro_torch.training import ArenaTrainState, TrainState
+
+    cfg = dataclasses.replace(get_config("qwen2-1.5b"), n_layers=4)
+    torch.use_deterministic_algorithms(True)
+    try:
+        runs = {}
+        for arena in (True, False):
+            loop = _train_loop(cfg, device, arena_state=arena)
+            state = loop.init_state(
+                torch.Generator(device=device).manual_seed(SEED + 17))
+            check(isinstance(state, ArenaTrainState if arena
+                             else TrainState), "wrong state form")
+            ds = ShardedLMDataset(cfg, TRAIN["batch"], TRAIN["seq"],
+                                  seed=0, device=device)
+            state = loop.run(state, iter(ds), 4)
+            losses = [m["loss"] for m in loop.metrics]
+            ctl = loop.controller
+            final = (state.arena if arena
+                     else pack_arena(state.params, ctl.arena_layout))
+            runs[arena] = {"losses": losses,
+                           "ckpt": ctl._ckpt_arena.clone(),
+                           "saved": ctl.ckpt.saved_iter.clone(),
+                           "final": final.clone(),
+                           "saves": ctl.stats["saves"]}
+            del loop, state, ctl, final
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    a, t = runs[True], runs[False]
+    check(a["saves"] >= 1, "no save")
+    check(a["losses"] == t["losses"],
+          f"losses differ: arena {a['losses']}, PyTree {t['losses']}")
+    for k in ("ckpt", "saved", "final"):
+        check(torch.equal(a[k], t[k]), f"the {k} differs between the arena "
+              f"and the PyTree paths")
+    out = {"losses": a["losses"], "saves": a["saves"],
+           "ckpt_words": a["ckpt"].numel()}
+    log(f"qwen2-1.5b (4 layers) arena against PyTree, bit-equal: "
+        f"{json.dumps(out)}")
+    return out
+
+
+def _small_train(name: str, device, params_np) -> dict:
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import ShardedLMDataset
+
+    cfg = get_config(name, reduced=True)
+    loop = _train_loop(cfg, device, per_layer=False)
+    state = loop.init_state(params=params_np)
+    it = iter(ShardedLMDataset(cfg, TRAIN_SMALL["batch"], TRAIN_SMALL["seq"],
+                               seed=0, device=device))
+    half = TRAIN_SMALL["steps"] // 2
+    state = loop.run(state, it, half)
+    state, info = loop.inject_failure(state, 0.5)
+    # phase 17(a)'s two hosts lost at the second run's second step, so
+    # that PARITY (parity_xor) runs too
+    loop.loop_cfg.fail_schedule = [(2, kind, h)
+                                   for _, kind, h in TRAIN_SCHEDULE]
+    state = loop.run(state, it, TRAIN_SMALL["steps"] - half)
+    hosts = [f for m in loop.metrics for f in m.get("failures", [])]
+    check(len(hosts) == 1, f"{len(hosts)} host-loss recoveries, not 1")
+    return {"losses": [m["loss"] for m in loop.metrics],
+            "saved_iter": loop.controller.ckpt.saved_iter.cpu().tolist(),
+            "tier_counts": info["tier_counts"],
+            "host_tier_counts": hosts[0]["tier_counts"],
+            "host_tier_sq": hosts[0]["tier_sq"],
+            "applied_sq": info["applied_sq"]}
+
+
+def phase_train_vs_cpu(device) -> dict:
+    """Phase 17(c): reduced qwen2-1.5b and mamba2-370m (f32, 2 layers,
+    the reference's stacked partition) from the same weights, batches and
+    policy on the card and on the CPU: 6 steps, one
+    ``inject_failure(0.5)`` and the two-host loss; losses within rtol
+    1e-4, ``saved_iter`` and both losses' tier counts equal, PARITY used
+    at zero perturbation."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.interop import to_numpy_tree
+    from repro_torch.models import get_model
+
+    out = {}
+    for i, name in enumerate(("qwen2-1.5b", "mamba2-370m")):
+        cfg = get_config(name, reduced=True)
+        params_np = to_numpy_tree(get_model(cfg).init_params(
+            torch.Generator().manual_seed(SEED + 18 + i), cfg, device="cpu"))
+        gpu = _small_train(name, device, params_np)
+        cpu = _small_train(name, "cpu", params_np)
+        rel = max(abs(g - c) / abs(c) for g, c in zip(gpu["losses"],
+                                                      cpu["losses"]))
+        check(rel <= LOSS_RTOL, f"{name}: card losses {gpu['losses']}, CPU "
+              f"{cpu['losses']}")
+        check(gpu["saved_iter"] == cpu["saved_iter"]
+              and gpu["tier_counts"] == cpu["tier_counts"]
+              and gpu["host_tier_counts"] == cpu["host_tier_counts"],
+              f"{name}: the card {gpu} and the CPU {cpu} differ")
+        check(gpu["host_tier_counts"]["PARITY"] > 0
+              and gpu["host_tier_sq"]["PARITY"] == 0.0
+              and gpu["host_tier_sq"]["PEER_REPLICA"] == 0.0,
+              f"{name}: the two-host loss {gpu['host_tier_counts']}, "
+              f"{gpu['host_tier_sq']}")
+        out[name] = {"losses": gpu["losses"], "max_rel_loss_diff": rel,
+                     "tier_counts": gpu["tier_counts"],
+                     "host_tier_counts": gpu["host_tier_counts"]}
+    log(f"reduced trainers, card against CPU: {json.dumps(out)}")
+    return out
+
+
+def phase_train_mamba2(device) -> dict:
+    """Phase 17(d): mamba2-370m at full width (d 1024, state 128, headdim
+    64, bf16) with 4 of its 48 layers, arena-resident, 3 steps."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import ShardedLMDataset
+    from repro_torch.training import ArenaTrainState
+
+    cfg = dataclasses.replace(get_config("mamba2-370m"), n_layers=4)
+    torch.cuda.reset_peak_memory_stats()
+    loop = _train_loop(cfg, device)
+    state = loop.init_state(
+        torch.Generator(device=device).manual_seed(SEED + 20))
+    check(isinstance(state, ArenaTrainState), "not arena-resident")
+    ds = ShardedLMDataset(cfg, TRAIN["batch"], TRAIN["seq"], seed=0,
+                          device=device)
+    state = loop.run(state, iter(ds), 3)
+    losses = [m["loss"] for m in loop.metrics]
+    check(all(math.isfinite(x) for x in losses), f"losses {losses}")
+    out = {"losses": losses,
+           "step_seconds": [m["seconds"] for m in loop.metrics],
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    log(f"mamba2-370m (4 layers) training, batch {TRAIN['batch']} x "
+        f"{TRAIN['seq']}: {json.dumps(out)}")
+    return out
+
+
+def train_phases(device, launches: dict) -> dict:
+    """Phase 17, its four parts; each frees what it built."""
+    import torch
+    t0 = time.perf_counter()
+    out = {"qwen2_full": phase_train(device, launches)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["bit_equal"] = phase_train_bit_equal(device)
+    out["card_vs_cpu"] = phase_train_vs_cpu(device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["mamba2_4_layers"] = phase_train_mamba2(device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    for name in TRAIN_KERNELS:
+        check(launches["train"][name] > 0,
+              f"{name} was not launched on the train path")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 17: {out['seconds']:.1f} s")
+    return out
+
+
+TRAIN_KERNELS = ("arena_maintain", "arena_scatter", "masked_restore",
+                 "block_dist", "parity_xor")
+
+
+def train_only(device, card: str) -> int:
+    """``--train``: phase 17 alone. Its last line says that it is this
+    partial run, never the full run's ``{"ok": true, ...}``."""
+    import torch
+    launches = {}
+    out = train_phases(device, launches)
+    log(json.dumps({"train": out, "launches": launches["train"]}))
+    log(card)
+    log(json.dumps({"train_only": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def erasure_only(a_tree, device, int_rate: float, card: str) -> int:
     """``--erasure``: phase 3's parity_xor encode and phase 9 alone, with
     the erasure kernels' SASS instruction mix. Its last line says that it
@@ -2270,6 +2791,8 @@ def main(argv: list) -> int:
     log(f"kernels: {'built in ' + format(built, '.1f') + ' s' if built else 'reused'}"
         f" ({time.perf_counter() - t0:.1f} s to load)")
 
+    if "--train" in argv:
+        return train_only(device, card)
     gen = torch.Generator(device=device).manual_seed(SEED)
     shapes = qwen2_1_5b_shapes()
     a_tree = _map_shapes(shapes, lambda s: torch.randn(
@@ -2356,6 +2879,9 @@ def main(argv: list) -> int:
     mamba2 = phase_mamba2_serve(device, launches)
     torch.cuda.empty_cache()
     qwen2 = phase_qwen2_serve(device, launches)
+    gc.collect()
+    torch.cuda.empty_cache()
+    train = train_phases(device, launches)
     log(json.dumps({"launches": launches}))
     old = ("block_dist", "scatter_save", "masked_restore")
     new = ("arena_maintain", "arena_scatter", "parity_xor")
@@ -2367,7 +2893,8 @@ def main(argv: list) -> int:
                         ("leaf_fabric", ("fused_maintain", "scatter_save",
                                          "parity_xor", "masked_restore")),
                         ("mamba2_serve", ("ssd_intra",)),
-                        ("qwen2_serve", ("sw_attention",))):
+                        ("qwen2_serve", ("sw_attention",)),
+                        ("train", TRAIN_KERNELS)):
         for name in names:
             check(launches[path][name] > 0,
                   f"{name} was not launched on the {path} path")
@@ -2410,11 +2937,12 @@ def main(argv: list) -> int:
                        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                        "bound_by": r["bound_by"],
-                       "library_ms": r["library_ms"]})
+                       "library_ms": r["library_ms"],
+                       "train_launches": launches["train"][name]})
     log(json.dumps({"controller": ctl, "fabric": fabric,
                     "rs_fabric": rs_fabric, "leaf_fabric": leaf_fabric,
                     "multi_erasure": multi, "mamba2_serve": mamba2,
-                    "qwen2_serve": qwen2, "serve_kernels": {
+                    "qwen2_serve": qwen2, "train": train, "serve_kernels": {
                         name: kernels[name]
                         for name in ("ssd_intra", "sw_attention")},
                     "gf256_mac_shapes": kernels["gf256_mac"]["shapes"],

@@ -29,9 +29,13 @@ are zero after ``pack`` and every arena mutation keeps them zero.
 Routing tables are **per tile** for the main region (``tile_gids``,
 ``tile_codes``) and per word only for the tail region (``tail_tables``):
 a per-word table of a 1.5 B-value model would hold 1.5 B host entries.
-The value domain (``pack_values``/``decode_values``/``encode_values``,
-the LM trainer's optimizer seam) and the mesh (``relayout_*``,
-``arena_block_homes``, ``out_sharding``) are not ported here.
+Alongside the word domain the layout describes a **value domain**, the LM
+trainer's optimizer seam: per leaf, ``seg_elems = seg_words * ratio`` f32
+values per block at ``value_offset``. ``pack_values`` packs a tree of
+gradients into it, and ``decode_values``/``encode_values`` move between
+the two domains one coalesced same-dtype run at a time
+(``value_runs``); for an all-f32 layout both are the identity. The mesh
+(``relayout_*``, ``arena_block_homes``, ``out_sharding``) is not here.
 """
 from __future__ import annotations
 
@@ -42,8 +46,10 @@ import numpy as np
 import torch
 
 from repro_torch.core.blocks import (WORD_DTYPE_NAMES, BlockPartition,
-                                     decode_block_words, leaf_block_words,
-                                     leaf_word_width, word_packable)
+                                     decode_block_words, dtype_word_ratio,
+                                     leaf_block_view, leaf_block_words,
+                                     leaf_frame_width, leaf_word_width,
+                                     word_packable)
 from repro_torch.kernels.leaf_table import leaf_arrays
 from repro_torch.utils.tree import tree_leaves, tree_unflatten
 
@@ -104,6 +110,10 @@ class ArenaLayout:
     gid_ptr: np.ndarray                 # (total_blocks + 1,) CSR pointers
     tail_start: int                     # word offset of the tail region
     leaf_order: tuple[int, ...]         # leaf indices in offset order
+    payload_elems: tuple[int, ...]      # live elements per block, per leaf
+    seg_elems: tuple[int, ...]          # value-domain elems per block, per leaf
+    value_offset: tuple[int, ...]       # value-domain start per leaf
+    total_values: int                   # f32 value-domain length
 
     @property
     def n_tiles(self) -> int:
@@ -116,6 +126,48 @@ class ArenaLayout:
     @property
     def has_tail(self) -> bool:
         return self.tail_start < self.total_words
+
+    @property
+    def uniform_f32(self) -> bool:
+        """True when every leaf is f32: words are values and the value
+        domain is the identity (``total_values == total_words``)."""
+        return all(l.dtype == torch.float32 for l in self.partition.leaves)
+
+    def value_runs(self) -> tuple[tuple[int, int, int, int, torch.dtype],
+                                  ...]:
+        """Cached coalesced decode/encode plan: ``(word_start, words,
+        value_start, values, dtype)`` per run of consecutive same-dtype
+        leaves in offset order (pads ride inside their leaf's run; the
+        tail-alignment gap closes an f32 run). An all-f32 or an all-bf16
+        model is one run."""
+        cached = getattr(self, "_value_runs", None)
+        if cached is None:
+            runs: list[list] = []   # [w0, nw, v0, nv, dtype]
+            w = v = 0
+
+            def push(nw: int, nv: int, dt: torch.dtype) -> None:
+                nonlocal w, v
+                if nw == 0:
+                    return
+                if runs and runs[-1][4] == dt:
+                    runs[-1][1] += nw
+                    runs[-1][3] += nv
+                else:
+                    runs.append([w, nw, v, nv, dt])
+                w += nw
+                v += nv
+
+            for li in self.leaf_order:
+                leaf = self.partition.leaves[li]
+                dt = leaf.dtype if word_packable(leaf.dtype) \
+                    else torch.float32
+                push(self.seg_words[li] * leaf.n_blocks,
+                     self.seg_elems[li] * leaf.n_blocks, dt)
+            push(self.total_words - w, self.total_values - v, torch.float32)
+            assert w == self.total_words and v == self.total_values
+            cached = tuple(tuple(r) for r in runs)
+            object.__setattr__(self, "_value_runs", cached)
+        return cached
 
     @property
     def padding_ratio(self) -> float:
@@ -259,21 +311,30 @@ def build_arena_layout(partition: BlockPartition,
     blocks: list[ArenaBlock] = []
     leaf_offset = [0] * n
     seg_words = [0] * n
-    off = 0
+    payload_elems = [0] * n
+    seg_elems = [0] * n
+    value_offset = [0] * n
+    off = voff = 0
     tail_start = None
     for li in order:
         leaf = partition.leaves[li]
         seg = pw_leaf[li] if is_tail[li] else _align(pw_leaf[li])
         if is_tail[li] and tail_start is None:
             tail_start = off
+        r = dtype_word_ratio(leaf.dtype)
         leaf_offset[li] = off
         seg_words[li] = seg
+        payload_elems[li] = leaf_frame_width(leaf, br)
+        seg_elems[li] = seg * r
+        value_offset[li] = voff
         for b in range(leaf.n_blocks):
             blocks.append(ArenaBlock(leaf=li, gid=leaf.offset + b,
                                      offset=off, words=seg,
                                      payload=pw_leaf[li]))
             off += seg
+            voff += seg * r
     total_words = _align(off)
+    total_values = voff + total_words - off   # the gap holds f32 values
     if tail_start is None:
         tail_start = total_words
     ab_gid = np.asarray([ab.gid for ab in blocks], np.int64)
@@ -290,7 +351,11 @@ def build_arena_layout(partition: BlockPartition,
                        total_words=total_words,
                        ab_t0=ab_t0, ab_nt=ab_last - ab_t0 + 1,
                        gid_ab=gid_order, gid_ptr=gid_ptr,
-                       tail_start=tail_start, leaf_order=tuple(order))
+                       tail_start=tail_start, leaf_order=tuple(order),
+                       payload_elems=tuple(payload_elems),
+                       seg_elems=tuple(seg_elems),
+                       value_offset=tuple(value_offset),
+                       total_values=total_values)
 
 
 # ---------------------------------------------------------------------------
@@ -341,6 +406,73 @@ def unpack_arena(arena: torch.Tensor, layout: ArenaLayout) -> PyTree:
             x = x.clone()
         out.append(x)
     return tree_unflatten(layout.partition.treedef, out)
+
+
+# ---------------------------------------------------------------------------
+# value domain (the optimizer seam)
+# ---------------------------------------------------------------------------
+
+def pack_values(values: PyTree, layout: ArenaLayout) -> torch.Tensor:
+    """Pack a tree into the flat ``(total_values,)`` f32 value buffer, the
+    gradient and moment counterpart of :func:`pack_arena`: each leaf's
+    block view cast to f32 at ``value_offset``, every pad 0.0. For an
+    all-f32 layout it holds the same bits as ``pack_arena``."""
+    part = layout.partition
+    leaves = tree_leaves(values)
+    out = torch.empty((layout.total_values,), dtype=torch.float32,
+                      device=leaves[0].device)
+    end = 0
+    for li in layout.leaf_order:
+        leaf = part.leaves[li]
+        se, pe = layout.seg_elems[li], layout.payload_elems[li]
+        off = layout.value_offset[li]
+        dst = out[off:off + leaf.n_blocks * se].view(leaf.n_blocks, se)
+        dst[:, :pe].copy_(leaf_block_view(leaves[li], part.block_rows))
+        if se > pe:
+            dst[:, pe:].zero_()
+        end = off + leaf.n_blocks * se
+    out[end:].zero_()
+    return out
+
+
+def decode_words(words: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """A run's int32 words -> its f32 values (``dtype_word_ratio`` values
+    a word, element 0 in the low-order bytes)."""
+    if dtype == torch.float32:
+        return words.view(torch.float32)
+    return words.view(dtype).to(torch.float32)
+
+
+def encode_words(values: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Inverse of :func:`decode_words`: f32 values -> int32 words, the
+    values cast to ``dtype`` (round to nearest even, as ``astype``) and
+    bitcast."""
+    if dtype == torch.float32:
+        return values.view(torch.int32)
+    return values.to(dtype).view(torch.int32)
+
+
+def decode_values(arena: torch.Tensor, layout: ArenaLayout) -> torch.Tensor:
+    """Word arena -> ``(total_values,)`` f32 values, one slice and bitcast
+    per coalesced same-dtype run (a float view of the arena itself for an
+    all-f32 layout). Sub-word pads decode to 0.0."""
+    if layout.uniform_f32:
+        return arena.view(torch.float32)
+    parts = [decode_words(arena[w0:w0 + nw], dt)
+             for w0, nw, _v0, _nv, dt in layout.value_runs()]
+    return torch.cat(parts) if len(parts) > 1 else parts[0]
+
+
+def encode_values(values: torch.Tensor, layout: ArenaLayout
+                  ) -> torch.Tensor:
+    """Inverse of :func:`decode_values`: re-encode the f32 value buffer
+    into ``(total_words,)`` int32 arena words (0.0 pads re-encode to zero
+    bits, invariant I4)."""
+    if layout.uniform_f32:
+        return values.view(torch.int32)
+    parts = [encode_words(values[v0:v0 + nv], dt)
+             for _w0, _nw, v0, nv, dt in layout.value_runs()]
+    return torch.cat(parts) if len(parts) > 1 else parts[0]
 
 
 def arena_drift_scores(live: torch.Tensor, ref: torch.Tensor,

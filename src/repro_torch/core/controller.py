@@ -105,6 +105,8 @@ class FTController:
             if isinstance(fabric, FabricConfig):
                 fabric = CheckpointFabric(self.partition, fabric,
                                           recorder=self.recorder)
+            elif self.recorder.enabled:
+                fabric.attach_recorder(self.recorder)
             if policy.recovery == RecoveryMode.FULL:
                 # the tier planner is partial by nature (survivors keep
                 # their live values)
@@ -223,6 +225,7 @@ class FTController:
         one contiguous copy. ``own_live`` rides along to the freshness
         maintain after the save (see :meth:`maintain`)."""
         t0 = time.perf_counter()
+        moved0 = self.stats["save_bytes_moved"]
         pol = self.policy
         live = self._live_arena(params)
         full_plain = (pol.fraction >= 1.0
@@ -278,9 +281,18 @@ class FTController:
         # paper's training resumes here
         synchronize(self.device)
         n_blocks = int(torch.sum(mask))
+        save_seconds = time.perf_counter() - t0
         self.stats["saves"] += 1
         self.stats["blocks_saved"] += n_blocks
-        self.stats["save_seconds"] += time.perf_counter() - t0
+        self.stats["save_seconds"] += save_seconds
+        if self.recorder.enabled:
+            self.recorder.histogram("controller/save_seconds").observe(
+                save_seconds)
+            self.recorder.event(
+                "save", step=int(step), blocks=n_blocks,
+                bytes_moved=self.stats["save_bytes_moved"] - moved0,
+                seconds=save_seconds,
+                mode="arena" if self._arena_layout is not None else "tree")
         if self.fabric is not None and not self.fabric.is_fresh(int(step)):
             # keep the redundancy tiers at least as fresh as the checkpoint
             self.fabric.maintain(int(step), params, force=True,
@@ -428,9 +440,9 @@ class FTController:
 
     def scrub(self, step: Optional[int] = None) -> dict:
         """Run the fabric's silent-error integrity pass. A corruption the
-        scrub corrects applies no perturbation (the exact bits are back);
-        the recorder prices it once the full telemetry is ported (ROADMAP
-        item 9). ``checked=False`` without an integrity-capable fabric."""
+        scrub corrects applies no perturbation (the exact bits are back),
+        and the recorder prices it at 0. ``checked=False`` without an
+        integrity-capable fabric."""
         if self.fabric is None:
             return {"checked": False, "detected": 0, "corrected": 0,
                     "reports": []}
@@ -470,6 +482,13 @@ class FTController:
                 failed_devices=failed_devices, step=step,
                 persist_failure=persist_failure)
             return self.pack_live(recovered), info
+        if self.recorder.enabled:
+            self.recorder.event(
+                "failure", step=None if step is None else int(step),
+                lost_blocks=int(np.asarray(torch.as_tensor(lost_mask).cpu(),
+                                           bool).sum()),
+                failed_devices=(0 if failed_devices is None
+                                else int(np.asarray(failed_devices).size)))
         if self.fabric is not None:
             lost = (lost_mask.cpu().numpy() if isinstance(
                 lost_mask, torch.Tensor) else np.asarray(lost_mask)) \

@@ -37,8 +37,11 @@ and 2 racks are bookkeeping over the one device the tensors live on.
 Not ported yet, and raising ``NotImplementedError`` with their ROADMAP
 item: ``async_maintain=True`` (item 12), ``mesh=`` and ``resize_mesh``
 (item 15). The reference's ``use_pallas`` option is gone: each kernel runs
-on CUDA tensors and its plain version on CPU tensors. Telemetry events
-come with the full recorder (item 9).
+on CUDA tensors and its plain version on CPU tensors. With a real
+recorder attached the fabric emits the reference's ``maintain`` (inside a
+fenced ``maintain`` span), ``tier_fallback``, ``rehome`` and ``heal``
+events and registers its ``fabric/fence_seconds`` histogram; with
+``NULL_RECORDER`` every emit point is skipped.
 """
 from __future__ import annotations
 
@@ -62,7 +65,7 @@ from repro_torch.kernels.fused_maintain.ops import (ArenaMaintainProgram,
                                                     maintain_traffic,
                                                     make_fused_maintain_fn)
 from repro_torch.sharding.partition import block_device_homes
-from repro_torch.telemetry.recorder import NULL_RECORDER
+from repro_torch.telemetry.recorder import NULL_RECORDER, Histogram
 
 PyTree = Any
 
@@ -156,6 +159,9 @@ class CheckpointFabric:
         # True once a maintain has been fed the live arena itself: the
         # accounting then follows the resident model
         self.live_arena_mode = False
+        # deferred-fence waits of async maintenance (ROADMAP item 12); the
+        # synchronous fabric never books one, so it stays empty
+        self.fence_hist = Histogram()
         self.stats = self.recorder.scope("fabric", {
             "replica_refreshes": 0, "parity_encodes": 0,
             "recoveries": 0, "rehomes": 0, "heals": 0,
@@ -171,6 +177,26 @@ class CheckpointFabric:
         if self.arena_layout is not None:
             self.stats["arena_padding_ratio"] = float(
                 self.arena_layout.padding_ratio)
+        if self.recorder.enabled:
+            self.recorder.adopt_histogram("fabric/fence_seconds",
+                                          self.fence_hist)
+
+    def attach_recorder(self, recorder: Any) -> None:
+        """Late-bind a recorder (the controller's attach path for a prebuilt
+        fabric). No-op if ``recorder`` is null or one is already live; the
+        stats dict is registered by reference, so its readers keep
+        working."""
+        if recorder is None or not getattr(recorder, "enabled", False) \
+                or self.recorder.enabled:
+            return
+        self.recorder = recorder
+        self.stats = recorder.scope("fabric", self.stats)
+        recorder.adopt_histogram("fabric/fence_seconds", self.fence_hist)
+
+    def overlap_efficiency(self) -> float:
+        """Fraction of async sweep wall-clock hidden under the trainer's
+        compute: 0.0, as synchronous maintenance hides nothing."""
+        return 0.0
 
     # -- maintenance ---------------------------------------------------------
 
@@ -196,24 +222,37 @@ class CheckpointFabric:
             return
         live = as_live_arena(params, self.arena_layout)
         due_replica, due_parity = self.maintenance_due(step, force=force)
-        if self.arena_layout is not None and (
-                (due_replica and due_parity)
-                or (live is not None and (due_replica or due_parity))):
-            self._arena_maintain(step, params, ckpt_values,
-                                 own_live=own_live)
-        elif self.cfg.fused and due_replica and due_parity:
-            self._fused_maintain(step, params, ckpt_values)
-        else:
-            t = self._traffic_model()
-            if due_replica:
-                self.replicas.refresh(step, params)
-                self.stats["replica_refreshes"] += 1
-                self.stats["maintain_bytes_moved"] += t["replica_pass"]
-            if due_parity:
-                self.parity.encode(step, params)
-                self.stats["parity_encodes"] += 1
-                self.stats["maintain_bytes_moved"] += t["parity_pass"]
+        b0 = self.stats["maintain_bytes_moved"]
+        mode = "components"
+        with self.recorder.span("maintain", step=step,
+                                fence=self.block_until_maintained):
+            if self.arena_layout is not None and (
+                    (due_replica and due_parity)
+                    or (live is not None and (due_replica or due_parity))):
+                self._arena_maintain(step, params, ckpt_values,
+                                     own_live=own_live)
+                mode = ("arena_resident" if live is not None
+                        and not own_live else "arena")
+            elif self.cfg.fused and due_replica and due_parity:
+                self._fused_maintain(step, params, ckpt_values)
+                mode = "fused"
+            else:
+                t = self._traffic_model()
+                if due_replica:
+                    self.replicas.refresh(step, params)
+                    self.stats["replica_refreshes"] += 1
+                    self.stats["maintain_bytes_moved"] += t["replica_pass"]
+                if due_parity:
+                    self.parity.encode(step, params)
+                    self.stats["parity_encodes"] += 1
+                    self.stats["maintain_bytes_moved"] += t["parity_pass"]
         self.last_maintained_step = step
+        if self.recorder.enabled:
+            self.recorder.event(
+                "maintain", step=step, mode=mode,
+                bytes_moved=self.stats["maintain_bytes_moved"] - b0,
+                ici_bytes=0, dcn_bytes=0,
+                replica=due_replica, parity=due_parity)
 
     def _arena_maintain(self, step: int, params: PyTree,
                         ckpt_values, own_live: bool = False) -> None:
@@ -458,7 +497,10 @@ class CheckpointFabric:
         stats["recovered_epoch"] = step
         stats["staleness"] = 0
         stats["tier_fallbacks"] = plan.fallbacks
-        self.stats["tier_fallbacks"] += len(plan.fallbacks)
+        for fb in plan.fallbacks:
+            self.stats["tier_fallbacks"] += 1
+            if self.recorder.enabled:
+                self.recorder.event("tier_fallback", step=step, **fb)
         if self.cfg.elastic and failed.size:
             stats["placement"] = self._replan(step, recovered)
         return recovered, stats
@@ -484,11 +526,14 @@ class CheckpointFabric:
         self.planner.rehome()
         self.last_maintained_step = step
         self.stats["rehomes"] += 1
-        return {"rehomed_blocks": int(displaced.size),
-                "alive_devices": self.view.n_alive_devices,
-                "alive_hosts": self.view.n_alive_hosts,
-                "parity_groups": (self.parity.n_groups
-                                  if self.parity is not None else 0)}
+        out = {"rehomed_blocks": int(displaced.size),
+               "alive_devices": self.view.n_alive_devices,
+               "alive_hosts": self.view.n_alive_hosts,
+               "parity_groups": (self.parity.n_groups
+                                 if self.parity is not None else 0)}
+        if self.recorder.enabled:
+            self.recorder.event("rehome", step=step, **out)
+        return out
 
     # -- healing -------------------------------------------------------------
 
@@ -504,6 +549,10 @@ class CheckpointFabric:
             return info
         self.stats["heals"] += 1
         if not self.cfg.elastic:
+            if self.recorder.enabled:
+                self.recorder.event("heal", domain_kind=kind,
+                                    domain_index=int(index), step=step,
+                                    **info)
             return info
         at = int(step) if step is not None else self.last_maintained_step
         moved = rebalance_homes(self.view)
@@ -523,6 +572,9 @@ class CheckpointFabric:
         self.planner.rehome()
         info["rebalanced_blocks"] = int(moved.size)
         info["alive_hosts"] = self.view.n_alive_hosts
+        if self.recorder.enabled:
+            self.recorder.event("heal", domain_kind=kind,
+                                domain_index=int(index), step=step, **info)
         return info
 
     # -- integrity (silent errors) -------------------------------------------
@@ -565,10 +617,17 @@ class CheckpointFabric:
                 corrected = True
                 out["corrected"] += 1
                 self.stats["silent_errors_corrected"] += 1
-            out["reports"].append(dict(
-                step=step, group=rep["group"], kind=rep["kind"],
-                member=rep["member"], block=rep["block"], row=rep["row"],
-                localized=rep["localized"], corrected=corrected))
+            ev = dict(step=step, group=rep["group"], kind=rep["kind"],
+                      member=rep["member"], block=rep["block"],
+                      row=rep["row"], localized=rep["localized"],
+                      corrected=corrected)
+            out["reports"].append(ev)
+            if self.recorder.enabled:
+                # the bus stamps its own ``kind``: the report's is
+                # ``error_kind`` there
+                self.recorder.event("silent_error_detected", **{
+                    ("error_kind" if k == "kind" else k): v
+                    for k, v in ev.items()})
         return out
 
     def inject_arena_bit_flip(self, block: Optional[int] = None,

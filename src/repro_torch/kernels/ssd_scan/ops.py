@@ -32,6 +32,17 @@ def ssd_chunked_kernel(x, dt, A, Bm, Cm, chunk: int, h0=None):
     Bm, Cm: (B,S,N); h0: (B,H,P,N) or None.
     Returns (y (B,S,H,P), h_final (B,H,P,N)), f32.
     """
+    return _ssd_chunked(ssd_intra, x, dt, A, Bm, Cm, chunk, h0)
+
+
+def ssd_chunked_plain(x, dt, A, Bm, Cm, chunk: int, h0=None):
+    """:func:`ssd_chunked_kernel` with the plain intra-chunk part on every
+    device: the reference's jnp ``ssd_chunked``, differentiable, so the
+    trainer runs its scan through it."""
+    return _ssd_chunked(ssd_intra_ref, x, dt, A, Bm, Cm, chunk, h0)
+
+
+def _ssd_chunked(intra, x, dt, A, Bm, Cm, chunk: int, h0=None):
     Bsz, S, H, P = x.shape
     N = Bm.shape[-1]
     Q = min(chunk, S)
@@ -45,7 +56,7 @@ def ssd_chunked_kernel(x, dt, A, Bm, Cm, chunk: int, h0=None):
     Bc = Bm.reshape(Bsz, nc, Q, N)
     Cc = Cm.reshape(Bsz, nc, Q, N)
 
-    y_intra, chunk_state = ssd_intra(la, dtc, xc, Bc, Cc)
+    y_intra, chunk_state = intra(la, dtc, xc, Bc, Cc)
     chunk_state = chunk_state.transpose(-1, -2)              # (B,nc,H,P,N)
 
     cum = torch.cumsum(la, dim=2)

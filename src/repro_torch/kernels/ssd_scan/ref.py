@@ -14,8 +14,13 @@ def ssd_intra_ref(la, dt, x, Bm, Cm):
     decay = cum[:, :, :, None, :] - cum[:, :, None, :, :]      # (B,nc,Q,Q,H)
     causal = torch.tril(torch.ones((Q, Q), dtype=torch.bool,
                                    device=la.device))
-    M = torch.where(causal[None, None, :, :, None], torch.exp(decay),
-                    torch.zeros((), device=la.device)) \
+    # the mask goes in before the exp: above the diagonal ``decay`` is
+    # positive and its exp overflows to inf over a long chunk, and
+    # ``where(causal, exp(decay), 0)`` would then carry inf * 0 = nan into
+    # the gradient; masked to -inf the exp is 0 with a zero gradient, and
+    # the forward values are the same
+    M = torch.exp(torch.where(causal[None, None, :, :, None], decay,
+                              torch.full((), -torch.inf, device=la.device))) \
         * scores[..., None] * dt[:, :, None, :, :]
     y = torch.einsum("bcijh,bcjhp->bcihp", M, x)
     w = torch.exp(cum[:, :, -1:, :] - cum) * dt                # (B,nc,Q,H)

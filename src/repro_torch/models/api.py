@@ -6,7 +6,7 @@
 - ``init_cache(cfg, batch, seq_len, device=None)``  -> serving state
 - ``prefill(params, batch, cfg)``                   -> (logits, state)
 - ``decode_step(params, state, tokens, cfg)``       -> (logits, state)
-- ``train_loss``: raises, the LM trainer is ROADMAP item 10
+- ``train_loss(params, batch, cfg)``                 -> mean loss (f32)
 
 The port serves the ``ssm`` family and the ``dense`` family without MoE.
 The families and options it leaves out raise ``NotImplementedError``
@@ -47,11 +47,6 @@ def serve_cache_len(cfg: ModelConfig, seq_len: int) -> int:
     return seq_len
 
 
-def _train_loss(*args, **kwargs):
-    raise NotImplementedError("the LM training loss is not ported yet "
-                              "(ROADMAP item 10)")
-
-
 def _transformer_ops(cfg: ModelConfig) -> ModelOps:
     def init_cache(cfg, batch, seq_len, device=None):
         spec = transformer.cache_spec(cfg, seq_len, use_window=True)
@@ -73,7 +68,7 @@ def _transformer_ops(cfg: ModelConfig) -> ModelOps:
 
     return ModelOps(
         init_params=transformer.init_params,
-        train_loss=_train_loss,
+        train_loss=transformer.train_loss,
         init_cache=init_cache,
         prefill=prefill,
         decode_step=decode_step,
@@ -84,7 +79,7 @@ def _transformer_ops(cfg: ModelConfig) -> ModelOps:
 def _ssm_ops(cfg: ModelConfig) -> ModelOps:
     return ModelOps(
         init_params=ssm.init_params,
-        train_loss=_train_loss,
+        train_loss=ssm.train_loss,
         init_cache=lambda cfg, batch, seq_len, device=None: ssm.init_state(
             cfg, batch, device),
         prefill=ssm.prefill,

@@ -1,18 +1,23 @@
-"""Shared transformer layers, the serve subset: RMSNorm, RoPE, chunked
-(flash-style) GQA attention, SwiGLU MLP, embedding and the LM head.
+"""Shared transformer layers: RMSNorm, RoPE, chunked (flash-style) GQA
+attention with its backward, SwiGLU MLP, embedding, the LM head and the
+chunked LM loss.
 
 The port of ``repro.models.layers`` for one device: plain functions on
 tensors, explicit ``torch.Generator``s for the initialisers. The
-attention is the forward of the reference's chunked online softmax
-(``_fwd_chunks``/``_attend_chunk``): a plain version that never holds more
-than one (q_chunk x kv_chunk) tile of scores. Decode uses it on every
-device; prefill uses it on the CPU, and on the card prefill goes through
-the ``sw_attention`` kernel (``repro_torch.models.transformer``).
+attention is the reference's chunked online softmax
+(``_fwd_chunks``/``_attend_chunk``), a plain version that never holds more
+than one (q_chunk x kv_chunk) tile of scores. Training takes its gradient
+through ``_Flash``, the reference's custom VJP as a
+``torch.autograd.Function``: the forward keeps ``o`` and the row
+log-sum-exp, and the backward recomputes each tile (no S x S matrix is
+kept). Decode uses the forward on every device; prefill uses it on the
+CPU, and on the card prefill goes through the ``sw_attention`` kernel
+(``repro_torch.models.transformer``). ``lm_loss_chunked`` recomputes each
+chunk's logits in backward (``torch.utils.checkpoint``).
 
-Left out, for the LM trainer (ROADMAP item 10) and the perf variants: the
-custom VJP, MoE, the int8 KV cache, the triangle prefill and the chunked
-LM loss. The mesh (item 15) is not here: the single-device port takes no
-``ctx``.
+Left out, for the perf variants and the other families: MoE, the int8 KV
+cache and the triangle prefill. The mesh (item 15) is not here: the
+single-device port takes no ``ctx``.
 """
 from __future__ import annotations
 
@@ -21,8 +26,10 @@ from typing import Any, Optional
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.utils.tree import tree_flatten, tree_map, tree_unflatten
 
 PyTree = Any
 
@@ -48,6 +55,40 @@ def dense_init(gen: torch.Generator, shape, in_axis_size: Optional[int] = None,
                     dtype=torch.float32) * scale
     return w.to(device=device if device is not None else gen.device,
                 dtype=dtype)
+
+
+def unstack_layers(layers: PyTree, n: int) -> list:
+    """The stacked ``params["layers"]`` as ``n`` per-layer trees, each leaf
+    a view from one ``torch.unbind``: autograd gathers the layers'
+    gradients back into one stacked gradient per leaf. A list of
+    per-layer trees (:func:`split_layers`) is returned as it is."""
+    if isinstance(layers, (list, tuple)):
+        return list(layers)
+    leaves, treedef = tree_flatten(layers)
+    per = [torch.unbind(x, 0) for x in leaves]
+    return [tree_unflatten(treedef, [p[i] for p in per]) for i in range(n)]
+
+
+def split_layers(params: PyTree, n: int) -> PyTree:
+    """``params`` with its stacked ``"layers"`` replaced by a list of ``n``
+    per-layer trees, each leaf a contiguous copy of its layer's slice (the
+    stacked leaves are released). The SCAR partition then cuts blocks of
+    ``block_rows`` rows out of each layer's matrices, where a stacked
+    leaf's leading dim makes every one of its blocks span all layers."""
+    out = dict(params)
+    out["layers"] = [tree_map(torch.clone, lp)
+                     for lp in unstack_layers(params["layers"], n)]
+    return out
+
+
+def remat(fn, *args, enabled: bool = True):
+    """``fn(*args)``, recomputed in backward with nothing saved inside it
+    (``torch.utils.checkpoint``, non-reentrant) when ``enabled`` and
+    gradients are being recorded: the per-layer remat of the trainer."""
+    if enabled and torch.is_grad_enabled():
+        return torch.utils.checkpoint.checkpoint(
+            fn, *args, use_reentrant=False, preserve_rng_state=False)
+    return fn(*args)
 
 
 def layer_params(params: PyTree, i: int) -> PyTree:
@@ -126,10 +167,11 @@ def _fwd_chunks(qg, kc, vc, qposc, kposc, *, causal, window, scale,
     """Forward over all (q-chunk x kv-chunk) tiles with online softmax.
 
     qg: (B, nq, qc, Hk, G, Dh); kc/vc: (B, nk, kc, Hk, Dh).
-    Returns o (B, nq, qc, Hk, G, Dh) in q's dtype.
+    Returns (o (B, nq, qc, Hk, G, Dh) in q's dtype, lse (B, nq, Hk, G, qc)
+    f32).
     """
     B, nq = qg.shape[0], qg.shape[1]
-    outs = []
+    outs, lses = [], []
     for i in range(nq):
         qck, qpck = qg[:, i], qposc[i]
         if window > 0 and Skv > window + q_chunk:
@@ -159,8 +201,11 @@ def _fwd_chunks(qg, kc, vc, qposc, kposc, *, causal, window, scale,
             l = l * r_old + lt * r_new
             m = m_new
         l = torch.clamp_min(l, 1e-30)
+        # the output in the input dtype: the backward's D is recomputed in
+        # f32 from it, as in the reference
         outs.append((acc / l.permute(0, 3, 1, 2)[..., None]).to(qck.dtype))
-    return torch.stack(outs, dim=1)
+        lses.append(m + torch.log(l))
+    return torch.stack(outs, dim=1), torch.stack(lses, dim=1)
 
 
 def _pad_chunks(q, k, v, qpos, kpos, q_chunk, kv_chunk):
@@ -183,15 +228,108 @@ def _pad_chunks(q, k, v, qpos, kpos, q_chunk, kv_chunk):
             kpos.reshape(nk, kv_chunk), nq, nk)
 
 
+def _flash_fwd(q, k, v, qpos, kpos, causal, window, q_chunk, kv_chunk):
+    """q: (B, Sq, Hk, G, Dh); k/v: (B, Skv, Hk, Dh). Returns (o in q's
+    shape and dtype, lse (B, nq, Hk, G, qc) f32)."""
+    B, Sq, Hk, G, Dh = q.shape
+    Skv = k.shape[1]
+    scale = 1.0 / math.sqrt(Dh)
+    qg, kc, vc, qposc, kposc, nq, nk = _pad_chunks(
+        q, k, v, qpos, kpos, q_chunk, kv_chunk)
+    o, lse = _fwd_chunks(qg, kc, vc, qposc, kposc, causal=causal,
+                         window=window, scale=scale, q_chunk=q_chunk,
+                         kv_chunk=kv_chunk, nk=nk, Skv=Skv)
+    return o.reshape(B, nq * q_chunk, Hk, G, Dh)[:, :Sq], lse
+
+
+def _tile_mask(qpos, kpos, causal, window):
+    if causal:
+        mask = kpos[None, :] <= qpos[:, None]
+    else:
+        mask = torch.ones((qpos.shape[0], kpos.shape[0]), dtype=torch.bool,
+                          device=qpos.device)
+    if window:
+        mask = mask & (qpos[:, None] - kpos[None, :] < window)
+    return mask & (kpos >= 0)[None, :]
+
+
+def _flash_bwd(q, k, v, qpos, kpos, o, lse, do, causal, window, q_chunk,
+               kv_chunk):
+    """The reference's ``_flash_core_bwd``: per q chunk, every kv chunk's
+    tile is recomputed from the saved ``lse``; dq accumulates over the kv
+    chunks and dk/dv over the q chunks, in f32."""
+    B, Sq, Hk, G, Dh = q.shape
+    Skv = k.shape[1]
+    scale = 1.0 / math.sqrt(Dh)
+    qg, kc, vc, qposc, kposc, nq, nk = _pad_chunks(
+        q, k, v, qpos, kpos, q_chunk, kv_chunk)
+    dpad = nq * q_chunk - Sq
+    dog = F.pad(do.to(torch.float32), (0, 0, 0, 0, 0, 0, 0, dpad)
+                ).reshape(B, nq, q_chunk, Hk, G, Dh)
+    og = F.pad(o.to(torch.float32), (0, 0, 0, 0, 0, 0, 0, dpad)
+               ).reshape(B, nq, q_chunk, Hk, G, Dh)
+    # D_i = rowsum(do * o): (B, nq, Hk, G, qc)
+    Drow = torch.einsum("bnqhgd,bnqhgd->bnhgq", dog, og)
+    dq_parts = []
+    dk = torch.zeros((B, nk, kv_chunk, Hk, Dh), dtype=torch.float32,
+                     device=q.device)
+    dv = torch.zeros_like(dk)
+    for i in range(nq):
+        qck = qg[:, i].to(torch.float32)                # (B,qc,Hk,G,Dh)
+        dock, lsek, Dk = dog[:, i], lse[:, i], Drow[:, i]
+        dq = torch.zeros_like(qck)
+        for j in range(nk):
+            kt = kc[:, j].to(torch.float32)             # (B,kc,Hk,Dh)
+            vt = vc[:, j].to(torch.float32)
+            s = torch.einsum("bqhgd,bkhd->bhgqk", qck, kt) * scale
+            mask = _tile_mask(qposc[i], kposc[j], causal, window)
+            p = torch.where(mask, torch.exp(s - lsek[..., None]),
+                            torch.zeros((), device=s.device))
+            dv[:, j] += torch.einsum("bhgqk,bqhgd->bkhd", p, dock)
+            dp = torch.einsum("bqhgd,bkhd->bhgqk", dock, vt)
+            ds = p * (dp - Dk[..., None]) * scale
+            dq = dq + torch.einsum("bhgqk,bkhd->bqhgd", ds, kt)
+            dk[:, j] += torch.einsum("bhgqk,bqhgd->bkhd", ds, qck)
+        dq_parts.append(dq)
+    dq = torch.stack(dq_parts, dim=1).reshape(B, nq * q_chunk, Hk, G, Dh)
+    dk = dk.reshape(B, nk * kv_chunk, Hk, Dh)[:, :Skv]
+    dv = dv.reshape(B, nk * kv_chunk, Hk, Dh)[:, :Skv]
+    return (dq[:, :Sq].to(q.dtype), dk.to(k.dtype), dv.to(v.dtype))
+
+
+class _Flash(torch.autograd.Function):
+    """Chunked attention with the reference's flash-style VJP: the forward
+    saves q, k, v, o and the row log-sum-exp; the backward recomputes the
+    tiles."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, qpos, kpos, causal, window, q_chunk,
+                kv_chunk):
+        o, lse = _flash_fwd(q, k, v, qpos, kpos, causal, window, q_chunk,
+                            kv_chunk)
+        ctx.save_for_backward(q, k, v, qpos, kpos, o, lse)
+        ctx.args = (causal, window, q_chunk, kv_chunk)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, qpos, kpos, o, lse = ctx.saved_tensors
+        dq, dk, dv = _flash_bwd(q, k, v, qpos, kpos, o, lse, do, *ctx.args)
+        return dq, dk, dv, None, None, None, None, None, None
+
+
 def flash_attention(q, k, v, qpos, kpos, *, causal=True, window=0,
                     q_chunk=1024, kv_chunk=1024) -> torch.Tensor:
-    """Chunked attention with online softmax, forward only.
+    """Chunked attention with online softmax and a flash-style backward.
 
     q: (B, Sq, Hq, Dh);  k, v: (B, Skv, Hk, Dh);  Hq = G·Hk (GQA: query
-    head h reads kv head h // G). qpos: (Sq,) absolute positions; kpos:
-    (Skv,) positions (-1 = an empty ring slot). ``window > 0`` restricts
-    to a sliding window (only kv chunks that the band reaches are
-    visited). Returns (B, Sq, Hq, Dh) in q's dtype.
+    head h reads kv head h // G; the kv heads are repeated to Hq, and
+    autograd sums their gradients back). qpos: (Sq,) absolute positions;
+    kpos: (Skv,) positions (-1 = an empty ring slot). ``window > 0``
+    restricts to a sliding window (the forward visits only the kv chunks
+    that the band reaches). With gradients needed it runs through
+    ``_Flash``; otherwise the forward alone. Returns (B, Sq, Hq, Dh) in
+    q's dtype.
     """
     B, Sq, Hq, Dh = q.shape
     _, Skv, Hk, _ = k.shape
@@ -202,13 +340,13 @@ def flash_attention(q, k, v, qpos, kpos, *, causal=True, window=0,
         k = torch.repeat_interleave(k, G, dim=2)
         v = torch.repeat_interleave(v, G, dim=2)
     qg = q.reshape(B, Sq, Hq, 1, Dh)
-    scale = 1.0 / math.sqrt(Dh)
-    qgc, kc, vc, qposc, kposc, nq, nk = _pad_chunks(
-        qg, k, v, qpos, kpos, q_chunk, kv_chunk)
-    o = _fwd_chunks(qgc, kc, vc, qposc, kposc, causal=causal, window=window,
-                    scale=scale, q_chunk=q_chunk, kv_chunk=kv_chunk, nk=nk,
-                    Skv=Skv)
-    o = o.reshape(B, nq * q_chunk, Hq, 1, Dh)[:, :Sq]
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        o = _Flash.apply(qg, k, v, qpos, kpos, causal, window, q_chunk,
+                         kv_chunk)
+    else:
+        o, _ = _flash_fwd(qg, k, v, qpos, kpos, causal, window, q_chunk,
+                          kv_chunk)
     return o.reshape(B, Sq, Hq, Dh).to(q.dtype)
 
 
@@ -291,7 +429,8 @@ def init_embed(gen: torch.Generator, cfg: ModelConfig, dtype,
 
 
 def embed_tokens(tokens: torch.Tensor, p) -> torch.Tensor:
-    """Token embedding lookup: a plain gather (one device)."""
+    """Token embedding lookup: a plain gather (one device); its gradient is
+    the scatter-add of the rows back into the table."""
     return p["embed"][tokens.long()]
 
 
@@ -301,3 +440,44 @@ def lm_logits(h: torch.Tensor, p) -> torch.Tensor:
     head = p.get("lm_head", p["embed"])
     return torch.einsum("bsd,vd->bsv", h.to(torch.float32),
                         head.to(torch.float32))
+
+
+def _chunk_loss(hx, yx, mx, head):
+    """One chunk's summed masked cross-entropy and its mask count, from
+    f32 logits of the f32 head."""
+    logits = torch.einsum("bcd,vd->bcv", hx.to(torch.float32),
+                          head.to(torch.float32))
+    nll = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                          yx.reshape(-1).long(), reduction="none")
+    return torch.sum(nll * mx.reshape(-1)), torch.sum(mx)
+
+
+def lm_loss_chunked(h, p, labels, mask, cfg: ModelConfig) -> torch.Tensor:
+    """Next-token cross-entropy without holding (B, S, V) logits.
+
+    h: (B,S,D); labels/mask: (B,S). Walks S in chunks of the reference's
+    size (``cfg.loss_chunk`` tokens per 8 sequences, at least 128),
+    keeping the batch dim; each chunk's (B, chunk, V) f32 logits are
+    recomputed in backward, never saved (``torch.utils.checkpoint``).
+    Returns the mean over the mask's tokens, f32.
+    """
+    B, S, D = h.shape
+    head = p.get("lm_head", p["embed"])
+    C = min(max(cfg.loss_chunk // max(B // 8, 1), 128), S)
+    while S % C:
+        C //= 2
+    C = max(C, 1)
+    mf = mask.to(torch.float32)
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    count = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c in range(S // C):
+        sl = slice(c * C, (c + 1) * C)
+        if torch.is_grad_enabled():
+            loss, cnt = torch.utils.checkpoint.checkpoint(
+                _chunk_loss, h[:, sl], labels[:, sl], mf[:, sl], head,
+                use_reentrant=False, preserve_rng_state=False)
+        else:
+            loss, cnt = _chunk_loss(h[:, sl], labels[:, sl], mf[:, sl], head)
+        total = total + loss
+        count = count + cnt
+    return total / torch.clamp_min(count, 1.0)

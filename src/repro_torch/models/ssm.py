@@ -16,11 +16,16 @@ Simplifications kept from the reference: a single B/C group
 Decode is the O(1) recurrent form, h <- a·h + dt·B⊗x per layer, in plain
 torch: no TPU kernel covers it.
 
+Training (``train_loss``, ``mixer_fwd``) runs the scan through the plain
+``ssd_chunked_plain`` on every device, as the reference trains through its
+jnp oracle: autograd differentiates it, and the ssd_intra kernel is
+forward-only. Each layer is recomputed in backward when ``cfg.remat``.
+
 Parameters keep the reference's stacked leaves: every per-layer weight has
 a leading ``n_layers`` dim under ``params["layers"]``, walked by a Python
 loop, so ``interop.from_numpy_tree`` carries the reference's params across
-unchanged and the SCAR block partition matches. The training loss waits
-for the LM trainer (ROADMAP item 10); the mesh (item 15) is not here.
+unchanged and the SCAR block partition matches. The mesh (item 15) is not
+here.
 """
 from __future__ import annotations
 
@@ -31,7 +36,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.kernels.ssd_scan.ops import ssd_chunked_kernel
+from repro_torch.kernels.ssd_scan.ops import (ssd_chunked_kernel,
+                                              ssd_chunked_plain)
 from repro_torch.models import layers as L
 
 PyTree = Any
@@ -118,6 +124,24 @@ def ssd_chunked(x, dt, A, Bm, Cm, cfg: ModelConfig, h0=None):
     return ssd_chunked_kernel(x, dt, A, Bm, Cm, cfg.ssm_chunk, h0)
 
 
+def mixer_fwd(x, p, cfg: ModelConfig):
+    """x: (B,S,D) -> (B,S,D), the training path: the plain, differentiable
+    SSD scan."""
+    zxbcdt = torch.einsum("bsd,de->bse", x, p["in_proj"])
+    z, xi, Bm, Cm, dtr = _split_proj(zxbcdt, cfg)
+    xi, _ = _causal_conv(xi, p["conv_w"])
+    H, P = cfg.ssm_heads, cfg.ssm_headdim
+    Bsz, S, _ = x.shape
+    xh = xi.reshape(Bsz, S, H, P).to(torch.float32)
+    dt = _softplus(dtr.to(torch.float32) + p["dt_bias"])
+    A = -torch.exp(p["A_log"])
+    y, _ = ssd_chunked_plain(xh, dt, A, Bm.to(torch.float32),
+                             Cm.to(torch.float32), cfg.ssm_chunk)
+    y = y + xh * p["D_skip"][:, None]
+    y = y.reshape(Bsz, S, cfg.d_inner).to(x.dtype) * F.silu(z)
+    return torch.einsum("bse,ed->bsd", y, p["out_proj"])
+
+
 def mixer_decode(x, p, state, cfg: ModelConfig):
     """Single-token recurrent step. x: (B,1,D); state: dict(h, conv)."""
     zxbcdt = torch.einsum("bsd,de->bse", x, p["in_proj"])
@@ -141,6 +165,23 @@ def mixer_decode(x, p, state, cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 # model-level API
 # ---------------------------------------------------------------------------
+
+def train_loss(params, batch, cfg: ModelConfig, **_) -> torch.Tensor:
+    """Mean next-token cross-entropy of ``batch`` (``tokens``, ``labels``
+    and an optional ``mask``), f32."""
+    h = L.embed_tokens(batch["tokens"], params)
+    for lp in L.unstack_layers(params["layers"], cfg.n_layers):
+        h = h + L.remat(lambda x, lp=lp: mixer_fwd(
+            L.rms_norm(x, lp["norm"]), lp["mixer"], cfg), h,
+            enabled=cfg.remat)
+    h = L.rms_norm(h, params["final_norm"])
+    labels = batch["labels"]
+    mask = batch.get("mask")
+    if mask is None:
+        mask = torch.ones(labels.shape, dtype=torch.float32,
+                          device=labels.device)
+    return L.lm_loss_chunked(h, params, labels, mask, cfg)
+
 
 def init_state(cfg: ModelConfig, batch: int, device: DeviceLike = None
                ) -> PyTree:

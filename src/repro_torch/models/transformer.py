@@ -14,16 +14,22 @@ Decode attention reads the cache (one query, ``kpos = -1`` holes in a
 ring) and stays the plain ``flash_attention`` on every device, as in the
 reference: no TPU kernel covers it.
 
+Training (``train_loss``) is the reference's: full causal attention
+through ``layers.flash_attention``'s flash-style backward on every device
+(the reference trains without a kernel too), unless ``window_override``
+asks for a band, each layer recomputed in backward when ``cfg.remat``, and
+the chunked LM loss.
+
 Layers are stacked along a leading ``n_layers`` dim, as in the reference,
 and walked by a Python loop. Left out: MoE, interleaved MoE, the VLM
 prefix, the int8 KV cache and the triangle prefill (``models.api`` names
-their ROADMAP items), the training loss (item 10) and the mesh (item 15).
-``decode_step`` writes the new token's K/V into the cache in place.
+their ROADMAP items) and the mesh (item 15). ``decode_step`` writes the
+new token's K/V into the cache in place.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, Optional
 
 import torch
 
@@ -63,6 +69,54 @@ def init_params(gen: torch.Generator, cfg: ModelConfig,
         "final_norm": torch.ones((cfg.d_model,), dtype=_dtype(cfg),
                                  device=dev),
     }
+
+
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+def _layer_fwd(x, lp, cfg: ModelConfig, positions, window: int,
+               q_chunk: int, kv_chunk: int):
+    h = L.attention_block(L.rms_norm(x, lp["attn_norm"]), lp["attn"], cfg,
+                          positions=positions, causal=True, window=window,
+                          q_chunk=q_chunk, kv_chunk=kv_chunk)
+    x = x + h
+    return x + L.mlp_block(L.rms_norm(x, lp["mlp_norm"]), lp["mlp"])
+
+
+def _stack_fwd(h, params, cfg: ModelConfig, positions, *, window: int,
+               q_chunk: int = 1024, kv_chunk: int = 1024):
+    """Every layer in turn (each recomputed in backward when
+    ``cfg.remat``), then the final norm."""
+    for lp in L.unstack_layers(params["layers"], cfg.n_layers):
+        h = L.remat(lambda x, lp=lp: _layer_fwd(
+            x, lp, cfg, positions, window, q_chunk, kv_chunk),
+            h, enabled=cfg.remat)
+    return L.rms_norm(h, params["final_norm"])
+
+
+def _embed_batch(params, batch, cfg: ModelConfig):
+    """Token embeddings -> (B, S, D)."""
+    return L.embed_tokens(batch["tokens"], params)
+
+
+def train_loss(params, batch, cfg: ModelConfig, *,
+               window_override: Optional[int] = None) -> torch.Tensor:
+    """Mean next-token cross-entropy of ``batch`` (``tokens``, ``labels``
+    and an optional ``mask``), f32. Full causal attention unless
+    ``window_override`` gives a band."""
+    h = _embed_batch(params, batch, cfg)
+    S = h.shape[1]
+    positions = torch.arange(S, dtype=torch.int32, device=h.device)
+    window = 0 if window_override is None else window_override
+    h = _stack_fwd(h, params, cfg, positions, window=window,
+                   q_chunk=cfg.attn_chunk, kv_chunk=cfg.attn_chunk)
+    labels = batch["labels"]
+    mask = batch.get("mask")
+    if mask is None:
+        mask = torch.ones(labels.shape, dtype=torch.float32,
+                          device=labels.device)
+    return L.lm_loss_chunked(h, params, labels, mask, cfg)
 
 
 # ---------------------------------------------------------------------------

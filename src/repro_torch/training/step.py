@@ -1,0 +1,122 @@
+"""Train-step builders of the LM trainer, the port of
+``repro.training.step``.
+
+``make_train_step`` is the PyTree step. ``make_arena_train_step`` is its
+arena-native twin: the live parameters enter and leave the step as the
+flat word arena (:mod:`repro_torch.core.arena`), decoded at the top of the
+step into fresh leaf-shaped tensors that require grad, laid out as the
+PyTree path's leaves (so both paths hand the same operands to the same
+GEMMs), the loss and its gradient taken with respect to that tree (NOT
+through the decode: differentiating through it would scatter each leaf
+into a full-arena gradient), the gradient packed to the f32 value domain
+(``pack_values``), and the optimizer run over the arena in place
+(:func:`repro_torch.optim.optimizers.arena_apply`).
+
+Both steps accumulate microbatched gradients (``cfg.microbatch > 1``):
+the global batch is split into MB microbatches run in turn, their
+gradients summed in ``cfg.opt_moment_dtype`` and divided by MB; the loss
+is the microbatches' mean.
+
+A step returns ``(new_state, loss)`` with the loss a 0-d f32 tensor on
+the device (reading it waits for the step).
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.arena import pack_values, unpack_arena
+from repro_torch.models.api import ModelOps
+from repro_torch.models.layers import torch_dtype
+from repro_torch.optim.optimizers import Optimizer, arena_apply
+from repro_torch.training.train_state import ArenaTrainState, TrainState
+from repro_torch.utils.tree import tree_flatten, tree_map, tree_unflatten
+
+PyTree = Any
+
+
+def loss_and_grad(ops: ModelOps, cfg: ModelConfig, params: PyTree,
+                  batch: dict) -> tuple[torch.Tensor, PyTree]:
+    """The loss of ``batch`` and its gradient with respect to every leaf of
+    ``params`` (leaves the loss does not reach get zeros). The leaves are
+    taken as they are (aliases that require grad; nothing is copied)."""
+    leaves, treedef = tree_flatten(params)
+    leaves = [x.detach().requires_grad_(True) for x in leaves]
+    with torch.enable_grad():
+        loss = ops.train_loss(tree_unflatten(treedef, leaves), batch, cfg)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    grads = [torch.zeros_like(x) if g is None else g
+             for x, g in zip(leaves, grads)]
+    return loss.detach(), tree_unflatten(treedef, grads)
+
+
+def _microbatches(batch: dict, mb: int) -> list[dict]:
+    return [{k: v.reshape((mb, v.shape[0] // mb) + tuple(v.shape[1:]))[i]
+             for k, v in batch.items()} for i in range(mb)]
+
+
+def make_train_step(ops: ModelOps, cfg: ModelConfig, optimizer: Optimizer):
+    """The PyTree step: ``(TrainState, batch) -> (TrainState', loss)``."""
+
+    def train_step(state: TrainState, batch: dict):
+        mb = max(cfg.microbatch, 1)
+        if mb == 1:
+            loss, grads = loss_and_grad(ops, cfg, state.params, batch)
+        else:
+            acc_dtype = torch_dtype(cfg.opt_moment_dtype)
+            gacc = tree_map(lambda p: torch.zeros(
+                p.shape, dtype=acc_dtype, device=p.device), state.params)
+            loss_sum = 0.0
+            for bx in _microbatches(batch, mb):
+                l, g = loss_and_grad(ops, cfg, state.params, bx)
+                gacc = tree_map(lambda a, x: (a.to(torch.float32)
+                                              + x.to(torch.float32)
+                                              ).to(a.dtype), gacc, g)
+                loss_sum = loss_sum + l
+            loss = loss_sum / mb
+            grads = tree_map(lambda g: g / mb, gacc)
+        params, opt_state = optimizer.update(grads, state.opt_state,
+                                             state.params)
+        return TrainState(params, opt_state, state.step + 1), loss
+
+    return train_step
+
+
+def make_arena_train_step(ops: ModelOps, cfg: ModelConfig,
+                          optimizer: Optimizer, layout):
+    """The arena-native step: ``(ArenaTrainState, batch) -> (state',
+    loss)``, the arena and the moment buffers updated in place.
+
+    Bit-equal to the PyTree step: the decoded leaves hold the tree path's
+    values in its layout, ``pack_values`` of the grads is the f32 image of
+    the values the tree optimizer reads, and the flat apply is the same
+    elementwise arithmetic, re-encoded through each leaf's stored dtype as
+    the tree path's ``.to(p.dtype)``."""
+
+    def train_step(state: ArenaTrainState, batch: dict):
+        params = unpack_arena(state.arena, layout)
+        mb = max(cfg.microbatch, 1)
+        if mb == 1:
+            loss, g = loss_and_grad(ops, cfg, params, batch)
+            grads = pack_values(g, layout)
+        else:
+            acc_dtype = torch_dtype(cfg.opt_moment_dtype)
+            gacc = torch.zeros((layout.total_values,), dtype=acc_dtype,
+                               device=state.arena.device)
+            loss_sum = 0.0
+            for bx in _microbatches(batch, mb):
+                l, g = loss_and_grad(ops, cfg, params, bx)
+                gacc = (gacc.to(torch.float32)
+                        + pack_values(g, layout)).to(acc_dtype)
+                loss_sum = loss_sum + l
+            loss = loss_sum / mb
+            grads = gacc / mb     # in acc_dtype, as the tree path
+        del params, g
+        arena, opt_state = arena_apply(optimizer, grads, state.opt_state,
+                                       state.arena, layout)
+        return ArenaTrainState(arena, opt_state, state.step + 1,
+                               state.layout), loss
+
+    return train_step

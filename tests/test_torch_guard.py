@@ -22,6 +22,7 @@ from repro_torch.interop import load_parity_rows
 from repro_torch.models import get_model
 from repro_torch.models.classic import make_model
 from repro_torch.training.classic_runner import run_clean, run_with_failure
+from repro_torch.training import TrainLoop, TrainLoopConfig
 from repro_torch.training.serve import Server
 from repro_torch.utils.tree import tree_leaves
 
@@ -131,3 +132,26 @@ def test_fabric_and_store_name_their_roadmap_items():
     part = ctl.partition
     with pytest.raises(NotImplementedError, match="item 15"):
         CheckpointFabric(part, FabricConfig(), mesh=object())
+
+
+def test_trainer_defaults_to_cuda_and_names_its_roadmap_items():
+    """The LM trainer runs on the card unless asked otherwise, and raises
+    where no CUDA device is present; the store, async maintenance and the
+    elastic mesh still raise with their ROADMAP items."""
+    from repro_torch.data import ShardedLMDataset
+    cfg = get_config("qwen2-1.5b", reduced=True)
+    if torch.cuda.is_available():
+        assert TrainLoop(cfg).device.type == "cuda"
+        assert ShardedLMDataset(cfg, 2, 4).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            TrainLoop(cfg)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            ShardedLMDataset(cfg, 2, 4)
+    assert TrainLoop(cfg, device="cpu").device.type == "cpu"
+    with pytest.raises(NotImplementedError, match="item 11"):
+        TrainLoop(cfg, store=object(), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 12"):
+        TrainLoopConfig(fabric=FabricConfig(async_maintain=True))
+    with pytest.raises(NotImplementedError, match="item 15"):
+        TrainLoopConfig(elastic_mesh=True)
