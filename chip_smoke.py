@@ -154,17 +154,40 @@ Phases, each of which fails the run if it fails:
     ``saved_iter`` and tier counts equal. (d) mamba2-370m at full width
     with 4 of its 48 layers, arena-resident, 3 steps: finite losses, peak
     memory.
+18. The disk store and async maintenance, in a fresh directory under
+    ``build/`` (its free space checked against 20 GB first; removed at the
+    end, also when a check fails): (a) phase 17(a)'s model and batches with
+    ``FabricConfig(async_maintain=True)``, a ``ShardedCheckpointStore``,
+    ``scar(0.125, 32)`` (a 1/8 save every 4 steps), 8 steps, hosts 0 and 2
+    lost at step 5, held against the same run synchronous without a store
+    (deterministic algorithms on in both): losses, the checkpoint arena and
+    the tier counts equal; every sweep launched on the fabric's side stream;
+    the store read back onto the card equal to the checkpoint arena.
+    Reported: step seconds, the clean-step overhead and its split, the
+    fences, ``overlap_efficiency``, each save's seconds split into the
+    device-to-host copies, the background append and the parity mirror,
+    ``bytes_mirrored``, the disk bytes, the recovery, device memory after
+    each step. (b) The same model with 4 layers, ``FabricConfig(
+    replicate=False, parity=False)`` and a store, the PyTree path, 4 steps
+    and the two-host loss: DISK blocks > 0, restored in one masked_restore
+    launch from one read of the masked blocks, equal to the running
+    checkpoint; the store read through the CPU reader equals the card's
+    checkpoint. (c) The ported ``examples/train_lm_with_failures.py`` at
+    ``--tiny``, arena-resident and ``--pytree``: bit-equal losses.
 
 The line before the last is the kernels' JSON record (each kernel's
-launches on its own path, and ``train_launches`` on phase 17's); the last
-line is ``{"ok": true, "device": {...}}``. Without a CUDA device it exits
-non-zero and prints no result.
+launches on its own path, ``train_launches`` on phase 17's and
+``store_launches`` on phase 18's (a) and (b) together); the last line is
+``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
+and prints no result.
 
 ``python3 chip_smoke.py --erasure`` runs phase 1, phase 3's parity_xor
 encode and phase 9 alone and prints the erasure kernels' SASS instruction
 mix; its last line is ``{"erasure_only": true, "device": {...}}``, not the
 full run's. ``python3 chip_smoke.py --train`` runs phase 1 and phase 17
 alone; its last line is ``{"train_only": true, "device": {...}}``.
+``python3 chip_smoke.py --store`` runs phase 1 and phase 18 alone; its last
+line is ``{"store_only": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -2726,6 +2749,340 @@ TRAIN_KERNELS = ("arena_maintain", "arena_scatter", "masked_restore",
                  "block_dist", "parity_xor")
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: the trainer with the disk store and async maintenance
+# ---------------------------------------------------------------------------
+
+STORE_POLICY = (0.125, 32)       # scar(0.125, 32): a 1/8 save every 4 steps
+STORE_STEPS = 8
+STORE_FREE_BYTES = 20e9          # the reckoning of 18(a)'s disk use
+STORE_KERNELS_DISK = ("masked_restore", "block_dist", "scatter_save")
+
+
+def _store_loop(cfg, device, *, asy: bool, store=None, fabric_kw=None,
+                arena_state: bool = True, recorder=None,
+                schedule=TRAIN_SCHEDULE):
+    """``TrainLoop`` with adamw(3e-4), ``scar(0.125, 32)``, hosts 0 and 2
+    lost at step 5 (``schedule``), and ``FabricConfig(async_maintain=asy,
+    **fabric_kw)``."""
+    from repro_torch.core.policy import CheckpointPolicy
+    from repro_torch.fabric import FabricConfig
+    from repro_torch.optim import adamw
+    from repro_torch.training import TrainLoop, TrainLoopConfig
+    return TrainLoop(cfg, adamw(3e-4), TrainLoopConfig(
+        policy=CheckpointPolicy.scar(*STORE_POLICY),
+        fabric=FabricConfig(async_maintain=asy, **(fabric_kw or {})),
+        arena_state=arena_state, fail_schedule=schedule,
+        recorder=recorder), store=store, device=device)
+
+
+def _store_root() -> Path:
+    """A fresh store directory under ``build/`` (never committed), its
+    free space checked against 18(a)'s reckoning."""
+    import shutil
+    root = ROOT / "build" / "store_phase18"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    free = shutil.disk_usage(root).free
+    check(free >= STORE_FREE_BYTES,
+          f"{root} has {free / 1e9:.1f} GB free; phase 18 needs about "
+          f"{STORE_FREE_BYTES / 1e9:.0f} GB (a 3.56 GB initial mirror, "
+          f"0.45 GB of appends a save, the 10.71 GB parity mirror)")
+    return root
+
+
+def phase_store_async(device, launches: dict, root: Path) -> dict:
+    """Phase 18(a): qwen2-1.5b at full width and depth, async maintenance
+    with a store, against the same run synchronous without a store (same
+    weights and batches, deterministic algorithms on in both): losses, the
+    checkpoint arena and the tier counts equal."""
+    import torch
+    from repro_torch.checkpoint_io import ShardedCheckpointStore
+    from repro_torch.configs import get_config
+    from repro_torch.core.arena import pack_arena
+    from repro_torch.data import ShardedLMDataset
+    from repro_torch.kernels import _build
+    from repro_torch.telemetry import Recorder
+    from repro_torch.training import ArenaTrainState
+
+    cfg = get_config("qwen2-1.5b")
+    runs = {}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for asy in (False, True):
+            torch.cuda.reset_peak_memory_stats()
+            rec = Recorder()
+            store = (ShardedCheckpointStore(str(root / "a"), device=device)
+                     if asy else None)
+            loop = _store_loop(cfg, device, asy=asy, store=store,
+                               recorder=rec)
+            t0 = time.perf_counter()
+            state = loop.init_state(
+                torch.Generator(device=device).manual_seed(SEED + 30))
+            torch.cuda.synchronize()
+            init_s = time.perf_counter() - t0
+            check(isinstance(state, ArenaTrainState), "not arena-resident")
+            init_timings = dict(store.timings) if asy else {}
+            ds = ShardedLMDataset(cfg, TRAIN["batch"], TRAIN["seq"], seed=0,
+                                  device=device)
+            # device memory after init and after each step (in use, peak)
+            memory = [(torch.cuda.memory_allocated() / 1e9,
+                       torch.cuda.max_memory_allocated() / 1e9)]
+            if asy:
+                _build.reset_launches()
+            t0 = time.perf_counter()
+            state = loop.run(state, iter(ds), STORE_STEPS,
+                             on_step=lambda i, loss: memory.append((
+                                 torch.cuda.memory_allocated() / 1e9,
+                                 torch.cuda.max_memory_allocated() / 1e9)))
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+            if asy:
+                launches["store_async"] = dict(_build.LAUNCHES)
+            ctl, fab = loop.controller, loop.controller.fabric
+            fails = [(m["step"], f) for m in loop.metrics
+                     for f in m.get("failures", [])]
+            check(len(fails) == 1, f"{len(fails)} recoveries, not 1")
+            step, info = fails[0]
+            summ = loop.overhead_summary()
+            clean = [m["seconds"] for m in loop.metrics
+                     if "failures" not in m]
+            out = {"losses": [m["loss"] for m in loop.metrics],
+                   "ckpt": ctl._ckpt_arena.cpu(),
+                   "tier_counts": info["tier_counts"],
+                   "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+                   "memory_gb_by_step": memory,
+                   "step_seconds": [m["seconds"] for m in loop.metrics],
+                   "median_step_seconds": statistics.median(clean),
+                   "overhead_seconds": [m.get("overhead_seconds")
+                                        for m in loop.metrics],
+                   "overhead_p50": summ["overhead_seconds_p50"],
+                   "overhead_p95": summ["overhead_seconds_p95"],
+                   "overhead_phases_p50": {
+                       k: v["p50"] for k, v in summ["phases"].items()},
+                   "recovery_seconds": rec.tracer.durations("recovery")}
+            if asy:
+                saved = [m["step"] for m in loop.metrics
+                         if m.get("checkpointed")]
+                save_spans = {s.args["step"]: s.duration
+                              for s in rec.tracer.spans if s.name == "save"}
+                n_saves = ctl.stats["saves"]
+                t = store.timings
+                check(fab.stats["async_maintains"] == STORE_STEPS
+                      and fab.side_stream_launches == STORE_STEPS,
+                      f"{fab.stats['async_maintains']} async maintains, "
+                      f"{fab.side_stream_launches} arena_maintain launches "
+                      f"on the side stream; want {STORE_STEPS} of each")
+                out.update({
+                    "init_seconds": init_s, "run_seconds": run_s,
+                    "initial_mirror": init_timings,
+                    "tokens_per_second": TRAIN["batch"] * TRAIN["seq"]
+                    / statistics.median(clean),
+                    "fence_seconds": list(fab.fence_hist.samples),
+                    "overlap_efficiency": summ["overlap_efficiency"],
+                    "async_maintains": summ["async_maintains"],
+                    "side_stream_launches": fab.side_stream_launches,
+                    "saved_steps": saved,
+                    "save_span_seconds": [save_spans.get(s)
+                                          for s in saved],
+                    "controller_save_seconds": ctl.stats["save_seconds"]
+                    / max(n_saves, 1),
+                    "per_save": {k: (t[k] - init_timings[k])
+                                 / max(n_saves, 1) for k in t},
+                    "bytes_mirrored": ctl.stats["bytes_mirrored"],
+                    "disk_nbytes": store.disk_nbytes(),
+                    "redundancy_nbytes": fab.redundancy_nbytes(store=store),
+                    "recovery_step": step,
+                    "lost_blocks": info["lost_blocks"],
+                    "recovered_epoch": info["recovered_epoch"],
+                    "staleness": info["staleness"],
+                    "ledger_extra": rec.ledger.entries[-1].extra.get(
+                        "staleness")})
+                _check_recovery(info, "18(a) async with a store")
+            runs[asy] = out
+            layout = loop.arena_layout
+            del loop, state, ctl, fab
+            gc.collect()
+            torch.cuda.empty_cache()
+            if asy:
+                # the mirror read back onto the card, packed: the
+                # checkpoint arena, bit for bit
+                t0 = time.perf_counter()
+                back = pack_arena(store.read_all(), layout).cpu()
+                out["read_all_seconds"] = time.perf_counter() - t0
+                check(torch.equal(back, out["ckpt"]), "the store read back "
+                      "differs from the checkpoint arena")
+                del back
+            del store
+    finally:
+        torch.use_deterministic_algorithms(False)
+    s, a = runs[False], runs.pop(True)
+    check(a["losses"] == s["losses"],
+          f"async losses {a['losses']}, sync {s['losses']}")
+    check(torch.equal(a.pop("ckpt"), s.pop("ckpt")),
+          "the async checkpoint arena differs from the sync run's")
+    check(a["tier_counts"] == s["tier_counts"],
+          f"tier counts: async {a['tier_counts']}, sync {s['tier_counts']}")
+    check(all(math.isfinite(x) for x in a["losses"]), f"{a['losses']}")
+    a["sync"] = s      # the same run synchronous, without a store
+    log(f"18(a) qwen2-1.5b, async maintenance with a store, batch "
+        f"{TRAIN['batch']} x {TRAIN['seq']}, {STORE_STEPS} steps: "
+        f"{json.dumps(a)}")
+    return a
+
+
+def phase_store_disk(device, launches: dict, root: Path) -> dict:
+    """Phase 18(b): qwen2-1.5b with 4 layers, ``FabricConfig(
+    replicate=False, parity=False)`` and a store, on the PyTree path: 4
+    steps (a save at step 4), then hosts 0 and 2 lost. Blocks whose
+    running-checkpoint home died come back from DISK, equal to the running
+    checkpoint, in one masked_restore launch; the store read through the
+    CPU reader equals the card's checkpoint."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint_io import ShardedCheckpointStore
+    from repro_torch.configs import get_config
+    from repro_torch.data import ShardedLMDataset
+    from repro_torch.kernels import _build
+    from repro_torch.utils.tree import tree_leaves
+
+    cfg = dataclasses.replace(get_config("qwen2-1.5b"), n_layers=4)
+    store = ShardedCheckpointStore(str(root / "b"), device=device)
+    loop = _store_loop(cfg, device, asy=False, store=store,
+                       fabric_kw=dict(replicate=False, parity=False),
+                       arena_state=False, schedule=None)
+    state = loop.init_state(
+        torch.Generator(device=device).manual_seed(SEED + 31))
+    reads = []
+    read_blocks = store.read_blocks
+
+    def spy(mask):
+        reads.append((_build.LAUNCHES["masked_restore"],
+                      np.asarray(mask, bool).copy()))
+        return read_blocks(mask)
+
+    store.read_blocks = spy
+    ds = ShardedLMDataset(cfg, TRAIN["batch"], TRAIN["seq"], seed=0,
+                          device=device)
+    ctl = loop.controller
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    state = loop.run(state, iter(ds), 4)
+    check(ctl.stats["saves"] == 1, f"{ctl.stats['saves']} saves, not 1")
+    live = state.params
+    t1 = time.perf_counter()
+    rec, info = ctl.on_domain_events(live, [("host", 0), ("host", 2)],
+                                     step=4)
+    torch.cuda.synchronize()
+    recovery_s = time.perf_counter() - t1
+    run_s = time.perf_counter() - t0
+    launches["store_disk"] = dict(_build.LAUNCHES)
+    tiers = info["tier_counts"]
+    check(tiers["DISK"] > 0, f"no DISK blocks: {tiers}")
+    check(len(reads) == 1, f"{len(reads)} disk reads, not 1")
+    at_read, disk = reads[0]
+    check(int(disk.sum()) == tiers["DISK"], "the disk read's mask is not "
+          "the DISK tier's")
+    disk_launches = launches["store_disk"]["masked_restore"] - at_read
+    check(disk_launches == 1, f"the DISK restore took {disk_launches} "
+          f"masked_restore launches, not 1")
+    br = ctl.partition.block_rows
+    for leaf, x, ck in zip(ctl.partition.leaves, tree_leaves(rec),
+                           tree_leaves(ctl.ckpt.values)):
+        for b in np.nonzero(disk[leaf.offset:leaf.offset
+                                 + leaf.n_blocks])[0]:
+            rows = slice(int(b) * br, (int(b) + 1) * br)
+            check(torch.equal(x.reshape(max(leaf.rows, 1), -1)[rows],
+                              ck.reshape(max(leaf.rows, 1), -1)[rows]),
+                  f"DISK block {leaf.offset + int(b)} of {leaf.name} "
+                  f"differs from the running checkpoint")
+    back = store.reader("cpu").read_all()
+    check(all(torch.equal(x.cpu(), y) for x, y in
+              zip(tree_leaves(ctl.ckpt.values), tree_leaves(back))),
+          "the store read on the CPU differs from the card's checkpoint")
+    out = {"run_seconds": run_s, "recovery_seconds": recovery_s,
+           "tier_counts": tiers, "lost_blocks": info["lost_blocks"],
+           "tier_sq": info["tier_sq"],
+           "disk_masked_restore_launches": disk_launches,
+           "disk_nbytes": store.disk_nbytes(),
+           "losses": [m["loss"] for m in loop.metrics]}
+    log(f"18(b) qwen2-1.5b (4 layers), DISK tier: {json.dumps(out)}")
+    return out
+
+
+def phase_store_example(device, root: Path) -> dict:
+    """Phase 18(c): the ported ``train_lm_with_failures`` at ``--tiny`` on
+    the card, arena-resident and ``--pytree`` (deterministic algorithms
+    on): bit-equal losses, failures included."""
+    import torch
+    from repro_torch.examples import train_lm_with_failures as example
+
+    runs = {}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for flag in ((), ("--pytree",)):
+            args = example.parse_args(["--tiny", "--steps", "8",
+                                       "--fail-prob", "0.3",
+                                       "--device", str(device), *flag])
+            got = example.train(args, str(root / ("c" + "".join(flag))),
+                                verbose=False)
+            runs[bool(flag)] = {k: got[k] for k in ("losses", "failures",
+                                                    "saves", "arena_state")}
+            del got
+    finally:
+        torch.use_deterministic_algorithms(False)
+    a, t = runs[False], runs[True]
+    check(a["arena_state"] and not t["arena_state"], "wrong state forms")
+    check(a["losses"] == t["losses"] and a["failures"] == t["failures"],
+          f"the example's arena run {a} and PyTree run {t} differ")
+    log(f"18(c) the ported example, --tiny: {json.dumps(a)}")
+    return a
+
+
+def store_phases(device, launches: dict) -> dict:
+    """Phase 18, its three parts, in a store directory removed at the end
+    (also when a check fails)."""
+    import shutil
+    import torch
+    t0 = time.perf_counter()
+    root = _store_root()
+    try:
+        out = {"async_store": phase_store_async(device, launches, root)}
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["disk_tier"] = phase_store_disk(device, launches, root)
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["example"] = phase_store_example(device, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    for name in TRAIN_KERNELS:
+        check(launches["store_async"][name] > 0,
+              f"{name} was not launched on the store_async path")
+    for name in STORE_KERNELS_DISK:
+        check(launches["store_disk"][name] > 0,
+              f"{name} was not launched on the store_disk path")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 18: {out['seconds']:.1f} s")
+    return out
+
+
+def store_only(device, card: str) -> int:
+    """``--store``: phase 18 alone. Its last line says that it is this
+    partial run, never the full run's ``{"ok": true, ...}``."""
+    import torch
+    launches = {}
+    out = store_phases(device, launches)
+    log(json.dumps({"store": out, "launches": {
+        k: launches[k] for k in ("store_async", "store_disk")}}))
+    log(card)
+    log(json.dumps({"store_only": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def train_only(device, card: str) -> int:
     """``--train``: phase 17 alone. Its last line says that it is this
     partial run, never the full run's ``{"ok": true, ...}``."""
@@ -2793,6 +3150,8 @@ def main(argv: list) -> int:
 
     if "--train" in argv:
         return train_only(device, card)
+    if "--store" in argv:
+        return store_only(device, card)
     gen = torch.Generator(device=device).manual_seed(SEED)
     shapes = qwen2_1_5b_shapes()
     a_tree = _map_shapes(shapes, lambda s: torch.randn(
@@ -2882,6 +3241,9 @@ def main(argv: list) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     train = train_phases(device, launches)
+    gc.collect()
+    torch.cuda.empty_cache()
+    store = store_phases(device, launches)
     log(json.dumps({"launches": launches}))
     old = ("block_dist", "scatter_save", "masked_restore")
     new = ("arena_maintain", "arena_scatter", "parity_xor")
@@ -2938,11 +3300,14 @@ def main(argv: list) -> int:
                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                        "bound_by": r["bound_by"],
                        "library_ms": r["library_ms"],
-                       "train_launches": launches["train"][name]})
+                       "train_launches": launches["train"][name],
+                       "store_launches": launches["store_async"][name]
+                       + launches["store_disk"][name]})
     log(json.dumps({"controller": ctl, "fabric": fabric,
                     "rs_fabric": rs_fabric, "leaf_fabric": leaf_fabric,
                     "multi_erasure": multi, "mamba2_serve": mamba2,
-                    "qwen2_serve": qwen2, "train": train, "serve_kernels": {
+                    "qwen2_serve": qwen2, "train": train, "store": store,
+                    "serve_kernels": {
                         name: kernels[name]
                         for name in ("ssd_intra", "sw_attention")},
                     "gf256_mac_shapes": kernels["gf256_mac"]["shapes"],

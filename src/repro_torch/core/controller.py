@@ -1,15 +1,20 @@
 """Fault-tolerance controller (paper §4.3, Figure 4).
 
-The port of ``repro.core.controller.FTController``, without the disk store
-(``store=``, ROADMAP item 11). It owns the running checkpoint and drives:
+The port of ``repro.core.controller.FTController``. It owns the running
+checkpoint and drives:
 
 1. Checkpoint coordination: every ``policy.partial_interval`` iterations
    (``full_interval`` for r = 1), score blocks, update the in-memory
    running checkpoint on the params' device, and wait for the device
-   before training resumes (``save_seconds`` books device time).
+   before training resumes (``save_seconds`` books device time); then,
+   with a ``store`` (:class:`repro_torch.checkpoint_io.
+   ShardedCheckpointStore`), mirror the saved blocks to disk (in the
+   background under ``policy.async_persist``) and the fabric's parity
+   after them.
 2. Recovery coordination: on a failure (a lost-block mask), restore
    partially (PARTIAL: the masked_restore kernel on CUDA) or fully from
-   the running checkpoint.
+   the running checkpoint; the fabric's DISK tier reads the store, and a
+   store marked ``must_reload`` replaces the in-memory checkpoint.
 3. Fabric coordination (``fabric=``, a :class:`FabricConfig` or a built
    :class:`CheckpointFabric`): maintain the anti-affine replicas and the
    XOR parity beside the running checkpoint, and route ``on_failure``
@@ -39,6 +44,7 @@ from typing import Any, Callable, Optional
 import numpy as np
 import torch
 
+from repro_torch.checkpoint_io.store import gather_tiles
 from repro_torch.core.arena import (arena_drift_scores, as_live_arena,
                                     pack_arena, unpack_arena)
 from repro_torch.core.blocks import block_scores, partition_pytree
@@ -81,10 +87,6 @@ class FTController:
                  inplace_save: bool = True,
                  recorder: Optional[Any] = None,
                  device: DeviceLike = None):
-        if store is not None:
-            raise NotImplementedError(
-                "the on-disk checkpoint store is not ported yet (ROADMAP "
-                "item 11)")
         self.device = resolve_device(device)
         for x in tree_leaves(params):
             if x.device != self.device:
@@ -129,8 +131,20 @@ class FTController:
             self._ckpt_dirty = True   # the tree form is decoded on demand
         else:
             self._ckpt = init_running_checkpoint(params, self.partition)
-        # bytes_mirrored stays 0 without a store; it keeps the reference's
-        # stats keys
+        self.store = store
+        if store is not None:
+            store.attach_recorder(self.recorder)
+            kw = {}
+            if fabric is not None:
+                # domain-keyed disk layout: a DISK-tier read after a domain
+                # loss touches only the needed blocks' bytes
+                kw = dict(homes=fabric.view.homes, domains=fabric.domains)
+            if self._arena_layout is not None:
+                # arena segments: one append a host a save, sourced from
+                # the checkpoint arena
+                kw["arena_layout"] = self._arena_layout
+                kw["arena_values"] = self._ckpt_arena
+            store.init(params, self.partition, **kw)
         self.stats = self.recorder.scope("controller", {
             "saves": 0, "recoveries": 0, "save_seconds": 0.0,
             "blocks_saved": 0, "bytes_mirrored": 0,
@@ -224,6 +238,11 @@ class FTController:
         the partial save then sources straight from it, and a full save is
         one contiguous copy. ``own_live`` rides along to the freshness
         maintain after the save (see :meth:`maintain`)."""
+        if self.fabric is not None and self.fabric.has_pending_maintenance:
+            # consume point: the save may read the published slot and
+            # mirrors parity after it; the fence comes first, outside the
+            # save timer, so an in-flight sweep books as fence time
+            self.fabric.block_until_maintained()
         t0 = time.perf_counter()
         moved0 = self.stats["save_bytes_moved"]
         pol = self.policy
@@ -293,11 +312,40 @@ class FTController:
                 bytes_moved=self.stats["save_bytes_moved"] - moved0,
                 seconds=save_seconds,
                 mode="arena" if self._arena_layout is not None else "tree")
-        if self.fabric is not None and not self.fabric.is_fresh(int(step)):
-            # keep the redundancy tiers at least as fresh as the checkpoint
-            self.fabric.maintain(int(step), params, force=True,
-                                 own_live=own_live)
+        if self.store is not None:
+            self._mirror(step, mask)
+        if self.fabric is not None:
+            if not self.fabric.is_fresh(int(step)):
+                # keep the redundancy tiers at least as fresh as the
+                # checkpoint
+                self.fabric.maintain(int(step), params, force=True,
+                                     own_live=own_live)
+            codec = self.fabric.parity
+            if (self.store is not None and codec is not None
+                    and codec.parity is not None):
+                if self.fabric.has_pending_maintenance:
+                    self.fabric.block_until_maintained()
+                # blocks whose domain shard died stay reconstructable
+                # offline from the survivors and the parity
+                self.stats["bytes_mirrored"] += self.store.write_parity(
+                    int(step), codec.parity, codec.parity_homes,
+                    domains=self.fabric.domains, members=codec.members)
         return mask
+
+    def _mirror(self, step: int, mask: torch.Tensor) -> None:
+        """Mirror the saved blocks to the store: in arena mode the touched
+        tiles of the checkpoint arena (one gather on the device, one copy
+        to the host), else the tree's blocks."""
+        bg = self.policy.async_persist
+        if self._arena_layout is not None:
+            mask_np = mask.cpu().numpy()
+            tiles = self._arena_layout.tiles_for_blocks(np.nonzero(mask_np)[0])
+            self.stats["bytes_mirrored"] += self.store.write_arena(
+                mask_np, tiles, gather_tiles(self._ckpt_arena, tiles), step,
+                background=bg)
+        else:
+            self.stats["bytes_mirrored"] += self.store.write_blocks(
+                mask, self.ckpt.values, step, background=bg)
 
     def _arena_checkpoint(self, step: int, params: PyTree) -> torch.Tensor:
         """Partial save in arena mode: select blocks, then one arena_scatter
@@ -329,10 +377,16 @@ class FTController:
         mask = np.zeros((total,), bool)
         mask[idx] = True
         rep = self.fabric.replicas
-        if live is not None:
+        published = (rep is not None and rep.arena is not None
+                     and rep.is_fresh(int(step)))
+        if self.fabric.cfg.async_maintain and published:
+            # async: the published slot holds this step's values bit for
+            # bit, and reading it keeps the save off the live arena the
+            # next step updates in place
+            src = rep.arena_local()
+        elif live is not None:
             src = live
-        elif rep is not None and rep.arena is not None \
-                and rep.is_fresh(int(step)):
+        elif published:
             src = rep.arena_local()
         else:
             src = pack_arena(params, self._arena_layout)
@@ -489,17 +543,23 @@ class FTController:
                                            bool).sum()),
                 failed_devices=(0 if failed_devices is None
                                 else int(np.asarray(failed_devices).size)))
+        ckpt = self.ckpt
+        if self.store is not None and self.store.must_reload:
+            # the in-memory checkpoint is gone too: reload it from disk
+            ckpt = RunningCheckpoint(self.store.read_all(), ckpt.saved_iter,
+                                     ckpt.rr_cursor)
         if self.fabric is not None:
             lost = (lost_mask.cpu().numpy() if isinstance(
                 lost_mask, torch.Tensor) else np.asarray(lost_mask)) \
                 .astype(bool)
-            ckpt = self.ckpt
             info = perturbation_norms(params, ckpt,
                                       torch.from_numpy(lost).to(self.device),
                                       self.partition)
             recovered, tier_info = self.fabric.on_failure(
                 params, ckpt.values, lost, failed_devices=failed_devices,
-                step=step, persist_failure=persist_failure)
+                step=step, disk_reader=None if self.store is None
+                else self.store.read_blocks,
+                persist_failure=persist_failure)
             info["applied_sq"] = tree_block_scores(
                 recovered, params, self.partition).sum()
             info["lost_blocks"] = int(lost.sum())
@@ -514,18 +574,26 @@ class FTController:
             })
         else:
             recovered, info = apply_failure_and_recover(
-                params, self.ckpt, torch.as_tensor(lost_mask).to(
+                params, ckpt, torch.as_tensor(lost_mask).to(
                     device=self.device, dtype=torch.bool),
                 self.policy.recovery, self.partition)
         self.stats["recoveries"] += 1
         out = {k: (float(v) if isinstance(v, torch.Tensor) else v)
                for k, v in info.items()}
         if self.recorder.enabled:
+            # the ledger entry; an async recovery also says which epoch it
+            # restored, so a stale published slot is priced explicitly
+            extra = {}
+            if "recovered_epoch" in out:
+                extra["recovered_epoch"] = int(out["recovered_epoch"])
+                extra["staleness"] = int(out.get("staleness", 0))
             self.recorder.record_recovery(
                 step=None if step is None else int(step),
                 lost_blocks=int(out["lost_blocks"]),
                 tier_counts=out.get("tier_counts"),
-                applied_sq=out["applied_sq"])
+                applied_sq=out["applied_sq"],
+                tier_sq=out.get("tier_sq"),
+                failed_devices=out.get("failed_devices", 0), **extra)
         return recovered, out
 
     # -- analysis helpers ---------------------------------------------------

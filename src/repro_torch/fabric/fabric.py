@@ -22,7 +22,10 @@ to:
 - ``scrub(step)``                 the RS tier's integrity pass over the coded
                                   snapshot: detect, localize and correct
                                   silent bit flips
-                                  (``inject_arena_bit_flip`` makes one).
+                                  (``inject_arena_bit_flip`` makes one);
+- ``block_until_maintained()``    the fence: waits for the last sweep (under
+                                  async maintenance, settles the pending
+                                  epoch).
 
 Three maintenance paths, as in the reference: the arena sweep (the
 default), the per-leaf sweep (``arena=False``, and every tree with a dtype
@@ -34,18 +37,37 @@ re-encodes its rows from the sweep's snapshot.
 The failure domains are logical: ``FabricConfig()``'s 8 devices, 4 hosts
 and 2 racks are bookkeeping over the one device the tensors live on.
 
-Not ported yet, and raising ``NotImplementedError`` with their ROADMAP
-item: ``async_maintain=True`` (item 12), ``mesh=`` and ``resize_mesh``
-(item 15). The reference's ``use_pallas`` option is gone: each kernel runs
-on CUDA tensors and its plain version on CPU tensors. With a real
-recorder attached the fabric emits the reference's ``maintain`` (inside a
-fenced ``maintain`` span), ``tier_fallback``, ``rehome`` and ``heal``
-events and registers its ``fabric/fence_seconds`` histogram; with
-``NULL_RECORDER`` every emit point is skipped.
+**Async maintenance** (``async_maintain=True``, the arena path fed the live
+arena): a two-slot snapshot with an epoch/publish protocol. A maintain
+settles the previous epoch, copies the live arena into the inactive slot,
+flips the slot, publishes it (replica, parity and scores of one step) as
+``published_epoch``, and starts the sweep without waiting for it. On CUDA
+the copy runs on the current stream and the sweep (arena_maintain, or the
+RS encode) on a side stream that waits for the copy, so the next step's
+in-place update of the live arena may start at once; the sweep reads the
+slot and the checkpoint arena and writes the parity and the scores, which
+nothing touches until the fence: the next maintain, and every consume
+point (``on_failure``, ``heal_domain``, ``scrub``, the controller's save,
+the loops' epoch boundary) settles the pending epoch first. Every tensor
+that crosses the streams is marked with ``record_stream``. On the CPU the
+same protocol runs without streams. ``overlap_efficiency`` is the share of
+the sweeps' wall time hidden under the caller's work; a recovery behind the
+published epoch reports ``recovered_epoch`` and ``staleness``.
+
+Not ported yet, and raising ``NotImplementedError`` with its ROADMAP item:
+``mesh=`` and ``resize_mesh`` (item 15). The reference's ``use_pallas``
+option is gone: each kernel runs on CUDA tensors and its plain version on
+CPU tensors. With a real recorder attached the fabric emits the
+reference's ``maintain`` (inside a fenced ``maintain`` span; an async
+epoch's deferred span covers [dispatch, fence]), ``tier_fallback``,
+``rehome`` and ``heal`` events, the ``fabric/overlap_efficiency`` gauge
+and its ``fabric/fence_seconds`` histogram; with ``NULL_RECORDER`` every
+emit point is skipped.
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Any, Optional
 
 import numpy as np
@@ -61,6 +83,7 @@ from repro_torch.fabric.placement import (ClusterView, rebalance_homes,
 from repro_torch.fabric.replica import ReplicaSet
 from repro_torch.fabric.rs import RSCodec
 from repro_torch.fabric.tiers import TieredRecovery
+from repro_torch.kernels import _build
 from repro_torch.kernels.fused_maintain.ops import (ArenaMaintainProgram,
                                                     maintain_traffic,
                                                     make_fused_maintain_fn)
@@ -84,7 +107,7 @@ class FabricConfig:
     elastic: bool = False          # post-failure re-homing/re-seeding
     fused: bool = True             # single-sweep maintenance
     arena: bool = True             # flat-arena maintenance
-    async_maintain: bool = False   # ROADMAP item 12
+    async_maintain: bool = False   # two-slot pipelined sweep
 
     def __post_init__(self):
         if self.replicate_interval < 1 or self.parity_interval < 1:
@@ -112,9 +135,6 @@ class CheckpointFabric:
             raise NotImplementedError(
                 "the sharded arena and the elastic mesh are not ported yet "
                 "(ROADMAP item 15)")
-        if self.cfg.async_maintain:
-            raise NotImplementedError(
-                "async maintenance is not ported yet (ROADMAP item 12)")
         self.recorder = recorder if recorder is not None else NULL_RECORDER
         self.partition = partition
         self.domains = FailureDomainMap(self.cfg.n_devices,
@@ -159,8 +179,20 @@ class CheckpointFabric:
         # True once a maintain has been fed the live arena itself: the
         # accounting then follows the resident model
         self.live_arena_mode = False
-        # deferred-fence waits of async maintenance (ROADMAP item 12); the
-        # synchronous fabric never books one, so it stays empty
+        # async maintenance: the two snapshot slots, the step whose
+        # snapshot the tiers hold, and the one in-flight sweep (settled at
+        # the next maintain or a consume point). On CUDA the sweep runs on
+        # ``_side_stream``; ``side_stream_launches`` counts the
+        # arena_maintain launches issued there.
+        self._slots: list = [None, None]
+        self._active_slot = 0
+        self.published_epoch = -1
+        self._pending: Optional[dict] = None
+        self._side_stream = None
+        self.side_stream_launches = 0
+        self.async_hidden_seconds = 0.0
+        self.async_total_seconds = 0.0
+        # the deferred fences' waits
         self.fence_hist = Histogram()
         self.stats = self.recorder.scope("fabric", {
             "replica_refreshes": 0, "parity_encodes": 0,
@@ -193,11 +225,6 @@ class CheckpointFabric:
         self.stats = recorder.scope("fabric", self.stats)
         recorder.adopt_histogram("fabric/fence_seconds", self.fence_hist)
 
-    def overlap_efficiency(self) -> float:
-        """Fraction of async sweep wall-clock hidden under the trainer's
-        compute: 0.0, as synchronous maintenance hides nothing."""
-        return 0.0
-
     # -- maintenance ---------------------------------------------------------
 
     def maintain(self, step: int, params: PyTree,
@@ -223,6 +250,22 @@ class CheckpointFabric:
         live = as_live_arena(params, self.arena_layout)
         due_replica, due_parity = self.maintenance_due(step, force=force)
         b0 = self.stats["maintain_bytes_moved"]
+        if self.cfg.async_maintain and live is not None \
+                and (due_replica or due_parity):
+            # the pipelined path: start the sweep and return; its deferred
+            # span is recorded when the epoch settles
+            self._async_maintain(step, live, ckpt_values, own_live=own_live)
+            self.last_maintained_step = step
+            if self.recorder.enabled:
+                self.recorder.event(
+                    "maintain", step=step, mode="arena_async",
+                    bytes_moved=self.stats["maintain_bytes_moved"] - b0,
+                    ici_bytes=0, dcn_bytes=0,
+                    replica=due_replica, parity=due_parity)
+            return
+        # a synchronous sweep rewrites the buffers an async one may still
+        # be writing
+        self._settle_pending()
         mode = "components"
         with self.recorder.span("maintain", step=step,
                                 fence=self.block_until_maintained):
@@ -246,6 +289,8 @@ class CheckpointFabric:
                     self.parity.encode(step, params)
                     self.stats["parity_encodes"] += 1
                     self.stats["maintain_bytes_moved"] += t["parity_pass"]
+                if due_replica or due_parity:
+                    self.published_epoch = step
         self.last_maintained_step = step
         if self.recorder.enabled:
             self.recorder.event(
@@ -287,6 +332,130 @@ class CheckpointFabric:
         self.stats["maintain_bytes_moved"] += self._traffic_model()[
             "arena_owned" if owned else
             "arena_resident" if resident else "arena"]
+        self.published_epoch = int(step)
+
+    def _async_maintain(self, step: int, live: torch.Tensor, ckpt_values,
+                        own_live: bool = False) -> None:
+        """Start one pipelined sweep epoch and return without waiting.
+
+        The pipeline is one deep: the previous epoch settles first, so the
+        wait here is what the overlap failed to hide. Then the live arena
+        is copied into the inactive slot (``own_live``: the caller's
+        throwaway pack is adopted as the snapshot, no copy), the slot flips
+        and is published, and the sweep starts against it: on CUDA on the
+        side stream, after the copy, so the caller's next in-place update
+        of the live arena does not wait for the sweep."""
+        self._settle_pending()
+        span_t0 = self.recorder.tracer.now() if self.recorder.enabled \
+            else 0.0
+        t0 = time.perf_counter()
+        fn = self._arena_maintain_fn()
+        z = self._as_arena(ckpt_values)
+        if own_live:
+            snap = live
+        else:
+            inactive = 1 - self._active_slot
+            stale = self._slots[inactive]
+            if stale is not None and stale.shape == live.shape \
+                    and stale.dtype == live.dtype \
+                    and stale.device == live.device:
+                # the slot retired two epochs ago: nothing reads it now
+                snap = stale.copy_(live)
+            else:
+                snap = live.clone()
+            self._slots[inactive] = snap
+            self._active_slot = inactive
+        done = None
+        if snap.device.type == "cuda":
+            main = torch.cuda.current_stream(snap.device)
+            side = self._stream(snap.device)
+            side.wait_stream(main)     # the snapshot copy comes first
+            with torch.cuda.stream(side):
+                n0 = _build.LAUNCHES["arena_maintain"]
+                _, scores, parity = fn(snap, z, own_live=True)
+                self.side_stream_launches += \
+                    _build.LAUNCHES["arena_maintain"] - n0
+                if self.parity.needs_arena_encode:
+                    self.parity.encode_from_arena(step, snap,
+                                                  self.arena_layout)
+                done = torch.cuda.Event()
+                done.record(side)
+            # the caching allocator must not hand these back while the
+            # other stream may still use them
+            for t in (snap, z):
+                if t is not None:
+                    t.record_stream(side)
+            for t in (scores, parity, self.parity.parity):
+                if t is not None:
+                    t.record_stream(main)
+        else:
+            _, scores, parity = fn(snap, z, own_live=True)
+            if self.parity.needs_arena_encode:
+                self.parity.encode_from_arena(step, snap, self.arena_layout)
+        self.replicas.ingest_arena(step, snap, self.arena_layout)
+        if self.parity.needs_arena_encode:
+            self.stats["rs_arena_encodes"] += 1
+        else:
+            self.parity.ingest(step, parity)
+        if z is not None:
+            self.last_scores = scores
+            self.last_scores_step = step
+        self.live_arena_mode = True
+        self.published_epoch = int(step)
+        self._pending = {"step": int(step), "t0": t0, "span_t0": span_t0,
+                         "done": done}
+        self.stats["replica_refreshes"] += 1
+        self.stats["parity_encodes"] += 1
+        self.stats["fused_maintains"] += 1
+        self.stats["arena_maintains"] += 1
+        self.stats["async_maintains"] += 1
+        self.stats["maintain_bytes_moved"] += self._traffic_model()[
+            "arena_owned" if own_live else "arena_async"]
+
+    def _stream(self, device: torch.device):
+        """The side stream of async sweeps on ``device``."""
+        if self._side_stream is None or self._side_stream.device != device:
+            self._side_stream = torch.cuda.Stream(device=device)
+        return self._side_stream
+
+    @property
+    def has_pending_maintenance(self) -> bool:
+        """True while an async sweep epoch is started but not settled."""
+        return self._pending is not None
+
+    def _settle_pending(self) -> float:
+        """Fence the in-flight async sweep (no-op without one); returns the
+        seconds waited. Books the epoch's hidden and total time for
+        :meth:`overlap_efficiency` and records the deferred ``maintain``
+        span over [dispatch, fence]."""
+        p = self._pending
+        if p is None:
+            return 0.0
+        self._pending = None
+        w0 = time.perf_counter()
+        if p["done"] is not None:
+            p["done"].synchronize()
+        now = time.perf_counter()
+        wait = now - w0
+        total = now - p["t0"]
+        self.fence_hist.observe(wait)
+        self.stats["fence_count"] += 1
+        self.async_total_seconds += total
+        self.async_hidden_seconds += max(0.0, total - wait)
+        if self.recorder.enabled:
+            self.recorder.gauge("fabric/overlap_efficiency").set(
+                self.overlap_efficiency())
+            self.recorder.tracer.record(
+                "maintain", p["span_t0"], self.recorder.tracer.now(),
+                step=p["step"], mode="arena_async", deferred=True)
+        return wait
+
+    def overlap_efficiency(self) -> float:
+        """Share of the async sweeps' wall time hidden under the caller's
+        work (0.0 until an async epoch has settled, and in sync mode)."""
+        if self.async_total_seconds <= 0.0:
+            return 0.0
+        return self.async_hidden_seconds / self.async_total_seconds
 
     def _fused_maintain(self, step: int, params: PyTree,
                         ckpt_values: Optional[PyTree]) -> None:
@@ -308,6 +477,7 @@ class CheckpointFabric:
         self.stats["parity_encodes"] += 1
         self.stats["fused_maintains"] += 1
         self.stats["maintain_bytes_moved"] += self._traffic_model()["fused"]
+        self.published_epoch = int(step)
 
     def _fused_maintain_fn(self):
         """The per-leaf sweep program, rebuilt whenever the placement
@@ -350,7 +520,11 @@ class CheckpointFabric:
 
     def block_until_maintained(self) -> None:
         """Wait for the last sweep's device work (PyTorch returns before
-        the card finishes)."""
+        the card finishes). With a pending async epoch this is the deferred
+        fence: it settles the epoch."""
+        if self._pending is not None:
+            self._settle_pending()
+            return
         for t in (None if self.parity is None else self.parity.parity,
                   None if self.replicas is None else self.replicas.arena):
             if t is not None and t.device.type == "cuda":
@@ -426,12 +600,16 @@ class CheckpointFabric:
                 "parity_groups_ok_frac": par_frac,
                 "full": bool(rep_frac >= 1.0 and par_frac >= 1.0)}
 
-    def redundancy_nbytes(self) -> dict[str, int]:
+    def redundancy_nbytes(self, store: Optional[Any] = None
+                          ) -> dict[str, int]:
         """Memory of the redundancy machinery: replica and parity payloads
         (m rows per group under RS) and the parity staging, the reference's
         accounting: the arena sweep's or the per-leaf sweep's compact
         outputs, or one tree-path encode's staging when the per-component
-        passes run (``fused=False`` or mismatched intervals)."""
+        passes run (``fused=False`` or mismatched intervals). With a
+        ``store``, its disk bytes too: ``store_disk`` (the append log and
+        the parity mirror) and ``store_disk_live`` (the indexed part of the
+        log and the parity)."""
         staging = 0
         if self.parity is not None:
             all_fused = (self.cfg.fused and self.cfg.replicate
@@ -444,9 +622,15 @@ class CheckpointFabric:
                 staging = self._traffic_model()["staging_fused"]
             else:
                 staging = self.parity.staging_nbytes()
-        return {"replica": self.replicas.nbytes() if self.replicas else 0,
-                "parity": self.parity.nbytes() if self.parity else 0,
-                "parity_staging": staging}
+        out = {"replica": self.replicas.nbytes() if self.replicas else 0,
+               "parity": self.parity.nbytes() if self.parity else 0,
+               "parity_staging": staging}
+        if store is not None and hasattr(store, "disk_nbytes"):
+            disk = store.disk_nbytes()
+            # "live" is the indexed subset of "shard": not additive
+            out["store_disk"] = int(disk["shard"] + disk["parity"])
+            out["store_disk_live"] = int(disk["live"] + disk["parity"])
+        return out
 
     # -- failure injection ---------------------------------------------------
 
@@ -472,30 +656,43 @@ class CheckpointFabric:
                    lost_mask, failed_devices=None,
                    step: Optional[int] = None,
                    disk_values: Optional[PyTree] = None,
+                   disk_reader=None,
                    persist_failure: Optional[bool] = None,
                    ) -> tuple[PyTree, dict]:
         """Tier-planned recovery. ``failed_devices=None`` is the paper's
         uniform block loss (every tier survives); ``step=None`` assumes the
         failure hit at the last maintained step. ``persist_failure``
         (default ``cfg.elastic``) keeps the failed devices dead in the view;
-        with ``elastic=True`` the fabric then re-plans over the survivors."""
+        with ``elastic=True`` the fabric then re-plans over the survivors.
+        ``disk_reader`` (a store's ``read_blocks``) serves the DISK tier.
+
+        A pending async epoch settles first, so every tier holds the last
+        published epoch; under async maintenance a failure past that epoch
+        is planned against it (a bounded perturbation, priced through
+        ``recovered_epoch`` and ``staleness``)."""
+        self._settle_pending()
         if failed_devices is None:
             failed_devices = np.empty((0,), np.int32)
         failed = np.asarray(failed_devices, np.int32).ravel()
         if step is None:
             step = self.last_maintained_step
         step = int(step)
+        recovered_epoch, staleness = step, 0
+        if self.cfg.async_maintain and 0 <= self.published_epoch < step:
+            recovered_epoch = int(self.published_epoch)
+            staleness = step - recovered_epoch
         persist = self.cfg.elastic if persist_failure is None else \
             bool(persist_failure)
         if persist and failed.size:
             self.view.mark_failed(failed)
-        plan = self.planner.plan(lost_mask, failed, step)
+        plan = self.planner.plan(lost_mask, failed, recovered_epoch)
         recovered, stats = self.planner.recover(params, ckpt_values, plan,
-                                                disk_values=disk_values)
+                                                disk_values=disk_values,
+                                                disk_reader=disk_reader)
         self.stats["recoveries"] += 1
         stats["failed_devices"] = int(failed.size)
-        stats["recovered_epoch"] = step
-        stats["staleness"] = 0
+        stats["recovered_epoch"] = recovered_epoch
+        stats["staleness"] = staleness
         stats["tier_fallbacks"] = plan.fallbacks
         for fb in plan.fallbacks:
             self.stats["tier_fallbacks"] += 1
@@ -523,6 +720,7 @@ class CheckpointFabric:
                 self.parity.restripe()
                 self.parity.encode(step, params)
                 self.stats["parity_encodes"] += 1
+            self.published_epoch = step
         self.planner.rehome()
         self.last_maintained_step = step
         self.stats["rehomes"] += 1
@@ -543,6 +741,8 @@ class CheckpointFabric:
         """Re-admit a healed domain's devices. With ``elastic=True`` the
         placement engine rebalances primary load onto them and re-seeds /
         re-stripes the tiers (refreshed from ``params`` when given)."""
+        # consume point: never re-stripe under a half-swept async epoch
+        self._settle_pending()
         healed = self.view.heal(self.domains.devices_in(kind, index))
         info = {"healed_devices": int(healed.size)}
         if healed.size == 0:
@@ -569,6 +769,8 @@ class CheckpointFabric:
                 self.parity.restripe()
                 if params is not None:
                     self.parity.encode(at, params)
+            if params is not None:
+                self.published_epoch = at
         self.planner.rehome()
         info["rebalanced_blocks"] = int(moved.size)
         info["alive_hosts"] = self.view.n_alive_hosts
@@ -595,6 +797,7 @@ class CheckpointFabric:
         codec = self.parity
         if codec is None or not codec.supports_integrity:
             return out
+        self._settle_pending()
         if codec.parity is None or self.replicas is None \
                 or self.replicas.arena is None \
                 or self.replicas.refreshed_step != codec.encoded_step:
@@ -646,6 +849,7 @@ class CheckpointFabric:
                                "replica")
         if self.parity is None:
             raise RuntimeError("bit-flip injection needs a parity codec")
+        self._settle_pending()
         layout = self.replicas.arena_layout
         if rng is None:
             rng = np.random.default_rng(0)

@@ -57,7 +57,14 @@ class ReplicaSet:
     def ingest_arena(self, step: int, arena: torch.Tensor,
                      arena_layout) -> None:
         """Adopt an arena snapshot (the sweep's pack or copy is the replica
-        write); the tree form is decoded lazily, on the recovery path."""
+        write); the tree form is decoded lazily, on the recovery path.
+
+        Under async maintenance this call is the publish: the fabric's
+        snapshot slot becomes the replica here, together with the parity
+        ingest of the same step, so a reader never sees replica and
+        parity of different epochs. The slot may still be read by the
+        sweep on the side stream; readers fence through
+        ``fabric.block_until_maintained`` first."""
         self._arena = arena
         self.arena_layout = arena_layout
         self._tree = None
@@ -85,6 +92,14 @@ class ReplicaSet:
         """True when the replicas hold the current live values."""
         return (self._tree is not None or self._arena is not None) \
             and self.refreshed_step == int(step)
+
+    def staleness(self, step: int) -> int:
+        """Steps between ``step`` and the snapshot the replicas hold (0:
+        fresh; -1: no snapshot): how a recovery from the async pipeline's
+        published epoch is priced."""
+        if self._tree is None and self._arena is None:
+            return -1
+        return max(0, int(step) - self.refreshed_step)
 
     def reseed(self) -> None:
         """Recompute replica placement in the view's current topology;

@@ -12,8 +12,10 @@ first):
                 RS(k, m) (bit-exact when fresh).
   RUNNING_CKPT  the paper's in-memory running checkpoint, homed on a host
                 holding neither the primary nor the replica.
-  DISK          the persistent store mirror (the store is ROADMAP item 11:
-                without one the running checkpoint's values stand in).
+  DISK          the persistent store mirror
+                (:class:`~repro_torch.checkpoint_io.ShardedCheckpointStore`,
+                read only when the plan holds DISK blocks; without a store
+                the running checkpoint's values stand in).
   SILENT_ERROR  not a loss tier: the integrity scrub's class for blocks
                 whose coded state was silently corrupted (detected from
                 the RS syndromes, corrected in place when localizable);
@@ -23,13 +25,14 @@ How many erasures a group absorbs is the codec's (``code_strength``:
 its parity rows homed on live devices), so one planner serves both
 codecs. On CUDA tensors the PEER_REPLICA restore runs the masked_restore
 kernel, PARITY the parity_xor kernel (XOR) or the gf256_mac kernel (RS),
-RUNNING_CKPT and DISK ``select_blocks`` (masked_restore).
+RUNNING_CKPT and DISK ``select_blocks`` (one grouped masked_restore launch
+each).
 """
 from __future__ import annotations
 
 import dataclasses
 import enum
-from typing import Any, Optional
+from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
@@ -158,12 +161,15 @@ class TieredRecovery:
 
     def recover(self, params: PyTree, ckpt_values: PyTree, plan: TierPlan,
                 disk_values: Optional[PyTree] = None,
+                disk_reader: Optional[Callable] = None,
                 ) -> tuple[PyTree, dict]:
         """Apply the plan. Returns (recovered params, per-tier stats).
 
         ``params`` are the pre-failure live values (kept to measure the
-        perturbation each tier applies). Without ``disk_values`` the
-        running checkpoint's values stand in for the DISK tier."""
+        perturbation each tier applies). ``disk_reader(mask)`` (a store's
+        ``read_blocks``) is called only when the plan holds DISK blocks,
+        with their mask; without either disk source the running
+        checkpoint's values stand in for the DISK tier."""
         part = self.partition
         out = params
         device = tree_leaves(params)[0].device
@@ -210,6 +216,8 @@ class TieredRecovery:
 
         m_dk = plan.mask(RecoveryTier.DISK)
         if m_dk.any():
+            if disk_values is None and disk_reader is not None:
+                disk_values = disk_reader(m_dk)
             src = disk_values if disk_values is not None else ckpt_values
             out = select_blocks(out, src, dev_mask(m_dk), part)
 

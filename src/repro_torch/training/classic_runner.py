@@ -145,7 +145,8 @@ def run_with_failure(model: IterativeModel, policy: CheckpointPolicy, *,
     the fabric's tier planner when a fabric is given. ``arena_state``
     (default): on an arena-capable controller every maintain and save
     takes the live params as one packed arena (bit-identical results to
-    ``False``, the tree interface).
+    ``False``, the tree interface). ``store`` is the controller's disk
+    mirror.
     """
     if fail_domain != "uniform" and fabric is None:
         raise ValueError("correlated fail_domain needs a fabric")
@@ -164,8 +165,10 @@ def run_with_failure(model: IterativeModel, policy: CheckpointPolicy, *,
         p = model.step(p, fold_in(seed, i), i)
         t0 = time.perf_counter()
         _fabric_step(ctl, i, p, use_arena)
-        if ctl.fabric is not None:
-            # book the sweep's device work, not just its launch
+        if ctl.fabric is not None and not ctl.fabric.cfg.async_maintain:
+            # book the sweep's device work, not just its launch; async
+            # maintenance settles under the next iteration's model step
+            # instead, and its last epoch after the loop
             ctl.fabric.block_until_maintained()
         maint_seconds += time.perf_counter() - t0
         if i == fail_iter:
@@ -178,6 +181,12 @@ def run_with_failure(model: IterativeModel, policy: CheckpointPolicy, *,
                     p, recovery_info = ctl.on_failure(
                         p, lost, failed_devices=failed, step=i)
         losses.append(float(model.loss(p)))
+    if ctl.fabric is not None:
+        # settle the last async epoch (a no-op in sync mode): its wait
+        # belongs to the run
+        t0 = time.perf_counter()
+        ctl.fabric.block_until_maintained()
+        maint_seconds += time.perf_counter() - t0
     if clean_losses is None:
         clean_losses = run_clean(model, max_iters, seed, device=dev)["losses"]
     cost = empirical_iteration_cost(losses, clean_losses, model.eps)
@@ -267,6 +276,8 @@ def run_with_trace(model: IterativeModel, policy: CheckpointPolicy, *,
         # placement health after this step's events and heals
         redundancy_full.append(ctl.fabric.redundancy_state()["full"])
         losses.append(float(model.loss(p)))
+    # settle the last async epoch before the stats snapshot (a no-op in
+    # sync mode)
     ctl.fabric.block_until_maintained()
     if clean_losses is None:
         clean_losses = run_clean(model, max_iters, seed, device=dev)["losses"]

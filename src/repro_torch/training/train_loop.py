@@ -24,13 +24,20 @@ single device: the port of ``repro.training.train_loop``.
   dead in the fabric's view and heal ``heal_after`` steps later, with
   per-event tier counts in ``metrics`` and ``controller.stats["events"]``;
   bit flips (``flip_schedule``) and integrity scrubs
-  (``scrub_interval``).
+  (``scrub_interval``);
+- the disk mirror (``store=``, a
+  :class:`~repro_torch.checkpoint_io.ShardedCheckpointStore`), flushed at
+  the end of every ``run``;
+- async maintenance (``FabricConfig(async_maintain=True)``): the sweep of
+  step ``t`` runs on a side stream under step ``t + 1``; the loop takes no
+  fence on a clean step, and the pending epoch settles at the next
+  maintain, at a save, a recovery, a heal or a scrub, and at the end of
+  ``run``.
 
 The reference's ``DistContext`` is replaced by an explicit ``device``
 (``cuda`` unless asked otherwise; the trainer raises where no CUDA device
 is present rather than moving to the CPU). Not ported yet, and raising
-``NotImplementedError`` with their ROADMAP item: the disk store (``store``,
-item 11), async maintenance (item 12) and the elastic mesh
+``NotImplementedError`` with its ROADMAP item: the elastic mesh
 (``elastic_mesh``, item 15).
 """
 from __future__ import annotations
@@ -71,8 +78,10 @@ class TrainLoopConfig:
     # the elastic mesh (ROADMAP item 15): only None or False here
     elastic_mesh: Optional[bool] = None
     # record per-step maintenance overhead (``overhead_seconds`` in
-    # metrics): waits for the sweep's device work each step, so the number
-    # is the maintenance work, not its launch
+    # metrics): in sync mode waits for the sweep's device work each step,
+    # so the number is the maintenance work, not its launch; async mode
+    # never waits there (the un-hidden rest of a sweep books at its
+    # deferred fence, in the fabric's fence histogram)
     measure_overhead: bool = True
     # trace-driven soaks: per-domain-kind MTBF means (in steps) sampled
     # into a multi-event failure schedule each run(); failed domains stay
@@ -115,25 +124,19 @@ class TrainLoopConfig:
         if self.elastic_mesh:
             raise NotImplementedError(
                 "the elastic mesh is not ported yet (ROADMAP item 15)")
-        if self.fabric is not None \
-                and getattr(self.fabric, "async_maintain", False):
-            raise NotImplementedError(
-                "async maintenance is not ported yet (ROADMAP item 12)")
 
 
 class TrainLoop:
-    """``TrainLoop(cfg, optimizer, loop_cfg, device=...)``: the trainer of
-    one model on one device. ``optimizer`` defaults to ``adamw(3e-4)``."""
+    """``TrainLoop(cfg, optimizer, loop_cfg, store, device=...)``: the
+    trainer of one model on one device. ``optimizer`` defaults to
+    ``adamw(3e-4)``; ``store`` is the controller's disk mirror."""
 
     def __init__(self, cfg: ModelConfig,
                  optimizer: Optional[Optimizer] = None,
                  loop_cfg: Optional[TrainLoopConfig] = None,
                  store=None, *, device: DeviceLike = None):
-        if store is not None:
-            raise NotImplementedError(
-                "the on-disk checkpoint store is not ported yet (ROADMAP "
-                "item 11)")
         self.cfg = cfg
+        self._store = store
         self.device = resolve_device(device)
         self.ops = get_model(cfg)
         self.optimizer = optimizer or adamw(3e-4)
@@ -183,6 +186,7 @@ class TrainLoop:
             params = split_layers(params, self.cfg.n_layers)
         if self.loop_cfg.policy is not None:
             self.controller = FTController(params, self.loop_cfg.policy,
+                                           store=self._store,
                                            fabric=self.loop_cfg.fabric,
                                            recorder=self.loop_cfg.recorder,
                                            device=self.device)
@@ -264,13 +268,17 @@ class TrainLoop:
                         rec["checkpointed"] = True
                 t_save = time.perf_counter()
                 fab = self.controller.fabric
+                async_mode = fab is not None and fab.cfg.async_maintain
                 # per-step fault-tolerance overhead (maintain + save),
-                # without the rare failure/heal events timed below; it
-                # waits for the sweep's device work first, so a
-                # maintain-only step books the sweep, not its launch
+                # without the rare failure/heal events timed below. Sync
+                # mode waits for the sweep's device work first, so a
+                # maintain-only step books the sweep, not its launch;
+                # async mode must not wait (hiding the sweep under the next
+                # step is the point): it books the launch, and the sweep's
+                # un-hidden rest books at the deferred fence
                 t_fence = t_save
                 if self.loop_cfg.measure_overhead:
-                    if fab is not None:
+                    if fab is not None and not async_mode:
                         fab.block_until_maintained()
                         t_fence = time.perf_counter()
                     rec["overhead_seconds"] = t_fence - tm0
@@ -344,7 +352,8 @@ class TrainLoop:
                     self._overhead_hist.observe(rec["overhead_seconds"])
                     self._sweep_hist.observe(t_maint - tm0)
                     self._save_hist.observe(t_save - t_maint)
-                    self._fence_hist.observe(t_fence - t_save)
+                    if not async_mode:
+                        self._fence_hist.observe(t_fence - t_save)
                 if fab is not None:
                     # per-step placement health, folded into
                     # availability_summary()
@@ -354,8 +363,14 @@ class TrainLoop:
             self.metrics.append(rec)
             if on_step is not None:
                 on_step(i, loss)
-        if self.controller is not None and self.controller.fabric is not None:
-            self.controller.fabric.block_until_maintained()
+        # the epoch boundary: settle the in-flight async sweep and drain
+        # the store's background writer, so run() returns with the
+        # redundancy published and on disk
+        if self.controller is not None:
+            if self.controller.fabric is not None:
+                self.controller.fabric.block_until_maintained()
+            if self.controller.store is not None:
+                self.controller.store.flush()
         return state
 
     def availability_summary(self) -> dict:
@@ -380,7 +395,10 @@ class TrainLoop:
         ``overhead_seconds_*`` distribution covers clean steps only, from
         the telemetry histogram; ``phases`` splits it into ``sweep`` (the
         maintain call), ``save`` (maybe_checkpoint) and ``fence`` (the
-        wait for the sweep's device work)."""
+        wait for the sweep's device work: the loop's sync-mode waits and the
+        fabric's deferred async fences). ``overlap_efficiency`` is the share
+        of the async sweeps' wall time hidden under the steps (0.0 in sync
+        mode) and ``async_maintains`` their count."""
         steps = [m["seconds"] for m in self.metrics]
         over = self._overhead_hist.summary()
         out = {"steps": len(steps),

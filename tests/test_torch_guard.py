@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.checkpoint_io import ShardedCheckpointStore
 from repro_torch.configs import get_config
 from repro_torch.core.controller import FTController
 from repro_torch.core.policy import CheckpointPolicy
@@ -49,7 +50,7 @@ def test_no_jax_or_reference_imports(path):
     assert not bad, f"{path} imports {bad}"
 
 
-def test_entry_points_default_to_cuda():
+def test_entry_points_default_to_cuda(tmp_path):
     params = {"w": torch.zeros(4, 2)}
     lm = {}
     for name in ("mamba2-370m", "qwen2-1.5b"):
@@ -78,6 +79,8 @@ def test_entry_points_default_to_cuda():
         make_model("mlr")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         FTController(params, CheckpointPolicy.scar())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ShardedCheckpointStore(str(tmp_path))
     cpu_model = make_model("qp", device="cpu")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         run_clean(cpu_model, 3)
@@ -109,19 +112,26 @@ def test_model_and_run_devices_must_agree():
         run_clean(cpu_model, 2, device="meta")
 
 
-def test_fabric_and_store_name_their_roadmap_items():
-    """The RS tier and the per-leaf path build; the store, async
-    maintenance and the mesh still raise with their ROADMAP items."""
+def test_fabric_and_store_name_their_roadmap_items(tmp_path):
+    """The RS tier, the per-leaf path, the store (item 11) and async
+    maintenance (item 12) build and run; the mesh still raises with its
+    ROADMAP item."""
     params = {"w": torch.zeros(4, 2)}
     ctl = FTController(params, CheckpointPolicy.scar(),
                        fabric=FabricConfig(), device="cpu")
     assert ctl.arena_ready and ctl.fabric.arena_layout is not None
-    with pytest.raises(NotImplementedError, match="item 11"):
-        FTController(params, CheckpointPolicy.scar(), store=object(),
-                     device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        FTController(params, CheckpointPolicy.scar(),
-                     fabric=FabricConfig(async_maintain=True), device="cpu")
+    store = ShardedCheckpointStore(str(tmp_path), device="cpu")
+    with_store = FTController(params, CheckpointPolicy.scar(0.5, 2),
+                              store=store, device="cpu")
+    with_store.checkpoint_now(1, {"w": torch.ones(4, 2)})
+    store.flush()
+    assert torch.equal(store.read_all()["w"], with_store.ckpt.values["w"])
+    asy = FTController(params, CheckpointPolicy.scar(),
+                       fabric=FabricConfig(async_maintain=True), device="cpu")
+    asy.maintain(1, asy.pack_live(params))
+    assert asy.fabric.has_pending_maintenance
+    asy.fabric.block_until_maintained()
+    assert asy.fabric.stats["async_maintains"] == 1
     for cfg, arena in ((FabricConfig(rs_parity=2), True),
                        (FabricConfig(arena=False), False),
                        (FabricConfig(fused=False), False)):
@@ -134,10 +144,11 @@ def test_fabric_and_store_name_their_roadmap_items():
         CheckpointFabric(part, FabricConfig(), mesh=object())
 
 
-def test_trainer_defaults_to_cuda_and_names_its_roadmap_items():
+def test_trainer_defaults_to_cuda_and_names_its_roadmap_items(tmp_path):
     """The LM trainer runs on the card unless asked otherwise, and raises
-    where no CUDA device is present; the store, async maintenance and the
-    elastic mesh still raise with their ROADMAP items."""
+    where no CUDA device is present; with a store and async maintenance
+    (items 11 and 12) it builds and runs; the elastic mesh still raises
+    with its ROADMAP item."""
     from repro_torch.data import ShardedLMDataset
     cfg = get_config("qwen2-1.5b", reduced=True)
     if torch.cuda.is_available():
@@ -149,9 +160,14 @@ def test_trainer_defaults_to_cuda_and_names_its_roadmap_items():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             ShardedLMDataset(cfg, 2, 4)
     assert TrainLoop(cfg, device="cpu").device.type == "cpu"
-    with pytest.raises(NotImplementedError, match="item 11"):
-        TrainLoop(cfg, store=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        TrainLoopConfig(fabric=FabricConfig(async_maintain=True))
+    store = ShardedCheckpointStore(str(tmp_path), device="cpu")
+    loop = TrainLoop(cfg, loop_cfg=TrainLoopConfig(
+        policy=CheckpointPolicy.scar(0.25, 4),
+        fabric=FabricConfig(async_maintain=True)), store=store, device="cpu")
+    from repro_torch.data import ShardedLMDataset as DS
+    state = loop.run(loop.init_state(), iter(DS(cfg, 2, 8, device="cpu")), 1)
+    assert loop.controller.store is store
+    assert loop.controller.fabric.stats["async_maintains"] == 1
+    assert not loop.controller.fabric.has_pending_maintenance
     with pytest.raises(NotImplementedError, match="item 15"):
         TrainLoopConfig(elastic_mesh=True)
