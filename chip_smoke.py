@@ -87,17 +87,25 @@ Phases, each of which fails the run if it fails:
 13. Launch counts, one set per path: the counts are set to 0 just before
     each of the MLR loops, the quickstart path, the controller, each fabric
     phase, each multi-erasure run and each served model (phases 15 and
-    16), and read just after it. Each path's kernels must have launched in
-    it: ssd_intra 96 times on the mamba2_serve path (48 layers, two
-    prefills), sw_attention 56 times on the qwen2_serve path (28 layers, a
-    prefill and a ring prefill).
+    16) and each served family (phases 19 and 20), and read just after
+    it. Each path's kernels must have launched in it: ssd_intra 96 times on
+    the mamba2_serve path (48 layers, two prefills), sw_attention 56 times
+    on the qwen2_serve path (28 layers, a prefill and a ring prefill),
+    ssd_intra 76 and sw_attention 14 times on the zamba2_serve path (38
+    layers and 7 applications of the shared block, two prefills),
+    sw_attention 48 times on the whisper_serve path (24 decoder layers,
+    two prefills); block_dist, scatter_save and masked_restore on the
+    mamba2, zamba2 and whisper serve paths (their recovery flows).
 14. After the 1.54 B tree is freed, the serve kernels at the shapes the
     served prefills give them, against their plain versions
     (|got - want| <= 1e-4 |want| + 1e-4 max|want|; the same for bf16
     inputs, which both versions read exactly) and bit-identical run to run:
-    ssd_intra at mamba2-370m's (B 8, nc 16, Q 128, H 32, P 64, N 128),
-    sw_attention at qwen2-1.5b's causal (B 4 x 2 kv heads, G 6, S 2048,
-    W = S) and ring (B 1, S 8192, W 4096) cases, bf16. Timed as in phase 2
+    ssd_intra at mamba2-370m's (B 8, nc 16, Q 128, H 32, P 64, N 128) and
+    zamba2-1.2b's (B 8, nc 16, Q 128, H 64, P 64, N 64), sw_attention at
+    qwen2-1.5b's causal (B 4 x 2 kv heads, G 6, S 2048, W = S) and ring (B
+    1, S 8192, W 4096) cases, zamba2-1.2b's (B 8 x 32 heads, G 1, S 2048,
+    Dh 64, W = S) and whisper-medium's decoder (B 8 x 16 heads, G 1, S 384,
+    Dh 64, W = S), bf16. Timed as in phase 2
     (and back to back, ten calls on one stream) beside the bound
     (ssd_intra: its bytes over 3.35 TB/s, or its products as three TF32
     products each over 495 TFLOP/s, with the f32-FMA figure of earlier runs
@@ -113,7 +121,10 @@ Phases, each of which fails the run if it fails:
     32 new tokens; then ``examples/serve_with_recovery.py``'s flow
     (``FTController`` with ``CheckpointPolicy.scar(1.0, 1)``, a 30% loss,
     partial restore) and the same tokens generated again, which must be
-    identical. Then every ssd_intra call of a served prefill is held
+    identical. The flow must apply no perturbation; its checkpoint and
+    restore are held bit for bit against the params and the plain
+    masked_restore, and block_dist's per-block norms of the served tree
+    against its plain version (rtol 1e-4). Then every ssd_intra call of a served prefill is held
     against the plain version on the same inputs, and, with the weights
     cast to f32, the prefill's last logits against the same prefill with
     the plain version (relative L2 <= 5e-3; the bf16 distance is reported:
@@ -175,9 +186,23 @@ Phases, each of which fails the run if it fails:
     checkpoint. (c) The ported ``examples/train_lm_with_failures.py`` at
     ``--tiny``, arena-resident and ``--pytree``: bit-equal losses.
 
+19. zamba2-1.2b served at full width (38 Mamba2 layers, d 2048, the
+    shared attention block applied after every 6, 7 times; bf16, random
+    weights from a seed): ``Server.generate`` on (8, 2048) with 32 new
+    tokens, the recovery flow and the route hold as in phase 15 (ssd_intra
+    and sw_attention call by call in bf16, the last logits in f32).
+20. whisper-medium served at full width (24 encoder and 24 decoder
+    layers, d 1024, vocab 51,865, bf16, the config's untied head): 1,500
+    frames and a 384-token prompt a sequence, batch 8, 32 new tokens, the
+    recovery flow and the route hold; sw_attention in the decoder's
+    self-attention prefill (the encoder's and the cross-attention are the
+    plain chunked attention, as in the reference).
+
 The line before the last is the kernels' JSON record (each kernel's
-launches on its own path, ``train_launches`` on phase 17's and
-``store_launches`` on phase 18's (a) and (b) together); the last line is
+launches on its own path, ``train_launches`` on phase 17's,
+``store_launches`` on phase 18's (a) and (b) together,
+``zamba2_launches`` and ``whisper_launches`` on phases 19 and 20); the
+last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
 and prints no result.
 
@@ -188,6 +213,8 @@ full run's. ``python3 chip_smoke.py --train`` runs phase 1 and phase 17
 alone; its last line is ``{"train_only": true, "device": {...}}``.
 ``python3 chip_smoke.py --store`` runs phase 1 and phase 18 alone; its last
 line is ``{"store_only": true, "device": {...}}``.
+``python3 chip_smoke.py --families`` runs phases 1, 14, 19 and 20 alone;
+its last line is ``{"families_only": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -1795,12 +1822,16 @@ def phase_leaf_fabric(tree, device) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phases 14-16: the LM serve path (mamba2-370m and qwen2-1.5b)
+# phases 14-16: the LM serve path (mamba2-370m and qwen2-1.5b), and phase
+# 14's cases for phases 19-20
 # ---------------------------------------------------------------------------
 
 MAMBA_SERVE = dict(batch=8, seq=2048, new=32)
 QWEN_SERVE = dict(batch=4, seq=2048, new=16)
 QWEN_RING = dict(batch=1, seq=8192)
+ZAMBA2_SERVE = dict(batch=8, seq=2048, new=32)
+# 384 + 32 tokens stay inside whisper's published 448-token decoder context
+WHISPER_SERVE = dict(batch=8, frames=1500, seq=384, new=32)
 # a kernel against its plain version on the same inputs:
 # |got - want| <= RTOL |want| + RTOL max|want| (f32 sums in another order;
 # near-zero outputs of a cancelling sum get the scale's share).
@@ -1952,24 +1983,15 @@ def kernel_route(mode: str):
         ssd_ops.ssd_intra_cuda, sw_ops.sw_attention_cuda = ssd_cuda, sw_cuda
 
 
-def phase_serve_kernels(device) -> dict:
-    """Phase 14: ssd_intra and sw_attention against their plain versions at
-    the shapes the serve paths give them."""
+def _ssd_intra_case(dims, gen, device) -> dict:
+    """ssd_intra at ``dims`` = (B, nc, Q, H, P, N) against its plain
+    version, bit-identical run to run, timed in turns and back to back
+    beside its bound."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.configs import get_config
     from repro_torch.kernels.ssd_scan.kernel import ssd_intra_cuda
     from repro_torch.kernels.ssd_scan.ref import ssd_intra_ref
-    from repro_torch.kernels.sw_attention.kernel import sw_attention_cuda
-    from repro_torch.kernels.sw_attention.ref import sw_attention_ref
-
-    results = {}
-    gen = torch.Generator(device=device).manual_seed(SEED + 14)
-    mcfg = get_config("mamba2-370m")
-    B, S = MAMBA_SERVE["batch"], MAMBA_SERVE["seq"]
-    Q, H, P, N = mcfg.ssm_chunk, mcfg.ssm_heads, mcfg.ssm_headdim, \
-        mcfg.ssm_state
-    nc = S // Q
+    B, nc, Q, H, P, N = dims
 
     def rnd(*shape):
         return torch.randn(shape, generator=gen, device=device)
@@ -1980,89 +2002,137 @@ def phase_serve_kernels(device) -> dict:
     ins = (la, dt, rnd(B, nc, Q, H, P), rnd(B, nc, Q, N), rnd(B, nc, Q, N))
     got, want = ssd_intra_cuda(*ins), ssd_intra_ref(*ins)
     ratio = max(_close_ratio(g, w) for g, w in zip(got, want))
-    check(ratio <= 1.0, f"ssd_intra off its plain version: {ratio:.3g} of "
-          f"the tolerance")
+    check(ratio <= 1.0, f"ssd_intra {list(dims)} off its plain version: "
+          f"{ratio:.3g} of the tolerance")
     again = ssd_intra_cuda(*ins)
     check(all(torch.equal(a, b) for a, b in zip(got, again)),
-          "ssd_intra differs between two runs")
+          f"ssd_intra {list(dims)} differs between two runs")
     err = max(float((g - w).abs().max()) for g, w in zip(got, want))
     del got, want, again
     t = in_turns({"plain": lambda: ssd_intra_ref(*ins),
                   "kernel": lambda: ssd_intra_cuda(*ins)})
-    n_bytes, flops = ssd_intra_counts(B, nc, Q, H, P, N)
-    tc_flops = ssd_intra_tc_flops(B, nc, Q, H, P, N)
+    n_bytes, flops = ssd_intra_counts(*dims)
+    tc_flops = ssd_intra_tc_flops(*dims)
     b, by = bound_ms(n_bytes, tc_flops, TF32_TC_FLOPS_PER_S)
-    results["ssd_intra"] = dict(
+    return dict(
         max_abs_err=err, ms=t["kernel"], plain_ms=t["plain"], bound_ms=b,
         bound_by=by, library_ms=None,
         bound_f32_fma_ms=bound_ms(n_bytes, flops, F32_FLOPS_PER_S)[0],
         back_to_back_ms=device_ms(lambda: ssd_intra_cuda(*ins)),
-        shape=[B, nc, Q, H, P, N], bytes=n_bytes, flops=flops,
-        tc_flops=tc_flops, tolerance_ratio=ratio)
-    del ins
+        shape=list(dims), bytes=n_bytes, flops=flops, tc_flops=tc_flops,
+        tolerance_ratio=ratio)
 
+
+def _sw_attention_case(BH, G, S, Dh, W, gen, device) -> dict:
+    """sw_attention's bf16 instance at (BH, G, S, Dh, W) against its plain
+    version, bit-identical run to run, timed in turns and back to back
+    beside its bound and ``F.scaled_dot_product_attention`` with the band
+    mask (timed only)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.sw_attention.kernel import sw_attention_cuda
+    from repro_torch.kernels.sw_attention.ref import sw_attention_ref
+    shape = [BH, G, S, Dh, W]
+
+    def rnd(*shp):
+        return torch.randn(shp, generator=gen, device=device)
+    q = rnd(BH, G, S, Dh).to(torch.bfloat16)
+    k = rnd(BH, S, Dh).to(torch.bfloat16)
+    v = rnd(BH, S, Dh).to(torch.bfloat16)
+    got = sw_attention_cuda(q, k, v, window=W)
+    want = sw_attention_ref(q, k, v, window=W)
+    ratio = _close_ratio(got, want)
+    check(ratio <= 1.0, f"sw_attention {shape} off its plain version: "
+          f"{ratio:.3g} of the tolerance")
+    check(torch.equal(got, sw_attention_cuda(q, k, v, window=W)),
+          f"sw_attention {shape} differs between two runs")
+    err = float((got - want).abs().max())
+    pos = torch.arange(S, device=device)
+    band = (pos[None, :] <= pos[:, None]) & (pos[:, None] - pos[None, :] < W)
+    k4, v4 = k[:, None], v[:, None]
+
+    def library():
+        return F.scaled_dot_product_attention(q, k4, v4, attn_mask=band,
+                                              enable_gqa=True)
+    lib_err = float((library().float() - want).abs().max())
+    del got, want
+    t = in_turns({"plain": lambda: sw_attention_ref(q, k, v, window=W),
+                  "kernel": lambda: sw_attention_cuda(q, k, v, window=W),
+                  "library": library})
+    n_bytes, flops = sw_attention_counts(BH, G, S, Dh, W, 2)
+    tc_flops = sw_attention_tc_flops(BH, G, S, Dh, W)
+    b, by = bound_ms(n_bytes, flops, BF16_TC_FLOPS_PER_S)
+    out = dict(max_abs_err=err, ms=t["kernel"], plain_ms=t["plain"],
+               bound_ms=b, bound_by=by, library_ms=t["library"],
+               library_max_abs_err=lib_err, back_to_back_ms=device_ms(
+                   lambda: sw_attention_cuda(q, k, v, window=W)),
+               library_back_to_back_ms=device_ms(library), shape=shape,
+               bytes=n_bytes, flops=flops, tc_flops=tc_flops,
+               tolerance_ratio=ratio)
+    del q, k, v, k4, v4, band
+    torch.cuda.empty_cache()
+    return out
+
+
+def _log_case(name: str, r: dict) -> None:
+    lib = r["library_ms"]
+    log(f"{name} {r['shape']}: kernel {r['ms']:.3f} ms "
+        f"({r['back_to_back_ms']:.3f} back to back), plain "
+        f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
+        f"({r['bound_by']}), library "
+        f"{'none' if lib is None else format(lib, '.3f') + ' ms'}, max "
+        f"abs err {r['max_abs_err']:.3g} ({r['tolerance_ratio']:.3g} of "
+        f"the tolerance); tensor-core FLOPs {r['tc_flops'] / 1e9:.3f} G "
+        f"with the split's products")
+
+
+def phase_serve_kernels(device) -> dict:
+    """Phase 14: ssd_intra and sw_attention against their plain versions at
+    the shapes the serve paths give them: mamba2-370m's and qwen2-1.5b's,
+    then zamba2-1.2b's and whisper-medium's."""
+    import torch
+    from repro_torch.configs import get_config
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 14)
+    mcfg = get_config("mamba2-370m")
+    ssd = {"mamba2": _ssd_intra_case(
+        _ssd_dims(mcfg, MAMBA_SERVE["batch"], MAMBA_SERVE["seq"]), gen,
+        device)}
     qcfg = get_config("qwen2-1.5b")
     G, Dh, Hk = qcfg.n_heads // qcfg.n_kv_heads, qcfg.head_dim, \
         qcfg.n_kv_heads
-    cases = {"causal": (QWEN_SERVE["batch"] * Hk, QWEN_SERVE["seq"],
-                        QWEN_SERVE["seq"]),
-             "ring": (QWEN_RING["batch"] * Hk, QWEN_RING["seq"],
-                      qcfg.sliding_window)}
-    sw = {}
-    for case, (BH, S, W) in cases.items():
-        q = rnd(BH, G, S, Dh).to(torch.bfloat16)
-        k = rnd(BH, S, Dh).to(torch.bfloat16)
-        v = rnd(BH, S, Dh).to(torch.bfloat16)
-        got = sw_attention_cuda(q, k, v, window=W)
-        want = sw_attention_ref(q, k, v, window=W)
-        ratio = _close_ratio(got, want)
-        check(ratio <= 1.0, f"sw_attention ({case}) off its plain version: "
-              f"{ratio:.3g} of the tolerance")
-        check(torch.equal(got, sw_attention_cuda(q, k, v, window=W)),
-              f"sw_attention ({case}) differs between two runs")
-        err = float((got - want).abs().max())
-        pos = torch.arange(S, device=device)
-        band = (pos[None, :] <= pos[:, None]) \
-            & (pos[:, None] - pos[None, :] < W)
-        k4, v4 = k[:, None], v[:, None]
-
-        def library():
-            return F.scaled_dot_product_attention(q, k4, v4, attn_mask=band,
-                                                  enable_gqa=True)
-        lib_err = float((library().float() - want).abs().max())
-        del got, want
-        t = in_turns({"plain": lambda: sw_attention_ref(q, k, v, window=W),
-                      "kernel": lambda: sw_attention_cuda(q, k, v, window=W),
-                      "library": library})
-        n_bytes, flops = sw_attention_counts(BH, G, S, Dh, W, 2)
-        tc_flops = sw_attention_tc_flops(BH, G, S, Dh, W)
-        b, by = bound_ms(n_bytes, flops, BF16_TC_FLOPS_PER_S)
-        sw[case] = dict(max_abs_err=err, ms=t["kernel"], plain_ms=t["plain"],
-                        bound_ms=b, bound_by=by, library_ms=t["library"],
-                        library_max_abs_err=lib_err, back_to_back_ms=device_ms(
-                            lambda: sw_attention_cuda(q, k, v, window=W)),
-                        library_back_to_back_ms=device_ms(library),
-                        shape=[BH, G, S, Dh, W], bytes=n_bytes, flops=flops,
-                        tc_flops=tc_flops, tolerance_ratio=ratio)
-        del q, k, v, k4, v4, band
-        torch.cuda.empty_cache()
-    # the row of the kernels line is the served prefill's (causal) case
-    results["sw_attention"] = dict(sw["causal"], ring=sw["ring"])
-    for name, r in (("ssd_intra", results["ssd_intra"]),
+    sw = {"causal": _sw_attention_case(
+              QWEN_SERVE["batch"] * Hk, G, QWEN_SERVE["seq"], Dh,
+              QWEN_SERVE["seq"], gen, device),
+          "ring": _sw_attention_case(
+              QWEN_RING["batch"] * Hk, G, QWEN_RING["seq"], Dh,
+              qcfg.sliding_window, gen, device)}
+    # the hybrid's and the encoder-decoder's prefills: Dh 64, G 1
+    zcfg, wcfg = get_config("zamba2-1.2b"), get_config("whisper-medium")
+    ssd["zamba2"] = _ssd_intra_case(
+        _ssd_dims(zcfg, ZAMBA2_SERVE["batch"], ZAMBA2_SERVE["seq"]), gen,
+        device)
+    for key, cfg, serve in (("zamba2", zcfg, ZAMBA2_SERVE),
+                            ("whisper", wcfg, WHISPER_SERVE)):
+        sw[key] = _sw_attention_case(
+            serve["batch"] * cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads,
+            serve["seq"], cfg.head_dim, serve["seq"], gen, device)
+    # the rows of the kernels line are mamba2-370m's and qwen2-1.5b's
+    # causal prefill, as before; the other shapes ride along
+    results = {"ssd_intra": dict(ssd["mamba2"], zamba2=ssd["zamba2"]),
+               "sw_attention": dict(sw["causal"], ring=sw["ring"],
+                                    zamba2=sw["zamba2"],
+                                    whisper=sw["whisper"])}
+    for name, r in (("ssd_intra mamba2-370m", ssd["mamba2"]),
+                    ("ssd_intra zamba2-1.2b", ssd["zamba2"]),
                     ("sw_attention causal", sw["causal"]),
-                    ("sw_attention ring", sw["ring"])):
-        lib = r["library_ms"]
-        log(f"{name} {r['shape']}: kernel {r['ms']:.3f} ms "
-            f"({r['back_to_back_ms']:.3f} back to back), plain "
-            f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
-            f"({r['bound_by']}), library "
-            f"{'none' if lib is None else format(lib, '.3f') + ' ms'}, max "
-            f"abs err {r['max_abs_err']:.3g} ({r['tolerance_ratio']:.3g} of "
-            f"the tolerance); tensor-core FLOPs {r['tc_flops'] / 1e9:.3f} G "
-            f"with the split's products")
-    log(f"ssd_intra bound {results['ssd_intra']['bound_ms']:.3f} ms (bytes "
+                    ("sw_attention ring", sw["ring"]),
+                    ("sw_attention zamba2-1.2b", sw["zamba2"]),
+                    ("sw_attention whisper-medium", sw["whisper"])):
+        _log_case(name, r)
+    log(f"ssd_intra bound {ssd['mamba2']['bound_ms']:.3f} ms (bytes "
         f"over 3.35 TB/s, or its 3xTF32 products over 495 TFLOP/s); as f32 "
-        f"FMA over 67 TFLOP/s {results['ssd_intra']['bound_f32_fma_ms']:.3f}"
+        f"FMA over 67 TFLOP/s {ssd['mamba2']['bound_f32_fma_ms']:.3f}"
         f" ms")
     sass = {name: n for name, n in sass_mma_counts().items()
             if "sw_attention" in name or "ssd_intra" in name}
@@ -2077,6 +2147,12 @@ def phase_serve_kernels(device) -> dict:
     results["sw_attention"]["sass"] = {k: v for k, v in sass.items()
                                        if "sw_attention" in k}
     return results
+
+
+def _ssd_dims(cfg, batch: int, seq: int) -> tuple:
+    """(B, nc, Q, H, P, N) of ssd_intra in a prefill of ``cfg``."""
+    return (batch, seq // cfg.ssm_chunk, cfg.ssm_chunk, cfg.ssm_heads,
+            cfg.ssm_headdim, cfg.ssm_state)
 
 
 def _timed(fn):
@@ -2103,20 +2179,23 @@ def _serve_speeds(srv, ops, cfg, batch, n_new) -> dict:
                 lambda: ops.prefill(srv.params, batch, cfg))}
 
 
-def _hold_routes(ops, cfg, params, batch, kernel: str) -> dict:
-    """The served bf16 prefill with every ``kernel`` call held against its
-    plain version on the same inputs; then, with the weights cast to f32,
-    the kernel route's last logits against the plain route's. The bf16
-    routes' distance is reported."""
+def _hold_routes(ops, cfg, params, batch, calls: dict) -> dict:
+    """The served bf16 prefill with every kernel call held against its
+    plain version on the same inputs (``calls``: each kernel's calls in
+    one prefill); then, with the weights cast to f32, the kernel route's
+    last logits against the plain route's. The bf16 routes' distance is
+    reported."""
     import dataclasses
     import torch
     from repro_torch.utils.tree import tree_map
     with kernel_route("checked") as ratios:
         logits, _ = ops.prefill(params, batch, cfg)
-    worst = max(ratios[kernel])
-    check(len(ratios[kernel]) == cfg.n_layers and worst <= 1.0,
-          f"{cfg.name}: {len(ratios[kernel])} {kernel} calls, the worst "
-          f"{worst:.3g} of the tolerance")
+    worst = {}
+    for kernel, n in calls.items():
+        worst[kernel] = max(ratios[kernel])
+        check(len(ratios[kernel]) == n and worst[kernel] <= 1.0,
+              f"{cfg.name}: {len(ratios[kernel])} {kernel} calls (not "
+              f"{n}), the worst {worst[kernel]:.3g} of the tolerance")
     check(bool(torch.isfinite(logits).all()) and logits.shape == (
         batch["tokens"].shape[0], 1, cfg.vocab), "bad prefill logits")
     with kernel_route("plain"):
@@ -2135,11 +2214,54 @@ def _hold_routes(ops, cfg, params, batch, kernel: str) -> dict:
     return out
 
 
-def phase_mamba2_serve(device, launches: dict) -> dict:
-    """Phase 15: mamba2-370m at full width (48 layers, d 1024, bf16) served
-    from the kernel route, then serve_with_recovery's flow, then the kernel
-    route held against the plain route; ``launches["mamba2_serve"]`` gets
-    the counts of the two generates and the recovery."""
+def _hold_recovery(ctl, params, lost, recovered, info: dict,
+                   name: str) -> dict:
+    """The serve-with-recovery flow's kernels against their plain versions
+    on the served tree: the flow applied no perturbation, the save
+    (scatter_save) left the checkpoint equal to the params, the restore
+    (masked_restore) is the plain restore's and the params' bits, and
+    block_dist's per-block ‖x‖² of the served tree (against zeros) is
+    within rtol 1e-4 of its plain version. Runs after the path's launch
+    counts are read, so none of these launches counts."""
+    import torch
+    from repro_torch.kernels.block_dist.kernel import block_dist_tree_cuda
+    from repro_torch.kernels.block_dist.ref import block_dist_tree_ref
+    from repro_torch.kernels.leaf_table import block_dist_table
+    from repro_torch.kernels.masked_restore.ref import tree_masked_restore_ref
+    from repro_torch.utils.tree import tree_leaves
+
+    part = ctl.partition
+    leaves = tree_leaves(params)
+    check(info["applied_sq"] == 0.0, f"{name}: the lossless recovery "
+          f"applied a perturbation, applied_sq {info['applied_sq']}")
+    check(all(_same_bits(c, x) for c, x in zip(
+        tree_leaves(ctl.ckpt.values), leaves)),
+          f"{name}: the checkpoint differs from the served params")
+    want = tree_leaves(tree_masked_restore_ref(params, ctl.ckpt.values,
+                                               lost, part))
+    check(all(_same_bits(r, w) and _same_bits(r, x) for r, w, x in zip(
+        tree_leaves(recovered), want, leaves)),
+          f"{name}: the restore differs from the plain restore or the params")
+    del want
+    zeros = [torch.zeros_like(x) for x in leaves]
+    dk = block_dist_tree_cuda(leaves, zeros, block_dist_table(part))
+    dp = block_dist_tree_ref(leaves, zeros, part)
+    rtol = _rel_err(dk, dp)
+    check(rtol <= 1e-4, f"{name}: block_dist on the served tree off by "
+          f"rtol {rtol}")
+    return {"block_dist_rtol": rtol, "blocks": part.total_blocks}
+
+
+def _serve_family(name: str, serve: dict, seed: int, device, launches: dict,
+                  path: str, calls: dict) -> dict:
+    """One model of ``name`` at full width served from the kernel route
+    (``Server.generate`` on ``serve``'s batch), then serve_with_recovery's
+    flow (``scar(1.0, 1)``, a 30% loss, partial restore, the same tokens
+    again) held by :func:`_hold_recovery`, then the kernel route held
+    against the plain route. ``launches[path]`` gets the counts of the two
+    generates and the recovery; each serve kernel must have launched
+    ``calls[kernel]`` times a prefill, twice, and no more (decode launches
+    neither)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core.controller import FTController
@@ -2150,40 +2272,55 @@ def phase_mamba2_serve(device, launches: dict) -> dict:
     from repro_torch.training.serve import Server
     from repro_torch.utils.tree import tree_leaves
 
-    cfg = get_config("mamba2-370m")
+    cfg = get_config(name)
     ops = get_model(cfg)
     torch.cuda.reset_peak_memory_stats()
     params = ops.init_params(torch.Generator(device=device).manual_seed(
-        SEED + 15), cfg, device=device)
-    batch = lm_batch(torch.Generator(device=device).manual_seed(SEED + 16),
-                     cfg, MAMBA_SERVE["batch"], MAMBA_SERVE["seq"],
-                     device=device)
+        SEED + seed), cfg, device=device)
+    batch = lm_batch(torch.Generator(device=device).manual_seed(
+        SEED + seed + 1), cfg, serve["batch"], serve["seq"], device=device)
     _build.reset_launches()
     srv = Server(cfg, params)
-    toks0, first_s = _timed(lambda: srv.generate(batch, MAMBA_SERVE["new"]))
+    toks0, first_s = _timed(lambda: srv.generate(batch, serve["new"]))
     ctl = FTController(params, CheckpointPolicy.scar(fraction=1.0,
                                                      interval=1))
     ctl.checkpoint_now(1, params)
     lost = ctl.sample_failure(0.3)
     recovered, info = ctl.on_failure(params, lost)
-    toks1 = Server(cfg, recovered).generate(batch, MAMBA_SERVE["new"])
-    launches["mamba2_serve"] = dict(_build.LAUNCHES)
-    check(toks0.shape == (MAMBA_SERVE["batch"], MAMBA_SERVE["new"]),
-          f"generated tokens of shape {tuple(toks0.shape)}")
-    check(int(lost.sum()) > 0, "the failure lost no block")
-    check(torch.equal(toks0, toks1), "tokens differ after the lossless "
-          "recovery")
-    check(launches["mamba2_serve"]["ssd_intra"] == 2 * cfg.n_layers,
-          f"ssd_intra launched {launches['mamba2_serve']['ssd_intra']} "
-          f"times, not once per layer and prefill")
+    toks1 = Server(cfg, recovered).generate(batch, serve["new"])
+    launches[path] = dict(_build.LAUNCHES)
+    check(toks0.shape == (serve["batch"], serve["new"]),
+          f"{name}: generated tokens of shape {tuple(toks0.shape)}")
+    check(int(lost.sum()) > 0, f"{name}: the failure lost no block")
+    check(torch.equal(toks0, toks1), f"{name}: tokens differ after the "
+          f"lossless recovery")
+    for kernel in ("ssd_intra", "sw_attention"):
+        n = launches[path][kernel]
+        check(n == 2 * calls.get(kernel, 0),
+              f"{name}: {kernel} launched {n} times in two generates, not "
+              f"{2 * calls.get(kernel, 0)}")
+    served_peak = torch.cuda.max_memory_allocated() / 1e9
+    held = _hold_recovery(ctl, params, lost, recovered, info, name)
     del ctl, recovered
-    out = {"params": sum(x.numel() for x in tree_leaves(params)),
-           "first_generate_seconds": first_s,
-           **_serve_speeds(srv, ops, cfg, batch, MAMBA_SERVE["new"]),
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    speeds = _serve_speeds(srv, ops, cfg, batch, serve["new"])
+    out = {"params": n_params, "first_generate_seconds": first_s, **speeds,
            "lost_blocks": info["lost_blocks"],
-           "applied_sq": info["applied_sq"],
-           "served_peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
-           **_hold_routes(ops, cfg, params, batch, "ssd_intra")}
+           "applied_sq": info["applied_sq"], "recovery_held": held,
+           "served_peak_memory_gb": served_peak,
+           **_hold_routes(ops, cfg, params, batch, calls)}
+    out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return out
+
+
+def phase_mamba2_serve(device, launches: dict) -> dict:
+    """Phase 15: mamba2-370m at full width (48 layers, d 1024, bf16) served
+    as :func:`_serve_family` serves a family; ssd_intra once a layer in
+    each prefill."""
+    from repro_torch.configs import get_config
+    cfg = get_config("mamba2-370m")
+    out = _serve_family("mamba2-370m", MAMBA_SERVE, 15, device, launches,
+                        "mamba2_serve", {"ssd_intra": cfg.n_layers})
     log(f"mamba2-370m serve, batch {MAMBA_SERVE['batch']} x "
         f"{MAMBA_SERVE['seq']} + {MAMBA_SERVE['new']} tokens: "
         f"{json.dumps(out)}")
@@ -2252,7 +2389,8 @@ def phase_qwen2_serve(device, launches: dict) -> dict:
            "bf16_ring_decode_rel_l2_vs_prefill": _rel_l2(ring_decode,
                                                          longer),
            "served_peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
-           **_hold_routes(ops, cfg, params, batch, "sw_attention")}
+           **_hold_routes(ops, cfg, params, batch,
+                          {"sw_attention": cfg.n_layers})}
     del ring_decode, longer
     with kernel_route("checked") as ratios:
         transformer.prefill(params, {"tokens": ring_toks[:, :S_ring]}, cfg,
@@ -2277,6 +2415,79 @@ def phase_qwen2_serve(device, launches: dict) -> dict:
         f"{QWEN_SERVE['seq']} + {QWEN_SERVE['new']} tokens, ring "
         f"{S_ring} + 1: {json.dumps(out)}")
     return out
+
+
+# ---------------------------------------------------------------------------
+# phases 19-20: the hybrid (zamba2-1.2b) and encoder-decoder
+# (whisper-medium) families served
+# ---------------------------------------------------------------------------
+
+def phase_zamba2_serve(device, launches: dict, card: str) -> dict:
+    """Phase 19: zamba2-1.2b at full width (38 Mamba2 layers, d 2048, the
+    shared block applied 7 times, bf16) served, the recovery flow and the
+    route hold; ssd_intra once a layer and sw_attention once an
+    application of the shared block, in each prefill."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import hybrid
+    cfg = get_config("zamba2-1.2b")
+    t0 = time.perf_counter()
+    out = _serve_family("zamba2-1.2b", ZAMBA2_SERVE, 190, device, launches,
+                        "zamba2_serve", {"ssd_intra": cfg.n_layers,
+                                         "sw_attention":
+                                         hybrid.n_segments(cfg)})
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 19: zamba2-1.2b serve, batch {ZAMBA2_SERVE['batch']} x "
+        f"{ZAMBA2_SERVE['seq']} + {ZAMBA2_SERVE['new']} tokens, on {card}: "
+        f"{json.dumps(out)}")
+    return out
+
+
+def phase_whisper_serve(device, launches: dict, card: str) -> dict:
+    """Phase 20: whisper-medium at full width (24 encoder and 24 decoder
+    layers, d 1024, vocab 51,865, bf16) served on 1,500 frames, the
+    recovery flow and the route hold; sw_attention once a decoder layer in
+    each prefill, ssd_intra never."""
+    from repro_torch.configs import get_config
+    cfg = get_config("whisper-medium")
+    check(cfg.enc_seq == WHISPER_SERVE["frames"],
+          f"whisper-medium's enc_seq is {cfg.enc_seq}")
+    t0 = time.perf_counter()
+    out = _serve_family("whisper-medium", WHISPER_SERVE, 200, device,
+                        launches, "whisper_serve",
+                        {"sw_attention": cfg.n_layers})
+    out["seconds"] = time.perf_counter() - t0
+    out["prefill_frames_per_s"] = (WHISPER_SERVE["batch"] * cfg.enc_seq
+                                   / out["prefill_seconds"])
+    log(f"phase 20: whisper-medium serve, batch {WHISPER_SERVE['batch']} x "
+        f"({cfg.enc_seq} frames, {WHISPER_SERVE['seq']} tokens) + "
+        f"{WHISPER_SERVE['new']} tokens, on {card}: {json.dumps(out)}")
+    return out
+
+
+def family_phases(device, launches: dict, card: str) -> dict:
+    import torch
+    out = {"zamba2_serve": phase_zamba2_serve(device, launches, card)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["whisper_serve"] = phase_whisper_serve(device, launches, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def families_only(device, card: str) -> int:
+    """``--families``: phase 14 and phases 19-20 alone. Its last line says
+    that it is this run, not the full one."""
+    import torch
+    kernels = phase_serve_kernels(device)
+    launches: dict = {}
+    out = family_phases(device, launches, card)
+    log(json.dumps({"launches": launches, "serve_kernels": kernels}))
+    log(card)
+    log(json.dumps({"families_only": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}, "phases": list(out)}))
+    return 0
 
 
 # ---------------------------------------------------------------------------
@@ -3152,6 +3363,8 @@ def main(argv: list) -> int:
         return train_only(device, card)
     if "--store" in argv:
         return store_only(device, card)
+    if "--families" in argv:
+        return families_only(device, card)
     gen = torch.Generator(device=device).manual_seed(SEED)
     shapes = qwen2_1_5b_shapes()
     a_tree = _map_shapes(shapes, lambda s: torch.randn(
@@ -3244,6 +3457,9 @@ def main(argv: list) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     store = store_phases(device, launches)
+    gc.collect()
+    torch.cuda.empty_cache()
+    families = family_phases(device, launches, card)
     log(json.dumps({"launches": launches}))
     old = ("block_dist", "scatter_save", "masked_restore")
     new = ("arena_maintain", "arena_scatter", "parity_xor")
@@ -3254,8 +3470,10 @@ def main(argv: list) -> int:
                                        "gf256_mac", "masked_restore")),
                         ("leaf_fabric", ("fused_maintain", "scatter_save",
                                          "parity_xor", "masked_restore")),
-                        ("mamba2_serve", ("ssd_intra",)),
+                        ("mamba2_serve", old + ("ssd_intra",)),
                         ("qwen2_serve", ("sw_attention",)),
+                        ("zamba2_serve", old + ("ssd_intra", "sw_attention")),
+                        ("whisper_serve", old + ("sw_attention",)),
                         ("train", TRAIN_KERNELS)):
         for name in names:
             check(launches[path][name] > 0,
@@ -3302,11 +3520,14 @@ def main(argv: list) -> int:
                        "library_ms": r["library_ms"],
                        "train_launches": launches["train"][name],
                        "store_launches": launches["store_async"][name]
-                       + launches["store_disk"][name]})
+                       + launches["store_disk"][name],
+                       "zamba2_launches": launches["zamba2_serve"][name],
+                       "whisper_launches": launches["whisper_serve"][name]})
     log(json.dumps({"controller": ctl, "fabric": fabric,
                     "rs_fabric": rs_fabric, "leaf_fabric": leaf_fabric,
                     "multi_erasure": multi, "mamba2_serve": mamba2,
                     "qwen2_serve": qwen2, "train": train, "store": store,
+                    **families,
                     "serve_kernels": {
                         name: kernels[name]
                         for name in ("ssd_intra", "sw_attention")},

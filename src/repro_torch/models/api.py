@@ -8,10 +8,11 @@
 - ``decode_step(params, state, tokens, cfg)``       -> (logits, state)
 - ``train_loss(params, batch, cfg)``                 -> mean loss (f32)
 
-The port serves the ``ssm`` family and the ``dense`` family without MoE.
-The families and options it leaves out raise ``NotImplementedError``
-naming their ROADMAP item. The cache geometry (ring vs linear) is decided
-by ``serve_cache_len``, as in the reference.
+The port serves the ``ssm``, ``hybrid`` and ``audio`` (encoder-decoder)
+families and the ``dense`` family without MoE. The families and options it
+leaves out raise ``NotImplementedError`` naming their ROADMAP item. The
+cache geometry (ring vs linear) is decided by ``serve_cache_len``, as in
+the reference.
 """
 from __future__ import annotations
 
@@ -19,14 +20,12 @@ import dataclasses
 from typing import Callable
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import ssm, transformer
+from repro_torch.models import encdec, hybrid, ssm, transformer
 
 # ROADMAP items of what this port does not serve yet
 _NOT_PORTED = {
     "moe": "MoE layers, interleaved or not (ROADMAP item 19)",
     "vlm": "the VLM prefix (ROADMAP item 19)",
-    "hybrid": "the hybrid family, models/hybrid.py (ROADMAP item 18)",
-    "audio": "the encoder-decoder family, models/encdec.py (ROADMAP item 18)",
 }
 
 
@@ -88,6 +87,30 @@ def _ssm_ops(cfg: ModelConfig) -> ModelOps:
     )
 
 
+def _hybrid_ops(cfg: ModelConfig) -> ModelOps:
+    return ModelOps(
+        init_params=hybrid.init_params,
+        train_loss=hybrid.train_loss,
+        init_cache=lambda cfg, batch, seq_len, device=None: hybrid.init_state(
+            cfg, batch, seq_len, device),
+        prefill=hybrid.prefill,
+        decode_step=hybrid.decode_step,
+        supports_long_context=True,
+    )
+
+
+def _encdec_ops(cfg: ModelConfig) -> ModelOps:
+    return ModelOps(
+        init_params=encdec.init_params,
+        train_loss=encdec.train_loss,
+        init_cache=lambda cfg, batch, seq_len, device=None: encdec.init_cache(
+            cfg, batch, seq_len, device),
+        prefill=encdec.prefill,
+        decode_step=encdec.decode_step,
+        supports_long_context=False,   # the 30 s encoder-decoder format
+    )
+
+
 def get_model(cfg: ModelConfig) -> ModelOps:
     if cfg.family in _NOT_PORTED:
         raise NotImplementedError(f"{cfg.name}: {_NOT_PORTED[cfg.family]} "
@@ -105,4 +128,8 @@ def get_model(cfg: ModelConfig) -> ModelOps:
         return _transformer_ops(cfg)
     if cfg.family == "ssm":
         return _ssm_ops(cfg)
+    if cfg.family == "hybrid":
+        return _hybrid_ops(cfg)
+    if cfg.family == "audio":
+        return _encdec_ops(cfg)
     raise ValueError(f"unknown family {cfg.family!r}")

@@ -1,0 +1,264 @@
+"""Whisper-style encoder-decoder transformer [arXiv:2212.04356], serve path
+and training loss.
+
+The port of ``repro.models.encdec`` for one device. The mel-spectrogram and
+conv feature extractor are a stub, as in the reference: the batch carries
+precomputed frame embeddings ``frames`` (B, enc_seq, D), which a learned
+projection maps into the encoder. Positions are sinusoidal (no RoPE:
+``rope_theta`` is 0). Decoder layers have causal self-attention (cached),
+cross-attention to the encoder output (its K/V computed once at prefill)
+and an MLP.
+
+Prefill encodes the frames, then runs the decoder over the prompt: its
+causal self-attention goes through ``transformer.prefill_attention`` (the
+``sw_attention`` kernel with ``window=S`` on the card, the plain chunked
+attention on the CPU). The encoder's bidirectional attention and the
+cross-attention have no kernel in either package: they are the plain
+chunked ``layers.flash_attention`` on every device, with the reference's
+chunks. The cache is linear: the prompt plus the reference's 64 empty
+slots. Decode is plain torch on every device and writes slot ``pos`` in
+place; past the last slot it raises (the reference clamps the write to
+the last slot and drops the ``kpos`` update).
+
+Parameters keep the reference's tree: ``frame_proj``, ``enc_layers`` and
+``dec_layers`` (stacked), ``enc_norm``, ``final_norm`` and the embedding.
+The mesh (item 15) is not here.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import layers as L
+from repro_torch.models import transformer
+
+PyTree = Any
+
+SLACK = 64      # empty cache slots after the prompt, as in the reference
+CHUNK = 512     # the reference's attention chunk for this family
+
+
+def _dtype(cfg: ModelConfig) -> torch.dtype:
+    return L.torch_dtype(cfg.dtype)
+
+
+def init_enc_layer(gen: torch.Generator, cfg: ModelConfig, device=None,
+                   layers: tuple = ()) -> PyTree:
+    """Encoder layers; ``layers`` is a leading stack shape."""
+    dt = _dtype(cfg)
+    dev = device if device is not None else gen.device
+    Ls = tuple(layers)
+    return {
+        "attn_norm": torch.ones(Ls + (cfg.d_model,), dtype=dt, device=dev),
+        "attn": L.init_attention(gen, cfg, dt, dev, Ls),
+        "mlp_norm": torch.ones(Ls + (cfg.d_model,), dtype=dt, device=dev),
+        "mlp": L.init_mlp(gen, cfg.d_model, cfg.d_ff, dt, dev, Ls),
+    }
+
+
+def init_dec_layer(gen: torch.Generator, cfg: ModelConfig, device=None,
+                   layers: tuple = ()) -> PyTree:
+    """Decoder layers; ``layers`` is a leading stack shape."""
+    dt = _dtype(cfg)
+    dev = device if device is not None else gen.device
+    Ls = tuple(layers)
+    return {
+        "self_norm": torch.ones(Ls + (cfg.d_model,), dtype=dt, device=dev),
+        "self_attn": L.init_attention(gen, cfg, dt, dev, Ls),
+        "cross_norm": torch.ones(Ls + (cfg.d_model,), dtype=dt, device=dev),
+        "cross_attn": L.init_attention(gen, cfg, dt, dev, Ls),
+        "mlp_norm": torch.ones(Ls + (cfg.d_model,), dtype=dt, device=dev),
+        "mlp": L.init_mlp(gen, cfg.d_model, cfg.d_ff, dt, dev, Ls),
+    }
+
+
+def init_params(gen: torch.Generator, cfg: ModelConfig,
+                device: DeviceLike = None) -> PyTree:
+    """Random weights from ``gen`` (drawn on its device), placed on
+    ``device`` (``cuda`` unless asked otherwise), layers stacked."""
+    dev = resolve_device(device)
+    dt = _dtype(cfg)
+    return {
+        **L.init_embed(gen, cfg, dt, dev),
+        # the stub front end: a learned projection of the frame features
+        "frame_proj": {"proj": L.dense_init(gen, (cfg.d_model, cfg.d_model),
+                                            cfg.d_model, dt, dev)},
+        "enc_layers": init_enc_layer(gen, cfg, dev, (cfg.enc_layers,)),
+        "enc_norm": torch.ones((cfg.d_model,), dtype=dt, device=dev),
+        "dec_layers": init_dec_layer(gen, cfg, dev, (cfg.n_layers,)),
+        "final_norm": torch.ones((cfg.d_model,), dtype=dt, device=dev),
+    }
+
+
+def _positions(n: int, device) -> torch.Tensor:
+    return torch.arange(n, dtype=torch.int32, device=device)
+
+
+def encode(params, frames, cfg: ModelConfig):
+    """frames: (B, T, D) stub embeddings -> the encoder output (B, T, D)."""
+    T = frames.shape[1]
+    h = torch.einsum("btd,de->bte", frames.to(_dtype(cfg)),
+                     params["frame_proj"]["proj"])
+    h = h + L.sinusoidal_positions(T, cfg.d_model,
+                                   device=h.device).to(h.dtype)
+    positions = _positions(T, h.device)
+    chunk = min(CHUNK, T)
+    for lp in L.unstack_layers(params["enc_layers"], cfg.enc_layers):
+        h = h + L.attention_block(L.rms_norm(h, lp["attn_norm"]), lp["attn"],
+                                  cfg, positions=positions, causal=False,
+                                  q_chunk=chunk, kv_chunk=chunk)
+        h = h + L.mlp_block(L.rms_norm(h, lp["mlp_norm"]), lp["mlp"])
+    return L.rms_norm(h, params["enc_norm"])
+
+
+def _cross(x, lp, enc_out, positions, enc_pos, q_chunk):
+    """The cross-attention sublayer, K/V projected from ``enc_out``;
+    returns (x with the sublayer added, K, V)."""
+    p = lp["cross_attn"]
+    xn = L.rms_norm(x, lp["cross_norm"])
+    q = torch.einsum("bsd,dhk->bshk", xn, p["wq"])
+    k = torch.einsum("btd,dhk->bthk", enc_out, p["wk"])
+    v = torch.einsum("btd,dhk->bthk", enc_out, p["wv"])
+    o = L.flash_attention(q, k, v, positions, enc_pos, causal=False,
+                          q_chunk=q_chunk, kv_chunk=min(CHUNK, k.shape[1]))
+    return x + torch.einsum("bshk,hkd->bsd", o, p["wo"]), k, v
+
+
+def _dec_layer(x, lp, cfg: ModelConfig, positions, enc_out, enc_pos,
+               q_chunk=CHUNK):
+    """One decoder layer, the training path (cross K/V recomputed)."""
+    x = x + L.attention_block(L.rms_norm(x, lp["self_norm"]), lp["self_attn"],
+                              cfg, positions=positions, causal=True,
+                              q_chunk=q_chunk, kv_chunk=q_chunk)
+    x, _, _ = _cross(x, lp, enc_out, positions, enc_pos, q_chunk)
+    return x + L.mlp_block(L.rms_norm(x, lp["mlp_norm"]), lp["mlp"])
+
+
+def _embed_with_positions(params, tokens, cfg: ModelConfig, offset=0):
+    h = L.embed_tokens(tokens, params)
+    return h + L.sinusoidal_positions(tokens.shape[1], cfg.d_model, offset,
+                                      device=h.device).to(h.dtype)
+
+
+def train_loss(params, batch, cfg: ModelConfig, **_) -> torch.Tensor:
+    """Mean next-token cross-entropy of ``batch`` (``frames``, ``tokens``,
+    ``labels`` and an optional ``mask``), f32; each decoder layer
+    recomputed in backward when ``cfg.remat``."""
+    enc_out = encode(params, batch["frames"], cfg)
+    h = _embed_with_positions(params, batch["tokens"], cfg)
+    positions = _positions(h.shape[1], h.device)
+    enc_pos = _positions(enc_out.shape[1], h.device)
+    for lp in L.unstack_layers(params["dec_layers"], cfg.n_layers):
+        h = L.remat(lambda x, lp=lp: _dec_layer(x, lp, cfg, positions,
+                                                enc_out, enc_pos), h,
+                    enabled=cfg.remat)
+    h = L.rms_norm(h, params["final_norm"])
+    labels = batch["labels"]
+    mask = batch.get("mask")
+    if mask is None:
+        mask = torch.ones(labels.shape, dtype=torch.float32,
+                          device=labels.device)
+    return L.lm_loss_chunked(h, params, labels, mask, cfg)
+
+
+# ---------------------------------------------------------------------------
+# serving
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
+               device: DeviceLike = None) -> PyTree:
+    dev = resolve_device(device)
+    dt = _dtype(cfg)
+    Hk, Dh, Ln, T = cfg.n_kv_heads, cfg.head_dim, cfg.n_layers, cfg.enc_seq
+    return {
+        "k": torch.zeros((Ln, batch, cache_len, Hk, Dh), dtype=dt, device=dev),
+        "v": torch.zeros((Ln, batch, cache_len, Hk, Dh), dtype=dt, device=dev),
+        "cross_k": torch.zeros((Ln, batch, T, Hk, Dh), dtype=dt, device=dev),
+        "cross_v": torch.zeros((Ln, batch, T, Hk, Dh), dtype=dt, device=dev),
+        "kpos": torch.full((cache_len,), -1, dtype=torch.int32, device=dev),
+        "pos": torch.zeros((), dtype=torch.int32, device=dev),
+    }
+
+
+def prefill(params, batch, cfg: ModelConfig, spec=None):
+    """Encode ``batch["frames"]``, then the teacher-forced decoder pass over
+    ``batch["tokens"]``, building the self- and cross-attention caches.
+    Returns (logits of the last position (B, 1, V) f32, cache)."""
+    enc_out = encode(params, batch["frames"], cfg)
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    T = enc_out.shape[1]
+    dt = _dtype(cfg)
+    x = _embed_with_positions(params, tokens, cfg)
+    positions = _positions(S, x.device)
+    enc_pos = _positions(T, x.device)
+    shape = (cfg.n_layers, B, S + SLACK, cfg.n_kv_heads, cfg.head_dim)
+    ks = torch.zeros(shape, dtype=dt, device=x.device)
+    vs = torch.zeros(shape, dtype=dt, device=x.device)
+    cks, cvs = [], []
+    dec = L.unstack_layers(params["dec_layers"], cfg.n_layers)
+    for i, lp in enumerate(dec):
+        p = lp["self_attn"]
+        q, k, v = L.qkv_project(L.rms_norm(x, lp["self_norm"]), p, cfg,
+                                positions)
+        o = transformer.prefill_attention(q, k, v, positions, cfg, 0)
+        x = x + torch.einsum("bshk,hkd->bsd", o, p["wo"])
+        x, ck, cv = _cross(x, lp, enc_out, positions, enc_pos, min(CHUNK, S))
+        x = x + L.mlp_block(L.rms_norm(x, lp["mlp_norm"]), lp["mlp"])
+        # slots past S stay empty: room for the tokens decoded next
+        ks[i, :, :S] = k.to(dt)
+        vs[i, :, :S] = v.to(dt)
+        cks.append(ck.to(dt))
+        cvs.append(cv.to(dt))
+    h = L.rms_norm(x, params["final_norm"])
+    logits = L.lm_logits(h[:, -1:], params)
+    kpos = torch.full((S + SLACK,), -1, dtype=torch.int32, device=x.device)
+    kpos[:S] = positions
+    cache = {"k": ks, "v": vs, "cross_k": torch.stack(cks),
+             "cross_v": torch.stack(cvs), "kpos": kpos,
+             "pos": torch.tensor(S, dtype=torch.int32, device=x.device)}
+    return logits, cache
+
+
+def decode_step(params, cache, tokens, cfg: ModelConfig, spec=None):
+    """One decode step. tokens: (B, 1) -> (logits (B, 1, V) f32, the
+    cache), its K/V and ``kpos`` written in place at slot ``pos``. Raises
+    ``ValueError`` when the cache has no slot left."""
+    pos = int(cache["pos"])
+    cache_len = cache["k"].shape[2]
+    if pos >= cache_len:
+        raise ValueError(f"decode at position {pos}: the cache holds "
+                         f"{cache_len} slots")
+    x = _embed_with_positions(params, tokens, cfg, offset=cache["pos"])
+    positions = torch.tensor([pos], dtype=torch.int32, device=x.device)
+    kpos = cache["kpos"]
+    kpos[pos] = pos
+    T = cache["cross_k"].shape[2]
+    enc_pos = _positions(T, x.device)
+    kv_chunk = min(1024, cache_len)
+    dec = L.unstack_layers(params["dec_layers"], cfg.n_layers)
+    for i, lp in enumerate(dec):
+        kc, vc = cache["k"][i], cache["v"][i]
+        p = lp["self_attn"]
+        q, k, v = L.qkv_project(L.rms_norm(x, lp["self_norm"]), p, cfg,
+                                positions)
+        kc[:, pos] = k[:, 0].to(kc.dtype)
+        vc[:, pos] = v[:, 0].to(vc.dtype)
+        o = L.flash_attention(q, kc, vc, positions, kpos, causal=True,
+                              q_chunk=1, kv_chunk=kv_chunk)
+        x = x + torch.einsum("bshk,hkd->bsd", o, p["wo"])
+        pc = lp["cross_attn"]
+        xn = L.rms_norm(x, lp["cross_norm"])
+        qc = torch.einsum("bsd,dhk->bshk", xn, pc["wq"])
+        oc = L.flash_attention(qc, cache["cross_k"][i], cache["cross_v"][i],
+                               positions, enc_pos, causal=False, q_chunk=1,
+                               kv_chunk=min(CHUNK, T))
+        x = x + torch.einsum("bshk,hkd->bsd", oc, pc["wo"])
+        x = x + L.mlp_block(L.rms_norm(x, lp["mlp_norm"]), lp["mlp"])
+    h = L.rms_norm(x, params["final_norm"])
+    logits = L.lm_logits(h, params)
+    cache["pos"] = cache["pos"] + 1
+    return logits, cache

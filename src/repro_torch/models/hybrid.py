@@ -1,0 +1,200 @@
+"""Zamba2-style hybrid: a Mamba2 backbone and one *shared* attention block
+[arXiv:2411.15242], serve path and training loss.
+
+The port of ``repro.models.hybrid`` for one device. The backbone is
+``n_layers`` Mamba2 layers; one transformer layer (GQA attention and MLP)
+with a single set of weights is applied after every ``cfg.attn_every``
+backbone layers, the last segment possibly shorter (``_segments``).
+
+Prefill runs each Mamba2 layer through ``ssm.mixer_prefill`` (the
+``ssd_intra`` kernel inside the SSD scan on the card) and each application
+of the shared block through ``transformer.prefill_attention`` (the
+``sw_attention`` kernel with ``window=S`` on the card, the plain chunked
+attention on the CPU). The state holds the per-layer SSM states and one KV
+cache per application of the shared block, each the prompt plus the
+reference's 64 empty slots, with one shared ``kpos``. Decode is plain torch
+on every device: the recurrent Mamba2 step per layer and, per application,
+attention over its cache; it writes slot ``pos % cache_len`` (the cache
+wraps past its slack, as the reference's does) in place.
+
+Parameters keep the reference's tree: ``layers`` (the Mamba2 layers
+stacked over ``n_layers``), ``shared`` (one transformer layer),
+``final_norm`` and the embedding. The mesh (item 15) is not here.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import layers as L
+from repro_torch.models import ssm, transformer
+
+PyTree = Any
+
+SLACK = 64      # empty cache slots after the prompt, as in the reference
+
+
+def _dtype(cfg: ModelConfig) -> torch.dtype:
+    return L.torch_dtype(cfg.dtype)
+
+
+def n_segments(cfg: ModelConfig) -> int:
+    return -(-cfg.n_layers // cfg.attn_every)
+
+
+def _segments(cfg: ModelConfig) -> list:
+    """(start, length) of each backbone segment, in order."""
+    segs, start = [], 0
+    while start < cfg.n_layers:
+        ln = min(cfg.attn_every, cfg.n_layers - start)
+        segs.append((start, ln))
+        start += ln
+    return segs
+
+
+def init_params(gen: torch.Generator, cfg: ModelConfig,
+                device: DeviceLike = None) -> PyTree:
+    """Random weights from ``gen`` (drawn on its device), placed on
+    ``device`` (``cuda`` unless asked otherwise), the Mamba2 layers
+    stacked."""
+    dev = resolve_device(device)
+    return {
+        **L.init_embed(gen, cfg, _dtype(cfg), dev),
+        "layers": ssm.init_layer(gen, cfg, dev, (cfg.n_layers,)),
+        "shared": transformer.init_layer(gen, cfg, dev),
+        "final_norm": torch.ones((cfg.d_model,), dtype=_dtype(cfg),
+                                 device=dev),
+    }
+
+
+def train_loss(params, batch, cfg: ModelConfig, **_) -> torch.Tensor:
+    """Mean next-token cross-entropy of ``batch`` (``tokens``, ``labels``
+    and an optional ``mask``), f32: the plain SSD scan and full causal
+    attention, each layer and each application of the shared block
+    recomputed in backward when ``cfg.remat``."""
+    h = L.embed_tokens(batch["tokens"], params)
+    positions = torch.arange(h.shape[1], dtype=torch.int32, device=h.device)
+    layers = L.unstack_layers(params["layers"], cfg.n_layers)
+    shared = params["shared"]
+    for start, length in _segments(cfg):
+        for lp in layers[start:start + length]:
+            h = h + L.remat(lambda x, lp=lp: ssm.mixer_fwd(
+                L.rms_norm(x, lp["norm"]), lp["mixer"], cfg), h,
+                enabled=cfg.remat)
+        h = L.remat(lambda x: transformer._layer_fwd(
+            x, shared, cfg, positions, 0, 1024, 1024), h, enabled=cfg.remat)
+    h = L.rms_norm(h, params["final_norm"])
+    labels = batch["labels"]
+    mask = batch.get("mask")
+    if mask is None:
+        mask = torch.ones(labels.shape, dtype=torch.float32,
+                          device=labels.device)
+    return L.lm_loss_chunked(h, params, labels, mask, cfg)
+
+
+# ---------------------------------------------------------------------------
+# serving
+# ---------------------------------------------------------------------------
+
+def init_state(cfg: ModelConfig, batch: int, cache_len: int,
+               device: DeviceLike = None) -> PyTree:
+    dev = resolve_device(device)
+    shape = (n_segments(cfg), batch, cache_len, cfg.n_kv_heads, cfg.head_dim)
+    return {
+        "ssm": ssm.init_state(cfg, batch, dev),
+        # one KV cache per application of the shared block
+        "k": torch.zeros(shape, dtype=_dtype(cfg), device=dev),
+        "v": torch.zeros(shape, dtype=_dtype(cfg), device=dev),
+        "kpos": torch.full((cache_len,), -1, dtype=torch.int32, device=dev),
+        "pos": torch.zeros((), dtype=torch.int32, device=dev),
+    }
+
+
+def _shared_mlp(x, lp):
+    return x + L.mlp_block(L.rms_norm(x, lp["mlp_norm"]), lp["mlp"])
+
+
+def prefill(params, batch, cfg: ModelConfig, spec=None):
+    """The chunked SSD scan over the prompt and the shared block's KV
+    caches. The prompt's length must be a multiple of ``cfg.ssm_chunk``
+    (or below it): the scan raises ``ValueError`` otherwise. Returns
+    (logits of the last position (B, 1, V) f32, state)."""
+    tokens = batch["tokens"]
+    x = L.embed_tokens(tokens, params)
+    B, S = tokens.shape
+    dt = _dtype(cfg)
+    positions = torch.arange(S, dtype=torch.int32, device=x.device)
+    segs = _segments(cfg)
+    shape = (len(segs), B, S + SLACK, cfg.n_kv_heads, cfg.head_dim)
+    ks = torch.zeros(shape, dtype=dt, device=x.device)
+    vs = torch.zeros(shape, dtype=dt, device=x.device)
+    lp_sh = params["shared"]
+    hs, convs = [], []
+    for si, (start, length) in enumerate(segs):
+        for i in range(start, start + length):
+            x, h_fin, conv_state = ssm.mixer_prefill(
+                x, L.layer_params(params, i), cfg)
+            hs.append(h_fin)
+            convs.append(conv_state)
+        xn = L.rms_norm(x, lp_sh["attn_norm"])
+        q, k, v = L.qkv_project(xn, lp_sh["attn"], cfg, positions)
+        o = transformer.prefill_attention(q, k, v, positions, cfg, 0)
+        x = x + torch.einsum("bshk,hkd->bsd", o, lp_sh["attn"]["wo"])
+        x = _shared_mlp(x, lp_sh)
+        # slots past S stay empty: room for the tokens decoded next
+        ks[si, :, :S] = k.to(dt)
+        vs[si, :, :S] = v.to(dt)
+    hfin = L.rms_norm(x, params["final_norm"])
+    logits = L.lm_logits(hfin[:, -1:], params)
+    kpos = torch.full((S + SLACK,), -1, dtype=torch.int32, device=x.device)
+    kpos[:S] = positions
+    pos = torch.tensor(S, dtype=torch.int32, device=x.device)
+    state = {"ssm": {"h": torch.stack(hs), "conv": torch.stack(convs),
+                     "pos": pos.clone()},
+             "k": ks, "v": vs, "kpos": kpos, "pos": pos}
+    return logits, state
+
+
+def decode_step(params, state, tokens, cfg: ModelConfig, spec=None):
+    """One decode step. tokens: (B, 1) -> (logits (B, 1, V) f32, the new
+    state). The shared block's K/V and ``kpos`` are written in place at
+    slot ``pos % cache_len``; the SSM states are new tensors."""
+    x = L.embed_tokens(tokens, params)
+    pos = int(state["pos"])
+    positions = torch.tensor([pos], dtype=torch.int32, device=x.device)
+    cache_len = state["k"].shape[2]
+    slot = pos % cache_len
+    kpos = state["kpos"]
+    kpos[slot] = pos
+    kv_chunk = min(1024, cache_len)
+    sst = state["ssm"]
+    lp_sh = params["shared"]
+    hs, convs = [], []
+    for si, (start, length) in enumerate(_segments(cfg)):
+        for i in range(start, start + length):
+            lp = L.layer_params(params, i)
+            out, new = ssm.mixer_decode(
+                L.rms_norm(x, lp["norm"]), lp["mixer"],
+                {"h": sst["h"][i], "conv": sst["conv"][i]}, cfg)
+            x = x + out
+            hs.append(new["h"])
+            convs.append(new["conv"])
+        kc, vc = state["k"][si], state["v"][si]
+        xn = L.rms_norm(x, lp_sh["attn_norm"])
+        q, k, v = L.qkv_project(xn, lp_sh["attn"], cfg, positions)
+        kc[:, slot] = k[:, 0].to(kc.dtype)
+        vc[:, slot] = v[:, 0].to(vc.dtype)
+        o = L.flash_attention(q, kc, vc, positions, kpos, causal=True,
+                              q_chunk=1, kv_chunk=kv_chunk)
+        x = x + torch.einsum("bshk,hkd->bsd", o, lp_sh["attn"]["wo"])
+        x = _shared_mlp(x, lp_sh)
+    h = L.rms_norm(x, params["final_norm"])
+    logits = L.lm_logits(h, params)
+    new_state = {"ssm": {"h": torch.stack(hs), "conv": torch.stack(convs),
+                         "pos": sst["pos"] + 1},
+                 "k": state["k"], "v": state["v"], "kpos": kpos,
+                 "pos": state["pos"] + 1}
+    return logits, new_state

@@ -1,4 +1,5 @@
-"""Shared transformer layers: RMSNorm, RoPE, chunked (flash-style) GQA
+"""Shared transformer layers: RMSNorm, RoPE, sinusoidal positions (the
+encoder-decoder family), chunked (flash-style) GQA
 attention with its backward, SwiGLU MLP, embedding, the LM head and the
 chunked LM loss.
 
@@ -133,6 +134,25 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_positions(seq: int, d_model: int, offset=0,
+                         device=None) -> torch.Tensor:
+    """(seq, d_model) f32 sinusoidal position table of positions
+    ``offset .. offset + seq - 1``: sin on the even columns, cos on the odd.
+    ``offset`` may be a 0-d tensor (a decode step's position)."""
+    if isinstance(offset, torch.Tensor):
+        device = offset.device if device is None else device
+        offset = offset.to(device=device, dtype=torch.float32)
+    pos = (torch.arange(seq, dtype=torch.float32, device=device)
+           + offset)[:, None]
+    div = torch.exp(torch.arange(0, d_model, 2, dtype=torch.float32,
+                                 device=device)
+                    * (-math.log(10000.0) / d_model))
+    pe = torch.zeros((seq, d_model), dtype=torch.float32, device=device)
+    pe[:, 0::2] = torch.sin(pos * div)
+    pe[:, 1::2] = torch.cos(pos * div)
+    return pe
 
 
 # ---------------------------------------------------------------------------

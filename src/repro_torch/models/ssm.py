@@ -13,8 +13,10 @@ plain version.
 Simplifications kept from the reference: a single B/C group
 (n_groups=1), the depthwise short conv applied to x only.
 
-Decode is the O(1) recurrent form, h <- a·h + dt·B⊗x per layer, in plain
-torch: no TPU kernel covers it.
+One layer's prefill is ``mixer_prefill``, which ``prefill`` and the
+hybrid family (``models.hybrid``) both run. Decode is the O(1) recurrent
+form, h <- a·h + dt·B⊗x per layer, in plain torch: no TPU kernel covers
+it.
 
 Training (``train_loss``, ``mixer_fwd``) runs the scan through the plain
 ``ssd_chunked_plain`` on every device, as the reference trains through its
@@ -65,17 +67,24 @@ def init_mixer(gen: torch.Generator, cfg: ModelConfig, device=None,
     }
 
 
+def init_layer(gen: torch.Generator, cfg: ModelConfig, device=None,
+               layers: tuple = ()) -> PyTree:
+    """One Mamba2 layer (its pre-norm and mixer); ``layers`` is a leading
+    stack shape, e.g. ``(n_layers,)``."""
+    dev = device if device is not None else gen.device
+    return {"norm": torch.ones(tuple(layers) + (cfg.d_model,),
+                               dtype=_dtype(cfg), device=dev),
+            "mixer": init_mixer(gen, cfg, dev, layers)}
+
+
 def init_params(gen: torch.Generator, cfg: ModelConfig,
                 device: DeviceLike = None) -> PyTree:
     """Random weights from ``gen`` (drawn on its device), placed on
     ``device`` (``cuda`` unless asked otherwise), layers stacked."""
     dev = resolve_device(device)
-    n = (cfg.n_layers,)
     return {
         **L.init_embed(gen, cfg, _dtype(cfg), dev),
-        "layers": {"norm": torch.ones(n + (cfg.d_model,), dtype=_dtype(cfg),
-                                      device=dev),
-                   "mixer": init_mixer(gen, cfg, dev, n)},
+        "layers": init_layer(gen, cfg, dev, (cfg.n_layers,)),
         "final_norm": torch.ones((cfg.d_model,), dtype=_dtype(cfg),
                                  device=dev),
     }
@@ -142,6 +151,29 @@ def mixer_fwd(x, p, cfg: ModelConfig):
     return torch.einsum("bse,ed->bsd", y, p["out_proj"])
 
 
+def mixer_prefill(x, lp, cfg: ModelConfig):
+    """One Mamba2 layer over a prompt, the serve path: x: (B,S,D) and the
+    layer's params ``lp`` (``norm``, ``mixer``) -> (x + the mixer's output,
+    the final SSM state (B,H,P,N) f32, the conv state (B,K-1,DI)). The SSD
+    scan is the kernel-backed :func:`ssd_chunked`."""
+    Bsz, S, _ = x.shape
+    H, P = cfg.ssm_heads, cfg.ssm_headdim
+    xn = L.rms_norm(x, lp["norm"])
+    p = lp["mixer"]
+    zxbcdt = torch.einsum("bsd,de->bse", xn, p["in_proj"])
+    z, xi, Bm, Cm, dtr = _split_proj(zxbcdt, cfg)
+    xi, conv_state = _causal_conv(xi, p["conv_w"])
+    xh = xi.reshape(Bsz, S, H, P).to(torch.float32)
+    dt = _softplus(dtr.to(torch.float32) + p["dt_bias"])
+    A = -torch.exp(p["A_log"])
+    y, h_fin = ssd_chunked(xh, dt, A, Bm.to(torch.float32),
+                           Cm.to(torch.float32), cfg)
+    y = y + xh * p["D_skip"][:, None]
+    y = y.reshape(Bsz, S, cfg.d_inner).to(x.dtype) * F.silu(z)
+    return x + torch.einsum("bse,ed->bsd", y, p["out_proj"]), h_fin, \
+        conv_state
+
+
 def mixer_decode(x, p, state, cfg: ModelConfig):
     """Single-token recurrent step. x: (B,1,D); state: dict(h, conv)."""
     zxbcdt = torch.einsum("bsd,de->bse", x, p["in_proj"])
@@ -201,24 +233,11 @@ def prefill(params, batch, cfg: ModelConfig, spec=None):
     Returns (logits of the last position (B, 1, V) f32, state)."""
     tokens = batch["tokens"]
     x = L.embed_tokens(tokens, params)
-    Bsz, S = tokens.shape
-    H, P = cfg.ssm_heads, cfg.ssm_headdim
+    S = tokens.shape[1]
     hs, convs = [], []
     for i in range(cfg.n_layers):
-        lp = L.layer_params(params, i)
-        xn = L.rms_norm(x, lp["norm"])
-        p = lp["mixer"]
-        zxbcdt = torch.einsum("bsd,de->bse", xn, p["in_proj"])
-        z, xi, Bm, Cm, dtr = _split_proj(zxbcdt, cfg)
-        xi, conv_state = _causal_conv(xi, p["conv_w"])
-        xh = xi.reshape(Bsz, S, H, P).to(torch.float32)
-        dt = _softplus(dtr.to(torch.float32) + p["dt_bias"])
-        A = -torch.exp(p["A_log"])
-        y, h_fin = ssd_chunked(xh, dt, A, Bm.to(torch.float32),
-                               Cm.to(torch.float32), cfg)
-        y = y + xh * p["D_skip"][:, None]
-        y = y.reshape(Bsz, S, cfg.d_inner).to(x.dtype) * F.silu(z)
-        x = x + torch.einsum("bse,ed->bsd", y, p["out_proj"])
+        x, h_fin, conv_state = mixer_prefill(x, L.layer_params(params, i),
+                                             cfg)
         hs.append(h_fin)
         convs.append(conv_state)
     hfin = L.rms_norm(x, params["final_norm"])

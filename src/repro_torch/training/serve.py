@@ -3,8 +3,9 @@
 The port of ``repro.training.serve.Server`` for one device. The decode
 loop is host-driven, one ``decode_step`` per token, and the cache stays on
 the device across steps. PyTorch runs eagerly, so nothing is jitted; on
-the card the prefill runs the family's CUDA kernel (``ssd_intra`` for the
-SSM family, ``sw_attention`` for the dense one).
+the card the prefill runs the family's CUDA kernels (``ssd_intra`` for the
+SSM family, ``sw_attention`` for the dense one, both for the hybrid,
+``sw_attention`` in the encoder-decoder's decoder).
 """
 from __future__ import annotations
 
@@ -48,8 +49,9 @@ class Server:
         reference's ``jax.random.categorical`` ones.
         """
         cfg, params = self.cfg, self.params
-        tokens = batch["tokens"].to(self.device)
-        logits, cache = self.ops.prefill(params, {"tokens": tokens}, cfg)
+        # every key of the batch (an encoder-decoder's ``frames`` too)
+        logits, cache = self.ops.prefill(
+            params, {k: v.to(self.device) for k, v in batch.items()}, cfg)
         out = [self._pick(logits, 0.0, None)]
         for _ in range(n_new - 1):
             logits, cache = self.ops.decode_step(params, cache, out[-1], cfg)

@@ -38,7 +38,8 @@ The reference's ``DistContext`` is replaced by an explicit ``device``
 (``cuda`` unless asked otherwise; the trainer raises where no CUDA device
 is present rather than moving to the CPU). Not ported yet, and raising
 ``NotImplementedError`` with its ROADMAP item: the elastic mesh
-(``elastic_mesh``, item 15).
+(``elastic_mesh``, item 15) and the hybrid and encoder-decoder families
+(item 29; their ``train_loss`` is ported).
 """
 from __future__ import annotations
 
@@ -135,6 +136,13 @@ class TrainLoop:
                  optimizer: Optional[Optimizer] = None,
                  loop_cfg: Optional[TrainLoopConfig] = None,
                  store=None, *, device: DeviceLike = None):
+        if cfg.family in ("hybrid", "audio"):
+            # split_layers and the SCAR partition know only
+            # params["layers"]; the encoder-decoder's tree has enc_layers
+            # and dec_layers, the hybrid's a shared block beside its layers
+            raise NotImplementedError(
+                f"{cfg.name}: training the {cfg.family} family is not "
+                f"ported yet (ROADMAP item 29)")
         self.cfg = cfg
         self._store = store
         self.device = resolve_device(device)

@@ -106,6 +106,37 @@ def test_load_parity_rows_defaults_to_cuda():
     assert codec.parity.device.type == "cpu" and codec.encoded_step == 2
 
 
+def test_new_families_default_to_cuda():
+    """The hybrid and encoder-decoder families' ``init_params`` and
+    ``init_cache`` run on the card unless asked otherwise, and raise where
+    no CUDA device is present."""
+    for name in ("zamba2-1.2b", "whisper-medium"):
+        cfg = get_config(name, reduced=True)
+        ops = get_model(cfg)
+        if torch.cuda.is_available():
+            assert all(x.device.type == "cuda" for x in tree_leaves(
+                ops.init_params(torch.Generator().manual_seed(0), cfg)))
+            assert all(x.device.type == "cuda" for x in tree_leaves(
+                ops.init_cache(cfg, 2, 8)))
+        else:
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                ops.init_params(torch.Generator().manual_seed(0), cfg)
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                ops.init_cache(cfg, 2, 8)
+        assert all(x.device.type == "cpu" for x in tree_leaves(
+            ops.init_cache(cfg, 2, 8, device="cpu")))
+
+
+def test_trainer_names_item_29_for_the_new_families():
+    """Training the hybrid and encoder-decoder families is not ported:
+    ``TrainLoop`` raises naming ROADMAP item 29, on any device."""
+    for name in ("zamba2-1.2b", "whisper-medium"):
+        cfg = get_config(name, reduced=True)
+        for device in (None, "cpu"):
+            with pytest.raises(NotImplementedError, match="item 29"):
+                TrainLoop(cfg, device=device)
+
+
 def test_model_and_run_devices_must_agree():
     cpu_model = make_model("qp", device="cpu")
     with pytest.raises(ValueError):

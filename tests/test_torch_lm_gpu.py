@@ -1,5 +1,6 @@
 """The LM serve path's CUDA kernels against their plain versions, and the
-served models on the card against the same models on the CPU.
+served models (the SSM, dense, hybrid and encoder-decoder families, at
+their reduced configs) on the card against the same models on the CPU.
 
 Every test here is marked ``gpu`` and skips where there is no CUDA device.
 The file imports neither JAX nor the JAX package:
@@ -56,7 +57,8 @@ def _intra_inputs(dims, device, seed):
                                   (2, 1, 8, 1, 4, 8),
                                   (1, 1, 127, 2, 8, 33),
                                   (8, 16, 128, 32, 64, 128),   # served
-                                  (1, 2, 128, 3, 128, 128)])   # one x buffer
+                                  (1, 2, 128, 3, 128, 128),    # one x buffer
+                                  (2, 16, 128, 64, 64, 64)])   # zamba2's
 def test_ssd_intra_cuda_matches_plain(cuda, dims):
     ins = _intra_inputs(dims, cuda, seed=sum(dims))
     n0 = _build.LAUNCHES["ssd_intra"]
@@ -101,7 +103,9 @@ def test_ssd_chunked_kernel_on_the_card_matches_the_cpu(cuda):
     (1, 2, 1000, 128, 200),    # band edges off the 64-key tiles
     (1, 1, 1, 128, 1),         # S = 1
     (8, 6, 2048, 128, 2048),   # qwen2-1.5b's causal prefill, served
-    (2, 6, 8192, 128, 4096)])  # and its ring prefill
+    (2, 6, 8192, 128, 4096),   # and its ring prefill
+    (16, 1, 2048, 64, 2048),   # zamba2-1.2b's shared block, Dh 64, G 1
+    (16, 1, 384, 64, 384)])    # whisper-medium's decoder, ends mid-tile
 def test_sw_attention_cuda_matches_plain(cuda, dtype, BH, G, S, Dh, W):
     g = torch.Generator(device=cuda).manual_seed(S + W)
     q = torch.randn((BH, G, S, Dh), generator=g, device=cuda).to(dtype)
@@ -174,24 +178,40 @@ def test_kernel_wrappers_refuse_what_they_do_not_take(cuda):
         ssd_intra_cuda(*ins)
 
 
+def _prefill_launches(cfg) -> dict:
+    """Each serve kernel's launches in one prefill of ``cfg``."""
+    if cfg.family == "ssm":
+        return {"ssd_intra": cfg.n_layers, "sw_attention": 0}
+    if cfg.family == "hybrid":
+        return {"ssd_intra": cfg.n_layers,
+                "sw_attention": -(-cfg.n_layers // cfg.attn_every)}
+    return {"ssd_intra": 0, "sw_attention": cfg.n_layers}
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("name", ["mamba2-370m", "qwen2-1.5b"])
+@pytest.mark.parametrize("name", ["mamba2-370m", "qwen2-1.5b", "zamba2-1.2b",
+                                  "whisper-medium"])
 def test_reduced_model_on_the_card_matches_the_cpu(cuda, name):
     cfg = get_config(name, reduced=True)
     ops = get_model(cfg)
     params = ops.init_params(torch.Generator().manual_seed(0), cfg,
                              device="cpu")
-    toks = torch.from_numpy(np.random.default_rng(1).integers(
-        0, cfg.vocab, (2, 64)).astype(np.int32))
-    kernel = "ssd_intra" if cfg.family == "ssm" else "sw_attention"
-    logits_cpu, _ = ops.prefill(params, {"tokens": toks}, cfg)
+    rng = np.random.default_rng(1)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab, (2, 64)).astype(np.int32))}
+    if cfg.family == "audio":
+        batch["frames"] = torch.from_numpy(rng.standard_normal(
+            (2, cfg.enc_seq, cfg.d_model)).astype(np.float32))
+    logits_cpu, _ = ops.prefill(params, batch, cfg)
     gparams = tree_map(lambda x: x.to(cuda), params)
-    n0 = _build.LAUNCHES[kernel]
-    logits, _ = ops.prefill(gparams, {"tokens": toks.to(cuda)}, cfg)
-    assert _build.LAUNCHES[kernel] == n0 + cfg.n_layers
+    gbatch = {k: v.to(cuda) for k, v in batch.items()}
+    n0 = dict(_build.LAUNCHES)
+    logits, _ = ops.prefill(gparams, gbatch, cfg)
+    assert {k: _build.LAUNCHES[k] - n0[k] for k in
+            ("ssd_intra", "sw_attention")} == _prefill_launches(cfg)
     torch.testing.assert_close(logits.cpu(), logits_cpu, rtol=1e-4, atol=1e-4)
-    want = Server(cfg, params, device="cpu").generate({"tokens": toks}, 6)
-    got = Server(cfg, gparams, device=cuda).generate({"tokens": toks}, 6)
+    want = Server(cfg, params, device="cpu").generate(batch, 6)
+    got = Server(cfg, gparams, device=cuda).generate(batch, 6)
     assert torch.equal(got.cpu(), want)
 
 

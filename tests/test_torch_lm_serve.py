@@ -232,11 +232,14 @@ def test_serve_with_recovery_flow():
 def test_unported_families_name_their_roadmap_items():
     for name, item in (("qwen3-moe-235b-a22b", "item 19"),
                        ("llama4-maverick-400b-a17b", "item 19"),
-                       ("internvl2-76b", "item 19"),
-                       ("zamba2-1.2b", "item 18"),
-                       ("whisper-medium", "item 18")):
+                       ("internvl2-76b", "item 19")):
         with pytest.raises(NotImplementedError, match=item):
             get_model(get_config(name, reduced=True))
+    # the hybrid and encoder-decoder families (item 18) are ported
+    for name, long_context in (("zamba2-1.2b", True),
+                               ("whisper-medium", False)):
+        ops = get_model(get_config(name, reduced=True))
+        assert ops.supports_long_context is long_context
     for option in ("kv_quant", "triangle_prefill"):
         cfg = dataclasses.replace(get_config("yi-9b", reduced=True),
                                   **{option: True})
