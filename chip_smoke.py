@@ -154,7 +154,8 @@ Phases, each of which fails the run if it fails:
     this path (``launches["train"]``). Reported: step seconds and tokens/s
     over the clean steps, the clean-step overhead's p50/p95 and its
     sweep/save/fence split, the recovery's seconds and tier counts, peak
-    device memory and the card's busy share of one clean step. (b) The
+    device memory, the card's busy share of one clean step and the
+    host's cProfile of another. (b) The
     same model with 4 layers, arena-resident and on the PyTree path in
     turn under deterministic algorithms, 4 steps (``scar(0.125, 2)``
     saves 1/8 of the blocks every step: its partial interval is 2 x
@@ -167,13 +168,14 @@ Phases, each of which fails the run if it fails:
     memory.
 18. The disk store and async maintenance, in a fresh directory under
     ``build/`` (its free space checked against 20 GB first; removed at the
-    end, also when a check fails): (a) phase 17(a)'s model and batches with
-    ``FabricConfig(async_maintain=True)``, a ``ShardedCheckpointStore``,
-    ``scar(0.125, 32)`` (a 1/8 save every 4 steps), 8 steps, hosts 0 and 2
-    lost at step 5, held against the same run synchronous without a store
-    (deterministic algorithms on in both): losses, the checkpoint arena and
-    the tier counts equal; every sweep launched on the fabric's side stream;
-    the store read back onto the card equal to the checkpoint arena.
+    end, also when a check fails): (a) phase 17(a)'s model with 7 of its
+    28 layers, and its batches, with ``FabricConfig(async_maintain=True)``,
+    a ``ShardedCheckpointStore``, ``scar(0.125, 32)`` (a 1/8 save every 4
+    steps), 8 steps, hosts 0 and 2 lost at step 5, held against the same
+    run synchronous without a store (deterministic algorithms on in both):
+    losses, the checkpoint arena and the tier counts equal; every sweep
+    launched on the fabric's side stream; the store read back onto the
+    card equal to the checkpoint arena.
     Reported: step seconds, the clean-step overhead and its split, the
     fences, ``overlap_efficiency``, each save's seconds split into the
     device-to-host copies, the background append and the parity mirror,
@@ -197,12 +199,37 @@ Phases, each of which fails the run if it fails:
     recovery flow and the route hold; sw_attention in the decoder's
     self-attention prefill (the encoder's and the cross-attention are the
     plain chunked attention, as in the reference).
+21. zamba2-1.2b trained at full width and depth (38 Mamba2 layers, d
+    2048, the shared block 7 times, bf16, 1,170,138,240 values as
+    per-layer leaves; the shared block one set of leaves), as phase 17(a)
+    trains qwen2-1.5b: adamw(3e-4), ``scar(0.125, 2)``, ``FabricConfig()``,
+    arena-resident, batch 4 x 2048 from ``ShardedLMDataset(seed=0)``, 8
+    steps, hosts 0 and 2 lost at step 5. Phase 17(a)'s checks (step 1's
+    loss within 1.0 of ln 32000) and reports, and ``check_train_kernels``
+    on the run's own arena; ``launches["zamba2_train"]``.
+22. whisper-medium trained at full width and depth (24 + 24 layers, d
+    1024, the untied head, bf16, 1,013,362,688 values), as phase 21, on
+    batches of 4 sequences of 1,500 frames and 448 tokens (the published
+    decoder context); step 1's loss within 1.0 of ln 51865;
+    ``launches["whisper_train"]``.
+23. The six ported examples (``repro_torch.examples``) on the card, each
+    once at its default size: quickstart, priority_vs_random_checkpoints,
+    adaptive_checkpoint_policy, correlated_failures, serve_with_recovery
+    for yi-9b, mamba2-370m, zamba2-1.2b and whisper-medium (reduced), and
+    train_lm_with_failures at ``--tiny`` (8 steps, ``--fail-prob 0.3``)
+    for zamba2-1.2b and whisper-medium; each held against the same call on
+    the CPU (the LM examples from the same numpy weights and prompts): tier
+    counts, fallbacks, lost blocks, tokens and the advisor's choices equal,
+    iteration costs within ±1, losses and the fitted contraction within
+    rtol 1e-4; every kernel but fused_maintain launched on this path
+    (``launches["examples"]``).
 
 The line before the last is the kernels' JSON record (each kernel's
 launches on its own path, ``train_launches`` on phase 17's,
 ``store_launches`` on phase 18's (a) and (b) together,
-``zamba2_launches`` and ``whisper_launches`` on phases 19 and 20); the
-last line is
+``zamba2_launches`` and ``whisper_launches`` on phases 19 and 20,
+``zamba2_train_launches``, ``whisper_train_launches`` and
+``examples_launches`` on phases 21, 22 and 23); the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
 and prints no result.
 
@@ -215,6 +242,10 @@ alone; its last line is ``{"train_only": true, "device": {...}}``.
 line is ``{"store_only": true, "device": {...}}``.
 ``python3 chip_smoke.py --families`` runs phases 1, 14, 19 and 20 alone;
 its last line is ``{"families_only": true, "device": {...}}``.
+``python3 chip_smoke.py --train-families`` runs phases 1, 21 and 22 alone
+(``{"train_families_only": true, ...}``); ``python3 chip_smoke.py
+--examples`` runs phases 1 and 23 alone (``{"examples_only": true,
+...}``).
 """
 from __future__ import annotations
 
@@ -348,27 +379,31 @@ def device_share(fn) -> dict:
     synchronize), the seconds the card spent in kernels and copies (its
     own events, not the operators that launched them), and the eight names
     that took most of them. ``device_s`` is 0 where the
-    profiler records no device activity."""
+    profiler records no device activity. Only the device's activity is
+    recorded (recording every operator on the host slows a host-bound step
+    by half), and the profiler's raw events are summed directly: building
+    its ``key_averages()`` tree takes a minute for a training step of a few
+    hundred thousand events."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     # the card's own events only (kernels, copies, sets): an operator's
     # row repeats the device time of the kernels it launched
-    rows = [(e.key, e.self_device_time_total) for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA
-            and e.self_device_time_total > 0]
-    device_s = sum(us for _, us in rows) / 1e6
-    top = sorted(rows, key=lambda r: -r[1])[:8]
+    per_name: dict = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA and not e.is_user_annotation():
+            per_name[e.name()] = per_name.get(e.name(), 0) + e.duration_ns()
+    device_s = sum(per_name.values()) / 1e9
+    top = sorted(per_name.items(), key=lambda r: -r[1])[:8]
     return {"wall_s": wall, "device_s": device_s,
             "busy_share": device_s / wall if wall > 0 else None,
-            "top_device_ms": [[k[:60], us / 1e3] for k, us in top]}
+            "top_device_ms": [[k[:60], ns / 1e6] for k, ns in top]}
 
 
 def timed_allocs(fn):
@@ -2697,10 +2732,16 @@ def check_train_kernels(loop, arena, info: dict, device) -> dict:
     return out
 
 
-def phase_train(device, launches: dict) -> dict:
-    """Phase 17(a): qwen2-1.5b at full width and depth trained
-    arena-resident under SCAR and ``FabricConfig()`` through a two-host
-    loss; ``launches["train"]`` gets the counts of the 8-step run."""
+def _train_full(name: str, device, launches: dict, path: str, shape: dict,
+                seed: int = 0) -> dict:
+    """``name`` at full width and depth trained arena-resident under SCAR
+    and ``FabricConfig()`` through phase 17(a)'s two-host loss:
+    ``shape["steps"]`` steps of ``shape["batch"]`` sequences of
+    ``shape["seq"]`` tokens from ``ShardedLMDataset(seed=0)``;
+    ``launches[path]`` gets the counts of the run. Checked: finite losses,
+    step 1's within 1.0 of ln V, every maintain resident, the recovery's
+    tiers (:func:`_check_recovery`), the five fabric kernels held against
+    their plain versions on the run's own arena afterwards."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.data import ShardedLMDataset
@@ -2708,48 +2749,58 @@ def phase_train(device, launches: dict) -> dict:
     from repro_torch.telemetry import Recorder
     from repro_torch.training import ArenaTrainState
 
-    cfg = get_config("qwen2-1.5b")
+    cfg = get_config(name)
     torch.cuda.reset_peak_memory_stats()
     rec = Recorder()
     loop = _train_loop(cfg, device, schedule=TRAIN_SCHEDULE, recorder=rec)
     t0 = time.perf_counter()
-    state = loop.init_state(torch.Generator(device=device).manual_seed(SEED))
+    state = loop.init_state(torch.Generator(device=device).manual_seed(
+        SEED + seed))
     init_s = time.perf_counter() - t0
-    check(isinstance(state, ArenaTrainState), "the trainer did not take "
-          "the arena-resident path")
-    ds = ShardedLMDataset(cfg, TRAIN["batch"], TRAIN["seq"], seed=0,
+    check(isinstance(state, ArenaTrainState), f"{name}: the trainer did not "
+          f"take the arena-resident path")
+    ds = ShardedLMDataset(cfg, shape["batch"], shape["seq"], seed=0,
                           device=device)
     it = iter(ds)
     _build.reset_launches()
     t0 = time.perf_counter()
-    state = loop.run(state, it, TRAIN["steps"])
+    state = loop.run(state, it, shape["steps"])
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
-    launches["train"] = dict(_build.LAUNCHES)
+    launches[path] = dict(_build.LAUNCHES)
     losses = [m["loss"] for m in loop.metrics]
-    check(all(math.isfinite(x) for x in losses), f"losses {losses}")
+    check(all(math.isfinite(x) for x in losses), f"{name}: losses {losses}")
     check(abs(losses[0] - math.log(cfg.vocab)) <= 1.0,
-          f"step 1's loss {losses[0]} is not within 1.0 of ln V = "
+          f"{name}: step 1's loss {losses[0]} is not within 1.0 of ln V = "
           f"{math.log(cfg.vocab):.3f}")
     fab = loop.controller.fabric
     check(fab.stats["arena_resident_maintains"]
           == fab.stats["arena_maintains"] > 0,
-          f"the hot path packed: {fab.stats['arena_resident_maintains']} "
-          f"resident of {fab.stats['arena_maintains']} sweeps")
+          f"{name}: the hot path packed: "
+          f"{fab.stats['arena_resident_maintains']} resident of "
+          f"{fab.stats['arena_maintains']} sweeps")
     fails = [(m["step"], f) for m in loop.metrics
              for f in m.get("failures", [])]
-    check(len(fails) == 1, f"{len(fails)} recoveries, not 1")
+    check(len(fails) == 1, f"{name}: {len(fails)} recoveries, not 1")
     info = fails[0][1]
-    _check_recovery(info, "qwen2-1.5b training")
+    _check_recovery(info, f"{name} training")
+    for kernel in TRAIN_KERNELS:
+        check(launches[path][kernel] > 0,
+              f"{kernel} was not launched on the {path} path")
     clean = [m["seconds"] for m in loop.metrics if "failures" not in m]
     step_s = statistics.median(clean)
     summ = loop.overhead_summary()
     peak = torch.cuda.max_memory_allocated() / 1e9
-    # one more clean step under the profiler: the card's busy share
+    # one more clean step under the profiler: the card's busy share; one
+    # under cProfile: where the host's time goes
     loop.loop_cfg.fail_schedule = None
-    holder = {}
+    holder = {"state": state}
+    t0 = time.perf_counter()
     share = device_share(lambda: holder.update(
-        state=loop.run(state, it, 1)))
+        state=loop.run(holder["state"], it, 1)))
+    share["seconds_with_processing"] = time.perf_counter() - t0
+    host = host_profile(lambda: holder.update(
+        state=loop.run(holder["state"], it, 1)))
     part = loop.controller.partition
     # the kernels against their plain versions on the run's own bf16
     # arena; the optimizer's moments go first (the checks need room)
@@ -2757,17 +2808,21 @@ def phase_train(device, launches: dict) -> dict:
     del state, holder
     gc.collect()
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
     held = check_train_kernels(loop, arena, info, device)
+    held["seconds"] = time.perf_counter() - t0
     del arena
+    tokens = shape["batch"] * shape["seq"]
     out = {"params": sum(math.prod(l.shape) for l in part.leaves),
-           "blocks": part.total_blocks,
+           "leaves": len(part.leaves), "blocks": part.total_blocks,
            "arena_gb": loop.arena_layout.nbytes / 1e9,
            "parity_gb": fab.redundancy_nbytes()["parity"] / 1e9,
+           "microbatch": cfg.microbatch,
            "init_seconds": init_s, "run_seconds": run_s,
            "losses": losses, "step_seconds": [m["seconds"]
                                               for m in loop.metrics],
            "median_step_seconds": step_s,
-           "tokens_per_second": TRAIN["batch"] * TRAIN["seq"] / step_s,
+           "tokens_per_second": tokens / step_s,
            "overhead_p50": summ["overhead_seconds_p50"],
            "overhead_p95": summ["overhead_seconds_p95"],
            "overhead_phases_p50": {k: v["p50"]
@@ -2779,8 +2834,19 @@ def phase_train(device, launches: dict) -> dict:
            "tier_counts": info["tier_counts"], "tier_sq": info["tier_sq"],
            "fallbacks": len(info["tier_fallbacks"]),
            "peak_memory_gb": peak, "clean_step_profile": share,
+           "clean_step_host_profile": host,
            "events": sorted({e["kind"] for e in rec.events}),
            "kernels_held": held}
+    if cfg.family == "audio":
+        out["frames_per_second"] = shape["batch"] * cfg.enc_seq / step_s
+    return out
+
+
+def phase_train(device, launches: dict) -> dict:
+    """Phase 17(a): qwen2-1.5b at full width and depth trained
+    arena-resident under SCAR and ``FabricConfig()`` through a two-host
+    loss; ``launches["train"]`` gets the counts of the 8-step run."""
+    out = _train_full("qwen2-1.5b", device, launches, "train", TRAIN)
     log(f"qwen2-1.5b training, batch {TRAIN['batch']} x {TRAIN['seq']}, "
         f"{TRAIN['steps']} steps: {json.dumps(out)}")
     return out
@@ -2966,6 +3032,10 @@ TRAIN_KERNELS = ("arena_maintain", "arena_scatter", "masked_restore",
 
 STORE_POLICY = (0.125, 32)       # scar(0.125, 32): a 1/8 save every 4 steps
 STORE_STEPS = 8
+# 18(a)'s depth: 7 of qwen2-1.5b's 28 layers (794,333,696 values) keep the
+# whole script inside its time budget (phase 18 took 86-117 s with 18(a)
+# at full depth)
+STORE_LAYERS = 7
 STORE_FREE_BYTES = 20e9          # the reckoning of 18(a)'s disk use
 STORE_KERNELS_DISK = ("masked_restore", "block_dist", "scatter_save")
 
@@ -3003,10 +3073,12 @@ def _store_root() -> Path:
 
 
 def phase_store_async(device, launches: dict, root: Path) -> dict:
-    """Phase 18(a): qwen2-1.5b at full width and depth, async maintenance
-    with a store, against the same run synchronous without a store (same
-    weights and batches, deterministic algorithms on in both): losses, the
-    checkpoint arena and the tier counts equal."""
+    """Phase 18(a): qwen2-1.5b at full width with ``STORE_LAYERS`` of its
+    28 layers, async maintenance with a store, against the same run
+    synchronous without a store (same weights and batches, deterministic
+    algorithms on in both): losses, the checkpoint arena and the tier
+    counts equal."""
+    import dataclasses
     import torch
     from repro_torch.checkpoint_io import ShardedCheckpointStore
     from repro_torch.configs import get_config
@@ -3016,7 +3088,8 @@ def phase_store_async(device, launches: dict, root: Path) -> dict:
     from repro_torch.telemetry import Recorder
     from repro_torch.training import ArenaTrainState
 
-    cfg = get_config("qwen2-1.5b")
+    cfg = dataclasses.replace(get_config("qwen2-1.5b"),
+                              n_layers=STORE_LAYERS)
     runs = {}
     torch.use_deterministic_algorithms(True, warn_only=True)
     try:
@@ -3136,8 +3209,9 @@ def phase_store_async(device, launches: dict, root: Path) -> dict:
           f"tier counts: async {a['tier_counts']}, sync {s['tier_counts']}")
     check(all(math.isfinite(x) for x in a["losses"]), f"{a['losses']}")
     a["sync"] = s      # the same run synchronous, without a store
-    log(f"18(a) qwen2-1.5b, async maintenance with a store, batch "
-        f"{TRAIN['batch']} x {TRAIN['seq']}, {STORE_STEPS} steps: "
+    log(f"18(a) qwen2-1.5b ({STORE_LAYERS} layers), async maintenance with "
+        f"a store, batch {TRAIN['batch']} x {TRAIN['seq']}, {STORE_STEPS} "
+        f"steps: "
         f"{json.dumps(a)}")
     return a
 
@@ -3308,6 +3382,270 @@ def train_only(device, card: str) -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# phases 21-22: the hybrid (zamba2-1.2b) and encoder-decoder
+# (whisper-medium) families trained at full width
+# ---------------------------------------------------------------------------
+
+# 448 tokens: whisper's published decoder context; 1,500 frames a sequence
+TRAIN_WHISPER = dict(batch=4, seq=448, steps=8)
+
+
+def phase_zamba2_train(device, launches: dict) -> dict:
+    """Phase 21: zamba2-1.2b at full width and depth (38 Mamba2 layers, the
+    shared block 7 times, bf16, per-layer leaves) trained as phase 17(a)
+    trains qwen2-1.5b; ``launches["zamba2_train"]``."""
+    out = _train_full("zamba2-1.2b", device, launches, "zamba2_train",
+                      TRAIN, seed=21)
+    log(f"phase 21: zamba2-1.2b training, batch {TRAIN['batch']} x "
+        f"{TRAIN['seq']}, {TRAIN['steps']} steps: {json.dumps(out)}")
+    return out
+
+
+def phase_whisper_train(device, launches: dict) -> dict:
+    """Phase 22: whisper-medium at full width and depth (24 + 24 layers,
+    the untied head, bf16, per-layer leaves) trained as phase 17(a) trains
+    qwen2-1.5b, on batches of 4 sequences of 1,500 frames and 448 tokens;
+    ``launches["whisper_train"]``."""
+    out = _train_full("whisper-medium", device, launches, "whisper_train",
+                      TRAIN_WHISPER, seed=22)
+    log(f"phase 22: whisper-medium training, batch {TRAIN_WHISPER['batch']}"
+        f" x (1500 frames, {TRAIN_WHISPER['seq']} tokens), "
+        f"{TRAIN_WHISPER['steps']} steps: {json.dumps(out)}")
+    return out
+
+
+def train_family_phases(device, launches: dict) -> dict:
+    """Phases 21 and 22; each frees what it built."""
+    import torch
+    out = {}
+    for key, phase in (("zamba2_train", phase_zamba2_train),
+                       ("whisper_train", phase_whisper_train)):
+        t0 = time.perf_counter()
+        out[key] = phase(device, launches)
+        out[key]["seconds"] = time.perf_counter() - t0
+        log(f"{key}: {out[key]['seconds']:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def train_families_only(device, card: str) -> int:
+    """``--train-families``: phases 21 and 22 alone. Its last line says
+    that it is this partial run, never the full run's ``{"ok": true,
+    ...}``."""
+    import torch
+    launches = {}
+    out = train_family_phases(device, launches)
+    log(json.dumps({"train_families": out, "launches": launches}))
+    log(card)
+    log(json.dumps({"train_families_only": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+# ---------------------------------------------------------------------------
+# phase 23: the ported examples on the card
+# ---------------------------------------------------------------------------
+
+SERVE_EXAMPLE_ARCHS = ("yi-9b", "mamba2-370m", "zamba2-1.2b",
+                       "whisper-medium")
+TINY_TRAIN_ARCHS = ("zamba2-1.2b", "whisper-medium")
+# every kernel but fused_maintain (the per-leaf fabric, which no example
+# takes) launches on the examples' path
+EXAMPLE_KERNELS = ("block_dist", "scatter_save", "masked_restore",
+                   "arena_maintain", "arena_scatter", "parity_xor",
+                   "gf256_mac", "sw_attention", "ssd_intra")
+
+
+def _run_examples(device, root: Path, inputs: dict) -> dict:
+    """Each ported example once on ``device``, at its default size
+    (``train_lm_with_failures`` at ``--tiny`` for the two new families,
+    8 steps, ``--fail-prob 0.3``); the LM examples from ``inputs``' numpy
+    weights and prompts, so the card and the CPU see the same ones."""
+    from repro_torch.examples import (adaptive_checkpoint_policy,
+                                      correlated_failures,
+                                      priority_vs_random_checkpoints,
+                                      quickstart, serve_with_recovery,
+                                      train_lm_with_failures)
+    dev = str(device)
+    out = {"quickstart": quickstart.run(device, verbose=False),
+           "priority": priority_vs_random_checkpoints.run(device,
+                                                          verbose=False),
+           "adaptive": adaptive_checkpoint_policy.run(device, verbose=False),
+           "correlated": correlated_failures.run(device, verbose=False)}
+    for arch in SERVE_EXAMPLE_ARCHS:
+        params, batch = inputs["serve", arch]
+        got = serve_with_recovery.run(serve_with_recovery.parse_args(
+            ["--arch", arch, "--device", dev]), params, batch, verbose=False)
+        out["serve", arch] = {
+            "tokens": got["tokens_before"].cpu().tolist(),
+            "identical": got["identical"],
+            "lost_blocks": got["info"]["lost_blocks"]}
+    for arch in TINY_TRAIN_ARCHS:
+        args = train_lm_with_failures.parse_args(
+            ["--tiny", "--arch", arch, "--steps", "8", "--fail-prob", "0.3",
+             "--device", dev])
+        got = train_lm_with_failures.train(
+            args, str(root / f"{arch}_{device.type}"), params=inputs["train",
+                                                                   arch],
+            verbose=False)
+        out["train", arch] = {
+            "losses": got["losses"], "arena_state": got["arena_state"],
+            "failures": [(m["step"], m["failure"]["tier_counts"])
+                         for m in got["loop"].metrics if "failure" in m]}
+        del got
+    return out
+
+
+def _examples_inputs() -> dict:
+    """The LM examples' weights and prompts, drawn once on the CPU and
+    carried as numpy (the card's and the CPU's generators differ)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.examples.train_lm_with_failures import model_config
+    from repro_torch.interop import to_numpy_tree
+    from repro_torch.models import get_model
+    inputs = {}
+    for arch in SERVE_EXAMPLE_ARCHS:
+        cfg = get_config(arch, reduced=True)
+        inputs["serve", arch] = (
+            to_numpy_tree(get_model(cfg).init_params(
+                torch.Generator().manual_seed(SEED), cfg, device="cpu")),
+            to_numpy_tree(lm_batch(torch.Generator().manual_seed(SEED + 1),
+                                   cfg, 4, 32, device="cpu")))
+    for arch in TINY_TRAIN_ARCHS:
+        cfg = model_config(arch, True)[0]
+        inputs["train", arch] = to_numpy_tree(get_model(cfg).init_params(
+            torch.Generator().manual_seed(SEED + 23), cfg, device="cpu"))
+    return inputs
+
+
+def _costs_near(a, b) -> bool:
+    """Iteration costs within the ±1 that phase 4 allows the card."""
+    return abs(a - b) <= 1
+
+
+def _check_examples(gpu: dict, cpu: dict) -> dict:
+    """Each example's card run against its CPU run: tier counts, lost
+    blocks, fallbacks, the advisor's choices and tokens equal; iteration
+    costs within ±1; losses and the fitted contraction within rtol
+    1e-4."""
+    import numpy as np
+
+    def close(a, b, what):
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        check(a.shape == b.shape and bool(np.all(
+            np.abs(a - b) <= LOSS_RTOL * np.abs(b))),
+            f"{what}: card {a.tolist()}, CPU {b.tolist()}")
+
+    g, c = gpu["quickstart"], cpu["quickstart"]
+    check(g["scar"]["recovery"]["tier_counts"]
+          == c["scar"]["recovery"]["tier_counts"],
+          "quickstart: tier counts differ between the card and the CPU")
+    for run in ("scar", "traditional"):
+        check(_costs_near(g[run]["iteration_cost"], c[run]["iteration_cost"]),
+              f"quickstart {run}: iteration cost {g[run]['iteration_cost']} "
+              f"on the card, {c[run]['iteration_cost']} on the CPU")
+        close(g[run]["losses"], c[run]["losses"], f"quickstart {run} losses")
+    close(g["clean_losses"], c["clean_losses"], "quickstart clean losses")
+    for (name, r, on_card), (_, _, on_cpu) in zip(gpu["priority"],
+                                                   cpu["priority"]):
+        check(all(_costs_near(a, b) for a, b in zip(on_card, on_cpu)),
+              f"priority_vs_random {name} r={r}: costs {on_card} on the "
+              f"card, {on_cpu} on the CPU")
+    g, c = gpu["adaptive"], cpu["adaptive"]
+    close(g["c"], c["c"], "adaptive_checkpoint_policy's contraction")
+    check([a[1:4] for a in g["advice"]] == [a[1:4] for a in c["advice"]],
+          f"adaptive_checkpoint_policy: advice {g['advice']} on the card, "
+          f"{c['advice']} on the CPU")
+    g, c = gpu["correlated"], cpu["correlated"]
+    check(g["trace_kinds"] == c["trace_kinds"], "correlated: MTBF traces")
+    for a, b in zip(g["host_loss"], c["host_loss"]):
+        check(a[3] == b[3] and abs(a[2] - b[2]) <= 1,
+              f"correlated host loss {a} on the card, {b} on the CPU")
+    for a, b in zip(g["soak"], c["soak"]):
+        check(a[3] == b[3] and _costs_near(a[1], b[1]),
+              f"correlated soak {a} on the card, {b} on the CPU")
+    for a, b in zip(g["multi_erasure"], c["multi_erasure"]):
+        check(a[3:] == b[3:] and _costs_near(a[1], b[1]),
+              f"correlated multi-erasure {a} on the card, {b} on the CPU")
+    for arch in SERVE_EXAMPLE_ARCHS:
+        a, b = gpu["serve", arch], cpu["serve", arch]
+        check(a == b and a["identical"], f"serve_with_recovery {arch}: "
+              f"card {a}, CPU {b}")
+    for arch in TINY_TRAIN_ARCHS:
+        a, b = gpu["train", arch], cpu["train", arch]
+        close(a["losses"], b["losses"], f"train_lm_with_failures {arch}")
+        check(a["arena_state"] and a["failures"] == b["failures"]
+              and len(a["failures"]) > 0,
+              f"train_lm_with_failures {arch}: failures {a['failures']} on "
+              f"the card, {b['failures']} on the CPU")
+    return {"quickstart_iteration_cost": gpu["quickstart"]["scar"][
+                "iteration_cost"],
+            "traditional_iteration_cost": gpu["quickstart"]["traditional"][
+                "iteration_cost"],
+            "priority_mean_costs": [[n, r, float(np.mean(k))]
+                                    for n, r, k in gpu["priority"]],
+            "advice": gpu["adaptive"]["advice"],
+            "multi_erasure": gpu["correlated"]["multi_erasure"],
+            "serve_tokens": {a: gpu["serve", a]["tokens"][0]
+                             for a in SERVE_EXAMPLE_ARCHS},
+            "train_losses": {a: gpu["train", a]["losses"]
+                             for a in TINY_TRAIN_ARCHS},
+            "train_failures": {a: gpu["train", a]["failures"]
+                               for a in TINY_TRAIN_ARCHS}}
+
+
+def phase_examples(device, launches: dict) -> dict:
+    """Phase 23: the six ported examples on the card, each held against
+    the same call on the CPU; ``launches["examples"]`` gets the card
+    runs' counts. Stores go to a directory under ``build/``, removed at
+    the end."""
+    import shutil
+    import torch
+    from repro_torch.kernels import _build
+    root = ROOT / "build" / "examples_phase23"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    try:
+        inputs = _examples_inputs()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        gpu = _run_examples(device, root, inputs)
+        card_s = time.perf_counter() - t0
+        launches["examples"] = dict(_build.LAUNCHES)
+        t0 = time.perf_counter()
+        cpu = _run_examples(torch.device("cpu"), root, inputs)
+        cpu_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out = _check_examples(gpu, cpu)
+    for kernel in EXAMPLE_KERNELS:
+        check(launches["examples"][kernel] > 0,
+              f"{kernel} was not launched on the examples path")
+    out.update({"card_seconds": card_s, "cpu_seconds": cpu_s})
+    log(f"phase 23: the six examples on the card against the CPU: "
+        f"{json.dumps(out)}")
+    return out
+
+
+def examples_only(device, card: str) -> int:
+    """``--examples``: phase 23 alone. Its last line says that it is this
+    partial run, never the full run's ``{"ok": true, ...}``."""
+    import torch
+    launches = {}
+    out = phase_examples(device, launches)
+    log(json.dumps({"examples": out, "launches": launches["examples"]}))
+    log(card)
+    log(json.dumps({"examples_only": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def erasure_only(a_tree, device, int_rate: float, card: str) -> int:
     """``--erasure``: phase 3's parity_xor encode and phase 9 alone, with
     the erasure kernels' SASS instruction mix. Its last line says that it
@@ -3365,6 +3703,10 @@ def main(argv: list) -> int:
         return store_only(device, card)
     if "--families" in argv:
         return families_only(device, card)
+    if "--train-families" in argv:
+        return train_families_only(device, card)
+    if "--examples" in argv:
+        return examples_only(device, card)
     gen = torch.Generator(device=device).manual_seed(SEED)
     shapes = qwen2_1_5b_shapes()
     a_tree = _map_shapes(shapes, lambda s: torch.randn(
@@ -3460,6 +3802,8 @@ def main(argv: list) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     families = family_phases(device, launches, card)
+    train_families = train_family_phases(device, launches)
+    examples = phase_examples(device, launches)
     log(json.dumps({"launches": launches}))
     old = ("block_dist", "scatter_save", "masked_restore")
     new = ("arena_maintain", "arena_scatter", "parity_xor")
@@ -3474,7 +3818,10 @@ def main(argv: list) -> int:
                         ("qwen2_serve", ("sw_attention",)),
                         ("zamba2_serve", old + ("ssd_intra", "sw_attention")),
                         ("whisper_serve", old + ("sw_attention",)),
-                        ("train", TRAIN_KERNELS)):
+                        ("train", TRAIN_KERNELS),
+                        ("zamba2_train", TRAIN_KERNELS),
+                        ("whisper_train", TRAIN_KERNELS),
+                        ("examples", EXAMPLE_KERNELS)):
         for name in names:
             check(launches[path][name] > 0,
                   f"{name} was not launched on the {path} path")
@@ -3522,12 +3869,17 @@ def main(argv: list) -> int:
                        "store_launches": launches["store_async"][name]
                        + launches["store_disk"][name],
                        "zamba2_launches": launches["zamba2_serve"][name],
-                       "whisper_launches": launches["whisper_serve"][name]})
+                       "whisper_launches": launches["whisper_serve"][name],
+                       "zamba2_train_launches":
+                           launches["zamba2_train"][name],
+                       "whisper_train_launches":
+                           launches["whisper_train"][name],
+                       "examples_launches": launches["examples"][name]})
     log(json.dumps({"controller": ctl, "fabric": fabric,
                     "rs_fabric": rs_fabric, "leaf_fabric": leaf_fabric,
                     "multi_erasure": multi, "mamba2_serve": mamba2,
                     "qwen2_serve": qwen2, "train": train, "store": store,
-                    **families,
+                    **families, **train_families, "examples": examples,
                     "serve_kernels": {
                         name: kernels[name]
                         for name in ("ssd_intra", "sw_attention")},

@@ -301,3 +301,38 @@ def tree_sq_norm(a: PyTree, b: PyTree) -> torch.Tensor:
     if total is None:
         return torch.zeros((), dtype=torch.float32)
     return total
+
+
+class ReplayDraws:
+    """Random block draws recorded elsewhere (e.g. the reference's, as
+    numpy block ids), handed out in order where a controller's generator
+    would draw them: each failure mask and each RANDOM-strategy save takes
+    the next one (:func:`random_blocks`). ``seed`` stands for the
+    generator's seed, which also seeds the controller's numpy generator of
+    domain failures."""
+
+    def __init__(self, draws, seed: int = 0):
+        self._draws = [np.asarray(d, np.int64) for d in draws]
+        self._seed = int(seed)
+
+    def initial_seed(self) -> int:
+        return self._seed
+
+    def next(self, total: int, k: int) -> torch.Tensor:
+        if not self._draws:
+            raise ValueError("the recorded draws are used up")
+        ids = self._draws.pop(0)
+        if ids.size != k or (ids.size and (ids.min() < 0
+                                           or ids.max() >= total)):
+            raise ValueError(f"the next recorded draw has {ids.size} block "
+                             f"ids, not {k} of {total}")
+        return torch.from_numpy(ids)
+
+
+def random_blocks(rng, total: int, k: int) -> torch.Tensor:
+    """``k`` of ``total`` block ids uniformly at random (int64, on the CPU),
+    drawn with ``rng``: a CPU ``torch.Generator``, or a
+    :class:`ReplayDraws` handing out its next recorded draw."""
+    if isinstance(rng, ReplayDraws):
+        return rng.next(total, k)
+    return torch.randperm(total, generator=rng)[:k]

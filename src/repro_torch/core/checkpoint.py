@@ -28,7 +28,8 @@ from typing import Any, Optional
 
 import torch
 
-from repro_torch.core.blocks import BlockPartition, block_scores, select_blocks
+from repro_torch.core.blocks import (BlockPartition, block_scores,
+                                     random_blocks, select_blocks)
 from repro_torch.core.norms import NormFn
 from repro_torch.core.policy import CheckpointPolicy, SelectionStrategy
 from repro_torch.utils.tree import tree_leaves, tree_map
@@ -104,7 +105,7 @@ def select_save_mask(ckpt: RunningCheckpoint, params: PyTree, *,
     if policy.strategy == SelectionStrategy.RANDOM:
         if rng is None:
             raise ValueError("RANDOM strategy requires an rng generator")
-        idx = torch.randperm(total, generator=rng)[:k]
+        idx = random_blocks(rng, total, k)
         return _mask_from_indices(idx, total, device), ckpt.rr_cursor
     raise ValueError(f"unknown strategy {policy.strategy}")
 

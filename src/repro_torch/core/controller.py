@@ -47,7 +47,8 @@ import torch
 from repro_torch.checkpoint_io.store import gather_tiles
 from repro_torch.core.arena import (arena_drift_scores, as_live_arena,
                                     pack_arena, unpack_arena)
-from repro_torch.core.blocks import block_scores, partition_pytree
+from repro_torch.core.blocks import (block_scores, partition_pytree,
+                                     random_blocks)
 from repro_torch.core.checkpoint import (RunningCheckpoint, full_save,
                                          init_running_checkpoint, save_step,
                                          select_save_mask, top_k_indices)
@@ -72,9 +73,10 @@ class FTController:
 
     ``params`` must lie on ``device`` (``cuda`` unless asked otherwise).
     ``rng`` is a CPU ``torch.Generator`` for the failure masks and the
-    RANDOM strategy (default: seeded 0); its seed also seeds the numpy
-    generator of the fabric's domain failures, as the reference derives
-    it from its key.
+    RANDOM strategy (default: seeded 0), or a
+    :class:`~repro_torch.core.blocks.ReplayDraws` of recorded draws; its
+    seed also seeds the numpy generator of the fabric's domain failures,
+    as the reference derives it from its key.
     """
 
     def __init__(self, params: PyTree, policy: CheckpointPolicy, *,
@@ -371,7 +373,7 @@ class FTController:
             cursor = torch.tensor((c + k) % total, dtype=torch.int32,
                                   device=self.device)
         elif pol.strategy == SelectionStrategy.RANDOM:
-            idx = torch.randperm(total, generator=self._rng)[:k].numpy()
+            idx = random_blocks(self._rng, total, k).numpy()
         else:
             raise ValueError(f"unknown strategy {pol.strategy}")
         mask = np.zeros((total,), bool)

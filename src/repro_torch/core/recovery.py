@@ -21,7 +21,7 @@ from typing import Any
 import torch
 
 from repro_torch.core.blocks import (BlockPartition, masked_total,
-                                     select_blocks)
+                                     random_blocks, select_blocks)
 from repro_torch.core.checkpoint import RunningCheckpoint, clone_tree
 from repro_torch.core.policy import RecoveryMode
 from repro_torch.kernels.block_dist.ops import tree_block_scores
@@ -35,7 +35,7 @@ def sample_failure_mask(rng: torch.Generator, partition: BlockPartition,
     """Lose a fraction ``p`` of blocks chosen uniformly at random (Thm 4.2)."""
     total = partition.total_blocks
     k = max(1, round(fraction * total))
-    idx = torch.randperm(total, generator=rng)[:min(k, total)]
+    idx = random_blocks(rng, total, min(k, total))
     mask = torch.zeros((total,), dtype=torch.bool)
     mask[idx] = True
     return mask.to(device)

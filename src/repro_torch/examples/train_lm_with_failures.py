@@ -15,6 +15,9 @@ Run:  PYTHONPATH=src python -m repro_torch.examples.train_lm_with_failures \\
           [--steps 300] [--fail-prob 0.02] [--arch qwen2-1.5b] [--tiny] \\
           [--pytree] [--async-maintain] [--device cuda|cpu]
 
+``--arch`` takes a config of any family the trainer trains: dense (the
+default ``qwen2-1.5b``), ssm (``mamba2-370m``), hybrid (``zamba2-1.2b``)
+and audio (``whisper-medium``, its batches carrying frame embeddings).
 ``--tiny`` trains the reduced config for at most 20 steps; without it the
 reduced config is scaled to about 100 M parameters. The store goes to a
 temporary directory, removed at the end.
@@ -55,7 +58,8 @@ def parse_args(argv: Optional[list] = None) -> argparse.Namespace:
 
 def model_config(arch: str, tiny: bool):
     """(config, batch, seq): the reduced config, or it scaled to about
-    100 M parameters."""
+    100 M parameters by the reference's fields alone (the encoder's depth
+    and the hybrid's ``attn_every`` stay the reduced ones, as there)."""
     base = get_config(arch, reduced=True)
     if tiny:
         return base, 2, 64

@@ -7,6 +7,9 @@
 - ``prefill(params, batch, cfg)``                   -> (logits, state)
 - ``decode_step(params, state, tokens, cfg)``       -> (logits, state)
 - ``train_loss(params, batch, cfg)``                 -> mean loss (f32)
+- ``stacked_layers``: the ``(key, layer count)`` of each stacked subtree of
+  the params, which the trainer's per-layer leaves split
+  (``layers.split_layers``)
 
 The port serves the ``ssm``, ``hybrid`` and ``audio`` (encoder-decoder)
 families and the ``dense`` family without MoE. The families and options it
@@ -37,6 +40,11 @@ class ModelOps:
     prefill: Callable
     decode_step: Callable         # (params, state, tokens, cfg) -> (logits, state)
     supports_long_context: bool   # sub-quadratic serve path exists
+    # (params key, layer count) of each subtree stacked over its layers:
+    # ``layers`` (dense, ssm and the hybrid's Mamba2 backbone; the
+    # hybrid's ``shared`` block is one unstacked layer), ``enc_layers`` and
+    # ``dec_layers`` (the encoder-decoder)
+    stacked_layers: tuple = ()
 
 
 def serve_cache_len(cfg: ModelConfig, seq_len: int) -> int:
@@ -72,6 +80,7 @@ def _transformer_ops(cfg: ModelConfig) -> ModelOps:
         prefill=prefill,
         decode_step=decode_step,
         supports_long_context=bool(cfg.sliding_window),
+        stacked_layers=(("layers", cfg.n_layers),),
     )
 
 
@@ -84,6 +93,7 @@ def _ssm_ops(cfg: ModelConfig) -> ModelOps:
         prefill=ssm.prefill,
         decode_step=ssm.decode_step,
         supports_long_context=True,
+        stacked_layers=(("layers", cfg.n_layers),),
     )
 
 
@@ -96,6 +106,7 @@ def _hybrid_ops(cfg: ModelConfig) -> ModelOps:
         prefill=hybrid.prefill,
         decode_step=hybrid.decode_step,
         supports_long_context=True,
+        stacked_layers=(("layers", cfg.n_layers),),
     )
 
 
@@ -108,6 +119,8 @@ def _encdec_ops(cfg: ModelConfig) -> ModelOps:
         prefill=encdec.prefill,
         decode_step=encdec.decode_step,
         supports_long_context=False,   # the 30 s encoder-decoder format
+        stacked_layers=(("enc_layers", cfg.enc_layers),
+                        ("dec_layers", cfg.n_layers)),
     )
 
 

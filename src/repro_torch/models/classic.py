@@ -94,6 +94,33 @@ class IterativeModel:
         return float(torch.sqrt(tree_sq_norm(params, self.x_star())))
 
 
+def with_draws(model: IterativeModel, draws: dict,
+               eps: Optional[float] = None,
+               x_star: Optional[PyTree] = None) -> IterativeModel:
+    """``model`` fed recorded iteration inputs: iteration ``i`` of a run
+    seeded ``seed`` (whose generator is ``fold_in(seed, i)``) takes
+    ``draws[(seed, i)]``, a numpy array (batch indices, Gumbel noise), in
+    place of its own draw. ``eps`` and ``x_star`` (a numpy tree) replace
+    the model's where given: they come from a reference run with the
+    draws of whoever recorded them. A test hands the port the reference's
+    draws this way."""
+    def draw(gen: torch.Generator, i: int):
+        s = gen.initial_seed()
+        d = np.asarray(draws[(s >> 32, s & 0xFFFFFFFF)])
+        t = torch.from_numpy(d.astype(np.int64) if d.dtype.kind in "iu"
+                             else d.copy())
+        return t.to(model.device)
+
+    kw = {"draw": draw}
+    if eps is not None:
+        kw["eps"] = float(eps)
+    if x_star is not None:
+        star = tree_map(lambda x: torch.from_numpy(np.array(x)).to(
+            model.device), x_star)
+        kw["x_star"] = lambda: star
+    return dataclasses.replace(model, **kw)
+
+
 def _batch_draw(n: int, batch: int, device: torch.device):
     def draw(gen: torch.Generator, i: int) -> torch.Tensor:
         return torch.randperm(n, generator=gen)[:batch].to(device)

@@ -20,8 +20,14 @@ slots. Decode is plain torch on every device and writes slot ``pos`` in
 place; past the last slot it raises (the reference clamps the write to
 the last slot and drops the ``kpos`` update).
 
+Training (``train_loss``) encodes the frames without rematerialization
+(the reference's encoder is a scan with no checkpoint) and recomputes each
+decoder layer in backward; the trainer (``training.TrainLoop``) takes its
+gradient, with ``frames`` in every batch (``data.ShardedLMDataset``).
+
 Parameters keep the reference's tree: ``frame_proj``, ``enc_layers`` and
-``dec_layers`` (stacked), ``enc_norm``, ``final_norm`` and the embedding.
+``dec_layers`` (stacked, or lists of per-layer trees from
+``layers.split_layers``), ``enc_norm``, ``final_norm`` and the embedding.
 The mesh (item 15) is not here.
 """
 from __future__ import annotations

@@ -17,8 +17,15 @@ on every device: the recurrent Mamba2 step per layer and, per application,
 attention over its cache; it writes slot ``pos % cache_len`` (the cache
 wraps past its slack, as the reference's does) in place.
 
+Training (``train_loss``) runs the plain SSD scan and the plain chunked
+attention (``_Flash``) on every device, each Mamba2 layer and each
+application of the shared block rematerialized in backward, as in the
+reference; the trainer (``training.TrainLoop``) takes its gradient. The
+shared block's gradient is the sum over its applications.
+
 Parameters keep the reference's tree: ``layers`` (the Mamba2 layers
-stacked over ``n_layers``), ``shared`` (one transformer layer),
+stacked over ``n_layers``, or a list of per-layer trees from
+``layers.split_layers``), ``shared`` (one transformer layer, never split),
 ``final_norm`` and the embedding. The mesh (item 15) is not here.
 """
 from __future__ import annotations

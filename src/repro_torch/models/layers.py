@@ -59,7 +59,8 @@ def dense_init(gen: torch.Generator, shape, in_axis_size: Optional[int] = None,
 
 
 def unstack_layers(layers: PyTree, n: int) -> list:
-    """The stacked ``params["layers"]`` as ``n`` per-layer trees, each leaf
+    """A stacked subtree of layers (``params["layers"]``,
+    ``params["enc_layers"]``, ...) as ``n`` per-layer trees, each leaf
     a view from one ``torch.unbind``: autograd gathers the layers'
     gradients back into one stacked gradient per leaf. A list of
     per-layer trees (:func:`split_layers`) is returned as it is."""
@@ -70,15 +71,19 @@ def unstack_layers(layers: PyTree, n: int) -> list:
     return [tree_unflatten(treedef, [p[i] for p in per]) for i in range(n)]
 
 
-def split_layers(params: PyTree, n: int) -> PyTree:
-    """``params`` with its stacked ``"layers"`` replaced by a list of ``n``
-    per-layer trees, each leaf a contiguous copy of its layer's slice (the
-    stacked leaves are released). The SCAR partition then cuts blocks of
-    ``block_rows`` rows out of each layer's matrices, where a stacked
-    leaf's leading dim makes every one of its blocks span all layers."""
+def split_layers(params: PyTree, stacked) -> PyTree:
+    """``params`` with each stacked subtree replaced by a list of per-layer
+    trees, each leaf a contiguous copy of its layer's slice (the stacked
+    leaves are released). ``stacked`` is the ``(key, layer count)`` of
+    each such subtree (``ModelOps.stacked_layers``); every other key (the
+    embedding, the norms, the hybrid's ``shared`` block) is kept as it is.
+    The SCAR partition then cuts blocks of ``block_rows`` rows out of each
+    layer's matrices, where a stacked leaf's leading dim makes every one
+    of its blocks span all layers."""
     out = dict(params)
-    out["layers"] = [tree_map(torch.clone, lp)
-                     for lp in unstack_layers(params["layers"], n)]
+    for key, n in stacked:
+        out[key] = [tree_map(torch.clone, lp)
+                    for lp in unstack_layers(params[key], n)]
     return out
 
 
@@ -93,12 +98,18 @@ def remat(fn, *args, enabled: bool = True):
 
 
 def layer_params(params: PyTree, i: int) -> PyTree:
-    """Layer ``i``'s slice of the stacked ``params["layers"]``."""
+    """Layer ``i`` of ``params["layers"]``: its slice of the stacked
+    leaves, or the ``i``-th tree of a per-layer list
+    (:func:`split_layers`)."""
+    layers = params["layers"]
+    if isinstance(layers, (list, tuple)):
+        return layers[i]
+
     def take(node):
         if isinstance(node, dict):
             return {k: take(v) for k, v in node.items()}
         return node[i]
-    return take(params["layers"])
+    return take(layers)
 
 
 # ---------------------------------------------------------------------------

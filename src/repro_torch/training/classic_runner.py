@@ -32,7 +32,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from repro_torch.core.blocks import partition_pytree
+from repro_torch.core.blocks import ReplayDraws, partition_pytree
 from repro_torch.core.controller import FTController
 from repro_torch.core.iteration_cost import (empirical_iteration_cost,
                                              iterations_to_eps)
@@ -135,7 +135,8 @@ def run_with_failure(model: IterativeModel, policy: CheckpointPolicy, *,
                      store=None, fabric=None,
                      fail_domain: str = "uniform",
                      arena_state: bool = True,
-                     recorder=None, device: DeviceLike = None) -> dict:
+                     recorder=None, draws: Optional[list] = None,
+                     device: DeviceLike = None) -> dict:
     """The SCAR lifecycle on one classic model (Figures 7/8).
 
     The failure destroys ``fail_fraction`` of parameter blocks uniformly at
@@ -146,16 +147,20 @@ def run_with_failure(model: IterativeModel, policy: CheckpointPolicy, *,
     (default): on an arena-capable controller every maintain and save
     takes the live params as one packed arena (bit-identical results to
     ``False``, the tree interface). ``store`` is the controller's disk
-    mirror.
+    mirror. ``draws`` (block-id arrays recorded elsewhere, e.g. the
+    reference's as numpy) replace the controller's generator: the uniform
+    failure and each RANDOM-strategy save take the next one
+    (:class:`~repro_torch.core.blocks.ReplayDraws`).
     """
     if fail_domain != "uniform" and fabric is None:
         raise ValueError("correlated fail_domain needs a fabric")
     dev = _run_device(model, device)
     rec = recorder if recorder is not None else NULL_RECORDER
     p = model.init(torch.Generator().manual_seed(1))
+    rng = (torch.Generator().manual_seed(seed + 13) if draws is None
+           else ReplayDraws(draws, seed + 13))
     ctl = FTController(p, policy, norm_aux=model.norm_aux, store=store,
-                       rng=torch.Generator().manual_seed(seed + 13),
-                       colocate=model.colocate, fabric=fabric,
+                       rng=rng, colocate=model.colocate, fabric=fabric,
                        recorder=recorder, device=dev)
     use_arena = arena_state and ctl.arena_ready
     losses = []

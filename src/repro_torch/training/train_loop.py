@@ -34,12 +34,13 @@ single device: the port of ``repro.training.train_loop``.
   maintain, at a save, a recovery, a heal or a scrub, and at the end of
   ``run``.
 
-The reference's ``DistContext`` is replaced by an explicit ``device``
-(``cuda`` unless asked otherwise; the trainer raises where no CUDA device
-is present rather than moving to the CPU). Not ported yet, and raising
-``NotImplementedError`` with its ROADMAP item: the elastic mesh
-(``elastic_mesh``, item 15) and the hybrid and encoder-decoder families
-(item 29; their ``train_loss`` is ported).
+It trains every family the port serves: dense, ssm, hybrid (a Mamba2
+backbone and one shared attention block) and audio (the encoder-decoder,
+its batches carrying ``frames``). The reference's ``DistContext`` is
+replaced by an explicit ``device`` (``cuda`` unless asked otherwise; the
+trainer raises where no CUDA device is present rather than moving to the
+CPU). Not ported yet, and raising ``NotImplementedError`` with its ROADMAP
+item: the elastic mesh (``elastic_mesh``, item 15).
 """
 from __future__ import annotations
 
@@ -96,8 +97,9 @@ class TrainLoopConfig:
     flip_schedule: Optional[list] = None
     # integrity-scrub cadence in steps (0 = never)
     scrub_interval: int = 0
-    # hold each layer's weights as leaves of their own (a list under
-    # params["layers"], models.layers.split_layers) in place of the
+    # hold each layer's weights as leaves of their own (a list under each
+    # stacked key of the family: "layers", or "enc_layers" and
+    # "dec_layers"; models.layers.split_layers) in place of the
     # reference's stacked leaves. A stacked leaf has the layer count as
     # its rows, so it is one SCAR block spanning every layer, and the
     # parity frames are as wide as the widest block: at qwen2-1.5b's full
@@ -136,13 +138,6 @@ class TrainLoop:
                  optimizer: Optional[Optimizer] = None,
                  loop_cfg: Optional[TrainLoopConfig] = None,
                  store=None, *, device: DeviceLike = None):
-        if cfg.family in ("hybrid", "audio"):
-            # split_layers and the SCAR partition know only
-            # params["layers"]; the encoder-decoder's tree has enc_layers
-            # and dec_layers, the hybrid's a shared block beside its layers
-            raise NotImplementedError(
-                f"{cfg.name}: training the {cfg.family} family is not "
-                f"ported yet (ROADMAP item 29)")
         self.cfg = cfg
         self._store = store
         self.device = resolve_device(device)
@@ -191,7 +186,7 @@ class TrainLoop:
             params = self.ops.init_params(gen, self.cfg, device=self.device)
         if self.loop_cfg.per_layer_leaves:
             from repro_torch.models.layers import split_layers
-            params = split_layers(params, self.cfg.n_layers)
+            params = split_layers(params, self.ops.stacked_layers)
         if self.loop_cfg.policy is not None:
             self.controller = FTController(params, self.loop_cfg.policy,
                                            store=self._store,

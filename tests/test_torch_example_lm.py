@@ -8,7 +8,11 @@ its ``--tiny`` size.
 - on the reference's initial parameters (carried as numpy) and the same
   token stream, its losses agree with the reference example's within rtol
   1e-4, the two make as many saves, and their stores stamp the same
-  saved iterations.
+  saved iterations;
+- ``--arch zamba2-1.2b`` (the hybrid family) and ``--arch
+  whisper-medium`` (the encoder-decoder, its batches carrying frames)
+  train at ``--tiny``, arena-resident and on the PyTree path bit-equal,
+  failures included.
 """
 import jax
 import numpy as np
@@ -79,3 +83,17 @@ def test_example_against_reference(tmp_path):
     # their positions, compare
     assert (np.unique(got["loop"].controller.store.saved_iters()).tolist()
             == np.unique(jl.controller.store.saved_iters()).tolist())
+
+
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "whisper-medium"])
+def test_example_new_families_arena_pytree_bit_equal(tmp_path, arch):
+    flags = ("--arch", arch, "--steps", "4", "--fail-prob", "0.5")
+    arena = _run(tmp_path, "arena", *flags)
+    tree = _run(tmp_path, "tree", "--pytree", *flags)
+    assert arena["arena_state"] and not tree["arena_state"]
+    assert arena["failures"] == tree["failures"] > 0
+    assert arena["losses"] == tree["losses"]
+    assert all(np.isfinite(arena["losses"]))
+    ca, ct = arena["loop"].controller, tree["loop"].controller
+    assert torch.equal(ca._ckpt_arena, ct._ckpt_arena)
+

@@ -18,6 +18,10 @@ from repro_torch.configs import get_config
 from repro_torch.core.controller import FTController
 from repro_torch.core.policy import CheckpointPolicy
 from repro_torch.data.synthetic import lm_batch
+from repro_torch.examples import (adaptive_checkpoint_policy,
+                                  correlated_failures,
+                                  priority_vs_random_checkpoints, quickstart,
+                                  serve_with_recovery)
 from repro_torch.fabric import CheckpointFabric, FabricConfig
 from repro_torch.interop import load_parity_rows
 from repro_torch.models import get_model
@@ -28,6 +32,9 @@ from repro_torch.training.serve import Server
 from repro_torch.utils.tree import tree_leaves
 
 ROOT = Path(__file__).resolve().parents[1]
+EXAMPLES = (quickstart, priority_vs_random_checkpoints,
+            adaptive_checkpoint_policy, correlated_failures,
+            serve_with_recovery)
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
     + [ROOT / "chip_smoke.py"]
 
@@ -61,6 +68,8 @@ def test_entry_points_default_to_cuda(tmp_path):
         assert make_model("qp").device.type == "cuda"
         with pytest.raises(ValueError):
             FTController(params, CheckpointPolicy.scar())   # params on CPU
+        for script in EXAMPLES:
+            assert script.parse_args([]).device is None      # cuda
         for cfg, cpu_params in lm.values():
             gen = torch.Generator().manual_seed(0)
             assert all(x.device.type == "cuda" for x in tree_leaves(
@@ -87,6 +96,10 @@ def test_entry_points_default_to_cuda(tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         run_with_failure(cpu_model, CheckpointPolicy.scar(), fail_iter=1,
                          fail_fraction=0.5, max_iters=3)
+    # the ported example scripts, run with no --device
+    for script in EXAMPLES:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            script.main([])
 
 
 def test_load_parity_rows_defaults_to_cuda():
@@ -128,13 +141,27 @@ def test_new_families_default_to_cuda():
 
 
 def test_trainer_names_item_29_for_the_new_families():
-    """Training the hybrid and encoder-decoder families is not ported:
-    ``TrainLoop`` raises naming ROADMAP item 29, on any device."""
-    for name in ("zamba2-1.2b", "whisper-medium"):
+    """Training the hybrid and encoder-decoder families is ported (ROADMAP
+    item 29 is done): both families' ``TrainLoop`` builds, runs on the
+    card unless asked otherwise and raises where no CUDA device is
+    present; asked for, the CPU; its per-layer leaves split each stacked
+    subtree of the family."""
+    for name, stacked in (("zamba2-1.2b", ["layers"]),
+                          ("whisper-medium", ["enc_layers", "dec_layers"])):
         cfg = get_config(name, reduced=True)
-        for device in (None, "cpu"):
-            with pytest.raises(NotImplementedError, match="item 29"):
-                TrainLoop(cfg, device=device)
+        if torch.cuda.is_available():
+            assert TrainLoop(cfg).device.type == "cuda"
+        else:
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                TrainLoop(cfg)
+        loop = TrainLoop(cfg, device="cpu")
+        assert loop.device.type == "cpu"
+        assert [k for k, _ in loop.ops.stacked_layers] == stacked
+        state = loop.init_state()
+        for key in stacked:
+            assert isinstance(state.params[key], list)
+        assert all(x.device.type == "cpu"
+                   for x in tree_leaves(state.params))
 
 
 def test_model_and_run_devices_must_agree():

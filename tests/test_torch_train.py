@@ -22,6 +22,11 @@ at most 6 steps. Tolerances:
 - the trainer: arena and PyTree paths bit-exact; port against reference
   losses within rtol 1e-4 over 6 steps, ``saved_iter`` and tier counts
   equal after a scheduled host loss.
+
+The four trainable families: dense (qwen2-1.5b), ssm (mamba2-370m),
+hybrid (zamba2-1.2b: a Mamba2 backbone and one shared attention block)
+and audio (whisper-medium: an encoder-decoder whose batches carry
+``frames``, drawn with numpy in the reference's order).
 """
 import dataclasses
 
@@ -60,7 +65,7 @@ from repro_torch.training.step import (make_arena_train_step,
 from repro_torch.utils.tree import tree_leaves, tree_map
 
 CTX = single_device_ctx()
-ARCHS = ["qwen2-1.5b", "mamba2-370m"]
+ARCHS = ["qwen2-1.5b", "mamba2-370m", "zamba2-1.2b", "whisper-medium"]
 B, S = 2, 32
 
 
@@ -336,7 +341,11 @@ def test_lm_loss_chunked_against_reference():
 def _tokens(cfg, seed=1):
     rng = np.random.default_rng(seed)
     toks = rng.integers(0, cfg.vocab, (B, S + 1), dtype=np.int32)
-    return {"tokens": toks[:, :-1].copy(), "labels": toks[:, 1:].copy()}
+    batch = {"tokens": toks[:, :-1].copy(), "labels": toks[:, 1:].copy()}
+    if cfg.family == "audio":
+        batch["frames"] = rng.normal(
+            0, 1, (B, cfg.enc_seq, cfg.d_model)).astype(np.float32)
+    return batch
 
 
 def _rel_l2(a, b):
@@ -344,15 +353,14 @@ def _rel_l2(a, b):
     return np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30)
 
 
-@pytest.mark.parametrize("name", ARCHS)
-def test_train_loss_and_grads_against_reference(name):
-    jcfg, params = _ref_params(name)
-    batch = _tokens(jcfg)
+def _grads_against_reference(jcfg, params, batch):
     ops = j_get_model(jcfg)
     jv, jg = jax.value_and_grad(ops.train_loss)(
         jax.tree_util.tree_map(jnp.asarray, params),
         {k: jnp.asarray(v) for k, v in batch.items()}, jcfg, CTX)
-    cfg = get_config(name, reduced=True)
+    cfg = get_config(jcfg.name, reduced=True)
+    cfg = dataclasses.replace(cfg, n_layers=jcfg.n_layers,
+                              attn_every=jcfg.attn_every)
     from repro_torch.training.step import loss_and_grad
     tv, tg = loss_and_grad(get_model(cfg), cfg, from_numpy_tree(params, "cpu"),
                            from_numpy_tree(batch, "cpu"))
@@ -360,6 +368,23 @@ def test_train_loss_and_grads_against_reference(name):
     for t, j in zip(tree_leaves(tg), jax.tree_util.tree_leaves(jg)):
         assert t.shape == j.shape
         assert _rel_l2(t.numpy(), j) <= 1e-4
+
+
+@pytest.mark.parametrize("name", ARCHS)
+def test_train_loss_and_grads_against_reference(name):
+    jcfg, params = _ref_params(name)
+    _grads_against_reference(jcfg, params, _tokens(jcfg))
+
+
+def test_hybrid_shared_block_applied_twice_against_reference():
+    """zamba2-1.2b with 4 Mamba2 layers and the shared block after every
+    2: two applications of one set of shared weights (the reduced config
+    has one), whose gradient is the sum over both, held to
+    ``jax.grad`` of the reference at 1e-4 relative L2 per leaf."""
+    jcfg = dataclasses.replace(j_get_config("zamba2-1.2b", reduced=True),
+                               n_layers=4, attn_every=2)
+    params = _np(j_get_model(jcfg).init_params(jax.random.PRNGKey(5), jcfg))
+    _grads_against_reference(jcfg, params, _tokens(jcfg, seed=5))
 
 
 @pytest.mark.parametrize("name", ARCHS)
@@ -380,24 +405,36 @@ def test_remat_is_bit_exact(name):
 
 @pytest.mark.parametrize("name", ARCHS)
 def test_per_layer_leaves_give_the_same_loss(name):
-    """``split_layers`` holds each layer's weights as leaves of their own;
-    the forward and the gradients are the stacked tree's."""
+    """``split_layers`` holds each layer's weights as leaves of their own,
+    for every stacked subtree of the family (``layers``; the
+    encoder-decoder's ``enc_layers`` and ``dec_layers``), and keeps every
+    other key (the hybrid's ``shared`` block) as it is; the forward and
+    the gradients are the stacked tree's."""
     from repro_torch.training.step import loss_and_grad
     _, params = _ref_params(name, seed=4)
     cfg = get_config(name, reduced=True)
     batch = from_numpy_tree(_tokens(cfg, seed=3), "cpu")
     stacked = from_numpy_tree(params, "cpu")
-    split = t_layers.split_layers(stacked, cfg.n_layers)
-    assert isinstance(split["layers"], list) \
-        and len(split["layers"]) == cfg.n_layers
     ops = get_model(cfg)
+    want_keys = {"audio": ["enc_layers", "dec_layers"]}.get(cfg.family,
+                                                             ["layers"])
+    assert [k for k, _ in ops.stacked_layers] == want_keys
+    split = t_layers.split_layers(stacked, ops.stacked_layers)
+    for key, n in ops.stacked_layers:
+        assert isinstance(split[key], list) and len(split[key]) == n
+    for key in set(stacked) - set(want_keys):
+        assert split[key] is stacked[key]
     l0, g0 = loss_and_grad(ops, cfg, stacked, batch)
     l1, g1 = loss_and_grad(ops, cfg, split, batch)
     assert torch.equal(l0, l1)
-    for i in range(cfg.n_layers):
-        per = tree_leaves(g1["layers"][i])
-        for a, b in zip(tree_leaves(g0["layers"]), per):
-            assert torch.equal(a[i], b)
+    for key, n in ops.stacked_layers:
+        for i in range(n):
+            per = tree_leaves(g1[key][i])
+            for a, b in zip(tree_leaves(g0[key]), per):
+                assert torch.equal(a[i], b)
+    for key in set(stacked) - set(want_keys):
+        assert all(torch.equal(a, b) for a, b in zip(tree_leaves(g0[key]),
+                                                     tree_leaves(g1[key])))
 
 
 # ---------------------------------------------------------------------------
@@ -415,6 +452,28 @@ def test_dataset_tokens_equal_reference(seed):
         for k in ("tokens", "labels"):
             assert tb[k].dtype == torch.int32
             assert np.array_equal(tb[k].numpy(), np.asarray(jb[k]))
+
+
+def test_dataset_frames_equal_reference():
+    """The encoder-decoder's batches: ``frames`` drawn after the tokens
+    from the same generator, f32, equal to the reference's; the train
+    step's microbatches split them along dim 0 with the tokens."""
+    from repro_torch.training.step import _microbatches
+    jcfg = j_get_config("whisper-medium", reduced=True)
+    cfg = get_config("whisper-medium", reduced=True)
+    jd = JDataset(jcfg, 4, S, CTX, seed=2)
+    td = ShardedLMDataset(cfg, 4, S, seed=2, device="cpu")
+    for _ in range(2):
+        jb, tb = jd.next_batch(), td.next_batch()
+        assert set(tb) == set(jb) == {"tokens", "labels", "frames"}
+        assert tb["frames"].dtype == torch.float32
+        assert tb["frames"].shape == (4, cfg.enc_seq, cfg.d_model)
+        for k in jb:
+            assert np.array_equal(tb[k].numpy(), np.asarray(jb[k]))
+    mbs = _microbatches(tb, 2)
+    for i, mb in enumerate(mbs):
+        for k in tb:
+            assert torch.equal(mb[k], tb[k][2 * i:2 * i + 2])
 
 
 # ---------------------------------------------------------------------------
