@@ -87,15 +87,18 @@ Phases, each of which fails the run if it fails:
 13. Launch counts, one set per path: the counts are set to 0 just before
     each of the MLR loops, the quickstart path, the controller, each fabric
     phase, each multi-erasure run and each served model (phases 15 and
-    16) and each served family (phases 19 and 20), and read just after
-    it. Each path's kernels must have launched in it: ssd_intra 96 times on
+    16) and each served family (phases 19, 20 and 24-26), and read just
+    after it. Each path's kernels must have launched in it: ssd_intra 96 times on
     the mamba2_serve path (48 layers, two prefills), sw_attention 56 times
     on the qwen2_serve path (28 layers, a prefill and a ring prefill),
     ssd_intra 76 and sw_attention 14 times on the zamba2_serve path (38
     layers and 7 applications of the shared block, two prefills),
     sw_attention 48 times on the whisper_serve path (24 decoder layers,
-    two prefills); block_dist, scatter_save and masked_restore on the
-    mamba2, zamba2 and whisper serve paths (their recovery flows).
+    two prefills), 8 times on the qwen3_moe_serve and internvl2_serve
+    paths (4 layers, two prefills) and 4 on the llama4_serve path (one
+    dense + MoE pair, two generates); block_dist, scatter_save and
+    masked_restore on the mamba2, zamba2, whisper, qwen3-moe and internvl2
+    serve paths (their recovery flows).
 14. After the 1.54 B tree is freed, the serve kernels at the shapes the
     served prefills give them, against their plain versions
     (|got - want| <= 1e-4 |want| + 1e-4 max|want|; the same for bf16
@@ -104,8 +107,11 @@ Phases, each of which fails the run if it fails:
     zamba2-1.2b's (B 8, nc 16, Q 128, H 64, P 64, N 64), sw_attention at
     qwen2-1.5b's causal (B 4 x 2 kv heads, G 6, S 2048, W = S) and ring (B
     1, S 8192, W 4096) cases, zamba2-1.2b's (B 8 x 32 heads, G 1, S 2048,
-    Dh 64, W = S) and whisper-medium's decoder (B 8 x 16 heads, G 1, S 384,
-    Dh 64, W = S), bf16. Timed as in phase 2
+    Dh 64, W = S), whisper-medium's decoder (B 8 x 16 heads, G 1, S 384,
+    Dh 64, W = S), qwen3-moe-235b-a22b's (B 4 x 4 kv heads, G 16, S 2048,
+    W = S), llama4-maverick-400b-a17b's (B 4 x 8, G 5, S 2048) and
+    internvl2-76b's (B 4 x 8, G 8, S 3072: 1,024 patches and 2,048
+    tokens), bf16. Timed as in phase 2
     (and back to back, ten calls on one stream) beside the bound
     (ssd_intra: its bytes over 3.35 TB/s, or its products as three TF32
     products each over 495 TFLOP/s, with the f32-FMA figure of earlier runs
@@ -215,7 +221,8 @@ Phases, each of which fails the run if it fails:
 23. The six ported examples (``repro_torch.examples``) on the card, each
     once at its default size: quickstart, priority_vs_random_checkpoints,
     adaptive_checkpoint_policy, correlated_failures, serve_with_recovery
-    for yi-9b, mamba2-370m, zamba2-1.2b and whisper-medium (reduced), and
+    for yi-9b, mamba2-370m, zamba2-1.2b, whisper-medium, qwen3-moe-235b-a22b,
+    llama4-maverick-400b-a17b and internvl2-76b (reduced), and
     train_lm_with_failures at ``--tiny`` (8 steps, ``--fail-prob 0.3``)
     for zamba2-1.2b and whisper-medium; each held against the same call on
     the CPU (the LM examples from the same numpy weights and prompts): tier
@@ -223,13 +230,36 @@ Phases, each of which fails the run if it fails:
     iteration costs within ±1, losses and the fitted contraction within
     rtol 1e-4; every kernel but fused_maintain launched on this path
     (``launches["examples"]``).
+24. qwen3-moe-235b-a22b at full width (d 4096, GQA 64/4, 128 experts top-8
+    of d_ff 1536, the untied head, bf16, random weights from a seed) with 4
+    of its 94 layers (11.20 G values, 22.4 GB): ``Server.generate`` on (4,
+    2048) with 16 new tokens, the recovery flow and the route hold as in
+    phase 15 (the save and restore held leaf by leaf: a fourth 22.4 GB tree
+    would not fit), the prefill's logits bit-identical over two runs; the
+    f32 route hold on 2 of the 4 layers (the f32 tree of all 4 is 44.8 GB
+    beside the bf16 one).
+25. llama4-maverick-400b-a17b at full width (d 5120, GQA 40/8, one dense
+    layer of d_ff 16384 and one MoE layer of 128 experts top-1 of d_ff 8192
+    with the shared expert: one interleaved pair, 18.68 G values, 37.4 GB):
+    two generates on (4, 2048) + 16 tokens, identical; the prefill's logits
+    bit-identical over two runs; every sw_attention call of a bf16 prefill
+    held against its plain version, the bf16 distance to the plain route
+    reported. Its recovery flow and f32 route hold run on its reduced
+    config in phase 23: two more trees would not fit.
+26. internvl2-76b at full width (d 8192, GQA 64/8, d_ff 28672, the
+    projector from 3200) with 4 of its 80 layers (5.55 G values): 1,024
+    patches and 2,048 tokens a prompt (3,072 positions, inside its 4,096
+    window), batch 4, 16 new tokens, as phase 24 (the f32 route on every
+    layer).
 
 The line before the last is the kernels' JSON record (each kernel's
 launches on its own path, ``train_launches`` on phase 17's,
 ``store_launches`` on phase 18's (a) and (b) together,
 ``zamba2_launches`` and ``whisper_launches`` on phases 19 and 20,
 ``zamba2_train_launches``, ``whisper_train_launches`` and
-``examples_launches`` on phases 21, 22 and 23); the last line is
+``examples_launches`` on phases 21, 22 and 23, ``qwen3_moe_launches``,
+``llama4_launches`` and ``internvl2_launches`` on phases 24-26); the last
+line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
 and prints no result.
 
@@ -245,7 +275,8 @@ its last line is ``{"families_only": true, "device": {...}}``.
 ``python3 chip_smoke.py --train-families`` runs phases 1, 21 and 22 alone
 (``{"train_families_only": true, ...}``); ``python3 chip_smoke.py
 --examples`` runs phases 1 and 23 alone (``{"examples_only": true,
-...}``).
+...}``); ``python3 chip_smoke.py --moe-vlm`` runs phases 1, 14 and 24-26
+alone (``{"moe_vlm_only": true, ...}``).
 """
 from __future__ import annotations
 
@@ -260,6 +291,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import Optional
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -1865,6 +1897,12 @@ MAMBA_SERVE = dict(batch=8, seq=2048, new=32)
 QWEN_SERVE = dict(batch=4, seq=2048, new=16)
 QWEN_RING = dict(batch=1, seq=8192)
 ZAMBA2_SERVE = dict(batch=8, seq=2048, new=32)
+# phases 24-26: full width, the depth cut to what one 80 GB card holds
+# beside the recovery flow's checkpoint and restored tree; qwen3-moe's f32
+# route hold on 2 of its 4 layers (the f32 tree of all 4 is 44.8 GB)
+QWEN3_MOE_SERVE = dict(batch=4, seq=2048, new=16, layers=4, f32_layers=2)
+LLAMA4_SERVE = dict(batch=4, seq=2048, new=16, layers=2)
+INTERNVL2_SERVE = dict(batch=4, seq=2048, new=16, layers=4)
 # 384 + 32 tokens stay inside whisper's published 448-token decoder context
 WHISPER_SERVE = dict(batch=8, frames=1500, seq=384, new=32)
 # a kernel against its plain version on the same inputs:
@@ -1983,22 +2021,43 @@ def _rel_l2(a, b) -> float:
     return float((a - b).norm() / b.norm().clamp_min(1e-30))
 
 
+# the served prefills' plain attention materialises (BH, G, S, S) f32
+# scores: internvl2-76b's (32, 8, 3072, 3072) are 9.7 GB, several alive at
+# once; the route holds take the plain version this many score bytes of
+# BH at a time (each (bh) row is computed alone in both)
+PLAIN_SCORE_BYTES = 1 << 30
+
+
+def sw_attention_plain(q, k, v, *, window: int):
+    """``sw_attention_ref`` over slices of the BH dim, each slice's scores
+    within ``PLAIN_SCORE_BYTES``."""
+    import torch
+    from repro_torch.kernels.sw_attention.ref import sw_attention_ref
+    BH, G, S, _ = q.shape
+    step = max(1, PLAIN_SCORE_BYTES // (4 * G * S * S))
+    if step >= BH:
+        return sw_attention_ref(q, k, v, window=window)
+    return torch.cat([sw_attention_ref(q[i:i + step], k[i:i + step],
+                                       v[i:i + step], window=window)
+                      for i in range(0, BH, step)])
+
+
 @contextlib.contextmanager
 def kernel_route(mode: str):
     """A switch of this script around the ssd_scan and sw_attention
-    dispatchers. ``"plain"``: they give CUDA tensors to the plain versions.
+    dispatchers. ``"plain"``: they give CUDA tensors to the plain versions
+    (sw_attention's by BH slices, :func:`sw_attention_plain`).
     ``"checked"``: every kernel launch is also run through its plain version
     on the same inputs; yields the tolerance ratios (``_close_ratio``) per
     kernel."""
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.kernels.ssd_scan.ref import ssd_intra_ref
     from repro_torch.kernels.sw_attention import ops as sw_ops
-    from repro_torch.kernels.sw_attention.ref import sw_attention_ref
     ssd_cuda, sw_cuda = ssd_ops.ssd_intra_cuda, sw_ops.sw_attention_cuda
     ratios = {"ssd_intra": [], "sw_attention": []}
     if mode == "plain":
         ssd_ops.ssd_intra_cuda = ssd_intra_ref
-        sw_ops.sw_attention_cuda = sw_attention_ref
+        sw_ops.sw_attention_cuda = sw_attention_plain
     else:
         def ssd(*args):
             got = ssd_cuda(*args)
@@ -2009,7 +2068,7 @@ def kernel_route(mode: str):
         def sw(q, k, v, *, window):
             got = sw_cuda(q, k, v, window=window)
             ratios["sw_attention"].append(_close_ratio(
-                got, sw_attention_ref(q, k, v, window=window)))
+                got, sw_attention_plain(q, k, v, window=window)))
             return got
         ssd_ops.ssd_intra_cuda, sw_ops.sw_attention_cuda = ssd, sw
     try:
@@ -2124,7 +2183,8 @@ def _log_case(name: str, r: dict) -> None:
 def phase_serve_kernels(device) -> dict:
     """Phase 14: ssd_intra and sw_attention against their plain versions at
     the shapes the serve paths give them: mamba2-370m's and qwen2-1.5b's,
-    then zamba2-1.2b's and whisper-medium's."""
+    then zamba2-1.2b's and whisper-medium's, then qwen3-moe-235b-a22b's,
+    llama4-maverick-400b-a17b's and internvl2-76b's."""
     import torch
     from repro_torch.configs import get_config
 
@@ -2152,18 +2212,35 @@ def phase_serve_kernels(device) -> dict:
         sw[key] = _sw_attention_case(
             serve["batch"] * cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads,
             serve["seq"], cfg.head_dim, serve["seq"], gen, device)
+    # the MoE and VLM prefills (phases 24-26): Dh 128 at G 16, 5 and 8,
+    # internvl2-76b's prompt its 1,024 patches and the 2,048 tokens
+    for key, name, serve in (
+            ("qwen3_moe", "qwen3-moe-235b-a22b", QWEN3_MOE_SERVE),
+            ("llama4", "llama4-maverick-400b-a17b", LLAMA4_SERVE),
+            ("internvl2", "internvl2-76b", INTERNVL2_SERVE)):
+        cfg = get_config(name)
+        S = serve["seq"] + (cfg.n_patches if cfg.family == "vlm" else 0)
+        sw[key] = _sw_attention_case(
+            serve["batch"] * cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads,
+            S, cfg.head_dim, S, gen, device)
     # the rows of the kernels line are mamba2-370m's and qwen2-1.5b's
     # causal prefill, as before; the other shapes ride along
     results = {"ssd_intra": dict(ssd["mamba2"], zamba2=ssd["zamba2"]),
                "sw_attention": dict(sw["causal"], ring=sw["ring"],
                                     zamba2=sw["zamba2"],
-                                    whisper=sw["whisper"])}
+                                    whisper=sw["whisper"],
+                                    qwen3_moe=sw["qwen3_moe"],
+                                    llama4=sw["llama4"],
+                                    internvl2=sw["internvl2"])}
     for name, r in (("ssd_intra mamba2-370m", ssd["mamba2"]),
                     ("ssd_intra zamba2-1.2b", ssd["zamba2"]),
                     ("sw_attention causal", sw["causal"]),
                     ("sw_attention ring", sw["ring"]),
                     ("sw_attention zamba2-1.2b", sw["zamba2"]),
-                    ("sw_attention whisper-medium", sw["whisper"])):
+                    ("sw_attention whisper-medium", sw["whisper"]),
+                    ("sw_attention qwen3-moe-235b-a22b", sw["qwen3_moe"]),
+                    ("sw_attention llama4-maverick-400b-a17b", sw["llama4"]),
+                    ("sw_attention internvl2-76b", sw["internvl2"])):
         _log_case(name, r)
     log(f"ssd_intra bound {ssd['mamba2']['bound_ms']:.3f} ms (bytes "
         f"over 3.35 TB/s, or its 3xTF32 products over 495 TFLOP/s); as f32 "
@@ -2214,12 +2291,15 @@ def _serve_speeds(srv, ops, cfg, batch, n_new) -> dict:
                 lambda: ops.prefill(srv.params, batch, cfg))}
 
 
-def _hold_routes(ops, cfg, params, batch, calls: dict) -> dict:
+def _hold_routes(ops, cfg, params, batch, calls: dict,
+                 f32_layers: Optional[int] = None) -> dict:
     """The served bf16 prefill with every kernel call held against its
     plain version on the same inputs (``calls``: each kernel's calls in
     one prefill); then, with the weights cast to f32, the kernel route's
-    last logits against the plain route's. The bf16 routes' distance is
-    reported."""
+    last logits against the plain route's: on every layer, on the first
+    ``f32_layers`` stacked layers where the f32 tree of all of them would
+    not fit beside the bf16 one, or not at all where ``f32_layers`` is 0.
+    The bf16 routes' distance is reported."""
     import dataclasses
     import torch
     from repro_torch.utils.tree import tree_map
@@ -2238,7 +2318,15 @@ def _hold_routes(ops, cfg, params, batch, calls: dict) -> dict:
     out = {"per_call_worst_ratio": worst,
            "bf16_logits_rel_l2_vs_plain": _rel_l2(logits, plain)}
     del logits, plain
+    if f32_layers == 0:
+        return out
     cfg32 = dataclasses.replace(cfg, dtype="float32")
+    if f32_layers is not None:
+        out["f32_route_layers"] = f32_layers
+        # the first f32_layers of the stacked layers: views, full width
+        params = dict(params, layers=tree_map(lambda x: x[:f32_layers],
+                                              params["layers"]))
+        cfg32 = dataclasses.replace(cfg32, n_layers=f32_layers)
     p32 = tree_map(lambda x: x.float(), params)
     logits, _ = ops.prefill(p32, batch, cfg32)
     with kernel_route("plain"):
@@ -2251,40 +2339,77 @@ def _hold_routes(ops, cfg, params, batch, calls: dict) -> dict:
 
 def _hold_recovery(ctl, params, lost, recovered, info: dict,
                    name: str) -> dict:
-    """The serve-with-recovery flow's kernels against their plain versions
-    on the served tree: the flow applied no perturbation, the save
-    (scatter_save) left the checkpoint equal to the params, the restore
-    (masked_restore) is the plain restore's and the params' bits, and
-    block_dist's per-block ‖x‖² of the served tree (against zeros) is
-    within rtol 1e-4 of its plain version. Runs after the path's launch
-    counts are read, so none of these launches counts."""
-    import torch
-    from repro_torch.kernels.block_dist.kernel import block_dist_tree_cuda
-    from repro_torch.kernels.block_dist.ref import block_dist_tree_ref
-    from repro_torch.kernels.leaf_table import block_dist_table
-    from repro_torch.kernels.masked_restore.ref import tree_masked_restore_ref
+    """The serve-with-recovery flow's save and restore against their plain
+    versions on the served tree, leaf by leaf (a whole second tree would
+    not fit beside qwen3-moe's three): the flow applied no perturbation,
+    the save (scatter_save) left the checkpoint equal to the params, the
+    restore (masked_restore) is the plain restore's and the params' bits.
+    Runs after the path's launch counts are read, so none of these
+    launches counts."""
+    from repro_torch.core.blocks import split_global_mask
+    from repro_torch.kernels.masked_restore.ref import masked_restore_ref
     from repro_torch.utils.tree import tree_leaves
 
     part = ctl.partition
-    leaves = tree_leaves(params)
     check(info["applied_sq"] == 0.0, f"{name}: the lossless recovery "
           f"applied a perturbation, applied_sq {info['applied_sq']}")
-    check(all(_same_bits(c, x) for c, x in zip(
-        tree_leaves(ctl.ckpt.values), leaves)),
-          f"{name}: the checkpoint differs from the served params")
-    want = tree_leaves(tree_masked_restore_ref(params, ctl.ckpt.values,
-                                               lost, part))
-    check(all(_same_bits(r, w) and _same_bits(r, x) for r, w, x in zip(
-        tree_leaves(recovered), want, leaves)),
-          f"{name}: the restore differs from the plain restore or the params")
-    del want
-    zeros = [torch.zeros_like(x) for x in leaves]
+    masks = split_global_mask(lost.to(bool), part)
+    for x, c, r, m, leaf in zip(tree_leaves(params),
+                                tree_leaves(ctl.ckpt.values),
+                                tree_leaves(recovered), masks, part.leaves):
+        check(_same_bits(c, x), f"{name}: the checkpoint of {leaf.name} "
+              f"differs from the served params")
+        shape2d = (leaf.rows, leaf.row_width)
+        want = masked_restore_ref(x.reshape(shape2d), c.reshape(shape2d), m,
+                                  part.block_rows).reshape(leaf.shape)
+        check(_same_bits(r, want) and _same_bits(r, x), f"{name}: the "
+              f"restore of {leaf.name} differs from the plain restore or "
+              f"the params")
+        del want
+    return {"blocks": part.total_blocks}
+
+
+def _plain_block_sq(leaves, part):
+    """Per-block sum of squares of ``leaves`` (f32), as the plain
+    block_dist against zeros, in slices of about 2^27 values: row sums,
+    then each block's rows."""
+    import torch
+    out = torch.zeros((part.total_blocks,), dtype=torch.float64,
+                      device=leaves[0].device)
+    for x, leaf in zip(leaves, part.leaves):
+        rows = x.reshape(leaf.rows, leaf.row_width)
+        step = max(1, (1 << 27) // max(leaf.row_width, 1))
+        sums = torch.cat([rows[i:i + step].float().square().sum(1)
+                          for i in range(0, leaf.rows, step)])
+        pad = leaf.n_blocks * part.block_rows - leaf.rows
+        blocks = torch.nn.functional.pad(sums, (0, pad)).reshape(
+            leaf.n_blocks, -1).sum(1)
+        out[leaf.offset:leaf.offset + leaf.n_blocks] += blocks.double()
+    return out.float()
+
+
+def _hold_block_dist(params, part, name: str) -> dict:
+    """block_dist's per-block ‖x‖² of the served tree (against zeros: views
+    of one zero buffer per dtype; bf16 pairs read in place) within rtol
+    1e-4 of the plain sum of squares."""
+    import torch
+    from repro_torch.kernels.block_dist.kernel import block_dist_tree_cuda
+    from repro_torch.kernels.leaf_table import block_dist_table
+    from repro_torch.utils.tree import tree_leaves
+
+    leaves = tree_leaves(params)
+    size: dict = {}
+    for x in leaves:
+        size[x.dtype] = max(size.get(x.dtype, 0), x.numel())
+    zero = {dt: torch.zeros((n,), dtype=dt, device=leaves[0].device)
+            for dt, n in size.items()}
+    zeros = [zero[x.dtype][:x.numel()].view(x.shape) for x in leaves]
     dk = block_dist_tree_cuda(leaves, zeros, block_dist_table(part))
-    dp = block_dist_tree_ref(leaves, zeros, part)
-    rtol = _rel_err(dk, dp)
+    del zeros, zero
+    rtol = _rel_err(dk, _plain_block_sq(leaves, part))
     check(rtol <= 1e-4, f"{name}: block_dist on the served tree off by "
           f"rtol {rtol}")
-    return {"block_dist_rtol": rtol, "blocks": part.total_blocks}
+    return {"block_dist_rtol": rtol}
 
 
 def _serve_family(name: str, serve: dict, seed: int, device, launches: dict,
@@ -2296,7 +2421,9 @@ def _serve_family(name: str, serve: dict, seed: int, device, launches: dict,
     against the plain route. ``launches[path]`` gets the counts of the two
     generates and the recovery; each serve kernel must have launched
     ``calls[kernel]`` times a prefill, twice, and no more (decode launches
-    neither)."""
+    neither). ``serve["layers"]`` cuts the depth, ``serve["f32_layers"]``
+    the f32 route hold's (:func:`_hold_routes`)."""
+    import dataclasses
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core.controller import FTController
@@ -2308,10 +2435,13 @@ def _serve_family(name: str, serve: dict, seed: int, device, launches: dict,
     from repro_torch.utils.tree import tree_leaves
 
     cfg = get_config(name)
+    if "layers" in serve:
+        cfg = dataclasses.replace(cfg, n_layers=serve["layers"])
     ops = get_model(cfg)
     torch.cuda.reset_peak_memory_stats()
     params = ops.init_params(torch.Generator(device=device).manual_seed(
         SEED + seed), cfg, device=device)
+    init_peak = torch.cuda.max_memory_allocated() / 1e9
     batch = lm_batch(torch.Generator(device=device).manual_seed(
         SEED + seed + 1), cfg, serve["batch"], serve["seq"], device=device)
     _build.reset_launches()
@@ -2336,16 +2466,33 @@ def _serve_family(name: str, serve: dict, seed: int, device, launches: dict,
               f"{2 * calls.get(kernel, 0)}")
     served_peak = torch.cuda.max_memory_allocated() / 1e9
     held = _hold_recovery(ctl, params, lost, recovered, info, name)
+    part = ctl.partition
     del ctl, recovered
+    held.update(_hold_block_dist(params, part, name))
     n_params = sum(x.numel() for x in tree_leaves(params))
     speeds = _serve_speeds(srv, ops, cfg, batch, serve["new"])
-    out = {"params": n_params, "first_generate_seconds": first_s, **speeds,
+    out = {"params": n_params, "layers": cfg.n_layers,
+           "init_peak_memory_gb": init_peak,
+           "first_generate_seconds": first_s, **speeds,
            "lost_blocks": info["lost_blocks"],
            "applied_sq": info["applied_sq"], "recovery_held": held,
-           "served_peak_memory_gb": served_peak,
-           **_hold_routes(ops, cfg, params, batch, calls)}
+           "served_peak_memory_gb": served_peak}
+    if cfg.family in ("moe", "vlm"):
+        out.update(_same_logits_twice(ops, cfg, params, batch, name))
+    out.update(_hold_routes(ops, cfg, params, batch, calls,
+                            serve.get("f32_layers")))
     out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
     return out
+
+
+def _same_logits_twice(ops, cfg, params, batch, name: str) -> dict:
+    """Two served prefills give the same logits, bit for bit (the MoE
+    combine adds in expert order, no atomics)."""
+    import torch
+    a, _ = ops.prefill(params, batch, cfg)
+    b, _ = ops.prefill(params, batch, cfg)
+    check(torch.equal(a, b), f"{name}: two prefills' logits differ")
+    return {"prefill_logits_bit_identical": True}
 
 
 def phase_mamba2_serve(device, launches: dict) -> dict:
@@ -2520,6 +2667,136 @@ def families_only(device, card: str) -> int:
     log(json.dumps({"launches": launches, "serve_kernels": kernels}))
     log(card)
     log(json.dumps({"families_only": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}, "phases": list(out)}))
+    return 0
+
+
+# ---------------------------------------------------------------------------
+# phases 24-26: the MoE (qwen3-moe-235b-a22b, llama4-maverick-400b-a17b) and
+# VLM (internvl2-76b) families served
+# ---------------------------------------------------------------------------
+
+def phase_qwen3_moe_serve(device, launches: dict, card: str) -> dict:
+    """Phase 24: qwen3-moe-235b-a22b at full width (d 4096, 128 experts
+    top-8 of d_ff 1536, GQA 64/4, bf16) with 4 of its 94 layers, served as
+    :func:`_serve_family` serves a family; sw_attention once a layer in
+    each prefill."""
+    t0 = time.perf_counter()
+    out = _serve_family("qwen3-moe-235b-a22b", QWEN3_MOE_SERVE, 240, device,
+                        launches, "qwen3_moe_serve",
+                        {"sw_attention": QWEN3_MOE_SERVE["layers"]})
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 24: qwen3-moe-235b-a22b serve ({QWEN3_MOE_SERVE['layers']} "
+        f"layers), batch {QWEN3_MOE_SERVE['batch']} x "
+        f"{QWEN3_MOE_SERVE['seq']} + {QWEN3_MOE_SERVE['new']} tokens, on "
+        f"{card}: {json.dumps(out)}")
+    return out
+
+
+def phase_llama4_serve(device, launches: dict, card: str) -> dict:
+    """Phase 25: llama4-maverick-400b-a17b at full width (d 5120, GQA 40/8,
+    one dense layer of d_ff 16384 and one MoE layer of 128 experts top-1 of
+    d_ff 8192 with the shared expert, the untied head; bf16, 18.7 G values,
+    37.4 GB) served: two generates, the same tokens, each prefill's logits
+    the same bits; every sw_attention call of a bf16 prefill held against
+    its plain version, the bf16 distance of the last logits to the plain
+    route reported. Neither the recovery flow (the checkpoint and the
+    restored tree would be two more 37.4 GB trees) nor the f32 route (74.7
+    GB) fits beside it: phase 23 holds both on the reduced config.
+    ``launches["llama4_serve"]`` gets the two generates' counts."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.kernels import _build
+    from repro_torch.models import get_model
+    from repro_torch.training.serve import Server
+    from repro_torch.utils.tree import tree_leaves
+
+    name, serve = "llama4-maverick-400b-a17b", LLAMA4_SERVE
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(name), n_layers=serve["layers"])
+    ops = get_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    params = ops.init_params(torch.Generator(device=device).manual_seed(
+        SEED + 250), cfg, device=device)
+    init_peak = torch.cuda.max_memory_allocated() / 1e9
+    batch = lm_batch(torch.Generator(device=device).manual_seed(SEED + 251),
+                     cfg, serve["batch"], serve["seq"], device=device)
+    _build.reset_launches()
+    srv = Server(cfg, params)
+    toks0, first_s = _timed(lambda: srv.generate(batch, serve["new"]))
+    toks1 = srv.generate(batch, serve["new"])
+    launches["llama4_serve"] = dict(_build.LAUNCHES)
+    check(toks0.shape == (serve["batch"], serve["new"]),
+          f"{name}: generated tokens of shape {tuple(toks0.shape)}")
+    check(torch.equal(toks0, toks1), f"{name}: two generates differ")
+    n = launches["llama4_serve"]["sw_attention"]
+    check(n == 2 * cfg.n_layers and launches["llama4_serve"]["ssd_intra"]
+          == 0, f"{name}: sw_attention launched {n} times in two "
+          f"generates, not {2 * cfg.n_layers}")
+    out = {"params": sum(x.numel() for x in tree_leaves(params)),
+           "layers": cfg.n_layers, "init_peak_memory_gb": init_peak,
+           "first_generate_seconds": first_s,
+           **_serve_speeds(srv, ops, cfg, batch, serve["new"]),
+           "served_peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           **_same_logits_twice(ops, cfg, params, batch, name),
+           **_hold_routes(ops, cfg, params, batch,
+                          {"sw_attention": cfg.n_layers}, f32_layers=0)}
+    out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 25: {name} serve ({cfg.n_layers} layers: one dense + MoE "
+        f"pair), batch {serve['batch']} x {serve['seq']} + {serve['new']} "
+        f"tokens, on {card}: {json.dumps(out)}")
+    return out
+
+
+def phase_internvl2_serve(device, launches: dict, card: str) -> dict:
+    """Phase 26: internvl2-76b at full width (d 8192, GQA 64/8, d_ff
+    28672, the untied head, the projector of 3200; bf16) with 4 of its 80
+    layers, served on 1,024 patches and 2,048 tokens a prompt (3,072
+    positions, under its 4,096 window), as :func:`_serve_family` serves a
+    family; sw_attention once a layer in each prefill."""
+    from repro_torch.configs import get_config
+    cfg = get_config("internvl2-76b")
+    t0 = time.perf_counter()
+    out = _serve_family("internvl2-76b", INTERNVL2_SERVE, 260, device,
+                        launches, "internvl2_serve",
+                        {"sw_attention": INTERNVL2_SERVE["layers"]})
+    out["seconds"] = time.perf_counter() - t0
+    out["prefill_positions_per_s"] = (
+        INTERNVL2_SERVE["batch"] * (INTERNVL2_SERVE["seq"] + cfg.n_patches)
+        / out["prefill_seconds"])
+    log(f"phase 26: internvl2-76b serve ({INTERNVL2_SERVE['layers']} "
+        f"layers), batch {INTERNVL2_SERVE['batch']} x ({cfg.n_patches} "
+        f"patches, {INTERNVL2_SERVE['seq']} tokens) + "
+        f"{INTERNVL2_SERVE['new']} tokens, on {card}: {json.dumps(out)}")
+    return out
+
+
+def moe_vlm_phases(device, launches: dict, card: str) -> dict:
+    import torch
+    out = {}
+    for key, phase in (("qwen3_moe_serve", phase_qwen3_moe_serve),
+                       ("llama4_serve", phase_llama4_serve),
+                       ("internvl2_serve", phase_internvl2_serve)):
+        out[key] = phase(device, launches, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def moe_vlm_only(device, card: str) -> int:
+    """``--moe-vlm``: phase 14 and phases 24-26 alone. Its last line says
+    that it is this run, not the full one."""
+    import torch
+    kernels = phase_serve_kernels(device)
+    launches: dict = {}
+    out = moe_vlm_phases(device, launches, card)
+    log(json.dumps({"launches": launches, "serve_kernels": kernels}))
+    log(card)
+    log(json.dumps({"moe_vlm_only": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}, "phases": list(out)}))
     return 0
@@ -3450,7 +3727,8 @@ def train_families_only(device, card: str) -> int:
 # ---------------------------------------------------------------------------
 
 SERVE_EXAMPLE_ARCHS = ("yi-9b", "mamba2-370m", "zamba2-1.2b",
-                       "whisper-medium")
+                       "whisper-medium", "qwen3-moe-235b-a22b",
+                       "llama4-maverick-400b-a17b", "internvl2-76b")
 TINY_TRAIN_ARCHS = ("zamba2-1.2b", "whisper-medium")
 # every kernel but fused_maintain (the per-leaf fabric, which no example
 # takes) launches on the examples' path
@@ -3707,6 +3985,8 @@ def main(argv: list) -> int:
         return train_families_only(device, card)
     if "--examples" in argv:
         return examples_only(device, card)
+    if "--moe-vlm" in argv:
+        return moe_vlm_only(device, card)
     gen = torch.Generator(device=device).manual_seed(SEED)
     shapes = qwen2_1_5b_shapes()
     a_tree = _map_shapes(shapes, lambda s: torch.randn(
@@ -3804,6 +4084,9 @@ def main(argv: list) -> int:
     families = family_phases(device, launches, card)
     train_families = train_family_phases(device, launches)
     examples = phase_examples(device, launches)
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_vlm = moe_vlm_phases(device, launches, card)
     log(json.dumps({"launches": launches}))
     old = ("block_dist", "scatter_save", "masked_restore")
     new = ("arena_maintain", "arena_scatter", "parity_xor")
@@ -3818,6 +4101,9 @@ def main(argv: list) -> int:
                         ("qwen2_serve", ("sw_attention",)),
                         ("zamba2_serve", old + ("ssd_intra", "sw_attention")),
                         ("whisper_serve", old + ("sw_attention",)),
+                        ("qwen3_moe_serve", old + ("sw_attention",)),
+                        ("llama4_serve", ("sw_attention",)),
+                        ("internvl2_serve", old + ("sw_attention",)),
                         ("train", TRAIN_KERNELS),
                         ("zamba2_train", TRAIN_KERNELS),
                         ("whisper_train", TRAIN_KERNELS),
@@ -3874,12 +4160,18 @@ def main(argv: list) -> int:
                            launches["zamba2_train"][name],
                        "whisper_train_launches":
                            launches["whisper_train"][name],
-                       "examples_launches": launches["examples"][name]})
+                       "examples_launches": launches["examples"][name],
+                       "qwen3_moe_launches":
+                           launches["qwen3_moe_serve"][name],
+                       "llama4_launches": launches["llama4_serve"][name],
+                       "internvl2_launches":
+                           launches["internvl2_serve"][name]})
     log(json.dumps({"controller": ctl, "fabric": fabric,
                     "rs_fabric": rs_fabric, "leaf_fabric": leaf_fabric,
                     "multi_erasure": multi, "mamba2_serve": mamba2,
                     "qwen2_serve": qwen2, "train": train, "store": store,
                     **families, **train_families, "examples": examples,
+                    **moe_vlm,
                     "serve_kernels": {
                         name: kernels[name]
                         for name in ("ssd_intra", "sw_attention")},

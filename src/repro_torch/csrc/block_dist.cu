@@ -27,15 +27,20 @@
 // array, in one launch of each pass:
 //   geom[4 l .. 4 l + 3]  item_start, chunks per block (cpb), block_elems
 //                         and numel of leaf l;
-//   ptrs[2 l], [2 l + 1]  the a and b base addresses of leaf l (f32,
-//                         contiguous), the one column that changes with
-//                         the tensors;
+//   ptrs[2 l], [2 l + 1]  the a and b base addresses of leaf l (f32, or
+//                         bf16 with bit 0 set in both, contiguous), the
+//                         one column that changes with the tensors;
 //   item_leaf[g]          the leaf of work item g.
 // Item g of leaf l is chunk c of block k, g - item_start = k * cpb + c, and
 // reads elements [k * block_elems + c * kChunk, min(+ kChunk, (k + 1) *
 // block_elems, numel)) of the leaf in place: the padding rows of the
 // per-leaf view would add 0, so none is made. Whether an item takes 16-byte
-// loads is read on the card from its leaf's bases and pitch. Pass 2 is one
+// loads (8-byte for bf16: four values either way) is read on the card from
+// its leaf's bases and pitch. A bf16 leaf pair is read in place and widened
+// exactly (its 16 bits are the high half of the f32), each thread taking
+// the same elements in the same order as from an f32 copy, so the scores
+// are those of the copy, without the copy: a served bf16 tree of 22 GB
+// would otherwise stage 90 GB of f32 copies (both trees, 4 bytes a value). Pass 2 is one
 // warp per global block j: segs[2 s], segs[2 s + 1] (first partial, count),
 // s in [seg_start[j], seg_start[j + 1]), one segment per leaf that holds
 // block j, in leaf order. Each segment is summed as block_dist_finish sums
@@ -50,7 +55,17 @@ constexpr int kThreads = 256;
 constexpr int64_t kChunk = 8192;   // elements per pass-1 CTA (multiple of 4)
 constexpr int kVecLoads = kChunk / 4 / kThreads;   // float4s a thread reads per input
 
+constexpr uint64_t kBf16Flag = 1;  // bit 0 of a pointer: the leaf is bf16
+
 __device__ __forceinline__ int64_t imin(int64_t x, int64_t y) { return x < y ? x : y; }
+
+// bf16 to f32, exact: the low and high bf16 of a little-endian 32-bit word,
+// and one value read alone.
+__device__ __forceinline__ float bf16_lo(uint32_t w) { return __uint_as_float(w << 16); }
+__device__ __forceinline__ float bf16_hi(uint32_t w) { return __uint_as_float(w & 0xffff0000u); }
+__device__ __forceinline__ float bf16_at(const uint16_t* p, int64_t i) {
+  return __uint_as_float(static_cast<uint32_t>(__ldg(p + i)) << 16);
+}
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -108,6 +123,47 @@ __device__ __forceinline__ float chunk_sq_dist(const float* __restrict__ a,
   return acc;
 }
 
+// chunk_sq_dist on bf16 inputs: the same elements on each thread in the same
+// order, four values (8 bytes) a load where a and b are 8-byte aligned.
+__device__ __forceinline__ float chunk_sq_dist_bf16(const uint16_t* __restrict__ a,
+                                                    const uint16_t* __restrict__ b,
+                                                    int64_t lo, int64_t hi, bool vec) {
+  float acc = 0.f;
+  if (!vec) {
+    for (int64_t i = lo + threadIdx.x; i < hi; i += kThreads) {
+      const float d = bf16_at(a, i) - bf16_at(b, i);
+      acc = fmaf(d, d, acc);
+    }
+    return acc;
+  }
+  const uint2* a4 = reinterpret_cast<const uint2*>(a);
+  const uint2* b4 = reinterpret_cast<const uint2*>(b);
+  const int64_t q_lo = lo / 4, q_hi = hi / 4;
+  auto fold4 = [&acc](uint2 x, uint2 y) {
+    float d = bf16_lo(x.x) - bf16_lo(y.x); acc = fmaf(d, d, acc);
+    d = bf16_hi(x.x) - bf16_hi(y.x); acc = fmaf(d, d, acc);
+    d = bf16_lo(x.y) - bf16_lo(y.y); acc = fmaf(d, d, acc);
+    d = bf16_hi(x.y) - bf16_hi(y.y); acc = fmaf(d, d, acc);
+  };
+  if (q_hi - q_lo == kChunk / 4) {
+    uint2 x[kVecLoads], y[kVecLoads];
+#pragma unroll
+    for (int u = 0; u < kVecLoads; ++u) {
+      x[u] = __ldg(a4 + q_lo + threadIdx.x + u * kThreads);
+      y[u] = __ldg(b4 + q_lo + threadIdx.x + u * kThreads);
+    }
+#pragma unroll
+    for (int u = 0; u < kVecLoads; ++u) fold4(x[u], y[u]);
+  } else {
+    for (int64_t i = q_lo + threadIdx.x; i < q_hi; i += kThreads) fold4(__ldg(a4 + i), __ldg(b4 + i));
+  }
+  for (int64_t i = 4 * q_hi + threadIdx.x; i < hi; i += kThreads) {
+    const float d = bf16_at(a, i) - bf16_at(b, i);
+    acc = fmaf(d, d, acc);
+  }
+  return acc;
+}
+
 // The CTA's sum of every thread's acc, on thread 0, in a fixed order.
 __device__ __forceinline__ float cta_sum(float acc) {
   __shared__ float warp_part[kThreads / 32];
@@ -155,11 +211,17 @@ block_dist_tree_partials(const int64_t* __restrict__ geom,
   const int64_t block_lo = k * block_elems;
   const int64_t lo = block_lo + (local - k * cpb) * kChunk;
   const int64_t hi = imin(imin(lo + kChunk, block_lo + block_elems), numel);
-  const bool vec = ((pa | pb) & 15) == 0 && block_elems % 4 == 0;
-  const float acc = lo < hi ? chunk_sq_dist(reinterpret_cast<const float*>(pa),
-                                            reinterpret_cast<const float*>(pb),
-                                            lo, hi, vec)
-                            : 0.f;
+  float acc = 0.f;
+  if (lo < hi && (pa & kBf16Flag)) {
+    const uint64_t a = pa & ~kBf16Flag, b = pb & ~kBf16Flag;
+    acc = chunk_sq_dist_bf16(reinterpret_cast<const uint16_t*>(a),
+                             reinterpret_cast<const uint16_t*>(b), lo, hi,
+                             ((a | b) & 7) == 0 && block_elems % 4 == 0);
+  } else if (lo < hi) {
+    acc = chunk_sq_dist(reinterpret_cast<const float*>(pa),
+                        reinterpret_cast<const float*>(pb), lo, hi,
+                        ((pa | pb) & 15) == 0 && block_elems % 4 == 0);
+  }
   const float s = cta_sum(acc);
   if (threadIdx.x == 0) partials[g] = s;
 }

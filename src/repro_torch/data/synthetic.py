@@ -68,9 +68,10 @@ def image_batch(rng: np.random.Generator, n: int = 512, size: int = 28,
 def lm_batch(generator: torch.Generator, cfg, batch: int, seq: int,
              device: DeviceLike = None) -> dict:
     """Random LM batch: int32 ``tokens`` and ``labels`` of (batch, seq) in
-    [0, cfg.vocab), and for the audio family standard-normal ``frames`` of
-    (batch, cfg.enc_seq, cfg.d_model) in the config's dtype (bfloat16 or
-    float32), drawn with ``generator`` on its device and placed on
+    [0, cfg.vocab), and standard-normal ``patches`` of (batch,
+    cfg.n_patches, cfg.vit_dim) for the vlm family or ``frames`` of
+    (batch, cfg.enc_seq, cfg.d_model) for the audio family, in the config's
+    dtype (bfloat16 or float32), drawn with ``generator`` on its device and placed on
     ``device`` (``cuda`` unless asked otherwise). The draws differ from the
     reference's ``jax.random`` ones; tests hand both packages the same
     numpy inputs instead."""
@@ -80,9 +81,12 @@ def lm_batch(generator: torch.Generator, cfg, batch: int, seq: int,
         out[key] = torch.randint(0, cfg.vocab, (batch, seq),
                                  generator=generator, device=generator.device,
                                  dtype=torch.int32).to(dev)
-    if cfg.family == "audio":
+    extra = {"vlm": ("patches", (batch, cfg.n_patches, cfg.vit_dim)),
+             "audio": ("frames", (batch, cfg.enc_seq, cfg.d_model))}
+    if cfg.family in extra:
+        key, shape = extra[cfg.family]
         dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
-        out["frames"] = torch.randn(
-            (batch, cfg.enc_seq, cfg.d_model), generator=generator,
-            device=generator.device, dtype=torch.float32).to(dev, dtype)
+        out[key] = torch.randn(shape, generator=generator,
+                               device=generator.device,
+                               dtype=torch.float32).to(dev, dtype)
     return out

@@ -6,10 +6,11 @@ on the serving replica (a host dropping out of the inference pod) and
 restores the lost blocks from the running checkpoint: generation goes on
 without reloading the whole model, and its tokens are unchanged.
 
-``--arch`` takes every family the port serves: dense (the default
-``yi-9b``), ssm (``mamba2-370m``), hybrid (``zamba2-1.2b``) and audio
-(``whisper-medium``, whose batches carry frame embeddings). The MoE and
-VLM configurations raise ``NotImplementedError`` naming ROADMAP item 19.
+``--arch`` takes every configuration: dense (the default ``yi-9b``),
+MoE (``qwen3-moe-235b-a22b``; ``llama4-maverick-400b-a17b``, dense and
+MoE layers interleaved), VLM (``internvl2-76b``, whose batches carry patch
+embeddings), ssm (``mamba2-370m``), hybrid (``zamba2-1.2b``) and audio
+(``whisper-medium``, whose batches carry frame embeddings).
 
 Run:  PYTHONPATH=src python -m repro_torch.examples.serve_with_recovery \\
           [--arch yi-9b] [--batch 4] [--prompt-len 32] [--new-tokens 8] \\

@@ -18,7 +18,8 @@ Run:  PYTHONPATH=src python -m repro_torch.examples.train_lm_with_failures \\
 ``--arch`` takes a config of any family the trainer trains: dense (the
 default ``qwen2-1.5b``), ssm (``mamba2-370m``), hybrid (``zamba2-1.2b``)
 and audio (``whisper-medium``, its batches carrying frame embeddings).
-``--tiny`` trains the reduced config for at most 20 steps; without it the
+The MoE and VLM configurations, which the port serves, raise
+``NotImplementedError`` naming ROADMAP item 31. ``--tiny`` trains the reduced config for at most 20 steps; without it the
 reduced config is scaled to about 100 M parameters. The store goes to a
 temporary directory, removed at the end.
 """

@@ -53,8 +53,9 @@ def block_dist_tree_cuda(a_leaves: list, b_leaves: list,
     order, the leaf shapes of ``table``'s partition) -> (total_blocks,) f32;
     colocated leaves accumulate into their shared blocks.
 
-    Leaves are read in place; a leaf that is not contiguous f32 is read
-    from a contiguous f32 copy (the per-leaf route's ``.to(float32)``).
+    Leaves are read in place, contiguous f32 ones and pairs of contiguous
+    bf16 ones (widened on the card); any other leaf is read from a
+    contiguous f32 copy (the per-leaf route's ``.to(float32)``).
     The leaves' base addresses go to the card only when they differ from
     the last call's on this device."""
     if table.chunk != BLOCK_DIST_CHUNK:

@@ -37,6 +37,7 @@ if TYPE_CHECKING:   # core.blocks imports the block_dist ops, and so this
     from repro_torch.core.blocks import BlockPartition
 
 BLOCK_DIST_CHUNK = 8192                    # elements per pass-1 CTA
+BF16_FLAG = 1                              # block_dist.cu's kBf16Flag
 COPY_CHUNK_BYTES = _build.COPY_CHUNK_BYTES  # bytes per byte-copy CTA
 MAX_ITEMS = 2**31 - 1                      # gridDim.x
 
@@ -234,21 +235,29 @@ def _block_dist_table(partition: BlockPartition,
 def dist_pointers(a_leaves: list, b_leaves: list,
                   table: BlockDistTable) -> tuple[list, list]:
     """The pointer column of one call: the a and b base addresses of each
-    leaf, in leaf order, and the f32 copies made for leaves that are not
-    contiguous f32 (the per-leaf route's ``.to(float32)``), which must stay
-    alive until the launch is queued. Every leaf must lie on the first
-    one's device and hold its leaf's number of values."""
+    leaf, in leaf order, and the f32 copies made for leaves that are
+    neither contiguous f32 nor a pair of contiguous bf16 leaves (the
+    per-leaf route's ``.to(float32)``), which must stay alive until the
+    launch is queued. A bf16 pair is read in place: both addresses carry
+    ``BF16_FLAG`` (bit 0, free in a 2-byte aligned address). Every leaf
+    must lie on the first one's device and hold its leaf's number of
+    values."""
     if len(a_leaves) != table.n_leaves or len(b_leaves) != table.n_leaves:
         raise ValueError(f"need {table.n_leaves} leaves per tree, got "
                          f"{len(a_leaves)} and {len(b_leaves)}")
     dev = a_leaves[0].get_device()
     ptrs, keep = [], []
     for x, y, n in zip(a_leaves, b_leaves, table.numel):
+        bf16 = all(t.dtype == torch.bfloat16 and t.is_contiguous()
+                   for t in (x, y))
         for t in (x, y):
             if t.get_device() != dev or t.numel() != n:
                 raise ValueError(f"a leaf of {t.numel()} values on "
                                  f"{t.device}; need {n} on "
                                  f"{a_leaves[0].device}")
+            if bf16:
+                ptrs.append(t.data_ptr() | BF16_FLAG)
+                continue
             if t.dtype != torch.float32 or not t.is_contiguous():
                 t = t.to(torch.float32).contiguous()
                 keep.append(t)

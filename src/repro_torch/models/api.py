@@ -11,11 +11,13 @@
   the params, which the trainer's per-layer leaves split
   (``layers.split_layers``)
 
-The port serves the ``ssm``, ``hybrid`` and ``audio`` (encoder-decoder)
-families and the ``dense`` family without MoE. The families and options it
-leaves out raise ``NotImplementedError`` naming their ROADMAP item. The
-cache geometry (ring vs linear) is decided by ``serve_cache_len``, as in
-the reference.
+The port serves every family: ``dense``, ``moe`` (every layer MoE, or
+dense and MoE layers interleaved), ``vlm`` (a patch prefix), ``ssm``,
+``hybrid`` and ``audio`` (encoder-decoder), and trains all but ``moe``
+and ``vlm`` (their ``train_loss`` raises naming ROADMAP item 31). The
+options it leaves out, the int8 KV cache and the triangle prefill, raise
+``NotImplementedError`` naming item 20. The cache geometry (ring vs
+linear) is decided by ``serve_cache_len``, as in the reference.
 """
 from __future__ import annotations
 
@@ -24,13 +26,6 @@ from typing import Callable
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import encdec, hybrid, ssm, transformer
-
-# ROADMAP items of what this port does not serve yet
-_NOT_PORTED = {
-    "moe": "MoE layers, interleaved or not (ROADMAP item 19)",
-    "vlm": "the VLM prefix (ROADMAP item 19)",
-}
-
 
 @dataclasses.dataclass(frozen=True)
 class ModelOps:
@@ -41,9 +36,10 @@ class ModelOps:
     decode_step: Callable         # (params, state, tokens, cfg) -> (logits, state)
     supports_long_context: bool   # sub-quadratic serve path exists
     # (params key, layer count) of each subtree stacked over its layers:
-    # ``layers`` (dense, ssm and the hybrid's Mamba2 backbone; the
-    # hybrid's ``shared`` block is one unstacked layer), ``enc_layers`` and
-    # ``dec_layers`` (the encoder-decoder)
+    # ``layers`` (dense, MoE, VLM, ssm and the hybrid's Mamba2 backbone;
+    # an interleaved model's stacks its ``n_layers // 2`` dense + MoE
+    # pairs; the hybrid's ``shared`` block is one unstacked layer),
+    # ``enc_layers`` and ``dec_layers`` (the encoder-decoder)
     stacked_layers: tuple = ()
 
 
@@ -61,6 +57,8 @@ def _transformer_ops(cfg: ModelConfig) -> ModelOps:
 
     def prefill(params, batch, cfg, *, slack: int = 64):
         S = batch["tokens"].shape[1]
+        if cfg.family == "vlm" and "patches" in batch:
+            S += cfg.n_patches          # the image prefix takes cache slots
         # slack: empty slots for tokens generated after the prefill
         spec = transformer.cache_spec(cfg, S + slack, use_window=False)
         return transformer.prefill(params, batch, cfg, spec)
@@ -80,7 +78,8 @@ def _transformer_ops(cfg: ModelConfig) -> ModelOps:
         prefill=prefill,
         decode_step=decode_step,
         supports_long_context=bool(cfg.sliding_window),
-        stacked_layers=(("layers", cfg.n_layers),),
+        stacked_layers=(("layers", cfg.n_layers // 2
+                         if transformer.interleaved(cfg) else cfg.n_layers),),
     )
 
 
@@ -125,13 +124,7 @@ def _encdec_ops(cfg: ModelConfig) -> ModelOps:
 
 
 def get_model(cfg: ModelConfig) -> ModelOps:
-    if cfg.family in _NOT_PORTED:
-        raise NotImplementedError(f"{cfg.name}: {_NOT_PORTED[cfg.family]} "
-                                  f"is not ported yet")
-    if cfg.family == "dense":
-        if cfg.n_experts:
-            raise NotImplementedError(f"{cfg.name}: {_NOT_PORTED['moe']} is "
-                                      f"not ported yet")
+    if cfg.family in ("dense", "moe", "vlm"):
         if cfg.kv_quant:
             raise NotImplementedError(f"{cfg.name}: the int8 KV cache is not "
                                       f"ported yet (ROADMAP item 20)")

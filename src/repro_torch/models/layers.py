@@ -16,9 +16,13 @@ CPU, and on the card prefill goes through the ``sw_attention`` kernel
 (``repro_torch.models.transformer``). ``lm_loss_chunked`` recomputes each
 chunk's logits in backward (``torch.utils.checkpoint``).
 
-Left out, for the perf variants and the other families: MoE, the int8 KV
-cache and the triangle prefill. The mesh (item 15) is not here: the
-single-device port takes no ``ctx``.
+The MoE block (``init_moe``, ``_moe_body``, ``moe_block``) is the
+reference's single-device branch: token-choice top-k routing, a
+top-capacity token gather per expert, the expert products as batched
+matmuls, a combine in expert order. Left out, for the perf variants: the
+int8 KV cache and the triangle prefill (item 20). The mesh (item 15) is
+not here: the single-device port takes no ``ctx``, and ``moe_block``
+raises for a ``mesh``.
 """
 from __future__ import annotations
 
@@ -35,6 +39,9 @@ from repro_torch.utils.tree import tree_flatten, tree_map, tree_unflatten
 PyTree = Any
 
 NEG_INF = -1e30
+# dense_init draws a leaf of more values than this in slices of DRAW_SLICE
+DRAW_SLICE_ABOVE = 1 << 31
+DRAW_SLICE = 1 << 28
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -52,10 +59,23 @@ def dense_init(gen: torch.Generator, shape, in_axis_size: Optional[int] = None,
     then cast; ``fan_in`` is ``shape[0]`` unless given."""
     fan_in = in_axis_size if in_axis_size is not None else shape[0]
     scale = 1.0 / math.sqrt(max(fan_in, 1))
-    w = torch.randn(tuple(shape), generator=gen, device=gen.device,
-                    dtype=torch.float32) * scale
-    return w.to(device=device if device is not None else gen.device,
-                dtype=dtype)
+    dev = device if device is not None else gen.device
+    n = math.prod(shape)
+    if n <= DRAW_SLICE_ABOVE:
+        w = torch.randn(tuple(shape), generator=gen, device=gen.device,
+                        dtype=torch.float32).mul_(scale)
+        return w.to(device=dev, dtype=dtype)
+    # a leaf past DRAW_SLICE_ABOVE values (the MoE expert stacks at full
+    # width: llama4-maverick's are 5.4 G values) is drawn DRAW_SLICE values
+    # at a time, so its f32 transient is one slice, not 4 bytes a value
+    out = torch.empty(tuple(shape), dtype=dtype, device=dev)
+    flat = out.view(-1)
+    for lo in range(0, n, DRAW_SLICE):
+        hi = min(lo + DRAW_SLICE, n)
+        flat[lo:hi] = torch.randn((hi - lo,), generator=gen,
+                                  device=gen.device,
+                                  dtype=torch.float32).mul_(scale)
+    return out
 
 
 def unstack_layers(layers: PyTree, n: int) -> list:
@@ -443,6 +463,110 @@ def mlp_block(x, p):
     h = F.silu(torch.einsum("bsd,df->bsf", x, p["w_gate"])) \
         * torch.einsum("bsd,df->bsf", x, p["w_up"])
     return torch.einsum("bsf,fd->bsd", h, p["w_down"])
+
+
+# ---------------------------------------------------------------------------
+# Mixture of Experts (one device: every expert local)
+# ---------------------------------------------------------------------------
+
+def init_moe(gen: torch.Generator, cfg: ModelConfig, dtype, device=None,
+             layers: tuple = ()) -> PyTree:
+    """The router (f32 in every model dtype), the experts' stacked SwiGLU
+    weights ``(E, D, F)``/``(E, F, D)`` and, when ``cfg.shared_expert``, a
+    ``shared`` MLP of ``d_ff``."""
+    D, F_, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+    L = tuple(layers)
+    p = {
+        "router": dense_init(gen, L + (D, E), D, torch.float32, device),
+        "w_gate_experts": dense_init(gen, L + (E, D, F_), D, dtype, device),
+        "w_up_experts": dense_init(gen, L + (E, D, F_), D, dtype, device),
+        "w_down_experts": dense_init(gen, L + (E, F_, D), F_, dtype, device),
+    }
+    if cfg.shared_expert:
+        p["shared"] = init_mlp(gen, D, F_, dtype, device, L)
+    return p
+
+
+def top_k(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The ``k`` largest entries of each row of ``x`` and their indices,
+    largest first and, among equal values, the lower index first (the
+    order of ``jax.lax.top_k``; ``torch.topk`` gives ties in no set order
+    on CUDA). A stable descending sort of the whole row."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def moe_capacity(n: int, cfg: ModelConfig) -> int:
+    """Tokens each expert takes of ``n``: ``ceil(n k / E x
+    capacity_factor)``, at least 1 and at most ``n`` (a decode step of B
+    tokens at top-8 of 128 experts gives every expert one)."""
+    c = max(1, int(math.ceil(n * cfg.top_k / cfg.n_experts
+                             * cfg.capacity_factor)))
+    return min(c, n)
+
+
+def _moe_body(x, router, wg, wu, wd, *, cfg: ModelConfig, capacity: int):
+    """Token-choice top-k routing, per-expert top-``capacity`` gather.
+
+    x: (N, D) tokens; wg/wu/wd: (E, ...) expert weights. Returns (out (N,
+    D) f32, lb_loss, z_loss). Each expert takes the ``capacity`` tokens of
+    largest combine weight (ties: the lower token first, so the same tokens
+    are dropped as in the reference); its products run in the model dtype
+    as batched matmuls. The combine gathers each token's ``top_k`` expert
+    rows and adds them in expert order, 0 for a dropped one: no atomics,
+    the same bits on every run (an ``index_add_`` on CUDA adds in no fixed
+    order). A token that an expert took with weight 0 adds 0, as in the
+    reference's scatter-add.
+    """
+    N, D = x.shape
+    E, k = cfg.n_experts, cfg.top_k
+    logits = x.to(torch.float32) @ router                 # (N, E)
+    probs = torch.softmax(logits, dim=-1)
+    gate_vals, sel = top_k(probs, k)                       # (N, k)
+    gate_vals = gate_vals / torch.sum(gate_vals, dim=-1, keepdim=True)
+    w_full = torch.zeros((N, E), dtype=torch.float32, device=x.device)
+    w_full.scatter_(1, sel, gate_vals)
+    vals, idx = top_k(w_full.t(), capacity)                # (E, C)
+    xe = x[idx]                                            # (E, C, D)
+    h = F.silu(torch.bmm(xe, wg)) * torch.bmm(xe, wu)
+    he = torch.bmm(h, wd).to(torch.float32) * vals[..., None]
+    # each routed (token, expert)'s row in he, or -1 where it was dropped
+    slot = torch.full((E, N), -1, dtype=torch.int64, device=x.device)
+    slot.scatter_(1, idx, torch.arange(capacity, device=x.device)
+                  .expand(E, capacity).contiguous())
+    sel, _ = torch.sort(sel, dim=-1)                       # expert order
+    pos = torch.gather(slot, 0, sel.t()).t()               # (N, k)
+    rows = he.reshape(E * capacity, D)
+    out = torch.zeros((N, D), dtype=torch.float32, device=x.device)
+    for j in range(k):
+        got = pos[:, j] >= 0
+        r = rows[(sel[:, j] * capacity + pos[:, j]).clamp_min(0)]
+        out = out + torch.where(got[:, None], r, 0.0)
+    # router aux losses (load balance + z-loss), as the reference's
+    me = torch.mean(probs, dim=0)
+    ce = torch.mean((w_full > 0).to(torch.float32), dim=0)
+    lb_loss = E * torch.sum(me * ce)
+    z_loss = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
+    return out, lb_loss, z_loss
+
+
+def moe_block(x, p, cfg: ModelConfig, *, mesh=None):
+    """x: (B, S, D) -> ((B, S, D) in x's dtype, (lb_loss, z_loss)): every
+    expert on this device, the shared expert added when the config has
+    one. Expert parallelism over a mesh is not ported."""
+    if mesh is not None:
+        raise NotImplementedError("expert parallelism over a mesh is not "
+                                  "ported yet (ROADMAP item 15)")
+    B, S, D = x.shape
+    n = B * S
+    out, lb, zl = _moe_body(x.reshape(n, D), p["router"],
+                            p["w_gate_experts"], p["w_up_experts"],
+                            p["w_down_experts"], cfg=cfg,
+                            capacity=moe_capacity(n, cfg))
+    out = out.reshape(B, S, D).to(x.dtype)
+    if cfg.shared_expert:
+        out = out + mlp_block(x, p["shared"])
+    return out, (lb, zl)
 
 
 # ---------------------------------------------------------------------------

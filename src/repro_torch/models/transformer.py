@@ -1,4 +1,4 @@
-"""Decoder-only transformer LM, dense family, serve path.
+"""Decoder-only transformer LM: the dense, MoE and VLM families.
 
 The port of ``repro.models.transformer`` for one device: prefill and
 single-token decode with a KV cache, linear for full-attention decode or a
@@ -21,9 +21,16 @@ asks for a band, each layer recomputed in backward when ``cfg.remat``, and
 the chunked LM loss.
 
 Layers are stacked along a leading ``n_layers`` dim, as in the reference,
-and walked by a Python loop. Left out: MoE, interleaved MoE, the VLM
-prefix, the int8 KV cache and the triangle prefill (``models.api`` names
-their ROADMAP items) and the mesh (item 15). ``decode_step`` writes the
+and walked by a Python loop. An MoE layer (qwen3-moe) replaces the MLP by
+``layers.moe_block``; an interleaved model (llama4-maverick,
+``moe_every=2``) stacks ``layers = {"dense": ..., "moe": ...}`` over its
+``n_layers // 2`` pairs and walks each pair dense then MoE, its cache
+stacking ``[dense_i, moe_i]`` (cache layer ``2 i`` is pair ``i``'s dense
+layer); a VLM (internvl2) projects the batch's ``patches`` and prepends
+them to the token embeddings, so its prompt is ``S + n_patches`` long.
+The MoE and VLM families serve only: their ``train_loss`` is ROADMAP item
+31. Left out: the int8 KV cache and the triangle prefill (item 20,
+``models.api`` raises) and the mesh (item 15). ``decode_step`` writes the
 new token's K/V into the cache in place.
 """
 from __future__ import annotations
@@ -45,30 +52,87 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
     return L.torch_dtype(cfg.dtype)
 
 
+def interleaved(cfg: ModelConfig) -> bool:
+    """llama4-style: dense and MoE layers alternate (``moe_every=2``)."""
+    return bool(cfg.n_experts) and cfg.moe_every > 1
+
+
 def init_layer(gen: torch.Generator, cfg: ModelConfig, device=None,
-               layers: tuple = ()) -> PyTree:
+               layers: tuple = (), *, moe: Optional[bool] = None) -> PyTree:
+    """One layer's weights, each leaf stacked over ``layers``: an MoE block
+    where ``moe`` (default: the config has experts), else an MLP of
+    ``d_ff_dense`` (an interleaved model's dense layers) or ``d_ff``."""
     dt = _dtype(cfg)
     dev = device if device is not None else gen.device
     Ls = tuple(layers)
-    return {
+    use_moe = bool(cfg.n_experts) if moe is None else moe
+    p = {
         "attn_norm": torch.ones(Ls + (cfg.d_model,), dtype=dt, device=dev),
         "attn": L.init_attention(gen, cfg, dt, dev, Ls),
         "mlp_norm": torch.ones(Ls + (cfg.d_model,), dtype=dt, device=dev),
-        "mlp": L.init_mlp(gen, cfg.d_model, cfg.d_ff, dt, dev, Ls),
     }
+    if use_moe:
+        p["moe"] = L.init_moe(gen, cfg, dt, dev, Ls)
+    else:
+        p["mlp"] = L.init_mlp(gen, cfg.d_model, cfg.d_ff_dense or cfg.d_ff,
+                              dt, dev, Ls)
+    return p
 
 
 def init_params(gen: torch.Generator, cfg: ModelConfig,
                 device: DeviceLike = None) -> PyTree:
     """Random weights from ``gen`` (drawn on its device), placed on
-    ``device`` (``cuda`` unless asked otherwise), layers stacked."""
+    ``device`` (``cuda`` unless asked otherwise), layers stacked: over
+    ``n_layers``, or for an interleaved model ``{"dense", "moe"}`` each
+    over the ``n_layers // 2`` pairs. A VLM adds ``projector.proj`` of
+    ``(vit_dim, d_model)``."""
     dev = resolve_device(device)
-    return {
-        **L.init_embed(gen, cfg, _dtype(cfg), dev),
-        "layers": init_layer(gen, cfg, dev, (cfg.n_layers,)),
-        "final_norm": torch.ones((cfg.d_model,), dtype=_dtype(cfg),
-                                 device=dev),
+    dt = _dtype(cfg)
+    if interleaved(cfg):
+        n_pairs = cfg.n_layers // 2
+        layers = {"dense": init_layer(gen, cfg, dev, (n_pairs,), moe=False),
+                  "moe": init_layer(gen, cfg, dev, (n_pairs,), moe=True)}
+    else:
+        layers = init_layer(gen, cfg, dev, (cfg.n_layers,))
+    p = {
+        **L.init_embed(gen, cfg, dt, dev),
+        "layers": layers,
+        "final_norm": torch.ones((cfg.d_model,), dtype=dt, device=dev),
     }
+    if cfg.family == "vlm":
+        p["projector"] = {"proj": L.dense_init(
+            gen, (cfg.vit_dim, cfg.d_model), cfg.vit_dim, dt, dev)}
+    return p
+
+
+def layer_walk(params: PyTree, cfg: ModelConfig):
+    """Each layer's weights in the order the model runs them, with its
+    index in the cache: layer ``i``; for an interleaved model pair ``i``'s
+    dense layer at ``2 i`` and its MoE layer at ``2 i + 1``."""
+    if not interleaved(cfg):
+        for i in range(cfg.n_layers):
+            yield i, L.layer_params(params, i)
+        return
+    for i in range(cfg.n_layers // 2):
+        pair = L.layer_params(params, i)
+        yield 2 * i, pair["dense"]
+        yield 2 * i + 1, pair["moe"]
+
+
+def _ffn(x, lp, cfg: ModelConfig):
+    """The layer's MLP or MoE block on its normed input."""
+    hn = L.rms_norm(x, lp["mlp_norm"])
+    if "moe" in lp:
+        return L.moe_block(hn, lp["moe"], cfg)[0]
+    return L.mlp_block(hn, lp["mlp"])
+
+
+def check_trainable(cfg: ModelConfig) -> None:
+    """Raises for the families this port serves but does not train yet."""
+    if cfg.n_experts or cfg.family == "vlm":
+        raise NotImplementedError(
+            f"{cfg.name}: training the MoE and VLM families is not ported "
+            f"yet (ROADMAP item 31)")
 
 
 # ---------------------------------------------------------------------------
@@ -96,15 +160,24 @@ def _stack_fwd(h, params, cfg: ModelConfig, positions, *, window: int,
 
 
 def _embed_batch(params, batch, cfg: ModelConfig):
-    """Token embeddings -> (B, S, D)."""
-    return L.embed_tokens(batch["tokens"], params)
+    """Token embeddings, after a VLM's projected patch prefix when the
+    batch has ``patches`` -> (B, S_total, D)."""
+    tok = L.embed_tokens(batch["tokens"], params)
+    if cfg.family == "vlm" and "patches" in batch:
+        prefix = torch.einsum("bpv,vd->bpd",
+                              batch["patches"].to(_dtype(cfg)),
+                              params["projector"]["proj"])
+        tok = torch.cat([prefix, tok], dim=1)
+    return tok
 
 
 def train_loss(params, batch, cfg: ModelConfig, *,
                window_override: Optional[int] = None) -> torch.Tensor:
     """Mean next-token cross-entropy of ``batch`` (``tokens``, ``labels``
     and an optional ``mask``), f32. Full causal attention unless
-    ``window_override`` gives a band."""
+    ``window_override`` gives a band. The MoE and VLM families raise
+    (ROADMAP item 31)."""
+    check_trainable(cfg)
     h = _embed_batch(params, batch, cfg)
     S = h.shape[1]
     positions = torch.arange(S, dtype=torch.int32, device=h.device)
@@ -174,8 +247,7 @@ def decode_step(params, cache, tokens, cfg: ModelConfig, spec: CacheSpec):
     kpos[slot] = pos
     window = cfg.sliding_window if spec.ring else 0
     kv_chunk = min(cfg.attn_chunk, spec.cache_len)
-    for i in range(cfg.n_layers):
-        lp = L.layer_params(params, i)
+    for i, lp in layer_walk(params, cfg):
         kc, vc = cache["k"][i], cache["v"][i]
         xn = L.rms_norm(x, lp["attn_norm"])
         q, k, v = L.qkv_project(xn, lp["attn"], cfg, positions)
@@ -184,7 +256,7 @@ def decode_step(params, cache, tokens, cfg: ModelConfig, spec: CacheSpec):
         o = L.flash_attention(q, kc, vc, positions, kpos, causal=True,
                               window=window, q_chunk=1, kv_chunk=kv_chunk)
         x = x + torch.einsum("bshk,hkd->bsd", o, lp["attn"]["wo"])
-        x = x + L.mlp_block(L.rms_norm(x, lp["mlp_norm"]), lp["mlp"])
+        x = x + _ffn(x, lp, cfg)
     h = L.rms_norm(x, params["final_norm"])
     logits = L.lm_logits(h, params)
     cache["pos"] = cache["pos"] + 1
@@ -192,9 +264,9 @@ def decode_step(params, cache, tokens, cfg: ModelConfig, spec: CacheSpec):
 
 
 def prefill(params, batch, cfg: ModelConfig, spec: CacheSpec):
-    """Prefill over a full prompt; returns (logits of the last position
-    (B, 1, V) f32, cache)."""
-    x = L.embed_tokens(batch["tokens"], params)
+    """Prefill over a full prompt (a VLM's patch prefix first); returns
+    (logits of the last position (B, 1, V) f32, cache)."""
+    x = _embed_batch(params, batch, cfg)
     B, S, _ = x.shape
     dt = _dtype(cfg)
     positions = torch.arange(S, dtype=torch.int32, device=x.device)
@@ -207,13 +279,12 @@ def prefill(params, batch, cfg: ModelConfig, spec: CacheSpec):
         # later decode writes (slot = pos % cache_len) line up
         W = spec.cache_len
         slots = torch.arange(S - W, S, device=x.device) % W
-    for i in range(cfg.n_layers):
-        lp = L.layer_params(params, i)
+    for i, lp in layer_walk(params, cfg):
         xn = L.rms_norm(x, lp["attn_norm"])
         q, k, v = L.qkv_project(xn, lp["attn"], cfg, positions)
         o = prefill_attention(q, k, v, positions, cfg, window)
         x = x + torch.einsum("bshk,hkd->bsd", o, lp["attn"]["wo"])
-        x = x + L.mlp_block(L.rms_norm(x, lp["mlp_norm"]), lp["mlp"])
+        x = x + _ffn(x, lp, cfg)
         if spec.ring:
             ks[i][:, slots] = k[:, -W:].to(dt)
             vs[i][:, slots] = v[:, -W:].to(dt)

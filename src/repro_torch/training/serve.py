@@ -4,8 +4,10 @@ The port of ``repro.training.serve.Server`` for one device. The decode
 loop is host-driven, one ``decode_step`` per token, and the cache stays on
 the device across steps. PyTorch runs eagerly, so nothing is jitted; on
 the card the prefill runs the family's CUDA kernels (``ssd_intra`` for the
-SSM family, ``sw_attention`` for the dense one, both for the hybrid,
-``sw_attention`` in the encoder-decoder's decoder).
+SSM family, ``sw_attention`` for the dense, MoE and VLM ones, both for the
+hybrid, ``sw_attention`` in the encoder-decoder's decoder). Every key of
+the batch reaches the prefill: a VLM's ``patches`` (its decode positions
+then go on from ``S + n_patches``), an encoder-decoder's ``frames``.
 """
 from __future__ import annotations
 
@@ -49,7 +51,8 @@ class Server:
         reference's ``jax.random.categorical`` ones.
         """
         cfg, params = self.cfg, self.params
-        # every key of the batch (an encoder-decoder's ``frames`` too)
+        # every key of the batch (a VLM's ``patches``, an encoder-decoder's
+        # ``frames``)
         logits, cache = self.ops.prefill(
             params, {k: v.to(self.device) for k, v in batch.items()}, cfg)
         out = [self._pick(logits, 0.0, None)]

@@ -34,9 +34,10 @@ single device: the port of ``repro.training.train_loop``.
   maintain, at a save, a recovery, a heal or a scrub, and at the end of
   ``run``.
 
-It trains every family the port serves: dense, ssm, hybrid (a Mamba2
-backbone and one shared attention block) and audio (the encoder-decoder,
-its batches carrying ``frames``). The reference's ``DistContext`` is
+It trains the dense, ssm, hybrid (a Mamba2 backbone and one shared
+attention block) and audio (the encoder-decoder, its batches carrying
+``frames``) families; the MoE and VLM families, which the port serves,
+raise ``NotImplementedError`` naming ROADMAP item 31. The reference's ``DistContext`` is
 replaced by an explicit ``device`` (``cuda`` unless asked otherwise; the
 trainer raises where no CUDA device is present rather than moving to the
 CPU). Not ported yet, and raising ``NotImplementedError`` with its ROADMAP
@@ -57,6 +58,7 @@ from repro_torch.core.controller import FTController
 from repro_torch.core.policy import CheckpointPolicy
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import get_model
+from repro_torch.models.transformer import check_trainable
 from repro_torch.optim.optimizers import Optimizer, adamw
 from repro_torch.telemetry.recorder import NULL_RECORDER, Histogram
 from repro_torch.training.step import make_arena_train_step, make_train_step
@@ -138,6 +140,7 @@ class TrainLoop:
                  optimizer: Optional[Optimizer] = None,
                  loop_cfg: Optional[TrainLoopConfig] = None,
                  store=None, *, device: DeviceLike = None):
+        check_trainable(cfg)
         self.cfg = cfg
         self._store = store
         self.device = resolve_device(device)

@@ -1,13 +1,15 @@
 """The ported ``examples/serve_with_recovery.py``
 (``python -m repro_torch.examples.serve_with_recovery``) against the
 reference's script, on the CPU at its default size (reduced configs, batch
-4, a 32-token prompt, 8 new tokens), for every family the port serves:
-dense (``yi-9b``, the default), ssm, hybrid and audio.
+4, a 32-token prompt, 8 new tokens), for every family: dense (``yi-9b``,
+the default), MoE (qwen3-moe; llama4-maverick, dense and MoE layers
+interleaved), VLM (internvl2, its prompts carrying patches), ssm, hybrid
+and audio.
 
 The reference's ``main()`` runs in this process and its printed tokens
 are parsed; the port's ``run`` is handed the script's own draws as numpy:
 the weights (``init_params(PRNGKey(0))``), the prompts (``lm_batch(
-PRNGKey(1))``, frames included) and the lost blocks (the reference
+PRNGKey(1))``, patches and frames included) and the lost blocks (the reference
 controller's first ``sample_failure(0.3)``). Held exactly: the tokens
 before and after the recovery, the lost blocks, a lossless restore.
 """
@@ -38,7 +40,9 @@ def _np(tree):
     return jax.tree_util.tree_map(np.asarray, tree)
 
 
-SERVE_ARCHS = ["yi-9b", "mamba2-370m", "zamba2-1.2b", "whisper-medium"]
+SERVE_ARCHS = ["yi-9b", "qwen3-moe-235b-a22b", "llama4-maverick-400b-a17b",
+               "internvl2-76b", "mamba2-370m", "zamba2-1.2b",
+               "whisper-medium"]
 
 
 @pytest.mark.parametrize("arch", SERVE_ARCHS)
@@ -67,9 +71,21 @@ def test_serve_with_recovery_against_reference(arch):
     assert got["info"]["applied_sq"] == 0.0
 
 
-def test_serve_with_recovery_names_item_19_for_moe_and_vlm():
-    for arch in ("qwen3-moe-235b-a22b", "internvl2-76b"):
+def test_serve_with_recovery_names_item_19_for_moe_and_vlm(tmp_path):
+    """ROADMAP item 19 is in: the example serves the MoE and VLM
+    configurations from its own seeded draws, identical tokens after the
+    lossless recovery; training them is item 31, and the training example
+    says so."""
+    from repro_torch.examples import train_lm_with_failures
+    for arch in ("qwen3-moe-235b-a22b", "llama4-maverick-400b-a17b",
+                 "internvl2-76b"):
         args = serve_with_recovery.parse_args(["--arch", arch,
                                                "--device", "cpu"])
-        with pytest.raises(NotImplementedError, match="item 19"):
-            serve_with_recovery.run(args, verbose=False)
+        got = serve_with_recovery.run(args, verbose=False)
+        assert got["identical"] and got["tokens_before"].shape == (4, 8)
+        assert got["info"]["lost_blocks"] > 0
+        args = train_lm_with_failures.parse_args(
+            ["--tiny", "--arch", arch, "--device", "cpu"])
+        with pytest.raises(NotImplementedError, match="item 31"):
+            train_lm_with_failures.train(args, str(tmp_path / arch),
+                                         verbose=False)

@@ -9,7 +9,8 @@ kernels do, reading and writing through the addresses the tables hold
 (ctypes), and holds the result against the reference:
 
 - block_dist: one CTA per work item (256 threads, float4 or scalar reads
-  as the item's leaf allows, warp shuffles, the CTA's fixed-order sum),
+  as the item's leaf allows, a bf16 pair read in place as four values a
+  load, warp shuffles, the CTA's fixed-order sum),
   then one warp per global block summing its segments in leaf order,
   against ``repro.core.blocks.block_scores`` under l2 (rtol 1e-5);
 - scatter_save: the pair list from global ids, one item per chunk of a
@@ -147,6 +148,11 @@ def _view(ptr: int, n: int, ctype) -> np.ndarray:
     return np.ctypeslib.as_array((ctype * n).from_address(ptr))
 
 
+def _bf16_as_f32(bits: np.ndarray) -> np.ndarray:
+    """bf16 values given as their 16 bits, widened exactly to f32."""
+    return (bits.astype(np.uint32) << 16).view(np.float32)
+
+
 def test_tree_has_the_cases():
     t = np_tree(0)
     _, tp = partitions(t)
@@ -217,9 +223,16 @@ def emulate_block_dist(table: lt.BlockDistTable, ptrs: list,
         lo = k * be + (local - k * cpb) * chunk
         hi = min(lo + chunk, k * be + be, numel)
         pa, pb = ptrs[2 * l], ptrs[2 * l + 1]
-        vec = ((pa | pb) & 15) == 0 and be % 4 == 0
-        partials[g] = cta_chunk(_view(pa, numel, ctypes.c_float),
-                                _view(pb, numel, ctypes.c_float), lo, hi, vec)
+        if pa & lt.BF16_FLAG:
+            # a bf16 pair, read in place: 8-byte loads of four values
+            pa, pb = pa & ~lt.BF16_FLAG, pb & ~lt.BF16_FLAG
+            vec = ((pa | pb) & 7) == 0 and be % 4 == 0
+            xa, xb = (_bf16_as_f32(_view(p, numel, ctypes.c_uint16))
+                      for p in (pa, pb))
+        else:
+            vec = ((pa | pb) & 15) == 0 and be % 4 == 0
+            xa, xb = (_view(p, numel, ctypes.c_float) for p in (pa, pb))
+        partials[g] = cta_chunk(xa, xb, lo, hi, vec)
     out = np.zeros((table.total_blocks,), np.float32)
     for j in range(table.total_blocks):
         acc = np.float32(0)
@@ -291,11 +304,15 @@ def test_block_dist_walk_matches_reference(chunk):
     a, b = tree_leaves(port_tree(ta)), tree_leaves(port_tree(tb))
     table = lt.block_dist_table(tp, chunk)
     ptrs, keep = lt.dist_pointers(a, b, table)
-    # the f32 leaves are read in place, views included; bf16 and uint8
-    # through f32 copies
-    assert len(keep) == 4
-    assert ptrs[2 * [l.name for l in tp.leaves].index("['x']['odd']")] \
-        == a[[l.name for l in tp.leaves].index("['x']['odd']")].data_ptr()
+    # the f32 leaves are read in place, views included, and the bf16 pair
+    # too (its addresses flagged); the uint8 pair through f32 copies
+    assert len(keep) == 2
+    names = [l.name for l in tp.leaves]
+    assert ptrs[2 * names.index("['x']['odd']")] \
+        == a[names.index("['x']['odd']")].data_ptr()
+    half = names.index("['x']['half']")
+    assert ptrs[2 * half] == a[half].data_ptr() | lt.BF16_FLAG
+    assert ptrs[2 * half + 1] == b[half].data_ptr() | lt.BF16_FLAG
     got = emulate_block_dist(table, ptrs, chunk)
     np.testing.assert_allclose(got, want, rtol=1e-5)
     # the plain version the CPU route takes agrees as well

@@ -160,6 +160,42 @@ def test_block_dist_tree_cuda_matches_plain(cuda, block_rows):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("block_rows", [8, 16])
+def test_block_dist_tree_cuda_reads_bf16_in_place(cuda, block_rows):
+    """Pairs of bf16 leaves are read in place, widened on the card, with no
+    f32 copy: within rtol 1e-4 of the plain version, and where the bf16
+    pair and its f32 copies both take vector loads (aligned leaves: each
+    thread takes the same values in the same order) the same bits as the
+    call on the copies. The tree has a multi-chunk bf16 block, a ragged
+    leaf, a view 2 bytes past an aligned address (scalar loads, its fresh
+    f32 copy vector ones) and a bf16 leaf against an f32 one (that pair
+    through f32 copies)."""
+    g = torch.Generator(device=cuda).manual_seed(block_rows)
+
+    def tree():
+        odd = torch.randn((1 + 45 * 3,), generator=g, device=cuda)
+        t = {"fc": torch.randn((40, 3000), generator=g, device=cuda),
+             "ragged": torch.randn((37, 5), generator=g, device=cuda),
+             "odd": odd.to(torch.bfloat16)[1:].view(45, 3),
+             "mixed": torch.randn((20, 8), generator=g, device=cuda)}
+        return {k: v.to(torch.bfloat16) for k, v in t.items()}
+    a, b = tree(), tree()
+    b["mixed"] = b["mixed"].float()
+    assert a["odd"].data_ptr() % 8 == 2
+    part = partition_pytree(a, block_rows)
+    al, bl = tree_leaves(a), tree_leaves(b)
+    got = tree_block_dist(al, bl, part)
+    f32 = tree_block_dist([x.float() for x in al], [x.float() for x in bl],
+                          part)
+    for leaf in part.leaves:
+        if leaf.name in ("['fc']", "['ragged']"):
+            blocks = slice(leaf.offset, leaf.offset + leaf.n_blocks)
+            assert torch.equal(got[blocks], f32[blocks]), leaf.name
+    torch.testing.assert_close(got, block_dist_tree_ref(al, bl, part),
+                               rtol=1e-4, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("block_rows", [8, 16])
 def test_scatter_save_tree_cuda_matches_plain(cuda, block_rows):
     dst, src = _grouped_tree(5, cuda), _grouped_tree(6, cuda)
     part = partition_pytree(dst, block_rows, colocate=COLOCATE)

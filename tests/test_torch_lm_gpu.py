@@ -1,6 +1,7 @@
 """The LM serve path's CUDA kernels against their plain versions, and the
-served models (the SSM, dense, hybrid and encoder-decoder families, at
-their reduced configs) on the card against the same models on the CPU.
+served models (the SSM, dense, MoE, interleaved MoE, VLM, hybrid and
+encoder-decoder families, at their reduced configs) on the card against
+the same models on the CPU.
 
 Every test here is marked ``gpu`` and skips where there is no CUDA device.
 The file imports neither JAX nor the JAX package:
@@ -13,7 +14,9 @@ TF32 products each, ~2^-21); sw_attention rtol 1e-4, atol 1e-4 in f32 and
 bf16 alike (both versions read the same bf16 values; the bf16 instance's
 Q K^T products are exact in f32 and its P V splits P into two bf16 parts,
 ~2^-17 of P); the reduced models' prefill logits, card against CPU, rtol
-1e-4, atol 1e-4 (f32 throughout, TF32 off); greedy tokens equal.
+1e-4, atol 1e-4 (f32 throughout, TF32 off); greedy tokens equal; the MoE
+and VLM prefills' logits bit-identical over two runs on the card (the MoE
+combine adds in expert order, no atomics).
 """
 import numpy as np
 import pytest
@@ -105,7 +108,10 @@ def test_ssd_chunked_kernel_on_the_card_matches_the_cpu(cuda):
     (8, 6, 2048, 128, 2048),   # qwen2-1.5b's causal prefill, served
     (2, 6, 8192, 128, 4096),   # and its ring prefill
     (16, 1, 2048, 64, 2048),   # zamba2-1.2b's shared block, Dh 64, G 1
-    (16, 1, 384, 64, 384)])    # whisper-medium's decoder, ends mid-tile
+    (16, 1, 384, 64, 384),     # whisper-medium's decoder, ends mid-tile
+    (2, 16, 2048, 128, 2048),  # qwen3-moe's G 16
+    (2, 5, 2048, 128, 2048),   # llama4-maverick's G 5
+    (2, 8, 3072, 128, 3072)])  # internvl2's G 8, 1,024 patches + 2,048
 def test_sw_attention_cuda_matches_plain(cuda, dtype, BH, G, S, Dh, W):
     g = torch.Generator(device=cuda).manual_seed(S + W)
     q = torch.randn((BH, G, S, Dh), generator=g, device=cuda).to(dtype)
@@ -190,7 +196,9 @@ def _prefill_launches(cfg) -> dict:
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("name", ["mamba2-370m", "qwen2-1.5b", "zamba2-1.2b",
-                                  "whisper-medium"])
+                                  "whisper-medium", "qwen3-moe-235b-a22b",
+                                  "llama4-maverick-400b-a17b",
+                                  "internvl2-76b"])
 def test_reduced_model_on_the_card_matches_the_cpu(cuda, name):
     cfg = get_config(name, reduced=True)
     ops = get_model(cfg)
@@ -202,6 +210,9 @@ def test_reduced_model_on_the_card_matches_the_cpu(cuda, name):
     if cfg.family == "audio":
         batch["frames"] = torch.from_numpy(rng.standard_normal(
             (2, cfg.enc_seq, cfg.d_model)).astype(np.float32))
+    if cfg.family == "vlm":
+        batch["patches"] = torch.from_numpy(rng.standard_normal(
+            (2, cfg.n_patches, cfg.vit_dim)).astype(np.float32))
     logits_cpu, _ = ops.prefill(params, batch, cfg)
     gparams = tree_map(lambda x: x.to(cuda), params)
     gbatch = {k: v.to(cuda) for k, v in batch.items()}
@@ -213,6 +224,9 @@ def test_reduced_model_on_the_card_matches_the_cpu(cuda, name):
     want = Server(cfg, params, device="cpu").generate(batch, 6)
     got = Server(cfg, gparams, device=cuda).generate(batch, 6)
     assert torch.equal(got.cpu(), want)
+    if cfg.family in ("moe", "vlm"):
+        again, _ = ops.prefill(gparams, gbatch, cfg)
+        assert torch.equal(again, logits)   # the same bits on every run
 
 
 @pytest.mark.gpu

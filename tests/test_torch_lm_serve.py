@@ -230,21 +230,37 @@ def test_serve_with_recovery_flow():
 
 
 def test_unported_families_name_their_roadmap_items():
-    for name, item in (("qwen3-moe-235b-a22b", "item 19"),
-                       ("llama4-maverick-400b-a17b", "item 19"),
-                       ("internvl2-76b", "item 19")):
-        with pytest.raises(NotImplementedError, match=item):
-            get_model(get_config(name, reduced=True))
+    """Every family serves (the MoE and VLM ones since ROADMAP item 19);
+    what is not ported names its item: training the MoE and VLM families
+    (item 31), the int8 KV cache and the triangle prefill (item 20)."""
+    from repro_torch.training.train_loop import TrainLoop
+    for name in ("qwen3-moe-235b-a22b", "llama4-maverick-400b-a17b",
+                 "internvl2-76b"):
+        cfg = get_config(name, reduced=True)
+        ops = get_model(cfg)
+        assert ops.supports_long_context
+        params = ops.init_params(torch.Generator().manual_seed(0), cfg,
+                                 device="cpu")
+        batch = {"tokens": torch.from_numpy(_tokens(cfg, (1, 8), seed=6))}
+        if cfg.family == "vlm":
+            batch["patches"] = torch.zeros((1, cfg.n_patches, cfg.vit_dim))
+        toks = Server(cfg, params, device="cpu").generate(batch, 3)
+        assert toks.shape == (1, 3)
+        with pytest.raises(NotImplementedError, match="item 31"):
+            ops.train_loss(params, dict(batch, labels=batch["tokens"]), cfg)
+        with pytest.raises(NotImplementedError, match="item 31"):
+            TrainLoop(cfg, device="cpu")
     # the hybrid and encoder-decoder families (item 18) are ported
     for name, long_context in (("zamba2-1.2b", True),
                                ("whisper-medium", False)):
         ops = get_model(get_config(name, reduced=True))
         assert ops.supports_long_context is long_context
-    for option in ("kv_quant", "triangle_prefill"):
-        cfg = dataclasses.replace(get_config("yi-9b", reduced=True),
-                                  **{option: True})
-        with pytest.raises(NotImplementedError, match="item 20"):
-            get_model(cfg)
+    for name in ("yi-9b", "qwen3-moe-235b-a22b", "internvl2-76b"):
+        for option in ("kv_quant", "triangle_prefill"):
+            cfg = dataclasses.replace(get_config(name, reduced=True),
+                                      **{option: True})
+            with pytest.raises(NotImplementedError, match="item 20"):
+                get_model(cfg)
     # the LM training loss (item 10) is ported: it runs on the dense
     # family's reduced yi-9b and gives a finite scalar
     cfg = get_config("yi-9b", reduced=True)
