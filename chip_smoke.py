@@ -224,7 +224,8 @@ Phases, each of which fails the run if it fails:
     for yi-9b, mamba2-370m, zamba2-1.2b, whisper-medium, qwen3-moe-235b-a22b,
     llama4-maverick-400b-a17b and internvl2-76b (reduced), and
     train_lm_with_failures at ``--tiny`` (8 steps, ``--fail-prob 0.3``)
-    for zamba2-1.2b and whisper-medium; each held against the same call on
+    for zamba2-1.2b, whisper-medium, qwen3-moe-235b-a22b and
+    internvl2-76b; each held against the same call on
     the CPU (the LM examples from the same numpy weights and prompts): tier
     counts, fallbacks, lost blocks, tokens and the advisor's choices equal,
     iteration costs within ±1, losses and the fitted contraction within
@@ -251,6 +252,28 @@ Phases, each of which fails the run if it fails:
     patches and 2,048 tokens a prompt (3,072 positions, inside its 4,096
     window), batch 4, 16 new tokens, as phase 24 (the f32 route on every
     layer).
+27. internvl2-76b trained at full width (d 8192, GQA 64/8, d_ff 28672, the
+    projector from 3200, the untied head, bf16) with 1 of its 80 layers
+    (2,983,223,296 values as per-layer leaves, ``wo`` one (8192, 8192)
+    leaf), as phase 21: batches of 4 x (1,024 stub patches + 2,048
+    tokens) run as the config's 4 microbatches, 6 steps (cut from 8 for
+    the script's time), hosts 0 and 2 lost at step 5; phase 17(a)'s
+    checks (step 1's loss within 1.0 of ln 128256, the live tiers at zero
+    perturbation) with PEER_REPLICA and PARITY both used, its reports,
+    positions/s beside tokens/s, and ``check_train_kernels`` on the run's
+    own arena; ``launches["internvl2_train"]``.
+28. (a) qwen3-moe-235b-a22b's MoE layer at full width (d 4096, 128 experts
+    top-8 of d_ff 1536, bf16, the f32 router) on (4, 2048) tokens, forward
+    and backward on the trainer's per-expert leaves, against the stacked
+    route's ``torch.bmm`` on the same inputs: finite gradients, the
+    router's and every expert's within relative L2 1e-3 in f32, the aux
+    losses equal; seconds and peak reported. (The whole model does not
+    train on one card: ROADMAP's MoE training memory item.) (b) The
+    three families' reduced configs trained on the card and on the CPU as
+    phase 17(c) (losses within rtol 1e-4, tier counts equal, PARITY used)
+    and, on the card, arena = PyTree bit for bit under deterministic
+    algorithms, also llama4's in bf16 with its bf16 moments and 2
+    microbatches; ``launches["moe_train"]``.
 
 The line before the last is the kernels' JSON record (each kernel's
 launches on its own path, ``train_launches`` on phase 17's,
@@ -258,8 +281,9 @@ launches on its own path, ``train_launches`` on phase 17's,
 ``zamba2_launches`` and ``whisper_launches`` on phases 19 and 20,
 ``zamba2_train_launches``, ``whisper_train_launches`` and
 ``examples_launches`` on phases 21, 22 and 23, ``qwen3_moe_launches``,
-``llama4_launches`` and ``internvl2_launches`` on phases 24-26); the last
-line is
+``llama4_launches`` and ``internvl2_launches`` on phases 24-26,
+``internvl2_train_launches`` and ``moe_train_launches`` on phases 27 and
+28(b)); the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
 and prints no result.
 
@@ -276,7 +300,9 @@ its last line is ``{"families_only": true, "device": {...}}``.
 (``{"train_families_only": true, ...}``); ``python3 chip_smoke.py
 --examples`` runs phases 1 and 23 alone (``{"examples_only": true,
 ...}``); ``python3 chip_smoke.py --moe-vlm`` runs phases 1, 14 and 24-26
-alone (``{"moe_vlm_only": true, ...}``).
+alone (``{"moe_vlm_only": true, ...}``); ``python3 chip_smoke.py
+--train-moe-vlm`` runs phases 1, 27 and 28 alone
+(``{"train_moe_vlm_only": true, ...}``).
 """
 from __future__ import annotations
 
@@ -305,7 +331,12 @@ BF16_TC_FLOPS_PER_S = 989e12     # H100 SXM, dense bf16 tensor cores
 TF32_TC_FLOPS_PER_S = 495e12     # H100 SXM, dense TF32 tensor cores
 BLOCK_ROWS = 128
 TIMING_RUNS = 7
+# gf256_mac's plain passes take 1.9-3.4 s each: timed 3 times, not 7
+PLAIN_GF256_RUNS = {"plain": 3}
 SEED = 0
+
+
+START = time.perf_counter()
 
 
 def log(msg: str) -> None:
@@ -363,10 +394,11 @@ def cuda_ms(fn, runs: int = TIMING_RUNS) -> list[float]:
     return times
 
 
-def in_turns(fns: dict, before=None) -> dict:
+def in_turns(fns: dict, before=None, runs: Optional[dict] = None) -> dict:
     """Median ms of each whole-tree pass, the passes taken in turns.
     ``before()``, when given, runs ahead of every pass, outside its
-    timing."""
+    timing. ``runs`` gives a pass fewer timed runs than ``TIMING_RUNS``
+    (gf256_mac's plain passes take seconds each)."""
     import torch
     for fn in fns.values():            # warm-up (allocator, first launch)
         if before is not None:
@@ -374,8 +406,11 @@ def in_turns(fns: dict, before=None) -> dict:
         fn()
     torch.cuda.synchronize()
     times = {name: [] for name in fns}
-    for _ in range(TIMING_RUNS):
+    runs = runs or {}
+    for i in range(TIMING_RUNS):
         for name, fn in fns.items():
+            if i >= runs.get(name, TIMING_RUNS):
+                continue
             if before is not None:
                 before()
             times[name] += cuda_ms(fn, runs=1)
@@ -1589,7 +1624,8 @@ def phase_rs_kernels(a_tree, device, int_rate: float) -> dict:
           "RS row 0 differs from parity_xor's encode of the same members")
     del xor
     tm = in_turns({"plain": lambda: plain(rows_k, x, None, None, enc),
-                "kernel": lambda: gf256_mac_cuda(rows_k, x, None, None, enc)})
+                "kernel": lambda: gf256_mac_cuda(rows_k, x, None, None, enc)},
+                  runs=PLAIN_GF256_RUNS)
     results["encode"] = launch_record(tm, enc, groups=codec.n_groups,
                                       plan_seconds=enc_plan_s,
                                       pieces_seconds=enc_pieces_s,
@@ -1612,7 +1648,8 @@ def phase_rs_kernels(a_tree, device, int_rate: float) -> dict:
     flagged = torch.nonzero(synd.view(codec.n_groups, per).ne(0).any(1))
     check(flagged.numel() == 1, f"{flagged.numel()} groups flagged, not 1")
     tm = in_turns({"plain": lambda: plain(synd, x, None, rows_k, syn),
-                "kernel": lambda: gf256_mac_cuda(synd, x, None, rows_k, syn)})
+                "kernel": lambda: gf256_mac_cuda(synd, x, None, rows_k, syn)},
+                  runs=PLAIN_GF256_RUNS)
     del synd
     x[word] ^= 1 << 11
     results["syndromes"] = launch_record(tm, syn)
@@ -1643,7 +1680,8 @@ def phase_rs_kernels(a_tree, device, int_rate: float) -> dict:
     check(torch.equal(out_k, want), "the decode is not the lost words")
     del want
     tm = in_turns({"plain": lambda: plain(out_k, x, rows_k, None, dec),
-                "kernel": lambda: gf256_mac_cuda(out_k, x, rows_k, None, dec)})
+                "kernel": lambda: gf256_mac_cuda(out_k, x, rows_k, None, dec)},
+                  runs=PLAIN_GF256_RUNS)
     results["decode"] = launch_record(tm, dec, blocks=int(lost.sum()),
                                       plan_seconds=plan_s,
                                       pieces_seconds=pieces_s,
@@ -3011,14 +3049,16 @@ def check_train_kernels(loop, arena, info: dict, device) -> dict:
 
 def _train_full(name: str, device, launches: dict, path: str, shape: dict,
                 seed: int = 0) -> dict:
-    """``name`` at full width and depth trained arena-resident under SCAR
-    and ``FabricConfig()`` through phase 17(a)'s two-host loss:
-    ``shape["steps"]`` steps of ``shape["batch"]`` sequences of
-    ``shape["seq"]`` tokens from ``ShardedLMDataset(seed=0)``;
-    ``launches[path]`` gets the counts of the run. Checked: finite losses,
-    step 1's within 1.0 of ln V, every maintain resident, the recovery's
-    tiers (:func:`_check_recovery`), the five fabric kernels held against
-    their plain versions on the run's own arena afterwards."""
+    """``name`` at full width (and depth, unless ``shape["layers"]`` cuts
+    it) trained arena-resident under SCAR and ``FabricConfig()`` through
+    phase 17(a)'s two-host loss: ``shape["steps"]`` steps of
+    ``shape["batch"]`` sequences of ``shape["seq"]`` tokens (and a VLM's
+    patches) from ``ShardedLMDataset(seed=0)``; ``launches[path]`` gets
+    the counts of the run. Checked: finite losses, step 1's within 1.0 of
+    ln V, every maintain resident, the recovery's tiers
+    (:func:`_check_recovery`), the five fabric kernels held against their
+    plain versions on the run's own arena afterwards."""
+    import dataclasses
     import torch
     from repro_torch.configs import get_config
     from repro_torch.data import ShardedLMDataset
@@ -3027,6 +3067,11 @@ def _train_full(name: str, device, launches: dict, path: str, shape: dict,
     from repro_torch.training import ArenaTrainState
 
     cfg = get_config(name)
+    if shape.get("layers"):
+        cfg = dataclasses.replace(cfg, n_layers=shape["layers"])
+    log(f"{name}: device memory before the run "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated, "
+        f"{torch.cuda.memory_reserved() / 1e9:.2f} GB reserved")
     torch.cuda.reset_peak_memory_stats()
     rec = Recorder()
     loop = _train_loop(cfg, device, schedule=TRAIN_SCHEDULE, recorder=rec)
@@ -3040,8 +3085,10 @@ def _train_full(name: str, device, launches: dict, path: str, shape: dict,
                           device=device)
     it = iter(ds)
     _build.reset_launches()
+    after_step = []
     t0 = time.perf_counter()
-    state = loop.run(state, it, shape["steps"])
+    state = loop.run(state, it, shape["steps"], on_step=lambda i, _: (
+        after_step.append(torch.cuda.memory_allocated() / 1e9)))
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     launches[path] = dict(_build.LAUNCHES)
@@ -3110,12 +3157,19 @@ def _train_full(name: str, device, launches: dict, path: str, shape: dict,
            "lost_blocks": info["lost_blocks"],
            "tier_counts": info["tier_counts"], "tier_sq": info["tier_sq"],
            "fallbacks": len(info["tier_fallbacks"]),
-           "peak_memory_gb": peak, "clean_step_profile": share,
+           "peak_memory_gb": peak, "memory_after_step_gb": after_step,
+           "clean_step_profile": share,
            "clean_step_host_profile": host,
            "events": sorted({e["kind"] for e in rec.events}),
            "kernels_held": held}
     if cfg.family == "audio":
         out["frames_per_second"] = shape["batch"] * cfg.enc_seq / step_s
+    if cfg.family == "vlm":
+        # the patch prefix and the tokens: the positions the stack runs
+        out["positions_per_second"] = (shape["batch"]
+                                       * (cfg.n_patches + shape["seq"])
+                                       / step_s)
+    out["layers"] = cfg.n_layers
     return out
 
 
@@ -3129,29 +3183,28 @@ def phase_train(device, launches: dict) -> dict:
     return out
 
 
-def phase_train_bit_equal(device) -> dict:
-    """Phase 17(b): qwen2-1.5b at full width with 4 layers, arena-resident
-    and on the PyTree path in turn, deterministic algorithms on: losses,
-    the checkpoint arena, ``saved_iter`` and the final parameters
-    bit-equal."""
-    import dataclasses
+def _arena_against_pytree(cfg, device, shape: dict, seed: int,
+                          what: str) -> dict:
+    """``cfg`` trained arena-resident and on the PyTree path in turn from
+    the same seeded weights and ``shape["batch"]`` x ``shape["seq"]``
+    batches, 4 steps each, deterministic algorithms on: losses, the
+    checkpoint arena, ``saved_iter`` and the final parameters
+    bit-equal, at least one save made."""
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.core.arena import pack_arena
     from repro_torch.data import ShardedLMDataset
     from repro_torch.training import ArenaTrainState, TrainState
 
-    cfg = dataclasses.replace(get_config("qwen2-1.5b"), n_layers=4)
     torch.use_deterministic_algorithms(True)
     try:
         runs = {}
         for arena in (True, False):
             loop = _train_loop(cfg, device, arena_state=arena)
             state = loop.init_state(
-                torch.Generator(device=device).manual_seed(SEED + 17))
+                torch.Generator(device=device).manual_seed(seed))
             check(isinstance(state, ArenaTrainState if arena
-                             else TrainState), "wrong state form")
-            ds = ShardedLMDataset(cfg, TRAIN["batch"], TRAIN["seq"],
+                             else TrainState), f"{what}: wrong state form")
+            ds = ShardedLMDataset(cfg, shape["batch"], shape["seq"],
                                   seed=0, device=device)
             state = loop.run(state, iter(ds), 4)
             losses = [m["loss"] for m in loop.metrics]
@@ -3169,14 +3222,26 @@ def phase_train_bit_equal(device) -> dict:
     finally:
         torch.use_deterministic_algorithms(False)
     a, t = runs[True], runs[False]
-    check(a["saves"] >= 1, "no save")
-    check(a["losses"] == t["losses"],
-          f"losses differ: arena {a['losses']}, PyTree {t['losses']}")
+    check(a["saves"] >= 1, f"{what}: no save")
+    check(a["losses"] == t["losses"]
+          and all(math.isfinite(v) for v in a["losses"]),
+          f"{what}: losses arena {a['losses']}, PyTree {t['losses']}")
     for k in ("ckpt", "saved", "final"):
-        check(torch.equal(a[k], t[k]), f"the {k} differs between the arena "
-              f"and the PyTree paths")
-    out = {"losses": a["losses"], "saves": a["saves"],
-           "ckpt_words": a["ckpt"].numel()}
+        check(torch.equal(a[k], t[k]), f"{what}: the {k} differs between "
+              f"the arena and the PyTree paths")
+    return {"losses": a["losses"], "saves": a["saves"],
+            "ckpt_words": a["ckpt"].numel()}
+
+
+def phase_train_bit_equal(device) -> dict:
+    """Phase 17(b): qwen2-1.5b at full width with 4 layers, arena-resident
+    and on the PyTree path in turn (:func:`_arena_against_pytree`)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config("qwen2-1.5b"), n_layers=4)
+    out = _arena_against_pytree(cfg, device, TRAIN, SEED + 17,
+                                "qwen2-1.5b (4 layers)")
     log(f"qwen2-1.5b (4 layers) arena against PyTree, bit-equal: "
         f"{json.dumps(out)}")
     return out
@@ -3729,7 +3794,8 @@ def train_families_only(device, card: str) -> int:
 SERVE_EXAMPLE_ARCHS = ("yi-9b", "mamba2-370m", "zamba2-1.2b",
                        "whisper-medium", "qwen3-moe-235b-a22b",
                        "llama4-maverick-400b-a17b", "internvl2-76b")
-TINY_TRAIN_ARCHS = ("zamba2-1.2b", "whisper-medium")
+TINY_TRAIN_ARCHS = ("zamba2-1.2b", "whisper-medium", "qwen3-moe-235b-a22b",
+                    "internvl2-76b")
 # every kernel but fused_maintain (the per-leaf fabric, which no example
 # takes) launches on the examples' path
 EXAMPLE_KERNELS = ("block_dist", "scatter_save", "masked_restore",
@@ -3739,9 +3805,10 @@ EXAMPLE_KERNELS = ("block_dist", "scatter_save", "masked_restore",
 
 def _run_examples(device, root: Path, inputs: dict) -> dict:
     """Each ported example once on ``device``, at its default size
-    (``train_lm_with_failures`` at ``--tiny`` for the two new families,
-    8 steps, ``--fail-prob 0.3``); the LM examples from ``inputs``' numpy
-    weights and prompts, so the card and the CPU see the same ones."""
+    (``train_lm_with_failures`` at ``--tiny`` for the hybrid,
+    encoder-decoder, MoE and VLM families, 8 steps, ``--fail-prob 0.3``);
+    the LM examples from ``inputs``' numpy weights and prompts, so the
+    card and the CPU see the same ones."""
     from repro_torch.examples import (adaptive_checkpoint_policy,
                                       correlated_failures,
                                       priority_vs_random_checkpoints,
@@ -3924,6 +3991,291 @@ def examples_only(device, card: str) -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# phases 27-28: the MoE (qwen3-moe-235b-a22b, llama4-maverick-400b-a17b) and
+# VLM (internvl2-76b) families trained
+# ---------------------------------------------------------------------------
+
+# phase 27: 1,024 stub patches and 2,048 tokens a sequence, run as the
+# config's 4 microbatches; one of the 80 layers (2.98 G values)
+TRAIN_INTERNVL2 = dict(batch=4, seq=2048, steps=6, layers=1)
+# phase 28(a): qwen3-moe's MoE layer on (4, 2048) tokens
+MOE_LAYER = dict(batch=4, seq=2048, runs=3)
+MOE_GRAD_RTOL = 1e-3
+MOE_VLM_ARCHS = ("qwen3-moe-235b-a22b", "llama4-maverick-400b-a17b",
+                 "internvl2-76b")
+
+
+def phase_internvl2_train(device, launches: dict) -> dict:
+    """Phase 27: internvl2-76b at full width (d 8192, GQA 64/8, d_ff 28672,
+    the projector from 3200, the untied head, bf16) with 1 of its 80
+    layers, per-layer leaves (``wo`` 2-D), trained as phase 17(a) trains
+    qwen2-1.5b on batches of 4 x (1,024 patches + 2,048 tokens) run as 4
+    microbatches; ``launches["internvl2_train"]``."""
+    out = _train_full("internvl2-76b", device, launches, "internvl2_train",
+                      TRAIN_INTERNVL2, seed=27)
+    check(out["tier_counts"]["PEER_REPLICA"] > 0
+          and out["tier_counts"]["PARITY"] > 0,
+          f"internvl2-76b: the two-host loss took {out['tier_counts']}")
+    log(f"phase 27: internvl2-76b training ({TRAIN_INTERNVL2['layers']} of "
+        f"80 layers), batch {TRAIN_INTERNVL2['batch']} x (1024 patches + "
+        f"{TRAIN_INTERNVL2['seq']} tokens), {TRAIN_INTERNVL2['steps']} "
+        f"steps: {json.dumps(out)}")
+    return out
+
+
+def _moe_grads(x, dy, p, cfg):
+    """One forward and backward of ``moe_block``: the gradients of ``<out,
+    dy> + 0.01 lb + 0.001 zl`` with respect to x, the router and the three
+    expert stacks (3-D or held 2-D, ``p``'s form), and the aux losses."""
+    import torch
+    from repro_torch.models import layers as L
+    q = {k: p[k].detach().requires_grad_(True)
+         for k in ("router",) + L.EXPERT_KEYS}
+    xr = x.detach().requires_grad_(True)
+    with torch.enable_grad():
+        out, (lb, zl) = L.moe_block(xr, q, cfg)
+        loss = (out.float() * dy.float()).sum() + 0.01 * lb + 0.001 * zl
+        grads = torch.autograd.grad(
+            loss, [xr] + [q[k] for k in ("router",) + L.EXPERT_KEYS])
+    return list(grads), (lb.detach(), zl.detach())
+
+
+def phase_moe_layer(device) -> dict:
+    """Phase 28(a): qwen3-moe-235b-a22b's MoE layer at full width (d 4096,
+    128 experts, top-8 of d_ff 1536, bf16, the router f32) on (4, 2048)
+    tokens, forward and backward, on the trainer's 2-D expert leaves
+    (``split_layers``' ``(E·D, F)``/``(E·F, D)``, viewed as the stacks),
+    held against the stacked ``(E, D, F)`` form (3-D views of the same
+    weights) on the same inputs: finite gradients, the x, router and
+    expert gradients in f32 within relative L2 1e-3, the aux losses
+    equal. Reported: the seconds of one forward and backward (median of 3
+    after a warm-up) and its peak with only the layer resident."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+
+    cfg = get_config("qwen3-moe-235b-a22b")
+    gen = torch.Generator(device=device).manual_seed(SEED + 28)
+    stacked = L.init_moe(gen, cfg, torch.bfloat16, device)
+    shape = (MOE_LAYER["batch"], MOE_LAYER["seq"], cfg.d_model)
+    x = torch.randn(shape, generator=gen, device=device).to(torch.bfloat16)
+    dy = torch.randn(shape, generator=gen, device=device).to(torch.bfloat16)
+    split = L._own_leaves(stacked, False)
+    check(all(split[k].dim() == 2 for k in L.EXPERT_KEYS),
+          "qwen3-moe layer: the expert stacks are not held 2-D")
+    del stacked
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    secs = []
+    for _ in range(MOE_LAYER["runs"] + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = _moe_grads(x, dy, split, cfg)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        del got
+    out = {"experts": cfg.n_experts, "top_k": cfg.top_k,
+           "tokens": shape[0] * shape[1],
+           "capacity": L.moe_capacity(shape[0] * shape[1], cfg),
+           "fwd_bwd_seconds": statistics.median(secs[1:])}
+    # the peak with only the layer's own weights and inputs resident
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    gs, aux_s = _moe_grads(x, dy, split, cfg)
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["peak_above_inputs_gb"] = (torch.cuda.max_memory_allocated()
+                                   - base) / 1e9
+    # the stacked (E, D, F) / (E, F, D) leaves: views of the same weights
+    E = cfg.n_experts
+    stacked = {"router": split["router"],
+               **{k: split[k].view(E, -1, split[k].shape[-1])
+                  for k in L.EXPERT_KEYS}}
+    gb, aux_b = _moe_grads(x, dy, stacked, cfg)
+    check(all(bool(torch.isfinite(g).all()) for g in gs),
+          "qwen3-moe layer: non-finite gradients on the 2-D leaves")
+    check(torch.equal(aux_s[0], aux_b[0]) and torch.equal(aux_s[1], aux_b[1]),
+          f"qwen3-moe layer: aux losses {aux_s} on 2-D leaves, {aux_b} "
+          f"stacked")
+    worst = {k: _rel_l2(g.reshape(b.shape), b) for k, g, b in zip(
+        ("x", "router") + L.EXPERT_KEYS, gs, gb)}
+    out["grad_rel_l2"] = worst
+    out["lb_loss"], out["z_loss"] = float(aux_s[0]), float(aux_s[1])
+    check(all(v <= MOE_GRAD_RTOL for v in worst.values()),
+          f"qwen3-moe layer: 2-D against stacked gradients {worst}")
+    log(f"phase 28(a): qwen3-moe-235b-a22b MoE layer forward and backward "
+        f"on {shape[:2]} tokens: {json.dumps(out)}")
+    return out
+
+
+def phase_moe_train_loss(device) -> dict:
+    """Phase 28(a), the trainer's loss: ``loss_and_grad`` through
+    ``train_loss`` (embedding, ``layer_walk`` under remat, the MoE block's
+    aux losses over ``n_layers``, the chunked f32 head) for
+    qwen3-moe-235b-a22b at full width with 1 of its 94 layers (bf16,
+    3.73 G values) on (4, 2048) tokens, on the reference's stacked tree
+    and then on the trainer's per-layer leaves from the same weights:
+    both losses finite and within rtol 1e-4 of each other, every gradient
+    finite, each leaf's within relative L2 1e-3 in f32 (the embedding's
+    gradient may add its rows in another order), the router's and every expert
+    stack's nonzero. The whole model does not fit the card (ROADMAP item
+    32)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+    from repro_torch.models import layers as L
+    from repro_torch.training.step import loss_and_grad
+    from repro_torch.utils.tree import tree_leaves
+
+    cfg = dataclasses.replace(get_config("qwen3-moe-235b-a22b"), n_layers=1)
+    ops = get_model(cfg)
+    gen = torch.Generator(device=device).manual_seed(SEED + 30)
+    torch.cuda.reset_peak_memory_stats()
+    params = ops.init_params(gen, cfg, device=device)
+    toks = torch.randint(0, cfg.vocab, (MOE_LAYER["batch"],
+                                        MOE_LAYER["seq"] + 1),
+                         generator=gen, device=device, dtype=torch.int32)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    out = {"params": sum(x.numel() for x in tree_leaves(params))}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    l0, g0 = loss_and_grad(ops, cfg, params, batch)
+    torch.cuda.synchronize()
+    out["stacked_first_call_seconds"] = time.perf_counter() - t0
+    (key, _), = ops.stacked_layers
+    split = L.split_layers(params, ops.stacked_layers)
+    del params
+    gc.collect()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    l1, g1 = loss_and_grad(ops, cfg, split, batch)
+    torch.cuda.synchronize()
+    out["loss_and_grad_seconds"] = time.perf_counter() - t0
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["loss"], out["split_loss"] = float(l0), float(l1)
+    check(math.isfinite(out["loss"]) and math.isfinite(out["split_loss"])
+          and abs(out["split_loss"] - out["loss"])
+          <= LOSS_RTOL * abs(out["loss"]),
+          f"qwen3-moe train_loss: {out['loss']} stacked, "
+          f"{out['split_loss']} split")
+    del split
+    worst, names = 0.0, []
+    for a, b in zip(tree_leaves(g0[key]), tree_leaves(g1[key][0])):
+        check(bool(torch.isfinite(b).all()), "qwen3-moe train_loss: "
+              "non-finite gradients")
+        worst = max(worst, _rel_l2(b, a[0].reshape(b.shape)))
+    for k in set(g0) - {key}:
+        for a, b in zip(tree_leaves(g0[k]), tree_leaves(g1[k])):
+            check(bool(torch.isfinite(b).all()), "qwen3-moe train_loss: "
+                  "non-finite gradients")
+            worst = max(worst, _rel_l2(b, a))
+    out["grad_rel_l2"] = worst
+    moe = g1[key][0]["moe"]
+    for k in ("router",) + L.EXPERT_KEYS:
+        if float(moe[k].float().abs().sum()) == 0.0:
+            names.append(k)
+    check(worst <= MOE_GRAD_RTOL and not names,
+          f"qwen3-moe train_loss: gradients split against stacked {worst}, "
+          f"zero: {names}")
+    log(f"phase 28(a): qwen3-moe-235b-a22b train_loss and its gradient, 1 "
+        f"of 94 layers at full width, {MOE_LAYER['batch']} x "
+        f"{MOE_LAYER['seq']} tokens: {json.dumps(out)}")
+    return out
+
+
+def phase_moe_vlm_reduced(device, launches: dict) -> dict:
+    """Phase 28(b): the three families at their reduced configs (f32, 2
+    layers, the reference's stacked partition) on the card and on the CPU
+    from the same weights and batches, as phase 17(c): losses within rtol
+    1e-4, ``saved_iter`` and both losses' tier counts equal, PARITY used
+    at zero perturbation; then arena = PyTree bit for bit on the card
+    (per-layer leaves, deterministic algorithms), for each config and for
+    llama4's in bf16 with its bf16 ``opt_moment_dtype`` and 2
+    microbatches; ``launches["moe_train"]`` counts the card's runs."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.interop import to_numpy_tree
+    from repro_torch.kernels import _build
+    from repro_torch.models import get_model
+
+    out = {}
+    _build.reset_launches()
+    for i, name in enumerate(MOE_VLM_ARCHS):
+        cfg = get_config(name, reduced=True)
+        params_np = to_numpy_tree(get_model(cfg).init_params(
+            torch.Generator().manual_seed(SEED + 28 + i), cfg, device="cpu"))
+        gpu = _small_train(name, device, params_np)
+        cpu = _small_train(name, "cpu", params_np)
+        rel = max(abs(g - c) / abs(c) for g, c in zip(gpu["losses"],
+                                                      cpu["losses"]))
+        check(rel <= LOSS_RTOL, f"{name}: card losses {gpu['losses']}, CPU "
+              f"{cpu['losses']}")
+        check(gpu["saved_iter"] == cpu["saved_iter"]
+              and gpu["tier_counts"] == cpu["tier_counts"]
+              and gpu["host_tier_counts"] == cpu["host_tier_counts"],
+              f"{name}: the card {gpu} and the CPU {cpu} differ")
+        check(gpu["host_tier_counts"]["PARITY"] > 0
+              and gpu["host_tier_sq"]["PARITY"] == 0.0
+              and gpu["host_tier_sq"]["PEER_REPLICA"] == 0.0,
+              f"{name}: the two-host loss {gpu['host_tier_counts']}, "
+              f"{gpu['host_tier_sq']}")
+        out[name] = {"losses": gpu["losses"], "max_rel_loss_diff": rel,
+                     "host_tier_counts": gpu["host_tier_counts"],
+                     "bit_equal": _arena_against_pytree(
+                         cfg, device, TRAIN_SMALL, SEED + 29, name)}
+    llama4 = get_config(MOE_VLM_ARCHS[1], reduced=True)
+    check(llama4.opt_moment_dtype == "bfloat16", "llama4's moments")
+    out["llama4_bf16_microbatch_2"] = _arena_against_pytree(
+        dataclasses.replace(llama4, dtype="bfloat16", microbatch=2), device,
+        TRAIN_SMALL, SEED + 29, "llama4 (bf16, 2 microbatches)")
+    launches["moe_train"] = dict(_build.LAUNCHES)
+    for kernel in TRAIN_KERNELS:
+        check(launches["moe_train"][kernel] > 0,
+              f"{kernel} was not launched on the moe_train path")
+    log(f"phase 28(b): the MoE and VLM families' reduced trainers, card "
+        f"against CPU and arena against PyTree: {json.dumps(out)}")
+    return out
+
+
+def train_moe_vlm_phases(device, launches: dict) -> dict:
+    """Phases 27, 28(a) (the MoE layer, then the trainer's loss) and
+    28(b); each frees what it built."""
+    import torch
+    out = {}
+    for key, phase in (("internvl2_train",
+                        lambda: phase_internvl2_train(device, launches)),
+                       ("moe_layer", lambda: phase_moe_layer(device)),
+                       ("moe_train_loss",
+                        lambda: phase_moe_train_loss(device)),
+                       ("moe_vlm_reduced",
+                        lambda: phase_moe_vlm_reduced(device, launches))):
+        t0 = time.perf_counter()
+        out[key] = phase()
+        out[key]["seconds"] = time.perf_counter() - t0
+        log(f"{key}: {out[key]['seconds']:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def train_moe_vlm_only(device, card: str) -> int:
+    """``--train-moe-vlm``: phases 27 and 28 alone. Its last line says
+    that it is this partial run, never the full run's ``{"ok": true,
+    ...}``."""
+    import torch
+    launches = {}
+    out = train_moe_vlm_phases(device, launches)
+    log(json.dumps({"train_moe_vlm": out, "launches": launches}))
+    log(card)
+    log(json.dumps({"train_moe_vlm_only": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def erasure_only(a_tree, device, int_rate: float, card: str) -> int:
     """``--erasure``: phase 3's parity_xor encode and phase 9 alone, with
     the erasure kernels' SASS instruction mix. Its last line says that it
@@ -3964,6 +4316,14 @@ def main(argv: list) -> int:
     device = torch.device("cuda", 0)
     card = card_line()
     log(f"card: {card}")
+    last = [START]
+
+    def lap(what: str) -> None:
+        """Log the seconds since the last lap and since the script began."""
+        now = time.perf_counter()
+        log(f"time: {what} {now - last[0]:.1f} s (script {now - START:.1f} s)")
+        last[0] = now
+
     int_rate = int32_ops_per_s()
     log(f"INT32 rate: {int_rate / 1e12:.3f} T operations/s "
         f"({torch.cuda.get_device_properties(0).multi_processor_count} SMs "
@@ -3987,6 +4347,8 @@ def main(argv: list) -> int:
         return examples_only(device, card)
     if "--moe-vlm" in argv:
         return moe_vlm_only(device, card)
+    if "--train-moe-vlm" in argv:
+        return train_moe_vlm_only(device, card)
     gen = torch.Generator(device=device).manual_seed(SEED)
     shapes = qwen2_1_5b_shapes()
     a_tree = _map_shapes(shapes, lambda s: torch.randn(
@@ -3997,6 +4359,7 @@ def main(argv: list) -> int:
     for x, y in zip(tree_leaves(a_tree), tree_leaves(b_tree)):
         y.copy_(x).add_(torch.randn(x.shape, generator=gen, device=device),
                         alpha=1e-2)
+    lap("start-up and the kernels' build")
     kernels = phase_kernels(a_tree, b_tree, device)
     log(f"peak device memory after phase 2: "
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
@@ -4007,6 +4370,7 @@ def main(argv: list) -> int:
     kernels.update(phase_rs_kernels(a_tree, device, int_rate))
     log(f"peak device memory after phase 9: "
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    lap("phases 2-9")
 
     # each path's own launch counts: set to 0 just before it, read just
     # after it; the kernel-against-plain checks run outside every window
@@ -4046,6 +4410,7 @@ def main(argv: list) -> int:
           and multi["mlr_xor"]["fallbacks"] > 0,
           f"RS(k, 2) did not absorb the double loss: {multi}")
     log(f"multi-erasure section on {device}: {json.dumps(multi)}")
+    lap("the MLR, quickstart and multi-erasure paths")
     _build.reset_launches()
     ctl = phase_controller(a_tree, device)
     launches["controller"] = dict(_build.LAUNCHES)
@@ -4061,6 +4426,7 @@ def main(argv: list) -> int:
     launches["leaf_fabric"] = dict(_build.LAUNCHES)
     log(f"peak device memory of the SCAR phases: "
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    lap("the controller and fabric phases")
 
     # the LM serve path, after the 1.54 B tree and the controllers' cyclic
     # garbage are freed
@@ -4070,23 +4436,35 @@ def main(argv: list) -> int:
     log(f"device memory in use before the serve phases: "
         f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
     kernels.update(phase_serve_kernels(device))
+    lap("the serve kernels")
     mamba2 = phase_mamba2_serve(device, launches)
     torch.cuda.empty_cache()
     qwen2 = phase_qwen2_serve(device, launches)
     gc.collect()
     torch.cuda.empty_cache()
+    lap("the mamba2 and qwen2 serve phases")
     train = train_phases(device, launches)
     gc.collect()
     torch.cuda.empty_cache()
+    lap("phase 17")
     store = store_phases(device, launches)
     gc.collect()
     torch.cuda.empty_cache()
+    lap("phase 18")
     families = family_phases(device, launches, card)
+    lap("phases 19-20")
     train_families = train_family_phases(device, launches)
+    lap("phases 21-22")
     examples = phase_examples(device, launches)
     gc.collect()
     torch.cuda.empty_cache()
+    lap("phase 23")
     moe_vlm = moe_vlm_phases(device, launches, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("phases 24-26")
+    train_moe_vlm = train_moe_vlm_phases(device, launches)
+    lap("phases 27-28")
     log(json.dumps({"launches": launches}))
     old = ("block_dist", "scatter_save", "masked_restore")
     new = ("arena_maintain", "arena_scatter", "parity_xor")
@@ -4107,7 +4485,9 @@ def main(argv: list) -> int:
                         ("train", TRAIN_KERNELS),
                         ("zamba2_train", TRAIN_KERNELS),
                         ("whisper_train", TRAIN_KERNELS),
-                        ("examples", EXAMPLE_KERNELS)):
+                        ("examples", EXAMPLE_KERNELS),
+                        ("internvl2_train", TRAIN_KERNELS),
+                        ("moe_train", TRAIN_KERNELS)):
         for name in names:
             check(launches[path][name] > 0,
                   f"{name} was not launched on the {path} path")
@@ -4165,13 +4545,16 @@ def main(argv: list) -> int:
                            launches["qwen3_moe_serve"][name],
                        "llama4_launches": launches["llama4_serve"][name],
                        "internvl2_launches":
-                           launches["internvl2_serve"][name]})
+                           launches["internvl2_serve"][name],
+                       "internvl2_train_launches":
+                           launches["internvl2_train"][name],
+                       "moe_train_launches": launches["moe_train"][name]})
     log(json.dumps({"controller": ctl, "fabric": fabric,
                     "rs_fabric": rs_fabric, "leaf_fabric": leaf_fabric,
                     "multi_erasure": multi, "mamba2_serve": mamba2,
                     "qwen2_serve": qwen2, "train": train, "store": store,
                     **families, **train_families, "examples": examples,
-                    **moe_vlm,
+                    **moe_vlm, **train_moe_vlm,
                     "serve_kernels": {
                         name: kernels[name]
                         for name in ("ssd_intra", "sw_attention")},

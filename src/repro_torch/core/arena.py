@@ -362,21 +362,27 @@ def build_arena_layout(partition: BlockPartition,
 # pack / unpack / restore
 # ---------------------------------------------------------------------------
 
-def pack_arena(values: PyTree, layout: ArenaLayout) -> torch.Tensor:
+def pack_arena(values: PyTree, layout: ArenaLayout,
+               out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Pack a tree into the flat ``(total_words,)`` int32 arena, on the
     leaves' device: one read of every leaf, one write of the arena (pad
-    words are zeroed, the rest written once)."""
+    words are zeroed, the rest written once). With ``out``, into that
+    arena in place; a leaf that is a view of its own slot there
+    (:func:`unpack_arena` with ``copy=False``) is already in place."""
     part = layout.partition
     leaves = tree_leaves(values)
-    out = torch.empty((layout.total_words,), dtype=torch.int32,
-                      device=leaves[0].device)
+    if out is None:
+        out = torch.empty((layout.total_words,), dtype=torch.int32,
+                          device=leaves[0].device)
     end = 0
     for li in layout.leaf_order:
         leaf = part.leaves[li]
         seg, pw = layout.seg_words[li], layout.payload_words[li]
         off = layout.leaf_offset[li]
         dst = out[off:off + leaf.n_blocks * seg].view(leaf.n_blocks, seg)
-        dst[:, :pw].copy_(leaf_block_words(leaves[li], part.block_rows))
+        src = leaf_block_words(leaves[li], part.block_rows)
+        if src.data_ptr() != dst.data_ptr():
+            dst[:, :pw].copy_(src)
         if seg > pw:
             dst[:, pw:].zero_()
         end = off + leaf.n_blocks * seg
@@ -395,13 +401,17 @@ def _decode_leaf(arena: torch.Tensor, layout: ArenaLayout,
     return decode_block_words(view, leaf, layout.partition.block_rows)
 
 
-def unpack_arena(arena: torch.Tensor, layout: ArenaLayout) -> PyTree:
-    """Inverse of :func:`pack_arena`, bit-exact (I3). Every leaf owns its
-    memory: later in-place saves into ``arena`` do not show through."""
+def unpack_arena(arena: torch.Tensor, layout: ArenaLayout,
+                 copy: bool = True) -> PyTree:
+    """Inverse of :func:`pack_arena`, bit-exact (I3). With ``copy`` every
+    leaf owns its memory: later in-place saves into ``arena`` do not show
+    through. Without it, a leaf whose payload fills its segments is a view
+    of the arena (the train step's read-only operands: no second copy of
+    the model), and only the others are decoded copies."""
     out = []
     for li in range(len(layout.partition.leaves)):
         x = _decode_leaf(arena, layout, li)
-        if x.untyped_storage().data_ptr() == \
+        if copy and x.untyped_storage().data_ptr() == \
                 arena.untyped_storage().data_ptr():
             x = x.clone()
         out.append(x)
@@ -433,6 +443,32 @@ def pack_values(values: PyTree, layout: ArenaLayout) -> torch.Tensor:
         end = off + leaf.n_blocks * se
     out[end:].zero_()
     return out
+
+
+def accumulate_values(acc: torch.Tensor, leaves: list,
+                      layout: ArenaLayout) -> torch.Tensor:
+    """``acc += pack_values(leaves)`` in place, leaf by leaf, with no
+    packed image: each leaf's block view is added in f32 into its slice of
+    the ``(total_values,)`` accumulator and rounded to ``acc``'s dtype
+    (the tree path's ``(a.f32 + g.f32).to(a.dtype)``, value for value);
+    pads are left as they are. ``leaves`` is a list in leaf order; each
+    entry is set to None once added, so a caller holding no other
+    reference frees it there."""
+    part = layout.partition
+    for li in layout.leaf_order:
+        leaf = part.leaves[li]
+        se, pe = layout.seg_elems[li], layout.payload_elems[li]
+        off = layout.value_offset[li]
+        dst = acc[off:off + leaf.n_blocks * se].view(leaf.n_blocks, se)
+        src = leaf_block_view(leaves[li], part.block_rows)
+        leaves[li] = None
+        if acc.dtype == torch.float32:
+            dst[:, :pe].add_(src)
+        else:
+            dst[:, :pe].copy_(dst[:, :pe].to(torch.float32)
+                              + src.to(torch.float32))
+        del src
+    return acc
 
 
 def decode_words(words: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:

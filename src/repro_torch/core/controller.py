@@ -217,6 +217,16 @@ class FTController:
         if self._arena_layout is not None:
             self._ckpt_arena = pack_arena(new.values, self._arena_layout)
 
+    def _release_ckpt_tree(self) -> None:
+        """Arena mode: drop the checkpoint's decoded tree (the checkpoint
+        arena stays canonical and :attr:`ckpt` decodes it again on
+        demand), so that the tree a recovery read does not stay alive as a
+        second copy of the model through the steps after it."""
+        if self._arena_layout is not None and self._ckpt.values is not None:
+            self._ckpt = RunningCheckpoint(None, self._ckpt.saved_iter,
+                                           self._ckpt.rr_cursor)
+            self._ckpt_dirty = True
+
     # -- checkpoint path ----------------------------------------------------
 
     def should_checkpoint(self, step: int) -> bool:
@@ -256,7 +266,7 @@ class FTController:
             ck = self._ckpt
             self._ckpt_arena = live.clone()
             self._ckpt = RunningCheckpoint(
-                ck.values, torch.full_like(ck.saved_iter, int(step)),
+                None, torch.full_like(ck.saved_iter, int(step)),
                 ck.rr_cursor)
             self._ckpt_dirty = True
             mask = torch.ones((total,), dtype=torch.bool, device=self.device)
@@ -397,7 +407,7 @@ class FTController:
         mask_t = torch.from_numpy(mask).to(self.device)
         saved = torch.where(mask_t, torch.full_like(ck.saved_iter, int(step)),
                             ck.saved_iter)
-        self._ckpt = RunningCheckpoint(ck.values, saved, cursor)
+        self._ckpt = RunningCheckpoint(None, saved, cursor)
         self._ckpt_dirty = True
         self.stats["save_bytes_moved"] += moved
         return mask_t
@@ -533,11 +543,26 @@ class FTController:
         the live flat arena: it is decoded, recovered, and re-packed."""
         live = self._live_arena(params)
         if live is not None:
-            recovered, info = self.on_failure(
-                self.unpack_live(live), lost_mask,
-                failed_devices=failed_devices, step=step,
-                persist_failure=persist_failure)
-            return self.pack_live(recovered), info
+            # the tiers read the live values and the checkpoint and write
+            # new leaves only: both are decoded as views of their arenas
+            # (no two extra copies of the model beside the tiers' outputs),
+            # and the recovered leaves go back into the live arena in place
+            # (unless it is the replica too), as a train step's update does
+            self._ckpt = RunningCheckpoint(
+                unpack_arena(self._ckpt_arena, self._arena_layout,
+                             copy=False),
+                self._ckpt.saved_iter, self._ckpt.rr_cursor)
+            self._ckpt_dirty = False
+            try:
+                recovered, info = self.on_failure(
+                    unpack_arena(live, self._arena_layout, copy=False),
+                    lost_mask, failed_devices=failed_devices, step=step,
+                    persist_failure=persist_failure)
+            finally:
+                self._release_ckpt_tree()
+            rep = self.fabric.replicas if self.fabric is not None else None
+            into = None if rep is not None and rep.arena is live else live
+            return pack_arena(recovered, self._arena_layout, out=into), info
         if self.recorder.enabled:
             self.recorder.event(
                 "failure", step=None if step is None else int(step),

@@ -15,12 +15,13 @@ Run:  PYTHONPATH=src python -m repro_torch.examples.train_lm_with_failures \\
           [--steps 300] [--fail-prob 0.02] [--arch qwen2-1.5b] [--tiny] \\
           [--pytree] [--async-maintain] [--device cuda|cpu]
 
-``--arch`` takes a config of any family the trainer trains: dense (the
-default ``qwen2-1.5b``), ssm (``mamba2-370m``), hybrid (``zamba2-1.2b``)
-and audio (``whisper-medium``, its batches carrying frame embeddings).
-The MoE and VLM configurations, which the port serves, raise
-``NotImplementedError`` naming ROADMAP item 31. ``--tiny`` trains the reduced config for at most 20 steps; without it the
-reduced config is scaled to about 100 M parameters. The store goes to a
+``--arch`` takes any config: dense (the default ``qwen2-1.5b``), moe
+(``qwen3-moe-235b-a22b``; ``llama4-maverick-400b-a17b``, dense and MoE
+layers interleaved), vlm (``internvl2-76b``, its batches carrying patch
+embeddings), ssm (``mamba2-370m``), hybrid (``zamba2-1.2b``) and audio
+(``whisper-medium``, its batches carrying frame embeddings). ``--tiny``
+trains the reduced config for at most 20 steps; without it the reduced
+config is scaled to about 100 M parameters. The store goes to a
 temporary directory, removed at the end.
 """
 from __future__ import annotations

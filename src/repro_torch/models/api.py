@@ -11,11 +11,10 @@
   the params, which the trainer's per-layer leaves split
   (``layers.split_layers``)
 
-The port serves every family: ``dense``, ``moe`` (every layer MoE, or
-dense and MoE layers interleaved), ``vlm`` (a patch prefix), ``ssm``,
-``hybrid`` and ``audio`` (encoder-decoder), and trains all but ``moe``
-and ``vlm`` (their ``train_loss`` raises naming ROADMAP item 31). The
-options it leaves out, the int8 KV cache and the triangle prefill, raise
+The port serves and trains every family: ``dense``, ``moe`` (every layer
+MoE, or dense and MoE layers interleaved), ``vlm`` (a patch prefix),
+``ssm``, ``hybrid`` and ``audio`` (encoder-decoder). The options it
+leaves out, the int8 KV cache and the triangle prefill, raise
 ``NotImplementedError`` naming item 20. The cache geometry (ring vs
 linear) is decided by ``serve_cache_len``, as in the reference.
 """

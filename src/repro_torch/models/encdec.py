@@ -130,7 +130,7 @@ def _cross(x, lp, enc_out, positions, enc_pos, q_chunk):
     v = torch.einsum("btd,dhk->bthk", enc_out, p["wv"])
     o = L.flash_attention(q, k, v, positions, enc_pos, causal=False,
                           q_chunk=q_chunk, kv_chunk=min(CHUNK, k.shape[1]))
-    return x + torch.einsum("bshk,hkd->bsd", o, p["wo"]), k, v
+    return x + L.attn_out(o, p["wo"]), k, v
 
 
 def _dec_layer(x, lp, cfg: ModelConfig, positions, enc_out, enc_pos,
@@ -211,7 +211,7 @@ def prefill(params, batch, cfg: ModelConfig, spec=None):
         q, k, v = L.qkv_project(L.rms_norm(x, lp["self_norm"]), p, cfg,
                                 positions)
         o = transformer.prefill_attention(q, k, v, positions, cfg, 0)
-        x = x + torch.einsum("bshk,hkd->bsd", o, p["wo"])
+        x = x + L.attn_out(o, p["wo"])
         x, ck, cv = _cross(x, lp, enc_out, positions, enc_pos, min(CHUNK, S))
         x = x + L.mlp_block(L.rms_norm(x, lp["mlp_norm"]), lp["mlp"])
         # slots past S stay empty: room for the tokens decoded next
@@ -255,14 +255,14 @@ def decode_step(params, cache, tokens, cfg: ModelConfig, spec=None):
         vc[:, pos] = v[:, 0].to(vc.dtype)
         o = L.flash_attention(q, kc, vc, positions, kpos, causal=True,
                               q_chunk=1, kv_chunk=kv_chunk)
-        x = x + torch.einsum("bshk,hkd->bsd", o, p["wo"])
+        x = x + L.attn_out(o, p["wo"])
         pc = lp["cross_attn"]
         xn = L.rms_norm(x, lp["cross_norm"])
         qc = torch.einsum("bsd,dhk->bshk", xn, pc["wq"])
         oc = L.flash_attention(qc, cache["cross_k"][i], cache["cross_v"][i],
                                positions, enc_pos, causal=False, q_chunk=1,
                                kv_chunk=min(CHUNK, T))
-        x = x + torch.einsum("bshk,hkd->bsd", oc, pc["wo"])
+        x = x + L.attn_out(oc, pc["wo"])
         x = x + L.mlp_block(L.rms_norm(x, lp["mlp_norm"]), lp["mlp"])
     h = L.rms_norm(x, params["final_norm"])
     logits = L.lm_logits(h, params)

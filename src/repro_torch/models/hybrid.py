@@ -92,7 +92,8 @@ def train_loss(params, batch, cfg: ModelConfig, **_) -> torch.Tensor:
                 L.rms_norm(x, lp["norm"]), lp["mixer"], cfg), h,
                 enabled=cfg.remat)
         h = L.remat(lambda x: transformer._layer_fwd(
-            x, shared, cfg, positions, 0, 1024, 1024), h, enabled=cfg.remat)
+            x, shared, cfg, positions, 0, 1024, 1024)[0], h,
+            enabled=cfg.remat)
     h = L.rms_norm(h, params["final_norm"])
     labels = batch["labels"]
     mask = batch.get("mask")
@@ -149,7 +150,7 @@ def prefill(params, batch, cfg: ModelConfig, spec=None):
         xn = L.rms_norm(x, lp_sh["attn_norm"])
         q, k, v = L.qkv_project(xn, lp_sh["attn"], cfg, positions)
         o = transformer.prefill_attention(q, k, v, positions, cfg, 0)
-        x = x + torch.einsum("bshk,hkd->bsd", o, lp_sh["attn"]["wo"])
+        x = x + L.attn_out(o, lp_sh["attn"]["wo"])
         x = _shared_mlp(x, lp_sh)
         # slots past S stay empty: room for the tokens decoded next
         ks[si, :, :S] = k.to(dt)
@@ -196,7 +197,7 @@ def decode_step(params, state, tokens, cfg: ModelConfig, spec=None):
         vc[:, slot] = v[:, 0].to(vc.dtype)
         o = L.flash_attention(q, kc, vc, positions, kpos, causal=True,
                               q_chunk=1, kv_chunk=kv_chunk)
-        x = x + torch.einsum("bshk,hkd->bsd", o, lp_sh["attn"]["wo"])
+        x = x + L.attn_out(o, lp_sh["attn"]["wo"])
         x = _shared_mlp(x, lp_sh)
     h = L.rms_norm(x, params["final_norm"])
     logits = L.lm_logits(h, params)

@@ -19,7 +19,9 @@ chunk's logits in backward (``torch.utils.checkpoint``).
 The MoE block (``init_moe``, ``_moe_body``, ``moe_block``) is the
 reference's single-device branch: token-choice top-k routing, a
 top-capacity token gather per expert, the expert products as batched
-matmuls, a combine in expert order. Left out, for the perf variants: the
+matmuls (on views of the trainer's 2-D expert leaves too,
+``split_layers``), a combine in expert order; its gradient is
+``jax.grad``'s of the reference. Left out, for the perf variants: the
 int8 KV cache and the triangle prefill (item 20). The mesh (item 15) is
 not here: the single-device port takes no ``ctx``, and ``moe_block``
 raises for a ``mesh``.
@@ -91,19 +93,60 @@ def unstack_layers(layers: PyTree, n: int) -> list:
     return [tree_unflatten(treedef, [p[i] for p in per]) for i in range(n)]
 
 
+# the expert stacks of an MoE block, held 2-D in the per-layer layout
+EXPERT_KEYS = ("w_gate_experts", "w_up_experts", "w_down_experts")
+
+
+def _own_leaves(node, copy: bool):
+    """``node`` with each attention's ``wo`` and each MoE block's expert
+    stacks held 2-D, ``(Hq·Dh, D)`` and ``(E·D, F)``/``(E·F, D)``, every
+    such leaf a contiguous copy; any other leaf a copy when ``copy``, else
+    itself (and a subtree with nothing to change, itself)."""
+    if isinstance(node, dict):
+        out = {}
+        for k, v in node.items():
+            if k in ("wo",) + EXPERT_KEYS and isinstance(v, torch.Tensor) \
+                    and v.dim() == 3:
+                out[k] = v.reshape(-1, v.shape[-1]).clone()
+            else:
+                out[k] = _own_leaves(v, copy)
+        changed = copy or any(out[k] is not v for k, v in node.items())
+        return out if changed else node
+    if isinstance(node, (list, tuple)):
+        out = [_own_leaves(v, copy) for v in node]
+        changed = copy or any(a is not b for a, b in zip(out, node))
+        return out if changed else node
+    return node.clone() if copy else node
+
+
 def split_layers(params: PyTree, stacked) -> PyTree:
-    """``params`` with each stacked subtree replaced by a list of per-layer
-    trees, each leaf a contiguous copy of its layer's slice (the stacked
-    leaves are released). ``stacked`` is the ``(key, layer count)`` of
-    each such subtree (``ModelOps.stacked_layers``); every other key (the
-    embedding, the norms, the hybrid's ``shared`` block) is kept as it is.
-    The SCAR partition then cuts blocks of ``block_rows`` rows out of each
-    layer's matrices, where a stacked leaf's leading dim makes every one
-    of its blocks span all layers."""
+    """``params`` in the trainer's per-layer layout. Each stacked subtree
+    is replaced by a list of per-layer trees, each leaf a contiguous copy
+    of its layer's slice (the stacked leaves are released); ``stacked`` is
+    the ``(key, layer count)`` of each such subtree
+    (``ModelOps.stacked_layers``). Throughout the tree (the hybrid's
+    ``shared`` block too), an attention's ``wo`` is held as a ``(Hq·Dh,
+    D)`` leaf and an MoE block's expert stacks as ``(E·D, F)`` and ``(E·F,
+    D)`` leaves; every other leaf outside the stacked subtrees (the
+    embedding, the norms) is kept as it is.
+
+    The SCAR partition cuts blocks of ``block_rows`` rows along dim 0 of
+    each leaf, and the XOR parity's frames are as wide as the widest
+    block: a stacked leaf's blocks span every layer, ``wo``'s ``Hq`` rows
+    make it one block of ``Hq·Dh·D`` values and an expert stack's ``E``
+    rows one block of ``D·F`` values an expert. Held 2-D, their blocks are
+    ``block_rows`` rows of one expert (``D`` and ``F`` are multiples of
+    ``block_rows`` at full width). Each reader of these weights
+    (``attn_out``, ``_experts``) views either form as it needs it: no
+    copy, the same bits."""
     out = dict(params)
     for key, n in stacked:
-        out[key] = [tree_map(torch.clone, lp)
+        out[key] = [_own_leaves(lp, True)
                     for lp in unstack_layers(params[key], n)]
+    keys = {key for key, _ in stacked}
+    for key, v in params.items():
+        if key not in keys:
+            out[key] = _own_leaves(v, False)
     return out
 
 
@@ -442,7 +485,15 @@ def attention_block(x, p, cfg: ModelConfig, *, positions, causal=True,
     q, k, v = qkv_project(x, p, cfg, positions)
     o = flash_attention(q, k, v, positions, positions, causal=causal,
                         window=window, q_chunk=q_chunk, kv_chunk=kv_chunk)
-    return torch.einsum("bshk,hkd->bsd", o, p["wo"])
+    return attn_out(o, p["wo"])
+
+
+def attn_out(o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+    """The attention output (B, S, Hq, Dh) through ``wo``, held ``(Hq, Dh,
+    D)`` (the stacked layout) or ``(Hq·Dh, D)`` (the per-layer one,
+    :func:`split_layers`): one matmul over the flattened heads either
+    way, so both layouts give the same bits."""
+    return o.flatten(-2) @ wo.reshape(-1, wo.shape[-1])
 
 
 # ---------------------------------------------------------------------------
@@ -505,18 +556,37 @@ def moe_capacity(n: int, cfg: ModelConfig) -> int:
     return min(c, n)
 
 
+def _experts(xe, wg, wu, wd):
+    """The experts' SwiGLU products of their gathered tokens xe: (E, C,
+    D) -> (E, C, D) in the model dtype, as batched matmuls. The weights
+    are the ``(E, D, F)``/``(E, F, D)`` stacks or the per-layer layout's
+    ``(E·D, F)``/``(E·F, D)`` leaves (:func:`split_layers`), viewed as the
+    stacks: the same kernels and bits either way, no copy."""
+    E = xe.shape[0]
+    wg, wu, wd = (w.view(E, -1, w.shape[-1]) for w in (wg, wu, wd))
+    h = F.silu(torch.bmm(xe, wg)) * torch.bmm(xe, wu)
+    return torch.bmm(h, wd)
+
+
 def _moe_body(x, router, wg, wu, wd, *, cfg: ModelConfig, capacity: int):
     """Token-choice top-k routing, per-expert top-``capacity`` gather.
 
-    x: (N, D) tokens; wg/wu/wd: (E, ...) expert weights. Returns (out (N,
-    D) f32, lb_loss, z_loss). Each expert takes the ``capacity`` tokens of
+    x: (N, D) tokens; wg/wu/wd: the expert stacks, 3-D or held 2-D
+    (:func:`_experts`). Returns (out (N, D) f32,
+    lb_loss, z_loss). Each expert takes the ``capacity`` tokens of
     largest combine weight (ties: the lower token first, so the same tokens
-    are dropped as in the reference); its products run in the model dtype
-    as batched matmuls. The combine gathers each token's ``top_k`` expert
+    are dropped as in the reference); its products run in the model dtype.
+    The combine gathers each token's ``top_k`` expert
     rows and adds them in expert order, 0 for a dropped one: no atomics,
     the same bits on every run (an ``index_add_`` on CUDA adds in no fixed
     order). A token that an expert took with weight 0 adds 0, as in the
     reference's scatter-add.
+
+    The gradient flows as under ``jax.grad`` of the reference: through the
+    normalised gates (their sort and the scatter into the dense weights),
+    the experts' top-capacity weights, the token gather and the combine's
+    row gathers, into x, the router and the experts; never into an index,
+    and the load-balance loss's dispatch fractions carry none.
     """
     N, D = x.shape
     E, k = cfg.n_experts, cfg.top_k
@@ -528,8 +598,7 @@ def _moe_body(x, router, wg, wu, wd, *, cfg: ModelConfig, capacity: int):
     w_full.scatter_(1, sel, gate_vals)
     vals, idx = top_k(w_full.t(), capacity)                # (E, C)
     xe = x[idx]                                            # (E, C, D)
-    h = F.silu(torch.bmm(xe, wg)) * torch.bmm(xe, wu)
-    he = torch.bmm(h, wd).to(torch.float32) * vals[..., None]
+    he = _experts(xe, wg, wu, wd).to(torch.float32) * vals[..., None]
     # each routed (token, expert)'s row in he, or -1 where it was dropped
     slot = torch.full((E, N), -1, dtype=torch.int64, device=x.device)
     slot.scatter_(1, idx, torch.arange(capacity, device=x.device)

@@ -17,8 +17,9 @@ reference: no TPU kernel covers it.
 Training (``train_loss``) is the reference's: full causal attention
 through ``layers.flash_attention``'s flash-style backward on every device
 (the reference trains without a kernel too), unless ``window_override``
-asks for a band, each layer recomputed in backward when ``cfg.remat``, and
-the chunked LM loss.
+asks for a band, each layer recomputed in backward when ``cfg.remat``
+(an MoE layer's aux losses with it), the chunked LM loss over the tokens
+(a VLM's patch prefix takes none) and an MoE model's router losses.
 
 Layers are stacked along a leading ``n_layers`` dim, as in the reference,
 and walked by a Python loop. An MoE layer (qwen3-moe) replaces the MLP by
@@ -28,8 +29,8 @@ and walked by a Python loop. An MoE layer (qwen3-moe) replaces the MLP by
 stacking ``[dense_i, moe_i]`` (cache layer ``2 i`` is pair ``i``'s dense
 layer); a VLM (internvl2) projects the batch's ``patches`` and prepends
 them to the token embeddings, so its prompt is ``S + n_patches`` long.
-The MoE and VLM families serve only: their ``train_loss`` is ROADMAP item
-31. Left out: the int8 KV cache and the triangle prefill (item 20,
+Every reader of the weights takes the trainer's per-layer layout too
+(``layers.split_layers``: ``wo`` and the expert stacks held 2-D). Left out: the int8 KV cache and the triangle prefill (item 20,
 ``models.api`` raises) and the mesh (item 15). ``decode_step`` writes the
 new token's K/V into the cache in place.
 """
@@ -108,31 +109,27 @@ def init_params(gen: torch.Generator, cfg: ModelConfig,
 def layer_walk(params: PyTree, cfg: ModelConfig):
     """Each layer's weights in the order the model runs them, with its
     index in the cache: layer ``i``; for an interleaved model pair ``i``'s
-    dense layer at ``2 i`` and its MoE layer at ``2 i + 1``."""
+    dense layer at ``2 i`` and its MoE layer at ``2 i + 1``. Stacked leaves
+    are walked as ``torch.unbind`` views (:func:`layers.unstack_layers`),
+    whose backward stacks the layers' gradients once."""
     if not interleaved(cfg):
-        for i in range(cfg.n_layers):
-            yield i, L.layer_params(params, i)
+        yield from enumerate(L.unstack_layers(params["layers"],
+                                              cfg.n_layers))
         return
-    for i in range(cfg.n_layers // 2):
-        pair = L.layer_params(params, i)
+    for i, pair in enumerate(L.unstack_layers(params["layers"],
+                                              cfg.n_layers // 2)):
         yield 2 * i, pair["dense"]
         yield 2 * i + 1, pair["moe"]
 
 
 def _ffn(x, lp, cfg: ModelConfig):
-    """The layer's MLP or MoE block on its normed input."""
+    """The layer's MLP or MoE block on its normed input, and the MoE
+    block's ``(lb_loss, z_loss)`` (zeros for an MLP)."""
     hn = L.rms_norm(x, lp["mlp_norm"])
     if "moe" in lp:
-        return L.moe_block(hn, lp["moe"], cfg)[0]
-    return L.mlp_block(hn, lp["mlp"])
-
-
-def check_trainable(cfg: ModelConfig) -> None:
-    """Raises for the families this port serves but does not train yet."""
-    if cfg.n_experts or cfg.family == "vlm":
-        raise NotImplementedError(
-            f"{cfg.name}: training the MoE and VLM families is not ported "
-            f"yet (ROADMAP item 31)")
+        return L.moe_block(hn, lp["moe"], cfg)
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    return L.mlp_block(hn, lp["mlp"]), (zero, zero)
 
 
 # ---------------------------------------------------------------------------
@@ -141,22 +138,28 @@ def check_trainable(cfg: ModelConfig) -> None:
 
 def _layer_fwd(x, lp, cfg: ModelConfig, positions, window: int,
                q_chunk: int, kv_chunk: int):
+    """One layer -> (x', lb_loss, z_loss)."""
     h = L.attention_block(L.rms_norm(x, lp["attn_norm"]), lp["attn"], cfg,
                           positions=positions, causal=True, window=window,
                           q_chunk=q_chunk, kv_chunk=kv_chunk)
     x = x + h
-    return x + L.mlp_block(L.rms_norm(x, lp["mlp_norm"]), lp["mlp"])
+    h2, (lb, zl) = _ffn(x, lp, cfg)
+    return x + h2, lb, zl
 
 
 def _stack_fwd(h, params, cfg: ModelConfig, positions, *, window: int,
                q_chunk: int = 1024, kv_chunk: int = 1024):
-    """Every layer in turn (each recomputed in backward when
-    ``cfg.remat``), then the final norm."""
-    for lp in L.unstack_layers(params["layers"], cfg.n_layers):
-        h = L.remat(lambda x, lp=lp: _layer_fwd(
+    """Every layer in the order :func:`layer_walk` gives (an interleaved
+    model's dense then MoE layer of each pair), each recomputed in
+    backward when ``cfg.remat``, its aux losses with it; then the final
+    norm. Returns (h, Σ lb_loss, Σ z_loss)."""
+    lb = zl = torch.zeros((), dtype=torch.float32, device=h.device)
+    for _, lp in layer_walk(params, cfg):
+        h, l1, l2 = L.remat(lambda x, lp=lp: _layer_fwd(
             x, lp, cfg, positions, window, q_chunk, kv_chunk),
             h, enabled=cfg.remat)
-    return L.rms_norm(h, params["final_norm"])
+        lb, zl = lb + l1, zl + l2
+    return L.rms_norm(h, params["final_norm"]), lb, zl
 
 
 def _embed_batch(params, batch, cfg: ModelConfig):
@@ -174,22 +177,30 @@ def _embed_batch(params, batch, cfg: ModelConfig):
 def train_loss(params, batch, cfg: ModelConfig, *,
                window_override: Optional[int] = None) -> torch.Tensor:
     """Mean next-token cross-entropy of ``batch`` (``tokens``, ``labels``
-    and an optional ``mask``), f32. Full causal attention unless
-    ``window_override`` gives a band. The MoE and VLM families raise
-    (ROADMAP item 31)."""
-    check_trainable(cfg)
+    and an optional ``mask``; a VLM's ``patches``), f32. Full causal
+    attention unless ``window_override`` gives a band. A VLM's patch
+    prefix takes no loss; an MoE model adds its router losses, ``0.01
+    Σ lb_loss / n_layers + 0.001 Σ z_loss / n_layers`` over every layer
+    (an interleaved model's dense layers count in ``n_layers`` and add
+    zeros), as the reference."""
     h = _embed_batch(params, batch, cfg)
     S = h.shape[1]
     positions = torch.arange(S, dtype=torch.int32, device=h.device)
     window = 0 if window_override is None else window_override
-    h = _stack_fwd(h, params, cfg, positions, window=window,
-                   q_chunk=cfg.attn_chunk, kv_chunk=cfg.attn_chunk)
+    h, lb, zl = _stack_fwd(h, params, cfg, positions, window=window,
+                           q_chunk=cfg.attn_chunk, kv_chunk=cfg.attn_chunk)
     labels = batch["labels"]
     mask = batch.get("mask")
     if mask is None:
         mask = torch.ones(labels.shape, dtype=torch.float32,
                           device=labels.device)
-    return L.lm_loss_chunked(h, params, labels, mask, cfg)
+    n_prefix = h.shape[1] - labels.shape[1]
+    if n_prefix:        # a VLM: no loss on the image prefix
+        h = h[:, n_prefix:]
+    loss = L.lm_loss_chunked(h, params, labels, mask, cfg)
+    if cfg.n_experts:
+        loss = loss + 0.01 * lb / cfg.n_layers + 0.001 * zl / cfg.n_layers
+    return loss
 
 
 # ---------------------------------------------------------------------------
@@ -255,8 +266,8 @@ def decode_step(params, cache, tokens, cfg: ModelConfig, spec: CacheSpec):
         vc[:, slot] = v[:, 0].to(vc.dtype)
         o = L.flash_attention(q, kc, vc, positions, kpos, causal=True,
                               window=window, q_chunk=1, kv_chunk=kv_chunk)
-        x = x + torch.einsum("bshk,hkd->bsd", o, lp["attn"]["wo"])
-        x = x + _ffn(x, lp, cfg)
+        x = x + L.attn_out(o, lp["attn"]["wo"])
+        x = x + _ffn(x, lp, cfg)[0]
     h = L.rms_norm(x, params["final_norm"])
     logits = L.lm_logits(h, params)
     cache["pos"] = cache["pos"] + 1
@@ -283,8 +294,8 @@ def prefill(params, batch, cfg: ModelConfig, spec: CacheSpec):
         xn = L.rms_norm(x, lp["attn_norm"])
         q, k, v = L.qkv_project(xn, lp["attn"], cfg, positions)
         o = prefill_attention(q, k, v, positions, cfg, window)
-        x = x + torch.einsum("bshk,hkd->bsd", o, lp["attn"]["wo"])
-        x = x + _ffn(x, lp, cfg)
+        x = x + L.attn_out(o, lp["attn"]["wo"])
+        x = x + _ffn(x, lp, cfg)[0]
         if spec.ring:
             ks[i][:, slots] = k[:, -W:].to(dt)
             vs[i][:, slots] = v[:, -W:].to(dt)

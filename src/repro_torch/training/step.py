@@ -4,18 +4,27 @@
 ``make_train_step`` is the PyTree step. ``make_arena_train_step`` is its
 arena-native twin: the live parameters enter and leave the step as the
 flat word arena (:mod:`repro_torch.core.arena`), decoded at the top of the
-step into fresh leaf-shaped tensors that require grad, laid out as the
-PyTree path's leaves (so both paths hand the same operands to the same
-GEMMs), the loss and its gradient taken with respect to that tree (NOT
-through the decode: differentiating through it would scatter each leaf
-into a full-arena gradient), the gradient packed to the f32 value domain
+step into leaf-shaped tensors that require grad (views of the arena where
+a leaf's payload fills its segments), laid out as the PyTree path's
+leaves (so both paths hand the same operands to the same GEMMs), the loss
+and its gradient taken with respect to that tree (NOT through the decode:
+differentiating through it would scatter each leaf into a full-arena
+gradient), the gradient packed to the f32 value domain
 (``pack_values``), and the optimizer run over the arena in place
 (:func:`repro_torch.optim.optimizers.arena_apply`).
 
 Both steps accumulate microbatched gradients (``cfg.microbatch > 1``):
 the global batch is split into MB microbatches run in turn, their
 gradients summed in ``cfg.opt_moment_dtype`` and divided by MB; the loss
-is the microbatches' mean.
+is the microbatches' mean. The arena step adds each microbatch's gradient
+into its value-domain accumulator leaf by leaf and divides it in place
+(:func:`repro_torch.core.arena.accumulate_values`), the same elementwise
+arithmetic as the tree path's. Its accumulator, one ``(total_values,)``
+buffer, is allocated at the first step and cleared in place at every
+later one, until the step's ``release()`` lets it go (``TrainLoop.run``
+calls it as it returns): a new buffer a step (11.9 GB for one
+internvl2-76b layer) lets the caching allocator's segments fragment
+until it finds no room.
 
 A step returns ``(new_state, loss)`` with the loss a 0-d f32 tensor on
 the device (reading it waits for the step).
@@ -27,7 +36,8 @@ from typing import Any
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.arena import pack_values, unpack_arena
+from repro_torch.core.arena import (accumulate_values, pack_values,
+                                    unpack_arena)
 from repro_torch.models.api import ModelOps
 from repro_torch.models.layers import torch_dtype
 from repro_torch.optim.optimizers import Optimizer, arena_apply
@@ -37,11 +47,12 @@ from repro_torch.utils.tree import tree_flatten, tree_map, tree_unflatten
 PyTree = Any
 
 
-def loss_and_grad(ops: ModelOps, cfg: ModelConfig, params: PyTree,
-                  batch: dict) -> tuple[torch.Tensor, PyTree]:
+def _grad_leaves(ops: ModelOps, cfg: ModelConfig, params: PyTree,
+                 batch: dict) -> tuple[torch.Tensor, list, Any]:
     """The loss of ``batch`` and its gradient with respect to every leaf of
-    ``params`` (leaves the loss does not reach get zeros). The leaves are
-    taken as they are (aliases that require grad; nothing is copied)."""
+    ``params``, as a list in leaf order (leaves the loss does not reach
+    get zeros), and the tree's structure. The leaves are taken as they
+    are (aliases that require grad; nothing is copied)."""
     leaves, treedef = tree_flatten(params)
     leaves = [x.detach().requires_grad_(True) for x in leaves]
     with torch.enable_grad():
@@ -49,7 +60,14 @@ def loss_and_grad(ops: ModelOps, cfg: ModelConfig, params: PyTree,
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     grads = [torch.zeros_like(x) if g is None else g
              for x, g in zip(leaves, grads)]
-    return loss.detach(), tree_unflatten(treedef, grads)
+    return loss.detach(), grads, treedef
+
+
+def loss_and_grad(ops: ModelOps, cfg: ModelConfig, params: PyTree,
+                  batch: dict) -> tuple[torch.Tensor, PyTree]:
+    """The loss of ``batch`` and its gradient tree (:func:`_grad_leaves`)."""
+    loss, grads, treedef = _grad_leaves(ops, cfg, params, batch)
+    return loss, tree_unflatten(treedef, grads)
 
 
 def _microbatches(batch: dict, mb: int) -> list[dict]:
@@ -94,29 +112,40 @@ def make_arena_train_step(ops: ModelOps, cfg: ModelConfig,
     the values the tree optimizer reads, and the flat apply is the same
     elementwise arithmetic, re-encoded through each leaf's stored dtype as
     the tree path's ``.to(p.dtype)``."""
+    acc: list = []          # the microbatched step's accumulator, reused
 
     def train_step(state: ArenaTrainState, batch: dict):
-        params = unpack_arena(state.arena, layout)
+        # views of the arena where they can be: nothing writes it before
+        # the apply below, after the last microbatch's backward
+        params = unpack_arena(state.arena, layout, copy=False)
         mb = max(cfg.microbatch, 1)
         if mb == 1:
             loss, g = loss_and_grad(ops, cfg, params, batch)
             grads = pack_values(g, layout)
+            del g
         else:
-            acc_dtype = torch_dtype(cfg.opt_moment_dtype)
-            gacc = torch.zeros((layout.total_values,), dtype=acc_dtype,
-                               device=state.arena.device)
+            # each microbatch's gradient added into the value-domain
+            # accumulator leaf by leaf, each tree gradient dropped once
+            # added: no packed image, no second accumulator
+            if acc:
+                grads = acc[0].zero_()
+            else:
+                grads = torch.zeros((layout.total_values,),
+                                    dtype=torch_dtype(cfg.opt_moment_dtype),
+                                    device=state.arena.device)
+                acc.append(grads)
             loss_sum = 0.0
             for bx in _microbatches(batch, mb):
-                l, g = loss_and_grad(ops, cfg, params, bx)
-                gacc = (gacc.to(torch.float32)
-                        + pack_values(g, layout)).to(acc_dtype)
+                l, g, _ = _grad_leaves(ops, cfg, params, bx)
+                accumulate_values(grads, g, layout)
                 loss_sum = loss_sum + l
             loss = loss_sum / mb
-            grads = gacc / mb     # in acc_dtype, as the tree path
-        del params, g
+            grads.div_(mb)        # in the accumulator's dtype, as the tree
+        del params
         arena, opt_state = arena_apply(optimizer, grads, state.opt_state,
                                        state.arena, layout)
         return ArenaTrainState(arena, opt_state, state.step + 1,
                                state.layout), loss
 
+    train_step.release = acc.clear
     return train_step

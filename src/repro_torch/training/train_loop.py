@@ -34,13 +34,14 @@ single device: the port of ``repro.training.train_loop``.
   maintain, at a save, a recovery, a heal or a scrub, and at the end of
   ``run``.
 
-It trains the dense, ssm, hybrid (a Mamba2 backbone and one shared
-attention block) and audio (the encoder-decoder, its batches carrying
-``frames``) families; the MoE and VLM families, which the port serves,
-raise ``NotImplementedError`` naming ROADMAP item 31. The reference's ``DistContext`` is
-replaced by an explicit ``device`` (``cuda`` unless asked otherwise; the
-trainer raises where no CUDA device is present rather than moving to the
-CPU). Not ported yet, and raising ``NotImplementedError`` with its ROADMAP
+It trains every family: dense, moe (every layer MoE, or dense and MoE
+layers interleaved; the loss carries the router's aux losses), vlm (its
+batches carrying ``patches``, the patch prefix out of the loss), ssm,
+hybrid (a Mamba2 backbone and one shared attention block) and audio (the
+encoder-decoder, its batches carrying ``frames``). The reference's
+``DistContext`` is replaced by an explicit ``device`` (``cuda`` unless
+asked otherwise; the trainer raises where no CUDA device is present rather
+than moving to the CPU). Not ported yet, and raising ``NotImplementedError`` with its ROADMAP
 item: the elastic mesh (``elastic_mesh``, item 15).
 """
 from __future__ import annotations
@@ -58,7 +59,6 @@ from repro_torch.core.controller import FTController
 from repro_torch.core.policy import CheckpointPolicy
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import get_model
-from repro_torch.models.transformer import check_trainable
 from repro_torch.optim.optimizers import Optimizer, adamw
 from repro_torch.telemetry.recorder import NULL_RECORDER, Histogram
 from repro_torch.training.step import make_arena_train_step, make_train_step
@@ -101,13 +101,18 @@ class TrainLoopConfig:
     scrub_interval: int = 0
     # hold each layer's weights as leaves of their own (a list under each
     # stacked key of the family: "layers", or "enc_layers" and
-    # "dec_layers"; models.layers.split_layers) in place of the
-    # reference's stacked leaves. A stacked leaf has the layer count as
-    # its rows, so it is one SCAR block spanning every layer, and the
-    # parity frames are as wide as the widest block: at qwen2-1.5b's full
-    # width FabricConfig()'s XOR parity would need 616 GB stacked and
-    # 10.7 GB per layer. False keeps the reference's stacked partition,
-    # block for block (what a comparison with the reference needs).
+    # "dec_layers"), every attention's wo as a (Hq*Dh, D) leaf and every
+    # MoE block's expert stacks as (E*D, F) and (E*F, D) leaves
+    # (models.layers.split_layers), in place of the reference's stacked
+    # leaves. The partition cuts blocks along dim 0, so a stacked leaf is
+    # one SCAR block spanning every layer, a (Hq, Dh, D) wo one block of
+    # Hq*Dh*D values and an (E, D, F) expert stack one block of D*F values
+    # an expert; the parity frames are as wide as the widest block. At
+    # full width FabricConfig()'s XOR parity needs 616 GB stacked and
+    # 5.4 GB split for qwen2-1.5b, 6.9 GB split against 124 GB with the
+    # layers split alone for one internvl2-76b layer. False keeps the
+    # reference's stacked partition, block for block (what a comparison
+    # with the reference needs).
     per_layer_leaves: bool = True
     # telemetry sink (repro_torch.telemetry.Recorder); default NULL_RECORDER
     recorder: Optional[Any] = None
@@ -140,7 +145,6 @@ class TrainLoop:
                  optimizer: Optional[Optimizer] = None,
                  loop_cfg: Optional[TrainLoopConfig] = None,
                  store=None, *, device: DeviceLike = None):
-        check_trainable(cfg)
         self.cfg = cfg
         self._store = store
         self.device = resolve_device(device)
@@ -371,7 +375,10 @@ class TrainLoop:
                 on_step(i, loss)
         # the epoch boundary: settle the in-flight async sweep and drain
         # the store's background writer, so run() returns with the
-        # redundancy published and on disk
+        # redundancy published and on disk; the arena step's gradient
+        # accumulator is let go until the next run
+        if self._arena_step is not None:
+            self._arena_step.release()
         if self.controller is not None:
             if self.controller.fabric is not None:
                 self.controller.fabric.block_until_maintained()

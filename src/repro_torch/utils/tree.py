@@ -17,7 +17,7 @@ or ``"['layers'][3]['q']"``.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable
+from typing import Any, Callable, Optional
 
 PyTree = Any
 
@@ -36,70 +36,63 @@ def keystr(path: tuple) -> str:
                    for kind, k in path)
 
 
+_LEAF, _NONE = TreeDef("leaf"), TreeDef("none")
+
+
+# The walks below are module-level functions taking their accumulator, not
+# nested closures: a recursive closure refers to itself through its cell, a
+# reference cycle that keeps the leaves it collected alive until the cyclic
+# collector runs (a whole model's worth after a recovery's flattens).
+
+def _flatten(node, out: list, path: Optional[tuple]) -> TreeDef:
+    """Append ``node``'s leaves to ``out`` (as ``(path, leaf)`` pairs when
+    ``path`` is not None) and return its structure."""
+    if isinstance(node, dict):
+        keys = tuple(sorted(node))
+        return TreeDef("dict", keys, tuple(
+            _flatten(node[k], out, None if path is None
+                     else path + (("key", k),)) for k in keys))
+    if isinstance(node, (list, tuple)):
+        return TreeDef("list" if isinstance(node, list) else "tuple", (),
+                       tuple(_flatten(x, out, None if path is None
+                                      else path + (("idx", i),))
+                             for i, x in enumerate(node)))
+    if node is None:
+        return _NONE
+    out.append(node if path is None else (path, node))
+    return _LEAF
+
+
 def flatten_with_path(tree: PyTree) -> tuple[list[tuple[tuple, Any]], TreeDef]:
     """``[(path, leaf)]`` in JAX's flatten order, plus the tree's structure."""
     out: list[tuple[tuple, Any]] = []
-
-    def walk(node, path) -> TreeDef:
-        if isinstance(node, dict):
-            keys = tuple(sorted(node))
-            kids = tuple(walk(node[k], path + (("key", k),)) for k in keys)
-            return TreeDef("dict", keys, kids)
-        if isinstance(node, (list, tuple)):
-            kids = tuple(walk(x, path + (("idx", i),))
-                         for i, x in enumerate(node))
-            return TreeDef("list" if isinstance(node, list) else "tuple",
-                           (), kids)
-        if node is None:
-            return TreeDef("none")
-        out.append((path, node))
-        return TreeDef("leaf")
-
-    treedef = walk(tree, ())
-    return out, treedef
-
-
-_LEAF, _NONE = TreeDef("leaf"), TreeDef("none")
+    return out, _flatten(tree, out, ())
 
 
 def tree_flatten(tree: PyTree) -> tuple[list, TreeDef]:
     """The leaves in flatten order and the tree's structure (no paths)."""
     out: list = []
-
-    def walk(node) -> TreeDef:
-        if isinstance(node, dict):
-            keys = tuple(sorted(node))
-            return TreeDef("dict", keys, tuple(walk(node[k]) for k in keys))
-        if isinstance(node, (list, tuple)):
-            return TreeDef("list" if isinstance(node, list) else "tuple", (),
-                           tuple(walk(x) for x in node))
-        if node is None:
-            return _NONE
-        out.append(node)
-        return _LEAF
-
-    treedef = walk(tree)
-    return out, treedef
+    return out, _flatten(tree, out, None)
 
 
 def tree_leaves(tree: PyTree) -> list:
     return tree_flatten(tree)[0]
 
 
+def _build(td: TreeDef, it):
+    if td.kind == "leaf":
+        return next(it)
+    if td.kind == "none":
+        return None
+    kids = [_build(c, it) for c in td.children]
+    if td.kind == "dict":
+        return dict(zip(td.keys, kids))
+    return kids if td.kind == "list" else tuple(kids)
+
+
 def tree_unflatten(treedef: TreeDef, leaves) -> PyTree:
     it = iter(leaves)
-
-    def build(td: TreeDef):
-        if td.kind == "leaf":
-            return next(it)
-        if td.kind == "none":
-            return None
-        kids = [build(c) for c in td.children]
-        if td.kind == "dict":
-            return dict(zip(td.keys, kids))
-        return kids if td.kind == "list" else tuple(kids)
-
-    out = build(treedef)
+    out = _build(treedef, it)
     if next(it, None) is not None:
         raise ValueError("more leaves than the tree structure holds")
     return out

@@ -9,10 +9,12 @@ its ``--tiny`` size.
   token stream, its losses agree with the reference example's within rtol
   1e-4, the two make as many saves, and their stores stamp the same
   saved iterations;
-- ``--arch zamba2-1.2b`` (the hybrid family) and ``--arch
-  whisper-medium`` (the encoder-decoder, its batches carrying frames)
-  train at ``--tiny``, arena-resident and on the PyTree path bit-equal,
-  failures included.
+- ``--arch zamba2-1.2b`` (the hybrid family), ``--arch whisper-medium``
+  (the encoder-decoder, its batches carrying frames), ``--arch
+  qwen3-moe-235b-a22b`` (MoE) and ``--arch internvl2-76b`` (VLM, its
+  batches carrying patches) train at ``--tiny``, arena-resident and on the
+  PyTree path bit-equal, failures included; the MoE and VLM runs agree
+  with the reference example's as the dense one does.
 """
 import jax
 import numpy as np
@@ -61,11 +63,8 @@ def test_example_arena_pytree_and_async_bit_equal(tmp_path):
                                   ct.store.saved_iters())
 
 
-def test_example_against_reference(tmp_path):
-    """The reference example's loop (no failures: the two packages draw
-    their lost blocks from different generators) against the port's on
-    the reference's initial parameters."""
-    jcfg = j_get_config("qwen2-1.5b", reduced=True)
+def _against_reference(tmp_path, arch):
+    jcfg = j_get_config(arch, reduced=True)
     ctx = single_device_ctx()
     jl = JLoop(jcfg, ctx, optimizer=j_adamw(3e-4), loop_cfg=JLoopConfig(
         policy=JPolicy.scar(fraction=0.125, interval=8), fail_prob=0.0,
@@ -74,8 +73,8 @@ def test_example_against_reference(tmp_path):
     js = jl.init_state()
     params = jax.tree_util.tree_map(np.asarray, js.params)
     jl.run(js, iter(JDataset(jcfg, batch=2, seq=64, ctx=ctx)), 8)
-    got = _run(tmp_path, "port", "--steps", "8", "--fail-prob", "0",
-               params=params)
+    got = _run(tmp_path, "port", "--arch", arch, "--steps", "8",
+               "--fail-prob", "0", params=params)
     np.testing.assert_allclose(got["losses"],
                                [m["loss"] for m in jl.metrics], rtol=1e-4)
     assert got["saves"] == jl.controller.stats["saves"]
@@ -85,7 +84,23 @@ def test_example_against_reference(tmp_path):
             == np.unique(jl.controller.store.saved_iters()).tolist())
 
 
-@pytest.mark.parametrize("arch", ["zamba2-1.2b", "whisper-medium"])
+def test_example_against_reference(tmp_path):
+    """The reference example's loop (no failures: the two packages draw
+    their lost blocks from different generators) against the port's on
+    the reference's initial parameters."""
+    _against_reference(tmp_path, "qwen2-1.5b")
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b", "internvl2-76b"])
+def test_example_moe_vlm_against_reference(tmp_path, arch):
+    """The MoE and VLM families (the router's aux losses; the patch
+    prefix out of the loss) against the reference example's loop, as
+    ``test_example_against_reference``."""
+    _against_reference(tmp_path, arch)
+
+
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "whisper-medium",
+                                  "qwen3-moe-235b-a22b", "internvl2-76b"])
 def test_example_new_families_arena_pytree_bit_equal(tmp_path, arch):
     flags = ("--arch", arch, "--steps", "4", "--fail-prob", "0.5")
     arena = _run(tmp_path, "arena", *flags)

@@ -29,7 +29,7 @@ from repro_torch.models.classic import make_model
 from repro_torch.training.classic_runner import run_clean, run_with_failure
 from repro_torch.training import TrainLoop, TrainLoopConfig
 from repro_torch.training.serve import Server
-from repro_torch.utils.tree import tree_leaves
+from repro_torch.utils.tree import flatten_with_path, keystr, tree_leaves
 
 ROOT = Path(__file__).resolve().parents[1]
 EXAMPLES = (quickstart, priority_vs_random_checkpoints,
@@ -141,13 +141,18 @@ def test_new_families_default_to_cuda():
 
 
 def test_trainer_names_item_29_for_the_new_families():
-    """Training the hybrid and encoder-decoder families is ported (ROADMAP
-    item 29 is done): both families' ``TrainLoop`` builds, runs on the
-    card unless asked otherwise and raises where no CUDA device is
-    present; asked for, the CPU; its per-layer leaves split each stacked
-    subtree of the family."""
+    """Training the hybrid and encoder-decoder families (ROADMAP item 29)
+    and the MoE and VLM families (item 31) is ported: each family's
+    ``TrainLoop`` builds, runs on the card unless asked otherwise and
+    raises where no CUDA device is present; asked for, the CPU; its
+    per-layer leaves split each stacked subtree of the family, every
+    attention's ``wo`` and every MoE block's expert stacks are held 2-D.
+    No file of the port still names item 31."""
     for name, stacked in (("zamba2-1.2b", ["layers"]),
-                          ("whisper-medium", ["enc_layers", "dec_layers"])):
+                          ("whisper-medium", ["enc_layers", "dec_layers"]),
+                          ("qwen3-moe-235b-a22b", ["layers"]),
+                          ("llama4-maverick-400b-a17b", ["layers"]),
+                          ("internvl2-76b", ["layers"])):
         cfg = get_config(name, reduced=True)
         if torch.cuda.is_available():
             assert TrainLoop(cfg).device.type == "cuda"
@@ -162,6 +167,18 @@ def test_trainer_names_item_29_for_the_new_families():
             assert isinstance(state.params[key], list)
         assert all(x.device.type == "cpu"
                    for x in tree_leaves(state.params))
+        named = [(keystr(p), x)
+                 for p, x in flatten_with_path(state.params)[0]]
+        wo = [x for k, x in named if k.endswith("['wo']")]
+        assert wo and all(x.shape == (cfg.n_heads * cfg.head_dim,
+                                      cfg.d_model) for x in wo)
+        experts = [x for k, x in named if "_experts']" in k]
+        e, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
+        assert all(x.shape in ((e * d, f), (e * f, d)) for x in experts)
+        n_moe = (cfg.n_layers // cfg.moe_every) if cfg.n_experts else 0
+        assert len(experts) == 3 * n_moe
+    for path in FILES:
+        assert "item 31" not in path.read_text(), path
 
 
 def test_model_and_run_devices_must_agree():

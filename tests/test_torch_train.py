@@ -408,9 +408,12 @@ def test_per_layer_leaves_give_the_same_loss(name):
     """``split_layers`` holds each layer's weights as leaves of their own,
     for every stacked subtree of the family (``layers``; the
     encoder-decoder's ``enc_layers`` and ``dec_layers``), and keeps every
-    other key (the hybrid's ``shared`` block) as it is; the forward and
-    the gradients are the stacked tree's."""
+    other leaf (the hybrid's ``shared`` block) as it is, except that every
+    attention's ``wo`` is held 2-D, ``(Hq·Dh, D)``; the forward and the
+    gradients, reshaped to the stacked leaves' shapes, are the stacked
+    tree's bit for bit."""
     from repro_torch.training.step import loss_and_grad
+    from repro_torch.utils.tree import flatten_with_path, keystr
     _, params = _ref_params(name, seed=4)
     cfg = get_config(name, reduced=True)
     batch = from_numpy_tree(_tokens(cfg, seed=3), "cpu")
@@ -422,8 +425,14 @@ def test_per_layer_leaves_give_the_same_loss(name):
     split = t_layers.split_layers(stacked, ops.stacked_layers)
     for key, n in ops.stacked_layers:
         assert isinstance(split[key], list) and len(split[key]) == n
+    wo = [x for p, x in flatten_with_path(split)[0]
+          if keystr(p).endswith("['wo']")]
+    assert bool(wo) == cfg.has_attention
+    assert all(x.dim() == 2 for x in wo)
     for key in set(stacked) - set(want_keys):
-        assert split[key] is stacked[key]
+        for a, b in zip(tree_leaves(stacked[key]), tree_leaves(split[key])):
+            assert b is a or (b.dim() == 2 and torch.equal(a.reshape(b.shape),
+                                                           b))
     l0, g0 = loss_and_grad(ops, cfg, stacked, batch)
     l1, g1 = loss_and_grad(ops, cfg, split, batch)
     assert torch.equal(l0, l1)
@@ -431,10 +440,10 @@ def test_per_layer_leaves_give_the_same_loss(name):
         for i in range(n):
             per = tree_leaves(g1[key][i])
             for a, b in zip(tree_leaves(g0[key]), per):
-                assert torch.equal(a[i], b)
+                assert torch.equal(a[i].reshape(b.shape), b)
     for key in set(stacked) - set(want_keys):
-        assert all(torch.equal(a, b) for a, b in zip(tree_leaves(g0[key]),
-                                                     tree_leaves(g1[key])))
+        assert all(torch.equal(a.reshape(b.shape), b) for a, b in zip(
+            tree_leaves(g0[key]), tree_leaves(g1[key])))
 
 
 # ---------------------------------------------------------------------------
@@ -590,6 +599,35 @@ def test_microbatched_step_matches_single(arena):
     assert out[0][0].item() == pytest.approx(out[1][0].item(), rel=1e-5)
     np.testing.assert_allclose(out[0][1].numpy(), out[1][1].numpy(),
                                rtol=1e-4, atol=1e-5)
+
+
+def test_microbatched_arena_steps_clear_their_accumulator():
+    """One arena step function run four times with ``microbatch = 2``
+    (its accumulator cleared and reused at each step, released before the
+    last) gives the PyTree step's losses and parameters bit for bit at
+    every step."""
+    _, params = _ref_params("qwen2-1.5b")
+    cfg = dataclasses.replace(get_config("qwen2-1.5b", reduced=True),
+                              microbatch=2)
+    ops = get_model(cfg)
+    tp = from_numpy_tree(params, "cpu")
+    layout = t_arena.build_arena_layout(partition_pytree(tp, 128))
+    opt = t_opt.adamw(1e-2)
+    sa = ArenaTrainState.create(t_arena.pack_arena(tp, layout), opt, layout)
+    st = TrainState.create(tree_map(torch.clone, tp), opt)
+    arena_step = make_arena_train_step(ops, cfg, opt, layout)
+    tree_step = make_train_step(ops, cfg, opt)
+    rng = np.random.default_rng(2)
+    for i in range(4):
+        if i == 3:
+            arena_step.release()
+        toks = rng.integers(0, cfg.vocab, (4, S + 1), dtype=np.int32)
+        batch = from_numpy_tree({"tokens": toks[:, :-1].copy(),
+                                 "labels": toks[:, 1:].copy()}, "cpu")
+        sa, la = arena_step(sa, batch)
+        st, lt = tree_step(st, batch)
+        assert torch.equal(la, lt)
+        assert torch.equal(sa.arena, t_arena.pack_arena(st.params, layout))
 
 
 def test_arena_state_params_view_follows_in_place_updates():

@@ -80,13 +80,16 @@ def test_arena_and_pytree_bit_equal_on_the_card(cuda):
 
 
 @pytest.mark.parametrize("name", ["qwen2-1.5b", "mamba2-370m",
-                                  "zamba2-1.2b", "whisper-medium"])
+                                  "zamba2-1.2b", "whisper-medium",
+                                  "qwen3-moe-235b-a22b",
+                                  "llama4-maverick-400b-a17b",
+                                  "internvl2-76b"])
 def test_reduced_trainer_card_against_cpu(cuda, name):
     """The same weights, batches (whisper's frames included), policy and
     two-host loss (PARITY among its tiers) on both devices, in the
     reference's stacked partition; the card's run launches the five fabric
-    kernels. The hybrid and encoder-decoder families train through the
-    same trainer as the dense and ssm ones."""
+    kernels. The hybrid, encoder-decoder, MoE and VLM families train
+    through the same trainer as the dense and ssm ones."""
     cfg = get_config(name, reduced=True)
     params = to_numpy_tree(get_model(cfg).init_params(
         torch.Generator().manual_seed(0), cfg, device="cpu"))
