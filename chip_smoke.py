@@ -111,7 +111,9 @@ Phases, each of which fails the run if it fails:
     Dh 64, W = S), qwen3-moe-235b-a22b's (B 4 x 4 kv heads, G 16, S 2048,
     W = S), llama4-maverick-400b-a17b's (B 4 x 8, G 5, S 2048) and
     internvl2-76b's (B 4 x 8, G 8, S 3072: 1,024 patches and 2,048
-    tokens), bf16. Timed as in phase 2
+    tokens) and command-r-plus-104b's 32k prefill (B 1 x 8, G 12, S
+    32768; its plain version by blocks of query rows, timed once, the
+    kernel and SDPA (``is_causal``) three times), bf16. Timed as in phase 2
     (and back to back, ten calls on one stream) beside the bound
     (ssd_intra: its bytes over 3.35 TB/s, or its products as three TF32
     products each over 495 TFLOP/s, with the f32-FMA figure of earlier runs
@@ -275,6 +277,33 @@ Phases, each of which fails the run if it fails:
     algorithms, also llama4's in bf16 with its bf16 moments and 2
     microbatches; ``launches["moe_train"]``.
 
+29. The perf variants, on command-r-plus-104b at full width (d 12288,
+    GQA 96/8, d_ff 33792, vocab 256,000, the untied head, bf16, random
+    weights from a seed) with 4 of its 64 layers (12.58 G values, 25.17
+    GB), on a (1, 32768) prompt. (a) A prefill with the variants off and
+    one with ``triangle_prefill`` and ``kv_quant`` on, each under the
+    profiler (seconds, tokens/s, busy share, peak), the same bits of
+    logits; both again with every sw_attention call held against its
+    plain version (by blocks of query rows: one row's scores are 51.5
+    GB); the port's plain ``flash_attention_triangle`` on the card on
+    layer 0's q, k, v against the kernel. (b) ``Server.generate`` of 16
+    tokens off and on (decode tokens/s); the int8 cache's dtype and bytes
+    (half the bf16 cache's plus the scales); the first decode step's
+    next-token probabilities within 0.05 (the reference's bound) and the
+    logits' relative L2; in f32 on layer 0's int8 cache,
+    ``flash_attention_kvq`` against ``flash_attention`` over the
+    dequantized cache. (c) 8 decode steps over a 32,832-slot cache filled
+    at positions 0-32767 from seeded bf16 draws (the int8 arm:
+    ``quantize_kv`` of the same draws), batch 8, each arm alone beside the
+    model: seconds a step, busy share, cache bytes, peak (the int8 peak
+    below the bf16 one), the probabilities within 0.05. (d) yi-9b,
+    granite-8b, command-r-plus-104b, qwen3-moe-235b-a22b,
+    llama4-maverick-400b-a17b and internvl2-76b reduced, f32, both flags,
+    card against CPU: prefill and decode logits within rtol 1e-4, atol
+    1e-4, ``Server.generate``'s tokens equal. ``launches["perf_variants"]``
+    counts sw_attention over (a)'s two prefills and (b)'s two generates:
+    once a layer in each of the four 32k prefills.
+
 The line before the last is the kernels' JSON record (each kernel's
 launches on its own path, ``train_launches`` on phase 17's,
 ``store_launches`` on phase 18's (a) and (b) together,
@@ -283,7 +312,7 @@ launches on its own path, ``train_launches`` on phase 17's,
 ``examples_launches`` on phases 21, 22 and 23, ``qwen3_moe_launches``,
 ``llama4_launches`` and ``internvl2_launches`` on phases 24-26,
 ``internvl2_train_launches`` and ``moe_train_launches`` on phases 27 and
-28(b)); the last line is
+28(b), ``perf_variants_launches`` on phase 29(a)-(b)); the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
 and prints no result.
 
@@ -302,7 +331,9 @@ its last line is ``{"families_only": true, "device": {...}}``.
 ...}``); ``python3 chip_smoke.py --moe-vlm`` runs phases 1, 14 and 24-26
 alone (``{"moe_vlm_only": true, ...}``); ``python3 chip_smoke.py
 --train-moe-vlm`` runs phases 1, 27 and 28 alone
-(``{"train_moe_vlm_only": true, ...}``).
+(``{"train_moe_vlm_only": true, ...}``); ``python3 chip_smoke.py
+--perf-variants`` runs phases 1, 14 and 29 alone
+(``{"perf_variants_only": true, ...}``).
 """
 from __future__ import annotations
 
@@ -2066,12 +2097,43 @@ def _rel_l2(a, b) -> float:
 PLAIN_SCORE_BYTES = 1 << 30
 
 
+def _plain_rows(q, k, v, window: int):
+    """``sw_attention_ref``'s arithmetic for q (1, G, S, Dh), over blocks
+    of query rows, each block's scores within ``PLAIN_SCORE_BYTES`` and
+    against the keys its band reaches (the rest would be masked to 0)."""
+    import torch
+    _, G, S, Dh = q.shape
+    rows = max(1, PLAIN_SCORE_BYTES // (4 * G * S))
+    scale = 1.0 / math.sqrt(Dh)
+    out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    for r0 in range(0, S, rows):
+        r1 = min(S, r0 + rows)
+        k0 = max(0, r0 - window + 1)
+        s = torch.einsum("bgqd,bkd->bgqk", q[:, :, r0:r1].float(),
+                         k[:, k0:r1].float()) * scale
+        qpos = torch.arange(r0, r1, device=q.device)[:, None]
+        kpos = torch.arange(k0, r1, device=q.device)[None, :]
+        mask = (kpos <= qpos) & (qpos - kpos < window)
+        s = torch.where(mask, s, torch.full((), -1e30, device=s.device))
+        pr = torch.exp(s - torch.amax(s, dim=-1, keepdim=True))
+        pr = torch.where(mask, pr, torch.zeros((), device=s.device))
+        pr = pr / torch.clamp_min(torch.sum(pr, dim=-1, keepdim=True), 1e-30)
+        out[:, :, r0:r1] = torch.einsum("bgqk,bkd->bgqd", pr,
+                                        v[:, k0:r1].float())
+    return out
+
+
 def sw_attention_plain(q, k, v, *, window: int):
     """``sw_attention_ref`` over slices of the BH dim, each slice's scores
-    within ``PLAIN_SCORE_BYTES``."""
+    within ``PLAIN_SCORE_BYTES``; where one BH row's (G, S, S) scores alone
+    exceed it (command-r-plus-104b's 32k prefill: 51.5 GB a row), row by
+    row over blocks of query rows (:func:`_plain_rows`)."""
     import torch
     from repro_torch.kernels.sw_attention.ref import sw_attention_ref
     BH, G, S, _ = q.shape
+    if 4 * G * S * S > PLAIN_SCORE_BYTES:
+        return torch.cat([_plain_rows(q[i:i + 1], k[i:i + 1], v[i:i + 1],
+                                      window) for i in range(BH)])
     step = max(1, PLAIN_SCORE_BYTES // (4 * G * S * S))
     if step >= BH:
         return sw_attention_ref(q, k, v, window=window)
@@ -2206,6 +2268,56 @@ def _sw_attention_case(BH, G, S, Dh, W, gen, device) -> dict:
     return out
 
 
+def _sw_attention_long_case(BH, G, S, Dh, gen, device) -> dict:
+    """sw_attention's bf16 instance at a causal 32k prefill's shape
+    (command-r-plus-104b's), as :func:`_sw_attention_case` but with the
+    plain version by blocks of query rows (:func:`sw_attention_plain`: the
+    whole (S, S) scores of one BH row are 51.5 GB), timed once (the call
+    the check reads), the kernel and SDPA three times each, the kernel
+    three calls back to back."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.sw_attention.kernel import sw_attention_cuda
+    shape = [BH, G, S, Dh, S]
+
+    def rnd(*shp):
+        return torch.randn(shp, generator=gen, device=device,
+                           dtype=torch.float32).to(torch.bfloat16)
+    q, k, v = rnd(BH, G, S, Dh), rnd(BH, S, Dh), rnd(BH, S, Dh)
+    got = sw_attention_cuda(q, k, v, window=S)
+    plain = []
+    plain_ms = cuda_ms(lambda: plain.append(
+        sw_attention_plain(q, k, v, window=S)), runs=1)[0]
+    want = plain.pop()
+    ratio = _close_ratio(got, want)
+    check(ratio <= 1.0, f"sw_attention {shape} off its plain version: "
+          f"{ratio:.3g} of the tolerance")
+    check(torch.equal(got, sw_attention_cuda(q, k, v, window=S)),
+          f"sw_attention {shape} differs between two runs")
+    err = float((got - want).abs().max())
+    del got, want
+    k4, v4 = k[:, None], v[:, None]
+
+    def library():
+        return F.scaled_dot_product_attention(q, k4, v4, is_causal=True,
+                                              enable_gqa=True)
+    t = in_turns({"kernel": lambda: sw_attention_cuda(q, k, v, window=S),
+                  "library": library}, runs={"kernel": 3, "library": 3})
+    n_bytes, flops = sw_attention_counts(BH, G, S, Dh, S, 2)
+    b, by = bound_ms(n_bytes, flops, BF16_TC_FLOPS_PER_S)
+    out = dict(max_abs_err=err, ms=t["kernel"], plain_ms=plain_ms,
+               bound_ms=b, bound_by=by, library_ms=t["library"],
+               library_mask="is_causal=True: the band at W = S",
+               back_to_back_ms=device_ms(
+                   lambda: sw_attention_cuda(q, k, v, window=S), calls=3),
+               shape=shape, bytes=n_bytes, flops=flops,
+               tc_flops=sw_attention_tc_flops(BH, G, S, Dh, S),
+               tolerance_ratio=ratio)
+    del q, k, v, k4, v4
+    torch.cuda.empty_cache()
+    return out
+
+
 def _log_case(name: str, r: dict) -> None:
     lib = r["library_ms"]
     log(f"{name} {r['shape']}: kernel {r['ms']:.3f} ms "
@@ -2261,6 +2373,11 @@ def phase_serve_kernels(device) -> dict:
         sw[key] = _sw_attention_case(
             serve["batch"] * cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads,
             S, cfg.head_dim, S, gen, device)
+    # command-r-plus-104b's 32k causal prefill (phase 29): Dh 128, G 12
+    ccfg = get_config("command-r-plus-104b")
+    sw["command_r"] = _sw_attention_long_case(
+        ccfg.n_kv_heads, ccfg.n_heads // ccfg.n_kv_heads,
+        PERF_VARIANTS["seq"], ccfg.head_dim, gen, device)
     # the rows of the kernels line are mamba2-370m's and qwen2-1.5b's
     # causal prefill, as before; the other shapes ride along
     results = {"ssd_intra": dict(ssd["mamba2"], zamba2=ssd["zamba2"]),
@@ -2269,7 +2386,8 @@ def phase_serve_kernels(device) -> dict:
                                     whisper=sw["whisper"],
                                     qwen3_moe=sw["qwen3_moe"],
                                     llama4=sw["llama4"],
-                                    internvl2=sw["internvl2"])}
+                                    internvl2=sw["internvl2"],
+                                    command_r=sw["command_r"])}
     for name, r in (("ssd_intra mamba2-370m", ssd["mamba2"]),
                     ("ssd_intra zamba2-1.2b", ssd["zamba2"]),
                     ("sw_attention causal", sw["causal"]),
@@ -2278,7 +2396,8 @@ def phase_serve_kernels(device) -> dict:
                     ("sw_attention whisper-medium", sw["whisper"]),
                     ("sw_attention qwen3-moe-235b-a22b", sw["qwen3_moe"]),
                     ("sw_attention llama4-maverick-400b-a17b", sw["llama4"]),
-                    ("sw_attention internvl2-76b", sw["internvl2"])):
+                    ("sw_attention internvl2-76b", sw["internvl2"]),
+                    ("sw_attention command-r-plus-104b", sw["command_r"])):
         _log_case(name, r)
     log(f"ssd_intra bound {ssd['mamba2']['bound_ms']:.3f} ms (bytes "
         f"over 3.35 TB/s, or its 3xTF32 products over 495 TFLOP/s); as f32 "
@@ -4276,6 +4395,417 @@ def train_moe_vlm_only(device, card: str) -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# phase 29: the perf variants (the int8 KV cache and the triangle prefill)
+# on command-r-plus-104b at full width and a 32k prompt
+# ---------------------------------------------------------------------------
+
+# full width, 4 of 64 layers (12.58 G values, 25.17 GB in bf16), a
+# 32,768-token prompt, batch 1, 16 new tokens
+PERF_VARIANTS = dict(layers=4, seq=32768, new=16)
+# 29(c): decode over a filled 32,768-position cache, bf16 against int8. The
+# bf16 decode repeats the cache over G = 12 and pads it to whole chunks:
+# about 6.5 GB a tensor at batch 8 (four alive a layer, 26 GB), 52 GB at
+# batch 16, which with the 25.2 GB model and the 8.6 GB cache does not fit
+# an 80 GB card
+PERF_DECODE = dict(batch=8, steps=8)
+# 29(d): the reduced configs with both flags, card against CPU
+PERF_REDUCED = ("yi-9b", "granite-8b", "command-r-plus-104b",
+                "qwen3-moe-235b-a22b", "llama4-maverick-400b-a17b",
+                "internvl2-76b")
+# the reference's own bound on the int8 decode's next-token probabilities
+# (tests/test_perf_variants.py)
+PROB_TOL = 0.05
+
+
+def _cache_gb(cache) -> float:
+    return sum(x.numel() * x.element_size() for k, x in cache.items()
+               if k in ("k", "v", "k_scale", "v_scale")) / 1e9
+
+
+def _probs(logits):
+    import torch
+    return torch.softmax(logits[:, -1].float(), dim=-1)
+
+
+def _prob_gap(a, b) -> float:
+    return float((_probs(a) - _probs(b)).abs().max())
+
+
+def _perf_model(device):
+    """command-r-plus-104b at full width, ``PERF_VARIANTS["layers"]`` of
+    its layers, bf16, random weights from a seed: (cfg, its kv_quant +
+    triangle_prefill twin, params)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+    import torch
+    cfg = dataclasses.replace(get_config("command-r-plus-104b"),
+                              n_layers=PERF_VARIANTS["layers"])
+    cfg_on = dataclasses.replace(cfg, kv_quant=True, triangle_prefill=True)
+    params = get_model(cfg).init_params(torch.Generator(
+        device=device).manual_seed(SEED + 290), cfg, device=device)
+    return cfg, cfg_on, params
+
+
+def _layer0_qkv(params, batch, cfg):
+    """Layer 0's q, k, v in the prefill of ``batch`` (bf16)."""
+    import torch
+    from repro_torch.models import layers as L
+    from repro_torch.models.transformer import _embed_batch
+    x = _embed_batch(params, batch, cfg)
+    lp = L.layer_params(params, 0)
+    pos = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    return (*L.qkv_project(L.rms_norm(x, lp["attn_norm"]), lp["attn"], cfg,
+                           pos), pos)
+
+
+def _hold_triangle(params, batch, cfg) -> dict:
+    """The port's plain ``flash_attention_triangle`` on CUDA tensors (layer
+    0's q, k, v cast to f32: the same values) against the kernel on the
+    bf16 inputs, at the per-call tolerance; each timed once."""
+    import torch
+    from repro_torch.kernels.sw_attention.kernel import sw_attention_cuda
+    from repro_torch.models import layers as L
+    q, k, v, pos = _layer0_qkv(params, batch, cfg)
+    B, S, Hq, Dh = q.shape
+    Hk = k.shape[2]
+
+    def kernel():
+        o = sw_attention_cuda(
+            q.transpose(1, 2).reshape(B * Hk, Hq // Hk, S, Dh).contiguous(),
+            k.transpose(1, 2).reshape(B * Hk, S, Dh).contiguous(),
+            v.transpose(1, 2).reshape(B * Hk, S, Dh).contiguous(), window=S)
+        return o.reshape(B, Hk, Hq // Hk, S, Dh).permute(0, 3, 1, 2, 4) \
+            .reshape(B, S, Hq, Dh)
+    chunk = min(cfg.attn_chunk, S)
+    got, kernel_s = _timed(kernel)
+    want, plain_s = _timed(lambda: L.flash_attention_triangle(
+        q.float(), k.float(), v.float(), pos, pos, q_chunk=chunk,
+        kv_chunk=chunk))
+    ratio = _close_ratio(got, want)
+    check(ratio <= 1.0, f"flash_attention_triangle at S {S} is {ratio:.3g} "
+          f"of the tolerance off the kernel")
+    return {"tolerance_ratio": ratio,
+            "max_abs_err": float((got - want).abs().max()),
+            "kernel_seconds": kernel_s, "plain_triangle_seconds": plain_s}
+
+
+def _hold_kvq(cache, cfg, S: int, device) -> dict:
+    """In f32 on layer 0 of a prefilled int8 cache: ``flash_attention_kvq``
+    against ``flash_attention`` over the dequantized cache, a seeded f32
+    query at position S (|got - want| <= 1e-4 |want| + 1e-4 max|want|)."""
+    import torch
+    from repro_torch.models import layers as L
+    k8, v8 = cache["k"][0], cache["v"][0]
+    ks, vs = cache["k_scale"][0], cache["v_scale"][0]
+    q = torch.randn((k8.shape[0], 1, cfg.n_heads, cfg.head_dim),
+                    generator=torch.Generator(
+        device=device).manual_seed(SEED + 295), device=device)
+    qpos = torch.tensor([S], dtype=torch.int32, device=device)
+    got = L.flash_attention_kvq(q, k8, v8, ks, vs, qpos, cache["kpos"])
+    want = L.flash_attention(q, k8.float() * ks[..., None],
+                             v8.float() * vs[..., None], qpos,
+                             cache["kpos"], q_chunk=1)
+    ratio = _close_ratio(got, want)
+    check(ratio <= 1.0, f"flash_attention_kvq is {ratio:.3g} of the "
+          f"tolerance off flash_attention over the dequantized cache")
+    return {"tolerance_ratio": ratio,
+            "max_abs_err": float((got - want).abs().max())}
+
+
+def phase_perf_variants(device, launches: dict, card: str) -> dict:
+    """Phase 29(a)-(b): command-r-plus-104b at full width (4 of 64 layers,
+    bf16) on a (1, 32768) prompt. The path ``launches["perf_variants"]``:
+    a prefill with the variants off and one with ``triangle_prefill`` and
+    ``kv_quant`` on (each under the profiler: seconds, busy share, peak),
+    then ``Server.generate`` of 16 tokens off and on; sw_attention once a
+    layer in each of the four prefills. Then, outside the window: the two
+    prefills' logits the same bits; the same two prefills with every
+    sw_attention call held against its plain version; the first decode
+    step's next-token probabilities on the bf16 and the int8 cache within
+    ``PROB_TOL``; the int8 cache's dtype and bytes; the plain triangle
+    attention against the kernel (:func:`_hold_triangle`); the int8
+    attention against the dequantized cache (:func:`_hold_kvq`)."""
+    import torch
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.kernels import _build
+    from repro_torch.models import get_model
+    from repro_torch.training.serve import Server
+    from repro_torch.utils.tree import tree_leaves
+
+    S, new = PERF_VARIANTS["seq"], PERF_VARIANTS["new"]
+    torch.cuda.reset_peak_memory_stats()
+    cfg, cfg_on, params = _perf_model(device)
+    init_peak = torch.cuda.max_memory_allocated() / 1e9
+    batch = {"tokens": lm_batch(torch.Generator(device=device).manual_seed(
+        SEED + 291), cfg, 1, S, device=device)["tokens"]}
+    ops, ops_on = get_model(cfg), get_model(cfg_on)
+    arms = {"off": (cfg, ops), "on": (cfg_on, ops_on)}
+    got: dict = {}
+    out: dict = {"params": sum(x.numel() for x in tree_leaves(params)),
+                 "layers": cfg.n_layers, "prompt_tokens": S,
+                 "init_peak_memory_gb": init_peak}
+    laps = out["seconds"] = {}
+    t0 = time.perf_counter()
+    # the first prefill at this shape picks its GEMMs and grows the cache
+    # of blocks: outside the window and the timing
+    ops.prefill(params, batch, cfg)
+    torch.cuda.synchronize()
+    laps["warm_up"] = time.perf_counter() - t0
+    _build.reset_launches()
+    for arm, (c, o) in arms.items():
+        torch.cuda.reset_peak_memory_stats()
+        share = device_share(lambda: got.update(
+            {arm: o.prefill(params, batch, c)}))
+        out[f"prefill_{arm}"] = dict(
+            seconds=share["wall_s"], tokens_per_s=S / share["wall_s"],
+            busy_share=share["busy_share"],
+            top_device_ms=share["top_device_ms"],
+            peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    for arm, (c, o) in arms.items():
+        toks, gen_s = _timed(lambda: Server(c, params).generate(batch, new))
+        got[f"toks_{arm}"] = toks
+        out[f"decode_{arm}"] = dict(
+            generate_seconds=gen_s, tokens_per_s=(new - 1) / (
+                gen_s - out[f"prefill_{arm}"]["seconds"]))
+    launches["perf_variants"] = dict(_build.LAUNCHES)
+    laps["path"] = time.perf_counter() - t0 - laps["warm_up"]
+    n = launches["perf_variants"]["sw_attention"]
+    check(n == 4 * cfg.n_layers and launches["perf_variants"]["ssd_intra"]
+          == 0, f"sw_attention launched {n} times in four 32k prefills, not "
+          f"{4 * cfg.n_layers}")
+    (l_off, c_off), (l_on, c_on) = got["off"], got["on"]
+    check(torch.equal(l_off, l_on), "the triangle prefill's logits differ "
+          "from the baseline's on the card")
+    check(bool(torch.isfinite(l_off).all()) and l_off.shape == (
+        1, 1, cfg.vocab), "bad 32k prefill logits")
+    for arm in arms:
+        check(got[f"toks_{arm}"].shape == (1, new), f"generated tokens of "
+              f"shape {tuple(got[f'toks_{arm}'].shape)}")
+    out["generated_tokens_equal"] = int(
+        (got["toks_off"] == got["toks_on"]).sum())
+    # the caches: int8 values at half the bf16 bytes, plus the f32 scales
+    check(c_on["k"].dtype == torch.int8 and c_off["k"].dtype
+          == torch.bfloat16 and c_on["k"].shape == c_off["k"].shape
+          == (cfg.n_layers, 1, S + 64, cfg.n_kv_heads, cfg.head_dim),
+          f"caches {c_off['k'].dtype} {tuple(c_off['k'].shape)}, "
+          f"{c_on['k'].dtype} {tuple(c_on['k'].shape)}")
+    scale_gb = 2 * c_on["k_scale"].numel() * 4 / 1e9
+    out["cache_gb"] = {"bf16": _cache_gb(c_off), "int8": _cache_gb(c_on),
+                       "int8_scales": scale_gb}
+    check(abs(_cache_gb(c_on) - (_cache_gb(c_off) / 2 + scale_gb)) < 1e-9,
+          f"the int8 cache is {out['cache_gb']}")
+    # the first decode step on each cache (the two prefills' last logits
+    # are the same bits, so the same token)
+    tok = torch.argmax(l_off[:, -1], dim=-1)[:, None].to(torch.int32)
+    d_off = ops.decode_step(params, c_off, tok, cfg)[0]
+    d_on = ops_on.decode_step(params, c_on, tok, cfg_on)[0]
+    out["first_decode"] = {"max_prob_gap": _prob_gap(d_off, d_on),
+                           "logits_rel_l2": _rel_l2(d_on, d_off)}
+    check(out["first_decode"]["max_prob_gap"] < PROB_TOL,
+          f"the int8 decode's next-token probabilities are "
+          f"{out['first_decode']['max_prob_gap']:.3g} off the bf16 cache's")
+    out["kvq_vs_dequantized_f32"] = _hold_kvq(c_on, cfg, S, device)
+    del c_off, c_on, d_off, d_on, got
+    t1 = time.perf_counter()
+    # every sw_attention call of both prefills against its plain version
+    with kernel_route("checked") as ratios:
+        for arm, (c, o) in arms.items():
+            again = o.prefill(params, batch, c)[0]
+            check(torch.equal(again, l_off), f"the {arm} prefill's logits "
+                  f"differ between two runs")
+            del again
+    worst = max(ratios["sw_attention"])
+    check(len(ratios["sw_attention"]) == 2 * cfg.n_layers and worst <= 1.0,
+          f"{len(ratios['sw_attention'])} sw_attention calls, the worst "
+          f"{worst:.3g} of the tolerance")
+    out["per_call_worst_ratio"] = worst
+    laps["checked_prefills"] = time.perf_counter() - t1
+    out["triangle_vs_kernel"] = _hold_triangle(params, batch, cfg)
+    out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    laps["all"] = time.perf_counter() - t0
+    log(f"phase 29(a-b): command-r-plus-104b ({cfg.n_layers} layers), a "
+        f"32k prompt, variants off and on, on {card}: {json.dumps(out)}")
+    return out, params
+
+
+def phase_perf_decode(device, params, card: str) -> dict:
+    """Phase 29(c): the decode memory term at 32k. A cache of 32,832 slots
+    (a 32k prefill's, with its 64 free slots) filled at positions 0-32767
+    straight from seeded bf16 draws, at batch ``PERF_DECODE["batch"]``;
+    the int8 arm gets ``quantize_kv`` of the same draws (its free slots
+    the zero-row scale, as a prefill leaves them). Each arm
+    alone beside the model: ``PERF_DECODE["steps"]`` decode steps on the
+    same seeded tokens under the profiler (seconds a step, busy share),
+    its cache's bytes and its peak; each step's next-token probabilities
+    within ``PROB_TOL`` across the arms."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model, transformer
+    from repro_torch.models import layers as L
+
+    cfg = dataclasses.replace(get_config("command-r-plus-104b"),
+                              n_layers=PERF_VARIANTS["layers"])
+    B, steps, S = PERF_DECODE["batch"], PERF_DECODE["steps"], \
+        PERF_VARIANTS["seq"]
+    spec = transformer.CacheSpec(cache_len=S + 64, ring=False)
+    toks = torch.randint(0, cfg.vocab, (steps, B, 1), dtype=torch.int32,
+                         generator=torch.Generator(device=device).manual_seed(
+                             SEED + 296), device=device)
+
+    def filled(c):
+        """The cache of ``c`` at 32,832 slots: positions 0-32767 the seeded
+        draws, the 64 free slots zeros; under ``kv_quant`` each layer's
+        whole cache quantized, as a prefill leaves it."""
+        cache = transformer.init_cache(None, c, B, spec, device)
+        for i in range(c.n_layers):
+            gen = torch.Generator(device=device).manual_seed(SEED + 297 + i)
+            for key in ("k", "v"):
+                x = torch.zeros(cache[key][i].shape, dtype=torch.bfloat16,
+                                device=device)
+                x[:, :S] = torch.randn(
+                    (B, S, c.n_kv_heads, c.head_dim), generator=gen,
+                    device=device)
+                if c.kv_quant:
+                    cache[key][i], cache[key + "_scale"][i] = \
+                        L.quantize_kv(x)
+                else:
+                    cache[key][i] = x
+                del x
+        cache["kpos"][:S] = torch.arange(S, dtype=torch.int32, device=device)
+        cache["pos"].fill_(S)
+        return cache
+
+    out, probs = {}, {}
+    t0 = time.perf_counter()
+    for arm, c in (("bf16", cfg), ("int8", dataclasses.replace(
+            cfg, kv_quant=True))):
+        ops = get_model(c)
+        cache = filled(c)
+        logits = []
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+        def run():
+            for t in toks:
+                logits.append(ops.decode_step(params, cache, t, c)[0])
+        share = device_share(run)
+        out[arm] = {"seconds_per_step": share["wall_s"] / steps,
+                    "busy_share": share["busy_share"],
+                    "top_device_ms": share["top_device_ms"],
+                    "cache_gb": _cache_gb(cache),
+                    "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+        probs[arm] = [_probs(x) for x in logits]
+        del cache, logits
+    gap = max(float((a - b).abs().max()) for a, b in zip(probs["bf16"],
+                                                         probs["int8"]))
+    out.update(batch=B, steps=steps, cache_slots=S + 64, max_prob_gap=gap,
+               seconds=time.perf_counter() - t0)
+    check(gap < PROB_TOL, f"29(c): the int8 decode's next-token "
+          f"probabilities are {gap:.3g} off the bf16 cache's")
+    check(out["int8"]["peak_memory_gb"] < out["bf16"]["peak_memory_gb"],
+          f"29(c): the int8 decode's peak is not below the bf16 one's: "
+          f"{out['int8']['peak_memory_gb']:.2f} GB against "
+          f"{out['bf16']['peak_memory_gb']:.2f}")
+    log(f"phase 29(c): command-r-plus-104b decode over a 32k cache, batch "
+        f"{B}, {steps} steps, bf16 against int8, on {card}: "
+        f"{json.dumps(out)}")
+    return out
+
+
+def phase_perf_reduced(device) -> dict:
+    """Phase 29(d): each of ``PERF_REDUCED`` at its reduced config in f32
+    with ``kv_quant`` and ``triangle_prefill`` on, on the card and on the
+    CPU from the same weights and prompts: the prefill's logits and a
+    decode step's (on the CPU's cache, carried to the card: the two
+    prefills' int8 caches may sit one count apart, which are counted)
+    within rtol 1e-4, atol 1e-4; ``Server.generate``'s 6 tokens equal."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+    from repro_torch.training.serve import Server
+    from repro_torch.utils.tree import tree_map
+
+    def close(a, b) -> float:
+        """max |a - b| / (1e-4 + 1e-4 |b|); <= 1 passes."""
+        a, b = a.cpu().float(), b.cpu().float()
+        return float(((a - b).abs() / (1e-4 + 1e-4 * b.abs())).max())
+
+    out = {}
+    t0 = time.perf_counter()
+    for name in PERF_REDUCED:
+        cfg = dataclasses.replace(get_config(name, reduced=True),
+                                  kv_quant=True, triangle_prefill=True)
+        ops = get_model(cfg)
+        params = ops.init_params(torch.Generator().manual_seed(SEED + 293),
+                                 cfg, device="cpu")
+        rng = np.random.default_rng(SEED + 294)
+        batch = {"tokens": torch.from_numpy(rng.integers(
+            0, cfg.vocab, (2, 64)).astype(np.int32))}
+        if cfg.family == "vlm":
+            batch["patches"] = torch.from_numpy(rng.standard_normal(
+                (2, cfg.n_patches, cfg.vit_dim)).astype(np.float32))
+        gparams = tree_map(lambda x: x.to(device), params)
+        gbatch = {k: v.to(device) for k, v in batch.items()}
+        l_cpu, c_cpu = ops.prefill(params, batch, cfg)
+        l_gpu, c_gpu = ops.prefill(gparams, gbatch, cfg)
+        flips = sum(int((c_gpu[k].cpu().int() - c_cpu[k].int()).abs().sum())
+                    for k in ("k", "v"))
+        tok = torch.argmax(l_cpu[:, -1], dim=-1)[:, None].to(torch.int32)
+        carried = tree_map(lambda x: x.to(device), c_cpu)
+        d_gpu = ops.decode_step(gparams, carried, tok.to(device), cfg)[0]
+        d_cpu = ops.decode_step(params, c_cpu, tok, cfg)[0]
+        t_cpu = Server(cfg, params, device="cpu").generate(batch, 6)
+        t_gpu = Server(cfg, gparams, device=device).generate(gbatch, 6)
+        r = {"prefill_ratio": close(l_gpu, l_cpu),
+             "decode_ratio": close(d_gpu, d_cpu), "cache_int8_flips": flips,
+             "tokens_equal": bool(torch.equal(t_gpu.cpu(), t_cpu))}
+        check(c_gpu["k"].dtype == torch.int8 and r["tokens_equal"]
+              and r["prefill_ratio"] <= 1.0 and r["decode_ratio"] <= 1.0,
+              f"29(d) {name}: the card and the CPU differ: {r}")
+        out[name] = r
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 29(d): the reduced configs with both variants, card against "
+        f"CPU: {json.dumps(out)}")
+    return out
+
+
+def perf_variant_phases(device, launches: dict, card: str) -> dict:
+    import torch
+    out, params = phase_perf_variants(device, launches, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"perf_variants": out,
+           "perf_decode": phase_perf_decode(device, params, card)}
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["perf_reduced"] = phase_perf_reduced(device)
+    return out
+
+
+def perf_variants_only(device, card: str) -> int:
+    """``--perf-variants``: phase 14 and phase 29 alone. Its last line
+    says that it is this run, not the full one."""
+    import torch
+    kernels = phase_serve_kernels(device)
+    launches: dict = {}
+    out = perf_variant_phases(device, launches, card)
+    check(launches["perf_variants"]["sw_attention"] > 0,
+          "sw_attention was not launched on the perf_variants path")
+    log(json.dumps({"launches": launches, "serve_kernels": kernels}))
+    log(card)
+    log(json.dumps({"perf_variants_only": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}, "phases": list(out)}))
+    return 0
+
+
 def erasure_only(a_tree, device, int_rate: float, card: str) -> int:
     """``--erasure``: phase 3's parity_xor encode and phase 9 alone, with
     the erasure kernels' SASS instruction mix. Its last line says that it
@@ -4349,6 +4879,8 @@ def main(argv: list) -> int:
         return moe_vlm_only(device, card)
     if "--train-moe-vlm" in argv:
         return train_moe_vlm_only(device, card)
+    if "--perf-variants" in argv:
+        return perf_variants_only(device, card)
     gen = torch.Generator(device=device).manual_seed(SEED)
     shapes = qwen2_1_5b_shapes()
     a_tree = _map_shapes(shapes, lambda s: torch.randn(
@@ -4464,7 +4996,11 @@ def main(argv: list) -> int:
     torch.cuda.empty_cache()
     lap("phases 24-26")
     train_moe_vlm = train_moe_vlm_phases(device, launches)
+    gc.collect()
+    torch.cuda.empty_cache()
     lap("phases 27-28")
+    perf_variants = perf_variant_phases(device, launches, card)
+    lap("phase 29")
     log(json.dumps({"launches": launches}))
     old = ("block_dist", "scatter_save", "masked_restore")
     new = ("arena_maintain", "arena_scatter", "parity_xor")
@@ -4487,7 +5023,8 @@ def main(argv: list) -> int:
                         ("whisper_train", TRAIN_KERNELS),
                         ("examples", EXAMPLE_KERNELS),
                         ("internvl2_train", TRAIN_KERNELS),
-                        ("moe_train", TRAIN_KERNELS)):
+                        ("moe_train", TRAIN_KERNELS),
+                        ("perf_variants", ("sw_attention",))):
         for name in names:
             check(launches[path][name] > 0,
                   f"{name} was not launched on the {path} path")
@@ -4548,13 +5085,15 @@ def main(argv: list) -> int:
                            launches["internvl2_serve"][name],
                        "internvl2_train_launches":
                            launches["internvl2_train"][name],
-                       "moe_train_launches": launches["moe_train"][name]})
+                       "moe_train_launches": launches["moe_train"][name],
+                       "perf_variants_launches":
+                           launches["perf_variants"][name]})
     log(json.dumps({"controller": ctl, "fabric": fabric,
                     "rs_fabric": rs_fabric, "leaf_fabric": leaf_fabric,
                     "multi_erasure": multi, "mamba2_serve": mamba2,
                     "qwen2_serve": qwen2, "train": train, "store": store,
                     **families, **train_families, "examples": examples,
-                    **moe_vlm, **train_moe_vlm,
+                    **moe_vlm, **train_moe_vlm, **perf_variants,
                     "serve_kernels": {
                         name: kernels[name]
                         for name in ("ssd_intra", "sw_attention")},

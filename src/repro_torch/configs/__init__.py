@@ -5,8 +5,9 @@
 (≤2 layers, d_model ≤ 512, ≤4 experts).
 
 The port's copy of ``repro.configs``: the same ten configurations as plain
-data. The port's models serve the ``ssm`` and ``dense`` families;
-``repro_torch.models.get_model`` names the ROADMAP item of the others.
+data. ``repro_torch.models.get_model`` serves and trains every family,
+with the perf variants (``kv_quant``, ``triangle_prefill``) on the dense,
+MoE and VLM ones.
 """
 from repro_torch.configs.base import ModelConfig, register, get_config, list_configs
 

@@ -13,10 +13,12 @@
 
 The port serves and trains every family: ``dense``, ``moe`` (every layer
 MoE, or dense and MoE layers interleaved), ``vlm`` (a patch prefix),
-``ssm``, ``hybrid`` and ``audio`` (encoder-decoder). The options it
-leaves out, the int8 KV cache and the triangle prefill, raise
-``NotImplementedError`` naming item 20. The cache geometry (ring vs
-linear) is decided by ``serve_cache_len``, as in the reference.
+``ssm``, ``hybrid`` and ``audio`` (encoder-decoder). The dense, MoE and
+VLM families take the perf variants, ``kv_quant`` (an int8 cache with f32
+scales, which ``init_cache``, ``prefill`` and ``decode_step`` pass on as
+it is) and ``triangle_prefill``; the ssm, hybrid and audio families ignore
+both, as the reference does. The cache geometry (ring vs linear) is
+decided by ``serve_cache_len``, as in the reference.
 """
 from __future__ import annotations
 
@@ -124,12 +126,6 @@ def _encdec_ops(cfg: ModelConfig) -> ModelOps:
 
 def get_model(cfg: ModelConfig) -> ModelOps:
     if cfg.family in ("dense", "moe", "vlm"):
-        if cfg.kv_quant:
-            raise NotImplementedError(f"{cfg.name}: the int8 KV cache is not "
-                                      f"ported yet (ROADMAP item 20)")
-        if cfg.triangle_prefill:
-            raise NotImplementedError(f"{cfg.name}: the triangle prefill is "
-                                      f"not ported yet (ROADMAP item 20)")
         return _transformer_ops(cfg)
     if cfg.family == "ssm":
         return _ssm_ops(cfg)

@@ -21,10 +21,18 @@ reference's single-device branch: token-choice top-k routing, a
 top-capacity token gather per expert, the expert products as batched
 matmuls (on views of the trainer's 2-D expert leaves too,
 ``split_layers``), a combine in expert order; its gradient is
-``jax.grad``'s of the reference. Left out, for the perf variants: the
-int8 KV cache and the triangle prefill (item 20). The mesh (item 15) is
-not here: the single-device port takes no ``ctx``, and ``moe_block``
-raises for a ``mesh``.
+``jax.grad``'s of the reference. The mesh (item 15) is not here: the
+single-device port takes no ``ctx``, and ``moe_block`` raises for a
+``mesh``.
+
+The perf variants, forward only and plain on every device (the reference
+writes them in jnp; no TPU kernel covers them): ``quantize_kv`` (int8
+values and per-(token, head) f32 scales, the reference's arithmetic),
+``flash_attention_kvq`` (decode over an int8 cache, each kv chunk
+dequantized on its own, the query group kept as ``(Hk, G)``: no repeat of
+the cache over G and no float copy of the whole cache) and
+``flash_attention_triangle`` (causal attention whose query chunk ``i``
+visits only the kv chunks ``j <= i``).
 """
 from __future__ import annotations
 
@@ -233,11 +241,18 @@ def sinusoidal_positions(seq: int, d_model: int, offset=0,
 # chunked flash-style attention (plain; the CUDA kernel is sw_attention)
 # ---------------------------------------------------------------------------
 
-def _attend_chunk(q, k, v, qpos, kpos, *, causal, window, scale):
+def _attend_chunk(q, k, v, qpos, kpos, *, causal, window, scale,
+                  k_scale=None, v_scale=None):
     """One (q_chunk x kv_chunk) tile. q: (B,qc,Hk,G,Dh); k/v: (B,kc,Hk,Dh).
-    Returns the unnormalised (acc, m, l) online-softmax contributions."""
+    Optional per-(token, head) dequant scales ``(B, kc, Hk)`` for an int8
+    cache, applied to the chunk's f32 k/v. Returns the unnormalised (acc,
+    m, l) online-softmax contributions."""
     kf = k.to(torch.float32)
     vf = v.to(torch.float32)
+    if k_scale is not None:
+        kf = kf * k_scale.to(torch.float32)[..., None]
+    if v_scale is not None:
+        vf = vf * v_scale.to(torch.float32)[..., None]
     s = torch.einsum("bqhgd,bkhd->bhgqk", q.to(torch.float32), kf) * scale
     if causal:
         mask = kpos[None, :] <= qpos[:, None]
@@ -254,6 +269,31 @@ def _attend_chunk(q, k, v, qpos, kpos, *, causal, window, scale):
     l = torch.sum(p, dim=-1)
     acc = torch.einsum("bhgqk,bkhd->bqhgd", p, vf)
     return acc, m, l
+
+
+def _softmax_state(B, qc, Hk, G, Dh, device):
+    """The empty online-softmax state (acc, m, l) of a query chunk."""
+    return (torch.zeros((B, qc, Hk, G, Dh), dtype=torch.float32,
+                        device=device),
+            torch.full((B, Hk, G, qc), NEG_INF, dtype=torch.float32,
+                       device=device),
+            torch.zeros((B, Hk, G, qc), dtype=torch.float32, device=device))
+
+
+def _merge(acc, m, l, a, mt, lt):
+    """The state (acc, m, l) after one more tile's (a, mt, lt)."""
+    m_new = torch.maximum(m, mt)
+    r_old = torch.exp(m - m_new)
+    r_new = torch.exp(mt - m_new)
+    acc = acc * r_old.permute(0, 3, 1, 2)[..., None] \
+        + a * r_new.permute(0, 3, 1, 2)[..., None]
+    return acc, m_new, l * r_old + lt * r_new
+
+
+def _normalise(acc, l):
+    """acc / l (l clamped at 1e-30, as the reference), f32."""
+    l = torch.clamp_min(l, 1e-30)
+    return acc / l.permute(0, 3, 1, 2)[..., None]
 
 
 def _fwd_chunks(qg, kc, vc, qposc, kposc, *, causal, window, scale,
@@ -277,29 +317,35 @@ def _fwd_chunks(qg, kc, vc, qposc, kposc, *, causal, window, scale,
             chunks = range(lo, lo + nspan)
         else:
             chunks = range(nk)
-        qc, Hk, G, Dh = qck.shape[1:]
-        acc = torch.zeros((B, qc, Hk, G, Dh), dtype=torch.float32,
-                          device=qg.device)
-        m = torch.full((B, Hk, G, qc), NEG_INF, dtype=torch.float32,
-                       device=qg.device)
-        l = torch.zeros((B, Hk, G, qc), dtype=torch.float32, device=qg.device)
+        acc, m, l = _softmax_state(B, *qck.shape[1:], qg.device)
         for j in chunks:
-            a, mt, lt = _attend_chunk(qck, kc[:, j], vc[:, j], qpck,
-                                      kposc[j], causal=causal, window=window,
-                                      scale=scale)
-            m_new = torch.maximum(m, mt)
-            r_old = torch.exp(m - m_new)
-            r_new = torch.exp(mt - m_new)
-            acc = acc * r_old.permute(0, 3, 1, 2)[..., None] \
-                + a * r_new.permute(0, 3, 1, 2)[..., None]
-            l = l * r_old + lt * r_new
-            m = m_new
-        l = torch.clamp_min(l, 1e-30)
+            acc, m, l = _merge(acc, m, l, *_attend_chunk(
+                qck, kc[:, j], vc[:, j], qpck, kposc[j], causal=causal,
+                window=window, scale=scale))
         # the output in the input dtype: the backward's D is recomputed in
         # f32 from it, as in the reference
-        outs.append((acc / l.permute(0, 3, 1, 2)[..., None]).to(qck.dtype))
-        lses.append(m + torch.log(l))
+        outs.append(_normalise(acc, l).to(qck.dtype))
+        lses.append(m + torch.log(torch.clamp_min(l, 1e-30)))
     return torch.stack(outs, dim=1), torch.stack(lses, dim=1)
+
+
+def _fwd_chunks_triangle(qg, kc, vc, qposc, kposc, *, scale):
+    """Causal prefill with the triangle skip: query chunk ``i`` visits only
+    kv chunks ``j <= i`` (q and kv chunks of one size), so no tile above
+    the diagonal is computed. Forward only. qg: (B, nq, qc, Hk, G, Dh);
+    kc/vc: (B, nk, kc, Hk, Dh). Returns o (B, nq, qc, Hk, G, Dh) in q's
+    dtype."""
+    B, nq = qg.shape[0], qg.shape[1]
+    outs = []
+    for i in range(nq):
+        qck, qpck = qg[:, i], qposc[i]
+        acc, m, l = _softmax_state(B, *qck.shape[1:], qg.device)
+        for j in range(i + 1):
+            acc, m, l = _merge(acc, m, l, *_attend_chunk(
+                qck, kc[:, j], vc[:, j], qpck, kposc[j], causal=True,
+                window=0, scale=scale))
+        outs.append(_normalise(acc, l).to(qck.dtype))
+    return torch.stack(outs, dim=1)
 
 
 def _pad_chunks(q, k, v, qpos, kpos, q_chunk, kv_chunk):
@@ -442,6 +488,73 @@ def flash_attention(q, k, v, qpos, kpos, *, causal=True, window=0,
         o, _ = _flash_fwd(qg, k, v, qpos, kpos, causal, window, q_chunk,
                           kv_chunk)
     return o.reshape(B, Sq, Hq, Dh).to(q.dtype)
+
+
+def flash_attention_triangle(q, k, v, qpos, kpos, *, q_chunk=1024,
+                             kv_chunk=1024) -> torch.Tensor:
+    """Forward-only causal attention with the triangle skip
+    (:func:`_fwd_chunks_triangle`): ``flash_attention(causal=True,
+    window=0)``'s contract, the prefill's route under
+    ``cfg.triangle_prefill`` on the CPU. The query heads are grouped as
+    ``(Hk, G)`` (no repeat of k and v over G). q: (B, Sq, Hq, Dh); k, v:
+    (B, Skv, Hk, Dh). Returns (B, Sq, Hq, Dh) in q's dtype."""
+    B, Sq, Hq, Dh = q.shape
+    Hk = k.shape[2]
+    qg = q.reshape(B, Sq, Hk, Hq // Hk, Dh)
+    qgc, kc, vc, qposc, kposc, nq, _ = _pad_chunks(
+        qg, k, v, qpos, kpos, min(q_chunk, Sq), min(kv_chunk, k.shape[1]))
+    o = _fwd_chunks_triangle(qgc, kc, vc, qposc, kposc,
+                             scale=1.0 / math.sqrt(Dh))
+    o = o.reshape(B, -1, Hq, Dh)[:, :Sq]
+    return o.to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# the int8 KV cache
+# ---------------------------------------------------------------------------
+
+def quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(..., Hk, Dh) -> (int8 values, f32 scales (..., Hk)): the
+    reference's arithmetic, step for step. The f32 amax over Dh, ``scale =
+    max(amax, 1e-8) / 127`` and ``x / scale`` as f32 divisions (each by a
+    tensor: a CUDA division by a Python number multiplies by its
+    reciprocal, which can move the last bit), round half to even, clip to
+    +-127. A zero row gives int8 0 and the scale ``1e-8 / 127``."""
+    xf = x.to(torch.float32)
+    amax = torch.amax(xf.abs(), dim=-1)
+    scale = torch.clamp_min(amax, 1e-8) / torch.full(
+        (), 127.0, dtype=torch.float32, device=x.device)
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def flash_attention_kvq(q, k8, v8, k_scale, v_scale, qpos, kpos, *,
+                        window=0, kv_chunk=1024) -> torch.Tensor:
+    """Decode attention over an int8 KV cache: the reference's chunked
+    online softmax, one kv chunk at a time, each chunk's k/v dequantized
+    in f32 on its own (``_attend_chunk``'s scales). The query heads are
+    grouped as ``(Hk, G)``, so the cache is never repeated over G and the
+    f32 peak is one chunk's k and v, ``(B, kv_chunk, Hk, Dh)`` each.
+
+    q: (B, Sq, Hq, Dh) (Sq small: decode); k8/v8: (B, Skv, Hk, Dh) int8;
+    k_scale/v_scale: (B, Skv, Hk) f32; qpos: (Sq,); kpos: (Skv,) (-1 = an
+    empty slot). Causal, banded when ``window > 0``. Returns (B, Sq, Hq,
+    Dh) in q's dtype."""
+    B, Sq, Hq, Dh = q.shape
+    Skv, Hk = k8.shape[1], k8.shape[2]
+    qg = q.reshape(B, Sq, Hk, Hq // Hk, Dh)
+    scale = 1.0 / math.sqrt(Dh)
+    kv_chunk = min(kv_chunk, Skv)
+    acc, m, l = _softmax_state(B, *qg.shape[1:], q.device)
+    # a short last chunk is the reference's zero-padded one: its padding is
+    # masked (kpos -1) and adds nothing
+    for lo in range(0, Skv, kv_chunk):
+        hi = min(lo + kv_chunk, Skv)
+        acc, m, l = _merge(acc, m, l, *_attend_chunk(
+            qg, k8[:, lo:hi], v8[:, lo:hi], qpos, kpos[lo:hi], causal=True,
+            window=window, scale=scale, k_scale=k_scale[:, lo:hi],
+            v_scale=v_scale[:, lo:hi]))
+    return _normalise(acc, l).reshape(B, Sq, Hq, Dh).to(q.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -30,9 +30,17 @@ stacking ``[dense_i, moe_i]`` (cache layer ``2 i`` is pair ``i``'s dense
 layer); a VLM (internvl2) projects the batch's ``patches`` and prepends
 them to the token embeddings, so its prompt is ``S + n_patches`` long.
 Every reader of the weights takes the trainer's per-layer layout too
-(``layers.split_layers``: ``wo`` and the expert stacks held 2-D). Left out: the int8 KV cache and the triangle prefill (item 20,
-``models.api`` raises) and the mesh (item 15). ``decode_step`` writes the
-new token's K/V into the cache in place.
+(``layers.split_layers``: ``wo`` and the expert stacks held 2-D). Left
+out: the mesh (item 15). ``decode_step`` writes the new token's K/V into
+the cache in place.
+
+The perf variants, as the reference's: under ``cfg.kv_quant`` the cache
+holds int8 ``k``/``v`` with f32 ``k_scale``/``v_scale`` per (token, kv
+head); the prefill quantizes each layer's kept K/V (in the model dtype) as
+it writes them, and a decode step quantizes the new token's and attends
+with ``layers.flash_attention_kvq``. Under ``cfg.triangle_prefill`` a
+causal prefill on the CPU runs ``layers.flash_attention_triangle``; on the
+card it is the sw_attention kernel either way (:func:`prefill_attention`).
 """
 from __future__ import annotations
 
@@ -222,25 +230,47 @@ def cache_spec(cfg: ModelConfig, seq_len: int, *, use_window: bool
 
 def init_cache(params_or_none, cfg: ModelConfig, batch: int, spec: CacheSpec,
                device: DeviceLike = None) -> PyTree:
+    """An empty cache on ``device`` (``cuda`` unless asked otherwise):
+    ``k``/``v`` (L, B, cache_len, Hk, Dh) in the model dtype, or int8 with
+    zero f32 ``k_scale``/``v_scale`` (L, B, cache_len, Hk) under
+    ``cfg.kv_quant``."""
     dev = resolve_device(device)
     shape = (cfg.n_layers, batch, spec.cache_len, cfg.n_kv_heads,
              cfg.head_dim)
-    return {
-        "k": torch.zeros(shape, dtype=_dtype(cfg), device=dev),
-        "v": torch.zeros(shape, dtype=_dtype(cfg), device=dev),
+    dt = torch.int8 if cfg.kv_quant else _dtype(cfg)
+    cache = {
+        "k": torch.zeros(shape, dtype=dt, device=dev),
+        "v": torch.zeros(shape, dtype=dt, device=dev),
         "kpos": torch.full((spec.cache_len,), -1, dtype=torch.int32,
                            device=dev),
         "pos": torch.zeros((), dtype=torch.int32, device=dev),
     }
+    if cfg.kv_quant:
+        cache["k_scale"] = torch.zeros(shape[:-1], dtype=torch.float32,
+                                       device=dev)
+        cache["v_scale"] = torch.zeros(shape[:-1], dtype=torch.float32,
+                                       device=dev)
+    return cache
 
 
-def prefill_attention(q, k, v, positions, cfg: ModelConfig, window: int):
+def prefill_attention(q, k, v, positions, cfg: ModelConfig, window: int,
+                      *, triangle: bool = False):
     """Causal (``window=0``) or banded prefill attention over the prompt:
     the sw_attention kernel on the card, the plain chunked attention on
-    the CPU."""
+    the CPU (``layers.flash_attention_triangle`` for a causal prefill when
+    ``triangle``, the dense family's ``cfg.triangle_prefill``).
+
+    On the card ``triangle`` changes nothing: the kernel with ``window=S``
+    already visits only the key tiles at or below the diagonal
+    (``csrc/sw_attention.cu``), which is what the reference's triangle
+    route buys over its visit-every-tile baseline. The same launch, the
+    same bits, with the flag or without."""
     S = q.shape[1]
     if q.device.type == "cpu":
         chunk = min(cfg.attn_chunk, S)
+        if triangle and not window:
+            return L.flash_attention_triangle(q, k, v, positions, positions,
+                                              q_chunk=chunk, kv_chunk=chunk)
         return L.flash_attention(q, k, v, positions, positions, causal=True,
                                  window=window, q_chunk=chunk,
                                  kv_chunk=chunk)
@@ -249,7 +279,8 @@ def prefill_attention(q, k, v, positions, cfg: ModelConfig, window: int):
 
 def decode_step(params, cache, tokens, cfg: ModelConfig, spec: CacheSpec):
     """One decode step. tokens: (B, 1) -> logits (B, 1, V) f32 and the
-    cache, whose K/V and ``kpos`` are updated in place."""
+    cache, whose K/V (and, under ``cfg.kv_quant``, scales) and ``kpos``
+    are updated in place."""
     x = L.embed_tokens(tokens, params)
     pos = int(cache["pos"])
     positions = torch.tensor([pos], dtype=torch.int32, device=x.device)
@@ -262,10 +293,21 @@ def decode_step(params, cache, tokens, cfg: ModelConfig, spec: CacheSpec):
         kc, vc = cache["k"][i], cache["v"][i]
         xn = L.rms_norm(x, lp["attn_norm"])
         q, k, v = L.qkv_project(xn, lp["attn"], cfg, positions)
-        kc[:, slot] = k[:, 0].to(kc.dtype)
-        vc[:, slot] = v[:, 0].to(vc.dtype)
-        o = L.flash_attention(q, kc, vc, positions, kpos, causal=True,
-                              window=window, q_chunk=1, kv_chunk=kv_chunk)
+        if cfg.kv_quant:
+            # the new token quantized as the reference does (its model-dtype
+            # k/v), the cache streamed a chunk at a time in int8
+            ksc, vsc = cache["k_scale"][i], cache["v_scale"][i]
+            (k8, k_s), (v8, v_s) = L.quantize_kv(k), L.quantize_kv(v)
+            kc[:, slot], ksc[:, slot] = k8[:, 0], k_s[:, 0]
+            vc[:, slot], vsc[:, slot] = v8[:, 0], v_s[:, 0]
+            o = L.flash_attention_kvq(q, kc, vc, ksc, vsc, positions, kpos,
+                                      window=window, kv_chunk=kv_chunk)
+        else:
+            kc[:, slot] = k[:, 0].to(kc.dtype)
+            vc[:, slot] = v[:, 0].to(vc.dtype)
+            o = L.flash_attention(q, kc, vc, positions, kpos, causal=True,
+                                  window=window, q_chunk=1,
+                                  kv_chunk=kv_chunk)
         x = x + L.attn_out(o, lp["attn"]["wo"])
         x = x + _ffn(x, lp, cfg)[0]
     h = L.rms_norm(x, params["final_norm"])
@@ -276,15 +318,27 @@ def decode_step(params, cache, tokens, cfg: ModelConfig, spec: CacheSpec):
 
 def prefill(params, batch, cfg: ModelConfig, spec: CacheSpec):
     """Prefill over a full prompt (a VLM's patch prefix first); returns
-    (logits of the last position (B, 1, V) f32, cache)."""
+    (logits of the last position (B, 1, V) f32, cache). Under
+    ``cfg.kv_quant`` each layer's kept K/V are quantized as they are
+    written, from the model-dtype values: the reference's quantization of
+    the whole finished cache, bit for bit, without a model-dtype copy of
+    the cache beside the int8 one."""
     x = _embed_batch(params, batch, cfg)
     B, S, _ = x.shape
     dt = _dtype(cfg)
     positions = torch.arange(S, dtype=torch.int32, device=x.device)
     window = cfg.sliding_window if (cfg.sliding_window and spec.ring) else 0
     shape = (cfg.n_layers, B, spec.cache_len, cfg.n_kv_heads, cfg.head_dim)
-    ks = torch.zeros(shape, dtype=dt, device=x.device)
-    vs = torch.zeros(shape, dtype=dt, device=x.device)
+    quant = cfg.kv_quant
+    ks = torch.zeros(shape, dtype=torch.int8 if quant else dt,
+                     device=x.device)
+    vs = torch.zeros_like(ks)
+    if quant:
+        # every slot that holds no token gets quantize_kv's scale of a zero
+        # row, 1e-8 / 127: the reference quantizes its whole cache
+        empty = L.quantize_kv(torch.zeros((1, 1), device=x.device))[1]
+        k_scale = empty.expand(shape[:-1]).clone()
+        v_scale = k_scale.clone()
     if spec.ring:
         # place the last `cache_len` positions at their ring slots so that
         # later decode writes (slot = pos % cache_len) line up
@@ -293,16 +347,22 @@ def prefill(params, batch, cfg: ModelConfig, spec: CacheSpec):
     for i, lp in layer_walk(params, cfg):
         xn = L.rms_norm(x, lp["attn_norm"])
         q, k, v = L.qkv_project(xn, lp["attn"], cfg, positions)
-        o = prefill_attention(q, k, v, positions, cfg, window)
+        o = prefill_attention(q, k, v, positions, cfg, window,
+                              triangle=cfg.triangle_prefill)
         x = x + L.attn_out(o, lp["attn"]["wo"])
         x = x + _ffn(x, lp, cfg)[0]
-        if spec.ring:
-            ks[i][:, slots] = k[:, -W:].to(dt)
-            vs[i][:, slots] = v[:, -W:].to(dt)
+        kept = [k.to(dt), v.to(dt)]
+        if quant:
+            kept = [*L.quantize_kv(kept[0]), *L.quantize_kv(kept[1])]
+            dsts = (ks[i], k_scale[i], vs[i], v_scale[i])
         else:
-            # slots past S stay empty: room for the tokens decoded next
-            ks[i, :, :S] = k.to(dt)
-            vs[i, :, :S] = v.to(dt)
+            dsts = (ks[i], vs[i])
+        for dst, src in zip(dsts, kept):
+            if spec.ring:
+                dst[:, slots] = src[:, -W:]
+            else:
+                # slots past S stay empty: room for the tokens decoded next
+                dst[:, :S] = src
     hfin = L.rms_norm(x, params["final_norm"])
     logits = L.lm_logits(hfin[:, -1:], params)
     kept = min(spec.cache_len, S)
@@ -313,4 +373,6 @@ def prefill(params, batch, cfg: ModelConfig, spec: CacheSpec):
     kpos[kept_positions.long() % spec.cache_len] = kept_positions
     cache = {"k": ks, "v": vs, "kpos": kpos,
              "pos": torch.tensor(S, dtype=torch.int32, device=x.device)}
+    if quant:
+        cache["k_scale"], cache["v_scale"] = k_scale, v_scale
     return logits, cache

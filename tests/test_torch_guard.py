@@ -7,6 +7,7 @@
   ``interop.load_parity_rows``.
 """
 import ast
+import dataclasses
 from pathlib import Path
 
 import numpy as np
@@ -64,7 +65,13 @@ def test_entry_points_default_to_cuda(tmp_path):
         cfg = get_config(name, reduced=True)
         lm[name] = (cfg, get_model(cfg).init_params(
             torch.Generator().manual_seed(0), cfg, device="cpu"))
+    # the int8 KV cache's empty cache, asked for no device
+    qcfg = dataclasses.replace(get_config("yi-9b", reduced=True),
+                               kv_quant=True)
     if torch.cuda.is_available():
+        cache = get_model(qcfg).init_cache(qcfg, 2, 16)
+        assert {x.device.type for x in cache.values()} == {"cuda"}
+        assert cache["k"].dtype == torch.int8
         assert make_model("qp").device.type == "cuda"
         with pytest.raises(ValueError):
             FTController(params, CheckpointPolicy.scar())   # params on CPU
@@ -77,6 +84,10 @@ def test_entry_points_default_to_cuda(tmp_path):
             with pytest.raises(ValueError):
                 Server(cfg, cpu_params)                      # params on CPU
         return
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        get_model(qcfg).init_cache(qcfg, 2, 16)
+    cache = get_model(qcfg).init_cache(qcfg, 2, 16, device="cpu")
+    assert cache["k"].dtype == torch.int8 and cache["k"].device.type == "cpu"
     for cfg, cpu_params in lm.values():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             get_model(cfg).init_params(torch.Generator().manual_seed(0), cfg)

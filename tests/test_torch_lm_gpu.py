@@ -16,8 +16,15 @@ Q K^T products are exact in f32 and its P V splits P into two bf16 parts,
 ~2^-17 of P); the reduced models' prefill logits, card against CPU, rtol
 1e-4, atol 1e-4 (f32 throughout, TF32 off); greedy tokens equal; the MoE
 and VLM prefills' logits bit-identical over two runs on the card (the MoE
-combine adds in expert order, no atomics).
+combine adds in expert order, no atomics); with the perf variants
+(``kv_quant`` and ``triangle_prefill``) on the dense, MoE and VLM reduced
+configs, the same prefill tolerance, the int8 caches at most one count
+apart (the two devices' f32 projections may round a value to the other
+side of a half), a decode step on the CPU's cache carried to the card
+within rtol 1e-4, atol 1e-4, and the greedy tokens equal.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -248,3 +255,45 @@ def test_ring_prefill_on_the_card_matches_the_cpu(cuda):
         out[str(dev)] = (logits.cpu(), logits2.cpu(), cache["k"].cpu())
     for a, b in zip(out["cuda"], out["cpu"]):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["yi-9b", "granite-8b", "command-r-plus-104b",
+                                  "qwen3-moe-235b-a22b",
+                                  "llama4-maverick-400b-a17b",
+                                  "internvl2-76b"])
+def test_perf_variants_on_the_card_match_the_cpu(cuda, name):
+    cfg = dataclasses.replace(get_config(name, reduced=True), kv_quant=True,
+                              triangle_prefill=True)
+    ops = get_model(cfg)
+    params = ops.init_params(torch.Generator().manual_seed(0), cfg,
+                             device="cpu")
+    rng = np.random.default_rng(3)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab, (2, 64)).astype(np.int32))}
+    if cfg.family == "vlm":
+        batch["patches"] = torch.from_numpy(rng.standard_normal(
+            (2, cfg.n_patches, cfg.vit_dim)).astype(np.float32))
+    gparams = tree_map(lambda x: x.to(cuda), params)
+    gbatch = {k: v.to(cuda) for k, v in batch.items()}
+    logits_cpu, cache_cpu = ops.prefill(params, batch, cfg)
+    n0 = dict(_build.LAUNCHES)
+    logits, cache = ops.prefill(gparams, gbatch, cfg)
+    assert _build.LAUNCHES["sw_attention"] - n0["sw_attention"] \
+        == cfg.n_layers
+    torch.testing.assert_close(logits.cpu(), logits_cpu, rtol=1e-4, atol=1e-4)
+    assert cache["k"].dtype == torch.int8 and cache["k"].is_cuda
+    for key in ("k", "v"):
+        assert int((cache[key].cpu().int() - cache_cpu[key].int()).abs()
+                   .max()) <= 1
+        torch.testing.assert_close(cache[key + "_scale"].cpu(),
+                                   cache_cpu[key + "_scale"], rtol=1e-5,
+                                   atol=0)
+    tok = torch.argmax(logits_cpu[:, -1], dim=-1)[:, None].to(torch.int32)
+    carried = tree_map(lambda x: x.to(cuda), cache_cpu)
+    got = ops.decode_step(gparams, carried, tok.to(cuda), cfg)[0]
+    want = ops.decode_step(params, cache_cpu, tok, cfg)[0]
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    toks_cpu = Server(cfg, params, device="cpu").generate(batch, 6)
+    toks = Server(cfg, gparams, device=cuda).generate(gbatch, 6)
+    assert torch.equal(toks.cpu(), toks_cpu)

@@ -232,8 +232,9 @@ def test_serve_with_recovery_flow():
 def test_unported_families_name_their_roadmap_items():
     """Every family serves (the MoE and VLM ones since ROADMAP item 19)
     and trains (the MoE and VLM ones since item 31: a finite loss, a
-    trainer on the CPU); what is not ported names its item: the int8 KV
-    cache and the triangle prefill (item 20)."""
+    trainer on the CPU); the dense, MoE and VLM families build and serve
+    with each perf variant (item 20): the int8 KV cache and the triangle
+    prefill."""
     from repro_torch.training.train_loop import TrainLoop
     for name in ("qwen3-moe-235b-a22b", "llama4-maverick-400b-a17b",
                  "internvl2-76b"):
@@ -260,8 +261,19 @@ def test_unported_families_name_their_roadmap_items():
         for option in ("kv_quant", "triangle_prefill"):
             cfg = dataclasses.replace(get_config(name, reduced=True),
                                       **{option: True})
-            with pytest.raises(NotImplementedError, match="item 20"):
-                get_model(cfg)
+            ops = get_model(cfg)
+            params = ops.init_params(torch.Generator().manual_seed(0), cfg,
+                                     device="cpu")
+            batch = {"tokens": torch.from_numpy(_tokens(cfg, (1, 8),
+                                                        seed=7))}
+            if cfg.family == "vlm":
+                batch["patches"] = torch.zeros((1, cfg.n_patches,
+                                                cfg.vit_dim))
+            _, cache = ops.prefill(params, batch, cfg)
+            assert (cache["k"].dtype == torch.int8) is (option == "kv_quant")
+            assert ("k_scale" in cache) is (option == "kv_quant")
+            toks = Server(cfg, params, device="cpu").generate(batch, 3)
+            assert toks.shape == (1, 3)
     # the LM training loss (item 10) is ported: it runs on the dense
     # family's reduced yi-9b and gives a finite scalar
     cfg = get_config("yi-9b", reduced=True)
