@@ -281,28 +281,33 @@ Phases, each of which fails the run if it fails:
     GQA 96/8, d_ff 33792, vocab 256,000, the untied head, bf16, random
     weights from a seed) with 4 of its 64 layers (12.58 G values, 25.17
     GB), on a (1, 32768) prompt. (a) A prefill with the variants off and
-    one with ``triangle_prefill`` and ``kv_quant`` on, each under the
-    profiler (seconds, tokens/s, busy share, peak), the same bits of
-    logits; both again with every sw_attention call held against its
+    one with ``triangle_prefill`` and ``kv_quant`` on (peak), the same
+    bits of logits; for each arm a warm prefill and ``Server.generate``
+    of 16 tokens, both unprofiled (prefill tokens/s, decode tokens/s from
+    their difference), and one prefill under the profiler (busy share);
+    both prefills again with every sw_attention call held against its
     plain version (by blocks of query rows: one row's scores are 51.5
-    GB); the port's plain ``flash_attention_triangle`` on the card on
-    layer 0's q, k, v against the kernel. (b) ``Server.generate`` of 16
-    tokens off and on (decode tokens/s); the int8 cache's dtype and bytes
-    (half the bf16 cache's plus the scales); the first decode step's
-    next-token probabilities within 0.05 (the reference's bound) and the
-    logits' relative L2; in f32 on layer 0's int8 cache,
+    GB), each call's worst element logged; the port's plain
+    ``flash_attention_triangle`` on the card on layer 0's q, k, v against
+    the kernel. (b) The int8 cache's dtype and bytes (half the bf16
+    cache's plus the scales); the first decode step on each cache: the
+    next-token probabilities within 0.05 (the reference's bound), the
+    logits within a relative L2 of ``LOGITS_L2_TOL``, which a decode with
+    the scales left out exceeds, and layer 0's new slot in the int8 cache
+    ``quantize_kv`` of the bf16 cache's, bit for bit (a token not written
+    is reported too); in f32 on layer 0's int8 cache,
     ``flash_attention_kvq`` against ``flash_attention`` over the
     dequantized cache. (c) 8 decode steps over a 32,832-slot cache filled
     at positions 0-32767 from seeded bf16 draws (the int8 arm:
     ``quantize_kv`` of the same draws), batch 8, each arm alone beside the
     model: seconds a step, busy share, cache bytes, peak (the int8 peak
-    below the bf16 one), the probabilities within 0.05. (d) yi-9b,
+    below the bf16 one), and (b)'s checks over every step. (d) yi-9b,
     granite-8b, command-r-plus-104b, qwen3-moe-235b-a22b,
     llama4-maverick-400b-a17b and internvl2-76b reduced, f32, both flags,
     card against CPU: prefill and decode logits within rtol 1e-4, atol
     1e-4, ``Server.generate``'s tokens equal. ``launches["perf_variants"]``
-    counts sw_attention over (a)'s two prefills and (b)'s two generates:
-    once a layer in each of the four 32k prefills.
+    counts sw_attention over (a)'s eight 32k prefills (the two generates'
+    included): once a layer in each.
 
 The line before the last is the kernels' JSON record (each kernel's
 launches on its own path, ``train_launches`` on phase 17's,
@@ -2078,11 +2083,27 @@ def sw_attention_counts(BH, G, S, Dh, W, itemsize) -> tuple[int, int]:
     return n_bytes, 4 * BH * G * Dh * band
 
 
+def _worst_element(got, want) -> dict:
+    """Where |got - want| / (RTOL |want| + RTOL max|want|) is largest: the
+    ratio (<= 1 passes), the element's index, got and want there, and
+    max|want|."""
+    want = want.to(got.dtype)
+    top = want.abs().max()
+    r = (got - want).abs() / (SERVE_RTOL * (want.abs() + top)).clamp_min(
+        1e-30)
+    i = int(r.argmax())
+    at, rest = [], i
+    for n in reversed(r.shape):
+        rest, j = divmod(rest, n)
+        at.insert(0, j)
+    return {"ratio": float(r.reshape(-1)[i]), "at": at,
+            "got": float(got.reshape(-1)[i]),
+            "want": float(want.reshape(-1)[i]), "want_abs_max": float(top)}
+
+
 def _close_ratio(got, want) -> float:
     """max |got - want| / (RTOL |want| + RTOL max|want|); <= 1 passes."""
-    want = want.to(got.dtype)
-    lim = SERVE_RTOL * (want.abs() + want.abs().max())
-    return float(((got - want).abs() / lim.clamp_min(1e-30)).max())
+    return _worst_element(got, want)["ratio"]
 
 
 def _rel_l2(a, b) -> float:
@@ -2149,12 +2170,13 @@ def kernel_route(mode: str):
     (sw_attention's by BH slices, :func:`sw_attention_plain`).
     ``"checked"``: every kernel launch is also run through its plain version
     on the same inputs; yields the tolerance ratios (``_close_ratio``) per
-    kernel."""
+    kernel, and each sw_attention call's worst element
+    (``"sw_attention_worst"``, :func:`_worst_element`)."""
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.kernels.ssd_scan.ref import ssd_intra_ref
     from repro_torch.kernels.sw_attention import ops as sw_ops
     ssd_cuda, sw_cuda = ssd_ops.ssd_intra_cuda, sw_ops.sw_attention_cuda
-    ratios = {"ssd_intra": [], "sw_attention": []}
+    ratios = {"ssd_intra": [], "sw_attention": [], "sw_attention_worst": []}
     if mode == "plain":
         ssd_ops.ssd_intra_cuda = ssd_intra_ref
         sw_ops.sw_attention_cuda = sw_attention_plain
@@ -2167,8 +2189,10 @@ def kernel_route(mode: str):
 
         def sw(q, k, v, *, window):
             got = sw_cuda(q, k, v, window=window)
-            ratios["sw_attention"].append(_close_ratio(
-                got, sw_attention_plain(q, k, v, window=window)))
+            worst = _worst_element(got, sw_attention_plain(q, k, v,
+                                                           window=window))
+            ratios["sw_attention"].append(worst["ratio"])
+            ratios["sw_attention_worst"].append(worst)
             return got
         ssd_ops.ssd_intra_cuda, sw_ops.sw_attention_cuda = ssd, sw
     try:
@@ -2217,103 +2241,69 @@ def _ssd_intra_case(dims, gen, device) -> dict:
         tolerance_ratio=ratio)
 
 
-def _sw_attention_case(BH, G, S, Dh, W, gen, device) -> dict:
+def _sw_attention_case(BH, G, S, Dh, W, gen, device,
+                       runs: Optional[int] = None) -> dict:
     """sw_attention's bf16 instance at (BH, G, S, Dh, W) against its plain
-    version, bit-identical run to run, timed in turns and back to back
-    beside its bound and ``F.scaled_dot_product_attention`` with the band
-    mask (timed only)."""
+    version (:func:`sw_attention_plain`, which goes by blocks of rows where
+    the scores are large), bit-identical run to run, timed in turns and
+    back to back beside its bound and ``F.scaled_dot_product_attention``
+    with the band mask (timed only; ``is_causal`` where the band is the
+    causal mask and the plain scores would not fit whole, as at
+    command-r-plus-104b's 32k prefill). ``runs`` cuts the kernel's and
+    SDPA's timed runs and the back-to-back calls; the plain version is then
+    timed once, by the call the check reads."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.sw_attention.kernel import sw_attention_cuda
-    from repro_torch.kernels.sw_attention.ref import sw_attention_ref
     shape = [BH, G, S, Dh, W]
 
     def rnd(*shp):
-        return torch.randn(shp, generator=gen, device=device)
-    q = rnd(BH, G, S, Dh).to(torch.bfloat16)
-    k = rnd(BH, S, Dh).to(torch.bfloat16)
-    v = rnd(BH, S, Dh).to(torch.bfloat16)
+        return torch.randn(shp, generator=gen, device=device).to(
+            torch.bfloat16)
+    q, k, v = rnd(BH, G, S, Dh), rnd(BH, S, Dh), rnd(BH, S, Dh)
     got = sw_attention_cuda(q, k, v, window=W)
-    want = sw_attention_ref(q, k, v, window=W)
+    plain = []
+    plain_ms = cuda_ms(lambda: plain.append(
+        sw_attention_plain(q, k, v, window=W)), runs=1)[0]
+    want = plain.pop()
     ratio = _close_ratio(got, want)
     check(ratio <= 1.0, f"sw_attention {shape} off its plain version: "
           f"{ratio:.3g} of the tolerance")
     check(torch.equal(got, sw_attention_cuda(q, k, v, window=W)),
           f"sw_attention {shape} differs between two runs")
     err = float((got - want).abs().max())
-    pos = torch.arange(S, device=device)
-    band = (pos[None, :] <= pos[:, None]) & (pos[:, None] - pos[None, :] < W)
     k4, v4 = k[:, None], v[:, None]
+    if W >= S and 4 * G * S * S > PLAIN_SCORE_BYTES:
+        mask = dict(is_causal=True)
+    else:
+        pos = torch.arange(S, device=device)
+        mask = dict(attn_mask=(pos[None, :] <= pos[:, None])
+                    & (pos[:, None] - pos[None, :] < W))
 
     def library():
-        return F.scaled_dot_product_attention(q, k4, v4, attn_mask=band,
-                                              enable_gqa=True)
+        return F.scaled_dot_product_attention(q, k4, v4, enable_gqa=True,
+                                              **mask)
     lib_err = float((library().float() - want).abs().max())
     del got, want
-    t = in_turns({"plain": lambda: sw_attention_ref(q, k, v, window=W),
-                  "kernel": lambda: sw_attention_cuda(q, k, v, window=W),
-                  "library": library})
+    fns = {"kernel": lambda: sw_attention_cuda(q, k, v, window=W),
+           "library": library}
+    if runs is None:
+        fns["plain"] = lambda: sw_attention_plain(q, k, v, window=W)
+    t = in_turns(fns, runs=runs and {"kernel": runs, "library": runs})
     n_bytes, flops = sw_attention_counts(BH, G, S, Dh, W, 2)
-    tc_flops = sw_attention_tc_flops(BH, G, S, Dh, W)
     b, by = bound_ms(n_bytes, flops, BF16_TC_FLOPS_PER_S)
-    out = dict(max_abs_err=err, ms=t["kernel"], plain_ms=t["plain"],
-               bound_ms=b, bound_by=by, library_ms=t["library"],
-               library_max_abs_err=lib_err, back_to_back_ms=device_ms(
-                   lambda: sw_attention_cuda(q, k, v, window=W)),
-               library_back_to_back_ms=device_ms(library), shape=shape,
-               bytes=n_bytes, flops=flops, tc_flops=tc_flops,
-               tolerance_ratio=ratio)
-    del q, k, v, k4, v4, band
-    torch.cuda.empty_cache()
-    return out
-
-
-def _sw_attention_long_case(BH, G, S, Dh, gen, device) -> dict:
-    """sw_attention's bf16 instance at a causal 32k prefill's shape
-    (command-r-plus-104b's), as :func:`_sw_attention_case` but with the
-    plain version by blocks of query rows (:func:`sw_attention_plain`: the
-    whole (S, S) scores of one BH row are 51.5 GB), timed once (the call
-    the check reads), the kernel and SDPA three times each, the kernel
-    three calls back to back."""
-    import torch
-    import torch.nn.functional as F
-    from repro_torch.kernels.sw_attention.kernel import sw_attention_cuda
-    shape = [BH, G, S, Dh, S]
-
-    def rnd(*shp):
-        return torch.randn(shp, generator=gen, device=device,
-                           dtype=torch.float32).to(torch.bfloat16)
-    q, k, v = rnd(BH, G, S, Dh), rnd(BH, S, Dh), rnd(BH, S, Dh)
-    got = sw_attention_cuda(q, k, v, window=S)
-    plain = []
-    plain_ms = cuda_ms(lambda: plain.append(
-        sw_attention_plain(q, k, v, window=S)), runs=1)[0]
-    want = plain.pop()
-    ratio = _close_ratio(got, want)
-    check(ratio <= 1.0, f"sw_attention {shape} off its plain version: "
-          f"{ratio:.3g} of the tolerance")
-    check(torch.equal(got, sw_attention_cuda(q, k, v, window=S)),
-          f"sw_attention {shape} differs between two runs")
-    err = float((got - want).abs().max())
-    del got, want
-    k4, v4 = k[:, None], v[:, None]
-
-    def library():
-        return F.scaled_dot_product_attention(q, k4, v4, is_causal=True,
-                                              enable_gqa=True)
-    t = in_turns({"kernel": lambda: sw_attention_cuda(q, k, v, window=S),
-                  "library": library}, runs={"kernel": 3, "library": 3})
-    n_bytes, flops = sw_attention_counts(BH, G, S, Dh, S, 2)
-    b, by = bound_ms(n_bytes, flops, BF16_TC_FLOPS_PER_S)
-    out = dict(max_abs_err=err, ms=t["kernel"], plain_ms=plain_ms,
-               bound_ms=b, bound_by=by, library_ms=t["library"],
-               library_mask="is_causal=True: the band at W = S",
+    calls = runs or 10
+    out = dict(max_abs_err=err, ms=t["kernel"],
+               plain_ms=t.get("plain", plain_ms), bound_ms=b, bound_by=by,
+               library_ms=t["library"], library_max_abs_err=lib_err,
+               library_mask="is_causal" if "is_causal" in mask else "band",
                back_to_back_ms=device_ms(
-                   lambda: sw_attention_cuda(q, k, v, window=S), calls=3),
+                   lambda: sw_attention_cuda(q, k, v, window=W), calls),
+               library_back_to_back_ms=device_ms(library, calls),
                shape=shape, bytes=n_bytes, flops=flops,
-               tc_flops=sw_attention_tc_flops(BH, G, S, Dh, S),
+               tc_flops=sw_attention_tc_flops(BH, G, S, Dh, W),
                tolerance_ratio=ratio)
-    del q, k, v, k4, v4
+    del q, k, v, k4, v4, mask
     torch.cuda.empty_cache()
     return out
 
@@ -2375,9 +2365,10 @@ def phase_serve_kernels(device) -> dict:
             S, cfg.head_dim, S, gen, device)
     # command-r-plus-104b's 32k causal prefill (phase 29): Dh 128, G 12
     ccfg = get_config("command-r-plus-104b")
-    sw["command_r"] = _sw_attention_long_case(
+    sw["command_r"] = _sw_attention_case(
         ccfg.n_kv_heads, ccfg.n_heads // ccfg.n_kv_heads,
-        PERF_VARIANTS["seq"], ccfg.head_dim, gen, device)
+        PERF_VARIANTS["seq"], ccfg.head_dim, PERF_VARIANTS["seq"], gen,
+        device, runs=3)
     # the rows of the kernels line are mamba2-370m's and qwen2-1.5b's
     # causal prefill, as before; the other shapes ride along
     results = {"ssd_intra": dict(ssd["mamba2"], zamba2=ssd["zamba2"]),
@@ -2433,13 +2424,17 @@ def _timed(fn):
     return out, time.perf_counter() - t0
 
 
-def _serve_speeds(srv, ops, cfg, batch, n_new) -> dict:
+def _serve_speeds(srv, ops, cfg, batch, n_new,
+                  tokens: Optional[list] = None) -> dict:
     """Warm host-clock seconds of a prefill alone and of a whole
     generate; decode's share is their difference. Then one prefill under
     the profiler: the card's busy seconds and the eight kernels that took
-    most of them."""
+    most of them. The generated tokens are appended to ``tokens`` when it
+    is given."""
     _, prefill_s = _timed(lambda: ops.prefill(srv.params, batch, cfg))
-    _, gen_s = _timed(lambda: srv.generate(batch, n_new))
+    toks, gen_s = _timed(lambda: srv.generate(batch, n_new))
+    if tokens is not None:
+        tokens.append(toks)
     B, S = batch["tokens"].shape
     return {"prefill_seconds": prefill_s, "generate_seconds": gen_s,
             "prefill_tokens_per_s": B * S / prefill_s,
@@ -4416,6 +4411,12 @@ PERF_REDUCED = ("yi-9b", "granite-8b", "command-r-plus-104b",
 # the reference's own bound on the int8 decode's next-token probabilities
 # (tests/test_perf_variants.py)
 PROB_TOL = 0.05
+# the int8 decode's logits against the bf16 cache's, relative L2: a bound
+# between the sound decode's readings (0.0173 at 29(b), 0.0220 at 29(c) on
+# an H100) and a decode's with its scales left out (1.33, 1.41). A token
+# not written reads 0.0198 and 0.0243, too close to the sound readings for
+# any bound: the new slots are held bit for bit instead (_hold_new_slot)
+LOGITS_L2_TOL = 0.1
 
 
 def _cache_gb(cache) -> float:
@@ -4514,19 +4515,91 @@ def _hold_kvq(cache, cfg, S: int, device) -> dict:
             "max_abs_err": float((got - want).abs().max())}
 
 
+def _int8_faults(params, cache, tok, cfg) -> dict:
+    """The first decode step's logits on two faulty copies of the int8
+    cache, the controls of its checks: its scales left out (every scale 1)
+    and the new token not written (``quantize_kv`` gives the zero row, so
+    its slot stays as the prefill left it)."""
+    import torch
+    from repro_torch.models import get_model
+    from repro_torch.models import layers as L
+    ops = get_model(cfg)
+    out = {}
+    c = {k: x.clone() for k, x in cache.items()}
+    c["k_scale"].fill_(1.0)
+    c["v_scale"].fill_(1.0)
+    out["scales_left_out"] = ops.decode_step(params, c, tok, cfg)[0]
+    c = {k: x.clone() for k, x in cache.items()}
+    quantize = L.quantize_kv
+
+    def unwritten(x):
+        return quantize(torch.zeros_like(x))
+    L.quantize_kv = unwritten
+    try:
+        out["token_not_written"] = ops.decode_step(params, c, tok, cfg)[0]
+    finally:
+        L.quantize_kv = quantize
+    del c
+    return out
+
+
+def _hold_new_slot(bf16_new: dict, c_int8, S: int, n: int) -> dict:
+    """After ``n`` decode steps from position ``S`` on each cache: layer 0's
+    slots S..S+n-1 of the int8 cache are ``quantize_kv`` of the bf16
+    cache's (``bf16_new``: its layer 0 ``k`` and ``v`` there), bit for bit
+    (layer 0's new K/V depend on the token alone); slot S+n and the rest
+    hold the zero row; ``kpos`` is S..S+n-1 there."""
+    import torch
+    from repro_torch.models import layers as L
+    new = slice(S, S + n)
+    equal = all(
+        torch.equal(got, want) for key in ("k", "v") for got, want in zip(
+            (c_int8[key][0][:, new], c_int8[key + "_scale"][0][:, new]),
+            L.quantize_kv(bf16_new[key])))
+    empty = L.quantize_kv(torch.zeros((1, 1), device=c_int8["k"].device))[1]
+    rest = all(bool((c_int8[key][:, :, S + n:] == 0).all())
+               and bool((c_int8[key + "_scale"][:, :, S + n:] == empty).all())
+               for key in ("k", "v"))
+    kpos = c_int8["kpos"][new].tolist() == list(range(S, S + n))
+    return {"layer0_written_equal": equal, "rest_empty": rest,
+            "kpos_set": kpos}
+
+
+def _check_int8_decode(name: str, r: dict) -> None:
+    """The int8 decode's checks: the next-token probabilities within
+    ``PROB_TOL`` of the bf16 cache's; the logits within ``LOGITS_L2_TOL``
+    of them (relative L2), and the decode with its scales left out beyond
+    it; the new slots written (:func:`_hold_new_slot`: over a 32k cache
+    one unwritten token moves the logits too little for their bound, and
+    its reading is only reported)."""
+    check(r["max_prob_gap"] < PROB_TOL, f"{name}: the int8 decode's "
+          f"next-token probabilities are {r['max_prob_gap']:.3g} off the "
+          f"bf16 cache's")
+    check(r["logits_rel_l2"] < LOGITS_L2_TOL, f"{name}: the int8 decode's "
+          f"logits are {r['logits_rel_l2']:.3g} off the bf16 cache's "
+          f"(relative L2; the bound {LOGITS_L2_TOL})")
+    fault = r["faults_logits_rel_l2"]["scales_left_out"]
+    check(fault > LOGITS_L2_TOL, f"{name}: the logits bound cannot see a "
+          f"decode with its scales left out: {fault:.3g} from the bf16 "
+          f"cache's")
+    check(all(r["new_slot"].values()), f"{name}: the int8 decode's new "
+          f"slots: {r['new_slot']}")
+
+
 def phase_perf_variants(device, launches: dict, card: str) -> dict:
     """Phase 29(a)-(b): command-r-plus-104b at full width (4 of 64 layers,
     bf16) on a (1, 32768) prompt. The path ``launches["perf_variants"]``:
-    a prefill with the variants off and one with ``triangle_prefill`` and
-    ``kv_quant`` on (each under the profiler: seconds, busy share, peak),
-    then ``Server.generate`` of 16 tokens off and on; sw_attention once a
-    layer in each of the four prefills. Then, outside the window: the two
-    prefills' logits the same bits; the same two prefills with every
-    sw_attention call held against its plain version; the first decode
-    step's next-token probabilities on the bf16 and the int8 cache within
-    ``PROB_TOL``; the int8 cache's dtype and bytes; the plain triangle
-    attention against the kernel (:func:`_hold_triangle`); the int8
-    attention against the dequantized cache (:func:`_hold_kvq`)."""
+    for the variants off, then ``triangle_prefill`` and ``kv_quant`` on, a
+    prefill (its peak; the logits and cache the checks read) and
+    :func:`_serve_speeds` (a warm prefill and ``Server.generate`` of 16
+    tokens, unprofiled, then a prefill under the profiler); sw_attention
+    once a layer in each of the eight prefills. Then, outside the window:
+    the two prefills' logits the same bits; the same two prefills with
+    every sw_attention call held against its plain version; the int8
+    cache's dtype and bytes; the first decode step on the bf16 and the
+    int8 cache (:func:`_check_int8_decode`); the plain triangle attention
+    against the kernel (:func:`_hold_triangle`); the int8 attention
+    against the dequantized cache (:func:`_hold_kvq`)."""
     import torch
     from repro_torch.data.synthetic import lm_batch
     from repro_torch.kernels import _build
@@ -4555,26 +4628,30 @@ def phase_perf_variants(device, launches: dict, card: str) -> dict:
     laps["warm_up"] = time.perf_counter() - t0
     _build.reset_launches()
     for arm, (c, o) in arms.items():
+        # the prefill whose logits and cache the checks read, then the
+        # speeds (a warm prefill and a generate, both unprofiled; one more
+        # prefill under the profiler for the busy share)
         torch.cuda.reset_peak_memory_stats()
-        share = device_share(lambda: got.update(
-            {arm: o.prefill(params, batch, c)}))
+        got[arm] = o.prefill(params, batch, c)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        toks = []
+        sp = _serve_speeds(Server(c, params), o, c, batch, new, toks)
+        got[f"toks_{arm}"] = toks[0]
         out[f"prefill_{arm}"] = dict(
-            seconds=share["wall_s"], tokens_per_s=S / share["wall_s"],
-            busy_share=share["busy_share"],
-            top_device_ms=share["top_device_ms"],
-            peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
-    for arm, (c, o) in arms.items():
-        toks, gen_s = _timed(lambda: Server(c, params).generate(batch, new))
-        got[f"toks_{arm}"] = toks
+            seconds=sp["prefill_seconds"],
+            tokens_per_s=sp["prefill_tokens_per_s"],
+            busy_share=sp["prefill_profile"]["busy_share"],
+            top_device_ms=sp["prefill_profile"]["top_device_ms"],
+            peak_memory_gb=peak)
         out[f"decode_{arm}"] = dict(
-            generate_seconds=gen_s, tokens_per_s=(new - 1) / (
-                gen_s - out[f"prefill_{arm}"]["seconds"]))
+            generate_seconds=sp["generate_seconds"],
+            tokens_per_s=sp["decode_tokens_per_s"])
     launches["perf_variants"] = dict(_build.LAUNCHES)
     laps["path"] = time.perf_counter() - t0 - laps["warm_up"]
     n = launches["perf_variants"]["sw_attention"]
-    check(n == 4 * cfg.n_layers and launches["perf_variants"]["ssd_intra"]
-          == 0, f"sw_attention launched {n} times in four 32k prefills, not "
-          f"{4 * cfg.n_layers}")
+    check(n == 8 * cfg.n_layers and launches["perf_variants"]["ssd_intra"]
+          == 0, f"sw_attention launched {n} times in eight 32k prefills, "
+          f"not {8 * cfg.n_layers}")
     (l_off, c_off), (l_on, c_on) = got["off"], got["on"]
     check(torch.equal(l_off, l_on), "the triangle prefill's logits differ "
           "from the baseline's on the card")
@@ -4597,17 +4674,23 @@ def phase_perf_variants(device, launches: dict, card: str) -> dict:
     check(abs(_cache_gb(c_on) - (_cache_gb(c_off) / 2 + scale_gb)) < 1e-9,
           f"the int8 cache is {out['cache_gb']}")
     # the first decode step on each cache (the two prefills' last logits
-    # are the same bits, so the same token)
+    # are the same bits, so the same token), and on two faulty copies of
+    # the int8 cache
     tok = torch.argmax(l_off[:, -1], dim=-1)[:, None].to(torch.int32)
+    faults = _int8_faults(params, c_on, tok, cfg_on)
     d_off = ops.decode_step(params, c_off, tok, cfg)[0]
     d_on = ops_on.decode_step(params, c_on, tok, cfg_on)[0]
-    out["first_decode"] = {"max_prob_gap": _prob_gap(d_off, d_on),
-                           "logits_rel_l2": _rel_l2(d_on, d_off)}
-    check(out["first_decode"]["max_prob_gap"] < PROB_TOL,
-          f"the int8 decode's next-token probabilities are "
-          f"{out['first_decode']['max_prob_gap']:.3g} off the bf16 cache's")
+    out["first_decode"] = {
+        "max_prob_gap": _prob_gap(d_off, d_on),
+        "logits_rel_l2": _rel_l2(d_on, d_off),
+        "faults_logits_rel_l2": {k: _rel_l2(d, d_off)
+                                 for k, d in faults.items()},
+        "new_slot": _hold_new_slot(
+            {key: c_off[key][0][:, S:S + 1] for key in ("k", "v")}, c_on, S,
+            1)}
+    _check_int8_decode("29(b)", out["first_decode"])
     out["kvq_vs_dequantized_f32"] = _hold_kvq(c_on, cfg, S, device)
-    del c_off, c_on, d_off, d_on, got
+    del c_off, c_on, d_off, d_on, got, faults
     t1 = time.perf_counter()
     # every sw_attention call of both prefills against its plain version
     with kernel_route("checked") as ratios:
@@ -4621,6 +4704,11 @@ def phase_perf_variants(device, launches: dict, card: str) -> dict:
           f"{len(ratios['sw_attention'])} sw_attention calls, the worst "
           f"{worst:.3g} of the tolerance")
     out["per_call_worst_ratio"] = worst
+    # where each call's worst element lies: the call (layer, arm), the
+    # (bh, g, query row, d) index, the values there and max|want|
+    out["per_call_worst"] = [
+        dict(w, layer=i % cfg.n_layers, arm=list(arms)[i // cfg.n_layers])
+        for i, w in enumerate(ratios["sw_attention_worst"])]
     laps["checked_prefills"] = time.perf_counter() - t1
     out["triangle_vs_kernel"] = _hold_triangle(params, batch, cfg)
     out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
@@ -4638,8 +4726,10 @@ def phase_perf_decode(device, params, card: str) -> dict:
     the zero-row scale, as a prefill leaves them). Each arm
     alone beside the model: ``PERF_DECODE["steps"]`` decode steps on the
     same seeded tokens under the profiler (seconds a step, busy share),
-    its cache's bytes and its peak; each step's next-token probabilities
-    within ``PROB_TOL`` across the arms."""
+    its cache's bytes and its peak. Across the arms, each step's
+    next-token probabilities within ``PROB_TOL`` and its logits within
+    ``LOGITS_L2_TOL``, the int8 cache's faulty copies beyond it
+    (:func:`_check_int8_decode`)."""
     import dataclasses
     import torch
     from repro_torch.configs import get_config
@@ -4678,34 +4768,42 @@ def phase_perf_decode(device, params, card: str) -> dict:
         cache["pos"].fill_(S)
         return cache
 
-    out, probs = {}, {}
+    out, logits = {}, {}
     t0 = time.perf_counter()
     for arm, c in (("bf16", cfg), ("int8", dataclasses.replace(
             cfg, kv_quant=True))):
         ops = get_model(c)
         cache = filled(c)
-        logits = []
+        if c.kv_quant:
+            faults = _int8_faults(params, cache, toks[0], c)
+        arm_logits = logits[arm] = []
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
 
         def run():
             for t in toks:
-                logits.append(ops.decode_step(params, cache, t, c)[0])
+                arm_logits.append(ops.decode_step(params, cache, t, c)[0])
         share = device_share(run)
         out[arm] = {"seconds_per_step": share["wall_s"] / steps,
                     "busy_share": share["busy_share"],
                     "top_device_ms": share["top_device_ms"],
                     "cache_gb": _cache_gb(cache),
                     "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
-        probs[arm] = [_probs(x) for x in logits]
-        del cache, logits
-    gap = max(float((a - b).abs().max()) for a, b in zip(probs["bf16"],
-                                                         probs["int8"]))
-    out.update(batch=B, steps=steps, cache_slots=S + 64, max_prob_gap=gap,
-               seconds=time.perf_counter() - t0)
-    check(gap < PROB_TOL, f"29(c): the int8 decode's next-token "
-          f"probabilities are {gap:.3g} off the bf16 cache's")
+        if c.kv_quant:
+            new_slot = _hold_new_slot(bf16_new, cache, S, steps)
+        else:
+            bf16_new = {key: cache[key][0][:, S:S + steps].clone()
+                        for key in ("k", "v")}
+        del cache
+    pairs = list(zip(logits["bf16"], logits["int8"]))
+    first = logits["bf16"][0]
+    out.update(batch=B, steps=steps, cache_slots=S + 64, int8_decode=dict(
+        max_prob_gap=max(_prob_gap(b, q) for b, q in pairs),
+        logits_rel_l2=max(_rel_l2(q, b) for b, q in pairs),
+        faults_logits_rel_l2={k: _rel_l2(d, first) for k, d in faults.items()},
+        new_slot=new_slot), seconds=time.perf_counter() - t0)
+    _check_int8_decode("29(c)", out["int8_decode"])
     check(out["int8"]["peak_memory_gb"] < out["bf16"]["peak_memory_gb"],
           f"29(c): the int8 decode's peak is not below the bf16 one's: "
           f"{out['int8']['peak_memory_gb']:.2f} GB against "

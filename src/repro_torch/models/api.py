@@ -16,9 +16,10 @@ MoE, or dense and MoE layers interleaved), ``vlm`` (a patch prefix),
 ``ssm``, ``hybrid`` and ``audio`` (encoder-decoder). The dense, MoE and
 VLM families take the perf variants, ``kv_quant`` (an int8 cache with f32
 scales, which ``init_cache``, ``prefill`` and ``decode_step`` pass on as
-it is) and ``triangle_prefill``; the ssm, hybrid and audio families ignore
-both, as the reference does. The cache geometry (ring vs linear) is
-decided by ``serve_cache_len``, as in the reference.
+it is) and ``triangle_prefill`` (accepted; every causal prefill already
+visits only the tiles at or below the diagonal); the ssm, hybrid and
+audio families ignore both, as the reference does. The cache geometry
+(ring vs linear) is decided by ``serve_cache_len``, as in the reference.
 """
 from __future__ import annotations
 

@@ -31,8 +31,9 @@ values and per-(token, head) f32 scales, the reference's arithmetic),
 ``flash_attention_kvq`` (decode over an int8 cache, each kv chunk
 dequantized on its own, the query group kept as ``(Hk, G)``: no repeat of
 the cache over G and no float copy of the whole cache) and
-``flash_attention_triangle`` (causal attention whose query chunk ``i``
-visits only the kv chunks ``j <= i``).
+``flash_attention_triangle`` (causal prefill attention whose query chunk
+``i`` visits only the kv chunks ``j <= i``: the plain route of every
+causal prefill, with ``triangle_prefill`` or without).
 """
 from __future__ import annotations
 
@@ -297,10 +298,14 @@ def _normalise(acc, l):
 
 
 def _fwd_chunks(qg, kc, vc, qposc, kposc, *, causal, window, scale,
-                q_chunk, kv_chunk, nk, Skv):
+                q_chunk, kv_chunk, nk, Skv, triangle=False):
     """Forward over all (q-chunk x kv-chunk) tiles with online softmax.
 
-    qg: (B, nq, qc, Hk, G, Dh); kc/vc: (B, nk, kc, Hk, Dh).
+    qg: (B, nq, qc, Hk, G, Dh); kc/vc: (B, nk, kc, Hk, Dh). ``triangle``
+    (a causal prefill: q and kv chunks of one size over the same
+    positions) visits only the kv chunks ``j <= i``; a tile above the
+    diagonal is all masked and adds nothing to the state, so the result
+    is the same bits.
     Returns (o (B, nq, qc, Hk, G, Dh) in q's dtype, lse (B, nq, Hk, G, qc)
     f32).
     """
@@ -308,7 +313,9 @@ def _fwd_chunks(qg, kc, vc, qposc, kposc, *, causal, window, scale,
     outs, lses = [], []
     for i in range(nq):
         qck, qpck = qg[:, i], qposc[i]
-        if window > 0 and Skv > window + q_chunk:
+        if triangle:
+            chunks = range(i + 1)
+        elif window > 0 and Skv > window + q_chunk:
             # sliding window: only a fixed-size kv span can be visible
             span = window + q_chunk
             nspan = min(-(-span // kv_chunk) + 1, nk)
@@ -327,25 +334,6 @@ def _fwd_chunks(qg, kc, vc, qposc, kposc, *, causal, window, scale,
         outs.append(_normalise(acc, l).to(qck.dtype))
         lses.append(m + torch.log(torch.clamp_min(l, 1e-30)))
     return torch.stack(outs, dim=1), torch.stack(lses, dim=1)
-
-
-def _fwd_chunks_triangle(qg, kc, vc, qposc, kposc, *, scale):
-    """Causal prefill with the triangle skip: query chunk ``i`` visits only
-    kv chunks ``j <= i`` (q and kv chunks of one size), so no tile above
-    the diagonal is computed. Forward only. qg: (B, nq, qc, Hk, G, Dh);
-    kc/vc: (B, nk, kc, Hk, Dh). Returns o (B, nq, qc, Hk, G, Dh) in q's
-    dtype."""
-    B, nq = qg.shape[0], qg.shape[1]
-    outs = []
-    for i in range(nq):
-        qck, qpck = qg[:, i], qposc[i]
-        acc, m, l = _softmax_state(B, *qck.shape[1:], qg.device)
-        for j in range(i + 1):
-            acc, m, l = _merge(acc, m, l, *_attend_chunk(
-                qck, kc[:, j], vc[:, j], qpck, kposc[j], causal=True,
-                window=0, scale=scale))
-        outs.append(_normalise(acc, l).to(qck.dtype))
-    return torch.stack(outs, dim=1)
 
 
 def _pad_chunks(q, k, v, qpos, kpos, q_chunk, kv_chunk):
@@ -368,7 +356,8 @@ def _pad_chunks(q, k, v, qpos, kpos, q_chunk, kv_chunk):
             kpos.reshape(nk, kv_chunk), nq, nk)
 
 
-def _flash_fwd(q, k, v, qpos, kpos, causal, window, q_chunk, kv_chunk):
+def _flash_fwd(q, k, v, qpos, kpos, causal, window, q_chunk, kv_chunk,
+               triangle=False):
     """q: (B, Sq, Hk, G, Dh); k/v: (B, Skv, Hk, Dh). Returns (o in q's
     shape and dtype, lse (B, nq, Hk, G, qc) f32)."""
     B, Sq, Hk, G, Dh = q.shape
@@ -378,7 +367,8 @@ def _flash_fwd(q, k, v, qpos, kpos, causal, window, q_chunk, kv_chunk):
         q, k, v, qpos, kpos, q_chunk, kv_chunk)
     o, lse = _fwd_chunks(qg, kc, vc, qposc, kposc, causal=causal,
                          window=window, scale=scale, q_chunk=q_chunk,
-                         kv_chunk=kv_chunk, nk=nk, Skv=Skv)
+                         kv_chunk=kv_chunk, nk=nk, Skv=Skv,
+                         triangle=triangle)
     return o.reshape(B, nq * q_chunk, Hk, G, Dh)[:, :Sq], lse
 
 
@@ -492,21 +482,18 @@ def flash_attention(q, k, v, qpos, kpos, *, causal=True, window=0,
 
 def flash_attention_triangle(q, k, v, qpos, kpos, *, q_chunk=1024,
                              kv_chunk=1024) -> torch.Tensor:
-    """Forward-only causal attention with the triangle skip
-    (:func:`_fwd_chunks_triangle`): ``flash_attention(causal=True,
-    window=0)``'s contract, the prefill's route under
-    ``cfg.triangle_prefill`` on the CPU. The query heads are grouped as
-    ``(Hk, G)`` (no repeat of k and v over G). q: (B, Sq, Hq, Dh); k, v:
-    (B, Skv, Hk, Dh). Returns (B, Sq, Hq, Dh) in q's dtype."""
+    """Forward-only causal prefill attention with the triangle skip
+    (``_fwd_chunks(triangle=True)``): ``flash_attention(causal=True,
+    window=0)``'s contract for a prompt over its own positions, the
+    plain causal prefill route. The query heads are grouped as ``(Hk,
+    G)`` (no repeat of k and v over G). q: (B, Sq, Hq, Dh); k, v: (B, Sq,
+    Hk, Dh). Returns (B, Sq, Hq, Dh) in q's dtype."""
     B, Sq, Hq, Dh = q.shape
     Hk = k.shape[2]
-    qg = q.reshape(B, Sq, Hk, Hq // Hk, Dh)
-    qgc, kc, vc, qposc, kposc, nq, _ = _pad_chunks(
-        qg, k, v, qpos, kpos, min(q_chunk, Sq), min(kv_chunk, k.shape[1]))
-    o = _fwd_chunks_triangle(qgc, kc, vc, qposc, kposc,
-                             scale=1.0 / math.sqrt(Dh))
-    o = o.reshape(B, -1, Hq, Dh)[:, :Sq]
-    return o.to(q.dtype)
+    chunk = min(q_chunk, kv_chunk, Sq)
+    o, _ = _flash_fwd(q.reshape(B, Sq, Hk, Hq // Hk, Dh), k, v, qpos, kpos,
+                      True, 0, chunk, chunk, triangle=True)
+    return o.reshape(B, Sq, Hq, Dh).to(q.dtype)
 
 
 # ---------------------------------------------------------------------------

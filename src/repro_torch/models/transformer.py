@@ -38,9 +38,10 @@ The perf variants, as the reference's: under ``cfg.kv_quant`` the cache
 holds int8 ``k``/``v`` with f32 ``k_scale``/``v_scale`` per (token, kv
 head); the prefill quantizes each layer's kept K/V (in the model dtype) as
 it writes them, and a decode step quantizes the new token's and attends
-with ``layers.flash_attention_kvq``. Under ``cfg.triangle_prefill`` a
-causal prefill on the CPU runs ``layers.flash_attention_triangle``; on the
-card it is the sw_attention kernel either way (:func:`prefill_attention`).
+with ``layers.flash_attention_kvq``. ``cfg.triangle_prefill`` is accepted
+and changes nothing: every causal prefill already skips the tiles above
+the diagonal, the sw_attention kernel on the card and
+``layers.flash_attention_triangle`` on the CPU (:func:`prefill_attention`).
 """
 from __future__ import annotations
 
@@ -253,22 +254,21 @@ def init_cache(params_or_none, cfg: ModelConfig, batch: int, spec: CacheSpec,
     return cache
 
 
-def prefill_attention(q, k, v, positions, cfg: ModelConfig, window: int,
-                      *, triangle: bool = False):
+def prefill_attention(q, k, v, positions, cfg: ModelConfig, window: int):
     """Causal (``window=0``) or banded prefill attention over the prompt:
     the sw_attention kernel on the card, the plain chunked attention on
-    the CPU (``layers.flash_attention_triangle`` for a causal prefill when
-    ``triangle``, the dense family's ``cfg.triangle_prefill``).
+    the CPU (``layers.flash_attention_triangle`` for a causal prefill).
 
-    On the card ``triangle`` changes nothing: the kernel with ``window=S``
-    already visits only the key tiles at or below the diagonal
-    (``csrc/sw_attention.cu``), which is what the reference's triangle
-    route buys over its visit-every-tile baseline. The same launch, the
-    same bits, with the flag or without."""
+    ``cfg.triangle_prefill`` changes nothing here, on either device. The
+    kernel with ``window=S`` already visits only the key tiles at or below
+    the diagonal (``csrc/sw_attention.cu``), and so does the plain causal
+    route: that skip is what the reference's triangle route buys over its
+    visit-every-tile baseline, and a tile above the diagonal is all masked,
+    so skipping it gives the same bits."""
     S = q.shape[1]
     if q.device.type == "cpu":
         chunk = min(cfg.attn_chunk, S)
-        if triangle and not window:
+        if not window:
             return L.flash_attention_triangle(q, k, v, positions, positions,
                                               q_chunk=chunk, kv_chunk=chunk)
         return L.flash_attention(q, k, v, positions, positions, causal=True,
@@ -347,8 +347,7 @@ def prefill(params, batch, cfg: ModelConfig, spec: CacheSpec):
     for i, lp in layer_walk(params, cfg):
         xn = L.rms_norm(x, lp["attn_norm"])
         q, k, v = L.qkv_project(xn, lp["attn"], cfg, positions)
-        o = prefill_attention(q, k, v, positions, cfg, window,
-                              triangle=cfg.triangle_prefill)
+        o = prefill_attention(q, k, v, positions, cfg, window)
         x = x + L.attn_out(o, lp["attn"]["wo"])
         x = x + _ffn(x, lp, cfg)[0]
         kept = [k.to(dt), v.to(dt)]

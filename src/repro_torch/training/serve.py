@@ -9,8 +9,8 @@ hybrid, ``sw_attention`` in the encoder-decoder's decoder). Every key of
 the batch reaches the prefill: a VLM's ``patches`` (its decode positions
 then go on from ``S + n_patches``), an encoder-decoder's ``frames``.
 The server treats the cache as opaque: under ``cfg.kv_quant`` it is the
-int8 cache with its scales, and ``cfg.triangle_prefill`` changes only the
-prefill's plain route; both pass through ``get_model`` as they are.
+int8 cache with its scales; ``cfg.triangle_prefill`` changes nothing,
+since every causal prefill already skips the tiles above the diagonal.
 """
 from __future__ import annotations
 
