@@ -308,6 +308,28 @@ Phases, each of which fails the run if it fails:
     1e-4, ``Server.generate``'s tokens equal. ``launches["perf_variants"]``
     counts sw_attention over (a)'s eight 32k prefills (the two generates'
     included): once a layer in each.
+30. The sharded arena and the elastic mesh: qwen2-1.5b at full width (f32,
+    3 of its 28 layers, untied head) trained on a (2, 2) mesh of 4
+    ``torch.distributed`` ranks spawned on the one card (gloo: NCCL
+    refuses two ranks on one device; every collective staged through
+    page-locked host memory, in pieces, its bytes and seconds counted),
+    ``FabricConfig(n_devices=4, devices_per_host=2, elastic=True)``,
+    ``scar(0.125, 2)``, adamw(3e-4), batch 4 x 2048 (one sequence a rank),
+    8 steps: host 1 lost at step 3 (4 -> 2 shards), healed at step 5 (2 ->
+    4). The initial weights are drawn once here and handed to every rank
+    as numpy; the same weights, batches and schedule run first on one rank
+    in this process. Held: the arena and PyTree loops on the mesh
+    bit-equal over their first 2 steps (losses, every rank's checkpoint
+    and parameter spans); after the run, the 4-rank sweep's replica and
+    parity bit-equal to a 1-rank sweep of the gathered arena, its scores
+    within rtol 1e-4; the ranks' losses equal and within rtol 1e-4 of the
+    one-rank run's; shards 4, 2, 4, two resizes, no live pack;
+    arena_maintain, arena_scatter and parity_xor launched on every rank.
+    Printed with the card's name and power limit: each rank's peak device
+    and host memory, step seconds (one rank against the mesh), the
+    resizes', recovery's and heal's seconds, each collective's calls,
+    bytes, seconds and staged bytes. ``python3 chip_smoke.py --mesh`` runs
+    phases 1 and 30 alone (``{"mesh_only": true, ...}``).
 
 The line before the last is the kernels' JSON record (each kernel's
 launches on its own path, ``train_launches`` on phase 17's,
@@ -317,7 +339,8 @@ launches on its own path, ``train_launches`` on phase 17's,
 ``examples_launches`` on phases 21, 22 and 23, ``qwen3_moe_launches``,
 ``llama4_launches`` and ``internvl2_launches`` on phases 24-26,
 ``internvl2_train_launches`` and ``moe_train_launches`` on phases 27 and
-28(b), ``perf_variants_launches`` on phase 29(a)-(b)); the last line is
+28(b), ``perf_variants_launches`` on phase 29(a)-(b), ``mesh_launches``
+on phase 30's run, one count a rank); the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
 and prints no result.
 
@@ -348,6 +371,7 @@ import itertools
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -2284,9 +2308,17 @@ def _sw_attention_case(BH, G, S, Dh, W, gen, device,
         return F.scaled_dot_product_attention(q, k4, v4, enable_gqa=True,
                                               **mask)
     lib_err = float((library().float() - want).abs().max())
-    del got, want
     fns = {"kernel": lambda: sw_attention_cuda(q, k, v, window=W),
            "library": library}
+    causal_err = None
+    if W >= S and "is_causal" not in mask:
+        # the causal band is SDPA's is_causal too: timed beside the mask
+        def causal():
+            return F.scaled_dot_product_attention(q, k4, v4, enable_gqa=True,
+                                                  is_causal=True)
+        causal_err = float((causal().float() - want).abs().max())
+        fns["causal"] = causal
+    del got, want
     if runs is None:
         fns["plain"] = lambda: sw_attention_plain(q, k, v, window=W)
     t = in_turns(fns, runs=runs and {"kernel": runs, "library": runs})
@@ -2297,6 +2329,10 @@ def _sw_attention_case(BH, G, S, Dh, W, gen, device,
                plain_ms=t.get("plain", plain_ms), bound_ms=b, bound_by=by,
                library_ms=t["library"], library_max_abs_err=lib_err,
                library_mask="is_causal" if "is_causal" in mask else "band",
+               library_causal_ms=(t["library"] if "is_causal" in mask
+                                  else t.get("causal")),
+               library_causal_max_abs_err=(lib_err if "is_causal" in mask
+                                           else causal_err),
                back_to_back_ms=device_ms(
                    lambda: sw_attention_cuda(q, k, v, window=W), calls),
                library_back_to_back_ms=device_ms(library, calls),
@@ -2310,11 +2346,13 @@ def _sw_attention_case(BH, G, S, Dh, W, gen, device,
 
 def _log_case(name: str, r: dict) -> None:
     lib = r["library_ms"]
+    causal = r.get("library_causal_ms")
     log(f"{name} {r['shape']}: kernel {r['ms']:.3f} ms "
         f"({r['back_to_back_ms']:.3f} back to back), plain "
         f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
         f"({r['bound_by']}), library "
-        f"{'none' if lib is None else format(lib, '.3f') + ' ms'}, max "
+        f"{'none' if lib is None else format(lib, '.3f') + ' ms'}"
+        f"{'' if causal is None else ', is_causal ' + format(causal, '.3f') + ' ms'}, max "
         f"abs err {r['max_abs_err']:.3g} ({r['tolerance_ratio']:.3g} of "
         f"the tolerance); tensor-core FLOPs {r['tc_flops'] / 1e9:.3f} G "
         f"with the split's products")
@@ -4933,6 +4971,399 @@ def erasure_only(a_tree, device, int_rate: float, card: str) -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# phase 30: the sharded arena and the elastic mesh
+# ---------------------------------------------------------------------------
+
+# qwen2-1.5b at full width, f32 (the meshed fabric holds an all-f32 model),
+# on a (2, 2) mesh of 4 ranks sharing the one card: one sequence of 2,048
+# tokens a rank; host 1 (ranks 2 and 3) lost at step 3, healed at step 5.
+# 3 of its 28 layers: with 4 the ranks' peaks summed to 70.2 GB (the two
+# survivors hold twice the spans and twice the batch while the mesh is
+# shrunk; PERF.md, phase 30)
+MESH = dict(ranks=4, shape=(2, 2), layers=3, batch=4, seq=2048, steps=8,
+            loss_step=3, heal_after=2, eq_steps=2, seed=30, timeout=900)
+MESH_KERNELS = ("arena_maintain", "arena_scatter", "parity_xor")
+# the ranks' losses against the one-rank run's: the gradient is the mean of
+# four per-rank means, summed by gloo in another order than one device sums
+# the batch (float32 rounding only; recoveries apply no perturbation)
+MESH_LOSS_RTOL = 1e-4
+
+
+def _mesh_cfg(opts: dict):
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config("qwen2-1.5b", reduced=opts.get("reduced", False))
+    return dataclasses.replace(cfg, n_layers=opts["layers"],
+                               dtype="float32")
+
+
+def _mesh_loop(cfg, device, *, ctx=None, arena: bool = True,
+               recorder=None):
+    """``TrainLoop`` with adamw(3e-4), ``CheckpointPolicy.scar(0.125, 2)``
+    and the 2-host, 4-device elastic fabric."""
+    from repro_torch.core.policy import CheckpointPolicy
+    from repro_torch.fabric import FabricConfig
+    from repro_torch.optim import adamw
+    from repro_torch.training import TrainLoop, TrainLoopConfig
+    return TrainLoop(cfg, adamw(3e-4), TrainLoopConfig(
+        policy=CheckpointPolicy.scar(fraction=0.125, interval=2),
+        fabric=FabricConfig(n_devices=MESH["ranks"], devices_per_host=2,
+                            elastic=True),
+        arena_state=arena, recorder=recorder), device=device, ctx=ctx)
+
+
+def _mesh_schedule(loop, first_step: int) -> None:
+    """Phase 30's host loss and heal, for a run() whose first step is
+    ``first_step``."""
+    loop.loop_cfg.fail_schedule = [(MESH["loss_step"] - first_step + 1,
+                                    "host", 1)]
+    loop.loop_cfg.heal_after = MESH["heal_after"]
+
+
+def _mesh_rank_body(rank: int, opts: dict) -> dict:
+    """One rank of phase 30 (see :func:`phase_mesh`)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.arena import pack_arena
+    from repro_torch.data import ShardedLMDataset
+    from repro_torch.distributed import collectives
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.fused_maintain.ops import ArenaMaintainProgram
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.sharding.partition import make_dist_ctx
+    from repro_torch.telemetry import Recorder
+    from repro_torch.training import ArenaTrainState
+
+    device = torch.device(opts["device"])
+    cuda = device.type == "cuda"
+    cfg = _mesh_cfg(opts)
+    mesh = make_host_mesh(model=MESH["shape"][1])
+    check(tuple(mesh.devices.shape) == MESH["shape"], f"mesh {mesh}")
+    ctx = make_dist_ctx(mesh)
+    B, S, eq = opts["batch"], opts["seq"], MESH["eq_steps"]
+    out = {"rank": rank, "position": mesh.position()}
+
+    params = _load_mesh_params(opts["params"])
+
+    def peak() -> float:
+        return torch.cuda.max_memory_allocated() / 1e9 if cuda else 0.0
+
+    def free() -> None:
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+
+    # (b) the PyTree loop on the same mesh, eq_steps steps (a save among
+    # them); the arena loop's first steps are held to it below
+    free()
+    py = _mesh_loop(cfg, device, ctx=ctx, arena=False)
+    st = py.init_state(params=params)
+    st = py.run(st, iter(ShardedLMDataset(cfg, B, S, seed=0, device=device,
+                                          ctx=ctx)), eq)
+    lay = py.controller.arena_layout
+    w0, w1 = lay.span(mesh.position())
+    tree = {"losses": [m["loss"] for m in py.metrics],
+            "ckpt": py.controller._ckpt_arena.cpu(),
+            "final": pack_arena(st.params, lay)[w0:w1].cpu(),
+            "saves": py.controller.stats["saves"]}
+    out["pytree_peak_gb"] = peak()
+    del py, st
+    free()
+
+    # (a) the arena loop: eq_steps clean steps, then the host loss and the
+    # heal through a shrink and a re-grow
+    rec = Recorder()
+    loop = _mesh_loop(cfg, device, ctx=ctx, recorder=rec)
+    state = loop.init_state(params=params)
+    del params
+    check(isinstance(state, ArenaTrainState)
+          and state.arena.numel() == loop.arena_layout.shard_words,
+          "the mesh loop did not hold its span of the arena")
+    shards = [loop.arena_layout.shards]
+    it = iter(ShardedLMDataset(cfg, B, S, seed=0, device=device, ctx=ctx))
+    _build.reset_launches()
+    collectives.reset_stats()
+    t0 = time.perf_counter()
+    state = loop.run(state, it, eq)
+    ctl, fab = loop.controller, loop.controller.fabric
+    check([m["loss"] for m in loop.metrics] == tree["losses"],
+          f"rank {rank}: arena losses {[m['loss'] for m in loop.metrics]}, "
+          f"PyTree {tree['losses']}")
+    check(torch.equal(ctl._ckpt_arena.cpu(), tree["ckpt"]),
+          f"rank {rank}: the checkpoint span differs between the paths")
+    check(torch.equal(state.arena.cpu(), tree["final"]),
+          f"rank {rank}: the parameter span differs between the paths")
+    check(tree["saves"] == ctl.stats["saves"] >= 1,
+          f"rank {rank}: saves {tree['saves']} and {ctl.stats['saves']}")
+    out["bit_equal"] = {"losses": tree["losses"], "saves": tree["saves"],
+                        "span_words": int(w1 - w0)}
+    del tree
+    _mesh_schedule(loop, eq + 1)
+    state = loop.run(state, it, opts["steps"] - eq)
+    if cuda:
+        torch.cuda.synchronize()
+    out["run_seconds"] = time.perf_counter() - t0
+    out["launches"] = dict(_build.LAUNCHES)
+    out["collectives"] = collectives.seconds_and_bytes()
+    out["peak_gb"] = peak()
+    m = loop.metrics
+    out["losses"] = [x["loss"] for x in m]
+    out["step_seconds"] = [x["seconds"] for x in m]
+    out["idle_steps"] = [x["step"] for x in m if x.get("idle")]
+    resizes = [(x["step"], x["mesh_resize"]) for x in m
+               if "mesh_resize" in x]
+    shards += [r["shards"] for _, r in resizes]
+    out["shards"] = shards
+    out["resizes"] = resizes
+    out["failures"] = [f for x in m for f in x.get("failures", [])]
+    out["recovery_seconds"] = rec.tracer.durations("recovery")
+    out["heal_seconds"] = rec.tracer.durations("heal")
+    out["stats"] = {k: fab.stats[k] for k in (
+        "mesh_resizes", "live_packs", "arena_maintains",
+        "arena_resident_maintains", "ici_bytes_moved", "dcn_bytes_moved",
+        "recoveries", "heals")}
+    out["events"] = sorted({e["kind"] for e in rec.events})
+    check(loop.arena_layout.shards == MESH["ranks"]
+          and fab.view.n_alive_devices == MESH["ranks"],
+          f"rank {rank}: not re-grown to {MESH['ranks']} shards")
+
+    # the 4-rank sweep against a 1-rank sweep of the same arena: one more
+    # forced maintain with the checkpoint (scores summed over the mesh),
+    # the tiers gathered at the first rank and held there
+    step = fab.last_maintained_step
+    fab.maintain(step, state.arena, ckpt_values=ctl._ckpt_arena, force=True)
+    scores = fab.last_scores.clone()
+    # the first rank holds the whole arenas and two parities: the others
+    # hand back what their caches hold
+    free()
+    comm = fab.comm
+    full = comm.gather(state.arena)
+    ck = comm.gather(ctl._ckpt_arena)
+    rep, par = fab.gather_tiers()
+    if comm.is_root:
+        codec = fab.parity
+        prog = ArenaMaintainProgram(ctl.partition, fab.arena_layout,
+                                    codec.layout, codec.group_of,
+                                    codec.n_groups)
+        r1, s1, p1 = prog(full, ck)
+        check(torch.equal(r1, rep) and torch.equal(rep, full),
+              "the 4-rank replica differs from the 1-rank sweep's")
+        check(torch.equal(p1, par), "the 4-rank parity differs from the "
+              "1-rank sweep's")
+        rel = float(((scores - s1).abs()
+                     / s1.abs().clamp_min(1e-30)).max())
+        check(rel <= 1e-4, f"the 4-rank scores are off by rtol {rel}")
+        out["sweep_vs_one_rank"] = {"scores_rtol": rel,
+                                    "parity_words": int(p1.numel()),
+                                    "replica_words": int(r1.numel())}
+        del prog, r1, s1, p1
+    del full, ck, rep, par
+    out["final_peak_gb"] = peak()
+    out["host_peak_gb"] = _host_peak_gb()
+    return out
+
+
+def _host_peak_gb() -> float:
+    """This process's peak resident host memory, in GB."""
+    import resource
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9
+
+
+def _mesh_rank(rank: int, world: int, rdv: str, out_dir: str,
+               opts: dict) -> None:
+    """Spawned rank of phase 30: joins the gloo group, runs
+    :func:`_mesh_rank_body`, writes its report."""
+    import datetime
+    import torch
+    import torch.distributed as dist
+    if opts["device"] == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group(
+        "gloo", init_method=f"file://{rdv}", rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=MESH["timeout"]))
+    try:
+        out = _mesh_rank_body(rank, opts)
+        Path(out_dir, f"rank{rank}.json").write_text(json.dumps(out))
+    finally:
+        dist.destroy_process_group()
+
+
+def _save_mesh_params(device, opts: dict, where: Path):
+    """Phase 30's initial weights, drawn once here from the seed, as one
+    ``.npy`` a leaf under ``where`` (every rank and the one-rank run load
+    them: no rank draws its own). Returns them as a numpy tree."""
+    import pickle
+    import numpy as np
+    import torch
+    from repro_torch.interop import to_numpy_tree
+    from repro_torch.models import get_model
+    from repro_torch.utils.tree import tree_flatten, tree_unflatten
+    cfg = _mesh_cfg(opts)
+    drawn = get_model(cfg).init_params(torch.Generator(
+        device=device).manual_seed(opts["seed"]), cfg, device=device)
+    leaves, treedef = tree_flatten(to_numpy_tree(drawn))
+    del drawn
+    where.mkdir(parents=True, exist_ok=True)
+    for i, x in enumerate(leaves):
+        np.save(where / f"{i}.npy", x)
+    (where / "treedef.pkl").write_bytes(pickle.dumps(treedef))
+    return tree_unflatten(treedef, leaves)
+
+
+def _load_mesh_params(where: str):
+    """The numpy tree :func:`_save_mesh_params` wrote (memory-mapped)."""
+    import pickle
+    import numpy as np
+    from repro_torch.utils.tree import tree_unflatten
+    treedef = pickle.loads(Path(where, "treedef.pkl").read_bytes())
+    n = len(list(Path(where).glob("*.npy")))
+    return tree_unflatten(treedef, [np.load(Path(where, f"{i}.npy"),
+                                            mmap_mode="r")
+                                    for i in range(n)])
+
+
+def _mesh_one_rank(device, opts: dict, params) -> dict:
+    """The one-rank run of phase 30's model, weights, batches and
+    schedule (no mesh), for the ranks' losses and step time."""
+    import torch
+    from repro_torch.data import ShardedLMDataset
+    cfg = _mesh_cfg(opts)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    loop = _mesh_loop(cfg, device)
+    state = loop.init_state(params=params)
+    it = iter(ShardedLMDataset(cfg, opts["batch"], opts["seq"], seed=0,
+                               device=device))
+    state = loop.run(state, it, MESH["eq_steps"])
+    _mesh_schedule(loop, MESH["eq_steps"] + 1)
+    state = loop.run(state, it, opts["steps"] - MESH["eq_steps"])
+    m = loop.metrics
+    out = {"losses": [x["loss"] for x in m],
+           "step_seconds": [x["seconds"] for x in m],
+           "tier_counts": [f["tier_counts"] for x in m
+                           for f in x.get("failures", [])],
+           "peak_gb": (torch.cuda.max_memory_allocated() / 1e9
+                       if device.type == "cuda" else 0.0),
+           "arena_gb": loop.arena_layout.nbytes / 1e9,
+           "parity_gb": loop.controller.fabric.redundancy_nbytes()["parity"]
+           / 1e9}
+    del loop, state, it
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_mesh(device, launches: dict, card: str, opts=None) -> dict:
+    """Phase 30: qwen2-1.5b at full width (f32, 3 of 28 layers) trained on
+    a (2, 2) mesh of 4 ``torch.distributed`` ranks sharing the one card
+    (gloo: NCCL refuses two ranks on one device; every collective staged
+    through page-locked host memory, its bytes and seconds counted), under
+    ``FabricConfig(n_devices=4, devices_per_host=2, elastic=True)``,
+    ``scar(0.125, 2)`` and adamw(3e-4), batch 4 x 2048 (one sequence a
+    rank), 8 steps: host 1 lost at step 3 (4 -> 2 shards), healed at step
+    5 (2 -> 4). First the same model, weights, batches and schedule on one
+    rank in this process. Held: the arena and PyTree loops on the mesh
+    bit-equal over their first 2 steps (losses, the checkpoint spans, the
+    parameter spans); the 4-rank sweep's replica and parity bit-equal to a
+    1-rank sweep of the same arena, its scores within rtol 1e-4; the
+    ranks' losses within ``MESH_LOSS_RTOL`` of the one-rank run's; shards
+    4, 2, 4, two resizes, no live pack; arena_maintain, arena_scatter and
+    parity_xor launched on every rank (``launches["mesh"]``: one count a
+    rank). A failed rank fails the phase."""
+    import torch
+    import torch.multiprocessing as mp
+    opts = {"device": device.type, "layers": MESH["layers"],
+            "batch": MESH["batch"], "seq": MESH["seq"],
+            "steps": MESH["steps"], "seed": SEED + MESH["seed"],
+            **(opts or {})}
+    t_phase = time.perf_counter()
+    work = ROOT / "build" / f"mesh_{os.getpid()}"
+    work.mkdir(parents=True, exist_ok=True)
+    opts["params"] = str(work / "params")
+    params = _save_mesh_params(device, opts, work / "params")
+    t0 = time.perf_counter()
+    one = _mesh_one_rank(device, opts, params)
+    one["seconds"] = time.perf_counter() - t0
+    del params
+    log(f"phase 30: one rank, {json.dumps(one)}")
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    rdv = work / "rendezvous"
+    if rdv.exists():
+        rdv.unlink()
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    t0 = time.perf_counter()
+    procs = mp.start_processes(
+        _mesh_rank, args=(MESH["ranks"], str(rdv), str(work), opts),
+        nprocs=MESH["ranks"], join=False, start_method="spawn")
+    deadline = time.monotonic() + MESH["timeout"]
+    try:
+        while not procs.join(timeout=5):
+            if time.monotonic() > deadline:
+                raise AssertionError(f"phase 30: the ranks did not finish "
+                                     f"in {MESH['timeout']} s")
+    finally:
+        for p in procs.processes:
+            if p.is_alive():
+                p.terminate()
+                p.join(30)
+    wall = time.perf_counter() - t0
+    ranks = [json.loads((work / f"rank{r}.json").read_text())
+             for r in range(MESH["ranks"])]
+    shutil.rmtree(work, ignore_errors=True)
+    launches["mesh"] = [r["launches"] for r in ranks]
+    for r in ranks:
+        for name in MESH_KERNELS:
+            check(r["launches"][name] > 0, f"{name} was not launched on "
+                  f"rank {r['rank']} of the mesh path")
+        check(r["shards"] == [4, 2, 4], f"rank {r['rank']}: shards "
+              f"{r['shards']}")
+        check(r["stats"]["mesh_resizes"] == 2
+              and r["stats"]["live_packs"] == 0,
+              f"rank {r['rank']}: {r['stats']}")
+        check(r["losses"] == ranks[0]["losses"],
+              f"rank {r['rank']}: losses {r['losses']}")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(ranks[0]["losses"],
+                                                  one["losses"]))
+    check(rel <= MESH_LOSS_RTOL and all(math.isfinite(x)
+                                        for x in ranks[0]["losses"]),
+          f"mesh losses {ranks[0]['losses']}, one rank {one['losses']}")
+    check("sweep_vs_one_rank" in ranks[0], "the sweep check did not run")
+    peaks = [r["peak_gb"] for r in ranks]
+    member = [s for i, s in enumerate(ranks[0]["step_seconds"])
+              if i + 1 not in ranks[0]["idle_steps"]]
+    out = {"one_rank": one, "ranks": ranks, "max_rel_loss_diff": rel,
+           "rank_peak_gb": peaks, "summed_peak_gb": sum(peaks),
+           "pytree_peak_gb": [r["pytree_peak_gb"] for r in ranks],
+           "spawn_to_join_seconds": wall,
+           "median_step_seconds": {"one_rank": statistics.median(
+               one["step_seconds"]), "mesh": statistics.median(member)},
+           "resize_seconds": [r["seconds"] for _, r in ranks[0]["resizes"]],
+           "card": card}
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 30: the sharded arena and the elastic mesh, {card}: "
+        f"{json.dumps(out)}")
+    return out
+
+
+def mesh_only(device, card: str) -> int:
+    """``--mesh``: phase 30 alone. Its last line says that it is this
+    partial run, never the full run's ``{"ok": true, ...}``."""
+    import torch
+    launches = {}
+    out = phase_mesh(device, launches, card)
+    log(json.dumps({"launches": launches["mesh"]}))
+    log(card)
+    log(json.dumps({"mesh_only": True, "seconds": out["seconds"],
+                    "device": {"platform": "gpu",
+                               "kind": torch.cuda.get_device_name(0),
+                               "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def main(argv: list) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4979,6 +5410,8 @@ def main(argv: list) -> int:
         return train_moe_vlm_only(device, card)
     if "--perf-variants" in argv:
         return perf_variants_only(device, card)
+    if "--mesh" in argv:
+        return mesh_only(device, card)
     gen = torch.Generator(device=device).manual_seed(SEED)
     shapes = qwen2_1_5b_shapes()
     a_tree = _map_shapes(shapes, lambda s: torch.randn(
@@ -5098,7 +5531,11 @@ def main(argv: list) -> int:
     torch.cuda.empty_cache()
     lap("phases 27-28")
     perf_variants = perf_variant_phases(device, launches, card)
+    gc.collect()
+    torch.cuda.empty_cache()
     lap("phase 29")
+    mesh = phase_mesh(device, launches, card)
+    lap("phase 30")
     log(json.dumps({"launches": launches}))
     old = ("block_dist", "scatter_save", "masked_restore")
     new = ("arena_maintain", "arena_scatter", "parity_xor")
@@ -5185,13 +5622,15 @@ def main(argv: list) -> int:
                            launches["internvl2_train"][name],
                        "moe_train_launches": launches["moe_train"][name],
                        "perf_variants_launches":
-                           launches["perf_variants"][name]})
+                           launches["perf_variants"][name],
+                       "mesh_launches": [r[name] for r in launches["mesh"]]})
     log(json.dumps({"controller": ctl, "fabric": fabric,
                     "rs_fabric": rs_fabric, "leaf_fabric": leaf_fabric,
                     "multi_erasure": multi, "mamba2_serve": mamba2,
                     "qwen2_serve": qwen2, "train": train, "store": store,
                     **families, **train_families, "examples": examples,
                     **moe_vlm, **train_moe_vlm, **perf_variants,
+                    "mesh": {k: v for k, v in mesh.items() if k != "ranks"},
                     "serve_kernels": {
                         name: kernels[name]
                         for name in ("ssd_intra", "sw_attention")},

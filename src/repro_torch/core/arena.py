@@ -20,11 +20,13 @@ two packages' arenas compare byte for byte:
   XOR over arena words lands bit-exactly in the codec's
   ``(n_groups, frame_elems)`` parity.
 
-Invariants (the reference's I1-I4, without the mesh's shard pad): main
-offsets and words are tile multiples and tail blocks are word-contiguous;
-segments are disjoint and cover ``[0, total_words)`` except the zero
-tail-alignment gap; ``unpack(pack(tree)) == tree`` bit for bit; pad words
-are zero after ``pack`` and every arena mutation keeps them zero.
+Invariants (the reference's I1-I4): main offsets and words are tile
+multiples and tail blocks are word-contiguous; segments are disjoint and
+cover ``[0, data_words)`` except the zero tail-alignment gap, and
+``[data_words, total_words)`` is the **shard pad**, zero tiles appended so
+that ``n_tiles`` divides ``shards`` (empty for ``shards=1``);
+``unpack(pack(tree)) == tree`` bit for bit; pad words are zero after
+``pack`` and every arena mutation keeps them zero.
 
 Routing tables are **per tile** for the main region (``tile_gids``,
 ``tile_codes``) and per word only for the tail region (``tail_tables``):
@@ -34,8 +36,16 @@ trainer's optimizer seam: per leaf, ``seg_elems = seg_words * ratio`` f32
 values per block at ``value_offset``. ``pack_values`` packs a tree of
 gradients into it, and ``decode_values``/``encode_values`` move between
 the two domains one coalesced same-dtype run at a time
-(``value_runs``); for an all-f32 layout both are the identity. The mesh
-(``relayout_*``, ``arena_block_homes``, ``out_sharding``) is not here.
+(``value_runs``); for an all-f32 layout both are the identity.
+
+**Sharded form.** On a mesh of ``n`` ranks the layout is built with
+``shards=n``: rank ``r`` owns the contiguous word span ``[r * total / n,
+(r + 1) * total / n)`` (:meth:`ArenaLayout.span`), a whole number of tiles,
+and holds only that span of every arena-shaped buffer. The data region is
+the same for every shard count, so :func:`relayout_arena` and
+:func:`relayout_values` move a buffer across a shard-count change by a
+slice and a re-pad, bit for bit; :func:`arena_block_homes` derives each
+block's home from span ownership.
 """
 from __future__ import annotations
 
@@ -103,7 +113,7 @@ class ArenaLayout:
     leaf_offset: tuple[int, ...]        # word offset of each leaf's segment
     seg_words: tuple[int, ...]          # segment words per block, per leaf
     payload_words: tuple[int, ...]      # live words per block, per leaf
-    total_words: int                    # ARENA_TILE multiple
+    total_words: int                    # ARENA_TILE multiple (shard pad incl.)
     ab_t0: np.ndarray                   # (n_ab,) first tile per arena block
     ab_nt: np.ndarray                   # (n_ab,) touched tiles per arena block
     gid_ab: np.ndarray                  # arena blocks sorted by gid (CSR)
@@ -114,10 +124,38 @@ class ArenaLayout:
     seg_elems: tuple[int, ...]          # value-domain elems per block, per leaf
     value_offset: tuple[int, ...]       # value-domain start per leaf
     total_values: int                   # f32 value-domain length
+    shards: int = 1                     # even flat-sharding divisor of n_tiles
+    data_words: int = -1                # words before the shard pad
 
     @property
     def n_tiles(self) -> int:
         return self.total_words // ARENA_TILE
+
+    @property
+    def pad_words(self) -> int:
+        """Zero words of the shard pad (0 when ``shards == 1``)."""
+        return self.total_words - (self.total_words if self.data_words < 0
+                                   else self.data_words)
+
+    @property
+    def shard_words(self) -> int:
+        """Words each of the ``shards`` flat shards owns (a tile multiple)."""
+        return self.total_words // self.shards
+
+    def span(self, position: int) -> tuple[int, int]:
+        """The word span ``[w0, w1)`` of shard ``position``."""
+        if not 0 <= position < self.shards:
+            raise ValueError(f"shard {position} of {self.shards}")
+        sw = self.shard_words
+        return position * sw, (position + 1) * sw
+
+    def span_runs(self, position: int) -> tuple:
+        """:meth:`value_runs` of shard ``position``'s span, relative to the
+        span (one f32 run: a sharded layout is all-f32)."""
+        if not self.uniform_f32:
+            raise ValueError("a sharded arena holds an all-f32 model")
+        sw = self.shard_words
+        return ((0, sw, 0, sw, torch.float32),)
 
     @property
     def nbytes(self) -> int:
@@ -125,7 +163,7 @@ class ArenaLayout:
 
     @property
     def has_tail(self) -> bool:
-        return self.tail_start < self.total_words
+        return 0 <= self.tail_start < self.data_words
 
     @property
     def uniform_f32(self) -> bool:
@@ -202,10 +240,15 @@ class ArenaLayout:
     def tile_gids(self) -> np.ndarray:
         """(n_tiles,) int32 gid owning each main-region tile. Tail-region
         tiles report -1: several blocks may share them, so per-gid
-        reductions use :meth:`tail_tables` there."""
-        gids = np.full((self.n_tiles,), -1, np.int32)
+        reductions use :meth:`tail_tables` there. Shard-pad tiles report
+        gid 0: their words are zero in every arena, so a per-gid reduction
+        over them adds an exact +0.0."""
+        gids = np.zeros((self.n_tiles,), np.int32)
         tiles, abi = self.main_tiles()
         gids[tiles] = self.ab_arrays()["gid"][abi]
+        if self.has_tail:
+            gids[self.tail_start // ARENA_TILE:
+                 self.data_words // ARENA_TILE] = -1
         return gids
 
     def tile_codes(self) -> np.ndarray:
@@ -294,13 +337,17 @@ def as_live_arena(x: Any, layout: Optional[ArenaLayout]):
     return None
 
 
-def build_arena_layout(partition: BlockPartition,
+def build_arena_layout(partition: BlockPartition, shards: int = 1,
                        tail_pack: bool = True) -> ArenaLayout:
     """Lay out ``partition`` in the flat word arena: main-region leaves
     first in flatten order (tile-aligned segments), then tail leaves
     (single-block, payload under ``ARENA_TILE`` words) back to back at word
     granularity, then re-align to a tile. ``tail_pack=False`` keeps every
-    segment tile-aligned."""
+    segment tile-aligned. ``shards > 1`` appends zero tiles so that
+    ``n_tiles % shards == 0``: every flat shard then owns whole tiles, and
+    the data region ``[0, data_words)`` is the ``shards=1`` layout's."""
+    if shards < 1:
+        raise ValueError(f"shards must be >= 1, got {shards}")
     br = partition.block_rows
     n = len(partition.leaves)
     pw_leaf = [leaf_word_width(leaf, br) for leaf in partition.leaves]
@@ -333,10 +380,13 @@ def build_arena_layout(partition: BlockPartition,
                                      payload=pw_leaf[li]))
             off += seg
             voff += seg * r
-    total_words = _align(off)
-    total_values = voff + total_words - off   # the gap holds f32 values
+    data_words = _align(off)
+    pad_tiles = (-(data_words // ARENA_TILE)) % shards
+    total_words = data_words + pad_tiles * ARENA_TILE
+    # the alignment gap and the shard pad hold f32 values
+    total_values = voff + total_words - off
     if tail_start is None:
-        tail_start = total_words
+        tail_start = data_words
     ab_gid = np.asarray([ab.gid for ab in blocks], np.int64)
     gid_order = np.argsort(ab_gid, kind="stable")
     gid_ptr = np.searchsorted(ab_gid[gid_order],
@@ -355,7 +405,58 @@ def build_arena_layout(partition: BlockPartition,
                        payload_elems=tuple(payload_elems),
                        seg_elems=tuple(seg_elems),
                        value_offset=tuple(value_offset),
-                       total_values=total_values)
+                       total_values=total_values, shards=shards,
+                       data_words=data_words)
+
+
+def relayout_arena(arena: torch.Tensor, old: ArenaLayout,
+                   new: ArenaLayout) -> torch.Tensor:
+    """An arena of ``old`` as an arena of ``new`` (the same partition at
+    another shard count), bit for bit: the data region is kept and the
+    shard pad re-sized with zeros. On the buffer's device."""
+    if old.data_words != new.data_words:
+        raise ValueError("relayout_arena: layouts disagree on the data "
+                         f"region ({old.data_words} vs {new.data_words} "
+                         "words): not the same partition")
+    if arena.numel() != old.total_words:
+        raise ValueError(f"need a ({old.total_words},) arena, got "
+                         f"{tuple(arena.shape)}")
+    out = arena.new_zeros((new.total_words,))
+    out[:new.data_words] = arena[:new.data_words]
+    return out
+
+
+def relayout_values(buf: torch.Tensor, old: ArenaLayout,
+                    new: ArenaLayout) -> torch.Tensor:
+    """The value-domain counterpart of :func:`relayout_arena` (optimizer
+    moments across a shard-count change): the region before the shard pad
+    is kept, the pad re-sized with zeros."""
+    d_old = old.total_values - old.pad_words
+    d_new = new.total_values - new.pad_words
+    if d_old != d_new:
+        raise ValueError("relayout_values: layouts disagree on the data "
+                         f"region ({d_old} vs {d_new} values): not the same "
+                         "partition")
+    out = buf.new_zeros((new.total_values,))
+    out[:d_new] = buf[:d_new]
+    return out
+
+
+def arena_block_homes(layout: ArenaLayout,
+                      n_devices: Optional[int] = None) -> np.ndarray:
+    """(total_blocks,) home shard of each gid, from flat-shard span
+    ownership: the shard whose word span holds the first tile of the gid's
+    first arena block. With ``shards == n_devices`` a shard's home blocks
+    are the tile-aligned segments it already owns, so the sweep and the
+    partial save read local tiles (and the tiles of blocks that straddle a
+    span boundary)."""
+    n = layout.shards if n_devices is None else int(n_devices)
+    if layout.n_tiles % n:
+        raise ValueError(f"n_tiles {layout.n_tiles} not divisible by "
+                         f"{n} devices: build the layout with shards={n}")
+    tiles_per = layout.n_tiles // n
+    first_ab = layout.gid_ab[layout.gid_ptr[:-1]]
+    return (layout.ab_t0[first_ab] // tiles_per).astype(np.int64)
 
 
 # ---------------------------------------------------------------------------

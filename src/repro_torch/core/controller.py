@@ -35,6 +35,16 @@ arena_scatter launch sourced from the live arena, the sweep's replica, or
 a fresh pack. The tree form is decoded on demand (recovery and analysis,
 never the save). Top-k is a stable descending sort, so ties go to the
 lower block id, as ``jax.lax.top_k`` does.
+
+**On a mesh** (``mesh=``, with a fabric) the controller is arena-native:
+each rank holds its span of the checkpoint arena, a partial save selects
+the same blocks on every rank (the sweep's scores are summed over the mesh)
+and copies their words inside the rank's span (one arena_scatter launch),
+and a recovery gathers the live and checkpoint arenas and the tiers at the
+mesh's first position, restores there and scatters the recovered spans
+back; the other ranks take its report. :meth:`rebind_arena` moves the
+checkpoint to the fabric's new layout after an elastic resize. A mesh
+without the arena checkpoint, or with a store, raises.
 """
 from __future__ import annotations
 
@@ -59,6 +69,7 @@ from repro_torch.core.recovery import (apply_failure_and_recover,
                                        perturbation_norms,
                                        sample_failure_mask)
 from repro_torch.device import DeviceLike, resolve_device, synchronize
+from repro_torch.fabric.tiers import RecoveryTier
 from repro_torch.kernels.block_dist.ops import tree_block_scores
 from repro_torch.kernels.fused_maintain.ops import (arena_scatter_save,
                                                     tree_scatter_save)
@@ -88,7 +99,8 @@ class FTController:
                  fabric: Optional[Any] = None,
                  inplace_save: bool = True,
                  recorder: Optional[Any] = None,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None,
+                 mesh: Optional[Any] = None):
         self.device = resolve_device(device)
         for x in tree_leaves(params):
             if x.device != self.device:
@@ -108,7 +120,7 @@ class FTController:
             from repro_torch.fabric import CheckpointFabric, FabricConfig
             if isinstance(fabric, FabricConfig):
                 fabric = CheckpointFabric(self.partition, fabric,
-                                          recorder=self.recorder)
+                                          recorder=self.recorder, mesh=mesh)
             elif self.recorder.enabled:
                 fabric.attach_recorder(self.recorder)
             if policy.recovery == RecoveryMode.FULL:
@@ -117,7 +129,11 @@ class FTController:
                 raise ValueError("fabric recovery is tiered/partial; use "
                                  "recovery=RecoveryMode.PARTIAL or drop "
                                  "the fabric for a FULL-recovery baseline")
+        if mesh is not None and (fabric is None or fabric.mesh is None):
+            raise ValueError("a controller on a mesh needs a fabric on that "
+                             "mesh")
         self.fabric = fabric
+        self.mesh = None if fabric is None else fabric.mesh
         self._arena_layout = None
         self._ckpt_arena: Optional[torch.Tensor] = None
         self._ckpt_dirty = False
@@ -126,13 +142,22 @@ class FTController:
                 and (policy.strategy != SelectionStrategy.PRIORITY
                      or policy.norm == "l2")):
             self._arena_layout = fabric.arena_layout
-            self._ckpt_arena = pack_arena(params, self._arena_layout)
+            self._ckpt_arena = (pack_arena(params, self._arena_layout)
+                                if self.mesh is None
+                                else fabric.live_span(params))
             zeros = torch.zeros((self.partition.total_blocks,),
                                 dtype=torch.int32, device=self.device)
             self._ckpt = RunningCheckpoint(None, zeros, zeros.new_zeros(()))
             self._ckpt_dirty = True   # the tree form is decoded on demand
         else:
+            if self.mesh is not None:
+                raise ValueError(
+                    "a controller on a mesh needs the arena checkpoint "
+                    "(in-place saves, no custom score_fn, the l2 norm under "
+                    "PRIORITY)")
             self._ckpt = init_running_checkpoint(params, self.partition)
+        if self.mesh is not None and store is not None:
+            raise ValueError("the disk store does not run on a mesh")
         self.store = store
         if store is not None:
             store.attach_recorder(self.recorder)
@@ -172,6 +197,8 @@ class FTController:
         maintenance bytes, as tree-stepping runners do."""
         if not self.arena_ready:
             raise RuntimeError("controller has no arena layout")
+        if self.mesh is not None:
+            return self.fabric.live_span(params)
         if account and self.fabric is not None:
             t = self.fabric._traffic_model()
             self.fabric.stats["maintain_bytes_moved"] += \
@@ -180,7 +207,8 @@ class FTController:
         return pack_arena(params, self._arena_layout)
 
     def unpack_live(self, arena: torch.Tensor) -> PyTree:
-        """Decode an arena back to tree form."""
+        """Decode an arena back to tree form (a whole arena: on a mesh,
+        the spans gathered first)."""
         if not self.arena_ready:
             raise RuntimeError("controller has no arena layout")
         return unpack_arena(arena, self._arena_layout)
@@ -195,7 +223,40 @@ class FTController:
                 and any(self.fabric.maintenance_due(int(step))))
 
     def _live_arena(self, params):
+        if self.mesh is not None:
+            return params if self.fabric.is_span(params) else None
         return as_live_arena(params, self._arena_layout)
+
+    def rebind_arena(self, old_ranks: list, new_ranks: list) -> None:
+        """Adopt the fabric's current arena layout after an elastic resize
+        (:meth:`CheckpointFabric.resize_mesh`): the checkpoint's spans move
+        from the old mesh's ranks to the new mesh's
+        (:func:`~repro_torch.distributed.collectives.respan`, bit for bit:
+        the data region does not depend on the shard count), and the save
+        bookkeeping (``saved_iter``, the round-robin cursor) is taken from
+        the new mesh's first rank, so a rank that sat outside the shrunk
+        mesh rejoins in step. Every rank calls it."""
+        import torch.distributed as dist
+        from repro_torch.distributed.collectives import respan
+        if not self.arena_ready or self.fabric is None:
+            raise RuntimeError("rebind_arena needs an arena-native "
+                               "controller with a fabric")
+        old, layout = self._arena_layout, self.fabric.arena_layout
+        self._arena_layout = layout
+        if layout is old:
+            return
+        self._ckpt_arena = respan(
+            self._ckpt_arena, list(old_ranks), old.shard_words,
+            list(new_ranks), layout.shard_words, old.data_words,
+            torch.int32, self.device)
+        ck = self._ckpt
+        if dist.is_initialized() and dist.get_world_size() > 1:
+            box = [(ck.saved_iter.cpu(), ck.rr_cursor.cpu())]
+            dist.broadcast_object_list(box, src=int(new_ranks[0]))
+            ck = RunningCheckpoint(None, box[0][0].to(self.device),
+                                   box[0][1].to(self.device))
+        self._ckpt = RunningCheckpoint(None, ck.saved_iter, ck.rr_cursor)
+        self._ckpt_dirty = self._ckpt_arena is not None
 
     # -- running checkpoint (arena-backed in arena mode) ---------------------
 
@@ -204,6 +265,10 @@ class FTController:
         """The running checkpoint. In arena mode the canonical values are
         the checkpoint arena; the tree form is decoded here on demand."""
         if self._ckpt_dirty:
+            if self.mesh is not None:
+                raise ValueError("on a mesh the checkpoint is this rank's "
+                                 "span of the checkpoint arena "
+                                 "(_ckpt_arena); gather it to decode")
             values = unpack_arena(self._ckpt_arena, self._arena_layout)
             self._ckpt = RunningCheckpoint(values, self._ckpt.saved_iter,
                                            self._ckpt.rr_cursor)
@@ -391,7 +456,11 @@ class FTController:
         rep = self.fabric.replicas
         published = (rep is not None and rep.arena is not None
                      and rep.is_fresh(int(step)))
-        if self.fabric.cfg.async_maintain and published:
+        if self.mesh is not None:
+            # this rank's span of the live values: the same selection on
+            # every rank, each copying the words inside its own span
+            src = live if live is not None else self.fabric.live_span(params)
+        elif self.fabric.cfg.async_maintain and published:
             # async: the published slot holds this step's values bit for
             # bit, and reading it keeps the save off the live arena the
             # next step updates in place
@@ -402,8 +471,10 @@ class FTController:
             src = rep.arena_local()
         else:
             src = pack_arena(params, self._arena_layout)
+        span = (None if self.mesh is None
+                else self._arena_layout.span(self.fabric.comm.pos))
         self._ckpt_arena, moved = arena_scatter_save(
-            self._ckpt_arena, src, self._arena_layout, idx)
+            self._ckpt_arena, src, self._arena_layout, idx, span=span)
         mask_t = torch.from_numpy(mask).to(self.device)
         saved = torch.where(mask_t, torch.full_like(ck.saved_iter, int(step)),
                             ck.saved_iter)
@@ -416,6 +487,9 @@ class FTController:
         """Squared-L2 drift per block against the checkpoint arena (a pack
         first when the live state is a tree): the PRIORITY fallback when
         this step's sweep did not cache scores."""
+        if self.mesh is not None:
+            raise ValueError("on a mesh the scores come from the sweep: "
+                             "call maintain() before the save")
         live = self._live_arena(params)
         if live is None:
             live = pack_arena(params, self._arena_layout)
@@ -541,6 +615,9 @@ class FTController:
         tier; ``failed_devices`` names the dead devices of a correlated
         failure (None: the paper's uniform block loss). ``params`` may be
         the live flat arena: it is decoded, recovered, and re-packed."""
+        if self.mesh is not None:
+            return self._on_failure_mesh(params, lost_mask, failed_devices,
+                                         step, persist_failure)
         live = self._live_arena(params)
         if live is not None:
             # the tiers read the live values and the checkpoint and write
@@ -622,6 +699,80 @@ class FTController:
                 tier_sq=out.get("tier_sq"),
                 failed_devices=out.get("failed_devices", 0), **extra)
         return recovered, out
+
+    def _on_failure_mesh(self, live, lost_mask, failed_devices, step,
+                         persist_failure) -> tuple[PyTree, dict]:
+        """A recovery on a mesh. Every rank keeps the failed devices dead
+        in the view; the members gather the live and checkpoint spans and
+        the tiers at the mesh's first position, which plans, restores and
+        prices the loss as a single device would; the recovered spans are
+        scattered back into each member's live span in place; the report
+        goes to every rank of the default group; then every rank ends the
+        failure (counters and, elastic, the re-plan). ``live`` is the
+        rank's span of the arena-resident state (None outside the mesh)."""
+        import torch.distributed as dist
+        fab, comm, lay = self.fabric, self.fabric.comm, self._arena_layout
+        lost = (lost_mask.cpu().numpy() if isinstance(lost_mask, torch.Tensor)
+                else np.asarray(lost_mask)).astype(bool)
+        failed, at = fab.begin_failure(failed_devices, step, persist_failure)
+        if self.recorder.enabled:
+            self.recorder.event("failure", step=None if step is None
+                                else int(step), lost_blocks=int(lost.sum()),
+                                failed_devices=int(failed.size))
+        out = None
+        if comm is not None:
+            if self._live_arena(live) is None:
+                raise ValueError("a recovery on a mesh takes the rank's span "
+                                 "of the arena-resident state")
+            # every rank plans alike; the parity is gathered only when a
+            # block recovers from it
+            plan = fab.planner.plan(lost, failed, at)
+            full = comm.gather(live)
+            ckpt = comm.gather(self._ckpt_arena)
+            tiers = fab.gather_tiers(parity=bool(
+                plan.mask(RecoveryTier.PARITY).any()))
+            if comm.is_root:
+                params = unpack_arena(full, lay, copy=False)
+                ck = RunningCheckpoint(unpack_arena(ckpt, lay, copy=False),
+                                       self._ckpt.saved_iter,
+                                       self._ckpt.rr_cursor)
+                lost_t = torch.from_numpy(lost).to(self.device)
+                info = perturbation_norms(params, ck, lost_t, self.partition)
+                recovered, tier_info = fab.recover_gathered(
+                    params, ck.values, plan, tiers)
+                info["applied_sq"] = tree_block_scores(
+                    recovered, params, self.partition).sum()
+                info["lost_blocks"] = int(lost.sum())
+                info.update(tier_info)
+                out = {k: (float(v) if isinstance(v, torch.Tensor) else v)
+                       for k, v in info.items()}
+                pack_arena(recovered, lay, out=full)
+                del params, ck, recovered, tiers, ckpt
+            comm.scatter(full, live)
+            del full
+        if dist.is_initialized() and dist.get_world_size() > 1:
+            box = [out]
+            dist.broadcast_object_list(box, src=int(fab.mesh.ranks[0]))
+            out = box[0]
+        out = fab.end_failure(out, failed, at, live)
+        self.stats["events"].append({
+            "step": None if step is None else int(step),
+            "lost_blocks": out["lost_blocks"],
+            "failed_devices": out["failed_devices"],
+            "tier_counts": out.get("tier_counts"),
+            "applied_sq": float(out["applied_sq"]),
+            "placement": out.get("placement")})
+        self.stats["recoveries"] += 1
+        if self.recorder.enabled:
+            self.recorder.record_recovery(
+                step=None if step is None else int(step),
+                lost_blocks=int(out["lost_blocks"]),
+                tier_counts=out.get("tier_counts"),
+                applied_sq=out["applied_sq"], tier_sq=out.get("tier_sq"),
+                failed_devices=out.get("failed_devices", 0),
+                recovered_epoch=int(out["recovered_epoch"]),
+                staleness=int(out["staleness"]))
+        return live, out
 
     # -- analysis helpers ---------------------------------------------------
 

@@ -1,15 +1,20 @@
-"""The LM data pipeline, single device.
+"""The LM data pipeline.
 
-The port of ``repro.data.pipeline.ShardedLMDataset`` without the mesh: a
-deterministic synthetic token stream drawn host-side from
-``np.random.default_rng(seed)`` in the reference's order, so both packages
-see the same tokens, then put on the device. On a real cluster the
-generator would be per-host file readers; the interface (``__iter__`` of
-batches) is what the trainer consumes.
+The port of ``repro.data.pipeline.ShardedLMDataset``: a deterministic
+synthetic token stream drawn host-side from ``np.random.default_rng(seed)``
+in the reference's order, so both packages see the same tokens, then put
+on the device. On a mesh (``ctx``) every rank draws the same global batch
+and keeps its slice: the mesh's positions, in row-major order, split the
+batch dim evenly (each position is a data-parallel rank of the flat-arena
+FSDP; the model axis splits no heads). The batch is a :class:`MeshBatch`,
+which keeps the global batch's host arrays, so a trainer can re-slice it
+for a shrunk mesh. On a real cluster the generator would be per-host file
+readers; the interface (``__iter__`` of batches) is what the trainer
+consumes.
 """
 from __future__ import annotations
 
-from typing import Iterator
+from typing import Iterator, Optional
 
 import numpy as np
 import torch
@@ -18,15 +23,46 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 
 
+class MeshBatch(dict):
+    """A rank's slice of a global batch (the dict's tensors) and the global
+    batch itself as host arrays (``global_rows``)."""
+    global_rows: dict
+
+    @property
+    def global_batch(self) -> int:
+        return int(next(iter(self.global_rows.values())).shape[0])
+
+
+def slice_batch(rows: dict, mesh, device) -> Optional[MeshBatch]:
+    """This rank's slice of the global batch ``rows`` (host arrays) over
+    ``mesh``'s positions, on ``device``; None for a rank outside the
+    mesh."""
+    pos = mesh.position()
+    if pos is None:
+        return None
+    b = next(iter(rows.values())).shape[0]
+    if b % mesh.size:
+        raise ValueError(f"a batch of {b} does not split over "
+                         f"{mesh.size} mesh positions")
+    per = b // mesh.size
+    out = MeshBatch({k: torch.from_numpy(np.ascontiguousarray(
+        v[pos * per:(pos + 1) * per])).to(device) for k, v in rows.items()})
+    out.global_rows = rows
+    return out
+
+
 class ShardedLMDataset:
     """Batches of ``{"tokens", "labels"}`` int32 (batch, seq) tensors on
     ``device`` (``cuda`` unless asked otherwise); ``labels`` is ``tokens``
-    shifted by one."""
+    shifted by one. With ``ctx`` (a
+    :class:`~repro_torch.sharding.partition.DistContext` with a mesh)
+    each batch is the rank's slice (:func:`slice_batch`)."""
 
     def __init__(self, cfg: ModelConfig, batch: int, seq: int,
-                 seed: int = 0, device: DeviceLike = None):
+                 seed: int = 0, device: DeviceLike = None, ctx=None):
         self.cfg, self.batch, self.seq = cfg, batch, seq
         self.device = resolve_device(device)
+        self.ctx = ctx
         self._rng = np.random.default_rng(seed)
         self._step = 0
 
@@ -45,6 +81,8 @@ class ShardedLMDataset:
                 0, 1, (self.batch, cfg.enc_seq, cfg.d_model)
             ).astype(np.float32)
         self._step += 1
+        if self.ctx is not None and self.ctx.mesh is not None:
+            return slice_batch(batch, self.ctx.mesh, self.device)
         return {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
                 for k, v in batch.items()}
 

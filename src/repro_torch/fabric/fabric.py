@@ -54,9 +54,27 @@ same protocol runs without streams. ``overlap_efficiency`` is the share of
 the sweeps' wall time hidden under the caller's work; a recovery behind the
 published epoch reports ``recovered_epoch`` and ``staleness``.
 
-Not ported yet, and raising ``NotImplementedError`` with its ROADMAP item:
-``mesh=`` and ``resize_mesh`` (item 15). The reference's ``use_pallas``
-option is gone: each kernel runs on CUDA tensors and its plain version on
+**On a mesh** (``mesh=``, a :class:`~repro_torch.launch.mesh.Mesh` of
+``n_devices`` ranks; position ``i`` is logical device ``i``) the arena is
+sharded: the layout is built with ``shards = n`` and each rank holds its
+span of the live arena, the checkpoint and the replica, and its own rows
+of the parity. A maintain runs the arena_maintain kernel on the rank's
+span only (:class:`~repro_torch.kernels.fused_maintain.ops.
+SpanMaintainProgram`: its partial parity goes to the rows' owners by one
+all-to-all and the parity_xor kernel folds it there; the scores are summed
+over the mesh), and ships the span's replica to the rank at the
+anti-affine rotation (``_bind_mesh``: the shift that puts the most spans
+on another host, then on another rack), booking ``ici_bytes_moved`` and
+``dcn_bytes_moved``. A recovery gathers the tiers at the mesh's first
+position, plans and restores there (a failure-rate path) and scatters the
+recovered spans back. ``resize_mesh`` re-binds the fabric to a shrunk or
+re-grown mesh. The meshed fabric needs the arena pipeline on an all-f32
+model, the XOR codec and synchronous maintenance: anything else raises.
+Ranks left out of a shrunk mesh keep the bookkeeping (view, placement,
+striping) and skip the data work.
+
+The reference's ``use_pallas`` option is gone: each kernel runs on CUDA
+tensors and its plain version on
 CPU tensors. With a real recorder attached the fabric emits the
 reference's ``maintain`` (inside a fenced ``maintain`` span; an async
 epoch's deferred span covers [dispatch, fence]), ``tier_fallback``,
@@ -73,8 +91,9 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from repro_torch.core.arena import (arena_compatible, as_live_arena,
-                                    build_arena_layout, pack_arena)
+from repro_torch.core.arena import (arena_block_homes, arena_compatible,
+                                    as_live_arena, build_arena_layout,
+                                    pack_arena)
 from repro_torch.core.blocks import BlockPartition
 from repro_torch.fabric.domains import FailureDomainMap
 from repro_torch.fabric.parity import ParityCodec
@@ -85,6 +104,7 @@ from repro_torch.fabric.rs import RSCodec
 from repro_torch.fabric.tiers import TieredRecovery
 from repro_torch.kernels import _build
 from repro_torch.kernels.fused_maintain.ops import (ArenaMaintainProgram,
+                                                    SpanMaintainProgram,
                                                     maintain_traffic,
                                                     make_fused_maintain_fn)
 from repro_torch.sharding.partition import block_device_homes
@@ -131,10 +151,6 @@ class CheckpointFabric:
                  recorder: Optional[Any] = None,
                  mesh: Optional[Any] = None):
         self.cfg = cfg or FabricConfig()
-        if mesh is not None:
-            raise NotImplementedError(
-                "the sharded arena and the elastic mesh are not ported yet "
-                "(ROADMAP item 15)")
         self.recorder = recorder if recorder is not None else NULL_RECORDER
         self.partition = partition
         self.domains = FailureDomainMap(self.cfg.n_devices,
@@ -150,8 +166,43 @@ class CheckpointFabric:
         use_arena = (self.cfg.arena and self.cfg.fused and self.cfg.replicate
                      and self.cfg.parity and arena_compatible(partition))
         self.arena_layout = layout if use_arena else None
-        initial = (np.asarray(homes, np.int32) if homes is not None
-                   else block_device_homes(partition, self.cfg.n_devices))
+        # the mesh binding: mesh position i is logical device
+        # _mesh_logical[i]; comm is this rank's collectives (None when the
+        # rank is not in the mesh)
+        self.mesh = None
+        self.comm = None
+        self._mesh_logical = None
+        self._shift = 0
+        self._xfer_split = (0, 0, 0)    # (local, ici, dcn) bytes a transfer
+        if mesh is not None:
+            from repro_torch.launch.mesh import Mesh
+            if not isinstance(mesh, Mesh):
+                raise TypeError(f"mesh must be a repro_torch.launch.mesh.Mesh,"
+                                f" got {type(mesh).__name__}")
+            n = mesh.size
+            if n != self.cfg.n_devices:
+                raise ValueError(
+                    f"mesh has {n} devices but the fabric topology is "
+                    f"configured for {self.cfg.n_devices} "
+                    "(FabricConfig.n_devices must match the mesh so "
+                    "failure domains map onto real devices)")
+            uniform_f32 = all(l.dtype == torch.float32
+                              for l in partition.leaves)
+            if not (use_arena and uniform_f32) or self.cfg.rs_parity \
+                    or self.cfg.async_maintain:
+                raise ValueError(
+                    "a meshed fabric needs the sharded arena pipeline "
+                    "(arena=True, fused=True, both tiers, an all-f32 model, "
+                    "the XOR codec and synchronous maintenance): there is no "
+                    "sharded per-leaf, RS or async fallback")
+            self.arena_layout = build_arena_layout(partition, shards=n)
+        if homes is not None:
+            initial = np.asarray(homes, np.int32)
+        elif mesh is not None:
+            # a block lives where the sharded arena places its first tile
+            initial = arena_block_homes(self.arena_layout).astype(np.int32)
+        else:
+            initial = block_device_homes(partition, self.cfg.n_devices)
         self.view = ClusterView(self.domains, initial)
         self.replicas = (ReplicaSet(partition, self.view)
                          if self.cfg.replicate else None)
@@ -168,6 +219,8 @@ class CheckpointFabric:
         self.planner = TieredRecovery(partition, self.view,
                                       replicas=self.replicas,
                                       parity=self.parity)
+        if mesh is not None:
+            self._bind_mesh(mesh, np.arange(mesh.size, dtype=np.int32))
         self.last_maintained_step = -1
         self._fused_fn = None
         self._fused_version = -1
@@ -225,6 +278,222 @@ class CheckpointFabric:
         self.stats = recorder.scope("fabric", self.stats)
         recorder.adopt_histogram("fabric/fence_seconds", self.fence_hist)
 
+    # -- the mesh binding -----------------------------------------------------
+
+    def _bind_mesh(self, mesh, logical_ids: np.ndarray) -> None:
+        """Bind the fabric to ``mesh``: position ``i`` is logical device
+        ``logical_ids[i]``. Picks the anti-affine replica rotation (span
+        ``j``'s copy goes to position ``(j + shift) % n``: the shift with
+        the most cross-host pairs, then cross-rack, in the bound topology)
+        and the per-transfer local/ICI/DCN byte split of the maintain
+        events (same host: ICI, another host: DCN)."""
+        from repro_torch.distributed.collectives import MeshComm
+        self.mesh = mesh
+        self._mesh_logical = np.asarray(logical_ids, np.int32)
+        n = mesh.size
+        hosts = np.asarray(self.domains.host_of(self._mesh_logical))
+        racks = np.asarray(self.domains.rack_of(self._mesh_logical))
+        best, shift = (-1, -1), 0
+        for s in range(1, n):
+            dst = (np.arange(n) + s) % n
+            key = (int(np.sum(hosts[dst] != hosts)),
+                   int(np.sum(racks[dst] != racks)))
+            if key > best:
+                best, shift = key, s
+        self._shift = shift
+        dst = (np.arange(n) + shift) % n
+        sw = self.arena_layout.shard_words * 4
+        local = int(np.sum(dst == np.arange(n))) * sw
+        ici = int(np.sum((hosts[dst] == hosts)
+                         & (dst != np.arange(n)))) * sw
+        dcn = int(np.sum(hosts[dst] != hosts)) * sw
+        self._xfer_split = (local, ici, dcn)
+        pos = mesh.position()
+        self.comm = None if pos is None else MeshComm(mesh)
+        if self.replicas is not None:
+            self.replicas.bind_mesh(None if pos is None
+                                    else (pos - shift) % n)
+
+    def _replica_xfer(self, rep: torch.Tensor) -> torch.Tensor:
+        """Ship this rank's replica span to its anti-affine position and
+        take the span it holds in turn; books the ICI/DCN split. The
+        identity without a mesh or on a one-position mesh."""
+        if self.mesh is None or self._shift == 0:
+            return rep
+        out = self.comm.ship(rep, self._shift)
+        _, ici, dcn = self._xfer_split
+        self.stats["ici_bytes_moved"] += ici
+        self.stats["dcn_bytes_moved"] += dcn
+        return out
+
+    def is_span(self, params: PyTree) -> bool:
+        """True when ``params`` is a rank's span of the arena (the meshed
+        arena-resident state)."""
+        return (isinstance(params, torch.Tensor) and params.dim() == 1
+                and params.dtype == torch.int32
+                and params.numel() == self.arena_layout.shard_words)
+
+    def live_span(self, params: PyTree) -> Optional[torch.Tensor]:
+        """This rank's span of the live values on a mesh: ``params`` itself
+        when it is the span (arena-resident state), else the span of its
+        pack (a tree). None for a rank outside the mesh."""
+        if self.comm is None:
+            return None
+        if self.is_span(params):
+            return params
+        w0, w1 = self.arena_layout.span(self.comm.pos)
+        return pack_arena(params, self.arena_layout)[w0:w1].clone()
+
+    def _mesh_maintain(self, step: int, params: PyTree, ckpt_values) -> None:
+        """The sweep of this rank's span (:class:`SpanMaintainProgram`): the
+        replica shipped anti-affine, the parity combined into the owners'
+        rows, the scores summed over the mesh. A tree is packed and its
+        span is the replica; the resident span gets a copy from the same
+        read. A rank outside the mesh has nothing to sweep."""
+        if self.comm is None:
+            return
+        span = self.live_span(params)
+        resident = self.is_span(params)
+        fn = self._arena_maintain_fn()
+        rep, scores, owned = fn(span, ckpt_values, self.comm, copy=resident)
+        if rep is None:
+            rep = span
+        self.replicas.ingest_arena(step, self._replica_xfer(rep),
+                                   self.arena_layout)
+        self.parity.ingest(step, owned)
+        if ckpt_values is not None:
+            self.last_scores = scores
+            self.last_scores_step = step
+        self.stats["replica_refreshes"] += 1
+        self.stats["parity_encodes"] += 1
+        self.stats["fused_maintains"] += 1
+        self.stats["arena_maintains"] += 1
+        if resident:
+            self.live_arena_mode = True
+            self.stats["arena_resident_maintains"] += 1
+        self.stats["maintain_bytes_moved"] += self._traffic_model()[
+            "arena_sharded" if resident else "arena"]
+        self.published_epoch = int(step)
+
+    def gather_tiers(self, parity: bool = True
+                     ) -> tuple[Optional[torch.Tensor],
+                                Optional[torch.Tensor]]:
+        """The replica arena in its primary placement and (with
+        ``parity``) the whole ``(n_groups, frame_elems)`` parity, gathered
+        at the mesh's first position (None elsewhere): a recovery's
+        inputs."""
+        comm = self.comm
+        # position p holds the replica of the span of position p - shift
+        rep = comm.gather(self.replicas.arena, slots=[
+            (p - self._shift) % comm.n for p in range(comm.n)])
+        par = (comm.gather(self.parity.parity.reshape(-1)) if parity
+               else None)
+        if not comm.is_root:
+            return None, None
+        if par is not None:
+            par = par.view(-1, self.parity.layout.frame_elems)[
+                :self.parity.n_groups]
+        return rep, par
+
+    def recover_gathered(self, params: PyTree, ckpt_values: PyTree, plan,
+                         tiers: tuple) -> tuple[PyTree, dict]:
+        """The tier-planned restore of a whole tree at the mesh's first
+        position under ``plan`` (``planner.plan``, made on every rank),
+        with the gathered tiers (:meth:`gather_tiers`) standing in for the
+        rank's spans while it runs."""
+        rep, par = tiers
+        held = (self.replicas._arena, self.replicas._held)
+        owned = self.parity.parity
+        self.replicas._arena, self.replicas._held = rep, None
+        self.parity.parity = par
+        try:
+            recovered, stats = self.planner.recover(params, ckpt_values,
+                                                    plan)
+        finally:
+            self.replicas._arena, self.replicas._held = held
+            self.parity.parity = owned
+        stats["tier_fallbacks"] = plan.fallbacks
+        return recovered, stats
+
+    def begin_failure(self, failed_devices, step: Optional[int],
+                      persist_failure: Optional[bool]) -> tuple[np.ndarray,
+                                                                int]:
+        """The bookkeeping a failure starts with, on every rank: the
+        failed devices kept dead in the view when persisted. Returns the
+        failed devices and the step."""
+        self._settle_pending()
+        failed = np.asarray(failed_devices if failed_devices is not None
+                            else [], np.int32).ravel()
+        step = self.last_maintained_step if step is None else int(step)
+        persist = self.cfg.elastic if persist_failure is None else \
+            bool(persist_failure)
+        if persist and failed.size:
+            self.view.mark_failed(failed)
+        return failed, step
+
+    def end_failure(self, stats: dict, failed: np.ndarray, step: int,
+                    recovered: PyTree) -> dict:
+        """The bookkeeping a recovery ends with, on every rank: counters,
+        fallback events and, elastic, the re-plan with the sweep of the
+        recovered values."""
+        self.stats["recoveries"] += 1
+        stats["failed_devices"] = int(failed.size)
+        stats["recovered_epoch"] = step
+        stats["staleness"] = 0
+        for fb in stats["tier_fallbacks"]:
+            self.stats["tier_fallbacks"] += 1
+            if self.recorder.enabled:
+                self.recorder.event("tier_fallback", step=step, **fb)
+        if self.cfg.elastic and failed.size:
+            stats["placement"] = self._replan(step, recovered)
+        return stats
+
+    def resize_mesh(self, mesh, logical_ids, step: Optional[int] = None,
+                    params: Optional[PyTree] = None):
+        """Re-bind a meshed fabric to a shrunk (or re-grown) mesh.
+
+        ``logical_ids[i]`` is the logical device at mesh position ``i``: the
+        survivors on a shrink, the whole original range on a re-grow.
+        Rebuilds the arena layout at the new shard count (the data region
+        is the same, only the shard pad changes), re-homes every block to
+        the shard that owns it, re-seeds the replicas, re-stripes the
+        parity and drops every program built for the old shard count.
+        ``params`` (this rank's span of the live arena, already moved to
+        the new layout) triggers a maintain so every tier is fresh; without
+        it the tiers stay stale until the caller's next maintain. Every
+        rank calls it, those outside the new mesh too. Returns the new
+        layout."""
+        if self.mesh is None:
+            raise ValueError("resize_mesh is a sharded-arena operation "
+                             "(a meshed fabric only)")
+        self._settle_pending()
+        logical_ids = np.asarray(logical_ids, np.int32)
+        new_layout = build_arena_layout(self.partition, shards=mesh.size)
+        self.arena_layout = new_layout
+        self._bind_mesh(mesh, logical_ids)
+        self.view.homes[:] = logical_ids[arena_block_homes(new_layout)]
+        self.view.version += 1
+        self._arena_fn = None
+        self._traffic = None
+        self._slots = [None, None]
+        self.replicas.reseed()
+        # the old shard count's spans and rows are no tier of the new mesh
+        self.replicas.ingest_arena(-1, None, None)
+        self.parity.restripe()
+        self.planner.rehome()
+        at = int(step) if step is not None else self.last_maintained_step
+        if params is not None:
+            self._mesh_maintain(at, params, None)
+            self.last_maintained_step = at
+        self.stats["mesh_resizes"] += 1
+        self.stats["arena_padding_ratio"] = float(new_layout.padding_ratio)
+        if self.recorder.enabled:
+            self.recorder.event(
+                "mesh_resize", step=at, shards=new_layout.shards,
+                alive_devices=self.view.n_alive_devices,
+                alive_hosts=self.view.n_alive_hosts)
+        return new_layout
+
     # -- maintenance ---------------------------------------------------------
 
     def maintain(self, step: int, params: PyTree,
@@ -250,6 +519,8 @@ class CheckpointFabric:
         live = as_live_arena(params, self.arena_layout)
         due_replica, due_parity = self.maintenance_due(step, force=force)
         b0 = self.stats["maintain_bytes_moved"]
+        i0 = self.stats["ici_bytes_moved"]
+        d0 = self.stats["dcn_bytes_moved"]
         if self.cfg.async_maintain and live is not None \
                 and (due_replica or due_parity):
             # the pipelined path: start the sweep and return; its deferred
@@ -269,7 +540,12 @@ class CheckpointFabric:
         mode = "components"
         with self.recorder.span("maintain", step=step,
                                 fence=self.block_until_maintained):
-            if self.arena_layout is not None and (
+            if self.mesh is not None:
+                if due_replica or due_parity:
+                    self._mesh_maintain(step, params, ckpt_values)
+                    mode = ("arena_resident" if self.is_span(params)
+                            else "arena")
+            elif self.arena_layout is not None and (
                     (due_replica and due_parity)
                     or (live is not None and (due_replica or due_parity))):
                 self._arena_maintain(step, params, ckpt_values,
@@ -296,7 +572,8 @@ class CheckpointFabric:
             self.recorder.event(
                 "maintain", step=step, mode=mode,
                 bytes_moved=self.stats["maintain_bytes_moved"] - b0,
-                ici_bytes=0, dcn_bytes=0,
+                ici_bytes=self.stats["ici_bytes_moved"] - i0,
+                dcn_bytes=self.stats["dcn_bytes_moved"] - d0,
                 replica=due_replica, parity=due_parity)
 
     def _arena_maintain(self, step: int, params: PyTree,
@@ -496,7 +773,9 @@ class CheckpointFabric:
         if ckpt_values is None:
             return None
         if isinstance(ckpt_values, torch.Tensor) and ckpt_values.dim() == 1:
-            if ckpt_values.numel() != self.arena_layout.total_words:
+            want = (self.arena_layout.total_words if self.mesh is None
+                    else self.arena_layout.shard_words)
+            if ckpt_values.numel() != want:
                 raise ValueError("checkpoint arena does not match this "
                                  "fabric's layout")
             return ckpt_values
@@ -506,7 +785,12 @@ class CheckpointFabric:
         """The sweep program, rebuilt whenever the placement engine
         re-striped since the last build."""
         if self._arena_fn is None or self._arena_version != self.view.version:
-            if self.parity.needs_arena_encode:
+            if self.mesh is not None:
+                self._arena_fn = SpanMaintainProgram(
+                    self.partition, self.arena_layout, self.parity.layout,
+                    self.parity.group_of, self.parity.n_groups,
+                    self.comm.pos, self.mesh.size)
+            elif self.parity.needs_arena_encode:
                 # no parity destinations: the RS codec encodes its rows
                 self._arena_fn = ArenaMaintainProgram(self.partition,
                                                       self.arena_layout)
@@ -707,7 +991,11 @@ class CheckpointFabric:
         re-home displaced blocks, re-seed replicas, re-stripe parity, and
         refresh both tiers on the new placement."""
         displaced = rehome_blocks(self.view)
-        if self.arena_layout is not None:
+        if self.mesh is not None:
+            self.replicas.reseed()
+            self.parity.restripe()
+            self._mesh_maintain(step, params, None)
+        elif self.arena_layout is not None:
             self.replicas.reseed()
             self.parity.restripe()
             self._arena_maintain(step, params, None)
@@ -756,7 +1044,12 @@ class CheckpointFabric:
             return info
         at = int(step) if step is not None else self.last_maintained_step
         moved = rebalance_homes(self.view)
-        if self.arena_layout is not None and params is not None:
+        if self.mesh is not None:
+            self.replicas.reseed()
+            self.parity.restripe()
+            if params is not None:
+                self._mesh_maintain(at, params, None)
+        elif self.arena_layout is not None and params is not None:
             self.replicas.reseed()
             self.parity.restripe()
             self._arena_maintain(at, params, None)
@@ -869,8 +1162,3 @@ class CheckpointFabric:
         return {"block": int(block), "word": int(cols[k]), "bit": b,
                 "arena_index": idx}
 
-    # -- not ported yet ------------------------------------------------------
-
-    def resize_mesh(self, *args, **kwargs):
-        raise NotImplementedError(
-            "the elastic mesh is not ported yet (ROADMAP item 15)")

@@ -10,6 +10,14 @@ value: zero perturbation in the Theorem 4.1 accounting.
 The snapshot is a tree (the per-component refresh or the per-leaf sweep's
 copy) or a flat arena ingested by the arena sweep (the hot-path form);
 ``values`` decodes the arena on demand (recovery only).
+
+On a mesh the replica is placed anti-affine by span: the rank at position
+``p`` holds the replica of the span of position ``held_span`` (``(p -
+shift) % n``, the fabric's rotation), as the reference's
+``main_sharding`` and its rolled replica sharding place it (the
+fabric's ``_bind_mesh`` sets it through ``bind_mesh``). The primary
+placement (``arena_local``) is then a gather
+(:meth:`~repro_torch.fabric.fabric.CheckpointFabric.gather_tiers`).
 """
 from __future__ import annotations
 
@@ -36,8 +44,15 @@ class ReplicaSet:
         self.replica_homes = anti_affine_replica_homes(view)
         self._tree: Optional[PyTree] = None
         self._arena: Optional[torch.Tensor] = None
+        self._held: Optional[int] = None    # the span held, on a mesh
         self.arena_layout = None
         self.refreshed_step = -1
+
+    def bind_mesh(self, held_span: Optional[int]) -> None:
+        """On a mesh: the position whose span this rank's replica holds
+        (None: a rank outside the mesh, or no mesh)."""
+        self._held = held_span
+
 
     # -- maintenance ---------------------------------------------------------
 
@@ -77,7 +92,12 @@ class ReplicaSet:
 
     def arena_local(self) -> Optional[torch.Tensor]:
         """The arena snapshot on the primary placement: the identity
-        without a mesh (the mesh is ROADMAP item 15)."""
+        without a mesh. On a mesh the rank holds another rank's span, and
+        the primary placement is a gather: this raises."""
+        if self._held is not None:
+            raise ValueError("on a mesh this rank holds the replica of span "
+                             f"{self._held}; gather the replica arena "
+                             "(CheckpointFabric.gather_tiers)")
         return self._arena
 
     @property

@@ -447,6 +447,221 @@ class ArenaMaintainProgram:
 
 
 # ---------------------------------------------------------------------------
+# The sweep of one shard on a mesh
+# ---------------------------------------------------------------------------
+
+def restrict_plan(plan: SweepPlan, layout: ArenaLayout, t0: int,
+                  t1: int) -> tuple[SweepPlan, np.ndarray]:
+    """``plan`` cut to the arena tiles ``[t0, t1)``, every index relative
+    to the span (the kernel reads the span as its arena): the member tiles
+    and tail words that lie there, the destinations they reach (numbered
+    0.. in the order of ``plan``'s ascending destinations, so the parity it
+    writes is a compact buffer of those tiles), the tail blocks' parts
+    inside the span, and each arena block's score segments there (none for
+    a block outside it; the scores of a block that straddles the span's
+    edge are partial, and the ranks' sum is the block's score). Returns
+    the plan and each compact destination's tile in ``plan``'s parity.
+    Over ``[0, n_tiles)`` every table but the destinations' numbering is
+    ``plan``'s."""
+    T = ARENA_TILE
+    w0, w1 = t0 * T, t1 * T
+    n_dest = plan.dest_tile.size
+    mcount = np.diff(plan.mem_ptr)
+    m_dest = np.repeat(np.arange(n_dest), mcount)
+    keep_m = (plan.mem_tile >= t0) & (plan.mem_tile < t1)
+    tcount = np.diff(plan.tail_ptr)
+    t_dest = np.repeat(np.arange(n_dest), tcount)
+    keep_t = (plan.tail_word >= w0) & (plan.tail_word < w1)
+    mem_n = np.bincount(m_dest[keep_m], minlength=n_dest)
+    tail_n = np.bincount(t_dest[keep_t], minlength=n_dest)
+    dests = np.nonzero((mem_n + tail_n) > 0)[0]
+    ab = layout.ab_arrays()
+    tail_ab = np.nonzero(ab["offset"] >= layout.tail_start)[0]
+    lo = np.maximum(plan.tb_off, w0)
+    hi = np.minimum(plan.tb_off + plan.tb_len, w1)
+    keep_b = hi > lo
+    n_loc = t1 - t0
+    main_nseg = (ab["words"] // T).astype(np.int64)
+    s0 = np.clip(layout.ab_t0, t0, t1)
+    s1 = np.clip(layout.ab_t0 + main_nseg, t0, t1)
+    ab_seg0 = (s0 - t0).astype(np.int64)
+    ab_nseg = (s1 - s0).astype(np.int32)
+    tb_local = np.cumsum(keep_b) - 1
+    ab_seg0[tail_ab] = n_loc + np.where(keep_b, tb_local, 0)
+    ab_nseg[tail_ab] = keep_b.astype(np.int32)
+    out = SweepPlan(
+        n_tiles=n_loc, tile_code=plan.tile_code[t0:t1],
+        dest_tile=np.arange(dests.size, dtype=np.int32),
+        mem_ptr=np.concatenate([[0], np.cumsum(mem_n[dests])]
+                               ).astype(np.int64),
+        mem_tile=(plan.mem_tile[keep_m] - t0).astype(np.int32),
+        tail_ptr=np.concatenate([[0], np.cumsum(tail_n[dests])]
+                                ).astype(np.int64),
+        tail_pos=plan.tail_pos[keep_t],
+        tail_word=(plan.tail_word[keep_t] - w0).astype(np.int64),
+        tb_off=(lo - w0)[keep_b].astype(np.int64),
+        tb_len=(hi - lo)[keep_b].astype(np.int32),
+        tb_code=plan.tb_code[keep_b],
+        gid_ptr=plan.gid_ptr, gid_ab=plan.gid_ab,
+        ab_seg0=ab_seg0, ab_nseg=ab_nseg)
+    return out, plan.dest_tile[dests].astype(np.int64)
+
+
+def span_destinations(plan: SweepPlan, tiles_per: int,
+                      n: int) -> list[np.ndarray]:
+    """The ascending parity tiles of ``plan`` that the sweep of each of
+    ``n`` spans of ``tiles_per`` tiles writes (what :func:`restrict_plan`
+    returns as destinations, for every span at once)."""
+    n_dest = plan.dest_tile.size
+    m_dest = np.repeat(np.arange(n_dest), np.diff(plan.mem_ptr))
+    t_dest = np.repeat(np.arange(n_dest), np.diff(plan.tail_ptr))
+    span = np.concatenate([plan.mem_tile // tiles_per,
+                           plan.tail_word // (tiles_per * ARENA_TILE)])
+    dest = np.concatenate([m_dest, t_dest])
+    key = np.unique(span.astype(np.int64) * n_dest + dest)
+    sp, d = key // n_dest, key % n_dest
+    bounds = np.searchsorted(sp, np.arange(n + 1))
+    return [plan.dest_tile[d[bounds[k]:bounds[k + 1]]].astype(np.int64)
+            for k in range(n)]
+
+
+def combine_plan(dests: list[np.ndarray], owner: int, rows_per: int,
+                 frame_tiles: int):
+    """The parity_xor plan of the XOR combine at position ``owner``: its
+    parity rows ``[owner * rows_per, (owner + 1) * rows_per)`` (one plan
+    row each, ``frame_tiles`` tiles wide, base zeros) XOR the tiles every
+    position sent it, laid out back to back in position order, each
+    position's in ascending tile order (``dests[k]``: position ``k``'s
+    destinations). Consecutive tiles of one position and one row are one
+    term. Returns the plan and the tiles each position sends to each
+    (``counts[k][r]``)."""
+    from repro_torch.kernels.parity_xor.ops import ParityPlan
+    T = ARENA_TILE
+    n = len(dests)
+    counts = np.zeros((n, n), np.int64)
+    srcs, tiles, ks = [], [], []
+    base = 0
+    for k, d in enumerate(dests):
+        o = d // frame_tiles // rows_per
+        counts[k] = np.bincount(o, minlength=n)[:n]
+        mine = d[o == owner]
+        srcs.append(base + np.arange(mine.size))
+        tiles.append(mine)
+        ks.append(np.full(mine.size, k))
+        base += mine.size
+    src = np.concatenate(srcs) if srcs else np.empty((0,), np.int64)
+    tile = np.concatenate(tiles) if tiles else np.empty((0,), np.int64)
+    k_of = np.concatenate(ks) if ks else np.empty((0,), np.int64)
+    row = tile // frame_tiles - owner * rows_per
+    col = tile % frame_tiles
+    order = np.lexsort((col, k_of, row))
+    row, col, src, k_of = row[order], col[order], src[order], k_of[order]
+    new = np.ones(row.size, bool)
+    new[1:] = ((row[1:] != row[:-1]) | (k_of[1:] != k_of[:-1])
+               | (col[1:] != col[:-1] + 1) | (src[1:] != src[:-1] + 1))
+    starts = np.nonzero(new)[0]
+    lens = np.diff(np.concatenate([starts, [row.size]]))
+    t_row = row[starts]
+    fe = frame_tiles * T
+    plan = ParityPlan(
+        row_out=np.arange(rows_per, dtype=np.int64) * fe,
+        row_len=np.full(rows_per, fe, np.int32),
+        row_base=np.full(rows_per, -1, np.int64),
+        term_ptr=np.searchsorted(t_row, np.arange(rows_per + 1)
+                                 ).astype(np.int64),
+        term_dst=(col[starts] * T).astype(np.int32),
+        term_src=(src[starts] * T).astype(np.int64),
+        term_len=(lens * T).astype(np.int32))
+    return plan, counts
+
+
+class SpanMaintainProgram:
+    """The arena sweep of position ``position`` of ``n`` on a mesh.
+
+    The rank holds the span ``layout.span(position)`` of every arena.
+    ``program(span, ckpt_span, comm, copy)`` runs the arena_maintain kernel
+    over the span's tiles only (:func:`restrict_plan`): it writes this
+    rank's partial parity, the XOR of the span's words at each parity tile
+    they reach, as a compact buffer of those tiles, this span's score
+    partials, and, with ``copy``, a replica copy of the span from the same
+    read. Then the **XOR combine**: one all-to-all sends each partial tile
+    to the position that owns its parity row, and the parity_xor kernel
+    folds what each owner received into its rows. Parity rows are owned by
+    position: position ``r`` holds the rows ``[r * rows_per, (r + 1) *
+    rows_per)`` (``rows_per = ceil(n_groups / n)``; a last owner's rows
+    past ``n_groups`` stay zero), so the parity costs its size once over
+    the mesh, not on every rank. The per-block scores are summed over the
+    mesh (a block straddling a span edge has a part on each side).
+
+    Returns ``(replica_span or None, scores, owned_rows)``; the owned rows
+    are one buffer per program, rewritten by every sweep."""
+
+    def __init__(self, partition: BlockPartition, arena_layout: ArenaLayout,
+                 frame_layout, group_of: np.ndarray, n_groups: int,
+                 position: int, n: int):
+        if arena_layout.shards != n:
+            raise ValueError(f"a {arena_layout.shards}-shard layout on a "
+                             f"{n}-position mesh")
+        self.layout = arena_layout
+        self.total = partition.total_blocks
+        self.position, self.n = position, n
+        full = sweep_plan(arena_layout, frame_layout, group_of)
+        tiles_per = arena_layout.n_tiles // n
+        t0 = position * tiles_per
+        self.plan, self.dest_full = restrict_plan(full, arena_layout, t0,
+                                                  t0 + tiles_per)
+        self.frame_elems = frame_layout.frame_elems
+        self.n_groups = n_groups
+        self.rows_per = -(-n_groups // n)
+        self.combine, counts = combine_plan(
+            span_destinations(full, tiles_per, n), position, self.rows_per,
+            self.frame_elems // ARENA_TILE)
+        self.send_counts = counts[position] * ARENA_TILE
+        self.recv_counts = counts[:, position] * ARENA_TILE
+        self.max_count = int(counts.max(initial=0)) * ARENA_TILE
+        self._partial: Optional[torch.Tensor] = None
+        self._owned: Optional[torch.Tensor] = None
+
+    def row_range(self, position: Optional[int] = None) -> tuple[int, int]:
+        """The parity rows ``[g0, g1)`` a position owns (this one's by
+        default), cut at ``n_groups``."""
+        p = self.position if position is None else position
+        return (min(p * self.rows_per, self.n_groups),
+                min((p + 1) * self.rows_per, self.n_groups))
+
+    def buffers(self, device: torch.device):
+        if self._owned is None or self._owned.device != device:
+            self._partial = torch.zeros(
+                (max(self.dest_full.size, 1) * ARENA_TILE,),
+                dtype=torch.int32, device=device)
+            self._owned = torch.zeros((self.rows_per * self.frame_elems,),
+                                      dtype=torch.int32, device=device)
+        return self._partial, self._owned
+
+    def __call__(self, span: torch.Tensor, ckpt_span, comm,
+                 copy: bool = False):
+        from repro_torch.kernels.parity_xor.ops import parity_xor
+        partial, owned = self.buffers(span.device)
+        rep = torch.empty_like(span) if copy else None
+        scores = arena_sweep(span, ckpt_span, self.plan, parity=partial,
+                             replica=rep)
+        if rep is not None:
+            tail = max(self.layout.tail_start
+                       - self.position * self.layout.shard_words, 0)
+            rep[tail:] = span[tail:]
+        recv = comm.all_to_all(partial[:self.dest_full.size * ARENA_TILE],
+                               self.send_counts, self.recv_counts,
+                               self.max_count)
+        parity_xor(owned, recv, None, self.combine)
+        if scores is None:
+            scores = torch.zeros((self.total,), dtype=torch.float32,
+                                 device=span.device)
+        else:
+            comm.all_reduce(scores)
+        return rep, scores, owned.view(self.rows_per, self.frame_elems)
+
+
+# ---------------------------------------------------------------------------
 # Arena in-place partial save: one launch for the whole model
 # ---------------------------------------------------------------------------
 
@@ -497,14 +712,24 @@ def save_ranges(arena_layout: ArenaLayout,
 
 
 def arena_scatter_save(dst_arena: torch.Tensor, src_arena: torch.Tensor,
-                       arena_layout: ArenaLayout, global_idx
+                       arena_layout: ArenaLayout, global_idx,
+                       span: Optional[tuple[int, int]] = None
                        ) -> tuple[torch.Tensor, int]:
     """Overwrite the selected blocks' arena segments of ``dst_arena`` from
     ``src_arena`` in place, in one arena_scatter launch over
     :func:`save_ranges`. ``global_idx``: host-side selected gids
     (colocated segments ride along). Returns ``(dst_arena, bytes_moved)``,
-    the bytes equal to ``seg_bytes_for_blocks``."""
+    the bytes equal to ``seg_bytes_for_blocks``. With ``span = (w0,
+    w1)`` both arenas are that span of the arena (a rank's shard on a
+    mesh): the ranges are cut to it, and the bytes are the span's share."""
     off, length = save_ranges(arena_layout, global_idx)
+    if span is not None:
+        w0, w1 = span
+        lo = np.maximum(off, w0)
+        hi = np.minimum(off + length, w1)
+        keep = hi > lo
+        off, length = (lo[keep] - w0).astype(np.int64), \
+            (hi - lo)[keep].astype(np.int32)
     if off.size:
         arena_scatter(dst_arena, src_arena,
                       scatter_plan(off, length, dst_arena.device))

@@ -1,0 +1,137 @@
+"""Meshes of ``torch.distributed`` ranks: the port of ``repro.launch.mesh``.
+
+A :class:`Mesh` is an array of ranks, one process per position, with
+named axes (``("data", "model")``) and the process group over its ranks.
+Position ``i`` in row-major order is fabric logical device ``i`` of the
+mesh (the contract the elastic sharded arena uses to map the fabric's
+homes onto ranks).
+
+- :func:`make_host_mesh`: every rank of the default group, laid out
+  ``(world // model, model)`` through
+  ``torch.distributed.device_mesh.init_device_mesh`` (the CPU tests, and
+  the card's ranks);
+- :func:`make_production_mesh`: the reference's TPU v5e pod shapes,
+  ``(16, 16)`` or ``(2, 16, 16)`` with a ``pod`` axis, which need 256 or
+  512 ranks;
+- :func:`survivor_mesh`: ``(n, 1)`` over an explicit rank list, its group
+  a ``dist.new_group``. Every rank of the default group must call it with
+  the same list at the same point, the ranks left out of it too
+  (``new_group`` is collective); one group is made per survivor set and
+  reused. A rank left out of a mesh stays alive and skips the mesh's work.
+
+``make_production_mesh`` is a function, not a module constant, so
+importing this module touches no process group. Without an initialized
+process group a mesh is one rank, position 0, with no group.
+"""
+from __future__ import annotations
+
+from typing import Any, Optional, Sequence
+
+import numpy as np
+import torch.distributed as dist
+
+_GROUPS: dict[tuple[int, ...], Any] = {}
+
+
+class Mesh:
+    """``devices``: an int array of ranks in the mesh's shape;
+    ``axis_names``: one name an axis; ``group``: the process group over the
+    ranks (None: the default group, or no process group at all);
+    ``device_mesh``: the ``DeviceMesh`` it was built from, if any."""
+
+    def __init__(self, devices, axis_names: Sequence[str], group=None,
+                 device_mesh=None):
+        self.devices = np.asarray(devices, np.int64)
+        self.axis_names = tuple(axis_names)
+        if self.devices.ndim != len(self.axis_names):
+            raise ValueError(f"{self.devices.ndim}-D devices, axes "
+                             f"{self.axis_names}")
+        self.group = group
+        self.device_mesh = device_mesh
+
+    @property
+    def shape(self) -> dict[str, int]:
+        """Axis name -> size, in axis order (as ``jax.sharding.Mesh``)."""
+        return dict(zip(self.axis_names, self.devices.shape))
+
+    @property
+    def size(self) -> int:
+        return int(self.devices.size)
+
+    @property
+    def ranks(self) -> list[int]:
+        return [int(r) for r in self.devices.reshape(-1)]
+
+    def position(self, rank: Optional[int] = None) -> Optional[int]:
+        """Row-major position of ``rank`` (default: this process's) in the
+        mesh, or None when it is not a member."""
+        if rank is None:
+            rank = dist.get_rank() if dist.is_initialized() else 0
+        ranks = self.ranks
+        return ranks.index(int(rank)) if int(rank) in ranks else None
+
+    def is_member(self, rank: Optional[int] = None) -> bool:
+        return self.position(rank) is not None
+
+    def __repr__(self) -> str:
+        return f"Mesh({self.shape}, ranks={self.ranks})"
+
+
+def _group(ranks: Sequence[int]):
+    """The process group over ``ranks`` (collective on first use of a rank
+    set: every rank of the default group calls it)."""
+    if not dist.is_initialized():
+        if list(ranks) != [0]:
+            raise ValueError(f"ranks {list(ranks)} without a process group")
+        return None
+    key = tuple(int(r) for r in ranks)
+    if key == tuple(range(dist.get_world_size())):
+        return dist.group.WORLD
+    if key not in _GROUPS:
+        _GROUPS[key] = dist.new_group(list(key))
+    return _GROUPS[key]
+
+
+def make_mesh(shape: Sequence[int], axes: Sequence[str]) -> Mesh:
+    """A mesh of ``shape`` over every rank of the default group, built with
+    ``init_device_mesh`` (the group's size must be ``prod(shape)``)."""
+    shape = tuple(int(s) for s in shape)
+    n = int(np.prod(shape))
+    if not dist.is_initialized():
+        if n != 1:
+            raise ValueError(f"a {shape} mesh needs {n} ranks and there is "
+                             "no process group")
+        return Mesh(np.zeros(shape, np.int64), axes)
+    from torch.distributed.device_mesh import init_device_mesh
+    dm = init_device_mesh("cpu", shape, mesh_dim_names=tuple(axes))
+    return Mesh(np.asarray(dm.mesh.tolist()).reshape(shape), axes,
+                group=dist.group.WORLD, device_mesh=dm)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh(shape, axes)
+
+
+def make_host_mesh(model: int = 1) -> Mesh:
+    """Every rank of the default group as ``(world // model, model)``."""
+    n = dist.get_world_size() if dist.is_initialized() else 1
+    if n % model:
+        raise ValueError(f"{n} ranks do not split into model={model}")
+    return make_mesh((n // model, model), ("data", "model"))
+
+
+def mesh_devices(mesh: Mesh) -> list[int]:
+    """Row-major rank list of a mesh: position ``i`` here is fabric
+    logical device ``i``."""
+    return mesh.ranks
+
+
+def survivor_mesh(devices) -> Mesh:
+    """Mesh over an explicit surviving rank list: ``(n, 1)`` with axes
+    ``("data", "model")`` (the model axis collapses on a shrink; the data
+    axis carries the throughput). A full re-grow uses the base mesh."""
+    ranks = np.asarray([int(d) for d in devices], np.int64)
+    return Mesh(ranks.reshape(ranks.size, 1), ("data", "model"),
+                group=_group(ranks.tolist()))

@@ -28,7 +28,8 @@ gradient, with ``frames`` in every batch (``data.ShardedLMDataset``).
 Parameters keep the reference's tree: ``frame_proj``, ``enc_layers`` and
 ``dec_layers`` (stacked, or lists of per-layer trees from
 ``layers.split_layers``), ``enc_norm``, ``final_norm`` and the embedding.
-The mesh (item 15) is not here.
+On a mesh every rank runs the whole forward (tensor parallelism is ROADMAP
+item 38).
 """
 from __future__ import annotations
 

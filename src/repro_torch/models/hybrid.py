@@ -26,7 +26,8 @@ shared block's gradient is the sum over its applications.
 Parameters keep the reference's tree: ``layers`` (the Mamba2 layers
 stacked over ``n_layers``, or a list of per-layer trees from
 ``layers.split_layers``), ``shared`` (one transformer layer, never split),
-``final_norm`` and the embedding. The mesh (item 15) is not here.
+``final_norm`` and the embedding. On a mesh every rank runs the whole
+forward (tensor parallelism is ROADMAP item 38).
 """
 from __future__ import annotations
 

@@ -21,9 +21,10 @@ reference's single-device branch: token-choice top-k routing, a
 top-capacity token gather per expert, the expert products as batched
 matmuls (on views of the trainer's 2-D expert leaves too,
 ``split_layers``), a combine in expert order; its gradient is
-``jax.grad``'s of the reference. The mesh (item 15) is not here: the
-single-device port takes no ``ctx``, and ``moe_block`` raises for a
-``mesh``.
+``jax.grad``'s of the reference. The layers take no ``ctx``: on a mesh
+the trainer computes FSDP over the flat arena and every rank runs the
+whole forward; tensor parallelism and the expert-parallel MoE are ROADMAP
+item 38, and ``moe_block`` raises for a ``mesh``.
 
 The perf variants, forward only and plain on every device (the reference
 writes them in jnp; no TPU kernel covers them): ``quantize_kv`` (int8
@@ -722,10 +723,11 @@ def _moe_body(x, router, wg, wu, wd, *, cfg: ModelConfig, capacity: int):
 def moe_block(x, p, cfg: ModelConfig, *, mesh=None):
     """x: (B, S, D) -> ((B, S, D) in x's dtype, (lb_loss, z_loss)): every
     expert on this device, the shared expert added when the config has
-    one. Expert parallelism over a mesh is not ported."""
+    one. Expert parallelism over a mesh is not ported (the mesh computes
+    FSDP over the flat arena; every rank runs every expert)."""
     if mesh is not None:
         raise NotImplementedError("expert parallelism over a mesh is not "
-                                  "ported yet (ROADMAP item 15)")
+                                  "ported yet (ROADMAP item 38)")
     B, S, D = x.shape
     n = B * S
     out, lb, zl = _moe_body(x.reshape(n, D), p["router"],

@@ -26,8 +26,8 @@ forward-only. Each layer is recomputed in backward when ``cfg.remat``.
 Parameters keep the reference's stacked leaves: every per-layer weight has
 a leading ``n_layers`` dim under ``params["layers"]``, walked by a Python
 loop, so ``interop.from_numpy_tree`` carries the reference's params across
-unchanged and the SCAR block partition matches. The mesh (item 15) is not
-here.
+unchanged and the SCAR block partition matches. On a mesh every rank runs
+the whole forward (tensor parallelism is ROADMAP item 38).
 """
 from __future__ import annotations
 

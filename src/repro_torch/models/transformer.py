@@ -30,8 +30,9 @@ stacking ``[dense_i, moe_i]`` (cache layer ``2 i`` is pair ``i``'s dense
 layer); a VLM (internvl2) projects the batch's ``patches`` and prepends
 them to the token embeddings, so its prompt is ``S + n_patches`` long.
 Every reader of the weights takes the trainer's per-layer layout too
-(``layers.split_layers``: ``wo`` and the expert stacks held 2-D). Left
-out: the mesh (item 15). ``decode_step`` writes the new token's K/V into
+(``layers.split_layers``: ``wo`` and the expert stacks held 2-D). On a
+mesh every rank runs the whole forward (tensor parallelism is ROADMAP item
+38). ``decode_step`` writes the new token's K/V into
 the cache in place.
 
 The perf variants, as the reference's: under ``cfg.kv_quant`` the cache

@@ -150,7 +150,8 @@ def _adam_like(lr, b1, b2, eps, wd, name,
 # ---------------------------------------------------------------------------
 
 def arena_apply(optimizer: Optimizer, grads: torch.Tensor, state: OptState,
-                arena: torch.Tensor, layout) -> tuple[torch.Tensor, OptState]:
+                arena: torch.Tensor, layout, runs=None
+                ) -> tuple[torch.Tensor, OptState]:
     """One optimizer step over the flat word arena, in place.
 
     ``arena`` is the ``(total_words,)`` int32 word buffer laid out by
@@ -164,13 +165,16 @@ def arena_apply(optimizer: Optimizer, grads: torch.Tensor, state: OptState,
     words stay zero: zero grads give zero moments and a zero step, weight
     decay of 0 is 0 (invariant I4), and sub-word element pads decode to
     0.0 and re-encode to zero bits. Returns ``(arena, new_state)``; the
-    arena and the moment buffers are the ones given, updated."""
+    arena and the moment buffers are the ones given, updated. ``runs``
+    (default ``layout.value_runs()``) says where the runs lie: a rank's
+    shard on a mesh passes its span's (``layout.span_runs``)."""
     from repro_torch.core.arena import decode_words, encode_words
 
     t = state.step + 1
     n = optimizer.n_moments
     moments = (state.mu, state.nu)[:n]
-    for w0, nw, v0, nv, dt in layout.value_runs():
+    for w0, nw, v0, nv, dt in (layout.value_runs() if runs is None
+                                else runs):
         r = nv // nw
         for a in range(0, nv, APPLY_SLICE):
             b = min(a + APPLY_SLICE, nv)

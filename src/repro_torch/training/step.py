@@ -28,6 +28,22 @@ until it finds no room.
 
 A step returns ``(new_state, loss)`` with the loss a 0-d f32 tensor on
 the device (reading it waits for the step).
+
+**On a mesh** (``comm``, a :class:`~repro_torch.distributed.collectives.
+MeshComm`) each rank computes the loss of its slice of the global batch.
+The arena step all-gathers the arena from the ranks' spans, decodes it as
+above, packs the gradient to the value domain, reduce-scatters it into
+the rank's span (the sum over the ranks, divided by their number: the
+global batch's mean gradient) and applies the optimizer to the span in
+place; the loss is the mean of the ranks' losses. The PyTree step, whose
+every rank holds the whole tree, reduces its gradient through the same
+reduce-scatter (the same collective in the same order: gloo's all-reduce
+and reduce-scatter need not associate alike), all-gathers the reduced
+spans and updates the tree in place, slice by slice (the arena path's
+apply does the same; out of place, a full-width tree, its moments and
+their new copies do not fit four ranks on one card), so the two paths stay
+bit-equal on one mesh. A one-rank mesh is the single-device step bit for
+bit.
 """
 from __future__ import annotations
 
@@ -40,7 +56,8 @@ from repro_torch.core.arena import (accumulate_values, pack_values,
                                     unpack_arena)
 from repro_torch.models.api import ModelOps
 from repro_torch.models.layers import torch_dtype
-from repro_torch.optim.optimizers import Optimizer, arena_apply
+from repro_torch.optim.optimizers import (APPLY_SLICE, Optimizer, OptState,
+                                          arena_apply)
 from repro_torch.training.train_state import ArenaTrainState, TrainState
 from repro_torch.utils.tree import tree_flatten, tree_map, tree_unflatten
 
@@ -75,8 +92,51 @@ def _microbatches(batch: dict, mb: int) -> list[dict]:
              for k, v in batch.items()} for i in range(mb)]
 
 
-def make_train_step(ops: ModelOps, cfg: ModelConfig, optimizer: Optimizer):
-    """The PyTree step: ``(TrainState, batch) -> (TrainState', loss)``."""
+def _mean_loss(loss: torch.Tensor, comm) -> torch.Tensor:
+    """The ranks' mean loss (the loss itself on one rank)."""
+    if comm is None or comm.n == 1:
+        return loss
+    return comm.all_reduce(loss.reshape(1).clone())[0] / comm.n
+
+
+def _reduced_span(grads: torch.Tensor, comm) -> torch.Tensor:
+    """This rank's span of the ranks' mean gradient (value domain)."""
+    span = comm.reduce_scatter(grads)
+    if comm.n > 1:
+        span.div_(comm.n)
+    return span
+
+
+def _update_in_place(optimizer: Optimizer, grads: PyTree,
+                     state: TrainState) -> OptState:
+    """``optimizer.update`` with every leaf and moment written in place,
+    ``APPLY_SLICE`` values at a time (the same elementwise arithmetic, so
+    the same bits). Returns the new optimizer state."""
+    t = state.opt_state.step + 1
+    n = optimizer.n_moments
+    p_leaves = tree_flatten(state.params)[0]
+    g_leaves = tree_flatten(grads)[0]
+    m_leaves = [tree_flatten(m)[0] for m in (state.opt_state.mu,
+                                             state.opt_state.nu)[:n]]
+    for i, (p, g) in enumerate(zip(p_leaves, g_leaves)):
+        pf, gf = p.view(-1), g.reshape(-1)
+        ms = [m[i].view(-1) for m in m_leaves]
+        for a in range(0, pf.numel(), APPLY_SLICE):
+            b = min(a + APPLY_SLICE, pf.numel())
+            q, new = optimizer.elementwise(
+                pf[a:b], gf[a:b], tuple(m[a:b] for m in ms), t)
+            pf[a:b].copy_(q)
+            for m, x in zip(ms, new):
+                m[a:b].copy_(x)
+    st = state.opt_state
+    return OptState(t, st.mu, st.nu)
+
+
+def make_train_step(ops: ModelOps, cfg: ModelConfig, optimizer: Optimizer,
+                    layout=None, comm=None):
+    """The PyTree step: ``(TrainState, batch) -> (TrainState', loss)``.
+    On a mesh (``comm``) the gradient is reduced through the arena
+    ``layout``'s value domain (see the module docstring)."""
 
     def train_step(state: TrainState, batch: dict):
         mb = max(cfg.microbatch, 1)
@@ -95,6 +155,16 @@ def make_train_step(ops: ModelOps, cfg: ModelConfig, optimizer: Optimizer):
                 loss_sum = loss_sum + l
             loss = loss_sum / mb
             grads = tree_map(lambda g: g / mb, gacc)
+        if comm is not None:
+            packed = pack_values(grads, layout)
+            del grads
+            span = _reduced_span(packed, comm)
+            del packed
+            grads = unpack_arena(comm.all_gather(span).view(torch.int32),
+                                 layout, copy=False)
+            loss = _mean_loss(loss, comm)
+            opt_state = _update_in_place(optimizer, grads, state)
+            return TrainState(state.params, opt_state, state.step + 1), loss
         params, opt_state = optimizer.update(grads, state.opt_state,
                                              state.params)
         return TrainState(params, opt_state, state.step + 1), loss
@@ -103,9 +173,10 @@ def make_train_step(ops: ModelOps, cfg: ModelConfig, optimizer: Optimizer):
 
 
 def make_arena_train_step(ops: ModelOps, cfg: ModelConfig,
-                          optimizer: Optimizer, layout):
+                          optimizer: Optimizer, layout, comm=None):
     """The arena-native step: ``(ArenaTrainState, batch) -> (state',
-    loss)``, the arena and the moment buffers updated in place.
+    loss)``, the arena and the moment buffers updated in place (on a mesh,
+    ``comm``: the rank's spans of them).
 
     Bit-equal to the PyTree step: the decoded leaves hold the tree path's
     values in its layout, ``pack_values`` of the grads is the f32 image of
@@ -117,10 +188,14 @@ def make_arena_train_step(ops: ModelOps, cfg: ModelConfig,
     def train_step(state: ArenaTrainState, batch: dict):
         # views of the arena where they can be: nothing writes it before
         # the apply below, after the last microbatch's backward
-        params = unpack_arena(state.arena, layout, copy=False)
+        full = state.arena if comm is None else comm.all_gather(state.arena)
+        params = unpack_arena(full, layout, copy=False)
         mb = max(cfg.microbatch, 1)
         if mb == 1:
             loss, g = loss_and_grad(ops, cfg, params, batch)
+            # on a mesh the gathered arena goes before the pack: the
+            # gradient leaves are tensors of their own
+            del params, full
             grads = pack_values(g, layout)
             del g
         else:
@@ -132,7 +207,7 @@ def make_arena_train_step(ops: ModelOps, cfg: ModelConfig,
             else:
                 grads = torch.zeros((layout.total_values,),
                                     dtype=torch_dtype(cfg.opt_moment_dtype),
-                                    device=state.arena.device)
+                                    device=full.device)
                 acc.append(grads)
             loss_sum = 0.0
             for bx in _microbatches(batch, mb):
@@ -141,9 +216,14 @@ def make_arena_train_step(ops: ModelOps, cfg: ModelConfig,
                 loss_sum = loss_sum + l
             loss = loss_sum / mb
             grads.div_(mb)        # in the accumulator's dtype, as the tree
-        del params
+            del params, full
+        runs = None
+        if comm is not None:
+            grads = _reduced_span(grads, comm)
+            loss = _mean_loss(loss, comm)
+            runs = layout.span_runs(comm.pos)
         arena, opt_state = arena_apply(optimizer, grads, state.opt_state,
-                                       state.arena, layout)
+                                       state.arena, layout, runs=runs)
         return ArenaTrainState(arena, opt_state, state.step + 1,
                                state.layout), loss
 

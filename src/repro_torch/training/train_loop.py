@@ -1,5 +1,5 @@
-"""The LM trainer with SCAR fault tolerance as a first-class feature,
-single device: the port of ``repro.training.train_loop``.
+"""The LM trainer with SCAR fault tolerance as a first-class feature: the
+port of ``repro.training.train_loop``.
 
 ``TrainLoop`` owns:
 
@@ -38,15 +38,32 @@ It trains every family: dense, moe (every layer MoE, or dense and MoE
 layers interleaved; the loss carries the router's aux losses), vlm (its
 batches carrying ``patches``, the patch prefix out of the loss), ssm,
 hybrid (a Mamba2 backbone and one shared attention block) and audio (the
-encoder-decoder, its batches carrying ``frames``). The reference's
-``DistContext`` is replaced by an explicit ``device`` (``cuda`` unless
-asked otherwise; the trainer raises where no CUDA device is present rather
-than moving to the CPU). Not ported yet, and raising ``NotImplementedError`` with its ROADMAP
-item: the elastic mesh (``elastic_mesh``, item 15).
+encoder-decoder, its batches carrying ``frames``). The device is explicit
+(``cuda`` unless asked otherwise; the trainer raises where no CUDA device
+is present rather than moving to the CPU).
+
+**On a mesh** (``ctx``, a :class:`~repro_torch.sharding.partition.
+DistContext` whose mesh is one ``torch.distributed`` rank a position) the
+arena-resident state is flat-sharded over every rank (each holds its span
+of the arena and of the moments; :mod:`repro_torch.training.step` gathers
+the arena for the forward and reduce-scatters the gradient), the initial
+weights come from one source (``params``, or the mesh's first rank's draw,
+broadcast), and the controller's fabric sweeps each rank's span. The
+PyTree state holds the whole tree on every rank. **The elastic mesh**
+(``elastic_mesh``; on by default for arena-resident state on a mesh with a
+meshed ``FabricConfig(elastic=True)``): after a domain loss the mesh
+shrinks to the survivors (the largest count that divides the global batch
+and that the alive devices cover; survivors keep their logical ids), the
+state's spans move to the new layout bit for bit, the step is rebuilt and
+the tiers are refreshed on the new placement; a heal re-grows it. A rank
+left out of the shrunk mesh stays alive and skips the steps (it keeps the
+fabric's bookkeeping, takes every step's loss from the mesh and rejoins at
+the re-grow).
 """
 from __future__ import annotations
 
 import dataclasses
+import gc
 import time
 import warnings
 from typing import Any, Callable, Optional
@@ -59,10 +76,12 @@ from repro_torch.core.controller import FTController
 from repro_torch.core.policy import CheckpointPolicy
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import get_model
-from repro_torch.optim.optimizers import Optimizer, adamw
+from repro_torch.optim.optimizers import Optimizer, OptState, adamw
+from repro_torch.sharding.partition import DistContext, single_device_ctx
 from repro_torch.telemetry.recorder import NULL_RECORDER, Histogram
 from repro_torch.training.step import make_arena_train_step, make_train_step
 from repro_torch.training.train_state import ArenaTrainState, TrainState
+from repro_torch.utils.tree import tree_leaves
 
 PyTree = Any
 
@@ -79,7 +98,10 @@ class TrainLoopConfig:
     # cannot engage it, the loop warns and records ``fabric/arena_gated``
     # before taking the PyTree path; False picks the tree path silently.
     arena_state: bool = True
-    # the elastic mesh (ROADMAP item 15): only None or False here
+    # elastic mesh: with a meshed elastic fabric, a domain loss shrinks the
+    # mesh to the survivors (state moved to the new layout, step rebuilt,
+    # training continues) and a heal re-grows it. None = on exactly when
+    # arena-resident state runs on a mesh with an elastic fabric
     elastic_mesh: Optional[bool] = None
     # record per-step maintenance overhead (``overhead_seconds`` in
     # metrics): in sync mode waits for the sweep's device work each step,
@@ -131,21 +153,21 @@ class TrainLoopConfig:
                 and self.fabric is None:
             raise ValueError("bit-flip injection / integrity scrubs need "
                              "a fabric (set TrainLoopConfig.fabric)")
-        if self.elastic_mesh:
-            raise NotImplementedError(
-                "the elastic mesh is not ported yet (ROADMAP item 15)")
 
 
 class TrainLoop:
-    """``TrainLoop(cfg, optimizer, loop_cfg, store, device=...)``: the
-    trainer of one model on one device. ``optimizer`` defaults to
-    ``adamw(3e-4)``; ``store`` is the controller's disk mirror."""
+    """``TrainLoop(cfg, optimizer, loop_cfg, store, device=..., ctx=...)``:
+    the trainer of one model on one device, or on this rank's device of a
+    mesh (``ctx``). ``optimizer`` defaults to ``adamw(3e-4)``; ``store``
+    is the controller's disk mirror."""
 
     def __init__(self, cfg: ModelConfig,
                  optimizer: Optional[Optimizer] = None,
                  loop_cfg: Optional[TrainLoopConfig] = None,
-                 store=None, *, device: DeviceLike = None):
+                 store=None, *, device: DeviceLike = None,
+                 ctx: Optional[DistContext] = None):
         self.cfg = cfg
+        self.ctx = ctx if ctx is not None else single_device_ctx()
         self._store = store
         self.device = resolve_device(device)
         self.ops = get_model(cfg)
@@ -166,6 +188,18 @@ class TrainLoop:
         self._sweep_hist = self._hist("train/sweep_seconds")
         self._save_hist = self._hist("train/save_seconds")
         self._fence_hist = self._hist("train/fence_seconds")
+        # the mesh: the base (full) mesh, the one the step runs on now, the
+        # logical device at each of its positions, whether a resize has
+        # happened, and this rank's collectives on it (None outside it)
+        self._base_mesh = self._cur_mesh = self.ctx.mesh
+        self._mesh_logical = (None if self._base_mesh is None else
+                              np.arange(self._base_mesh.size, dtype=np.int32))
+        self._mesh_resized = False
+        self._last_batch_dim = None
+        self._comm = None
+        if self._base_mesh is not None:
+            from repro_torch.distributed.collectives import MeshComm
+            self._comm = MeshComm(self._base_mesh)
         self._train_step = make_train_step(self.ops, cfg, self.optimizer)
         self._arena_step = None           # built by init_state
 
@@ -183,6 +217,7 @@ class TrainLoop:
         ``np.asarray``), carried to the device by
         ``interop.from_numpy_tree``. Builds the controller, and the arena
         form of the state when its fabric is arena-capable."""
+        mesh = self._base_mesh
         if params is not None:
             from repro_torch.interop import from_numpy_tree
             params = from_numpy_tree(params, self.device)
@@ -191,23 +226,46 @@ class TrainLoop:
                 gen = torch.Generator(device=self.device).manual_seed(
                     self.loop_cfg.seed)
             params = self.ops.init_params(gen, self.cfg, device=self.device)
+            if mesh is not None:
+                # one source: the mesh's first rank's draw (the other
+                # ranks' own draws only size the buffers it overwrites)
+                for x in tree_leaves(params):
+                    self._comm.broadcast(x)
         if self.loop_cfg.per_layer_leaves:
             from repro_torch.models.layers import split_layers
             params = split_layers(params, self.ops.stacked_layers)
         if self.loop_cfg.policy is not None:
-            self.controller = FTController(params, self.loop_cfg.policy,
-                                           store=self._store,
-                                           fabric=self.loop_cfg.fabric,
-                                           recorder=self.loop_cfg.recorder,
-                                           device=self.device)
+            try:
+                self.controller = FTController(
+                    params, self.loop_cfg.policy, store=self._store,
+                    fabric=self.loop_cfg.fabric,
+                    recorder=self.loop_cfg.recorder, device=self.device,
+                    mesh=mesh)
+            except ValueError as e:
+                if mesh is not None and self.recorder.enabled:
+                    # the mesh has no tree-path fallback: say why, then stop
+                    self.recorder.event("fabric/arena_gated", reason=str(e))
+                raise
+        if mesh is not None:
+            if self.controller is None:
+                raise ValueError("training on a mesh needs a CheckpointPolicy "
+                                 "and a FabricConfig (the arena layout is the "
+                                 "fabric's)")
+            if not self.loop_cfg.arena_state:
+                self._train_step = make_train_step(
+                    self.ops, self.cfg, self.optimizer,
+                    self.controller.arena_layout, self._comm)
+                return TrainState.create(params, self.optimizer)
         if (self.loop_cfg.arena_state and self.controller is not None
                 and self.controller.arena_ready):
             # arena-resident state: pack once here, never again; every
             # step updates the arena in place and the controller reads it
             self.arena_layout = self.controller.arena_layout
             self._arena_step = make_arena_train_step(
-                self.ops, self.cfg, self.optimizer, self.arena_layout)
+                self.ops, self.cfg, self.optimizer, self.arena_layout,
+                self._comm)
             arena = self.controller.pack_live(params)
+            del params
             return ArenaTrainState.create(arena, self.optimizer,
                                           self.arena_layout)
         if self.loop_cfg.arena_state and self.controller is not None \
@@ -241,6 +299,129 @@ class TrainLoop:
                                    state.layout)
         return TrainState(new_live, state.opt_state, state.step)
 
+    # -- the elastic mesh ------------------------------------------------------
+
+    def _member(self) -> bool:
+        """False on a rank left out of the current (shrunk) mesh."""
+        return self._cur_mesh is None or self._cur_mesh.is_member()
+
+    def _elastic_enabled(self, state) -> bool:
+        """Whether this run() may shrink and re-grow the mesh on domain
+        events: arena-resident state on a mesh with an elastic meshed
+        fabric. ``elastic_mesh=True`` without them is a configuration
+        error, not a silent no-op."""
+        want = self.loop_cfg.elastic_mesh
+        if want is False:
+            return False
+        fab = self.controller.fabric if self.controller is not None else None
+        ok = (isinstance(state, ArenaTrainState)
+              and self._base_mesh is not None
+              and fab is not None and fab.cfg.elastic
+              and fab.mesh is not None)
+        if want and not ok:
+            raise ValueError(
+                "elastic_mesh=True needs arena-resident state on a mesh "
+                "with an elastic meshed fabric (FabricConfig(elastic=True) "
+                "and a DistContext mesh whose size matches n_devices)")
+        return ok
+
+    def _place_batch(self, batch):
+        """The rank's slice of the global batch on the current (shrunk)
+        mesh; None outside it."""
+        from repro_torch.data.pipeline import slice_batch
+        return slice_batch(batch.global_rows, self._cur_mesh, self.device)
+
+    def _idle(self, state):
+        """A step of a rank outside the mesh: nothing computed, the step
+        counts advanced so the rank rejoins in step."""
+        opt = state.opt_state
+        return ArenaTrainState(None, OptState(opt.step + 1, None, None),
+                               state.step + 1, state.layout)
+
+    def _shared_loss(self, loss) -> float:
+        """The step's loss as a float on every rank: ranks outside the
+        current mesh take the mesh's first rank's."""
+        import torch.distributed as dist
+        mesh = self._cur_mesh
+        value = None if loss is None else float(loss)
+        if mesh is None or not dist.is_initialized() \
+                or mesh.size == dist.get_world_size():
+            return value
+        box = [value]
+        dist.broadcast_object_list(box, src=mesh.ranks[0])
+        return box[0]
+
+    def _maybe_resize(self, state, step: int, rec: dict):
+        """Shrink or re-grow the mesh to the fabric's alive devices.
+
+        The survivor count is the largest k <= alive that divides the
+        global batch; the survivors keep their logical ids. The arena and
+        the moments move to the new layout bit for bit (one all-to-all
+        each, :func:`~repro_torch.distributed.collectives.respan`), the
+        step is rebuilt for the new mesh, the controller's checkpoint
+        follows, and a forced maintain refreshes every tier on the new
+        placement. Every rank takes part."""
+        from repro_torch.distributed.collectives import MeshComm, respan
+        from repro_torch.launch.mesh import mesh_devices, survivor_mesh
+        t0 = time.perf_counter()
+        fab = self.controller.fabric
+        alive = fab.view.alive_devices()
+        k = int(alive.size)
+        bdim = self._last_batch_dim or k
+        while k > 1 and bdim % k != 0:
+            k -= 1
+        survivors = alive[:k]
+        if np.array_equal(survivors, self._mesh_logical):
+            return state
+        base = mesh_devices(self._base_mesh)
+        if k == len(base):
+            new_mesh = self._base_mesh    # a whole re-grow: the base shape
+        else:
+            new_mesh = survivor_mesh([base[int(i)] for i in survivors])
+        old, old_ranks = self.arena_layout, self._cur_mesh.ranks
+        new = fab.resize_mesh(new_mesh, survivors, step=step)
+        new_ranks = new_mesh.ranks
+        dev = self.device
+
+        def move(x, words: bool):
+            return respan(x, old_ranks, old.shard_words, new_ranks,
+                          new.shard_words,
+                          old.data_words if words
+                          else old.total_values - old.pad_words,
+                          torch.int32 if words else torch.float32, dev)
+
+        opt = state.opt_state
+        moments = tuple(move(m, False) if isinstance(m, torch.Tensor)
+                        or m is None else m for m in (opt.mu, opt.nu))
+        arena = move(state.arena, True)
+        # the caller's state is spent: let its old spans go now
+        state.arena = state.opt_state = None
+        state = ArenaTrainState(arena, OptState(opt.step, *moments),
+                                state.step, new)
+        del opt, arena
+        self._cur_mesh = new_mesh
+        self._mesh_logical = survivors
+        self._mesh_resized = True
+        member = new_mesh.is_member()
+        self._comm = MeshComm(new_mesh) if member else None
+        self._arena_step = make_arena_train_step(
+            self.ops, self.cfg, self.optimizer, new, self._comm)
+        self.arena_layout = new
+        self.controller.rebind_arena(old_ranks, new_ranks)
+        if dev.type == "cuda":
+            # the old shard count's buffers go back to the card: the ranks
+            # that share it (a rank left out holds nothing now) need the room
+            gc.collect()
+            torch.cuda.empty_cache()
+        # the tiers were invalidated by the re-home and re-stripe: refresh
+        # them from the moved live spans on the new placement
+        fab.maintain(step, state.arena, force=True)
+        fab.block_until_maintained()
+        rec["mesh_resize"] = {"shards": int(new.shards),
+                              "alive_devices": int(alive.size),
+                              "seconds": time.perf_counter() - t0}
+        return state
+
     # -- run loop -------------------------------------------------------------
 
     def run(self, state, batches, n_steps: int,
@@ -253,16 +434,32 @@ class TrainLoop:
             s, blk = (int(fl[0]), int(fl[1])) \
                 if isinstance(fl, (tuple, list)) else (int(fl), None)
             flips_at.setdefault(max(1, min(s, n_steps)), []).append(blk)
+        elastic = self._elastic_enabled(state)
+        if self._base_mesh is not None and flips_at:
+            raise ValueError("bit flips on a mesh are not injected (the "
+                             "replica span a rank holds is another's)")
         for i in range(1, n_steps + 1):
+            # re-read each iteration: an elastic resize rebuilds the step
             step_fn = (self._arena_step if isinstance(state, ArenaTrainState)
                        else self._train_step)
             batch = next(it)
+            if self._base_mesh is not None:
+                self._last_batch_dim = batch.global_batch
+                if self._mesh_resized:
+                    batch = self._place_batch(batch)
+            member = self._member()
             t0 = time.perf_counter()
             with self.recorder.span("train_step", step=i):
-                state, loss = step_fn(state, batch)
-                loss = float(loss)   # waits for the step
+                if member:
+                    state, loss = step_fn(state, batch)
+                    loss = float(loss)   # waits for the step
+                else:
+                    state, loss = self._idle(state), None
+                loss = self._shared_loss(loss)
             dt = time.perf_counter() - t0
             rec = {"step": int(state.step), "loss": loss, "seconds": dt}
+            if not member:
+                rec["idle"] = True
 
             if self.controller is not None:
                 # maintain first: the sweep scores the blocks against the
@@ -270,11 +467,12 @@ class TrainLoop:
                 # partial save below reuses those scores
                 tm0 = time.perf_counter()
                 live = self._live(state)
-                self.controller.maintain(int(state.step), live)
+                if member:
+                    self.controller.maintain(int(state.step), live)
                 t_maint = time.perf_counter()
                 with self.recorder.span("save", step=int(state.step)):
-                    if self.controller.maybe_checkpoint(int(state.step),
-                                                        live):
+                    if member and self.controller.maybe_checkpoint(
+                            int(state.step), live):
                         rec["checkpointed"] = True
                 t_save = time.perf_counter()
                 fab = self.controller.fabric
@@ -331,6 +529,12 @@ class TrainLoop:
                         heal = self.controller.heal_domain(
                             ev.kind, ev.index, live, step=int(state.step))
                     rec.setdefault("heals", []).append(heal)
+                if elastic and ("failures" in rec or "heals" in rec):
+                    # the survivor set changed: shrink the mesh to the
+                    # alive devices (or re-grow after a heal), move the
+                    # state, rebuild the step; training goes on there
+                    live = None
+                    state = self._maybe_resize(state, int(state.step), rec)
                 for blk in flips_at.pop(i, []):
                     # soft-error injection: corrupt the replica snapshot
                     # invisibly; only the scrub (or a later replica

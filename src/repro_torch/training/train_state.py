@@ -45,7 +45,8 @@ class ArenaTrainState:
     """Arena-resident training state: ``arena`` is the canonical live
     parameter representation (``layout.total_words`` int32 words);
     ``opt_state``'s moment buffers are ``(layout.total_values,)`` f32
-    mirrors of it. ``layout`` must be the instance the controller's fabric
+    mirrors of it. On a mesh both are the rank's span (``shard_words``),
+    and None on a rank outside the (shrunk) mesh. ``layout`` must be the instance the controller's fabric
     built (layouts compare by identity)."""
     arena: torch.Tensor
     opt_state: OptState
@@ -56,10 +57,12 @@ class ArenaTrainState:
     def create(cls, arena: torch.Tensor, optimizer,
                layout) -> "ArenaTrainState":
         # the moments live in the value domain (total_values ==
-        # total_words for all-f32 layouts; more for sub-word dtypes);
-        # init reads only the shape
-        seed = torch.zeros((layout.total_values,), dtype=torch.float32,
-                           device=arena.device)
+        # total_words for all-f32 layouts; more for sub-word dtypes); on a
+        # mesh the arena is the rank's span of an all-f32 layout, and so
+        # are they. init reads only the shape
+        n = (layout.total_values if arena.numel() == layout.total_words
+             else arena.numel())
+        seed = torch.zeros((n,), dtype=torch.float32, device=arena.device)
         return cls(arena=arena, opt_state=optimizer.init(seed), step=0,
                    layout=layout)
 

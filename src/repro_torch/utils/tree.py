@@ -7,7 +7,8 @@ keyed by leaf name:
 - dict keys are visited in sorted order, whatever order they were inserted
   in (``torch.utils._pytree`` keeps insertion order and would renumber
   every block);
-- lists and tuples are visited in index order;
+- lists and tuples are visited in index order (a tuple whose class sets
+  ``tree_leaf``, such as a partition spec, is a leaf);
 - ``None`` is an empty subtree with no leaves;
 - anything else is a leaf.
 
@@ -52,7 +53,8 @@ def _flatten(node, out: list, path: Optional[tuple]) -> TreeDef:
         return TreeDef("dict", keys, tuple(
             _flatten(node[k], out, None if path is None
                      else path + (("key", k),)) for k in keys))
-    if isinstance(node, (list, tuple)):
+    if isinstance(node, (list, tuple)) and not getattr(node, "tree_leaf",
+                                                       False):
         return TreeDef("list" if isinstance(node, list) else "tuple", (),
                        tuple(_flatten(x, out, None if path is None
                                       else path + (("idx", i),))

@@ -321,7 +321,8 @@ def test_domains_and_traces_equal():
 
 
 def test_fabric_configs_that_raise():
-    """What still raises: the mesh (ROADMAP item 15), a bit flip before any
+    """What raises: ``resize_mesh`` on a fabric bound to no mesh (the
+    elastic mesh is a sharded-arena operation), a bit flip before any
     arena snapshot exists, a FULL-recovery policy with a fabric. An XOR
     fabric's scrub checks nothing (the reference's answer), and a tree
     the arena cannot pack takes the per-leaf path."""
@@ -330,8 +331,9 @@ def test_fabric_configs_that_raise():
     from repro_torch.fabric import CheckpointFabric
     part = partition_pytree(part_tree, 8)
     fab = CheckpointFabric(part, TFabricConfig())
-    with pytest.raises(NotImplementedError, match="item 15"):
-        fab.resize_mesh()
+    from repro_torch.launch.mesh import survivor_mesh
+    with pytest.raises(ValueError, match="meshed fabric only"):
+        fab.resize_mesh(survivor_mesh([0]), [0])
     with pytest.raises(RuntimeError, match="arena-mode replica"):
         fab.inject_arena_bit_flip()
     assert fab.scrub() == {"checked": False, "detected": 0, "corrected": 0,

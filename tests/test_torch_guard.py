@@ -25,6 +25,7 @@ from repro_torch.examples import (adaptive_checkpoint_policy,
                                   serve_with_recovery)
 from repro_torch.fabric import CheckpointFabric, FabricConfig
 from repro_torch.interop import load_parity_rows
+from repro_torch.launch.mesh import survivor_mesh
 from repro_torch.models import get_model
 from repro_torch.models.classic import make_model
 from repro_torch.training.classic_runner import run_clean, run_with_failure
@@ -200,8 +201,9 @@ def test_model_and_run_devices_must_agree():
 
 def test_fabric_and_store_name_their_roadmap_items(tmp_path):
     """The RS tier, the per-leaf path, the store (item 11) and async
-    maintenance (item 12) build and run; the mesh still raises with its
-    ROADMAP item."""
+    maintenance (item 12) build and run; the mesh (item 15) is ported and
+    raises for a mesh whose size is not the fabric's device count and for
+    an object that is not a mesh."""
     params = {"w": torch.zeros(4, 2)}
     ctl = FTController(params, CheckpointPolicy.scar(),
                        fabric=FabricConfig(), device="cpu")
@@ -226,15 +228,19 @@ def test_fabric_and_store_name_their_roadmap_items(tmp_path):
         assert built.arena_ready == arena
         assert built.fabric.parity.supports_integrity == (cfg.rs_parity > 0)
     part = ctl.partition
-    with pytest.raises(NotImplementedError, match="item 15"):
+    with pytest.raises(TypeError, match="Mesh"):
         CheckpointFabric(part, FabricConfig(), mesh=object())
+    with pytest.raises(ValueError, match="mesh has 1 devices"):
+        CheckpointFabric(part, FabricConfig(), mesh=survivor_mesh([0]))
+    assert CheckpointFabric(part, FabricConfig(n_devices=1),
+                            mesh=survivor_mesh([0])).arena_layout.shards == 1
 
 
 def test_trainer_defaults_to_cuda_and_names_its_roadmap_items(tmp_path):
     """The LM trainer runs on the card unless asked otherwise, and raises
     where no CUDA device is present; with a store and async maintenance
-    (items 11 and 12) it builds and runs; the elastic mesh still raises
-    with its ROADMAP item."""
+    (items 11 and 12) it builds and runs; ``elastic_mesh=True`` without a
+    mesh raises, and ``moe_block`` on a mesh names ROADMAP item 38."""
     from repro_torch.data import ShardedLMDataset
     cfg = get_config("qwen2-1.5b", reduced=True)
     if torch.cuda.is_available():
@@ -255,5 +261,18 @@ def test_trainer_defaults_to_cuda_and_names_its_roadmap_items(tmp_path):
     assert loop.controller.store is store
     assert loop.controller.fabric.stats["async_maintains"] == 1
     assert not loop.controller.fabric.has_pending_maintenance
-    with pytest.raises(NotImplementedError, match="item 15"):
-        TrainLoopConfig(elastic_mesh=True)
+    # the elastic mesh (item 15) is ported: asked for without a mesh it
+    # is a configuration error at run(), not a silent no-op; the
+    # expert-parallel MoE on a mesh is item 38
+    loop = TrainLoop(cfg, loop_cfg=TrainLoopConfig(
+        policy=CheckpointPolicy.scar(0.25, 4), elastic_mesh=True,
+        fabric=FabricConfig(elastic=True)), device="cpu")
+    with pytest.raises(ValueError, match="elastic_mesh=True"):
+        loop.run(loop.init_state(), iter(DS(cfg, 2, 8, device="cpu")), 1)
+    from repro_torch.models.layers import moe_block
+    moe_cfg = get_config("qwen3-moe-235b-a22b", reduced=True)
+    with pytest.raises(NotImplementedError, match="item 38"):
+        moe_block(torch.zeros(1, 2, moe_cfg.d_model), {}, moe_cfg,
+                  mesh=survivor_mesh([0]))
+    for path in FILES:
+        assert "ROADMAP item 15" not in path.read_text(), path

@@ -31,7 +31,8 @@ attention. Checked:
   as ``tests/test_torch_lm_serve.py`` holds the dense family;
 - the per-pair ``stacked_layers`` of an interleaved model, and prefill on
   its per-layer (``split_layers``) tree equal to the stacked one;
-- ``lm_batch``'s patches; the mesh branch raising naming ROADMAP item 15.
+- ``lm_batch``'s patches; the mesh branch raising naming ROADMAP item 38
+  (the expert-parallel MoE; item 15, the mesh itself, is ported).
 """
 import dataclasses
 
@@ -213,9 +214,11 @@ def test_decode_step_moe_at_capacity_one():
 
 
 def test_moe_mesh_branch_names_item_15():
+    """The mesh is ported (item 15); its expert-parallel MoE branch is
+    ROADMAP item 38, and ``moe_block`` on a mesh raises naming it."""
     cfg = get_config(MOE_ARCHS[0], reduced=True)
     p = from_numpy_tree(_moe_params(j_get_config(MOE_ARCHS[0], True)), "cpu")
-    with pytest.raises(NotImplementedError, match="item 15"):
+    with pytest.raises(NotImplementedError, match="item 38"):
         layers.moe_block(torch.zeros((1, 2, cfg.d_model)), p, cfg,
                          mesh=object())
 
