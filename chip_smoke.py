@@ -5029,7 +5029,6 @@ def _mesh_rank_body(rank: int, opts: dict) -> dict:
     from repro_torch.data import ShardedLMDataset
     from repro_torch.distributed import collectives
     from repro_torch.kernels import _build
-    from repro_torch.kernels.fused_maintain.ops import ArenaMaintainProgram
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.sharding.partition import make_dist_ctx
     from repro_torch.telemetry import Recorder
@@ -5129,39 +5128,166 @@ def _mesh_rank_body(rank: int, opts: dict) -> dict:
           and fab.view.n_alive_devices == MESH["ranks"],
           f"rank {rank}: not re-grown to {MESH['ranks']} shards")
 
-    # the 4-rank sweep against a 1-rank sweep of the same arena: one more
-    # forced maintain with the checkpoint (scores summed over the mesh),
-    # the tiers gathered at the first rank and held there
+    # the 4-rank sweep against the plain sweep of the whole arena: one
+    # more forced maintain with the checkpoint (scores summed over the
+    # mesh), the tiers gathered at the first rank and held there
     step = fab.last_maintained_step
     fab.maintain(step, state.arena, ckpt_values=ctl._ckpt_arena, force=True)
     scores = fab.last_scores.clone()
-    # the first rank holds the whole arenas and two parities: the others
-    # hand back what their caches hold
     free()
     comm = fab.comm
     full = comm.gather(state.arena)
     ck = comm.gather(ctl._ckpt_arena)
     rep, par = fab.gather_tiers()
     if comm.is_root:
-        codec = fab.parity
-        prog = ArenaMaintainProgram(ctl.partition, fab.arena_layout,
-                                    codec.layout, codec.group_of,
-                                    codec.n_groups)
-        r1, s1, p1 = prog(full, ck)
-        check(torch.equal(r1, rep) and torch.equal(rep, full),
-              "the 4-rank replica differs from the 1-rank sweep's")
-        check(torch.equal(p1, par), "the 4-rank parity differs from the "
-              "1-rank sweep's")
-        rel = float(((scores - s1).abs()
-                     / s1.abs().clamp_min(1e-30)).max())
-        check(rel <= 1e-4, f"the 4-rank scores are off by rtol {rel}")
-        out["sweep_vs_one_rank"] = {"scores_rtol": rel,
-                                    "parity_words": int(p1.numel()),
-                                    "replica_words": int(r1.numel())}
-        del prog, r1, s1, p1
+        out["sweep_vs_plain"] = _hold_mesh_sweep(fab, full, ck, rep, par,
+                                                 scores)
     del full, ck, rep, par
+    # every kernel of the path against its plain version on this rank's
+    # span, at the shapes the path gave it
+    out["holds"] = _hold_mesh_rank(loop, state, scores)
     out["final_peak_gb"] = peak()
     out["host_peak_gb"] = _host_peak_gb()
+    return out
+
+
+@contextlib.contextmanager
+def mesh_route_plain():
+    """A switch of this script around the mesh path's dispatchers: CUDA
+    tensors go to the plain versions of arena_maintain, arena_scatter,
+    parity_xor, masked_restore and block_dist. Fails if a kernel launched
+    inside it."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.block_dist import ops as bd
+    from repro_torch.kernels.block_dist.ref import block_dist_ref
+    from repro_torch.kernels.fused_maintain import ops as fm
+    from repro_torch.kernels.fused_maintain.ref import (arena_maintain_ref,
+                                                        arena_scatter_ref)
+    from repro_torch.kernels.masked_restore import ops as mr
+    from repro_torch.kernels.masked_restore.ref import masked_restore_ref
+    from repro_torch.kernels.parity_xor import ops as px
+    from repro_torch.kernels.parity_xor.ref import parity_xor_ref
+
+    def xor_plain(out, src, base, plan):
+        return parity_xor_ref(out, src, base, plan.on(out.device))
+    swaps = [(fm, "arena_maintain_cuda", arena_maintain_ref),
+             (fm, "arena_scatter_cuda", arena_scatter_ref),
+             (mr, "masked_restore_cuda", masked_restore_ref),
+             (bd, "block_dist_cuda", block_dist_ref),
+             (px, "parity_xor", xor_plain)]
+    saved = [(m, name, getattr(m, name)) for m, name, _ in swaps]
+    before = dict(_build.LAUNCHES)
+    for m, name, f in swaps:
+        setattr(m, name, f)
+    try:
+        yield
+    finally:
+        for m, name, f in saved:
+            setattr(m, name, f)
+    check(dict(_build.LAUNCHES) == before, "a kernel launched on the plain "
+          "route")
+
+
+def _hold_mesh_sweep(fab, full, ck, rep, par, scores) -> dict:
+    """At the mesh's first rank: the gathered replica is the gathered live
+    arena, the gathered parity (every rank's span sweep, combined into the
+    owners' rows) is the plain sweep's of the whole arena bit for bit,
+    the mesh's summed scores within rtol 1e-4 of its scores
+    (arena_maintain's plain version over the one-rank tables)."""
+    import torch
+    from repro_torch.kernels.fused_maintain.ops import sweep_plan
+    from repro_torch.kernels.fused_maintain.ref import arena_maintain_ref
+    codec = fab.parity
+    t = sweep_plan(fab.arena_layout, codec.layout,
+                   codec.group_of).on(full.device)
+    fe = codec.layout.frame_elems
+    par_p = torch.zeros((codec.n_groups * fe,), dtype=torch.int32,
+                        device=full.device)
+    s_p = arena_maintain_ref(full, ck, t, par_p, None)
+    check(torch.equal(rep, full), "the 4-rank replica differs from the live "
+          "arena")
+    check(torch.equal(par, par_p.view(codec.n_groups, fe)), "the 4-rank "
+          "parity differs from the plain sweep's")
+    rel = _rel_err(scores, s_p)
+    check(rel <= 1e-4, f"the 4-rank scores are off the plain sweep's by "
+          f"rtol {rel}")
+    return {"scores_rtol": rel, "parity_words": int(par_p.numel()),
+            "replica_words": int(full.numel())}
+
+
+def _hold_mesh_rank(loop, state, scores) -> dict:
+    """On every rank, after the path's launch counts were read: each
+    kernel of the mesh path on this rank's span, at the shapes the path
+    gave it, against its plain version on the same inputs
+    (:func:`mesh_route_plain`). The span sweep (arena_maintain over the
+    span's tables, then the XOR combine's parity_xor into the owned rows):
+    replica and rows bit for bit, scores within rtol 1e-4. The save of
+    the sweep's top-scored eighth (arena_scatter) against a plain index
+    copy, bit for bit. Phase 30's host loss replayed on this span: the
+    restore of the lost blocks (masked_restore over the span's tiles from
+    the first lost one to the last, and over its tail words), bit for bit,
+    and the per-block distances of the span (block_dist), rtol 1e-4."""
+    import numpy as np
+    import torch
+    from repro_torch.core.checkpoint import top_k_indices
+    from repro_torch.fabric import span_recovery as sr
+    from repro_torch.kernels.fused_maintain.ops import (arena_scatter_save,
+                                                        save_ranges)
+    ctl = loop.controller
+    fab, comm, lay = ctl.fabric, ctl.fabric.comm, ctl.fabric.arena_layout
+    span, ck = state.arena, ctl._ckpt_arena
+    total = ctl.partition.total_blocks
+    prog = fab._arena_maintain_fn()
+    got = [x.clone() for x in prog(span, ck, comm, copy=True)]
+    with mesh_route_plain():
+        want = [x.clone() for x in prog(span, ck, comm, copy=True)]
+    check(torch.equal(got[0], want[0]) and torch.equal(got[2], want[2]),
+          f"rank {comm.pos}: the span sweep's replica or parity rows differ "
+          f"from the plain route's")
+    out = {"sweep_scores_rtol": _rel_err(got[1], want[1])}
+    check(out["sweep_scores_rtol"] <= 1e-4, f"rank {comm.pos}: span sweep "
+          f"scores off by rtol {out['sweep_scores_rtol']}")
+    del got, want
+
+    w0, w1 = lay.span(comm.pos)
+    ids = top_k_indices(scores, ctl.partition.blocks_for_k(
+        ctl.policy.fraction)).cpu().numpy()
+    dst, _ = arena_scatter_save(ck.clone(), span, lay, ids, span=(w0, w1))
+    off, length = save_ranges(lay, ids)
+    lo, hi = np.maximum(off, w0), np.minimum(off + length, w1)
+    keep = hi > lo
+    idx = torch.from_numpy(np.concatenate(
+        [np.arange(a, b) for a, b in zip(lo[keep] - w0, hi[keep] - w0)]
+        or [np.empty((0,), np.int64)])).to(span.device)
+    plain = ck.clone()
+    plain[idx] = span[idx]
+    check(torch.equal(dst, plain), f"rank {comm.pos}: the span save differs "
+          f"from a plain index copy")
+    out["save_words"] = int(idx.numel())
+    del dst, plain, idx
+
+    hosts = np.asarray(fab.domains.host_of(np.arange(fab.cfg.n_devices)))
+    lost = np.isin(fab.view.homes, np.nonzero(hosts == 1)[0])
+    tables = sr.span_tables(lay, comm.pos)
+    restored = span.clone()
+    sr.span_restore(restored, ck, lost, tables)
+    with mesh_route_plain():
+        plain = span.clone()
+        sr.span_restore(plain, ck, lost, tables)
+        d_p = sr.span_block_sq(span, ck, tables, total)
+    check(torch.equal(restored, plain), f"rank {comm.pos}: the span restore "
+          f"differs from the plain restore")
+    d_k = sr.span_block_sq(span, ck, tables, total)
+    hit = d_p > 0
+    out["block_dist_rtol"] = float(np.max(np.abs(d_k - d_p)[hit]
+                                          / d_p[hit], initial=0.0))
+    check(out["block_dist_rtol"] <= 1e-4 and np.all(d_k[~hit] == 0),
+          f"rank {comm.pos}: span block_dist off by rtol "
+          f"{out['block_dist_rtol']}")
+    out["lost_blocks"] = int(lost.sum())
+    out["lost_in_span"] = bool(lost[tables.tile_gid].any()
+                               or lost[tables.tail_gid].any())
+    out["restored_words"] = int((restored != span).sum())
     return out
 
 
@@ -5267,12 +5393,16 @@ def phase_mesh(device, launches: dict, card: str, opts=None) -> dict:
     5 (2 -> 4). First the same model, weights, batches and schedule on one
     rank in this process. Held: the arena and PyTree loops on the mesh
     bit-equal over their first 2 steps (losses, the checkpoint spans, the
-    parameter spans); the 4-rank sweep's replica and parity bit-equal to a
-    1-rank sweep of the same arena, its scores within rtol 1e-4; the
-    ranks' losses within ``MESH_LOSS_RTOL`` of the one-rank run's; shards
-    4, 2, 4, two resizes, no live pack; arena_maintain, arena_scatter and
-    parity_xor launched on every rank (``launches["mesh"]``: one count a
-    rank). A failed rank fails the phase."""
+    parameter spans); the 4-rank sweep's replica and parity bit-equal to
+    the plain sweep of the whole arena, its scores within rtol 1e-4; on
+    every rank, each kernel of the path against its plain version at the
+    path's shapes (:func:`_hold_mesh_rank`); the ranks' losses within
+    ``MESH_LOSS_RTOL`` of the one-rank run's; the recovery all from the
+    replicas, at zero perturbation; shards 4, 2, 4, two resizes, no live
+    pack; arena_maintain, arena_scatter, parity_xor and block_dist
+    launched on every rank, masked_restore on every rank whose span held
+    a lost block (``launches["mesh"]``: one count a rank). A failed rank
+    fails the phase."""
     import torch
     import torch.multiprocessing as mp
     opts = {"device": device.type, "layers": MESH["layers"],
@@ -5331,7 +5461,20 @@ def phase_mesh(device, launches: dict, card: str, opts=None) -> dict:
     check(rel <= MESH_LOSS_RTOL and all(math.isfinite(x)
                                         for x in ranks[0]["losses"]),
           f"mesh losses {ranks[0]['losses']}, one rank {one['losses']}")
-    check("sweep_vs_one_rank" in ranks[0], "the sweep check did not run")
+    check("sweep_vs_plain" in ranks[0], "the sweep check did not run")
+    # the recovery ran on every span: the norms' block_dist everywhere, the
+    # replica restore's masked_restore on the spans that hold lost blocks;
+    # the replicas were fresh, so it applied no perturbation
+    fail, = ranks[0]["failures"]
+    check(fail["tier_counts"]["PEER_REPLICA"] == fail["lost_blocks"]
+          == ranks[0]["holds"]["lost_blocks"] > 0
+          and fail["applied_sq"] == 0.0, f"mesh recovery {fail}")
+    for r in ranks if device.type == "cuda" else ():
+        check(r["launches"]["block_dist"] > 0
+              and (r["launches"]["masked_restore"] > 0
+                   or not r["holds"]["lost_in_span"]),
+              f"rank {r['rank']}: the recovery's kernels did not launch "
+              f"({r['launches']})")
     peaks = [r["peak_gb"] for r in ranks]
     member = [s for i, s in enumerate(ranks[0]["step_seconds"])
               if i + 1 not in ranks[0]["idle_steps"]]

@@ -409,6 +409,36 @@ def build_arena_layout(partition: BlockPartition, shards: int = 1,
                        data_words=data_words)
 
 
+def span_overlaps(old_n: int, old_size: int, new_n: int, new_size: int,
+                  data: int) -> list[tuple[int, int, int, int]]:
+    """How a flat-sharded buffer moves across a shard-count change: ``(p,
+    q, lo, hi)`` for each old shard ``p`` (``old_size`` elements each) and
+    new shard ``q`` (``new_size`` each) whose spans share the elements
+    ``[lo, hi)`` before ``data`` (the shard pad, zero in every layout, is
+    never moved), ascending in ``p`` then ``q``. The one arithmetic of
+    :func:`relayout_arena`, :func:`relayout_values` and the mesh's
+    :func:`~repro_torch.distributed.collectives.respan`."""
+    out = []
+    for p in range(old_n):
+        a0, a1 = p * old_size, min((p + 1) * old_size, data)
+        for q in range(new_n):
+            lo = max(a0, q * new_size)
+            hi = min(a1, (q + 1) * new_size)
+            if hi > lo:
+                out.append((p, q, lo, hi))
+    return out
+
+
+def _relayout(buf: torch.Tensor, old_size: int, new_size: int,
+              data: int) -> torch.Tensor:
+    """``buf`` as one shard of ``new_size`` elements: the moves of
+    :func:`span_overlaps` between one old and one new shard."""
+    out = buf.new_zeros((new_size,))
+    for _, _, lo, hi in span_overlaps(1, old_size, 1, new_size, data):
+        out[lo:hi] = buf[lo:hi]
+    return out
+
+
 def relayout_arena(arena: torch.Tensor, old: ArenaLayout,
                    new: ArenaLayout) -> torch.Tensor:
     """An arena of ``old`` as an arena of ``new`` (the same partition at
@@ -421,9 +451,7 @@ def relayout_arena(arena: torch.Tensor, old: ArenaLayout,
     if arena.numel() != old.total_words:
         raise ValueError(f"need a ({old.total_words},) arena, got "
                          f"{tuple(arena.shape)}")
-    out = arena.new_zeros((new.total_words,))
-    out[:new.data_words] = arena[:new.data_words]
-    return out
+    return _relayout(arena, old.total_words, new.total_words, new.data_words)
 
 
 def relayout_values(buf: torch.Tensor, old: ArenaLayout,
@@ -437,9 +465,7 @@ def relayout_values(buf: torch.Tensor, old: ArenaLayout,
         raise ValueError("relayout_values: layouts disagree on the data "
                          f"region ({d_old} vs {d_new} values): not the same "
                          "partition")
-    out = buf.new_zeros((new.total_values,))
-    out[:d_new] = buf[:d_new]
-    return out
+    return _relayout(buf, old.total_values, new.total_values, d_new)
 
 
 def arena_block_homes(layout: ArenaLayout,

@@ -69,7 +69,6 @@ from repro_torch.core.recovery import (apply_failure_and_recover,
                                        perturbation_norms,
                                        sample_failure_mask)
 from repro_torch.device import DeviceLike, resolve_device, synchronize
-from repro_torch.fabric.tiers import RecoveryTier
 from repro_torch.kernels.block_dist.ops import tree_block_scores
 from repro_torch.kernels.fused_maintain.ops import (arena_scatter_save,
                                                     tree_scatter_save)
@@ -703,15 +702,18 @@ class FTController:
     def _on_failure_mesh(self, live, lost_mask, failed_devices, step,
                          persist_failure) -> tuple[PyTree, dict]:
         """A recovery on a mesh. Every rank keeps the failed devices dead
-        in the view; the members gather the live and checkpoint spans and
-        the tiers at the mesh's first position, which plans, restores and
-        prices the loss as a single device would; the recovered spans are
-        scattered back into each member's live span in place; the report
-        goes to every rank of the default group; then every rank ends the
+        in the view; every member restores its own span of the live arena
+        in place under the same plan
+        (:meth:`~repro_torch.fabric.fabric.CheckpointFabric.recover_span`),
+        and all of them price the loss alike; the report goes to the ranks
+        outside the mesh from its first rank; then every rank ends the
         failure (counters and, elastic, the re-plan). ``live`` is the
-        rank's span of the arena-resident state (None outside the mesh)."""
+        rank's span of the arena-resident state (None outside the mesh),
+        or the whole tree on every rank of the mesh: its span is packed
+        and recovered, and the recovered spans are gathered into a new
+        tree."""
         import torch.distributed as dist
-        fab, comm, lay = self.fabric, self.fabric.comm, self._arena_layout
+        fab, comm = self.fabric, self.fabric.comm
         lost = (lost_mask.cpu().numpy() if isinstance(lost_mask, torch.Tensor)
                 else np.asarray(lost_mask)).astype(bool)
         failed, at = fab.begin_failure(failed_devices, step, persist_failure)
@@ -721,35 +723,19 @@ class FTController:
                                 failed_devices=int(failed.size))
         out = None
         if comm is not None:
-            if self._live_arena(live) is None:
-                raise ValueError("a recovery on a mesh takes the rank's span "
-                                 "of the arena-resident state")
-            # every rank plans alike; the parity is gathered only when a
-            # block recovers from it
-            plan = fab.planner.plan(lost, failed, at)
-            full = comm.gather(live)
-            ckpt = comm.gather(self._ckpt_arena)
-            tiers = fab.gather_tiers(parity=bool(
-                plan.mask(RecoveryTier.PARITY).any()))
-            if comm.is_root:
-                params = unpack_arena(full, lay, copy=False)
-                ck = RunningCheckpoint(unpack_arena(ckpt, lay, copy=False),
-                                       self._ckpt.saved_iter,
-                                       self._ckpt.rr_cursor)
-                lost_t = torch.from_numpy(lost).to(self.device)
-                info = perturbation_norms(params, ck, lost_t, self.partition)
-                recovered, tier_info = fab.recover_gathered(
-                    params, ck.values, plan, tiers)
-                info["applied_sq"] = tree_block_scores(
-                    recovered, params, self.partition).sum()
-                info["lost_blocks"] = int(lost.sum())
-                info.update(tier_info)
-                out = {k: (float(v) if isinstance(v, torch.Tensor) else v)
-                       for k, v in info.items()}
-                pack_arena(recovered, lay, out=full)
-                del params, ck, recovered, tiers, ckpt
-            comm.scatter(full, live)
-            del full
+            span = self._live_arena(live)
+            tree = span is None
+            if tree:
+                span = fab.live_span(live)
+            out = fab.recover_span(span, self._ckpt_arena,
+                                   fab.planner.plan(lost, failed, at), lost)
+            out["lost_blocks"] = int(lost.sum())
+            if tree:
+                live = unpack_arena(comm.all_gather(span),
+                                    self._arena_layout)
+        elif live is not None:
+            raise ValueError("a rank outside the mesh holds no live state "
+                             "to recover")
         if dist.is_initialized() and dist.get_world_size() > 1:
             box = [out]
             dist.broadcast_object_list(box, src=int(fab.mesh.ranks[0]))

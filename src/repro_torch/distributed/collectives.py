@@ -13,9 +13,8 @@ between ranks:
   partial parity tiles, sent to the rank that owns their rows);
 - ``ship``: this rank's span to the rank ``shift`` positions on, and the
   span of the rank ``shift`` positions back (the anti-affine replica);
-- ``all_reduce`` (sum), ``broadcast``, ``gather`` and ``scatter``
-  (scores, losses, the initial weights, a recovery's work at the first
-  rank);
+- ``all_reduce`` (sum), ``broadcast`` and ``gather`` (scores, losses,
+  the initial weights, the tiers at the first rank for a check);
 
 and :func:`respan` moves a sharded buffer from one mesh to another (the
 elastic resize).
@@ -23,8 +22,9 @@ elastic resize).
 Each call is counted in :data:`STATS` under its name: ``calls``,
 ``bytes`` (what crosses between ranks for this rank: an all-gather's
 received spans, a reduce-scatter's sent and received parts, an
-all-to-all's sent and received chunks, a ship's span, a gather's or scatter's spans at the
-first rank, the tensor of an all-reduce or a broadcast), ``seconds``
+all-to-all's sent and received chunks, a ship's span, a gather's spans
+at the first rank, the tensor of an all-reduce or a broadcast),
+``seconds``
 (wall time of the call, its staging included) and ``staged_bytes``.
 
 **Staging.** gloo takes CUDA tensors for ``broadcast`` and
@@ -48,6 +48,8 @@ from typing import Optional
 
 import torch
 import torch.distributed as dist
+
+from repro_torch.core.arena import span_overlaps
 
 CHUNK_BYTES = 1 << 26
 # pieces a collective keeps in flight: gloo runs a group's calls on two
@@ -353,31 +355,6 @@ class MeshComm:
                    s0)
         return out
 
-    def scatter(self, full: Optional[torch.Tensor], out: torch.Tensor,
-                root: int = 0) -> torch.Tensor:
-        """Position ``root``'s ``full`` cut in n spans; this position's
-        lands in ``out``."""
-        t0, s0 = time.perf_counter(), self._stage.bytes
-        n, m = self.n, out.numel()
-        if not self.distributed:
-            out.copy_(full.reshape(out.shape))
-            self._done("scatter", 0, t0, s0)
-            return out
-        mine = self.pos == root
-        out_all = out.view(-1)
-        for a, b in _pieces(m, out.element_size()):
-            parts = None
-            if mine:
-                src = self._from("s_in", full.view(n, m)[:, a:b])
-                parts = list(src.view(n, b - a).unbind(0))
-            dst = self._into("s_out", out, b - a)
-            dist.scatter(dst, parts, src=self.ranks[root], group=self.group)
-            self._land(out_all[a:b], dst)
-        item = out.element_size()
-        self._done("scatter", (n - 1) * m * item if mine else m * item, t0,
-                   s0)
-        return out
-
 
 def _rounds(send: torch.Tensor, sc: list, out: torch.Tensor, rc: list,
             max_count: int, group, staged: bool, stage: _Stage) -> None:
@@ -433,25 +410,15 @@ def respan(span: Optional[torch.Tensor], old_ranks: list, old_size: int,
         raise ValueError("mesh ranks must ascend in position order")
     me = dist.get_rank() if dist.is_initialized() else 0
     world = dist.get_world_size() if dist.is_initialized() else 1
-
-    def bounds(ranks, size, rank):
-        p = list(ranks).index(rank)
-        return p * size, min((p + 1) * size, data)
-
     sc, rc, pieces = [0] * world, [0] * world, []
-    if me in old_ranks:
-        a0, a1 = bounds(old_ranks, old_size, me)
-        for r in new_ranks:
-            b0, b1 = bounds(new_ranks, new_size, r)
-            lo, hi = max(a0, b0), min(a1, b1)
-            if hi > lo:
-                sc[r] = hi - lo
-                pieces.append(span[lo - a0:hi - a0])
-    if me in new_ranks:
-        b0, b1 = bounds(new_ranks, new_size, me)
-        for r in old_ranks:
-            a0, a1 = bounds(old_ranks, old_size, r)
-            rc[r] = max(0, min(a1, b1) - max(a0, b0))
+    for p, q, lo, hi in span_overlaps(len(old_ranks), old_size,
+                                      len(new_ranks), new_size, data):
+        src, dst = old_ranks[p], new_ranks[q]
+        if src == me:
+            sc[dst] = hi - lo
+            pieces.append(span[lo - p * old_size:hi - p * old_size])
+        if dst == me:
+            rc[src] = hi - lo
     send = torch.cat(pieces) if pieces else torch.empty(
         (0,), dtype=dtype, device=device)
     recv = torch.empty((sum(rc),), dtype=dtype, device=device)

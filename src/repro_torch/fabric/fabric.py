@@ -101,12 +101,14 @@ from repro_torch.fabric.placement import (ClusterView, rebalance_homes,
                                           rehome_blocks)
 from repro_torch.fabric.replica import ReplicaSet
 from repro_torch.fabric.rs import RSCodec
-from repro_torch.fabric.tiers import TieredRecovery
+from repro_torch.fabric.tiers import (LOSS_TIERS, RecoveryTier,
+                                     TieredRecovery)
 from repro_torch.kernels import _build
 from repro_torch.kernels.fused_maintain.ops import (ArenaMaintainProgram,
                                                     SpanMaintainProgram,
                                                     maintain_traffic,
                                                     make_fused_maintain_fn)
+from repro_torch.kernels.parity_xor.ops import reconstruct_plan
 from repro_torch.sharding.partition import block_device_homes
 from repro_torch.telemetry.recorder import NULL_RECORDER, Histogram
 
@@ -380,8 +382,9 @@ class CheckpointFabric:
                                 Optional[torch.Tensor]]:
         """The replica arena in its primary placement and (with
         ``parity``) the whole ``(n_groups, frame_elems)`` parity, gathered
-        at the mesh's first position (None elsewhere): a recovery's
-        inputs."""
+        at the mesh's first position (None elsewhere): for a check of the
+        sharded tiers against the plain sweep of the whole arena, never on
+        a recovery."""
         comm = self.comm
         # position p holds the replica of the span of position p - shift
         rep = comm.gather(self.replicas.arena, slots=[
@@ -395,25 +398,63 @@ class CheckpointFabric:
                 :self.parity.n_groups]
         return rep, par
 
-    def recover_gathered(self, params: PyTree, ckpt_values: PyTree, plan,
-                         tiers: tuple) -> tuple[PyTree, dict]:
-        """The tier-planned restore of a whole tree at the mesh's first
-        position under ``plan`` (``planner.plan``, made on every rank),
-        with the gathered tiers (:meth:`gather_tiers`) standing in for the
-        rank's spans while it runs."""
-        rep, par = tiers
-        held = (self.replicas._arena, self.replicas._held)
-        owned = self.parity.parity
-        self.replicas._arena, self.replicas._held = rep, None
-        self.parity.parity = par
-        try:
-            recovered, stats = self.planner.recover(params, ckpt_values,
-                                                    plan)
-        finally:
-            self.replicas._arena, self.replicas._held = held
-            self.parity.parity = owned
-        stats["tier_fallbacks"] = plan.fallbacks
-        return recovered, stats
+    def recover_span(self, live: torch.Tensor, ckpt: torch.Tensor, plan,
+                     lost: np.ndarray) -> dict:
+        """The tier-planned restore of this rank's span of the live arena,
+        in place (:mod:`~repro_torch.fabric.span_recovery`), under ``plan``
+        (``planner.plan``, made alike on every rank); ``ckpt`` is the
+        rank's span of the running-checkpoint arena. Every position of the
+        mesh calls it. Returns the report a single device gives, the same
+        on every rank: ``full_sq``, ``partial_sq``, ``applied_sq``, the
+        per-tier stats and ``tier_fallbacks``."""
+        from repro_torch.fabric import span_recovery as sr
+        comm, lay = self.comm, self.arena_layout
+        total = self.partition.total_blocks
+        tables = sr.span_tables(lay, comm.pos)
+        d_ck = sr.mesh_block_sq(live, ckpt, tables, total, comm)
+        before = live.clone()
+        m_rep = plan.mask(RecoveryTier.PEER_REPLICA)
+        m_par = plan.mask(RecoveryTier.PARITY)
+        # the sweep that encoded the parity also made the replica: the
+        # replica span holds the encode-time member words
+        snapshot = (self.replicas.arena is not None
+                    and self.replicas.refreshed_step
+                    == self.parity.encoded_step)
+        rep = None
+        if m_rep.any() or (m_par.any() and snapshot):
+            # this span's replica, from the rank that holds it
+            rep = comm.ship(self.replicas.arena, -self._shift)
+        if m_rep.any():
+            sr.span_restore(live, rep, m_rep, tables)
+        if m_par.any():
+            home_alive = self.view.alive[self.view.homes]
+            available = (plan.tiers < int(RecoveryTier.PARITY)) & (
+                home_alive | (plan.tiers == int(RecoveryTier.PEER_REPLICA)))
+            codec = self.parity
+            rplan, blocks = reconstruct_plan(
+                lay, codec.layout, codec.group_of, codec.members,
+                np.nonzero(m_par)[0], codec.member_mask(available))
+            rows_per = codec.parity.shape[0]
+            g0 = comm.pos * rows_per
+            sr.span_reconstruct(live, rep if snapshot else live,
+                                codec.parity, rplan, blocks, lay, g0,
+                                g0 + rows_per, codec.layout.frame_elems,
+                                comm)
+        m_ck = plan.mask(RecoveryTier.RUNNING_CKPT) \
+            | plan.mask(RecoveryTier.DISK)
+        if m_ck.any():
+            sr.span_restore(live, ckpt, m_ck, tables)
+        del rep
+        d_applied = sr.mesh_block_sq(live, before, tables, total, comm)
+        del before
+        out = {"full_sq": float(d_ck.sum()),
+               "partial_sq": float(d_ck[lost].sum()),
+               "applied_sq": float(d_applied.sum())}
+        out.update(self.planner.report(plan, {
+            t.name: float(d_applied[plan.mask(t)].sum())
+            for t in LOSS_TIERS if plan.mask(t).any()}))
+        out["tier_fallbacks"] = plan.fallbacks
+        return out
 
     def begin_failure(self, failed_devices, step: Optional[int],
                       persist_failure: Optional[bool]) -> tuple[np.ndarray,

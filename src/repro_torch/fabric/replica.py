@@ -15,9 +15,9 @@ On a mesh the replica is placed anti-affine by span: the rank at position
 ``p`` holds the replica of the span of position ``held_span`` (``(p -
 shift) % n``, the fabric's rotation), as the reference's
 ``main_sharding`` and its rolled replica sharding place it (the
-fabric's ``_bind_mesh`` sets it through ``bind_mesh``). The primary
-placement (``arena_local``) is then a gather
-(:meth:`~repro_torch.fabric.fabric.CheckpointFabric.gather_tiers`).
+fabric's ``_bind_mesh`` sets it through ``bind_mesh``). A recovery ships
+each span's replica back to its owner
+(:meth:`~repro_torch.fabric.fabric.CheckpointFabric.recover_span`).
 """
 from __future__ import annotations
 
@@ -93,11 +93,11 @@ class ReplicaSet:
     def arena_local(self) -> Optional[torch.Tensor]:
         """The arena snapshot on the primary placement: the identity
         without a mesh. On a mesh the rank holds another rank's span, and
-        the primary placement is a gather: this raises."""
+        the span's owner reads it shipped back: this raises."""
         if self._held is not None:
             raise ValueError("on a mesh this rank holds the replica of span "
-                             f"{self._held}; gather the replica arena "
-                             "(CheckpointFabric.gather_tiers)")
+                             f"{self._held}; its owner recovers from it "
+                             "shipped back (CheckpointFabric.recover_span)")
         return self._arena
 
     @property

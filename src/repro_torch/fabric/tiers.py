@@ -69,6 +69,9 @@ TIER_BANDWIDTH = {
     RecoveryTier.SILENT_ERROR: 200e9,
 }
 
+# the tiers a recovery reports on
+LOSS_TIERS = tuple(t for t in RecoveryTier if t != RecoveryTier.SURVIVOR)
+
 
 @dataclasses.dataclass
 class TierPlan:
@@ -223,22 +226,25 @@ class TieredRecovery:
 
         # ||delta'||^2 per tier: the per-block distances once (one grouped
         # block_dist launch on the card), masked per tier, read in one copy
-        tiers = [t for t in RecoveryTier if t != RecoveryTier.SURVIVOR]
-        masks = {t: plan.mask(t) for t in tiers}
-        hit = [t for t in tiers if masks[t].any()]
+        hit = [t for t in LOSS_TIERS if plan.mask(t).any()]
         sums = []
         if hit:
             per_block = tree_block_scores(out, params, part)
-            sums = torch.stack([masked_total(per_block, dev_mask(masks[t]))
+            sums = torch.stack([masked_total(per_block,
+                                             dev_mask(plan.mask(t)))
                                 for t in hit]).tolist()
-        tier_sq = dict.fromkeys((t.name for t in tiers), 0.0)
-        tier_sq.update(zip((t.name for t in hit), sums))
-        tier_latency = {t.name: float(
-            self._block_bytes[masks[t]].sum() / TIER_BANDWIDTH[t])
-            for t in tiers}
-        stats = {
+        return out, self.report(plan, dict(zip((t.name for t in hit), sums)))
+
+    def report(self, plan: TierPlan, tier_sq: dict) -> dict:
+        """A recovery's per-tier stats under ``plan``: the counts, ``||δ'||²``
+        per tier (``tier_sq``: the tiers hit, by name; 0 for the others)
+        and the latency estimates."""
+        sq = dict.fromkeys((t.name for t in LOSS_TIERS), 0.0)
+        sq.update(tier_sq)
+        return {
             "tier_counts": plan.counts,
-            "tier_sq": tier_sq,
-            "est_recovery_seconds": tier_latency,
+            "tier_sq": sq,
+            "est_recovery_seconds": {t.name: float(
+                self._block_bytes[plan.mask(t)].sum() / TIER_BANDWIDTH[t])
+                for t in LOSS_TIERS},
         }
-        return out, stats

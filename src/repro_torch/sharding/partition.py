@@ -74,17 +74,6 @@ class DistContext:
             return 1
         return self.mesh.shape[self.tp]
 
-    def shard(self, x, *axes):
-        """The reference's sharding constraint: ``x`` as it is. The port's
-        forward runs whole on every rank (FSDP over the flat arena; the
-        layouts a ``model`` axis would constrain are ROADMAP item 38)."""
-        return x
-
-    def psum_tp(self, x):
-        """The reference's sum over the ``model`` axis: ``x`` as it is, since
-        no rank holds a partial product of a head split (item 38)."""
-        return x
-
 
 def single_device_ctx() -> DistContext:
     return DistContext(mesh=None, dp=(), tp=None)

@@ -5,7 +5,8 @@ against the reference (``repro.core.arena``, ``repro.sharding.partition``,
 - the sharded layout (shards 1, 2, 4, 8): the reference's invariants, and
   every table equal to the reference's;
 - ``relayout_arena`` / ``relayout_values``: shards 1 -> 4 -> 1 bit for
-  bit, equal to the reference's words;
+  bit, equal to the reference's words; ``span_overlaps``, their moves and
+  the mesh's ``respan``'s, composing to them;
 - ``arena_block_homes`` equal to the reference's;
 - ``param_partition_specs``, ``state_partition_specs`` and
   ``batch_partition_specs`` on every reduced config, against the
@@ -18,7 +19,10 @@ against the reference (``repro.core.arena``, ``repro.sharding.partition``,
 - the span sweeps of 1, 2 and 4 positions composed (the partial parity
   sent to each row's owner and folded there by ``parity_xor``, the
   scores summed) against one sweep of the whole arena: parity and
-  replica bit for bit, scores within rtol 1e-6.
+  replica bit for bit, scores within rtol 1e-6;
+- the recovery of each span (positions as threads): the span restores,
+  the span norms and the span parity reconstruction against the whole
+  arena's, bit for bit (the norms within rtol 1e-5).
 
 The runs over several ranks are in ``test_torch_mesh_spmd.py``.
 """
@@ -139,6 +143,28 @@ def test_relayout_round_trip_bit_exact():
         ta.relayout_arena(a1, tl1, other)
     with pytest.raises(ValueError):
         ta.relayout_values(vals, tl1, other)
+
+
+@pytest.mark.parametrize("old,new", [(1, 4), (4, 2), (2, 8), (8, 4)])
+def test_span_overlaps_move_the_sharded_arena(old, new):
+    """The moves ``respan`` makes across a shard-count change, applied to
+    the old layout's spans, give the new layout's spans of
+    ``relayout_arena`` bit for bit: every data word moved once, the shard
+    pad zero."""
+    _, lo_, _, tt = _layouts(old)
+    _, ln_, _, _ = _layouts(new)
+    a = ta.pack_arena(tt, lo_)
+    spans = [torch.zeros(ln_.shard_words, dtype=torch.int32)
+             for _ in range(new)]
+    moved = 0
+    for p, q, lo, hi in ta.span_overlaps(old, lo_.shard_words, new,
+                                         ln_.shard_words, ln_.data_words):
+        src = a[p * lo_.shard_words:(p + 1) * lo_.shard_words]
+        spans[q][lo - q * ln_.shard_words:hi - q * ln_.shard_words] = \
+            src[lo - p * lo_.shard_words:hi - p * lo_.shard_words]
+        moved += hi - lo
+    assert moved == ln_.data_words
+    assert torch.equal(torch.cat(spans), ta.relayout_arena(a, lo_, ln_))
 
 
 @pytest.mark.parametrize("shards", [1, 2, 4])
@@ -369,6 +395,150 @@ def test_span_sweeps_compose_to_the_whole_sweep(n):
 
 
 # ---------------------------------------------------------------------------
+# the recovery of each span against the recovery of the whole arena
+# ---------------------------------------------------------------------------
+
+class _ThreadComm:
+    """Position ``pos`` of an ``n``-position mesh run as threads of this
+    process: the collectives :mod:`repro_torch.fabric.span_recovery`
+    calls, exchanged through a shared box."""
+
+    def __init__(self, pos, n, box, barrier):
+        self.pos, self.n, self.box, self.barrier = pos, n, box, barrier
+
+    def _swap(self, item):
+        self.box[self.pos] = item
+        self.barrier.wait()
+        got = list(self.box)
+        self.barrier.wait()
+        return got
+
+    def all_gather(self, t):
+        return torch.cat([x.reshape(-1) for x in self._swap(t)])
+
+    def all_to_all(self, send, send_counts, recv_counts, max_count):
+        off = np.concatenate([[0], np.cumsum(send_counts)])
+        got = self._swap([send[off[k]:off[k + 1]] for k in range(self.n)])
+        out = torch.cat([got[k][self.pos] for k in range(self.n)])
+        assert out.numel() == sum(recv_counts)
+        return out
+
+
+def _on_positions(n, fn):
+    """``fn(position, comm)`` on ``n`` threads; their results in position
+    order."""
+    import threading
+    box, barrier = [None] * n, threading.Barrier(n, timeout=60)
+    out, errors = [None] * n, []
+
+    def body(p):
+        try:
+            out[p] = fn(p, _ThreadComm(p, n, box, barrier))
+        except BaseException as e:  # noqa: BLE001 - re-raised below
+            errors.append(e)
+            barrier.abort()
+    threads = [threading.Thread(target=body, args=(p,)) for p in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(120)
+    if errors:
+        raise errors[0]
+    return out
+
+
+def _span_case(n):
+    tree = _sweep_case()
+    part = t_partition(tree, 8)
+    lay = ta.build_arena_layout(part, shards=n)
+    live = ta.pack_arena(tree, lay)
+    # another tree's pack: its pad words are zero, as in every arena
+    other = ta.pack_arena({k: v + 1e-2 * torch.from_numpy(
+        RNG.normal(size=v.shape).astype(np.float32)) for k, v in tree.items()},
+        lay)
+    return tree, part, lay, live, other
+
+
+@pytest.mark.parametrize("n", [1, 2, 4])
+def test_span_restores_compose_to_the_whole_restore(n):
+    """masked_restore of each span (main tiles a row each, tail words a
+    row each) gives the whole arena's restore, tail blocks and blocks that
+    straddle a span edge included, bit for bit."""
+    from repro_torch.fabric.span_recovery import span_restore, span_tables
+    tree, part, lay, live, other = _span_case(n)
+    assert lay.has_tail
+    mask = RNG.random(part.total_blocks) < 0.4
+    want = ta.pack_arena(ta.arena_restore_ref(tree, other, mask, lay), lay)
+    got = live.clone()
+    for p in range(n):
+        w0, w1 = lay.span(p)
+        span_restore(got[w0:w1], other[w0:w1], mask, span_tables(lay, p))
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("n", [1, 2, 4])
+def test_mesh_block_sq_is_the_tree_scores(n):
+    """The spans' block_dist parts, all-gathered and summed in position
+    order, are the whole tree's per-block squared distances (rtol 1e-5:
+    float64 sums of per-tile parts), the same bits on every position."""
+    from repro_torch.fabric.span_recovery import mesh_block_sq, span_tables
+    from repro_torch.kernels.block_dist.ops import tree_block_scores
+    tree, part, lay, live, other = _span_case(n)
+
+    def fn(p, comm):
+        w0, w1 = lay.span(p)
+        return mesh_block_sq(live[w0:w1], other[w0:w1], span_tables(lay, p),
+                             part.total_blocks, comm)
+    got = _on_positions(n, fn)
+    want = tree_block_scores(tree, ta.unpack_arena(other, lay), part)
+    for g in got:
+        np.testing.assert_array_equal(g, got[0])
+    np.testing.assert_allclose(got[0], want.double().numpy(), rtol=1e-5)
+
+
+@pytest.mark.parametrize("n", [1, 2, 4])
+def test_span_reconstructs_compose_to_the_whole_reconstruct(n):
+    """One erasure in every other parity group, the lost words garbled in
+    the live arena and in the snapshot: each position folds its span's
+    terms with the rows it owns, the partial words go to the spans they
+    restore and are folded there (parity_xor), and the arena is the live
+    one again, bit for bit."""
+    from repro_torch.fabric.span_recovery import (span_reconstruct,
+                                                  span_restore, span_tables)
+    from repro_torch.kernels.parity_xor.ops import reconstruct_plan
+    tree, part, lay, live, noise = _span_case(n)
+    fab = CheckpointFabric(part, FabricConfig(n_devices=4,
+                                              devices_per_host=2))
+    codec = fab.parity
+    par = codec.encode_arena(live[:lay.data_words])
+    lost = np.zeros(part.total_blocks, bool)
+    for j in range(0, codec.n_groups, 2):
+        lost[codec.members[j][0]] = True
+    plan, blocks = reconstruct_plan(lay, codec.layout, codec.group_of,
+                                    codec.members, np.nonzero(lost)[0],
+                                    codec.member_mask(~lost))
+    garbled = live.clone()
+    for p in range(n):
+        w0, w1 = lay.span(p)
+        span_restore(garbled[w0:w1], noise[w0:w1], lost, span_tables(lay, p))
+    assert not torch.equal(garbled, live)
+    rows_per = -(-codec.n_groups // n)
+    fe = codec.layout.frame_elems
+    snap = garbled.clone()
+
+    def fn(p, comm):
+        w0, w1 = lay.span(p)
+        owned = torch.zeros((rows_per, fe), dtype=torch.int32)
+        g0, g1 = min(p * rows_per, codec.n_groups), min((p + 1) * rows_per,
+                                                          codec.n_groups)
+        owned[:g1 - g0] = par[g0:g1]
+        span_reconstruct(garbled[w0:w1], snap[w0:w1], owned, plan, blocks,
+                         lay, p * rows_per, (p + 1) * rows_per, fe, comm)
+    _on_positions(n, fn)
+    assert torch.equal(garbled, live)
+
+
+# ---------------------------------------------------------------------------
 # the context and the trainer on a one-position mesh, in process
 # ---------------------------------------------------------------------------
 
@@ -377,8 +547,7 @@ def test_span_sweeps_compose_to_the_whole_sweep(n):
                                         (("pod", "data", "model"), (2, 2, 4))])
 def test_dist_context_matches_reference(axes, shape, shardable):
     """``make_dist_ctx``'s batch and model axes, ``dp_spec``,
-    ``raw_dp_spec`` and ``tp_size`` are the reference's; the port's
-    ``shard`` and ``psum_tp`` return their input (no head split)."""
+    ``raw_dp_spec`` and ``tp_size`` are the reference's."""
     t_mesh = Mesh(np.arange(int(np.prod(shape))).reshape(shape), axes)
     j_mesh = types.SimpleNamespace(axis_names=axes,
                                    shape=dict(zip(axes, shape)))
@@ -387,8 +556,6 @@ def test_dist_context_matches_reference(axes, shape, shardable):
     for f in ("dp", "tp", "dp_spec", "raw_dp_spec", "tp_size",
               "batch_shardable"):
         assert getattr(t, f) == getattr(j, f), f
-    x = torch.ones(2, 3)
-    assert t.shard(x, "dp", "model") is x and t.psum_tp(x) is x
     one = tp.single_device_ctx()
     assert (one.dp, one.tp, one.tp_size, one.dp_spec) == ((), None, 1, None)
 

@@ -6,9 +6,10 @@ partition.
 - a 1-rank mesh is the port's loop without a mesh, bit for bit (losses,
   the running-checkpoint arena, the final parameters);
 - on one 4-rank (2, 2) mesh the arena and PyTree loops are bit-equal
-  (losses, every rank's checkpoint span, every rank's parameter span),
-  the arena loop never packs and ships the replica across hosts; a meshed
-  fabric without the arena pipeline raises ``ValueError``;
+  through a host loss at step 3 that the replicas restore (losses, every
+  rank's checkpoint span, every rank's parameter span, the recovery's
+  report), the arena loop never packs and ships the replica across hosts;
+  a meshed fabric without the arena pipeline raises ``ValueError``;
 - two hosts of a 4-host, 4-rank mesh lost together: the recovery at the
   first rank restores blocks from PEER_REPLICA, PARITY (the parity rows
   gathered from their owners) and RUNNING_CKPT, the live tiers at zero
@@ -103,14 +104,17 @@ if job == "one":
     res["arena_equal"] = bool(torch.equal(sm.arena, sn.arena))
     res["saves"] = lm.controller.stats["saves"]
 elif job == "eq":
+    # host 0 lost at step 3 (no resize): both paths recover through it
     fab = FabricConfig(n_devices=world, devices_per_host=2)
-    la = loop(fab)
+    la = loop(fab, fail_schedule=[(3, "host", 0)])
     sa = run(la, params, 4, 8)
-    lt = loop(fab, arena=False)
+    lt = loop(fab, arena=False, fail_schedule=[(3, "host", 0)])
     st = run(lt, params, 4, 8)
     w0, w1 = sa.layout.span(ctx.mesh.position())
     res["losses"] = [[m["loss"] for m in la.metrics],
                      [m["loss"] for m in lt.metrics]]
+    res["failures"] = [[f for m in lp.metrics for f in m.get("failures", [])]
+                       for lp in (la, lt)]
     res["state"] = type(sa).__name__
     res["ckpt_equal"] = bool(torch.equal(la.controller._ckpt_arena,
                                          lt.controller._ckpt_arena))
@@ -207,6 +211,9 @@ def test_four_rank_arena_and_pytree_loops_bit_equal(tmp_path):
         assert r["losses"][0] == r["losses"][1] == ranks[0]["losses"][0]
         assert all(np.isfinite(r["losses"][0]))
         assert r["ckpt_equal"] and r["arena_equal"] and r["saves"] >= 2
+        fa, ft = r["failures"]
+        assert fa == ft == ranks[0]["failures"][0] and len(fa) == 1
+        assert fa[0]["tier_counts"]["PEER_REPLICA"] == fa[0]["lost_blocks"] > 0
         s = r["stats"]
         assert s["live_packs"] == 0
         assert s["arena_resident_maintains"] == s["arena_maintains"] == 4
