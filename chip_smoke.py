@@ -329,7 +329,19 @@ Phases, each of which fails the run if it fails:
     and host memory, step seconds (one rank against the mesh), the
     resizes', recovery's and heal's seconds, each collective's calls,
     bytes, seconds and staged bytes. ``python3 chip_smoke.py --mesh`` runs
-    phases 1 and 30 alone (``{"mesh_only": true, ...}``).
+    phases 1 and 30 alone (``{"mesh_only": true, ...}``). Since the
+    tensor- and expert-parallel forward, phase 30's ranks split the heads,
+    d_ff and the vocab over the mesh's model axis.
+31. **The tensor- and expert-parallel forward** (:func:`phase_moe_mesh`):
+    qwen3-moe-235b-a22b at full width with 1 of its 94 layers on the same
+    (2, 2) mesh, each rank placing only its model slices, one step and
+    the gradient's mean over the data line held against one rank running
+    the data shards as 2 microbatches (the loss, each gradient slice
+    against an f32 yardstick, the MoE block's kept pairs and output); then
+    reduced qwen3-moe and llama4-maverick trained on the mesh through a
+    host loss that shrinks it to (2, 1) and a heal, held as phase 30's.
+    ``python3 chip_smoke.py --moe-mesh`` runs phases 1 and 31 alone
+    (``{"moe_mesh_only": true, ...}``).
 
 The line before the last is the kernels' JSON record (each kernel's
 launches on its own path, ``train_launches`` on phase 17's,
@@ -340,7 +352,8 @@ launches on its own path, ``train_launches`` on phase 17's,
 ``llama4_launches`` and ``internvl2_launches`` on phases 24-26,
 ``internvl2_train_launches`` and ``moe_train_launches`` on phases 27 and
 28(b), ``perf_variants_launches`` on phase 29(a)-(b), ``mesh_launches``
-on phase 30's run, one count a rank); the last line is
+on phase 30's run and ``moe_mesh_launches`` on phase 31(b)'s two elastic
+runs, one count a rank); the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
 and prints no result.
 
@@ -4999,17 +5012,18 @@ def _mesh_cfg(opts: dict):
 
 
 def _mesh_loop(cfg, device, *, ctx=None, arena: bool = True,
-               recorder=None):
-    """``TrainLoop`` with adamw(3e-4), ``CheckpointPolicy.scar(0.125, 2)``
-    and the 2-host, 4-device elastic fabric."""
+               recorder=None, elastic: bool = True, optimizer=None):
+    """``TrainLoop`` with ``optimizer`` (default adamw(3e-4)),
+    ``CheckpointPolicy.scar(0.125, 2)`` and the 2-host, 4-device fabric
+    (elastic unless asked otherwise)."""
     from repro_torch.core.policy import CheckpointPolicy
     from repro_torch.fabric import FabricConfig
     from repro_torch.optim import adamw
     from repro_torch.training import TrainLoop, TrainLoopConfig
-    return TrainLoop(cfg, adamw(3e-4), TrainLoopConfig(
+    return TrainLoop(cfg, optimizer or adamw(3e-4), TrainLoopConfig(
         policy=CheckpointPolicy.scar(fraction=0.125, interval=2),
         fabric=FabricConfig(n_devices=MESH["ranks"], devices_per_host=2,
-                            elastic=True),
+                            elastic=elastic),
         arena_state=arena, recorder=recorder), device=device, ctx=ctx)
 
 
@@ -5316,17 +5330,18 @@ def _mesh_rank(rank: int, world: int, rdv: str, out_dir: str,
         dist.destroy_process_group()
 
 
-def _save_mesh_params(device, opts: dict, where: Path):
-    """Phase 30's initial weights, drawn once here from the seed, as one
-    ``.npy`` a leaf under ``where`` (every rank and the one-rank run load
-    them: no rank draws its own). Returns them as a numpy tree."""
+def _save_mesh_params(device, opts: dict, where: Path, cfg=None):
+    """Phase 30's initial weights (or ``cfg``'s), drawn once here from the
+    seed, as one ``.npy`` a leaf under ``where`` (every rank and the
+    one-rank run load them: no rank draws its own). Returns them as a
+    numpy tree."""
     import pickle
     import numpy as np
     import torch
     from repro_torch.interop import to_numpy_tree
     from repro_torch.models import get_model
     from repro_torch.utils.tree import tree_flatten, tree_unflatten
-    cfg = _mesh_cfg(opts)
+    cfg = cfg or _mesh_cfg(opts)
     drawn = get_model(cfg).init_params(torch.Generator(
         device=device).manual_seed(opts["seed"]), cfg, device=device)
     leaves, treedef = tree_flatten(to_numpy_tree(drawn))
@@ -5507,6 +5522,667 @@ def mesh_only(device, card: str) -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# phase 31: the tensor- and expert-parallel forward on a mesh
+# ---------------------------------------------------------------------------
+
+# (a) qwen3-moe-235b-a22b at full width with 1 of its 94 layers (bf16, the
+# router f32: 3.73 G values) on a (2, 2) mesh of 4 ranks sharing the card,
+# a global batch of 4 x 2048 in data shards of 2 sequences: one step's
+# forward, backward and the gradient's mean over the data shards
+MOE_MESH = dict(ranks=4, model=2, layers=1, batch=4, seq=2048, seed=31,
+                timeout=900)
+MOE_MESH_LOSS_RTOL = 1e-3
+# each rank's bf16 gradient slices against the f32 yardstick's: within
+# relative L2 MOE_MESH_GRAD_L2, or within MOE_MESH_FLOOR_FACTOR times one
+# device's own bf16 gradient's distance from it where that is larger (at
+# random initialisation every leaf's bf16 gradient is 3-8e-2 off the f32
+# one: the loss's gradient cancels over the 151,936 logits and the tokens)
+MOE_MESH_GRAD_L2 = 2e-2
+MOE_MESH_FLOOR_FACTOR = 1.5
+# (b) the reduced trainers on the mesh: host 1 (ranks 2, 3) lost at step 2,
+# the (2, 2) mesh shrunk to (2, 1), healed at step 4; the arena and PyTree
+# loops (no resize) held bit for bit over the first eq_steps. They train
+# with sgd(lr): under adamw(3e-4) a parameter whose gradient is near zero
+# moves by +-lr whatever its sign, so sums in another order put the mesh's
+# and one rank's parameters about 1e-4 apart after a step, and a top-1
+# router then flips tokens at a step: reduced llama4-maverick's loss was
+# 9.3e-4 off one rank's at step 3 and 1.2e-5 at step 4, with or without
+# the host loss (an NVIDIA H100 80GB HBM3 at 700 W; on the CPU, parameters
+# 1e-4 apart give such steps, 6.6e-4 and 8.8e-4 for the two configs)
+MOE_MESH_TRAIN = dict(archs=("qwen3-moe-235b-a22b",
+                             "llama4-maverick-400b-a17b"),
+                      batch=4, seq=64, steps=6, loss_step=2, heal_after=2,
+                      eq_steps=3, lr=0.5)
+
+
+MOE_MESH_KERNELS = MESH_KERNELS + ("block_dist",)
+
+
+def _moe_mesh_cfg(opts: dict):
+    """Phase 31(a)'s config: qwen3-moe-235b-a22b at 1 of its 94 layers
+    (``opts["reduced"]``: its reduced config in bf16, for a rehearsal on
+    the CPU)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config("qwen3-moe-235b-a22b", reduced=opts.get("reduced",
+                                                              False))
+    return dataclasses.replace(cfg, n_layers=MOE_MESH["layers"],
+                               dtype=opts.get("dtype", "bfloat16"))
+
+
+def _save_bits(tree, where: Path) -> None:
+    """``tree``'s leaves as ``.npy`` files of their raw bits (2-byte floats
+    as int16: no numpy bfloat16 is needed to read them) under ``where``,
+    with the structure and the dtypes."""
+    import pickle
+    import numpy as np
+    import torch
+    from repro_torch.utils.tree import tree_flatten
+    leaves, treedef = tree_flatten(tree)
+    where.mkdir(parents=True, exist_ok=True)
+    dtypes = []
+    for i, x in enumerate(leaves):
+        dtypes.append(str(x.dtype).removeprefix("torch."))
+        bits = x.view(torch.int16) if x.element_size() == 2 \
+            and x.is_floating_point() else x
+        np.save(where / f"{i}.npy", bits.cpu().numpy())
+    (where / "treedef.pkl").write_bytes(pickle.dumps((treedef, dtypes)))
+
+
+def _load_bits(where: Path, device, slices=None):
+    """The tree :func:`_save_bits` wrote, on ``device``: each leaf read
+    memory-mapped and, given ``slices`` (``model_slices`` of the tree),
+    only its slice placed (``interop.from_numpy_tree``)."""
+    import pickle
+    import numpy as np
+    import torch
+    from repro_torch.interop import from_numpy_tree
+    from repro_torch.utils.tree import tree_flatten, tree_unflatten
+    treedef, dtypes = pickle.loads(Path(where, "treedef.pkl").read_bytes())
+    arrays = tree_unflatten(treedef, [
+        np.load(Path(where, f"{i}.npy"), mmap_mode="r")
+        for i in range(len(dtypes))])
+    placed = tree_flatten(from_numpy_tree(arrays, device, slices))[0]
+    return tree_unflatten(treedef, [
+        x.view(getattr(torch, d)) for x, d in zip(placed, dtypes)])
+
+
+def _bits_shapes(where: Path):
+    """The leaves of a :func:`_save_bits` tree as shape carriers (for
+    ``model_slices``), without reading them."""
+    import pickle
+    import numpy as np
+    from repro_torch.utils.tree import tree_unflatten
+    treedef, dtypes = pickle.loads(Path(where, "treedef.pkl").read_bytes())
+    return tree_unflatten(treedef, [
+        np.load(Path(where, f"{i}.npy"), mmap_mode="r")
+        for i in range(len(dtypes))])
+
+
+def _bf16_ulps(got, want) -> tuple[float, int]:
+    """The largest ``|got - want|`` in units of bf16's last place at the
+    larger magnitude of the two, that magnitude floored at 1/256 of the
+    row's largest ``|want|`` (an output that cancels to near zero carries
+    the f32 rounding of its terms, which a sum in another order moves by
+    many of its own last places), and the count of elements more than
+    one last place off at their own magnitude."""
+    import torch
+    a, b = got.float(), want.float()
+    own = torch.maximum(a.abs(), b.abs())
+    floor = b.abs().amax(dim=-1, keepdim=True) / 256
+
+    def ulps(scale):
+        ulp = torch.exp2(torch.floor(torch.log2(scale.clamp_min(1e-38)))
+                         - 7)
+        return (a - b).abs() / ulp
+    return (float(ulps(torch.maximum(own, floor)).max()),
+            int((ulps(own) > 1).sum()))
+
+
+def _moe_mesh_yardstick(device, opts: dict, work: Path) -> dict:
+    """Phase 31(a)'s yardstick on one rank in this process: the weights,
+    the batch and the MoE block's input drawn from the seed and written
+    under ``work`` for the ranks; the MoE block on each data shard's x
+    alone, its output and the (token, expert) pairs each expert kept; the
+    loss and gradient with the batch run as 2 microbatches (the data
+    shards' contiguous halves: the mean of their losses and gradients), in
+    the model's bf16 and again with the same weights in f32. The f32
+    gradient (written in the leaves' dtypes) stands in for the exact one:
+    one device's bf16 gradient is some way off it on every leaf
+    (``bf16_floor``), and the ranks' bf16 gradient is held to it with
+    that floor beside ``MOE_MESH_GRAD_L2``."""
+    import dataclasses
+    import torch
+    from repro_torch.models import get_model
+    from repro_torch.models import layers as L
+    from repro_torch.utils.tree import (flatten_with_path, keystr,
+                                        tree_flatten, tree_map,
+                                        tree_unflatten)
+    cfg = _moe_mesh_cfg(opts)
+    ops = get_model(cfg)
+    B, S = opts["batch"], opts["seq"]
+    cuda = device.type == "cuda"
+    gen = torch.Generator(device=device).manual_seed(SEED + MOE_MESH["seed"])
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    params = ops.init_params(gen, cfg, device=device)
+    toks = torch.randint(0, cfg.vocab, (B, S + 1), generator=gen,
+                         device=device, dtype=torch.int32)
+    x = torch.randn((B, S, cfg.d_model), generator=gen,
+                    device=device).to(L.torch_dtype(cfg.dtype))
+    t0 = time.perf_counter()
+    _save_bits(params, work / "params")
+    _save_bits({"tokens": toks, "x": x}, work / "inputs")
+    out = {"params": sum(t.numel() for t in tree_flatten(params)[0]),
+           "save_seconds": time.perf_counter() - t0}
+    half = B // 2
+    moe = L.layer_params(params, 0)["moe"]
+    outs, kept = [], []
+    for d in range(2):
+        xd = x[d * half:(d + 1) * half]
+        o, _ = L.moe_block(xd, moe, cfg)
+        outs.append(o)
+        n = xd.shape[0] * xd.shape[1]
+        kept.append(L.moe_route(xd.reshape(n, -1), moe["router"], cfg,
+                                L.moe_capacity(n, cfg))[-1].to(torch.int32))
+    _save_bits({"out": torch.stack(outs), "kept": torch.stack(kept)},
+               work / "moe")
+    del outs, kept, moe
+    t0 = time.perf_counter()
+    loss, grads, treedef = _two_halves(ops, cfg, params, toks)
+    out["loss_and_grad_seconds"] = time.perf_counter() - t0
+    out["loss"], out["shard_losses"] = loss
+    # the exact gradient's stand-in: the same weights, batch and halves in
+    # f32 (one device's bf16 gradient is this far off it: the floor the
+    # ranks' bf16 gradient is held to beside MOE_MESH_GRAD_L2)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params = tree_map(lambda t: t.float(), params)
+    t0 = time.perf_counter()
+    loss32, exact, _ = _two_halves(get_model(cfg32), cfg32, params, toks)
+    out["f32_loss_and_grad_seconds"] = time.perf_counter() - t0
+    out["f32_loss"] = loss32[0]
+    del params
+    paths = [keystr(q) for q, _ in flatten_with_path(
+        tree_unflatten(treedef, grads))[0]]
+    out["bf16_floor"] = {q: _rel_l2(g, e) for q, g, e in
+                         zip(paths, grads, exact)}
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9 if cuda else 0.0
+    exact = [e.to(g.dtype) for g, e in zip(grads, exact)]
+    del grads
+    _save_bits(tree_unflatten(treedef, exact), work / "grads")
+    del exact
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    return out
+
+
+def _two_halves(ops, cfg, params, toks):
+    """``loss_and_grad`` of the batch ``toks`` run as its 2 contiguous
+    halves (the data shards): ((the mean loss, the halves' losses), the
+    mean gradient's leaves, added in f32 and stored in the leaves' dtypes,
+    the tree's structure)."""
+    import torch
+    from repro_torch.training.step import loss_and_grad
+    from repro_torch.utils.tree import tree_flatten
+    half = toks.shape[0] // 2
+    losses, acc = [], None
+    for d in range(2):
+        sl = slice(d * half, (d + 1) * half)
+        loss, g = loss_and_grad(ops, cfg, params, {
+            "tokens": toks[sl, :-1], "labels": toks[sl, 1:]})
+        losses.append(float(loss))
+        g, treedef = tree_flatten(g)
+        if acc is None:
+            dtypes = [t.dtype for t in g]
+            acc = [t.float() for t in g]
+        else:
+            for a, t in zip(acc, g):
+                a.add_(t.float())
+        del g
+    if toks.is_cuda:
+        torch.cuda.synchronize()
+    return ((sum(losses) / 2, losses),
+            [a.div_(2).to(dt) for a, dt in zip(acc, dtypes)], treedef)
+
+
+def _moe_mesh_full(device, opts: dict) -> dict:
+    """Phase 31(a) on one rank: this rank's model slices placed from the
+    yardstick's files (``model_slices``, ``interop.from_numpy_tree``: no
+    rank reads or holds the whole model), the MoE block on its data
+    shard's x, then one step's forward and backward on its data shard and
+    the gradient's mean over the data line, each slice held against the
+    yardstick's."""
+    import numpy as np
+    import torch
+    from repro_torch.data.pipeline import slice_batch
+    from repro_torch.distributed import collectives
+    from repro_torch.distributed.collectives import MeshComm
+    from repro_torch.interop import from_numpy_tree
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import get_model
+    from repro_torch.models import layers as L
+    from repro_torch.sharding.partition import make_dist_ctx, model_slices
+    from repro_torch.utils.tree import (flatten_with_path, keystr,
+                                        tree_flatten, tree_unflatten)
+    work = Path(opts["work"])
+    cfg = _moe_mesh_cfg(opts)
+    ops = get_model(cfg)
+    mesh = make_host_mesh(model=MOE_MESH["model"])
+    ctx = make_dist_ctx(mesh)
+    cuda = device.type == "cuda"
+    d, m = mesh.axis_position("data"), mesh.axis_position("model")
+    slices = model_slices(_bits_shapes(work / "params"), ctx)
+    t0 = time.perf_counter()
+    params = _load_bits(work / "params", device, slices)
+    out = {"place_seconds": time.perf_counter() - t0,
+           "held_values": sum(t.numel() for t in tree_flatten(params)[0])}
+    inputs = _load_bits(work / "inputs", device)
+    half = opts["batch"] // 2
+    rows = {"tokens": inputs["tokens"][:, :-1].cpu().numpy(),
+            "labels": inputs["tokens"][:, 1:].cpu().numpy()}
+    batch = dict(slice_batch(rows, mesh, device, True))
+    x = inputs["x"][d * half:(d + 1) * half].contiguous()
+    del inputs
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+
+    # the MoE block alone on the data shard's x
+    yard = _load_bits(work / "moe", device)
+    moe = L.layer_params(params, 0)["moe"]
+    E_l = cfg.n_experts // MOE_MESH["model"]
+    with torch.no_grad():
+        o, _ = L.moe_block(x, moe, cfg, ctx)
+        n = x.shape[0] * x.shape[1]
+        kept = L.moe_route(x.reshape(n, -1), moe["router"], cfg,
+                           L.moe_capacity(n, cfg), E_local=E_l,
+                           e_offset=m * E_l)[-1].to(torch.int32)
+    want_kept = yard["kept"][d][m * E_l:(m + 1) * E_l]
+    out["moe_kept_equal"] = bool(torch.equal(kept, want_kept))
+    out["moe_out_ulps"], out["moe_out_own_ulp_misses"] = _bf16_ulps(
+        o, yard["out"][d])
+    check(out["moe_kept_equal"], f"rank {mesh.position()}: the MoE block's "
+          f"kept (token, expert) pairs differ from the yardstick's")
+    check(out["moe_out_ulps"] <= 1.0, f"rank {mesh.position()}: the MoE "
+          f"block is {out['moe_out_ulps']} bf16 ulps off the yardstick's")
+    del yard, o, kept, want_kept, moe, x
+
+    # one step: the forward and backward on the rank's slices and data
+    # shard, then the gradient's mean over the data line
+    flat, treedef = tree_flatten(params)
+    leaves = [t.detach().requires_grad_(True) for t in flat]
+    del flat, params
+
+    def fwd_bwd():
+        with torch.enable_grad():
+            loss = ops.train_loss(tree_unflatten(treedef, leaves), batch,
+                                  cfg, ctx=ctx)
+            return loss, list(torch.autograd.grad(loss, leaves))
+    # an untimed first step: the first call's library set-up took 8 s of
+    # the yardstick's 9.5 s (its second call, in f32, 1.4 s)
+    fwd_bwd()
+    collectives.reset_stats()
+    if cuda:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, grads = fwd_bwd()
+    if cuda:
+        torch.cuda.synchronize()
+    out["fwd_bwd_seconds"] = time.perf_counter() - t0
+    del leaves
+    data = MeshComm(mesh.axis_mesh("data"))
+    loss_mean = data.all_reduce(loss.detach().reshape(1).clone(),
+                                name="data_loss_mean")[0] / data.n
+    # leaf by leaf: the data line's mean (gathered as raw bytes, added in
+    # f32), held against the yardstick's same slice, then let go
+    paths = [keystr(q) for q, _ in flatten_with_path(
+        tree_unflatten(treedef, grads))[0]]
+    yard = tree_flatten(_bits_shapes(work / "grads"))[0]
+    cuts = tree_flatten(slices)[0]
+    worst, worst_leaf, t_mean, by_leaf = 0.0, "", 0.0, {}
+    for i, path in enumerate(paths):
+        g, grads[i] = grads[i], None
+        if cuda:
+            torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        raw = data.all_gather(g.contiguous().view(-1).view(torch.uint8),
+                              name="data_grad_mean")
+        parts = raw.view(data.n, -1).view(g.dtype)
+        acc = parts[0].float()
+        for k in range(1, data.n):
+            acc.add_(parts[k].float())
+        acc.div_(data.n)
+        if cuda:
+            torch.cuda.synchronize()
+        t_mean += time.perf_counter() - t1
+        del raw, parts
+        w = from_numpy_tree(yard[i], device, cuts[i])
+        w = w.view(g.dtype) if w.dtype != g.dtype else w
+        check(bool(torch.isfinite(acc).all()), f"rank {mesh.position()}: "
+              f"non-finite gradient at {path}")
+        r = _rel_l2(acc, w.reshape(-1))
+        by_leaf[path] = r
+        if r > worst:
+            worst, worst_leaf = r, path
+        del g, acc, w
+    out["grad_mean_seconds"] = t_mean
+    out["step_seconds"] = out["fwd_bwd_seconds"] + t_mean
+    out["peak_gb"] = (torch.cuda.max_memory_allocated() / 1e9
+                      if cuda else 0.0)
+    out["loss"] = float(loss_mean)
+    out["shard_loss"] = float(loss.detach())
+    out["collectives"] = collectives.seconds_and_bytes()
+    out["grad_rel_l2"] = worst
+    out["grad_worst_leaf"] = worst_leaf
+    out["grad_rel_l2_by_leaf"] = by_leaf
+    return out
+
+
+def _moe_mesh_train(device, opts: dict, name: str) -> dict:
+    """Phase 31(b) on one rank for one reduced config: the PyTree and the
+    arena loops on the (2, 2) mesh through host 1's loss without a resize
+    (``eq_steps`` steps: losses, checkpoint and parameter spans bit for
+    bit), then the elastic arena loop through the shrink to (2, 1) and the
+    heal (its launch counts), and each fabric kernel of that path against
+    its plain version on this rank's span (:func:`_hold_mesh_rank`)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.arena import pack_arena
+    from repro_torch.data import ShardedLMDataset
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.optim import sgd
+    from repro_torch.sharding.partition import make_dist_ctx
+    from repro_torch.training import ArenaTrainState
+    T = MOE_MESH_TRAIN
+    cfg = get_config(name, reduced=True)
+    mesh = make_host_mesh(model=MOE_MESH["model"])
+    ctx = make_dist_ctx(mesh)
+    params = _load_mesh_params(str(Path(opts["work"]) / name))
+    sched = [(T["loss_step"], "host", 1)]
+
+    def data():
+        return iter(ShardedLMDataset(cfg, T["batch"], T["seq"], seed=0,
+                                     device=device, ctx=ctx))
+
+    runs = {}
+    for arena in (False, True):
+        lp = _mesh_loop(cfg, device, ctx=ctx, arena=arena, elastic=False,
+                        optimizer=sgd(T["lr"]))
+        lp.loop_cfg.fail_schedule = sched
+        lp.loop_cfg.heal_after = T["heal_after"]
+        st = lp.run(lp.init_state(params=params), data(), T["eq_steps"])
+        runs[arena] = (lp, st)
+    (lt, st), (la, sa) = runs[False], runs[True]
+    lay = la.controller.arena_layout
+    w0, w1 = lay.span(mesh.position())
+    check([x["loss"] for x in la.metrics] == [x["loss"] for x in lt.metrics],
+          f"{name}: arena losses {[x['loss'] for x in la.metrics]}, PyTree "
+          f"{[x['loss'] for x in lt.metrics]}")
+    check(torch.equal(la.controller._ckpt_arena, lt.controller._ckpt_arena)
+          and torch.equal(sa.arena, pack_arena(st.params, lay)[w0:w1]),
+          f"{name}: the arena and PyTree spans differ on the mesh")
+    out = {"bit_equal_losses": [x["loss"] for x in la.metrics],
+           "eq_failures": [f["tier_counts"] for x in la.metrics
+                           for f in x.get("failures", [])]}
+    del runs, lt, st, la, sa
+    gc.collect()
+
+    loop = _mesh_loop(cfg, device, ctx=ctx, optimizer=sgd(T["lr"]))
+    loop.loop_cfg.fail_schedule = sched
+    loop.loop_cfg.heal_after = T["heal_after"]
+    state = loop.init_state(params=params)
+    check(isinstance(state, ArenaTrainState), f"{name}: not arena-resident")
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    state = loop.run(state, data(), T["steps"])
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    out["run_seconds"] = time.perf_counter() - t0
+    out["launches"] = dict(_build.LAUNCHES)
+    m = loop.metrics
+    out["losses"] = [x["loss"] for x in m]
+    out["idle_steps"] = [x["step"] for x in m if x.get("idle")]
+    out["shards"] = [MOE_MESH["ranks"]] + [x["mesh_resize"]["shards"]
+                                          for x in m if "mesh_resize" in x]
+    out["failures"] = [f for x in m for f in x.get("failures", [])]
+    fab, ctl = loop.controller.fabric, loop.controller
+    step = fab.last_maintained_step
+    fab.maintain(step, state.arena, ckpt_values=ctl._ckpt_arena, force=True)
+    out["holds"] = _hold_mesh_rank(loop, state, fab.last_scores.clone())
+    return out
+
+
+def _moe_mesh_rank_body(rank: int, opts: dict) -> dict:
+    """One rank of phase 31 (see :func:`phase_moe_mesh`)."""
+    import torch
+    device = torch.device(opts["device"])
+    cuda = device.type == "cuda"
+    out = {"rank": rank}
+    out["full"] = _moe_mesh_full(device, opts)
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    out["train"] = {name: _moe_mesh_train(device, opts, name)
+                    for name in MOE_MESH_TRAIN["archs"]}
+    out["host_peak_gb"] = _host_peak_gb()
+    return out
+
+
+def _moe_mesh_rank(rank: int, world: int, rdv: str, out_dir: str,
+                   opts: dict) -> None:
+    """Spawned rank of phase 31: joins the gloo group, runs
+    :func:`_moe_mesh_rank_body`, writes its report."""
+    import datetime
+    import torch
+    import torch.distributed as dist
+    if opts["device"] == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group(
+        "gloo", init_method=f"file://{rdv}", rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=MOE_MESH["timeout"]))
+    try:
+        out = _moe_mesh_rank_body(rank, opts)
+        Path(out_dir, f"rank{rank}.json").write_text(json.dumps(out))
+    finally:
+        dist.destroy_process_group()
+
+
+def _moe_mesh_one_rank(device, name: str, work: Path) -> list:
+    """Phase 31(b)'s yardstick: ``name``'s reduced config on one rank with
+    ``microbatch=2`` (the data shards' halves), the same weights (written
+    under ``work`` for the ranks), batches and schedule; its losses."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.data import ShardedLMDataset
+    from repro_torch.optim import sgd
+    T = MOE_MESH_TRAIN
+    cfg = get_config(name, reduced=True)
+    params = _save_mesh_params(device, {"seed": SEED + MOE_MESH["seed"]},
+                               work / name, cfg)
+    loop = _mesh_loop(dataclasses.replace(cfg, microbatch=2), device,
+                      optimizer=sgd(T["lr"]))
+    loop.loop_cfg.fail_schedule = [(T["loss_step"], "host", 1)]
+    loop.loop_cfg.heal_after = T["heal_after"]
+    loop.run(loop.init_state(params=params), iter(ShardedLMDataset(
+        cfg, T["batch"], T["seq"], seed=0, device=device)), T["steps"])
+    return [x["loss"] for x in loop.metrics]
+
+
+def phase_moe_mesh(device, launches: dict, card: str, opts=None) -> dict:
+    """Phase 31: the tensor- and expert-parallel forward on a (2, 2) mesh
+    of 4 gloo ranks sharing the one card.
+
+    (a) qwen3-moe-235b-a22b at full width (d 4096, GQA 64/4 of 128, 128
+    experts top-8 of d_ff 1536, the untied 151,936-row head, bf16, the
+    router f32) with 1 of its 94 layers: each rank places only its slices
+    (32 of the query heads and 2 of the kv heads, 64 experts, 75,968 rows
+    of the embedding and of the head) from files this process wrote, and
+    runs the MoE block on its data shard's x, then one step's forward and
+    backward on its data shard (2 x 2048 tokens) and the gradient's mean
+    over the data line. Yardstick: the same weights and batch on one rank
+    in this process, run as 2 microbatches (the data shards' halves), then
+    freed; the same in f32 as the exact gradient's stand-in. Held: the
+    ranks' loss within rtol 1e-3 of the yardstick's, each rank's gradient
+    slices within relative L2 2e-2 of the f32 yardstick's same slices, or
+    within 1.5 times one device's bf16 distance from it where that is
+    larger (``MOE_MESH_GRAD_L2``), the MoE
+    block's kept (token, expert) pairs identical and its output within one
+    bf16 ulp (at the larger of the element's magnitude and 1/256 of its
+    row's largest, :func:`_bf16_ulps`).
+
+    (b) reduced qwen3-moe and reduced llama4-maverick (top-1, a shared
+    expert, an MoE layer every 2) trained with sgd(0.5) (``MOE_MESH_TRAIN``
+    says why not adamw) on the mesh for 6 steps, host 1
+    lost at step 2 ((2, 2) -> (2, 1)), healed at step 4. Held: the arena
+    and PyTree loops bit-equal through the loss (no resize, 3 steps); the
+    ranks' losses equal and within ``MESH_LOSS_RTOL`` of one rank with
+    ``microbatch=2``; shards 4, 2, 4; arena_maintain, arena_scatter,
+    parity_xor and block_dist launched on every rank, masked_restore on
+    every rank whose span held a lost block (``launches["moe_mesh"]``, one
+    count a rank, both configs' elastic runs); each kernel of the path
+    against its plain version on every rank's span.
+
+    Reported with the card: each rank's peak device memory and their sum,
+    the step's seconds, each collective's calls, bytes, seconds and staged
+    bytes. A failed rank or collective fails the phase."""
+    import torch
+    import torch.multiprocessing as mp
+    t_phase = time.perf_counter()
+    work = ROOT / "build" / f"moe_mesh_{os.getpid()}"
+    work.mkdir(parents=True, exist_ok=True)
+    opts = {"device": device.type, "work": str(work),
+            "batch": MOE_MESH["batch"], "seq": MOE_MESH["seq"],
+            **(opts or {})}
+    try:
+        yard = _moe_mesh_yardstick(device, opts, work)
+        log(f"phase 31(a): the one-rank yardstick, {json.dumps(yard)}")
+        one = {name: _moe_mesh_one_rank(device, name, work)
+               for name in MOE_MESH_TRAIN["archs"]}
+        gc.collect()
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        rdv = work / "rendezvous"
+        os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+        t0 = time.perf_counter()
+        procs = mp.start_processes(
+            _moe_mesh_rank, args=(MOE_MESH["ranks"], str(rdv), str(work),
+                                  opts),
+            nprocs=MOE_MESH["ranks"], join=False, start_method="spawn")
+        deadline = time.monotonic() + MOE_MESH["timeout"]
+        try:
+            while not procs.join(timeout=5):
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"phase 31: the ranks did not "
+                                         f"finish in {MOE_MESH['timeout']} s")
+        finally:
+            for p in procs.processes:
+                if p.is_alive():
+                    p.terminate()
+                    p.join(30)
+        wall = time.perf_counter() - t0
+        ranks = [json.loads((work / f"rank{r}.json").read_text())
+                 for r in range(MOE_MESH["ranks"])]
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    full = [r["full"] for r in ranks]
+    log(f"phase 31(a): each rank's gradient slices against the yardstick's "
+        f"(relative L2), {json.dumps([f['grad_rel_l2_by_leaf'] for f in full])}")
+    for r, f in zip(ranks, full):
+        rel = abs(f["loss"] - yard["loss"]) / abs(yard["loss"])
+        check(rel <= MOE_MESH_LOSS_RTOL and f["loss"] == full[0]["loss"],
+              f"phase 31(a) rank {r['rank']}: loss {f['loss']}, yardstick "
+              f"{yard['loss']}")
+        for leaf, err in f["grad_rel_l2_by_leaf"].items():
+            floor = yard["bf16_floor"][leaf]
+            check(err <= max(MOE_MESH_GRAD_L2, MOE_MESH_FLOOR_FACTOR * floor),
+                  f"phase 31(a) rank {r['rank']}: gradient slice {leaf} off "
+                  f"the f32 yardstick by relative L2 {err}, one device's "
+                  f"bf16 gradient by {floor}")
+    moe_launches = [{} for _ in ranks]
+    for name in MOE_MESH_TRAIN["archs"]:
+        tr = [r["train"][name] for r in ranks]
+        rel = max(abs(a - b) / abs(b)
+                  for a, b in zip(tr[0]["losses"], one[name]))
+        check(rel <= MESH_LOSS_RTOL and all(
+            t["losses"] == tr[0]["losses"] for t in tr),
+              f"phase 31(b) {name}: mesh losses "
+              f"{[t['losses'] for t in tr]}, one rank {one[name]}")
+        fail, = tr[0]["failures"]
+        check(fail["tier_counts"]["PEER_REPLICA"] == fail["lost_blocks"] > 0
+              and fail["applied_sq"] == 0.0, f"phase 31(b) {name}: "
+              f"recovery {fail}")
+        for r, t in zip(ranks, tr):
+            check(t["shards"] == [4, 2, 4], f"phase 31(b) {name} rank "
+                  f"{r['rank']}: shards {t['shards']}")
+            for k, v in t["launches"].items():
+                moe_launches[r["rank"]][k] = \
+                    moe_launches[r["rank"]].get(k, 0) + v
+    for r, cnt in zip(ranks, moe_launches):
+        for k in MOE_MESH_KERNELS:
+            check(cnt.get(k, 0) > 0, f"{k} was not launched on rank "
+                  f"{r['rank']} of the phase 31 mesh path")
+        lost = any(r["train"][n]["holds"]["lost_in_span"]
+                   for n in MOE_MESH_TRAIN["archs"])
+        check(cnt.get("masked_restore", 0) > 0 or not lost
+              or not MOE_MESH_KERNELS,
+              f"masked_restore was not launched on rank {r['rank']}, whose "
+              f"span held a lost block")
+    launches["moe_mesh"] = moe_launches
+    peaks = [f["peak_gb"] for f in full]
+    out = {"yardstick": yard, "one_rank_losses": one,
+           "rank_peak_gb": peaks, "summed_peak_gb": sum(peaks),
+           "host_peak_gb": [r["host_peak_gb"] for r in ranks],
+           "loss": full[0]["loss"],
+           "loss_rel_diff": abs(full[0]["loss"] - yard["loss"])
+           / abs(yard["loss"]),
+           "grad_rel_l2": [f["grad_rel_l2"] for f in full],
+           "grad_worst_leaf": [f["grad_worst_leaf"] for f in full],
+           "grad_over_floor": [max(err / max(yard["bf16_floor"][k], 1e-30)
+                                   for k, err in
+                                   f["grad_rel_l2_by_leaf"].items())
+                               for f in full],
+           "moe_out_ulps": [f["moe_out_ulps"] for f in full],
+           "moe_out_own_ulp_misses": [f["moe_out_own_ulp_misses"]
+                                      for f in full],
+           "step_seconds": [f["step_seconds"] for f in full],
+           "fwd_bwd_seconds": [f["fwd_bwd_seconds"] for f in full],
+           "grad_mean_seconds": [f["grad_mean_seconds"] for f in full],
+           "place_seconds": [f["place_seconds"] for f in full],
+           "held_values": [f["held_values"] for f in full],
+           "collectives": [f["collectives"] for f in full],
+           "train": {name: {"losses": ranks[0]["train"][name]["losses"],
+                            "bit_equal_losses":
+                                ranks[0]["train"][name]["bit_equal_losses"],
+                            "run_seconds": [r["train"][name]["run_seconds"]
+                                            for r in ranks],
+                            "holds": [r["train"][name]["holds"]
+                                      for r in ranks]}
+                     for name in MOE_MESH_TRAIN["archs"]},
+           "spawn_to_join_seconds": wall, "card": card}
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 31: the tensor- and expert-parallel forward on a (2, 2) "
+        f"mesh, {card}: {json.dumps(out)}")
+    return out
+
+
+def moe_mesh_only(device, card: str) -> int:
+    """``--moe-mesh``: phase 31 alone. Its last line says that it is this
+    partial run, never the full run's ``{"ok": true, ...}``."""
+    import torch
+    launches = {}
+    out = phase_moe_mesh(device, launches, card)
+    log(json.dumps({"launches": launches["moe_mesh"]}))
+    log(card)
+    log(json.dumps({"moe_mesh_only": True, "seconds": out["seconds"],
+                    "device": {"platform": "gpu",
+                               "kind": torch.cuda.get_device_name(0),
+                               "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def main(argv: list) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5555,6 +6231,8 @@ def main(argv: list) -> int:
         return perf_variants_only(device, card)
     if "--mesh" in argv:
         return mesh_only(device, card)
+    if "--moe-mesh" in argv:
+        return moe_mesh_only(device, card)
     gen = torch.Generator(device=device).manual_seed(SEED)
     shapes = qwen2_1_5b_shapes()
     a_tree = _map_shapes(shapes, lambda s: torch.randn(
@@ -5679,6 +6357,8 @@ def main(argv: list) -> int:
     lap("phase 29")
     mesh = phase_mesh(device, launches, card)
     lap("phase 30")
+    moe_mesh = phase_moe_mesh(device, launches, card)
+    lap("phase 31")
     log(json.dumps({"launches": launches}))
     old = ("block_dist", "scatter_save", "masked_restore")
     new = ("arena_maintain", "arena_scatter", "parity_xor")
@@ -5766,7 +6446,9 @@ def main(argv: list) -> int:
                        "moe_train_launches": launches["moe_train"][name],
                        "perf_variants_launches":
                            launches["perf_variants"][name],
-                       "mesh_launches": [r[name] for r in launches["mesh"]]})
+                       "mesh_launches": [r[name] for r in launches["mesh"]],
+                       "moe_mesh_launches": [r.get(name, 0) for r in
+                                             launches["moe_mesh"]]})
     log(json.dumps({"controller": ctl, "fabric": fabric,
                     "rs_fabric": rs_fabric, "leaf_fabric": leaf_fabric,
                     "multi_erasure": multi, "mamba2_serve": mamba2,
@@ -5774,6 +6456,7 @@ def main(argv: list) -> int:
                     **families, **train_families, "examples": examples,
                     **moe_vlm, **train_moe_vlm, **perf_variants,
                     "mesh": {k: v for k, v in mesh.items() if k != "ranks"},
+                    "moe_mesh": moe_mesh,
                     "serve_kernels": {
                         name: kernels[name]
                         for name in ("ssd_intra", "sw_attention")},

@@ -4,9 +4,12 @@ The port of ``repro.data.pipeline.ShardedLMDataset``: a deterministic
 synthetic token stream drawn host-side from ``np.random.default_rng(seed)``
 in the reference's order, so both packages see the same tokens, then put
 on the device. On a mesh (``ctx``) every rank draws the same global batch
-and keeps its slice: the mesh's positions, in row-major order, split the
-batch dim evenly (each position is a data-parallel rank of the flat-arena
-FSDP; the model axis splits no heads). The batch is a :class:`MeshBatch`,
+and keeps its slice. Where the forward is model-parallel (the transformer
+families on a mesh whose ``model`` axis has more than one position) the
+batch dim splits over the data positions only, in row-major order of the
+other axes, and the ranks of one model line keep the same rows; otherwise
+every mesh position, in row-major order, is a data-parallel rank and
+takes its own rows. The batch is a :class:`MeshBatch`,
 which keeps the global batch's host arrays, so a trainer can re-slice it
 for a shrunk mesh. On a real cluster the generator would be per-host file
 readers; the interface (``__iter__`` of batches) is what the trainer
@@ -33,22 +36,50 @@ class MeshBatch(dict):
         return int(next(iter(self.global_rows.values())).shape[0])
 
 
-def slice_batch(rows: dict, mesh, device) -> Optional[MeshBatch]:
-    """This rank's slice of the global batch ``rows`` (host arrays) over
-    ``mesh``'s positions, on ``device``; None for a rank outside the
-    mesh."""
+def data_shard(mesh, model_parallel: bool) -> tuple[int, Optional[int]]:
+    """The number of batch shards of ``mesh`` and this rank's (None
+    outside it): every position, or with ``model_parallel`` the positions
+    of the axes other than ``model``."""
     pos = mesh.position()
+    if not model_parallel or "model" not in mesh.axis_names:
+        return mesh.size, pos
+    a = mesh.axis_names.index("model")
+    n = mesh.size // mesh.devices.shape[a]
+    if pos is None:
+        return n, None
+    coords = list(mesh.coords())
+    shape = list(mesh.devices.shape)
+    del coords[a], shape[a]
+    return n, int(np.ravel_multi_index(coords, shape)) if shape else 0
+
+
+def slice_batch(rows: dict, mesh, device,
+                model_parallel: bool = False) -> Optional[MeshBatch]:
+    """This rank's slice of the global batch ``rows`` (host arrays) over
+    ``mesh``'s batch shards (:func:`data_shard`), on ``device``; None for
+    a rank outside the mesh."""
+    n, pos = data_shard(mesh, model_parallel)
     if pos is None:
         return None
     b = next(iter(rows.values())).shape[0]
-    if b % mesh.size:
+    if b % n:
         raise ValueError(f"a batch of {b} does not split over "
-                         f"{mesh.size} mesh positions")
-    per = b // mesh.size
+                         f"{n} batch shards of {mesh}")
+    per = b // n
     out = MeshBatch({k: torch.from_numpy(np.ascontiguousarray(
         v[pos * per:(pos + 1) * per])).to(device) for k, v in rows.items()})
     out.global_rows = rows
     return out
+
+
+def model_parallel(cfg: ModelConfig, ctx) -> bool:
+    """Whether ``cfg``'s forward splits over ``ctx``'s ``model`` axis: a
+    family whose ``train_loss`` is tensor-parallel, on a mesh whose
+    ``model`` axis has more than one position."""
+    if ctx is None or ctx.mesh is None or ctx.tp_size == 1:
+        return False
+    from repro_torch.models import get_model
+    return get_model(cfg).tensor_parallel
 
 
 class ShardedLMDataset:
@@ -82,7 +113,8 @@ class ShardedLMDataset:
             ).astype(np.float32)
         self._step += 1
         if self.ctx is not None and self.ctx.mesh is not None:
-            return slice_batch(batch, self.ctx.mesh, self.device)
+            return slice_batch(batch, self.ctx.mesh, self.device,
+                               model_parallel(self.cfg, self.ctx))
         return {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
                 for k, v in batch.items()}
 

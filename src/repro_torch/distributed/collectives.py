@@ -19,6 +19,17 @@ between ranks:
 and :func:`respan` moves a sharded buffer from one mesh to another (the
 elastic resize).
 
+The tensor-parallel forward's collectives run over one line of the mesh's
+``model`` axis (:class:`ModelAxis`, :func:`model_axis`), as
+``torch.autograd.Function`` objects: ``copy`` (forward identity, backward the
+gradient summed over the line; booked as ``copy_to_model``), ``reduce``
+(forward the partials summed, backward identity: ``reduce_from_model``,
+or ``moe_reduce_scatter`` and ``moe_all_gather`` on the MoE's
+reduce-scatter route) and the forward-only ``maxed`` (``model_max``).
+Their sums add the positions' tensors in position order after one
+all-gather (:meth:`MeshComm.summed`), the order the reduce-scatter adds
+in, so the two routes of the MoE combine give the same bits.
+
 Each call is counted in :data:`STATS` under its name: ``calls``,
 ``bytes`` (what crosses between ranks for this rank: an all-gather's
 received spans, a reduce-scatter's sent and received parts, an
@@ -42,6 +53,7 @@ for bit what the backend would return.
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 import warnings
 from typing import Optional
@@ -173,17 +185,18 @@ class MeshComm:
     # -- collectives -----------------------------------------------------
 
     def all_gather(self, span: torch.Tensor,
-                   out: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   out: Optional[torch.Tensor] = None,
+                   name: str = "all_gather") -> torch.Tensor:
         """The spans of every position, concatenated in position order."""
         t0, s0 = time.perf_counter(), self._stage.bytes
         n, m = self.n, span.numel()
         if out is None:
             out = torch.empty((n * m,), dtype=span.dtype, device=span.device)
         if not self.distributed:
-            out.copy_(span.view(-1))
-            self._done("all_gather", 0, t0, s0)
+            out.copy_(span.reshape(-1))
+            self._done(name, 0, t0, s0)
             return out
-        src_all, outv = span.view(-1), out.view(n, m)
+        src_all, outv = span.reshape(-1), out.view(n, m)
 
         def start(i, a, b):
             src = self._from(f"ag_in{i % IN_FLIGHT}", src_all[a:b])
@@ -200,11 +213,12 @@ class MeshComm:
             work.wait()
             self._land(outv[:, a:b], dst.view(n, b - a))
         _pipelined(_pieces(m, span.element_size()), start, finish)
-        self._done("all_gather", (n - 1) * m * span.element_size(), t0, s0)
+        self._done(name, (n - 1) * m * span.element_size(), t0, s0)
         return out
 
     def reduce_scatter(self, full: torch.Tensor,
-                       out: Optional[torch.Tensor] = None) -> torch.Tensor:
+                       out: Optional[torch.Tensor] = None,
+                       name: str = "reduce_scatter") -> torch.Tensor:
         """This position's span of the sum of every rank's ``full``: an
         all-to-all sends span ``k`` of ``full`` to position ``k``, and the
         n parts a position receives are added on its device in position
@@ -218,10 +232,10 @@ class MeshComm:
         if out is None:
             out = torch.empty((m,), dtype=full.dtype, device=full.device)
         if not self.distributed:
-            out.copy_(full.view(-1))
-            self._done("reduce_scatter", 0, t0, s0)
+            out.copy_(full.reshape(-1))
+            self._done(name, 0, t0, s0)
             return out
-        fv = full.view(n, m)
+        fv = full.reshape(n, m)
 
         def start(i, a, b):
             src = self._from(f"rs_in{i % IN_FLIGHT}", fv[:, a:b])
@@ -241,11 +255,11 @@ class MeshComm:
             for k in range(1, n):
                 acc.add_(parts[k])
         _pipelined(_pieces(m, full.element_size()), start, finish)
-        self._done("reduce_scatter", 2 * (n - 1) * m * full.element_size(),
-                   t0, s0)
+        self._done(name, 2 * (n - 1) * m * full.element_size(), t0, s0)
         return out
 
-    def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
+    def all_reduce(self, t: torch.Tensor, name: str = "all_reduce"
+                   ) -> torch.Tensor:
         """Sum over the mesh, in place (small tensors: scores, losses)."""
         if self.distributed:
             t0, s0 = time.perf_counter(), self._stage.bytes
@@ -253,8 +267,32 @@ class MeshComm:
             dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=self.group)
             if buf.data_ptr() != t.data_ptr():
                 self._land(t, buf)
-            self._done("all_reduce", t.numel() * t.element_size(), t0, s0)
+            self._done(name, t.numel() * t.element_size(), t0, s0)
         return t
+
+    def summed(self, t: torch.Tensor, name: str) -> torch.Tensor:
+        """The sum over the positions of ``t`` (every position's of one
+        shape), a new tensor: the positions' tensors all-gathered and
+        added on this rank's device in position order, the order
+        :meth:`reduce_scatter` adds its parts in, so a reduce-scatter and
+        all-gather of the same tensors gives the same bits for any number
+        of positions."""
+        if not self.distributed:
+            self._done(name, 0, time.perf_counter(), self._stage.bytes)
+            return t.clone()
+        parts = self.all_gather(t, name=name).view((self.n,) + t.shape)
+        acc = parts[0].clone()
+        for k in range(1, self.n):
+            acc.add_(parts[k])
+        return acc
+
+    def maxed(self, t: torch.Tensor, name: str) -> torch.Tensor:
+        """The elementwise maximum over the positions of ``t``."""
+        if not self.distributed:
+            self._done(name, 0, time.perf_counter(), self._stage.bytes)
+            return t.clone()
+        parts = self.all_gather(t, name=name).view((self.n,) + t.shape)
+        return torch.amax(parts, dim=0)
 
     def broadcast(self, t: torch.Tensor, root: int = 0) -> torch.Tensor:
         """``t`` of position ``root`` on every position, in place."""
@@ -438,3 +476,93 @@ def respan(span: Optional[torch.Tensor], old_ranks: list, old_size: int,
     crossed = (sum(sc) - sc[me] + sum(rc) - rc[me]) * item
     _book("respan", crossed, time.perf_counter() - t0, stage.bytes)
     return out
+
+
+# ---------------------------------------------------------------------------
+# the tensor-parallel forward's collectives over a model line
+# ---------------------------------------------------------------------------
+
+class _CopyToModel(torch.autograd.Function):
+    """Forward: ``x`` as it is (the residual stream is replicated over the
+    model line). Backward: the gradient summed over the line, since each
+    rank's slice of the weights sees its own part of it."""
+
+    @staticmethod
+    def forward(ctx, x, comm):
+        ctx.comm = comm
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        s = ctx.comm.summed(g.to(torch.float32).contiguous(), "copy_to_model")
+        return s.to(g.dtype), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """Forward: the line's partial results summed (in f32, then cast to
+    ``dtype``). Backward: the gradient as it is, to every rank's
+    partial."""
+
+    @staticmethod
+    def forward(ctx, x, comm, dtype, scatter_dim):
+        ctx.dtype_in = x.dtype
+        xf = x.to(torch.float32)
+        if scatter_dim is None:
+            out = comm.summed(xf.contiguous(), "reduce_from_model")
+        else:
+            # a reduce-scatter over ``scatter_dim``, then the all-gather
+            # back: the port's residual stream stays replicated
+            xm = xf.movedim(scatter_dim, 0).contiguous()
+            part = comm.reduce_scatter(xm.view(-1),
+                                       name="moe_reduce_scatter")
+            out = comm.all_gather(part, name="moe_all_gather").view(
+                xm.shape).movedim(0, scatter_dim)
+        return out.to(dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(ctx.dtype_in), None, None, None
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelAxis:
+    """This rank's line of a mesh's ``model`` axis: its ``size``, this
+    rank's ``pos`` on it and the line's collectives (``comm``). The
+    tensor-parallel layers call ``copy`` on the input of every
+    computation split over the line, and ``reduce`` on its partial
+    output; ``maxed`` is a forward-only elementwise maximum (the vocab
+    shards' logit maxima, which carry no gradient)."""
+    size: int
+    pos: int
+    comm: "MeshComm"
+
+    def copy(self, x: torch.Tensor) -> torch.Tensor:
+        return _CopyToModel.apply(x, self.comm)
+
+    def reduce(self, x: torch.Tensor, dtype=None,
+               scatter_dim: Optional[int] = None) -> torch.Tensor:
+        """The sum over the line of ``x`` in ``dtype`` (default ``x``'s);
+        with ``scatter_dim`` through a reduce-scatter over that dim and an
+        all-gather, the same bits."""
+        return _ReduceFromModel.apply(x, self.comm, dtype or x.dtype,
+                                      scatter_dim)
+
+    def maxed(self, x: torch.Tensor) -> torch.Tensor:
+        return self.comm.maxed(x.detach().contiguous(), "model_max")
+
+
+def model_axis(ctx) -> Optional[ModelAxis]:
+    """The :class:`ModelAxis` of a :class:`~repro_torch.sharding.partition.
+    DistContext` whose mesh has a ``model`` axis of more than one rank;
+    None otherwise (no ctx, no mesh, or a ``(n, 1)`` mesh: every rank runs
+    the whole forward). Cached on the mesh."""
+    mesh = None if ctx is None else ctx.mesh
+    if mesh is None or ctx.tp is None or mesh.shape.get(ctx.tp, 1) == 1:
+        return None
+    axis = getattr(mesh, "_model_axis", None)
+    if axis is None:
+        line = mesh.axis_mesh(ctx.tp)
+        axis = ModelAxis(line.size, mesh.axis_position(ctx.tp),
+                         MeshComm(line))
+        mesh._model_axis = axis
+    return axis

@@ -5,7 +5,9 @@ port.
 ``jax.tree_util.tree_map(np.asarray, p)`` and returns the port's tree of
 tensors on ``device``; ``to_numpy_tree`` goes back. Keys, structure and
 dtypes are kept; bfloat16 and the fp8 family (numpy ``ml_dtypes``) travel
-as their raw bits.
+as their raw bits. Given ``slices`` (``sharding.partition.model_slices``
+of the tree) it places only this rank's model slice of each leaf: from
+memory-mapped arrays no rank reads, or holds, the whole model.
 
 ``load_parity_rows`` hands a codec parity encoded elsewhere (the
 reference's ``np.asarray(codec.parity)``: ``(n_groups, frame_elems)`` XOR
@@ -51,8 +53,19 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy().copy()
 
 
-def from_numpy_tree(tree: PyTree, device) -> PyTree:
-    return tree_map(lambda x: _to_tensor(x, torch.device(device)), tree)
+def from_numpy_tree(tree: PyTree, device, slices: PyTree = None
+                    ) -> PyTree:
+    dev = torch.device(device)
+    if slices is None:
+        return tree_map(lambda x: _to_tensor(x, dev), tree)
+
+    def place(x, s):
+        if not s:
+            return _to_tensor(x, dev)
+        dim, lo, hi = s
+        return _to_tensor(np.asarray(x)[(slice(None),) * dim
+                                        + (slice(lo, hi),)], dev)
+    return tree_map(place, tree, slices)
 
 
 def to_numpy_tree(tree: PyTree) -> PyTree:

@@ -19,6 +19,16 @@ homes onto ranks).
   (``new_group`` is collective); one group is made per survivor set and
   reused. A rank left out of a mesh stays alive and skips the mesh's work.
 
+Each axis of a mesh has its lines: the ranks that differ only in that
+axis's coordinate (a ``model`` line is one data position's tensor-parallel
+ranks, a ``data`` line one model position's data-parallel ranks).
+:meth:`Mesh.axis_mesh` is this rank's line as a 1-D mesh with its own
+process group. :func:`make_mesh` makes every line's group of every axis,
+in axis order and row-major line order, on every rank (``new_group`` is
+collective); a line of one rank has no group and makes no collective call,
+and a line of the whole mesh uses the mesh's group, so a survivor mesh
+``(n, 1)`` makes none beyond its own.
+
 ``make_production_mesh`` is a function, not a module constant, so
 importing this module touches no process group. Without an initialized
 process group a mesh is one rank, position 0, with no group.
@@ -48,6 +58,7 @@ class Mesh:
                              f"{self.axis_names}")
         self.group = group
         self.device_mesh = device_mesh
+        self._axis_meshes: dict[str, Mesh] = {}
 
     @property
     def shape(self) -> dict[str, int]:
@@ -72,6 +83,45 @@ class Mesh:
 
     def is_member(self, rank: Optional[int] = None) -> bool:
         return self.position(rank) is not None
+
+    def coords(self, rank: Optional[int] = None) -> Optional[tuple]:
+        """``rank``'s coordinate on each axis (default: this process's),
+        or None when it is not a member."""
+        pos = self.position(rank)
+        if pos is None:
+            return None
+        return tuple(int(c) for c in np.unravel_index(pos,
+                                                      self.devices.shape))
+
+    def axis_position(self, name: str) -> int:
+        """This rank's coordinate on axis ``name``."""
+        return self.coords()[self.axis_names.index(name)]
+
+    def axis_lines(self, name: str) -> list[list[int]]:
+        """Every line of axis ``name``: the rank lists that vary along it
+        with the other coordinates fixed, in row-major order."""
+        a = self.axis_names.index(name)
+        lines = np.moveaxis(self.devices, a, -1)
+        return [[int(r) for r in line]
+                for line in lines.reshape(-1, self.devices.shape[a])]
+
+    def axis_mesh(self, name: str) -> "Mesh":
+        """This rank's line of axis ``name`` as a 1-D mesh over its group
+        (made by :func:`make_mesh`; none for a line of one rank)."""
+        cached = self._axis_meshes.get(name)
+        if cached is not None:
+            return cached
+        me = self.ranks[self.position()]
+        line, = [ln for ln in self.axis_lines(name) if me in ln]
+        if len(line) == 1:
+            group = None
+        elif sorted(line) == sorted(self.ranks):
+            group = self.group
+        else:
+            group = _GROUPS[tuple(line)]
+        sub = Mesh(np.asarray(line), (name,), group=group)
+        self._axis_meshes[name] = sub
+        return sub
 
     def __repr__(self) -> str:
         return f"Mesh({self.shape}, ranks={self.ranks})"
@@ -104,8 +154,20 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str]) -> Mesh:
         return Mesh(np.zeros(shape, np.int64), axes)
     from torch.distributed.device_mesh import init_device_mesh
     dm = init_device_mesh("cpu", shape, mesh_dim_names=tuple(axes))
-    return Mesh(np.asarray(dm.mesh.tolist()).reshape(shape), axes,
+    mesh = Mesh(np.asarray(dm.mesh.tolist()).reshape(shape), axes,
                 group=dist.group.WORLD, device_mesh=dm)
+    _axis_groups(mesh)
+    return mesh
+
+
+def _axis_groups(mesh: Mesh) -> None:
+    """Make the process group of every line of every axis of ``mesh``
+    that has more than one rank and is not the whole mesh: in axis order,
+    lines in row-major order, the same calls on every rank."""
+    for name in mesh.axis_names:
+        for line in mesh.axis_lines(name):
+            if 1 < len(line) < mesh.size:
+                _group(line)
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> Mesh:

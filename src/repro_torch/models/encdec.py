@@ -28,8 +28,8 @@ gradient, with ``frames`` in every batch (``data.ShardedLMDataset``).
 Parameters keep the reference's tree: ``frame_proj``, ``enc_layers`` and
 ``dec_layers`` (stacked, or lists of per-layer trees from
 ``layers.split_layers``), ``enc_norm``, ``final_norm`` and the embedding.
-On a mesh every rank runs the whole forward (tensor parallelism is ROADMAP
-item 38).
+On a mesh every rank runs the whole forward on its slice of the batch
+(tensor parallelism for this family is ROADMAP item 39).
 """
 from __future__ import annotations
 

@@ -27,7 +27,8 @@ Parameters keep the reference's tree: ``layers`` (the Mamba2 layers
 stacked over ``n_layers``, or a list of per-layer trees from
 ``layers.split_layers``), ``shared`` (one transformer layer, never split),
 ``final_norm`` and the embedding. On a mesh every rank runs the whole
-forward (tensor parallelism is ROADMAP item 38).
+forward on its slice of the batch (tensor parallelism for this family
+is ROADMAP item 39).
 """
 from __future__ import annotations
 

@@ -17,14 +17,29 @@ CPU, and on the card prefill goes through the ``sw_attention`` kernel
 chunk's logits in backward (``torch.utils.checkpoint``).
 
 The MoE block (``init_moe``, ``_moe_body``, ``moe_block``) is the
-reference's single-device branch: token-choice top-k routing, a
-top-capacity token gather per expert, the expert products as batched
-matmuls (on views of the trainer's 2-D expert leaves too,
-``split_layers``), a combine in expert order; its gradient is
-``jax.grad``'s of the reference. The layers take no ``ctx``: on a mesh
-the trainer computes FSDP over the flat arena and every rank runs the
-whole forward; tensor parallelism and the expert-parallel MoE are ROADMAP
-item 38, and ``moe_block`` raises for a ``mesh``.
+reference's: token-choice top-k routing, a top-capacity token gather per
+expert, the expert products as batched matmuls (on views of the trainer's
+2-D expert leaves too, ``split_layers``), a combine in expert order; its
+gradient is ``jax.grad``'s of the reference.
+
+**Tensor and expert parallelism.** ``qkv_project``, ``attention_block``,
+``mlp_block``, ``moe_block``, ``embed_tokens``, ``lm_logits`` and
+``lm_loss_chunked`` take an optional ``ctx`` (a
+:class:`~repro_torch.sharding.partition.DistContext`). Without one, or on
+a mesh whose ``model`` axis has one position, they run the one-device
+code. With a ``model`` axis of ``tp`` positions the weights they are given
+are this rank's slices (``sharding.partition.take_model_slices``) and the
+activations between layers are replicated over the axis
+(``distributed.collectives.ModelAxis``: ``copy`` on the input of a split
+computation, whose backward sums the gradient over the axis, and
+``reduce`` on its partial output): the attention's heads, the MLP's and
+the shared expert's ``d_ff``, the experts (each rank runs ``E / tp`` of
+them on the data shard's tokens at the data shard's capacity, the router
+replicated in f32, the combine summed, through a reduce-scatter over S
+and an all-gather under ``cfg.moe_reduce_scatter``) and the vocab of the
+embedding, the LM head and the chunked loss (a logsumexp over the
+shards). Every replicated computation (norms, the router, its aux
+losses) gets its whole gradient on every rank.
 
 The perf variants, forward only and plain on every device (the reference
 writes them in jnp; no TPU kernel covers them): ``quantize_kv`` (int8
@@ -46,6 +61,7 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.collectives import model_axis
 from repro_torch.utils.tree import tree_flatten, tree_map, tree_unflatten
 
 PyTree = Any
@@ -569,7 +585,12 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig, dtype,
     return p
 
 
-def qkv_project(x, p, cfg: ModelConfig, positions):
+def qkv_project(x, p, cfg: ModelConfig, positions, ctx=None):
+    """q, k, v of x: (B, S, D) with rope; on a model axis, this rank's
+    heads (its slices of ``wq``, ``wk``, ``wv`` and the biases)."""
+    axis = model_axis(ctx)
+    if axis is not None:
+        x = axis.copy(x)
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
     k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
     v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
@@ -581,12 +602,16 @@ def qkv_project(x, p, cfg: ModelConfig, positions):
 
 
 def attention_block(x, p, cfg: ModelConfig, *, positions, causal=True,
-                    window=0, q_chunk=1024, kv_chunk=1024):
-    """Self-attention over x: (B,S,D) -> (B,S,D), the plain attention."""
-    q, k, v = qkv_project(x, p, cfg, positions)
+                    window=0, q_chunk=1024, kv_chunk=1024, ctx=None):
+    """Self-attention over x: (B,S,D) -> (B,S,D), the plain attention; on
+    a model axis over this rank's heads, the output projections' partials
+    summed over the axis."""
+    q, k, v = qkv_project(x, p, cfg, positions, ctx)
     o = flash_attention(q, k, v, positions, positions, causal=causal,
                         window=window, q_chunk=q_chunk, kv_chunk=kv_chunk)
-    return attn_out(o, p["wo"])
+    out = attn_out(o, p["wo"])
+    axis = model_axis(ctx)
+    return out if axis is None else axis.reduce(out)
 
 
 def attn_out(o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
@@ -611,14 +636,21 @@ def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, dtype,
     }
 
 
-def mlp_block(x, p):
+def mlp_block(x, p, ctx=None):
+    """SwiGLU; on a model axis over this rank's columns of ``d_ff``, the
+    down projections' partials summed over the axis."""
+    axis = model_axis(ctx)
+    if axis is not None:
+        x = axis.copy(x)
     h = F.silu(torch.einsum("bsd,df->bsf", x, p["w_gate"])) \
         * torch.einsum("bsd,df->bsf", x, p["w_up"])
-    return torch.einsum("bsf,fd->bsd", h, p["w_down"])
+    out = torch.einsum("bsf,fd->bsd", h, p["w_down"])
+    return out if axis is None else axis.reduce(out)
 
 
 # ---------------------------------------------------------------------------
-# Mixture of Experts (one device: every expert local)
+# Mixture of Experts (every expert local, or expert-parallel over a model
+# axis)
 # ---------------------------------------------------------------------------
 
 def init_moe(gen: torch.Generator, cfg: ModelConfig, dtype, device=None,
@@ -669,19 +701,49 @@ def _experts(xe, wg, wu, wd):
     return torch.bmm(h, wd)
 
 
-def _moe_body(x, router, wg, wu, wd, *, cfg: ModelConfig, capacity: int):
+def moe_route(x, router, cfg: ModelConfig, capacity: int, *,
+              E_local: Optional[int] = None, e_offset: int = 0, axis=None):
+    """The routing of ``_moe_body``: the router's f32 ``logits`` and
+    ``probs`` (N, E), each token's top-k experts ``sel`` (N, k), the dense
+    normalised gate weights ``w_full`` (N, E) and, for experts ``e_offset
+    .. e_offset + E_local`` (default: all), each one's top-``capacity``
+    tokens ``idx`` (E_local, C) with their weights ``vals``. On a model
+    ``axis`` the local experts' columns are read through ``axis.copy``, so
+    the gate weights' gradient is summed over the axis' experts."""
+    E, k = cfg.n_experts, cfg.top_k
+    E_l = E if E_local is None else E_local
+    N = x.shape[0]
+    logits = x.to(torch.float32) @ router                 # (N, E)
+    probs = torch.softmax(logits, dim=-1)
+    gate_vals, sel = top_k(probs, k)                       # (N, k)
+    gate_vals = gate_vals / torch.sum(gate_vals, dim=-1, keepdim=True)
+    w_full = torch.zeros((N, E), dtype=torch.float32, device=x.device)
+    w_full.scatter_(1, sel, gate_vals)
+    w_local = w_full if axis is None else axis.copy(w_full)
+    if E_l != E:
+        w_local = w_local[:, e_offset:e_offset + E_l]
+    vals, idx = top_k(w_local.t(), capacity)               # (E_l, C)
+    return logits, probs, sel, w_full, vals, idx
+
+
+def _moe_body(x, router, wg, wu, wd, *, cfg: ModelConfig, capacity: int,
+              E_local: Optional[int] = None, e_offset: int = 0, axis=None):
     """Token-choice top-k routing, per-expert top-``capacity`` gather.
 
-    x: (N, D) tokens; wg/wu/wd: the expert stacks, 3-D or held 2-D
-    (:func:`_experts`). Returns (out (N, D) f32,
-    lb_loss, z_loss). Each expert takes the ``capacity`` tokens of
-    largest combine weight (ties: the lower token first, so the same tokens
-    are dropped as in the reference); its products run in the model dtype.
-    The combine gathers each token's ``top_k`` expert
-    rows and adds them in expert order, 0 for a dropped one: no atomics,
-    the same bits on every run (an ``index_add_`` on CUDA adds in no fixed
+    x: (N, D) tokens; wg/wu/wd: the stacks of experts ``e_offset ..
+    e_offset + E_local`` (default: every expert), 3-D or held 2-D
+    (:func:`_experts`). Returns (out (N, D) f32: the local experts' part
+    of the combine, lb_loss, z_loss). Each expert takes the ``capacity``
+    tokens of largest combine weight (ties: the lower token first, so the
+    same tokens are dropped as in the reference); its products run in the
+    model dtype. The combine gathers each token's routed local expert rows
+    and adds them in expert order, 0 for a dropped one: no atomics, the
+    same bits on every run (an ``index_add_`` on CUDA adds in no fixed
     order). A token that an expert took with weight 0 adds 0, as in the
-    reference's scatter-add.
+    reference's scatter-add. On a model ``axis`` (expert parallelism) the
+    tokens enter the expert gather through ``axis.copy`` and the caller
+    sums ``out`` over the axis; the router and the aux losses are computed
+    whole on every rank.
 
     The gradient flows as under ``jax.grad`` of the reference: through the
     normalised gates (their sort and the scatter into the dense weights),
@@ -691,22 +753,26 @@ def _moe_body(x, router, wg, wu, wd, *, cfg: ModelConfig, capacity: int):
     """
     N, D = x.shape
     E, k = cfg.n_experts, cfg.top_k
-    logits = x.to(torch.float32) @ router                 # (N, E)
-    probs = torch.softmax(logits, dim=-1)
-    gate_vals, sel = top_k(probs, k)                       # (N, k)
-    gate_vals = gate_vals / torch.sum(gate_vals, dim=-1, keepdim=True)
-    w_full = torch.zeros((N, E), dtype=torch.float32, device=x.device)
-    w_full.scatter_(1, sel, gate_vals)
-    vals, idx = top_k(w_full.t(), capacity)                # (E, C)
-    xe = x[idx]                                            # (E, C, D)
+    E_l = E if E_local is None else E_local
+    logits, probs, sel, w_full, vals, idx = moe_route(
+        x, router, cfg, capacity, E_local=E_local, e_offset=e_offset,
+        axis=axis)
+    xe = (x if axis is None else axis.copy(x))[idx]        # (E_l, C, D)
     he = _experts(xe, wg, wu, wd).to(torch.float32) * vals[..., None]
-    # each routed (token, expert)'s row in he, or -1 where it was dropped
-    slot = torch.full((E, N), -1, dtype=torch.int64, device=x.device)
+    # each routed (token, local expert)'s row in he, or -1 where it was
+    # dropped or the expert is another rank's
+    slot = torch.full((E_l, N), -1, dtype=torch.int64, device=x.device)
     slot.scatter_(1, idx, torch.arange(capacity, device=x.device)
-                  .expand(E, capacity).contiguous())
+                  .expand(E_l, capacity).contiguous())
     sel, _ = torch.sort(sel, dim=-1)                       # expert order
-    pos = torch.gather(slot, 0, sel.t()).t()               # (N, k)
-    rows = he.reshape(E * capacity, D)
+    if E_l == E:
+        pos = torch.gather(slot, 0, sel.t()).t()           # (N, k)
+    else:
+        sel = sel - e_offset
+        mine = (sel >= 0) & (sel < E_l)
+        sel = sel.clamp(0, E_l - 1)
+        pos = torch.where(mine, torch.gather(slot, 0, sel.t()).t(), -1)
+    rows = he.reshape(E_l * capacity, D)
     out = torch.zeros((N, D), dtype=torch.float32, device=x.device)
     for j in range(k):
         got = pos[:, j] >= 0
@@ -720,23 +786,37 @@ def _moe_body(x, router, wg, wu, wd, *, cfg: ModelConfig, capacity: int):
     return out, lb_loss, z_loss
 
 
-def moe_block(x, p, cfg: ModelConfig, *, mesh=None):
-    """x: (B, S, D) -> ((B, S, D) in x's dtype, (lb_loss, z_loss)): every
-    expert on this device, the shared expert added when the config has
-    one. Expert parallelism over a mesh is not ported (the mesh computes
-    FSDP over the flat arena; every rank runs every expert)."""
-    if mesh is not None:
-        raise NotImplementedError("expert parallelism over a mesh is not "
-                                  "ported yet (ROADMAP item 38)")
+def moe_block(x, p, cfg: ModelConfig, ctx=None):
+    """x: (B, S, D) -> ((B, S, D) in x's dtype, (lb_loss, z_loss)), the
+    shared expert added when the config has one. Without a model axis
+    every expert runs here on the B x S tokens. On one (``ctx``) this rank
+    holds ``E / tp`` experts at offset ``pos · E / tp`` (``p``'s expert
+    stacks are its slices), x is its data shard, the capacity is that of
+    the shard's tokens, and the combine is summed over the axis: an
+    all-reduce, or under ``cfg.moe_reduce_scatter`` (when ``tp`` divides S
+    and S > 1) a reduce-scatter over S then an all-gather, the same bits.
+    The aux losses are the data shard's own."""
     B, S, D = x.shape
     n = B * S
-    out, lb, zl = _moe_body(x.reshape(n, D), p["router"],
-                            p["w_gate_experts"], p["w_up_experts"],
-                            p["w_down_experts"], cfg=cfg,
-                            capacity=moe_capacity(n, cfg))
-    out = out.reshape(B, S, D).to(x.dtype)
+    axis = model_axis(ctx)
+    if axis is None:
+        out, lb, zl = _moe_body(x.reshape(n, D), p["router"],
+                                p["w_gate_experts"], p["w_up_experts"],
+                                p["w_down_experts"], cfg=cfg,
+                                capacity=moe_capacity(n, cfg))
+        out = out.reshape(B, S, D).to(x.dtype)
+    else:
+        E_l = cfg.n_experts // axis.size
+        out, lb, zl = _moe_body(x.reshape(n, D), p["router"],
+                                p["w_gate_experts"], p["w_up_experts"],
+                                p["w_down_experts"], cfg=cfg,
+                                capacity=moe_capacity(n, cfg), E_local=E_l,
+                                e_offset=axis.pos * E_l, axis=axis)
+        rs = cfg.moe_reduce_scatter and S % axis.size == 0 and S > 1
+        out = axis.reduce(out.reshape(B, S, D), dtype=x.dtype,
+                          scatter_dim=1 if rs else None)
     if cfg.shared_expert:
-        out = out + mlp_block(x, p["shared"])
+        out = out + mlp_block(x, p["shared"], ctx)
     return out, (lb, zl)
 
 
@@ -754,18 +834,40 @@ def init_embed(gen: torch.Generator, cfg: ModelConfig, dtype,
     return p
 
 
-def embed_tokens(tokens: torch.Tensor, p) -> torch.Tensor:
-    """Token embedding lookup: a plain gather (one device); its gradient is
-    the scatter-add of the rows back into the table."""
-    return p["embed"][tokens.long()]
+def embed_tokens(tokens: torch.Tensor, p, ctx=None) -> torch.Tensor:
+    """Token embedding lookup: a plain gather (its gradient is the
+    scatter-add of the rows back into the table). On a model axis this
+    rank's ``embed`` is its block of the vocab: each token's row where the
+    rank holds it, zeros elsewhere, summed over the axis (the reference's
+    one-hot matmul, exactly: one term of each sum is not zero)."""
+    axis = model_axis(ctx)
+    emb = p["embed"]
+    if axis is None:
+        return emb[tokens.long()]
+    V_l = emb.shape[0]
+    local = tokens.long() - axis.pos * V_l
+    inside = (local >= 0) & (local < V_l)
+    rows = emb[local.clamp(0, V_l - 1)]
+    rows = torch.where(inside[..., None], rows,
+                       torch.zeros((), dtype=rows.dtype, device=rows.device))
+    return axis.reduce(rows)
 
 
-def lm_logits(h: torch.Tensor, p) -> torch.Tensor:
+def lm_logits(h: torch.Tensor, p, ctx=None) -> torch.Tensor:
     """(B, S, D) -> (B, S, V) f32 logits through the LM head (the
-    embedding when tied)."""
+    embedding when tied). On a model axis each rank computes its block of
+    the vocab and the blocks are all-gathered (forward only: serving)."""
     head = p.get("lm_head", p["embed"])
-    return torch.einsum("bsd,vd->bsv", h.to(torch.float32),
-                        head.to(torch.float32))
+    axis = model_axis(ctx)
+    if axis is not None:
+        h = h.detach()
+    logits = torch.einsum("bsd,vd->bsv", h.to(torch.float32),
+                          head.to(torch.float32))
+    if axis is None:
+        return logits
+    parts = axis.comm.all_gather(logits.movedim(-1, 0).contiguous(),
+                                 name="lm_logits")
+    return parts.view((-1,) + logits.shape[:-1]).movedim(0, -1)
 
 
 def _chunk_loss(hx, yx, mx, head):
@@ -778,17 +880,45 @@ def _chunk_loss(hx, yx, mx, head):
     return torch.sum(nll * mx.reshape(-1)), torch.sum(mx)
 
 
-def lm_loss_chunked(h, p, labels, mask, cfg: ModelConfig) -> torch.Tensor:
+def _chunk_loss_vocab(hx, yx, mx, head, axis):
+    """:func:`_chunk_loss` over this rank's block of the vocab: the
+    logsumexp from the blocks' maximum (no gradient) and their summed
+    exponentials, the label's logit from the block that holds it (zeros
+    elsewhere), both sums in one reduction over the axis."""
+    logits = torch.einsum("bcd,vd->bcv", hx.to(torch.float32),
+                          head.to(torch.float32))
+    V_l = logits.shape[-1]
+    m = axis.maxed(torch.amax(logits, dim=-1))
+    local = yx.long() - axis.pos * V_l
+    inside = (local >= 0) & (local < V_l)
+    ll = torch.gather(logits, -1, local.clamp(0, V_l - 1)[..., None])[..., 0]
+    ll = torch.where(inside, ll, torch.zeros((), device=ll.device))
+    se = torch.sum(torch.exp(logits - m[..., None]), dim=-1)
+    both = axis.reduce(torch.stack([se, ll]))
+    nll = m + torch.log(both[0]) - both[1]
+    return torch.sum(nll * mx), torch.sum(mx)
+
+
+def lm_loss_chunked(h, p, labels, mask, cfg: ModelConfig,
+                    ctx=None) -> torch.Tensor:
     """Next-token cross-entropy without holding (B, S, V) logits.
 
     h: (B,S,D); labels/mask: (B,S). Walks S in chunks of the reference's
     size (``cfg.loss_chunk`` tokens per 8 sequences, at least 128),
     keeping the batch dim; each chunk's (B, chunk, V) f32 logits are
-    recomputed in backward, never saved (``torch.utils.checkpoint``).
-    Returns the mean over the mask's tokens, f32.
+    recomputed in backward, never saved (``torch.utils.checkpoint``). On a
+    model axis each rank's logits are its block of the vocab
+    (:func:`_chunk_loss_vocab`). Returns the mean over the mask's tokens,
+    f32.
     """
     B, S, D = h.shape
     head = p.get("lm_head", p["embed"])
+    axis = model_axis(ctx)
+    if axis is None:
+        fn, extra = _chunk_loss, ()
+    else:
+        fn, extra = _chunk_loss_vocab, (axis,)
+        h = axis.copy(h)
     C = min(max(cfg.loss_chunk // max(B // 8, 1), 128), S)
     while S % C:
         C //= 2
@@ -800,10 +930,10 @@ def lm_loss_chunked(h, p, labels, mask, cfg: ModelConfig) -> torch.Tensor:
         sl = slice(c * C, (c + 1) * C)
         if torch.is_grad_enabled():
             loss, cnt = torch.utils.checkpoint.checkpoint(
-                _chunk_loss, h[:, sl], labels[:, sl], mf[:, sl], head,
+                fn, h[:, sl], labels[:, sl], mf[:, sl], head, *extra,
                 use_reentrant=False, preserve_rng_state=False)
         else:
-            loss, cnt = _chunk_loss(h[:, sl], labels[:, sl], mf[:, sl], head)
+            loss, cnt = fn(h[:, sl], labels[:, sl], mf[:, sl], head, *extra)
         total = total + loss
         count = count + cnt
     return total / torch.clamp_min(count, 1.0)

@@ -27,7 +27,8 @@ Parameters keep the reference's stacked leaves: every per-layer weight has
 a leading ``n_layers`` dim under ``params["layers"]``, walked by a Python
 loop, so ``interop.from_numpy_tree`` carries the reference's params across
 unchanged and the SCAR block partition matches. On a mesh every rank runs
-the whole forward (tensor parallelism is ROADMAP item 38).
+the whole forward on its slice of the batch (tensor parallelism for
+this family is ROADMAP item 39).
 """
 from __future__ import annotations
 

@@ -30,10 +30,13 @@ stacking ``[dense_i, moe_i]`` (cache layer ``2 i`` is pair ``i``'s dense
 layer); a VLM (internvl2) projects the batch's ``patches`` and prepends
 them to the token embeddings, so its prompt is ``S + n_patches`` long.
 Every reader of the weights takes the trainer's per-layer layout too
-(``layers.split_layers``: ``wo`` and the expert stacks held 2-D). On a
-mesh every rank runs the whole forward (tensor parallelism is ROADMAP item
-38). ``decode_step`` writes the new token's K/V into
-the cache in place.
+(``layers.split_layers``: ``wo`` and the expert stacks held 2-D).
+``train_loss`` takes a ``ctx``: on a mesh with a ``model`` axis of more
+than one position it runs the tensor- and expert-parallel forward over
+this rank's weight slices (``layers``; ``params`` holds the slices that
+``sharding.partition.take_model_slices`` cut) and the rank's data shard;
+``prefill`` and ``decode_step`` run on one device. ``decode_step`` writes
+the new token's K/V into the cache in place.
 
 The perf variants, as the reference's: under ``cfg.kv_quant`` the cache
 holds int8 ``k``/``v`` with f32 ``k_scale``/``v_scale`` per (token, kv
@@ -55,6 +58,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.sw_attention.ops import sw_attention
 from repro_torch.models import layers as L
+from repro_torch.sharding.partition import check_tensor_parallel
 
 PyTree = Any
 
@@ -132,14 +136,14 @@ def layer_walk(params: PyTree, cfg: ModelConfig):
         yield 2 * i + 1, pair["moe"]
 
 
-def _ffn(x, lp, cfg: ModelConfig):
+def _ffn(x, lp, cfg: ModelConfig, ctx=None):
     """The layer's MLP or MoE block on its normed input, and the MoE
     block's ``(lb_loss, z_loss)`` (zeros for an MLP)."""
     hn = L.rms_norm(x, lp["mlp_norm"])
     if "moe" in lp:
-        return L.moe_block(hn, lp["moe"], cfg)
+        return L.moe_block(hn, lp["moe"], cfg, ctx=ctx)
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
-    return L.mlp_block(hn, lp["mlp"]), (zero, zero)
+    return L.mlp_block(hn, lp["mlp"], ctx), (zero, zero)
 
 
 # ---------------------------------------------------------------------------
@@ -147,18 +151,18 @@ def _ffn(x, lp, cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 
 def _layer_fwd(x, lp, cfg: ModelConfig, positions, window: int,
-               q_chunk: int, kv_chunk: int):
+               q_chunk: int, kv_chunk: int, ctx=None):
     """One layer -> (x', lb_loss, z_loss)."""
     h = L.attention_block(L.rms_norm(x, lp["attn_norm"]), lp["attn"], cfg,
                           positions=positions, causal=True, window=window,
-                          q_chunk=q_chunk, kv_chunk=kv_chunk)
+                          q_chunk=q_chunk, kv_chunk=kv_chunk, ctx=ctx)
     x = x + h
-    h2, (lb, zl) = _ffn(x, lp, cfg)
+    h2, (lb, zl) = _ffn(x, lp, cfg, ctx)
     return x + h2, lb, zl
 
 
 def _stack_fwd(h, params, cfg: ModelConfig, positions, *, window: int,
-               q_chunk: int = 1024, kv_chunk: int = 1024):
+               q_chunk: int = 1024, kv_chunk: int = 1024, ctx=None):
     """Every layer in the order :func:`layer_walk` gives (an interleaved
     model's dense then MoE layer of each pair), each recomputed in
     backward when ``cfg.remat``, its aux losses with it; then the final
@@ -166,16 +170,16 @@ def _stack_fwd(h, params, cfg: ModelConfig, positions, *, window: int,
     lb = zl = torch.zeros((), dtype=torch.float32, device=h.device)
     for _, lp in layer_walk(params, cfg):
         h, l1, l2 = L.remat(lambda x, lp=lp: _layer_fwd(
-            x, lp, cfg, positions, window, q_chunk, kv_chunk),
+            x, lp, cfg, positions, window, q_chunk, kv_chunk, ctx),
             h, enabled=cfg.remat)
         lb, zl = lb + l1, zl + l2
     return L.rms_norm(h, params["final_norm"]), lb, zl
 
 
-def _embed_batch(params, batch, cfg: ModelConfig):
+def _embed_batch(params, batch, cfg: ModelConfig, ctx=None):
     """Token embeddings, after a VLM's projected patch prefix when the
     batch has ``patches`` -> (B, S_total, D)."""
-    tok = L.embed_tokens(batch["tokens"], params)
+    tok = L.embed_tokens(batch["tokens"], params, ctx)
     if cfg.family == "vlm" and "patches" in batch:
         prefix = torch.einsum("bpv,vd->bpd",
                               batch["patches"].to(_dtype(cfg)),
@@ -185,20 +189,30 @@ def _embed_batch(params, batch, cfg: ModelConfig):
 
 
 def train_loss(params, batch, cfg: ModelConfig, *,
-               window_override: Optional[int] = None) -> torch.Tensor:
+               window_override: Optional[int] = None,
+               ctx=None) -> torch.Tensor:
     """Mean next-token cross-entropy of ``batch`` (``tokens``, ``labels``
     and an optional ``mask``; a VLM's ``patches``), f32. Full causal
     attention unless ``window_override`` gives a band. A VLM's patch
     prefix takes no loss; an MoE model adds its router losses, ``0.01
     Σ lb_loss / n_layers + 0.001 Σ z_loss / n_layers`` over every layer
     (an interleaved model's dense layers count in ``n_layers`` and add
-    zeros), as the reference."""
-    h = _embed_batch(params, batch, cfg)
+    zeros), as the reference.
+
+    With ``ctx`` on a mesh whose ``model`` axis has ``tp > 1`` positions,
+    ``params`` are this rank's model slices and ``batch`` its data shard:
+    the loss is the data shard's, the same on every rank of its model
+    line (raises ``ValueError`` where the config does not split over
+    ``tp``)."""
+    if ctx is not None and ctx.tp_size > 1:
+        check_tensor_parallel(cfg, ctx.tp_size)
+    h = _embed_batch(params, batch, cfg, ctx)
     S = h.shape[1]
     positions = torch.arange(S, dtype=torch.int32, device=h.device)
     window = 0 if window_override is None else window_override
     h, lb, zl = _stack_fwd(h, params, cfg, positions, window=window,
-                           q_chunk=cfg.attn_chunk, kv_chunk=cfg.attn_chunk)
+                           q_chunk=cfg.attn_chunk, kv_chunk=cfg.attn_chunk,
+                           ctx=ctx)
     labels = batch["labels"]
     mask = batch.get("mask")
     if mask is None:
@@ -207,7 +221,10 @@ def train_loss(params, batch, cfg: ModelConfig, *,
     n_prefix = h.shape[1] - labels.shape[1]
     if n_prefix:        # a VLM: no loss on the image prefix
         h = h[:, n_prefix:]
-    loss = L.lm_loss_chunked(h, params, labels, mask, cfg)
+    if ctx is None:     # the one-device call, as before the mesh's
+        loss = L.lm_loss_chunked(h, params, labels, mask, cfg)
+    else:
+        loss = L.lm_loss_chunked(h, params, labels, mask, cfg, ctx=ctx)
     if cfg.n_experts:
         loss = loss + 0.01 * lb / cfg.n_layers + 0.001 * zl / cfg.n_layers
     return loss

@@ -11,10 +11,12 @@ a tuple that the tree utilities keep as one leaf); the shape-to-spec
 functions return what the reference's return for the same tree and mesh
 shape. On a mesh the port computes FSDP over the flat arena
 (:func:`arena_sharding`): every rank holds its span of the arena-shaped
-state and gathers the arena for the forward. The ``model`` axis splits no
-heads in the forward (tensor parallelism and the expert-parallel MoE are
-ROADMAP item 38); it is kept for the specs, the block homes and the
-survivor mesh.
+state and gathers the arena for the forward. The ``model`` axis splits
+the transformer families' forward (tensor and expert parallelism):
+:func:`model_slices` gives each leaf's cut for this rank, from the specs'
+``model`` entries mapped onto the port's leaves (the reference's stacked
+ones and the trainer's per-layer ones), and :func:`take_model_slices`
+takes them as views.
 
 - 2-D weights (d_in, d_out): TP on the "wide" axis, FSDP (data) on the
   other; embeddings (V, D): vocab on TP, D on data; expert weights (E,
@@ -278,3 +280,111 @@ def blocks_on_failed_devices(partition, params_shape: PyTree,
     failed = [(start + i) % n_data for i in range(n_fail)]
     homes = block_device_homes(partition, n_data)
     return np.isin(homes, failed)
+
+
+# ---------------------------------------------------------------------------
+# The model axis's slices of the tensor-parallel forward
+# ---------------------------------------------------------------------------
+
+# the rank of each rule's leaf in the reference's stacked layout
+_STACKED_NDIM = {"embed": 2, "lm_head": 2, "wq": 4, "wk": 4, "wv": 4,
+                 "wo": 4, "w_gate": 3, "w_up": 3, "w_down": 3,
+                 "w_gate_experts": 4, "w_up_experts": 4, "w_down_experts": 4}
+# held 2-D in the per-layer layout (models.layers.split_layers): their
+# heads or experts lead dim 0
+_HELD_2D = ("wo", "w_gate_experts", "w_up_experts", "w_down_experts")
+# the specs cut them over ``model`` for storage; the forward computes them
+# whole on every rank (the reference's MoE takes its router replicated,
+# ``P()``, and the VLM's projector is a replicated prefix)
+_COMPUTE_REPLICATED = ("router", "proj")
+# replicated in the specs; the forward adds each rank's heads' rows
+_HEAD_BIASES = ("bq", "bk", "bv")
+
+
+def _model_dim(name: str, shape: tuple[int, ...],
+               ctx: DistContext) -> Optional[int]:
+    """The dim of a leaf that the ``model`` axis cuts in the forward, or
+    None (computed whole): the dim of its spec's ``model`` entry
+    (:func:`_spec_for_leaf`, on the leaf's stacked shape), mapped onto the
+    leaf."""
+    key = _key(name)
+    if key in _COMPUTE_REPLICATED:
+        return None
+    if key in _HEAD_BIASES:
+        return len(shape) - 2
+    if key in _HELD_2D and len(shape) == 2:
+        return 0
+    want = _STACKED_NDIM.get(key)
+    if want is None:
+        return None
+    lead = max(want - len(shape), 0)
+    spec = _spec_for_leaf(name, (1,) * lead + tuple(shape), ctx)
+    for i, entry in enumerate(spec):
+        axes = entry if isinstance(entry, tuple) else (entry,)
+        if ctx.tp in axes:
+            return i - lead
+    return None
+
+
+class ModelSlice(tuple):
+    """One leaf's cut: ``(dim, lo, hi)``, or empty for a leaf computed
+    whole. A tuple that the tree utilities keep as one leaf."""
+    tree_leaf = True
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, entries)
+
+
+WHOLE = ModelSlice()
+
+
+def model_slices(tree: PyTree, ctx: DistContext, pos: Optional[int] = None
+                 ) -> PyTree:
+    """For each leaf of ``tree`` (leaves need only ``.shape``), the
+    :class:`ModelSlice` that model position ``pos`` (default: this rank's)
+    computes with: ``(dim, lo, hi)``, or :data:`WHOLE` for a leaf every
+    rank computes whole (every leaf when the mesh's ``model`` axis has one
+    position). Raises ``ValueError`` for a cut dim that does not split
+    evenly."""
+    tp = ctx.tp_size
+    flat, treedef = flatten_with_path(tree)
+    if tp == 1:
+        return tree_unflatten(treedef, [WHOLE] * len(flat))
+    if pos is None:
+        pos = ctx.mesh.axis_position(ctx.tp)
+    out = []
+    for path, leaf in flat:
+        shape = tuple(leaf.shape)
+        dim = _model_dim(keystr(path), shape, ctx)
+        if dim is None:
+            out.append(WHOLE)
+            continue
+        n = shape[dim]
+        if n % tp:
+            raise ValueError(f"{keystr(path)}: dim {dim} of {shape} does not "
+                             f"split over model={tp}")
+        per = n // tp
+        out.append(ModelSlice(dim, pos * per, (pos + 1) * per))
+    return tree_unflatten(treedef, out)
+
+
+def take_model_slices(tree: PyTree, slices: PyTree) -> PyTree:
+    """``tree`` with each leaf cut to its slice (:func:`model_slices`), as
+    views: a gradient taken through them lands in the whole leaves'."""
+    return tree_map(lambda x, s: x.narrow(s[0], s[1], s[2] - s[1])
+                    if s else x, tree, slices)
+
+
+def check_tensor_parallel(cfg, tp: int) -> None:
+    """Raise ``ValueError`` naming ``cfg`` when its heads, kv heads,
+    experts, feed-forward widths or vocab do not split over ``tp`` model
+    positions. The reference splits ``head_dim`` where the heads do not
+    divide; the port does not (no config does so at the meshes it
+    trains)."""
+    dims = {"n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
+            "n_experts": cfg.n_experts, "d_ff": cfg.d_ff,
+            "d_ff_dense": cfg.d_ff_dense, "vocab": cfg.vocab}
+    bad = {k: v for k, v in dims.items() if v % tp}
+    if bad:
+        raise ValueError(f"{cfg.name}: {bad} do not split over model={tp} "
+                         "(tensor parallelism needs every one to divide)")

@@ -33,17 +33,32 @@ the device (reading it waits for the step).
 MeshComm`) each rank computes the loss of its slice of the global batch.
 The arena step all-gathers the arena from the ranks' spans, decodes it as
 above, packs the gradient to the value domain, reduce-scatters it into
-the rank's span (the sum over the ranks, divided by their number: the
-global batch's mean gradient) and applies the optimizer to the span in
-place; the loss is the mean of the ranks' losses. The PyTree step, whose
-every rank holds the whole tree, reduces its gradient through the same
-reduce-scatter (the same collective in the same order: gloo's all-reduce
-and reduce-scatter need not associate alike), all-gathers the reduced
-spans and updates the tree in place, slice by slice (the arena path's
-apply does the same; out of place, a full-width tree, its moments and
-their new copies do not fit four ranks on one card), so the two paths stay
-bit-equal on one mesh. A one-rank mesh is the single-device step bit for
-bit.
+the rank's span (the sum over the ranks, divided by the number of batch
+shards: the mean of the shards' gradients) and applies the optimizer to
+the span in place; the loss is the mean of the shards' losses.
+
+Where the forward is model-parallel (``ctx``: a transformer family on a
+mesh whose ``model`` axis has ``tp > 1`` positions) the batch shards are
+the data positions, each shared by the ``tp`` ranks of its model line.
+Each rank takes views of its model slices from the decoded leaves
+(:func:`~repro_torch.sharding.partition.take_model_slices`), so its
+gradient lands in its slices of the whole leaves and is zero elsewhere; a
+leaf every rank computes whole (norms, the router) gets its whole
+gradient on every rank of the line, and only the line's first rank
+(model position 0) keeps it. The reduce-scatter's sum then holds each
+data shard's gradient once, and one divisor, the data positions, makes
+the mean. The loss, the same on every rank of a line, is counted at model
+position 0 alone. A ``(n, 1)`` mesh (the survivor mesh) has ``tp = 1``:
+every rank runs the whole forward on its own rows.
+
+The PyTree step, whose every rank holds the whole tree, reduces its
+gradient through the same reduce-scatter (the same collective in the same
+order: gloo's all-reduce and reduce-scatter need not associate alike),
+all-gathers the reduced spans and updates the tree in place, slice by
+slice (the arena path's apply does the same; out of place, a full-width
+tree, its moments and their new copies do not fit four ranks on one
+card), so the two paths stay bit-equal on one mesh. A one-rank mesh is
+the single-device step bit for bit.
 """
 from __future__ import annotations
 
@@ -54,10 +69,12 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.arena import (accumulate_values, pack_values,
                                     unpack_arena)
+from repro_torch.data.pipeline import data_shard, model_parallel
 from repro_torch.models.api import ModelOps
 from repro_torch.models.layers import torch_dtype
 from repro_torch.optim.optimizers import (APPLY_SLICE, Optimizer, OptState,
                                           arena_apply)
+from repro_torch.sharding.partition import model_slices, take_model_slices
 from repro_torch.training.train_state import ArenaTrainState, TrainState
 from repro_torch.utils.tree import tree_flatten, tree_map, tree_unflatten
 
@@ -65,25 +82,38 @@ PyTree = Any
 
 
 def _grad_leaves(ops: ModelOps, cfg: ModelConfig, params: PyTree,
-                 batch: dict) -> tuple[torch.Tensor, list, Any]:
+                 batch: dict, ctx=None) -> tuple[torch.Tensor, list, Any]:
     """The loss of ``batch`` and its gradient with respect to every leaf of
     ``params``, as a list in leaf order (leaves the loss does not reach
     get zeros), and the tree's structure. The leaves are taken as they
-    are (aliases that require grad; nothing is copied)."""
+    are (aliases that require grad; nothing is copied). With a
+    model-parallel ``ctx`` the loss runs on views of this rank's model
+    slices and a leaf computed whole keeps its gradient at model position
+    0 only (see the module docstring)."""
     leaves, treedef = tree_flatten(params)
     leaves = [x.detach().requires_grad_(True) for x in leaves]
+    tree = tree_unflatten(treedef, leaves)
     with torch.enable_grad():
-        loss = ops.train_loss(tree_unflatten(treedef, leaves), batch, cfg)
+        if ctx is None:
+            loss = ops.train_loss(tree, batch, cfg)
+        else:
+            slices = model_slices(tree, ctx)
+            loss = ops.train_loss(take_model_slices(tree, slices), batch,
+                                  cfg, ctx=ctx)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     grads = [torch.zeros_like(x) if g is None else g
              for x, g in zip(leaves, grads)]
+    if ctx is not None and ctx.mesh.axis_position(ctx.tp) != 0:
+        for g, s in zip(grads, tree_flatten(slices)[0]):
+            if not s:
+                g.zero_()
     return loss.detach(), grads, treedef
 
 
 def loss_and_grad(ops: ModelOps, cfg: ModelConfig, params: PyTree,
-                  batch: dict) -> tuple[torch.Tensor, PyTree]:
+                  batch: dict, ctx=None) -> tuple[torch.Tensor, PyTree]:
     """The loss of ``batch`` and its gradient tree (:func:`_grad_leaves`)."""
-    loss, grads, treedef = _grad_leaves(ops, cfg, params, batch)
+    loss, grads, treedef = _grad_leaves(ops, cfg, params, batch, ctx)
     return loss, tree_unflatten(treedef, grads)
 
 
@@ -92,18 +122,36 @@ def _microbatches(batch: dict, mb: int) -> list[dict]:
              for k, v in batch.items()} for i in range(mb)]
 
 
-def _mean_loss(loss: torch.Tensor, comm) -> torch.Tensor:
-    """The ranks' mean loss (the loss itself on one rank)."""
+def _mesh_terms(cfg: ModelConfig, comm, ctx):
+    """The model-parallel ctx of a step on ``comm``'s mesh (None when the
+    forward is not split over a ``model`` axis) and the number of batch
+    shards its gradient and loss are averaged over."""
+    if comm is None:
+        return None, 1
+    tp_ctx = ctx if model_parallel(cfg, ctx) else None
+    if tp_ctx is None:
+        return None, comm.n
+    return tp_ctx, data_shard(comm.mesh, True)[0]
+
+
+def _mean_loss(loss: torch.Tensor, comm, tp_ctx, shards: int
+               ) -> torch.Tensor:
+    """The batch shards' mean loss (the loss itself on one rank): each
+    shard's loss counted once, at model position 0 of its line."""
     if comm is None or comm.n == 1:
         return loss
-    return comm.all_reduce(loss.reshape(1).clone())[0] / comm.n
+    mine = loss.reshape(1).clone()
+    if tp_ctx is not None and tp_ctx.mesh.axis_position(tp_ctx.tp) != 0:
+        mine.zero_()
+    return comm.all_reduce(mine)[0] / shards
 
 
-def _reduced_span(grads: torch.Tensor, comm) -> torch.Tensor:
-    """This rank's span of the ranks' mean gradient (value domain)."""
+def _reduced_span(grads: torch.Tensor, comm, shards: int) -> torch.Tensor:
+    """This rank's span of the batch shards' mean gradient (value
+    domain)."""
     span = comm.reduce_scatter(grads)
-    if comm.n > 1:
-        span.div_(comm.n)
+    if shards > 1:
+        span.div_(shards)
     return span
 
 
@@ -133,22 +181,24 @@ def _update_in_place(optimizer: Optimizer, grads: PyTree,
 
 
 def make_train_step(ops: ModelOps, cfg: ModelConfig, optimizer: Optimizer,
-                    layout=None, comm=None):
+                    layout=None, comm=None, ctx=None):
     """The PyTree step: ``(TrainState, batch) -> (TrainState', loss)``.
-    On a mesh (``comm``) the gradient is reduced through the arena
-    ``layout``'s value domain (see the module docstring)."""
+    On a mesh (``comm``, and its ``ctx``) the gradient is reduced through
+    the arena ``layout``'s value domain (see the module docstring)."""
+    tp_ctx, shards = _mesh_terms(cfg, comm, ctx)
 
     def train_step(state: TrainState, batch: dict):
         mb = max(cfg.microbatch, 1)
         if mb == 1:
-            loss, grads = loss_and_grad(ops, cfg, state.params, batch)
+            loss, grads = loss_and_grad(ops, cfg, state.params, batch,
+                                        tp_ctx)
         else:
             acc_dtype = torch_dtype(cfg.opt_moment_dtype)
             gacc = tree_map(lambda p: torch.zeros(
                 p.shape, dtype=acc_dtype, device=p.device), state.params)
             loss_sum = 0.0
             for bx in _microbatches(batch, mb):
-                l, g = loss_and_grad(ops, cfg, state.params, bx)
+                l, g = loss_and_grad(ops, cfg, state.params, bx, tp_ctx)
                 gacc = tree_map(lambda a, x: (a.to(torch.float32)
                                               + x.to(torch.float32)
                                               ).to(a.dtype), gacc, g)
@@ -158,11 +208,11 @@ def make_train_step(ops: ModelOps, cfg: ModelConfig, optimizer: Optimizer,
         if comm is not None:
             packed = pack_values(grads, layout)
             del grads
-            span = _reduced_span(packed, comm)
+            span = _reduced_span(packed, comm, shards)
             del packed
             grads = unpack_arena(comm.all_gather(span).view(torch.int32),
                                  layout, copy=False)
-            loss = _mean_loss(loss, comm)
+            loss = _mean_loss(loss, comm, tp_ctx, shards)
             opt_state = _update_in_place(optimizer, grads, state)
             return TrainState(state.params, opt_state, state.step + 1), loss
         params, opt_state = optimizer.update(grads, state.opt_state,
@@ -173,7 +223,7 @@ def make_train_step(ops: ModelOps, cfg: ModelConfig, optimizer: Optimizer,
 
 
 def make_arena_train_step(ops: ModelOps, cfg: ModelConfig,
-                          optimizer: Optimizer, layout, comm=None):
+                          optimizer: Optimizer, layout, comm=None, ctx=None):
     """The arena-native step: ``(ArenaTrainState, batch) -> (state',
     loss)``, the arena and the moment buffers updated in place (on a mesh,
     ``comm``: the rank's spans of them).
@@ -184,6 +234,7 @@ def make_arena_train_step(ops: ModelOps, cfg: ModelConfig,
     elementwise arithmetic, re-encoded through each leaf's stored dtype as
     the tree path's ``.to(p.dtype)``."""
     acc: list = []          # the microbatched step's accumulator, reused
+    tp_ctx, shards = _mesh_terms(cfg, comm, ctx)
 
     def train_step(state: ArenaTrainState, batch: dict):
         # views of the arena where they can be: nothing writes it before
@@ -192,7 +243,7 @@ def make_arena_train_step(ops: ModelOps, cfg: ModelConfig,
         params = unpack_arena(full, layout, copy=False)
         mb = max(cfg.microbatch, 1)
         if mb == 1:
-            loss, g = loss_and_grad(ops, cfg, params, batch)
+            loss, g = loss_and_grad(ops, cfg, params, batch, tp_ctx)
             # on a mesh the gathered arena goes before the pack: the
             # gradient leaves are tensors of their own
             del params, full
@@ -211,7 +262,7 @@ def make_arena_train_step(ops: ModelOps, cfg: ModelConfig,
                 acc.append(grads)
             loss_sum = 0.0
             for bx in _microbatches(batch, mb):
-                l, g, _ = _grad_leaves(ops, cfg, params, bx)
+                l, g, _ = _grad_leaves(ops, cfg, params, bx, tp_ctx)
                 accumulate_values(grads, g, layout)
                 loss_sum = loss_sum + l
             loss = loss_sum / mb
@@ -219,8 +270,8 @@ def make_arena_train_step(ops: ModelOps, cfg: ModelConfig,
             del params, full
         runs = None
         if comm is not None:
-            grads = _reduced_span(grads, comm)
-            loss = _mean_loss(loss, comm)
+            grads = _reduced_span(grads, comm, shards)
+            loss = _mean_loss(loss, comm, tp_ctx, shards)
             runs = layout.span_runs(comm.pos)
         arena, opt_state = arena_apply(optimizer, grads, state.opt_state,
                                        state.arena, layout, runs=runs)

@@ -46,7 +46,13 @@ is present rather than moving to the CPU).
 DistContext` whose mesh is one ``torch.distributed`` rank a position) the
 arena-resident state is flat-sharded over every rank (each holds its span
 of the arena and of the moments; :mod:`repro_torch.training.step` gathers
-the arena for the forward and reduce-scatters the gradient), the initial
+the arena for the forward and reduce-scatters the gradient). The dense,
+MoE and VLM families split their forward over the mesh's ``model`` axis
+(tensor and expert parallelism, each rank on its model slices of the
+gathered leaves) and their batch over the data positions; the mesh's
+process groups (its ``model`` and ``data`` lines) are made with it, and
+a shrink to the ``(n, 1)`` survivor mesh collapses the ``model`` axis:
+every survivor runs the whole forward on its own rows. The initial
 weights come from one source (``params``, or the mesh's first rank's draw,
 broadcast), and the controller's fabric sweeps each rank's span. The
 PyTree state holds the whole tree on every rank. **The elastic mesh**
@@ -77,7 +83,10 @@ from repro_torch.core.policy import CheckpointPolicy
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import get_model
 from repro_torch.optim.optimizers import Optimizer, OptState, adamw
-from repro_torch.sharding.partition import DistContext, single_device_ctx
+from repro_torch.data.pipeline import model_parallel
+from repro_torch.sharding.partition import (DistContext,
+                                            check_tensor_parallel,
+                                            make_dist_ctx, single_device_ctx)
 from repro_torch.telemetry.recorder import NULL_RECORDER, Histogram
 from repro_torch.training.step import make_arena_train_step, make_train_step
 from repro_torch.training.train_state import ArenaTrainState, TrainState
@@ -192,6 +201,9 @@ class TrainLoop:
         # logical device at each of its positions, whether a resize has
         # happened, and this rank's collectives on it (None outside it)
         self._base_mesh = self._cur_mesh = self.ctx.mesh
+        self._cur_ctx = self.ctx
+        if model_parallel(cfg, self.ctx):
+            check_tensor_parallel(cfg, self.ctx.tp_size)
         self._mesh_logical = (None if self._base_mesh is None else
                               np.arange(self._base_mesh.size, dtype=np.int32))
         self._mesh_resized = False
@@ -254,7 +266,7 @@ class TrainLoop:
             if not self.loop_cfg.arena_state:
                 self._train_step = make_train_step(
                     self.ops, self.cfg, self.optimizer,
-                    self.controller.arena_layout, self._comm)
+                    self.controller.arena_layout, self._comm, self.ctx)
                 return TrainState.create(params, self.optimizer)
         if (self.loop_cfg.arena_state and self.controller is not None
                 and self.controller.arena_ready):
@@ -263,7 +275,7 @@ class TrainLoop:
             self.arena_layout = self.controller.arena_layout
             self._arena_step = make_arena_train_step(
                 self.ops, self.cfg, self.optimizer, self.arena_layout,
-                self._comm)
+                self._comm, self.ctx)
             arena = self.controller.pack_live(params)
             del params
             return ArenaTrainState.create(arena, self.optimizer,
@@ -329,7 +341,8 @@ class TrainLoop:
         """The rank's slice of the global batch on the current (shrunk)
         mesh; None outside it."""
         from repro_torch.data.pipeline import slice_batch
-        return slice_batch(batch.global_rows, self._cur_mesh, self.device)
+        return slice_batch(batch.global_rows, self._cur_mesh, self.device,
+                           model_parallel(self.cfg, self._cur_ctx))
 
     def _idle(self, state):
         """A step of a rank outside the mesh: nothing computed, the step
@@ -355,7 +368,10 @@ class TrainLoop:
         """Shrink or re-grow the mesh to the fabric's alive devices.
 
         The survivor count is the largest k <= alive that divides the
-        global batch; the survivors keep their logical ids. The arena and
+        global batch; the survivors keep their logical ids, on a ``(k,
+        1)`` mesh (``tp = 1``: each runs the whole forward on its rows),
+        and a whole re-grow returns to the base mesh and its ctx. The
+        arena and
         the moments move to the new layout bit for bit (one all-to-all
         each, :func:`~repro_torch.distributed.collectives.respan`), the
         step is rebuilt for the new mesh, the controller's checkpoint
@@ -391,8 +407,12 @@ class TrainLoop:
                           torch.int32 if words else torch.float32, dev)
 
         opt = state.opt_state
-        moments = tuple(move(m, False) if isinstance(m, torch.Tensor)
-                        or m is None else m for m in (opt.mu, opt.nu))
+        # the optimizer's moments move (a rank outside the old mesh holds
+        # None and takes part); those it does not have (sgd: none,
+        # momentum: one) stay None on every rank
+        n = self.optimizer.n_moments
+        moments = tuple(move(m, False) if i < n else m
+                        for i, m in enumerate((opt.mu, opt.nu)))
         arena = move(state.arena, True)
         # the caller's state is spent: let its old spans go now
         state.arena = state.opt_state = None
@@ -404,8 +424,11 @@ class TrainLoop:
         self._mesh_resized = True
         member = new_mesh.is_member()
         self._comm = MeshComm(new_mesh) if member else None
+        self._cur_ctx = (self.ctx if new_mesh is self._base_mesh
+                         else make_dist_ctx(new_mesh))
         self._arena_step = make_arena_train_step(
-            self.ops, self.cfg, self.optimizer, new, self._comm)
+            self.ops, self.cfg, self.optimizer, new, self._comm,
+            self._cur_ctx)
         self.arena_layout = new
         self.controller.rebind_arena(old_ranks, new_ranks)
         if dev.type == "cuda":

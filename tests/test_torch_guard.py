@@ -240,7 +240,9 @@ def test_trainer_defaults_to_cuda_and_names_its_roadmap_items(tmp_path):
     """The LM trainer runs on the card unless asked otherwise, and raises
     where no CUDA device is present; with a store and async maintenance
     (items 11 and 12) it builds and runs; ``elastic_mesh=True`` without a
-    mesh raises, and ``moe_block`` on a mesh names ROADMAP item 38."""
+    mesh raises; ``moe_block`` on a one-rank mesh is the ctx-less call
+    (the expert-parallel MoE, item 38, is ported) and no port file names
+    items 15 or 38 any more."""
     from repro_torch.data import ShardedLMDataset
     cfg = get_config("qwen2-1.5b", reduced=True)
     if torch.cuda.is_available():
@@ -262,17 +264,24 @@ def test_trainer_defaults_to_cuda_and_names_its_roadmap_items(tmp_path):
     assert loop.controller.fabric.stats["async_maintains"] == 1
     assert not loop.controller.fabric.has_pending_maintenance
     # the elastic mesh (item 15) is ported: asked for without a mesh it
-    # is a configuration error at run(), not a silent no-op; the
-    # expert-parallel MoE on a mesh is item 38
+    # is a configuration error at run(), not a silent no-op
     loop = TrainLoop(cfg, loop_cfg=TrainLoopConfig(
         policy=CheckpointPolicy.scar(0.25, 4), elastic_mesh=True,
         fabric=FabricConfig(elastic=True)), device="cpu")
     with pytest.raises(ValueError, match="elastic_mesh=True"):
         loop.run(loop.init_state(), iter(DS(cfg, 2, 8, device="cpu")), 1)
-    from repro_torch.models.layers import moe_block
+    from repro_torch.models.layers import init_moe, moe_block
+    from repro_torch.sharding.partition import make_dist_ctx
     moe_cfg = get_config("qwen3-moe-235b-a22b", reduced=True)
-    with pytest.raises(NotImplementedError, match="item 38"):
-        moe_block(torch.zeros(1, 2, moe_cfg.d_model), {}, moe_cfg,
-                  mesh=survivor_mesh([0]))
+    p = init_moe(torch.Generator().manual_seed(0), moe_cfg, torch.float32,
+                 "cpu")
+    x = torch.randn((1, 6, moe_cfg.d_model),
+                    generator=torch.Generator().manual_seed(1))
+    o0, aux0 = moe_block(x, p, moe_cfg)
+    o1, aux1 = moe_block(x, p, moe_cfg, make_dist_ctx(survivor_mesh([0])))
+    assert torch.equal(o0, o1)
+    assert all(torch.equal(a, b) for a, b in zip(aux0, aux1))
     for path in FILES:
-        assert "ROADMAP item 15" not in path.read_text(), path
+        text = path.read_text()
+        assert "ROADMAP item 15" not in text, path
+        assert "ROADMAP item 38" not in text and "item 38" not in text, path

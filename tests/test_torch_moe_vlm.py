@@ -214,13 +214,21 @@ def test_decode_step_moe_at_capacity_one():
 
 
 def test_moe_mesh_branch_names_item_15():
-    """The mesh is ported (item 15); its expert-parallel MoE branch is
-    ROADMAP item 38, and ``moe_block`` on a mesh raises naming it."""
+    """The mesh is ported (item 15) and so is its expert-parallel MoE
+    branch: ``moe_block`` with the ctx of a one-position mesh (its
+    ``model`` axis splits nothing) is the ctx-less call bit for bit, on
+    the reference's draw (the many-rank branch is held in
+    ``tests/test_torch_mesh_tp.py``)."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.sharding.partition import make_dist_ctx
     cfg = get_config(MOE_ARCHS[0], reduced=True)
     p = from_numpy_tree(_moe_params(j_get_config(MOE_ARCHS[0], True)), "cpu")
-    with pytest.raises(NotImplementedError, match="item 38"):
-        layers.moe_block(torch.zeros((1, 2, cfg.d_model)), p, cfg,
-                         mesh=object())
+    x = torch.from_numpy(_x(cfg, (1, 4), seed=5))
+    o0, (lb0, zl0) = layers.moe_block(x, p, cfg)
+    o1, (lb1, zl1) = layers.moe_block(x, p, cfg,
+                                      make_dist_ctx(make_host_mesh()))
+    assert torch.equal(o0, o1) and torch.equal(lb0, lb1) \
+        and torch.equal(zl0, zl1)
 
 
 def test_prefill_and_decode_match_reference(models):
