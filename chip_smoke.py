@@ -5644,21 +5644,12 @@ def _moe_mesh_yardstick(device, opts: dict, work: Path) -> dict:
     """Phase 31(a)'s yardstick on one rank in this process: the weights,
     the batch and the MoE block's input drawn from the seed and written
     under ``work`` for the ranks; the MoE block on each data shard's x
-    alone, its output and the (token, expert) pairs each expert kept; the
-    loss and gradient with the batch run as 2 microbatches (the data
-    shards' contiguous halves: the mean of their losses and gradients), in
-    the model's bf16 and again with the same weights in f32. The f32
-    gradient (written in the leaves' dtypes) stands in for the exact one:
-    one device's bf16 gradient is some way off it on every leaf
-    (``bf16_floor``), and the ranks' bf16 gradient is held to it with
-    that floor beside ``MOE_MESH_GRAD_L2``."""
-    import dataclasses
+    alone, its output and the (token, expert) pairs each expert kept; then
+    :func:`_tp_yardstick`."""
     import torch
     from repro_torch.models import get_model
     from repro_torch.models import layers as L
-    from repro_torch.utils.tree import (flatten_with_path, keystr,
-                                        tree_flatten, tree_map,
-                                        tree_unflatten)
+    from repro_torch.utils.tree import tree_flatten
     cfg = _moe_mesh_cfg(opts)
     ops = get_model(cfg)
     B, S = opts["batch"], opts["seq"]
@@ -5688,9 +5679,40 @@ def _moe_mesh_yardstick(device, opts: dict, work: Path) -> dict:
                                 L.moe_capacity(n, cfg))[-1].to(torch.int32))
     _save_bits({"out": torch.stack(outs), "kept": torch.stack(kept)},
                work / "moe")
-    del outs, kept, moe
+    del outs, kept, moe, x
+    held = {"params": params}
+    del params
+    out.update(_tp_yardstick(cfg, held, _lm_rows(toks), work))
+    return out
+
+
+def _lm_rows(toks, **extra) -> dict:
+    """The batch of token rows ``toks`` (B, S + 1): ``tokens``, ``labels``
+    (shifted by one) and any ``extra`` keys (whisper's ``frames``)."""
+    return {"tokens": toks[:, :-1], "labels": toks[:, 1:], **extra}
+
+
+def _tp_yardstick(cfg, held: dict, batch: dict, work: Path) -> dict:
+    """The loss and gradient of ``batch`` with ``held["params"]`` on one
+    rank, the batch run as 2 microbatches (the data shards' contiguous
+    halves: the mean of their losses and gradients), in the model's dtype
+    and again with the same weights in f32. The f32 gradient (written
+    under ``work`` in the leaves' dtypes) stands in for the exact one: one
+    device's bf16 gradient is some way off it on every leaf
+    (``bf16_floor``), and the ranks' bf16 gradient is held to it with
+    that floor beside ``MOE_MESH_GRAD_L2``. The weights are taken out of
+    ``held``, so the model-dtype copy goes when the f32 one is made."""
+    import dataclasses
+    import torch
+    from repro_torch.models import get_model
+    from repro_torch.utils.tree import (flatten_with_path, keystr, tree_map,
+                                        tree_unflatten)
+    ops = get_model(cfg)
+    cuda = next(iter(batch.values())).is_cuda
+    params = held.pop("params")
+    out = {}
     t0 = time.perf_counter()
-    loss, grads, treedef = _two_halves(ops, cfg, params, toks)
+    loss, grads, treedef = _two_halves(ops, cfg, params, batch)
     out["loss_and_grad_seconds"] = time.perf_counter() - t0
     out["loss"], out["shard_losses"] = loss
     # the exact gradient's stand-in: the same weights, batch and halves in
@@ -5699,7 +5721,7 @@ def _moe_mesh_yardstick(device, opts: dict, work: Path) -> dict:
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     params = tree_map(lambda t: t.float(), params)
     t0 = time.perf_counter()
-    loss32, exact, _ = _two_halves(get_model(cfg32), cfg32, params, toks)
+    loss32, exact, _ = _two_halves(get_model(cfg32), cfg32, params, batch)
     out["f32_loss_and_grad_seconds"] = time.perf_counter() - t0
     out["f32_loss"] = loss32[0]
     del params
@@ -5718,20 +5740,20 @@ def _moe_mesh_yardstick(device, opts: dict, work: Path) -> dict:
     return out
 
 
-def _two_halves(ops, cfg, params, toks):
-    """``loss_and_grad`` of the batch ``toks`` run as its 2 contiguous
-    halves (the data shards): ((the mean loss, the halves' losses), the
-    mean gradient's leaves, added in f32 and stored in the leaves' dtypes,
-    the tree's structure)."""
+def _two_halves(ops, cfg, params, batch: dict):
+    """``loss_and_grad`` of ``batch`` run as its 2 contiguous halves (the
+    data shards): ((the mean loss, the halves' losses), the mean
+    gradient's leaves, added in f32 and stored in the leaves' dtypes, the
+    tree's structure)."""
     import torch
     from repro_torch.training.step import loss_and_grad
     from repro_torch.utils.tree import tree_flatten
-    half = toks.shape[0] // 2
+    half = next(iter(batch.values())).shape[0] // 2
     losses, acc = [], None
     for d in range(2):
         sl = slice(d * half, (d + 1) * half)
-        loss, g = loss_and_grad(ops, cfg, params, {
-            "tokens": toks[sl, :-1], "labels": toks[sl, 1:]})
+        loss, g = loss_and_grad(ops, cfg, params,
+                                {k: v[sl] for k, v in batch.items()})
         losses.append(float(loss))
         g, treedef = tree_flatten(g)
         if acc is None:
@@ -5741,7 +5763,7 @@ def _two_halves(ops, cfg, params, toks):
             for a, t in zip(acc, g):
                 a.add_(t.float())
         del g
-    if toks.is_cuda:
+    if next(iter(batch.values())).is_cuda:
         torch.cuda.synchronize()
     return ((sum(losses) / 2, losses),
             [a.div_(2).to(dt) for a, dt in zip(acc, dtypes)], treedef)
@@ -5751,27 +5773,16 @@ def _moe_mesh_full(device, opts: dict) -> dict:
     """Phase 31(a) on one rank: this rank's model slices placed from the
     yardstick's files (``model_slices``, ``interop.from_numpy_tree``: no
     rank reads or holds the whole model), the MoE block on its data
-    shard's x, then one step's forward and backward on its data shard and
-    the gradient's mean over the data line, each slice held against the
-    yardstick's."""
-    import numpy as np
+    shard's x, then :func:`_tp_step`."""
     import torch
-    from repro_torch.data.pipeline import slice_batch
-    from repro_torch.distributed import collectives
-    from repro_torch.distributed.collectives import MeshComm
-    from repro_torch.interop import from_numpy_tree
     from repro_torch.launch.mesh import make_host_mesh
-    from repro_torch.models import get_model
     from repro_torch.models import layers as L
     from repro_torch.sharding.partition import make_dist_ctx, model_slices
-    from repro_torch.utils.tree import (flatten_with_path, keystr,
-                                        tree_flatten, tree_unflatten)
+    from repro_torch.utils.tree import tree_flatten
     work = Path(opts["work"])
     cfg = _moe_mesh_cfg(opts)
-    ops = get_model(cfg)
     mesh = make_host_mesh(model=MOE_MESH["model"])
     ctx = make_dist_ctx(mesh)
-    cuda = device.type == "cuda"
     d, m = mesh.axis_position("data"), mesh.axis_position("model")
     slices = model_slices(_bits_shapes(work / "params"), ctx)
     t0 = time.perf_counter()
@@ -5780,12 +5791,10 @@ def _moe_mesh_full(device, opts: dict) -> dict:
            "held_values": sum(t.numel() for t in tree_flatten(params)[0])}
     inputs = _load_bits(work / "inputs", device)
     half = opts["batch"] // 2
-    rows = {"tokens": inputs["tokens"][:, :-1].cpu().numpy(),
-            "labels": inputs["tokens"][:, 1:].cpu().numpy()}
-    batch = dict(slice_batch(rows, mesh, device, True))
+    rows = {k: v.cpu().numpy() for k, v in _lm_rows(inputs["tokens"]).items()}
     x = inputs["x"][d * half:(d + 1) * half].contiguous()
     del inputs
-    if cuda:
+    if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
 
     # the MoE block alone on the data shard's x
@@ -5807,9 +5816,53 @@ def _moe_mesh_full(device, opts: dict) -> dict:
     check(out["moe_out_ulps"] <= 1.0, f"rank {mesh.position()}: the MoE "
           f"block is {out['moe_out_ulps']} bf16 ulps off the yardstick's")
     del yard, o, kept, want_kept, moe, x
+    out.update(_tp_step(device, cfg, ctx, params, slices, rows, work))
+    return out
 
-    # one step: the forward and backward on the rank's slices and data
-    # shard, then the gradient's mean over the data line
+
+def _shared_ranges(shapes, ctx) -> list:
+    """For each leaf of ``shapes``, in leaf order, ``(dim, ranges)``: the
+    ranges of this rank's cut leaf, in its own indices, that every model
+    position holds (a Mamba2 ``in_proj``'s B and C columns). Each rank's
+    gradient there is its own heads' part; the line's sum is the
+    gradient."""
+    from repro_torch.sharding.partition import model_slices
+    from repro_torch.utils.tree import tree_flatten
+    per = [tree_flatten(model_slices(shapes, ctx, p))[0]
+           for p in range(ctx.tp_size)]
+    mine = per[ctx.mesh.axis_position(ctx.tp)]
+    out = []
+    for i, s in enumerate(mine):
+        local, off = [], 0
+        for lo, hi in (s.ranges if s else ()):
+            if all((lo, hi) in p[i].ranges for p in per):
+                local.append((off, off + hi - lo))
+            off += hi - lo
+        out.append((s[0] if s else None, local))
+    return out
+
+
+def _tp_step(device, cfg, ctx, params, slices, rows: dict, work: Path
+             ) -> dict:
+    """One step of the TP forward on a rank: the forward and backward of
+    its data shard of ``rows`` (the global batch's host arrays) on its
+    model slices ``params`` (let go here), then the gradient's mean over
+    the data line, each slice held against the yardstick's under
+    ``work`` (:func:`_tp_yardstick`); where every rank of the model line
+    holds a range (:func:`_shared_ranges`) the line's sum of the mean."""
+    import torch
+    from repro_torch.data.pipeline import slice_batch
+    from repro_torch.distributed import collectives
+    from repro_torch.distributed.collectives import MeshComm, model_axis
+    from repro_torch.interop import from_numpy_tree
+    from repro_torch.models import get_model
+    from repro_torch.utils.tree import (flatten_with_path, keystr,
+                                        tree_flatten, tree_unflatten)
+    ops = get_model(cfg)
+    mesh = ctx.mesh
+    cuda = device.type == "cuda"
+    batch = dict(slice_batch(rows, mesh, device, True))
+    out = {}
     flat, treedef = tree_flatten(params)
     leaves = [t.detach().requires_grad_(True) for t in flat]
     del flat, params
@@ -5820,7 +5873,7 @@ def _moe_mesh_full(device, opts: dict) -> dict:
                                   cfg, ctx=ctx)
             return loss, list(torch.autograd.grad(loss, leaves))
     # an untimed first step: the first call's library set-up took 8 s of
-    # the yardstick's 9.5 s (its second call, in f32, 1.4 s)
+    # phase 31's yardstick's 9.5 s (its second call, in f32, 1.4 s)
     fwd_bwd()
     collectives.reset_stats()
     if cuda:
@@ -5832,6 +5885,7 @@ def _moe_mesh_full(device, opts: dict) -> dict:
     out["fwd_bwd_seconds"] = time.perf_counter() - t0
     del leaves
     data = MeshComm(mesh.axis_mesh("data"))
+    line = model_axis(ctx).comm
     loss_mean = data.all_reduce(loss.detach().reshape(1).clone(),
                                 name="data_loss_mean")[0] / data.n
     # leaf by leaf: the data line's mean (gathered as raw bytes, added in
@@ -5840,6 +5894,7 @@ def _moe_mesh_full(device, opts: dict) -> dict:
         tree_unflatten(treedef, grads))[0]]
     yard = tree_flatten(_bits_shapes(work / "grads"))[0]
     cuts = tree_flatten(slices)[0]
+    shared = _shared_ranges(_bits_shapes(work / "params"), ctx)
     worst, worst_leaf, t_mean, by_leaf = 0.0, "", 0.0, {}
     for i, path in enumerate(paths):
         g, grads[i] = grads[i], None
@@ -5852,7 +5907,11 @@ def _moe_mesh_full(device, opts: dict) -> dict:
         acc = parts[0].float()
         for k in range(1, data.n):
             acc.add_(parts[k].float())
-        acc.div_(data.n)
+        acc = acc.div_(data.n).view(g.shape)
+        dim, local = shared[i]
+        for lo, hi in local:
+            part = acc.narrow(dim, lo, hi - lo)
+            part.copy_(line.summed(part.contiguous(), "model_shared_grad"))
         if cuda:
             torch.cuda.synchronize()
         t_mean += time.perf_counter() - t1
@@ -5861,7 +5920,7 @@ def _moe_mesh_full(device, opts: dict) -> dict:
         w = w.view(g.dtype) if w.dtype != g.dtype else w
         check(bool(torch.isfinite(acc).all()), f"rank {mesh.position()}: "
               f"non-finite gradient at {path}")
-        r = _rel_l2(acc, w.reshape(-1))
+        r = _rel_l2(acc.reshape(-1), w.reshape(-1))
         by_leaf[path] = r
         if r > worst:
             worst, worst_leaf = r, path
@@ -5972,8 +6031,9 @@ def _moe_mesh_rank_body(rank: int, opts: dict) -> dict:
 
 def _moe_mesh_rank(rank: int, world: int, rdv: str, out_dir: str,
                    opts: dict) -> None:
-    """Spawned rank of phase 31: joins the gloo group, runs
-    :func:`_moe_mesh_rank_body`, writes its report."""
+    """Spawned rank of phase 31 or 32 (``opts["phase"]``): joins the gloo
+    group, runs :func:`_moe_mesh_rank_body` or
+    :func:`_ssm_mesh_rank_body`, writes its report."""
     import datetime
     import torch
     import torch.distributed as dist
@@ -5983,10 +6043,40 @@ def _moe_mesh_rank(rank: int, world: int, rdv: str, out_dir: str,
         "gloo", init_method=f"file://{rdv}", rank=rank, world_size=world,
         timeout=datetime.timedelta(seconds=MOE_MESH["timeout"]))
     try:
-        out = _moe_mesh_rank_body(rank, opts)
+        body = (_ssm_mesh_rank_body if opts.get("phase") == 32
+                else _moe_mesh_rank_body)
+        out = body(rank, opts)
         Path(out_dir, f"rank{rank}.json").write_text(json.dumps(out))
     finally:
         dist.destroy_process_group()
+
+
+def _mesh_ranks(work: Path, opts: dict, phase: str) -> tuple[list, float]:
+    """Spawn phase 31's or 32's 4 ranks (:func:`_moe_mesh_rank`) on the
+    card, join them within ``MOE_MESH["timeout"]`` seconds (stopping any
+    left), and return their reports in rank order and the seconds from
+    the spawn to the join."""
+    import torch.multiprocessing as mp
+    rdv = work / "rendezvous"
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    t0 = time.perf_counter()
+    procs = mp.start_processes(
+        _moe_mesh_rank, args=(MOE_MESH["ranks"], str(rdv), str(work), opts),
+        nprocs=MOE_MESH["ranks"], join=False, start_method="spawn")
+    deadline = time.monotonic() + MOE_MESH["timeout"]
+    try:
+        while not procs.join(timeout=5):
+            if time.monotonic() > deadline:
+                raise AssertionError(f"phase {phase}: the ranks did not "
+                                     f"finish in {MOE_MESH['timeout']} s")
+    finally:
+        for p in procs.processes:
+            if p.is_alive():
+                p.terminate()
+                p.join(30)
+    wall = time.perf_counter() - t0
+    return [json.loads((work / f"rank{r}.json").read_text())
+            for r in range(MOE_MESH["ranks"])], wall
 
 
 def _moe_mesh_one_rank(device, name: str, work: Path) -> list:
@@ -6048,7 +6138,6 @@ def phase_moe_mesh(device, launches: dict, card: str, opts=None) -> dict:
     the step's seconds, each collective's calls, bytes, seconds and staged
     bytes. A failed rank or collective fails the phase."""
     import torch
-    import torch.multiprocessing as mp
     t_phase = time.perf_counter()
     work = ROOT / "build" / f"moe_mesh_{os.getpid()}"
     work.mkdir(parents=True, exist_ok=True)
@@ -6063,27 +6152,7 @@ def phase_moe_mesh(device, launches: dict, card: str, opts=None) -> dict:
         gc.collect()
         if device.type == "cuda":
             torch.cuda.empty_cache()
-        rdv = work / "rendezvous"
-        os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
-        t0 = time.perf_counter()
-        procs = mp.start_processes(
-            _moe_mesh_rank, args=(MOE_MESH["ranks"], str(rdv), str(work),
-                                  opts),
-            nprocs=MOE_MESH["ranks"], join=False, start_method="spawn")
-        deadline = time.monotonic() + MOE_MESH["timeout"]
-        try:
-            while not procs.join(timeout=5):
-                if time.monotonic() > deadline:
-                    raise AssertionError(f"phase 31: the ranks did not "
-                                         f"finish in {MOE_MESH['timeout']} s")
-        finally:
-            for p in procs.processes:
-                if p.is_alive():
-                    p.terminate()
-                    p.join(30)
-        wall = time.perf_counter() - t0
-        ranks = [json.loads((work / f"rank{r}.json").read_text())
-                 for r in range(MOE_MESH["ranks"])]
+        ranks, wall = _mesh_ranks(work, opts, "31")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -6183,6 +6252,266 @@ def moe_mesh_only(device, card: str) -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# phase 32: tensor parallelism for the ssm, hybrid and encoder-decoder
+# families on a mesh
+# ---------------------------------------------------------------------------
+
+# (a) each config at full width on phase 31's (2, 2) mesh of 4 ranks, bf16,
+# a global batch of 4 sequences in data shards of 2, microbatch 1, one
+# step's forward, backward and data mean, as 31(a): zamba2-1.2b's first
+# segment (6 of its 38 Mamba2 layers and one application of the shared
+# block) on 2,048 tokens; whisper-medium with 2 + 2 of its 24 + 24 layers
+# on 1,500 frames and 448 tokens (its 51,865-row vocab splits over no model
+# axis: the embedding, the head and the loss whole on every rank)
+SSM_MESH = dict(archs=(("zamba2-1.2b", dict(n_layers=6), 2048),
+                       ("whisper-medium", dict(n_layers=2, enc_layers=2),
+                        448)),
+                batch=4, seed=32)
+# (b) the reduced trainers through 31(b)'s host loss and heal
+SSM_MESH_TRAIN = ("mamba2-370m", "zamba2-1.2b", "whisper-medium")
+
+
+def _ssm_mesh_cfg(name: str, cut: dict, opts: dict):
+    """Phase 32(a)'s config of ``name``, its depth ``cut`` (``opts["reduced"]``:
+    the reduced config, for a rehearsal on the CPU), bf16 unless
+    ``opts["dtype"]``, microbatch 1."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(name, reduced=opts.get("reduced", False))
+    return dataclasses.replace(cfg, dtype=opts.get("dtype", "bfloat16"),
+                               microbatch=1, **cut)
+
+
+def _ssm_mesh_yardstick(device, opts: dict, work: Path) -> dict:
+    """Phase 32(a)'s yardsticks on one rank in this process: each config's
+    weights and batch (whisper's frames too) drawn from the seed and
+    written under ``work / name`` for the ranks, then
+    :func:`_tp_yardstick`."""
+    import torch
+    from repro_torch.models import get_model
+    from repro_torch.utils.tree import tree_flatten
+    out = {}
+    for k, (name, cut, seq) in enumerate(SSM_MESH["archs"]):
+        cfg = _ssm_mesh_cfg(name, cut, opts)
+        B, S = opts["batch"], opts.get("seq", seq)
+        gen = torch.Generator(device=device).manual_seed(
+            SEED + SSM_MESH["seed"] + k)
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        params = get_model(cfg).init_params(gen, cfg, device=device)
+        toks = torch.randint(0, cfg.vocab, (B, S + 1), generator=gen,
+                             device=device, dtype=torch.int32)
+        extra = {}
+        if cfg.family == "audio":
+            extra["frames"] = torch.randn((B, cfg.enc_seq, cfg.d_model),
+                                          generator=gen, device=device)
+        t0 = time.perf_counter()
+        _save_bits(params, work / name / "params")
+        _save_bits({"tokens": toks, **extra}, work / name / "inputs")
+        r = {"params": sum(t.numel() for t in tree_flatten(params)[0]),
+             "save_seconds": time.perf_counter() - t0}
+        held = {"params": params}
+        del params
+        r.update(_tp_yardstick(cfg, held, _lm_rows(toks, **extra),
+                               work / name))
+        out[name] = r
+    return out
+
+
+def _ssm_mesh_full(device, opts: dict) -> dict:
+    """Phase 32(a) on one rank, each config in turn: its model slices
+    placed from the yardstick's files, then :func:`_tp_step`."""
+    import torch
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.sharding.partition import make_dist_ctx, model_slices
+    from repro_torch.utils.tree import tree_flatten
+    mesh = make_host_mesh(model=MOE_MESH["model"])
+    ctx = make_dist_ctx(mesh)
+    out = {}
+    for name, cut, _ in SSM_MESH["archs"]:
+        cfg = _ssm_mesh_cfg(name, cut, opts)
+        work = Path(opts["work"]) / "full" / name
+        slices = model_slices(_bits_shapes(work / "params"), ctx)
+        t0 = time.perf_counter()
+        params = _load_bits(work / "params", device, slices)
+        r = {"place_seconds": time.perf_counter() - t0,
+             "held_values": sum(t.numel()
+                                for t in tree_flatten(params)[0])}
+        inputs = _load_bits(work / "inputs", device)
+        rows = {k: v.cpu().numpy() for k, v in
+                _lm_rows(inputs.pop("tokens"), **inputs).items()}
+        del inputs
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        r.update(_tp_step(device, cfg, ctx, params, slices, rows, work))
+        del params
+        gc.collect()
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        out[name] = r
+    return out
+
+
+def _ssm_mesh_rank_body(rank: int, opts: dict) -> dict:
+    """One rank of phase 32 (see :func:`phase_ssm_mesh`)."""
+    import torch
+    device = torch.device(opts["device"])
+    out = {"rank": rank, "full": _ssm_mesh_full(device, opts)}
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    out["train"] = {name: _moe_mesh_train(device, opts, name)
+                    for name in SSM_MESH_TRAIN}
+    out["host_peak_gb"] = _host_peak_gb()
+    return out
+
+
+def phase_ssm_mesh(device, launches: dict, card: str, opts=None) -> dict:
+    """Phase 32: tensor parallelism for the ssm, hybrid and
+    encoder-decoder families on phase 31's (2, 2) mesh of 4 gloo ranks
+    sharing the one card.
+
+    (a) ``SSM_MESH``: zamba2-1.2b at full width (d 2048; Mamba2 layers of
+    64 SSD heads, a 2,048 x 8,384 ``in_proj``; the shared block's GQA
+    32/32 heads and d_ff 8192; the untied 32,000-row head; bf16) at its
+    first segment, each rank holding 32 SSD heads (their z, x and dt
+    columns and every B and C column), 16 heads, half of d_ff and of the
+    vocab; then whisper-medium at full width (d 1024, 16 heads, d_ff
+    4096) with 2 + 2 layers, its 51,865-row vocab whole on every rank.
+    Each rank places its slices from files this process wrote, runs one
+    step's forward and backward on its data shard and the gradient's mean
+    over the data line (a range every rank holds summed over the model
+    line). Yardstick: the same weights and batch on one rank in this
+    process as 2 microbatches, and again in f32. Held as 31(a): the ranks'
+    loss within ``MOE_MESH_LOSS_RTOL`` of the yardstick's and the same on
+    every rank, each gradient slice within ``MOE_MESH_GRAD_L2`` of the f32
+    yardstick's, or ``MOE_MESH_FLOOR_FACTOR`` times one device's bf16
+    distance from it where that is larger.
+
+    (b) reduced mamba2-370m, zamba2-1.2b and whisper-medium trained as
+    31(b) (sgd(0.5), host 1 lost at step 2, healed at step 4): the arena
+    and PyTree loops bit-equal through the loss, the ranks' losses equal
+    and within ``MESH_LOSS_RTOL`` of one rank with ``microbatch=2``,
+    shards 4, 2, 4, the fabric kernels launched on every rank
+    (``launches["ssm_mesh"]``, one count a rank) and held against their
+    plain versions on every rank's span.
+
+    Reported with the card: each rank's peak device memory, the step's
+    seconds and each collective's calls, bytes and seconds."""
+    import torch
+    t_phase = time.perf_counter()
+    work = ROOT / "build" / f"ssm_mesh_{os.getpid()}"
+    work.mkdir(parents=True, exist_ok=True)
+    opts = {"device": device.type, "work": str(work), "phase": 32,
+            "batch": SSM_MESH["batch"], **(opts or {})}
+    try:
+        yard = _ssm_mesh_yardstick(device, opts, work / "full")
+        log(f"phase 32(a): the one-rank yardsticks, {json.dumps(yard)}")
+        one = {name: _moe_mesh_one_rank(device, name, work)
+               for name in SSM_MESH_TRAIN}
+        gc.collect()
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        ranks, wall = _mesh_ranks(work, opts, "32")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    full = {name: [r["full"][name] for r in ranks]
+            for name, _, _ in SSM_MESH["archs"]}
+    log(f"phase 32(a): each rank's gradient slices against the yardstick's "
+        f"(relative L2), {json.dumps({n: [f['grad_rel_l2_by_leaf'] for f in fs] for n, fs in full.items()})}")
+    for name, fs in full.items():
+        y = yard[name]
+        for r, f in zip(ranks, fs):
+            rel = abs(f["loss"] - y["loss"]) / abs(y["loss"])
+            check(rel <= MOE_MESH_LOSS_RTOL and f["loss"] == fs[0]["loss"],
+                  f"phase 32(a) {name} rank {r['rank']}: loss {f['loss']}, "
+                  f"yardstick {y['loss']}")
+            for leaf, err in f["grad_rel_l2_by_leaf"].items():
+                floor = y["bf16_floor"][leaf]
+                check(err <= max(MOE_MESH_GRAD_L2,
+                                 MOE_MESH_FLOOR_FACTOR * floor),
+                      f"phase 32(a) {name} rank {r['rank']}: gradient slice "
+                      f"{leaf} off the f32 yardstick by relative L2 {err}, "
+                      f"one device's bf16 gradient by {floor}")
+    counts = [{} for _ in ranks]
+    for name in SSM_MESH_TRAIN:
+        tr = [r["train"][name] for r in ranks]
+        rel = max(abs(a - b) / abs(b)
+                  for a, b in zip(tr[0]["losses"], one[name]))
+        check(rel <= MESH_LOSS_RTOL and all(
+            t["losses"] == tr[0]["losses"] for t in tr),
+              f"phase 32(b) {name}: mesh losses "
+              f"{[t['losses'] for t in tr]}, one rank {one[name]}")
+        fail, = tr[0]["failures"]
+        check(fail["tier_counts"]["PEER_REPLICA"] == fail["lost_blocks"] > 0
+              and fail["applied_sq"] == 0.0, f"phase 32(b) {name}: "
+              f"recovery {fail}")
+        for r, t in zip(ranks, tr):
+            check(t["shards"] == [4, 2, 4], f"phase 32(b) {name} rank "
+                  f"{r['rank']}: shards {t['shards']}")
+            for k, v in t["launches"].items():
+                counts[r["rank"]][k] = counts[r["rank"]].get(k, 0) + v
+    for r, cnt in zip(ranks, counts):
+        for k in MOE_MESH_KERNELS:
+            check(cnt.get(k, 0) > 0, f"{k} was not launched on rank "
+                  f"{r['rank']} of the phase 32 mesh path")
+        lost = any(r["train"][n]["holds"]["lost_in_span"]
+                   for n in SSM_MESH_TRAIN)
+        check(cnt.get("masked_restore", 0) > 0 or not lost
+              or not MOE_MESH_KERNELS,
+              f"masked_restore was not launched on rank {r['rank']}, whose "
+              f"span held a lost block")
+    launches["ssm_mesh"] = counts
+    out = {"yardstick": yard, "one_rank_losses": one,
+           "host_peak_gb": [r["host_peak_gb"] for r in ranks],
+           "full": {name: {
+               "loss": fs[0]["loss"],
+               "loss_rel_diff": abs(fs[0]["loss"] - yard[name]["loss"])
+               / abs(yard[name]["loss"]),
+               "rank_peak_gb": [f["peak_gb"] for f in fs],
+               "grad_rel_l2": [f["grad_rel_l2"] for f in fs],
+               "grad_worst_leaf": [f["grad_worst_leaf"] for f in fs],
+               "grad_over_floor": [max(
+                   err / max(yard[name]["bf16_floor"][k], 1e-30)
+                   for k, err in f["grad_rel_l2_by_leaf"].items())
+                   for f in fs],
+               **{k: [f[k] for f in fs] for k in (
+                   "step_seconds", "fwd_bwd_seconds", "grad_mean_seconds",
+                   "place_seconds", "held_values", "collectives")}}
+               for name, fs in full.items()},
+           "train": {name: {"losses": ranks[0]["train"][name]["losses"],
+                            "bit_equal_losses":
+                                ranks[0]["train"][name]["bit_equal_losses"],
+                            "run_seconds": [r["train"][name]["run_seconds"]
+                                            for r in ranks],
+                            "holds": [r["train"][name]["holds"]
+                                      for r in ranks]}
+                     for name in SSM_MESH_TRAIN},
+           "spawn_to_join_seconds": wall, "card": card}
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 32: tensor parallelism for the ssm, hybrid and "
+        f"encoder-decoder families on a (2, 2) mesh, {card}: "
+        f"{json.dumps(out)}")
+    return out
+
+
+def ssm_mesh_only(device, card: str) -> int:
+    """``--ssm-mesh``: phase 32 alone. Its last line says that it is this
+    partial run, never the full run's ``{"ok": true, ...}``."""
+    import torch
+    launches = {}
+    out = phase_ssm_mesh(device, launches, card)
+    log(json.dumps({"launches": launches["ssm_mesh"]}))
+    log(card)
+    log(json.dumps({"ssm_mesh_only": True, "seconds": out["seconds"],
+                    "device": {"platform": "gpu",
+                               "kind": torch.cuda.get_device_name(0),
+                               "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def main(argv: list) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6233,6 +6562,8 @@ def main(argv: list) -> int:
         return mesh_only(device, card)
     if "--moe-mesh" in argv:
         return moe_mesh_only(device, card)
+    if "--ssm-mesh" in argv:
+        return ssm_mesh_only(device, card)
     gen = torch.Generator(device=device).manual_seed(SEED)
     shapes = qwen2_1_5b_shapes()
     a_tree = _map_shapes(shapes, lambda s: torch.randn(
@@ -6359,6 +6690,8 @@ def main(argv: list) -> int:
     lap("phase 30")
     moe_mesh = phase_moe_mesh(device, launches, card)
     lap("phase 31")
+    ssm_mesh = phase_ssm_mesh(device, launches, card)
+    lap("phase 32")
     log(json.dumps({"launches": launches}))
     old = ("block_dist", "scatter_save", "masked_restore")
     new = ("arena_maintain", "arena_scatter", "parity_xor")
@@ -6448,7 +6781,9 @@ def main(argv: list) -> int:
                            launches["perf_variants"][name],
                        "mesh_launches": [r[name] for r in launches["mesh"]],
                        "moe_mesh_launches": [r.get(name, 0) for r in
-                                             launches["moe_mesh"]]})
+                                             launches["moe_mesh"]],
+                       "ssm_mesh_launches": [r.get(name, 0) for r in
+                                             launches["ssm_mesh"]]})
     log(json.dumps({"controller": ctl, "fabric": fabric,
                     "rs_fabric": rs_fabric, "leaf_fabric": leaf_fabric,
                     "multi_erasure": multi, "mamba2_serve": mamba2,
@@ -6456,7 +6791,7 @@ def main(argv: list) -> int:
                     **families, **train_families, "examples": examples,
                     **moe_vlm, **train_moe_vlm, **perf_variants,
                     "mesh": {k: v for k, v in mesh.items() if k != "ranks"},
-                    "moe_mesh": moe_mesh,
+                    "moe_mesh": moe_mesh, "ssm_mesh": ssm_mesh,
                     "serve_kernels": {
                         name: kernels[name]
                         for name in ("ssd_intra", "sw_attention")},

@@ -4,10 +4,10 @@ The port of ``repro.data.pipeline.ShardedLMDataset``: a deterministic
 synthetic token stream drawn host-side from ``np.random.default_rng(seed)``
 in the reference's order, so both packages see the same tokens, then put
 on the device. On a mesh (``ctx``) every rank draws the same global batch
-and keeps its slice. Where the forward is model-parallel (the transformer
-families on a mesh whose ``model`` axis has more than one position) the
-batch dim splits over the data positions only, in row-major order of the
-other axes, and the ranks of one model line keep the same rows; otherwise
+and keeps its slice. Where the forward is model-parallel (a mesh whose
+``model`` axis has more than one position) the batch dim splits over the
+data positions only, in row-major order of the other axes, and the ranks
+of one model line keep the same rows; otherwise
 every mesh position, in row-major order, is a data-parallel rank and
 takes its own rows. The batch is a :class:`MeshBatch`,
 which keeps the global batch's host arrays, so a trainer can re-slice it

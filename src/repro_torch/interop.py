@@ -6,7 +6,8 @@ port.
 tensors on ``device``; ``to_numpy_tree`` goes back. Keys, structure and
 dtypes are kept; bfloat16 and the fp8 family (numpy ``ml_dtypes``) travel
 as their raw bits. Given ``slices`` (``sharding.partition.model_slices``
-of the tree) it places only this rank's model slice of each leaf: from
+of the tree) it places only this rank's model slice of each leaf (its
+ranges concatenated, as ``take_model_slices`` cuts them): from
 memory-mapped arrays no rank reads, or holds, the whole model.
 
 ``load_parity_rows`` hands a codec parity encoded elsewhere (the
@@ -62,9 +63,11 @@ def from_numpy_tree(tree: PyTree, device, slices: PyTree = None
     def place(x, s):
         if not s:
             return _to_tensor(x, dev)
-        dim, lo, hi = s
-        return _to_tensor(np.asarray(x)[(slice(None),) * dim
-                                        + (slice(lo, hi),)], dev)
+        a, dim = np.asarray(x), s[0]
+        parts = [a[(slice(None),) * dim + (slice(lo, hi),)]
+                 for lo, hi in s.ranges]
+        return _to_tensor(parts[0] if len(parts) == 1
+                          else np.concatenate(parts, axis=dim), dev)
     return tree_map(place, tree, slices)
 
 

@@ -11,11 +11,10 @@
   the params, which the trainer's per-layer leaves split
   (``layers.split_layers``)
 - ``tensor_parallel``: whether ``train_loss`` splits its forward over a
-  mesh's ``model`` axis (the dense, MoE and VLM families: ``params``
-  then holds this rank's model slices and ``batch`` its data shard). The
-  ssm, hybrid and audio families run the whole forward on every rank with
-  the batch over every mesh position (their ``train_loss`` takes ``ctx``
-  and ignores it; ROADMAP item 39)
+  mesh's ``model`` axis (every family: ``params`` then holds this rank's
+  model slices and ``batch`` its data shard; the Mamba2 mixer's SSD
+  heads, the attention's heads, the MLPs' ``d_ff``, the experts and the
+  vocab where it splits)
 
 The port serves and trains every family: ``dense``, ``moe`` (every layer
 MoE, or dense and MoE layers interleaved), ``vlm`` (a patch prefix),
@@ -49,7 +48,7 @@ class ModelOps:
     # pairs; the hybrid's ``shared`` block is one unstacked layer),
     # ``enc_layers`` and ``dec_layers`` (the encoder-decoder)
     stacked_layers: tuple = ()
-    tensor_parallel: bool = False
+    tensor_parallel: bool = True
 
 
 def serve_cache_len(cfg: ModelConfig, seq_len: int) -> int:
@@ -89,7 +88,6 @@ def _transformer_ops(cfg: ModelConfig) -> ModelOps:
         supports_long_context=bool(cfg.sliding_window),
         stacked_layers=(("layers", cfg.n_layers // 2
                          if transformer.interleaved(cfg) else cfg.n_layers),),
-        tensor_parallel=True,
     )
 
 

@@ -28,8 +28,11 @@ gradient, with ``frames`` in every batch (``data.ShardedLMDataset``).
 Parameters keep the reference's tree: ``frame_proj``, ``enc_layers`` and
 ``dec_layers`` (stacked, or lists of per-layer trees from
 ``layers.split_layers``), ``enc_norm``, ``final_norm`` and the embedding.
-On a mesh every rank runs the whole forward on its slice of the batch
-(tensor parallelism for this family is ROADMAP item 39).
+``train_loss`` takes a ``ctx``: on a mesh with a ``model`` axis of more
+than one position each rank runs every attention (the encoder's, the
+decoder's self- and cross-attention) over its heads and every MLP over
+its ``d_ff`` on its data shard, the frame projection whole; serving runs
+on one device.
 """
 from __future__ import annotations
 
@@ -39,8 +42,10 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed.collectives import model_axis
 from repro_torch.models import layers as L
 from repro_torch.models import transformer
+from repro_torch.sharding.partition import check_tensor_parallel, vocab_ctx
 
 PyTree = Any
 
@@ -104,8 +109,10 @@ def _positions(n: int, device) -> torch.Tensor:
     return torch.arange(n, dtype=torch.int32, device=device)
 
 
-def encode(params, frames, cfg: ModelConfig):
-    """frames: (B, T, D) stub embeddings -> the encoder output (B, T, D)."""
+def encode(params, frames, cfg: ModelConfig, ctx=None):
+    """frames: (B, T, D) stub embeddings -> the encoder output (B, T, D);
+    on a model axis (``ctx``) each layer's attention and MLP over this
+    rank's heads and ``d_ff``, the frame projection computed whole."""
     T = frames.shape[1]
     h = torch.einsum("btd,de->bte", frames.to(_dtype(cfg)),
                      params["frame_proj"]["proj"])
@@ -116,59 +123,69 @@ def encode(params, frames, cfg: ModelConfig):
     for lp in L.unstack_layers(params["enc_layers"], cfg.enc_layers):
         h = h + L.attention_block(L.rms_norm(h, lp["attn_norm"]), lp["attn"],
                                   cfg, positions=positions, causal=False,
-                                  q_chunk=chunk, kv_chunk=chunk)
-        h = h + L.mlp_block(L.rms_norm(h, lp["mlp_norm"]), lp["mlp"])
+                                  q_chunk=chunk, kv_chunk=chunk, ctx=ctx)
+        h = h + L.mlp_block(L.rms_norm(h, lp["mlp_norm"]), lp["mlp"], ctx)
     return L.rms_norm(h, params["enc_norm"])
 
 
-def _cross(x, lp, enc_out, positions, enc_pos, q_chunk):
+def _cross(x, lp, enc_out, positions, enc_pos, q_chunk, ctx=None):
     """The cross-attention sublayer, K/V projected from ``enc_out``;
-    returns (x with the sublayer added, K, V)."""
+    returns (x with the sublayer added, K, V). On a model axis (``ctx``)
+    over this rank's heads: q from ``copy`` of the normed x, K and V from
+    ``copy`` of ``enc_out``, the output projection's partials summed."""
     p = lp["cross_attn"]
     xn = L.rms_norm(x, lp["cross_norm"])
+    axis = model_axis(ctx)
+    if axis is not None:
+        xn, enc_out = axis.copy(xn), axis.copy(enc_out)
     q = torch.einsum("bsd,dhk->bshk", xn, p["wq"])
     k = torch.einsum("btd,dhk->bthk", enc_out, p["wk"])
     v = torch.einsum("btd,dhk->bthk", enc_out, p["wv"])
     o = L.flash_attention(q, k, v, positions, enc_pos, causal=False,
                           q_chunk=q_chunk, kv_chunk=min(CHUNK, k.shape[1]))
-    return x + L.attn_out(o, p["wo"]), k, v
+    out = L.attn_out(o, p["wo"])
+    return x + (out if axis is None else axis.reduce(out)), k, v
 
 
 def _dec_layer(x, lp, cfg: ModelConfig, positions, enc_out, enc_pos,
-               q_chunk=CHUNK):
+               q_chunk=CHUNK, ctx=None):
     """One decoder layer, the training path (cross K/V recomputed)."""
     x = x + L.attention_block(L.rms_norm(x, lp["self_norm"]), lp["self_attn"],
                               cfg, positions=positions, causal=True,
-                              q_chunk=q_chunk, kv_chunk=q_chunk)
-    x, _, _ = _cross(x, lp, enc_out, positions, enc_pos, q_chunk)
-    return x + L.mlp_block(L.rms_norm(x, lp["mlp_norm"]), lp["mlp"])
+                              q_chunk=q_chunk, kv_chunk=q_chunk, ctx=ctx)
+    x, _, _ = _cross(x, lp, enc_out, positions, enc_pos, q_chunk, ctx)
+    return x + L.mlp_block(L.rms_norm(x, lp["mlp_norm"]), lp["mlp"], ctx)
 
 
-def _embed_with_positions(params, tokens, cfg: ModelConfig, offset=0):
-    h = L.embed_tokens(tokens, params)
+def _embed_with_positions(params, tokens, cfg: ModelConfig, offset=0,
+                          ctx=None):
+    h = L.embed_tokens(tokens, params, ctx)
     return h + L.sinusoidal_positions(tokens.shape[1], cfg.d_model, offset,
                                       device=h.device).to(h.dtype)
 
 
-def train_loss(params, batch, cfg: ModelConfig, **_) -> torch.Tensor:
+def train_loss(params, batch, cfg: ModelConfig, *, ctx=None
+               ) -> torch.Tensor:
     """Mean next-token cross-entropy of ``batch`` (``frames``, ``tokens``,
     ``labels`` and an optional ``mask``), f32; each decoder layer
-    recomputed in backward when ``cfg.remat``."""
-    enc_out = encode(params, batch["frames"], cfg)
-    h = _embed_with_positions(params, batch["tokens"], cfg)
+    recomputed in backward when ``cfg.remat``. With ``ctx`` on a mesh
+    whose ``model`` axis has ``tp > 1`` positions, ``params`` are this
+    rank's model slices (heads, ``d_ff``, the vocab where it splits) and
+    ``batch`` its data shard."""
+    if ctx is not None:
+        check_tensor_parallel(cfg, ctx.tp_size)
+    vctx = vocab_ctx(cfg, ctx)
+    enc_out = encode(params, batch["frames"], cfg, ctx)
+    h = _embed_with_positions(params, batch["tokens"], cfg, ctx=vctx)
     positions = _positions(h.shape[1], h.device)
     enc_pos = _positions(enc_out.shape[1], h.device)
     for lp in L.unstack_layers(params["dec_layers"], cfg.n_layers):
         h = L.remat(lambda x, lp=lp: _dec_layer(x, lp, cfg, positions,
-                                                enc_out, enc_pos), h,
-                    enabled=cfg.remat)
+                                                enc_out, enc_pos, ctx=ctx),
+                    h, enabled=cfg.remat)
     h = L.rms_norm(h, params["final_norm"])
-    labels = batch["labels"]
-    mask = batch.get("mask")
-    if mask is None:
-        mask = torch.ones(labels.shape, dtype=torch.float32,
-                          device=labels.device)
-    return L.lm_loss_chunked(h, params, labels, mask, cfg)
+    return L.lm_loss_chunked(h, params, batch["labels"], L.loss_mask(batch),
+                             cfg, ctx=vctx)
 
 
 # ---------------------------------------------------------------------------

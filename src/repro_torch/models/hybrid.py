@@ -26,9 +26,11 @@ shared block's gradient is the sum over its applications.
 Parameters keep the reference's tree: ``layers`` (the Mamba2 layers
 stacked over ``n_layers``, or a list of per-layer trees from
 ``layers.split_layers``), ``shared`` (one transformer layer, never split),
-``final_norm`` and the embedding. On a mesh every rank runs the whole
-forward on its slice of the batch (tensor parallelism for this family
-is ROADMAP item 39).
+``final_norm`` and the embedding. ``train_loss`` takes a ``ctx``: on a
+mesh with a ``model`` axis of more than one position each rank runs the
+Mamba2 layers over its SSD heads and the shared block over its heads and
+``d_ff`` (``ssm.mixer_fwd``, ``transformer._layer_fwd``) on its data
+shard; serving runs on one device.
 """
 from __future__ import annotations
 
@@ -40,6 +42,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import ssm, transformer
+from repro_torch.sharding.partition import check_tensor_parallel, vocab_ctx
 
 PyTree = Any
 
@@ -79,30 +82,33 @@ def init_params(gen: torch.Generator, cfg: ModelConfig,
     }
 
 
-def train_loss(params, batch, cfg: ModelConfig, **_) -> torch.Tensor:
+def train_loss(params, batch, cfg: ModelConfig, *, ctx=None
+               ) -> torch.Tensor:
     """Mean next-token cross-entropy of ``batch`` (``tokens``, ``labels``
     and an optional ``mask``), f32: the plain SSD scan and full causal
     attention, each layer and each application of the shared block
-    recomputed in backward when ``cfg.remat``."""
-    h = L.embed_tokens(batch["tokens"], params)
+    recomputed in backward when ``cfg.remat``. With ``ctx`` on a mesh
+    whose ``model`` axis has ``tp > 1`` positions, ``params`` are this
+    rank's model slices (SSD heads, the shared block's heads and
+    ``d_ff``, the vocab where it splits) and ``batch`` its data shard."""
+    if ctx is not None:
+        check_tensor_parallel(cfg, ctx.tp_size)
+    vctx = vocab_ctx(cfg, ctx)
+    h = L.embed_tokens(batch["tokens"], params, vctx)
     positions = torch.arange(h.shape[1], dtype=torch.int32, device=h.device)
     layers = L.unstack_layers(params["layers"], cfg.n_layers)
     shared = params["shared"]
     for start, length in _segments(cfg):
         for lp in layers[start:start + length]:
             h = h + L.remat(lambda x, lp=lp: ssm.mixer_fwd(
-                L.rms_norm(x, lp["norm"]), lp["mixer"], cfg), h,
+                L.rms_norm(x, lp["norm"]), lp["mixer"], cfg, ctx), h,
                 enabled=cfg.remat)
         h = L.remat(lambda x: transformer._layer_fwd(
-            x, shared, cfg, positions, 0, 1024, 1024)[0], h,
+            x, shared, cfg, positions, 0, 1024, 1024, ctx)[0], h,
             enabled=cfg.remat)
     h = L.rms_norm(h, params["final_norm"])
-    labels = batch["labels"]
-    mask = batch.get("mask")
-    if mask is None:
-        mask = torch.ones(labels.shape, dtype=torch.float32,
-                          device=labels.device)
-    return L.lm_loss_chunked(h, params, labels, mask, cfg)
+    return L.lm_loss_chunked(h, params, batch["labels"], L.loss_mask(batch),
+                             cfg, ctx=vctx)
 
 
 # ---------------------------------------------------------------------------

@@ -38,7 +38,9 @@ them on the data shard's tokens at the data shard's capacity, the router
 replicated in f32, the combine summed, through a reduce-scatter over S
 and an all-gather under ``cfg.moe_reduce_scatter``) and the vocab of the
 embedding, the LM head and the chunked loss (a logsumexp over the
-shards). Every replicated computation (norms, the router, its aux
+shards; where the vocab does not split the models call these three
+without ``ctx``, ``sharding.partition.vocab_ctx``). The Mamba2 mixer's
+SSD heads are split in ``models.ssm.mixer_fwd``. Every replicated computation (norms, the router, its aux
 losses) gets its whole gradient on every rank.
 
 The perf variants, forward only and plain on every device (the reference
@@ -897,6 +899,16 @@ def _chunk_loss_vocab(hx, yx, mx, head, axis):
     both = axis.reduce(torch.stack([se, ll]))
     nll = m + torch.log(both[0]) - both[1]
     return torch.sum(nll * mx), torch.sum(mx)
+
+
+def loss_mask(batch: dict) -> torch.Tensor:
+    """``batch``'s f32 loss mask: its ``mask``, or ones over ``labels``."""
+    mask = batch.get("mask")
+    if mask is None:
+        labels = batch["labels"]
+        mask = torch.ones(labels.shape, dtype=torch.float32,
+                          device=labels.device)
+    return mask
 
 
 def lm_loss_chunked(h, p, labels, mask, cfg: ModelConfig,

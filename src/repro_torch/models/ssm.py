@@ -26,9 +26,10 @@ forward-only. Each layer is recomputed in backward when ``cfg.remat``.
 Parameters keep the reference's stacked leaves: every per-layer weight has
 a leading ``n_layers`` dim under ``params["layers"]``, walked by a Python
 loop, so ``interop.from_numpy_tree`` carries the reference's params across
-unchanged and the SCAR block partition matches. On a mesh every rank runs
-the whole forward on its slice of the batch (tensor parallelism for
-this family is ROADMAP item 39).
+unchanged and the SCAR block partition matches. ``train_loss`` takes a
+``ctx``: on a mesh with a ``model`` axis of more than one position each
+rank runs the mixer over its SSD heads (``mixer_fwd``) on its data shard;
+serving runs on one device.
 """
 from __future__ import annotations
 
@@ -39,9 +40,11 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed.collectives import model_axis
 from repro_torch.kernels.ssd_scan.ops import (ssd_chunked_kernel,
                                               ssd_chunked_plain)
 from repro_torch.models import layers as L
+from repro_torch.sharding.partition import check_tensor_parallel, vocab_ctx
 
 PyTree = Any
 
@@ -95,8 +98,10 @@ def init_params(gen: torch.Generator, cfg: ModelConfig,
 # mixer forward pieces
 # ---------------------------------------------------------------------------
 
-def _split_proj(zxbcdt, cfg: ModelConfig):
-    DI, N = cfg.d_inner, cfg.ssm_state
+def _split_proj(zxbcdt, cfg: ModelConfig, DI=None):
+    """z, x, B, C, dt of ``in_proj``'s output; ``DI`` is the z and x
+    width (default ``d_inner``; a model position's channels on a mesh)."""
+    DI, N = DI or cfg.d_inner, cfg.ssm_state
     z = zxbcdt[..., :DI]
     x = zxbcdt[..., DI:2 * DI]
     Bm = zxbcdt[..., 2 * DI:2 * DI + N]
@@ -134,13 +139,23 @@ def ssd_chunked(x, dt, A, Bm, Cm, cfg: ModelConfig, h0=None):
     return ssd_chunked_kernel(x, dt, A, Bm, Cm, cfg.ssm_chunk, h0)
 
 
-def mixer_fwd(x, p, cfg: ModelConfig):
+def mixer_fwd(x, p, cfg: ModelConfig, ctx=None):
     """x: (B,S,D) -> (B,S,D), the training path: the plain, differentiable
-    SSD scan."""
-    zxbcdt = torch.einsum("bsd,de->bse", x, p["in_proj"])
-    z, xi, Bm, Cm, dtr = _split_proj(zxbcdt, cfg)
-    xi, _ = _causal_conv(xi, p["conv_w"])
+    SSD scan. On a model axis (``ctx``) ``p`` holds this rank's SSD heads
+    (``sharding.partition.model_slices``: their z, x and dt columns of
+    ``in_proj`` and every B and C column, their conv channels, ``A_log``,
+    ``dt_bias`` and ``D_skip`` entries and ``out_proj`` rows): x enters
+    through ``copy``, the scan runs over those heads, and the output
+    projection's partials are summed over the axis."""
+    axis = model_axis(ctx)
     H, P = cfg.ssm_heads, cfg.ssm_headdim
+    if axis is not None:
+        x = axis.copy(x)
+        H //= axis.size
+    DI = H * P
+    zxbcdt = torch.einsum("bsd,de->bse", x, p["in_proj"])
+    z, xi, Bm, Cm, dtr = _split_proj(zxbcdt, cfg, DI)
+    xi, _ = _causal_conv(xi, p["conv_w"])
     Bsz, S, _ = x.shape
     xh = xi.reshape(Bsz, S, H, P).to(torch.float32)
     dt = _softplus(dtr.to(torch.float32) + p["dt_bias"])
@@ -148,8 +163,9 @@ def mixer_fwd(x, p, cfg: ModelConfig):
     y, _ = ssd_chunked_plain(xh, dt, A, Bm.to(torch.float32),
                              Cm.to(torch.float32), cfg.ssm_chunk)
     y = y + xh * p["D_skip"][:, None]
-    y = y.reshape(Bsz, S, cfg.d_inner).to(x.dtype) * F.silu(z)
-    return torch.einsum("bse,ed->bsd", y, p["out_proj"])
+    y = y.reshape(Bsz, S, DI).to(x.dtype) * F.silu(z)
+    out = torch.einsum("bse,ed->bsd", y, p["out_proj"])
+    return out if axis is None else axis.reduce(out)
 
 
 def mixer_prefill(x, lp, cfg: ModelConfig):
@@ -199,21 +215,24 @@ def mixer_decode(x, p, state, cfg: ModelConfig):
 # model-level API
 # ---------------------------------------------------------------------------
 
-def train_loss(params, batch, cfg: ModelConfig, **_) -> torch.Tensor:
+def train_loss(params, batch, cfg: ModelConfig, *, ctx=None
+               ) -> torch.Tensor:
     """Mean next-token cross-entropy of ``batch`` (``tokens``, ``labels``
-    and an optional ``mask``), f32."""
-    h = L.embed_tokens(batch["tokens"], params)
+    and an optional ``mask``), f32. With ``ctx`` on a mesh whose ``model``
+    axis has ``tp > 1`` positions, ``params`` are this rank's model slices
+    and ``batch`` its data shard (raises ``ValueError`` where the SSD
+    heads do not split over ``tp``)."""
+    if ctx is not None:
+        check_tensor_parallel(cfg, ctx.tp_size)
+    vctx = vocab_ctx(cfg, ctx)
+    h = L.embed_tokens(batch["tokens"], params, vctx)
     for lp in L.unstack_layers(params["layers"], cfg.n_layers):
         h = h + L.remat(lambda x, lp=lp: mixer_fwd(
-            L.rms_norm(x, lp["norm"]), lp["mixer"], cfg), h,
+            L.rms_norm(x, lp["norm"]), lp["mixer"], cfg, ctx), h,
             enabled=cfg.remat)
     h = L.rms_norm(h, params["final_norm"])
-    labels = batch["labels"]
-    mask = batch.get("mask")
-    if mask is None:
-        mask = torch.ones(labels.shape, dtype=torch.float32,
-                          device=labels.device)
-    return L.lm_loss_chunked(h, params, labels, mask, cfg)
+    return L.lm_loss_chunked(h, params, batch["labels"], L.loss_mask(batch),
+                             cfg, ctx=vctx)
 
 
 def init_state(cfg: ModelConfig, batch: int, device: DeviceLike = None

@@ -34,9 +34,10 @@ Every reader of the weights takes the trainer's per-layer layout too
 ``train_loss`` takes a ``ctx``: on a mesh with a ``model`` axis of more
 than one position it runs the tensor- and expert-parallel forward over
 this rank's weight slices (``layers``; ``params`` holds the slices that
-``sharding.partition.take_model_slices`` cut) and the rank's data shard;
-``prefill`` and ``decode_step`` run on one device. ``decode_step`` writes
-the new token's K/V into the cache in place.
+``sharding.partition.take_model_slices`` cut; the embedding and the head
+whole where the vocab does not split, ``partition.vocab_ctx``) and the
+rank's data shard; ``prefill`` and ``decode_step`` run on one device.
+``decode_step`` writes the new token's K/V into the cache in place.
 
 The perf variants, as the reference's: under ``cfg.kv_quant`` the cache
 holds int8 ``k``/``v`` with f32 ``k_scale``/``v_scale`` per (token, kv
@@ -58,7 +59,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.sw_attention.ops import sw_attention
 from repro_torch.models import layers as L
-from repro_torch.sharding.partition import check_tensor_parallel
+from repro_torch.sharding.partition import check_tensor_parallel, vocab_ctx
 
 PyTree = Any
 
@@ -204,9 +205,10 @@ def train_loss(params, batch, cfg: ModelConfig, *,
     the loss is the data shard's, the same on every rank of its model
     line (raises ``ValueError`` where the config does not split over
     ``tp``)."""
-    if ctx is not None and ctx.tp_size > 1:
+    if ctx is not None:
         check_tensor_parallel(cfg, ctx.tp_size)
-    h = _embed_batch(params, batch, cfg, ctx)
+    vctx = vocab_ctx(cfg, ctx)
+    h = _embed_batch(params, batch, cfg, vctx)
     S = h.shape[1]
     positions = torch.arange(S, dtype=torch.int32, device=h.device)
     window = 0 if window_override is None else window_override
@@ -214,17 +216,14 @@ def train_loss(params, batch, cfg: ModelConfig, *,
                            q_chunk=cfg.attn_chunk, kv_chunk=cfg.attn_chunk,
                            ctx=ctx)
     labels = batch["labels"]
-    mask = batch.get("mask")
-    if mask is None:
-        mask = torch.ones(labels.shape, dtype=torch.float32,
-                          device=labels.device)
     n_prefix = h.shape[1] - labels.shape[1]
     if n_prefix:        # a VLM: no loss on the image prefix
         h = h[:, n_prefix:]
-    if ctx is None:     # the one-device call, as before the mesh's
+    mask = L.loss_mask(batch)
+    if vctx is None:    # the one-device call, as before the mesh's
         loss = L.lm_loss_chunked(h, params, labels, mask, cfg)
     else:
-        loss = L.lm_loss_chunked(h, params, labels, mask, cfg, ctx=ctx)
+        loss = L.lm_loss_chunked(h, params, labels, mask, cfg, ctx=vctx)
     if cfg.n_experts:
         loss = loss + 0.01 * lb / cfg.n_layers + 0.001 * zl / cfg.n_layers
     return loss

@@ -12,11 +12,16 @@ functions return what the reference's return for the same tree and mesh
 shape. On a mesh the port computes FSDP over the flat arena
 (:func:`arena_sharding`): every rank holds its span of the arena-shaped
 state and gathers the arena for the forward. The ``model`` axis splits
-the transformer families' forward (tensor and expert parallelism):
+every family's forward (tensor and expert parallelism):
 :func:`model_slices` gives each leaf's cut for this rank, from the specs'
 ``model`` entries mapped onto the port's leaves (the reference's stacked
 ones and the trainer's per-layer ones), and :func:`take_model_slices`
-takes them as views.
+takes them. Two cuts differ from the specs on purpose: a Mamba2 mixer is
+cut by SSD heads (the reference's even cut of the fused ``in_proj``
+columns would run across its z, x, B, C and dt parts; ``out_proj`` is cut
+by rows where the specs place its ``D`` columns), and a vocab that does
+not split is computed whole (the reference's :func:`_fit_spec` drops the
+axis there).
 
 - 2-D weights (d_in, d_out): TP on the "wide" axis, FSDP (data) on the
   other; embeddings (V, D): vocab on TP, D on data; expert weights (E,
@@ -29,6 +34,7 @@ import dataclasses
 from typing import Any, Optional
 
 import numpy as np
+import torch
 
 from repro_torch.utils.tree import (flatten_with_path, keystr, tree_map,
                                     tree_unflatten)
@@ -327,63 +333,139 @@ def _model_dim(name: str, shape: tuple[int, ...],
 
 
 class ModelSlice(tuple):
-    """One leaf's cut: ``(dim, lo, hi)``, or empty for a leaf computed
-    whole. A tuple that the tree utilities keep as one leaf."""
+    """One leaf's cut: ``(dim, lo, hi)``, a range of ``dim``; ``(dim, lo0,
+    hi0, lo1, hi1, ...)``, several ranges of it taken in that order (the
+    Mamba2 ``in_proj``'s); or empty for a leaf computed whole. A tuple
+    that the tree utilities keep as one leaf."""
     tree_leaf = True
 
     def __new__(cls, *entries):
         return super().__new__(cls, entries)
 
+    @property
+    def ranges(self) -> list[tuple[int, int]]:
+        """The ``(lo, hi)`` ranges of ``dim``, in order."""
+        return list(zip(self[1::2], self[2::2]))
+
 
 WHOLE = ModelSlice()
+
+# the Mamba2 mixer's leaves, cut by SSD heads (:func:`_mixer_slice`)
+# whatever the specs place: the reference's even column cut of the fused
+# ``in_proj`` runs across its z, x, B, C and dt boundaries
+_MIXER = ("in_proj", "conv_w", "A_log", "dt_bias", "D_skip", "out_proj")
+# where the vocab does not split over the model axis the embedding and the
+# head are computed whole (the reference's ``_fit_spec`` drops the axis)
+_VOCAB = ("embed", "lm_head")
+
+
+def _parent(name: str) -> str:
+    return name[:name.rindex("[")]
+
+
+def _mixer_slice(name: str, shape: tuple[int, ...], dims: dict, tp: int,
+                 pos: int) -> ModelSlice:
+    """A Mamba2 mixer leaf's cut at model position ``pos`` of ``tp``:
+    heads ``[pos H/tp, (pos+1) H/tp)`` and their ``d_inner`` channels.
+    ``dims`` maps each mixer's path to its ``(d_inner, H)`` (read off its
+    ``conv_w`` and ``A_log``). ``in_proj``'s columns ``[z | x | B | C |
+    dt]`` give the heads' z, x and dt columns and every B and C column
+    (one group: every head reads them); ``out_proj`` its heads' rows."""
+    key = _key(name)
+    di, heads = dims[_parent(name)]
+    if heads % tp:
+        raise ValueError(f"{name}: {heads} SSD heads do not split over "
+                         f"model={tp}")
+    h, c = heads // tp, di // tp
+    last = len(shape) - 1
+    if key == "in_proj":
+        bc = 2 * di
+        dt = shape[-1] - heads
+        return ModelSlice(last, pos * c, (pos + 1) * c,
+                          di + pos * c, di + (pos + 1) * c,
+                          bc, dt, dt + pos * h, dt + (pos + 1) * h)
+    if key == "out_proj":
+        return ModelSlice(last - 1, pos * c, (pos + 1) * c)
+    if key == "conv_w":
+        return ModelSlice(last, pos * c, (pos + 1) * c)
+    return ModelSlice(last, pos * h, (pos + 1) * h)
 
 
 def model_slices(tree: PyTree, ctx: DistContext, pos: Optional[int] = None
                  ) -> PyTree:
     """For each leaf of ``tree`` (leaves need only ``.shape``), the
     :class:`ModelSlice` that model position ``pos`` (default: this rank's)
-    computes with: ``(dim, lo, hi)``, or :data:`WHOLE` for a leaf every
-    rank computes whole (every leaf when the mesh's ``model`` axis has one
-    position). Raises ``ValueError`` for a cut dim that does not split
-    evenly."""
+    computes with, or :data:`WHOLE` for a leaf every rank computes whole
+    (every leaf when the mesh's ``model`` axis has one position; the
+    embedding and the head where the vocab does not split). A Mamba2
+    mixer's leaves are cut by SSD heads (:func:`_mixer_slice`). Raises
+    ``ValueError`` for a cut dim that does not split evenly."""
     tp = ctx.tp_size
     flat, treedef = flatten_with_path(tree)
     if tp == 1:
         return tree_unflatten(treedef, [WHOLE] * len(flat))
     if pos is None:
         pos = ctx.mesh.axis_position(ctx.tp)
+    names = [keystr(path) for path, _ in flat]
+    mixers: dict = {}
+    for name, (_, leaf) in zip(names, flat):
+        if _key(name) in ("conv_w", "A_log"):
+            mixers.setdefault(_parent(name), {})[_key(name)] = \
+                leaf.shape[-1]
+    dims = {k: (v["conv_w"], v["A_log"]) for k, v in mixers.items()}
     out = []
-    for path, leaf in flat:
+    for name, (_, leaf) in zip(names, flat):
         shape = tuple(leaf.shape)
-        dim = _model_dim(keystr(path), shape, ctx)
-        if dim is None:
+        if _key(name) in _MIXER and _parent(name) in dims:
+            out.append(_mixer_slice(name, shape, dims, tp, pos))
+            continue
+        dim = _model_dim(name, shape, ctx)
+        if dim is None or (_key(name) in _VOCAB and shape[dim] % tp):
             out.append(WHOLE)
             continue
         n = shape[dim]
         if n % tp:
-            raise ValueError(f"{keystr(path)}: dim {dim} of {shape} does not "
+            raise ValueError(f"{name}: dim {dim} of {shape} does not "
                              f"split over model={tp}")
         per = n // tp
         out.append(ModelSlice(dim, pos * per, (pos + 1) * per))
     return tree_unflatten(treedef, out)
 
 
+def _take(x, s: ModelSlice):
+    if not s:
+        return x
+    parts = [x.narrow(s[0], lo, hi - lo) for lo, hi in s.ranges]
+    return parts[0] if len(parts) == 1 else torch.cat(parts, s[0])
+
+
 def take_model_slices(tree: PyTree, slices: PyTree) -> PyTree:
-    """``tree`` with each leaf cut to its slice (:func:`model_slices`), as
-    views: a gradient taken through them lands in the whole leaves'."""
-    return tree_map(lambda x, s: x.narrow(s[0], s[1], s[2] - s[1])
-                    if s else x, tree, slices)
+    """``tree`` with each leaf cut to its slice (:func:`model_slices`): a
+    view of one range, the concatenation of several (a gradient taken
+    through either lands in the whole leaves')."""
+    return tree_map(_take, tree, slices)
+
+
+def vocab_ctx(cfg, ctx: Optional[DistContext]) -> Optional[DistContext]:
+    """``ctx`` where ``cfg``'s vocab splits over its ``model`` axis, else
+    None: the embedding, the head and the loss then run their one-device
+    route on every rank (:func:`model_slices` leaves them whole)."""
+    if ctx is None or cfg.vocab % ctx.tp_size:
+        return None
+    return ctx
 
 
 def check_tensor_parallel(cfg, tp: int) -> None:
     """Raise ``ValueError`` naming ``cfg`` when its heads, kv heads,
-    experts, feed-forward widths or vocab do not split over ``tp`` model
-    positions. The reference splits ``head_dim`` where the heads do not
-    divide; the port does not (no config does so at the meshes it
-    trains)."""
+    experts, feed-forward widths or SSD heads do not split over ``tp``
+    model positions. The reference splits ``head_dim`` where the heads do
+    not divide; the port does not (no config does so at the meshes it
+    trains). A vocab that does not split is computed whole
+    (:func:`vocab_ctx`)."""
     dims = {"n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
             "n_experts": cfg.n_experts, "d_ff": cfg.d_ff,
-            "d_ff_dense": cfg.d_ff_dense, "vocab": cfg.vocab}
+            "d_ff_dense": cfg.d_ff_dense,
+            "ssm_heads": cfg.ssm_heads if cfg.ssm_state else 0}
     bad = {k: v for k, v in dims.items() if v % tp}
     if bad:
         raise ValueError(f"{cfg.name}: {bad} do not split over model={tp} "

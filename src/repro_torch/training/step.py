@@ -37,15 +37,18 @@ the rank's span (the sum over the ranks, divided by the number of batch
 shards: the mean of the shards' gradients) and applies the optimizer to
 the span in place; the loss is the mean of the shards' losses.
 
-Where the forward is model-parallel (``ctx``: a transformer family on a
-mesh whose ``model`` axis has ``tp > 1`` positions) the batch shards are
-the data positions, each shared by the ``tp`` ranks of its model line.
-Each rank takes views of its model slices from the decoded leaves
+Where the forward is model-parallel (``ctx``: a mesh whose ``model`` axis
+has ``tp > 1`` positions) the batch shards are the data positions, each
+shared by the ``tp`` ranks of its model line. Each rank takes its model
+slices from the decoded leaves
 (:func:`~repro_torch.sharding.partition.take_model_slices`), so its
 gradient lands in its slices of the whole leaves and is zero elsewhere; a
-leaf every rank computes whole (norms, the router) gets its whole
-gradient on every rank of the line, and only the line's first rank
-(model position 0) keeps it. The reduce-scatter's sum then holds each
+leaf every rank computes whole (norms, the router, an embedding whose
+vocab does not split) gets its whole gradient on every rank of the line,
+and only the line's first rank (model position 0) keeps it. A cut leaf
+counts on every rank, also where every rank of the line holds a part of
+it (a Mamba2 ``in_proj``'s B and C columns, each rank's gradient there
+the part of its own SSD heads). The reduce-scatter's sum then holds each
 data shard's gradient once, and one divisor, the data positions, makes
 the mean. The loss, the same on every rank of a line, is counted at model
 position 0 alone. A ``(n, 1)`` mesh (the survivor mesh) has ``tp = 1``:

@@ -515,6 +515,14 @@ def test_tensor_parallel_needs_every_dim_to_split():
     with pytest.raises(ValueError, match="qwen2-1.5b.*n_heads"):
         tp.check_tensor_parallel(cfg, 2)
     tp.check_tensor_parallel(get_config("qwen3-moe-235b-a22b"), 2)
+    # a vocab that does not split is computed whole (whisper-medium's
+    # 51,865); the SSD heads must split
+    for n in (2, 4):
+        tp.check_tensor_parallel(get_config("whisper-medium"), n)
+    ssm = dataclasses.replace(get_config("mamba2-370m", reduced=True),
+                              ssm_headdim=512)          # 1 SSD head
+    with pytest.raises(ValueError, match="mamba2-370m.*ssm_heads"):
+        tp.check_tensor_parallel(ssm, 2)
 
 
 @pytest.mark.parametrize("name", ARCHS + ("qwen2-1.5b",))
