@@ -315,7 +315,7 @@ Phases, each of which fails the run if it fails:
     page-locked host memory, in pieces, its bytes and seconds counted),
     ``FabricConfig(n_devices=4, devices_per_host=2, elastic=True)``,
     ``scar(0.125, 2)``, adamw(3e-4), batch 4 x 2048 (one sequence a rank),
-    8 steps: host 1 lost at step 3 (4 -> 2 shards), healed at step 5 (2 ->
+    6 steps: host 1 lost at step 3 (4 -> 2 shards), healed at step 5 (2 ->
     4). The initial weights are drawn once here and handed to every rank
     as numpy; the same weights, batches and schedule run first on one rank
     in this process. Held: the arena and PyTree loops on the mesh
@@ -342,6 +342,25 @@ Phases, each of which fails the run if it fails:
     host loss that shrinks it to (2, 1) and a heal, held as phase 30's.
     ``python3 chip_smoke.py --moe-mesh`` runs phases 1 and 31 alone
     (``{"moe_mesh_only": true, ...}``).
+32. **Tensor parallelism for the ssm, hybrid and encoder-decoder
+    families** (:func:`phase_ssm_mesh`): zamba2-1.2b's first segment and
+    whisper-medium at full width on the same mesh, one step held as 31's;
+    the three reduced trainers through the shrink and the heal.
+    ``python3 chip_smoke.py --ssm-mesh`` runs phases 1 and 32 alone
+    (``{"ssm_mesh_only": true, ...}``).
+33. **The Server on a mesh** (:func:`phase_serve_mesh`): 4 ranks on a
+    (1, 4) mesh serve command-r-plus-104b at full width (4 of its 64
+    layers; batch 2, a 4,608-token prompt, 16 greedy tokens, a bf16 arm
+    and an int8 ring-cache arm) and zamba2-1.2b at full width and depth
+    (1,024 tokens), each rank placing only its model slices; held against
+    one rank's bf16 and f32 routes in this process (the tokens the same on
+    every rank, the last prefill logits within 1.5 times one device's bf16
+    floor), the serve-with-recovery flow on every rank (the same tokens
+    after it), every sw_attention and ssd_intra call and the recovery's
+    kernels against their plain versions; then every family reduced, f32,
+    on a (2, 2) mesh, the card against the CPU. ``python3 chip_smoke.py
+    --serve-mesh`` runs phases 1 and 33 alone (``{"serve_mesh_only":
+    true, ...}``).
 
 The line before the last is the kernels' JSON record (each kernel's
 launches on its own path, ``train_launches`` on phase 17's,
@@ -352,8 +371,10 @@ launches on its own path, ``train_launches`` on phase 17's,
 ``llama4_launches`` and ``internvl2_launches`` on phases 24-26,
 ``internvl2_train_launches`` and ``moe_train_launches`` on phases 27 and
 28(b), ``perf_variants_launches`` on phase 29(a)-(b), ``mesh_launches``
-on phase 30's run and ``moe_mesh_launches`` on phase 31(b)'s two elastic
-runs, one count a rank); the last line is
+on phase 30's run, ``moe_mesh_launches`` on phase 31(b)'s two elastic
+runs, ``ssm_mesh_launches`` on phase 32(b)'s three and
+``serve_mesh_launches`` on phase 33(a)-(b)'s serve paths, one count a
+rank); the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
 and prints no result.
 
@@ -4865,6 +4886,12 @@ def phase_perf_decode(device, params, card: str) -> dict:
     return out
 
 
+def _close_1e4(a, b) -> float:
+    """max |a - b| / (1e-4 + 1e-4 |b|); <= 1 passes."""
+    a, b = a.cpu().float(), b.cpu().float()
+    return float(((a - b).abs() / (1e-4 + 1e-4 * b.abs())).max())
+
+
 def phase_perf_reduced(device) -> dict:
     """Phase 29(d): each of ``PERF_REDUCED`` at its reduced config in f32
     with ``kv_quant`` and ``triangle_prefill`` on, on the card and on the
@@ -4879,11 +4906,6 @@ def phase_perf_reduced(device) -> dict:
     from repro_torch.models import get_model
     from repro_torch.training.serve import Server
     from repro_torch.utils.tree import tree_map
-
-    def close(a, b) -> float:
-        """max |a - b| / (1e-4 + 1e-4 |b|); <= 1 passes."""
-        a, b = a.cpu().float(), b.cpu().float()
-        return float(((a - b).abs() / (1e-4 + 1e-4 * b.abs())).max())
 
     out = {}
     t0 = time.perf_counter()
@@ -4911,8 +4933,9 @@ def phase_perf_reduced(device) -> dict:
         d_cpu = ops.decode_step(params, c_cpu, tok, cfg)[0]
         t_cpu = Server(cfg, params, device="cpu").generate(batch, 6)
         t_gpu = Server(cfg, gparams, device=device).generate(gbatch, 6)
-        r = {"prefill_ratio": close(l_gpu, l_cpu),
-             "decode_ratio": close(d_gpu, d_cpu), "cache_int8_flips": flips,
+        r = {"prefill_ratio": _close_1e4(l_gpu, l_cpu),
+             "decode_ratio": _close_1e4(d_gpu, d_cpu),
+             "cache_int8_flips": flips,
              "tokens_equal": bool(torch.equal(t_gpu.cpu(), t_cpu))}
         check(c_gpu["k"].dtype == torch.int8 and r["tokens_equal"]
               and r["prefill_ratio"] <= 1.0 and r["decode_ratio"] <= 1.0,
@@ -4994,7 +5017,7 @@ def erasure_only(a_tree, device, int_rate: float, card: str) -> int:
 # 3 of its 28 layers: with 4 the ranks' peaks summed to 70.2 GB (the two
 # survivors hold twice the spans and twice the batch while the mesh is
 # shrunk; PERF.md, phase 30)
-MESH = dict(ranks=4, shape=(2, 2), layers=3, batch=4, seq=2048, steps=8,
+MESH = dict(ranks=4, shape=(2, 2), layers=3, batch=4, seq=2048, steps=6,
             loss_step=3, heal_after=2, eq_steps=2, seed=30, timeout=900)
 MESH_KERNELS = ("arena_maintain", "arena_scatter", "parity_xor")
 # the ranks' losses against the one-rank run's: the gradient is the mean of
@@ -5404,7 +5427,7 @@ def phase_mesh(device, launches: dict, card: str, opts=None) -> dict:
     through page-locked host memory, its bytes and seconds counted), under
     ``FabricConfig(n_devices=4, devices_per_host=2, elastic=True)``,
     ``scar(0.125, 2)`` and adamw(3e-4), batch 4 x 2048 (one sequence a
-    rank), 8 steps: host 1 lost at step 3 (4 -> 2 shards), healed at step
+    rank), 6 steps: host 1 lost at step 3 (4 -> 2 shards), healed at step
     5 (2 -> 4). First the same model, weights, batches and schedule on one
     rank in this process. Held: the arena and PyTree loops on the mesh
     bit-equal over their first 2 steps (losses, the checkpoint spans, the
@@ -6031,9 +6054,10 @@ def _moe_mesh_rank_body(rank: int, opts: dict) -> dict:
 
 def _moe_mesh_rank(rank: int, world: int, rdv: str, out_dir: str,
                    opts: dict) -> None:
-    """Spawned rank of phase 31 or 32 (``opts["phase"]``): joins the gloo
-    group, runs :func:`_moe_mesh_rank_body` or
-    :func:`_ssm_mesh_rank_body`, writes its report."""
+    """Spawned rank of phase 31, 32 or 33 (``opts["phase"]``): joins the
+    gloo group, runs :func:`_moe_mesh_rank_body`,
+    :func:`_ssm_mesh_rank_body` or :func:`_serve_mesh_rank_body`, writes
+    its report."""
     import datetime
     import torch
     import torch.distributed as dist
@@ -6043,8 +6067,9 @@ def _moe_mesh_rank(rank: int, world: int, rdv: str, out_dir: str,
         "gloo", init_method=f"file://{rdv}", rank=rank, world_size=world,
         timeout=datetime.timedelta(seconds=MOE_MESH["timeout"]))
     try:
-        body = (_ssm_mesh_rank_body if opts.get("phase") == 32
-                else _moe_mesh_rank_body)
+        body = {32: _ssm_mesh_rank_body,
+                33: _serve_mesh_rank_body}.get(opts.get("phase"),
+                                               _moe_mesh_rank_body)
         out = body(rank, opts)
         Path(out_dir, f"rank{rank}.json").write_text(json.dumps(out))
     finally:
@@ -6052,7 +6077,7 @@ def _moe_mesh_rank(rank: int, world: int, rdv: str, out_dir: str,
 
 
 def _mesh_ranks(work: Path, opts: dict, phase: str) -> tuple[list, float]:
-    """Spawn phase 31's or 32's 4 ranks (:func:`_moe_mesh_rank`) on the
+    """Spawn phase 31's, 32's or 33's 4 ranks (:func:`_moe_mesh_rank`) on the
     card, join them within ``MOE_MESH["timeout"]`` seconds (stopping any
     left), and return their reports in rank order and the seconds from
     the spawn to the join."""
@@ -6512,6 +6537,579 @@ def ssm_mesh_only(device, card: str) -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# phase 33: the Server on a mesh
+# ---------------------------------------------------------------------------
+
+# (a) and (b) on a (1, 4) mesh of the 4 ranks, bf16: (config, depth cut,
+# batch, prompt), 16 new tokens. command-r-plus-104b at 4 of its 64 layers
+# (phase 29's depth; a rank places 24 of the 96 query heads, 2 of the 8 kv
+# heads, 8,448 of d_ff 33,792 and 64,000 of the 256,000 vocab rows: 3.15 G
+# values); its 4,608-token prompt is past the 4,096-token window, so the
+# int8 arm's ring cache and banded prefill run on the mesh. zamba2-1.2b at
+# full depth (38 Mamba2 layers, 16 of the 64 SSD heads, 8 of the shared
+# block's 32 kv heads, 8,000 vocab rows a rank) on 1,024 tokens
+SERVE_MESH = dict(ranks=4, model=4, new=16, seed=33, timeout=900,
+                  archs=(("command-r-plus-104b", dict(n_layers=4), 2, 4608),
+                         ("zamba2-1.2b", {}, 2, 1024)))
+# the mesh's last prefill logits against the one-rank bf16 route's, within
+# this factor of one device's bf16 floor: the one-rank bf16 route's
+# distance (relative L2) from the same weights in f32, the yardstick phase
+# 31 holds its gradient to
+SERVE_MESH_FLOOR_FACTOR = 1.5
+# (c) every family reduced, f32, on a (2, 2) mesh on the card against the
+# same mesh on the CPU: (case, config, overrides, prompt); qwen2-1.5b's 80
+# tokens are past its 64-token window (its ring arms)
+SERVE_MESH_REDUCED = (
+    ("qwen2", "qwen2-1.5b", {}, 80),
+    ("qwen2-kvq", "qwen2-1.5b", {"kv_quant": True}, 80),
+    ("qwen3-moe", "qwen3-moe-235b-a22b", {}, 32),
+    ("llama4", "llama4-maverick-400b-a17b", {}, 32),
+    ("internvl2", "internvl2-76b", {}, 32),
+    ("mamba2", "mamba2-370m", {}, 32),
+    ("zamba2", "zamba2-1.2b", {}, 32),
+    ("whisper", "whisper-medium", {}, 32))
+SERVE_MESH_REDUCED_RING = ("qwen2", "qwen2-kvq")
+SERVE_MESH_KERNELS = ("sw_attention", "ssd_intra", "block_dist",
+                      "scatter_save", "masked_restore")
+
+
+def _serve_mesh_cfg(name: str, cut: dict, opts: dict):
+    """Phase 33's config of ``name`` at its depth ``cut``, bf16 unless
+    ``opts["dtype"]`` (``opts["reduced"]``: the reduced config, for a
+    rehearsal on the CPU)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(name, reduced=opts.get("reduced", False))
+    return dataclasses.replace(cfg, dtype=opts.get("dtype", "bfloat16"),
+                               **cut)
+
+
+def _greedy(logits):
+    import torch
+    return torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
+
+
+def _ring_generate(cfg, params, batch: dict, n_new: int, ctx=None):
+    """The ring arm: the prefill into a cache of ``cfg.sliding_window``
+    slots (the banded prefill, ``cache_spec(use_window=True)``), then
+    ``n_new - 1`` greedy decode steps over the ring. The batch's tokens
+    (B, n_new)."""
+    import torch
+    from repro_torch.models import get_model, transformer
+    ops = get_model(cfg)
+    with torch.no_grad():
+        spec = transformer.cache_spec(cfg, batch["tokens"].shape[1],
+                                      use_window=True)
+        logits, cache = transformer.prefill(params, batch, cfg, spec, ctx)
+        toks = [_greedy(logits)]
+        for _ in range(n_new - 1):
+            logits, cache = ops.decode_step(params, cache, toks[-1], cfg,
+                                            ctx)
+            toks.append(_greedy(logits))
+    return torch.cat(toks, dim=1)
+
+
+def _as_f32(node):
+    """``node``'s leaves cast to f32 in place, one leaf at a time (each
+    model-dtype leaf is let go as its copy replaces it)."""
+    for k, v in node.items():
+        if isinstance(v, dict):
+            _as_f32(v)
+        else:
+            node[k] = v.float()
+    return node
+
+
+def _serve_mesh_yardstick(device, opts: dict, work: Path) -> dict:
+    """Phase 33(a)-(b)'s yardsticks on one rank in this process, each
+    config alone: its weights and prompts drawn from the seed and written
+    under ``work / name`` for the ranks; the one-rank route's prefill
+    logits and greedy tokens in bf16 (and the int8 ring arm's, for the
+    dense config); then the same weights cast to f32, leaf by leaf, and
+    their prefill logits: one device's bf16 floor is the bf16 logits'
+    distance from these."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.models import get_model
+    from repro_torch.training.serve import Server
+    from repro_torch.utils.tree import tree_flatten
+    cuda = device.type == "cuda"
+    out = {}
+    for k, (name, cut, B, S) in enumerate(SERVE_MESH["archs"]):
+        cfg = _serve_mesh_cfg(name, cut, opts)
+        S = opts.get("seq", {}).get(name, S)
+        ops = get_model(cfg)
+        gen = torch.Generator(device=device).manual_seed(
+            SEED + SERVE_MESH["seed"] + k)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        params = ops.init_params(gen, cfg, device=device)
+        toks = torch.randint(0, cfg.vocab, (B, S), generator=gen,
+                             device=device, dtype=torch.int32)
+        t0 = time.perf_counter()
+        _save_bits(params, work / name / "params")
+        _save_bits({"tokens": toks}, work / name / "inputs")
+        r = {"params": sum(t.numel() for t in tree_flatten(params)[0]),
+             "save_seconds": time.perf_counter() - t0}
+        batch = {"tokens": toks}
+        with torch.no_grad():
+            (logits, _), r["prefill_seconds"] = _timed(
+                lambda: ops.prefill(params, batch, cfg))
+            r["tokens"] = {"bf16": Server(cfg, params, device=device)
+                           .generate(batch, SERVE_MESH["new"]).tolist()}
+            if cfg.family == "dense":
+                cq = dataclasses.replace(cfg, kv_quant=True)
+                r["tokens"]["int8_ring"] = _ring_generate(
+                    cq, params, batch, SERVE_MESH["new"]).tolist()
+            bf16 = logits.float().cpu()
+            del logits
+            r["bf16_peak_gb"] = (torch.cuda.max_memory_allocated() / 1e9
+                                 if cuda else 0.0)
+            cfg32 = dataclasses.replace(cfg, dtype="float32")
+            p32 = _as_f32(params)
+            del params
+            f32 = ops.prefill(p32, batch, cfg32)[0].float().cpu()
+            del p32
+        r["bf16_floor"] = _rel_l2(bf16, f32)
+        r["peak_gb"] = (torch.cuda.max_memory_allocated() / 1e9
+                        if cuda else 0.0)
+        np.save(work / name / "one_bf16.npy", bf16.numpy())
+        np.save(work / name / "f32.npy", f32.numpy())
+        del toks, batch, bf16, f32
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+        out[name] = r
+    return out
+
+
+@contextlib.contextmanager
+def captured_kernel_calls():
+    """A switch of this script around the serve kernels' CUDA wrappers:
+    every launch of ssd_intra and sw_attention runs as it is, and its
+    inputs and outputs are kept (references, no copies), so that each call
+    can be held against its plain version after the path's launch counts
+    were read (:func:`hold_captured_calls`), without running the path
+    again."""
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.sw_attention import ops as sw_ops
+    ssd_cuda, sw_cuda = ssd_ops.ssd_intra_cuda, sw_ops.sw_attention_cuda
+    calls = []
+
+    def ssd(*args):
+        got = ssd_cuda(*args)
+        calls.append(("ssd_intra", args, {}, got))
+        return got
+
+    def sw(q, k, v, *, window):
+        got = sw_cuda(q, k, v, window=window)
+        calls.append(("sw_attention", (q, k, v), {"window": window}, got))
+        return got
+    ssd_ops.ssd_intra_cuda, sw_ops.sw_attention_cuda = ssd, sw
+    try:
+        yield calls
+    finally:
+        ssd_ops.ssd_intra_cuda, sw_ops.sw_attention_cuda = ssd_cuda, sw_cuda
+
+
+def hold_captured_calls(calls: list) -> dict:
+    """Each call :func:`captured_kernel_calls` kept against its plain
+    version on the same inputs: the tolerance ratios (``_close_ratio``,
+    <= 1 passes) of each kernel's calls, in order."""
+    from repro_torch.kernels.ssd_scan.ref import ssd_intra_ref
+    ratios = {"ssd_intra": [], "sw_attention": []}
+    for name, args, kw, got in calls:
+        if name == "ssd_intra":
+            r = max(_close_ratio(g, w)
+                    for g, w in zip(got, ssd_intra_ref(*args)))
+        else:
+            r = _worst_element(got, sw_attention_plain(*args, **kw))["ratio"]
+        ratios[name].append(r)
+    return ratios
+
+
+def _count(into: dict) -> None:
+    """Add the launch counts read now to ``into``."""
+    from repro_torch.kernels import _build
+    for k, v in _build.LAUNCHES.items():
+        into[k] = into.get(k, 0) + v
+
+
+def _serve_mesh_full(device, opts: dict, ctx, k: int) -> dict:
+    """Phase 33(a) or (b) on one rank for ``SERVE_MESH["archs"][k]``: this
+    rank's model slices placed from the yardstick's files; the bf16 arm
+    (``Server.generate``), the prefill alone (its logits, each kernel
+    call kept), the int8 ring arm (the dense config); the serve-with-
+    recovery flow, the ranks one at a time (a rank's params, checkpoint
+    and restored tree are three trees of its slices); the bf16 arm again
+    on the restored weights. The launch counts of each window (set to 0
+    just before, read just after) are summed; every hold runs outside
+    them."""
+    import dataclasses
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.controller import FTController
+    from repro_torch.core.policy import CheckpointPolicy
+    from repro_torch.distributed import collectives
+    from repro_torch.kernels import _build
+    from repro_torch.models import get_model
+    from repro_torch.sharding.partition import batch_rows, model_slices
+    from repro_torch.training.serve import Server
+    from repro_torch.utils.tree import tree_flatten
+    name, cut, B, S = SERVE_MESH["archs"][k]
+    work = Path(opts["work"]) / name
+    cfg = _serve_mesh_cfg(name, cut, opts)
+    ops = get_model(cfg)
+    cuda = device.type == "cuda"
+    new = SERVE_MESH["new"]
+    pos = ctx.mesh.position()
+    slices = model_slices(_bits_shapes(work / "params"), ctx)
+    params, place_s = _timed(
+        lambda: _load_bits(work / "params", device, slices))
+    out = {"place_seconds": place_s,
+           "held_values": sum(t.numel() for t in tree_flatten(params)[0])}
+    batch = _load_bits(work / "inputs", device)
+    lo, hi = batch_rows(B, ctx)
+    shard = {key: v[lo:hi] for key, v in batch.items()}
+    S = shard["tokens"].shape[1]
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    collectives.reset_stats()
+    launches: dict = {}
+    _build.reset_launches()
+    srv = Server(cfg, params, device=device, ctx=ctx)
+    toks, gen_s = _timed(lambda: srv.generate(batch, new))
+    tokens = {"bf16": toks.tolist()}
+    with torch.no_grad(), captured_kernel_calls() as calls:
+        (logits, _), pre_s = _timed(
+            lambda: ops.prefill(params, shard, cfg, ctx))
+    if cfg.family == "dense":
+        cq = dataclasses.replace(cfg, kv_quant=True)
+        ring, out["int8_ring_seconds"] = _timed(
+            lambda: _ring_generate(cq, params, shard, new, ctx))
+        tokens["int8_ring"] = ring.tolist()
+    _count(launches)
+    out["collectives"] = collectives.seconds_and_bytes()
+    out.update(prefill_seconds=pre_s,
+               prefill_tokens_per_s=(hi - lo) * S / pre_s,
+               generate_seconds=gen_s,
+               decode_seconds_per_step=(gen_s - pre_s) / (new - 1),
+               serve_peak_gb=(torch.cuda.max_memory_allocated() / 1e9
+                              if cuda else 0.0))
+    np.save(work / f"mesh_logits_{pos}.npy", logits.float().cpu().numpy())
+    del logits, srv
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # the serve-with-recovery flow on this rank's slices, one rank at a
+    # time: scar(1.0, 1), a 30% loss, the partial restore
+    _build.reset_launches()
+    ctl = FTController(params, CheckpointPolicy.scar(fraction=1.0,
+                                                     interval=1),
+                       device=device)
+    ctl.checkpoint_now(1, params)
+    for turn in range(ctx.mesh.size):
+        dist.barrier()
+        if turn != pos:
+            continue
+        lost = ctl.sample_failure(0.3)
+        recovered, info = ctl.on_failure(params, lost)
+        _count(launches)
+        check(int(lost.sum()) > 0, f"{name} rank {pos}: no block lost")
+        held = _hold_recovery(ctl, params, lost, recovered, info, name)
+        part = ctl.partition
+        del ctl
+        held.update(_hold_block_dist(params, part, name))
+        out.update(lost_blocks=info["lost_blocks"],
+                   applied_sq=info["applied_sq"], recovery_held=held)
+        params = recovered
+        del recovered
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+    dist.barrier()
+    out["recovery_peak_gb"] = (torch.cuda.max_memory_allocated() / 1e9
+                               if cuda else 0.0)
+    _build.reset_launches()
+    tokens["bf16_after_recovery"] = Server(
+        cfg, params, device=device, ctx=ctx).generate(batch, new).tolist()
+    _count(launches)
+    out["launches"] = launches
+    out["tokens"] = tokens
+    out["peak_gb"] = (torch.cuda.max_memory_allocated() / 1e9
+                      if cuda else 0.0)
+    # each kernel call of the kept prefill against its plain version
+    ratios = hold_captured_calls(calls)
+    del calls, params
+    want = {"sw_attention": (cfg.n_layers if cfg.family == "dense" else
+                             -(-cfg.n_layers // cfg.attn_every)),
+            "ssd_intra": cfg.n_layers if cfg.family == "hybrid" else 0}
+    for kernel, n in want.items():
+        got = ratios[kernel]
+        check(len(got) == (n if cuda else 0) and all(x <= 1.0 for x in got),
+              f"{name} rank {pos}: {len(got)} {kernel} calls (not {n}), "
+              f"the worst {max(got, default=0.0):.3g} of the tolerance")
+    out["per_call_worst_ratio"] = {kk: max(v, default=None)
+                                   for kk, v in ratios.items()}
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    return out
+
+
+def _serve_mesh_reduced(device, ctx) -> dict:
+    """Phase 33(c) on one rank: each of ``SERVE_MESH_REDUCED`` in f32 on
+    the (2, 2) mesh on the card and on the CPU, this rank's slices of the
+    same weights (drawn whole here on the CPU, the same bits on every
+    rank) and its data shard: the prefill's logits, its cache (floats
+    within rtol 1e-4, atol 1e-4; int8 values one count apart counted) and
+    every decode step's logits (the card's steps on the CPU's cache and
+    tokens: an int8 value one count off moves a step's logits by up to
+    3.5e-4) within rtol 1e-4, atol 1e-4; the ring arms of qwen2-1.5b the
+    same; ``Server.generate``'s tokens equal."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.interop import from_numpy_tree, to_numpy_tree
+    from repro_torch.models import get_model, transformer
+    from repro_torch.sharding.partition import batch_rows, model_slices
+    from repro_torch.training.serve import Server
+    from repro_torch.utils.tree import flatten_with_path, keystr, tree_map
+    new, B = 4, 4
+    out = {}
+    for k, (case, name, over, S) in enumerate(SERVE_MESH_REDUCED):
+        cfg = dataclasses.replace(get_config(name, reduced=True), **over)
+        ops = get_model(cfg)
+        arrays = to_numpy_tree(ops.init_params(
+            torch.Generator().manual_seed(SEED + 330 + k), cfg,
+            device="cpu"))
+        sl = model_slices(arrays, ctx)
+        on = {"cpu": from_numpy_tree(arrays, "cpu", sl),
+              "card": from_numpy_tree(arrays, device, sl)}
+        rng = np.random.default_rng(SEED + 330 + k)
+        rows = {"tokens": rng.integers(0, cfg.vocab, (B, S)).astype(
+            np.int32)}
+        if cfg.family == "vlm":
+            rows["patches"] = rng.standard_normal(
+                (B, cfg.n_patches, cfg.vit_dim)).astype(np.float32)
+        if cfg.family == "audio":
+            rows["frames"] = rng.standard_normal(
+                (B, cfg.enc_seq, cfg.d_model)).astype(np.float32)
+        batch = {"cpu": from_numpy_tree(rows, "cpu"),
+                 "card": from_numpy_tree(rows, device)}
+        lo, hi = batch_rows(B, ctx)
+        shard = {d: {key: v[lo:hi] for key, v in b.items()}
+                 for d, b in batch.items()}
+        arms = [("linear", None)]
+        if case in SERVE_MESH_REDUCED_RING:
+            arms.append(("ring", transformer.cache_spec(cfg, S,
+                                                        use_window=True)))
+        r = {"flips": 0}
+        with torch.no_grad():
+            for arm, spec in arms:
+                def pre(d):
+                    if spec is None:
+                        return ops.prefill(on[d], shard[d], cfg, ctx)
+                    return transformer.prefill(on[d], shard[d], cfg, spec,
+                                               ctx)
+                l_cpu, c_cpu = pre("cpu")
+                l_card, c_card = pre("card")
+                ratio = _close_1e4(l_card, l_cpu)
+                for (path, a), (_, b) in zip(flatten_with_path(c_card)[0],
+                                             flatten_with_path(c_cpu)[0]):
+                    if a.dtype == torch.int8:
+                        d8 = (a.cpu().int() - b.int()).abs()
+                        check(int(d8.max()) <= 1, f"33(c) {case} {arm}: "
+                              f"{keystr(path)} off by {int(d8.max())}")
+                        r["flips"] += int(d8.sum())
+                    elif a.is_floating_point():
+                        ratio = max(ratio, _close_1e4(a, b))
+                    else:
+                        check(torch.equal(a.cpu(), b), f"33(c) {case} "
+                              f"{arm}: {keystr(path)} differs")
+                carried = tree_map(lambda x: x.to(device), c_cpu)
+                for _ in range(new - 1):
+                    tok = _greedy(l_cpu)
+                    l_cpu, c_cpu = ops.decode_step(on["cpu"], c_cpu, tok,
+                                                   cfg, ctx)
+                    l_card, carried = ops.decode_step(
+                        on["card"], carried, tok.to(device), cfg, ctx)
+                    ratio = max(ratio, _close_1e4(l_card, l_cpu))
+                r[f"{arm}_ratio"] = ratio
+                check(ratio <= 1.0, f"33(c) {case} {arm}: the card is "
+                      f"{ratio:.3g} of rtol 1e-4, atol 1e-4 off the CPU")
+        t_cpu = Server(cfg, on["cpu"], device="cpu", ctx=ctx).generate(
+            batch["cpu"], new)
+        t_card = Server(cfg, on["card"], device=device, ctx=ctx).generate(
+            batch["card"], new)
+        r["tokens_equal"] = bool(torch.equal(t_card.cpu(), t_cpu))
+        check(r["tokens_equal"] and t_cpu.shape == (B, new),
+              f"33(c) {case}: the card's tokens {t_card.tolist()}, the "
+              f"CPU's {t_cpu.tolist()}")
+        out[case] = r
+    return out
+
+
+def _serve_mesh_rank_body(rank: int, opts: dict) -> dict:
+    """One rank of phase 33 (see :func:`phase_serve_mesh`)."""
+    import torch
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.sharding.partition import make_dist_ctx
+    device = torch.device(opts["device"])
+    # four ranks share the machine's cores: (c)'s CPU runs take two each
+    torch.set_num_threads(2)
+    # the (1, 4) mesh of (a) and (b), then (c)'s (2, 2): every rank makes
+    # both, in this order (their line groups are collective)
+    wide = make_dist_ctx(make_host_mesh(model=SERVE_MESH["model"]))
+    square = make_dist_ctx(make_host_mesh(model=2))
+    out = {"rank": rank, "full": {}}
+    for k, (name, _, _, _) in enumerate(SERVE_MESH["archs"]):
+        out["full"][name] = _serve_mesh_full(device, opts, wide, k)
+    t0 = time.perf_counter()
+    out["reduced"] = _serve_mesh_reduced(device, square)
+    out["reduced"]["seconds"] = time.perf_counter() - t0
+    out["host_peak_gb"] = _host_peak_gb()
+    return out
+
+
+def phase_serve_mesh(device, launches: dict, card: str, opts=None) -> dict:
+    """Phase 33: the ``Server`` on a mesh of 4 gloo ranks sharing the one
+    card, every family's prefill and decode split over the ``model`` axis.
+
+    (a) command-r-plus-104b at full width (d 12,288, GQA 96/8 of 128, d_ff
+    33,792, the untied 256,000-row head; bf16) with 4 of its 64 layers on
+    a (1, 4) mesh: each rank places only its slices from files this
+    process wrote. Batch 2, prompt 4,608, 16 greedy tokens: the bf16 arm
+    through ``Server.generate`` (a linear cache, causal prefill) and an
+    int8 arm (``kv_quant``) with the ring cache (4,096 slots) and the
+    banded prefill. Yardstick: the same weights on one rank in this
+    process, in bf16 and in f32. Held: every rank returns the same
+    tokens; the mesh's last prefill logits within a relative L2 of the
+    one-rank bf16 route's logits of ``SERVE_MESH_FLOOR_FACTOR`` times one
+    device's bf16 floor (the one-rank bf16 logits' distance from the f32
+    ones); the serve-with-recovery flow on every rank (an ``FTController``
+    over its slices, ``checkpoint_now``, 30% of the blocks lost,
+    ``on_failure``, the bf16 arm again): the same tokens bit for bit;
+    after the launch counts were read, each rank's sw_attention calls
+    against the plain version (rtol 1e-4), and its block_dist,
+    scatter_save and masked_restore against theirs. The tokens' agreement
+    with the one-rank route is printed, not held.
+
+    (b) zamba2-1.2b at full width and depth on the same mesh (batch 2,
+    prompt 1,024, 16 tokens): held as (a), ssd_intra's calls too.
+
+    (c) every family reduced, f32, on a (2, 2) mesh on the card against
+    the same mesh on the CPU (:func:`_serve_mesh_reduced`).
+
+    ``launches["serve_mesh"]``: one count a rank, (a)'s and (b)'s windows.
+    Printed with the card: each rank's peak device memory, prefill seconds
+    and tokens/s, decode seconds a step, each collective's calls, bytes,
+    seconds and staged bytes."""
+    import numpy as np
+    import torch
+    t_phase = time.perf_counter()
+    work = ROOT / "build" / f"serve_mesh_{os.getpid()}"
+    work.mkdir(parents=True, exist_ok=True)
+    opts = {"device": device.type, "work": str(work), "phase": 33,
+            **(opts or {})}
+    try:
+        yard = _serve_mesh_yardstick(device, opts, work)
+        log(f"phase 33(a)-(b): the one-rank yardsticks, {card}: "
+            f"{json.dumps(yard)}")
+        gc.collect()
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        ranks, wall = _mesh_ranks(work, opts, "33")
+        logits = {name: {"one_bf16": np.load(work / name / "one_bf16.npy"),
+                         "f32": np.load(work / name / "f32.npy"),
+                         "mesh": [np.load(work / name /
+                                          f"mesh_logits_{r}.npy")
+                                  for r in range(SERVE_MESH["ranks"])]}
+                  for name, _, _, _ in SERVE_MESH["archs"]}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    counts = [{} for _ in ranks]
+    full = {}
+    for name, _, B, _ in SERVE_MESH["archs"]:
+        fs = [r["full"][name] for r in ranks]
+        y = yard[name]
+        lg = logits[name]
+        mesh = torch.from_numpy(lg["mesh"][0])
+        one = torch.from_numpy(lg["one_bf16"])
+        f32 = torch.from_numpy(lg["f32"])
+        rel = _rel_l2(mesh, one)
+        check(all(np.array_equal(m, lg["mesh"][0]) for m in lg["mesh"]),
+              f"phase 33 {name}: the ranks' prefill logits differ")
+        check(rel <= SERVE_MESH_FLOOR_FACTOR * y["bf16_floor"],
+              f"phase 33 {name}: the mesh's last prefill logits are "
+              f"{rel:.3g} (relative L2) off the one-rank bf16 route's, one "
+              f"device's bf16 floor {y['bf16_floor']:.3g}")
+        for arm, toks in fs[0]["tokens"].items():
+            check(all(f["tokens"][arm] == toks for f in fs)
+                  and np.asarray(toks).shape == (B, SERVE_MESH["new"]),
+                  f"phase 33 {name} {arm}: the ranks' tokens differ")
+        check(fs[0]["tokens"]["bf16_after_recovery"]
+              == fs[0]["tokens"]["bf16"], f"phase 33 {name}: tokens differ "
+              f"after the lossless recovery")
+        for r, f in zip(ranks, fs):
+            check(f["applied_sq"] == 0.0 and f["lost_blocks"] > 0,
+                  f"phase 33 {name} rank {r['rank']}: recovery {f}")
+            for kk, v in f["launches"].items():
+                counts[r["rank"]][kk] = counts[r["rank"]].get(kk, 0) + v
+        agree = {arm: float(np.mean(np.asarray(toks) == np.asarray(
+            y["tokens"][arm]))) for arm, toks in fs[0]["tokens"].items()
+            if arm in y["tokens"]}
+        full[name] = {
+            "logits_rel_l2_vs_one_bf16": rel,
+            "logits_rel_l2_vs_f32": _rel_l2(mesh, f32),
+            "bf16_floor": y["bf16_floor"],
+            "over_floor": rel / max(y["bf16_floor"], 1e-30),
+            "token_agreement_with_one_rank": agree,
+            "one_rank_prefill_seconds": y["prefill_seconds"],
+            **{kk: [f[kk] for f in fs] for kk in (
+                "prefill_seconds", "prefill_tokens_per_s",
+                "generate_seconds", "decode_seconds_per_step",
+                "serve_peak_gb", "recovery_peak_gb", "peak_gb",
+                "place_seconds", "held_values", "lost_blocks",
+                "per_call_worst_ratio", "collectives")}}
+        if "int8_ring_seconds" in fs[0]:
+            full[name]["int8_ring_seconds"] = [f["int8_ring_seconds"]
+                                               for f in fs]
+    for r, cnt in zip(ranks, counts):
+        for kk in SERVE_MESH_KERNELS:
+            check(cnt.get(kk, 0) > 0, f"{kk} was not launched on rank "
+                  f"{r['rank']} of the phase 33 serve path")
+    launches["serve_mesh"] = counts
+    out = {"yardstick": yard, "full": full,
+           "reduced": [r["reduced"] for r in ranks],
+           "host_peak_gb": [r["host_peak_gb"] for r in ranks],
+           "spawn_to_join_seconds": wall, "card": card}
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 33: the Server on a mesh, {card}: {json.dumps(out)}")
+    return out
+
+
+def serve_mesh_only(device, card: str) -> int:
+    """``--serve-mesh``: phase 33 alone. Its last line says that it is
+    this partial run, never the full run's ``{"ok": true, ...}``."""
+    import torch
+    launches = {}
+    out = phase_serve_mesh(device, launches, card)
+    log(json.dumps({"launches": launches["serve_mesh"]}))
+    log(card)
+    log(json.dumps({"serve_mesh_only": True, "seconds": out["seconds"],
+                    "device": {"platform": "gpu",
+                               "kind": torch.cuda.get_device_name(0),
+                               "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def main(argv: list) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6564,6 +7162,8 @@ def main(argv: list) -> int:
         return moe_mesh_only(device, card)
     if "--ssm-mesh" in argv:
         return ssm_mesh_only(device, card)
+    if "--serve-mesh" in argv:
+        return serve_mesh_only(device, card)
     gen = torch.Generator(device=device).manual_seed(SEED)
     shapes = qwen2_1_5b_shapes()
     a_tree = _map_shapes(shapes, lambda s: torch.randn(
@@ -6692,6 +7292,8 @@ def main(argv: list) -> int:
     lap("phase 31")
     ssm_mesh = phase_ssm_mesh(device, launches, card)
     lap("phase 32")
+    serve_mesh = phase_serve_mesh(device, launches, card)
+    lap("phase 33")
     log(json.dumps({"launches": launches}))
     old = ("block_dist", "scatter_save", "masked_restore")
     new = ("arena_maintain", "arena_scatter", "parity_xor")
@@ -6783,7 +7385,9 @@ def main(argv: list) -> int:
                        "moe_mesh_launches": [r.get(name, 0) for r in
                                              launches["moe_mesh"]],
                        "ssm_mesh_launches": [r.get(name, 0) for r in
-                                             launches["ssm_mesh"]]})
+                                             launches["ssm_mesh"]],
+                       "serve_mesh_launches": [r.get(name, 0) for r in
+                                               launches["serve_mesh"]]})
     log(json.dumps({"controller": ctl, "fabric": fabric,
                     "rs_fabric": rs_fabric, "leaf_fabric": leaf_fabric,
                     "multi_erasure": multi, "mamba2_serve": mamba2,
@@ -6792,6 +7396,7 @@ def main(argv: list) -> int:
                     **moe_vlm, **train_moe_vlm, **perf_variants,
                     "mesh": {k: v for k, v in mesh.items() if k != "ranks"},
                     "moe_mesh": moe_mesh, "ssm_mesh": ssm_mesh,
+                    "serve_mesh": serve_mesh,
                     "serve_kernels": {
                         name: kernels[name]
                         for name in ("ssd_intra", "sw_attention")},

@@ -28,7 +28,10 @@ or ``moe_reduce_scatter`` and ``moe_all_gather`` on the MoE's
 reduce-scatter route) and the forward-only ``maxed`` (``model_max``).
 Their sums add the positions' tensors in position order after one
 all-gather (:meth:`MeshComm.summed`), the order the reduce-scatter adds
-in, so the two routes of the MoE combine give the same bits.
+in, so the two routes of the MoE combine give the same bits. Serving on a
+mesh adds the tokens' all-gather over the data line (:func:`data_comm`,
+``serve_tokens``) and a sampled token's broadcast over the model line
+(``serve_sample``).
 
 Each call is counted in :data:`STATS` under its name: ``calls``,
 ``bytes`` (what crosses between ranks for this rank: an all-gather's
@@ -270,18 +273,22 @@ class MeshComm:
             self._done(name, t.numel() * t.element_size(), t0, s0)
         return t
 
-    def summed(self, t: torch.Tensor, name: str) -> torch.Tensor:
+    def summed(self, t: torch.Tensor, name: str,
+               dtype: Optional[torch.dtype] = None) -> torch.Tensor:
         """The sum over the positions of ``t`` (every position's of one
-        shape), a new tensor: the positions' tensors all-gathered and
-        added on this rank's device in position order, the order
+        shape), a new tensor in ``dtype`` (default ``t``'s): the
+        positions' tensors all-gathered in ``t``'s dtype and added in
+        ``dtype`` on this rank's device in position order, the order
         :meth:`reduce_scatter` adds its parts in, so a reduce-scatter and
         all-gather of the same tensors gives the same bits for any number
-        of positions."""
+        of positions. Gathering bf16 partials and adding them in f32 gives
+        the bits of gathering them cast to f32, at half the bytes."""
+        dtype = dtype or t.dtype
         if not self.distributed:
             self._done(name, 0, time.perf_counter(), self._stage.bytes)
-            return t.clone()
+            return t.to(dtype, copy=True)
         parts = self.all_gather(t, name=name).view((self.n,) + t.shape)
-        acc = parts[0].clone()
+        acc = parts[0].to(dtype, copy=True)
         for k in range(1, self.n):
             acc.add_(parts[k])
         return acc
@@ -294,7 +301,8 @@ class MeshComm:
         parts = self.all_gather(t, name=name).view((self.n,) + t.shape)
         return torch.amax(parts, dim=0)
 
-    def broadcast(self, t: torch.Tensor, root: int = 0) -> torch.Tensor:
+    def broadcast(self, t: torch.Tensor, root: int = 0,
+                  name: str = "broadcast") -> torch.Tensor:
         """``t`` of position ``root`` on every position, in place."""
         if not self.distributed:
             return t
@@ -305,7 +313,7 @@ class MeshComm:
             dist.broadcast(buf, src=self.ranks[root], group=self.group)
             if buf.data_ptr() != flat[a:b].data_ptr():
                 self._land(flat[a:b], buf)
-        self._done("broadcast", t.numel() * t.element_size(), t0, s0)
+        self._done(name, t.numel() * t.element_size(), t0, s0)
         return t
 
     def all_to_all(self, send: torch.Tensor, send_counts, recv_counts,
@@ -494,7 +502,7 @@ class _CopyToModel(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        s = ctx.comm.summed(g.to(torch.float32).contiguous(), "copy_to_model")
+        s = ctx.comm.summed(g.contiguous(), "copy_to_model", torch.float32)
         return s.to(g.dtype), None
 
 
@@ -506,13 +514,13 @@ class _ReduceFromModel(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, comm, dtype, scatter_dim):
         ctx.dtype_in = x.dtype
-        xf = x.to(torch.float32)
         if scatter_dim is None:
-            out = comm.summed(xf.contiguous(), "reduce_from_model")
+            out = comm.summed(x.contiguous(), "reduce_from_model",
+                              torch.float32)
         else:
             # a reduce-scatter over ``scatter_dim``, then the all-gather
             # back: the port's residual stream stays replicated
-            xm = xf.movedim(scatter_dim, 0).contiguous()
+            xm = x.to(torch.float32).movedim(scatter_dim, 0).contiguous()
             part = comm.reduce_scatter(xm.view(-1),
                                        name="moe_reduce_scatter")
             out = comm.all_gather(part, name="moe_all_gather").view(
@@ -566,3 +574,20 @@ def model_axis(ctx) -> Optional[ModelAxis]:
                          MeshComm(line))
         mesh._model_axis = axis
     return axis
+
+
+def data_comm(ctx) -> Optional[MeshComm]:
+    """The :class:`MeshComm` of this rank's line of the mesh's ``data``
+    axis (the ranks that hold the other data shards at this rank's model
+    position); None without a mesh. Cached on the mesh."""
+    mesh = None if ctx is None else ctx.mesh
+    if mesh is None:
+        return None
+    dp = [a for a in ctx.dp if a in mesh.axis_names]
+    if len(dp) != 1:
+        raise ValueError(f"{mesh}: data axes {dp}, not one")
+    comm = getattr(mesh, "_data_comm", None)
+    if comm is None:
+        comm = MeshComm(mesh.axis_mesh(dp[0]))
+        mesh._data_comm = comm
+    return comm

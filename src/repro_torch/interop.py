@@ -8,7 +8,11 @@ dtypes are kept; bfloat16 and the fp8 family (numpy ``ml_dtypes``) travel
 as their raw bits. Given ``slices`` (``sharding.partition.model_slices``
 of the tree) it places only this rank's model slice of each leaf (its
 ranges concatenated, as ``take_model_slices`` cuts them): from
-memory-mapped arrays no rank reads, or holds, the whole model.
+memory-mapped arrays no rank reads, or holds, the whole model. A serving
+state's ``partition.state_slices`` cut it the same way (each leaf's data
+shard, then its heads), so a rank's cache or SSM state can be held
+against its slice of a whole one (the reference's, from numpy), and
+``to_numpy_tree`` brings a rank's slice back.
 
 ``load_parity_rows`` hands a codec parity encoded elsewhere (the
 reference's ``np.asarray(codec.parity)``: ``(n_groups, frame_elems)`` XOR
@@ -60,15 +64,23 @@ def from_numpy_tree(tree: PyTree, device, slices: PyTree = None
     if slices is None:
         return tree_map(lambda x: _to_tensor(x, dev), tree)
 
-    def place(x, s):
-        if not s:
-            return _to_tensor(x, dev)
-        a, dim = np.asarray(x), s[0]
-        parts = [a[(slice(None),) * dim + (slice(lo, hi),)]
-                 for lo, hi in s.ranges]
-        return _to_tensor(parts[0] if len(parts) == 1
-                          else np.concatenate(parts, axis=dim), dev)
-    return tree_map(place, tree, slices)
+    return tree_map(lambda x, s: _to_tensor(_cut(x, s), dev), tree, slices)
+
+
+def _cut(x, s):
+    """``x`` (an array) cut to ``s``: a ``ModelSlice``'s ranges of its dim
+    (concatenated), or each cut of a ``StateSlice`` in turn."""
+    a = np.asarray(x)
+    if not s:
+        return a
+    if isinstance(s[0], tuple):     # a StateSlice: its cuts in turn
+        for cut in s:
+            a = _cut(a, cut)
+        return a
+    dim = s[0]
+    parts = [a[(slice(None),) * dim + (slice(lo, hi),)]
+             for lo, hi in s.ranges]
+    return parts[0] if len(parts) == 1 else np.concatenate(parts, axis=dim)
 
 
 def to_numpy_tree(tree: PyTree) -> PyTree:

@@ -2,11 +2,11 @@
 
 ``get_model(cfg)`` returns a ``ModelOps`` bundle:
 
-- ``init_params(gen, cfg, device=None)``            -> params tree
-- ``init_cache(cfg, batch, seq_len, device=None)``  -> serving state
-- ``prefill(params, batch, cfg)``                   -> (logits, state)
-- ``decode_step(params, state, tokens, cfg)``       -> (logits, state)
-- ``train_loss(params, batch, cfg, ctx=None)``       -> mean loss (f32)
+- ``init_params(gen, cfg, device=None)``                      -> params tree
+- ``init_cache(cfg, batch, seq_len, device=None, ctx=None)``  -> serving state
+- ``prefill(params, batch, cfg, ctx=None)``                   -> (logits, state)
+- ``decode_step(params, state, tokens, cfg, ctx=None)``       -> (logits, state)
+- ``train_loss(params, batch, cfg, ctx=None)``                 -> mean loss (f32)
 - ``stacked_layers``: the ``(key, layer count)`` of each stacked subtree of
   the params, which the trainer's per-layer leaves split
   (``layers.split_layers``)
@@ -15,6 +15,13 @@
   model slices and ``batch`` its data shard; the Mamba2 mixer's SSD
   heads, the attention's heads, the MLPs' ``d_ff``, the experts and the
   vocab where it splits)
+
+The serving calls take the same ``ctx``: on a mesh each rank serves its
+data shard of the batch over its model slices (``params``), its state is
+its slice of the whole (``sharding.partition.state_slices``: the data
+shard's rows, its kv heads, SSD heads and conv channels) and the logits
+are the whole vocab's on every rank; ``init_cache`` takes the global
+batch.
 
 The port serves and trains every family: ``dense``, ``moe`` (every layer
 MoE, or dense and MoE layers interleaved), ``vlm`` (a patch prefix),
@@ -38,9 +45,9 @@ from repro_torch.models import encdec, hybrid, ssm, transformer
 class ModelOps:
     init_params: Callable
     train_loss: Callable
-    init_cache: Callable          # (cfg, batch, seq_len, device) -> state
-    prefill: Callable
-    decode_step: Callable         # (params, state, tokens, cfg) -> (logits, state)
+    init_cache: Callable          # (cfg, batch, seq_len, device, ctx) -> state
+    prefill: Callable             # (params, batch, cfg, ctx) -> (logits, state)
+    decode_step: Callable         # (params, state, tokens, cfg, ctx) -> (logits, state)
     supports_long_context: bool   # sub-quadratic serve path exists
     # (params key, layer count) of each subtree stacked over its layers:
     # ``layers`` (dense, MoE, VLM, ssm and the hybrid's Mamba2 backbone;
@@ -59,25 +66,26 @@ def serve_cache_len(cfg: ModelConfig, seq_len: int) -> int:
 
 
 def _transformer_ops(cfg: ModelConfig) -> ModelOps:
-    def init_cache(cfg, batch, seq_len, device=None):
+    def init_cache(cfg, batch, seq_len, device=None, ctx=None):
         spec = transformer.cache_spec(cfg, seq_len, use_window=True)
-        return transformer.init_cache(None, cfg, batch, spec, device)
+        return transformer.init_cache(None, cfg, batch, spec, device, ctx)
 
-    def prefill(params, batch, cfg, *, slack: int = 64):
+    def prefill(params, batch, cfg, ctx=None, *, slack: int = 64):
         S = batch["tokens"].shape[1]
         if cfg.family == "vlm" and "patches" in batch:
             S += cfg.n_patches          # the image prefix takes cache slots
         # slack: empty slots for tokens generated after the prefill
         spec = transformer.cache_spec(cfg, S + slack, use_window=False)
-        return transformer.prefill(params, batch, cfg, spec)
+        return transformer.prefill(params, batch, cfg, spec, ctx)
 
-    def decode_step(params, cache, tokens, cfg):
+    def decode_step(params, cache, tokens, cfg, ctx=None):
         # the geometry is fixed: a ring when the cache is the window long
         cache_len = cache["k"].shape[2]
         spec = transformer.CacheSpec(
             cache_len=cache_len,
             ring=bool(cfg.sliding_window) and cache_len == cfg.sliding_window)
-        return transformer.decode_step(params, cache, tokens, cfg, spec)
+        return transformer.decode_step(params, cache, tokens, cfg, spec,
+                                       ctx)
 
     return ModelOps(
         init_params=transformer.init_params,
@@ -95,10 +103,12 @@ def _ssm_ops(cfg: ModelConfig) -> ModelOps:
     return ModelOps(
         init_params=ssm.init_params,
         train_loss=ssm.train_loss,
-        init_cache=lambda cfg, batch, seq_len, device=None: ssm.init_state(
-            cfg, batch, device),
-        prefill=ssm.prefill,
-        decode_step=ssm.decode_step,
+        init_cache=lambda cfg, batch, seq_len, device=None, ctx=None:
+        ssm.init_state(cfg, batch, device, ctx),
+        prefill=lambda params, batch, cfg, ctx=None: ssm.prefill(
+            params, batch, cfg, ctx=ctx),
+        decode_step=lambda params, state, tokens, cfg, ctx=None:
+        ssm.decode_step(params, state, tokens, cfg, ctx=ctx),
         supports_long_context=True,
         stacked_layers=(("layers", cfg.n_layers),),
     )
@@ -108,10 +118,12 @@ def _hybrid_ops(cfg: ModelConfig) -> ModelOps:
     return ModelOps(
         init_params=hybrid.init_params,
         train_loss=hybrid.train_loss,
-        init_cache=lambda cfg, batch, seq_len, device=None: hybrid.init_state(
-            cfg, batch, seq_len, device),
-        prefill=hybrid.prefill,
-        decode_step=hybrid.decode_step,
+        init_cache=lambda cfg, batch, seq_len, device=None, ctx=None:
+        hybrid.init_state(cfg, batch, seq_len, device, ctx),
+        prefill=lambda params, batch, cfg, ctx=None: hybrid.prefill(
+            params, batch, cfg, ctx=ctx),
+        decode_step=lambda params, state, tokens, cfg, ctx=None:
+        hybrid.decode_step(params, state, tokens, cfg, ctx=ctx),
         supports_long_context=True,
         stacked_layers=(("layers", cfg.n_layers),),
     )
@@ -121,10 +133,12 @@ def _encdec_ops(cfg: ModelConfig) -> ModelOps:
     return ModelOps(
         init_params=encdec.init_params,
         train_loss=encdec.train_loss,
-        init_cache=lambda cfg, batch, seq_len, device=None: encdec.init_cache(
-            cfg, batch, seq_len, device),
-        prefill=encdec.prefill,
-        decode_step=encdec.decode_step,
+        init_cache=lambda cfg, batch, seq_len, device=None, ctx=None:
+        encdec.init_cache(cfg, batch, seq_len, device, ctx),
+        prefill=lambda params, batch, cfg, ctx=None: encdec.prefill(
+            params, batch, cfg, ctx=ctx),
+        decode_step=lambda params, state, tokens, cfg, ctx=None:
+        encdec.decode_step(params, state, tokens, cfg, ctx=ctx),
         supports_long_context=False,   # the 30 s encoder-decoder format
         stacked_layers=(("enc_layers", cfg.enc_layers),
                         ("dec_layers", cfg.n_layers)),

@@ -31,8 +31,10 @@ Parameters keep the reference's tree: ``frame_proj``, ``enc_layers`` and
 ``train_loss`` takes a ``ctx``: on a mesh with a ``model`` axis of more
 than one position each rank runs every attention (the encoder's, the
 decoder's self- and cross-attention) over its heads and every MLP over
-its ``d_ff`` on its data shard, the frame projection whole; serving runs
-on one device.
+its ``d_ff`` on its data shard, the frame projection whole.
+``init_cache``, ``prefill`` and ``decode_step`` take the same ``ctx``:
+the rank's data shard served over its heads and ``d_ff``, the self and
+cross caches over its kv heads.
 """
 from __future__ import annotations
 
@@ -45,7 +47,8 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.distributed.collectives import model_axis
 from repro_torch.models import layers as L
 from repro_torch.models import transformer
-from repro_torch.sharding.partition import check_tensor_parallel, vocab_ctx
+from repro_torch.sharding.partition import (batch_rows, check_tensor_parallel,
+                                            vocab_ctx)
 
 PyTree = Any
 
@@ -193,33 +196,51 @@ def train_loss(params, batch, cfg: ModelConfig, *, ctx=None
 # ---------------------------------------------------------------------------
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
-               device: DeviceLike = None) -> PyTree:
+               device: DeviceLike = None, ctx=None) -> PyTree:
+    """A zero cache on ``device`` (``cuda`` unless asked otherwise); with
+    ``ctx`` on a mesh this rank's slice (``partition.state_slices``): its
+    data shard of the ``batch`` rows and its kv heads of the self and
+    cross caches."""
     dev = resolve_device(device)
     dt = _dtype(cfg)
-    Hk, Dh, Ln, T = cfg.n_kv_heads, cfg.head_dim, cfg.n_layers, cfg.enc_seq
+    lo, hi = batch_rows(batch, ctx)
+    Hk, Dh, Ln, T = (transformer._kv_heads(cfg, ctx), cfg.head_dim,
+                     cfg.n_layers, cfg.enc_seq)
+    B = hi - lo
     return {
-        "k": torch.zeros((Ln, batch, cache_len, Hk, Dh), dtype=dt, device=dev),
-        "v": torch.zeros((Ln, batch, cache_len, Hk, Dh), dtype=dt, device=dev),
-        "cross_k": torch.zeros((Ln, batch, T, Hk, Dh), dtype=dt, device=dev),
-        "cross_v": torch.zeros((Ln, batch, T, Hk, Dh), dtype=dt, device=dev),
+        "k": torch.zeros((Ln, B, cache_len, Hk, Dh), dtype=dt, device=dev),
+        "v": torch.zeros((Ln, B, cache_len, Hk, Dh), dtype=dt, device=dev),
+        "cross_k": torch.zeros((Ln, B, T, Hk, Dh), dtype=dt, device=dev),
+        "cross_v": torch.zeros((Ln, B, T, Hk, Dh), dtype=dt, device=dev),
         "kpos": torch.full((cache_len,), -1, dtype=torch.int32, device=dev),
         "pos": torch.zeros((), dtype=torch.int32, device=dev),
     }
 
 
-def prefill(params, batch, cfg: ModelConfig, spec=None):
+def prefill(params, batch, cfg: ModelConfig, spec=None, ctx=None):
     """Encode ``batch["frames"]``, then the teacher-forced decoder pass over
     ``batch["tokens"]``, building the self- and cross-attention caches.
-    Returns (logits of the last position (B, 1, V) f32, cache)."""
-    enc_out = encode(params, batch["frames"], cfg)
+    Returns (logits of the last position (B, 1, V) f32, cache). With
+    ``ctx`` on a mesh whose ``model`` axis has more than one position,
+    ``params`` are this rank's model slices and ``batch`` its data shard:
+    every attention runs over its heads (the decoder's self-attention
+    through the sw_attention kernel on the card), every MLP over its
+    ``d_ff``, the cross K/V come from ``copy`` of the encoder output and
+    both caches hold its kv heads; the embedding and the head are whole
+    where the vocab does not split."""
+    if ctx is not None:
+        check_tensor_parallel(cfg, ctx.tp_size)
+    vctx = vocab_ctx(cfg, ctx)
+    enc_out = encode(params, batch["frames"], cfg, ctx)
     tokens = batch["tokens"]
     B, S = tokens.shape
     T = enc_out.shape[1]
     dt = _dtype(cfg)
-    x = _embed_with_positions(params, tokens, cfg)
+    x = _embed_with_positions(params, tokens, cfg, ctx=vctx)
     positions = _positions(S, x.device)
     enc_pos = _positions(T, x.device)
-    shape = (cfg.n_layers, B, S + SLACK, cfg.n_kv_heads, cfg.head_dim)
+    shape = (cfg.n_layers, B, S + SLACK, transformer._kv_heads(cfg, ctx),
+             cfg.head_dim)
     ks = torch.zeros(shape, dtype=dt, device=x.device)
     vs = torch.zeros(shape, dtype=dt, device=x.device)
     cks, cvs = [], []
@@ -227,18 +248,19 @@ def prefill(params, batch, cfg: ModelConfig, spec=None):
     for i, lp in enumerate(dec):
         p = lp["self_attn"]
         q, k, v = L.qkv_project(L.rms_norm(x, lp["self_norm"]), p, cfg,
-                                positions)
+                                positions, ctx)
         o = transformer.prefill_attention(q, k, v, positions, cfg, 0)
-        x = x + L.attn_out(o, p["wo"])
-        x, ck, cv = _cross(x, lp, enc_out, positions, enc_pos, min(CHUNK, S))
-        x = x + L.mlp_block(L.rms_norm(x, lp["mlp_norm"]), lp["mlp"])
+        x = x + transformer._attn_out(o, p["wo"], ctx)
+        x, ck, cv = _cross(x, lp, enc_out, positions, enc_pos, min(CHUNK, S),
+                           ctx)
+        x = x + L.mlp_block(L.rms_norm(x, lp["mlp_norm"]), lp["mlp"], ctx)
         # slots past S stay empty: room for the tokens decoded next
         ks[i, :, :S] = k.to(dt)
         vs[i, :, :S] = v.to(dt)
         cks.append(ck.to(dt))
         cvs.append(cv.to(dt))
     h = L.rms_norm(x, params["final_norm"])
-    logits = L.lm_logits(h[:, -1:], params)
+    logits = L.lm_logits(h[:, -1:], params, vctx)
     kpos = torch.full((S + SLACK,), -1, dtype=torch.int32, device=x.device)
     kpos[:S] = positions
     cache = {"k": ks, "v": vs, "cross_k": torch.stack(cks),
@@ -247,16 +269,21 @@ def prefill(params, batch, cfg: ModelConfig, spec=None):
     return logits, cache
 
 
-def decode_step(params, cache, tokens, cfg: ModelConfig, spec=None):
+def decode_step(params, cache, tokens, cfg: ModelConfig, spec=None,
+                ctx=None):
     """One decode step. tokens: (B, 1) -> (logits (B, 1, V) f32, the
     cache), its K/V and ``kpos`` written in place at slot ``pos``. Raises
-    ``ValueError`` when the cache has no slot left."""
+    ``ValueError`` when the cache has no slot left. With ``ctx``, as
+    :func:`prefill`."""
     pos = int(cache["pos"])
     cache_len = cache["k"].shape[2]
     if pos >= cache_len:
         raise ValueError(f"decode at position {pos}: the cache holds "
                          f"{cache_len} slots")
-    x = _embed_with_positions(params, tokens, cfg, offset=cache["pos"])
+    vctx = vocab_ctx(cfg, ctx)
+    axis = model_axis(ctx)
+    x = _embed_with_positions(params, tokens, cfg, offset=cache["pos"],
+                              ctx=vctx)
     positions = torch.tensor([pos], dtype=torch.int32, device=x.device)
     kpos = cache["kpos"]
     kpos[pos] = pos
@@ -268,21 +295,23 @@ def decode_step(params, cache, tokens, cfg: ModelConfig, spec=None):
         kc, vc = cache["k"][i], cache["v"][i]
         p = lp["self_attn"]
         q, k, v = L.qkv_project(L.rms_norm(x, lp["self_norm"]), p, cfg,
-                                positions)
+                                positions, ctx)
         kc[:, pos] = k[:, 0].to(kc.dtype)
         vc[:, pos] = v[:, 0].to(vc.dtype)
         o = L.flash_attention(q, kc, vc, positions, kpos, causal=True,
                               q_chunk=1, kv_chunk=kv_chunk)
-        x = x + L.attn_out(o, p["wo"])
+        x = x + transformer._attn_out(o, p["wo"], ctx)
         pc = lp["cross_attn"]
         xn = L.rms_norm(x, lp["cross_norm"])
+        if axis is not None:
+            xn = axis.copy(xn)
         qc = torch.einsum("bsd,dhk->bshk", xn, pc["wq"])
         oc = L.flash_attention(qc, cache["cross_k"][i], cache["cross_v"][i],
                                positions, enc_pos, causal=False, q_chunk=1,
                                kv_chunk=min(CHUNK, T))
-        x = x + L.attn_out(oc, pc["wo"])
-        x = x + L.mlp_block(L.rms_norm(x, lp["mlp_norm"]), lp["mlp"])
+        x = x + transformer._attn_out(oc, pc["wo"], ctx)
+        x = x + L.mlp_block(L.rms_norm(x, lp["mlp_norm"]), lp["mlp"], ctx)
     h = L.rms_norm(x, params["final_norm"])
-    logits = L.lm_logits(h, params)
+    logits = L.lm_logits(h, params, vctx)
     cache["pos"] = cache["pos"] + 1
     return logits, cache

@@ -30,7 +30,9 @@ stacked over ``n_layers``, or a list of per-layer trees from
 mesh with a ``model`` axis of more than one position each rank runs the
 Mamba2 layers over its SSD heads and the shared block over its heads and
 ``d_ff`` (``ssm.mixer_fwd``, ``transformer._layer_fwd``) on its data
-shard; serving runs on one device.
+shard. ``init_state``, ``prefill`` and ``decode_step`` take the same
+``ctx``: the rank's data shard served over its SSD heads and the shared
+block's heads and ``d_ff``, each application's cache over its kv heads.
 """
 from __future__ import annotations
 
@@ -42,7 +44,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import ssm, transformer
-from repro_torch.sharding.partition import check_tensor_parallel, vocab_ctx
+from repro_torch.sharding.partition import (batch_rows, check_tensor_parallel,
+                                            vocab_ctx)
 
 PyTree = Any
 
@@ -116,11 +119,17 @@ def train_loss(params, batch, cfg: ModelConfig, *, ctx=None
 # ---------------------------------------------------------------------------
 
 def init_state(cfg: ModelConfig, batch: int, cache_len: int,
-               device: DeviceLike = None) -> PyTree:
+               device: DeviceLike = None, ctx=None) -> PyTree:
+    """A zero state on ``device`` (``cuda`` unless asked otherwise); with
+    ``ctx`` on a mesh this rank's slice (``partition.state_slices``): its
+    data shard of the ``batch`` rows, its SSD heads' states and its kv
+    heads of each application's cache."""
     dev = resolve_device(device)
-    shape = (n_segments(cfg), batch, cache_len, cfg.n_kv_heads, cfg.head_dim)
+    lo, hi = batch_rows(batch, ctx)
+    shape = (n_segments(cfg), hi - lo, cache_len,
+             transformer._kv_heads(cfg, ctx), cfg.head_dim)
     return {
-        "ssm": ssm.init_state(cfg, batch, dev),
+        "ssm": ssm.init_state(cfg, batch, dev, ctx),
         # one KV cache per application of the shared block
         "k": torch.zeros(shape, dtype=_dtype(cfg), device=dev),
         "v": torch.zeros(shape, dtype=_dtype(cfg), device=dev),
@@ -129,22 +138,28 @@ def init_state(cfg: ModelConfig, batch: int, cache_len: int,
     }
 
 
-def _shared_mlp(x, lp):
-    return x + L.mlp_block(L.rms_norm(x, lp["mlp_norm"]), lp["mlp"])
+def _shared_mlp(x, lp, ctx=None):
+    return x + L.mlp_block(L.rms_norm(x, lp["mlp_norm"]), lp["mlp"], ctx)
 
 
-def prefill(params, batch, cfg: ModelConfig, spec=None):
+def prefill(params, batch, cfg: ModelConfig, spec=None, ctx=None):
     """The chunked SSD scan over the prompt and the shared block's KV
     caches. The prompt's length must be a multiple of ``cfg.ssm_chunk``
     (or below it): the scan raises ``ValueError`` otherwise. Returns
-    (logits of the last position (B, 1, V) f32, state)."""
+    (logits of the last position (B, 1, V) f32, state). With ``ctx`` on a
+    mesh whose ``model`` axis has more than one position, ``params`` are
+    this rank's model slices and ``batch`` its data shard: the Mamba2
+    layers run over its SSD heads, each application of the shared block
+    over its heads and ``d_ff``, the caches hold its kv heads."""
+    vctx = vocab_ctx(cfg, ctx)
     tokens = batch["tokens"]
-    x = L.embed_tokens(tokens, params)
+    x = L.embed_tokens(tokens, params, vctx)
     B, S = tokens.shape
     dt = _dtype(cfg)
     positions = torch.arange(S, dtype=torch.int32, device=x.device)
     segs = _segments(cfg)
-    shape = (len(segs), B, S + SLACK, cfg.n_kv_heads, cfg.head_dim)
+    shape = (len(segs), B, S + SLACK, transformer._kv_heads(cfg, ctx),
+             cfg.head_dim)
     ks = torch.zeros(shape, dtype=dt, device=x.device)
     vs = torch.zeros(shape, dtype=dt, device=x.device)
     lp_sh = params["shared"]
@@ -152,19 +167,19 @@ def prefill(params, batch, cfg: ModelConfig, spec=None):
     for si, (start, length) in enumerate(segs):
         for i in range(start, start + length):
             x, h_fin, conv_state = ssm.mixer_prefill(
-                x, L.layer_params(params, i), cfg)
+                x, L.layer_params(params, i), cfg, ctx)
             hs.append(h_fin)
             convs.append(conv_state)
         xn = L.rms_norm(x, lp_sh["attn_norm"])
-        q, k, v = L.qkv_project(xn, lp_sh["attn"], cfg, positions)
+        q, k, v = L.qkv_project(xn, lp_sh["attn"], cfg, positions, ctx)
         o = transformer.prefill_attention(q, k, v, positions, cfg, 0)
-        x = x + L.attn_out(o, lp_sh["attn"]["wo"])
-        x = _shared_mlp(x, lp_sh)
+        x = x + transformer._attn_out(o, lp_sh["attn"]["wo"], ctx)
+        x = _shared_mlp(x, lp_sh, ctx)
         # slots past S stay empty: room for the tokens decoded next
         ks[si, :, :S] = k.to(dt)
         vs[si, :, :S] = v.to(dt)
     hfin = L.rms_norm(x, params["final_norm"])
-    logits = L.lm_logits(hfin[:, -1:], params)
+    logits = L.lm_logits(hfin[:, -1:], params, vctx)
     kpos = torch.full((S + SLACK,), -1, dtype=torch.int32, device=x.device)
     kpos[:S] = positions
     pos = torch.tensor(S, dtype=torch.int32, device=x.device)
@@ -174,11 +189,14 @@ def prefill(params, batch, cfg: ModelConfig, spec=None):
     return logits, state
 
 
-def decode_step(params, state, tokens, cfg: ModelConfig, spec=None):
+def decode_step(params, state, tokens, cfg: ModelConfig, spec=None,
+                ctx=None):
     """One decode step. tokens: (B, 1) -> (logits (B, 1, V) f32, the new
     state). The shared block's K/V and ``kpos`` are written in place at
-    slot ``pos % cache_len``; the SSM states are new tensors."""
-    x = L.embed_tokens(tokens, params)
+    slot ``pos % cache_len``; the SSM states are new tensors. With
+    ``ctx``, as :func:`prefill`."""
+    vctx = vocab_ctx(cfg, ctx)
+    x = L.embed_tokens(tokens, params, vctx)
     pos = int(state["pos"])
     positions = torch.tensor([pos], dtype=torch.int32, device=x.device)
     cache_len = state["k"].shape[2]
@@ -194,21 +212,21 @@ def decode_step(params, state, tokens, cfg: ModelConfig, spec=None):
             lp = L.layer_params(params, i)
             out, new = ssm.mixer_decode(
                 L.rms_norm(x, lp["norm"]), lp["mixer"],
-                {"h": sst["h"][i], "conv": sst["conv"][i]}, cfg)
+                {"h": sst["h"][i], "conv": sst["conv"][i]}, cfg, ctx)
             x = x + out
             hs.append(new["h"])
             convs.append(new["conv"])
         kc, vc = state["k"][si], state["v"][si]
         xn = L.rms_norm(x, lp_sh["attn_norm"])
-        q, k, v = L.qkv_project(xn, lp_sh["attn"], cfg, positions)
+        q, k, v = L.qkv_project(xn, lp_sh["attn"], cfg, positions, ctx)
         kc[:, slot] = k[:, 0].to(kc.dtype)
         vc[:, slot] = v[:, 0].to(vc.dtype)
         o = L.flash_attention(q, kc, vc, positions, kpos, causal=True,
                               q_chunk=1, kv_chunk=kv_chunk)
-        x = x + L.attn_out(o, lp_sh["attn"]["wo"])
-        x = _shared_mlp(x, lp_sh)
+        x = x + transformer._attn_out(o, lp_sh["attn"]["wo"], ctx)
+        x = _shared_mlp(x, lp_sh, ctx)
     h = L.rms_norm(x, params["final_norm"])
-    logits = L.lm_logits(h, params)
+    logits = L.lm_logits(h, params, vctx)
     new_state = {"ssm": {"h": torch.stack(hs), "conv": torch.stack(convs),
                          "pos": sst["pos"] + 1},
                  "k": state["k"], "v": state["v"], "kpos": kpos,

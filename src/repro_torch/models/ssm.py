@@ -29,7 +29,9 @@ loop, so ``interop.from_numpy_tree`` carries the reference's params across
 unchanged and the SCAR block partition matches. ``train_loss`` takes a
 ``ctx``: on a mesh with a ``model`` axis of more than one position each
 rank runs the mixer over its SSD heads (``mixer_fwd``) on its data shard;
-serving runs on one device.
+``init_state``, ``prefill`` and ``decode_step`` take the same ``ctx`` and
+serve the rank's data shard over its SSD heads (``mixer_prefill``,
+``mixer_decode``), its state holding theirs.
 """
 from __future__ import annotations
 
@@ -44,7 +46,8 @@ from repro_torch.distributed.collectives import model_axis
 from repro_torch.kernels.ssd_scan.ops import (ssd_chunked_kernel,
                                               ssd_chunked_plain)
 from repro_torch.models import layers as L
-from repro_torch.sharding.partition import check_tensor_parallel, vocab_ctx
+from repro_torch.sharding.partition import (batch_rows, check_tensor_parallel,
+                                            vocab_ctx)
 
 PyTree = Any
 
@@ -168,17 +171,29 @@ def mixer_fwd(x, p, cfg: ModelConfig, ctx=None):
     return out if axis is None else axis.reduce(out)
 
 
-def mixer_prefill(x, lp, cfg: ModelConfig):
+def _heads(cfg: ModelConfig, axis) -> int:
+    """The SSD heads a rank runs: all, or on a model ``axis`` its share."""
+    return cfg.ssm_heads if axis is None else cfg.ssm_heads // axis.size
+
+
+def mixer_prefill(x, lp, cfg: ModelConfig, ctx=None):
     """One Mamba2 layer over a prompt, the serve path: x: (B,S,D) and the
     layer's params ``lp`` (``norm``, ``mixer``) -> (x + the mixer's output,
     the final SSM state (B,H,P,N) f32, the conv state (B,K-1,DI)). The SSD
-    scan is the kernel-backed :func:`ssd_chunked`."""
+    scan is the kernel-backed :func:`ssd_chunked`. On a model axis
+    (``ctx``) ``lp["mixer"]`` holds this rank's SSD heads (as in
+    :func:`mixer_fwd`): the scan runs over them, the states are theirs
+    (H / tp heads, their DI / tp channels) and the output projection's
+    partials are summed over the axis."""
+    axis = model_axis(ctx)
     Bsz, S, _ = x.shape
-    H, P = cfg.ssm_heads, cfg.ssm_headdim
+    H, P = _heads(cfg, axis), cfg.ssm_headdim
     xn = L.rms_norm(x, lp["norm"])
+    if axis is not None:
+        xn = axis.copy(xn)
     p = lp["mixer"]
     zxbcdt = torch.einsum("bsd,de->bse", xn, p["in_proj"])
-    z, xi, Bm, Cm, dtr = _split_proj(zxbcdt, cfg)
+    z, xi, Bm, Cm, dtr = _split_proj(zxbcdt, cfg, H * P)
     xi, conv_state = _causal_conv(xi, p["conv_w"])
     xh = xi.reshape(Bsz, S, H, P).to(torch.float32)
     dt = _softplus(dtr.to(torch.float32) + p["dt_bias"])
@@ -186,17 +201,23 @@ def mixer_prefill(x, lp, cfg: ModelConfig):
     y, h_fin = ssd_chunked(xh, dt, A, Bm.to(torch.float32),
                            Cm.to(torch.float32), cfg)
     y = y + xh * p["D_skip"][:, None]
-    y = y.reshape(Bsz, S, cfg.d_inner).to(x.dtype) * F.silu(z)
-    return x + torch.einsum("bse,ed->bsd", y, p["out_proj"]), h_fin, \
+    y = y.reshape(Bsz, S, H * P).to(x.dtype) * F.silu(z)
+    out = torch.einsum("bse,ed->bsd", y, p["out_proj"])
+    return x + (out if axis is None else axis.reduce(out)), h_fin, \
         conv_state
 
 
-def mixer_decode(x, p, state, cfg: ModelConfig):
-    """Single-token recurrent step. x: (B,1,D); state: dict(h, conv)."""
+def mixer_decode(x, p, state, cfg: ModelConfig, ctx=None):
+    """Single-token recurrent step. x: (B,1,D); state: dict(h, conv). On a
+    model axis (``ctx``) over this rank's SSD heads and their state, the
+    output projection's partials summed over the axis."""
+    axis = model_axis(ctx)
+    H, P = _heads(cfg, axis), cfg.ssm_headdim
+    if axis is not None:
+        x = axis.copy(x)
     zxbcdt = torch.einsum("bsd,de->bse", x, p["in_proj"])
-    z, xi, Bm, Cm, dtr = _split_proj(zxbcdt, cfg)
+    z, xi, Bm, Cm, dtr = _split_proj(zxbcdt, cfg, H * P)
     xi, conv_state = _causal_conv(xi, p["conv_w"], state["conv"])
-    H, P = cfg.ssm_heads, cfg.ssm_headdim
     Bsz = x.shape[0]
     xh = xi.reshape(Bsz, H, P).to(torch.float32)
     dt = _softplus(dtr[:, 0].to(torch.float32) + p["dt_bias"])    # (B,H)
@@ -206,9 +227,10 @@ def mixer_decode(x, p, state, cfg: ModelConfig):
         + torch.einsum("bh,bn,bhp->bhpn", dt, Bm[:, 0].to(torch.float32), xh)
     y = torch.einsum("bn,bhpn->bhp", Cm[:, 0].to(torch.float32), h)
     y = y + xh * p["D_skip"][:, None]
-    y = y.reshape(Bsz, 1, cfg.d_inner).to(x.dtype) * F.silu(z)
+    y = y.reshape(Bsz, 1, H * P).to(x.dtype) * F.silu(z)
     out = torch.einsum("bse,ed->bsd", y, p["out_proj"])
-    return out, {"h": h, "conv": conv_state}
+    return (out if axis is None else axis.reduce(out)), \
+        {"h": h, "conv": conv_state}
 
 
 # ---------------------------------------------------------------------------
@@ -235,52 +257,72 @@ def train_loss(params, batch, cfg: ModelConfig, *, ctx=None
                              cfg, ctx=vctx)
 
 
-def init_state(cfg: ModelConfig, batch: int, device: DeviceLike = None
-               ) -> PyTree:
+def init_state(cfg: ModelConfig, batch: int, device: DeviceLike = None,
+               ctx=None) -> PyTree:
+    """A zero state on ``device`` (``cuda`` unless asked otherwise); with
+    ``ctx`` on a mesh this rank's slice (``partition.state_slices``): its
+    data shard of the ``batch`` rows and its SSD heads' ``h`` and conv
+    channels."""
     dev = resolve_device(device)
-    H, P, N = cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state
+    if ctx is not None:
+        check_tensor_parallel(cfg, ctx.tp_size)
+    tp = 1 if ctx is None else ctx.tp_size
+    lo, hi = batch_rows(batch, ctx)
+    H, P, N = cfg.ssm_heads // tp, cfg.ssm_headdim, cfg.ssm_state
     return {
-        "h": torch.zeros((cfg.n_layers, batch, H, P, N), dtype=torch.float32,
-                         device=dev),
-        "conv": torch.zeros((cfg.n_layers, batch, cfg.conv_width - 1,
-                             cfg.d_inner), dtype=torch.float32, device=dev),
+        "h": torch.zeros((cfg.n_layers, hi - lo, H, P, N),
+                         dtype=torch.float32, device=dev),
+        "conv": torch.zeros((cfg.n_layers, hi - lo, cfg.conv_width - 1,
+                             cfg.d_inner // tp), dtype=torch.float32,
+                            device=dev),
         "pos": torch.zeros((), dtype=torch.int32, device=dev),
     }
 
 
-def prefill(params, batch, cfg: ModelConfig, spec=None):
+def prefill(params, batch, cfg: ModelConfig, spec=None, ctx=None):
     """Run the chunked scan over the prompt, carrying the final SSM states.
-    Returns (logits of the last position (B, 1, V) f32, state)."""
+    Returns (logits of the last position (B, 1, V) f32, state). With
+    ``ctx`` on a mesh whose ``model`` axis has more than one position,
+    ``params`` are this rank's model slices and ``batch`` its data shard:
+    every layer runs over its SSD heads (:func:`mixer_prefill`, the
+    ssd_intra kernel on the card), the state holds theirs, the logits are
+    the whole vocab's."""
+    if ctx is not None:
+        check_tensor_parallel(cfg, ctx.tp_size)
+    vctx = vocab_ctx(cfg, ctx)
     tokens = batch["tokens"]
-    x = L.embed_tokens(tokens, params)
+    x = L.embed_tokens(tokens, params, vctx)
     S = tokens.shape[1]
     hs, convs = [], []
     for i in range(cfg.n_layers):
         x, h_fin, conv_state = mixer_prefill(x, L.layer_params(params, i),
-                                             cfg)
+                                             cfg, ctx)
         hs.append(h_fin)
         convs.append(conv_state)
     hfin = L.rms_norm(x, params["final_norm"])
-    logits = L.lm_logits(hfin[:, -1:], params)
+    logits = L.lm_logits(hfin[:, -1:], params, vctx)
     state = {"h": torch.stack(hs), "conv": torch.stack(convs),
              "pos": torch.tensor(S, dtype=torch.int32, device=x.device)}
     return logits, state
 
 
-def decode_step(params, state, tokens, cfg: ModelConfig, spec=None):
+def decode_step(params, state, tokens, cfg: ModelConfig, spec=None,
+                ctx=None):
     """One recurrent step. tokens: (B, 1) -> (logits (B, 1, V) f32, the
-    new state; the given state is left as it was)."""
-    x = L.embed_tokens(tokens, params)
+    new state; the given state is left as it was). With ``ctx``, as
+    :func:`prefill`: this rank's SSD heads and data shard."""
+    vctx = vocab_ctx(cfg, ctx)
+    x = L.embed_tokens(tokens, params, vctx)
     hs, convs = [], []
     for i in range(cfg.n_layers):
         lp = L.layer_params(params, i)
         out, new = mixer_decode(L.rms_norm(x, lp["norm"]), lp["mixer"],
                                 {"h": state["h"][i], "conv": state["conv"][i]},
-                                cfg)
+                                cfg, ctx)
         x = x + out
         hs.append(new["h"])
         convs.append(new["conv"])
     h = L.rms_norm(x, params["final_norm"])
-    logits = L.lm_logits(h, params)
+    logits = L.lm_logits(h, params, vctx)
     return logits, {"h": torch.stack(hs), "conv": torch.stack(convs),
                     "pos": state["pos"] + 1}

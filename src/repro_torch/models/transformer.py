@@ -36,8 +36,12 @@ than one position it runs the tensor- and expert-parallel forward over
 this rank's weight slices (``layers``; ``params`` holds the slices that
 ``sharding.partition.take_model_slices`` cut; the embedding and the head
 whole where the vocab does not split, ``partition.vocab_ctx``) and the
-rank's data shard; ``prefill`` and ``decode_step`` run on one device.
-``decode_step`` writes the new token's K/V into the cache in place.
+rank's data shard. ``init_cache``, ``prefill`` and ``decode_step`` take
+the same ``ctx``: each rank serves its data shard over its heads (the
+sw_attention kernel on the card over ``Hq / tp`` query and ``Hk / tp`` kv
+heads), its cache holds those kv heads (``partition.state_slices``) and
+the logits are the whole vocab's on every rank. ``decode_step`` writes
+the new token's K/V into the cache in place.
 
 The perf variants, as the reference's: under ``cfg.kv_quant`` the cache
 holds int8 ``k``/``v`` with f32 ``k_scale``/``v_scale`` per (token, kv
@@ -57,9 +61,11 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed.collectives import model_axis
 from repro_torch.kernels.sw_attention.ops import sw_attention
 from repro_torch.models import layers as L
-from repro_torch.sharding.partition import check_tensor_parallel, vocab_ctx
+from repro_torch.sharding.partition import (batch_rows, check_tensor_parallel,
+                                            vocab_ctx)
 
 PyTree = Any
 
@@ -246,15 +252,28 @@ def cache_spec(cfg: ModelConfig, seq_len: int, *, use_window: bool
     return CacheSpec(cache_len=seq_len, ring=False)
 
 
+def _kv_heads(cfg: ModelConfig, ctx=None) -> int:
+    """The kv heads a rank holds: all of them, or on a model axis its
+    ``n_kv_heads / tp`` (raises ``ValueError`` where the config does not
+    split over ``ctx``'s model axis)."""
+    if ctx is None:
+        return cfg.n_kv_heads
+    check_tensor_parallel(cfg, ctx.tp_size)
+    return cfg.n_kv_heads // ctx.tp_size
+
+
 def init_cache(params_or_none, cfg: ModelConfig, batch: int, spec: CacheSpec,
-               device: DeviceLike = None) -> PyTree:
+               device: DeviceLike = None, ctx=None) -> PyTree:
     """An empty cache on ``device`` (``cuda`` unless asked otherwise):
     ``k``/``v`` (L, B, cache_len, Hk, Dh) in the model dtype, or int8 with
     zero f32 ``k_scale``/``v_scale`` (L, B, cache_len, Hk) under
-    ``cfg.kv_quant``."""
+    ``cfg.kv_quant``. With ``ctx`` on a mesh, this rank's slice of it
+    (``sharding.partition.state_slices``): its data shard of the ``batch``
+    rows and its kv heads."""
     dev = resolve_device(device)
-    shape = (cfg.n_layers, batch, spec.cache_len, cfg.n_kv_heads,
-             cfg.head_dim)
+    heads = _kv_heads(cfg, ctx)
+    lo, hi = batch_rows(batch, ctx)
+    shape = (cfg.n_layers, hi - lo, spec.cache_len, heads, cfg.head_dim)
     dt = torch.int8 if cfg.kv_quant else _dtype(cfg)
     cache = {
         "k": torch.zeros(shape, dtype=dt, device=dev),
@@ -294,11 +313,27 @@ def prefill_attention(q, k, v, positions, cfg: ModelConfig, window: int):
     return sw_attention(q, k, v, window=window or S)
 
 
-def decode_step(params, cache, tokens, cfg: ModelConfig, spec: CacheSpec):
+def _attn_out(o, wo, ctx=None):
+    """The attention output projection; on a model axis this rank's heads'
+    partial, summed over the axis."""
+    out = L.attn_out(o, wo)
+    axis = model_axis(ctx)
+    return out if axis is None else axis.reduce(out)
+
+
+def decode_step(params, cache, tokens, cfg: ModelConfig, spec: CacheSpec,
+                ctx=None):
     """One decode step. tokens: (B, 1) -> logits (B, 1, V) f32 and the
     cache, whose K/V (and, under ``cfg.kv_quant``, scales) and ``kpos``
-    are updated in place."""
-    x = L.embed_tokens(tokens, params)
+    are updated in place. With ``ctx`` on a mesh whose ``model`` axis has
+    more than one position, ``params`` are this rank's model slices,
+    ``tokens`` and ``cache`` its data shard's (the cache over its kv
+    heads): the attention runs over its heads and the MLP over its
+    ``d_ff`` (the MoE over its experts at the shard's capacity), each
+    output's partials summed over the axis, and the logits are the whole
+    vocab's on every rank of the line."""
+    vctx = vocab_ctx(cfg, ctx)
+    x = L.embed_tokens(tokens, params, vctx)
     pos = int(cache["pos"])
     positions = torch.tensor([pos], dtype=torch.int32, device=x.device)
     slot = (pos % spec.cache_len) if spec.ring else pos
@@ -309,7 +344,7 @@ def decode_step(params, cache, tokens, cfg: ModelConfig, spec: CacheSpec):
     for i, lp in layer_walk(params, cfg):
         kc, vc = cache["k"][i], cache["v"][i]
         xn = L.rms_norm(x, lp["attn_norm"])
-        q, k, v = L.qkv_project(xn, lp["attn"], cfg, positions)
+        q, k, v = L.qkv_project(xn, lp["attn"], cfg, positions, ctx)
         if cfg.kv_quant:
             # the new token quantized as the reference does (its model-dtype
             # k/v), the cache streamed a chunk at a time in int8
@@ -325,27 +360,32 @@ def decode_step(params, cache, tokens, cfg: ModelConfig, spec: CacheSpec):
             o = L.flash_attention(q, kc, vc, positions, kpos, causal=True,
                                   window=window, q_chunk=1,
                                   kv_chunk=kv_chunk)
-        x = x + L.attn_out(o, lp["attn"]["wo"])
-        x = x + _ffn(x, lp, cfg)[0]
+        x = x + _attn_out(o, lp["attn"]["wo"], ctx)
+        x = x + _ffn(x, lp, cfg, ctx)[0]
     h = L.rms_norm(x, params["final_norm"])
-    logits = L.lm_logits(h, params)
+    logits = L.lm_logits(h, params, vctx)
     cache["pos"] = cache["pos"] + 1
     return logits, cache
 
 
-def prefill(params, batch, cfg: ModelConfig, spec: CacheSpec):
+def prefill(params, batch, cfg: ModelConfig, spec: CacheSpec, ctx=None):
     """Prefill over a full prompt (a VLM's patch prefix first); returns
     (logits of the last position (B, 1, V) f32, cache). Under
     ``cfg.kv_quant`` each layer's kept K/V are quantized as they are
     written, from the model-dtype values: the reference's quantization of
     the whole finished cache, bit for bit, without a model-dtype copy of
-    the cache beside the int8 one."""
-    x = _embed_batch(params, batch, cfg)
+    the cache beside the int8 one. With ``ctx`` (see :func:`decode_step`)
+    ``batch`` is this rank's data shard, the attention (the sw_attention
+    kernel on the card) runs over its ``Hq / tp`` query and ``Hk / tp``
+    kv heads and the cache holds those kv heads."""
+    vctx = vocab_ctx(cfg, ctx)
+    x = _embed_batch(params, batch, cfg, vctx)
     B, S, _ = x.shape
     dt = _dtype(cfg)
     positions = torch.arange(S, dtype=torch.int32, device=x.device)
     window = cfg.sliding_window if (cfg.sliding_window and spec.ring) else 0
-    shape = (cfg.n_layers, B, spec.cache_len, cfg.n_kv_heads, cfg.head_dim)
+    shape = (cfg.n_layers, B, spec.cache_len, _kv_heads(cfg, ctx),
+             cfg.head_dim)
     quant = cfg.kv_quant
     ks = torch.zeros(shape, dtype=torch.int8 if quant else dt,
                      device=x.device)
@@ -363,10 +403,10 @@ def prefill(params, batch, cfg: ModelConfig, spec: CacheSpec):
         slots = torch.arange(S - W, S, device=x.device) % W
     for i, lp in layer_walk(params, cfg):
         xn = L.rms_norm(x, lp["attn_norm"])
-        q, k, v = L.qkv_project(xn, lp["attn"], cfg, positions)
+        q, k, v = L.qkv_project(xn, lp["attn"], cfg, positions, ctx)
         o = prefill_attention(q, k, v, positions, cfg, window)
-        x = x + L.attn_out(o, lp["attn"]["wo"])
-        x = x + _ffn(x, lp, cfg)[0]
+        x = x + _attn_out(o, lp["attn"]["wo"], ctx)
+        x = x + _ffn(x, lp, cfg, ctx)[0]
         kept = [k.to(dt), v.to(dt)]
         if quant:
             kept = [*L.quantize_kv(kept[0]), *L.quantize_kv(kept[1])]
@@ -380,7 +420,7 @@ def prefill(params, batch, cfg: ModelConfig, spec: CacheSpec):
                 # slots past S stay empty: room for the tokens decoded next
                 dst[:, :S] = src
     hfin = L.rms_norm(x, params["final_norm"])
-    logits = L.lm_logits(hfin[:, -1:], params)
+    logits = L.lm_logits(hfin[:, -1:], params, vctx)
     kept = min(spec.cache_len, S)
     kept_positions = torch.arange(S - kept, S, dtype=torch.int32,
                                   device=x.device)

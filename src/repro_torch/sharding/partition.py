@@ -23,6 +23,13 @@ by rows where the specs place its ``D`` columns), and a vocab that does
 not split is computed whole (the reference's :func:`_fit_spec` drops the
 axis there).
 
+Serving on a mesh cuts the state too: :func:`state_slices` gives each
+cache or SSM-state leaf its :class:`StateSlice` as the reference's
+``_state_spec_for_leaf`` places it (the batch's data shard,
+:func:`batch_rows`, then the kv heads, the SSD heads or the conv
+channels); where the kv heads do not split the reference cuts
+``head_dim``, the port raises.
+
 - 2-D weights (d_in, d_out): TP on the "wide" axis, FSDP (data) on the
   other; embeddings (V, D): vocab on TP, D on data; expert weights (E,
   d_in, d_out): experts on TP, d_in on data; biases, norms and small
@@ -444,6 +451,100 @@ def take_model_slices(tree: PyTree, slices: PyTree) -> PyTree:
     view of one range, the concatenation of several (a gradient taken
     through either lands in the whole leaves')."""
     return tree_map(_take, tree, slices)
+
+
+# ---------------------------------------------------------------------------
+# The serving state's cuts over the mesh
+# ---------------------------------------------------------------------------
+
+class StateSlice(tuple):
+    """A serving-state leaf's cuts: a :class:`ModelSlice` a cut dim (the
+    batch's data shard, then the model axis's heads or channels), taken in
+    turn; empty for a leaf every rank holds whole. A tuple that the tree
+    utilities keep as one leaf."""
+    tree_leaf = True
+
+    def __new__(cls, *cuts):
+        return super().__new__(cls, cuts)
+
+
+def _data_axes(ctx: DistContext) -> tuple[str, ...]:
+    if ctx.mesh is None or ctx.dp_spec is None:
+        return ()
+    return tuple(a for a in ctx.dp if a in ctx.mesh.axis_names)
+
+
+def batch_rows(n: int, ctx: Optional[DistContext], pos: Optional[int] = None
+               ) -> tuple[int, int]:
+    """The rows ``[lo, hi)`` of a global batch of ``n`` that this rank
+    serves: its data shard, the batch's leading dim cut over the data axes
+    as :func:`batch_partition_specs` places it (``pos``: the data shard,
+    default this rank's, row-major over those axes); the whole batch
+    without ``ctx``, or where ``ctx.batch_shardable`` is False. Raises
+    ``ValueError`` for a batch that does not split."""
+    axes = () if ctx is None else _data_axes(ctx)
+    if not axes:
+        return 0, n
+    shape = [ctx.mesh.shape[a] for a in axes]
+    shards = int(np.prod(shape))
+    if n % shards:
+        raise ValueError(f"a batch of {n} does not split over {shards} data "
+                         "shards (make_dist_ctx(..., batch_shardable=False) "
+                         "serves it whole on every rank)")
+    if pos is None:
+        coords = ctx.mesh.coords()
+        pos = int(np.ravel_multi_index(
+            [coords[ctx.mesh.axis_names.index(a)] for a in axes], shape))
+    per = n // shards
+    return pos * per, (pos + 1) * per
+
+
+# the serving state's leaves (their trailing keys): (their rank, the dim the
+# model axis cuts): the caches' and the scales' kv heads, the SSM state's
+# SSD heads, the conv state's d_inner channels (the rank's heads')
+_STATE_MODEL_DIM = {"k": (5, 3), "v": (5, 3), "cross_k": (5, 3),
+                    "cross_v": (5, 3), "k_scale": (4, 3), "v_scale": (4, 3),
+                    "h": (5, 2), "conv": (4, 3)}
+
+
+def state_slices(state: PyTree, ctx: DistContext,
+                 pos: Optional[int] = None, data_pos: Optional[int] = None
+                 ) -> PyTree:
+    """For each leaf of a serving state (a KV cache, an SSM state, the
+    hybrid's both; leaves need only ``.shape``, the global shapes), the
+    :class:`StateSlice` that model position ``pos`` and data shard
+    ``data_pos`` (default: this rank's) hold, as the reference's
+    ``_state_spec_for_leaf`` places them: the batch dim (dim 1) over the
+    data axes (:func:`batch_rows`), and over the model axis ``k``, ``v``,
+    ``cross_k`` and ``cross_v`` by kv heads, ``k_scale`` and ``v_scale``
+    by kv heads, the SSM ``h`` by SSD heads and ``conv`` by ``d_inner``
+    channels; ``kpos`` and ``pos`` whole. Where the kv heads do not split
+    the reference cuts ``head_dim``; the port raises ``ValueError``, as
+    :func:`check_tensor_parallel` does for the model."""
+    tp = ctx.tp_size
+    if tp > 1 and pos is None:
+        pos = ctx.mesh.axis_position(ctx.tp)
+    flat, treedef = flatten_with_path(state)
+    out = []
+    for path, leaf in flat:
+        name, shape = keystr(path), tuple(leaf.shape)
+        rule = _STATE_MODEL_DIM.get(_key(name))
+        if rule is None or rule[0] != len(shape):
+            out.append(StateSlice())
+            continue
+        cuts = []
+        lo, hi = batch_rows(shape[1], ctx, data_pos)
+        if hi - lo != shape[1]:
+            cuts.append(ModelSlice(1, lo, hi))
+        dim = rule[1]
+        if tp > 1:
+            if shape[dim] % tp:
+                raise ValueError(f"{name}: dim {dim} of {shape} does not "
+                                 f"split over model={tp}")
+            per = shape[dim] // tp
+            cuts.append(ModelSlice(dim, pos * per, (pos + 1) * per))
+        out.append(StateSlice(*cuts))
+    return tree_unflatten(treedef, out)
 
 
 def vocab_ctx(cfg, ctx: Optional[DistContext]) -> Optional[DistContext]:

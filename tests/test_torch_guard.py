@@ -242,8 +242,8 @@ def test_trainer_defaults_to_cuda_and_names_its_roadmap_items(tmp_path):
     (items 11 and 12) it builds and runs; ``elastic_mesh=True`` without a
     mesh raises; ``moe_block`` on a one-rank mesh is the ctx-less call
     (the expert-parallel MoE, item 38, is ported) and no port file names
-    items 15, 38 or 39 (the other families' tensor parallelism) any
-    more."""
+    items 15, 38, 39 (the other families' tensor parallelism) or 40 (the
+    server on a mesh) any more."""
     from repro_torch.data import ShardedLMDataset
     cfg = get_config("qwen2-1.5b", reduced=True)
     if torch.cuda.is_available():
@@ -287,3 +287,4 @@ def test_trainer_defaults_to_cuda_and_names_its_roadmap_items(tmp_path):
         assert "ROADMAP item 15" not in text, path
         assert "ROADMAP item 38" not in text and "item 38" not in text, path
         assert "item 39" not in text, path
+        assert "item 40" not in text, path
