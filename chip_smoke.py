@@ -360,7 +360,26 @@ Phases, each of which fails the run if it fails:
     kernels against their plain versions; then every family reduced, f32,
     on a (2, 2) mesh, the card against the CPU. ``python3 chip_smoke.py
     --serve-mesh`` runs phases 1 and 33 alone (``{"serve_mesh_only":
-    true, ...}``).
+    true, ...}``). The held prefill logits and kernel calls are the
+    generate's own prefill's (:func:`_recording_prefill`).
+34. **The launch analytics** (:func:`phase_launch`): (a) the four §Perf
+    pairs at full width on one rank of the dry (16, 16) production mesh
+    and the one-card roofline of phase 29's command-r-plus-104b prefill and
+    decode beside phase 29's measured seconds, computed on meta tensors
+    in processes beside the kernels' build (no window is timed there) and
+    joined before phase 2; (b) rank 0 of that mesh's pair A and
+    C baselines run on the card at depths 1 and 2 through the counting
+    stand-in (argument bytes equal to the meta run's, its temp bytes
+    within 10% of the card's peak over the step's baseline, the seconds
+    extrapolated to 64 layers beside the roofline terms; sw_attention at
+    G 3, 4 and 6 against plain); (c) qwen2-1.5b
+    at full width served on the (1, 4) mesh, 3 query heads over the one
+    kv head that two ranks share, a bf16 and an int8 arm (tokens equal
+    over the ranks and to one rank's, logits within 1.5 times one
+    device's bf16 floor, sw_attention against plain), and one TP train
+    step at 4 layers held as phase 31(a). ``python3 chip_smoke.py
+    --launch`` runs phases 1 and 34 alone (``{"launch_only": true,
+    ...}``).
 
 The line before the last is the kernels' JSON record (each kernel's
 launches on its own path, ``train_launches`` on phase 17's,
@@ -374,7 +393,8 @@ launches on its own path, ``train_launches`` on phase 17's,
 on phase 30's run, ``moe_mesh_launches`` on phase 31(b)'s two elastic
 runs, ``ssm_mesh_launches`` on phase 32(b)'s three and
 ``serve_mesh_launches`` on phase 33(a)-(b)'s serve paths, one count a
-rank); the last line is
+rank, ``launch_launches`` on phase 34(b)'s timed runs and (c)'s serve
+windows on rank 0); the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
 and prints no result.
 
@@ -5844,10 +5864,15 @@ def _moe_mesh_full(device, opts: dict) -> dict:
 
 
 def _shared_ranges(shapes, ctx) -> list:
-    """For each leaf of ``shapes``, in leaf order, ``(dim, ranges)``: the
-    ranges of this rank's cut leaf, in its own indices, that every model
-    position holds (a Mamba2 ``in_proj``'s B and C columns). Each rank's
-    gradient there is its own heads' part; the line's sum is the
+    """For each leaf of ``shapes``, in leaf order, ``(dim, places,
+    width)``: the ranges of the leaf along ``dim`` that more than one model
+    position holds (a Mamba2 ``in_proj``'s B and C columns, which every
+    position holds; a kv head shared by the positions whose query heads
+    read it) laid end to end make a buffer ``width`` wide (0: none), and
+    ``places`` puts each such range of this rank's cut leaf there, ``(lo,
+    hi, at)`` (its own indices ``lo:hi`` at ``at:at + hi - lo``). Each
+    rank's gradient there is its own heads' part; the sum over the line of
+    the buffers, each zero where its rank holds nothing, is the
     gradient."""
     from repro_torch.sharding.partition import model_slices
     from repro_torch.utils.tree import tree_flatten
@@ -5856,12 +5881,16 @@ def _shared_ranges(shapes, ctx) -> list:
     mine = per[ctx.mesh.axis_position(ctx.tp)]
     out = []
     for i, s in enumerate(mine):
-        local, off = [], 0
+        held = [r for p in per for r in (p[i].ranges if p[i] else ())]
+        at, width = {}, 0
+        for lo, hi in sorted({r for r in held if held.count(r) > 1}):
+            at[(lo, hi)], width = width, width + hi - lo
+        places, off = [], 0
         for lo, hi in (s.ranges if s else ()):
-            if all((lo, hi) in p[i].ranges for p in per):
-                local.append((off, off + hi - lo))
+            if (lo, hi) in at:
+                places.append((off, off + hi - lo, at[(lo, hi)]))
             off += hi - lo
-        out.append((s[0] if s else None, local))
+        out.append((s[0] if s else None, places, width))
     return out
 
 
@@ -5871,8 +5900,9 @@ def _tp_step(device, cfg, ctx, params, slices, rows: dict, work: Path
     its data shard of ``rows`` (the global batch's host arrays) on its
     model slices ``params`` (let go here), then the gradient's mean over
     the data line, each slice held against the yardstick's under
-    ``work`` (:func:`_tp_yardstick`); where every rank of the model line
-    holds a range (:func:`_shared_ranges`) the line's sum of the mean."""
+    ``work`` (:func:`_tp_yardstick`); where more than one rank of the model
+    line holds a range (:func:`_shared_ranges`) the sum of the mean over
+    the ranks that hold it."""
     import torch
     from repro_torch.data.pipeline import slice_batch
     from repro_torch.distributed import collectives
@@ -5931,10 +5961,21 @@ def _tp_step(device, cfg, ctx, params, slices, rows: dict, work: Path
         for k in range(1, data.n):
             acc.add_(parts[k].float())
         acc = acc.div_(data.n).view(g.shape)
-        dim, local = shared[i]
-        for lo, hi in local:
-            part = acc.narrow(dim, lo, hi - lo)
-            part.copy_(line.summed(part.contiguous(), "model_shared_grad"))
+        dim, places, width = shared[i]
+        if width:
+            # each rank puts its shared ranges into their places in one
+            # buffer of every shared range; the line sums the buffers
+            shape = list(acc.shape)
+            shape[dim] = width
+            buf = torch.zeros(shape, dtype=acc.dtype, device=acc.device)
+            for lo, hi, at in places:
+                buf.narrow(dim, at, hi - lo).copy_(
+                    acc.narrow(dim, lo, hi - lo))
+            tot = line.summed(buf, "model_shared_grad")
+            for lo, hi, at in places:
+                acc.narrow(dim, lo, hi - lo).copy_(
+                    tot.narrow(dim, at, hi - lo))
+            del buf, tot
         if cuda:
             torch.cuda.synchronize()
         t_mean += time.perf_counter() - t1
@@ -6067,9 +6108,9 @@ def _moe_mesh_rank(rank: int, world: int, rdv: str, out_dir: str,
         "gloo", init_method=f"file://{rdv}", rank=rank, world_size=world,
         timeout=datetime.timedelta(seconds=MOE_MESH["timeout"]))
     try:
-        body = {32: _ssm_mesh_rank_body,
-                33: _serve_mesh_rank_body}.get(opts.get("phase"),
-                                               _moe_mesh_rank_body)
+        body = {32: _ssm_mesh_rank_body, 33: _serve_mesh_rank_body,
+                34: _launch_rank_body}.get(opts.get("phase"),
+                                           _moe_mesh_rank_body)
         out = body(rank, opts)
         Path(out_dir, f"rank{rank}.json").write_text(json.dumps(out))
     finally:
@@ -6740,13 +6781,13 @@ def _count(into: dict) -> None:
 def _serve_mesh_full(device, opts: dict, ctx, k: int) -> dict:
     """Phase 33(a) or (b) on one rank for ``SERVE_MESH["archs"][k]``: this
     rank's model slices placed from the yardstick's files; the bf16 arm
-    (``Server.generate``), the prefill alone (its logits, each kernel
-    call kept), the int8 ring arm (the dense config); the serve-with-
-    recovery flow, the ranks one at a time (a rank's params, checkpoint
-    and restored tree are three trees of its slices); the bf16 arm again
-    on the restored weights. The launch counts of each window (set to 0
-    just before, read just after) are summed; every hold runs outside
-    them."""
+    (``Server.generate``: its prefill's logits and each kernel call kept,
+    :func:`_recording_prefill`), the int8 ring arm (the dense config); the
+    serve-with-recovery flow, the ranks one at a time (a rank's params,
+    checkpoint and restored tree are three trees of its slices); the bf16
+    arm again on the restored weights. The launch counts of each window
+    (set to 0 just before, read just after) are summed; every hold runs
+    outside them."""
     import dataclasses
     import numpy as np
     import torch
@@ -6755,14 +6796,12 @@ def _serve_mesh_full(device, opts: dict, ctx, k: int) -> dict:
     from repro_torch.core.policy import CheckpointPolicy
     from repro_torch.distributed import collectives
     from repro_torch.kernels import _build
-    from repro_torch.models import get_model
     from repro_torch.sharding.partition import batch_rows, model_slices
     from repro_torch.training.serve import Server
     from repro_torch.utils.tree import tree_flatten
     name, cut, B, S = SERVE_MESH["archs"][k]
     work = Path(opts["work"]) / name
     cfg = _serve_mesh_cfg(name, cut, opts)
-    ops = get_model(cfg)
     cuda = device.type == "cuda"
     new = SERVE_MESH["new"]
     pos = ctx.mesh.position()
@@ -6781,11 +6820,14 @@ def _serve_mesh_full(device, opts: dict, ctx, k: int) -> dict:
     launches: dict = {}
     _build.reset_launches()
     srv = Server(cfg, params, device=device, ctx=ctx)
-    toks, gen_s = _timed(lambda: srv.generate(batch, new))
+    # the generate's own prefill gives the logits and the kernel calls the
+    # holds read (no second prefill)
+    rec: dict = {}
+    srv.ops = _recording_prefill(srv.ops, rec)
+    with captured_kernel_calls() as calls:
+        toks, gen_s = _timed(lambda: srv.generate(batch, new))
     tokens = {"bf16": toks.tolist()}
-    with torch.no_grad(), captured_kernel_calls() as calls:
-        (logits, _), pre_s = _timed(
-            lambda: ops.prefill(params, shard, cfg, ctx))
+    logits, pre_s = rec.pop("logits"), rec.pop("seconds")
     if cfg.family == "dense":
         cq = dataclasses.replace(cfg, kv_quant=True)
         ring, out["int8_ring_seconds"] = _timed(
@@ -7110,6 +7152,557 @@ def serve_mesh_only(device, card: str) -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# phase 34: the launch analytics
+# ---------------------------------------------------------------------------
+
+LAUNCH = dict(
+    seed=34, jobs=6,
+    # (b) rank 0 of the dry (16, 16) mesh: pair A's and pair C's baselines
+    # at these depths of command-r-plus-104b
+    rank=dict(arch="command-r-plus-104b",
+              steps=(("A", "prefill", "prefill_32k"),
+                     ("C", "decode", "decode_32k")),
+              depths=(1, 2), groups=(3, 4, 6), runs=3),
+    # (a) the roofline of phase 29's shapes on one card: command-r at 4 of
+    # its 64 layers, the (1, 32768) prefill and batch 8 over a 32,832-slot
+    # cache
+    one_chip=dict(arch="command-r-plus-104b", layers=4, seq=32768,
+                  prefill_batch=1, decode_batch=8, cache_slots=32768 + 64),
+    # (c) qwen2-1.5b at full width on a (1, 4) mesh: 3 query heads and 1 kv
+    # head a rank
+    serve=dict(arch="qwen2-1.5b", batch=2, seq=1024, new=8),
+    train=dict(layers=4, batch=2, seq=2048))
+# the meta run's peak of the bytes a step allocates against the card's
+# max_memory_allocated over the step's baseline
+LAUNCH_TEMP_RTOL = 0.10
+LAUNCH_FLOOR_FACTOR = 1.5
+
+
+def _launch_jobs() -> list:
+    """Phase 34(a)'s analyses, each ``(key, function, args)``: the four
+    pairs' distinct analyses on the dry (16, 16) mesh, and the one-card
+    roofline of phase 29's prefill and decode."""
+    from repro_torch.launch import perf
+    jobs, seen = [], set()
+    for p in perf.PAIRS.values():
+        for over in ({}, p["overrides"]):
+            key = ("pair", p["arch"], p["shape"],
+                   tuple(sorted(over.items())))
+            if key not in seen:
+                seen.add(key)
+                jobs.append((key, perf._analyze,
+                             (p["arch"], p["shape"], dict(over), None)))
+    for kind in ("prefill", "decode"):
+        jobs.append((("one_chip", kind), _one_chip_roofline, (kind,)))
+    return jobs
+
+
+def _one_chip_roofline(kind: str) -> dict:
+    """The roofline of phase 29's ``kind`` on one card (a dry (1, 1)
+    mesh, the H100's figures)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_dry_mesh
+    from repro_torch.launch.roofline import H100, step_roofline
+    o = LAUNCH["one_chip"]
+    cfg = dataclasses.replace(get_config(o["arch"]), n_layers=o["layers"])
+    mesh = make_dry_mesh((1, 1), ("data", "model"))
+    spec = dataclasses.replace(H100, chips=1)
+    if kind == "prefill":
+        return step_roofline(cfg, "prefill", o["prefill_batch"], o["seq"],
+                             mesh, spec)
+    return step_roofline(cfg, "decode", o["decode_batch"], o["seq"], mesh,
+                         spec, cache_len=o["cache_slots"])
+
+
+def _start_launch_jobs():
+    """Phase 34(a)'s analyses started in ``LAUNCH["jobs"]`` processes (one
+    torch thread each; meta tensors only, no CUDA): the pool, each job's
+    future and the start's clock."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    from repro_torch.launch.dryrun import _one_thread
+    t0 = time.perf_counter()
+    pool = ProcessPoolExecutor(LAUNCH["jobs"], mp_context=multiprocessing
+                               .get_context("spawn"))
+    return pool, {key: pool.submit(_one_thread, fn, args)
+                  for key, fn, args in _launch_jobs()}, t0
+
+
+def _join_launch_jobs(started) -> dict:
+    """The results of :func:`_start_launch_jobs`'s analyses (``done``, by
+    key), its processes stopped; ``seconds`` from their start to the
+    last result, ``wait_seconds`` of it spent here."""
+    pool, futures, t0 = started
+    t1 = time.perf_counter()
+    try:
+        done = {key: f.result() for key, f in futures.items()}
+    finally:
+        pool.shutdown(cancel_futures=True)
+    now = time.perf_counter()
+    return {"done": done, "seconds": now - t0, "wait_seconds": now - t1}
+
+
+def _recording_prefill(ops, into: dict):
+    """``ops`` whose ``prefill`` keeps its last logits and its seconds in
+    ``into`` (so a ``Server.generate`` gives the prefill's logits without a
+    second prefill)."""
+    import dataclasses
+    import torch
+    inner = ops.prefill
+
+    def prefill(*args, **kw):
+        cuda = torch.cuda.is_available()
+        if cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inner(*args, **kw)
+        if cuda:
+            torch.cuda.synchronize()
+        into["seconds"] = time.perf_counter() - t0
+        into["logits"] = out[0]
+        return out
+    return dataclasses.replace(ops, prefill=prefill)
+
+
+def _launch_rank_costs(device, launches: dict) -> dict:
+    """Phase 34(b): rank 0 of the dry (16, 16) mesh runs pair A's and pair
+    C's baselines on the card at each of ``LAUNCH["rank"]["depths"]``, on
+    real tensors, every collective through the counting stand-in (values
+    are not held: without the other ranks they mean nothing). A first run
+    keeps its sw_attention calls for the plain holds; the second is timed
+    and read ``LAUNCH["rank"]["runs"]`` times: the median seconds, its
+    argument bytes and the peak of ``max_memory_allocated`` over its own
+    baseline. The launches of the timed runs are summed into
+    ``launches``. Before them, sw_attention at
+    each query group ``LAUNCH["rank"]["groups"]`` that a shared kv head
+    gets (3, 4, 6) against its plain version."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import shape_params
+    from repro_torch.kernels import _build
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_dry_production_mesh
+    from repro_torch.kernels.sw_attention.kernel import sw_attention_cuda
+    o = LAUNCH["rank"]
+    mesh = make_dry_production_mesh()
+    out = {"g_cases": {}}
+    # the query groups a rank's kv head gets at the production mesh
+    # (qwen2-1.5b's 3 at 4, internvl2-76b's 4, command-r-plus-104b's 6 at
+    # 16) against the plain version, outside every launch window
+    gen = torch.Generator(device=device).manual_seed(SEED + LAUNCH["seed"])
+    for G in LAUNCH["rank"]["groups"]:
+        q, k, v = (torch.randn(shp, generator=gen, device=device).to(
+            torch.bfloat16) for shp in ((2, G, 4096, 128), (2, 4096, 128),
+                                        (2, 4096, 128)))
+        ratio = _worst_element(sw_attention_cuda(q, k, v, window=4096),
+                               sw_attention_plain(q, k, v,
+                                                  window=4096))["ratio"]
+        out["g_cases"][G] = ratio
+        check(ratio <= 1.0, f"34(b): sw_attention at G {G} is {ratio:.3g} "
+              "of the tolerance off its plain version")
+    for pair, kind, shape in o["steps"]:
+        sp = shape_params(shape)
+        r = {}
+        for depth in o["depths"]:
+            cfg = dataclasses.replace(get_config(o["arch"]), n_layers=depth,
+                                      microbatch=1)
+            step = dryrun.build_rank_step(cfg, kind, sp["batch"], sp["seq"],
+                                          mesh, device)
+            args_bytes = dryrun.storage_bytes(step.args)
+            with captured_kernel_calls() as calls:
+                step.run()
+            torch.cuda.synchronize()
+            ratios = hold_captured_calls(calls)["sw_attention"]
+            del calls
+            gc.collect()
+            # the cached blocks stay: a timed run that went to cudaMalloc
+            # for them read 2.6x slower at depth 1 (measured on one H100)
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            secs = []
+            _build.reset_launches()
+            for _ in range(o["runs"]):
+                t0 = time.perf_counter()
+                res = step.run()
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+                del res
+            _count(launches)
+            secs = statistics.median(secs)
+            peak = torch.cuda.max_memory_allocated() - base
+            del step
+            gc.collect()
+            torch.cuda.empty_cache()
+            want = depth if kind == "prefill" else 0
+            check(len(ratios) == want and all(x <= 1.0 for x in ratios),
+                  f"34(b) {pair} depth {depth}: {len(ratios)} sw_attention "
+                  f"calls (not {want}), worst {max(ratios, default=0):.3g} "
+                  "of the tolerance")
+            r[depth] = {"seconds": secs, "argument_bytes": args_bytes,
+                        "peak_over_baseline_bytes": peak,
+                        "sw_attention_worst_ratio": max(ratios, default=None)}
+        d1, d2 = o["depths"]
+        n = get_config(o["arch"]).n_layers
+        delta = r[d2]["seconds"] - r[d1]["seconds"]
+        r["seconds_at_full_depth"] = r[d1]["seconds"] - delta + n * delta
+        out[pair] = r
+    return out
+
+
+def _launch_yardstick(device, opts: dict, work: Path) -> dict:
+    """Phase 34(c)'s yardsticks on one rank in this process: qwen2-1.5b at
+    full width, its weights and prompts drawn from the seed and written
+    under ``work / "serve"`` for the ranks; the one-rank bf16 and int8
+    routes' tokens (``Server.generate``) and bf16 prefill logits, then the
+    f32 prefill logits of the same weights (one device's bf16 floor); then
+    the train step's weights at ``LAUNCH["train"]["layers"]`` layers and
+    its yardstick (:func:`_tp_yardstick`) under ``work / "train"``."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+    from repro_torch.training.serve import Server
+    sv, tr = LAUNCH["serve"], LAUNCH["train"]
+    cuda = device.type == "cuda"
+    cfg = dataclasses.replace(get_config(sv["arch"], reduced=opts.get(
+        "reduced", False)), dtype="bfloat16")
+    ops = get_model(cfg)
+    gen = torch.Generator(device=device).manual_seed(SEED + LAUNCH["seed"])
+    params = ops.init_params(gen, cfg, device=device)
+    B, S = sv["batch"], opts.get("seq", sv["seq"])
+    toks = torch.randint(0, cfg.vocab, (B, S), generator=gen, device=device,
+                         dtype=torch.int32)
+    _save_bits(params, work / "serve" / "params")
+    _save_bits({"tokens": toks}, work / "serve" / "inputs")
+    batch = {"tokens": toks}
+    out = {"tokens": {}}
+    with torch.no_grad():
+        (logits, _), out["prefill_seconds"] = _timed(
+            lambda: ops.prefill(params, batch, cfg))
+        out["tokens"]["bf16"] = Server(cfg, params, device=device).generate(
+            batch, sv["new"]).tolist()
+        cq = dataclasses.replace(cfg, kv_quant=True)
+        out["tokens"]["int8"] = Server(cq, params, device=device).generate(
+            batch, sv["new"]).tolist()
+        bf16 = logits.float().cpu()
+        del logits
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        p32 = _as_f32(params)
+        del params
+        f32 = ops.prefill(p32, batch, cfg32)[0].float().cpu()
+        del p32
+    out["bf16_floor"] = _rel_l2(bf16, f32)
+    np.save(work / "one_bf16.npy", bf16.numpy())
+    np.save(work / "f32.npy", f32.numpy())
+    del bf16, f32, batch, toks
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    ct = dataclasses.replace(cfg, n_layers=tr["layers"])
+    params = get_model(ct).init_params(gen, ct, device=device)
+    rows = torch.randint(0, ct.vocab, (tr["batch"], opts.get(
+        "train_seq", tr["seq"]) + 1), generator=gen, device=device,
+        dtype=torch.int32)
+    _save_bits(params, work / "train" / "params")
+    _save_bits({"tokens": rows}, work / "train" / "inputs")
+    held = {"params": params}
+    del params
+    out["train"] = _tp_yardstick(ct, held, _lm_rows(rows), work / "train")
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9 if cuda \
+        else 0.0
+    return out
+
+
+def _launch_rank_body(rank: int, opts: dict) -> dict:
+    """One rank of phase 34(c) on the (1, 4) mesh: its model slices of
+    qwen2-1.5b placed from the yardstick's files (3 query heads and the kv
+    head they read); the bf16 and the int8 arm through ``Server.generate``
+    (the prefill's logits kept by :func:`_recording_prefill`), each arm's
+    sw_attention calls kept and held against the plain version after the
+    window's launch counts were read; then the TP train step
+    (:func:`_tp_step`)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import collectives
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import get_model
+    from repro_torch.sharding.partition import make_dist_ctx, model_slices
+    from repro_torch.training.serve import Server
+    from repro_torch.utils.tree import tree_flatten
+    device = torch.device(opts["device"])
+    cuda = device.type == "cuda"
+    work = Path(opts["work"])
+    sv, tr = LAUNCH["serve"], LAUNCH["train"]
+    ctx = make_dist_ctx(make_host_mesh(model=4))
+    pos = ctx.mesh.position()
+    cfg = dataclasses.replace(get_config(sv["arch"], reduced=opts.get(
+        "reduced", False)), dtype="bfloat16")
+    slices = model_slices(_bits_shapes(work / "serve" / "params"), ctx)
+    params, place_s = _timed(
+        lambda: _load_bits(work / "serve" / "params", device, slices))
+    batch = _load_bits(work / "serve" / "inputs", device)
+    att = params["layers"]["attn"]
+    out = {"rank": rank, "place_seconds": place_s,
+           "heads": [int(att["wq"].shape[-2]), int(att["wk"].shape[-2])],
+           "tokens": {}, "per_call_worst_ratio": {}, "calls": {}}
+    launches: dict = {}
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    collectives.reset_stats()
+    for arm, c in (("bf16", cfg),
+                   ("int8", dataclasses.replace(cfg, kv_quant=True))):
+        srv = Server(c, params, device=device, ctx=ctx)
+        rec: dict = {}
+        srv.ops = _recording_prefill(srv.ops, rec)
+        _build.reset_launches()
+        with captured_kernel_calls() as calls:
+            toks, gen_s = _timed(lambda: srv.generate(batch, sv["new"]))
+        _count(launches)
+        out["tokens"][arm] = toks.tolist()
+        out[f"{arm}_prefill_seconds"] = rec["seconds"]
+        out[f"{arm}_generate_seconds"] = gen_s
+        out[f"{arm}_decode_seconds_per_step"] = (
+            (gen_s - rec["seconds"]) / (sv["new"] - 1))
+        if arm == "bf16":
+            np.save(work / f"mesh_logits_{pos}.npy",
+                    rec["logits"].float().cpu().numpy())
+        ratios = hold_captured_calls(calls)["sw_attention"]
+        del calls, rec, srv
+        out["calls"][arm] = len(ratios)
+        out["per_call_worst_ratio"][arm] = max(ratios, default=None)
+        check(len(ratios) == (cfg.n_layers if cuda else 0)
+              and all(x <= 1.0 for x in ratios),
+              f"34(c) rank {pos} {arm}: {len(ratios)} sw_attention calls, "
+              f"the worst {max(ratios, default=0.0):.3g} of the tolerance")
+    out["serve_peak_gb"] = (torch.cuda.max_memory_allocated() / 1e9
+                            if cuda else 0.0)
+    out["collectives"] = collectives.seconds_and_bytes()
+    out["launches"] = launches
+    del params, batch
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    ct = dataclasses.replace(cfg, n_layers=tr["layers"])
+    tw = work / "train"
+    slices = model_slices(_bits_shapes(tw / "params"), ctx)
+    params = _load_bits(tw / "params", device, slices)
+    inputs = _load_bits(tw / "inputs", device)
+    rows = {k: v.cpu().numpy()
+            for k, v in _lm_rows(inputs["tokens"]).items()}
+    del inputs
+    out["train"] = _tp_step(device, ct, ctx, params, slices, rows, tw)
+    out["train"]["held_values"] = sum(
+        t.numel() for t in tree_flatten(params)[0])
+    out["host_peak_gb"] = _host_peak_gb()
+    return out
+
+
+def _gb(x) -> float:
+    return float(x) / 1e9
+
+
+def phase_launch(device, launches: dict, card: str, analyses: dict,
+                 opts=None, measured: Optional[dict] = None) -> dict:
+    """Phase 34: the launch analytics (``launch.dryrun``, ``roofline``,
+    ``perf``) beside the card, and the shared kv heads on it.
+
+    (a) ``analyses`` (:func:`_join_launch_jobs`): run in ``LAUNCH["jobs"]``
+    processes on meta tensors beside the kernels' build (``main``), where
+    no window is timed, and joined before phase 2: the four §Perf pairs (A, B, C, B2) at full width on one rank of
+    the dry (16, 16) mesh (``launch.perf``: each pair's baseline and
+    variant on the H100's roofline terms), and the roofline on one card of
+    phase 29's shapes (command-r-plus-104b at 4 of 64 layers: the (1,
+    32768) prefill, batch 8 over a 32,832-slot cache), printed beside
+    phase 29's measured seconds when this run has them (``measured``), with
+    the ratio of the measured time to the roofline's largest term.
+
+    (b) :func:`_launch_rank_costs`: pair A's and pair C's baselines on
+    rank 0 of the dry (16, 16) mesh (command-r-plus-104b: 6 query heads
+    and the one kv head they read, 1/16 of the MLP and the vocab, the
+    batch's data shard) on the card at depths 1 and 2. Held: each
+    ``argument_bytes`` equal to the meta probe's at the same depth
+    (pair A's and C's baseline analyses), the meta ``temp_bytes`` within
+    ``LAUNCH_TEMP_RTOL`` of the card's peak over the step's baseline, the
+    prefill's sw_attention calls against the plain version, and the kernel
+    at the query groups 3, 4 and 6 a shared kv head gets. Printed: the
+    measured seconds, extrapolated to 64 layers as the depth probes are,
+    beside the rank's ``compute_s`` and ``memory_s``.
+
+    (c) qwen2-1.5b at full width on a (1, 4) mesh of 4 gloo ranks on the
+    one card (:func:`_launch_rank_body`): a bf16 and an int8 arm served,
+    then one TP train step at ``LAUNCH["train"]["layers"]`` layers. Held:
+    each arm's tokens the same on every rank and equal to the one-rank
+    route's; the mesh's last prefill logits within
+    ``LAUNCH_FLOOR_FACTOR`` times one device's bf16 floor of the one-rank
+    bf16 route's; every sw_attention call against its plain version; the
+    train loss within rtol ``MOE_MESH_LOSS_RTOL`` of one rank's over the
+    data shards and each gradient slice as phase 31(a) holds it.
+
+    ``launches["launch"]``: the launches of (b)'s timed runs and (c)'s
+    serve windows (rank 0's)."""
+    import numpy as np
+    import torch
+    t_phase = time.perf_counter()
+    opts = {"device": device.type, "phase": 34, **(opts or {})}
+    done = analyses["done"]
+    work = ROOT / "build" / f"launch_{os.getpid()}"
+    work.mkdir(parents=True, exist_ok=True)
+    opts["work"] = str(work)
+    counts: dict = {}
+    try:
+        t0 = time.perf_counter()
+        rank_costs = _launch_rank_costs(device, counts)
+        rank_seconds = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        yard = _launch_yardstick(device, opts, work)
+        gc.collect()
+        torch.cuda.empty_cache()
+        ranks, wall = _mesh_ranks(work, opts, "34")
+        serve_seconds = time.perf_counter() - t0
+        lg = {"one_bf16": np.load(work / "one_bf16.npy"),
+              "f32": np.load(work / "f32.npy"),
+              "mesh": [np.load(work / f"mesh_logits_{r}.npy")
+                       for r in range(len(ranks))]}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out = {"card": card, "rank_seconds": rank_seconds,
+           "serve_seconds": serve_seconds, "spawn_to_join_seconds": wall,
+           "analyses_seconds": analyses["seconds"],
+           "analyses_wait_seconds": analyses["wait_seconds"]}
+
+    # (a) the pairs and the one-card roofline
+    from repro_torch.launch import perf
+    pairs = {}
+    for name, p in perf.PAIRS.items():
+        base = done[("pair", p["arch"], p["shape"], ())]
+        opt = done[("pair", p["arch"], p["shape"],
+                    tuple(sorted(p["overrides"].items())))]
+        pairs[name] = perf.pair_record(name, base, opt)
+    out["pairs"] = pairs
+    one = {}
+    for kind in ("prefill", "decode"):
+        r = done[("one_chip", kind)]
+        top = max(r["compute_s"], r["memory_s"], r["collective_s"])
+        one[kind] = {k: r[k] for k in ("compute_s", "memory_s",
+                                       "collective_s", "dominant")}
+        one[kind]["flops"] = r["counts"]["flops"]
+        one[kind]["bytes"] = r["counts"]["bytes"]
+        if measured and measured.get(kind):
+            one[kind]["measured_seconds"] = measured[kind]
+            one[kind]["measured_over_roofline"] = measured[kind] / top
+    out["one_card_roofline"] = one
+
+    # (b) the rank's card run against its meta probes
+    o = LAUNCH["rank"]
+    base_of = {"A": done[("pair", perf.PAIRS["A"]["arch"],
+                          perf.PAIRS["A"]["shape"], ())],
+               "C": done[("pair", perf.PAIRS["C"]["arch"],
+                          perf.PAIRS["C"]["shape"], ())]}
+    for pair, r in rank_costs.items():
+        if pair == "g_cases":
+            continue
+        ana = base_of[pair]
+        probes = {p["depth"]["n_layers"]: p for p in ana["probes"]}
+        for depth in o["depths"]:
+            got, meta = r[depth], probes[depth]
+            got["meta_argument_bytes"] = int(meta["argument_bytes"])
+            got["meta_temp_bytes"] = int(meta["temp_bytes"])
+            got["temp_over_card_peak"] = (meta["temp_bytes"]
+                                          / max(got["peak_over_baseline_"
+                                                    "bytes"], 1))
+            check(got["argument_bytes"] == int(meta["argument_bytes"]),
+                  f"34(b) {pair} depth {depth}: the card's argument bytes "
+                  f"{got['argument_bytes']}, the meta run's "
+                  f"{meta['argument_bytes']}")
+            check(abs(got["temp_over_card_peak"] - 1.0) <= LAUNCH_TEMP_RTOL,
+                  f"34(b) {pair} depth {depth}: the meta temp_bytes "
+                  f"{meta['temp_bytes']:.4g} against the card's peak over "
+                  f"its baseline {got['peak_over_baseline_bytes']:.4g}")
+        r["compute_s"], r["memory_s"] = ana["compute_s"], ana["memory_s"]
+        r["collective_s"] = ana["collective_s"]
+        r["measured_over_roofline"] = r["seconds_at_full_depth"] / max(
+            ana["compute_s"], ana["memory_s"], ana["collective_s"])
+    out["rank"] = rank_costs
+
+    # (c) the shared kv heads on the card
+    sv = LAUNCH["serve"]
+    mesh0 = torch.from_numpy(lg["mesh"][0])
+    rel = _rel_l2(mesh0, torch.from_numpy(lg["one_bf16"]))
+    check(all(np.array_equal(m, lg["mesh"][0]) for m in lg["mesh"]),
+          "34(c): the ranks' prefill logits differ")
+    check(rel <= LAUNCH_FLOOR_FACTOR * yard["bf16_floor"],
+          f"34(c): the mesh's last prefill logits are {rel:.3g} (relative "
+          f"L2) off the one-rank bf16 route's, one device's bf16 floor "
+          f"{yard['bf16_floor']:.3g}")
+    for r in ranks:
+        check(r["heads"] == [3, 1], f"34(c) rank {r['rank']}: heads "
+              f"{r['heads']}, not 3 query heads over 1 kv head")
+        for arm, toks in yard["tokens"].items():
+            check(r["tokens"][arm] == toks
+                  and np.asarray(toks).shape == (sv["batch"], sv["new"]),
+                  f"34(c) rank {r['rank']} {arm}: tokens "
+                  f"{r['tokens'][arm]}, the one-rank route's {toks}")
+        f, y = r["train"], yard["train"]
+        lrel = abs(f["loss"] - y["loss"]) / abs(y["loss"])
+        check(lrel <= MOE_MESH_LOSS_RTOL, f"34(c) rank {r['rank']}: train "
+              f"loss {f['loss']}, yardstick {y['loss']}")
+        for leaf, err in f["grad_rel_l2_by_leaf"].items():
+            floor = y["bf16_floor"][leaf]
+            check(err <= max(MOE_MESH_GRAD_L2, MOE_MESH_FLOOR_FACTOR * floor),
+                  f"34(c) rank {r['rank']}: gradient slice {leaf} off the f32 "
+                  f"yardstick by relative L2 {err}, one device's bf16 "
+                  f"gradient by {floor}")
+    for kk, v in ranks[0]["launches"].items():
+        counts[kk] = counts.get(kk, 0) + v
+    check(counts.get("sw_attention", 0) > 0,
+          "sw_attention was not launched on the phase 34 path")
+    launches["launch"] = counts
+    out["serve"] = {
+        "logits_rel_l2_vs_one_bf16": rel,
+        "bf16_floor": yard["bf16_floor"],
+        "over_floor": rel / max(yard["bf16_floor"], 1e-30),
+        "one_rank_prefill_seconds": yard["prefill_seconds"],
+        "yardstick_peak_gb": yard["peak_gb"],
+        **{k: [r[k] for r in ranks] for k in (
+            "bf16_prefill_seconds", "int8_prefill_seconds",
+            "bf16_decode_seconds_per_step", "int8_decode_seconds_per_step",
+            "serve_peak_gb", "place_seconds", "per_call_worst_ratio",
+            "calls", "host_peak_gb")},
+        "collectives": ranks[0]["collectives"],
+        "train": {"yardstick_loss": yard["train"]["loss"],
+                  **{k: [r["train"][k] for r in ranks] for k in (
+                      "loss", "step_seconds", "peak_gb", "grad_rel_l2",
+                      "grad_worst_leaf", "held_values")}}}
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 34: the launch analytics, {card}: {json.dumps(out)}")
+    return out
+
+
+def launch_only(device, card: str, analyses: dict) -> int:
+    """``--launch``: phase 34 alone. Its last line says that it is this
+    partial run, never the full run's ``{"ok": true, ...}``."""
+    import torch
+    launches = {}
+    out = phase_launch(device, launches, card, analyses)
+    log(json.dumps({"launches": launches["launch"]}))
+    log(card)
+    log(json.dumps({"launch_only": True, "seconds": out["seconds"],
+                    "device": {"platform": "gpu",
+                               "kind": torch.cuda.get_device_name(0),
+                               "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def main(argv: list) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -7134,11 +7727,21 @@ def main(argv: list) -> int:
         f"({torch.cuda.get_device_properties(0).multi_processor_count} SMs "
         f"x 64 lanes x the maximum SM clock)")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
+    # phase 34(a)'s analyses (meta tensors, the host alone) run beside the
+    # kernels' build, where no window is timed, and are joined before the
+    # first timed phase: beside a timed window they would share its host
+    partial = [a for a in argv if a.startswith("--") and a != "--launch"]
+    started = None if partial else _start_launch_jobs()
     t0 = time.perf_counter()
     _build.library()
     built = _build.build_seconds
     log(f"kernels: {'built in ' + format(built, '.1f') + ' s' if built else 'reused'}"
         f" ({time.perf_counter() - t0:.1f} s to load)")
+    analyses = None
+    if started is not None:
+        analyses = _join_launch_jobs(started)
+        log(f"phase 34(a): the analyses took {analyses['seconds']:.1f} s "
+            f"beside the build, {analyses['wait_seconds']:.1f} s after it")
 
     if "--train" in argv:
         return train_only(device, card)
@@ -7164,6 +7767,8 @@ def main(argv: list) -> int:
         return ssm_mesh_only(device, card)
     if "--serve-mesh" in argv:
         return serve_mesh_only(device, card)
+    if "--launch" in argv:
+        return launch_only(device, card, analyses)
     gen = torch.Generator(device=device).manual_seed(SEED)
     shapes = qwen2_1_5b_shapes()
     a_tree = _map_shapes(shapes, lambda s: torch.randn(
@@ -7294,6 +7899,11 @@ def main(argv: list) -> int:
     lap("phase 32")
     serve_mesh = phase_serve_mesh(device, launches, card)
     lap("phase 33")
+    pv = perf_variants
+    launch = phase_launch(device, launches, card, analyses, measured={
+        "prefill": pv["perf_variants"]["prefill_off"]["seconds"],
+        "decode": pv["perf_decode"]["bf16"]["seconds_per_step"]})
+    lap("phase 34")
     log(json.dumps({"launches": launches}))
     old = ("block_dist", "scatter_save", "masked_restore")
     new = ("arena_maintain", "arena_scatter", "parity_xor")
@@ -7317,7 +7927,8 @@ def main(argv: list) -> int:
                         ("examples", EXAMPLE_KERNELS),
                         ("internvl2_train", TRAIN_KERNELS),
                         ("moe_train", TRAIN_KERNELS),
-                        ("perf_variants", ("sw_attention",))):
+                        ("perf_variants", ("sw_attention",)),
+                        ("launch", ("sw_attention",))):
         for name in names:
             check(launches[path][name] > 0,
                   f"{name} was not launched on the {path} path")
@@ -7387,7 +7998,8 @@ def main(argv: list) -> int:
                        "ssm_mesh_launches": [r.get(name, 0) for r in
                                              launches["ssm_mesh"]],
                        "serve_mesh_launches": [r.get(name, 0) for r in
-                                               launches["serve_mesh"]]})
+                                               launches["serve_mesh"]],
+                       "launch_launches": launches["launch"].get(name, 0)})
     log(json.dumps({"controller": ctl, "fabric": fabric,
                     "rs_fabric": rs_fabric, "leaf_fabric": leaf_fabric,
                     "multi_erasure": multi, "mamba2_serve": mamba2,
@@ -7396,7 +8008,7 @@ def main(argv: list) -> int:
                     **moe_vlm, **train_moe_vlm, **perf_variants,
                     "mesh": {k: v for k, v in mesh.items() if k != "ranks"},
                     "moe_mesh": moe_mesh, "ssm_mesh": ssm_mesh,
-                    "serve_mesh": serve_mesh,
+                    "serve_mesh": serve_mesh, "launch": launch,
                     "serve_kernels": {
                         name: kernels[name]
                         for name in ("ssd_intra", "sw_attention")},

@@ -4,7 +4,10 @@ random LM batches.
 The numpy generators of ``repro.data.synthetic`` that the classic models
 use, copied so that the port imports nothing of the JAX package. Given the
 same ``np.random.Generator`` they produce byte-identical data.
-``lm_batch`` draws LM tokens with a torch generator.
+``lm_batch`` draws LM tokens with a torch generator. ``input_specs`` and
+``shape_params`` name the dry run's input shapes (``launch.dryrun``):
+tensors on the ``meta`` device, with the shapes and dtypes of the
+reference's ``ShapeDtypeStruct`` stand-ins, hold no memory.
 """
 from __future__ import annotations
 
@@ -90,3 +93,55 @@ def lm_batch(generator: torch.Generator, cfg, batch: int, seq: int,
                                device=generator.device,
                                dtype=torch.float32).to(dev, dtype)
     return out
+
+
+# ---------------------------------------------------------------------------
+# the dry run's input shapes (meta tensors: no allocation)
+# ---------------------------------------------------------------------------
+
+SHAPES = {
+    "train_4k": dict(seq=4096, batch=256, kind="train"),
+    "prefill_32k": dict(seq=32768, batch=32, kind="prefill"),
+    "decode_32k": dict(seq=32768, batch=128, kind="decode"),
+    "long_500k": dict(seq=524288, batch=1, kind="decode"),
+    # reduced shapes for CPU-side integration tests
+    "smoke_train": dict(seq=64, batch=2, kind="train"),
+    "smoke_decode": dict(seq=64, batch=2, kind="decode"),
+}
+
+
+def _lm_batch_struct(cfg, batch: int, seq: int) -> dict:
+    """``lm_batch``'s keys, shapes and dtypes as meta tensors."""
+    d = {"tokens": torch.empty((batch, seq), dtype=torch.int32,
+                               device="meta"),
+         "labels": torch.empty((batch, seq), dtype=torch.int32,
+                               device="meta")}
+    dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+    if cfg.family == "vlm":
+        d["patches"] = torch.empty((batch, cfg.n_patches, cfg.vit_dim),
+                                   dtype=dtype, device="meta")
+    if cfg.family == "audio":
+        d["frames"] = torch.empty((batch, cfg.enc_seq, cfg.d_model),
+                                  dtype=dtype, device="meta")
+    return d
+
+
+def batch_specs(cfg, kind: str, batch: int, seq: int) -> dict:
+    """The global batch of a step of ``kind`` as meta tensors: a train or
+    prefill step's ``lm_batch`` keys, a decode step's one new token
+    ``(batch, 1)``."""
+    if kind in ("train", "prefill"):
+        return _lm_batch_struct(cfg, batch, seq)
+    return {"tokens": torch.empty((batch, 1), dtype=torch.int32,
+                                  device="meta")}
+
+
+def input_specs(cfg, shape_name: str) -> dict:
+    """:func:`batch_specs` of a named input shape."""
+    s = SHAPES[shape_name]
+    return batch_specs(cfg, s["kind"], s["batch"], s["seq"])
+
+
+def shape_params(shape_name: str) -> dict:
+    """A named input shape's ``seq``, ``batch`` and ``kind``."""
+    return dict(SHAPES[shape_name])

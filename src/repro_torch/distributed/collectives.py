@@ -19,6 +19,13 @@ between ranks:
 and :func:`respan` moves a sharded buffer from one mesh to another (the
 elastic resize).
 
+:class:`CountingComm` stands in for :class:`MeshComm` on a dry mesh
+(``launch.mesh.DryMesh``, the dry run's): it sends nothing, returns
+tensors of the shapes and dtypes the real collective returns, and books
+each call in :data:`STATS` as :class:`MeshComm` would and in
+:data:`DRY_STATS` under the reference's HLO kinds (a mesh's ``comm()``
+gives one of the two).
+
 The tensor-parallel forward's collectives run over one line of the mesh's
 ``model`` axis (:class:`ModelAxis`, :func:`model_axis`), as
 ``torch.autograd.Function`` objects: ``copy`` (forward identity, backward the
@@ -437,6 +444,130 @@ def _rounds(send: torch.Tensor, sc: list, out: torch.Tensor, rc: list,
                 at += c
 
 
+# the reference's collective kinds (``repro.launch.dryrun._COLLECTIVES``)
+KINDS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+         "collective-permute")
+DRY_STATS: dict[str, dict] = {}
+
+
+def reset_dry_stats() -> None:
+    DRY_STATS.clear()
+    DRY_STATS.update({k: {"count": 0, "bytes": 0} for k in KINDS})
+
+
+def dry_stats() -> dict:
+    """:data:`DRY_STATS` with ``total_bytes``, the reference's
+    ``collective_stats`` record."""
+    if not DRY_STATS:
+        reset_dry_stats()
+    out = {k: dict(v) for k, v in DRY_STATS.items()}
+    out["total_bytes"] = sum(v["bytes"] for v in DRY_STATS.values())
+    return out
+
+
+def _dry_book(kind: str, result: torch.Tensor) -> None:
+    if not DRY_STATS:
+        reset_dry_stats()
+    DRY_STATS[kind]["count"] += 1
+    DRY_STATS[kind]["bytes"] += result.numel() * result.element_size()
+
+
+class CountingComm:
+    """:class:`MeshComm`'s stand-in for a line of ``mesh.size`` ranks of a
+    dry mesh (``launch.mesh.DryMesh``), at its live position: every method
+    the train and serve steps call, none of which sends anything. Each
+    returns a tensor of the real collective's shape and dtype on the
+    input's device (a new one, its values unset: its own part copied in
+    where the real one holds it, ``all_gather`` and ``reduce_scatter``;
+    the input's values for ``summed``, ``maxed``, ``all_reduce`` and
+    ``broadcast``), and books the call twice: in :data:`STATS` under its
+    name with the bytes :class:`MeshComm` counts for this rank (calls and
+    bytes the same as a real mesh's rank; no seconds), and in
+    :data:`DRY_STATS` under the reference's HLO kind with the result's
+    bytes, as the reference's ``collective_stats`` reads its compiled
+    collectives' result shapes. The kinds: ``all_gather`` an all-gather;
+    ``reduce_scatter`` a reduce-scatter (its result the span); ``summed``,
+    ``maxed`` and ``all_reduce`` an all-reduce of the result's shape (the
+    port runs the first two as an all-gather and a sum on the rank);
+    ``broadcast`` a collective-permute of the tensor; ``all_to_all`` an
+    all-to-all of the chunks received."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+        self.n = mesh.size
+        self.pos = mesh.position()
+        self.distributed = self.n > 1
+
+    def all_gather(self, span: torch.Tensor,
+                   out: Optional[torch.Tensor] = None,
+                   name: str = "all_gather") -> torch.Tensor:
+        n, m = self.n, span.numel()
+        if out is None:
+            out = torch.empty((n * m,), dtype=span.dtype, device=span.device)
+        out.view(n, m)[self.pos].copy_(span.reshape(-1))
+        _book(name, (n - 1) * m * span.element_size() if n > 1 else 0,
+              0.0, 0)
+        _dry_book("all-gather", out)
+        return out
+
+    def reduce_scatter(self, full: torch.Tensor,
+                       out: Optional[torch.Tensor] = None,
+                       name: str = "reduce_scatter") -> torch.Tensor:
+        n = self.n
+        m = full.numel() // n
+        if full.numel() != n * m:
+            raise ValueError(f"{full.numel()} values do not split {n} ways")
+        if out is None:
+            out = torch.empty((m,), dtype=full.dtype, device=full.device)
+        out.copy_(full.reshape(n, m)[self.pos])
+        _book(name, 2 * (n - 1) * m * full.element_size() if n > 1 else 0,
+              0.0, 0)
+        _dry_book("reduce-scatter", out)
+        return out
+
+    def all_reduce(self, t: torch.Tensor, name: str = "all_reduce"
+                   ) -> torch.Tensor:
+        if self.distributed:
+            _book(name, t.numel() * t.element_size(), 0.0, 0)
+            _dry_book("all-reduce", t)
+        return t
+
+    def summed(self, t: torch.Tensor, name: str,
+               dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        out = t.to(dtype or t.dtype, copy=True)
+        _book(name, (self.n - 1) * t.numel() * t.element_size()
+              if self.distributed else 0, 0.0, 0)
+        if self.distributed:
+            _dry_book("all-reduce", out)
+        return out
+
+    def maxed(self, t: torch.Tensor, name: str) -> torch.Tensor:
+        out = t.clone()
+        _book(name, (self.n - 1) * t.numel() * t.element_size()
+              if self.distributed else 0, 0.0, 0)
+        if self.distributed:
+            _dry_book("all-reduce", out)
+        return out
+
+    def broadcast(self, t: torch.Tensor, root: int = 0,
+                  name: str = "broadcast") -> torch.Tensor:
+        if self.distributed:
+            _book(name, t.numel() * t.element_size(), 0.0, 0)
+            _dry_book("collective-permute", t)
+        return t
+
+    def all_to_all(self, send: torch.Tensor, send_counts, recv_counts,
+                   max_count: int) -> torch.Tensor:
+        sc = [int(c) for c in send_counts]
+        rc = [int(c) for c in recv_counts]
+        out = torch.empty((sum(rc),), dtype=send.dtype, device=send.device)
+        item = send.element_size()
+        _book("all_to_all", (sum(sc) - sc[self.pos] + sum(rc) - rc[self.pos])
+              * item if self.distributed else 0, 0.0, 0)
+        _dry_book("all-to-all", out)
+        return out
+
+
 def respan(span: Optional[torch.Tensor], old_ranks: list, old_size: int,
            new_ranks: list, new_size: int, data: int, dtype,
            device) -> Optional[torch.Tensor]:
@@ -571,7 +702,7 @@ def model_axis(ctx) -> Optional[ModelAxis]:
     if axis is None:
         line = mesh.axis_mesh(ctx.tp)
         axis = ModelAxis(line.size, mesh.axis_position(ctx.tp),
-                         MeshComm(line))
+                         line.comm())
         mesh._model_axis = axis
     return axis
 
@@ -579,15 +710,14 @@ def model_axis(ctx) -> Optional[ModelAxis]:
 def data_comm(ctx) -> Optional[MeshComm]:
     """The :class:`MeshComm` of this rank's line of the mesh's ``data``
     axis (the ranks that hold the other data shards at this rank's model
-    position); None without a mesh. Cached on the mesh."""
+    position; the mesh's ``data_line``); None without a mesh. Cached on
+    the mesh."""
     mesh = None if ctx is None else ctx.mesh
     if mesh is None:
         return None
-    dp = [a for a in ctx.dp if a in mesh.axis_names]
-    if len(dp) != 1:
-        raise ValueError(f"{mesh}: data axes {dp}, not one")
     comm = getattr(mesh, "_data_comm", None)
     if comm is None:
-        comm = MeshComm(mesh.axis_mesh(dp[0]))
+        comm = mesh.data_line([a for a in ctx.dp
+                               if a in mesh.axis_names]).comm()
         mesh._data_comm = comm
     return comm

@@ -17,9 +17,9 @@ from repro_torch.kernels.ssd_scan.ref import ssd_intra_ref
 
 
 def ssd_intra(la, dt, x, Bm, Cm):
-    """Intra-chunk SSD: the plain version for CPU tensors, the CUDA kernel
-    otherwise."""
-    if la.device.type == "cpu":
+    """Intra-chunk SSD: the plain version for CPU tensors (and meta ones,
+    the dry run's: no kernel runs there), the CUDA kernel otherwise."""
+    if la.device.type in ("cpu", "meta"):
         return ssd_intra_ref(la, dt, x, Bm, Cm)
     return ssd_intra_cuda(*(t.to(torch.float32).contiguous()
                             for t in (la, dt, x, Bm, Cm)))

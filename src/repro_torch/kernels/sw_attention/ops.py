@@ -2,7 +2,7 @@
 
 Takes the model's (B, S, Hq, Dh) / (B, S, Hk, Dh) layout, regroups the
 query heads for GQA into (B·Hk, G, S, Dh) and runs the plain version on
-CPU tensors, the CUDA kernel otherwise. The port's
+CPU tensors (and meta ones, the dry run's), the CUDA kernel otherwise. The port's
 ``models.transformer.prefill`` calls it on the card with ``window=S`` for
 causal attention and the config's window for a ring prefill.
 """
@@ -23,7 +23,7 @@ def sw_attention(q, k, v, *, window: int) -> torch.Tensor:
     qg = q.transpose(1, 2).reshape(B * Hk, G, S, Dh)
     kg = k.transpose(1, 2).reshape(B * Hk, S, Dh)
     vg = v.transpose(1, 2).reshape(B * Hk, S, Dh)
-    if q.device.type == "cpu":
+    if q.device.type in ("cpu", "meta"):
         o = sw_attention_ref(qg, kg, vg, window=window)
     else:
         o = sw_attention_cuda(qg.contiguous(), kg.contiguous(),

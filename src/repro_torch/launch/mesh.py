@@ -13,6 +13,11 @@ homes onto ranks).
 - :func:`make_production_mesh`: the reference's TPU v5e pod shapes,
   ``(16, 16)`` or ``(2, 16, 16)`` with a ``pod`` axis, which need 256 or
   512 ranks;
+- :func:`make_dry_mesh` and :func:`make_dry_production_mesh`: a
+  :class:`DryMesh`, a mesh of any shape with one live position (default
+  0) and no process group, for the dry run (``launch.dryrun``): its
+  collectives are counted, not sent
+  (``distributed.collectives.CountingComm``);
 - :func:`survivor_mesh`: ``(n, 1)`` over an explicit rank list, its group
   a ``dist.new_group``. Every rank of the default group must call it with
   the same list at the same point, the ranks left out of it too
@@ -123,8 +128,96 @@ class Mesh:
         self._axis_meshes[name] = sub
         return sub
 
+    def data_line(self, names: Sequence[str]) -> "Mesh":
+        """This rank's line of the one data axis in ``names`` (the
+        :meth:`axis_mesh`); more than one data axis raises."""
+        if len(names) != 1:
+            raise ValueError(f"{self}: data axes {list(names)}, not one")
+        return self.axis_mesh(names[0])
+
+    def comm(self):
+        """The collectives of this mesh for this rank
+        (``distributed.collectives.MeshComm``)."""
+        from repro_torch.distributed.collectives import MeshComm
+        return MeshComm(self)
+
     def __repr__(self) -> str:
         return f"Mesh({self.shape}, ranks={self.ranks})"
+
+
+class DryMesh(Mesh):
+    """A mesh of ``devices`` (ranks ``0 .. n-1`` in its shape) whose one
+    live position is ``live`` and which has no process group: this
+    process runs that position's work, and every collective it calls is
+    counted, not sent (:meth:`comm`). Its axis lines are dry meshes too,
+    live at this position's place on them."""
+
+    def __init__(self, devices, axis_names: Sequence[str], live: int = 0):
+        super().__init__(devices, axis_names)
+        if not 0 <= live < self.size:
+            raise ValueError(f"position {live} of a {self.size}-rank mesh")
+        self.live = int(live)
+
+    def position(self, rank: Optional[int] = None) -> Optional[int]:
+        if rank is None:
+            return self.live
+        return super().position(rank)
+
+    def axis_mesh(self, name: str) -> "DryMesh":
+        cached = self._axis_meshes.get(name)
+        if cached is None:
+            me = self.ranks[self.live]
+            line, = [ln for ln in self.axis_lines(name) if me in ln]
+            cached = DryMesh(np.asarray(line), (name,), line.index(me))
+            self._axis_meshes[name] = cached
+        return cached
+
+    def data_line(self, names: Sequence[str]) -> "DryMesh":
+        """This position's line of the data axes ``names``: one axis's
+        line, or for several (the reference's multi-pod ``("pod",
+        "data")``, whose pods are data parallelism alone) the ranks that
+        differ from this position only on those axes (row-major over
+        them), as one line of ``pod x data`` ranks."""
+        if len(names) == 1:
+            return self.axis_mesh(names[0])
+        if not names:
+            raise ValueError(f"{self}: no data axis")
+        idx = [self.axis_names.index(a) for a in names]
+        rest = [i for i in range(self.devices.ndim) if i not in idx]
+        moved = np.moveaxis(self.devices, idx + rest, list(range(
+            self.devices.ndim)))
+        coords = self.coords()
+        plane = moved[(slice(None),) * len(idx)
+                      + tuple(coords[i] for i in rest)].reshape(-1)
+        line = [int(r) for r in plane]
+        return DryMesh(np.asarray(line), ("data",),
+                       line.index(self.ranks[self.live]))
+
+    def comm(self):
+        """A ``distributed.collectives.CountingComm``: counted, not
+        sent."""
+        from repro_torch.distributed.collectives import CountingComm
+        return CountingComm(self)
+
+    def __repr__(self) -> str:
+        return f"DryMesh({self.shape}, live={self.live})"
+
+
+def make_dry_mesh(shape: Sequence[int], axes: Sequence[str],
+                  position: int = 0) -> DryMesh:
+    """A :class:`DryMesh` of ``shape`` live at row-major ``position``."""
+    shape = tuple(int(s) for s in shape)
+    return DryMesh(np.arange(int(np.prod(shape))).reshape(shape), axes,
+                   position)
+
+
+def make_dry_production_mesh(*, multi_pod: bool = False,
+                             position: int = 0) -> DryMesh:
+    """The reference's production mesh shape (:func:`make_production_mesh`)
+    as a :class:`DryMesh` live at ``position``."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_dry_mesh(shape, axes, position)
 
 
 def _group(ranks: Sequence[int]):

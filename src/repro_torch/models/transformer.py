@@ -38,9 +38,11 @@ this rank's weight slices (``layers``; ``params`` holds the slices that
 whole where the vocab does not split, ``partition.vocab_ctx``) and the
 rank's data shard. ``init_cache``, ``prefill`` and ``decode_step`` take
 the same ``ctx``: each rank serves its data shard over its heads (the
-sw_attention kernel on the card over ``Hq / tp`` query and ``Hk / tp`` kv
-heads), its cache holds those kv heads (``partition.state_slices``) and
-the logits are the whole vocab's on every rank. ``decode_step`` writes
+sw_attention kernel on the card over ``Hq / tp`` query heads and the kv
+heads they read: ``Hk / tp``, or one kv head that the ranks whose query
+heads read it share), its cache holds those kv heads
+(``partition.state_slices``) and the logits are the whole vocab's on
+every rank. ``decode_step`` writes
 the new token's K/V into the cache in place.
 
 The perf variants, as the reference's: under ``cfg.kv_quant`` the cache
@@ -65,7 +67,7 @@ from repro_torch.distributed.collectives import model_axis
 from repro_torch.kernels.sw_attention.ops import sw_attention
 from repro_torch.models import layers as L
 from repro_torch.sharding.partition import (batch_rows, check_tensor_parallel,
-                                            vocab_ctx)
+                                            kv_head_range, vocab_ctx)
 
 PyTree = Any
 
@@ -253,13 +255,17 @@ def cache_spec(cfg: ModelConfig, seq_len: int, *, use_window: bool
 
 
 def _kv_heads(cfg: ModelConfig, ctx=None) -> int:
-    """The kv heads a rank holds: all of them, or on a model axis its
-    ``n_kv_heads / tp`` (raises ``ValueError`` where the config does not
-    split over ``ctx``'s model axis)."""
+    """The kv heads a rank holds: all of them, or on a model axis those
+    its query heads read (``partition.kv_head_range``: ``n_kv_heads /
+    tp``, or one that ranks share; raises ``ValueError`` where the config
+    does not split over ``ctx``'s model axis)."""
     if ctx is None:
         return cfg.n_kv_heads
     check_tensor_parallel(cfg, ctx.tp_size)
-    return cfg.n_kv_heads // ctx.tp_size
+    if ctx.tp_size == 1:
+        return cfg.n_kv_heads
+    lo, hi = kv_head_range(cfg.n_heads, cfg.n_kv_heads, ctx.tp_size, 0)
+    return hi - lo
 
 
 def init_cache(params_or_none, cfg: ModelConfig, batch: int, spec: CacheSpec,
@@ -293,7 +299,8 @@ def init_cache(params_or_none, cfg: ModelConfig, batch: int, spec: CacheSpec,
 def prefill_attention(q, k, v, positions, cfg: ModelConfig, window: int):
     """Causal (``window=0``) or banded prefill attention over the prompt:
     the sw_attention kernel on the card, the plain chunked attention on
-    the CPU (``layers.flash_attention_triangle`` for a causal prefill).
+    the CPU and on meta tensors (the dry run's; no kernel runs there):
+    ``layers.flash_attention_triangle`` for a causal prefill.
 
     ``cfg.triangle_prefill`` changes nothing here, on either device. The
     kernel with ``window=S`` already visits only the key tiles at or below
@@ -302,7 +309,7 @@ def prefill_attention(q, k, v, positions, cfg: ModelConfig, window: int):
     visit-every-tile baseline, and a tile above the diagonal is all masked,
     so skipping it gives the same bits."""
     S = q.shape[1]
-    if q.device.type == "cpu":
+    if q.device.type in ("cpu", "meta"):
         chunk = min(cfg.attn_chunk, S)
         if not window:
             return L.flash_attention_triangle(q, k, v, positions, positions,
@@ -376,8 +383,8 @@ def prefill(params, batch, cfg: ModelConfig, spec: CacheSpec, ctx=None):
     the whole finished cache, bit for bit, without a model-dtype copy of
     the cache beside the int8 one. With ``ctx`` (see :func:`decode_step`)
     ``batch`` is this rank's data shard, the attention (the sw_attention
-    kernel on the card) runs over its ``Hq / tp`` query and ``Hk / tp``
-    kv heads and the cache holds those kv heads."""
+    kernel on the card) runs over its ``Hq / tp`` query heads and the kv
+    heads they read, and the cache holds those kv heads."""
     vctx = vocab_ctx(cfg, ctx)
     x = _embed_batch(params, batch, cfg, vctx)
     B, S, _ = x.shape

@@ -27,8 +27,18 @@ Serving on a mesh cuts the state too: :func:`state_slices` gives each
 cache or SSM-state leaf its :class:`StateSlice` as the reference's
 ``_state_spec_for_leaf`` places it (the batch's data shard,
 :func:`batch_rows`, then the kv heads, the SSD heads or the conv
-channels); where the kv heads do not split the reference cuts
-``head_dim``, the port raises.
+channels).
+
+**Kv heads shared by ranks.** Where the kv heads do not split over the
+model axis but the query heads do, and each rank's query heads read one
+kv head (``G % (Hq / tp) == 0``: command-r-plus-104b's 96/8 heads at
+``tp`` 16, qwen2-1.5b's 12/2 at 4), a rank holds whole kv heads, those its
+query heads read (:func:`kv_head_range`), and the ranks whose query heads
+read one kv head each hold a copy of it: ``wk``, ``wv``, ``bk``, ``bv``
+and the cache's ``k``, ``v``, ``k_scale``, ``v_scale`` (a cut leaf whose
+slices overlap, its gradient each rank's part). The reference cuts
+``head_dim`` there instead. :func:`check_tensor_parallel` still raises
+where the query heads do not split.
 
 - 2-D weights (d_in, d_out): TP on the "wide" axis, FSDP (data) on the
   other; embeddings (V, D): vocab on TP, D on data; expert weights (E,
@@ -370,6 +380,37 @@ def _parent(name: str) -> str:
     return name[:name.rindex("[")]
 
 
+# the attention's kv-head leaves, cut by the kv heads their rank's query
+# heads read (:func:`kv_head_range`)
+_KV = ("wk", "wv", "bk", "bv")
+
+
+def kv_split(n_heads: int, n_kv_heads: int, tp: int) -> bool:
+    """Whether ``tp`` model positions can split ``n_heads`` query heads over
+    ``n_kv_heads`` kv heads: the kv heads split evenly, or the query heads
+    do and each position's read one kv head (shared with the positions
+    whose query heads read it)."""
+    if n_kv_heads % tp == 0 and n_heads % tp == 0:
+        return True
+    return n_heads % tp == 0 and (n_heads // n_kv_heads) \
+        % (n_heads // tp) == 0
+
+
+def kv_head_range(n_heads: int, n_kv_heads: int, tp: int, pos: int
+                  ) -> tuple[int, int]:
+    """The kv heads ``[lo, hi)`` that model position ``pos``'s query heads
+    ``[pos Hq/tp, (pos+1) Hq/tp)`` read (query head ``h`` reads kv head
+    ``h // G``): ``n_kv_heads / tp`` of them where they split, else the
+    one kv head, which ``G / (Hq/tp)`` positions share. Raises
+    ``ValueError`` where :func:`kv_split` is False."""
+    if not kv_split(n_heads, n_kv_heads, tp):
+        raise ValueError(f"{n_heads} query heads over {n_kv_heads} kv heads "
+                         f"do not split over model={tp}")
+    per = n_heads // tp
+    group = n_heads // n_kv_heads
+    return pos * per // group, ((pos + 1) * per - 1) // group + 1
+
+
 def _mixer_slice(name: str, shape: tuple[int, ...], dims: dict, tp: int,
                  pos: int) -> ModelSlice:
     """A Mamba2 mixer leaf's cut at model position ``pos`` of ``tp``:
@@ -405,8 +446,11 @@ def model_slices(tree: PyTree, ctx: DistContext, pos: Optional[int] = None
     computes with, or :data:`WHOLE` for a leaf every rank computes whole
     (every leaf when the mesh's ``model`` axis has one position; the
     embedding and the head where the vocab does not split). A Mamba2
-    mixer's leaves are cut by SSD heads (:func:`_mixer_slice`). Raises
-    ``ValueError`` for a cut dim that does not split evenly."""
+    mixer's leaves are cut by SSD heads (:func:`_mixer_slice`), the
+    attention's ``wk``, ``wv``, ``bk`` and ``bv`` by the kv heads its
+    query heads read (:func:`kv_head_range`; positions that share a kv
+    head each take it). Raises ``ValueError`` for a cut dim that does not
+    split evenly."""
     tp = ctx.tp_size
     flat, treedef = flatten_with_path(tree)
     if tp == 1:
@@ -420,11 +464,19 @@ def model_slices(tree: PyTree, ctx: DistContext, pos: Optional[int] = None
             mixers.setdefault(_parent(name), {})[_key(name)] = \
                 leaf.shape[-1]
     dims = {k: (v["conv_w"], v["A_log"]) for k, v in mixers.items()}
+    q_heads = {_parent(name): leaf.shape[-2]
+               for name, (_, leaf) in zip(names, flat)
+               if _key(name) == "wq"}
     out = []
     for name, (_, leaf) in zip(names, flat):
         shape = tuple(leaf.shape)
         if _key(name) in _MIXER and _parent(name) in dims:
             out.append(_mixer_slice(name, shape, dims, tp, pos))
+            continue
+        if _key(name) in _KV and _parent(name) in q_heads:
+            lo, hi = kv_head_range(q_heads[_parent(name)], shape[-2], tp,
+                                   pos)
+            out.append(ModelSlice(len(shape) - 2, lo, hi))
             continue
         dim = _model_dim(name, shape, ctx)
         if dim is None or (_key(name) in _VOCAB and shape[dim] % tp):
@@ -508,8 +560,8 @@ _STATE_MODEL_DIM = {"k": (5, 3), "v": (5, 3), "cross_k": (5, 3),
 
 
 def state_slices(state: PyTree, ctx: DistContext,
-                 pos: Optional[int] = None, data_pos: Optional[int] = None
-                 ) -> PyTree:
+                 pos: Optional[int] = None, data_pos: Optional[int] = None,
+                 heads: Optional[int] = None) -> PyTree:
     """For each leaf of a serving state (a KV cache, an SSM state, the
     hybrid's both; leaves need only ``.shape``, the global shapes), the
     :class:`StateSlice` that model position ``pos`` and data shard
@@ -519,8 +571,11 @@ def state_slices(state: PyTree, ctx: DistContext,
     ``cross_k`` and ``cross_v`` by kv heads, ``k_scale`` and ``v_scale``
     by kv heads, the SSM ``h`` by SSD heads and ``conv`` by ``d_inner``
     channels; ``kpos`` and ``pos`` whole. Where the kv heads do not split
-    the reference cuts ``head_dim``; the port raises ``ValueError``, as
-    :func:`check_tensor_parallel` does for the model."""
+    but the ``heads`` query heads (``cfg.n_heads``) do, the kv heads the
+    rank's query heads read (:func:`kv_head_range`: the positions that
+    share a kv head each hold it; the reference cuts ``head_dim`` there);
+    without ``heads``, or where they do not split either, raises
+    ``ValueError`` as :func:`check_tensor_parallel` does for the model."""
     tp = ctx.tp_size
     if tp > 1 and pos is None:
         pos = ctx.mesh.axis_position(ctx.tp)
@@ -538,11 +593,15 @@ def state_slices(state: PyTree, ctx: DistContext,
             cuts.append(ModelSlice(1, lo, hi))
         dim = rule[1]
         if tp > 1:
-            if shape[dim] % tp:
+            if shape[dim] % tp == 0:
+                per = shape[dim] // tp
+                cuts.append(ModelSlice(dim, pos * per, (pos + 1) * per))
+            elif heads and dim == 3 and kv_split(heads, shape[dim], tp):
+                cuts.append(ModelSlice(dim, *kv_head_range(
+                    heads, shape[dim], tp, pos)))
+            else:
                 raise ValueError(f"{name}: dim {dim} of {shape} does not "
                                  f"split over model={tp}")
-            per = shape[dim] // tp
-            cuts.append(ModelSlice(dim, pos * per, (pos + 1) * per))
         out.append(StateSlice(*cuts))
     return tree_unflatten(treedef, out)
 
@@ -559,15 +618,19 @@ def vocab_ctx(cfg, ctx: Optional[DistContext]) -> Optional[DistContext]:
 def check_tensor_parallel(cfg, tp: int) -> None:
     """Raise ``ValueError`` naming ``cfg`` when its heads, kv heads,
     experts, feed-forward widths or SSD heads do not split over ``tp``
-    model positions. The reference splits ``head_dim`` where the heads do
-    not divide; the port does not (no config does so at the meshes it
-    trains). A vocab that does not split is computed whole
-    (:func:`vocab_ctx`)."""
+    model positions. Kv heads that do not split are taken where the query
+    heads split and each position's read one kv head (:func:`kv_split`:
+    the positions share it). The reference splits ``head_dim`` where the
+    query heads do not divide; the port raises there. A vocab that does
+    not split is computed whole (:func:`vocab_ctx`)."""
     dims = {"n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
             "n_experts": cfg.n_experts, "d_ff": cfg.d_ff,
             "d_ff_dense": cfg.d_ff_dense,
             "ssm_heads": cfg.ssm_heads if cfg.ssm_state else 0}
     bad = {k: v for k, v in dims.items() if v % tp}
+    if "n_kv_heads" in bad and "n_heads" not in bad \
+            and kv_split(cfg.n_heads, cfg.n_kv_heads, tp):
+        del bad["n_kv_heads"]
     if bad:
         raise ValueError(f"{cfg.name}: {bad} do not split over model={tp} "
                          "(tensor parallelism needs every one to divide)")

@@ -5,6 +5,8 @@
 - Entry points asked for no device run on ``cuda``, and raise where no
   CUDA device is present instead of carrying on on the CPU; so does
   ``interop.load_parity_rows``.
+- No port module writes the environment when it is imported (the
+  reference's launch modules set ``XLA_FLAGS`` in their first lines).
 """
 import ast
 import dataclasses
@@ -288,3 +290,59 @@ def test_trainer_defaults_to_cuda_and_names_its_roadmap_items(tmp_path):
         assert "ROADMAP item 38" not in text and "item 38" not in text, path
         assert "item 39" not in text, path
         assert "item 40" not in text, path
+
+
+def _env_writes(tree: ast.Module) -> list:
+    """The module-level statements of ``tree`` that write ``os.environ``
+    (an item assigned or deleted, ``update``, ``setdefault``, ``pop``) or
+    call ``os.putenv``."""
+    def environ(node) -> bool:
+        return (isinstance(node, ast.Attribute) and node.attr == "environ") \
+            or (isinstance(node, ast.Name) and node.id == "environ")
+    bad = []
+    for stmt in tree.body:
+        if isinstance(stmt, (ast.FunctionDef, ast.AsyncFunctionDef,
+                             ast.ClassDef)):
+            continue
+        for node in ast.walk(stmt):
+            targets = []
+            if isinstance(node, (ast.Assign, ast.Delete)):
+                targets = node.targets
+            elif isinstance(node, ast.AugAssign):
+                targets = [node.target]
+            if any(isinstance(t, ast.Subscript) and environ(t.value)
+                   for t in targets):
+                bad.append(node.lineno)
+            if isinstance(node, ast.Call) \
+                    and isinstance(node.func, ast.Attribute) and (
+                        (environ(node.func.value) and node.func.attr in (
+                            "update", "setdefault", "pop"))
+                        or node.func.attr == "putenv"):
+                bad.append(node.lineno)
+    return bad
+
+
+@pytest.mark.parametrize("path", FILES[:-1],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_environment_writes_at_import(path):
+    """No port module, the launch analytics (``launch/dryrun.py``,
+    ``launch/roofline.py``, ``launch/perf.py``) among them, writes the
+    environment when it is imported (``chip_smoke.py``, a script that is
+    run, sets cuBLAS's workspace before CUDA starts)."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    assert not _env_writes(tree), f"{path}: lines {_env_writes(tree)}"
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_xla_flags_and_no_open_launch_item(path):
+    """No port file names ``XLA_FLAGS``, and none names the launch
+    analytics' ROADMAP item (17) now that it is ported."""
+    text = path.read_text()
+    assert "XLA_FLAGS" not in text, path
+    assert "item 17" not in text, path
+
+
+def test_launch_modules_are_scanned():
+    names = {str(p.relative_to(ROOT)) for p in FILES}
+    for mod in ("dryrun", "roofline", "perf"):
+        assert f"src/repro_torch/launch/{mod}.py" in names

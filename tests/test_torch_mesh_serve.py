@@ -33,8 +33,9 @@ f32, batch 4, prompt 32 (80 for qwen2-1.5b: past its 64-token window),
 
 In process: a one-position mesh serves the ctx-less bits;
 ``state_slices`` cuts each leaf as the reference's
-``_state_spec_for_leaf`` places it; a config whose kv heads do not split
-raises.
+``_state_spec_for_leaf`` places it; kv heads that do not split are shared
+by the positions whose query heads read them, and query heads that do not
+split raise.
 """
 import dataclasses
 import os
@@ -569,25 +570,50 @@ def test_state_slices_follow_the_reference_specs(case, mesh_shape):
         assert [tuple(x.shape) for _, x in got] == want
 
 
-def test_kv_heads_that_do_not_split_raise():
-    """qwen2-1.5b's 2 kv heads over 4 model positions: the reference cuts
-    ``head_dim`` there, the port raises (the server, the cache, the state
-    slices)."""
+def test_kv_heads_shared_by_ranks_serve():
+    """qwen2-1.5b's 2 kv heads over 4 model positions (reduced: 4 query
+    heads, one a position): each position holds the kv head its query
+    head reads, positions 0-1 kv head 0 and 2-3 kv head 1 (the server,
+    the cache, the state slices); the reference cuts ``head_dim`` there
+    instead. ``tests/test_torch_mesh_kv_split.py`` serves it against the
+    reference's mesh."""
+    from repro_torch.launch.mesh import make_dry_mesh
     cfg = _config("qwen2")
-    ctx = tp.DistContext(mesh=_StandIn((1, 4)))
     params = get_model(cfg).init_params(torch.Generator().manual_seed(0),
                                         cfg, device="cpu")
-    with pytest.raises(ValueError, match="n_kv_heads"):
-        Server(cfg, params, device="cpu", ctx=ctx)
-    with pytest.raises(ValueError, match="n_kv_heads"):
-        get_model(cfg).init_cache(cfg, B, 16, device="cpu", ctx=ctx)
     whole = get_model(cfg).init_cache(cfg, B, 16, device="cpu")
-    with pytest.raises(ValueError, match="does not split over model=4"):
-        tp.state_slices(whole, ctx, pos=0, data_pos=0)
+    for pos in range(4):
+        ctx = tp.make_dist_ctx(make_dry_mesh((1, 4), ("data", "model"),
+                                             position=pos))
+        Server(cfg, params, device="cpu", ctx=ctx)
+        mine = get_model(cfg).init_cache(cfg, B, 16, device="cpu", ctx=ctx)
+        assert mine["k"].shape[3] == 1
+        sl = tp.state_slices(whole, ctx, heads=cfg.n_heads)
+        assert tuple(sl["k"][-1]) == (3, pos // 2, pos // 2 + 1)
+        with pytest.raises(ValueError, match="does not split over model=4"):
+            tp.state_slices(whole, ctx)
     # the reference cuts head_dim there instead
     spec = jp.state_partition_specs(whole, jp.DistContext(mesh=_StandIn(
         (1, 4))))["k"]
     assert tuple(spec)[3:] == (None, "model")
+
+
+def test_query_heads_that_do_not_split_raise():
+    """4 query heads over 8 model positions: the reference cuts
+    ``head_dim``, the port raises, naming the heads (the server, the
+    cache, the state slices)."""
+    from repro_torch.launch.mesh import make_dry_mesh
+    cfg = _config("qwen2")
+    ctx = tp.make_dist_ctx(make_dry_mesh((1, 8), ("data", "model")))
+    params = get_model(cfg).init_params(torch.Generator().manual_seed(0),
+                                        cfg, device="cpu")
+    with pytest.raises(ValueError, match="n_heads"):
+        Server(cfg, params, device="cpu", ctx=ctx)
+    with pytest.raises(ValueError, match="n_heads"):
+        get_model(cfg).init_cache(cfg, B, 16, device="cpu", ctx=ctx)
+    whole = get_model(cfg).init_cache(cfg, B, 16, device="cpu")
+    with pytest.raises(ValueError, match="does not split over model=8"):
+        tp.state_slices(whole, ctx, heads=cfg.n_heads)
 
 
 def test_batch_that_does_not_split_raises():
