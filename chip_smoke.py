@@ -207,16 +207,18 @@ Phases, each of which fails the run if it fails:
     recovery flow and the route hold; sw_attention in the decoder's
     self-attention prefill (the encoder's and the cross-attention are the
     plain chunked attention, as in the reference).
-21. zamba2-1.2b trained at full width and depth (38 Mamba2 layers, d
-    2048, the shared block 7 times, bf16, 1,170,138,240 values as
-    per-layer leaves; the shared block one set of leaves), as phase 17(a)
+21. zamba2-1.2b trained at full width, 12 of its 38 Mamba2 layers (two
+    segments, the shared block twice; the depth cut to the script's time
+    budget), d 2048, bf16, 505,118,976 values as per-layer leaves (the
+    shared block one set of leaves), as phase 17(a)
     trains qwen2-1.5b: adamw(3e-4), ``scar(0.125, 2)``, ``FabricConfig()``,
     arena-resident, batch 4 x 2048 from ``ShardedLMDataset(seed=0)``, 8
     steps, hosts 0 and 2 lost at step 5. Phase 17(a)'s checks (step 1's
     loss within 1.0 of ln 32000) and reports, and ``check_train_kernels``
     on the run's own arena; ``launches["zamba2_train"]``.
-22. whisper-medium trained at full width and depth (24 + 24 layers, d
-    1024, the untied head, bf16, 1,013,362,688 values), as phase 21, on
+22. whisper-medium trained at full width, its 24 encoder layers and 12
+    of its 24 decoder layers (the depth cut to the script's time budget),
+    d 1024, the untied head, bf16, 761,667,584 values, as phase 21, on
     batches of 4 sequences of 1,500 frames and 448 tokens (the published
     decoder context); step 1's loss within 1.0 of ln 51865;
     ``launches["whisper_train"]``.
@@ -309,7 +311,7 @@ Phases, each of which fails the run if it fails:
     counts sw_attention over (a)'s eight 32k prefills (the two generates'
     included): once a layer in each.
 30. The sharded arena and the elastic mesh: qwen2-1.5b at full width (f32,
-    3 of its 28 layers, untied head) trained on a (2, 2) mesh of 4
+    2 of its 28 layers, untied head) trained on a (2, 2) mesh of 4
     ``torch.distributed`` ranks spawned on the one card (gloo: NCCL
     refuses two ranks on one device; every collective staged through
     page-locked host memory, in pieces, its bytes and seconds counted),
@@ -349,9 +351,10 @@ Phases, each of which fails the run if it fails:
     ``python3 chip_smoke.py --ssm-mesh`` runs phases 1 and 32 alone
     (``{"ssm_mesh_only": true, ...}``).
 33. **The Server on a mesh** (:func:`phase_serve_mesh`): 4 ranks on a
-    (1, 4) mesh serve command-r-plus-104b at full width (4 of its 64
+    (1, 4) mesh serve command-r-plus-104b at full width (2 of its 64
     layers; batch 2, a 4,608-token prompt, 16 greedy tokens, a bf16 arm
-    and an int8 ring-cache arm) and zamba2-1.2b at full width and depth
+    and an int8 ring-cache arm) and zamba2-1.2b at full width (12 of its
+    38 layers)
     (1,024 tokens), each rank placing only its model slices; held against
     one rank's bf16 and f32 routes in this process (the tokens the same on
     every rank, the last prefill logits within 1.5 times one device's bf16
@@ -380,6 +383,23 @@ Phases, each of which fails the run if it fails:
     step at 4 layers held as phase 31(a). ``python3 chip_smoke.py
     --launch`` runs phases 1 and 34 alone (``{"launch_only": true,
     ...}``).
+35. **Query heads that do not split over the model axis**
+    (:func:`phase_uneven_heads`): each model position computes whole
+    query heads, ``[ceil(r Hq / tp), ceil((r+1) Hq / tp))``, and holds the
+    kv heads they read. (a) sw_attention at G 3, 2 and 1 against plain,
+    timed; model positions 0 and 1 of the dry (16, 16) mesh run
+    llama4-maverick-400b-a17b's first dense + MoE pair at full width (3
+    and 2 of the 40 query heads over the kv head they share), the
+    prefill_32k and decode_32k steps through the counting stand-in
+    (argument bytes equal to the meta run's, computed beside the build;
+    temp bytes within 10% of the card's peak; every sw_attention call
+    against plain); rank 3 of qwen2-1.5b's (16, 16) mesh, which holds no
+    query head, launches no sw_attention. (b) qwen2-1.5b at full width
+    and depth served on a (1, 8) mesh of 8 gloo ranks (2, 1, 2, 1, ...
+    query heads), a bf16 and an int8 arm, the serve-with-recovery flow on
+    every rank, and one TP train step at 4 layers, held as 34(c) on its
+    yardstick. ``python3 chip_smoke.py --uneven-heads`` runs phases 1 and
+    35 alone (``{"uneven_heads_only": true, ...}``).
 
 The line before the last is the kernels' JSON record (each kernel's
 launches on its own path, ``train_launches`` on phase 17's,
@@ -394,7 +414,8 @@ on phase 30's run, ``moe_mesh_launches`` on phase 31(b)'s two elastic
 runs, ``ssm_mesh_launches`` on phase 32(b)'s three and
 ``serve_mesh_launches`` on phase 33(a)-(b)'s serve paths, one count a
 rank, ``launch_launches`` on phase 34(b)'s timed runs and (c)'s serve
-windows on rank 0); the last line is
+windows on rank 0, ``uneven_heads_launches`` on phase 35(a)'s timed runs
+and (b)'s windows on every rank); the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
 and prints no result.
 
@@ -3935,26 +3956,30 @@ def train_only(device, card: str) -> int:
 # (whisper-medium) families trained at full width
 # ---------------------------------------------------------------------------
 
-# 448 tokens: whisper's published decoder context; 1,500 frames a sequence
-TRAIN_WHISPER = dict(batch=4, seq=448, steps=8)
+# 448 tokens: whisper's published decoder context; 1,500 frames a sequence.
+# Depths cut to the script's time budget: whisper-medium's decoder at 12 of
+# 24 layers, zamba2-1.2b's first two segments (12 of 38 Mamba2 layers, the
+# shared block twice)
+TRAIN_WHISPER = dict(batch=4, seq=448, steps=8, layers=12)
+TRAIN_ZAMBA2 = dict(TRAIN, layers=12)
 
 
 def phase_zamba2_train(device, launches: dict) -> dict:
-    """Phase 21: zamba2-1.2b at full width and depth (38 Mamba2 layers, the
-    shared block 7 times, bf16, per-layer leaves) trained as phase 17(a)
+    """Phase 21: zamba2-1.2b at full width (12 of its 38 Mamba2 layers,
+    the shared block twice, bf16, per-layer leaves) trained as phase 17(a)
     trains qwen2-1.5b; ``launches["zamba2_train"]``."""
     out = _train_full("zamba2-1.2b", device, launches, "zamba2_train",
-                      TRAIN, seed=21)
+                      TRAIN_ZAMBA2, seed=21)
     log(f"phase 21: zamba2-1.2b training, batch {TRAIN['batch']} x "
         f"{TRAIN['seq']}, {TRAIN['steps']} steps: {json.dumps(out)}")
     return out
 
 
 def phase_whisper_train(device, launches: dict) -> dict:
-    """Phase 22: whisper-medium at full width and depth (24 + 24 layers,
-    the untied head, bf16, per-layer leaves) trained as phase 17(a) trains
-    qwen2-1.5b, on batches of 4 sequences of 1,500 frames and 448 tokens;
-    ``launches["whisper_train"]``."""
+    """Phase 22: whisper-medium at full width (24 encoder and 12 of its 24
+    decoder layers, the untied head, bf16, per-layer leaves) trained as
+    phase 17(a) trains qwen2-1.5b, on batches of 4 sequences of 1,500
+    frames and 448 tokens; ``launches["whisper_train"]``."""
     out = _train_full("whisper-medium", device, launches, "whisper_train",
                       TRAIN_WHISPER, seed=22)
     log(f"phase 22: whisper-medium training, batch {TRAIN_WHISPER['batch']}"
@@ -5034,10 +5059,10 @@ def erasure_only(a_tree, device, int_rate: float, card: str) -> int:
 # qwen2-1.5b at full width, f32 (the meshed fabric holds an all-f32 model),
 # on a (2, 2) mesh of 4 ranks sharing the one card: one sequence of 2,048
 # tokens a rank; host 1 (ranks 2 and 3) lost at step 3, healed at step 5.
-# 3 of its 28 layers: with 4 the ranks' peaks summed to 70.2 GB (the two
+# 2 of its 28 layers: with 4 the ranks' peaks summed to 70.2 GB (the two
 # survivors hold twice the spans and twice the batch while the mesh is
-# shrunk; PERF.md, phase 30)
-MESH = dict(ranks=4, shape=(2, 2), layers=3, batch=4, seq=2048, steps=6,
+# shrunk; PERF.md, phase 30); 2, not 3, for the script's time budget
+MESH = dict(ranks=4, shape=(2, 2), layers=2, batch=4, seq=2048, steps=6,
             loss_step=3, heal_after=2, eq_steps=2, seed=30, timeout=900)
 MESH_KERNELS = ("arena_maintain", "arena_scatter", "parity_xor")
 # the ranks' losses against the one-rank run's: the gradient is the mean of
@@ -5441,7 +5466,7 @@ def _mesh_one_rank(device, opts: dict, params) -> dict:
 
 
 def phase_mesh(device, launches: dict, card: str, opts=None) -> dict:
-    """Phase 30: qwen2-1.5b at full width (f32, 3 of 28 layers) trained on
+    """Phase 30: qwen2-1.5b at full width (f32, 2 of 28 layers) trained on
     a (2, 2) mesh of 4 ``torch.distributed`` ranks sharing the one card
     (gloo: NCCL refuses two ranks on one device; every collective staged
     through page-locked host memory, its bytes and seconds counted), under
@@ -5924,7 +5949,11 @@ def _tp_step(device, cfg, ctx, params, slices, rows: dict, work: Path
         with torch.enable_grad():
             loss = ops.train_loss(tree_unflatten(treedef, leaves), batch,
                                   cfg, ctx=ctx)
-            return loss, list(torch.autograd.grad(loss, leaves))
+            # a rank without query heads reads no kv head: its empty
+            # slices of wk, wv, bk and bv get a zero gradient
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+            return loss, [torch.zeros_like(x) if g is None else g
+                          for x, g in zip(leaves, grads)]
     # an untimed first step: the first call's library set-up took 8 s of
     # phase 31's yardstick's 9.5 s (its second call, in f32, 1.4 s)
     fwd_bwd()
@@ -5954,13 +5983,19 @@ def _tp_step(device, cfg, ctx, params, slices, rows: dict, work: Path
         if cuda:
             torch.cuda.synchronize()
         t1 = time.perf_counter()
-        raw = data.all_gather(g.contiguous().view(-1).view(torch.uint8),
-                              name="data_grad_mean")
-        parts = raw.view(data.n, -1).view(g.dtype)
-        acc = parts[0].float()
-        for k in range(1, data.n):
-            acc.add_(parts[k].float())
-        acc = acc.div_(data.n).view(g.shape)
+        if g.numel():
+            raw = data.all_gather(g.contiguous().view(-1).view(torch.uint8),
+                                  name="data_grad_mean")
+            parts = raw.view(data.n, -1).view(g.dtype)
+            acc = parts[0].float()
+            for k in range(1, data.n):
+                acc.add_(parts[k].float())
+            acc = acc.div_(data.n).view(g.shape)
+            del raw, parts
+        else:
+            # an empty slice (a rank without query heads): every rank of
+            # its data line holds the same, so none gathers it
+            acc = g.float()
         dim, places, width = shared[i]
         if width:
             # each rank puts its shared ranges into their places in one
@@ -5979,7 +6014,6 @@ def _tp_step(device, cfg, ctx, params, slices, rows: dict, work: Path
         if cuda:
             torch.cuda.synchronize()
         t_mean += time.perf_counter() - t1
-        del raw, parts
         w = from_numpy_tree(yard[i], device, cuts[i])
         w = w.view(g.dtype) if w.dtype != g.dtype else w
         check(bool(torch.isfinite(acc).all()), f"rank {mesh.position()}: "
@@ -6095,10 +6129,10 @@ def _moe_mesh_rank_body(rank: int, opts: dict) -> dict:
 
 def _moe_mesh_rank(rank: int, world: int, rdv: str, out_dir: str,
                    opts: dict) -> None:
-    """Spawned rank of phase 31, 32 or 33 (``opts["phase"]``): joins the
-    gloo group, runs :func:`_moe_mesh_rank_body`,
-    :func:`_ssm_mesh_rank_body` or :func:`_serve_mesh_rank_body`, writes
-    its report."""
+    """Spawned rank of phase 31, 32, 33, 34 or 35 (``opts["phase"]``):
+    joins the gloo group, runs :func:`_moe_mesh_rank_body`,
+    :func:`_ssm_mesh_rank_body`, :func:`_serve_mesh_rank_body` or
+    :func:`_launch_rank_body`, writes its report."""
     import datetime
     import torch
     import torch.distributed as dist
@@ -6109,26 +6143,29 @@ def _moe_mesh_rank(rank: int, world: int, rdv: str, out_dir: str,
         timeout=datetime.timedelta(seconds=MOE_MESH["timeout"]))
     try:
         body = {32: _ssm_mesh_rank_body, 33: _serve_mesh_rank_body,
-                34: _launch_rank_body}.get(opts.get("phase"),
-                                           _moe_mesh_rank_body)
+                34: _launch_rank_body, 35: _launch_rank_body}.get(
+                    opts.get("phase"), _moe_mesh_rank_body)
         out = body(rank, opts)
         Path(out_dir, f"rank{rank}.json").write_text(json.dumps(out))
     finally:
         dist.destroy_process_group()
 
 
-def _mesh_ranks(work: Path, opts: dict, phase: str) -> tuple[list, float]:
-    """Spawn phase 31's, 32's or 33's 4 ranks (:func:`_moe_mesh_rank`) on the
-    card, join them within ``MOE_MESH["timeout"]`` seconds (stopping any
-    left), and return their reports in rank order and the seconds from
-    the spawn to the join."""
+def _mesh_ranks(work: Path, opts: dict, phase: str,
+                world: int = MOE_MESH["ranks"]) -> tuple[list, float]:
+    """Spawn phase 31's, 32's, 33's or 34's 4 ranks, or phase 35's
+    ``world`` (:func:`_moe_mesh_rank`), on the card, join them within
+    ``MOE_MESH["timeout"]`` seconds (stopping any left), and return their
+    reports in rank order and the seconds from the spawn to the join."""
     import torch.multiprocessing as mp
     rdv = work / "rendezvous"
+    if rdv.exists():
+        rdv.unlink()
     os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
     t0 = time.perf_counter()
     procs = mp.start_processes(
-        _moe_mesh_rank, args=(MOE_MESH["ranks"], str(rdv), str(work), opts),
-        nprocs=MOE_MESH["ranks"], join=False, start_method="spawn")
+        _moe_mesh_rank, args=(world, str(rdv), str(work), opts),
+        nprocs=world, join=False, start_method="spawn")
     deadline = time.monotonic() + MOE_MESH["timeout"]
     try:
         while not procs.join(timeout=5):
@@ -6142,7 +6179,7 @@ def _mesh_ranks(work: Path, opts: dict, phase: str) -> tuple[list, float]:
                 p.join(30)
     wall = time.perf_counter() - t0
     return [json.loads((work / f"rank{r}.json").read_text())
-            for r in range(MOE_MESH["ranks"])], wall
+            for r in range(world)], wall
 
 
 def _moe_mesh_one_rank(device, name: str, work: Path) -> list:
@@ -6583,16 +6620,17 @@ def ssm_mesh_only(device, card: str) -> int:
 # ---------------------------------------------------------------------------
 
 # (a) and (b) on a (1, 4) mesh of the 4 ranks, bf16: (config, depth cut,
-# batch, prompt), 16 new tokens. command-r-plus-104b at 4 of its 64 layers
-# (phase 29's depth; a rank places 24 of the 96 query heads, 2 of the 8 kv
-# heads, 8,448 of d_ff 33,792 and 64,000 of the 256,000 vocab rows: 3.15 G
-# values); its 4,608-token prompt is past the 4,096-token window, so the
-# int8 arm's ring cache and banded prefill run on the mesh. zamba2-1.2b at
-# full depth (38 Mamba2 layers, 16 of the 64 SSD heads, 8 of the shared
-# block's 32 kv heads, 8,000 vocab rows a rank) on 1,024 tokens
+# batch, prompt), 16 new tokens, depths cut to the script's time budget.
+# command-r-plus-104b at 2 of its 64 layers (a rank places 24 of the 96
+# query heads, 2 of the 8 kv heads, 8,448 of d_ff 33,792 and 64,000 of
+# the 256,000 vocab rows: 2.36 G values); its 4,608-token prompt is past
+# the 4,096-token window, so the int8 arm's ring cache and banded prefill
+# run on the mesh. zamba2-1.2b at 12 of its 38 Mamba2 layers (two
+# segments, the shared block applied twice; 16 of the 64 SSD heads, 8 of
+# the shared block's 32 kv heads, 8,000 vocab rows a rank) on 1,024 tokens
 SERVE_MESH = dict(ranks=4, model=4, new=16, seed=33, timeout=900,
-                  archs=(("command-r-plus-104b", dict(n_layers=4), 2, 4608),
-                         ("zamba2-1.2b", {}, 2, 1024)))
+                  archs=(("command-r-plus-104b", dict(n_layers=2), 2, 4608),
+                         ("zamba2-1.2b", dict(n_layers=12), 2, 1024)))
 # the mesh's last prefill logits against the one-rank bf16 route's, within
 # this factor of one device's bf16 floor: the one-rank bf16 route's
 # distance (relative L2) from the same weights in f32, the yardstick phase
@@ -6791,9 +6829,6 @@ def _serve_mesh_full(device, opts: dict, ctx, k: int) -> dict:
     import dataclasses
     import numpy as np
     import torch
-    import torch.distributed as dist
-    from repro_torch.core.controller import FTController
-    from repro_torch.core.policy import CheckpointPolicy
     from repro_torch.distributed import collectives
     from repro_torch.kernels import _build
     from repro_torch.sharding.partition import batch_rows, model_slices
@@ -6848,32 +6883,9 @@ def _serve_mesh_full(device, opts: dict, ctx, k: int) -> dict:
         torch.cuda.empty_cache()
 
     # the serve-with-recovery flow on this rank's slices, one rank at a
-    # time: scar(1.0, 1), a 30% loss, the partial restore
-    _build.reset_launches()
-    ctl = FTController(params, CheckpointPolicy.scar(fraction=1.0,
-                                                     interval=1),
-                       device=device)
-    ctl.checkpoint_now(1, params)
-    for turn in range(ctx.mesh.size):
-        dist.barrier()
-        if turn != pos:
-            continue
-        lost = ctl.sample_failure(0.3)
-        recovered, info = ctl.on_failure(params, lost)
-        _count(launches)
-        check(int(lost.sum()) > 0, f"{name} rank {pos}: no block lost")
-        held = _hold_recovery(ctl, params, lost, recovered, info, name)
-        part = ctl.partition
-        del ctl
-        held.update(_hold_block_dist(params, part, name))
-        out.update(lost_blocks=info["lost_blocks"],
-                   applied_sq=info["applied_sq"], recovery_held=held)
-        params = recovered
-        del recovered
-        gc.collect()
-        if cuda:
-            torch.cuda.empty_cache()
-    dist.barrier()
+    # time (three trees of command-r's slices a rank)
+    params = _mesh_recovery(device, ctx, params, launches, name, out,
+                            one_at_a_time=True)
     out["recovery_peak_gb"] = (torch.cuda.max_memory_allocated() / 1e9
                                if cuda else 0.0)
     _build.reset_launches()
@@ -6901,6 +6913,50 @@ def _serve_mesh_full(device, opts: dict, ctx, k: int) -> dict:
     if cuda:
         torch.cuda.empty_cache()
     return out
+
+
+def _mesh_recovery(device, ctx, params, launches: dict, name: str,
+                   out: dict, one_at_a_time: bool = False):
+    """The serve-with-recovery flow on this rank's model slices ``params``:
+    scar(1.0, 1), a 30% loss, the partial restore, its launches added to
+    ``launches``, the save, restore and block scores held against their
+    plain versions (:func:`_hold_recovery`, :func:`_hold_block_dist`) and
+    recorded in ``out``; ``one_at_a_time``: the ranks of the mesh in turn
+    (each holds its params, checkpoint and restored tree at once). Returns
+    the restored tree."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.controller import FTController
+    from repro_torch.core.policy import CheckpointPolicy
+    from repro_torch.kernels import _build
+    cuda = device.type == "cuda"
+    pos = ctx.mesh.position()
+    _build.reset_launches()
+    ctl = FTController(params, CheckpointPolicy.scar(fraction=1.0,
+                                                     interval=1),
+                       device=device)
+    ctl.checkpoint_now(1, params)
+    for turn in range(ctx.mesh.size if one_at_a_time else 1):
+        dist.barrier()
+        if one_at_a_time and turn != pos:
+            continue
+        lost = ctl.sample_failure(0.3)
+        recovered, info = ctl.on_failure(params, lost)
+        _count(launches)
+        check(int(lost.sum()) > 0, f"{name} rank {pos}: no block lost")
+        held = _hold_recovery(ctl, params, lost, recovered, info, name)
+        part = ctl.partition
+        del ctl
+        held.update(_hold_block_dist(params, part, name))
+        out.update(lost_blocks=info["lost_blocks"],
+                   applied_sq=info["applied_sq"], recovery_held=held)
+        params = recovered
+        del recovered
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+    dist.barrier()
+    return params
 
 
 def _serve_mesh_reduced(device, ctx) -> dict:
@@ -7024,7 +7080,7 @@ def phase_serve_mesh(device, launches: dict, card: str, opts=None) -> dict:
     card, every family's prefill and decode split over the ``model`` axis.
 
     (a) command-r-plus-104b at full width (d 12,288, GQA 96/8 of 128, d_ff
-    33,792, the untied 256,000-row head; bf16) with 4 of its 64 layers on
+    33,792, the untied 256,000-row head; bf16) with 2 of its 64 layers on
     a (1, 4) mesh: each rank places only its slices from files this
     process wrote. Batch 2, prompt 4,608, 16 greedy tokens: the bf16 arm
     through ``Server.generate`` (a linear cache, causal prefill) and an
@@ -7042,8 +7098,9 @@ def phase_serve_mesh(device, launches: dict, card: str, opts=None) -> dict:
     scatter_save and masked_restore against theirs. The tokens' agreement
     with the one-rank route is printed, not held.
 
-    (b) zamba2-1.2b at full width and depth on the same mesh (batch 2,
-    prompt 1,024, 16 tokens): held as (a), ssd_intra's calls too.
+    (b) zamba2-1.2b at full width, 12 of its 38 layers, on the same mesh
+    (batch 2, prompt 1,024, 16 tokens): held as (a), ssd_intra's calls
+    too.
 
     (c) every family reduced, f32, on a (2, 2) mesh on the card against
     the same mesh on the CPU (:func:`_serve_mesh_reduced`).
@@ -7179,12 +7236,21 @@ LAUNCH_TEMP_RTOL = 0.10
 LAUNCH_FLOOR_FACTOR = 1.5
 
 
-def _launch_jobs() -> list:
-    """Phase 34(a)'s analyses, each ``(key, function, args)``: the four
-    pairs' distinct analyses on the dry (16, 16) mesh, and the one-card
-    roofline of phase 29's prefill and decode."""
+def _launch_jobs(which=("uneven", "launch")) -> list:
+    """The meta analyses run beside the kernels' build, each ``(key,
+    function, args)``: phase 35(a)'s ranks' steps (``"uneven"``, the
+    longest, first), and phase 34(a)'s (``"launch"``): the four pairs'
+    distinct analyses on the dry (16, 16) mesh, and the one-card roofline
+    of phase 29's prefill and decode."""
     from repro_torch.launch import perf
     jobs, seen = [], set()
+    if "uneven" in which:
+        o = UNEVEN["rank"]
+        for kind, _ in o["steps"]:
+            jobs += [(("uneven", pos, kind), _uneven_meta, (pos, kind))
+                     for pos in o["positions"]]
+    if "launch" not in which:
+        return jobs
     for p in perf.PAIRS.values():
         for over in ({}, p["overrides"]):
             key = ("pair", p["arch"], p["shape"],
@@ -7216,10 +7282,10 @@ def _one_chip_roofline(kind: str) -> dict:
                          spec, cache_len=o["cache_slots"])
 
 
-def _start_launch_jobs():
-    """Phase 34(a)'s analyses started in ``LAUNCH["jobs"]`` processes (one
-    torch thread each; meta tensors only, no CUDA): the pool, each job's
-    future and the start's clock."""
+def _start_launch_jobs(which=("uneven", "launch")):
+    """The analyses of :func:`_launch_jobs` (``which``) started in
+    ``LAUNCH["jobs"]`` processes (one torch thread each; meta tensors only,
+    no CUDA): the pool, each job's future and the start's clock."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
     from repro_torch.launch.dryrun import _one_thread
@@ -7227,7 +7293,7 @@ def _start_launch_jobs():
     pool = ProcessPoolExecutor(LAUNCH["jobs"], mp_context=multiprocessing
                                .get_context("spawn"))
     return pool, {key: pool.submit(_one_thread, fn, args)
-                  for key, fn, args in _launch_jobs()}, t0
+                  for key, fn, args in _launch_jobs(which)}, t0
 
 
 def _join_launch_jobs(started) -> dict:
@@ -7418,13 +7484,16 @@ def _launch_yardstick(device, opts: dict, work: Path) -> dict:
 
 
 def _launch_rank_body(rank: int, opts: dict) -> dict:
-    """One rank of phase 34(c) on the (1, 4) mesh: its model slices of
-    qwen2-1.5b placed from the yardstick's files (3 query heads and the kv
-    head they read); the bf16 and the int8 arm through ``Server.generate``
-    (the prefill's logits kept by :func:`_recording_prefill`), each arm's
-    sw_attention calls kept and held against the plain version after the
-    window's launch counts were read; then the TP train step
-    (:func:`_tp_step`)."""
+    """One rank of phase 34(c) on the (1, 4) mesh, or of phase 35(b) on the
+    (1, 8) mesh (``opts["model"]``): its model slices of qwen2-1.5b placed
+    from the yardstick's files (its query range and the kv head it reads:
+    3 and 1 a rank at 4; 2, 1, 2, 1, ... over 1 at 8); the bf16 and the
+    int8 arm through ``Server.generate`` (the prefill's logits kept by
+    :func:`_recording_prefill`), each arm's sw_attention calls kept and held
+    against the plain version after the window's launch counts were read;
+    with ``opts["recovery"]`` the serve-with-recovery flow on its slices
+    (:func:`_mesh_recovery`) between the arms, so that the int8 arm serves
+    the restored weights; then the TP train step (:func:`_tp_step`)."""
     import dataclasses
     import numpy as np
     import torch
@@ -7432,15 +7501,16 @@ def _launch_rank_body(rank: int, opts: dict) -> dict:
     from repro_torch.distributed import collectives
     from repro_torch.kernels import _build
     from repro_torch.launch.mesh import make_host_mesh
-    from repro_torch.models import get_model
-    from repro_torch.sharding.partition import make_dist_ctx, model_slices
+    from repro_torch.sharding.partition import (make_dist_ctx, model_slices,
+                                                query_head_range)
     from repro_torch.training.serve import Server
     from repro_torch.utils.tree import tree_flatten
     device = torch.device(opts["device"])
     cuda = device.type == "cuda"
     work = Path(opts["work"])
     sv, tr = LAUNCH["serve"], LAUNCH["train"]
-    ctx = make_dist_ctx(make_host_mesh(model=4))
+    model = opts.get("model", 4)
+    ctx = make_dist_ctx(make_host_mesh(model=model))
     pos = ctx.mesh.position()
     cfg = dataclasses.replace(get_config(sv["arch"], reduced=opts.get(
         "reduced", False)), dtype="bfloat16")
@@ -7451,13 +7521,25 @@ def _launch_rank_body(rank: int, opts: dict) -> dict:
     att = params["layers"]["attn"]
     out = {"rank": rank, "place_seconds": place_s,
            "heads": [int(att["wq"].shape[-2]), int(att["wk"].shape[-2])],
-           "tokens": {}, "per_call_worst_ratio": {}, "calls": {}}
+           "query_heads": list(query_head_range(cfg.n_heads, cfg.n_kv_heads,
+                                                model, pos)),
+           "tokens": {}, "per_call_worst_ratio": {}, "calls": {},
+           "groups": {}}
     launches: dict = {}
     if cuda:
         torch.cuda.reset_peak_memory_stats()
     collectives.reset_stats()
     for arm, c in (("bf16", cfg),
                    ("int8", dataclasses.replace(cfg, kv_quant=True))):
+        if arm == "int8" and opts.get("recovery"):
+            # the serve-with-recovery flow between the arms: the int8 arm
+            # then serves the restored weights
+            rec = {}
+            params = _mesh_recovery(device, ctx, params, launches,
+                                    sv["arch"], rec)
+            out["recovery"] = rec
+            out["recovery_peak_gb"] = (torch.cuda.max_memory_allocated()
+                                       / 1e9 if cuda else 0.0)
         srv = Server(c, params, device=device, ctx=ctx)
         rec: dict = {}
         srv.ops = _recording_prefill(srv.ops, rec)
@@ -7473,14 +7555,18 @@ def _launch_rank_body(rank: int, opts: dict) -> dict:
         if arm == "bf16":
             np.save(work / f"mesh_logits_{pos}.npy",
                     rec["logits"].float().cpu().numpy())
+        # the query group of each call: the rank's heads over its kv head
+        out["groups"][arm] = sorted({int(a[0].shape[1]) for n, a, _, _
+                                     in calls if n == "sw_attention"})
         ratios = hold_captured_calls(calls)["sw_attention"]
         del calls, rec, srv
         out["calls"][arm] = len(ratios)
         out["per_call_worst_ratio"][arm] = max(ratios, default=None)
         check(len(ratios) == (cfg.n_layers if cuda else 0)
               and all(x <= 1.0 for x in ratios),
-              f"34(c) rank {pos} {arm}: {len(ratios)} sw_attention calls, "
-              f"the worst {max(ratios, default=0.0):.3g} of the tolerance")
+              f"{opts['phase']} rank {pos} {arm}: {len(ratios)} sw_attention "
+              f"calls, the worst {max(ratios, default=0.0):.3g} of the "
+              "tolerance")
     out["serve_peak_gb"] = (torch.cuda.max_memory_allocated() / 1e9
                             if cuda else 0.0)
     out["collectives"] = collectives.seconds_and_bytes()
@@ -7505,12 +7591,91 @@ def _launch_rank_body(rank: int, opts: dict) -> dict:
     return out
 
 
+def _hold_lm_mesh(tag: str, ranks: list, yard: dict, lg: dict, cfg,
+                  model: int) -> dict:
+    """Phase 34(c)'s or 35(b)'s holds on the ranks' reports (``tag``) of
+    ``cfg`` on a ``(1, model)`` mesh:
+    each rank's query and kv heads its ranges (``partition.
+    query_head_range``, ``kv_head_range``); the prefill logits the same on
+    every rank and within ``LAUNCH_FLOOR_FACTOR`` times one device's bf16
+    floor of the one-rank bf16 route's (``lg``: the files the ranks and the
+    yardstick wrote); each arm's tokens (phase 35's int8 arm after the
+    recovery) the one-rank route's; the train loss within rtol
+    ``MOE_MESH_LOSS_RTOL`` of the yardstick's and each gradient slice as
+    phase 31(a) holds it. Returns the summary printed with the phase."""
+    import numpy as np
+    import torch
+    from repro_torch.sharding.partition import kv_head_range, query_head_range
+    sv = LAUNCH["serve"]
+    mesh0 = torch.from_numpy(lg["mesh"][0])
+    rel = _rel_l2(mesh0, torch.from_numpy(lg["one_bf16"]))
+    check(all(np.array_equal(m, lg["mesh"][0]) for m in lg["mesh"]),
+          f"{tag}: the ranks' prefill logits differ")
+    check(rel <= LAUNCH_FLOOR_FACTOR * yard["bf16_floor"],
+          f"{tag}: the mesh's last prefill logits are {rel:.3g} (relative "
+          f"L2) off the one-rank bf16 route's, one device's bf16 floor "
+          f"{yard['bf16_floor']:.3g}")
+    for r in ranks:
+        lo, hi = query_head_range(cfg.n_heads, cfg.n_kv_heads, model,
+                                  r["rank"])
+        klo, khi = kv_head_range(cfg.n_heads, cfg.n_kv_heads, model,
+                                 r["rank"])
+        check(r["heads"] == [hi - lo, khi - klo]
+              and r["query_heads"] == [lo, hi],
+              f"{tag} rank {r['rank']}: heads {r['heads']} (query range "
+              f"{r['query_heads']}), not [{lo}, {hi}) over {khi - klo} kv")
+        for arm, got in r["tokens"].items():
+            toks = yard["tokens"][arm]
+            check(got == toks
+                  and np.asarray(toks).shape == (sv["batch"], sv["new"]),
+                  f"{tag} rank {r['rank']} {arm}: tokens {got}, the "
+                  f"one-rank route's {toks}")
+        f, y = r["train"], yard["train"]
+        lrel = abs(f["loss"] - y["loss"]) / abs(y["loss"])
+        check(lrel <= MOE_MESH_LOSS_RTOL, f"{tag} rank {r['rank']}: train "
+              f"loss {f['loss']}, yardstick {y['loss']}")
+        for leaf, err in f["grad_rel_l2_by_leaf"].items():
+            floor = y["bf16_floor"][leaf]
+            check(err <= max(MOE_MESH_GRAD_L2, MOE_MESH_FLOOR_FACTOR * floor),
+                  f"{tag} rank {r['rank']}: gradient slice {leaf} off the "
+                  f"f32 yardstick by relative L2 {err}, one device's bf16 "
+                  f"gradient by {floor}")
+    keys = ["bf16_prefill_seconds", "int8_prefill_seconds",
+            "bf16_decode_seconds_per_step", "int8_decode_seconds_per_step",
+            "serve_peak_gb", "place_seconds", "per_call_worst_ratio",
+            "calls", "groups", "query_heads", "host_peak_gb"]
+    keys += [k for k in ("recovery", "recovery_peak_gb") if k in ranks[0]]
+    return {
+        "logits_rel_l2_vs_one_bf16": rel,
+        "bf16_floor": yard["bf16_floor"],
+        "over_floor": rel / max(yard["bf16_floor"], 1e-30),
+        "one_rank_prefill_seconds": yard["prefill_seconds"],
+        "yardstick_peak_gb": yard["peak_gb"],
+        **{k: [r[k] for r in ranks] for k in keys},
+        "collectives": [r["collectives"] for r in ranks],
+        "train": {"yardstick_loss": yard["train"]["loss"],
+                  **{k: [r["train"][k] for r in ranks] for k in (
+                      "loss", "step_seconds", "peak_gb", "grad_rel_l2",
+                      "grad_worst_leaf", "held_values")}}}
+
+
+def _mesh_logits(work: Path, n: int) -> dict:
+    """The one-rank bf16 and f32 prefill logits the yardstick wrote, and
+    the ``n`` ranks' (:func:`_hold_lm_mesh`)."""
+    import numpy as np
+    return {"one_bf16": np.load(work / "one_bf16.npy"),
+            "f32": np.load(work / "f32.npy"),
+            "mesh": [np.load(work / f"mesh_logits_{r}.npy")
+                     for r in range(n)]}
+
+
 def _gb(x) -> float:
     return float(x) / 1e9
 
 
 def phase_launch(device, launches: dict, card: str, analyses: dict,
-                 opts=None, measured: Optional[dict] = None) -> dict:
+                 opts=None, measured: Optional[dict] = None,
+                 keep: Optional[dict] = None) -> dict:
     """Phase 34: the launch analytics (``launch.dryrun``, ``roofline``,
     ``perf``) beside the card, and the shared kv heads on it.
 
@@ -7547,8 +7712,9 @@ def phase_launch(device, launches: dict, card: str, analyses: dict,
     data shards and each gradient slice as phase 31(a) holds it.
 
     ``launches["launch"]``: the launches of (b)'s timed runs and (c)'s
-    serve windows (rank 0's)."""
-    import numpy as np
+    serve windows (rank 0's). Given ``keep``, (c)'s yardstick (``yard``)
+    and its files (``work``) are left there for phase 35(b), which removes
+    them."""
     import torch
     t_phase = time.perf_counter()
     opts = {"device": device.type, "phase": 34, **(opts or {})}
@@ -7569,12 +7735,12 @@ def phase_launch(device, launches: dict, card: str, analyses: dict,
         torch.cuda.empty_cache()
         ranks, wall = _mesh_ranks(work, opts, "34")
         serve_seconds = time.perf_counter() - t0
-        lg = {"one_bf16": np.load(work / "one_bf16.npy"),
-              "f32": np.load(work / "f32.npy"),
-              "mesh": [np.load(work / f"mesh_logits_{r}.npy")
-                       for r in range(len(ranks))]}
+        lg = _mesh_logits(work, len(ranks))
+        if keep is not None:
+            keep.update(yard=yard, work=work)
     finally:
-        shutil.rmtree(work, ignore_errors=True)
+        if "work" not in (keep or {}):
+            shutil.rmtree(work, ignore_errors=True)
     out = {"card": card, "rank_seconds": rank_seconds,
            "serve_seconds": serve_seconds, "spawn_to_join_seconds": wall,
            "analyses_seconds": analyses["seconds"],
@@ -7635,54 +7801,15 @@ def phase_launch(device, launches: dict, card: str, analyses: dict,
     out["rank"] = rank_costs
 
     # (c) the shared kv heads on the card
-    sv = LAUNCH["serve"]
-    mesh0 = torch.from_numpy(lg["mesh"][0])
-    rel = _rel_l2(mesh0, torch.from_numpy(lg["one_bf16"]))
-    check(all(np.array_equal(m, lg["mesh"][0]) for m in lg["mesh"]),
-          "34(c): the ranks' prefill logits differ")
-    check(rel <= LAUNCH_FLOOR_FACTOR * yard["bf16_floor"],
-          f"34(c): the mesh's last prefill logits are {rel:.3g} (relative "
-          f"L2) off the one-rank bf16 route's, one device's bf16 floor "
-          f"{yard['bf16_floor']:.3g}")
-    for r in ranks:
-        check(r["heads"] == [3, 1], f"34(c) rank {r['rank']}: heads "
-              f"{r['heads']}, not 3 query heads over 1 kv head")
-        for arm, toks in yard["tokens"].items():
-            check(r["tokens"][arm] == toks
-                  and np.asarray(toks).shape == (sv["batch"], sv["new"]),
-                  f"34(c) rank {r['rank']} {arm}: tokens "
-                  f"{r['tokens'][arm]}, the one-rank route's {toks}")
-        f, y = r["train"], yard["train"]
-        lrel = abs(f["loss"] - y["loss"]) / abs(y["loss"])
-        check(lrel <= MOE_MESH_LOSS_RTOL, f"34(c) rank {r['rank']}: train "
-              f"loss {f['loss']}, yardstick {y['loss']}")
-        for leaf, err in f["grad_rel_l2_by_leaf"].items():
-            floor = y["bf16_floor"][leaf]
-            check(err <= max(MOE_MESH_GRAD_L2, MOE_MESH_FLOOR_FACTOR * floor),
-                  f"34(c) rank {r['rank']}: gradient slice {leaf} off the f32 "
-                  f"yardstick by relative L2 {err}, one device's bf16 "
-                  f"gradient by {floor}")
+    from repro_torch.configs import get_config
+    cfg = get_config(LAUNCH["serve"]["arch"],
+                     reduced=opts.get("reduced", False))
+    out["serve"] = _hold_lm_mesh("34(c)", ranks, yard, lg, cfg, 4)
     for kk, v in ranks[0]["launches"].items():
         counts[kk] = counts.get(kk, 0) + v
     check(counts.get("sw_attention", 0) > 0,
           "sw_attention was not launched on the phase 34 path")
     launches["launch"] = counts
-    out["serve"] = {
-        "logits_rel_l2_vs_one_bf16": rel,
-        "bf16_floor": yard["bf16_floor"],
-        "over_floor": rel / max(yard["bf16_floor"], 1e-30),
-        "one_rank_prefill_seconds": yard["prefill_seconds"],
-        "yardstick_peak_gb": yard["peak_gb"],
-        **{k: [r[k] for r in ranks] for k in (
-            "bf16_prefill_seconds", "int8_prefill_seconds",
-            "bf16_decode_seconds_per_step", "int8_decode_seconds_per_step",
-            "serve_peak_gb", "place_seconds", "per_call_worst_ratio",
-            "calls", "host_peak_gb")},
-        "collectives": ranks[0]["collectives"],
-        "train": {"yardstick_loss": yard["train"]["loss"],
-                  **{k: [r["train"][k] for r in ranks] for k in (
-                      "loss", "step_seconds", "peak_gb", "grad_rel_l2",
-                      "grad_worst_leaf", "held_values")}}}
     out["seconds"] = time.perf_counter() - t_phase
     log(f"phase 34: the launch analytics, {card}: {json.dumps(out)}")
     return out
@@ -7697,6 +7824,290 @@ def launch_only(device, card: str, analyses: dict) -> int:
     log(json.dumps({"launches": launches["launch"]}))
     log(card)
     log(json.dumps({"launch_only": True, "seconds": out["seconds"],
+                    "device": {"platform": "gpu",
+                               "kind": torch.cuda.get_device_name(0),
+                               "count": torch.cuda.device_count()}}))
+    return 0
+
+
+# ---------------------------------------------------------------------------
+# phase 35: query heads that do not split over the model axis
+# ---------------------------------------------------------------------------
+
+UNEVEN = dict(
+    seed=35,
+    # (a) ranks 0 and 1 of the dry (16, 16) mesh: llama4-maverick's first
+    # dense + MoE pair at full width, 3 and 2 of its 40 query heads over
+    # the kv head they share, the dry run's prefill_32k and decode_32k
+    rank=dict(arch="llama4-maverick-400b-a17b", layers=2, positions=(0, 1),
+              steps=(("prefill", "prefill_32k"), ("decode", "decode_32k")),
+              runs=2),
+    # rank 3 of qwen2-1.5b's (16, 16) mesh holds no query head: its
+    # prefill_32k at 2 layers launches no sw_attention
+    empty=dict(arch="qwen2-1.5b", layers=2, position=3,
+               shape="prefill_32k"),
+    # sw_attention at the query groups these meshes give a rank
+    # (llama4-maverick's 3 and 2 at 16, qwen2-1.5b's 2 and 1 at 8) on
+    # (BH, G, S, Dh) = (2, G, 4096, 128), W 4096, timed beside its plain
+    # version, its bound and SDPA
+    groups=(3, 2, 1), group_shape=(2, 4096, 128, 4096),
+    # (b) qwen2-1.5b at full width and depth served on a (1, 8) mesh of
+    # gloo ranks (phase 34(c)'s yardstick, weights, prompts and train step):
+    # 2, 1, 2, 1, ... query heads over the kv head of their half
+    ranks=8)
+# the kernels phase 35's path launches: sw_attention in the prefills, the
+# recovery flow's block scores, save and restore
+UNEVEN_KERNELS = ("sw_attention", "block_dist", "scatter_save",
+                  "masked_restore")
+
+
+def _uneven_cfg(o: dict):
+    """``o["arch"]`` at full width with ``o["layers"]`` layers, one
+    microbatch (phase 35(a)'s configs)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(o["arch"]), n_layers=o["layers"],
+                               microbatch=1)
+
+
+def _uneven_meta(pos: int, kind: str) -> dict:
+    """Phase 35(a)'s meta run of model position ``pos``'s ``kind`` step on
+    the dry (16, 16) mesh: the memory half of ``launch.dryrun.measure``
+    (the argument bytes, and the peak the step's byte counter reads,
+    ``temp_bytes``), which the card's run is held to. The FLOP counter is
+    left out: it took a quarter of the prefill's 70 s on meta."""
+    from repro_torch.data.synthetic import shape_params
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_dry_production_mesh
+    o = UNEVEN["rank"]
+    sp = shape_params(dict(o["steps"])[kind])
+    step = dryrun.build_rank_step(_uneven_cfg(o), kind, sp["batch"],
+                                  sp["seq"],
+                                  make_dry_production_mesh(position=pos),
+                                  "meta")
+    args = dryrun.storage_bytes(step.args)
+    with dryrun.StepCosts(step.args) as cm:
+        step.run()
+    return {"argument_bytes": args, "temp_bytes": cm.peak}
+
+
+def _uneven_rank_costs(device, launches: dict, done: dict) -> dict:
+    """Phase 35(a): sw_attention at each query group of
+    ``UNEVEN["groups"]`` against its plain version, timed
+    (:func:`_sw_attention_case`); then model positions 0 and 1 of the dry
+    (16, 16) mesh run llama4-maverick's first dense + MoE pair on the card
+    through the counting stand-in (values are not held: without the other
+    ranks they mean nothing), each of the dry run's prefill_32k and
+    decode_32k steps once with its sw_attention calls kept for the plain
+    holds, then ``runs`` times timed (their launches summed into
+    ``launches``), the argument bytes and the peak of
+    ``max_memory_allocated`` over the step's baseline held against the
+    meta run's (``done``, :func:`_uneven_meta`); then rank 3 of
+    qwen2-1.5b's (16, 16) mesh, which holds no query head, whose prefill
+    launches no sw_attention."""
+    import torch
+    from repro_torch.data.synthetic import shape_params
+    from repro_torch.kernels import _build
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_dry_production_mesh
+    from repro_torch.sharding.partition import query_head_range
+    o = UNEVEN["rank"]
+    cfg = _uneven_cfg(o)
+    out = {"g_cases": {}}
+    gen = torch.Generator(device=device).manual_seed(SEED + UNEVEN["seed"])
+    BH, S, Dh, W = UNEVEN["group_shape"]
+    for G in UNEVEN["groups"]:
+        r = _sw_attention_case(BH, G, S, Dh, W, gen, device)
+        _log_case(f"phase 35(a): sw_attention at G {G}", r)
+        out["g_cases"][G] = r
+    for pos in o["positions"]:
+        mesh = make_dry_production_mesh(position=pos)
+        lo, hi = query_head_range(cfg.n_heads, cfg.n_kv_heads, 16, pos)
+        r = {"query_heads": [lo, hi]}
+        for kind, shape in o["steps"]:
+            sp = shape_params(shape)
+            step = dryrun.build_rank_step(cfg, kind, sp["batch"], sp["seq"],
+                                          mesh, device)
+            args_bytes = dryrun.storage_bytes(step.args)
+            with captured_kernel_calls() as calls:
+                step.run()
+            torch.cuda.synchronize()
+            groups = [int(a[0].shape[1]) for n, a, _, _ in calls
+                      if n == "sw_attention"]
+            ratios = hold_captured_calls(calls)["sw_attention"]
+            del calls
+            gc.collect()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            secs = []
+            _build.reset_launches()
+            for _ in range(o["runs"]):
+                t0 = time.perf_counter()
+                res = step.run()
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+                del res
+            _count(launches)
+            peak = torch.cuda.max_memory_allocated() - base
+            del step
+            gc.collect()
+            torch.cuda.empty_cache()
+            meta = done[("uneven", pos, kind)]
+            want = cfg.n_layers if kind == "prefill" else 0
+            check(len(ratios) == want and all(x <= 1.0 for x in ratios)
+                  and set(groups) <= {hi - lo},
+                  f"35(a) rank {pos} {kind}: {len(ratios)} sw_attention "
+                  f"calls (not {want}) at G {groups} (not {hi - lo}), the "
+                  f"worst {max(ratios, default=0):.3g} of the tolerance")
+            check(args_bytes == int(meta["argument_bytes"]),
+                  f"35(a) rank {pos} {kind}: the card's argument bytes "
+                  f"{args_bytes}, the meta run's {meta['argument_bytes']}")
+            ratio = meta["temp_bytes"] / max(peak, 1)
+            check(abs(ratio - 1.0) <= LAUNCH_TEMP_RTOL,
+                  f"35(a) rank {pos} {kind}: the meta temp_bytes "
+                  f"{meta['temp_bytes']:.4g} against the card's peak over "
+                  f"its baseline {peak:.4g}")
+            r[kind] = {"seconds": statistics.median(secs),
+                       "argument_bytes": args_bytes,
+                       "meta_argument_bytes": int(meta["argument_bytes"]),
+                       "peak_over_baseline_bytes": peak,
+                       "meta_temp_bytes": int(meta["temp_bytes"]),
+                       "temp_over_card_peak": ratio, "groups": groups,
+                       "sw_attention_worst_ratio": max(ratios,
+                                                       default=None)}
+        out[pos] = r
+    # a rank with no query heads: no kv head, no cache columns, no launch
+    e = UNEVEN["empty"]
+    ce = _uneven_cfg(e)
+    sp = shape_params(e["shape"])
+    step = dryrun.build_rank_step(ce, "prefill", sp["batch"], sp["seq"],
+                                  make_dry_production_mesh(
+                                      position=e["position"]), device)
+    att = step.args["params"]["layers"]["attn"]
+    _build.reset_launches()
+    with captured_kernel_calls() as calls:
+        logits, cache = step.run()
+    torch.cuda.synchronize()
+    n_calls = len(calls)
+    kept = dict(_build.LAUNCHES)
+    check(att["wq"].shape[-2] == 0 and cache["k"].shape[3] == 0
+          and n_calls == 0 and kept.get("sw_attention", 0) == 0
+          and bool(torch.isfinite(logits).all()),
+          f"35(a) rank {e['position']} of {e['arch']}: {att['wq'].shape[-2]} "
+          f"query heads, cache {tuple(cache['k'].shape)}, {n_calls} "
+          f"sw_attention calls, launches {kept}")
+    out["empty_rank"] = {"position": e["position"],
+                         "wq": list(att["wq"].shape),
+                         "cache_k": list(cache["k"].shape),
+                         "sw_attention_calls": n_calls}
+    del step, att, logits, cache, calls
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_uneven_heads(device, launches: dict, card: str, analyses: dict,
+                       opts=None, kept: Optional[dict] = None) -> dict:
+    """Phase 35: query heads that do not split over the model axis. Each
+    model position computes whole query heads, ``[ceil(r Hq / tp),
+    ceil((r+1) Hq / tp))`` (``partition.query_head_range``), and holds the
+    kv heads its range reads, the positions whose ranges read one kv head
+    each a copy.
+
+    (a) :func:`_uneven_rank_costs`: sw_attention at G 3, 2 and 1 against
+    its plain version, timed beside its bound and SDPA; model positions 0
+    and 1 of the dry (16, 16) mesh for llama4-maverick-400b-a17b at full
+    width, its first dense + MoE pair (3 and 2 query heads over the kv
+    head they share), the prefill_32k and decode_32k steps on the card.
+    Held: the argument bytes equal to the meta run's (computed beside the
+    kernels' build, :func:`_uneven_meta`), the meta temp bytes within
+    ``LAUNCH_TEMP_RTOL`` of the card's peak over the step's baseline, every
+    sw_attention call at its rank's G against the plain version; and rank
+    3 of qwen2-1.5b's (16, 16) mesh, which holds no query head, launching
+    no sw_attention in its prefill.
+
+    (b) qwen2-1.5b at full width and depth on a (1, 8) mesh of 8 gloo
+    ranks on the one card (:func:`_launch_rank_body`; 2, 1, 2, 1, ...
+    query heads, ranks 0-3 sharing kv head 0 and 4-7 kv head 1): a bf16
+    and an int8 arm of 2 x 1,024 + 8 tokens, the serve-with-recovery flow
+    on every rank between the arms (the int8 arm serves the restored
+    weights), then one TP train step at 4 layers. Held as phase 34(c)
+    (:func:`_hold_lm_mesh`, phase 34(c)'s yardstick: ``kept`` from
+    :func:`phase_launch`, else made here), with the recovery's save,
+    restore and block scores against their plain versions, each rank's
+    query range and its sw_attention calls at its G (2 or 1).
+
+    ``launches["uneven_heads"]``: (a)'s timed runs and (b)'s windows on
+    every rank (the serve arms and the recovery)."""
+    import torch
+    from repro_torch.configs import get_config
+    t_phase = time.perf_counter()
+    opts = {"device": device.type, "phase": 35, "model": UNEVEN["ranks"],
+            "recovery": True, **(opts or {})}
+    counts: dict = {}
+    try:
+        t0 = time.perf_counter()
+        rank = _uneven_rank_costs(device, counts, analyses["done"])
+        rank_seconds = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        if kept and "work" in kept:
+            work, yard = kept["work"], kept["yard"]
+        else:
+            work = ROOT / "build" / f"uneven_{os.getpid()}"
+            work.mkdir(parents=True, exist_ok=True)
+            yard = _launch_yardstick(device, {**opts, "work": str(work)},
+                                     work)
+        gc.collect()
+        torch.cuda.empty_cache()
+        opts["work"] = str(work)
+        ranks, wall = _mesh_ranks(work, opts, "35", world=UNEVEN["ranks"])
+        serve_seconds = time.perf_counter() - t0
+        lg = _mesh_logits(work, len(ranks))
+    finally:
+        if kept and "work" in kept:
+            shutil.rmtree(kept["work"], ignore_errors=True)
+        elif "work" in opts:
+            shutil.rmtree(opts["work"], ignore_errors=True)
+    cfg = get_config(LAUNCH["serve"]["arch"],
+                     reduced=opts.get("reduced", False))
+    out = {"card": card, "rank": rank, "rank_seconds": rank_seconds,
+           "serve_seconds": serve_seconds, "spawn_to_join_seconds": wall,
+           "serve": _hold_lm_mesh("35(b)", ranks, yard, lg, cfg,
+                                  UNEVEN["ranks"])}
+    cuda = device.type == "cuda"
+    for r in ranks:
+        # the rank's own query group: its heads over the one kv head
+        want = [r["heads"][0]] if cuda else []
+        check(all(g == want for g in r["groups"].values()),
+              f"35(b) rank {r['rank']}: sw_attention at G {r['groups']}, "
+              f"not {want}")
+        for kk, v in r["launches"].items():
+            counts[kk] = counts.get(kk, 0) + v
+    groups = sorted({g for r in ranks for gs in r["groups"].values()
+                     for g in gs} | {g for p in UNEVEN["rank"]["positions"]
+                                     for g in rank[p]["prefill"]["groups"]})
+    out["sw_attention_groups"] = groups
+    check(groups == ([1, 2, 3] if cuda else []),
+          f"phase 35's path ran sw_attention at G {groups}, not 1, 2 and 3")
+    for name in UNEVEN_KERNELS:
+        check(counts.get(name, 0) > 0 or not cuda,
+              f"{name} was not launched on the phase 35 path")
+    launches["uneven_heads"] = counts
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 35: query heads that do not split over the model axis, "
+        f"{card}: {json.dumps(out)}")
+    return out
+
+
+def uneven_only(device, card: str, analyses: dict) -> int:
+    """``--uneven-heads``: phase 35 alone. Its last line says that it is
+    this partial run, never the full run's ``{"ok": true, ...}``."""
+    import torch
+    launches = {}
+    out = phase_uneven_heads(device, launches, card, analyses)
+    log(json.dumps({"launches": launches["uneven_heads"]}))
+    log(card)
+    log(json.dumps({"uneven_heads_only": True, "seconds": out["seconds"],
                     "device": {"platform": "gpu",
                                "kind": torch.cuda.get_device_name(0),
                                "count": torch.cuda.device_count()}}))
@@ -7730,8 +8141,12 @@ def main(argv: list) -> int:
     # phase 34(a)'s analyses (meta tensors, the host alone) run beside the
     # kernels' build, where no window is timed, and are joined before the
     # first timed phase: beside a timed window they would share its host
-    partial = [a for a in argv if a.startswith("--") and a != "--launch"]
-    started = None if partial else _start_launch_jobs()
+    partial = [a for a in argv if a.startswith("--")
+               and a not in ("--launch", "--uneven-heads")]
+    which = tuple(k for k, flag in (("launch", "--launch"),
+                                    ("uneven", "--uneven-heads"))
+                  if flag in argv) or ("uneven", "launch")
+    started = None if partial else _start_launch_jobs(which)
     t0 = time.perf_counter()
     _build.library()
     built = _build.build_seconds
@@ -7740,8 +8155,9 @@ def main(argv: list) -> int:
     analyses = None
     if started is not None:
         analyses = _join_launch_jobs(started)
-        log(f"phase 34(a): the analyses took {analyses['seconds']:.1f} s "
-            f"beside the build, {analyses['wait_seconds']:.1f} s after it")
+        log(f"phases 34(a) and 35(a): the analyses took "
+            f"{analyses['seconds']:.1f} s beside the build, "
+            f"{analyses['wait_seconds']:.1f} s after it")
 
     if "--train" in argv:
         return train_only(device, card)
@@ -7769,6 +8185,8 @@ def main(argv: list) -> int:
         return serve_mesh_only(device, card)
     if "--launch" in argv:
         return launch_only(device, card, analyses)
+    if "--uneven-heads" in argv:
+        return uneven_only(device, card, analyses)
     gen = torch.Generator(device=device).manual_seed(SEED)
     shapes = qwen2_1_5b_shapes()
     a_tree = _map_shapes(shapes, lambda s: torch.randn(
@@ -7900,10 +8318,15 @@ def main(argv: list) -> int:
     serve_mesh = phase_serve_mesh(device, launches, card)
     lap("phase 33")
     pv = perf_variants
+    kept: dict = {}
     launch = phase_launch(device, launches, card, analyses, measured={
         "prefill": pv["perf_variants"]["prefill_off"]["seconds"],
-        "decode": pv["perf_decode"]["bf16"]["seconds_per_step"]})
+        "decode": pv["perf_decode"]["bf16"]["seconds_per_step"]},
+        keep=kept)
     lap("phase 34")
+    uneven = phase_uneven_heads(device, launches, card, analyses,
+                                kept=kept)
+    lap("phase 35")
     log(json.dumps({"launches": launches}))
     old = ("block_dist", "scatter_save", "masked_restore")
     new = ("arena_maintain", "arena_scatter", "parity_xor")
@@ -7928,7 +8351,8 @@ def main(argv: list) -> int:
                         ("internvl2_train", TRAIN_KERNELS),
                         ("moe_train", TRAIN_KERNELS),
                         ("perf_variants", ("sw_attention",)),
-                        ("launch", ("sw_attention",))):
+                        ("launch", ("sw_attention",)),
+                        ("uneven_heads", UNEVEN_KERNELS)):
         for name in names:
             check(launches[path][name] > 0,
                   f"{name} was not launched on the {path} path")
@@ -7999,7 +8423,9 @@ def main(argv: list) -> int:
                                              launches["ssm_mesh"]],
                        "serve_mesh_launches": [r.get(name, 0) for r in
                                                launches["serve_mesh"]],
-                       "launch_launches": launches["launch"].get(name, 0)})
+                       "launch_launches": launches["launch"].get(name, 0),
+                       "uneven_heads_launches":
+                           launches["uneven_heads"].get(name, 0)})
     log(json.dumps({"controller": ctl, "fabric": fabric,
                     "rs_fabric": rs_fabric, "leaf_fabric": leaf_fabric,
                     "multi_erasure": multi, "mamba2_serve": mamba2,
@@ -8009,6 +8435,7 @@ def main(argv: list) -> int:
                     "mesh": {k: v for k, v in mesh.items() if k != "ranks"},
                     "moe_mesh": moe_mesh, "ssm_mesh": ssm_mesh,
                     "serve_mesh": serve_mesh, "launch": launch,
+                    "uneven_heads": uneven,
                     "serve_kernels": {
                         name: kernels[name]
                         for name in ("ssd_intra", "sw_attention")},

@@ -16,9 +16,13 @@ from repro_torch.kernels.sw_attention.ref import sw_attention_ref
 
 def sw_attention(q, k, v, *, window: int) -> torch.Tensor:
     """q: (B, S, Hq, Dh); k, v: (B, S, Hk, Dh) -> (B, S, Hq, Dh) in q's
-    dtype."""
+    dtype. The query group ``G = Hq / Hk`` is the tensors' own (on a model
+    axis, the rank's); where ``Hq`` is 0 (a rank that holds no query
+    heads) the output is empty and nothing runs."""
     B, S, Hq, Dh = q.shape
     Hk = k.shape[2]
+    if not Hq:
+        return q.clone()
     G = Hq // Hk
     qg = q.transpose(1, 2).reshape(B * Hk, G, S, Dh)
     kg = k.transpose(1, 2).reshape(B * Hk, S, Dh)

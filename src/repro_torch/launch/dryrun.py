@@ -69,8 +69,18 @@ packed gradient dwarf the card's 80 GB.
 A failure is an ``ok: False`` record with its error, as in the
 reference; nothing falls back. Combinations the port does not run are
 ``skipped``: the reference's rules (:func:`applicable`) and the port's own
-(:func:`port_applicable`: query heads that do not split over the model
-axis).
+(:func:`port_applicable`: heads whose whole-head ranges would cross kv
+groups unevenly, which no config of the repo reaches at ``(16, 16)``).
+
+**Uneven heads.** Where the query heads do not divide the ``model`` axis
+(llama4-maverick's 40 and qwen2-1.5b's 12 at 16), the ranks hold
+whole-head ranges one head apart (``partition.query_head_range``), the
+largest at position 0, the rank the dry run costs. So its record bounds
+every rank's, and its counts times the chips overstate the mesh's
+attention by ``query_heads["rank0_over_mean"]`` (the record's
+``query_heads``: rank 0's heads against the mean, ``Hq / tp``; 1.2 for
+llama4-maverick, 1.33 for qwen2-1.5b at 16). The roofline carries it
+beside its terms.
 
 The multi-pod mesh ``(2, 16, 16)`` runs: its ``pod`` and ``data`` axes
 are one data line of 32 ranks (the reference's pods are data parallelism
@@ -115,6 +125,7 @@ from repro_torch.launch.mesh import make_dry_production_mesh
 from repro_torch.models import get_model
 from repro_torch.sharding.partition import (batch_rows, check_tensor_parallel,
                                             make_dist_ctx, model_slices,
+                                            query_head_range,
                                             take_model_slices)
 from repro_torch.utils.tree import tree_map
 
@@ -135,16 +146,18 @@ def applicable(cfg, shape: str) -> tuple[bool, str]:
 
 
 def port_applicable(cfg, mesh) -> tuple[bool, str]:
-    """The port's own skips on ``mesh``: a config whose query heads do not
-    split over its ``model`` axis (the reference cuts ``head_dim`` there;
-    the port splits whole heads, sharing a kv head where the query heads
-    split)."""
+    """The port's own skips on ``mesh``: a config that does not split over
+    its ``model`` axis (``partition.check_tensor_parallel``). The port
+    splits whole query heads, as evenly as the count allows, each rank
+    holding the kv heads its range reads; it skips a split whose ranges
+    cross kv groups unevenly (the reference cuts ``head_dim`` where the
+    heads do not divide). None of the repo's configs is skipped at
+    ``(16, 16)``."""
     tp = mesh.shape.get("model", 1)
     try:
         check_tensor_parallel(cfg, tp)
     except ValueError as e:
-        return False, (f"port: not tensor-parallel at model={tp} ({e}); "
-                       "the head_dim cut is not ported")
+        return False, f"port: not tensor-parallel at model={tp} ({e})"
     return True, ""
 
 
@@ -650,6 +663,8 @@ def dry_record(arch: str, shape: str, mesh, overrides=None) -> dict:
                     "generated_code_bytes": None},
             depth="extrapolated from the depth probes",
             probes=probes)
+        if cfg.n_heads:
+            rec["query_heads"] = query_heads(cfg, mesh)
         if kind == "train" and cfg.microbatch > 1:
             one, _, p1 = _full_record(arch, shape, mesh,
                                       {**overrides, "microbatch": 1})
@@ -660,6 +675,21 @@ def dry_record(arch: str, shape: str, mesh, overrides=None) -> dict:
         rec.update(ok=False, error=f"{type(e).__name__}: {e}",
                    traceback=traceback.format_exc()[-2000:])
     return rec
+
+
+def query_heads(cfg, mesh) -> dict:
+    """The query heads of ``mesh``'s live rank (``live``) and of model
+    position 0 (``rank0``) against the mean a rank holds, ``Hq / tp``:
+    ``rank0_over_mean`` is the factor by which rank 0's attention counts,
+    times the chips, overstate the mesh's (1 where the heads split
+    evenly)."""
+    tp = mesh.shape.get("model", 1)
+    pos = mesh.axis_position("model") if tp > 1 else 0
+    lo, hi = query_head_range(cfg.n_heads, cfg.n_kv_heads, tp, pos)
+    first = query_head_range(cfg.n_heads, cfg.n_kv_heads, tp, 0)[1]
+    mean = cfg.n_heads / tp
+    return {"live": hi - lo, "rank0": first, "mean": mean,
+            "rank0_over_mean": first / mean}
 
 
 def record_path(outdir: str, arch: str, shape: str, mesh: str) -> str:

@@ -25,8 +25,12 @@ from depth probes (the reference roofline's rules), with ``microbatch=1``
 layer's ops run, so the probes are exact and only cut the run's Python
 time. The totals handed to
 :func:`roofline_terms` are the rank's times the chips (every rank of the
-mesh runs the same shapes); the reference hands it per-device counts, so
-its terms are a chip count too small.
+mesh runs the same shapes, but for the query heads where they do not
+split evenly: rank 0 holds the largest range, so there the attention's
+part of its counts times the chips is ``attention_rank0_over_mean`` times
+the mesh's, 1.2 for llama4-maverick and 1.33 for qwen2-1.5b at 16, a
+bias the record carries and the terms keep); the reference hands it
+per-device counts, so its terms are a chip count too small.
 
 **Attention.** The reference adds :func:`attention_cost` to its counts: its
 flash tiles sit in rolled scans that ``cost_analysis`` cannot see. On meta
@@ -284,6 +288,10 @@ def analyze(arch: str, shape: str, mesh, dryrun_dir: str, overrides=None,
         "attention_bytes_global": attn["bytes"],
         "chip": dataclasses.asdict(spec),
         "probes": corr["probes"],
+        # rank 0 holds the most query heads where they do not split evenly:
+        # its attention counts times the chips overstate the mesh's so much
+        "attention_rank0_over_mean": raw.get("query_heads", {}).get(
+            "rank0_over_mean", 1.0),
     }
 
 
@@ -337,14 +345,15 @@ def _write_md(records: list, path: str) -> None:
     (GB, against the card's 80) after its columns."""
     lines = [
         "| arch | shape | compute s | memory s | collective s | dominant |"
-        " MODEL_FLOPS | model/HLO | next move | args GB/rank | temp GB/rank |",
-        "|---|---|---|---|---|---|---|---|---|---|---|",
+        " MODEL_FLOPS | model/HLO | next move | args GB/rank | temp GB/rank |"
+        " attention rank 0 / mean |",
+        "|---|---|---|---|---|---|---|---|---|---|---|---|",
     ]
     for r in records:
         if r.get("skipped"):
             lines.append(f"| {r['arch']} | {r['shape']} | — | — | — "
                          f"| skip ({r['reason']}) "
-                         "| — | — | — | — | — |")
+                         "| — | — | — | — | — | — |")
             continue
         lines.append(
             f"| {r['arch']} | {r['shape']} | {r['compute_s']:.2e} | "
@@ -352,7 +361,8 @@ def _write_md(records: list, path: str) -> None:
             f"**{r['dominant']}** | {r['model_flops_global']:.2e} | "
             f"{r['model_over_hlo_ratio']:.2f} | {r['bottleneck_fix']} | "
             f"{_gb(r.get('argument_bytes_per_device'))} | "
-            f"{_gb(r.get('temp_bytes_per_device'))} |")
+            f"{_gb(r.get('temp_bytes_per_device'))} | "
+            f"{r.get('attention_rank0_over_mean', 1.0):.3g} |")
     with open(path, "w") as f:
         f.write("\n".join(lines) + "\n")
 

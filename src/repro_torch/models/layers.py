@@ -478,10 +478,13 @@ def flash_attention(q, k, v, qpos, kpos, *, causal=True, window=0,
     restricts to a sliding window (the forward visits only the kv chunks
     that the band reaches). With gradients needed it runs through
     ``_Flash``; otherwise the forward alone. Returns (B, Sq, Hq, Dh) in
-    q's dtype.
+    q's dtype: empty, and nothing computed, where ``Hq`` is 0 (a rank
+    of a model axis that holds no query heads).
     """
     B, Sq, Hq, Dh = q.shape
     _, Skv, Hk, _ = k.shape
+    if not Hq:
+        return q.clone()
     G = Hq // Hk
     q_chunk = min(q_chunk, Sq)
     kv_chunk = min(kv_chunk, Skv)
@@ -506,9 +509,12 @@ def flash_attention_triangle(q, k, v, qpos, kpos, *, q_chunk=1024,
     window=0)``'s contract for a prompt over its own positions, the
     plain causal prefill route. The query heads are grouped as ``(Hk,
     G)`` (no repeat of k and v over G). q: (B, Sq, Hq, Dh); k, v: (B, Sq,
-    Hk, Dh). Returns (B, Sq, Hq, Dh) in q's dtype."""
+    Hk, Dh). Returns (B, Sq, Hq, Dh) in q's dtype (empty where ``Hq`` is
+    0)."""
     B, Sq, Hq, Dh = q.shape
     Hk = k.shape[2]
+    if not Hq:
+        return q.clone()
     chunk = min(q_chunk, kv_chunk, Sq)
     o, _ = _flash_fwd(q.reshape(B, Sq, Hk, Hq // Hk, Dh), k, v, qpos, kpos,
                       True, 0, chunk, chunk, triangle=True)
@@ -545,9 +551,11 @@ def flash_attention_kvq(q, k8, v8, k_scale, v_scale, qpos, kpos, *,
     q: (B, Sq, Hq, Dh) (Sq small: decode); k8/v8: (B, Skv, Hk, Dh) int8;
     k_scale/v_scale: (B, Skv, Hk) f32; qpos: (Sq,); kpos: (Skv,) (-1 = an
     empty slot). Causal, banded when ``window > 0``. Returns (B, Sq, Hq,
-    Dh) in q's dtype."""
+    Dh) in q's dtype (empty where ``Hq`` is 0)."""
     B, Sq, Hq, Dh = q.shape
     Skv, Hk = k8.shape[1], k8.shape[2]
+    if not Hq:
+        return q.clone()
     qg = q.reshape(B, Sq, Hk, Hq // Hk, Dh)
     scale = 1.0 / math.sqrt(Dh)
     kv_chunk = min(kv_chunk, Skv)

@@ -256,15 +256,17 @@ def cache_spec(cfg: ModelConfig, seq_len: int, *, use_window: bool
 
 def _kv_heads(cfg: ModelConfig, ctx=None) -> int:
     """The kv heads a rank holds: all of them, or on a model axis those
-    its query heads read (``partition.kv_head_range``: ``n_kv_heads /
-    tp``, or one that ranks share; raises ``ValueError`` where the config
-    does not split over ``ctx``'s model axis)."""
+    its own query heads read (``partition.kv_head_range``: ``n_kv_heads /
+    tp``, one that ranks share, or none on a rank without query heads;
+    raises ``ValueError`` where the config does not split over ``ctx``'s
+    model axis)."""
     if ctx is None:
         return cfg.n_kv_heads
     check_tensor_parallel(cfg, ctx.tp_size)
     if ctx.tp_size == 1:
         return cfg.n_kv_heads
-    lo, hi = kv_head_range(cfg.n_heads, cfg.n_kv_heads, ctx.tp_size, 0)
+    lo, hi = kv_head_range(cfg.n_heads, cfg.n_kv_heads, ctx.tp_size,
+                           ctx.mesh.axis_position(ctx.tp))
     return hi - lo
 
 

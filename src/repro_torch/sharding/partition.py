@@ -29,16 +29,22 @@ cache or SSM-state leaf its :class:`StateSlice` as the reference's
 :func:`batch_rows`, then the kv heads, the SSD heads or the conv
 channels).
 
-**Kv heads shared by ranks.** Where the kv heads do not split over the
-model axis but the query heads do, and each rank's query heads read one
-kv head (``G % (Hq / tp) == 0``: command-r-plus-104b's 96/8 heads at
-``tp`` 16, qwen2-1.5b's 12/2 at 4), a rank holds whole kv heads, those its
+**Whole query heads, as even as the count allows.** Model position ``r``
+of ``tp`` computes the query heads ``[ceil(r Hq / tp), ceil((r+1) Hq /
+tp))`` (:func:`query_head_range`): the even cut where ``Hq % tp == 0``,
+else ranges one head apart, the largest at position 0 (llama4-maverick's
+40 heads at ``tp`` 16: 3, 2, 3, 2, ...; qwen2-1.5b's 12 at 16: 1, 1, 1,
+0, ...: a position may hold none). A rank holds whole kv heads, those its
 query heads read (:func:`kv_head_range`), and the ranks whose query heads
 read one kv head each hold a copy of it: ``wk``, ``wv``, ``bk``, ``bv``
 and the cache's ``k``, ``v``, ``k_scale``, ``v_scale`` (a cut leaf whose
-slices overlap, its gradient each rank's part). The reference cuts
-``head_dim`` there instead. :func:`check_tensor_parallel` still raises
-where the query heads do not split.
+slices overlap, its gradient each rank's part). ``wq``, ``bq`` and
+``wo`` are cut by the query range (``wo`` held 2-D by its rows ``[lo
+Dh, hi Dh)``). The split is taken where every rank's range lies inside
+one kv group or covers whole kv groups (:func:`kv_split`), so each rank's
+query group is uniform; :func:`check_tensor_parallel` raises elsewhere.
+The reference cuts ``head_dim`` where the heads do not split; the
+function computed is the same.
 
 - 2-D weights (d_in, d_out): TP on the "wide" axis, FSDP (data) on the
   other; embeddings (V, D): vocab on TP, D on data; expert weights (E,
@@ -309,32 +315,29 @@ def blocks_on_failed_devices(partition, params_shape: PyTree,
 # The model axis's slices of the tensor-parallel forward
 # ---------------------------------------------------------------------------
 
-# the rank of each rule's leaf in the reference's stacked layout
-_STACKED_NDIM = {"embed": 2, "lm_head": 2, "wq": 4, "wk": 4, "wv": 4,
-                 "wo": 4, "w_gate": 3, "w_up": 3, "w_down": 3,
-                 "w_gate_experts": 4, "w_up_experts": 4, "w_down_experts": 4}
+# the rank of each rule's leaf in the reference's stacked layout (an
+# attention's leaves are cut by whole heads, :func:`_attention_slice`)
+_STACKED_NDIM = {"embed": 2, "lm_head": 2, "w_gate": 3, "w_up": 3,
+                 "w_down": 3, "w_gate_experts": 4, "w_up_experts": 4,
+                 "w_down_experts": 4}
 # held 2-D in the per-layer layout (models.layers.split_layers): their
-# heads or experts lead dim 0
-_HELD_2D = ("wo", "w_gate_experts", "w_up_experts", "w_down_experts")
+# experts lead dim 0
+_HELD_2D = ("w_gate_experts", "w_up_experts", "w_down_experts")
 # the specs cut them over ``model`` for storage; the forward computes them
 # whole on every rank (the reference's MoE takes its router replicated,
 # ``P()``, and the VLM's projector is a replicated prefix)
 _COMPUTE_REPLICATED = ("router", "proj")
-# replicated in the specs; the forward adds each rank's heads' rows
-_HEAD_BIASES = ("bq", "bk", "bv")
 
 
 def _model_dim(name: str, shape: tuple[int, ...],
                ctx: DistContext) -> Optional[int]:
-    """The dim of a leaf that the ``model`` axis cuts in the forward, or
-    None (computed whole): the dim of its spec's ``model`` entry
-    (:func:`_spec_for_leaf`, on the leaf's stacked shape), mapped onto the
-    leaf."""
+    """The dim of a leaf other than an attention's that the ``model`` axis
+    cuts in the forward, or None (computed whole): the dim of its spec's
+    ``model`` entry (:func:`_spec_for_leaf`, on the leaf's stacked shape),
+    mapped onto the leaf."""
     key = _key(name)
     if key in _COMPUTE_REPLICATED:
         return None
-    if key in _HEAD_BIASES:
-        return len(shape) - 2
     if key in _HELD_2D and len(shape) == 2:
         return 0
     want = _STACKED_NDIM.get(key)
@@ -383,32 +386,74 @@ def _parent(name: str) -> str:
 # the attention's kv-head leaves, cut by the kv heads their rank's query
 # heads read (:func:`kv_head_range`)
 _KV = ("wk", "wv", "bk", "bv")
+# the attention's query-head leaves, cut by the rank's query heads
+# (:func:`query_head_range`): never by ``head_dim``, which the specs fall
+# back to where the heads do not split
+_Q = ("wq", "bq", "wo")
+
+
+def query_head_range(n_heads: int, n_kv_heads: int, tp: int, pos: int
+                     ) -> tuple[int, int]:
+    """The query heads ``[lo, hi)`` that model position ``pos`` of ``tp``
+    computes: ``[ceil(pos Hq / tp), ceil((pos+1) Hq / tp))``, the even cut
+    where ``Hq % tp == 0``, else ranges as even as the count allows (the
+    largest at position 0; empty where ``Hq < tp``). Raises ``ValueError``
+    where :func:`kv_split` is False."""
+    if not kv_split(n_heads, n_kv_heads, tp):
+        raise ValueError(_split_error(n_heads, n_kv_heads, tp))
+    return _q_range(n_heads, tp, pos)
+
+
+def _q_range(n_heads: int, tp: int, pos: int) -> tuple[int, int]:
+    return -(-pos * n_heads // tp), -(-(pos + 1) * n_heads // tp)
+
+
+def _crossing(n_heads: int, n_kv_heads: int, tp: int) -> list:
+    """The positions whose query range neither lies inside one kv group nor
+    covers whole kv groups, with their ranges."""
+    group = n_heads // n_kv_heads
+    bad = []
+    for pos in range(tp):
+        lo, hi = _q_range(n_heads, tp, pos)
+        inside = hi == lo or lo // group == (hi - 1) // group
+        whole = lo % group == 0 and hi % group == 0
+        if not (inside or whole):
+            bad.append((pos, lo, hi))
+    return bad
+
+
+def _split_error(n_heads: int, n_kv_heads: int, tp: int) -> str:
+    pos, lo, hi = _crossing(n_heads, n_kv_heads, tp)[0]
+    return (f"{n_heads} query heads over {n_kv_heads} kv heads do not split "
+            f"over model={tp}: position {pos}'s query heads [{lo}, {hi}) "
+            f"cross a kv group of {n_heads // n_kv_heads} unevenly")
 
 
 def kv_split(n_heads: int, n_kv_heads: int, tp: int) -> bool:
     """Whether ``tp`` model positions can split ``n_heads`` query heads over
-    ``n_kv_heads`` kv heads: the kv heads split evenly, or the query heads
-    do and each position's read one kv head (shared with the positions
-    whose query heads read it)."""
-    if n_kv_heads % tp == 0 and n_heads % tp == 0:
+    ``n_kv_heads`` kv heads (:func:`query_head_range`): every position's
+    query range lies inside one kv group (the positions whose ranges read
+    a kv head share it) or covers whole kv groups, so each position's
+    query group is uniform. A 40/8 split at ``tp`` 3 is not: position 0's
+    heads ``[0, 14)`` read kv groups 0-2 unevenly."""
+    if not n_heads:
         return True
-    return n_heads % tp == 0 and (n_heads // n_kv_heads) \
-        % (n_heads // tp) == 0
+    return not _crossing(n_heads, n_kv_heads, tp)
 
 
 def kv_head_range(n_heads: int, n_kv_heads: int, tp: int, pos: int
                   ) -> tuple[int, int]:
-    """The kv heads ``[lo, hi)`` that model position ``pos``'s query heads
-    ``[pos Hq/tp, (pos+1) Hq/tp)`` read (query head ``h`` reads kv head
-    ``h // G``): ``n_kv_heads / tp`` of them where they split, else the
-    one kv head, which ``G / (Hq/tp)`` positions share. Raises
-    ``ValueError`` where :func:`kv_split` is False."""
-    if not kv_split(n_heads, n_kv_heads, tp):
-        raise ValueError(f"{n_heads} query heads over {n_kv_heads} kv heads "
-                         f"do not split over model={tp}")
-    per = n_heads // tp
+    """The kv heads ``[lo // G, (hi - 1) // G + 1)`` that model position
+    ``pos``'s query heads ``[lo, hi)`` (:func:`query_head_range`) read
+    (query head ``h`` reads kv head ``h // G``): ``n_kv_heads / tp`` of
+    them where they split, else the one kv head that the positions whose
+    ranges read it share; empty for a position with no query heads.
+    Raises ``ValueError`` where :func:`kv_split` is False."""
+    lo, hi = query_head_range(n_heads, n_kv_heads, tp, pos)
     group = n_heads // n_kv_heads
-    return pos * per // group, ((pos + 1) * per - 1) // group + 1
+    if hi == lo:
+        return lo // group, lo // group
+    return lo // group, (hi - 1) // group + 1
 
 
 def _mixer_slice(name: str, shape: tuple[int, ...], dims: dict, tp: int,
@@ -439,6 +484,26 @@ def _mixer_slice(name: str, shape: tuple[int, ...], dims: dict, tp: int,
     return ModelSlice(last, pos * h, (pos + 1) * h)
 
 
+def _attention_slice(name: str, shape: tuple[int, ...], heads: tuple,
+                     tp: int, pos: int) -> ModelSlice:
+    """An attention leaf's cut at model position ``pos`` of ``tp``:
+    ``wq``, ``bq`` and ``wo`` by the position's query heads, ``wk``,
+    ``wv``, ``bk`` and ``bv`` by the kv heads they read. ``heads`` is the
+    attention's ``(Hq, Hk, Dh)`` (read off its ``wq`` and ``wk``); ``wo``
+    is ``(..., Hq, Dh, D)`` or, held 2-D, ``(Hq·Dh, D)`` (cut by rows)."""
+    key = _key(name)
+    n_q, n_kv, dh = heads
+    if key in _KV:
+        lo, hi = kv_head_range(n_q, n_kv, tp, pos)
+        return ModelSlice(len(shape) - 2, lo, hi)
+    lo, hi = query_head_range(n_q, n_kv, tp, pos)
+    if key == "wo":
+        if len(shape) == 2:
+            return ModelSlice(0, lo * dh, hi * dh)
+        return ModelSlice(len(shape) - 3, lo, hi)
+    return ModelSlice(len(shape) - 2, lo, hi)
+
+
 def model_slices(tree: PyTree, ctx: DistContext, pos: Optional[int] = None
                  ) -> PyTree:
     """For each leaf of ``tree`` (leaves need only ``.shape``), the
@@ -446,11 +511,12 @@ def model_slices(tree: PyTree, ctx: DistContext, pos: Optional[int] = None
     computes with, or :data:`WHOLE` for a leaf every rank computes whole
     (every leaf when the mesh's ``model`` axis has one position; the
     embedding and the head where the vocab does not split). A Mamba2
-    mixer's leaves are cut by SSD heads (:func:`_mixer_slice`), the
-    attention's ``wk``, ``wv``, ``bk`` and ``bv`` by the kv heads its
-    query heads read (:func:`kv_head_range`; positions that share a kv
-    head each take it). Raises ``ValueError`` for a cut dim that does not
-    split evenly."""
+    mixer's leaves are cut by SSD heads (:func:`_mixer_slice`), an
+    attention's by whole heads (:func:`_attention_slice`: its query heads,
+    :func:`query_head_range`, and the kv heads they read,
+    :func:`kv_head_range`; positions that share a kv head each take it).
+    Raises ``ValueError`` for a cut dim that does not split evenly, and
+    for heads that :func:`kv_split` refuses."""
     tp = ctx.tp_size
     flat, treedef = flatten_with_path(tree)
     if tp == 1:
@@ -464,19 +530,22 @@ def model_slices(tree: PyTree, ctx: DistContext, pos: Optional[int] = None
             mixers.setdefault(_parent(name), {})[_key(name)] = \
                 leaf.shape[-1]
     dims = {k: (v["conv_w"], v["A_log"]) for k, v in mixers.items()}
-    q_heads = {_parent(name): leaf.shape[-2]
-               for name, (_, leaf) in zip(names, flat)
-               if _key(name) == "wq"}
+    kv = {_parent(name): leaf.shape[-2]
+          for name, (_, leaf) in zip(names, flat) if _key(name) == "wk"}
+    heads = {_parent(name): (leaf.shape[-2], kv.get(_parent(name),
+                                                     leaf.shape[-2]),
+                             leaf.shape[-1])
+             for name, (_, leaf) in zip(names, flat)
+             if _key(name) == "wq"}
     out = []
     for name, (_, leaf) in zip(names, flat):
         shape = tuple(leaf.shape)
         if _key(name) in _MIXER and _parent(name) in dims:
             out.append(_mixer_slice(name, shape, dims, tp, pos))
             continue
-        if _key(name) in _KV and _parent(name) in q_heads:
-            lo, hi = kv_head_range(q_heads[_parent(name)], shape[-2], tp,
-                                   pos)
-            out.append(ModelSlice(len(shape) - 2, lo, hi))
+        if _key(name) in _KV + _Q and _parent(name) in heads:
+            out.append(_attention_slice(name, shape, heads[_parent(name)],
+                                        tp, pos))
             continue
         dim = _model_dim(name, shape, ctx)
         if dim is None or (_key(name) in _VOCAB and shape[dim] % tp):
@@ -557,6 +626,8 @@ def batch_rows(n: int, ctx: Optional[DistContext], pos: Optional[int] = None
 _STATE_MODEL_DIM = {"k": (5, 3), "v": (5, 3), "cross_k": (5, 3),
                     "cross_v": (5, 3), "k_scale": (4, 3), "v_scale": (4, 3),
                     "h": (5, 2), "conv": (4, 3)}
+# of those, the leaves cut by kv heads
+_KV_STATE = ("k", "v", "cross_k", "cross_v", "k_scale", "v_scale")
 
 
 def state_slices(state: PyTree, ctx: DistContext,
@@ -570,12 +641,13 @@ def state_slices(state: PyTree, ctx: DistContext,
     data axes (:func:`batch_rows`), and over the model axis ``k``, ``v``,
     ``cross_k`` and ``cross_v`` by kv heads, ``k_scale`` and ``v_scale``
     by kv heads, the SSM ``h`` by SSD heads and ``conv`` by ``d_inner``
-    channels; ``kpos`` and ``pos`` whole. Where the kv heads do not split
-    but the ``heads`` query heads (``cfg.n_heads``) do, the kv heads the
-    rank's query heads read (:func:`kv_head_range`: the positions that
-    share a kv head each hold it; the reference cuts ``head_dim`` there);
-    without ``heads``, or where they do not split either, raises
-    ``ValueError`` as :func:`check_tensor_parallel` does for the model."""
+    channels; ``kpos`` and ``pos`` whole. Given the ``heads`` query heads
+    (``cfg.n_heads``), the kv-head leaves hold the kv heads the rank's
+    query heads read (:func:`kv_head_range`: the even cut where the heads
+    split, else the positions that share a kv head each hold it, and a
+    position with no query heads none; the reference cuts ``head_dim``
+    there). Without ``heads``, a dim that does not split evenly raises
+    ``ValueError``, as does a split :func:`kv_split` refuses."""
     tp = ctx.tp_size
     if tp > 1 and pos is None:
         pos = ctx.mesh.axis_position(ctx.tp)
@@ -593,12 +665,12 @@ def state_slices(state: PyTree, ctx: DistContext,
             cuts.append(ModelSlice(1, lo, hi))
         dim = rule[1]
         if tp > 1:
-            if shape[dim] % tp == 0:
-                per = shape[dim] // tp
-                cuts.append(ModelSlice(dim, pos * per, (pos + 1) * per))
-            elif heads and dim == 3 and kv_split(heads, shape[dim], tp):
+            if heads and _key(name) in _KV_STATE:
                 cuts.append(ModelSlice(dim, *kv_head_range(
                     heads, shape[dim], tp, pos)))
+            elif shape[dim] % tp == 0:
+                per = shape[dim] // tp
+                cuts.append(ModelSlice(dim, pos * per, (pos + 1) * per))
             else:
                 raise ValueError(f"{name}: dim {dim} of {shape} does not "
                                  f"split over model={tp}")
@@ -616,21 +688,24 @@ def vocab_ctx(cfg, ctx: Optional[DistContext]) -> Optional[DistContext]:
 
 
 def check_tensor_parallel(cfg, tp: int) -> None:
-    """Raise ``ValueError`` naming ``cfg`` when its heads, kv heads,
-    experts, feed-forward widths or SSD heads do not split over ``tp``
-    model positions. Kv heads that do not split are taken where the query
-    heads split and each position's read one kv head (:func:`kv_split`:
-    the positions share it). The reference splits ``head_dim`` where the
-    query heads do not divide; the port raises there. A vocab that does
+    """Raise ``ValueError`` naming ``cfg`` when its heads, experts,
+    feed-forward widths or SSD heads do not split over ``tp`` model
+    positions. Query heads split into whole-head ranges as even as the
+    count allows (:func:`query_head_range`) and kv heads into those the
+    ranges read (:func:`kv_head_range`), wherever every range lies inside
+    one kv group or covers whole kv groups (:func:`kv_split`); the error
+    names the heads and the first range that does not. A vocab that does
     not split is computed whole (:func:`vocab_ctx`)."""
-    dims = {"n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
-            "n_experts": cfg.n_experts, "d_ff": cfg.d_ff,
+    dims = {"n_experts": cfg.n_experts, "d_ff": cfg.d_ff,
             "d_ff_dense": cfg.d_ff_dense,
             "ssm_heads": cfg.ssm_heads if cfg.ssm_state else 0}
     bad = {k: v for k, v in dims.items() if v % tp}
-    if "n_kv_heads" in bad and "n_heads" not in bad \
-            and kv_split(cfg.n_heads, cfg.n_kv_heads, tp):
-        del bad["n_kv_heads"]
+    if not kv_split(cfg.n_heads, cfg.n_kv_heads, tp):
+        bad.update(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads)
+        why = "; " + _split_error(cfg.n_heads, cfg.n_kv_heads, tp)
+    else:
+        why = ""
     if bad:
         raise ValueError(f"{cfg.name}: {bad} do not split over model={tp} "
-                         "(tensor parallelism needs every one to divide)")
+                         "(tensor parallelism needs every one to divide"
+                         f"{why})")

@@ -244,8 +244,9 @@ def test_trainer_defaults_to_cuda_and_names_its_roadmap_items(tmp_path):
     (items 11 and 12) it builds and runs; ``elastic_mesh=True`` without a
     mesh raises; ``moe_block`` on a one-rank mesh is the ctx-less call
     (the expert-parallel MoE, item 38, is ported) and no port file names
-    items 15, 38, 39 (the other families' tensor parallelism) or 40 (the
-    server on a mesh) any more."""
+    items 15, 38, 39 (the other families' tensor parallelism), 40 (the
+    server on a mesh) or 41 (query heads that do not split over the model
+    axis) any more."""
     from repro_torch.data import ShardedLMDataset
     cfg = get_config("qwen2-1.5b", reduced=True)
     if torch.cuda.is_available():
@@ -290,6 +291,7 @@ def test_trainer_defaults_to_cuda_and_names_its_roadmap_items(tmp_path):
         assert "ROADMAP item 38" not in text and "item 38" not in text, path
         assert "item 39" not in text, path
         assert "item 40" not in text, path
+        assert "item 41" not in text, path
 
 
 def _env_writes(tree: ast.Module) -> list:

@@ -7,8 +7,9 @@ count=512`` to ``XLA_FLAGS`` as their first statement. This file reads
 and holds the count unchanged (as ``tests/test_dryrun_helpers.py``
 imports them, JAX's backend is made before the flag is read).
 
-- ``applicable`` for every config x shape, and the port's own skips on the
-  ``(16, 16)`` mesh (query heads that do not split over 16);
+- ``applicable`` for every config x shape, and the port's own skips: none
+  on the ``(16, 16)`` mesh, a split that crosses kv groups unevenly
+  elsewhere;
   ``shape_params`` and ``input_specs``' shapes and dtypes;
 - ``count_params`` (total and active, exact, every config at full width;
   the reference through ``jax.eval_shape``), ``model_flops`` and
@@ -85,18 +86,25 @@ def test_applicable_and_the_ports_own_skips(name):
     mesh = make_dry_production_mesh()
     for shape in dryrun.SHAPES:
         assert dryrun.applicable(cfg, shape) == jdry.applicable(jcfg, shape)
-    ok, why = dryrun.port_applicable(cfg, mesh)
-    raises = name in ("llama4-maverick-400b-a17b", "qwen2-1.5b")
-    assert ok == (not raises)
-    if raises:
-        assert why.startswith("port:") and "n_heads" in why
-        assert not any(why == jdry.applicable(jcfg, s)[1]
-                       for s in dryrun.SHAPES)
+    # the port skips none of the repo's configs at (16, 16): query heads
+    # that do not split take whole-head ranges (llama4-maverick's 40 and
+    # qwen2-1.5b's 12 over 16)
+    assert dryrun.port_applicable(cfg, mesh) == (True, "")
     # a (4, 4) mesh takes qwen2-1.5b (12/2 heads: 3 query heads over one
     # shared kv head a rank)
     if name == "qwen2-1.5b":
         assert dryrun.port_applicable(
             cfg, make_dry_mesh((4, 4), ("data", "model")))[0]
+    # a split whose ranges cross kv groups unevenly is still the port's
+    # own skip: llama4-maverick's 40/8 heads at 3 (position 0's [0, 14))
+    if name == "llama4-maverick-400b-a17b":
+        ok, why = dryrun.port_applicable(
+            cfg, make_dry_mesh((1, 3), ("data", "model")))
+        assert not ok
+        assert why.startswith("port:") and "n_heads" in why \
+            and "[0, 14)" in why
+        assert not any(why == jdry.applicable(jcfg, s)[1]
+                       for s in dryrun.SHAPES)
     assert dryrun.SHAPES == jdry.SHAPES
 
 

@@ -600,20 +600,34 @@ def test_kv_heads_shared_by_ranks_serve():
 
 def test_query_heads_that_do_not_split_raise():
     """4 query heads over 8 model positions: the reference cuts
-    ``head_dim``, the port raises, naming the heads (the server, the
-    cache, the state slices)."""
+    ``head_dim``, the port takes whole-head ranges (1, 0, 1, 0, ...: a
+    position with no query heads holds no kv head and no cache columns;
+    the server, the cache, the state slices). Heads whose ranges would
+    cross kv groups unevenly (6 over 3 at 4: position 2's [3, 5)) still
+    raise, naming the heads."""
     from repro_torch.launch.mesh import make_dry_mesh
     cfg = _config("qwen2")
-    ctx = tp.make_dist_ctx(make_dry_mesh((1, 8), ("data", "model")))
     params = get_model(cfg).init_params(torch.Generator().manual_seed(0),
                                         cfg, device="cpu")
-    with pytest.raises(ValueError, match="n_heads"):
-        Server(cfg, params, device="cpu", ctx=ctx)
-    with pytest.raises(ValueError, match="n_heads"):
-        get_model(cfg).init_cache(cfg, B, 16, device="cpu", ctx=ctx)
     whole = get_model(cfg).init_cache(cfg, B, 16, device="cpu")
-    with pytest.raises(ValueError, match="does not split over model=8"):
-        tp.state_slices(whole, ctx, heads=cfg.n_heads)
+    for pos in range(8):
+        ctx = tp.make_dist_ctx(make_dry_mesh((1, 8), ("data", "model"),
+                                             position=pos))
+        Server(cfg, params, device="cpu", ctx=ctx)
+        mine = get_model(cfg).init_cache(cfg, B, 16, device="cpu", ctx=ctx)
+        n = 1 - pos % 2
+        assert mine["k"].shape[3] == n
+        sl = tp.state_slices(whole, ctx, heads=cfg.n_heads)
+        assert tuple(sl["k"][-1])[2] - tuple(sl["k"][-1])[1] == n
+    bad = dataclasses.replace(cfg, n_heads=6, n_kv_heads=3)
+    ctx = tp.make_dist_ctx(make_dry_mesh((1, 4), ("data", "model")))
+    with pytest.raises(ValueError, match="n_heads.*6"):
+        Server(bad, params, device="cpu", ctx=ctx)
+    with pytest.raises(ValueError, match="n_heads"):
+        get_model(bad).init_cache(bad, B, 16, device="cpu", ctx=ctx)
+    bad_cache = get_model(bad).init_cache(bad, B, 16, device="cpu")
+    with pytest.raises(ValueError, match="do not split over model=4"):
+        tp.state_slices(bad_cache, ctx, heads=bad.n_heads)
 
 
 def test_batch_that_does_not_split_raises():

@@ -510,8 +510,13 @@ def test_model_slices_follow_param_specs(name):
 
 
 def test_tensor_parallel_needs_every_dim_to_split():
+    # query heads split into whole-head ranges (3 over 1 kv head at 2:
+    # [0, 2) and [2, 3)), unless a range crosses kv groups unevenly (10
+    # over 5 at 2: [0, 5) reads kv head 2 in part)
     cfg = dataclasses.replace(get_config("qwen2-1.5b", reduced=True),
                               n_kv_heads=1, n_heads=3)
+    tp.check_tensor_parallel(cfg, 2)
+    cfg = dataclasses.replace(cfg, n_kv_heads=5, n_heads=10)
     with pytest.raises(ValueError, match="qwen2-1.5b.*n_heads"):
         tp.check_tensor_parallel(cfg, 2)
     tp.check_tensor_parallel(get_config("qwen3-moe-235b-a22b"), 2)
