@@ -400,6 +400,19 @@ Phases, each of which fails the run if it fails:
     every rank, and one TP train step at 4 layers, held as 34(c) on its
     yardstick. ``python3 chip_smoke.py --uneven-heads`` runs phases 1 and
     35 alone (``{"uneven_heads_only": true, ...}``).
+36. **The mesh train step on the rank's model slices**
+    (:func:`phase_slice_train`): rank 0 of the dry (16, 16) mesh trains
+    granite-8b at full width and depth (36 layers, f32 as the dry run,
+    ``train_4k``: its data shard of 16 sequences of 4,096 tokens) through
+    ``dryrun.build_rank_step`` and the counting stand-in, gathering only
+    its model slices (a sixteenth of the model). Held: the argument bytes
+    equal to the same step's full-depth meta run's (computed beside the
+    kernels' build), the card's peak over the step's baseline within 10%
+    of its temp bytes and under 80 GB, the gathered result 4 B a slice
+    value. Printed: the step's seconds (the median of the timed runs
+    after one untimed run). The stand-in's values are unset, so no value
+    is held. ``python3 chip_smoke.py --slice-train`` runs phases 1 and 36
+    alone (``{"slice_train_only": true, ...}``).
 
 The line before the last is the kernels' JSON record (each kernel's
 launches on its own path, ``train_launches`` on phase 17's,
@@ -5561,7 +5574,13 @@ def phase_mesh(device, launches: dict, card: str, opts=None) -> dict:
     peaks = [r["peak_gb"] for r in ranks]
     member = [s for i, s in enumerate(ranks[0]["step_seconds"])
               if i + 1 not in ranks[0]["idle_steps"]]
+    # each rank's collectives summed (the arena run's, from its first step
+    # through the resizes to the last): what the gloo staging costs
+    totals = [{k: sum(v[k] for v in r["collectives"].values())
+               for k in ("calls", "bytes", "seconds", "staged_bytes")}
+              for r in ranks]
     out = {"one_rank": one, "ranks": ranks, "max_rel_loss_diff": rel,
+           "collective_totals": totals,
            "rank_peak_gb": peaks, "summed_peak_gb": sum(peaks),
            "pytree_peak_gb": [r["pytree_peak_gb"] for r in ranks],
            "spawn_to_join_seconds": wall,
@@ -7236,14 +7255,17 @@ LAUNCH_TEMP_RTOL = 0.10
 LAUNCH_FLOOR_FACTOR = 1.5
 
 
-def _launch_jobs(which=("uneven", "launch")) -> list:
+def _launch_jobs(which=("slice", "uneven", "launch")) -> list:
     """The meta analyses run beside the kernels' build, each ``(key,
-    function, args)``: phase 35(a)'s ranks' steps (``"uneven"``, the
-    longest, first), and phase 34(a)'s (``"launch"``): the four pairs'
-    distinct analyses on the dry (16, 16) mesh, and the one-card roofline
-    of phase 29's prefill and decode."""
+    function, args)``: phase 36's full-depth meta run (``"slice"``) and
+    phase 35(a)'s ranks' steps (``"uneven"``), the longest, first, and
+    phase 34(a)'s (``"launch"``): the four pairs' distinct analyses on the
+    dry (16, 16) mesh, and the one-card roofline of phase 29's prefill and
+    decode."""
     from repro_torch.launch import perf
     jobs, seen = [], set()
+    if "slice" in which:
+        jobs.append((("slice_train",), _slice_train_meta, ()))
     if "uneven" in which:
         o = UNEVEN["rank"]
         for kind, _ in o["steps"]:
@@ -7282,7 +7304,7 @@ def _one_chip_roofline(kind: str) -> dict:
                          spec, cache_len=o["cache_slots"])
 
 
-def _start_launch_jobs(which=("uneven", "launch")):
+def _start_launch_jobs(which=("slice", "uneven", "launch")):
     """The analyses of :func:`_launch_jobs` (``which``) started in
     ``LAUNCH["jobs"]`` processes (one torch thread each; meta tensors only,
     no CUDA): the pool, each job's future and the start's clock."""
@@ -8114,6 +8136,149 @@ def uneven_only(device, card: str, analyses: dict) -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# phase 36: the mesh train step on the rank's model slices
+# ---------------------------------------------------------------------------
+
+# rank 0 of the dry (16, 16) mesh: granite-8b at full width and depth (36
+# layers), f32 as the dry run, train_4k (the rank's data shard: 16 of the
+# 256 sequences of 4,096 tokens); one untimed step, then ``runs`` timed
+SLICE_TRAIN = dict(arch="granite-8b", shape="train_4k", runs=1)
+SLICE_TRAIN_PEAK_BYTES = 80e9
+
+
+def _slice_train_meta() -> dict:
+    """Phase 36's step run once on meta tensors at full depth
+    (``dryrun.measure``): its argument and temp bytes and its collectives'
+    books, beside the depth probes' record (``dryrun.dry_record``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import shape_params
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_dry_production_mesh
+    o = SLICE_TRAIN
+    sp = shape_params(o["shape"])
+    mesh = make_dry_production_mesh()
+    step = dryrun.build_rank_step(get_config(o["arch"]), "train",
+                                  sp["batch"], sp["seq"], mesh, "meta")
+    plan = step.info["slice_plan"]
+    full = dryrun.measure(step)
+    full["slice_values"] = plan.values[plan.model]
+    full["arena_words"] = step.info["arena_words"]
+    return {"full": full, "record": dryrun.dry_record(o["arch"], o["shape"],
+                                                      mesh)}
+
+
+def phase_slice_train(device, card: str, analyses: dict) -> dict:
+    """Phase 36: the mesh train step on the rank's model slices. Rank 0 of
+    the dry (16, 16) mesh runs granite-8b's ``train_4k`` step at full
+    width and depth on the card (``dryrun.build_rank_step``: the arena
+    step over the rank's span, its slices gathered and their gradient sent
+    through the counting stand-in, whose values are unset). One untimed
+    run, then ``SLICE_TRAIN["runs"]`` timed ones: the median seconds, the
+    peak of ``max_memory_allocated`` over the timed runs' baseline. Held
+    against the same step's full-depth meta run (``analyses``, computed
+    beside the kernels' build, :func:`_slice_train_meta`): the argument
+    bytes equal, the peak within ``LAUNCH_TEMP_RTOL`` of its temp bytes
+    and under ``SLICE_TRAIN_PEAK_BYTES``, the gathered result (the
+    stand-in's all-gather) 4 B a value of the rank's slices, on the card
+    and on meta, and under a fifteenth of the arena; the depth probes'
+    record beside it. No kernel of the port is on this path: the
+    optimizer's apply and the training attention are plain torch."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import shape_params
+    from repro_torch.distributed import collectives
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_dry_production_mesh
+    o = SLICE_TRAIN
+    t_phase = time.perf_counter()
+    meta = analyses["done"][("slice_train",)]
+    full, record = meta["full"], meta["record"]
+    check(record["ok"] and not record.get("skipped"),
+          f"36: the dry run's record failed: {record.get('error')}")
+    cfg = get_config(o["arch"])
+    sp = shape_params(o["shape"])
+    t0 = time.perf_counter()
+    step = dryrun.build_rank_step(cfg, "train", sp["batch"], sp["seq"],
+                                  make_dry_production_mesh(), device)
+    build_s = time.perf_counter() - t0
+    plan = step.info["slice_plan"]
+    values = plan.values[plan.model]
+    args_bytes = dryrun.storage_bytes(step.args)
+    collectives.reset_stats()
+    collectives.reset_dry_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = step.run()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    del res
+    books = collectives.dry_stats()
+    gc.collect()
+    # the cached blocks stay: the timed runs reuse them, as a trainer's
+    # steps do
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    secs = []
+    for _ in range(o["runs"]):
+        t0 = time.perf_counter()
+        res = step.run()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        del res
+    peak = torch.cuda.max_memory_allocated() - base
+    stats = collectives.seconds_and_bytes()
+    words = step.info["arena_words"]
+    del step, plan
+    gc.collect()
+    torch.cuda.empty_cache()
+    temp = full["memory"]["temp_bytes"]
+    out = {"card": card, "arch": o["arch"], "shape": o["shape"],
+           "layers": cfg.n_layers, "build_seconds": build_s,
+           "first_seconds": first_s, "seconds": secs,
+           "step_seconds": statistics.median(secs),
+           "argument_bytes": args_bytes,
+           "meta_argument_bytes": full["memory"]["argument_bytes"],
+           "record_argument_bytes": record["memory"]["argument_bytes"],
+           "peak_over_baseline_bytes": peak, "meta_temp_bytes": temp,
+           "record_temp_bytes": record["memory"]["temp_bytes"],
+           "temp_ratio": peak / temp, "slice_values": values,
+           "arena_words": words, "gathered_bytes":
+               books["all-gather"]["bytes"],
+           "reduced_bytes": books["reduce-scatter"]["bytes"],
+           "meta_flops": full["flops"], "stats": stats}
+    check(args_bytes == full["memory"]["argument_bytes"],
+          f"36: argument bytes {args_bytes} on the card, "
+          f"{full['memory']['argument_bytes']} on meta")
+    check(abs(peak / temp - 1.0) <= LAUNCH_TEMP_RTOL
+          and peak < SLICE_TRAIN_PEAK_BYTES,
+          f"36: the card's peak {peak} against the meta temp {temp}")
+    check(books["all-gather"]["count"] == 1
+          and books["all-gather"]["bytes"] == 4 * values
+          == full["collectives"]["all-gather"]["bytes"]
+          and values == full["slice_values"] and 15 * values < words,
+          f"36: gathered {books['all-gather']} for {values} slice values "
+          f"of {words} arena words")
+    out["seconds_total"] = time.perf_counter() - t_phase
+    log(f"phase 36: the mesh train step on the rank's model slices, "
+        f"{card}: {json.dumps(out)}")
+    return out
+
+
+def slice_train_only(device, card: str, analyses: dict) -> int:
+    """``--slice-train``: phase 36 alone. Its last line says that it is
+    this partial run, never the full run's ``{"ok": true, ...}``."""
+    import torch
+    out = phase_slice_train(device, card, analyses)
+    log(card)
+    log(json.dumps({"slice_train_only": True,
+                    "seconds": out["seconds_total"],
+                    "device": {"platform": "gpu",
+                               "kind": torch.cuda.get_device_name(0),
+                               "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def main(argv: list) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -8142,10 +8307,11 @@ def main(argv: list) -> int:
     # kernels' build, where no window is timed, and are joined before the
     # first timed phase: beside a timed window they would share its host
     partial = [a for a in argv if a.startswith("--")
-               and a not in ("--launch", "--uneven-heads")]
-    which = tuple(k for k, flag in (("launch", "--launch"),
-                                    ("uneven", "--uneven-heads"))
-                  if flag in argv) or ("uneven", "launch")
+               and a not in ("--launch", "--uneven-heads", "--slice-train")]
+    which = tuple(k for k, flag in (("slice", "--slice-train"),
+                                    ("uneven", "--uneven-heads"),
+                                    ("launch", "--launch"))
+                  if flag in argv) or ("slice", "uneven", "launch")
     started = None if partial else _start_launch_jobs(which)
     t0 = time.perf_counter()
     _build.library()
@@ -8155,7 +8321,7 @@ def main(argv: list) -> int:
     analyses = None
     if started is not None:
         analyses = _join_launch_jobs(started)
-        log(f"phases 34(a) and 35(a): the analyses took "
+        log(f"phases 34(a), 35(a) and 36's meta run: the analyses took "
             f"{analyses['seconds']:.1f} s beside the build, "
             f"{analyses['wait_seconds']:.1f} s after it")
 
@@ -8187,6 +8353,8 @@ def main(argv: list) -> int:
         return launch_only(device, card, analyses)
     if "--uneven-heads" in argv:
         return uneven_only(device, card, analyses)
+    if "--slice-train" in argv:
+        return slice_train_only(device, card, analyses)
     gen = torch.Generator(device=device).manual_seed(SEED)
     shapes = qwen2_1_5b_shapes()
     a_tree = _map_shapes(shapes, lambda s: torch.randn(
@@ -8327,6 +8495,8 @@ def main(argv: list) -> int:
     uneven = phase_uneven_heads(device, launches, card, analyses,
                                 kept=kept)
     lap("phase 35")
+    slice_train = phase_slice_train(device, card, analyses)
+    lap("phase 36")
     log(json.dumps({"launches": launches}))
     old = ("block_dist", "scatter_save", "masked_restore")
     new = ("arena_maintain", "arena_scatter", "parity_xor")
@@ -8435,7 +8605,7 @@ def main(argv: list) -> int:
                     "mesh": {k: v for k, v in mesh.items() if k != "ranks"},
                     "moe_mesh": moe_mesh, "ssm_mesh": ssm_mesh,
                     "serve_mesh": serve_mesh, "launch": launch,
-                    "uneven_heads": uneven,
+                    "uneven_heads": uneven, "slice_train": slice_train,
                     "serve_kernels": {
                         name: kernels[name]
                         for name in ("ssd_intra", "sw_attention")},

@@ -4,10 +4,16 @@
 rank's position and provides what the meshed trainer and fabric move
 between ranks:
 
-- ``all_gather``: every rank's span -> the whole arena (the train step's
-  forward operands);
-- ``reduce_scatter``: the whole gradient -> this rank's span of the sum
-  (an all-to-all of the spans, then the sum on the device in position
+- ``slice_gather``: the words of this rank's model slices from every
+  owner's span -> its slice-domain buffer (the train step's forward
+  operands; ``sharding.partition.SlicePlan``), one all-to-all;
+- ``slice_reduce``: this rank's slice-domain gradient -> the owners of
+  its words, each owner's span the sum of what it receives, added on the
+  device in position order (one all-to-all);
+- ``all_gather``: every rank's span -> the whole arena (the PyTree
+  step's reduced gradient, the fabric's checks);
+- ``reduce_scatter``: a whole buffer -> this rank's span of the sum (an
+  all-to-all of the spans, then the sum on the device in position
   order);
 - ``all_to_all``: variable-size chunks to every rank (the XOR combine's
   partial parity tiles, sent to the rank that owns their rows);
@@ -43,10 +49,12 @@ mesh adds the tokens' all-gather over the data line (:func:`data_comm`,
 Each call is counted in :data:`STATS` under its name: ``calls``,
 ``bytes`` (what crosses between ranks for this rank: an all-gather's
 received spans, a reduce-scatter's sent and received parts, an
-all-to-all's sent and received chunks, a ship's span, a gather's spans
-at the first rank, the tensor of an all-reduce or a broadcast),
-``seconds``
-(wall time of the call, its staging included) and ``staged_bytes``.
+all-to-all's, a slice gather's and a slice reduce's sent and received
+words, a ship's span, a gather's spans at the first rank, the tensor of
+an all-reduce or a broadcast), ``seconds``
+(wall time of the call, its staging included) and ``staged_bytes``; the
+slice gather and reduce add ``result_bytes``, their result's (the rank's
+slices; its span).
 
 **Staging.** gloo takes CUDA tensors for ``broadcast`` and
 ``all_reduce`` only, and NCCL refuses two ranks on one device, so the
@@ -89,13 +97,34 @@ def seconds_and_bytes() -> dict:
     return {k: dict(v) for k, v in sorted(STATS.items())}
 
 
-def _book(name: str, nbytes: int, seconds: float, staged: int) -> None:
+def _book(name: str, nbytes: int, seconds: float, staged: int,
+          result: Optional[int] = None) -> None:
     s = STATS.setdefault(name, {"calls": 0, "bytes": 0, "seconds": 0.0,
                                 "staged_bytes": 0})
     s["calls"] += 1
     s["bytes"] += int(nbytes)
     s["seconds"] += seconds
     s["staged_bytes"] += int(staged)
+    if result is not None:
+        s["result_bytes"] = s.get("result_bytes", 0) + int(result)
+
+
+def _send_boxes(src: torch.Tensor, lists: list, origin: Optional[int]
+                ) -> torch.Tensor:
+    """The words of ``src`` that each list of boxes names, back to back in
+    list order and box order: arena-side views of a span whose element 0
+    is arena word ``origin``, or slice-side views (``origin`` None)."""
+    total = sum(b.numel for bx in lists for b in bx)
+    out = torch.empty((total,), dtype=src.dtype, device=src.device)
+    at = 0
+    for bx in lists:
+        for b in bx:
+            k = b.numel
+            out[at:at + k].view(b.sizes).copy_(
+                b.slice_view(src) if origin is None
+                else b.arena_view(src, origin))
+            at += k
+    return out
 
 
 def _pieces(m: int, item: int) -> list[tuple[int, int]]:
@@ -188,9 +217,10 @@ class MeshComm:
         else:
             dst.copy_(src.view(dst.shape))
 
-    def _done(self, name: str, nbytes: int, t0: float, s0: int) -> None:
+    def _done(self, name: str, nbytes: int, t0: float, s0: int,
+              result: Optional[int] = None) -> None:
         _book(name, nbytes, time.perf_counter() - t0,
-              self._stage.bytes - s0)
+              self._stage.bytes - s0, result)
 
     # -- collectives -----------------------------------------------------
 
@@ -266,6 +296,101 @@ class MeshComm:
                 acc.add_(parts[k])
         _pipelined(_pieces(m, full.element_size()), start, finish)
         self._done(name, 2 * (n - 1) * m * full.element_size(), t0, s0)
+        return out
+
+    def _slice_counts(self, plan, reduce: bool) -> tuple[list, list]:
+        """Words this rank sends each position and receives from each in
+        ``plan``'s gather (or reduce), none to or from itself."""
+        me, m, n = self.pos, plan.model, self.n
+        if reduce:
+            sc = [plan.reduce_words(q, m) for q in range(n)]
+            rc = [plan.reduce_words(me, plan.model_of[p]) for p in range(n)]
+        else:
+            sc = [plan.gather_words(me, plan.model_of[p]) for p in range(n)]
+            rc = [plan.gather_words(q, m) for q in range(n)]
+        sc[me] = rc[me] = 0
+        return sc, rc
+
+    def slice_gather(self, span: torch.Tensor, plan,
+                     name: str = "slice_gather") -> torch.Tensor:
+        """This rank's slices (``plan``, a
+        :class:`~repro_torch.sharding.partition.SlicePlan`) of the arena
+        whose span this rank holds, as a new slice-domain buffer of
+        ``span``'s dtype: each owner sends each position the words of its
+        span that the position's slices cover, in one all-to-all (in
+        rounds), and the received words land in their boxes."""
+        t0, s0 = time.perf_counter(), self._stage.bytes
+        me, m = self.pos, plan.model
+        w0 = me * plan.shard_words
+        out = torch.empty((plan.values[m],), dtype=span.dtype,
+                          device=span.device)
+        for b in plan.gather_boxes(me, m):
+            b.slice_view(out).copy_(b.arena_view(span, w0))
+        item = span.element_size()
+        if not self.distributed:
+            self._done(name, 0, t0, s0, out.numel() * item)
+            return out
+        sc, rc = self._slice_counts(plan, False)
+        send = _send_boxes(span, [plan.gather_boxes(me, plan.model_of[p])
+                                  if p != me else [] for p in range(self.n)],
+                           w0)
+        recv = torch.empty((sum(rc),), dtype=span.dtype, device=span.device)
+        _rounds(send, sc, recv, rc, plan.max_count(False), self.group,
+                self._staged(send), self._stage)
+        del send
+        at = 0
+        for q in range(self.n):
+            for b in plan.gather_boxes(q, m) if q != me else ():
+                k = b.numel
+                b.slice_view(out).copy_(recv[at:at + k].view(b.sizes))
+                at += k
+        self._done(name, (sum(sc) + sum(rc)) * item, t0, s0,
+                   out.numel() * item)
+        return out
+
+    def slice_reduce(self, values: torch.Tensor, plan,
+                     name: str = "slice_reduce") -> torch.Tensor:
+        """This rank's span of the sum of every rank's slice-domain
+        ``values`` (``plan``): each rank sends each owner its values on the
+        words of the owner's span it contributes to
+        (:meth:`~repro_torch.sharding.partition.SlicePlan.reduce_boxes`),
+        and the owner adds what it receives on its device in position
+        order, the order :meth:`reduce_scatter` adds in (the first
+        position's part copied, the others added), skipping the positions
+        that contribute nothing. A word no position contributes to (pads)
+        is 0."""
+        t0, s0 = time.perf_counter(), self._stage.bytes
+        me, m = self.pos, plan.model
+        w0 = me * plan.shard_words
+        out = torch.zeros((plan.shard_words,), dtype=values.dtype,
+                          device=values.device)
+        item = values.element_size()
+        sc, rc = self._slice_counts(plan, True)
+        recv = None
+        if self.distributed:
+            send = _send_boxes(values, [plan.reduce_boxes(q, m) if q != me
+                                        else [] for q in range(self.n)],
+                               None)
+            recv = torch.empty((sum(rc),), dtype=values.dtype,
+                               device=values.device)
+            _rounds(send, sc, recv, rc, plan.max_count(True), self.group,
+                    self._staged(send), self._stage)
+            del send
+        at = 0
+        for p in range(self.n):
+            for b in plan.reduce_boxes(me, plan.model_of[p]):
+                if p == me:
+                    part = b.slice_view(values)
+                else:
+                    part = recv[at:at + b.numel].view(b.sizes)
+                    at += b.numel
+                dst = b.arena_view(out, w0)
+                if p == 0:
+                    dst.copy_(part)
+                else:
+                    dst.add_(part)
+        self._done(name, (sum(sc) + sum(rc)) * item, t0, s0,
+                   out.numel() * item)
         return out
 
     def all_reduce(self, t: torch.Tensor, name: str = "all_reduce"
@@ -479,14 +604,18 @@ class CountingComm:
     returns a tensor of the real collective's shape and dtype on the
     input's device (a new one, its values unset: its own part copied in
     where the real one holds it, ``all_gather`` and ``reduce_scatter``;
-    the input's values for ``summed``, ``maxed``, ``all_reduce`` and
-    ``broadcast``), and books the call twice: in :data:`STATS` under its
-    name with the bytes :class:`MeshComm` counts for this rank (calls and
-    bytes the same as a real mesh's rank; no seconds), and in
-    :data:`DRY_STATS` under the reference's HLO kind with the result's
-    bytes, as the reference's ``collective_stats`` reads its compiled
-    collectives' result shapes. The kinds: ``all_gather`` an all-gather;
-    ``reduce_scatter`` a reduce-scatter (its result the span); ``summed``,
+    the whole result landed in one copy from an unset received buffer,
+    ``slice_gather`` and ``slice_reduce``, whose own parts vary with the
+    span's place and not with the depth; the input's values for
+    ``summed``, ``maxed``, ``all_reduce`` and ``broadcast``), and books
+    the call twice: in :data:`STATS` under its name with the bytes
+    :class:`MeshComm` counts for this rank (calls and bytes the same as a
+    real mesh's rank; no seconds), and in :data:`DRY_STATS` under the
+    reference's HLO kind with the result's bytes, as the reference's
+    ``collective_stats`` reads its compiled collectives' result shapes.
+    The kinds: ``all_gather`` and ``slice_gather`` (the rank's slices) an
+    all-gather; ``reduce_scatter`` and ``slice_reduce`` a reduce-scatter
+    (its result the span); ``summed``,
     ``maxed`` and ``all_reduce`` an all-reduce of the result's shape (the
     port runs the first two as an all-gather and a sum on the rank);
     ``broadcast`` a collective-permute of the tensor; ``all_to_all`` an
@@ -565,6 +694,32 @@ class CountingComm:
         _book("all_to_all", (sum(sc) - sc[self.pos] + sum(rc) - rc[self.pos])
               * item if self.distributed else 0, 0.0, 0)
         _dry_book("all-to-all", out)
+        return out
+
+    _slice_counts = MeshComm._slice_counts
+
+    def _landed(self, numel: int, like: torch.Tensor) -> torch.Tensor:
+        """A result of ``numel`` values landed from a received buffer, both
+        unset: one copy, as the real rank's landing of every word."""
+        out = torch.empty((numel,), dtype=like.dtype, device=like.device)
+        return out.copy_(torch.empty_like(out))
+
+    def slice_gather(self, span: torch.Tensor, plan,
+                     name: str = "slice_gather") -> torch.Tensor:
+        out = self._landed(plan.values[plan.model], span)
+        sc, rc = self._slice_counts(plan, False)
+        item = span.element_size()
+        _book(name, (sum(sc) + sum(rc)) * item, 0.0, 0, out.numel() * item)
+        _dry_book("all-gather", out)
+        return out
+
+    def slice_reduce(self, values: torch.Tensor, plan,
+                     name: str = "slice_reduce") -> torch.Tensor:
+        out = self._landed(plan.shard_words, values)
+        sc, rc = self._slice_counts(plan, True)
+        item = values.element_size()
+        _book(name, (sum(sc) + sum(rc)) * item, 0.0, 0, out.numel() * item)
+        _dry_book("reduce-scatter", out)
         return out
 
 

@@ -41,12 +41,18 @@ sends nothing. For every combination :func:`lower_combination`
 weight and moment sharded over ``data`` and ``model`` by its partition
 specs. The port's only data-sharded training state is the flat arena
 (``partition.arena_sharding``): each rank holds a span of the arena and
-of its moments, all-gathers the whole arena for the forward and packs a
-whole-model f32 gradient to reduce-scatter it. The sharded arena holds an
-all-f32 model (``ArenaLayout.span_runs``), so the train step runs the
-config in f32 (``param_dtype`` in the record). Its per-rank bytes are
-reported as they are: at the production mesh the gathered arena and the
-packed gradient dwarf the card's 80 GB.
+of its moments. For the forward it gathers only the words of its model
+slices (``partition.SlicePlan``, ``slice_gather``: a sixteenth of the
+model at ``model`` 16), and it sends only their gradient to the spans'
+owners (``slice_reduce``). The stand-in books the two as the reference
+kinds they compute: an all-gather of the gathered slices and a
+reduce-scatter of the rank's span. The port does not yet cut the data
+axis too: every rank of a model line's data axis gathers the whole of
+its slices for the whole step, where the reference's FSDP gathers a
+layer's shard as it runs. The sharded arena holds an all-f32 model
+(``ArenaLayout.span_runs``), so the train step runs the config in f32
+(``param_dtype`` in the record). Its per-rank bytes are reported as they
+are.
 
 **What cannot run on meta, and what runs instead.**
 
@@ -341,7 +347,7 @@ def _train_step(cfg, ops, ctx, mesh, shard, dev, info) -> RankStep:
     state = ArenaTrainState.create(span.view(torch.int32), optimizer, layout)
     comm = mesh.comm()
     step = make_arena_train_step(ops, cfg, optimizer, layout, comm, ctx)
-    info["arena_words"] = layout.total_words
+    info.update(arena_words=layout.total_words, slice_plan=step.plan)
 
     def run():
         out = step(state, shard)
@@ -462,7 +468,8 @@ def lower_combination(arch: str, shape: str, mesh, *, overrides=None,
     step = build_rank_step(cfg, sp["kind"], sp["batch"], sp["seq"], mesh,
                            device)
     costs = measure(step)
-    meta = {k: v for k, v in step.info.items() if k not in ("ctx", "cfg")}
+    meta = {k: v for k, v in step.info.items()
+            if k not in ("ctx", "cfg", "slice_plan")}
     return costs, meta
 
 

@@ -11,7 +11,10 @@ a tuple that the tree utilities keep as one leaf); the shape-to-spec
 functions return what the reference's return for the same tree and mesh
 shape. On a mesh the port computes FSDP over the flat arena
 (:func:`arena_sharding`): every rank holds its span of the arena-shaped
-state and gathers the arena for the forward. The ``model`` axis splits
+state and gathers, for the forward, the words of its model slices alone
+(:class:`SlicePlan`: each slice as strided boxes of arena words, who
+sends which words to whom, and who contributes to each word's gradient).
+The ``model`` axis splits
 every family's forward (tensor and expert parallelism):
 :func:`model_slices` gives each leaf's cut for this rank, from the specs'
 ``model`` entries mapped onto the port's leaves (the reference's stacked
@@ -59,8 +62,8 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from repro_torch.utils.tree import (flatten_with_path, keystr, tree_map,
-                                    tree_unflatten)
+from repro_torch.utils.tree import (flatten_with_path, keystr, tree_leaves,
+                                    tree_map, tree_unflatten)
 
 PyTree = Any
 
@@ -572,6 +575,342 @@ def take_model_slices(tree: PyTree, slices: PyTree) -> PyTree:
     view of one range, the concatenation of several (a gradient taken
     through either lands in the whole leaves')."""
     return tree_map(_take, tree, slices)
+
+
+# ---------------------------------------------------------------------------
+# The slice plan: the arena words of each model position's slices
+# ---------------------------------------------------------------------------
+
+class Box(tuple):
+    """A strided box of words shared by the arena and the slice domain:
+    ``(a0, s0, sizes, a_strides, s_strides)``. Its words are ``a0 +
+    sum(i_k a_strides[k])`` in the arena and ``s0 + sum(i_k
+    s_strides[k])`` in the slice domain, for every index ``i`` below
+    ``sizes``, in the same (row-major) order on both sides; the last size
+    is a run, contiguous on both sides (its strides 1)."""
+
+    def __new__(cls, a0: int, s0: int, sizes, a_st, s_st):
+        return super().__new__(cls, (int(a0), int(s0), tuple(sizes),
+                                     tuple(a_st), tuple(s_st)))
+
+    a0 = property(lambda self: self[0])
+    s0 = property(lambda self: self[1])
+    sizes = property(lambda self: self[2])
+    a_st = property(lambda self: self[3])
+    s_st = property(lambda self: self[4])
+
+    @property
+    def numel(self) -> int:
+        return int(np.prod(self.sizes))
+
+    @property
+    def a_extent(self) -> int:
+        """Words from the box's first arena word to past its last."""
+        return sum((n - 1) * s for n, s in zip(self.sizes, self.a_st)) + 1
+
+    def arena_view(self, buf: torch.Tensor, origin: int = 0) -> torch.Tensor:
+        """The box's words of ``buf``, a contiguous 1-D buffer whose
+        element 0 is arena word ``origin`` (a rank's span)."""
+        return buf.as_strided(self.sizes, self.a_st,
+                              buf.storage_offset() + self.a0 - origin)
+
+    def slice_view(self, buf: torch.Tensor) -> torch.Tensor:
+        """The box's values of ``buf``, a contiguous slice-domain buffer."""
+        return buf.as_strided(self.sizes, self.s_st,
+                              buf.storage_offset() + self.s0)
+
+
+def _box(a0: int, s0: int, dims: list, run: int) -> Box:
+    """The :class:`Box` of ``dims`` (``(count, a_stride, s_stride)``,
+    outermost first) over a run of ``run`` words, its dims of one dropped
+    and each dim that continues the one inside it on both sides merged."""
+    dims = [d for d in dims if d[0] != 1]
+    out: list = []
+    for n, sa, ss in reversed(dims):
+        if not out and sa == run and ss == run:
+            run *= n
+        elif out and sa == out[-1][0] * out[-1][1] \
+                and ss == out[-1][0] * out[-1][2]:
+            m = out.pop()
+            out.append((m[0] * n, m[1], m[2]))
+        else:
+            out.append((n, sa, ss))
+    out.reverse()
+    return Box(a0, s0, [n for n, _, _ in out] + [run],
+               [sa for _, sa, _ in out] + [1], [ss for _, _, ss in out] + [1])
+
+
+def clip_box(b: Box, w0: int, w1: int) -> list:
+    """The words of ``b`` inside the arena words ``[w0, w1)``, as boxes in
+    the box's own order (at most two partial elements of each dim around
+    the whole ones)."""
+    lo = b.a0
+    hi = lo + b.a_extent
+    if hi <= w0 or lo >= w1:
+        return []
+    if lo >= w0 and hi <= w1:
+        return [b]
+    if len(b.sizes) == 1:
+        a, z = max(lo, w0), min(hi, w1)
+        return [Box(a, b.s0 + a - lo, (z - a,), (1,), (1,))]
+    n, sa, ss = b.sizes[0], b.a_st[0], b.s_st[0]
+    inner = Box(b.a0, b.s0, b.sizes[1:], b.a_st[1:], b.s_st[1:])
+    ext = inner.a_extent
+
+    def at(i: int) -> Box:
+        return Box(b.a0 + i * sa, b.s0 + i * ss, inner.sizes, inner.a_st,
+                   inner.s_st)
+    first = min(max((w0 - lo) // sa, 0), n - 1)
+    last = min(max((w1 - 1 - lo) // sa, 0), n - 1)
+    i_lo = min(max(-(-(w0 - lo) // sa), 0), n)
+    i_hi = max(i_lo, min((w1 - lo - ext) // sa + 1, n))
+    out = []
+    if first < i_lo:
+        out += clip_box(at(first), w0, w1)
+    if i_hi > i_lo:
+        out.append(_box(b.a0 + i_lo * sa, b.s0 + i_lo * ss,
+                        [(i_hi - i_lo, sa, ss)] + list(zip(
+                            inner.sizes[:-1], inner.a_st[:-1],
+                            inner.s_st[:-1])), inner.sizes[-1]))
+    if last >= i_hi and not (last == first and first < i_lo):
+        out += clip_box(at(last), w0, w1)
+    return out
+
+
+def _row_groups(r0: int, r1: int, br: int, seg: int, rw: int, srw: int,
+                flat: bool) -> list:
+    """Rows ``[r0, r1)`` of a leaf's ``(rows, rw)`` view as ``(row, dims)``
+    groups, each a box's outer dims (``(count, a_stride, s_stride)``)
+    from its first row: one group where the rows lie at a stride of ``rw``
+    words (a one-block leaf, or blocks without padding), else a block's
+    partial rows at either end and the whole blocks between (``seg``
+    words a block)."""
+    if flat:
+        return [(r0, [(r1 - r0, rw, srw)])]
+    out = []
+    r = r0
+    while r < r1:
+        if r % br or r1 - r < br:
+            e = min(r1, (r // br + 1) * br)
+            out.append((r, [(e - r, rw, srw)]))
+            r = e
+        else:
+            nb = (r1 - r) // br
+            out.append((r, [(nb, seg, br * srw), (br, rw, srw)]))
+            r += nb * br
+    return out
+
+
+def _leaf_boxes(layout, li: int, s: ModelSlice, base: int
+                ) -> tuple[list, tuple]:
+    """The boxes of leaf ``li``'s slice ``s`` (:data:`WHOLE`: the leaf) in
+    an all-f32 arena ``layout``, its slice-domain values from ``base``
+    (row-major in the slice's shape, several ranges concatenated as
+    :func:`take_model_slices` takes them), and the slice's shape. Block
+    ``b`` of the leaf holds rows ``[b br, (b+1) br)`` of its ``(rows,
+    row_width)`` view."""
+    leaf = layout.partition.leaves[li]
+    shape = tuple(leaf.shape)
+    br = layout.partition.block_rows
+    rows, rw = max(leaf.rows, 1), max(leaf.row_width, 1)
+    off, seg = layout.leaf_offset[li], layout.seg_words[li]
+    flat = leaf.n_blocks == 1 or seg == br * rw
+
+    def word(r: int) -> int:
+        return off + (r // br) * seg + (r % br) * rw
+
+    if s and s[0] > 0:
+        k = s[0]
+        outer = int(np.prod(shape[1:k]))
+        d = shape[k]
+        inner = int(np.prod(shape[k + 1:]))
+        width = sum(hi - lo for lo, hi in s.ranges)
+        srw = outer * width * inner
+        row_ranges = [(0, rows, 0)]
+        cols, b = [], 0
+        for lo, hi in s.ranges:
+            cols.append((lo * inner, b * inner,
+                         [(outer, d * inner, width * inner)],
+                         (hi - lo) * inner))
+            b += hi - lo
+        out_shape = shape[:k] + (width,) + shape[k + 1:]
+    else:
+        ranges = s.ranges if s else [(0, rows)]
+        srw = rw
+        row_ranges, b = [], 0
+        for lo, hi in ranges:
+            row_ranges.append((lo, hi, b))
+            b += hi - lo
+        cols = [(0, 0, [], rw)]
+        out_shape = (b,) + shape[1:] if shape else shape
+    boxes = []
+    for lo, hi, sb in row_ranges:
+        for r, rdims in _row_groups(lo, hi, br, seg, rw, srw, flat):
+            for ca, cs, cdims, run in cols:
+                boxes.append(_box(word(r) + ca,
+                                  base + (sb + r - lo) * srw + cs,
+                                  rdims + cdims, run))
+    return boxes, out_shape
+
+
+class SlicePlan:
+    """Which arena words each position of a mesh computes with, and who
+    sends what to whom, for a sharded all-f32 arena ``layout`` (its spans
+    one a position, :meth:`ArenaLayout.span`).
+
+    Model position ``m`` (of ``tp``; one where ``ctx`` is None or its
+    ``model`` axis has one position) computes with its slices of every
+    leaf (:func:`model_slices`), held in the **slice domain**: the slices
+    back to back in leaf order, each contiguous in its own shape
+    (``offsets[m][li]``, ``shapes[m][li]``; ``values[m]`` in all), so a
+    buffer of them decodes to slice-shaped leaves without a copy
+    (:meth:`decode`). ``boxes[m]`` gives each slice as strided boxes of
+    arena words (:func:`_leaf_boxes`), never a per-word index; with
+    ``tp`` 1 every slice is the whole leaf, and the plan moves the whole
+    arena's leaves.
+
+    The exchange (``MeshComm.slice_gather`` and ``slice_reduce``): owner
+    ``q`` sends position ``p`` the words of its span that ``p``'s slices
+    cover (:meth:`gather_boxes`: ``boxes[m]`` clipped to the span, in the
+    same order on both sides); ``p`` sends owner ``q`` its gradient on the
+    words it contributes (:meth:`reduce_boxes`): every data position, and
+    of a model line the positions whose slice covers the word, where a
+    leaf computed whole (:data:`WHOLE` while ``tp > 1``) counts at model
+    position 0 alone. Built on the host once per (layout, mesh, ctx);
+    each clipped list is made on first use and kept."""
+
+    def __init__(self, layout, mesh, ctx: Optional[DistContext] = None):
+        n = int(np.asarray(mesh.devices).size)
+        if layout.shards != n:
+            raise ValueError(f"the layout has {layout.shards} shards, the "
+                             f"mesh {n} positions")
+        if not layout.uniform_f32:
+            raise ValueError("a sharded arena holds an all-f32 model")
+        self.n, self.shard_words = n, layout.shard_words
+        self.pos = mesh.position()
+        tp = 1 if ctx is None else ctx.tp_size
+        self.tp = tp
+        if tp > 1:
+            axis = mesh.axis_names.index(ctx.tp)
+            self.model_of = tuple(int(c) for c in np.unravel_index(
+                np.arange(n), mesh.devices.shape)[axis])
+        else:
+            self.model_of = (0,) * n
+        part = layout.partition
+        self.treedef = part.treedef
+        shapes = tree_unflatten(part.treedef, [torch.empty(l.shape, device="meta")
+                                          for l in part.leaves])
+        self.slices, self.boxes, self.whole = [], [], []
+        self.shapes, self.offsets, self.values = [], [], []
+        for m in range(tp):
+            cut = ([WHOLE] * len(part.leaves) if tp == 1 else
+                   [x for _, x in flatten_with_path(
+                       model_slices(shapes, ctx, pos=m))[0]])
+            boxes, whole, shp, offs, v = [], [], [], [], 0
+            for li, s in enumerate(cut):
+                bx, out_shape = _leaf_boxes(layout, li, s, v)
+                boxes += bx
+                whole += [tp > 1 and not s] * len(bx)
+                shp.append(out_shape)
+                offs.append(v)
+                v += int(np.prod(out_shape))
+            self.slices.append(tuple(cut))
+            self.boxes.append(boxes)
+            self.whole.append(np.asarray(whole, bool))
+            self.shapes.append(tuple(shp))
+            self.offsets.append(tuple(offs))
+            self.values.append(v)
+        self._first = [np.asarray([b.a0 for b in bx], np.int64)
+                       for bx in self.boxes]
+        self._end = [f + np.asarray([b.a_extent for b in bx], np.int64)
+                     for f, bx in zip(self._first, self.boxes)]
+        self._gather: dict = {}
+        self._reduce: dict = {}
+
+    @property
+    def model(self) -> int:
+        """This rank's model position."""
+        return self.model_of[self.pos]
+
+    def gather_boxes(self, q: int, m: int) -> list:
+        """The words of owner ``q``'s span that model position ``m``'s
+        slices cover, as boxes (arena words and slice-domain values)."""
+        key = (q, m)
+        got = self._gather.get(key)
+        if got is None:
+            w0, w1 = q * self.shard_words, (q + 1) * self.shard_words
+            hit = np.flatnonzero((self._first[m] < w1)
+                                 & (self._end[m] > w0))
+            got = [(c, bool(self.whole[m][i])) for i in hit.tolist()
+                   for c in clip_box(self.boxes[m][i], w0, w1)]
+            self._gather[key] = got
+        return [b for b, _ in got]
+
+    def reduce_boxes(self, q: int, m: int) -> list:
+        """The words of owner ``q``'s span to which model position ``m``
+        contributes its gradient: :meth:`gather_boxes` less the leaves
+        computed whole, at a model position other than 0."""
+        key = (q, m)
+        got = self._reduce.get(key)
+        if got is None:
+            self.gather_boxes(q, m)
+            got = [b for b, w in self._gather[(q, m)] if m == 0 or not w]
+            self._reduce[key] = got
+        return got
+
+    def gather_words(self, q: int, m: int) -> int:
+        return sum(b.numel for b in self.gather_boxes(q, m))
+
+    def reduce_words(self, q: int, m: int) -> int:
+        return sum(b.numel for b in self.reduce_boxes(q, m))
+
+    def max_count(self, reduce: bool) -> int:
+        """The largest count any owner and position exchange (the same on
+        every rank: it sets the all-to-all's rounds)."""
+        words = self.reduce_words if reduce else self.gather_words
+        return max((words(q, m) for q in range(self.n)
+                    for m in range(self.tp)), default=0)
+
+    def decode(self, buf: torch.Tensor, m: Optional[int] = None) -> list:
+        """Model position ``m``'s (default this rank's) slices in leaf
+        order, views of its slice-domain ``buf``."""
+        m = self.model if m is None else m
+        return [buf[o:o + int(np.prod(s))].view(s)
+                for o, s in zip(self.offsets[m], self.shapes[m])]
+
+    def take(self, tree: PyTree, dtype=torch.float32) -> torch.Tensor:
+        """This rank's slices of the whole leaves of ``tree``, as a new
+        slice-domain buffer of ``dtype``."""
+        m = self.model
+        leaves = tree_leaves(tree)
+        out = torch.empty((self.values[m],), dtype=dtype,
+                          device=leaves[0].device)
+        for x, s, y in zip(leaves, self.slices[m], self.decode(out)):
+            y.copy_(_take(x, s))
+        return out
+
+    def pack(self, out: torch.Tensor, grads: list) -> torch.Tensor:
+        """Each slice-shaped gradient of ``grads`` (leaf order) copied into
+        the slice-domain ``out``, the list's entry set to None once
+        copied (a caller holding no other reference frees it there)."""
+        for li, y in enumerate(self.decode(out)):
+            y.copy_(grads[li])
+            grads[li] = None
+        return out
+
+    def accumulate(self, acc: torch.Tensor, grads: list) -> torch.Tensor:
+        """``acc += grads`` in the slice domain, leaf by leaf, in f32 and
+        rounded to ``acc``'s dtype (``core.arena.accumulate_values``'s
+        arithmetic), each entry of ``grads`` set to None once added."""
+        for li, y in enumerate(self.decode(acc)):
+            g = grads[li]
+            grads[li] = None
+            if acc.dtype == torch.float32:
+                y.add_(g)
+            else:
+                y.copy_(y.to(torch.float32) + g.to(torch.float32))
+            del g
+        return acc
 
 
 # ---------------------------------------------------------------------------

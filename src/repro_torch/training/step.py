@@ -20,7 +20,8 @@ is the microbatches' mean. The arena step adds each microbatch's gradient
 into its value-domain accumulator leaf by leaf and divides it in place
 (:func:`repro_torch.core.arena.accumulate_values`), the same elementwise
 arithmetic as the tree path's. Its accumulator, one ``(total_values,)``
-buffer, is allocated at the first step and cleared in place at every
+buffer (on a mesh, the rank's slice values), is allocated at the first
+step and cleared in place at every
 later one, until the step's ``release()`` lets it go (``TrainLoop.run``
 calls it as it returns): a new buffer a step (11.9 GB for one
 internvl2-76b layer) lets the caching allocator's segments fragment
@@ -30,33 +31,46 @@ A step returns ``(new_state, loss)`` with the loss a 0-d f32 tensor on
 the device (reading it waits for the step).
 
 **On a mesh** (``comm``, a :class:`~repro_torch.distributed.collectives.
-MeshComm`) each rank computes the loss of its slice of the global batch.
-The arena step all-gathers the arena from the ranks' spans, decodes it as
-above, packs the gradient to the value domain, reduce-scatters it into
-the rank's span (the sum over the ranks, divided by the number of batch
-shards: the mean of the shards' gradients) and applies the optimizer to
-the span in place; the loss is the mean of the shards' losses.
+MeshComm`) each rank computes the loss of its slice of the global batch
+and holds only its span of the arena and of its moments. A step runs on
+the rank's model slices alone (the plan of
+:class:`~repro_torch.sharding.partition.SlicePlan`, built once with the
+step): ``slice_gather`` brings the words of the rank's slices from their
+owners' spans into one slice-domain buffer, which decodes to
+slice-shaped leaves without a copy; the loss and its gradient are taken
+with respect to those leaves; the gradient is packed leaf by leaf into a
+slice-domain buffer (or, microbatched, added into the rank's slice-sized
+accumulator); ``slice_reduce`` sends each word's gradient to the owner
+of its span, which adds the contributions in mesh position order (the
+sum over the ranks, divided by the number of batch shards: the mean of
+the shards' gradients), and the optimizer runs over the span in place.
+No rank holds a buffer of the whole arena. The loss is the mean of the
+shards' losses.
 
 Where the forward is model-parallel (``ctx``: a mesh whose ``model`` axis
 has ``tp > 1`` positions) the batch shards are the data positions, each
-shared by the ``tp`` ranks of its model line. Each rank takes its model
-slices from the decoded leaves
-(:func:`~repro_torch.sharding.partition.take_model_slices`), so its
-gradient lands in its slices of the whole leaves and is zero elsewhere; a
-leaf every rank computes whole (norms, the router, an embedding whose
-vocab does not split) gets its whole gradient on every rank of the line,
-and only the line's first rank (model position 0) keeps it. A cut leaf
-counts on every rank, also where every rank of the line holds a part of
-it (a Mamba2 ``in_proj``'s B and C columns, each rank's gradient there
-the part of its own SSD heads). The reduce-scatter's sum then holds each
-data shard's gradient once, and one divisor, the data positions, makes
-the mean. The loss, the same on every rank of a line, is counted at model
-position 0 alone. A ``(n, 1)`` mesh (the survivor mesh) has ``tp = 1``:
-every rank runs the whole forward on its own rows.
+shared by the ``tp`` ranks of its model line, and a rank's slices are
+its cuts of each leaf (:func:`~repro_torch.sharding.partition.
+model_slices`). A word's gradient comes from every data position and,
+of a model line, from the positions whose slice covers it: a cut leaf
+counts on every rank whose slice covers the word, also where the slices
+overlap (a kv head shared by several positions, a Mamba2 ``in_proj``'s B
+and C columns, each rank's part the gradient of its own heads); a leaf
+every rank computes whole (norms, the router, an embedding whose vocab
+does not split) counts at the line's first rank (model position 0)
+alone. One divisor, the data positions, makes the mean. The loss, the
+same on every rank of a line, is counted at model position 0 alone. A
+``(n, 1)`` mesh (the survivor mesh) has ``tp = 1``: every slice is the
+whole leaf, the same code gathers the whole arena's leaves, and every
+rank runs the whole forward on its own rows. This is bit for bit the
+whole-arena step it replaced (the arena all-gathered, the gradient of
+the whole leaves, zero outside the rank's slices, packed and
+reduce-scattered), up to the sign of a zero sum: a position's +0.0 part
+is no longer added.
 
-The PyTree step, whose every rank holds the whole tree, reduces its
-gradient through the same reduce-scatter (the same collective in the same
-order: gloo's all-reduce and reduce-scatter need not associate alike),
+The PyTree step on a mesh keeps its whole tree on every rank: it takes
+its slices of the tree (:meth:`SlicePlan.take`) and runs the same
+gradient and the same ``slice_reduce`` as the arena step, then
 all-gathers the reduced spans and updates the tree in place, slice by
 slice (the arena path's apply does the same; out of place, a full-width
 tree, its moments and their new copies do not fit four ranks on one
@@ -77,7 +91,8 @@ from repro_torch.models.api import ModelOps
 from repro_torch.models.layers import torch_dtype
 from repro_torch.optim.optimizers import (APPLY_SLICE, Optimizer, OptState,
                                           arena_apply)
-from repro_torch.sharding.partition import model_slices, take_model_slices
+from repro_torch.sharding.partition import (SlicePlan, model_slices,
+                                            take_model_slices)
 from repro_torch.training.train_state import ArenaTrainState, TrainState
 from repro_torch.utils.tree import tree_flatten, tree_map, tree_unflatten
 
@@ -85,28 +100,34 @@ PyTree = Any
 
 
 def _grad_leaves(ops: ModelOps, cfg: ModelConfig, params: PyTree,
-                 batch: dict, ctx=None) -> tuple[torch.Tensor, list, Any]:
+                 batch: dict, ctx=None, sliced: bool = False
+                 ) -> tuple[torch.Tensor, list, Any]:
     """The loss of ``batch`` and its gradient with respect to every leaf of
     ``params``, as a list in leaf order (leaves the loss does not reach
     get zeros), and the tree's structure. The leaves are taken as they
     are (aliases that require grad; nothing is copied). With a
-    model-parallel ``ctx`` the loss runs on views of this rank's model
-    slices and a leaf computed whole keeps its gradient at model position
-    0 only (see the module docstring)."""
+    model-parallel ``ctx`` the loss runs on this rank's model slices:
+    ``params`` are those slices (``sliced``), or whole leaves whose slices
+    it takes as views, and then a leaf computed whole keeps its gradient
+    at model position 0 only."""
     leaves, treedef = tree_flatten(params)
     leaves = [x.detach().requires_grad_(True) for x in leaves]
     tree = tree_unflatten(treedef, leaves)
     with torch.enable_grad():
         if ctx is None:
             loss = ops.train_loss(tree, batch, cfg)
+        elif sliced:
+            loss = ops.train_loss(tree, batch, cfg, ctx=ctx)
         else:
             slices = model_slices(tree, ctx)
             loss = ops.train_loss(take_model_slices(tree, slices), batch,
                                   cfg, ctx=ctx)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    del tree
     grads = [torch.zeros_like(x) if g is None else g
              for x, g in zip(leaves, grads)]
-    if ctx is not None and ctx.mesh.axis_position(ctx.tp) != 0:
+    if ctx is not None and not sliced \
+            and ctx.mesh.axis_position(ctx.tp) != 0:
         for g, s in zip(grads, tree_flatten(slices)[0]):
             if not s:
                 g.zero_()
@@ -149,10 +170,51 @@ def _mean_loss(loss: torch.Tensor, comm, tp_ctx, shards: int
     return comm.all_reduce(mine)[0] / shards
 
 
-def _reduced_span(grads: torch.Tensor, comm, shards: int) -> torch.Tensor:
-    """This rank's span of the batch shards' mean gradient (value
-    domain)."""
-    span = comm.reduce_scatter(grads)
+def _slice_grads(ops: ModelOps, cfg: ModelConfig, plan, words: list,
+                 batch: dict, tp_ctx, acc: list) -> tuple[torch.Tensor,
+                                                          torch.Tensor]:
+    """The loss of ``batch`` on this rank's slices (``words[0]``, a
+    slice-domain buffer of ``plan``, which this call takes and drops once
+    the backward no longer needs it) and its gradient, a slice-domain
+    buffer: packed leaf by leaf, each leaf's gradient dropped once packed,
+    or (``cfg.microbatch > 1``) added microbatch by microbatch into the
+    accumulator ``acc`` holds (made at the first call, in
+    ``cfg.opt_moment_dtype``, cleared in place at each later one) and
+    divided by the microbatches in place."""
+    m = plan.model
+    buf = words.pop()
+    params = tree_unflatten(plan.treedef, plan.decode(buf.view(
+        torch.float32)))
+    mb = max(cfg.microbatch, 1)
+    if mb == 1:
+        loss, g, _ = _grad_leaves(ops, cfg, params, batch, tp_ctx,
+                                  sliced=True)
+        del params, buf
+        return loss, plan.pack(torch.empty((plan.values[m],),
+                                           dtype=torch.float32,
+                                           device=g[0].device), g)
+    if acc:
+        grads = acc[0].zero_()
+    else:
+        grads = torch.zeros((plan.values[m],),
+                            dtype=torch_dtype(cfg.opt_moment_dtype),
+                            device=buf.device)
+        acc.append(grads)
+    loss_sum = 0.0
+    for bx in _microbatches(batch, mb):
+        l, g, _ = _grad_leaves(ops, cfg, params, bx, tp_ctx, sliced=True)
+        plan.accumulate(grads, g)
+        loss_sum = loss_sum + l
+    del params, buf
+    grads.div_(mb)            # in the accumulator's dtype, as the tree
+    return loss_sum / mb, grads
+
+
+def _reduced_span(grads: torch.Tensor, comm, plan, shards: int
+                  ) -> torch.Tensor:
+    """This rank's span of the batch shards' mean gradient, from each
+    rank's slice-domain ``grads``."""
+    span = comm.slice_reduce(grads, plan)
     if shards > 1:
         span.div_(shards)
     return span
@@ -186,38 +248,40 @@ def _update_in_place(optimizer: Optimizer, grads: PyTree,
 def make_train_step(ops: ModelOps, cfg: ModelConfig, optimizer: Optimizer,
                     layout=None, comm=None, ctx=None):
     """The PyTree step: ``(TrainState, batch) -> (TrainState', loss)``.
-    On a mesh (``comm``, and its ``ctx``) the gradient is reduced through
-    the arena ``layout``'s value domain (see the module docstring)."""
+    On a mesh (``comm``, and its ``ctx``) the gradient of the rank's
+    slices is reduced into its span of the arena ``layout`` and gathered
+    back (see the module docstring)."""
     tp_ctx, shards = _mesh_terms(cfg, comm, ctx)
+    plan = None if comm is None else SlicePlan(layout, comm.mesh, tp_ctx)
 
     def train_step(state: TrainState, batch: dict):
+        if comm is not None:
+            loss, g = _slice_grads(ops, cfg, plan, [plan.take(
+                state.params)], batch, tp_ctx, [])
+            span = _reduced_span(g, comm, plan, shards)
+            del g
+            grads = unpack_arena(comm.all_gather(span).view(torch.int32),
+                                 layout, copy=False)
+            del span
+            loss = _mean_loss(loss, comm, tp_ctx, shards)
+            opt_state = _update_in_place(optimizer, grads, state)
+            return TrainState(state.params, opt_state, state.step + 1), loss
         mb = max(cfg.microbatch, 1)
         if mb == 1:
-            loss, grads = loss_and_grad(ops, cfg, state.params, batch,
-                                        tp_ctx)
+            loss, grads = loss_and_grad(ops, cfg, state.params, batch)
         else:
             acc_dtype = torch_dtype(cfg.opt_moment_dtype)
             gacc = tree_map(lambda p: torch.zeros(
                 p.shape, dtype=acc_dtype, device=p.device), state.params)
             loss_sum = 0.0
             for bx in _microbatches(batch, mb):
-                l, g = loss_and_grad(ops, cfg, state.params, bx, tp_ctx)
+                l, g = loss_and_grad(ops, cfg, state.params, bx)
                 gacc = tree_map(lambda a, x: (a.to(torch.float32)
                                               + x.to(torch.float32)
                                               ).to(a.dtype), gacc, g)
                 loss_sum = loss_sum + l
             loss = loss_sum / mb
             grads = tree_map(lambda g: g / mb, gacc)
-        if comm is not None:
-            packed = pack_values(grads, layout)
-            del grads
-            span = _reduced_span(packed, comm, shards)
-            del packed
-            grads = unpack_arena(comm.all_gather(span).view(torch.int32),
-                                 layout, copy=False)
-            loss = _mean_loss(loss, comm, tp_ctx, shards)
-            opt_state = _update_in_place(optimizer, grads, state)
-            return TrainState(state.params, opt_state, state.step + 1), loss
         params, opt_state = optimizer.update(grads, state.opt_state,
                                              state.params)
         return TrainState(params, opt_state, state.step + 1), loss
@@ -238,18 +302,27 @@ def make_arena_train_step(ops: ModelOps, cfg: ModelConfig,
     the tree path's ``.to(p.dtype)``."""
     acc: list = []          # the microbatched step's accumulator, reused
     tp_ctx, shards = _mesh_terms(cfg, comm, ctx)
+    plan = None if comm is None else SlicePlan(layout, comm.mesh, tp_ctx)
 
     def train_step(state: ArenaTrainState, batch: dict):
+        if comm is not None:
+            loss, g = _slice_grads(ops, cfg, plan, [comm.slice_gather(
+                state.arena, plan)], batch, tp_ctx, acc)
+            grads = _reduced_span(g, comm, plan, shards)
+            del g
+            loss = _mean_loss(loss, comm, tp_ctx, shards)
+            arena, opt_state = arena_apply(
+                optimizer, grads, state.opt_state, state.arena, layout,
+                runs=layout.span_runs(comm.pos))
+            return ArenaTrainState(arena, opt_state, state.step + 1,
+                                   state.layout), loss
         # views of the arena where they can be: nothing writes it before
         # the apply below, after the last microbatch's backward
-        full = state.arena if comm is None else comm.all_gather(state.arena)
-        params = unpack_arena(full, layout, copy=False)
+        params = unpack_arena(state.arena, layout, copy=False)
         mb = max(cfg.microbatch, 1)
         if mb == 1:
-            loss, g = loss_and_grad(ops, cfg, params, batch, tp_ctx)
-            # on a mesh the gathered arena goes before the pack: the
-            # gradient leaves are tensors of their own
-            del params, full
+            loss, g = loss_and_grad(ops, cfg, params, batch)
+            del params
             grads = pack_values(g, layout)
             del g
         else:
@@ -261,25 +334,21 @@ def make_arena_train_step(ops: ModelOps, cfg: ModelConfig,
             else:
                 grads = torch.zeros((layout.total_values,),
                                     dtype=torch_dtype(cfg.opt_moment_dtype),
-                                    device=full.device)
+                                    device=state.arena.device)
                 acc.append(grads)
             loss_sum = 0.0
             for bx in _microbatches(batch, mb):
-                l, g, _ = _grad_leaves(ops, cfg, params, bx, tp_ctx)
+                l, g, _ = _grad_leaves(ops, cfg, params, bx)
                 accumulate_values(grads, g, layout)
                 loss_sum = loss_sum + l
             loss = loss_sum / mb
             grads.div_(mb)        # in the accumulator's dtype, as the tree
-            del params, full
-        runs = None
-        if comm is not None:
-            grads = _reduced_span(grads, comm, shards)
-            loss = _mean_loss(loss, comm, tp_ctx, shards)
-            runs = layout.span_runs(comm.pos)
+            del params
         arena, opt_state = arena_apply(optimizer, grads, state.opt_state,
-                                       state.arena, layout, runs=runs)
+                                       state.arena, layout)
         return ArenaTrainState(arena, opt_state, state.step + 1,
                                state.layout), loss
 
     train_step.release = acc.clear
+    train_step.plan = plan
     return train_step

@@ -245,8 +245,8 @@ def test_trainer_defaults_to_cuda_and_names_its_roadmap_items(tmp_path):
     mesh raises; ``moe_block`` on a one-rank mesh is the ctx-less call
     (the expert-parallel MoE, item 38, is ported) and no port file names
     items 15, 38, 39 (the other families' tensor parallelism), 40 (the
-    server on a mesh) or 41 (query heads that do not split over the model
-    axis) any more."""
+    server on a mesh), 41 (query heads that do not split over the model
+    axis) or 42 (the mesh step's whole-arena gather) any more."""
     from repro_torch.data import ShardedLMDataset
     cfg = get_config("qwen2-1.5b", reduced=True)
     if torch.cuda.is_available():
@@ -292,6 +292,7 @@ def test_trainer_defaults_to_cuda_and_names_its_roadmap_items(tmp_path):
         assert "item 39" not in text, path
         assert "item 40" not in text, path
         assert "item 41" not in text, path
+        assert "item 42" not in text, path
 
 
 def _env_writes(tree: ast.Module) -> list:
@@ -342,6 +343,15 @@ def test_no_xla_flags_and_no_open_launch_item(path):
     text = path.read_text()
     assert "XLA_FLAGS" not in text, path
     assert "item 17" not in text, path
+
+
+def test_slice_exchange_modules_are_scanned():
+    """The slice plan, its exchange and the step that runs them are among
+    the files the import guard reads."""
+    names = {str(p.relative_to(ROOT)) for p in FILES}
+    for mod in ("sharding/partition", "distributed/collectives",
+                "training/step", "launch/dryrun"):
+        assert f"src/repro_torch/{mod}.py" in names
 
 
 def test_launch_modules_are_scanned():

@@ -292,6 +292,8 @@ for name in %(names)r:
         rec = dryrun.measure(step)
         res[(name, kind)] = {k: (v["calls"], v["bytes"])
                              for k, v in rec["stats"].items()}
+        res[(name, kind, "result")] = {k: v.get("result_bytes")
+                                       for k, v in rec["stats"].items()}
 pickle.dump(res, open(f"{out}/rank_{rank}.pkl", "wb"))
 dist.destroy_process_group()
 '''
@@ -340,3 +342,45 @@ def test_counting_stand_in_equals_a_real_gloo_job(gloo_job, name, kind):
         got = {k: (v["calls"], v["bytes"]) for k, v in dry["stats"].items()}
         assert got == r[(name, kind)], r["rank"]
         assert sum(v[1] for v in got.values()) > 0
+
+
+@pytest.mark.parametrize("method", ("slice_gather", "slice_reduce"))
+@pytest.mark.parametrize("name", GLOO_NAMES)
+def test_counting_stand_in_slice_exchange_equals_a_real_gloo_job(
+        gloo_job, name, method):
+    """The train step's two slice collectives: the stand-in's calls,
+    bytes and result bytes equal a real rank's, and the gathered result
+    is 4 B a value of the rank's slices."""
+    from repro_torch.sharding.partition import SlicePlan
+    b, s = next((b, s) for k, b, s in KINDS if k == "train")
+    cfg = get_config(name, reduced=True)
+    for r in gloo_job:
+        mesh = make_dry_mesh((2, 2), ("data", "model"),
+                             position=r["position"])
+        step = dryrun.build_rank_step(cfg, "train", b, s, mesh, "meta")
+        dry = dryrun.measure(step)["stats"][method]
+        real = r[(name, "train")][method]
+        assert (dry["calls"], dry["bytes"]) == real and real[0] == 1
+        assert dry["result_bytes"] == r[(name, "train", "result")][method]
+        plan = step.info["slice_plan"]
+        want = plan.values[plan.model] if method == "slice_gather" \
+            else plan.shard_words
+        assert dry["result_bytes"] == 4 * want > 0
+
+
+def test_train_probe_gathers_the_slices_alone():
+    """granite-8b's depth-1 train probe on rank 0 of the dry (16, 16)
+    mesh: the gather's result is 4 B a value of the rank's model slices,
+    a fifteenth of the arena's words or less."""
+    mesh = make_dry_production_mesh()
+    rec = dryrun.probe("granite-8b", "train_4k", mesh, n_layers=1)
+    cfg = dataclasses.replace(get_config("granite-8b"), n_layers=1)
+    step = dryrun.build_rank_step(cfg, "train", 2, 8, mesh, "meta")
+    plan = step.info["slice_plan"]
+    gather = rec["collectives"]["all-gather"]
+    assert gather["count"] == 1
+    assert gather["bytes"] == 4 * plan.values[0] == 157_335_552
+    assert 15 * plan.values[0] < step.info["arena_words"]
+    assert rec["collectives"]["reduce-scatter"]["bytes"] \
+        == 4 * plan.shard_words
+
