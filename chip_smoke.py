@@ -176,7 +176,7 @@ Phases, each of which fails the run if it fails:
     memory.
 18. The disk store and async maintenance, in a fresh directory under
     ``build/`` (its free space checked against 20 GB first; removed at the
-    end, also when a check fails): (a) phase 17(a)'s model with 7 of its
+    end, also when a check fails): (a) phase 17(a)'s model with 4 of its
     28 layers, and its batches, with ``FabricConfig(async_maintain=True)``,
     a ``ShardedCheckpointStore``, ``scar(0.125, 32)`` (a 1/8 save every 4
     steps), 8 steps, hosts 0 and 2 lost at step 5, held against the same
@@ -207,10 +207,10 @@ Phases, each of which fails the run if it fails:
     recovery flow and the route hold; sw_attention in the decoder's
     self-attention prefill (the encoder's and the cross-attention are the
     plain chunked attention, as in the reference).
-21. zamba2-1.2b trained at full width, 12 of its 38 Mamba2 layers (two
-    segments, the shared block twice; the depth cut to the script's time
-    budget), d 2048, bf16, 505,118,976 values as per-layer leaves (the
-    shared block one set of leaves), as phase 17(a)
+21. zamba2-1.2b trained at full width, 7 of its 38 Mamba2 layers (two
+    segments, the shared block twice, its gradient the sum of both uses;
+    the depth cut to the script's time budget), d 2048, bf16, as
+    per-layer leaves (the shared block one set of leaves), as phase 17(a)
     trains qwen2-1.5b: adamw(3e-4), ``scar(0.125, 2)``, ``FabricConfig()``,
     arena-resident, batch 4 x 2048 from ``ShardedLMDataset(seed=0)``, 8
     steps, hosts 0 and 2 lost at step 5. Phase 17(a)'s checks (step 1's
@@ -230,7 +230,9 @@ Phases, each of which fails the run if it fails:
     train_lm_with_failures at ``--tiny`` (8 steps, ``--fail-prob 0.3``)
     for zamba2-1.2b, whisper-medium, qwen3-moe-235b-a22b and
     internvl2-76b; each held against the same call on
-    the CPU (the LM examples from the same numpy weights and prompts): tier
+    the CPU (the LM examples from the same numpy weights and prompts; in
+    the full run the CPU's calls run in a host process of their own,
+    one torch thread, beside phases 10-22): tier
     counts, fallbacks, lost blocks, tokens and the advisor's choices equal,
     iteration costs within ±1, losses and the fitted contraction within
     rtol 1e-4; every kernel but fused_maintain launched on this path
@@ -353,8 +355,8 @@ Phases, each of which fails the run if it fails:
 33. **The Server on a mesh** (:func:`phase_serve_mesh`): 4 ranks on a
     (1, 4) mesh serve command-r-plus-104b at full width (2 of its 64
     layers; batch 2, a 4,608-token prompt, 16 greedy tokens, a bf16 arm
-    and an int8 ring-cache arm) and zamba2-1.2b at full width (12 of its
-    38 layers)
+    and an int8 ring-cache arm) and zamba2-1.2b at full width (7 of its
+    38 layers: two segments, a KV cache for each use of the shared block)
     (1,024 tokens), each rank placing only its model slices; held against
     one rank's bf16 and f32 routes in this process (the tokens the same on
     every rank, the last prefill logits within 1.5 times one device's bf16
@@ -369,8 +371,8 @@ Phases, each of which fails the run if it fails:
     pairs at full width on one rank of the dry (16, 16) production mesh
     and the one-card roofline of phase 29's command-r-plus-104b prefill and
     decode beside phase 29's measured seconds, computed on meta tensors
-    in processes beside the kernels' build (no window is timed there) and
-    joined before phase 2; (b) rank 0 of that mesh's pair A and
+    in host processes (:data:`LATE_JOBS`) and joined before phase 30; (b)
+    rank 0 of that mesh's pair A and
     C baselines run on the card at depths 1 and 2 through the counting
     stand-in (argument bytes equal to the meta run's, its temp bytes
     within 10% of the card's peak over the step's baseline, the seconds
@@ -391,8 +393,9 @@ Phases, each of which fails the run if it fails:
     llama4-maverick-400b-a17b's first dense + MoE pair at full width (3
     and 2 of the 40 query heads over the kv head they share), the
     prefill_32k and decode_32k steps through the counting stand-in
-    (argument bytes equal to the meta run's, computed beside the build;
-    temp bytes within 10% of the card's peak; every sw_attention call
+    (argument bytes equal to the meta run's, computed on the host before
+    the mesh phases; temp bytes within 10% of the card's peak; every
+    sw_attention call
     against plain); rank 3 of qwen2-1.5b's (16, 16) mesh, which holds no
     query head, launches no sw_attention. (b) qwen2-1.5b at full width
     and depth served on a (1, 8) mesh of 8 gloo ranks (2, 1, 2, 1, ...
@@ -405,14 +408,28 @@ Phases, each of which fails the run if it fails:
     granite-8b at full width and depth (36 layers, f32 as the dry run,
     ``train_4k``: its data shard of 16 sequences of 4,096 tokens) through
     ``dryrun.build_rank_step`` and the counting stand-in, gathering only
-    its model slices (a sixteenth of the model). Held: the argument bytes
-    equal to the same step's full-depth meta run's (computed beside the
-    kernels' build), the card's peak over the step's baseline within 10%
-    of its temp bytes and under 80 GB, the gathered result 4 B a slice
-    value. Printed: the step's seconds (the median of the timed runs
-    after one untimed run). The stand-in's values are unset, so no value
+    its model slices (a sixteenth of the model), each layer's while it
+    runs. Held: the argument bytes
+    equal to the same step's full-depth meta run's (computed in a host
+    process before the mesh phases), the card's peak over the step's baseline within 10%
+    of its temp bytes and under 80 GB, the gathers' and reduces' counts
+    and bytes what the slice plan's groups add up to. Printed: the step's
+    seconds (one step, timed with no untimed step before it). The
+    stand-in's values are unset, so no value
     is held. ``python3 chip_smoke.py --slice-train`` runs phases 1 and 36
     alone (``{"slice_train_only": true, ...}``).
+37. **The mesh train step gathers each layer's slices as it runs**
+    (:func:`phase_layer_train`): rank 0 of the dry (16, 16) mesh trains
+    llama4-maverick-400b-a17b at full width and depth (48 layers, 24
+    dense + MoE pairs, f32, ``train_4k`` at microbatch 4) as phase 36
+    does: each layer's slices gathered in its forward and again in its
+    recompute, its gradient sent as the backward leaves it, so the rank
+    holds the outer group (embedding, head, norms), one layer and the
+    remat checkpoints. Held as phase 36 (the peak under 80 GB less the
+    argument bytes), and no layer group above a tenth of the rank's
+    slices. Printed: one step's seconds, timed with no untimed step before
+    it. ``python3 chip_smoke.py --layer-train`` runs phases 1 and 37 alone
+    (``{"layer_train_only": true, ...}``).
 
 The line before the last is the kernels' JSON record (each kernel's
 launches on its own path, ``train_launches`` on phase 17's,
@@ -3614,10 +3631,10 @@ TRAIN_KERNELS = ("arena_maintain", "arena_scatter", "masked_restore",
 
 STORE_POLICY = (0.125, 32)       # scar(0.125, 32): a 1/8 save every 4 steps
 STORE_STEPS = 8
-# 18(a)'s depth: 7 of qwen2-1.5b's 28 layers (794,333,696 values) keep the
-# whole script inside its time budget (phase 18 took 86-117 s with 18(a)
-# at full depth)
-STORE_LAYERS = 7
+# 18(a)'s depth: 4 of qwen2-1.5b's 28 layers keep the whole script inside
+# its time budget (phase 18 took 86-117 s with 18(a) at full depth, 54 s
+# at 7 layers on a slow host)
+STORE_LAYERS = 4
 STORE_FREE_BYTES = 20e9          # the reckoning of 18(a)'s disk use
 STORE_KERNELS_DISK = ("masked_restore", "block_dist", "scatter_save")
 
@@ -3971,14 +3988,14 @@ def train_only(device, card: str) -> int:
 
 # 448 tokens: whisper's published decoder context; 1,500 frames a sequence.
 # Depths cut to the script's time budget: whisper-medium's decoder at 12 of
-# 24 layers, zamba2-1.2b's first two segments (12 of 38 Mamba2 layers, the
-# shared block twice)
+# 24 layers, zamba2-1.2b at 7 of 38 Mamba2 layers (two segments: the shared
+# block runs twice and its gradient sums both uses)
 TRAIN_WHISPER = dict(batch=4, seq=448, steps=8, layers=12)
-TRAIN_ZAMBA2 = dict(TRAIN, layers=12)
+TRAIN_ZAMBA2 = dict(TRAIN, layers=7)
 
 
 def phase_zamba2_train(device, launches: dict) -> dict:
-    """Phase 21: zamba2-1.2b at full width (12 of its 38 Mamba2 layers,
+    """Phase 21: zamba2-1.2b at full width (7 of its 38 Mamba2 layers,
     the shared block twice, bf16, per-layer leaves) trained as phase 17(a)
     trains qwen2-1.5b; ``launches["zamba2_train"]``."""
     out = _train_full("zamba2-1.2b", device, launches, "zamba2_train",
@@ -4188,13 +4205,30 @@ def _check_examples(gpu: dict, cpu: dict) -> dict:
                                for a in TINY_TRAIN_ARCHS}}
 
 
-def phase_examples(device, launches: dict) -> dict:
-    """Phase 23: the six ported examples on the card, each held against
-    the same call on the CPU; ``launches["examples"]`` gets the card
-    runs' counts. Stores go to a directory under ``build/``, removed at
-    the end."""
+def _examples_cpu() -> dict:
+    """Phase 23's CPU runs (:func:`_run_examples` on the CPU, on
+    :func:`_examples_inputs`), their stores in a directory of their own
+    under ``build/``, removed at the end; with their seconds."""
     import shutil
     import torch
+    root = ROOT / "build" / f"examples_phase23_cpu_{os.getpid()}"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    try:
+        t0 = time.perf_counter()
+        runs = _run_examples(torch.device("cpu"), root, _examples_inputs())
+        return {"runs": runs, "seconds": time.perf_counter() - t0}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_examples(device, launches: dict, cpu=None) -> dict:
+    """Phase 23: the six ported examples on the card, each held against
+    the same call on the CPU (``cpu``: :func:`_examples_cpu`'s result, run
+    beforehand in another process; else run here after the card's);
+    ``launches["examples"]`` gets the card runs' counts. Stores go to a
+    directory under ``build/``, removed at the end."""
+    import shutil
     from repro_torch.kernels import _build
     root = ROOT / "build" / "examples_phase23"
     shutil.rmtree(root, ignore_errors=True)
@@ -4206,11 +4240,11 @@ def phase_examples(device, launches: dict) -> dict:
         gpu = _run_examples(device, root, inputs)
         card_s = time.perf_counter() - t0
         launches["examples"] = dict(_build.LAUNCHES)
-        t0 = time.perf_counter()
-        cpu = _run_examples(torch.device("cpu"), root, inputs)
-        cpu_s = time.perf_counter() - t0
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    if cpu is None:
+        cpu = _examples_cpu()
+    cpu, cpu_s = cpu["runs"], cpu["seconds"]
     out = _check_examples(gpu, cpu)
     for kernel in EXAMPLE_KERNELS:
         check(launches["examples"][kernel] > 0,
@@ -6644,12 +6678,13 @@ def ssm_mesh_only(device, card: str) -> int:
 # query heads, 2 of the 8 kv heads, 8,448 of d_ff 33,792 and 64,000 of
 # the 256,000 vocab rows: 2.36 G values); its 4,608-token prompt is past
 # the 4,096-token window, so the int8 arm's ring cache and banded prefill
-# run on the mesh. zamba2-1.2b at 12 of its 38 Mamba2 layers (two
-# segments, the shared block applied twice; 16 of the 64 SSD heads, 8 of
-# the shared block's 32 kv heads, 8,000 vocab rows a rank) on 1,024 tokens
+# run on the mesh. zamba2-1.2b at 7 of its 38 Mamba2 layers (two
+# segments, the shared block applied twice, each use with its own KV
+# cache; 16 of the 64 SSD heads, 8 of the shared block's 32 kv heads,
+# 8,000 vocab rows a rank) on 1,024 tokens
 SERVE_MESH = dict(ranks=4, model=4, new=16, seed=33, timeout=900,
                   archs=(("command-r-plus-104b", dict(n_layers=2), 2, 4608),
-                         ("zamba2-1.2b", dict(n_layers=12), 2, 1024)))
+                         ("zamba2-1.2b", dict(n_layers=7), 2, 1024)))
 # the mesh's last prefill logits against the one-rank bf16 route's, within
 # this factor of one device's bf16 floor: the one-rank bf16 route's
 # distance (relative L2) from the same weights in f32, the yardstick phase
@@ -7117,7 +7152,7 @@ def phase_serve_mesh(device, launches: dict, card: str, opts=None) -> dict:
     scatter_save and masked_restore against theirs. The tokens' agreement
     with the one-rank route is printed, not held.
 
-    (b) zamba2-1.2b at full width, 12 of its 38 layers, on the same mesh
+    (b) zamba2-1.2b at full width, 7 of its 38 layers, on the same mesh
     (batch 2, prompt 1,024, 16 tokens): held as (a), ssd_intra's calls
     too.
 
@@ -7233,7 +7268,9 @@ def serve_mesh_only(device, card: str) -> int:
 # ---------------------------------------------------------------------------
 
 LAUNCH = dict(
-    seed=34, jobs=6,
+    # ``jobs`` processes run a partial run's analyses beside the kernels'
+    # build; the full run's (:data:`LATE_JOBS`) run in ``late_jobs``
+    seed=34, jobs=8, late_jobs=3,
     # (b) rank 0 of the dry (16, 16) mesh: pair A's and pair C's baselines
     # at these depths of command-r-plus-104b
     rank=dict(arch="command-r-plus-104b",
@@ -7255,15 +7292,32 @@ LAUNCH_TEMP_RTOL = 0.10
 LAUNCH_FLOOR_FACTOR = 1.5
 
 
-def _launch_jobs(which=("slice", "uneven", "launch")) -> list:
-    """The meta analyses run beside the kernels' build, each ``(key,
-    function, args)``: phase 36's full-depth meta run (``"slice"``) and
-    phase 35(a)'s ranks' steps (``"uneven"``), the longest, first, and
+# the full run's host-only work, run after phase 9 beside phases 10-29
+# (no hold there reads a host time, and the build before them runs alone)
+# and joined before the mesh phases: phase 23's CPU runs and every meta
+# analysis
+LATE_JOBS = ("examples", "layer", "slice", "uneven", "launch")
+
+
+def _launch_jobs(which=("layer", "slice", "uneven", "launch")) -> list:
+    """The host-only jobs of ``which``, each ``(key, function, args)``:
+    phase 23's CPU runs (``"examples"``, :func:`_examples_cpu`), first;
+    the meta analyses: phase 37's depth probes and full-depth build and
+    phase 36's full-depth meta run (``"layer"``, ``"slice"``) and phase
+    35(a)'s ranks' steps (``"uneven"``), the longest, first, and
     phase 34(a)'s (``"launch"``): the four pairs' distinct analyses on the
     dry (16, 16) mesh, and the one-card roofline of phase 29's prefill and
     decode."""
     from repro_torch.launch import perf
     jobs, seen = [], set()
+    if "examples" in which:
+        jobs.append((("examples_cpu",), _examples_cpu, ()))
+    if "layer" in which:
+        from repro_torch.launch.dryrun import probe_plan
+        n = len(probe_plan(_layer_train_cfg()[0])[0])
+        jobs += [(("layer_train", i), _layer_train_meta, (i,))
+                 for i in reversed(range(n))]
+        jobs.append((("layer_train",), _layer_train_meta, ()))
     if "slice" in which:
         jobs.append((("slice_train",), _slice_train_meta, ()))
     if "uneven" in which:
@@ -7304,16 +7358,19 @@ def _one_chip_roofline(kind: str) -> dict:
                          spec, cache_len=o["cache_slots"])
 
 
-def _start_launch_jobs(which=("slice", "uneven", "launch")):
-    """The analyses of :func:`_launch_jobs` (``which``) started in
-    ``LAUNCH["jobs"]`` processes (one torch thread each; meta tensors only,
-    no CUDA): the pool, each job's future and the start's clock."""
+def _start_launch_jobs(which=("layer", "slice", "uneven", "launch"),
+                       jobs: Optional[int] = None):
+    """The jobs of :func:`_launch_jobs` (``which``) started in ``jobs``
+    processes (default ``LAUNCH["jobs"]``; one torch thread each; meta or
+    CPU tensors only, no CUDA): the pool, each job's future and the
+    start's clock."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
     from repro_torch.launch.dryrun import _one_thread
     t0 = time.perf_counter()
-    pool = ProcessPoolExecutor(LAUNCH["jobs"], mp_context=multiprocessing
-                               .get_context("spawn"))
+    pool = ProcessPoolExecutor(jobs or LAUNCH["jobs"],
+                               mp_context=multiprocessing.get_context(
+                                   "spawn"))
     return pool, {key: pool.submit(_one_thread, fn, args)
                   for key, fn, args in _launch_jobs(which)}, t0
 
@@ -7702,8 +7759,9 @@ def phase_launch(device, launches: dict, card: str, analyses: dict,
     ``perf``) beside the card, and the shared kv heads on it.
 
     (a) ``analyses`` (:func:`_join_launch_jobs`): run in ``LAUNCH["jobs"]``
-    processes on meta tensors beside the kernels' build (``main``), where
-    no window is timed, and joined before phase 2: the four §Perf pairs (A, B, C, B2) at full width on one rank of
+    processes on meta tensors (``main``; :data:`LATE_JOBS`), joined
+    before phase 30: the four §Perf pairs (A, B, C, B2) at full width on
+    one rank of
     the dry (16, 16) mesh (``launch.perf``: each pair's baseline and
     variant on the H100's roofline terms), and the roofline on one card of
     phase 29's shapes (command-r-plus-104b at 4 of 64 layers: the (1,
@@ -8041,8 +8099,9 @@ def phase_uneven_heads(device, launches: dict, card: str, analyses: dict,
     and 1 of the dry (16, 16) mesh for llama4-maverick-400b-a17b at full
     width, its first dense + MoE pair (3 and 2 query heads over the kv
     head they share), the prefill_32k and decode_32k steps on the card.
-    Held: the argument bytes equal to the meta run's (computed beside the
-    kernels' build, :func:`_uneven_meta`), the meta temp bytes within
+    Held: the argument bytes equal to the meta run's (computed on the
+    host before the mesh phases, :func:`_uneven_meta`), the meta temp
+    bytes within
     ``LAUNCH_TEMP_RTOL`` of the card's peak over the step's baseline, every
     sw_attention call at its rank's G against the plain version; and rank
     3 of qwen2-1.5b's (16, 16) mesh, which holds no query head, launching
@@ -8142,30 +8201,71 @@ def uneven_only(device, card: str, analyses: dict) -> int:
 
 # rank 0 of the dry (16, 16) mesh: granite-8b at full width and depth (36
 # layers), f32 as the dry run, train_4k (the rank's data shard: 16 of the
-# 256 sequences of 4,096 tokens); one untimed step, then ``runs`` timed
-SLICE_TRAIN = dict(arch="granite-8b", shape="train_4k", runs=1)
+# 256 sequences of 4,096 tokens); one step, timed
+SLICE_TRAIN = dict(arch="granite-8b", shape="train_4k")
 SLICE_TRAIN_PEAK_BYTES = 80e9
 
 
-def _slice_train_meta() -> dict:
-    """Phase 36's step run once on meta tensors at full depth
-    (``dryrun.measure``): its argument and temp bytes and its collectives'
-    books, beside the depth probes' record (``dryrun.dry_record``)."""
+def _plan_books(plan, microbatch: int) -> dict:
+    """What a step's exchange books on the rank (the stand-in's
+    all-gathers and reduce-scatters), from ``plan``'s groups: the outer
+    group gathered once, each layer in every microbatch's forward and
+    recompute; a reduce a group and microbatch, landing the group's words
+    of the rank's span."""
+    layers = range(1, plan.n_groups)
+    return {"gather_count": 1 + 2 * microbatch * len(layers),
+            "gather_bytes": 4 * (plan.group_values(0) + 2 * microbatch * sum(
+                plan.group_values(g) for g in layers)),
+            "reduce_count": microbatch * plan.n_groups,
+            "reduce_bytes": 4 * microbatch * sum(
+                plan.owned_words(plan.pos, g) for g in range(plan.n_groups)),
+            "groups": plan.n_groups, "slice_values": _slice_values(plan),
+            "largest_group_values": max(plan.group_values(g)
+                                        for g in range(plan.n_groups))}
+
+
+def _slice_values(plan) -> int:
+    """The values of the rank's model slices: its groups' together."""
+    return sum(plan.group_values(g) for g in range(plan.n_groups))
+
+
+def _books_held(books: dict, want: dict) -> bool:
+    return (books["all-gather"]["count"] == want["gather_count"]
+            and books["all-gather"]["bytes"] == want["gather_bytes"]
+            and books["reduce-scatter"]["count"] == want["reduce_count"]
+            and books["reduce-scatter"]["bytes"] == want["reduce_bytes"])
+
+
+def _rank_train_meta(arch: str, shape: str) -> dict:
+    """Rank 0 of the dry (16, 16) mesh running ``arch``'s ``shape`` train
+    step once on meta tensors at full depth (``dryrun.measure``): its
+    argument and temp bytes and its collectives' books, and what the
+    plan's groups add up to (:func:`_plan_books`)."""
     from repro_torch.configs import get_config
     from repro_torch.data.synthetic import shape_params
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import make_dry_production_mesh
-    o = SLICE_TRAIN
-    sp = shape_params(o["shape"])
-    mesh = make_dry_production_mesh()
-    step = dryrun.build_rank_step(get_config(o["arch"]), "train",
-                                  sp["batch"], sp["seq"], mesh, "meta")
+    sp = shape_params(shape)
+    cfg = get_config(arch)
+    step = dryrun.build_rank_step(cfg, "train", sp["batch"], sp["seq"],
+                                  make_dry_production_mesh(), "meta")
     plan = step.info["slice_plan"]
     full = dryrun.measure(step)
-    full["slice_values"] = plan.values[plan.model]
+    full["plan"] = _plan_books(plan, max(cfg.microbatch, 1))
+    full["slice_values"] = _slice_values(plan)
     full["arena_words"] = step.info["arena_words"]
-    return {"full": full, "record": dryrun.dry_record(o["arch"], o["shape"],
-                                                      mesh)}
+    return full
+
+
+def _slice_train_meta() -> dict:
+    """Phase 36's step at full depth on meta (:func:`_rank_train_meta`),
+    beside the depth probes' record (``dryrun.dry_record``)."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_dry_production_mesh
+    o = SLICE_TRAIN
+    return {"full": _rank_train_meta(o["arch"], o["shape"]),
+            "record": dryrun.dry_record(o["arch"], o["shape"],
+                                        make_dry_production_mesh())}
 
 
 def phase_slice_train(device, card: str, analyses: dict) -> dict:
@@ -8173,17 +8273,21 @@ def phase_slice_train(device, card: str, analyses: dict) -> dict:
     the dry (16, 16) mesh runs granite-8b's ``train_4k`` step at full
     width and depth on the card (``dryrun.build_rank_step``: the arena
     step over the rank's span, its slices gathered and their gradient sent
-    through the counting stand-in, whose values are unset). One untimed
-    run, then ``SLICE_TRAIN["runs"]`` timed ones: the median seconds, the
-    peak of ``max_memory_allocated`` over the timed runs' baseline. Held
+    through the counting stand-in, whose values are unset), once, timed
+    with no untimed step before it (the script's budget; the first and a
+    later step read 9.37 and 9.36 s in a full run): its seconds, the peak
+    of ``max_memory_allocated`` over the step's baseline. Held
     against the same step's full-depth meta run (``analyses``, computed
-    beside the kernels' build, :func:`_slice_train_meta`): the argument
+    in a host process before the mesh phases, :func:`_slice_train_meta`):
+    the argument
     bytes equal, the peak within ``LAUNCH_TEMP_RTOL`` of its temp bytes
-    and under ``SLICE_TRAIN_PEAK_BYTES``, the gathered result (the
-    stand-in's all-gather) 4 B a value of the rank's slices, on the card
-    and on meta, and under a fifteenth of the arena; the depth probes'
-    record beside it. No kernel of the port is on this path: the
-    optimizer's apply and the training attention are plain torch."""
+    and under ``SLICE_TRAIN_PEAK_BYTES``, the gathers' and reduces'
+    counts and result bytes (the stand-in's all-gathers and
+    reduce-scatters) what the plan's groups add up to, on the card and on
+    meta (:func:`_plan_books`), the rank's slices under a fifteenth of
+    the arena; the depth probes' record beside it. No kernel of the port
+    is on this path: the optimizer's apply and the training attention are
+    plain torch."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.data.synthetic import shape_params
@@ -8203,30 +8307,21 @@ def phase_slice_train(device, card: str, analyses: dict) -> dict:
                                   make_dry_production_mesh(), device)
     build_s = time.perf_counter() - t0
     plan = step.info["slice_plan"]
-    values = plan.values[plan.model]
+    values = _slice_values(plan)
     args_bytes = dryrun.storage_bytes(step.args)
     collectives.reset_stats()
     collectives.reset_dry_stats()
+    gc.collect()
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     res = step.run()
     torch.cuda.synchronize()
-    first_s = time.perf_counter() - t0
+    secs = time.perf_counter() - t0
     del res
-    books = collectives.dry_stats()
-    gc.collect()
-    # the cached blocks stay: the timed runs reuse them, as a trainer's
-    # steps do
-    torch.cuda.reset_peak_memory_stats()
-    base = torch.cuda.memory_allocated()
-    secs = []
-    for _ in range(o["runs"]):
-        t0 = time.perf_counter()
-        res = step.run()
-        torch.cuda.synchronize()
-        secs.append(time.perf_counter() - t0)
-        del res
     peak = torch.cuda.max_memory_allocated() - base
+    books = collectives.dry_stats()
     stats = collectives.seconds_and_bytes()
     words = step.info["arena_words"]
     del step, plan
@@ -8235,8 +8330,7 @@ def phase_slice_train(device, card: str, analyses: dict) -> dict:
     temp = full["memory"]["temp_bytes"]
     out = {"card": card, "arch": o["arch"], "shape": o["shape"],
            "layers": cfg.n_layers, "build_seconds": build_s,
-           "first_seconds": first_s, "seconds": secs,
-           "step_seconds": statistics.median(secs),
+           "step_seconds": secs,
            "argument_bytes": args_bytes,
            "meta_argument_bytes": full["memory"]["argument_bytes"],
            "record_argument_bytes": record["memory"]["argument_bytes"],
@@ -8253,12 +8347,14 @@ def phase_slice_train(device, card: str, analyses: dict) -> dict:
     check(abs(peak / temp - 1.0) <= LAUNCH_TEMP_RTOL
           and peak < SLICE_TRAIN_PEAK_BYTES,
           f"36: the card's peak {peak} against the meta temp {temp}")
-    check(books["all-gather"]["count"] == 1
-          and books["all-gather"]["bytes"] == 4 * values
-          == full["collectives"]["all-gather"]["bytes"]
+    want = full["plan"]
+    out["plan"] = want
+    check(_books_held(books, want)
+          and _books_held(full["collectives"], want)
           and values == full["slice_values"] and 15 * values < words,
-          f"36: gathered {books['all-gather']} for {values} slice values "
-          f"of {words} arena words")
+          f"36: gathered and reduced {books} and on meta "
+          f"{full['collectives']}, the plan's groups {want}, {values} slice "
+          f"values of {words} arena words")
     out["seconds_total"] = time.perf_counter() - t_phase
     log(f"phase 36: the mesh train step on the rank's model slices, "
         f"{card}: {json.dumps(out)}")
@@ -8272,6 +8368,160 @@ def slice_train_only(device, card: str, analyses: dict) -> int:
     out = phase_slice_train(device, card, analyses)
     log(card)
     log(json.dumps({"slice_train_only": True,
+                    "seconds": out["seconds_total"],
+                    "device": {"platform": "gpu",
+                               "kind": torch.cuda.get_device_name(0),
+                               "count": torch.cuda.device_count()}}))
+    return 0
+
+
+# ---------------------------------------------------------------------------
+# phase 37: the mesh train step gathers each layer's slices as it runs
+# ---------------------------------------------------------------------------
+
+# rank 0 of the dry (16, 16) mesh: llama4-maverick-400b-a17b at full width
+# and depth (48 layers: 24 dense + MoE pairs, 128 experts, 8 a rank), f32
+# as the dry run, train_4k at the config's microbatch 4 (the rank's data
+# shard: 16 of the 256 sequences of 4,096 tokens, 4 a microbatch); one
+# step, timed, with no untimed step before it (the script's budget); the
+# plan's clipped lists are made before it, as a trainer's second step
+# finds them. Its meta figures: the full-depth step built on meta (its
+# argument bytes and the plan's books) and its two depth probes (one and
+# two pairs), each a host job before the mesh phases (:data:`LATE_JOBS`):
+# the full-depth meta run takes a pair's 21 s 24 times over (about 470 s
+# on the card's host)
+LAYER_TRAIN = dict(arch="llama4-maverick-400b-a17b", shape="train_4k")
+LAYER_TRAIN_CARD_BYTES = 80e9
+
+
+def _layer_train_cfg(**overrides):
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import shape_params
+    return (dataclasses.replace(get_config(LAYER_TRAIN["arch"]), **overrides),
+            shape_params(LAYER_TRAIN["shape"]))
+
+
+def _layer_train_meta(probe: Optional[int] = None) -> dict:
+    """Phase 37's figures on meta: with ``probe``, that depth probe of
+    ``dryrun.probe_plan`` run once (``dryrun.measure``); without, the
+    full-depth step built on meta, not run: its argument bytes and what
+    the plan's groups add up to (:func:`_plan_books`)."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_dry_production_mesh
+    cfg, sp = _layer_train_cfg()
+    if probe is not None:
+        cfg, _ = _layer_train_cfg(**dryrun.probe_plan(cfg)[0][probe])
+    step = dryrun.build_rank_step(cfg, "train", sp["batch"], sp["seq"],
+                                  make_dry_production_mesh(), "meta")
+    if probe is not None:
+        return dryrun._probe_record(dryrun.measure(step))
+    return {"argument_bytes": dryrun.storage_bytes(step.args),
+            "plan": _plan_books(step.info["slice_plan"],
+                                max(cfg.microbatch, 1))}
+
+
+def phase_layer_train(device, card: str, analyses: dict) -> dict:
+    """Phase 37: the mesh train step that gathers each layer's model slices
+    only while the layer runs and sends its gradient as the backward
+    leaves it. Rank 0 of the dry (16, 16) mesh runs llama4-maverick's
+    ``train_4k`` step at full width and depth on the card
+    (``dryrun.build_rank_step``: the arena step over the rank's span, each
+    group's slices gathered and its gradient sent through the counting
+    stand-in, whose values are unset), once, timed. Held against the
+    same step on meta (``analyses``, computed on the host before the mesh
+    phases, :func:`_layer_train_meta`): the argument bytes equal to the
+    full-depth step's built on meta, the peak of ``max_memory_allocated``
+    over the step's baseline within ``LAUNCH_TEMP_RTOL`` of the temp bytes
+    its depth probes extrapolate and under the card's
+    ``LAYER_TRAIN_CARD_BYTES`` less the argument bytes, the gathers' and
+    reduces' counts and bytes what the plan's groups add up to
+    (:func:`_plan_books`), and no group's slices more than a tenth of all
+    the rank's. No kernel of the port is
+    on this path: the optimizer's apply and the training attention are
+    plain torch."""
+    import torch
+    from repro_torch.distributed import collectives
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_dry_production_mesh
+    o = LAYER_TRAIN
+    t_phase = time.perf_counter()
+    done = analyses["done"]
+    built = done[("layer_train",)]
+    want = built["plan"]
+    cfg, sp = _layer_train_cfg()
+    plan_of, extrapolate = dryrun.probe_plan(cfg)
+    probes = [done[("layer_train", i)] for i in range(len(plan_of))]
+    full = {k: extrapolate(*probes, k) for k in dryrun.PROBE_KEYS}
+    mesh = make_dry_production_mesh()
+    t0 = time.perf_counter()
+    step = dryrun.build_rank_step(cfg, "train", sp["batch"], sp["seq"],
+                                  mesh, device)
+    plan = step.info["slice_plan"]
+    comm = mesh.comm()
+    for g in range(plan.n_groups):
+        comm._slice_counts(plan, False, g)
+        comm._slice_counts(plan, True, g)
+        plan.owned_words(plan.pos, g)
+    build_s = time.perf_counter() - t0
+    args_bytes = dryrun.storage_bytes(step.args)
+    collectives.reset_stats()
+    collectives.reset_dry_stats()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    res = step.run()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    del res
+    books = collectives.dry_stats()
+    words = step.info["arena_words"]
+    del step, plan
+    gc.collect()
+    torch.cuda.empty_cache()
+    temp = full["temp_bytes"]
+    out = {"card": card, "arch": o["arch"], "shape": o["shape"],
+           "layers": cfg.n_layers, "microbatch": cfg.microbatch,
+           "build_seconds": build_s, "step_seconds": secs,
+           "argument_bytes": args_bytes,
+           "meta_argument_bytes": built["argument_bytes"],
+           "probes_argument_bytes": full["argument_bytes"],
+           "peak_over_baseline_bytes": peak, "meta_temp_bytes": temp,
+           "temp_ratio": peak / temp, "arena_words": words, "plan": want,
+           "gathered_bytes": books["all-gather"]["bytes"],
+           "reduced_bytes": books["reduce-scatter"]["bytes"],
+           "collective_bytes": books["total_bytes"],
+           "meta_collective_bytes": full["coll"],
+           "meta_flops": full["flops"],
+           "meta_tflops_per_s": full["flops"] / secs / 1e12,
+           "probe_seconds": [p["run_s"] for p in probes],
+           "stats": collectives.seconds_and_bytes()}
+    check(args_bytes == built["argument_bytes"],
+          f"37: argument bytes {args_bytes} on the card, "
+          f"{built['argument_bytes']} on meta")
+    check(abs(peak / temp - 1.0) <= LAUNCH_TEMP_RTOL
+          and peak < LAYER_TRAIN_CARD_BYTES - args_bytes,
+          f"37: the card's peak {peak} against the meta temp {temp}, "
+          f"{args_bytes} argument bytes")
+    check(_books_held(books, want)
+          and 10 * want["largest_group_values"] < want["slice_values"],
+          f"37: gathered and reduced {books}, the plan's groups {want}")
+    out["seconds_total"] = time.perf_counter() - t_phase
+    log(f"phase 37: the mesh train step gathering each layer's slices as "
+        f"it runs, {card}: {json.dumps(out)}")
+    return out
+
+
+def layer_train_only(device, card: str, analyses: dict) -> int:
+    """``--layer-train``: phase 37 alone. Its last line says that it is
+    this partial run, never the full run's ``{"ok": true, ...}``."""
+    import torch
+    out = phase_layer_train(device, card, analyses)
+    log(card)
+    log(json.dumps({"layer_train_only": True,
                     "seconds": out["seconds_total"],
                     "device": {"platform": "gpu",
                                "kind": torch.cuda.get_device_name(0),
@@ -8303,16 +8553,22 @@ def main(argv: list) -> int:
         f"({torch.cuda.get_device_properties(0).multi_processor_count} SMs "
         f"x 64 lanes x the maximum SM clock)")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
-    # phase 34(a)'s analyses (meta tensors, the host alone) run beside the
-    # kernels' build, where no window is timed, and are joined before the
-    # first timed phase: beside a timed window they would share its host
+    # a partial run's meta analyses (meta tensors, the host alone) run
+    # beside the kernels' build, where no window is timed, and are joined
+    # before the first timed phase. The full run starts them and phase
+    # 23's CPU runs (:data:`LATE_JOBS`) after phase 9 instead, in
+    # ``LAUNCH["late_jobs"]`` processes beside phases 10-29, whose holds
+    # read no host time, and joins them before the mesh phases
     partial = [a for a in argv if a.startswith("--")
-               and a not in ("--launch", "--uneven-heads", "--slice-train")]
-    which = tuple(k for k, flag in (("slice", "--slice-train"),
+               and a not in ("--launch", "--uneven-heads", "--slice-train",
+                             "--layer-train")]
+    which = tuple(k for k, flag in (("layer", "--layer-train"),
+                                    ("slice", "--slice-train"),
                                     ("uneven", "--uneven-heads"),
                                     ("launch", "--launch"))
-                  if flag in argv) or ("slice", "uneven", "launch")
-    started = None if partial else _start_launch_jobs(which)
+                  if flag in argv) or ("layer", "slice", "uneven", "launch")
+    late = () if any(a.startswith("--") for a in argv) else LATE_JOBS
+    started = None if partial or late else _start_launch_jobs(which)
     t0 = time.perf_counter()
     _build.library()
     built = _build.build_seconds
@@ -8321,7 +8577,7 @@ def main(argv: list) -> int:
     analyses = None
     if started is not None:
         analyses = _join_launch_jobs(started)
-        log(f"phases 34(a), 35(a) and 36's meta run: the analyses took "
+        log(f"the meta runs of phases 34-37: the analyses took "
             f"{analyses['seconds']:.1f} s beside the build, "
             f"{analyses['wait_seconds']:.1f} s after it")
 
@@ -8355,6 +8611,8 @@ def main(argv: list) -> int:
         return uneven_only(device, card, analyses)
     if "--slice-train" in argv:
         return slice_train_only(device, card, analyses)
+    if "--layer-train" in argv:
+        return layer_train_only(device, card, analyses)
     gen = torch.Generator(device=device).manual_seed(SEED)
     shapes = qwen2_1_5b_shapes()
     a_tree = _map_shapes(shapes, lambda s: torch.randn(
@@ -8377,6 +8635,8 @@ def main(argv: list) -> int:
     log(f"peak device memory after phase 9: "
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     lap("phases 2-9")
+    late_started = _start_launch_jobs(late, LAUNCH["late_jobs"]) \
+        if late else None
 
     # each path's own launch counts: set to 0 just before it, read just
     # after it; the kernel-against-plain checks run outside every window
@@ -8461,7 +8721,9 @@ def main(argv: list) -> int:
     lap("phases 19-20")
     train_families = train_family_phases(device, launches)
     lap("phases 21-22")
-    examples = phase_examples(device, launches)
+    examples = phase_examples(
+        device, launches, None if late_started is None
+        else late_started[1][("examples_cpu",)].result())
     gc.collect()
     torch.cuda.empty_cache()
     lap("phase 23")
@@ -8477,6 +8739,12 @@ def main(argv: list) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     lap("phase 29")
+    if late_started is not None:
+        analyses = _join_launch_jobs(late_started)
+        log(f"phase 23's CPU runs and the meta runs of phases 34-37: "
+            f"{analyses['seconds']:.1f} s from their start to the join, "
+            f"{analyses['wait_seconds']:.1f} s waited there")
+        lap("the later jobs' join")
     mesh = phase_mesh(device, launches, card)
     lap("phase 30")
     moe_mesh = phase_moe_mesh(device, launches, card)
@@ -8497,6 +8765,8 @@ def main(argv: list) -> int:
     lap("phase 35")
     slice_train = phase_slice_train(device, card, analyses)
     lap("phase 36")
+    layer_train = phase_layer_train(device, card, analyses)
+    lap("phase 37")
     log(json.dumps({"launches": launches}))
     old = ("block_dist", "scatter_save", "masked_restore")
     new = ("arena_maintain", "arena_scatter", "parity_xor")
@@ -8606,6 +8876,7 @@ def main(argv: list) -> int:
                     "moe_mesh": moe_mesh, "ssm_mesh": ssm_mesh,
                     "serve_mesh": serve_mesh, "launch": launch,
                     "uneven_heads": uneven, "slice_train": slice_train,
+                    "layer_train": layer_train,
                     "serve_kernels": {
                         name: kernels[name]
                         for name in ("ssd_intra", "sw_attention")},

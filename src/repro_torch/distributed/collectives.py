@@ -4,12 +4,14 @@
 rank's position and provides what the meshed trainer and fabric move
 between ranks:
 
-- ``slice_gather``: the words of this rank's model slices from every
-  owner's span -> its slice-domain buffer (the train step's forward
-  operands; ``sharding.partition.SlicePlan``), one all-to-all;
-- ``slice_reduce``: this rank's slice-domain gradient -> the owners of
-  its words, each owner's span the sum of what it receives, added on the
-  device in position order (one all-to-all);
+- ``slice_gather``: the words of this rank's model slices of one group
+  (``sharding.partition.SlicePlan``: a layer, or the outer group) from
+  every owner's span -> the group's slice-domain buffer (the train
+  step's operands, a layer's gathered as it runs), one all-to-all;
+- ``slice_reduce``: this rank's slice-domain gradient of one group -> the
+  owners of its words, the group's words of each owner's span the sum of
+  what it receives, added on the device in position order (one
+  all-to-all);
 - ``all_gather``: every rank's span -> the whole arena (the PyTree
   step's reduced gradient, the fabric's checks);
 - ``reduce_scatter``: a whole buffer -> this rank's span of the sum (an
@@ -298,49 +300,55 @@ class MeshComm:
         self._done(name, 2 * (n - 1) * m * full.element_size(), t0, s0)
         return out
 
-    def _slice_counts(self, plan, reduce: bool) -> tuple[list, list]:
+    def _slice_counts(self, plan, reduce: bool, group: int
+                      ) -> tuple[list, list]:
         """Words this rank sends each position and receives from each in
-        ``plan``'s gather (or reduce), none to or from itself."""
+        ``plan``'s gather (or reduce) of ``group``, none to or from
+        itself."""
         me, m, n = self.pos, plan.model, self.n
         if reduce:
-            sc = [plan.reduce_words(q, m) for q in range(n)]
-            rc = [plan.reduce_words(me, plan.model_of[p]) for p in range(n)]
+            sc = [plan.reduce_words(q, m, group) for q in range(n)]
+            rc = [plan.reduce_words(me, plan.model_of[p], group)
+                  for p in range(n)]
         else:
-            sc = [plan.gather_words(me, plan.model_of[p]) for p in range(n)]
-            rc = [plan.gather_words(q, m) for q in range(n)]
+            sc = [plan.gather_words(me, plan.model_of[p], group)
+                  for p in range(n)]
+            rc = [plan.gather_words(q, m, group) for q in range(n)]
         sc[me] = rc[me] = 0
         return sc, rc
 
-    def slice_gather(self, span: torch.Tensor, plan,
+    def slice_gather(self, span: torch.Tensor, plan, group: int,
                      name: str = "slice_gather") -> torch.Tensor:
         """This rank's slices (``plan``, a
-        :class:`~repro_torch.sharding.partition.SlicePlan`) of the arena
-        whose span this rank holds, as a new slice-domain buffer of
-        ``span``'s dtype: each owner sends each position the words of its
-        span that the position's slices cover, in one all-to-all (in
-        rounds), and the received words land in their boxes."""
+        :class:`~repro_torch.sharding.partition.SlicePlan`; of its
+        ``group``) of the arena whose span this rank
+        holds, as a new slice-domain buffer of ``span``'s dtype: each
+        owner sends each position the words of its span that the
+        position's slices cover, in one all-to-all (in rounds), and the
+        received words land in their boxes."""
         t0, s0 = time.perf_counter(), self._stage.bytes
         me, m = self.pos, plan.model
         w0 = me * plan.shard_words
-        out = torch.empty((plan.values[m],), dtype=span.dtype,
+        out = torch.empty((plan.group_values(group, m),), dtype=span.dtype,
                           device=span.device)
-        for b in plan.gather_boxes(me, m):
+        for b in plan.gather_boxes(me, m, group):
             b.slice_view(out).copy_(b.arena_view(span, w0))
         item = span.element_size()
         if not self.distributed:
             self._done(name, 0, t0, s0, out.numel() * item)
             return out
-        sc, rc = self._slice_counts(plan, False)
-        send = _send_boxes(span, [plan.gather_boxes(me, plan.model_of[p])
+        sc, rc = self._slice_counts(plan, False, group)
+        send = _send_boxes(span, [plan.gather_boxes(me, plan.model_of[p],
+                                                    group)
                                   if p != me else [] for p in range(self.n)],
                            w0)
         recv = torch.empty((sum(rc),), dtype=span.dtype, device=span.device)
-        _rounds(send, sc, recv, rc, plan.max_count(False), self.group,
-                self._staged(send), self._stage)
+        _rounds(send, sc, recv, rc, plan.max_count(False, group),
+                self.group, self._staged(send), self._stage)
         del send
         at = 0
         for q in range(self.n):
-            for b in plan.gather_boxes(q, m) if q != me else ():
+            for b in plan.gather_boxes(q, m, group) if q != me else ():
                 k = b.numel
                 b.slice_view(out).copy_(recv[at:at + k].view(b.sizes))
                 at += k
@@ -348,37 +356,41 @@ class MeshComm:
                    out.numel() * item)
         return out
 
-    def slice_reduce(self, values: torch.Tensor, plan,
+    def slice_reduce(self, values: torch.Tensor, plan, group: int,
+                     out: Optional[torch.Tensor] = None,
                      name: str = "slice_reduce") -> torch.Tensor:
         """This rank's span of the sum of every rank's slice-domain
-        ``values`` (``plan``): each rank sends each owner its values on the
-        words of the owner's span it contributes to
+        ``values`` (``plan``; of its ``group``): each
+        rank sends each owner its values on the words of the owner's span
+        it contributes to
         (:meth:`~repro_torch.sharding.partition.SlicePlan.reduce_boxes`),
         and the owner adds what it receives on its device in position
         order, the order :meth:`reduce_scatter` adds in (the first
         position's part copied, the others added), skipping the positions
-        that contribute nothing. A word no position contributes to (pads)
-        is 0."""
+        that contribute nothing. Written into the group's words of
+        ``out``, a span of zeros where none is given (a word no position
+        contributes to, a pad, keeps its value), and returned."""
         t0, s0 = time.perf_counter(), self._stage.bytes
         me, m = self.pos, plan.model
         w0 = me * plan.shard_words
-        out = torch.zeros((plan.shard_words,), dtype=values.dtype,
-                          device=values.device)
+        if out is None:
+            out = torch.zeros((plan.shard_words,), dtype=values.dtype,
+                              device=values.device)
         item = values.element_size()
-        sc, rc = self._slice_counts(plan, True)
+        sc, rc = self._slice_counts(plan, True, group)
         recv = None
         if self.distributed:
-            send = _send_boxes(values, [plan.reduce_boxes(q, m) if q != me
-                                        else [] for q in range(self.n)],
-                               None)
+            send = _send_boxes(values, [plan.reduce_boxes(q, m, group)
+                                        if q != me else []
+                                        for q in range(self.n)], None)
             recv = torch.empty((sum(rc),), dtype=values.dtype,
                                device=values.device)
-            _rounds(send, sc, recv, rc, plan.max_count(True), self.group,
-                    self._staged(send), self._stage)
+            _rounds(send, sc, recv, rc, plan.max_count(True, group),
+                    self.group, self._staged(send), self._stage)
             del send
         at = 0
         for p in range(self.n):
-            for b in plan.reduce_boxes(me, plan.model_of[p]):
+            for b in plan.reduce_boxes(me, plan.model_of[p], group):
                 if p == me:
                     part = b.slice_view(values)
                 else:
@@ -390,7 +402,7 @@ class MeshComm:
                 else:
                     dst.add_(part)
         self._done(name, (sum(sc) + sum(rc)) * item, t0, s0,
-                   out.numel() * item)
+                   plan.owned_words(me, group) * item)
         return out
 
     def all_reduce(self, t: torch.Tensor, name: str = "all_reduce"
@@ -604,18 +616,21 @@ class CountingComm:
     returns a tensor of the real collective's shape and dtype on the
     input's device (a new one, its values unset: its own part copied in
     where the real one holds it, ``all_gather`` and ``reduce_scatter``;
-    the whole result landed in one copy from an unset received buffer,
+    the whole result landed in one copy from an unset value,
     ``slice_gather`` and ``slice_reduce``, whose own parts vary with the
-    span's place and not with the depth; the input's values for
+    span's place and not with the depth, and whose send and receive
+    buffers are not made; the input's values for
     ``summed``, ``maxed``, ``all_reduce`` and ``broadcast``), and books
     the call twice: in :data:`STATS` under its name with the bytes
     :class:`MeshComm` counts for this rank (calls and bytes the same as a
     real mesh's rank; no seconds), and in :data:`DRY_STATS` under the
     reference's HLO kind with the result's bytes, as the reference's
     ``collective_stats`` reads its compiled collectives' result shapes.
-    The kinds: ``all_gather`` and ``slice_gather`` (the rank's slices) an
-    all-gather; ``reduce_scatter`` and ``slice_reduce`` a reduce-scatter
-    (its result the span); ``summed``,
+    The kinds: ``all_gather`` and ``slice_gather`` (the rank's slices of
+    a group) an all-gather; ``reduce_scatter`` and ``slice_reduce`` a
+    reduce-scatter (its result the span; a group's, the words of the span
+    its leaves hold, landed at the span's head: their place varies with
+    the span's and not with the depth); ``summed``,
     ``maxed`` and ``all_reduce`` an all-reduce of the result's shape (the
     port runs the first two as an all-gather and a sum on the rank);
     ``broadcast`` a collective-permute of the tensor; ``all_to_all`` an
@@ -704,22 +719,30 @@ class CountingComm:
         out = torch.empty((numel,), dtype=like.dtype, device=like.device)
         return out.copy_(torch.empty_like(out))
 
-    def slice_gather(self, span: torch.Tensor, plan,
+    def slice_gather(self, span: torch.Tensor, plan, group: int,
                      name: str = "slice_gather") -> torch.Tensor:
-        out = self._landed(plan.values[plan.model], span)
-        sc, rc = self._slice_counts(plan, False)
+        out = self._landed(plan.group_values(group), span)
+        sc, rc = self._slice_counts(plan, False, group)
         item = span.element_size()
         _book(name, (sum(sc) + sum(rc)) * item, 0.0, 0, out.numel() * item)
         _dry_book("all-gather", out)
         return out
 
-    def slice_reduce(self, values: torch.Tensor, plan,
+    def slice_reduce(self, values: torch.Tensor, plan, group: int,
+                     out: Optional[torch.Tensor] = None,
                      name: str = "slice_reduce") -> torch.Tensor:
-        out = self._landed(plan.shard_words, values)
-        sc, rc = self._slice_counts(plan, True)
+        if out is None:
+            out = torch.empty((plan.shard_words,), dtype=values.dtype,
+                              device=values.device)
+        # the group's words of the span landed in one copy from an unset
+        # value (the first of them: their place varies with the span's)
+        k = plan.owned_words(self.pos, group)
+        landed = out.narrow(0, 0, k)
+        landed.copy_(values.new_empty(()).expand(k))
+        sc, rc = self._slice_counts(plan, True, group)
         item = values.element_size()
-        _book(name, (sum(sc) + sum(rc)) * item, 0.0, 0, out.numel() * item)
-        _dry_book("reduce-scatter", out)
+        _book(name, (sum(sc) + sum(rc)) * item, 0.0, 0, k * item)
+        _dry_book("reduce-scatter", landed)
         return out
 
 

@@ -39,20 +39,23 @@ sends nothing. For every combination :func:`lower_combination`
 
 **Why the arena step.** The reference lowers its FSDP train step: every
 weight and moment sharded over ``data`` and ``model`` by its partition
-specs. The port's only data-sharded training state is the flat arena
-(``partition.arena_sharding``): each rank holds a span of the arena and
-of its moments. For the forward it gathers only the words of its model
-slices (``partition.SlicePlan``, ``slice_gather``: a sixteenth of the
-model at ``model`` 16), and it sends only their gradient to the spans'
-owners (``slice_reduce``). The stand-in books the two as the reference
-kinds they compute: an all-gather of the gathered slices and a
-reduce-scatter of the rank's span. The port does not yet cut the data
-axis too: every rank of a model line's data axis gathers the whole of
-its slices for the whole step, where the reference's FSDP gathers a
-layer's shard as it runs. The sharded arena holds an all-f32 model
-(``ArenaLayout.span_runs``), so the train step runs the config in f32
-(``param_dtype`` in the record). Its per-rank bytes are reported as they
-are.
+specs, a layer's data shards gathered inside its remat scope (in the
+forward and again in the recompute). The port's only data-sharded
+training state is the flat arena (``partition.arena_sharding``): each
+rank holds a span of the arena and of its moments. It gathers only the
+words of its model slices (``partition.SlicePlan``, ``slice_gather``: a
+sixteenth of the model at ``model`` 16), and those of each remat layer
+only while the layer runs, in the forward and again in its recompute;
+each layer's gradient goes to the spans' owners as the backward leaves
+it (``slice_reduce``), the outer group's (embedding, head, norms) when
+it ends. So a rank holds the outer group's slices, one layer's and their
+gradient, its span's gradient and the remat checkpoints, never all its
+slices at once. The stand-in books each gather and each reduce as the
+reference kinds they compute: an all-gather of the group's slices and a
+reduce-scatter of the group's part of the rank's span. The sharded arena
+holds an all-f32 model (``ArenaLayout.span_runs``), so the train step
+runs the config in f32 (``param_dtype`` in the record). Its per-rank
+bytes are reported as they are.
 
 **What cannot run on meta, and what runs instead.**
 

@@ -10,6 +10,9 @@
 - ``stacked_layers``: the ``(key, layer count)`` of each stacked subtree of
   the params, which the trainer's per-layer leaves split
   (``layers.split_layers``)
+- ``remat_layers``: the ``(key, parts)`` of each stacked subtree whose
+  layers ``train_loss`` runs one by one through ``layers.layer_call``
+  (the mesh step gathers each such layer's slices while it runs)
 - ``tensor_parallel``: whether ``train_loss`` splits its forward over a
   mesh's ``model`` axis (every family: ``params`` then holds this rank's
   model slices and ``batch`` its data shard; the Mamba2 mixer's SSD
@@ -56,6 +59,13 @@ class ModelOps:
     # ``enc_layers`` and ``dec_layers`` (the encoder-decoder)
     stacked_layers: tuple = ()
     tensor_parallel: bool = True
+    # (params key, parts) of each stacked subtree whose layers
+    # ``train_loss`` runs through ``layers.layer_call`` (recomputed in
+    # backward when ``cfg.remat``), in the order it runs them: each layer,
+    # or each of its ``parts`` (an interleaved model's dense and MoE
+    # layer), is a group of the mesh step's slice plan
+    # (``sharding.partition.SlicePlan``)
+    remat_layers: tuple = ()
 
 
 def serve_cache_len(cfg: ModelConfig, seq_len: int) -> int:
@@ -96,6 +106,8 @@ def _transformer_ops(cfg: ModelConfig) -> ModelOps:
         supports_long_context=bool(cfg.sliding_window),
         stacked_layers=(("layers", cfg.n_layers // 2
                          if transformer.interleaved(cfg) else cfg.n_layers),),
+        remat_layers=(("layers", ("dense", "moe")
+                       if transformer.interleaved(cfg) else ()),),
     )
 
 
@@ -111,6 +123,7 @@ def _ssm_ops(cfg: ModelConfig) -> ModelOps:
         ssm.decode_step(params, state, tokens, cfg, ctx=ctx),
         supports_long_context=True,
         stacked_layers=(("layers", cfg.n_layers),),
+        remat_layers=(("layers", ()),),
     )
 
 
@@ -126,6 +139,7 @@ def _hybrid_ops(cfg: ModelConfig) -> ModelOps:
         hybrid.decode_step(params, state, tokens, cfg, ctx=ctx),
         supports_long_context=True,
         stacked_layers=(("layers", cfg.n_layers),),
+        remat_layers=(("layers", ()),),
     )
 
 
@@ -142,6 +156,8 @@ def _encdec_ops(cfg: ModelConfig) -> ModelOps:
         supports_long_context=False,   # the 30 s encoder-decoder format
         stacked_layers=(("enc_layers", cfg.enc_layers),
                         ("dec_layers", cfg.n_layers)),
+        # the encoder runs without remat (as the reference's): whole
+        remat_layers=(("dec_layers", ()),),
     )
 
 

@@ -183,9 +183,9 @@ def train_loss(params, batch, cfg: ModelConfig, *, ctx=None
     positions = _positions(h.shape[1], h.device)
     enc_pos = _positions(enc_out.shape[1], h.device)
     for lp in L.unstack_layers(params["dec_layers"], cfg.n_layers):
-        h = L.remat(lambda x, lp=lp: _dec_layer(x, lp, cfg, positions,
-                                                enc_out, enc_pos, ctx=ctx),
-                    h, enabled=cfg.remat)
+        h = L.layer_call(lambda x, lp: _dec_layer(
+            x, lp, cfg, positions, enc_out, enc_pos, ctx=ctx), h, lp,
+            enabled=cfg.remat)
     h = L.rms_norm(h, params["final_norm"])
     return L.lm_loss_chunked(h, params, batch["labels"], L.loss_mask(batch),
                              cfg, ctx=vctx)

@@ -103,8 +103,8 @@ def train_loss(params, batch, cfg: ModelConfig, *, ctx=None
     shared = params["shared"]
     for start, length in _segments(cfg):
         for lp in layers[start:start + length]:
-            h = h + L.remat(lambda x, lp=lp: ssm.mixer_fwd(
-                L.rms_norm(x, lp["norm"]), lp["mixer"], cfg, ctx), h,
+            h = h + L.layer_call(lambda x, lp: ssm.mixer_fwd(
+                L.rms_norm(x, lp["norm"]), lp["mixer"], cfg, ctx), h, lp,
                 enabled=cfg.remat)
         h = L.remat(lambda x: transformer._layer_fwd(
             x, shared, cfg, positions, 0, 1024, 1024, ctx)[0], h,

@@ -188,6 +188,52 @@ def remat(fn, *args, enabled: bool = True):
     return fn(*args)
 
 
+class GatheredLayer:
+    """A layer whose weights a mesh step gathers only while the layer runs
+    (``training.step``): ``gather()`` returns a new list of the layer's
+    slices (views of a buffer nothing else holds) and ``treedef`` their
+    tree; ``send(grads)`` takes their gradient (a list in that order,
+    each entry dropped once sent) when the backward has all of it.
+    ``anchor`` is a tensor that requires grad, which the step asks the
+    gradient of, so the backward reaches every gathered layer."""
+    __slots__ = ("gather", "send", "treedef", "anchor")
+
+    def __init__(self, gather, send, treedef, anchor):
+        self.gather, self.send = gather, send
+        self.treedef, self.anchor = treedef, anchor
+
+
+class _Gather(torch.autograd.Function):
+    """A :class:`GatheredLayer`'s slices as the outputs of one node:
+    forward ``layer.gather()``; backward, once the gradient of every
+    output is in, ``layer.send`` of it. The node holds no slice, so under
+    remat the slices live only while the layer runs."""
+
+    @staticmethod
+    def forward(ctx, anchor, layer):
+        ctx.layer = layer
+        return tuple(layer.gather())
+
+    @staticmethod
+    def backward(ctx, *grads):
+        ctx.layer.send(list(grads))
+        return None, None
+
+
+def layer_call(fn, x, lp, enabled: bool = True):
+    """``fn(x, lp)``, one layer of a model's ``train_loss``, under
+    :func:`remat` (recomputed in backward when ``enabled``). ``lp`` is a
+    tree of tensors, or a :class:`GatheredLayer` (a mesh step's): then
+    ``fn`` gets the tree of its slices gathered as it starts, in the
+    forward and again in the recompute, and their gradient goes to
+    ``lp.send`` as soon as the backward has it. Every rank runs its
+    layers in the same order, so the gathers and sends line up."""
+    if isinstance(lp, GatheredLayer):
+        return remat(lambda x: fn(x, tree_unflatten(
+            lp.treedef, _Gather.apply(lp.anchor, lp))), x, enabled=enabled)
+    return remat(lambda x: fn(x, lp), x, enabled=enabled)
+
+
 def layer_params(params: PyTree, i: int) -> PyTree:
     """Layer ``i`` of ``params["layers"]``: its slice of the stacked
     leaves, or the ``i``-th tree of a per-layer list

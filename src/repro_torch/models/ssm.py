@@ -249,8 +249,8 @@ def train_loss(params, batch, cfg: ModelConfig, *, ctx=None
     vctx = vocab_ctx(cfg, ctx)
     h = L.embed_tokens(batch["tokens"], params, vctx)
     for lp in L.unstack_layers(params["layers"], cfg.n_layers):
-        h = h + L.remat(lambda x, lp=lp: mixer_fwd(
-            L.rms_norm(x, lp["norm"]), lp["mixer"], cfg, ctx), h,
+        h = h + L.layer_call(lambda x, lp: mixer_fwd(
+            L.rms_norm(x, lp["norm"]), lp["mixer"], cfg, ctx), h, lp,
             enabled=cfg.remat)
     h = L.rms_norm(h, params["final_norm"])
     return L.lm_loss_chunked(h, params, batch["labels"], L.loss_mask(batch),

@@ -178,9 +178,9 @@ def _stack_fwd(h, params, cfg: ModelConfig, positions, *, window: int,
     norm. Returns (h, Σ lb_loss, Σ z_loss)."""
     lb = zl = torch.zeros((), dtype=torch.float32, device=h.device)
     for _, lp in layer_walk(params, cfg):
-        h, l1, l2 = L.remat(lambda x, lp=lp: _layer_fwd(
+        h, l1, l2 = L.layer_call(lambda x, lp: _layer_fwd(
             x, lp, cfg, positions, window, q_chunk, kv_chunk, ctx),
-            h, enabled=cfg.remat)
+            h, lp, enabled=cfg.remat)
         lb, zl = lb + l1, zl + l2
     return L.rms_norm(h, params["final_norm"]), lb, zl
 

@@ -11,9 +11,10 @@ a tuple that the tree utilities keep as one leaf); the shape-to-spec
 functions return what the reference's return for the same tree and mesh
 shape. On a mesh the port computes FSDP over the flat arena
 (:func:`arena_sharding`): every rank holds its span of the arena-shaped
-state and gathers, for the forward, the words of its model slices alone
-(:class:`SlicePlan`: each slice as strided boxes of arena words, who
-sends which words to whom, and who contributes to each word's gradient).
+state and gathers the words of its model slices alone, a layer's while
+the layer runs (:class:`SlicePlan`: each slice as strided boxes of arena
+words, grouped by layer, who sends which words to whom, and who
+contributes to each word's gradient).
 The ``model`` axis splits
 every family's forward (tensor and expert parallelism):
 :func:`model_slices` gives each leaf's cut for this rank, from the specs'
@@ -62,8 +63,8 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from repro_torch.utils.tree import (flatten_with_path, keystr, tree_leaves,
-                                    tree_map, tree_unflatten)
+from repro_torch.utils.tree import (flatten_with_path, keystr, tree_flatten,
+                                    tree_leaves, tree_map, tree_unflatten)
 
 PyTree = Any
 
@@ -701,20 +702,26 @@ def _row_groups(r0: int, r1: int, br: int, seg: int, rw: int, srw: int,
     return out
 
 
-def _leaf_boxes(layout, li: int, s: ModelSlice, base: int
-                ) -> tuple[list, tuple]:
+def _leaf_boxes(layout, li: int, s: ModelSlice, base: int,
+                row: Optional[int] = None) -> tuple[list, tuple]:
     """The boxes of leaf ``li``'s slice ``s`` (:data:`WHOLE`: the leaf) in
     an all-f32 arena ``layout``, its slice-domain values from ``base``
     (row-major in the slice's shape, several ranges concatenated as
     :func:`take_model_slices` takes them), and the slice's shape. Block
     ``b`` of the leaf holds rows ``[b br, (b+1) br)`` of its ``(rows,
-    row_width)`` view."""
+    row_width)`` view. With ``row`` (a leaf stacked over its layers, the
+    slice never cutting dim 0), the slice's part in that row alone: one
+    layer's, its shape without the leading dim."""
     leaf = layout.partition.leaves[li]
     shape = tuple(leaf.shape)
     br = layout.partition.block_rows
     rows, rw = max(leaf.rows, 1), max(leaf.row_width, 1)
     off, seg = layout.leaf_offset[li], layout.seg_words[li]
     flat = leaf.n_blocks == 1 or seg == br * rw
+    r0, r1 = (0, rows) if row is None else (row, row + 1)
+    if row is not None and s and s[0] == 0:
+        raise ValueError(f"leaf {li}: a layer's row of a slice cut along "
+                         "dim 0")
 
     def word(r: int) -> int:
         return off + (r // br) * seg + (r % br) * rw
@@ -726,7 +733,7 @@ def _leaf_boxes(layout, li: int, s: ModelSlice, base: int
         inner = int(np.prod(shape[k + 1:]))
         width = sum(hi - lo for lo, hi in s.ranges)
         srw = outer * width * inner
-        row_ranges = [(0, rows, 0)]
+        row_ranges = [(r0, r1, 0)]
         cols, b = [], 0
         for lo, hi in s.ranges:
             cols.append((lo * inner, b * inner,
@@ -735,7 +742,7 @@ def _leaf_boxes(layout, li: int, s: ModelSlice, base: int
             b += hi - lo
         out_shape = shape[:k] + (width,) + shape[k + 1:]
     else:
-        ranges = s.ranges if s else [(0, rows)]
+        ranges = s.ranges if s else [(r0, r1)]
         srw = rw
         row_ranges, b = [], 0
         for lo, hi in ranges:
@@ -743,6 +750,8 @@ def _leaf_boxes(layout, li: int, s: ModelSlice, base: int
             b += hi - lo
         cols = [(0, 0, [], rw)]
         out_shape = (b,) + shape[1:] if shape else shape
+    if row is not None:
+        out_shape = out_shape[1:]
     boxes = []
     for lo, hi, sb in row_ranges:
         for r, rdims in _row_groups(lo, hi, br, seg, rw, srw, flat):
@@ -753,6 +762,70 @@ def _leaf_boxes(layout, li: int, s: ModelSlice, base: int
     return boxes, out_shape
 
 
+# the outer group: every leaf that no layer group holds (the embedding, the
+# head, the final norms, a VLM's projector, the hybrid's shared block, the
+# encoder-decoder's encoder), gathered for the whole step
+OUTER = 0
+
+
+class _GroupRef:
+    """A layer group's place in :attr:`SlicePlan.skeleton`."""
+    __slots__ = ("g",)
+
+    def __init__(self, g: int):
+        self.g = g
+
+
+def _layer_groups(part, layers: tuple) -> tuple[list, list, PyTree]:
+    """The groups of a partition's leaves: each group's ``(leaf, row)``
+    entries (``row`` a stacked leaf's layer, else None) and its subtree's
+    structure, group :data:`OUTER` first, then one group per layer of each
+    ``(key, parts)`` of ``layers`` (a stacked subtree of the params, as a
+    list of per-layer trees or as leaves stacked over their layers; each
+    of ``parts`` a layer of its own, an interleaved model's ``dense`` and
+    ``moe``), layer by layer; and the params' skeleton: the leaf indices
+    outside the layers, a :class:`_GroupRef` in each layer's place, a
+    stacked subtree turned into the list of its layers."""
+    n = len(part.leaves)
+    skel = tree_unflatten(part.treedef, list(range(n)))
+    entries, treedefs = [None], [None]
+    in_layer = np.zeros(n, bool)
+    for key, parts in layers:
+        node = skel[key]
+        stacked = not isinstance(node, (list, tuple))
+        count = (part.leaves[tree_leaves(node)[0]].shape[0] if stacked
+                 else len(node))
+        out = []
+        for i in range(count):
+            layer = node if stacked else node[i]
+            refs = {}
+            for p in parts or (None,):
+                lis, td = tree_flatten(layer if p is None else layer[p])
+                entries.append([(li, i if stacked else None) for li in lis])
+                treedefs.append(td)
+                in_layer[lis] = True
+                refs[p] = _GroupRef(len(entries) - 1)
+            out.append(refs if parts else refs[None])
+        skel[key] = out
+    entries[0] = [(li, None) for li in range(n) if not in_layer[li]]
+    return entries, treedefs, skel
+
+
+@dataclasses.dataclass
+class _GroupCut:
+    """One group's cut for every model position ``m``: its entries'
+    boxes (arena words and group-local slice-domain values), whether each
+    box lies in a leaf computed whole, the slices' shapes and offsets, the
+    group's slice values, and each box's first and past-last arena word."""
+    boxes: list
+    whole: list
+    shapes: list
+    offsets: list
+    values: list
+    first: list
+    end: list
+
+
 class SlicePlan:
     """Which arena words each position of a mesh computes with, and who
     sends what to whom, for a sharded all-f32 arena ``layout`` (its spans
@@ -760,32 +833,44 @@ class SlicePlan:
 
     Model position ``m`` (of ``tp``; one where ``ctx`` is None or its
     ``model`` axis has one position) computes with its slices of every
-    leaf (:func:`model_slices`), held in the **slice domain**: the slices
-    back to back in leaf order, each contiguous in its own shape
-    (``offsets[m][li]``, ``shapes[m][li]``; ``values[m]`` in all), so a
-    buffer of them decodes to slice-shaped leaves without a copy
-    (:meth:`decode`). ``boxes[m]`` gives each slice as strided boxes of
-    arena words (:func:`_leaf_boxes`), never a per-word index; with
-    ``tp`` 1 every slice is the whole leaf, and the plan moves the whole
-    arena's leaves.
+    leaf (:func:`model_slices`), held in a group's **slice domain**: the
+    group's slices back to back in its order, each contiguous in its own
+    shape (:meth:`group_values` in all), so a buffer of them decodes to
+    slice-shaped leaves without a copy (:meth:`decode`). Each slice is a
+    list of strided boxes of arena words (:func:`_leaf_boxes`), never a
+    per-word index; with ``tp`` 1 every slice is the whole leaf, and the
+    plan moves the whole arena's leaves.
+
+    **Groups.** ``layers`` (``ModelOps.remat_layers`` where ``cfg.remat``)
+    splits the leaves into groups, each with a slice domain of its own:
+    one a layer the model runs through ``layers.layer_call`` (each
+    ``(key, parts)``'s layers, ``parts`` each a group), in the order the
+    model runs them, and :data:`OUTER` for every other leaf. A layer of
+    leaves stacked over the layers (the reference's layout) is each
+    stacked leaf's row of that layer: the same boxes cut to the row. Every
+    method takes a ``group``; with no ``layers`` the plan has
+    :data:`OUTER` alone, every leaf in leaf order. ``skeleton`` places the
+    groups in the params tree (:meth:`model_tree`).
 
     The exchange (``MeshComm.slice_gather`` and ``slice_reduce``): owner
     ``q`` sends position ``p`` the words of its span that ``p``'s slices
-    cover (:meth:`gather_boxes`: ``boxes[m]`` clipped to the span, in the
-    same order on both sides); ``p`` sends owner ``q`` its gradient on the
+    cover (:meth:`gather_boxes`: the group's boxes clipped to the span, in
+    the same order on both sides); ``p`` sends owner ``q`` its gradient on the
     words it contributes (:meth:`reduce_boxes`): every data position, and
     of a model line the positions whose slice covers the word, where a
     leaf computed whole (:data:`WHOLE` while ``tp > 1``) counts at model
-    position 0 alone. Built on the host once per (layout, mesh, ctx);
-    each clipped list is made on first use and kept."""
+    position 0 alone. Built on the host once per (layout, mesh, ctx); each
+    group's cut and each clipped list is made on first use and kept."""
 
-    def __init__(self, layout, mesh, ctx: Optional[DistContext] = None):
+    def __init__(self, layout, mesh, ctx: Optional[DistContext] = None,
+                 layers: tuple = ()):
         n = int(np.asarray(mesh.devices).size)
         if layout.shards != n:
             raise ValueError(f"the layout has {layout.shards} shards, the "
                              f"mesh {n} positions")
         if not layout.uniform_f32:
             raise ValueError("a sharded arena holds an all-f32 model")
+        self.layout = layout
         self.n, self.shard_words = n, layout.shard_words
         self.pos = mesh.position()
         tp = 1 if ctx is None else ctx.tp_size
@@ -798,119 +883,163 @@ class SlicePlan:
             self.model_of = (0,) * n
         part = layout.partition
         self.treedef = part.treedef
-        shapes = tree_unflatten(part.treedef, [torch.empty(l.shape, device="meta")
-                                          for l in part.leaves])
-        self.slices, self.boxes, self.whole = [], [], []
-        self.shapes, self.offsets, self.values = [], [], []
-        for m in range(tp):
-            cut = ([WHOLE] * len(part.leaves) if tp == 1 else
-                   [x for _, x in flatten_with_path(
-                       model_slices(shapes, ctx, pos=m))[0]])
-            boxes, whole, shp, offs, v = [], [], [], [], 0
-            for li, s in enumerate(cut):
-                bx, out_shape = _leaf_boxes(layout, li, s, v)
-                boxes += bx
-                whole += [tp > 1 and not s] * len(bx)
-                shp.append(out_shape)
-                offs.append(v)
-                v += int(np.prod(out_shape))
-            self.slices.append(tuple(cut))
-            self.boxes.append(boxes)
-            self.whole.append(np.asarray(whole, bool))
-            self.shapes.append(tuple(shp))
-            self.offsets.append(tuple(offs))
-            self.values.append(v)
-        self._first = [np.asarray([b.a0 for b in bx], np.int64)
-                       for bx in self.boxes]
-        self._end = [f + np.asarray([b.a_extent for b in bx], np.int64)
-                     for f, bx in zip(self._first, self.boxes)]
+        shapes = tree_unflatten(part.treedef, [
+            torch.empty(l.shape, device="meta") for l in part.leaves])
+        self.slices = [tuple([WHOLE] * len(part.leaves) if tp == 1 else
+                             [x for _, x in flatten_with_path(
+                                 model_slices(shapes, ctx, pos=m))[0]])
+                       for m in range(tp)]
+        self.entries, self.group_treedefs, self.skeleton = _layer_groups(
+            part, tuple(layers))
+        self._outer_pos = {li: k for k, (li, _) in
+                           enumerate(self.entries[OUTER])}
+        self._cuts: dict = {}
         self._gather: dict = {}
         self._reduce: dict = {}
+        self._owned: dict = {}
 
     @property
     def model(self) -> int:
         """This rank's model position."""
         return self.model_of[self.pos]
 
-    def gather_boxes(self, q: int, m: int) -> list:
+    @property
+    def n_groups(self) -> int:
+        """:data:`OUTER` and the layer groups."""
+        return len(self.entries)
+
+    def _cut(self, group: int) -> _GroupCut:
+        got = self._cuts.get(group)
+        if got is not None:
+            return got
+        got = _GroupCut([], [], [], [], [], [], [])
+        for m in range(self.tp):
+            boxes, whole, shp, offs, v = [], [], [], [], 0
+            for li, row in self.entries[group]:
+                s = self.slices[m][li]
+                bx, out_shape = _leaf_boxes(self.layout, li, s, v, row)
+                boxes += bx
+                whole += [self.tp > 1 and not s] * len(bx)
+                shp.append(out_shape)
+                offs.append(v)
+                v += int(np.prod(out_shape))
+            first = np.asarray([b.a0 for b in boxes], np.int64)
+            got.boxes.append(boxes)
+            got.whole.append(np.asarray(whole, bool))
+            got.shapes.append(tuple(shp))
+            got.offsets.append(tuple(offs))
+            got.values.append(v)
+            got.first.append(first)
+            got.end.append(first + np.asarray([b.a_extent for b in boxes],
+                                              np.int64))
+        self._cuts[group] = got
+        return got
+
+    def group_values(self, group: int, m: Optional[int] = None) -> int:
+        """The slice values of ``group`` at model position ``m`` (default
+        this rank's)."""
+        return self._cut(group).values[self.model if m is None else m]
+
+    def gather_boxes(self, q: int, m: int, group: int) -> list:
         """The words of owner ``q``'s span that model position ``m``'s
-        slices cover, as boxes (arena words and slice-domain values)."""
-        key = (q, m)
+        slices (of ``group``) cover, as boxes (arena words and
+        slice-domain values)."""
+        key = (q, m, group)
         got = self._gather.get(key)
         if got is None:
+            cut = self._cut(group)
             w0, w1 = q * self.shard_words, (q + 1) * self.shard_words
-            hit = np.flatnonzero((self._first[m] < w1)
-                                 & (self._end[m] > w0))
-            got = [(c, bool(self.whole[m][i])) for i in hit.tolist()
-                   for c in clip_box(self.boxes[m][i], w0, w1)]
+            hit = np.flatnonzero((cut.first[m] < w1) & (cut.end[m] > w0))
+            got = [(c, bool(cut.whole[m][i])) for i in hit.tolist()
+                   for c in clip_box(cut.boxes[m][i], w0, w1)]
             self._gather[key] = got
         return [b for b, _ in got]
 
-    def reduce_boxes(self, q: int, m: int) -> list:
+    def reduce_boxes(self, q: int, m: int, group: int) -> list:
         """The words of owner ``q``'s span to which model position ``m``
-        contributes its gradient: :meth:`gather_boxes` less the leaves
-        computed whole, at a model position other than 0."""
-        key = (q, m)
+        contributes its gradient (of ``group``): :meth:`gather_boxes`
+        less the leaves computed whole, at a model position other than
+        0."""
+        key = (q, m, group)
         got = self._reduce.get(key)
         if got is None:
-            self.gather_boxes(q, m)
-            got = [b for b, w in self._gather[(q, m)] if m == 0 or not w]
+            self.gather_boxes(q, m, group)
+            got = [b for b, w in self._gather[key] if m == 0 or not w]
             self._reduce[key] = got
         return got
 
-    def gather_words(self, q: int, m: int) -> int:
-        return sum(b.numel for b in self.gather_boxes(q, m))
+    def gather_words(self, q: int, m: int, group: int) -> int:
+        return sum(b.numel for b in self.gather_boxes(q, m, group))
 
-    def reduce_words(self, q: int, m: int) -> int:
-        return sum(b.numel for b in self.reduce_boxes(q, m))
+    def reduce_words(self, q: int, m: int, group: int) -> int:
+        return sum(b.numel for b in self.reduce_boxes(q, m, group))
 
-    def max_count(self, reduce: bool) -> int:
+    def max_count(self, reduce: bool, group: int) -> int:
         """The largest count any owner and position exchange (the same on
         every rank: it sets the all-to-all's rounds)."""
         words = self.reduce_words if reduce else self.gather_words
-        return max((words(q, m) for q in range(self.n)
+        return max((words(q, m, group) for q in range(self.n)
                     for m in range(self.tp)), default=0)
 
-    def decode(self, buf: torch.Tensor, m: Optional[int] = None) -> list:
-        """Model position ``m``'s (default this rank's) slices in leaf
-        order, views of its slice-domain ``buf``."""
-        m = self.model if m is None else m
-        return [buf[o:o + int(np.prod(s))].view(s)
-                for o, s in zip(self.offsets[m], self.shapes[m])]
+    def owned_words(self, q: int, group: int) -> int:
+        """The words of owner ``q``'s span that ``group``'s leaves hold:
+        what a reduce of the group lands there."""
+        key = (q, group)
+        got = self._owned.get(key)
+        if got is None:
+            w0, w1 = q * self.shard_words, (q + 1) * self.shard_words
+            got = sum(c.numel for li, row in self.entries[group]
+                      for b in _leaf_boxes(self.layout, li, WHOLE, 0,
+                                           row)[0]
+                      for c in clip_box(b, w0, w1))
+            self._owned[key] = got
+        return got
 
-    def take(self, tree: PyTree, dtype=torch.float32) -> torch.Tensor:
-        """This rank's slices of the whole leaves of ``tree``, as a new
-        slice-domain buffer of ``dtype``."""
+    def decode(self, buf: torch.Tensor, group: int,
+               m: Optional[int] = None) -> list:
+        """Model position ``m``'s (default this rank's) slices of
+        ``group`` in its order, views of its slice-domain ``buf``."""
+        m = self.model if m is None else m
+        cut = self._cut(group)
+        return [buf[o:o + int(np.prod(s))].view(s)
+                for o, s in zip(cut.offsets[m], cut.shapes[m])]
+
+    def model_tree(self, outer: list, layer) -> PyTree:
+        """The params tree the model runs: the :data:`OUTER` group's
+        leaves (``outer``, in its order) in their places and ``layer(g)``
+        in the place of each layer group ``g`` (a stacked subtree becomes
+        the list of its layers)."""
+        return tree_map(lambda x: layer(x.g) if isinstance(x, _GroupRef)
+                        else outer[self._outer_pos[x]], self.skeleton)
+
+    def take(self, tree: PyTree, group: int, dtype=torch.float32
+             ) -> torch.Tensor:
+        """This rank's slices of ``group`` of the whole leaves of
+        ``tree``, as a new slice-domain buffer of ``dtype``."""
         m = self.model
         leaves = tree_leaves(tree)
-        out = torch.empty((self.values[m],), dtype=dtype,
+        out = torch.empty((self.group_values(group, m),), dtype=dtype,
                           device=leaves[0].device)
-        for x, s, y in zip(leaves, self.slices[m], self.decode(out)):
-            y.copy_(_take(x, s))
+        for (li, row), y in zip(self.entries[group],
+                                self.decode(out, group, m)):
+            s = self.slices[m][li]
+            if row is None:
+                y.copy_(_take(leaves[li], s))
+            else:
+                y.copy_(_take(leaves[li][row], ModelSlice(s[0] - 1, *s[1:])
+                              if s else s))
         return out
 
-    def pack(self, out: torch.Tensor, grads: list) -> torch.Tensor:
-        """Each slice-shaped gradient of ``grads`` (leaf order) copied into
-        the slice-domain ``out``, the list's entry set to None once
-        copied (a caller holding no other reference frees it there)."""
-        for li, y in enumerate(self.decode(out)):
+    def pack(self, out: torch.Tensor, grads: list, group: int
+             ) -> torch.Tensor:
+        """Each slice-shaped gradient of ``grads`` (``group``'s order)
+        copied into the slice-domain ``out``, the list's entry set to None
+        once copied (a caller holding no other reference frees it
+        there)."""
+        for li, y in enumerate(self.decode(out, group)):
             y.copy_(grads[li])
             grads[li] = None
         return out
-
-    def accumulate(self, acc: torch.Tensor, grads: list) -> torch.Tensor:
-        """``acc += grads`` in the slice domain, leaf by leaf, in f32 and
-        rounded to ``acc``'s dtype (``core.arena.accumulate_values``'s
-        arithmetic), each entry of ``grads`` set to None once added."""
-        for li, y in enumerate(self.decode(acc)):
-            g = grads[li]
-            grads[li] = None
-            if acc.dtype == torch.float32:
-                y.add_(g)
-            else:
-                y.copy_(y.to(torch.float32) + g.to(torch.float32))
-            del g
-        return acc
 
 
 # ---------------------------------------------------------------------------

@@ -20,7 +20,7 @@ is the microbatches' mean. The arena step adds each microbatch's gradient
 into its value-domain accumulator leaf by leaf and divides it in place
 (:func:`repro_torch.core.arena.accumulate_values`), the same elementwise
 arithmetic as the tree path's. Its accumulator, one ``(total_values,)``
-buffer (on a mesh, the rank's slice values), is allocated at the first
+buffer (on a mesh, the rank's span), is allocated at the first
 step and cleared in place at every
 later one, until the step's ``release()`` lets it go (``TrainLoop.run``
 calls it as it returns): a new buffer a step (11.9 GB for one
@@ -33,19 +33,41 @@ the device (reading it waits for the step).
 **On a mesh** (``comm``, a :class:`~repro_torch.distributed.collectives.
 MeshComm`) each rank computes the loss of its slice of the global batch
 and holds only its span of the arena and of its moments. A step runs on
-the rank's model slices alone (the plan of
+the rank's model slices alone, one group of them at a time (the plan of
 :class:`~repro_torch.sharding.partition.SlicePlan`, built once with the
-step): ``slice_gather`` brings the words of the rank's slices from their
-owners' spans into one slice-domain buffer, which decodes to
-slice-shaped leaves without a copy; the loss and its gradient are taken
-with respect to those leaves; the gradient is packed leaf by leaf into a
-slice-domain buffer (or, microbatched, added into the rank's slice-sized
-accumulator); ``slice_reduce`` sends each word's gradient to the owner
-of its span, which adds the contributions in mesh position order (the
-sum over the ranks, divided by the number of batch shards: the mean of
-the shards' gradients), and the optimizer runs over the span in place.
-No rank holds a buffer of the whole arena. The loss is the mean of the
-shards' losses.
+step: a group a layer the model recomputes in backward, ``cfg.remat``,
+and the outer group of every other leaf). ``slice_gather`` brings a
+group's words from their owners' spans into a slice-domain buffer of the
+group, which decodes to slice-shaped leaves without a copy. The outer
+group (the embedding, the head, the final norms, a VLM's projector, the
+hybrid's shared block, the encoder-decoder's encoder) is gathered once
+and held for the step; each layer is a
+:class:`~repro_torch.models.layers.GatheredLayer`, whose
+``layers.layer_call`` gathers the layer's slices as the layer starts,
+under remat: in the forward, whose graph keeps none of them, and again
+in the recompute in backward. Once the backward has the gradient of
+every slice of the layer it packs it into the group's slice domain and
+reduces it into the rank's span gradient before it moves on; the outer
+group's gradient is reduced when the backward ends. ``slice_reduce``
+sends each word's gradient to the owner of its span, which adds the
+contributions in mesh position order and divides by the number of batch
+shards (the mean of the shards' gradients), and the optimizer runs over
+the span in place. No rank holds a buffer of all its slices, nor of the
+whole arena: at most the outer group, one layer's slices and their
+gradient, the span gradient and the remat checkpoints. Every rank runs
+its layers in the same order, so the exchanges line up. The loss is the
+mean of the shards' losses.
+
+At ``cfg.microbatch == 1`` each word's gradient is the sum of the same
+contributors in the same order as when the rank's slices were gathered
+whole for the step: the same bits. Microbatched, the sum runs in the
+reference's order (``repro.training.step``, whose microbatch loop packs
+each gradient to the flat sharding and adds it into a span-sized
+accumulator): each microbatch's gradient is reduced, divided by the
+shards and added, in f32 and rounded, into a span accumulator in
+``cfg.opt_moment_dtype``, which is divided by the microbatches at the
+end. The accumulator and the microbatch's span are made at the first
+step and reused until ``release()``.
 
 Where the forward is model-parallel (``ctx``: a mesh whose ``model`` axis
 has ``tp > 1`` positions) the batch shards are the data positions, each
@@ -61,16 +83,12 @@ does not split) counts at the line's first rank (model position 0)
 alone. One divisor, the data positions, makes the mean. The loss, the
 same on every rank of a line, is counted at model position 0 alone. A
 ``(n, 1)`` mesh (the survivor mesh) has ``tp = 1``: every slice is the
-whole leaf, the same code gathers the whole arena's leaves, and every
-rank runs the whole forward on its own rows. This is bit for bit the
-whole-arena step it replaced (the arena all-gathered, the gradient of
-the whole leaves, zero outside the rank's slices, packed and
-reduce-scattered), up to the sign of a zero sum: a position's +0.0 part
-is no longer added.
+whole leaf, so each layer is gathered whole over the data line as it
+runs, and every rank runs the whole forward on its own rows.
 
 The PyTree step on a mesh keeps its whole tree on every rank: it takes
-its slices of the tree (:meth:`SlicePlan.take`) and runs the same
-gradient and the same ``slice_reduce`` as the arena step, then
+each group's slices of the tree (:meth:`SlicePlan.take`) where the arena
+step gathers them, and runs the same gradient and the same reduces, then
 all-gathers the reduced spans and updates the tree in place, slice by
 slice (the arena path's apply does the same; out of place, a full-width
 tree, its moments and their new copies do not fit four ranks on one
@@ -88,10 +106,10 @@ from repro_torch.core.arena import (accumulate_values, pack_values,
                                     unpack_arena)
 from repro_torch.data.pipeline import data_shard, model_parallel
 from repro_torch.models.api import ModelOps
-from repro_torch.models.layers import torch_dtype
+from repro_torch.models.layers import GatheredLayer, torch_dtype
 from repro_torch.optim.optimizers import (APPLY_SLICE, Optimizer, OptState,
                                           arena_apply)
-from repro_torch.sharding.partition import (SlicePlan, model_slices,
+from repro_torch.sharding.partition import (OUTER, SlicePlan, model_slices,
                                             take_model_slices)
 from repro_torch.training.train_state import ArenaTrainState, TrainState
 from repro_torch.utils.tree import tree_flatten, tree_map, tree_unflatten
@@ -100,24 +118,20 @@ PyTree = Any
 
 
 def _grad_leaves(ops: ModelOps, cfg: ModelConfig, params: PyTree,
-                 batch: dict, ctx=None, sliced: bool = False
-                 ) -> tuple[torch.Tensor, list, Any]:
+                 batch: dict, ctx=None) -> tuple[torch.Tensor, list, Any]:
     """The loss of ``batch`` and its gradient with respect to every leaf of
     ``params``, as a list in leaf order (leaves the loss does not reach
     get zeros), and the tree's structure. The leaves are taken as they
     are (aliases that require grad; nothing is copied). With a
-    model-parallel ``ctx`` the loss runs on this rank's model slices:
-    ``params`` are those slices (``sliced``), or whole leaves whose slices
-    it takes as views, and then a leaf computed whole keeps its gradient
-    at model position 0 only."""
+    model-parallel ``ctx`` the loss runs on this rank's model slices,
+    taken as views of the whole leaves ``params``, and a leaf computed
+    whole keeps its gradient at model position 0 only."""
     leaves, treedef = tree_flatten(params)
     leaves = [x.detach().requires_grad_(True) for x in leaves]
     tree = tree_unflatten(treedef, leaves)
     with torch.enable_grad():
         if ctx is None:
             loss = ops.train_loss(tree, batch, cfg)
-        elif sliced:
-            loss = ops.train_loss(tree, batch, cfg, ctx=ctx)
         else:
             slices = model_slices(tree, ctx)
             loss = ops.train_loss(take_model_slices(tree, slices), batch,
@@ -126,8 +140,7 @@ def _grad_leaves(ops: ModelOps, cfg: ModelConfig, params: PyTree,
     del tree
     grads = [torch.zeros_like(x) if g is None else g
              for x, g in zip(leaves, grads)]
-    if ctx is not None and not sliced \
-            and ctx.mesh.axis_position(ctx.tp) != 0:
+    if ctx is not None and ctx.mesh.axis_position(ctx.tp) != 0:
         for g, s in zip(grads, tree_flatten(slices)[0]):
             if not s:
                 g.zero_()
@@ -170,54 +183,92 @@ def _mean_loss(loss: torch.Tensor, comm, tp_ctx, shards: int
     return comm.all_reduce(mine)[0] / shards
 
 
-def _slice_grads(ops: ModelOps, cfg: ModelConfig, plan, words: list,
-                 batch: dict, tp_ctx, acc: list) -> tuple[torch.Tensor,
-                                                          torch.Tensor]:
-    """The loss of ``batch`` on this rank's slices (``words[0]``, a
-    slice-domain buffer of ``plan``, which this call takes and drops once
-    the backward no longer needs it) and its gradient, a slice-domain
-    buffer: packed leaf by leaf, each leaf's gradient dropped once packed,
-    or (``cfg.microbatch > 1``) added microbatch by microbatch into the
-    accumulator ``acc`` holds (made at the first call, in
-    ``cfg.opt_moment_dtype``, cleared in place at each later one) and
-    divided by the microbatches in place."""
+def _mesh_grads(ops: ModelOps, cfg: ModelConfig, plan, comm, gather,
+                batch: dict, tp_ctx, shards: int, bufs: list
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The loss of this rank's ``batch`` and its span of the batch shards'
+    mean gradient, group by group of ``plan`` (see the module docstring):
+    ``gather(g)`` returns a new slice-domain buffer of group ``g``'s
+    slices; the outer group's is held for the step, each layer's is
+    gathered by its :class:`~repro_torch.models.layers.GatheredLayer` as
+    the layer runs, and each group's gradient reduced into the span as
+    the backward leaves it. Microbatched, ``bufs`` holds the span
+    accumulator (``cfg.opt_moment_dtype``) and a microbatch's f32 span,
+    made at the first call and reused."""
+    f32 = torch.float32
     m = plan.model
-    buf = words.pop()
-    params = tree_unflatten(plan.treedef, plan.decode(buf.view(
-        torch.float32)))
     mb = max(cfg.microbatch, 1)
+    outer = [x.detach().requires_grad_(True) for x in plan.decode(
+        gather(OUTER).view(f32), OUTER)]
+    dev = outer[0].device
+    # the gathered layers' common input: asking its gradient makes the
+    # backward run each layer's gather node, which sends the layer's
+    # gradient to its owners
+    anchor = torch.zeros((), dtype=f32, device=dev, requires_grad=True)
     if mb == 1:
-        loss, g, _ = _grad_leaves(ops, cfg, params, batch, tp_ctx,
-                                  sliced=True)
-        del params, buf
-        return loss, plan.pack(torch.empty((plan.values[m],),
-                                           dtype=torch.float32,
-                                           device=g[0].device), g)
-    if acc:
-        grads = acc[0].zero_()
+        span = torch.zeros((plan.shard_words,), dtype=f32, device=dev)
     else:
-        grads = torch.zeros((plan.values[m],),
-                            dtype=torch_dtype(cfg.opt_moment_dtype),
-                            device=buf.device)
-        acc.append(grads)
+        if not bufs:
+            bufs += [torch.zeros((plan.shard_words,), device=dev,
+                                 dtype=torch_dtype(cfg.opt_moment_dtype)),
+                     torch.empty((plan.shard_words,), dtype=f32,
+                                 device=dev)]
+        acc, span = bufs
+        acc.zero_()
+
+    def send(g: int, grads: list) -> None:
+        buf = plan.pack(torch.empty((plan.group_values(g, m),), dtype=f32,
+                                    device=dev), grads, g)
+        comm.slice_reduce(buf, plan, g, out=span)
+
+    def layer(g: int) -> GatheredLayer:
+        return GatheredLayer(
+            lambda: plan.decode(gather(g).view(f32), g),
+            lambda grads: send(g, grads), plan.group_treedefs[g], anchor)
+    tree = plan.model_tree(outer, layer)
+    kw = {} if tp_ctx is None else {"ctx": tp_ctx}
+    losses = []
+    for bx in [batch] if mb == 1 else _microbatches(batch, mb):
+        if mb > 1:
+            span.zero_()
+        with torch.enable_grad():
+            loss = ops.train_loss(tree, bx, cfg, **kw)
+            got = torch.autograd.grad(loss, outer + [anchor],
+                                      allow_unused=True)
+        grads = [torch.zeros_like(x) if g is None else g
+                 for x, g in zip(outer, got)]
+        del got
+        send(OUTER, grads)
+        losses.append(loss.detach())
+        if shards > 1:
+            span.div_(shards)
+        if mb > 1:
+            # the reference's order: the microbatch's mean over the
+            # shards added into the accumulator, in f32, rounded to its
+            # dtype
+            for a in range(0, acc.numel(), APPLY_SLICE):
+                x, y = acc[a:a + APPLY_SLICE], span[a:a + APPLY_SLICE]
+                if acc.dtype == f32:
+                    x.add_(y)
+                else:
+                    x.copy_(x.to(f32) + y)
+    del tree, outer
+    if mb == 1:
+        return losses[0], span
     loss_sum = 0.0
-    for bx in _microbatches(batch, mb):
-        l, g, _ = _grad_leaves(ops, cfg, params, bx, tp_ctx, sliced=True)
-        plan.accumulate(grads, g)
-        loss_sum = loss_sum + l
-    del params, buf
-    grads.div_(mb)            # in the accumulator's dtype, as the tree
-    return loss_sum / mb, grads
+    for loss in losses:
+        loss_sum = loss_sum + loss
+    acc.div_(mb)              # in the accumulator's dtype, as the tree
+    return loss_sum / mb, acc
 
 
-def _reduced_span(grads: torch.Tensor, comm, plan, shards: int
-                  ) -> torch.Tensor:
-    """This rank's span of the batch shards' mean gradient, from each
-    rank's slice-domain ``grads``."""
-    span = comm.slice_reduce(grads, plan)
-    if shards > 1:
-        span.div_(shards)
-    return span
+def _plan(ops: ModelOps, cfg: ModelConfig, layout, comm, tp_ctx):
+    """The mesh step's :class:`SlicePlan` (None off a mesh): a group a
+    layer the model recomputes in backward (``cfg.remat``)."""
+    if comm is None:
+        return None
+    return SlicePlan(layout, comm.mesh, tp_ctx,
+                     ops.remat_layers if cfg.remat else ())
 
 
 def _update_in_place(optimizer: Optimizer, grads: PyTree,
@@ -252,16 +303,15 @@ def make_train_step(ops: ModelOps, cfg: ModelConfig, optimizer: Optimizer,
     slices is reduced into its span of the arena ``layout`` and gathered
     back (see the module docstring)."""
     tp_ctx, shards = _mesh_terms(cfg, comm, ctx)
-    plan = None if comm is None else SlicePlan(layout, comm.mesh, tp_ctx)
+    plan = _plan(ops, cfg, layout, comm, tp_ctx)
 
     def train_step(state: TrainState, batch: dict):
         if comm is not None:
-            loss, g = _slice_grads(ops, cfg, plan, [plan.take(
-                state.params)], batch, tp_ctx, [])
-            span = _reduced_span(g, comm, plan, shards)
-            del g
-            grads = unpack_arena(comm.all_gather(span).view(torch.int32),
-                                 layout, copy=False)
+            loss, span = _mesh_grads(
+                ops, cfg, plan, comm, lambda g: plan.take(state.params, g),
+                batch, tp_ctx, shards, [])
+            grads = unpack_arena(comm.all_gather(span.to(torch.float32))
+                                 .view(torch.int32), layout, copy=False)
             del span
             loss = _mean_loss(loss, comm, tp_ctx, shards)
             opt_state = _update_in_place(optimizer, grads, state)
@@ -302,14 +352,13 @@ def make_arena_train_step(ops: ModelOps, cfg: ModelConfig,
     the tree path's ``.to(p.dtype)``."""
     acc: list = []          # the microbatched step's accumulator, reused
     tp_ctx, shards = _mesh_terms(cfg, comm, ctx)
-    plan = None if comm is None else SlicePlan(layout, comm.mesh, tp_ctx)
+    plan = _plan(ops, cfg, layout, comm, tp_ctx)
 
     def train_step(state: ArenaTrainState, batch: dict):
         if comm is not None:
-            loss, g = _slice_grads(ops, cfg, plan, [comm.slice_gather(
-                state.arena, plan)], batch, tp_ctx, acc)
-            grads = _reduced_span(g, comm, plan, shards)
-            del g
+            loss, grads = _mesh_grads(
+                ops, cfg, plan, comm, lambda g: comm.slice_gather(
+                    state.arena, plan, g), batch, tp_ctx, shards, acc)
             loss = _mean_loss(loss, comm, tp_ctx, shards)
             arena, opt_state = arena_apply(
                 optimizer, grads, state.opt_state, state.arena, layout,

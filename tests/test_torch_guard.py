@@ -246,7 +246,8 @@ def test_trainer_defaults_to_cuda_and_names_its_roadmap_items(tmp_path):
     (the expert-parallel MoE, item 38, is ported) and no port file names
     items 15, 38, 39 (the other families' tensor parallelism), 40 (the
     server on a mesh), 41 (query heads that do not split over the model
-    axis) or 42 (the mesh step's whole-arena gather) any more."""
+    axis), 42 (the mesh step's whole-arena gather) or 46 (the per-layer
+    gather over the data line) any more."""
     from repro_torch.data import ShardedLMDataset
     cfg = get_config("qwen2-1.5b", reduced=True)
     if torch.cuda.is_available():
@@ -293,6 +294,7 @@ def test_trainer_defaults_to_cuda_and_names_its_roadmap_items(tmp_path):
         assert "item 40" not in text, path
         assert "item 41" not in text, path
         assert "item 42" not in text, path
+        assert "item 46" not in text, path
 
 
 def _env_writes(tree: ast.Module) -> list:

@@ -23,7 +23,10 @@ imports them, JAX's backend is made before the flag is read).
   the encoder-decoder);
 - the counting stand-in's calls and bytes per collective equal to
   ``collectives.STATS`` of a real 4-rank ``(2, 2)`` gloo job running the
-  same reduced step (in subprocesses, as ``tests/test_torch_mesh_tp.py``).
+  same reduced step (in subprocesses, as ``tests/test_torch_mesh_tp.py``),
+  the train step's grouped slice gathers and reduces (an interleaved MoE
+  model's dense and MoE layers, the hybrid's shared block in the outer
+  group) among them.
 """
 import dataclasses
 import json
@@ -297,7 +300,8 @@ for name in %(names)r:
 pickle.dump(res, open(f"{out}/rank_{rank}.pkl", "wb"))
 dist.destroy_process_group()
 '''
-GLOO_NAMES = ("qwen2-1.5b", "qwen3-moe-235b-a22b")
+GLOO_NAMES = ("qwen2-1.5b", "qwen3-moe-235b-a22b",
+              "llama4-maverick-400b-a17b", "zamba2-1.2b")
 
 
 @pytest.fixture(scope="module")
@@ -349,8 +353,10 @@ def test_counting_stand_in_equals_a_real_gloo_job(gloo_job, name, kind):
 def test_counting_stand_in_slice_exchange_equals_a_real_gloo_job(
         gloo_job, name, method):
     """The train step's two slice collectives: the stand-in's calls,
-    bytes and result bytes equal a real rank's, and the gathered result
-    is 4 B a value of the rank's slices."""
+    bytes and result bytes equal a real rank's; the gathers' results are
+    4 B a value of the rank's slices, the outer group's once and each
+    layer's twice (the forward and its recompute), and the reduces land
+    4 B a word of the rank's span that a group's leaves hold."""
     from repro_torch.sharding.partition import SlicePlan
     b, s = next((b, s) for k, b, s in KINDS if k == "train")
     cfg = get_config(name, reduced=True)
@@ -360,27 +366,41 @@ def test_counting_stand_in_slice_exchange_equals_a_real_gloo_job(
         step = dryrun.build_rank_step(cfg, "train", b, s, mesh, "meta")
         dry = dryrun.measure(step)["stats"][method]
         real = r[(name, "train")][method]
-        assert (dry["calls"], dry["bytes"]) == real and real[0] == 1
-        assert dry["result_bytes"] == r[(name, "train", "result")][method]
         plan = step.info["slice_plan"]
-        want = plan.values[plan.model] if method == "slice_gather" \
-            else plan.shard_words
+        layers = range(1, plan.n_groups)
+        assert len(layers) == cfg.n_layers
+        assert (dry["calls"], dry["bytes"]) == real
+        assert real[0] == (1 + 2 * len(layers) if method == "slice_gather"
+                           else 1 + len(layers))
+        assert dry["result_bytes"] == r[(name, "train", "result")][method]
+        if method == "slice_gather":
+            want = plan.group_values(0) + 2 * sum(plan.group_values(g)
+                                                  for g in layers)
+        else:
+            want = sum(plan.owned_words(plan.pos, g)
+                       for g in range(plan.n_groups))
         assert dry["result_bytes"] == 4 * want > 0
 
 
 def test_train_probe_gathers_the_slices_alone():
     """granite-8b's depth-1 train probe on rank 0 of the dry (16, 16)
-    mesh: the gather's result is 4 B a value of the rank's model slices,
-    a fifteenth of the arena's words or less."""
+    mesh: the gathers' results are 4 B a value of the rank's model
+    slices, the layer's twice (the forward and its recompute), a
+    fifteenth of the arena's words or less; the reduces land the rank's
+    span, 4 B a word that a leaf holds."""
     mesh = make_dry_production_mesh()
     rec = dryrun.probe("granite-8b", "train_4k", mesh, n_layers=1)
     cfg = dataclasses.replace(get_config("granite-8b"), n_layers=1)
     step = dryrun.build_rank_step(cfg, "train", 2, 8, mesh, "meta")
     plan = step.info["slice_plan"]
     gather = rec["collectives"]["all-gather"]
-    assert gather["count"] == 1
-    assert gather["bytes"] == 4 * plan.values[0] == 157_335_552
-    assert 15 * plan.values[0] < step.info["arena_words"]
-    assert rec["collectives"]["reduce-scatter"]["bytes"] \
-        == 4 * plan.shard_words
+    values = plan.group_values(0) + plan.group_values(1)
+    assert plan.n_groups == 2 and gather["count"] == 3
+    assert 4 * values == 157_335_552
+    assert gather["bytes"] == 4 * (plan.group_values(0)
+                                   + 2 * plan.group_values(1))
+    assert 15 * values < step.info["arena_words"]
+    assert rec["collectives"]["reduce-scatter"]["count"] == 2
+    assert rec["collectives"]["reduce-scatter"]["bytes"] == 4 * sum(
+        plan.owned_words(0, g) for g in (0, 1)) <= 4 * plan.shard_words
 
