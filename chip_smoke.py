@@ -419,7 +419,7 @@ Phases, each of which fails the run if it fails:
     is held. ``python3 chip_smoke.py --slice-train`` runs phases 1 and 36
     alone (``{"slice_train_only": true, ...}``).
 37. **The mesh train step gathers each layer's slices as it runs**
-    (:func:`phase_layer_train`): rank 0 of the dry (16, 16) mesh trains
+    (:func:`phase_rank_train`): rank 0 of the dry (16, 16) mesh trains
     llama4-maverick-400b-a17b at full width and depth (48 layers, 24
     dense + MoE pairs, f32, ``train_4k`` at microbatch 4) as phase 36
     does: each layer's slices gathered in its forward and again in its
@@ -430,6 +430,19 @@ Phases, each of which fails the run if it fails:
     slices. Printed: one step's seconds, timed with no untimed step before
     it. ``python3 chip_smoke.py --layer-train`` runs phases 1 and 37 alone
     (``{"layer_train_only": true, ...}``).
+38. **The residual stream between layers split over the model axis**
+    (Megatron SP; :func:`phase_rank_train`, ``"seq_train"``): every
+    train step on a mesh whose model line divides its sequence keeps the
+    carry between layers as the rank's piece of S, each layer gathering S
+    and reduce-scattering its partials (phases 30-32, 34(c), 35(b) and
+    36-37 take it too). Rank 0 of the dry (16, 16) mesh trains
+    qwen3-moe-235b-a22b at full width and depth (94 MoE layers, 8 of the
+    128 experts a rank, f32, ``train_4k``: 16 sequences of 4,096 tokens,
+    256 carry rows a sequence) as phase 37 does: its remat checkpoints a
+    sixteenth of the replicated carry's 101 GB. Held as phase 37, the
+    books the plan's groups plus the sequence-parallel calls
+    (:func:`_seq_books`). ``python3 chip_smoke.py --seq-train`` runs
+    phases 1 and 38 alone (``{"seq_train_only": true, ...}``).
 
 The line before the last is the kernels' JSON record (each kernel's
 launches on its own path, ``train_launches`` on phase 17's,
@@ -5980,13 +5993,15 @@ def _tp_step(device, cfg, ctx, params, slices, rows: dict, work: Path
     the data line, each slice held against the yardstick's under
     ``work`` (:func:`_tp_yardstick`); where more than one rank of the model
     line holds a range (:func:`_shared_ranges`) the sum of the mean over
-    the ranks that hold it."""
+    the ranks that hold it, and for the stacks' norms
+    (``partition.acts_on_pieces``) the sum over the line."""
     import torch
     from repro_torch.data.pipeline import slice_batch
     from repro_torch.distributed import collectives
     from repro_torch.distributed.collectives import MeshComm, model_axis
     from repro_torch.interop import from_numpy_tree
     from repro_torch.models import get_model
+    from repro_torch.sharding.partition import acts_on_pieces
     from repro_torch.utils.tree import (flatten_with_path, keystr,
                                         tree_flatten, tree_unflatten)
     ops = get_model(cfg)
@@ -6064,6 +6079,11 @@ def _tp_step(device, cfg, ctx, params, slices, rows: dict, work: Path
                 acc.narrow(dim, lo, hi - lo).copy_(
                     tot.narrow(dim, at, hi - lo))
             del buf, tot
+        if acts_on_pieces(path):
+            # a norm of the carry: each rank's part (its piece of S's, or
+            # position 0's whole where the carry stays replicated), summed
+            # over the line as the slice plan sums it
+            acc = line.summed(acc, "model_norm_grad")
         if cuda:
             torch.cuda.synchronize()
         t_mean += time.perf_counter() - t1
@@ -7071,7 +7091,7 @@ def _serve_mesh_reduced(device, ctx) -> dict:
                                                ctx)
                 l_cpu, c_cpu = pre("cpu")
                 l_card, c_card = pre("card")
-                ratio = _close_1e4(l_card, l_cpu)
+                ratio, where = _close_1e4(l_card, l_cpu), "prefill logits"
                 for (path, a), (_, b) in zip(flatten_with_path(c_card)[0],
                                              flatten_with_path(c_cpu)[0]):
                     if a.dtype == torch.int8:
@@ -7080,21 +7100,27 @@ def _serve_mesh_reduced(device, ctx) -> dict:
                               f"{keystr(path)} off by {int(d8.max())}")
                         r["flips"] += int(d8.sum())
                     elif a.is_floating_point():
-                        ratio = max(ratio, _close_1e4(a, b))
+                        x = _close_1e4(a, b)
+                        if x > ratio:
+                            ratio, where = x, f"prefill {keystr(path)}"
                     else:
                         check(torch.equal(a.cpu(), b), f"33(c) {case} "
                               f"{arm}: {keystr(path)} differs")
                 carried = tree_map(lambda x: x.to(device), c_cpu)
-                for _ in range(new - 1):
+                for step in range(new - 1):
                     tok = _greedy(l_cpu)
                     l_cpu, c_cpu = ops.decode_step(on["cpu"], c_cpu, tok,
                                                    cfg, ctx)
                     l_card, carried = ops.decode_step(
                         on["card"], carried, tok.to(device), cfg, ctx)
-                    ratio = max(ratio, _close_1e4(l_card, l_cpu))
+                    x = _close_1e4(l_card, l_cpu)
+                    if x > ratio:
+                        ratio, where = x, f"decode step {step} logits"
                 r[f"{arm}_ratio"] = ratio
+                r[f"{arm}_worst"] = where
                 check(ratio <= 1.0, f"33(c) {case} {arm}: the card is "
-                      f"{ratio:.3g} of rtol 1e-4, atol 1e-4 off the CPU")
+                      f"{ratio:.3g} of rtol 1e-4, atol 1e-4 off the CPU "
+                      f"(worst: {where})")
         t_cpu = Server(cfg, on["cpu"], device="cpu", ctx=ctx).generate(
             batch["cpu"], new)
         t_card = Server(cfg, on["card"], device=device, ctx=ctx).generate(
@@ -7296,15 +7322,17 @@ LAUNCH_FLOOR_FACTOR = 1.5
 # (no hold there reads a host time, and the build before them runs alone)
 # and joined before the mesh phases: phase 23's CPU runs and every meta
 # analysis
-LATE_JOBS = ("examples", "layer", "slice", "uneven", "launch")
+LATE_JOBS = ("examples", "seq", "layer", "slice", "uneven", "launch")
 
 
-def _launch_jobs(which=("layer", "slice", "uneven", "launch")) -> list:
+def _launch_jobs(which=("seq", "layer", "slice", "uneven", "launch")
+                 ) -> list:
     """The host-only jobs of ``which``, each ``(key, function, args)``:
     phase 23's CPU runs (``"examples"``, :func:`_examples_cpu`), first;
-    the meta analyses: phase 37's depth probes and full-depth build and
-    phase 36's full-depth meta run (``"layer"``, ``"slice"``) and phase
-    35(a)'s ranks' steps (``"uneven"``), the longest, first, and
+    the meta analyses: phases 38's and 37's depth probes and builds
+    (``"seq"``, ``"layer"``: :func:`_rank_train_jobs`), phase 36's
+    full-depth meta run (``"slice"``) and phase 35(a)'s ranks' steps
+    (``"uneven"``), the longest, first, and
     phase 34(a)'s (``"launch"``): the four pairs' distinct analyses on the
     dry (16, 16) mesh, and the one-card roofline of phase 29's prefill and
     decode."""
@@ -7312,12 +7340,10 @@ def _launch_jobs(which=("layer", "slice", "uneven", "launch")) -> list:
     jobs, seen = [], set()
     if "examples" in which:
         jobs.append((("examples_cpu",), _examples_cpu, ()))
+    if "seq" in which:
+        jobs += _rank_train_jobs("seq_train")
     if "layer" in which:
-        from repro_torch.launch.dryrun import probe_plan
-        n = len(probe_plan(_layer_train_cfg()[0])[0])
-        jobs += [(("layer_train", i), _layer_train_meta, (i,))
-                 for i in reversed(range(n))]
-        jobs.append((("layer_train",), _layer_train_meta, ()))
+        jobs += _rank_train_jobs("layer_train")
     if "slice" in which:
         jobs.append((("slice_train",), _slice_train_meta, ()))
     if "uneven" in which:
@@ -7358,7 +7384,7 @@ def _one_chip_roofline(kind: str) -> dict:
                          spec, cache_len=o["cache_slots"])
 
 
-def _start_launch_jobs(which=("layer", "slice", "uneven", "launch"),
+def _start_launch_jobs(which=("seq", "layer", "slice", "uneven", "launch"),
                        jobs: Optional[int] = None):
     """The jobs of :func:`_launch_jobs` (``which``) started in ``jobs``
     processes (default ``LAUNCH["jobs"]``; one torch thread each; meta or
@@ -8229,6 +8255,51 @@ def _slice_values(plan) -> int:
     return sum(plan.group_values(g) for g in range(plan.n_groups))
 
 
+def _seq_books(cfg, rows: int, seq: int, tp: int) -> dict:
+    """The sequence-parallel calls (``ModelAxis.gather``, ``scatter``)
+    that a transformer's train step of ``rows`` x ``seq`` books on a rank
+    of a model line of ``tp`` (its carry S-sharded, f32): in each
+    microbatch, each layer's attention and feed-forward gather S and
+    reduce-scatter their partials in the forward, gather again and
+    reduce-scatter the attention's in the recompute (checkpoint's early
+    stop skips the rest of the layer), and in the backward reduce-scatter
+    each gather's gradient and all-gather each scatter's; the embedding's
+    reduce-scatter and the loss's gather, with their backward calls. An
+    all-gather's result is ``B x S x D`` f32 values; a reduce-scatter's
+    ``B x S / tp x D`` a part, an MoE layer with a shared expert's
+    combine and gradient two parts. An independent count of the
+    transformer stack's calls for the dense and MoE families alone
+    (phases 36-38 train no other; a VLM's prefix, a Mamba2 mixer or an
+    encoder-decoder calls otherwise): it raises on another family rather
+    than hold a wrong count."""
+    if cfg.family not in ("dense", "moe"):
+        raise ValueError(f"_seq_books counts the dense and MoE families' "
+                         f"sequence-parallel calls, not {cfg.family}'s")
+    mb = max(cfg.microbatch, 1)
+    L = cfg.n_layers
+    n_moe = (L // 2 if cfg.moe_every > 1 else L) if cfg.n_experts else 0
+    k = 2 if cfg.shared_expert else 1
+    B, D = rows // mb, cfg.d_model
+    parts = mb * (5 * (L - n_moe) + (3 + 2 * k) * n_moe + 2)
+    return {"gather_count": mb * (6 * L + 2),
+            "gather_bytes": mb * (6 * L + 2) * 4 * B * seq * D,
+            "reduce_count": mb * (5 * L + 2),
+            "reduce_bytes": parts * 4 * B * (seq // tp) * D}
+
+
+def _step_books(step, cfg) -> dict:
+    """What a rank's train step (``dryrun.build_rank_step``'s) books:
+    its plan's groups (:func:`_plan_books`) and its sequence-parallel
+    calls (:func:`_seq_books`, under ``"seq"``), summed."""
+    plan = step.info["slice_plan"]
+    rows, seq = step.args["batch"]["tokens"].shape
+    want = _plan_books(plan, max(cfg.microbatch, 1))
+    want["seq"] = _seq_books(cfg, rows, seq, plan.tp)
+    for k, v in want["seq"].items():
+        want[k] += v
+    return want
+
+
 def _books_held(books: dict, want: dict) -> bool:
     return (books["all-gather"]["count"] == want["gather_count"]
             and books["all-gather"]["bytes"] == want["gather_bytes"]
@@ -8240,7 +8311,8 @@ def _rank_train_meta(arch: str, shape: str) -> dict:
     """Rank 0 of the dry (16, 16) mesh running ``arch``'s ``shape`` train
     step once on meta tensors at full depth (``dryrun.measure``): its
     argument and temp bytes and its collectives' books, and what the
-    plan's groups add up to (:func:`_plan_books`)."""
+    plan's groups and its sequence-parallel calls add up to
+    (:func:`_step_books`)."""
     from repro_torch.configs import get_config
     from repro_torch.data.synthetic import shape_params
     from repro_torch.launch import dryrun
@@ -8251,7 +8323,7 @@ def _rank_train_meta(arch: str, shape: str) -> dict:
                                   make_dry_production_mesh(), "meta")
     plan = step.info["slice_plan"]
     full = dryrun.measure(step)
-    full["plan"] = _plan_books(plan, max(cfg.microbatch, 1))
+    full["plan"] = _step_books(step, cfg)
     full["slice_values"] = _slice_values(plan)
     full["arena_words"] = step.info["arena_words"]
     return full
@@ -8283,8 +8355,9 @@ def phase_slice_train(device, card: str, analyses: dict) -> dict:
     bytes equal, the peak within ``LAUNCH_TEMP_RTOL`` of its temp bytes
     and under ``SLICE_TRAIN_PEAK_BYTES``, the gathers' and reduces'
     counts and result bytes (the stand-in's all-gathers and
-    reduce-scatters) what the plan's groups add up to, on the card and on
-    meta (:func:`_plan_books`), the rank's slices under a fifteenth of
+    reduce-scatters) what the plan's groups and the sequence-parallel
+    calls add up to, on the card and on meta (:func:`_step_books`), the
+    rank's slices under a fifteenth of
     the arena; the depth probes' record beside it. No kernel of the port
     is on this path: the optimizer's apply and the training attention are
     plain torch."""
@@ -8376,82 +8449,104 @@ def slice_train_only(device, card: str, analyses: dict) -> int:
 
 
 # ---------------------------------------------------------------------------
-# phase 37: the mesh train step gathers each layer's slices as it runs
+# phases 37 and 38: a full-width rank of the production mesh trained on the
+# card, each layer gathered as it runs (37) and its carry S-sharded (38)
 # ---------------------------------------------------------------------------
 
-# rank 0 of the dry (16, 16) mesh: llama4-maverick-400b-a17b at full width
-# and depth (48 layers: 24 dense + MoE pairs, 128 experts, 8 a rank), f32
-# as the dry run, train_4k at the config's microbatch 4 (the rank's data
-# shard: 16 of the 256 sequences of 4,096 tokens, 4 a microbatch); one
-# step, timed, with no untimed step before it (the script's budget); the
-# plan's clipped lists are made before it, as a trainer's second step
-# finds them. Its meta figures: the full-depth step built on meta (its
-# argument bytes and the plan's books) and its two depth probes (one and
-# two pairs), each a host job before the mesh phases (:data:`LATE_JOBS`):
-# the full-depth meta run takes a pair's 21 s 24 times over (about 470 s
-# on the card's host)
-LAYER_TRAIN = dict(arch="llama4-maverick-400b-a17b", shape="train_4k")
-LAYER_TRAIN_CARD_BYTES = 80e9
+# rank 0 of the dry (16, 16) mesh at train_4k, f32 as the dry run (the
+# rank's data shard: 16 of the 256 sequences of 4,096 tokens), at full
+# width; one step, timed, with no untimed step before it (the script's
+# budget); the plan's clipped lists are made before it, as a trainer's
+# second step finds them, at the config's depth.
+# Each one's meta figures: the step built on meta (its
+# argument bytes and the books of its plan and sequence-parallel calls)
+# and its two depth probes, each a host job before the mesh phases
+# (:data:`LATE_JOBS`): a full-depth meta run takes a probe's seconds a
+# layer over (phase 37's: about 470 s on the card's host).
+# 37: llama4-maverick-400b-a17b (24 dense + MoE pairs, 128 experts, 8 a
+# rank, microbatch 4). 38: qwen3-moe-235b-a22b (94 MoE layers, 128
+# experts top-8, 8 a rank, microbatch 1), the one train_4k rank whose
+# replicated carry's remat checkpoints (101 GB) did not fit the card
+RANK_TRAIN = {
+    "layer_train": dict(phase=37, arch="llama4-maverick-400b-a17b",
+                        shape="train_4k"),
+    "seq_train": dict(phase=38, arch="qwen3-moe-235b-a22b",
+                      shape="train_4k")}
+RANK_TRAIN_CARD_BYTES = 80e9
 
 
-def _layer_train_cfg(**overrides):
+def _rank_train_cfg(key: str, **overrides):
+    """The config (with ``overrides``) and the shape of phase ``key``."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.data.synthetic import shape_params
-    return (dataclasses.replace(get_config(LAYER_TRAIN["arch"]), **overrides),
-            shape_params(LAYER_TRAIN["shape"]))
+    o = RANK_TRAIN[key]
+    return (dataclasses.replace(get_config(o["arch"]), **overrides),
+            shape_params(o["shape"]))
 
 
-def _layer_train_meta(probe: Optional[int] = None) -> dict:
-    """Phase 37's figures on meta: with ``probe``, that depth probe of
-    ``dryrun.probe_plan`` run once (``dryrun.measure``); without, the
-    full-depth step built on meta, not run: its argument bytes and what
-    the plan's groups add up to (:func:`_plan_books`)."""
+def _rank_step_meta(key: str, probe: Optional[int] = None) -> dict:
+    """Phase ``key``'s figures on meta: with ``probe``, that depth probe of
+    ``dryrun.probe_plan`` run once (``dryrun.measure``); without, the step
+    built on meta, not run: its argument bytes and
+    what its plan's groups and sequence-parallel calls add up to
+    (:func:`_step_books`)."""
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import make_dry_production_mesh
-    cfg, sp = _layer_train_cfg()
+    cfg, sp = _rank_train_cfg(key)
     if probe is not None:
-        cfg, _ = _layer_train_cfg(**dryrun.probe_plan(cfg)[0][probe])
+        cfg, _ = _rank_train_cfg(key, **dryrun.probe_plan(cfg)[0][probe])
     step = dryrun.build_rank_step(cfg, "train", sp["batch"], sp["seq"],
                                   make_dry_production_mesh(), "meta")
     if probe is not None:
         return dryrun._probe_record(dryrun.measure(step))
     return {"argument_bytes": dryrun.storage_bytes(step.args),
-            "plan": _plan_books(step.info["slice_plan"],
-                                max(cfg.microbatch, 1))}
+            "plan": _step_books(step, cfg)}
 
 
-def phase_layer_train(device, card: str, analyses: dict) -> dict:
-    """Phase 37: the mesh train step that gathers each layer's model slices
-    only while the layer runs and sends its gradient as the backward
-    leaves it. Rank 0 of the dry (16, 16) mesh runs llama4-maverick's
-    ``train_4k`` step at full width and depth on the card
+def _rank_train_jobs(key: str) -> list:
+    """Phase ``key``'s host jobs (:func:`_rank_step_meta`): its depth
+    probes, the deepest first, then the build."""
+    from repro_torch.launch.dryrun import probe_plan
+    n = len(probe_plan(_rank_train_cfg(key)[0])[0])
+    return [((key, i), _rank_step_meta, (key, i))
+            for i in reversed(range(n))] + [((key,), _rank_step_meta,
+                                              (key,))]
+
+
+def phase_rank_train(device, card: str, analyses: dict,
+                     key: str = "layer_train") -> dict:
+    """Phases 37 and 38 (:data:`RANK_TRAIN`): rank 0 of the dry (16, 16)
+    mesh runs a model's ``train_4k`` step at full width on the card
     (``dryrun.build_rank_step``: the arena step over the rank's span, each
     group's slices gathered and its gradient sent through the counting
-    stand-in, whose values are unset), once, timed. Held against the
-    same step on meta (``analyses``, computed on the host before the mesh
-    phases, :func:`_layer_train_meta`): the argument bytes equal to the
-    full-depth step's built on meta, the peak of ``max_memory_allocated``
-    over the step's baseline within ``LAUNCH_TEMP_RTOL`` of the temp bytes
-    its depth probes extrapolate and under the card's
-    ``LAYER_TRAIN_CARD_BYTES`` less the argument bytes, the gathers' and
-    reduces' counts and bytes what the plan's groups add up to
-    (:func:`_plan_books`), and no group's slices more than a tenth of all
-    the rank's. No kernel of the port is
-    on this path: the optimizer's apply and the training attention are
-    plain torch."""
+    stand-in, whose values are unset; each layer gathered only while it
+    runs; the carry between layers the rank's piece of S, a sixteenth),
+    once, timed. Held against the same step on meta (``analyses``,
+    computed on the host before the mesh phases, :func:`_rank_step_meta`):
+    the argument bytes equal to the step's built on meta, the peak of
+    ``max_memory_allocated`` over the step's baseline within
+    ``LAUNCH_TEMP_RTOL`` of the temp bytes its depth probes extrapolate
+    and under the card's ``RANK_TRAIN_CARD_BYTES`` less the argument
+    bytes, the gathers' and reduces' counts and bytes what the plan's
+    groups and the sequence-parallel calls add up to
+    (:func:`_step_books`), and no group's slices more than a tenth of all
+    the rank's. No
+    kernel of the port is on this path: the optimizer's apply and the
+    training attention are plain torch."""
     import torch
     from repro_torch.distributed import collectives
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import make_dry_production_mesh
-    o = LAYER_TRAIN
+    o = RANK_TRAIN[key]
+    n = o["phase"]
     t_phase = time.perf_counter()
     done = analyses["done"]
-    built = done[("layer_train",)]
+    built = done[(key,)]
     want = built["plan"]
-    cfg, sp = _layer_train_cfg()
+    cfg, sp = _rank_train_cfg(key)
     plan_of, extrapolate = dryrun.probe_plan(cfg)
-    probes = [done[("layer_train", i)] for i in range(len(plan_of))]
+    probes = [done[(key, i)] for i in range(len(plan_of))]
     full = {k: extrapolate(*probes, k) for k in dryrun.PROBE_KEYS}
     mesh = make_dry_production_mesh()
     t0 = time.perf_counter()
@@ -8465,6 +8560,7 @@ def phase_layer_train(device, card: str, analyses: dict) -> dict:
         plan.owned_words(plan.pos, g)
     build_s = time.perf_counter() - t0
     args_bytes = dryrun.storage_bytes(step.args)
+    rows = step.args["batch"]["tokens"].shape[0]
     collectives.reset_stats()
     collectives.reset_dry_stats()
     gc.collect()
@@ -8484,7 +8580,9 @@ def phase_layer_train(device, card: str, analyses: dict) -> dict:
     torch.cuda.empty_cache()
     temp = full["temp_bytes"]
     out = {"card": card, "arch": o["arch"], "shape": o["shape"],
-           "layers": cfg.n_layers, "microbatch": cfg.microbatch,
+           "layers": cfg.n_layers,
+           "microbatch": cfg.microbatch, "rows": rows,
+           "carry_rows": sp["seq"] // 16,
            "build_seconds": build_s, "step_seconds": secs,
            "argument_bytes": args_bytes,
            "meta_argument_bytes": built["argument_bytes"],
@@ -8500,28 +8598,31 @@ def phase_layer_train(device, card: str, analyses: dict) -> dict:
            "probe_seconds": [p["run_s"] for p in probes],
            "stats": collectives.seconds_and_bytes()}
     check(args_bytes == built["argument_bytes"],
-          f"37: argument bytes {args_bytes} on the card, "
+          f"{n}: argument bytes {args_bytes} on the card, "
           f"{built['argument_bytes']} on meta")
     check(abs(peak / temp - 1.0) <= LAUNCH_TEMP_RTOL
-          and peak < LAYER_TRAIN_CARD_BYTES - args_bytes,
-          f"37: the card's peak {peak} against the meta temp {temp}, "
+          and peak < RANK_TRAIN_CARD_BYTES - args_bytes,
+          f"{n}: the card's peak {peak} against the meta temp {temp}, "
           f"{args_bytes} argument bytes")
     check(_books_held(books, want)
           and 10 * want["largest_group_values"] < want["slice_values"],
-          f"37: gathered and reduced {books}, the plan's groups {want}")
+          f"{n}: gathered and reduced {books}, the plan's groups and the "
+          f"sequence-parallel calls {want}")
     out["seconds_total"] = time.perf_counter() - t_phase
-    log(f"phase 37: the mesh train step gathering each layer's slices as "
-        f"it runs, {card}: {json.dumps(out)}")
+    log(f"phase {n}: {o['arch']}'s rank of the (16, 16) mesh trained, "
+        f"each layer gathered as it runs, its carry S-sharded, {card}: "
+        f"{json.dumps(out)}")
     return out
 
 
-def layer_train_only(device, card: str, analyses: dict) -> int:
-    """``--layer-train``: phase 37 alone. Its last line says that it is
-    this partial run, never the full run's ``{"ok": true, ...}``."""
+def rank_train_only(device, card: str, analyses: dict, key: str) -> int:
+    """``--layer-train`` and ``--seq-train``: phase 37 or 38 alone. Its
+    last line says that it is this partial run, never the full run's
+    ``{"ok": true, ...}``."""
     import torch
-    out = phase_layer_train(device, card, analyses)
+    out = phase_rank_train(device, card, analyses, key)
     log(card)
-    log(json.dumps({"layer_train_only": True,
+    log(json.dumps({f"{key}_only": True,
                     "seconds": out["seconds_total"],
                     "device": {"platform": "gpu",
                                "kind": torch.cuda.get_device_name(0),
@@ -8561,12 +8662,14 @@ def main(argv: list) -> int:
     # read no host time, and joins them before the mesh phases
     partial = [a for a in argv if a.startswith("--")
                and a not in ("--launch", "--uneven-heads", "--slice-train",
-                             "--layer-train")]
-    which = tuple(k for k, flag in (("layer", "--layer-train"),
+                             "--layer-train", "--seq-train")]
+    which = tuple(k for k, flag in (("seq", "--seq-train"),
+                                    ("layer", "--layer-train"),
                                     ("slice", "--slice-train"),
                                     ("uneven", "--uneven-heads"),
                                     ("launch", "--launch"))
-                  if flag in argv) or ("layer", "slice", "uneven", "launch")
+                  if flag in argv) or ("seq", "layer", "slice", "uneven",
+                                       "launch")
     late = () if any(a.startswith("--") for a in argv) else LATE_JOBS
     started = None if partial or late else _start_launch_jobs(which)
     t0 = time.perf_counter()
@@ -8612,7 +8715,9 @@ def main(argv: list) -> int:
     if "--slice-train" in argv:
         return slice_train_only(device, card, analyses)
     if "--layer-train" in argv:
-        return layer_train_only(device, card, analyses)
+        return rank_train_only(device, card, analyses, "layer_train")
+    if "--seq-train" in argv:
+        return rank_train_only(device, card, analyses, "seq_train")
     gen = torch.Generator(device=device).manual_seed(SEED)
     shapes = qwen2_1_5b_shapes()
     a_tree = _map_shapes(shapes, lambda s: torch.randn(
@@ -8765,8 +8870,10 @@ def main(argv: list) -> int:
     lap("phase 35")
     slice_train = phase_slice_train(device, card, analyses)
     lap("phase 36")
-    layer_train = phase_layer_train(device, card, analyses)
+    layer_train = phase_rank_train(device, card, analyses, "layer_train")
     lap("phase 37")
+    seq_train = phase_rank_train(device, card, analyses, "seq_train")
+    lap("phase 38")
     log(json.dumps({"launches": launches}))
     old = ("block_dist", "scatter_save", "masked_restore")
     new = ("arena_maintain", "arena_scatter", "parity_xor")
@@ -8876,7 +8983,7 @@ def main(argv: list) -> int:
                     "moe_mesh": moe_mesh, "ssm_mesh": ssm_mesh,
                     "serve_mesh": serve_mesh, "launch": launch,
                     "uneven_heads": uneven, "slice_train": slice_train,
-                    "layer_train": layer_train,
+                    "layer_train": layer_train, "seq_train": seq_train,
                     "serve_kernels": {
                         name: kernels[name]
                         for name in ("ssd_intra", "sw_attention")},

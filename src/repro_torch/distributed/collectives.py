@@ -36,17 +36,25 @@ gives one of the two).
 
 The tensor-parallel forward's collectives run over one line of the mesh's
 ``model`` axis (:class:`ModelAxis`, :func:`model_axis`), as
-``torch.autograd.Function`` objects: ``copy`` (forward identity, backward the
-gradient summed over the line; booked as ``copy_to_model``), ``reduce``
-(forward the partials summed, backward identity: ``reduce_from_model``,
-or ``moe_reduce_scatter`` and ``moe_all_gather`` on the MoE's
-reduce-scatter route) and the forward-only ``maxed`` (``model_max``).
-Their sums add the positions' tensors in position order after one
-all-gather (:meth:`MeshComm.summed`), the order the reduce-scatter adds
-in, so the two routes of the MoE combine give the same bits. Serving on a
-mesh adds the tokens' all-gather over the data line (:func:`data_comm`,
-``serve_tokens``) and a sampled token's broadcast over the model line
-(``serve_sample``).
+``torch.autograd.Function`` objects. Over a replicated residual stream:
+``copy`` (forward identity, backward the gradient summed over the line;
+booked as ``copy_to_model``), ``reduce`` (forward the partials summed,
+backward identity: ``reduce_from_model``, or ``moe_reduce_scatter`` and
+``moe_all_gather`` on the MoE's reduce-scatter route) and the
+forward-only ``maxed`` (``model_max``). Over a train stack's S-sharded
+carry (Megatron sequence parallelism): ``split`` (forward the rank's
+piece, backward an all-gather), ``gather`` (forward an all-gather,
+backward a reduce-scatter of the partial gradients, or the piece of a
+whole one) and ``scatter`` (forward a reduce-scatter of partials,
+backward an all-gather), booked as ``seq_all_gather`` and
+``seq_reduce_scatter``. Their sums add the positions' tensors in position
+order, in f32 for the tensor-parallel partials: after one all-gather
+(:meth:`MeshComm.summed`) or on the rank's piece after a reduce-scatter
+(:meth:`MeshComm.reduce_scatter`), the same order and bits, so the MoE
+combine's two replicated routes and the sequence-parallel one agree on
+the rank's piece. Serving on a mesh adds the tokens' all-gather over the
+data line (:func:`data_comm`, ``serve_tokens``) and a sampled token's
+broadcast over the model line (``serve_sample``).
 
 Each call is counted in :data:`STATS` under its name: ``calls``,
 ``bytes`` (what crosses between ranks for this rank: an all-gather's
@@ -260,19 +268,24 @@ class MeshComm:
 
     def reduce_scatter(self, full: torch.Tensor,
                        out: Optional[torch.Tensor] = None,
-                       name: str = "reduce_scatter") -> torch.Tensor:
-        """This position's span of the sum of every rank's ``full``: an
-        all-to-all sends span ``k`` of ``full`` to position ``k``, and the
-        n parts a position receives are added on its device in position
-        order (the same order on every rank and run). gloo's own
-        reduce-scatter moved twice the bytes in the card's runs."""
+                       name: str = "reduce_scatter",
+                       dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        """This position's span of the sum of every rank's ``full``, in
+        ``dtype`` (default ``full``'s): an all-to-all sends span ``k`` of
+        ``full`` to position ``k`` in ``full``'s dtype, and the n parts a
+        position receives are added in ``dtype`` on its device in position
+        order (the same order on every rank and run): the order and the
+        bits of :meth:`summed`'s sum, so bf16 partials added in f32 cross
+        at the bytes of bf16. gloo's own reduce-scatter moved twice the
+        bytes in the card's runs."""
         t0, s0 = time.perf_counter(), self._stage.bytes
         n = self.n
         m = full.numel() // n
         if full.numel() != n * m:
             raise ValueError(f"{full.numel()} values do not split {n} ways")
         if out is None:
-            out = torch.empty((m,), dtype=full.dtype, device=full.device)
+            out = torch.empty((m,), dtype=dtype or full.dtype,
+                              device=full.device)
         if not self.distributed:
             out.copy_(full.reshape(-1))
             self._done(name, 0, t0, s0)
@@ -626,9 +639,11 @@ class CountingComm:
     real mesh's rank; no seconds), and in :data:`DRY_STATS` under the
     reference's HLO kind with the result's bytes, as the reference's
     ``collective_stats`` reads its compiled collectives' result shapes.
-    The kinds: ``all_gather`` and ``slice_gather`` (the rank's slices of
-    a group) an all-gather; ``reduce_scatter`` and ``slice_reduce`` a
-    reduce-scatter (its result the span; a group's, the words of the span
+    The kinds: ``all_gather`` (the sequence-parallel gathers' too) and
+    ``slice_gather`` (the rank's slices of a group) an all-gather;
+    ``reduce_scatter`` (the sequence-parallel reduce-scatters' too, their
+    result the rank's f32 piece) and ``slice_reduce`` a reduce-scatter
+    (its result the span; a group's, the words of the span
     its leaves hold, landed at the span's head: their place varies with
     the span's and not with the depth); ``summed``,
     ``maxed`` and ``all_reduce`` an all-reduce of the result's shape (the
@@ -656,13 +671,15 @@ class CountingComm:
 
     def reduce_scatter(self, full: torch.Tensor,
                        out: Optional[torch.Tensor] = None,
-                       name: str = "reduce_scatter") -> torch.Tensor:
+                       name: str = "reduce_scatter",
+                       dtype: Optional[torch.dtype] = None) -> torch.Tensor:
         n = self.n
         m = full.numel() // n
         if full.numel() != n * m:
             raise ValueError(f"{full.numel()} values do not split {n} ways")
         if out is None:
-            out = torch.empty((m,), dtype=full.dtype, device=full.device)
+            out = torch.empty((m,), dtype=dtype or full.dtype,
+                              device=full.device)
         out.copy_(full.reshape(n, m)[self.pos])
         _book(name, 2 * (n - 1) * m * full.element_size() if n > 1 else 0,
               0.0, 0)
@@ -827,11 +844,13 @@ class _ReduceFromModel(torch.autograd.Function):
             out = comm.summed(x.contiguous(), "reduce_from_model",
                               torch.float32)
         else:
-            # a reduce-scatter over ``scatter_dim``, then the all-gather
-            # back: the port's residual stream stays replicated
-            xm = x.to(torch.float32).movedim(scatter_dim, 0).contiguous()
+            # a reduce-scatter over ``scatter_dim`` (the partials sent in
+            # their dtype, added in f32), then the all-gather back: the
+            # replicated residual stream wants the whole sum
+            xm = x.movedim(scatter_dim, 0).contiguous()
             part = comm.reduce_scatter(xm.view(-1),
-                                       name="moe_reduce_scatter")
+                                       name="moe_reduce_scatter",
+                                       dtype=torch.float32)
             out = comm.all_gather(part, name="moe_all_gather").view(
                 xm.shape).movedim(0, scatter_dim)
         return out.to(dtype)
@@ -841,14 +860,154 @@ class _ReduceFromModel(torch.autograd.Function):
         return g.to(ctx.dtype_in), None, None, None
 
 
+class _Once(torch.autograd.Function):
+    """Forward: ``w`` as it is. Backward: its gradient at model position 0
+    of the line, zeros elsewhere."""
+
+    @staticmethod
+    def forward(ctx, w, first):
+        ctx.first = first
+        return w.view_as(w)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g if ctx.first else torch.zeros_like(g)), None
+
+
+# -- the sequence-parallel mappings (Megatron SP) over a model line: a
+# tensor's ``dim`` (a train stack's S) cut into ``n`` contiguous pieces,
+# piece ``k`` at model position ``k``
+
+def _seq_gather(x: torch.Tensor, comm, dim: int) -> torch.Tensor:
+    """Every position's piece of ``dim`` (``x``, this rank's) all-gathered
+    into the whole, a new contiguous tensor."""
+    n = comm.n
+    parts = comm.all_gather(x.contiguous(), name="seq_all_gather")
+    whole = parts.view((n,) + tuple(x.shape)).movedim(0, dim)
+    s = x.shape
+    return whole.reshape(s[:dim] + (n * s[dim],) + s[dim + 1:])
+
+
+def _seq_scatter(parts: list, comm, dim: int) -> list:
+    """Each of ``parts`` (every position's of one shape) summed over the
+    line, this position's piece of ``dim``, in f32: one reduce-scatter of
+    them all, sent in their promoted dtype and added in f32 in position
+    order (:meth:`MeshComm.reduce_scatter`)."""
+    n = comm.n
+    dt = parts[0].dtype
+    for p in parts[1:]:
+        dt = torch.promote_types(dt, p.dtype)
+    s = parts[0].shape
+    k = s[dim] // n
+    piece = s[:dim] + (k,) + s[dim + 1:]
+    # position q's span: piece q of every part, in order (one copy a part)
+    full = torch.empty((n, len(parts)) + piece, dtype=dt,
+                       device=parts[0].device)
+    for i, p in enumerate(parts):
+        full[:, i].copy_(p.reshape(s[:dim] + (n, k) + s[dim + 1:])
+                         .movedim(dim, 0))
+    out = comm.reduce_scatter(full.view(-1), name="seq_reduce_scatter",
+                              dtype=torch.float32)
+    return list(out.view((len(parts),) + piece).unbind(0))
+
+
+def _seq_piece(x: torch.Tensor, comm, dim: int) -> torch.Tensor:
+    """This position's piece of ``x``'s ``dim``, a new contiguous
+    tensor."""
+    k = x.shape[dim] // comm.n
+    return x.narrow(dim, comm.pos * k, k).clone(
+        memory_format=torch.contiguous_format)
+
+
+class _SplitToSeq(torch.autograd.Function):
+    """Forward: this rank's piece of ``x`` (computed whole on every rank).
+    Backward: the pieces' gradients all-gathered, the whole gradient on
+    every rank."""
+
+    @staticmethod
+    def forward(ctx, x, comm, dim):
+        ctx.comm, ctx.dim = comm, dim
+        return _seq_piece(x, comm, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _seq_gather(g, ctx.comm, ctx.dim), None, None
+
+
+class _GatherFromSeq(torch.autograd.Function):
+    """Forward: the pieces all-gathered, the whole on every rank, once for
+    each of ``wholes`` (the same values). Backward: each output's gradient
+    taken to this rank's piece and added in the order of ``wholes``: an
+    output whose gradient is whole on every rank (``True``: a consumer
+    computed whole) sliced to the piece; a consumer's partial (``False``:
+    this rank's heads, columns or experts) summed over the line by a
+    reduce-scatter, in f32, cast to the gradient's dtype (every partial
+    in one call)."""
+
+    @staticmethod
+    def forward(ctx, x, comm, dim, wholes):
+        ctx.comm, ctx.dim, ctx.wholes = comm, dim, wholes
+        out = _seq_gather(x, comm, dim)
+        return (out,) + tuple(out.view_as(out) for _ in wholes[1:])
+
+    @staticmethod
+    def backward(ctx, *gs):
+        comm, dim = ctx.comm, ctx.dim
+        partial = [g for g, w in zip(gs, ctx.wholes) if not w]
+        sums = iter(_seq_scatter(partial, comm, dim) if partial else ())
+        out = None
+        for g, w in zip(gs, ctx.wholes):
+            term = _seq_piece(g, comm, dim) if w \
+                else next(sums).to(g.dtype)
+            out = term if out is None else out + term
+        return out, None, None, None
+
+
+class _ScatterToSeq(torch.autograd.Function):
+    """Forward: each of ``parts`` (partial results of this rank's heads,
+    columns or experts) summed over the line by one reduce-scatter to
+    this rank's piece, in f32, each sum cast to ``dtype`` and added in
+    order. Backward: the piece's gradient all-gathered, the whole to each
+    part in its dtype."""
+
+    @staticmethod
+    def forward(ctx, comm, dim, dtype, *parts):
+        ctx.comm, ctx.dim = comm, dim
+        ctx.dtypes = [p.dtype for p in parts]
+        out = None
+        for s in _seq_scatter(list(parts), comm, dim):
+            out = s.to(dtype) if out is None else out + s.to(dtype)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        whole = _seq_gather(g, ctx.comm, ctx.dim)
+        return (None, None, None) + tuple(whole.to(dt) for dt in ctx.dtypes)
+
+
 @dataclasses.dataclass(frozen=True)
 class ModelAxis:
     """This rank's line of a mesh's ``model`` axis: its ``size``, this
-    rank's ``pos`` on it and the line's collectives (``comm``). The
-    tensor-parallel layers call ``copy`` on the input of every
-    computation split over the line, and ``reduce`` on its partial
-    output; ``maxed`` is a forward-only elementwise maximum (the vocab
-    shards' logit maxima, which carry no gradient)."""
+    rank's ``pos`` on it and the line's collectives (``comm``).
+
+    Where the residual stream is replicated over the line (serving, and a
+    train stack whose sequence does not split), the tensor-parallel
+    layers call ``copy`` on the input of every computation split over the
+    line and ``reduce`` on its partial output; ``once`` takes a weight
+    computed whole on every rank (a norm's) to position 0's gradient.
+    Where a train stack keeps its carry S-sharded (Megatron SP, the
+    reference's train stacks), each rank holds its contiguous piece of S:
+    ``gather`` re-forms S for a split computation,
+    ``scatter`` reduce-scatters its partials back to the piece, and
+    ``split`` takes the piece of a tensor computed whole. ``maxed`` is a
+    forward-only elementwise maximum (the vocab shards' logit maxima,
+    which carry no gradient).
+
+    The SP mappings' sums add the positions' parts in f32 in position
+    order (:meth:`MeshComm.reduce_scatter`), the order and the arithmetic
+    of ``copy``'s and ``reduce``'s :meth:`MeshComm.summed`: a split
+    computation's output and its input's gradient are, on the rank's
+    piece, the replicated route's bits."""
     size: int
     pos: int
     comm: "MeshComm"
@@ -863,6 +1022,37 @@ class ModelAxis:
         all-gather, the same bits."""
         return _ReduceFromModel.apply(x, self.comm, dtype or x.dtype,
                                       scatter_dim)
+
+    def once(self, w: torch.Tensor) -> torch.Tensor:
+        """``w``, its gradient kept at position 0 alone (zeros elsewhere):
+        a weight that every rank applies to the whole replicated stream,
+        whose gradient the slice plan sums over the line (a norm's,
+        ``sharding.partition.acts_on_pieces``)."""
+        return _Once.apply(w, self.pos == 0)
+
+    def split(self, x: torch.Tensor, dim: int = 1) -> torch.Tensor:
+        """This rank's piece of ``x``'s ``dim`` (``x`` computed whole on
+        every rank); backward an all-gather."""
+        return _SplitToSeq.apply(x, self.comm, dim)
+
+    def gather(self, x: torch.Tensor, wholes: tuple = (False,),
+               dim: int = 1) -> tuple:
+        """The pieces of ``dim`` all-gathered (``x`` this rank's), once:
+        an output for each consumer in ``wholes``. Each output's gradient
+        comes back to the piece, reduce-scattered for a consumer of this
+        rank's heads, columns or experts (``False``: every such partial
+        in one reduce-scatter), sliced for one computed whole on every
+        rank (``True``), and added in the order of ``wholes``."""
+        return _GatherFromSeq.apply(x, self.comm, dim, tuple(wholes))
+
+    def scatter(self, parts, dim: int = 1, dtype=None) -> torch.Tensor:
+        """This rank's piece of ``dim`` of the sum over the line of
+        ``parts`` (a tensor, or a list of partials of one shape: each
+        summed in f32, cast to ``dtype``, default the first's, and added
+        in order; one reduce-scatter); backward an all-gather."""
+        parts = [parts] if isinstance(parts, torch.Tensor) else list(parts)
+        return _ScatterToSeq.apply(self.comm, dim, dtype or parts[0].dtype,
+                                   *parts)
 
     def maxed(self, x: torch.Tensor) -> torch.Tensor:
         return self.comm.maxed(x.detach().contiguous(), "model_max")

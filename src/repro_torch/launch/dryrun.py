@@ -50,9 +50,14 @@ each layer's gradient goes to the spans' owners as the backward leaves
 it (``slice_reduce``), the outer group's (embedding, head, norms) when
 it ends. So a rank holds the outer group's slices, one layer's and their
 gradient, its span's gradient and the remat checkpoints, never all its
-slices at once. The stand-in books each gather and each reduce as the
-reference kinds they compute: an all-gather of the group's slices and a
-reduce-scatter of the group's part of the rank's span. The sharded arena
+slices at once. Its carry between layers is the rank's piece of the
+sequence on the ``model`` line (Megatron SP, as the reference's train
+stacks place it: ``models.layers.seq_axis``), so its remat checkpoints
+are ``S / tp`` rows. The stand-in books each gather and each reduce as
+the reference kinds they compute: an all-gather of the group's slices
+and a reduce-scatter of the group's part of the rank's span; each
+sequence-parallel gather an all-gather of the whole S and each of their
+reduce-scatters one to the rank's piece. The sharded arena
 holds an all-f32 model (``ArenaLayout.span_runs``), so the train step
 runs the config in f32 (``param_dtype`` in the record). Its per-rank
 bytes are reported as they are.

@@ -11,11 +11,13 @@ It reports what the port does; no route changes to make a pair move.
      visits only the tiles at or below the diagonal, with the flag or
      without (``models.transformer.prefill_attention``): about 0%.
   B. qwen3-moe-235b-a22b x train_4k, ``moe_reduce_scatter``
-     (collective). The port's reduce-scatter route all-gathers the
-     scattered sum back (its residual stream stays replicated over the
-     model line), so it moves a little more than the all-reduce: about
-     0%, against the reference's 16x from its result-shape accounting of
-     S-sharded activations.
+     (collective). The port's train step keeps the residual stream
+     S-sharded over the model line (``models.layers.seq_axis``), so its
+     MoE combine is a reduce-scatter to the rank's piece of S with the
+     flag or without it (the flag chooses a route only where the stream
+     is replicated: serving, a sequence that does not split): 0%, where
+     the reference's baseline all-reduces the combine and reads 16x from
+     its result-shape accounting.
   C. command-r-plus-104b x decode_32k, ``kv_quant`` (memory): the int8
      cache against the bf16 one. The port's bf16 decode also repeats the
      cache over the query group, so its memory term falls by more than the

@@ -112,59 +112,78 @@ def _positions(n: int, device) -> torch.Tensor:
     return torch.arange(n, dtype=torch.int32, device=device)
 
 
-def encode(params, frames, cfg: ModelConfig, ctx=None):
+def encode(params, frames, cfg: ModelConfig, ctx=None, seq=None):
     """frames: (B, T, D) stub embeddings -> the encoder output (B, T, D);
     on a model axis (``ctx``) each layer's attention and MLP over this
-    rank's heads and ``d_ff``, the frame projection computed whole."""
+    rank's heads and ``d_ff``, the frame projection computed whole. Where
+    ``seq`` (the encoder's ``layers.seq_axis``, training) the carry
+    between layers and the output are the rank's piece of T: the
+    projection and the positions computed whole and split, each norm on
+    the piece."""
     T = frames.shape[1]
     h = torch.einsum("btd,de->bte", frames.to(_dtype(cfg)),
                      params["frame_proj"]["proj"])
     h = h + L.sinusoidal_positions(T, cfg.d_model,
                                    device=h.device).to(h.dtype)
+    if seq is not None:
+        h = seq.split(h)
     positions = _positions(T, h.device)
     chunk = min(CHUNK, T)
     for lp in L.unstack_layers(params["enc_layers"], cfg.enc_layers):
-        h = h + L.attention_block(L.rms_norm(h, lp["attn_norm"]), lp["attn"],
-                                  cfg, positions=positions, causal=False,
-                                  q_chunk=chunk, kv_chunk=chunk, ctx=ctx)
-        h = h + L.mlp_block(L.rms_norm(h, lp["mlp_norm"]), lp["mlp"], ctx)
-    return L.rms_norm(h, params["enc_norm"])
+        h = h + L.attention_block(L.carry_norm(h, lp, "attn_norm", ctx, seq),
+                                  lp["attn"], cfg, positions=positions,
+                                  causal=False, q_chunk=chunk, kv_chunk=chunk,
+                                  ctx=ctx, seq=seq)
+        h = h + L.mlp_block(L.carry_norm(h, lp, "mlp_norm", ctx, seq),
+                            lp["mlp"], ctx, seq)
+    return L.carry_norm(h, params, "enc_norm", ctx, seq)
 
 
-def _cross(x, lp, enc_out, positions, enc_pos, q_chunk, ctx=None):
-    """The cross-attention sublayer, K/V projected from ``enc_out``;
-    returns (x with the sublayer added, K, V). On a model axis (``ctx``)
-    over this rank's heads: q from ``copy`` of the normed x, K and V from
-    ``copy`` of ``enc_out``, the output projection's partials summed."""
+def _cross(x, lp, enc_out, positions, enc_pos, q_chunk, ctx=None, seq=None):
+    """The cross-attention sublayer, K/V projected from ``enc_out`` (whole
+    on every rank); returns (x with the sublayer added, K, V). On a model
+    axis (``ctx``) over this rank's heads: q from ``copy`` of the normed x
+    (where ``seq``, x the rank's piece of S: the pieces gathered), K and V
+    from ``enc_out`` as the caller gives it (training: the encoder's
+    output through ``copy`` or its pieces gathered, once for every
+    layer), the output projection's partials summed (reduce-scattered to
+    the piece)."""
     p = lp["cross_attn"]
-    xn = L.rms_norm(x, lp["cross_norm"])
-    axis = model_axis(ctx)
-    if axis is not None:
-        xn, enc_out = axis.copy(xn), axis.copy(enc_out)
+    xn = L.to_split(L.carry_norm(x, lp, "cross_norm", ctx, seq), ctx, seq)
     q = torch.einsum("bsd,dhk->bshk", xn, p["wq"])
     k = torch.einsum("btd,dhk->bthk", enc_out, p["wk"])
     v = torch.einsum("btd,dhk->bthk", enc_out, p["wv"])
     o = L.flash_attention(q, k, v, positions, enc_pos, causal=False,
                           q_chunk=q_chunk, kv_chunk=min(CHUNK, k.shape[1]))
-    out = L.attn_out(o, p["wo"])
-    return x + (out if axis is None else axis.reduce(out)), k, v
+    return x + L.from_split(L.attn_out(o, p["wo"]), ctx, seq), k, v
 
 
 def _dec_layer(x, lp, cfg: ModelConfig, positions, enc_out, enc_pos,
-               q_chunk=CHUNK, ctx=None):
-    """One decoder layer, the training path (cross K/V recomputed)."""
-    x = x + L.attention_block(L.rms_norm(x, lp["self_norm"]), lp["self_attn"],
-                              cfg, positions=positions, causal=True,
-                              q_chunk=q_chunk, kv_chunk=q_chunk, ctx=ctx)
-    x, _, _ = _cross(x, lp, enc_out, positions, enc_pos, q_chunk, ctx)
-    return x + L.mlp_block(L.rms_norm(x, lp["mlp_norm"]), lp["mlp"], ctx)
+               q_chunk=CHUNK, ctx=None, seq=None):
+    """One decoder layer, the training path (cross K/V recomputed);
+    ``seq`` (``layers.seq_axis``): x is the rank's piece of a
+    sequence-parallel carry."""
+    x = x + L.attention_block(L.carry_norm(x, lp, "self_norm", ctx, seq),
+                              lp["self_attn"], cfg, positions=positions,
+                              causal=True, q_chunk=q_chunk, kv_chunk=q_chunk,
+                              ctx=ctx, seq=seq)
+    x, _, _ = _cross(x, lp, enc_out, positions, enc_pos, q_chunk, ctx, seq)
+    return x + L.mlp_block(L.carry_norm(x, lp, "mlp_norm", ctx, seq),
+                           lp["mlp"], ctx, seq)
 
 
 def _embed_with_positions(params, tokens, cfg: ModelConfig, offset=0,
-                          ctx=None):
-    h = L.embed_tokens(tokens, params, ctx)
-    return h + L.sinusoidal_positions(tokens.shape[1], cfg.d_model, offset,
-                                      device=h.device).to(h.dtype)
+                          ctx=None, seq=None):
+    """The decoder's token embedding plus its sinusoidal positions; where
+    ``seq`` (training, ``layers.seq_axis``) the rank's piece of S of
+    both (``layers.embed_carry``)."""
+    h = L.embed_carry(tokens, params, ctx, seq)
+    pe = L.sinusoidal_positions(tokens.shape[1], cfg.d_model, offset,
+                                device=h.device)
+    if seq is not None:
+        k = pe.shape[0] // seq.size
+        pe = pe.narrow(0, seq.pos * k, k)
+    return h + pe.to(h.dtype)
 
 
 def train_loss(params, batch, cfg: ModelConfig, *, ctx=None
@@ -174,21 +193,34 @@ def train_loss(params, batch, cfg: ModelConfig, *, ctx=None
     recomputed in backward when ``cfg.remat``. With ``ctx`` on a mesh
     whose ``model`` axis has ``tp > 1`` positions, ``params`` are this
     rank's model slices (heads, ``d_ff``, the vocab where it splits) and
-    ``batch`` its data shard."""
+    ``batch`` its data shard. The encoder's and the decoder's stacks each
+    keep their carry as the rank's piece of their sequence where ``tp``
+    divides it (``layers.seq_axis``); the encoder's output is taken to
+    the decoder's cross-attention once: its pieces gathered, or, where it
+    is replicated, through one ``copy``."""
     if ctx is not None:
         check_tensor_parallel(cfg, ctx.tp_size)
     vctx = vocab_ctx(cfg, ctx)
-    enc_out = encode(params, batch["frames"], cfg, ctx)
-    h = _embed_with_positions(params, batch["tokens"], cfg, ctx=vctx)
-    positions = _positions(h.shape[1], h.device)
+    axis = model_axis(ctx)
+    enc_seq = L.seq_axis(ctx, batch["frames"].shape[1])
+    enc_out = encode(params, batch["frames"], cfg, ctx, enc_seq)
+    if enc_seq is not None:
+        enc_out = enc_seq.gather(enc_out)[0]
+    elif axis is not None:
+        enc_out = axis.copy(enc_out)
+    S = batch["tokens"].shape[1]
+    seq = L.seq_axis(ctx, S)
+    h = _embed_with_positions(params, batch["tokens"], cfg, ctx=vctx,
+                              seq=seq)
+    positions = _positions(S, h.device)
     enc_pos = _positions(enc_out.shape[1], h.device)
     for lp in L.unstack_layers(params["dec_layers"], cfg.n_layers):
         h = L.layer_call(lambda x, lp: _dec_layer(
-            x, lp, cfg, positions, enc_out, enc_pos, ctx=ctx), h, lp,
+            x, lp, cfg, positions, enc_out, enc_pos, ctx=ctx, seq=seq), h, lp,
             enabled=cfg.remat)
-    h = L.rms_norm(h, params["final_norm"])
+    h = L.carry_norm(h, params, "final_norm", ctx, seq)
     return L.lm_loss_chunked(h, params, batch["labels"], L.loss_mask(batch),
-                             cfg, ctx=vctx)
+                             cfg, ctx=vctx, seq=seq)
 
 
 # ---------------------------------------------------------------------------

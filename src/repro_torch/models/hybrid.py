@@ -93,25 +93,30 @@ def train_loss(params, batch, cfg: ModelConfig, *, ctx=None
     recomputed in backward when ``cfg.remat``. With ``ctx`` on a mesh
     whose ``model`` axis has ``tp > 1`` positions, ``params`` are this
     rank's model slices (SSD heads, the shared block's heads and
-    ``d_ff``, the vocab where it splits) and ``batch`` its data shard."""
+    ``d_ff``, the vocab where it splits) and ``batch`` its data shard;
+    where ``tp`` divides the sequence the carry between layers is the
+    rank's piece of it (``layers.seq_axis``): the Mamba2 layers as in
+    ``ssm.train_loss``, the shared block as a transformer layer."""
     if ctx is not None:
         check_tensor_parallel(cfg, ctx.tp_size)
     vctx = vocab_ctx(cfg, ctx)
-    h = L.embed_tokens(batch["tokens"], params, vctx)
-    positions = torch.arange(h.shape[1], dtype=torch.int32, device=h.device)
+    S = batch["tokens"].shape[1]
+    seq = L.seq_axis(ctx, S)
+    h = L.embed_carry(batch["tokens"], params, vctx, seq)
+    positions = torch.arange(S, dtype=torch.int32, device=h.device)
     layers = L.unstack_layers(params["layers"], cfg.n_layers)
     shared = params["shared"]
     for start, length in _segments(cfg):
         for lp in layers[start:start + length]:
             h = h + L.layer_call(lambda x, lp: ssm.mixer_fwd(
-                L.rms_norm(x, lp["norm"]), lp["mixer"], cfg, ctx), h, lp,
-                enabled=cfg.remat)
+                L.carry_norm(x, lp, "norm", ctx, seq), lp["mixer"], cfg,
+                ctx, seq), h, lp, enabled=cfg.remat)
         h = L.remat(lambda x: transformer._layer_fwd(
-            x, shared, cfg, positions, 0, 1024, 1024, ctx)[0], h,
+            x, shared, cfg, positions, 0, 1024, 1024, ctx, seq)[0], h,
             enabled=cfg.remat)
-    h = L.rms_norm(h, params["final_norm"])
+    h = L.carry_norm(h, params, "final_norm", ctx, seq)
     return L.lm_loss_chunked(h, params, batch["labels"], L.loss_mask(batch),
-                             cfg, ctx=vctx)
+                             cfg, ctx=vctx, seq=seq)
 
 
 # ---------------------------------------------------------------------------

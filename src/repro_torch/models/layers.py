@@ -28,20 +28,28 @@ gradient is ``jax.grad``'s of the reference.
 :class:`~repro_torch.sharding.partition.DistContext`). Without one, or on
 a mesh whose ``model`` axis has one position, they run the one-device
 code. With a ``model`` axis of ``tp`` positions the weights they are given
-are this rank's slices (``sharding.partition.take_model_slices``) and the
-activations between layers are replicated over the axis
+are this rank's slices (``sharding.partition.take_model_slices``). The
+activations between layers are replicated over the axis when serving
 (``distributed.collectives.ModelAxis``: ``copy`` on the input of a split
 computation, whose backward sums the gradient over the axis, and
-``reduce`` on its partial output): the attention's heads, the MLP's and
-the shared expert's ``d_ff``, the experts (each rank runs ``E / tp`` of
-them on the data shard's tokens at the data shard's capacity, the router
-replicated in f32, the combine summed, through a reduce-scatter over S
-and an all-gather under ``cfg.moe_reduce_scatter``) and the vocab of the
-embedding, the LM head and the chunked loss (a logsumexp over the
-shards; where the vocab does not split the models call these three
-without ``ctx``, ``sharding.partition.vocab_ctx``). The Mamba2 mixer's
-SSD heads are split in ``models.ssm.mixer_fwd``. Every replicated computation (norms, the router, its aux
-losses) gets its whole gradient on every rank.
+``reduce`` on its partial output); a train stack keeps them S-sharded
+over it where ``tp`` divides its sequence (Megatron SP, :func:`seq_axis`,
+the functions' ``seq``, that axis or None: ``gather`` on the input of a
+split computation,
+whose backward reduce-scatters the gradient, and ``scatter`` on its
+partial output; the stack's norms on the rank's piece,
+:func:`carry_norm`; the loss's head on the gathered S). Split over the
+axis: the attention's heads, the MLP's and the shared expert's ``d_ff``,
+the experts (each rank runs ``E / tp`` of them on the data shard's tokens
+at the data shard's capacity, the router replicated in f32, the combine
+summed: replicated, through a reduce-scatter over S and an all-gather
+under ``cfg.moe_reduce_scatter``; S-sharded, a reduce-scatter alone) and
+the vocab of the embedding, the LM head and the chunked loss (a
+logsumexp over the shards; where the vocab does not split the models
+call these three without ``ctx``, ``sharding.partition.vocab_ctx``). The
+Mamba2 mixer's SSD heads are split in ``models.ssm.mixer_fwd``. Every
+computation replicated over the axis (the router, its aux losses, a
+norm of a replicated carry) gets its whole gradient on every rank.
 
 The perf variants, forward only and plain on every device (the reference
 writes them in jnp; no TPU kernel covers them): ``quantize_kv`` (int8
@@ -64,6 +72,7 @@ import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.collectives import model_axis
+from repro_torch.sharding.partition import acts_on_pieces
 from repro_torch.utils.tree import tree_flatten, tree_map, tree_unflatten
 
 PyTree = Any
@@ -234,6 +243,21 @@ def layer_call(fn, x, lp, enabled: bool = True):
     return remat(lambda x: fn(x, lp), x, enabled=enabled)
 
 
+def seq_axis(ctx, S: int):
+    """The model axis over which a train stack of ``S`` positions keeps
+    its carry between layers S-sharded (Megatron sequence parallelism, as
+    the reference's train stacks place it): each rank holds its contiguous
+    piece of ``S / tp`` positions, and each layer gathers S for its
+    split computations and reduce-scatters their partials back. None where
+    the carry stays replicated: no ``model`` axis of more than one
+    position, or ``tp`` does not divide ``S``, or ``S`` is 1 (the
+    reference's ``_fit_spec`` drops the axis there)."""
+    axis = model_axis(ctx)
+    if axis is None or S <= 1 or S % axis.size:
+        return None
+    return axis
+
+
 def layer_params(params: PyTree, i: int) -> PyTree:
     """Layer ``i`` of ``params["layers"]``: its slice of the stacked
     leaves, or the ``i``-th tree of a per-layer list
@@ -259,6 +283,26 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     out = xf * torch.rsqrt(var + eps) * w.to(torch.float32)
     return out.to(x.dtype)
+
+
+def carry_norm(x: torch.Tensor, p: dict, key: str, ctx=None,
+               seq=None) -> torch.Tensor:
+    """:func:`rms_norm` of a stack's carry by ``p[key]``, a weight whole on
+    every rank whose gradient the slice plan sums over the model line
+    (``key`` one of ``partition.CARRY_NORMS``; another raises): applied
+    to the rank's piece of S where ``seq`` (the stack's :func:`seq_axis`;
+    the gradient the piece's part), or, on a model axis, to the whole
+    replicated carry with its gradient kept at position 0 alone
+    (``ModelAxis.once``). Every train stack applies its norms through
+    this function alone."""
+    if not acts_on_pieces(key):
+        raise ValueError(f"{key!r} is not a norm of the carry "
+                         f"(partition.CARRY_NORMS)")
+    w = p[key]
+    axis = model_axis(ctx)
+    if axis is not None and seq is None:
+        w = axis.once(w)
+    return rms_norm(x, w)
 
 
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
@@ -641,12 +685,12 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig, dtype,
     return p
 
 
-def qkv_project(x, p, cfg: ModelConfig, positions, ctx=None):
+def qkv_project(x, p, cfg: ModelConfig, positions, ctx=None, seq=None):
     """q, k, v of x: (B, S, D) with rope; on a model axis, this rank's
-    heads (its slices of ``wq``, ``wk``, ``wv`` and the biases)."""
-    axis = model_axis(ctx)
-    if axis is not None:
-        x = axis.copy(x)
+    heads (its slices of ``wq``, ``wk``, ``wv`` and the biases), of x
+    whole on every rank or, where ``seq`` (:func:`seq_axis`), of x's
+    pieces of S gathered (x this rank's, ``positions`` the whole S's)."""
+    x = to_split(x, ctx, seq)
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
     k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
     v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
@@ -658,14 +702,36 @@ def qkv_project(x, p, cfg: ModelConfig, positions, ctx=None):
 
 
 def attention_block(x, p, cfg: ModelConfig, *, positions, causal=True,
-                    window=0, q_chunk=1024, kv_chunk=1024, ctx=None):
+                    window=0, q_chunk=1024, kv_chunk=1024, ctx=None,
+                    seq=None):
     """Self-attention over x: (B,S,D) -> (B,S,D), the plain attention; on
     a model axis over this rank's heads, the output projections' partials
-    summed over the axis."""
-    q, k, v = qkv_project(x, p, cfg, positions, ctx)
+    summed over the axis: all-reduced, or where ``seq`` (x this rank's
+    piece of S) reduce-scattered to the piece."""
+    q, k, v = qkv_project(x, p, cfg, positions, ctx, seq)
     o = flash_attention(q, k, v, positions, positions, causal=causal,
                         window=window, q_chunk=q_chunk, kv_chunk=kv_chunk)
-    out = attn_out(o, p["wo"])
+    return from_split(attn_out(o, p["wo"]), ctx, seq)
+
+
+def to_split(x, ctx, seq=None):
+    """The input of a computation split over ``ctx``'s model axis: where
+    ``seq`` (:func:`seq_axis`, x the rank's piece of S) the pieces
+    gathered, else x through ``copy`` (replicated over the axis); x itself
+    without an axis."""
+    if seq is not None:
+        return seq.gather(x)[0]
+    axis = model_axis(ctx)
+    return x if axis is None else axis.copy(x)
+
+
+def from_split(out, ctx, seq=None):
+    """A split computation's partial output summed over ``ctx``'s model
+    axis: this rank's piece of S where ``seq`` (:func:`seq_axis`,
+    ``scatter``), else the whole sum (``reduce``); ``out`` itself without
+    an axis."""
+    if seq is not None:
+        return seq.scatter(out)
     axis = model_axis(ctx)
     return out if axis is None else axis.reduce(out)
 
@@ -692,16 +758,18 @@ def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, dtype,
     }
 
 
-def mlp_block(x, p, ctx=None):
-    """SwiGLU; on a model axis over this rank's columns of ``d_ff``, the
-    down projections' partials summed over the axis."""
-    axis = model_axis(ctx)
-    if axis is not None:
-        x = axis.copy(x)
+def _swiglu(x, p):
     h = F.silu(torch.einsum("bsd,df->bsf", x, p["w_gate"])) \
         * torch.einsum("bsd,df->bsf", x, p["w_up"])
-    out = torch.einsum("bsf,fd->bsd", h, p["w_down"])
-    return out if axis is None else axis.reduce(out)
+    return torch.einsum("bsf,fd->bsd", h, p["w_down"])
+
+
+def mlp_block(x, p, ctx=None, seq=None):
+    """SwiGLU; on a model axis over this rank's columns of ``d_ff``, the
+    down projections' partials summed over the axis (where ``seq``, x's
+    pieces of S gathered first and the sum reduce-scattered to the
+    rank's piece)."""
+    return from_split(_swiglu(to_split(x, ctx, seq), p), ctx, seq)
 
 
 # ---------------------------------------------------------------------------
@@ -783,7 +851,8 @@ def moe_route(x, router, cfg: ModelConfig, capacity: int, *,
 
 
 def _moe_body(x, router, wg, wu, wd, *, cfg: ModelConfig, capacity: int,
-              E_local: Optional[int] = None, e_offset: int = 0, axis=None):
+              E_local: Optional[int] = None, e_offset: int = 0, axis=None,
+              x_experts=None):
     """Token-choice top-k routing, per-expert top-``capacity`` gather.
 
     x: (N, D) tokens; wg/wu/wd: the stacks of experts ``e_offset ..
@@ -797,9 +866,11 @@ def _moe_body(x, router, wg, wu, wd, *, cfg: ModelConfig, capacity: int,
     same bits on every run (an ``index_add_`` on CUDA adds in no fixed
     order). A token that an expert took with weight 0 adds 0, as in the
     reference's scatter-add. On a model ``axis`` (expert parallelism) the
-    tokens enter the expert gather through ``axis.copy`` and the caller
-    sums ``out`` over the axis; the router and the aux losses are computed
-    whole on every rank.
+    tokens enter the expert gather through ``axis.copy`` (or as
+    ``x_experts``, the same values gathered by a sequence-parallel caller
+    whose backward sums their gradient) and the caller sums ``out`` over
+    the axis; the router and the aux losses are computed whole on every
+    rank.
 
     The gradient flows as under ``jax.grad`` of the reference: through the
     normalised gates (their sort and the scatter into the dense weights),
@@ -813,7 +884,9 @@ def _moe_body(x, router, wg, wu, wd, *, cfg: ModelConfig, capacity: int,
     logits, probs, sel, w_full, vals, idx = moe_route(
         x, router, cfg, capacity, E_local=E_local, e_offset=e_offset,
         axis=axis)
-    xe = (x if axis is None else axis.copy(x))[idx]        # (E_l, C, D)
+    if x_experts is None:
+        x_experts = x if axis is None else axis.copy(x)
+    xe = x_experts[idx]                                    # (E_l, C, D)
     he = _experts(xe, wg, wu, wd).to(torch.float32) * vals[..., None]
     # each routed (token, local expert)'s row in he, or -1 where it was
     # dropped or the expert is another rank's
@@ -842,7 +915,7 @@ def _moe_body(x, router, wg, wu, wd, *, cfg: ModelConfig, capacity: int,
     return out, lb_loss, z_loss
 
 
-def moe_block(x, p, cfg: ModelConfig, ctx=None):
+def moe_block(x, p, cfg: ModelConfig, ctx=None, seq=None):
     """x: (B, S, D) -> ((B, S, D) in x's dtype, (lb_loss, z_loss)), the
     shared expert added when the config has one. Without a model axis
     every expert runs here on the B x S tokens. On one (``ctx``) this rank
@@ -851,7 +924,15 @@ def moe_block(x, p, cfg: ModelConfig, ctx=None):
     the shard's tokens, and the combine is summed over the axis: an
     all-reduce, or under ``cfg.moe_reduce_scatter`` (when ``tp`` divides S
     and S > 1) a reduce-scatter over S then an all-gather, the same bits.
-    The aux losses are the data shard's own."""
+    Where ``seq`` x is the rank's piece of S of a sequence-parallel carry
+    (:func:`seq_axis`): the pieces are gathered once for the router, the
+    experts and the shared expert, and the combine and the shared
+    expert's partial are reduce-scattered to the piece in one call, with
+    no all-gather back, under ``cfg.moe_reduce_scatter`` or without it:
+    the rank's piece of the same sums. The aux losses are the data
+    shard's own."""
+    if seq is not None:
+        return _moe_block_seq(x, p, cfg, seq)
     B, S, D = x.shape
     n = B * S
     axis = model_axis(ctx)
@@ -876,6 +957,31 @@ def moe_block(x, p, cfg: ModelConfig, ctx=None):
     return out, (lb, zl)
 
 
+def _moe_block_seq(x, p, cfg: ModelConfig, axis):
+    """:func:`moe_block` on the rank's piece of S: one all-gather whose
+    outputs feed the router (its gradient whole on every rank, sliced),
+    the experts and the shared expert (their gradients partial, summed by
+    one reduce-scatter), added in the order the replicated route's
+    autograd adds them; one reduce-scatter of the combine (f32) and the
+    shared expert's partial, each sum cast to x's dtype and added as the
+    replicated route adds them."""
+    wholes = (True, False) + ((False,) if cfg.shared_expert else ())
+    xs = axis.gather(x, wholes)
+    B, S, D = xs[0].shape
+    n = B * S
+    E_l = cfg.n_experts // axis.size
+    out, lb, zl = _moe_body(xs[0].reshape(n, D), p["router"],
+                            p["w_gate_experts"], p["w_up_experts"],
+                            p["w_down_experts"], cfg=cfg,
+                            capacity=moe_capacity(n, cfg), E_local=E_l,
+                            e_offset=axis.pos * E_l, axis=axis,
+                            x_experts=xs[1].reshape(n, D))
+    parts = [out.reshape(B, S, D)]
+    if cfg.shared_expert:
+        parts.append(_swiglu(xs[2], p["shared"]))
+    return axis.scatter(parts, dtype=x.dtype), (lb, zl)
+
+
 # ---------------------------------------------------------------------------
 # embedding + LM head
 # ---------------------------------------------------------------------------
@@ -890,12 +996,14 @@ def init_embed(gen: torch.Generator, cfg: ModelConfig, dtype,
     return p
 
 
-def embed_tokens(tokens: torch.Tensor, p, ctx=None) -> torch.Tensor:
+def embed_tokens(tokens: torch.Tensor, p, ctx=None,
+                 seq=None) -> torch.Tensor:
     """Token embedding lookup: a plain gather (its gradient is the
     scatter-add of the rows back into the table). On a model axis this
     rank's ``embed`` is its block of the vocab: each token's row where the
     rank holds it, zeros elsewhere, summed over the axis (the reference's
-    one-hot matmul, exactly: one term of each sum is not zero)."""
+    one-hot matmul, exactly: one term of each sum is not zero), or where
+    ``seq`` reduce-scattered straight to the rank's piece of S."""
     axis = model_axis(ctx)
     emb = p["embed"]
     if axis is None:
@@ -906,7 +1014,19 @@ def embed_tokens(tokens: torch.Tensor, p, ctx=None) -> torch.Tensor:
     rows = emb[local.clamp(0, V_l - 1)]
     rows = torch.where(inside[..., None], rows,
                        torch.zeros((), dtype=rows.dtype, device=rows.device))
-    return axis.reduce(rows)
+    return from_split(rows, ctx, seq)
+
+
+def embed_carry(tokens: torch.Tensor, p, vctx=None, seq=None
+                ) -> torch.Tensor:
+    """The token embedding as a train stack's carry: :func:`embed_tokens`
+    (``vctx`` the vocab's ctx, ``partition.vocab_ctx``), and where ``seq``
+    (the stack's :func:`seq_axis`) the rank's piece of S: reduce-scattered
+    from the vocab blocks, or, where the vocab does not split, computed
+    whole and split."""
+    if seq is not None and vctx is None:
+        return seq.split(embed_tokens(tokens, p))
+    return embed_tokens(tokens, p, vctx, seq)
 
 
 def lm_logits(h: torch.Tensor, p, ctx=None) -> torch.Tensor:
@@ -966,25 +1086,36 @@ def loss_mask(batch: dict) -> torch.Tensor:
 
 
 def lm_loss_chunked(h, p, labels, mask, cfg: ModelConfig,
-                    ctx=None) -> torch.Tensor:
+                    ctx=None, seq=None) -> torch.Tensor:
     """Next-token cross-entropy without holding (B, S, V) logits.
 
-    h: (B,S,D); labels/mask: (B,S). Walks S in chunks of the reference's
-    size (``cfg.loss_chunk`` tokens per 8 sequences, at least 128),
-    keeping the batch dim; each chunk's (B, chunk, V) f32 logits are
-    recomputed in backward, never saved (``torch.utils.checkpoint``). On a
-    model axis each rank's logits are its block of the vocab
-    (:func:`_chunk_loss_vocab`). Returns the mean over the mask's tokens,
-    f32.
+    h: (B,S',D); labels/mask: (B,S), the last S of h's positions (those
+    before them, a VLM's patch prefix, take no loss). Walks S in chunks
+    of the reference's size (``cfg.loss_chunk`` tokens per 8 sequences,
+    at least 128), keeping the batch dim; each chunk's (B, chunk, V) f32
+    logits are recomputed in backward, never saved
+    (``torch.utils.checkpoint``). On a model axis each rank's logits are
+    its block of the vocab (:func:`_chunk_loss_vocab`). ``seq``: the model
+    axis over which h is this rank's piece of S (a train stack's
+    sequence-parallel carry, :func:`seq_axis`), gathered here, its
+    gradient reduce-scattered back (or sliced where the loss runs whole
+    on every rank, ``ctx`` None). Returns the mean over the mask's
+    tokens, f32.
     """
-    B, S, D = h.shape
     head = p.get("lm_head", p["embed"])
     axis = model_axis(ctx)
     if axis is None:
         fn, extra = _chunk_loss, ()
     else:
         fn, extra = _chunk_loss_vocab, (axis,)
+    if seq is not None:
+        h = seq.gather(h, (axis is None,))[0]
+    elif axis is not None:
         h = axis.copy(h)
+    n_prefix = h.shape[1] - labels.shape[1]
+    if n_prefix:
+        h = h[:, n_prefix:]
+    B, S, D = h.shape
     C = min(max(cfg.loss_chunk // max(B // 8, 1), 128), S)
     while S % C:
         C //= 2

@@ -142,18 +142,21 @@ def ssd_chunked(x, dt, A, Bm, Cm, cfg: ModelConfig, h0=None):
     return ssd_chunked_kernel(x, dt, A, Bm, Cm, cfg.ssm_chunk, h0)
 
 
-def mixer_fwd(x, p, cfg: ModelConfig, ctx=None):
+def mixer_fwd(x, p, cfg: ModelConfig, ctx=None, seq=None):
     """x: (B,S,D) -> (B,S,D), the training path: the plain, differentiable
     SSD scan. On a model axis (``ctx``) ``p`` holds this rank's SSD heads
     (``sharding.partition.model_slices``: their z, x and dt columns of
     ``in_proj`` and every B and C column, their conv channels, ``A_log``,
     ``dt_bias`` and ``D_skip`` entries and ``out_proj`` rows): x enters
     through ``copy``, the scan runs over those heads, and the output
-    projection's partials are summed over the axis."""
+    projection's partials are summed over the axis. Where ``seq`` x is
+    the rank's piece of S of a sequence-parallel carry
+    (``layers.seq_axis``): the pieces are gathered before ``in_proj`` and
+    the output reduce-scattered to the piece after ``out_proj``."""
     axis = model_axis(ctx)
     H, P = cfg.ssm_heads, cfg.ssm_headdim
+    x = L.to_split(x, ctx, seq)
     if axis is not None:
-        x = axis.copy(x)
         H //= axis.size
     DI = H * P
     zxbcdt = torch.einsum("bsd,de->bse", x, p["in_proj"])
@@ -168,7 +171,7 @@ def mixer_fwd(x, p, cfg: ModelConfig, ctx=None):
     y = y + xh * p["D_skip"][:, None]
     y = y.reshape(Bsz, S, DI).to(x.dtype) * F.silu(z)
     out = torch.einsum("bse,ed->bsd", y, p["out_proj"])
-    return out if axis is None else axis.reduce(out)
+    return L.from_split(out, ctx, seq)
 
 
 def _heads(cfg: ModelConfig, axis) -> int:
@@ -243,18 +246,21 @@ def train_loss(params, batch, cfg: ModelConfig, *, ctx=None
     and an optional ``mask``), f32. With ``ctx`` on a mesh whose ``model``
     axis has ``tp > 1`` positions, ``params`` are this rank's model slices
     and ``batch`` its data shard (raises ``ValueError`` where the SSD
-    heads do not split over ``tp``)."""
+    heads do not split over ``tp``); where ``tp`` divides the sequence the
+    carry between layers is the rank's piece of it (``layers.seq_axis``:
+    each norm on the piece, each mixer gathering S)."""
     if ctx is not None:
         check_tensor_parallel(cfg, ctx.tp_size)
     vctx = vocab_ctx(cfg, ctx)
-    h = L.embed_tokens(batch["tokens"], params, vctx)
+    seq = L.seq_axis(ctx, batch["tokens"].shape[1])
+    h = L.embed_carry(batch["tokens"], params, vctx, seq)
     for lp in L.unstack_layers(params["layers"], cfg.n_layers):
         h = h + L.layer_call(lambda x, lp: mixer_fwd(
-            L.rms_norm(x, lp["norm"]), lp["mixer"], cfg, ctx), h, lp,
-            enabled=cfg.remat)
-    h = L.rms_norm(h, params["final_norm"])
+            L.carry_norm(x, lp, "norm", ctx, seq), lp["mixer"], cfg, ctx,
+            seq), h, lp, enabled=cfg.remat)
+    h = L.carry_norm(h, params, "final_norm", ctx, seq)
     return L.lm_loss_chunked(h, params, batch["labels"], L.loss_mask(batch),
-                             cfg, ctx=vctx)
+                             cfg, ctx=vctx, seq=seq)
 
 
 def init_state(cfg: ModelConfig, batch: int, device: DeviceLike = None,

@@ -145,14 +145,16 @@ def layer_walk(params: PyTree, cfg: ModelConfig):
         yield 2 * i + 1, pair["moe"]
 
 
-def _ffn(x, lp, cfg: ModelConfig, ctx=None):
-    """The layer's MLP or MoE block on its normed input, and the MoE
-    block's ``(lb_loss, z_loss)`` (zeros for an MLP)."""
-    hn = L.rms_norm(x, lp["mlp_norm"])
+def _ffn(x, lp, cfg: ModelConfig, ctx=None, seq=None):
+    """The layer's MLP or MoE block on its normed input (``seq``, the
+    stack's ``layers.seq_axis``: x is the rank's piece of a
+    sequence-parallel carry), and the MoE block's ``(lb_loss, z_loss)``
+    (zeros for an MLP)."""
+    hn = L.carry_norm(x, lp, "mlp_norm", ctx, seq)
     if "moe" in lp:
-        return L.moe_block(hn, lp["moe"], cfg, ctx=ctx)
+        return L.moe_block(hn, lp["moe"], cfg, ctx=ctx, seq=seq)
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
-    return L.mlp_block(hn, lp["mlp"], ctx), (zero, zero)
+    return L.mlp_block(hn, lp["mlp"], ctx, seq), (zero, zero)
 
 
 # ---------------------------------------------------------------------------
@@ -160,41 +162,59 @@ def _ffn(x, lp, cfg: ModelConfig, ctx=None):
 # ---------------------------------------------------------------------------
 
 def _layer_fwd(x, lp, cfg: ModelConfig, positions, window: int,
-               q_chunk: int, kv_chunk: int, ctx=None):
-    """One layer -> (x', lb_loss, z_loss)."""
-    h = L.attention_block(L.rms_norm(x, lp["attn_norm"]), lp["attn"], cfg,
-                          positions=positions, causal=True, window=window,
-                          q_chunk=q_chunk, kv_chunk=kv_chunk, ctx=ctx)
+               q_chunk: int, kv_chunk: int, ctx=None, seq=None):
+    """One layer -> (x', lb_loss, z_loss); ``seq``: x is the rank's piece
+    of a sequence-parallel carry (``positions`` the whole S's)."""
+    h = L.attention_block(L.carry_norm(x, lp, "attn_norm", ctx, seq),
+                          lp["attn"], cfg, positions=positions, causal=True,
+                          window=window, q_chunk=q_chunk, kv_chunk=kv_chunk,
+                          ctx=ctx, seq=seq)
     x = x + h
-    h2, (lb, zl) = _ffn(x, lp, cfg, ctx)
+    h2, (lb, zl) = _ffn(x, lp, cfg, ctx, seq)
     return x + h2, lb, zl
 
 
 def _stack_fwd(h, params, cfg: ModelConfig, positions, *, window: int,
-               q_chunk: int = 1024, kv_chunk: int = 1024, ctx=None):
+               q_chunk: int = 1024, kv_chunk: int = 1024, ctx=None,
+               seq=None):
     """Every layer in the order :func:`layer_walk` gives (an interleaved
     model's dense then MoE layer of each pair), each recomputed in
     backward when ``cfg.remat``, its aux losses with it; then the final
-    norm. Returns (h, Σ lb_loss, Σ z_loss)."""
+    norm. ``seq`` (``layers.seq_axis``): the carry ``h`` is the rank's
+    piece of S (its saved remat input too). Returns (h, Σ lb_loss, Σ z_loss)."""
     lb = zl = torch.zeros((), dtype=torch.float32, device=h.device)
     for _, lp in layer_walk(params, cfg):
         h, l1, l2 = L.layer_call(lambda x, lp: _layer_fwd(
-            x, lp, cfg, positions, window, q_chunk, kv_chunk, ctx),
+            x, lp, cfg, positions, window, q_chunk, kv_chunk, ctx, seq),
             h, lp, enabled=cfg.remat)
         lb, zl = lb + l1, zl + l2
-    return L.rms_norm(h, params["final_norm"]), lb, zl
+    return L.carry_norm(h, params, "final_norm", ctx, seq), lb, zl
 
 
-def _embed_batch(params, batch, cfg: ModelConfig, ctx=None):
+def _embed_batch(params, batch, cfg: ModelConfig, ctx=None, seq=None):
     """Token embeddings, after a VLM's projected patch prefix when the
-    batch has ``patches`` -> (B, S_total, D)."""
+    batch has ``patches`` -> (B, S_total, D); ``ctx`` the vocab's. Where
+    ``seq`` (the train stack's :func:`layers.seq_axis`), the rank's piece
+    of S_total: the tokens' reduce-scattered from the vocab blocks
+    (:func:`layers.embed_carry`), or with a prefix the whole sequence
+    split, the prefix computed whole (its gradient whole on every
+    rank)."""
+    if not (cfg.family == "vlm" and "patches" in batch):
+        return L.embed_carry(batch["tokens"], params, ctx, seq)
     tok = L.embed_tokens(batch["tokens"], params, ctx)
+    prefix = torch.einsum("bpv,vd->bpd", batch["patches"].to(_dtype(cfg)),
+                          params["projector"]["proj"])
+    tok = torch.cat([prefix, tok], dim=1)
+    return tok if seq is None else seq.split(tok)
+
+
+def _train_seq(batch, cfg: ModelConfig) -> int:
+    """The positions of a train batch's sequence: its tokens and a VLM's
+    patch prefix."""
+    S = batch["tokens"].shape[1]
     if cfg.family == "vlm" and "patches" in batch:
-        prefix = torch.einsum("bpv,vd->bpd",
-                              batch["patches"].to(_dtype(cfg)),
-                              params["projector"]["proj"])
-        tok = torch.cat([prefix, tok], dim=1)
-    return tok
+        S += batch["patches"].shape[1]
+    return S
 
 
 def train_loss(params, batch, cfg: ModelConfig, *,
@@ -212,26 +232,33 @@ def train_loss(params, batch, cfg: ModelConfig, *,
     ``params`` are this rank's model slices and ``batch`` its data shard:
     the loss is the data shard's, the same on every rank of its model
     line (raises ``ValueError`` where the config does not split over
-    ``tp``)."""
+    ``tp``). Where ``tp`` divides the sequence (a VLM's prefix included)
+    the carry between layers is the rank's piece of it
+    (:func:`layers.seq_axis`, Megatron SP), gathered for the loss."""
     if ctx is not None:
         check_tensor_parallel(cfg, ctx.tp_size)
     vctx = vocab_ctx(cfg, ctx)
-    h = _embed_batch(params, batch, cfg, vctx)
-    S = h.shape[1]
+    S = _train_seq(batch, cfg)
+    seq = L.seq_axis(ctx, S)
+    h = _embed_batch(params, batch, cfg, vctx, seq)
     positions = torch.arange(S, dtype=torch.int32, device=h.device)
     window = 0 if window_override is None else window_override
     h, lb, zl = _stack_fwd(h, params, cfg, positions, window=window,
                            q_chunk=cfg.attn_chunk, kv_chunk=cfg.attn_chunk,
-                           ctx=ctx)
-    labels = batch["labels"]
-    n_prefix = h.shape[1] - labels.shape[1]
-    if n_prefix:        # a VLM: no loss on the image prefix
-        h = h[:, n_prefix:]
-    mask = L.loss_mask(batch)
-    if vctx is None:    # the one-device call, as before the mesh's
-        loss = L.lm_loss_chunked(h, params, labels, mask, cfg)
+                           ctx=ctx, seq=seq)
+    labels, mask = batch["labels"], L.loss_mask(batch)
+    if seq is not None:
+        # the loss gathers the pieces, then drops a VLM's image prefix
+        loss = L.lm_loss_chunked(h, params, labels, mask, cfg, ctx=vctx,
+                                 seq=seq)
     else:
-        loss = L.lm_loss_chunked(h, params, labels, mask, cfg, ctx=vctx)
+        n_prefix = h.shape[1] - labels.shape[1]
+        if n_prefix:        # a VLM: no loss on the image prefix
+            h = h[:, n_prefix:]
+        if vctx is None:    # the one-device call, as before the mesh's
+            loss = L.lm_loss_chunked(h, params, labels, mask, cfg)
+        else:
+            loss = L.lm_loss_chunked(h, params, labels, mask, cfg, ctx=vctx)
     if cfg.n_experts:
         loss = loss + 0.01 * lb / cfg.n_layers + 0.001 * zl / cfg.n_layers
     return loss

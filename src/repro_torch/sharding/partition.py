@@ -331,6 +331,23 @@ _HELD_2D = ("w_gate_experts", "w_up_experts", "w_down_experts")
 # whole on every rank (the reference's MoE takes its router replicated,
 # ``P()``, and the VLM's projector is a replicated prefix)
 _COMPUTE_REPLICATED = ("router", "proj")
+# the norms of the train stacks' carry, the one list of the leaves whose
+# gradient each rank of a model line holds a part of: whole on every rank,
+# applied where the carry is S-sharded (``models.layers.seq_axis``) to the
+# rank's piece of S alone. ``models.layers.carry_norm``, which every train
+# stack applies them through, raises on a key not listed here; the slice
+# plan, ``training.step`` and the card script's TP holds read this list.
+CARRY_NORMS = ("attn_norm", "mlp_norm", "norm", "final_norm", "self_norm",
+               "cross_norm", "enc_norm")
+
+
+def acts_on_pieces(name: str) -> bool:
+    """Whether the leaf ``name`` (a norm of a train stack's carry,
+    :data:`CARRY_NORMS`) is applied by each rank of a model line to its
+    piece of the sequence: its gradient is then the sum of the line's,
+    and where a rank applies it to the whole replicated stream its
+    gradient is kept at model position 0 alone (``ModelAxis.once``)."""
+    return _key(name) in CARRY_NORMS
 
 
 def _model_dim(name: str, shape: tuple[int, ...],
@@ -815,7 +832,8 @@ def _layer_groups(part, layers: tuple) -> tuple[list, list, PyTree]:
 class _GroupCut:
     """One group's cut for every model position ``m``: its entries'
     boxes (arena words and group-local slice-domain values), whether each
-    box lies in a leaf computed whole, the slices' shapes and offsets, the
+    box lies in a leaf that counts at model position 0 alone (computed
+    whole, not a norm of the carry), the slices' shapes and offsets, the
     group's slice values, and each box's first and past-last arena word."""
     boxes: list
     whole: list
@@ -859,8 +877,12 @@ class SlicePlan:
     words it contributes (:meth:`reduce_boxes`): every data position, and
     of a model line the positions whose slice covers the word, where a
     leaf computed whole (:data:`WHOLE` while ``tp > 1``) counts at model
-    position 0 alone. Built on the host once per (layout, mesh, ctx); each
-    group's cut and each clipped list is made on first use and kept."""
+    position 0 alone, except the stacks' norms (:func:`acts_on_pieces`),
+    which count at every position: each rank applies them to its piece of
+    an S-sharded carry (and keeps position 0's gradient alone where the
+    carry is replicated). Built on the host once per (layout, mesh, ctx);
+    each group's cut and each clipped list is made on first use and
+    kept."""
 
     def __init__(self, layout, mesh, ctx: Optional[DistContext] = None,
                  layers: tuple = ()):
@@ -889,6 +911,8 @@ class SlicePlan:
                              [x for _, x in flatten_with_path(
                                  model_slices(shapes, ctx, pos=m))[0]])
                        for m in range(tp)]
+        self.on_pieces = tuple(acts_on_pieces(keystr(path)) for path, _ in
+                               flatten_with_path(shapes)[0])
         self.entries, self.group_treedefs, self.skeleton = _layer_groups(
             part, tuple(layers))
         self._outer_pos = {li: k for k, (li, _) in
@@ -919,7 +943,8 @@ class SlicePlan:
                 s = self.slices[m][li]
                 bx, out_shape = _leaf_boxes(self.layout, li, s, v, row)
                 boxes += bx
-                whole += [self.tp > 1 and not s] * len(bx)
+                whole += [self.tp > 1 and not s
+                          and not self.on_pieces[li]] * len(bx)
                 shp.append(out_shape)
                 offs.append(v)
                 v += int(np.prod(out_shape))
@@ -958,8 +983,8 @@ class SlicePlan:
     def reduce_boxes(self, q: int, m: int, group: int) -> list:
         """The words of owner ``q``'s span to which model position ``m``
         contributes its gradient (of ``group``): :meth:`gather_boxes`
-        less the leaves computed whole, at a model position other than
-        0."""
+        less the leaves computed whole (but the norms of the carry), at a
+        model position other than 0."""
         key = (q, m, group)
         got = self._reduce.get(key)
         if got is None:

@@ -78,9 +78,14 @@ of a model line, from the positions whose slice covers it: a cut leaf
 counts on every rank whose slice covers the word, also where the slices
 overlap (a kv head shared by several positions, a Mamba2 ``in_proj``'s B
 and C columns, each rank's part the gradient of its own heads); a leaf
-every rank computes whole (norms, the router, an embedding whose vocab
-does not split) counts at the line's first rank (model position 0)
-alone. One divisor, the data positions, makes the mean. The loss, the
+every rank computes whole (the router, an embedding whose vocab does not
+split, a VLM's projector) counts at the line's first rank (model
+position 0) alone. The stacks' norms count on every rank of the line:
+where a stack keeps its carry S-sharded over the line (Megatron SP,
+``models.layers.seq_axis``) each rank applies them to its piece of S,
+and where it keeps it replicated the forward keeps their gradient at
+position 0 alone (``ModelAxis.once``). One divisor, the data positions,
+makes the mean. The loss, the
 same on every rank of a line, is counted at model position 0 alone. A
 ``(n, 1)`` mesh (the survivor mesh) has ``tp = 1``: every slice is the
 whole leaf, so each layer is gathered whole over the data line as it
@@ -109,10 +114,12 @@ from repro_torch.models.api import ModelOps
 from repro_torch.models.layers import GatheredLayer, torch_dtype
 from repro_torch.optim.optimizers import (APPLY_SLICE, Optimizer, OptState,
                                           arena_apply)
-from repro_torch.sharding.partition import (OUTER, SlicePlan, model_slices,
+from repro_torch.sharding.partition import (OUTER, SlicePlan,
+                                            acts_on_pieces, model_slices,
                                             take_model_slices)
 from repro_torch.training.train_state import ArenaTrainState, TrainState
-from repro_torch.utils.tree import tree_flatten, tree_map, tree_unflatten
+from repro_torch.utils.tree import (flatten_with_path, keystr, tree_flatten,
+                                    tree_map, tree_unflatten)
 
 PyTree = Any
 
@@ -125,7 +132,8 @@ def _grad_leaves(ops: ModelOps, cfg: ModelConfig, params: PyTree,
     are (aliases that require grad; nothing is copied). With a
     model-parallel ``ctx`` the loss runs on this rank's model slices,
     taken as views of the whole leaves ``params``, and a leaf computed
-    whole keeps its gradient at model position 0 only."""
+    whole keeps its gradient at model position 0 only, but the stacks'
+    norms (``partition.acts_on_pieces``), each rank's part of their sum."""
     leaves, treedef = tree_flatten(params)
     leaves = [x.detach().requires_grad_(True) for x in leaves]
     tree = tree_unflatten(treedef, leaves)
@@ -141,8 +149,8 @@ def _grad_leaves(ops: ModelOps, cfg: ModelConfig, params: PyTree,
     grads = [torch.zeros_like(x) if g is None else g
              for x, g in zip(leaves, grads)]
     if ctx is not None and ctx.mesh.axis_position(ctx.tp) != 0:
-        for g, s in zip(grads, tree_flatten(slices)[0]):
-            if not s:
+        for g, (path, s) in zip(grads, flatten_with_path(slices)[0]):
+            if not s and not acts_on_pieces(keystr(path)):
                 g.zero_()
     return loss.detach(), grads, treedef
 

@@ -246,8 +246,9 @@ def test_trainer_defaults_to_cuda_and_names_its_roadmap_items(tmp_path):
     (the expert-parallel MoE, item 38, is ported) and no port file names
     items 15, 38, 39 (the other families' tensor parallelism), 40 (the
     server on a mesh), 41 (query heads that do not split over the model
-    axis), 42 (the mesh step's whole-arena gather) or 46 (the per-layer
-    gather over the data line) any more."""
+    axis), 42 (the mesh step's whole-arena gather), 46 (the per-layer
+    gather over the data line) or 47 (the residual stream between layers
+    split over the model axis) any more."""
     from repro_torch.data import ShardedLMDataset
     cfg = get_config("qwen2-1.5b", reduced=True)
     if torch.cuda.is_available():
@@ -295,6 +296,7 @@ def test_trainer_defaults_to_cuda_and_names_its_roadmap_items(tmp_path):
         assert "item 41" not in text, path
         assert "item 42" not in text, path
         assert "item 46" not in text, path
+        assert "item 47" not in text, path
 
 
 def _env_writes(tree: ast.Module) -> list:
@@ -360,3 +362,41 @@ def test_launch_modules_are_scanned():
     names = {str(p.relative_to(ROOT)) for p in FILES}
     for mod in ("dryrun", "roofline", "perf"):
         assert f"src/repro_torch/launch/{mod}.py" in names
+
+
+def _imports(path: Path) -> set:
+    """The top-level names of the modules a file imports (absolute
+    imports), and of each ``from`` import its full module."""
+    got = set()
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            got |= {a.name for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 \
+                and node.module:
+            got.add(node.module)
+    return got
+
+
+def test_sequence_parallel_modules_are_scanned():
+    """Every port module that ``tests/test_torch_mesh_seq_split.py``
+    imports, and every module the sequence-parallel carry runs through, is
+    among the files the import guard reads and imports neither JAX nor the
+    reference (``chip_smoke.py`` neither); the carry's modules compute
+    with torch."""
+    names = {str(p.relative_to(ROOT)) for p in FILES}
+    test = _imports(ROOT / "tests" / "test_torch_mesh_seq_split.py")
+    assert {"jax", "torch", "numpy"} <= {m.split(".")[0] for m in test}
+    carry = {f"repro_torch.{m}" for m in (
+        "models.layers", "models.transformer", "models.ssm",
+        "models.hybrid", "models.encdec", "distributed.collectives",
+        "sharding.partition", "training.step", "launch.dryrun")}
+    for mod in sorted(carry | {m for m in test
+                               if m.startswith("repro_torch.")}):
+        rel = "src/" + mod.replace(".", "/")
+        path = f"{rel}.py" if f"{rel}.py" in names else f"{rel}/__init__.py"
+        assert path in names, mod
+        got = {m.split(".")[0] for m in _imports(ROOT / path)}
+        assert mod not in carry or "torch" in got, path
+        assert not {m for m in got if _forbidden(m)}, path
+    assert not {m for m in _imports(ROOT / "chip_smoke.py")
+                if _forbidden(m)}

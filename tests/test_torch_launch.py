@@ -384,23 +384,32 @@ def test_counting_stand_in_slice_exchange_equals_a_real_gloo_job(
 
 def test_train_probe_gathers_the_slices_alone():
     """granite-8b's depth-1 train probe on rank 0 of the dry (16, 16)
-    mesh: the gathers' results are 4 B a value of the rank's model
+    mesh: the slice gathers' results are 4 B a value of the rank's model
     slices, the layer's twice (the forward and its recompute), a
-    fifteenth of the arena's words or less; the reduces land the rank's
-    span, 4 B a word that a leaf holds."""
+    fifteenth of the arena's words or less; the slice reduces land the
+    rank's span, 4 B a word that a leaf holds. Beside them, the carry's
+    sequence-parallel calls (its 16 x 4,096 tokens S-sharded over the 16
+    model positions): 8 all-gathers of the whole S (the layer's attention
+    and MLP in the forward, the recompute and the backward; the loss's)
+    and 7 reduce-scatters to the rank's 256 rows (the layer's attention
+    and MLP in the forward and the backward, its attention in the
+    recompute; the embedding's and the loss's), f32."""
     mesh = make_dry_production_mesh()
     rec = dryrun.probe("granite-8b", "train_4k", mesh, n_layers=1)
     cfg = dataclasses.replace(get_config("granite-8b"), n_layers=1)
     step = dryrun.build_rank_step(cfg, "train", 2, 8, mesh, "meta")
     plan = step.info["slice_plan"]
     gather = rec["collectives"]["all-gather"]
+    whole_s = 4 * 16 * 4096 * cfg.d_model
     values = plan.group_values(0) + plan.group_values(1)
-    assert plan.n_groups == 2 and gather["count"] == 3
+    assert plan.n_groups == 2 and gather["count"] == 3 + 8
     assert 4 * values == 157_335_552
     assert gather["bytes"] == 4 * (plan.group_values(0)
-                                   + 2 * plan.group_values(1))
+                                   + 2 * plan.group_values(1)) \
+        + 8 * whole_s
     assert 15 * values < step.info["arena_words"]
-    assert rec["collectives"]["reduce-scatter"]["count"] == 2
-    assert rec["collectives"]["reduce-scatter"]["bytes"] == 4 * sum(
-        plan.owned_words(0, g) for g in (0, 1)) <= 4 * plan.shard_words
+    assert rec["collectives"]["reduce-scatter"]["count"] == 2 + 7
+    assert rec["collectives"]["reduce-scatter"]["bytes"] - 7 * whole_s // 16 \
+        == 4 * sum(plan.owned_words(0, g) for g in (0, 1)) \
+        <= 4 * plan.shard_words
 

@@ -15,7 +15,8 @@ ones:
   each slice (cut range by range with ``narrow``) packs to; each word's
   contributors to the reduce are every data position and the model
   positions whose slice covers it, a leaf computed whole counting at model
-  position 0 alone;
+  position 0 alone, but the norms of the stacks' carry at every position
+  (each rank applies them to its piece of a sequence-parallel carry);
 - at the dry ``(16, 16)`` mesh, granite-8b's and yi-9b's slice values at
   model position 0 equal the sum of their slices' sizes;
 - the step on a dry ``(2, 2)`` and ``(1, 4)`` mesh allocates no buffer of
@@ -57,9 +58,11 @@ from repro_torch.interop import from_numpy_tree
 from repro_torch.launch.mesh import make_dry_mesh, make_dry_production_mesh
 from repro_torch.models import get_model
 from repro_torch.models.layers import split_layers
-from repro_torch.sharding.partition import (OUTER, SlicePlan, make_dist_ctx,
+from repro_torch.sharding.partition import (OUTER, SlicePlan,
+                                            acts_on_pieces, make_dist_ctx,
                                             model_slices, take_model_slices)
-from repro_torch.utils.tree import tree_flatten, tree_leaves, tree_unflatten
+from repro_torch.utils.tree import (flatten_with_path, keystr, tree_flatten,
+                                    tree_leaves, tree_unflatten)
 
 SRC = Path(__file__).resolve().parents[1] / "src"
 # a job's wall: a loaded host stretches a job 2-3x (the ranks' gloo
@@ -104,13 +107,17 @@ def _f32(tree):
 
 def _slice_masks(layout, ctx, m: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Two word masks of the arena: the words model position ``m``'s
-    slices cover, and those of them in a cut leaf (not computed whole)."""
+    slices cover, and those of them that a position other than 0
+    contributes to: a cut leaf's (not computed whole), and a norm's of a
+    stack's carry (each rank's part of its sum)."""
     part = layout.partition
     shapes = tree_unflatten(part.treedef, [torch.empty(l.shape)
                                            for l in part.leaves])
     cuts = tree_leaves(model_slices(shapes, ctx, pos=m))
+    norms = [acts_on_pieces(keystr(path))
+             for path, _ in flatten_with_path(shapes)[0]]
     cover, cut = [], []
-    for leaf, s in zip(part.leaves, cuts):
+    for leaf, s, norm in zip(part.leaves, cuts, norms):
         mask = torch.zeros(leaf.shape)
         if s:
             for lo, hi in s.ranges:
@@ -118,7 +125,7 @@ def _slice_masks(layout, ctx, m: int) -> tuple[torch.Tensor, torch.Tensor]:
         else:
             mask.fill_(1.0)
         cover.append(mask)
-        cut.append(mask if s else torch.zeros(leaf.shape))
+        cut.append(mask if s or norm else torch.zeros(leaf.shape))
     return tuple(pack_arena(tree_unflatten(part.treedef, x), layout)
                  .view(torch.float32) for x in (cover, cut))
 
@@ -165,7 +172,8 @@ def test_plan_gathers_reduces_and_covers_the_slices(name, shape, per_layer):
             assert g.shape == w.shape and torch.equal(g, w), i
         assert plan.group_values(OUTER, m) == sum(w.numel() for w in want)
     # each owner's reduce: every data position, and the model positions
-    # whose slice covers the word (a whole leaf at model position 0 alone)
+    # whose slice covers the word (a whole leaf at model position 0 alone,
+    # but a norm of the carry at every position)
     for q in range(n):
         plan = plans[q]
         for p in range(n):
